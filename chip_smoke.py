@@ -1,0 +1,699 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (simplellminference_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py            # from the root of a checkout
+
+Phases, in order; any failure exits non-zero:
+
+  1. device   — the card's name, device count, nvidia-smi name and power
+                limit. No CUDA device: exit 1 before any result.
+  2. build    — compile csrc/*.cu (nvcc, sm_90a) and print the build time
+                and the ptxas register / shared-memory lines.
+  3. kernels  — each CUDA kernel against its plain PyTorch version on the
+                card, at the main path's shapes (Llama-2-7B: N=kvN=32,
+                D=128, page 128, batch 8, 128-token prompts, kv_len
+                128-160, bf16), a GQA shape (TinyLlama: N=32, kvN=4,
+                D=64) and a ragged prompt (S=100); max |error| beside its
+                tolerance, kernel / plain / library times from CUDA
+                events, and the bound (the least time for the bytes and
+                operations of the call on an H100 SXM: 3.35 TB/s,
+                989 TFLOP/s bf16, 67 TFLOP/s f32).
+  4. engine   — the Engine serving Llama-2-7B at full width and depth
+                (32 layers, bf16 random weights from a seeded generator on
+                the card): 8 requests of 128-token prompts, 32 new tokens,
+                burst 16, page 128. All must finish; each kernel's launch
+                count must match layers x (prefill dispatches or decode
+                steps); no plain version may run on the card. Decode
+                tokens/s from the median walls of interleaved 32- and
+                16-token runs, after a 32-token warm-up.
+  5. cpu      — the same port at Llama-2-7B width, 2 layers, f32, TF32 off,
+                on the card (kernels) and on the host CPU (plain
+                versions), from one numpy draw of the weights, 4 requests:
+                prefill and per-step logits of forward_paged within 1e-3,
+                and the Engine's greedy tokens equal on both devices except
+                where the top-2 margin is below that tolerance.
+
+Then one line ``{"kernels": [...]}`` and, last, the result line
+``{"ok": true, "device": {...}}``; both only when every phase ran
+(``--phases`` picks a subset for a quick check after an edit).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
+PEAK_OPS = {"bfloat16": 989e12,     # dense tensor-core bf16
+            "float32": 67e12}       # f32 outside the tensor cores
+TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+LOGIT_TOL = 1e-3
+RATE_RUNS = 5                       # engine runs per length for the rate
+PHASES = ("device", "build", "kernels", "engine", "cpu")
+
+KERNELS = {
+    "paged_append_decode": dict(
+        source="simplellminference_tpu_torch/csrc/paged_append.cu",
+        replaces="simplellminference_tpu/ops/paged_append.py:54"),
+    "paged_append_prefill": dict(
+        source="simplellminference_tpu_torch/csrc/paged_append.cu",
+        replaces="simplellminference_tpu/ops/paged_append.py:129"),
+    "flash_prefill": dict(
+        source="simplellminference_tpu_torch/csrc/flash_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_prefill.py:102"),
+    "paged_flash_decode": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+# ---------------------------------------------------------------- helpers
+
+def time_ms(torch, fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: the calls are captured into a
+    CUDA graph and replayed, so host launch cost does not count."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def dname(torch, dt) -> str:
+    return str(dt).replace("torch.", "")
+
+
+# ---------------------------------------------------------------- phases
+
+def phase_device(torch):
+    require(torch.cuda.is_available(), "CUDA is not available")
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout else ""
+    print(f"[device] {name} x{count}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+    print(smi_line, flush=True)
+    return name, count, smi_line
+
+
+def phase_build():
+    from simplellminference_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    cuda_build.load()
+    info = cuda_build.build_info
+    print(f"[build] {len(cuda_build.sources())} sources -> "
+          f"{info['dir']} in {time.perf_counter() - t0:.1f} s "
+          f"(cached={info['cached']})", flush=True)
+    for line in info.get("ptxas", "").splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            print("  " + line.strip(), flush=True)
+
+
+def _pools(torch, gen, dev, layers, pages, kvn, ps, d, dtype):
+    shape = (layers, pages + 1, kvn, ps, d)
+    return (torch.randn(shape, generator=gen, device=dev, dtype=dtype),
+            torch.randn(shape, generator=gen, device=dev, dtype=dtype))
+
+
+def _tables(torch, dev, b, mp, dead_last=True):
+    t = torch.arange(b * mp, dtype=torch.int32, device=dev).reshape(b, mp)
+    t = t.flip(1).contiguous()      # non-trivial page order
+    if dead_last:
+        t[-1] = -1                  # an inactive slot: every entry unmapped
+    return t
+
+
+def check_append_decode(torch, dev, results):
+    from simplellminference_tpu_torch.ops.paged_append import (
+        paged_append_decode, paged_append_decode_ref)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    main = None
+    for tag, (b, kvn, d, dtype) in {
+            "llama2-7b": (8, 32, 128, torch.bfloat16),
+            "gqa": (8, 4, 64, torch.float32)}.items():
+        ps, mp, layer = 128, 3, 1
+        pk, pv = _pools(torch, gen, dev, 2, b * mp, kvn, ps, d, dtype)
+        nk = torch.randn((b, kvn, d), generator=gen, device=dev, dtype=dtype)
+        qkv = torch.randn((b, 3 * kvn * d), generator=gen, device=dev,
+                          dtype=dtype)
+        nv = qkv[:, 2 * kvn * d:].reshape(b, kvn, d)   # strided, like the model
+        tables = _tables(torch, dev, b, mp)
+        pos = (128 + 4 * torch.arange(b, device=dev)).to(torch.int32)
+        ka, va, kb, vb = pk.clone(), pv.clone(), pk.clone(), pv.clone()
+        paged_append_decode(ka, va, nk, nv, tables, pos, layer)
+        paged_append_decode_ref(kb, vb, nk, nv, tables, pos, layer)
+        torch.cuda.synchronize()
+        err = max(max_err(ka[:, :-1], kb[:, :-1]),
+                  max_err(va[:, :-1], vb[:, :-1]))
+        print(f"[kernels] paged_append_decode {tag}: max|err| {err} "
+              f"(tol 0, exact; trash page excluded)", flush=True)
+        require(err == 0.0, f"paged_append_decode {tag} disagrees: {err}")
+        if main is None:
+            p1 = pk.shape[1]
+            page = torch.where(tables.long().gather(
+                1, (pos.long() // ps)[:, None])[:, 0] >= 0,
+                tables.long().gather(1, (pos.long() // ps)[:, None])[:, 0],
+                p1 - 1)
+            slot = (pos.long() % ps)
+            heads = torch.arange(kvn, device=dev)
+
+            def library():
+                ka[layer].index_put_((page[:, None], heads[None],
+                                      slot[:, None]), nk)
+                va[layer].index_put_((page[:, None], heads[None],
+                                      slot[:, None]), nv)
+
+            es = pk.element_size()
+            nbytes = (2 * b * kvn * d * es * 2 + tables.numel() * 4
+                      + pos.numel() * 4)
+            bms, by = bound_ms(nbytes, 0.0, dname(torch, dtype))
+            main = dict(
+                max_abs_err=err,
+                ms=time_ms(torch, lambda: paged_append_decode(
+                    ka, va, nk, nv, tables, pos, layer)),
+                plain_ms=time_ms(torch, lambda: paged_append_decode_ref(
+                    kb, vb, nk, nv, tables, pos, layer)),
+                library_ms=time_ms(torch, library),
+                bound_ms=bms, bound_by=by)
+    results["paged_append_decode"] = main
+
+
+def check_append_prefill(torch, dev, results):
+    from simplellminference_tpu_torch.ops.paged_append import (
+        paged_append_prefill, paged_append_prefill_ref)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    main = None
+    for tag, (b, s, kvn, d, dtype) in {
+            "llama2-7b": (8, 128, 32, 128, torch.bfloat16),
+            "ragged": (8, 100, 32, 128, torch.bfloat16),
+            "gqa": (4, 300, 4, 64, torch.float32)}.items():
+        ps, mp, layer = 128, 3, 0
+        pk, pv = _pools(torch, gen, dev, 2, b * mp, kvn, ps, d, dtype)
+        qkv = torch.randn((b, s, 3 * kvn * d), generator=gen, device=dev,
+                          dtype=dtype)
+        nk = qkv[..., kvn * d:2 * kvn * d].reshape(b, s, kvn, d).contiguous()
+        nv = qkv[..., 2 * kvn * d:].reshape(b, s, kvn, d)   # strided view
+        tables = _tables(torch, dev, b, mp)
+        ka, va, kb, vb = pk.clone(), pv.clone(), pk.clone(), pv.clone()
+        paged_append_prefill(ka, va, nk, nv, tables, layer)
+        paged_append_prefill_ref(kb, vb, nk, nv, tables, layer)
+        torch.cuda.synchronize()
+        err = max(max_err(ka[:, :-1], kb[:, :-1]),
+                  max_err(va[:, :-1], vb[:, :-1]))
+        print(f"[kernels] paged_append_prefill {tag}: max|err| {err} "
+              f"(tol 0, exact; trash page excluded)", flush=True)
+        require(err == 0.0, f"paged_append_prefill {tag} disagrees: {err}")
+        if main is None:
+            npg = -(-s // ps)
+            p1 = pk.shape[1]
+            idx = tables[:, :npg].long()
+            idx = torch.where(idx >= 0, idx, p1 - 1).reshape(-1)
+            ck = nk.reshape(b, npg, ps, kvn, d).permute(
+                0, 1, 3, 2, 4).reshape(b * npg, kvn, ps, d).contiguous()
+            cv = nv.reshape(b, npg, ps, kvn, d).permute(
+                0, 1, 3, 2, 4).reshape(b * npg, kvn, ps, d).contiguous()
+
+            def library():
+                ka[layer].index_copy_(0, idx, ck)
+                va[layer].index_copy_(0, idx, cv)
+
+            es = pk.element_size()
+            nbytes = (2 * b * s * kvn * d * es
+                      + 2 * b * npg * ps * kvn * d * es + b * mp * 4)
+            bms, by = bound_ms(nbytes, 0.0, dname(torch, dtype))
+            main = dict(
+                max_abs_err=err,
+                ms=time_ms(torch, lambda: paged_append_prefill(
+                    ka, va, nk, nv, tables, layer)),
+                plain_ms=time_ms(torch, lambda: paged_append_prefill_ref(
+                    kb, vb, nk, nv, tables, layer)),
+                library_ms=time_ms(torch, library),
+                bound_ms=bms, bound_by=by)
+    results["paged_append_prefill"] = main
+
+
+def check_flash_prefill(torch, dev, results):
+    import torch.nn.functional as F
+
+    from simplellminference_tpu_torch.ops.attention.flash_prefill import (
+        flash_prefill, flash_prefill_ref)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    main = None
+    for tag, (b, s, n, kvn, d, dtype) in {
+            "llama2-7b": (8, 128, 32, 32, 128, torch.bfloat16),
+            "ragged": (8, 100, 32, 32, 128, torch.bfloat16),
+            "gqa-f32": (2, 100, 32, 4, 64, torch.float32),
+            "gqa-bf16": (2, 256, 32, 4, 64, torch.bfloat16)}.items():
+        q = torch.randn((b, s, n, d), generator=gen, device=dev, dtype=dtype)
+        k = torch.randn((b, s, kvn, d), generator=gen, device=dev,
+                        dtype=dtype)
+        vbig = torch.randn((b, s, 3 * kvn * d), generator=gen, device=dev,
+                           dtype=dtype)
+        v = vbig[..., 2 * kvn * d:].reshape(b, s, kvn, d)   # strided view
+        got = flash_prefill(q, k, v)
+        want = flash_prefill_ref(q, k, v)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        tol = TOL[dname(torch, dtype)]
+        print(f"[kernels] flash_prefill {tag}: max|err| {err:.3e} "
+              f"(tol {tol:g})", flush=True)
+        require(bool(torch.isfinite(got).all()) and err <= tol,
+                f"flash_prefill {tag} disagrees: {err}")
+        if main is None:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            es = q.element_size()
+            nbytes = (2 * b * s * n * d + 2 * b * s * kvn * d) * es
+            ops = 4.0 * b * n * d * s * (s + 1) / 2
+            bms, by = bound_ms(nbytes, ops, dname(torch, dtype))
+            main = dict(
+                max_abs_err=err,
+                ms=time_ms(torch, lambda: flash_prefill(q, k, v)),
+                plain_ms=time_ms(torch, lambda: flash_prefill_ref(q, k, v)),
+                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True)),
+                bound_ms=bms, bound_by=by)
+    results["flash_prefill"] = main
+
+
+def check_paged_decode(torch, dev, results):
+    import torch.nn.functional as F
+
+    from simplellminference_tpu_torch.memory.paged_kv import gather_dense
+    from simplellminference_tpu_torch.ops.attention.paged_decode import (
+        paged_flash_decode, paged_flash_decode_ref)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    main = None
+    # the main case has 8 live rows, as the engine's decode does; the GQA
+    # cases end with a dead slot (all -1 table, kv_len 129)
+    cases = {
+        "llama2-7b": (8, 32, 32, 128, torch.bfloat16,
+                      [128 + 4 * i for i in range(8)], False),
+        "gqa-f32": (6, 32, 4, 64, torch.float32, [1, 5, 128, 200, 0, 129],
+                    True),
+        "gqa-bf16": (6, 32, 4, 64, torch.bfloat16, [1, 5, 128, 200, 0, 129],
+                     True),
+    }
+    for tag, (b, n, kvn, d, dtype, lens, dead) in cases.items():
+        ps, mp, layer = 128, 2, 1
+        pk, pv = _pools(torch, gen, dev, 2, b * mp, kvn, ps, d, dtype)
+        q = torch.randn((b, n, d), generator=gen, device=dev, dtype=dtype)
+        tables = _tables(torch, dev, b, mp, dead_last=dead)
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = paged_flash_decode(q, pk, pv, tables, kv_lens, layer)
+        want = paged_flash_decode_ref(q, pk, pv, tables, kv_lens, layer)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        tol = TOL[dname(torch, dtype)]
+        print(f"[kernels] paged_flash_decode {tag}: max|err| {err:.3e} "
+              f"(tol {tol:g})", flush=True)
+        require(bool(torch.isfinite(got).all()) and err <= tol,
+                f"paged_flash_decode {tag} disagrees: {err}")
+        if main is None:
+            ck, cv = gather_dense(pk[layer], pv[layer], tables)
+            smax = ck.shape[2]
+            mask = (torch.arange(smax, device=dev)[None, None, None, :]
+                    < kv_lens.long()[:, None, None, None])
+            q4 = q[:, :, None]
+            es = q.element_size()
+            # keys the kernel reads: those below kv_len in mapped pages
+            # (an unmapped page is read as zeros without touching memory)
+            key_pos = torch.arange(mp * ps, device=dev)
+            mapped = tables.long().repeat_interleave(ps, dim=1) >= 0
+            live = int((mapped & (key_pos[None] < kv_lens.long()[:, None]))
+                       .sum())
+            nbytes = (2 * b * n * d * es + 2 * live * kvn * d * es
+                      + tables.numel() * 4 + b * 4)
+            ops = 4.0 * n * d * live
+            bms, by = bound_ms(nbytes, ops, dname(torch, dtype))
+            main = dict(
+                max_abs_err=err,
+                ms=time_ms(torch, lambda: paged_flash_decode(
+                    q, pk, pv, tables, kv_lens, layer)),
+                plain_ms=time_ms(torch, lambda: paged_flash_decode_ref(
+                    q, pk, pv, tables, kv_lens, layer)),
+                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q4, ck, cv, attn_mask=mask)),
+                bound_ms=bms, bound_by=by)
+    results["paged_flash_decode"] = main
+
+
+def phase_kernels(torch, results):
+    dev = torch.device("cuda")
+    check_append_decode(torch, dev, results)
+    check_append_prefill(torch, dev, results)
+    check_flash_prefill(torch, dev, results)
+    check_paged_decode(torch, dev, results)
+    for name, r in results.items():
+        print(f"[kernels] {name}: {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} by {r['bound_by']})", flush=True)
+
+
+def _wrappers():
+    from simplellminference_tpu_torch.ops import paged_append as pa
+    from simplellminference_tpu_torch.ops.attention import (flash_prefill as
+                                                            fp, paged_decode
+                                                            as pd)
+    return {"paged_append_decode": (pa.paged_append_decode,
+                                    pa.paged_append_decode_ref),
+            "paged_append_prefill": (pa.paged_append_prefill,
+                                     pa.paged_append_prefill_ref),
+            "flash_prefill": (fp.flash_prefill, fp.flash_prefill_ref),
+            "paged_flash_decode": (pd.paged_flash_decode,
+                                   pd.paged_flash_decode_ref)}
+
+
+def reset_counts():
+    for kern, ref in _wrappers().values():
+        kern.launches = 0
+        ref.cuda_calls = 0
+
+
+def phase_engine(torch, launches: dict):
+    import numpy as np
+
+    from simplellminference_tpu_torch.core.config import (EngineConfig,
+                                                          KVCacheConfig,
+                                                          ModelConfig,
+                                                          SamplingParams)
+    from simplellminference_tpu_torch.engine import Engine
+    from simplellminference_tpu_torch.models import llama
+
+    cfg = ModelConfig.llama2_7b(dtype="bfloat16")
+    layers = cfg.num_layers
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[engine] Llama-2-7B width, {layers} layers, bf16 random "
+          f"weights in {time.perf_counter() - t0:.1f} s", flush=True)
+    batch, prompt_len, new, burst, ps = 8, 128, 32, 16, 128
+    cap = prompt_len + new + 2 * burst + ps
+    ecfg = EngineConfig(
+        max_batch_size=batch,
+        kv=KVCacheConfig(page_size=ps, num_pages=batch * (cap // ps + 1) + 8,
+                         max_pages_per_seq=cap // ps + 1, kv_dtype="bf16"),
+        prefix_cache_entries=0)
+    rng = np.random.default_rng(0)
+
+    def serve(max_new: int):
+        eng = Engine(cfg, params, ecfg, decode_burst=burst, device="cuda")
+        reqs = [eng.add_request(
+            prompt_ids=rng.integers(1, cfg.vocab_size, prompt_len).tolist(),
+            sampling=SamplingParams(max_new_tokens=max_new))
+            for _ in range(batch)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        return eng, reqs, time.perf_counter() - t
+
+    serve(new)                  # warm-up at the measured length
+    reset_counts()
+    eng, reqs, wall = serve(new)                      # the measured run
+    for name, (kern, ref) in _wrappers().items():
+        launches[name] = kern.launches
+        require(ref.cuda_calls == 0,
+                f"plain {name} ran on the card {ref.cuda_calls} times")
+    for r in reqs:
+        require(r.state.value == "finished" and len(r.output_ids) == new,
+                f"request {r.req_id}: {r.state} with {len(r.output_ids)} "
+                f"tokens")
+        require(all(0 <= t < cfg.vocab_size for t in r.output_ids),
+                "token id out of range")
+    steps = eng.metrics.decode_bursts * burst
+    want = {"flash_prefill": layers, "paged_append_prefill": layers,
+            "paged_append_decode": layers * steps,
+            "paged_flash_decode": layers * steps}
+    for name, n in want.items():
+        require(launches[name] == n and n > 0,
+                f"{name}: {launches[name]} launches, path implies {n}")
+    # decode rate by differencing full and half-length runs (bench.py's
+    # method): fresh-engine runs, interleaved, the rate from the medians
+    # and its spread from each adjacent (full, half) pair
+    walls, halves = [wall], []
+    for i in range(RATE_RUNS):
+        halves.append(serve(new // 2)[2])
+        if i + 1 < RATE_RUNS:
+            walls.append(serve(new)[2])
+    tokens = batch * (new - new // 2)
+    wall_full = statistics.median(walls)
+    wall_half = statistics.median(halves)
+    require(wall_full > wall_half, f"median walls: {new} tokens "
+            f"{wall_full} s, {new // 2} tokens {wall_half} s")
+    decode_tps = tokens / (wall_full - wall_half)
+    pair_tps = [tokens / (f - h) for f, h in zip(walls, halves)]
+    print(f"[engine] {batch} requests x {new} tokens: walls {walls} s "
+          f"({eng.metrics.decode_bursts} bursts x {burst} steps); "
+          f"{new // 2}-token walls {halves} s", flush=True)
+    print(f"[engine] decode {decode_tps} tok/s (median-wall difference); "
+          f"per pair {pair_tps}", flush=True)
+    print(f"[engine] launches {json.dumps(launches)}", flush=True)
+
+    # One decode step's device time without host gaps: forward_paged at
+    # the run's mean context, captured in a CUDA graph and replayed.
+    ctx = prompt_len + new // 2 + new // 4
+    mp = ecfg.kv.max_pages_per_seq
+    tables = torch.arange(batch * mp, dtype=torch.int32,
+                          device="cuda").reshape(batch, mp)
+    tok = torch.ones((batch, 1), dtype=torch.int32, device="cuda")
+    pos = torch.full((batch, 1), ctx - 1, dtype=torch.int32, device="cuda")
+    step_ms = time_ms(torch, lambda: llama.forward_paged(
+        cfg, params, tok, pos, eng.cache, tables, pos[:, 0] + 1,
+        prefill=False), iters=5)
+    engine_step_ms = (wall_full - wall_half) * 1e3 / (new - new // 2)
+    wbytes = sum(t.numel() * t.element_size()
+                 for t in [params["embed"], params["final_norm"],
+                           params["lm_head"], *params["layers"].values()])
+    kvbytes = 2 * layers * batch * ctx * cfg.num_kv_heads * cfg.head_dim * 2
+    floor_ms = (wbytes + kvbytes) / HBM_BYTES_PER_S * 1e3
+    print(f"[engine] decode step: engine {engine_step_ms:.3f} ms, device "
+          f"(graph replay) {step_ms:.3f} ms, bytes floor {floor_ms:.3f} ms "
+          f"({wbytes / 1e9:.2f} GB weights + {kvbytes / 1e9:.3f} GB KV); "
+          f"device idle share of the engine step "
+          f"{max(0.0, 1 - step_ms / engine_step_ms):.3f}", flush=True)
+    del params, eng
+    torch.cuda.empty_cache()
+
+
+def _trace(torch, cfg, params, prompts, steps, device):
+    """Greedy prefill + decode through forward_paged; returns (tokens
+    [R, steps+1], logits [steps+1, R, V]) on the host."""
+    from simplellminference_tpu_torch.core.config import next_power_of_2
+    from simplellminference_tpu_torch.memory.paged_kv import PagedKVCache
+    from simplellminference_tpu_torch.models import llama
+
+    r = len(prompts)
+    ps, mp = 16, 8
+    cache = PagedKVCache.create(cfg.num_layers, r * mp, cfg.num_kv_heads,
+                                ps, cfg.head_dim, torch.float32,
+                                device=device)
+    tables = torch.arange(r * mp, dtype=torch.int32,
+                          device=device).reshape(r, mp)
+    bucket = next_power_of_2(max(max(len(p) for p in prompts), 16))
+    toks = torch.zeros((r, bucket), dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p, dtype=torch.int32)
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device=device)
+    pos0 = torch.arange(bucket, dtype=torch.int32, device=device)[None]
+    logits, cache = llama.forward_paged(cfg, params, toks.to(device), pos0,
+                                        cache, tables, lens, prefill=True,
+                                        last_token_only=True)
+    outs = [logits[:, -1].cpu()]
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+    out_toks = [tok.cpu()]
+    pos = lens.clone()
+    for _ in range(steps):
+        logits, cache = llama.forward_paged(cfg, params, tok[:, None],
+                                            pos[:, None], cache, tables,
+                                            pos + 1, prefill=False)
+        outs.append(logits[:, 0].cpu())
+        tok = logits[:, 0].argmax(-1).to(torch.int32)
+        out_toks.append(tok.cpu())
+        pos = pos + 1
+    return torch.stack(out_toks, 1), torch.stack(outs, 0)
+
+
+def phase_cpu(torch):
+    import numpy as np
+
+    from simplellminference_tpu_torch.core.config import (EngineConfig,
+                                                          KVCacheConfig,
+                                                          ModelConfig,
+                                                          SamplingParams)
+    from simplellminference_tpu_torch.engine import Engine
+    from simplellminference_tpu_torch.models.convert import params_from_jax
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ModelConfig.llama2_7b(num_layers=2, dtype="float32")
+    rng = np.random.default_rng(7)
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    n, kvn, d, L = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 2
+
+    def w(shape, scale):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(
+            scale)
+
+    t0 = time.perf_counter()
+    tree = {"embed": w((v, h), 0.02),
+            "layers": {"input_norm": np.ones((L, h), np.float32),
+                       "post_norm": np.ones((L, h), np.float32),
+                       "wqkv": w((L, h, (n + 2 * kvn) * d), h ** -0.5),
+                       "wo": w((L, n * d, h), (n * d) ** -0.5),
+                       "w_gate_up": w((L, h, 2 * i), h ** -0.5),
+                       "w_down": w((L, i, h), i ** -0.5)},
+            "final_norm": np.ones((h,), np.float32),
+            "lm_head": w((h, v), 0.02)}
+    p_gpu = params_from_jax(tree, device="cuda")
+    p_cpu = params_from_jax(tree, device="cpu")
+    del tree
+    prompts = [rng.integers(1, v, ln).tolist() for ln in (40, 64, 17, 50)]
+    steps = 8
+    tok_g, lg_g = _trace(torch, cfg, p_gpu, prompts, steps, "cuda")
+    tok_c, lg_c = _trace(torch, cfg, p_cpu, prompts, steps, "cpu")
+    print(f"[cpu] Llama-2-7B width, 2 layers, f32, TF32 off: 4 requests, "
+          f"prefill + {steps} steps on card and CPU in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    worst = 0.0
+    for r in range(len(prompts)):
+        for t in range(steps + 1):
+            e = max_err(lg_g[t, r], lg_c[t, r])
+            worst = max(worst, e)
+            require(e <= LOGIT_TOL,
+                    f"request {r} step {t}: logits differ by {e:.3e}")
+            if int(tok_g[r, t]) != int(tok_c[r, t]):
+                top2 = torch.topk(lg_c[t, r], 2).values
+                margin = float(top2[0] - top2[1])
+                require(margin < LOGIT_TOL,
+                        f"request {r} step {t}: greedy tokens differ with "
+                        f"top-2 margin {margin:.3e}")
+                print(f"[cpu] request {r} diverges at step {t}: top-2 "
+                      f"margin {margin:.3e} < {LOGIT_TOL}", flush=True)
+                break
+    print(f"[cpu] logits max|card - cpu| {worst:.3e} (tol {LOGIT_TOL}); "
+          f"greedy tokens equal: {bool(torch.equal(tok_g, tok_c))}",
+          flush=True)
+
+    # the same 4 requests through the Engine on both devices: greedy
+    # outputs equal, or diverging only where the trace's top-2 margin is
+    # below the tolerance (the engine batch is the trace's: 4 rows)
+    ecfg = EngineConfig(max_batch_size=len(prompts), prefix_cache_entries=0,
+                        kv=KVCacheConfig(page_size=16, num_pages=64,
+                                         max_pages_per_seq=8,
+                                         kv_dtype="f32"))
+    samp = SamplingParams(max_new_tokens=steps + 1)
+    outs = []
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        eng = Engine(cfg, params, ecfg, decode_burst=4, device=dev)
+        outs.append(eng.generate(prompts, samp))
+    for r, (a, b) in enumerate(zip(*outs)):
+        require(len(a) == len(b) == steps + 1, f"engine request {r} short")
+        require(b == tok_c[r].tolist(),
+                f"engine request {r} on the CPU departs from the trace")
+        t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if t is not None:
+            top2 = torch.topk(lg_c[t, r], 2).values
+            margin = float(top2[0] - top2[1])
+            require(margin < LOGIT_TOL,
+                    f"engine request {r} step {t}: card and CPU differ "
+                    f"with top-2 margin {margin:.3e}")
+            print(f"[cpu] engine request {r} diverges at step {t}: top-2 "
+                  f"margin {margin:.3e} < {LOGIT_TOL}", flush=True)
+    print(f"[cpu] engine greedy tokens card == cpu: {outs[0] == outs[1]}",
+          flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+    full_run = phases >= set(PHASES)
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    try:
+        name, count, _smi = phase_device(torch)
+        if not (ROOT / "simplellminference_tpu_torch").is_dir():
+            raise SmokeFailure("run from the root of a repository checkout")
+        sys.path.insert(0, str(ROOT))
+        results: dict = {}
+        launches = {k: 0 for k in KERNELS}
+        phase_build()
+        if "kernels" in phases:
+            phase_kernels(torch, results)
+        if "engine" in phases:
+            phase_engine(torch, launches)
+        if "cpu" in phases:
+            phase_cpu(torch)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    if not full_run:
+        print(f"chip_smoke: ran only {sorted(phases)}; the result lines "
+              f"come from a run of every phase", flush=True)
+        return 0
+    rows = []
+    for kname, meta in KERNELS.items():
+        r = results.get(kname, {})
+        rows.append({"name": kname, "route": "cuda", **meta,
+                     "status": "ported", "checked": bool(r),
+                     "launches": launches[kname],
+                     "max_abs_err": r.get("max_abs_err"),
+                     "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+                     "bound_ms": r.get("bound_ms"),
+                     "bound_by": r.get("bound_by"),
+                     "library_ms": r.get("library_ms")})
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": count}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

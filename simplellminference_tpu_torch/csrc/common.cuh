@@ -1,0 +1,55 @@
+// Shared helpers for the port's CUDA kernels (plain C interface, loaded with
+// ctypes by simplellminference_tpu_torch/ops/cuda_build.py).
+//
+// Element types: SLI_F32 (float) and SLI_BF16 (__nv_bfloat16). Every
+// launcher returns 0 on success, a cudaError_t code (> 0) from
+// cudaGetLastError() after the launch, or a negative code for arguments
+// the kernel does not take (sli_error_string names both).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define SLI_F32 0
+#define SLI_BF16 1
+
+#define SLI_ERR_DTYPE (-1)
+#define SLI_ERR_HEAD_DIM (-2)
+#define SLI_ERR_SHAPE (-3)
+
+namespace sli {
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Sets the dynamic shared memory limit of `kernel` when it needs more than
+// the 48 KB a launch gets without opting in.
+template <typename K>
+__host__ inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+}  // namespace sli

@@ -1,0 +1,251 @@
+// Causal GQA flash attention over a prompt (prefill), online softmax.
+//
+// Replaces the TPU kernel of simplellminference_tpu/ops/attention/
+// flash_prefill.py: flash_prefill (_flash_kernel, flash_prefill.py:26-203).
+//
+// Bound on the H100: for the serving shapes (S = 128..2048) the least
+// time is set by bytes: q and k, v read once and the output written once,
+// (2*N + 2*kvN)*B*S*D elements, against 2*B*N*D*S*(S+1) causal
+// multiply-add operations, which stay below the card's ops-per-byte
+// balance point until S is a few thousand.
+//
+// Design: one block per (q tile of 64 rows, q head, batch); K/V tiles of
+// 64 rows are staged through shared memory in f32, and the block walks
+// them from the first tile up to the causal frontier of its q tile only
+// (tiles above the diagonal are never loaded), so each K/V byte of a head
+// is read once per q tile and the [S, S] score matrix never leaves the
+// SM. Scores, the running max and sum, and the accumulator stay in f32;
+// products are plain FMAs (a 4 x 4 micro-tile per thread for QK^T, 4 rows
+// x D/16 columns for PV). Every S is taken: rows and keys past S are
+// masked in the kernel (the TPU dispatcher sends S % 128 != 0 to the jnp
+// reference instead). The GQA head of q head h is h / group.
+#include "common.cuh"
+
+namespace {
+
+constexpr int BQ = 64;
+constexpr int BK = 64;
+constexpr int NT = 256;
+constexpr float NEG_INF = -1e30f;
+
+template <int D>
+constexpr size_t smem_floats() {
+  return (size_t)BQ * (D + 1) + (size_t)BK * (D + 1) + (size_t)BK * D +
+         (size_t)BQ * (BK + 1);
+}
+
+// Element strides: *_bs between batch rows, *_ss between sequence rows;
+// the [heads, D] part of each row is contiguous.
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) flash_prefill_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ out, long long q_bs,
+    long long q_ss, long long k_bs, long long k_ss, long long v_bs,
+    long long v_ss, long long o_bs, long long o_ss, int seq, int group,
+    float scale) {
+  extern __shared__ float smem[];
+  float* qs = smem;                  // [BQ][D+1]
+  float* ks = qs + BQ * (D + 1);     // [BK][D+1]
+  float* vs = ks + BK * (D + 1);     // [BK][D]
+  float* ps = vs + BK * D;           // [BQ][BK+1]
+  constexpr int CPT = D / 16;        // output columns per thread
+
+  const int qt = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = h / group;
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;  // rows ty*4 .. ty*4+3
+  const int tx = tid & 15;  // cols tx + 16*j
+  const int q0 = qt * BQ;
+
+  const T* qb = q + (long long)b * q_bs + (long long)h * D;
+  const T* kb = k + (long long)b * k_bs + (long long)kh * D;
+  const T* vb = v + (long long)b * v_bs + (long long)kh * D;
+
+  for (int i = tid; i < BQ * D; i += NT) {
+    const int r = i / D;
+    const int d = i - r * D;
+    const int s = q0 + r;
+    qs[r * (D + 1) + d] = s < seq ? sli::to_f(qb[(long long)s * q_ss + d])
+                                  : 0.f;
+  }
+
+  float acc[4][CPT];
+  float m[4];
+  float l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+  }
+
+  const int last_q = min(q0 + BQ, seq) - 1;
+  const int nkt = last_q / BK + 1;  // tiles 0 .. causal frontier
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile's readers are done
+    for (int i = tid; i < BK * D; i += NT) {
+      const int r = i / D;
+      const int d = i - r * D;
+      const int s = k0 + r;
+      float kv = 0.f;
+      float vv = 0.f;
+      if (s < seq) {
+        kv = sli::to_f(kb[(long long)s * k_ss + d]);
+        vv = sli::to_f(vb[(long long)s * v_ss + d]);
+      }
+      ks[r * (D + 1) + d] = kv;
+      vs[r * D + d] = vv;
+    }
+    __syncthreads();
+
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[4];
+      float kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty * 4 + i) * (D + 1) + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * (D + 1) + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[i][j] += qv[i] * kv[j];
+    }
+
+    float alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qp = q0 + ty * 4 + i;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kp = k0 + tx + 16 * j;
+        float s = sc[i][j] * scale;
+        if (kp > qp || kp >= seq) s = NEG_INF;
+        sc[i][j] = s;
+        mx = fmaxf(mx, s);
+      }
+      // the 16 threads sharing ty hold the tile's 64 columns of row i
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(sc[i][j] - m_new);
+        sc[i][j] = p;
+        rs += p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      alpha[i] = expf(m[i] - m_new);
+      l[i] = l[i] * alpha[i] + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        ps[(ty * 4 + i) * (BK + 1) + tx + 16 * j] = sc[i][j];
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha[i];
+    const int kmax = min(BK, seq - k0);
+    for (int kk = 0; kk < kmax; ++kk) {
+      float vv[CPT];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) vv[c] = vs[kk * D + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = ps[(ty * 4 + i) * (BK + 1) + kk];
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) acc[i][c] += p * vv[c];
+      }
+    }
+  }
+
+  T* ob = out + (long long)b * o_bs + (long long)h * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = q0 + ty * 4 + i;
+    if (s < seq) {
+      const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+      for (int c = 0; c < CPT; ++c)
+        ob[(long long)s * o_ss + tx + 16 * c] = sli::from_f<T>(acc[i][c] / den);
+    }
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* out,
+           long long q_bs, long long q_ss, long long k_bs, long long k_ss,
+           long long v_bs, long long v_ss, long long o_bs, long long o_ss,
+           int batch, int seq, int heads, int group, float scale,
+           cudaStream_t st) {
+  const size_t bytes = smem_floats<D>() * sizeof(float);
+  cudaError_t e = sli::allow_smem(flash_prefill_kernel<T, D>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((seq + BQ - 1) / BQ, heads, batch);
+  flash_prefill_kernel<T, D><<<grid, NT, bytes, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, q_bs, q_ss, k_bs, k_ss,
+      v_bs, v_ss, o_bs, o_ss, seq, group, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_d(int head_dim, const void* q, const void* k, const void* v,
+               void* out, long long q_bs, long long q_ss, long long k_bs,
+               long long k_ss, long long v_bs, long long v_ss, long long o_bs,
+               long long o_ss, int batch, int seq, int heads, int group,
+               float scale, cudaStream_t st) {
+  switch (head_dim) {
+    case 32:
+      return launch<T, 32>(q, k, v, out, q_bs, q_ss, k_bs, k_ss, v_bs, v_ss,
+                           o_bs, o_ss, batch, seq, heads, group, scale, st);
+    case 64:
+      return launch<T, 64>(q, k, v, out, q_bs, q_ss, k_bs, k_ss, v_bs, v_ss,
+                           o_bs, o_ss, batch, seq, heads, group, scale, st);
+    case 128:
+      return launch<T, 128>(q, k, v, out, q_bs, q_ss, k_bs, k_ss, v_bs,
+                            v_ss, o_bs, o_ss, batch, seq, heads, group, scale,
+                            st);
+    default:
+      return SLI_ERR_HEAD_DIM;
+  }
+}
+
+}  // namespace
+
+extern "C" int sli_flash_prefill(const void* q, const void* k, const void* v,
+                                 void* out, long long q_bs, long long q_ss,
+                                 long long k_bs, long long k_ss,
+                                 long long v_bs, long long v_ss,
+                                 long long o_bs, long long o_ss, int batch,
+                                 int seq, int heads, int group, int head_dim,
+                                 float scale, int dtype, void* stream) {
+  if (batch <= 0 || seq <= 0 || heads <= 0 || group <= 0)
+    return SLI_ERR_SHAPE;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == SLI_F32)
+    return dispatch_d<float>(head_dim, q, k, v, out, q_bs, q_ss, k_bs, k_ss,
+                             v_bs, v_ss, o_bs, o_ss, batch, seq, heads, group,
+                             scale, st);
+  if (dtype == SLI_BF16)
+    return dispatch_d<__nv_bfloat16>(head_dim, q, k, v, out, q_bs, q_ss,
+                                     k_bs, k_ss, v_bs, v_ss, o_bs, o_ss,
+                                     batch, seq, heads, group, scale, st);
+  return SLI_ERR_DTYPE;
+}

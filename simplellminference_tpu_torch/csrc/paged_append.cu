@@ -1,0 +1,181 @@
+// In-place paged KV writes: one decode row per sequence, and whole prompt
+// pages at prefill.
+//
+// Replaces the TPU kernels of simplellminference_tpu/ops/paged_append.py:
+//   paged_append_decode  (_decode_kernel,  paged_append.py:34-113)
+//   paged_append_prefill (_prefill_kernel, paged_append.py:116-189)
+//
+// Bound on the H100: bytes. Both kernels only copy (decode: 2*B*kvN*D
+// elements; prefill: 2*B*ceil(S/ps)*kvN*ps*D), so the least time is those
+// bytes read once and written once at the card's memory rate.
+//
+// Design against that bound: every thread moves 16-byte vectors (a row of
+// D=128 bf16 is 16 of them), neighbouring threads take neighbouring
+// addresses, and the pools are written in place: nothing else is read or
+// written. The TPU kernel's 8-row read-modify-write window (a Pallas out
+// block always writes back, paged_append.py:18-19) is gone: a CUDA thread
+// stores exactly the row it owns. Unmapped (-1) table entries, and columns
+// past the table, still go to the trash page (the pool's last page row),
+// as on the TPU, so the plain version and the kernel agree on every page
+// but that one. Prefill rows past the prompt (the tail of the last page)
+// are written as zeros, like the JAX pad.
+#include "common.cuh"
+
+namespace {
+
+template <typename V>
+__device__ __forceinline__ V vzero();
+template <>
+__device__ __forceinline__ uint4 vzero<uint4>() {
+  return make_uint4(0u, 0u, 0u, 0u);
+}
+template <>
+__device__ __forceinline__ unsigned short vzero<unsigned short>() {
+  return 0;
+}
+
+// grid (B, kvN); the block copies row (b, h) of new K and new V into
+// pool[layer, page, h, slot, :]. Strides and row_bytes are in bytes.
+template <typename V>
+__global__ void paged_append_decode_kernel(
+    char* __restrict__ pool_k, char* __restrict__ pool_v,
+    const char* __restrict__ new_k, const char* __restrict__ new_v,
+    long long k_bstride, long long v_bstride,
+    const int* __restrict__ tables, const int* __restrict__ positions,
+    int layer, int num_pages1, int kvn, int ps, int row_bytes, int mp) {
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int pos = positions[b];
+  const int col = pos >= 0 ? pos / ps : -1;
+  int page = (col >= 0 && col < mp) ? tables[(long long)b * mp + col] : -1;
+  if (page < 0) page = num_pages1 - 1;
+  const int slot = pos >= 0 ? pos % ps : 0;
+  const long long dst =
+      ((((long long)layer * num_pages1 + page) * kvn + h) * ps + slot) *
+      (long long)row_bytes;
+  const V* sk = reinterpret_cast<const V*>(new_k + (long long)b * k_bstride +
+                                           (long long)h * row_bytes);
+  const V* sv = reinterpret_cast<const V*>(new_v + (long long)b * v_bstride +
+                                           (long long)h * row_bytes);
+  V* dk = reinterpret_cast<V*>(pool_k + dst);
+  V* dv = reinterpret_cast<V*>(pool_v + dst);
+  const int nvec = row_bytes / (int)sizeof(V);
+  for (int i = threadIdx.x; i < 2 * nvec; i += blockDim.x) {
+    if (i < nvec) {
+      dk[i] = sk[i];
+    } else {
+      dv[i - nvec] = sv[i - nvec];
+    }
+  }
+}
+
+// grid (B, ceil(S/ps), kvN); the block copies the ps x D tile of rows
+// [pg*ps, pg*ps+ps) of head h into pool[layer, tables[b, pg], h], zeros
+// past row S.
+template <typename V>
+__global__ void paged_append_prefill_kernel(
+    char* __restrict__ pool_k, char* __restrict__ pool_v,
+    const char* __restrict__ new_k, const char* __restrict__ new_v,
+    long long k_bstride, long long k_sstride, long long v_bstride,
+    long long v_sstride, const int* __restrict__ tables, int layer,
+    int num_pages1, int kvn, int ps, int row_bytes, int mp, int seq) {
+  const int b = blockIdx.x;
+  const int pg = blockIdx.y;
+  const int h = blockIdx.z;
+  int page = pg < mp ? tables[(long long)b * mp + pg] : -1;
+  if (page < 0) page = num_pages1 - 1;
+  const long long base =
+      (((long long)layer * num_pages1 + page) * kvn + h) * (long long)ps *
+      row_bytes;
+  char* dk = pool_k + base;
+  char* dv = pool_v + base;
+  const int nvec = row_bytes / (int)sizeof(V);
+  const int total = ps * nvec;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int r = i / nvec;
+    const int c = i - r * nvec;
+    const int s = pg * ps + r;
+    V kv = vzero<V>();
+    V vv = vzero<V>();
+    if (s < seq) {
+      kv = reinterpret_cast<const V*>(new_k + (long long)b * k_bstride +
+                                      (long long)s * k_sstride +
+                                      (long long)h * row_bytes)[c];
+      vv = reinterpret_cast<const V*>(new_v + (long long)b * v_bstride +
+                                      (long long)s * v_sstride +
+                                      (long long)h * row_bytes)[c];
+    }
+    reinterpret_cast<V*>(dk + (long long)r * row_bytes)[c] = kv;
+    reinterpret_cast<V*>(dv + (long long)r * row_bytes)[c] = vv;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* sli_error_string(int code) {
+  switch (code) {
+    case SLI_ERR_DTYPE:
+      return "unsupported dtype";
+    case SLI_ERR_HEAD_DIM:
+      return "unsupported head dim";
+    case SLI_ERR_SHAPE:
+      return "unsupported shape";
+    default:
+      return cudaGetErrorString((cudaError_t)code);
+  }
+}
+
+// vec16: 1 when every row start is 16-byte aligned (row_bytes and the byte
+// strides are multiples of 16), else rows move as 2-byte units.
+int sli_paged_append_decode(void* pool_k, void* pool_v, const void* new_k,
+                            const void* new_v, long long k_bstride,
+                            long long v_bstride, const int* tables,
+                            const int* positions, int layer, int num_pages1,
+                            int kvn, int ps, int row_bytes, int mp, int batch,
+                            int vec16, void* stream) {
+  if (batch <= 0 || kvn <= 0 || row_bytes <= 0) return SLI_ERR_SHAPE;
+  const dim3 grid(batch, kvn);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec16) {
+    paged_append_decode_kernel<uint4><<<grid, 64, 0, st>>>(
+        (char*)pool_k, (char*)pool_v, (const char*)new_k, (const char*)new_v,
+        k_bstride, v_bstride, tables, positions, layer, num_pages1, kvn, ps,
+        row_bytes, mp);
+  } else {
+    paged_append_decode_kernel<unsigned short><<<grid, 64, 0, st>>>(
+        (char*)pool_k, (char*)pool_v, (const char*)new_k, (const char*)new_v,
+        k_bstride, v_bstride, tables, positions, layer, num_pages1, kvn, ps,
+        row_bytes, mp);
+  }
+  return (int)cudaGetLastError();
+}
+
+int sli_paged_append_prefill(void* pool_k, void* pool_v, const void* new_k,
+                             const void* new_v, long long k_bstride,
+                             long long k_sstride, long long v_bstride,
+                             long long v_sstride, const int* tables,
+                             int layer, int num_pages1, int kvn, int ps,
+                             int row_bytes, int mp, int batch, int seq,
+                             int vec16, void* stream) {
+  if (batch <= 0 || seq <= 0 || kvn <= 0 || row_bytes <= 0)
+    return SLI_ERR_SHAPE;
+  const int npg = (seq + ps - 1) / ps;
+  const dim3 grid(batch, npg, kvn);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec16) {
+    paged_append_prefill_kernel<uint4><<<grid, 128, 0, st>>>(
+        (char*)pool_k, (char*)pool_v, (const char*)new_k, (const char*)new_v,
+        k_bstride, k_sstride, v_bstride, v_sstride, tables, layer,
+        num_pages1, kvn, ps, row_bytes, mp, seq);
+  } else {
+    paged_append_prefill_kernel<unsigned short><<<grid, 128, 0, st>>>(
+        (char*)pool_k, (char*)pool_v, (const char*)new_k, (const char*)new_v,
+        k_bstride, k_sstride, v_bstride, v_sstride, tables, layer,
+        num_pages1, kvn, ps, row_bytes, mp, seq);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,210 @@
+// Paged flash-decode attention: one query token per sequence against its
+// KV pages, found through the block table, online softmax.
+//
+// Replaces the TPU kernel of simplellminference_tpu/ops/attention/
+// paged_decode.py: paged_flash_decode (_paged_kernel, paged_decode.py:
+// 24-299) with wins=1 (one query row per sequence).
+//
+// Bound on the H100: bytes. Each sequence's live K and V rows
+// (2*kv_len*kvN*D elements) are read once for ~4*kv_len*N*D operations:
+// about one operation per byte, far below the card's balance point.
+//
+// Design: one block per (sequence, kv head), holding that head's `group`
+// query rows, so every K/V row of the sequence is read from device memory
+// once and serves all the query heads of its GQA group. The block reads
+// its page ids from the table itself and walks the live keys
+// 0 .. min(kv_len, MP*ps)-1 in chunks of 32 keys staged through shared
+// memory in f32; pages past kv_len are never read. Scores and the running
+// max/sum/accumulator stay in f32. An unmapped (-1) page inside kv_len
+// (the dead rows of a decode burst, whose tables are all -1) reads as
+// zeros, as the plain version's gather does, and never touches memory
+// outside the pool; kv_len <= 0 gives a zero output. Split-K over the
+// sequence (flash-decoding) and TMA page copies are later work.
+#include "common.cuh"
+
+namespace {
+
+constexpr int KC = 32;   // keys per chunk (one per lane)
+constexpr int NT = 128;  // threads per block
+constexpr float NEG_INF = -1e30f;
+
+template <int D>
+size_t smem_floats(int group) {
+  return (size_t)group * D          // q rows
+         + (size_t)KC * (D + 1)     // K chunk (padded: lane = key)
+         + (size_t)KC * D           // V chunk
+         + (size_t)group * KC       // probabilities
+         + (size_t)group * D        // accumulator
+         + 3 * (size_t)group;       // max, sum, rescale
+}
+
+// q: [B, N, D] with batch stride q_bs (elements); pools [L, P+1, kvN, ps, D];
+// out: [B, N, D] contiguous.
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) paged_decode_kernel(
+    const T* __restrict__ q, long long q_bs, const T* __restrict__ pool_k,
+    const T* __restrict__ pool_v, const int* __restrict__ tables,
+    const int* __restrict__ kv_lens, T* __restrict__ out, int layer,
+    int num_pages1, int kvn, int ps, int mp, int group, float scale) {
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* ks = qs + group * D;
+  float* vs = ks + KC * (D + 1);
+  float* pr = vs + KC * D;
+  float* acc = pr + group * KC;
+  float* ms = acc + group * D;
+  float* ls = ms + group;
+  float* al = ls + group;
+
+  const int b = blockIdx.x;
+  const int g = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int h0 = g * group;
+
+  const T* qb = q + (long long)b * q_bs + (long long)h0 * D;
+  for (int i = tid; i < group * D; i += NT) {
+    qs[i] = sli::to_f(qb[i]);
+    acc[i] = 0.f;
+  }
+  for (int i = tid; i < group; i += NT) {
+    ms[i] = NEG_INF;
+    ls[i] = 0.f;
+  }
+  const int n_keys = min(kv_lens[b], mp * ps);
+  const int* row = tables + (long long)b * mp;
+  const long long layer_base = (long long)layer * num_pages1;
+  __syncthreads();
+
+  for (int k0 = 0; k0 < n_keys; k0 += KC) {
+    for (int i = tid; i < KC * D; i += NT) {
+      const int r = i / D;
+      const int d = i - r * D;
+      const int kp = k0 + r;
+      float kv = 0.f;
+      float vv = 0.f;
+      if (kp < n_keys) {
+        const int page = row[kp / ps];
+        if (page >= 0) {
+          const long long off =
+              (((layer_base + page) * kvn + g) * ps + kp % ps) * (long long)D +
+              d;
+          kv = sli::to_f(pool_k[off]);
+          vv = sli::to_f(pool_v[off]);
+        }
+      }
+      ks[r * (D + 1) + d] = kv;
+      vs[r * D + d] = vv;
+    }
+    __syncthreads();
+
+    // scores: warp w takes query rows w, w+4, ...; lane = key of the chunk
+    for (int r = warp; r < group; r += NT / 32) {
+      const float m_old = ms[r];
+      float s = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) s += qs[r * D + d] * ks[lane * (D + 1) + d];
+      s *= scale;
+      if (k0 + lane >= n_keys) s = NEG_INF;
+      float mx = s;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_old, mx);
+      const float p = expf(s - m_new);
+      float sum = p;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      pr[r * KC + lane] = p;
+      if (lane == 0) {
+        const float a = expf(m_old - m_new);
+        al[r] = a;
+        ls[r] = ls[r] * a + sum;
+        ms[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // PV: thread d owns output column d of every query row
+    for (int d = tid; d < D; d += NT) {
+      for (int r = 0; r < group; ++r) {
+        float a = acc[r * D + d] * al[r];
+#pragma unroll 8
+        for (int kk = 0; kk < KC; ++kk) a += pr[r * KC + kk] * vs[kk * D + d];
+        acc[r * D + d] = a;
+      }
+    }
+    __syncthreads();
+  }
+
+  T* ob = out + ((long long)b * kvn * group + h0) * D;
+  for (int i = tid; i < group * D; i += NT) {
+    const int r = i / D;
+    ob[i] = sli::from_f<T>(acc[i] / fmaxf(ls[r], 1e-30f));
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, long long q_bs, const void* pool_k,
+           const void* pool_v, const int* tables, const int* kv_lens,
+           void* out, int batch, int layer, int num_pages1, int kvn, int ps,
+           int mp, int group, float scale, cudaStream_t st) {
+  const size_t bytes = smem_floats<D>(group) * sizeof(float);
+  cudaError_t e = sli::allow_smem(paged_decode_kernel<T, D>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(batch, kvn);
+  paged_decode_kernel<T, D><<<grid, NT, bytes, st>>>(
+      (const T*)q, q_bs, (const T*)pool_k, (const T*)pool_v, tables, kv_lens,
+      (T*)out, layer, num_pages1, kvn, ps, mp, group, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_d(int head_dim, const void* q, long long q_bs,
+               const void* pool_k, const void* pool_v, const int* tables,
+               const int* kv_lens, void* out, int batch, int layer,
+               int num_pages1, int kvn, int ps, int mp, int group,
+               float scale, cudaStream_t st) {
+  switch (head_dim) {
+    case 32:
+      return launch<T, 32>(q, q_bs, pool_k, pool_v, tables, kv_lens, out,
+                           batch, layer, num_pages1, kvn, ps, mp, group,
+                           scale, st);
+    case 64:
+      return launch<T, 64>(q, q_bs, pool_k, pool_v, tables, kv_lens, out,
+                           batch, layer, num_pages1, kvn, ps, mp, group,
+                           scale, st);
+    case 128:
+      return launch<T, 128>(q, q_bs, pool_k, pool_v, tables, kv_lens, out,
+                            batch, layer, num_pages1, kvn, ps, mp, group,
+                            scale, st);
+    default:
+      return SLI_ERR_HEAD_DIM;
+  }
+}
+
+}  // namespace
+
+extern "C" int sli_paged_flash_decode(const void* q, long long q_bs,
+                                      const void* pool_k, const void* pool_v,
+                                      const int* tables, const int* kv_lens,
+                                      void* out, int batch, int layer,
+                                      int num_pages1, int kvn, int ps, int mp,
+                                      int group, int head_dim, float scale,
+                                      int dtype, void* stream) {
+  if (batch <= 0 || kvn <= 0 || group <= 0 || ps <= 0 || mp <= 0)
+    return SLI_ERR_SHAPE;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == SLI_F32)
+    return dispatch_d<float>(head_dim, q, q_bs, pool_k, pool_v, tables,
+                             kv_lens, out, batch, layer, num_pages1, kvn, ps,
+                             mp, group, scale, st);
+  if (dtype == SLI_BF16)
+    return dispatch_d<__nv_bfloat16>(head_dim, q, q_bs, pool_k, pool_v,
+                                     tables, kv_lens, out, batch, layer,
+                                     num_pages1, kvn, ps, mp, group, scale,
+                                     st);
+  return SLI_ERR_DTYPE;
+}

@@ -1,0 +1,47 @@
+"""Carry a JAX-package params tree over to the port.
+
+``params_from_jax(jax.tree.map(np.asarray, params))`` turns the JAX
+package's params pytree — already moved to host numpy arrays by the
+caller, so this module needs no JAX — into the port's dict of torch
+tensors, name for name, on a given device and dtype. Weights made once
+(from one seed, with numpy or with JAX) can then drive both packages.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from simplellminference_tpu_torch.core.device import (resolve_device,
+                                                      torch_dtype)
+
+
+def _tensor(a, device, dtype) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
+        # ml_dtypes bfloat16 (what np.asarray gives for a bf16 jax.Array)
+        arr = arr.astype(np.float32)
+    if arr.dtype.kind in "iub":
+        return torch.from_numpy(arr.copy()).to(device)
+    return torch.from_numpy(arr.astype(np.float32)).to(device=device,
+                                                       dtype=dtype)
+
+
+def params_from_jax(tree, device=None, dtype="float32") -> dict:
+    """Nested dict of numpy arrays (the JAX params pytree after
+    ``jax.tree.map(np.asarray, ...)``) -> the same dict of torch tensors.
+
+    Floating leaves become ``dtype`` on ``device`` (CUDA unless
+    ``device="cpu"``); integer leaves keep their type. Quantized weights
+    (objects carrying ``q``/``scales``) are not served yet and raise."""
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if hasattr(x, "q") and hasattr(x, "scales"):
+            raise NotImplementedError("INT8/INT4 weights (QuantizedWeight)")
+        return _tensor(x, dev, dt)
+
+    return conv(tree)

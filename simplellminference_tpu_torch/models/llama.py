@@ -1,0 +1,176 @@
+"""Llama-family decoder over the paged KV cache, as plain functions over a
+params dict.
+
+Counterpart of simplellminference_tpu/models/llama.py:484-911
+(``forward_paged``) and :914 (``init_params``) for the plain pre-norm,
+full-rotary Llama branch: whole-prompt prefill from position 0 and
+single-token decode. A Python loop over layers stands in for the
+``lax.scan``; stacked [L, ...] weights are indexed per layer, and the KV
+pools are written in place.
+
+Params dict (the JAX package's names, layers stacked on a leading L):
+
+    {"embed": [V, H],
+     "layers": {"input_norm": [L, H], "post_norm": [L, H],
+                "wqkv": [L, H, (N + 2*kvN) * D], "wo": [L, N*D, H],
+                "w_gate_up": [L, H, 2*I], "w_down": [L, I, H]},
+     "final_norm": [H],
+     "lm_head": [H, V]}          # absent when tie_word_embeddings
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from simplellminference_tpu_torch.core.config import ModelConfig
+from simplellminference_tpu_torch.core.device import (resolve_device,
+                                                      torch_dtype)
+from simplellminference_tpu_torch.memory import paged_kv as pkv
+from simplellminference_tpu_torch.ops import ref_ops
+from simplellminference_tpu_torch.ops.attention import dispatch
+from simplellminference_tpu_torch.ops.linear import linear
+
+Params = dict[str, Any]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError naming the first feature of ``cfg`` that
+    the port's decoder does not run yet."""
+    unsupported = [
+        ("num_experts", "mixture-of-experts FFN"),
+        ("kv_lora_rank", "multi-head latent attention (MLA)"),
+        ("first_k_dense", "dense-prefix layer group"),
+        ("attention_bias", "QKV bias"),
+        ("qk_norm", "q/k RMSNorm"),
+        ("attn_sinks", "attention sinks"),
+        ("o_bias", "o_proj bias"),
+        ("mlp_bias", "FFN biases"),
+        ("sandwich_norms", "sandwich norms"),
+        ("sliding_window", "sliding-window attention"),
+        ("layer_types", "per-layer attention types"),
+        ("nope_layers", "NoPE layers"),
+        ("attn_logit_softcap", "attention logit soft cap"),
+        ("final_logit_softcap", "final logit soft cap"),
+        ("rope_local_theta", "local rope theta"),
+        ("rope_interleaved", "interleaved rotary"),
+        ("act_quant", "activation quantization"),
+    ]
+    for field, name in unsupported:
+        if getattr(cfg, field):
+            raise NotImplementedError(name)
+    if not cfg.pre_norms:
+        raise NotImplementedError("post-norm-only blocks (OLMo-2)")
+    if cfg.partial_rotary_factor != 1.0:
+        raise NotImplementedError("partial rotary")
+    if cfg.hidden_act != "silu":
+        raise NotImplementedError(f"activation {cfg.hidden_act!r}")
+    for field in ("embed_scale", "residual_scale", "logit_scale"):
+        if getattr(cfg, field) != 1.0:
+            raise NotImplementedError(field)
+
+
+def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                  positions: torch.Tensor, cache, tables: torch.Tensor,
+                  kv_lens: torch.Tensor, prefill: bool,
+                  last_token_only: bool = False):
+    """Forward pass over the paged KV cache (engine path).
+
+    tokens/positions: [B, S]; cache: :class:`PagedKVCache` (updated in
+    place); tables: [B, MP] page ids (-1 unmapped); kv_lens: [B] valid
+    tokens AFTER this step. ``prefill``: S-token whole-prompt pass from
+    position 0 (right-padded), attention is causal self-attention on the
+    fresh k/v; otherwise S == 1 decode through the page tables.
+    ``last_token_only``: project only row b's position kv_lens[b]-1
+    through the LM head. Returns (logits [B, S or 1, V] f32, cache)."""
+    check_supported(cfg)
+    b, s = tokens.shape
+    if not prefill and s != 1:
+        raise NotImplementedError("multi-token decode (speculative verify)")
+    n, kvn, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    i_sz = cfg.intermediate_size
+    eps = cfg.rms_norm_eps
+    dtype = torch_dtype(cfg.dtype)
+    x = params["embed"][tokens.long()].to(dtype)
+    _period, wins, nope = cfg.scan_pattern()
+    sin, cos = ref_ops.rope_tables_by_sublayer(cfg, positions, wins,
+                                               nope)[0]
+    lw = params["layers"]
+    pk, pv = cache.k, cache.v
+    for li in range(cfg.num_layers):
+        h = ref_ops.rmsnorm(x, lw["input_norm"][li], eps)
+        qkv = linear(h, lw["wqkv"], layer=li)
+        q = qkv[..., :n * d].reshape(b, s, n, d)
+        k = qkv[..., n * d:(n + kvn) * d].reshape(b, s, kvn, d)
+        v = qkv[..., (n + kvn) * d:].reshape(b, s, kvn, d)
+        q = ref_ops.apply_rope(q, sin, cos)
+        k = ref_ops.apply_rope(k, sin, cos)
+        if prefill:
+            pkv.write_prefill_stacked(pk, pv, k, v, tables, li)
+            attn = dispatch.attention(cfg, q, k, v)
+        else:
+            pkv.write_decode_stacked(pk, pv, k[:, 0], v[:, 0], tables,
+                                     positions[:, 0], li)
+            attn = dispatch.attention_paged(cfg, q, pk, pv, tables, kv_lens,
+                                            li)
+        x = x + linear(attn.reshape(b, s, n * d), lw["wo"], layer=li)
+        h = ref_ops.rmsnorm(x, lw["post_norm"][li], eps)
+        gate_up = linear(h, lw["w_gate_up"], layer=li)
+        swi = ref_ops.glu_act(gate_up[..., :i_sz], gate_up[..., i_sz:],
+                              cfg.hidden_act)
+        x = x + linear(swi, lw["w_down"], layer=li)
+
+    if last_token_only and s > 1:
+        idx = (kv_lens.long() - 1).to(x.device)
+        x = x[torch.arange(b, device=x.device), idx][:, None]
+    x = ref_ops.rmsnorm(x, params["final_norm"], eps)
+    lm_head = params.get("lm_head")
+    if lm_head is None:
+        logits = linear(x, params["embed"].t(), out_dtype=torch.float32)
+    else:
+        logits = linear(x, lm_head, out_dtype=torch.float32)
+    return logits.float(), cache
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                dtype=None) -> Params:
+    """Random-init params from a seeded ``torch.Generator`` on ``device``
+    (CUDA unless ``device="cpu"``), with the JAX package's names and
+    scales: N(0, 1) * K**-0.5 for [.., K, N] weights, * 0.02 for the
+    embedding and LM head, ones for the norms. The values differ from the
+    JAX package's draw (threefry vs Philox/MT); tests carry JAX weights
+    over with :func:`~simplellminference_tpu_torch.models.convert.
+    params_from_jax` instead."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = torch_dtype(dtype or cfg.dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    n, kvn, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    L = cfg.num_layers
+
+    def w(shape, scale=None):
+        scale = scale or shape[-2] ** -0.5
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=dtype).mul_(scale)
+
+    def ones(shape):
+        return torch.ones(shape, device=dev, dtype=dtype)
+
+    params: Params = {
+        "embed": w((v, h), 0.02),
+        "layers": {
+            "input_norm": ones((L, h)),
+            "post_norm": ones((L, h)),
+            "wqkv": w((L, h, (n + 2 * kvn) * d)),
+            "wo": w((L, n * d, h)),
+            "w_gate_up": w((L, h, 2 * i)),
+            "w_down": w((L, i, h)),
+        },
+        "final_norm": ones((h,)),
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = w((h, v), 0.02)
+    return params

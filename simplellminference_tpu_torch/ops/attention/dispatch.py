@@ -1,0 +1,53 @@
+"""Attention dispatch for the model.
+
+Counterpart of simplellminference_tpu/ops/attention/dispatch.py:68-94 and
+:197-269. There is no backend switch here: each kernel wrapper launches
+its CUDA kernel for CUDA tensors and takes its plain version for CPU
+tensors, so on the card every call goes through a kernel. Attention
+options the kernels do not take yet (sliding window, logit soft cap,
+sinks) raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from simplellminference_tpu_torch.core.config import ModelConfig
+from simplellminference_tpu_torch.ops.attention.flash_prefill import (
+    flash_prefill)
+from simplellminference_tpu_torch.ops.attention.paged_decode import (
+    paged_flash_decode)
+
+
+def _attn_opts(cfg: ModelConfig) -> float | None:
+    """sm_scale for one attention call (query_pre_attn_scalar**-0.5 when
+    set, else the kernels' D**-0.5); the window and soft cap of the JAX
+    version are not ported yet."""
+    if cfg.sliding_window is not None or cfg.layer_types is not None:
+        raise NotImplementedError("sliding-window attention")
+    if cfg.attn_logit_softcap:
+        raise NotImplementedError("attention logit soft cap")
+    if cfg.attn_sinks:
+        raise NotImplementedError("attention sinks")
+    return (None if cfg.query_pre_attn_scalar is None
+            else cfg.query_pre_attn_scalar ** -0.5)
+
+
+def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention of a prompt, no cache read-back.
+    q: [B, S, N, D]; k/v: [B, S, kvN, D]."""
+    return flash_prefill(q, k, v, sm_scale=_attn_opts(cfg))
+
+
+def attention_paged(cfg: ModelConfig, q: torch.Tensor, pool_k: torch.Tensor,
+                    pool_v: torch.Tensor, tables: torch.Tensor,
+                    kv_lens: torch.Tensor, layer: int) -> torch.Tensor:
+    """Paged decode attention. q: [B, 1, N, D]; pools: stacked
+    [L, P+1, kvN, ps, D] with an int ``layer``."""
+    if q.shape[1] != 1:
+        raise NotImplementedError("multi-row verify windows (speculative "
+                                  "decoding)")
+    sm = _attn_opts(cfg)
+    return paged_flash_decode(q[:, 0], pool_k, pool_v, tables, kv_lens,
+                              layer, sm_scale=sm)[:, None]

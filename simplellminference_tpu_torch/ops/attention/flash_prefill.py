@@ -1,0 +1,79 @@
+"""Causal GQA flash attention over a prompt (prefill).
+
+Counterpart of simplellminference_tpu/ops/attention/flash_prefill.py:102.
+For CUDA tensors :func:`flash_prefill` launches the hand-written kernel of
+``csrc/flash_prefill.cu`` (one block per 64-row q tile, K/V tiles staged
+through shared memory up to the causal frontier, f32 online softmax); for
+CPU tensors it runs :func:`flash_prefill_ref`. Unlike the TPU dispatcher,
+which sends S % 128 != 0 to the jnp reference, the kernel takes every S.
+Sliding window, logit soft cap and sinks are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from simplellminference_tpu_torch.ops import cuda_build, ref_ops
+
+HEAD_DIMS = (32, 64, 128)
+
+
+def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      sm_scale: float | None = None) -> torch.Tensor:
+    """Plain version: causal reference attention (f32 softmax).
+    q: [B, S, N, D]; k/v: [B, S, kvN, D] -> [B, S, N, D]."""
+    if q.is_cuda:
+        flash_prefill_ref.cuda_calls += 1
+    s = q.shape[1]
+    mask = ref_ops.causal_mask(s, s, device=q.device)[None, None]
+    return ref_ops.attention(q, k, v, mask, scale=sm_scale)
+
+
+flash_prefill_ref.cuda_calls = 0
+
+
+def _heads_contiguous(x: torch.Tensor) -> torch.Tensor:
+    if x.stride(-1) != 1 or x.stride(-2) != x.shape[-1]:
+        x = x.contiguous()
+    return x
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  sm_scale: float | None = None) -> torch.Tensor:
+    """Causal self-attention of a (right-padded) prompt.
+
+    q: [B, S, N, D]; k/v: [B, S, kvN, D] (bsnd; GQA by ``head // group``)
+    -> [B, S, N, D] in q's dtype. ``sm_scale`` defaults to D**-0.5."""
+    if not q.is_cuda:
+        return flash_prefill_ref(q, k, v, sm_scale)
+    b, s, n, d = q.shape
+    kvn = k.shape[2]
+    if k.shape != (b, s, kvn, d) or v.shape != k.shape:
+        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if n % kvn:
+        raise ValueError(f"{n} heads do not group over {kvn} kv heads")
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(f"head_dim {d} (kernel takes {HEAD_DIMS})")
+    if not (q.dtype == k.dtype == v.dtype) or not (
+            q.device == k.device == v.device):
+        raise ValueError("q, k, v must share dtype and device")
+    code = cuda_build.dtype_code(q.dtype)
+    out = torch.empty((b, s, n, d), dtype=q.dtype, device=q.device)
+    if b == 0 or s == 0:
+        return out
+    q, k, v = (_heads_contiguous(x) for x in (q, k, v))
+    scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    lib = cuda_build.load()
+    rc = lib.sli_flash_prefill(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+        b, s, n, n // kvn, d, scale, code,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(lib, rc, "flash_prefill")
+    flash_prefill.launches += 1
+    return out
+
+
+flash_prefill.launches = 0

@@ -1,0 +1,170 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Route: every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` (Hopper)
+into an object file — one ``nvcc`` process per source, all started
+together — and one link makes ``libsli_kernels.so``, a shared library
+with a plain C interface loaded with :mod:`ctypes`. No PyTorch header is
+compiled, so a build takes seconds.
+
+The build runs at first use (never at import), keyed by a hash of the
+sources and flags, into ``simplellminference_tpu_torch/_build/<hash>/``
+(listed in ``.gitignore``). A failed build raises: no caller falls back
+to a plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+LIB_NAME = "libsli_kernels.so"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+# C signatures of csrc/*.cu (every launcher returns an int status).
+_SIGNATURES = {
+    "sli_paged_append_decode": [_P, _P, _P, _P, _L, _L, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _P],
+    "sli_paged_append_prefill": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _I, _P],
+    "sli_flash_prefill": [_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _L,
+                          _I, _I, _I, _I, _I, _F, _I, _P],
+    "sli_paged_flash_decode": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _F, _I, _P],
+}
+
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+
+_lock = threading.Lock()
+_lib = None
+build_info: dict = {}   # seconds, cached, dir, ptxas (filled by build())
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, /usr/local/cuda/bin/nvcc,
+    or ``nvcc`` on the PATH."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    cands.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in cands:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return found
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile csrc/ into the shared library (once per source hash) and
+    return its path. Fills :data:`build_info`."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.is_file():
+        build_info.update(seconds=0.0, cached=True, dir=str(out_dir),
+                          ptxas=_read(out_dir / "ptxas.log"))
+        return lib
+    nvcc = nvcc_path()
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_ROOT))
+    t0 = time.perf_counter()
+    try:
+        procs = []
+        for src in sources():
+            obj = tmp / (src.stem + ".o")
+            cmd = [nvcc, *ARCH, *FLAGS, "-I", str(CSRC), "-c", str(src),
+                   "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for src, _obj, p in procs:
+            out, _ = p.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if p.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                               + "\n".join(logs))
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp / LIB_NAME),
+             *[str(o) for _s, o, _p in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout)
+        (tmp / "ptxas.log").write_text("\n".join(logs))
+        try:
+            tmp.rename(out_dir)
+        except OSError:
+            # another process finished the same build first
+            if not lib.is_file():
+                raise
+    finally:
+        if tmp.exists():
+            shutil.rmtree(tmp, ignore_errors=True)
+    build_info.update(seconds=time.perf_counter() - t0, cached=False,
+                      dir=str(out_dir), ptxas=_read(out_dir / "ptxas.log"))
+    return lib
+
+
+def _read(p: Path) -> str:
+    return p.read_text() if p.is_file() else ""
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use, with every argtype set."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            lib.sli_error_string.argtypes = [ctypes.c_int]
+            lib.sli_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a launcher reported an error."""
+    if code != 0:
+        msg = lib.sli_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed ({code}: {msg})")
+
+
+def dtype_code(dtype) -> int:
+    name = str(dtype).replace("torch.", "")
+    if name not in DTYPE_CODES:
+        raise TypeError(f"CUDA kernels take float32 or bfloat16, not {name}")
+    return DTYPE_CODES[name]

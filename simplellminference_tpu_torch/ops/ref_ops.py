@@ -1,0 +1,152 @@
+"""Plain PyTorch reference math of the ops the serving path runs.
+
+Counterpart of simplellminference_tpu/ops/ref_ops.py:24-364, function for
+function and with the same shape conventions:
+
+    x:       [B, S, H]           activations
+    q/k/v:   [B, S, N, D]        per-head layout
+    weights: [K, N]              contraction-first (x @ w)
+
+Reductions and softmax run in float32 and cast back, as the reference
+does. The quantization helpers come with the INT8-weight slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * w, accumulated in fp32."""
+    dtype = x.dtype
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(dtype) * weight
+
+
+def glu_act(gate: torch.Tensor, up: torch.Tensor,
+            act: str = "silu") -> torch.Tensor:
+    """Gated linear unit; only SwiGLU ("silu", the Llama family) is
+    ported."""
+    if act != "silu":
+        raise NotImplementedError(f"activation {act!r}")
+    g = gate.float()
+    return (g * torch.sigmoid(g) * up.float()).to(gate.dtype)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
+                dtype=torch.float32, rope_scaling=None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """sin/cos tables for the given positions: [..., head_dim // 2].
+
+    freq_d = theta^(-2d/head_dim), angle = pos * freq, with the "linear"
+    and "llama3" frequency scalings; "yarn" and "longrope" are not ported.
+    """
+    half = head_dim // 2
+    dev = positions.device
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=dev) * 2.0 / head_dim)
+    if rope_scaling is not None:
+        rs = dict(rope_scaling)
+        kind = rs.get("rope_type", rs.get("type", "llama3"))
+        factor = float(rs.get("factor", 8.0))
+        if kind == "linear":
+            freqs = freqs / factor
+        elif kind == "llama3":
+            low = float(rs.get("low_freq_factor", 1.0))
+            high = float(rs.get("high_freq_factor", 4.0))
+            old_len = float(rs.get("original_max_position_embeddings", 8192))
+            wavelen = 2.0 * math.pi / freqs
+            smooth = ((old_len / wavelen - low) / (high - low)).clamp(0.0, 1.0)
+            scaled = (1.0 - smooth) * (freqs / factor) + smooth * freqs
+            freqs = torch.where(wavelen > old_len / low, freqs / factor,
+                                torch.where(wavelen < old_len / high, freqs,
+                                            scaled))
+        elif kind != "default":
+            raise NotImplementedError(f"rope_type {kind!r}")
+    angles = positions[..., None].float() * freqs
+    return torch.sin(angles).to(dtype), torch.cos(angles).to(dtype)
+
+
+def rope_tables_for(cfg, positions: torch.Tensor, dtype=torch.float32):
+    """rope_tables driven by a ModelConfig (theta + scaling); full rotary
+    only (partial rotary and MLA are not ported)."""
+    if cfg.partial_rotary_factor < 1.0 or cfg.mla:
+        raise NotImplementedError("partial rotary / MLA rope tables")
+    return rope_tables(positions, cfg.head_dim, cfg.rope_theta, dtype,
+                       rope_scaling=cfg.rope_scaling)
+
+
+def rope_tables_by_sublayer(cfg, positions: torch.Tensor, wins, nope,
+                            dtype=torch.float32) -> list:
+    """Per-sublayer (sin, cos) for one scan period. Only uniform stacks
+    are ported: one table pair shared by every sublayer."""
+    if cfg.rope_local_theta is not None:
+        raise NotImplementedError("rope_local_theta (Gemma-3)")
+    if any(nope):
+        raise NotImplementedError("NoPE layers")
+    tab = rope_tables_for(cfg, positions, dtype)
+    return [tab for _ in wins]
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor,
+               cos: torch.Tensor) -> torch.Tensor:
+    """Half-split (NeoX/Llama-style) rotation of the last dim.
+
+    x: [B, S, N, D]; sin/cos: [B, S, D/2] (broadcast over heads)."""
+    half = x.shape[-1] // 2
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    sin = sin[..., None, :]
+    cos = cos[..., None, :]
+    r1 = xf1 * cos - xf2 * sin
+    r2 = xf2 * cos + xf1 * sin
+    return torch.cat([r1, r2], dim=-1).to(x.dtype)
+
+
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B, S, kvN, D] -> [B, S, kvN * n_rep, D] (GQA head expansion)."""
+    if n_rep == 1:
+        return x
+    b, s, n, d = x.shape
+    return x[:, :, :, None, :].expand(b, s, n, n_rep, d).reshape(
+        b, s, n * n_rep, d)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: torch.Tensor | None = None,
+              scale: float | None = None) -> torch.Tensor:
+    """Dense reference attention with fp32 softmax.
+
+    q: [B, Sq, N, D]; k/v: [B, Sk, kvN, D]; mask: broadcastable to
+    [B, N, Sq, Sk] (True = attend; masked logits are -1e30)."""
+    n_rep = q.shape[2] // k.shape[2]
+    k = repeat_kv(k, n_rep)
+    v = repeat_kv(v, n_rep)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * scale
+    if mask is not None:
+        logits = torch.where(mask, logits,
+                             torch.full((), NEG_INF, dtype=logits.dtype,
+                                        device=logits.device))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bnqk,bknd->bqnd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def causal_mask(sq: int, sk: int, q_offset: int = 0,
+                window: int | None = None,
+                device=None) -> torch.Tensor:
+    """[Sq, Sk] boolean causal mask; query i attends to keys <= q_offset + i
+    (and, with ``window``, to keys with q_pos - k_pos < window)."""
+    qi = torch.arange(sq, device=device)[:, None] + q_offset
+    ki = torch.arange(sk, device=device)[None, :]
+    mask = ki <= qi
+    if window is not None:
+        mask = mask & (ki > qi - window)
+    return mask
