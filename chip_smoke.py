@@ -10,28 +10,35 @@ Phases, in order; any failure exits non-zero:
   2. build    — compile csrc/*.cu (nvcc, sm_90a) and print the build time
                 and the ptxas register / shared-memory lines.
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
-                card, at the main path's shapes (Llama-2-7B: N=kvN=32,
-                D=128, page 128, batch 8, 128-token prompts, kv_len
-                128-160, bf16), a GQA shape (TinyLlama: N=32, kvN=4,
-                D=64) and a ragged prompt (S=100); max |error| beside its
-                tolerance, kernel / plain / library times from CUDA
-                events, and the bound (the least time for the bytes and
+                card, at the main paths' shapes (Llama-2-7B: H=4096,
+                I=11008, N=kvN=32, D=128, V=32000, page 128, batch 8,
+                128-token prompts, kv_len 128-160, bf16), a GQA shape
+                (TinyLlama: H=2048, I=5632, N=32, kvN=4, D=64), ragged
+                prompts and K % 128 != 0; max |error| beside its
+                tolerance, kernel / plain / library times from CUDA-graph
+                replay, and the bound (the least time for the bytes and
                 operations of the call on an H100 SXM: 3.35 TB/s,
                 989 TFLOP/s bf16, 67 TFLOP/s f32).
   4. engine   — the Engine serving Llama-2-7B at full width and depth
-                (32 layers, bf16 random weights from a seeded generator on
-                the card): 8 requests of 128-token prompts, 32 new tokens,
-                burst 16, page 128. All must finish; each kernel's launch
-                count must match layers x (prefill dispatches or decode
-                steps); no plain version may run on the card. Decode
-                tokens/s from the median walls of interleaved 32- and
-                16-token runs, after a 32-token warm-up.
+                (32 layers, random weights from a seeded generator on the
+                card), 8 requests of 128-token prompts, 32 new tokens,
+                burst 16, page 128, twice: with INT8 weights as bench.py
+                draws them (its default path) and with bf16 weights
+                (bench.py --fp). All requests must finish; each kernel's
+                launch count, reset to 0 before the measured run of a path
+                and read after it, must match what that path implies; no
+                plain version may run on the card. Decode tokens/s from the
+                median walls of interleaved 32- and 16-token runs, after a
+                32-token warm-up, and one graph-replayed decode step beside
+                its bytes floor.
   5. cpu      — the same port at Llama-2-7B width, 2 layers, f32, TF32 off,
                 on the card (kernels) and on the host CPU (plain
-                versions), from one numpy draw of the weights, 4 requests:
-                prefill and per-step logits of forward_paged within 1e-3,
-                and the Engine's greedy tokens equal on both devices except
-                where the top-2 margin is below that tolerance.
+                versions), from one numpy draw of the weights, 4 requests,
+                with bf16-path float weights and with INT8 weights
+                quantized by the port: prefill and per-step logits of
+                forward_paged within 1e-3, and the Engine's greedy tokens
+                equal on both devices except where the top-2 margin is
+                below that tolerance.
 
 Then one line ``{"kernels": [...]}`` and, last, the result line
 ``{"ok": true, "device": {...}}``; both only when every phase ran
@@ -53,6 +60,12 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"bfloat16": 989e12,     # dense tensor-core bf16
             "float32": 67e12}       # f32 outside the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# the INT8 kernels: f32 outputs within this share of the output's largest
+# magnitude (f32 sums in another order); bf16 outputs of quantized_matmul
+# within one bf16 ulp beyond that; the fused kernels (which also round
+# intermediates to bf16) within TOL["bfloat16"] of the output's standard
+# deviation
+F32_REL = 1e-5
 LOGIT_TOL = 1e-3
 RATE_RUNS = 5                       # engine runs per length for the rate
 PHASES = ("device", "build", "kernels", "engine", "cpu")
@@ -70,7 +83,17 @@ KERNELS = {
     "paged_flash_decode": dict(
         source="simplellminference_tpu_torch/csrc/paged_decode.cu",
         replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "quantized_matmul": dict(
+        source="simplellminference_tpu_torch/csrc/quantized_matmul.cu",
+        replaces="simplellminference_tpu/ops/matmul.py:522"),
+    "fused_qkv_append": dict(
+        source="simplellminference_tpu_torch/csrc/qkv_fused.cu",
+        replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
+    "fused_ffn": dict(
+        source="simplellminference_tpu_torch/csrc/ffn_fused.cu",
+        replaces="simplellminference_tpu/ops/ffn_fused.py:138"),
 }
+PATHS = ("int8", "bf16")              # the Engine's weight paths, in order
 
 
 class SmokeFailure(Exception):
@@ -378,20 +401,264 @@ def check_paged_decode(torch, dev, results):
     results["paged_flash_decode"] = main
 
 
+def _qweight(torch, gen, dev, shape, groups):
+    """Random int8 [.., K, N] and f32 scales [.., groups, N] around bench.py's
+    K**-0.5 / 127, varied per column so that a column mix-up shows."""
+    q = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand((*shape[:-2], groups, shape[-1]), generator=gen,
+                   device=dev) + 0.5
+    return q, s * (shape[-2] ** -0.5 / 127.0)
+
+
+def _bf16_ulp(torch, a):
+    return torch.exp2(torch.floor(torch.log2(
+        a.float().abs().clamp_min(2.0 ** -100))) - 7)
+
+
+def _int8pack(torch, q, s, dtype):
+    """Operands of torch._weight_int8pack_mm (the library yardstick for a
+    per-channel int8 product; the port never calls it): [N, K] int8 and
+    [N] scales in the activation dtype."""
+    return q.t().contiguous(), s.reshape(-1).to(dtype).contiguous()
+
+
+def check_quantized_matmul(torch, dev, results, extra):
+    from simplellminference_tpu_torch.ops.matmul import (
+        quantized_matmul, quantized_matmul_ref)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf, f32 = torch.bfloat16, torch.float32
+    # tag: (m, k, n, scale groups, x dtype, out dtype); the first three
+    # are the 7B main path's calls (wo and the LM head per decode step,
+    # wqkv at the 8 x 128-token prefill), timed; the first is the row
+    cases = {
+        "llama2-7b wo decode": (8, 4096, 4096, 1, bf, bf),
+        "llama2-7b lm_head decode": (8, 4096, 32000, 1, bf, f32),
+        "llama2-7b wqkv prefill": (1024, 4096, 12288, 1, bf, bf),
+        "llama2-7b wo group128": (8, 4096, 4096, 32, bf, bf),
+        "tinyllama wqkv decode f32": (8, 2048, 2560, 1, f32, f32),
+        "tinyllama w_down prefill": (512, 5632, 2048, 1, bf, bf),
+        "k4000 decode f32": (8, 4000, 4096, 1, f32, f32),
+        "k1000 prefill group125": (100, 1000, 2048, 8, bf, f32),
+    }
+    timed = list(cases)[:3]
+    for tag, (m, k, n, groups, xdt, odt) in cases.items():
+        q, s = _qweight(torch, gen, dev, (2, k, n), groups)
+        x = torch.randn((m, k), generator=gen, device=dev).to(xdt)
+        got = quantized_matmul(x, q, s, out_dtype=odt, layer=1)
+        want = quantized_matmul_ref(x, q, s, out_dtype=odt, layer=1)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        diff = (got.float() - want.float()).abs()
+        if odt == torch.float32:
+            lim = F32_REL * float(want.abs().max())
+            ok = err <= lim
+            rule = f"tol {lim:.3e} = {F32_REL:g} x max|out|"
+        else:
+            # one bf16 ulp of each output, beyond the f32 summation
+            # difference (which decides the rounding of outputs near 0)
+            ulp = _bf16_ulp(torch, torch.maximum(got.float().abs(),
+                                                 want.float().abs()))
+            slack = F32_REL * float(want.float().abs().max())
+            ok = bool((diff <= ulp + slack).all())
+            rule = (f"tol one bf16 ulp of each output + {slack:.3e} = "
+                    f"{F32_REL:g} x max|out|")
+        print(f"[kernels] quantized_matmul {tag} (m={m} k={k} n={n} "
+              f"groups={groups}): max|err| {err:.3e} ({rule})", flush=True)
+        require(bool(torch.isfinite(got).all()) and ok,
+                f"quantized_matmul {tag} disagrees: {err}")
+        if tag not in timed:
+            continue
+        es = x.element_size()
+        nbytes = (m * k * es + k * n + groups * n * 4
+                  + m * n * got.element_size())
+        bms, by = bound_ms(nbytes, 2.0 * m * k * n, dname(torch, xdt))
+        if m <= 8:
+            qt, st = _int8pack(torch, q[1], s[1], xdt)
+            lib_name = LIBRARY["quantized_matmul"]
+
+            def library():
+                return torch._weight_int8pack_mm(x, qt, st)
+        else:
+            wb = (q[1].to(xdt) * s[1].to(xdt))
+            lib_name = "torch.matmul on the bf16 weight"
+
+            def library():
+                return torch.matmul(x, wb)
+        r = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: quantized_matmul(
+                x, q, s, out_dtype=odt, layer=1)),
+            plain_ms=time_ms(torch, lambda: quantized_matmul_ref(
+                x, q, s, out_dtype=odt, layer=1), iters=5),
+            library_ms=time_ms(torch, library),
+            bound_ms=bms, bound_by=by, library=lib_name)
+        extra.append(("quantized_matmul", tag, r))
+        if "quantized_matmul" not in results:
+            results["quantized_matmul"] = r
+
+
+def check_fused_qkv(torch, dev, results, extra):
+    from simplellminference_tpu_torch.ops import ref_ops
+    from simplellminference_tpu_torch.ops.qkv_fused import (
+        fused_qkv_append, fused_qkv_append_ref)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    bf, f32 = torch.bfloat16, torch.float32
+    # tag: (b, h, n, kvn, d, activation dtype, pool dtype, unmapped row)
+    cases = {
+        "llama2-7b": (8, 4096, 32, 32, 128, bf, bf, False),
+        "llama2-7b unmapped row": (8, 4096, 32, 32, 128, bf, bf, True),
+        "tinyllama-gqa f32": (8, 2048, 32, 4, 64, f32, f32, True),
+        "tinyllama-gqa bf16": (5, 2048, 32, 4, 64, bf, bf, False),
+    }
+    for tag, (b, h, n, kvn, d, xdt, pdt, unmapped) in cases.items():
+        ps, mp, layer = 128, 3, 1
+        nq = (n + 2 * kvn) * d
+        wq, ws = _qweight(torch, gen, dev, (2, h, nq), 1)
+        nw = (1.0 + 0.1 * torch.randn((2, h), generator=gen, device=dev)
+              ).to(xdt)
+        x = torch.randn((b, h), generator=gen, device=dev).to(xdt)
+        pk, pv = _pools(torch, gen, dev, 2, b * mp, kvn, ps, d, pdt)
+        tables = _tables(torch, dev, b, mp, dead_last=False)
+        pos = (128 + 4 * torch.arange(b, device=dev)).to(torch.int32)
+        if unmapped:
+            tables[-1, 1] = -1          # the last row writes to the trash
+        sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
+        a, r = (pk.clone(), pv.clone()), (pk.clone(), pv.clone())
+        qa, *_ = fused_qkv_append(x, nw, wq, ws, sin, cos, *a, layer, pos,
+                                  n_heads=n, kv_heads=kvn, tables=tables)
+        qr, *_ = fused_qkv_append_ref(x, nw, wq, ws, sin, cos, *r, layer,
+                                      pos, n_heads=n, kv_heads=kvn,
+                                      tables=tables)
+        torch.cuda.synchronize()
+        page = tables.long()[torch.arange(b, device=dev), pos.long() // ps]
+        page = torch.where(page >= 0, page, pk.shape[1] - 1)
+        written = torch.zeros(pk.shape, dtype=torch.bool, device=dev)
+        written[layer, page, :, pos.long() % ps] = True
+        err = max_err(qa, qr)
+        kv_err = max(max_err(ta[written], tr[written])
+                     for ta, tr in zip(a, r))
+        untouched = all(torch.equal(ta[~written], tr[~written])
+                        for ta, tr in zip(a, r))
+        if xdt == torch.float32:
+            lim_q = F32_REL * float(qr.abs().max())
+            lim_kv = F32_REL * max(float(tr[written].abs().max())
+                                   for tr in r)
+        else:
+            lim_q = TOL["bfloat16"] * float(qr.float().std())
+            lim_kv = TOL["bfloat16"] * max(float(tr[written].float().std())
+                                           for tr in r)
+        print(f"[kernels] fused_qkv_append {tag}: q max|err| {err:.3e} "
+              f"(tol {lim_q:.3e}); k/v rows {kv_err:.3e} (tol "
+              f"{lim_kv:.3e}); other pool entries equal: {untouched}",
+              flush=True)
+        require(bool(torch.isfinite(qa).all()) and err <= lim_q
+                and kv_err <= lim_kv and untouched,
+                f"fused_qkv_append {tag} disagrees: {err}, {kv_err}, "
+                f"{untouched}")
+        if "fused_qkv_append" in results:
+            continue
+        es, pes = x.element_size(), pk.element_size()
+        nbytes = (h * nq + nq * 4 + b * h * es + h * nw.element_size()
+                  + 2 * b * (d // 2) * 4 + b * n * d * es
+                  + 2 * b * kvn * d * pes + tables.numel() * 4 + b * 4)
+        bms, by = bound_ms(nbytes, 2.0 * b * h * nq, dname(torch, xdt))
+        qt, st = _int8pack(torch, wq[layer], ws[layer], xdt)
+        results["fused_qkv_append"] = dict(
+            max_abs_err=max(err, kv_err),
+            ms=time_ms(torch, lambda: fused_qkv_append(
+                x, nw, wq, ws, sin, cos, *a, layer, pos, n_heads=n,
+                kv_heads=kvn, tables=tables)),
+            plain_ms=time_ms(torch, lambda: fused_qkv_append_ref(
+                x, nw, wq, ws, sin, cos, *r, layer, pos, n_heads=n,
+                kv_heads=kvn, tables=tables)),
+            library_ms=time_ms(torch, lambda: torch._weight_int8pack_mm(
+                x, qt, st)),
+            bound_ms=bms, bound_by=by)
+
+
+def check_fused_ffn(torch, dev, results, extra):
+    from simplellminference_tpu_torch.ops.ffn_fused import (fused_ffn,
+                                                            fused_ffn_ref)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = {"llama2-7b": (8, 4096, 11008, bf),
+             "tinyllama f32": (3, 2048, 5632, f32),
+             "tinyllama m40": (40, 2048, 5632, bf)}
+    for tag, (m, h, inter, xdt) in cases.items():
+        layer = 1
+        q1, s1 = _qweight(torch, gen, dev, (2, h, 2 * inter), 1)
+        q2, s2 = _qweight(torch, gen, dev, (2, inter, h), 1)
+        nw = (1.0 + 0.1 * torch.randn((2, h), generator=gen, device=dev)
+              ).to(xdt)
+        x = torch.randn((m, h), generator=gen, device=dev).to(xdt)
+        got = fused_ffn(x, nw, q1, s1, q2, s2, layer)
+        want = fused_ffn_ref(x, nw, q1, s1, q2, s2, layer)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        lim = (F32_REL * float(want.abs().max()) if xdt == torch.float32
+               else TOL["bfloat16"] * float(want.float().std()))
+        print(f"[kernels] fused_ffn {tag} (m={m}): max|err| {err:.3e} "
+              f"(tol {lim:.3e})", flush=True)
+        require(bool(torch.isfinite(got).all()) and err <= lim,
+                f"fused_ffn {tag} disagrees: {err}")
+        if "fused_ffn" in results:
+            continue
+        es = x.element_size()
+        nbytes = (3 * h * inter + (2 * inter + h) * 4 + 2 * m * h * es
+                  + h * nw.element_size())
+        bms, by = bound_ms(nbytes, 6.0 * m * h * inter, dname(torch, xdt))
+        q1t, s1t = _int8pack(torch, q1[layer], s1[layer], xdt)
+        q2t, s2t = _int8pack(torch, q2[layer], s2[layer], xdt)
+        hx = torch.randn((m, inter), generator=gen, device=dev).to(xdt)
+        results["fused_ffn"] = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: fused_ffn(x, nw, q1, s1, q2, s2,
+                                                layer)),
+            plain_ms=time_ms(torch, lambda: fused_ffn_ref(
+                x, nw, q1, s1, q2, s2, layer)),
+            library_ms=time_ms(torch, lambda: (
+                torch._weight_int8pack_mm(x, q1t, s1t),
+                torch._weight_int8pack_mm(hx, q2t, s2t))),
+            bound_ms=bms, bound_by=by)
+
+
+LIBRARY = {"paged_append_decode": "index_put_ x2",
+           "paged_append_prefill": "index_copy_ x2",
+           "flash_prefill": "scaled_dot_product_attention, causal",
+           "paged_flash_decode": "scaled_dot_product_attention on gathered "
+                                 "K/V",
+           "quantized_matmul": "torch._weight_int8pack_mm",
+           "fused_qkv_append": "torch._weight_int8pack_mm of the qkv "
+                               "product alone",
+           "fused_ffn": "torch._weight_int8pack_mm x2 (gate_up, down)"}
+
+
 def phase_kernels(torch, results):
     dev = torch.device("cuda")
+    extra: list = []
     check_append_decode(torch, dev, results)
     check_append_prefill(torch, dev, results)
     check_flash_prefill(torch, dev, results)
     check_paged_decode(torch, dev, results)
-    for name, r in results.items():
-        print(f"[kernels] {name}: {r['ms']:.4f} ms (plain "
-              f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
-              f"{r['bound_ms']:.4f} by {r['bound_by']})", flush=True)
+    check_quantized_matmul(torch, dev, results, extra)
+    check_fused_qkv(torch, dev, results, extra)
+    check_fused_ffn(torch, dev, results, extra)
+    torch.cuda.empty_cache()
+    rows = [(name, "main path shape", r) for name, r in results.items()]
+    rows += [(name, tag, r) for name, tag, r in extra]
+    for name, tag, r in rows:
+        print(f"[kernels] {name} ({tag}): {r['ms']:.6g} ms (plain "
+              f"{r['plain_ms']:.6g}, library {r['library_ms']:.6g} "
+              f"[{r.get('library', LIBRARY[name])}], bound "
+              f"{r['bound_ms']:.6g} by {r['bound_by']})", flush=True)
 
 
 def _wrappers():
+    from simplellminference_tpu_torch.ops import ffn_fused as ff
+    from simplellminference_tpu_torch.ops import matmul as mm
     from simplellminference_tpu_torch.ops import paged_append as pa
+    from simplellminference_tpu_torch.ops import qkv_fused as qf
     from simplellminference_tpu_torch.ops.attention import (flash_prefill as
                                                             fp, paged_decode
                                                             as pd)
@@ -401,7 +668,12 @@ def _wrappers():
                                      pa.paged_append_prefill_ref),
             "flash_prefill": (fp.flash_prefill, fp.flash_prefill_ref),
             "paged_flash_decode": (pd.paged_flash_decode,
-                                   pd.paged_flash_decode_ref)}
+                                   pd.paged_flash_decode_ref),
+            "quantized_matmul": (mm.quantized_matmul,
+                                 mm.quantized_matmul_ref),
+            "fused_qkv_append": (qf.fused_qkv_append,
+                                 qf.fused_qkv_append_ref),
+            "fused_ffn": (ff.fused_ffn, ff.fused_ffn_ref)}
 
 
 def reset_counts():
@@ -410,23 +682,91 @@ def reset_counts():
         ref.cuda_calls = 0
 
 
-def phase_engine(torch, launches: dict):
+def int8_params(torch, cfg, dev, seed: int = 0) -> dict:
+    """Llama weights as bench.py:60-99 draws them for its default INT8
+    path, from a seeded generator on the card: random int8 [.., K, N]
+    with per-output-channel f32 scales K**-0.5 / 127 (an INT8 LM head
+    too), a bf16 embedding of int8 draws x 0.002, bf16 norms of ones."""
+    from simplellminference_tpu_torch.ops.linear import QuantizedWeight
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    n, kvn, d, L = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                    cfg.num_layers)
+    bf = torch.bfloat16
+
+    def i8(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def w(shape):
+        return QuantizedWeight(q=i8(shape), scales=torch.full(
+            (*shape[:-2], 1, shape[-1]), shape[-2] ** -0.5 / 127.0,
+            device=dev))
+
+    return {"embed": i8((v, h)).to(bf) * 0.002,
+            "layers": {"input_norm": torch.ones((L, h), dtype=bf,
+                                                device=dev),
+                       "post_norm": torch.ones((L, h), dtype=bf, device=dev),
+                       "wqkv": w((L, h, (n + 2 * kvn) * d)),
+                       "wo": w((L, n * d, h)),
+                       "w_gate_up": w((L, h, 2 * i)),
+                       "w_down": w((L, i, h))},
+            "final_norm": torch.ones((h,), dtype=bf, device=dev),
+            "lm_head": w((h, v))}
+
+
+def _nbytes(w) -> int:
+    if hasattr(w, "q"):
+        return w.q.numel() + w.scales.numel() * w.scales.element_size()
+    return w.numel() * w.element_size()
+
+
+def step_weight_bytes(params, batch: int) -> int:
+    """Weight bytes one decode step must read: every layer weight, the
+    final norm, the LM head, and the batch's embedding rows."""
+    e = params["embed"]
+    head = params.get("lm_head")
+    return (sum(_nbytes(w) for w in params["layers"].values())
+            + _nbytes(params["final_norm"])
+            + (_nbytes(head) if head is not None else _nbytes(e))
+            + batch * e.shape[1] * e.element_size())
+
+
+def path_launches(path: str, layers: int, prefills: int,
+                  steps: int) -> dict:
+    """Launches each kernel must show in one Engine run of a path: the
+    prefill (8 x 128 rows, so m > 64 and the FFN runs unfused) launches
+    4 quantized_matmul per layer plus the INT8 LM head; each decode step
+    launches the fused qkv and FFN per layer, wo per layer, and the head."""
+    want = {"flash_prefill": layers * prefills,
+            "paged_append_prefill": layers * prefills,
+            "paged_flash_decode": layers * steps}
+    if path == "int8":
+        want.update(paged_append_decode=0,
+                    quantized_matmul=((4 * layers + 1) * prefills
+                                      + (layers + 1) * steps),
+                    fused_qkv_append=layers * steps,
+                    fused_ffn=layers * steps)
+    else:
+        want.update(paged_append_decode=layers * steps, quantized_matmul=0,
+                    fused_qkv_append=0, fused_ffn=0)
+    return want
+
+
+def serve_path(torch, path: str, cfg, params, launches: dict,
+               dev: str = "cuda"):
+    """Drive one weight path of the Engine: warm-up, the measured run with
+    every launch count reset before it and read after it, the decode rate,
+    and one graph-replayed decode step beside its bytes floor."""
     import numpy as np
 
     from simplellminference_tpu_torch.core.config import (EngineConfig,
                                                           KVCacheConfig,
-                                                          ModelConfig,
                                                           SamplingParams)
     from simplellminference_tpu_torch.engine import Engine
     from simplellminference_tpu_torch.models import llama
 
-    cfg = ModelConfig.llama2_7b(dtype="bfloat16")
     layers = cfg.num_layers
-    t0 = time.perf_counter()
-    params = llama.init_params(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    print(f"[engine] Llama-2-7B width, {layers} layers, bf16 random "
-          f"weights in {time.perf_counter() - t0:.1f} s", flush=True)
     batch, prompt_len, new, burst, ps = 8, 128, 32, 16, 128
     cap = prompt_len + new + 2 * burst + ps
     ecfg = EngineConfig(
@@ -437,7 +777,7 @@ def phase_engine(torch, launches: dict):
     rng = np.random.default_rng(0)
 
     def serve(max_new: int):
-        eng = Engine(cfg, params, ecfg, decode_burst=burst, device="cuda")
+        eng = Engine(cfg, params, ecfg, decode_burst=burst, device=dev)
         reqs = [eng.add_request(
             prompt_ids=rng.integers(1, cfg.vocab_size, prompt_len).tolist(),
             sampling=SamplingParams(max_new_tokens=max_new))
@@ -451,23 +791,26 @@ def phase_engine(torch, launches: dict):
     serve(new)                  # warm-up at the measured length
     reset_counts()
     eng, reqs, wall = serve(new)                      # the measured run
+    got = {}
     for name, (kern, ref) in _wrappers().items():
-        launches[name] = kern.launches
+        got[name] = kern.launches
         require(ref.cuda_calls == 0,
-                f"plain {name} ran on the card {ref.cuda_calls} times")
+                f"[{path}] plain {name} ran on the card {ref.cuda_calls} "
+                f"times")
+    launches[path] = got
     for r in reqs:
         require(r.state.value == "finished" and len(r.output_ids) == new,
-                f"request {r.req_id}: {r.state} with {len(r.output_ids)} "
-                f"tokens")
+                f"[{path}] request {r.req_id}: {r.state} with "
+                f"{len(r.output_ids)} tokens")
         require(all(0 <= t < cfg.vocab_size for t in r.output_ids),
-                "token id out of range")
+                f"[{path}] token id out of range")
+    require(eng.metrics.prefills == batch, f"[{path}] {eng.metrics.prefills} "
+            f"requests prefilled, expected {batch}")
     steps = eng.metrics.decode_bursts * burst
-    want = {"flash_prefill": layers, "paged_append_prefill": layers,
-            "paged_append_decode": layers * steps,
-            "paged_flash_decode": layers * steps}
+    want = path_launches(path, layers, 1, steps)
     for name, n in want.items():
-        require(launches[name] == n and n > 0,
-                f"{name}: {launches[name]} launches, path implies {n}")
+        require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
+                f"path implies {n}")
     # decode rate by differencing full and half-length runs (bench.py's
     # method): fresh-engine runs, interleaved, the rate from the medians
     # and its spread from each adjacent (full, half) pair
@@ -479,41 +822,58 @@ def phase_engine(torch, launches: dict):
     tokens = batch * (new - new // 2)
     wall_full = statistics.median(walls)
     wall_half = statistics.median(halves)
-    require(wall_full > wall_half, f"median walls: {new} tokens "
+    require(wall_full > wall_half, f"[{path}] median walls: {new} tokens "
             f"{wall_full} s, {new // 2} tokens {wall_half} s")
     decode_tps = tokens / (wall_full - wall_half)
     pair_tps = [tokens / (f - h) for f, h in zip(walls, halves)]
-    print(f"[engine] {batch} requests x {new} tokens: walls {walls} s "
-          f"({eng.metrics.decode_bursts} bursts x {burst} steps); "
+    print(f"[engine:{path}] {batch} requests x {new} tokens: walls {walls} "
+          f"s ({eng.metrics.decode_bursts} bursts x {burst} steps); "
           f"{new // 2}-token walls {halves} s", flush=True)
-    print(f"[engine] decode {decode_tps} tok/s (median-wall difference); "
-          f"per pair {pair_tps}", flush=True)
-    print(f"[engine] launches {json.dumps(launches)}", flush=True)
+    print(f"[engine:{path}] decode {decode_tps} tok/s (median-wall "
+          f"difference); per pair {pair_tps}", flush=True)
+    print(f"[engine:{path}] launches {json.dumps(got)}", flush=True)
 
     # One decode step's device time without host gaps: forward_paged at
     # the run's mean context, captured in a CUDA graph and replayed.
     ctx = prompt_len + new // 2 + new // 4
     mp = ecfg.kv.max_pages_per_seq
     tables = torch.arange(batch * mp, dtype=torch.int32,
-                          device="cuda").reshape(batch, mp)
-    tok = torch.ones((batch, 1), dtype=torch.int32, device="cuda")
-    pos = torch.full((batch, 1), ctx - 1, dtype=torch.int32, device="cuda")
+                          device=dev).reshape(batch, mp)
+    tok = torch.ones((batch, 1), dtype=torch.int32, device=dev)
+    pos = torch.full((batch, 1), ctx - 1, dtype=torch.int32, device=dev)
     step_ms = time_ms(torch, lambda: llama.forward_paged(
         cfg, params, tok, pos, eng.cache, tables, pos[:, 0] + 1,
         prefill=False), iters=5)
     engine_step_ms = (wall_full - wall_half) * 1e3 / (new - new // 2)
-    wbytes = sum(t.numel() * t.element_size()
-                 for t in [params["embed"], params["final_norm"],
-                           params["lm_head"], *params["layers"].values()])
+    wbytes = step_weight_bytes(params, batch)
     kvbytes = 2 * layers * batch * ctx * cfg.num_kv_heads * cfg.head_dim * 2
     floor_ms = (wbytes + kvbytes) / HBM_BYTES_PER_S * 1e3
-    print(f"[engine] decode step: engine {engine_step_ms:.3f} ms, device "
-          f"(graph replay) {step_ms:.3f} ms, bytes floor {floor_ms:.3f} ms "
-          f"({wbytes / 1e9:.2f} GB weights + {kvbytes / 1e9:.3f} GB KV); "
-          f"device idle share of the engine step "
-          f"{max(0.0, 1 - step_ms / engine_step_ms):.3f}", flush=True)
-    del params, eng
-    torch.cuda.empty_cache()
+    print(f"[engine:{path}] decode step: engine {engine_step_ms:.3f} ms, "
+          f"device (graph replay) {step_ms:.3f} ms, bytes floor "
+          f"{floor_ms:.3f} ms ({wbytes / 1e9:.3f} GB weights + "
+          f"{kvbytes / 1e9:.3f} GB KV); device idle share of the engine "
+          f"step {max(0.0, 1 - step_ms / engine_step_ms):.3f}", flush=True)
+    del eng
+
+
+def phase_engine(torch, launches: dict):
+    from simplellminference_tpu_torch.core.config import ModelConfig
+    from simplellminference_tpu_torch.models import llama
+
+    cfg = ModelConfig.llama2_7b(dtype="bfloat16")
+    for path in PATHS:
+        t0 = time.perf_counter()
+        if path == "int8":
+            params = int8_params(torch, cfg, "cuda", seed=0)
+        else:
+            params = llama.init_params(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        print(f"[engine:{path}] Llama-2-7B width, {cfg.num_layers} layers, "
+              f"{path} random weights in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        serve_path(torch, path, cfg, params, launches)
+        del params
+        torch.cuda.empty_cache()
 
 
 def _trace(torch, cfg, params, prompts, steps, device):
@@ -555,15 +915,88 @@ def _trace(torch, cfg, params, prompts, steps, device):
     return torch.stack(out_toks, 1), torch.stack(outs, 0)
 
 
+def _to_device(tree, dev):
+    from simplellminference_tpu_torch.ops.linear import QuantizedWeight
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, QuantizedWeight):
+        return QuantizedWeight(q=tree.q.to(dev), scales=tree.scales.to(dev))
+    return tree.to(dev)
+
+
+def card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps):
+    """Greedy trace and Engine run of the same weights on the card and on
+    the host CPU: logits within LOGIT_TOL, greedy tokens equal except
+    where the CPU trace's top-2 margin is below it."""
+    from simplellminference_tpu_torch.core.config import (EngineConfig,
+                                                          KVCacheConfig,
+                                                          SamplingParams)
+    from simplellminference_tpu_torch.engine import Engine
+
+    t0 = time.perf_counter()
+    tok_g, lg_g = _trace(torch, cfg, p_gpu, prompts, steps, "cuda")
+    tok_c, lg_c = _trace(torch, cfg, p_cpu, prompts, steps, "cpu")
+    print(f"[cpu:{tag}] Llama-2-7B width, 2 layers, f32, TF32 off: "
+          f"{len(prompts)} requests, prefill + {steps} steps on card and "
+          f"CPU in {time.perf_counter() - t0:.1f} s", flush=True)
+    worst = 0.0
+    for r in range(len(prompts)):
+        for t in range(steps + 1):
+            e = max_err(lg_g[t, r], lg_c[t, r])
+            worst = max(worst, e)
+            require(e <= LOGIT_TOL,
+                    f"[{tag}] request {r} step {t}: logits differ by {e:.3e}")
+            if int(tok_g[r, t]) != int(tok_c[r, t]):
+                top2 = torch.topk(lg_c[t, r], 2).values
+                margin = float(top2[0] - top2[1])
+                require(margin < LOGIT_TOL,
+                        f"[{tag}] request {r} step {t}: greedy tokens differ "
+                        f"with top-2 margin {margin:.3e}")
+                print(f"[cpu:{tag}] request {r} diverges at step {t}: top-2 "
+                      f"margin {margin:.3e} < {LOGIT_TOL}", flush=True)
+                break
+    print(f"[cpu:{tag}] logits max|card - cpu| {worst:.3e} (tol "
+          f"{LOGIT_TOL}); greedy tokens equal: "
+          f"{bool(torch.equal(tok_g, tok_c))}", flush=True)
+
+    # the same requests through the Engine on both devices: greedy outputs
+    # equal, or diverging only where the trace's top-2 margin is below the
+    # tolerance (the engine batch is the trace's)
+    ecfg = EngineConfig(max_batch_size=len(prompts), prefix_cache_entries=0,
+                        kv=KVCacheConfig(page_size=16, num_pages=64,
+                                         max_pages_per_seq=8,
+                                         kv_dtype="f32"))
+    samp = SamplingParams(max_new_tokens=steps + 1)
+    outs = []
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        eng = Engine(cfg, params, ecfg, decode_burst=4, device=dev)
+        outs.append(eng.generate(prompts, samp))
+    for r, (a, b) in enumerate(zip(*outs)):
+        require(len(a) == len(b) == steps + 1,
+                f"[{tag}] engine request {r} short")
+        require(b == tok_c[r].tolist(),
+                f"[{tag}] engine request {r} on the CPU departs from the "
+                f"trace")
+        t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if t is not None:
+            top2 = torch.topk(lg_c[t, r], 2).values
+            margin = float(top2[0] - top2[1])
+            require(margin < LOGIT_TOL,
+                    f"[{tag}] engine request {r} step {t}: card and CPU "
+                    f"differ with top-2 margin {margin:.3e}")
+            print(f"[cpu:{tag}] engine request {r} diverges at step {t}: "
+                  f"top-2 margin {margin:.3e} < {LOGIT_TOL}", flush=True)
+    print(f"[cpu:{tag}] engine greedy tokens card == cpu: "
+          f"{outs[0] == outs[1]}", flush=True)
+
+
 def phase_cpu(torch):
     import numpy as np
 
-    from simplellminference_tpu_torch.core.config import (EngineConfig,
-                                                          KVCacheConfig,
-                                                          ModelConfig,
-                                                          SamplingParams)
-    from simplellminference_tpu_torch.engine import Engine
+    from simplellminference_tpu_torch.core.config import (ModelConfig,
+                                                          QuantConfig)
     from simplellminference_tpu_torch.models.convert import params_from_jax
+    from simplellminference_tpu_torch.runtime.weights import quantize_params
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     torch.backends.cudnn.allow_tf32 = False
@@ -576,7 +1009,6 @@ def phase_cpu(torch):
         return rng.standard_normal(shape, dtype=np.float32) * np.float32(
             scale)
 
-    t0 = time.perf_counter()
     tree = {"embed": w((v, h), 0.02),
             "layers": {"input_norm": np.ones((L, h), np.float32),
                        "post_norm": np.ones((L, h), np.float32),
@@ -586,63 +1018,18 @@ def phase_cpu(torch):
                        "w_down": w((L, i, h), i ** -0.5)},
             "final_norm": np.ones((h,), np.float32),
             "lm_head": w((h, v), 0.02)}
-    p_gpu = params_from_jax(tree, device="cuda")
     p_cpu = params_from_jax(tree, device="cpu")
     del tree
     prompts = [rng.integers(1, v, ln).tolist() for ln in (40, 64, 17, 50)]
-    steps = 8
-    tok_g, lg_g = _trace(torch, cfg, p_gpu, prompts, steps, "cuda")
-    tok_c, lg_c = _trace(torch, cfg, p_cpu, prompts, steps, "cpu")
-    print(f"[cpu] Llama-2-7B width, 2 layers, f32, TF32 off: 4 requests, "
-          f"prefill + {steps} steps on card and CPU in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    worst = 0.0
-    for r in range(len(prompts)):
-        for t in range(steps + 1):
-            e = max_err(lg_g[t, r], lg_c[t, r])
-            worst = max(worst, e)
-            require(e <= LOGIT_TOL,
-                    f"request {r} step {t}: logits differ by {e:.3e}")
-            if int(tok_g[r, t]) != int(tok_c[r, t]):
-                top2 = torch.topk(lg_c[t, r], 2).values
-                margin = float(top2[0] - top2[1])
-                require(margin < LOGIT_TOL,
-                        f"request {r} step {t}: greedy tokens differ with "
-                        f"top-2 margin {margin:.3e}")
-                print(f"[cpu] request {r} diverges at step {t}: top-2 "
-                      f"margin {margin:.3e} < {LOGIT_TOL}", flush=True)
-                break
-    print(f"[cpu] logits max|card - cpu| {worst:.3e} (tol {LOGIT_TOL}); "
-          f"greedy tokens equal: {bool(torch.equal(tok_g, tok_c))}",
-          flush=True)
-
-    # the same 4 requests through the Engine on both devices: greedy
-    # outputs equal, or diverging only where the trace's top-2 margin is
-    # below the tolerance (the engine batch is the trace's: 4 rows)
-    ecfg = EngineConfig(max_batch_size=len(prompts), prefix_cache_entries=0,
-                        kv=KVCacheConfig(page_size=16, num_pages=64,
-                                         max_pages_per_seq=8,
-                                         kv_dtype="f32"))
-    samp = SamplingParams(max_new_tokens=steps + 1)
-    outs = []
-    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
-        eng = Engine(cfg, params, ecfg, decode_burst=4, device=dev)
-        outs.append(eng.generate(prompts, samp))
-    for r, (a, b) in enumerate(zip(*outs)):
-        require(len(a) == len(b) == steps + 1, f"engine request {r} short")
-        require(b == tok_c[r].tolist(),
-                f"engine request {r} on the CPU departs from the trace")
-        t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
-        if t is not None:
-            top2 = torch.topk(lg_c[t, r], 2).values
-            margin = float(top2[0] - top2[1])
-            require(margin < LOGIT_TOL,
-                    f"engine request {r} step {t}: card and CPU differ "
-                    f"with top-2 margin {margin:.3e}")
-            print(f"[cpu] engine request {r} diverges at step {t}: top-2 "
-                  f"margin {margin:.3e} < {LOGIT_TOL}", flush=True)
-    print(f"[cpu] engine greedy tokens card == cpu: {outs[0] == outs[1]}",
-          flush=True)
+    card_vs_cpu(torch, "bf16-path", cfg, _to_device(p_cpu, "cuda"), p_cpu,
+                prompts, steps=8)
+    # INT8: the same draw quantized by the port (per output channel, INT8
+    # LM head), on the CPU, then carried to the card byte for byte
+    q_cpu = quantize_params(p_cpu, QuantConfig(mode="int8", group_size=0,
+                                               quantize_lm_head=True))
+    del p_cpu
+    card_vs_cpu(torch, "int8", cfg, _to_device(q_cpu, "cuda"), q_cpu,
+                prompts, steps=8)
 
 
 def main(argv=None) -> int:
@@ -663,7 +1050,7 @@ def main(argv=None) -> int:
             raise SmokeFailure("run from the root of a repository checkout")
         sys.path.insert(0, str(ROOT))
         results: dict = {}
-        launches = {k: 0 for k in KERNELS}
+        launches: dict = {}
         phase_build()
         if "kernels" in phases:
             phase_kernels(torch, results)
@@ -681,9 +1068,12 @@ def main(argv=None) -> int:
     rows = []
     for kname, meta in KERNELS.items():
         r = results.get(kname, {})
+        by_path = {p: launches[p][kname] for p in PATHS}
         rows.append({"name": kname, "route": "cuda", **meta,
                      "status": "ported", "checked": bool(r),
-                     "launches": launches[kname],
+                     "launches": sum(by_path.values()),
+                     "launches_by_path": by_path,
+                     "library": LIBRARY[kname],
                      "max_abs_err": r.get("max_abs_err"),
                      "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                      "bound_ms": r.get("bound_ms"),

@@ -9,9 +9,11 @@ tensors and is the check the kernel is held against on the card.
 
     core/      — configs (a copy of the reference's), device selection
     memory/    — paged KV pools, page allocator
-    ops/       — plain ops, linear, paged writes, sampling, CUDA build
+    ops/       — plain ops, linear, INT8 matmul, fused qkv / FFN, paged
+                 writes, sampling, CUDA build
     ops/attention/ — flash prefill, paged flash decode, dispatch
     models/    — the Llama decoder over paged KV, JAX-params converter
+    runtime/   — post-hoc INT8 weight quantization (quantize_params)
     engine/    — continuous-batching serving engine
     tokenizer/ — tokenizer protocol, streaming detokenizer
 

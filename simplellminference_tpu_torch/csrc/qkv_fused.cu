@@ -1,0 +1,176 @@
+// Decode attention input in one launch: rmsnorm -> int8 qkv product x
+// per-channel scale -> RoPE on q and k -> k/v rows written in place into
+// the paged pools; q is returned.
+//
+// Replaces the TPU kernel of simplellminference_tpu/ops/qkv_fused.py:
+//   fused_qkv_append (_kernel, qkv_fused.py:37-184; wrapper :229) in its
+//   paged form (tables given), without the quantizing (INT8-KV) variant.
+//
+// Bound on the H100: bytes. The qkv weight ([H, (N + 2 kvN) D] int8, 50.3
+// MB at Llama-2-7B: 15.0 us at 3.35 TB/s) dominates; x, the tables and
+// the new rows are a few KB.
+//
+// Design: the TPU grid walks in order and carries the normalized rows and
+// the qkv columns in scratch from step to step; CUDA blocks run in
+// parallel and share nothing, so each block recomputes the rmsnorm of its
+// rows (one warp per row, from L2) and owns 128 whole columns: one head of
+// D = 128 (or 2 of 64, 4 of 32), so every RoPE pair (c, c + D/2) stays in
+// the block. It streams the int8 product over all of K (int8_rows.cuh:
+// 16-byte loads, f32 FMAs against the normalized rows in shared memory),
+// applies the per-channel scale, rotates q and k in f32, writes q out and
+// stores each k/v row straight into its pool slot. An unmapped (-1) page,
+// or a position past the table, writes to the trash page (the pool's last
+// page row), the rule of the port's paged_append_decode, so pools compare
+// page for page. The TPU kernel's 8-row read-modify-write windows and its
+// kv-first walk (qkv_fused.py:41-48, 152-175) served Pallas out-blocks and
+// the TPU's DMA queue; a CUDA thread stores only the row it owns, so both
+// are gone.
+//
+// Rounding: the normalized rows are rounded to the activation dtype (the
+// TPU kernel rounds them to bf16, qkv_fused.py:76-77) and everything after
+// stays f32 until q is stored in the activation dtype and k/v in the pool
+// dtype.
+#include "int8_rows.cuh"
+
+namespace {
+
+constexpr int QKV_CT = 8;                   // 16-column groups per block
+constexpr int QKV_CW = 16 * QKV_CT;         // 128 columns per block
+constexpr int QKV_KL = RT_THREADS / QKV_CT;
+
+__device__ __forceinline__ void store_pool(void* pool, int bf16, long long i,
+                                           float v) {
+  if (bf16) {
+    reinterpret_cast<__nv_bfloat16*>(pool)[i] = __float2bfloat16(v);
+  } else {
+    reinterpret_cast<float*>(pool)[i] = v;
+  }
+}
+
+// grid (ceil(B / 8), ceil(Nq / 128)).
+template <typename T>
+__global__ void __launch_bounds__(RT_THREADS, 1) qkv_fused_kernel(
+    const T* __restrict__ x, long long ldx, const void* __restrict__ nw,
+    int nw_bf16, const int8_t* __restrict__ wq, const float* __restrict__ ws,
+    const float* __restrict__ sin_t, const float* __restrict__ cos_t,
+    void* pool_k, void* pool_v, int pool_bf16, T* __restrict__ q_out,
+    const int* __restrict__ tables, const int* __restrict__ positions,
+    int layer, int num_pages1, int kvn, int ps, int mp, int b, int h,
+    int n_heads, int d, float eps, int vec) {
+  __shared__ __align__(16) float xs[RT_KC * RT_MT];
+  __shared__ __align__(16) float red[QKV_KL * QKV_CW];
+  __shared__ __align__(16) float tile[RT_MT * QKV_CW];
+  __shared__ float inv[RT_MT];
+  const int heads = n_heads + 2 * kvn;
+  const int nq = heads * d;
+  const int m0 = blockIdx.x * RT_MT;
+  const int col0 = blockIdx.y * QKV_CW;
+  const int tid = threadIdx.x;
+  const int ct = tid % QKV_CT;
+  const int klane = tid / QKV_CT;
+  const int c = col0 + ct * 16;
+
+  row_rms<T>(x, ldx, m0, b, h, eps, inv);
+  float acc[RT_MT][16];
+#pragma unroll
+  for (int r = 0; r < RT_MT; ++r)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc[r][j] = 0.f;
+  float sc[16];
+  int g_cur = 0;
+  for (int k0 = 0; k0 < h; k0 += RT_KC) {
+    const int kcnt = min(RT_KC, h - k0);
+    stage_rows<T, true>(x, ldx, m0, b, k0, kcnt, inv, nw, nw_bf16, xs);
+    stream_rows<QKV_KL, false>(acc, wq + (long long)k0 * nq, nq, c, nq,
+                               vec != 0, kcnt, klane, xs, nullptr, k0, h, sc,
+                               g_cur);
+  }
+  reduce_lanes<QKV_CT>(acc, red, tile);
+  for (int i = tid; i < RT_MT * QKV_CW; i += RT_THREADS) {
+    const int col = col0 + i % QKV_CW;
+    if (col < nq) tile[i] *= __ldg(ws + col);
+  }
+  __syncthreads();
+
+  const int half = d / 2;
+  for (int i = tid; i < RT_MT * QKV_CW / 2; i += RT_THREADS) {
+    const int r = i / (QKV_CW / 2);
+    const int p = i - r * (QKV_CW / 2);
+    const int t1 = (p / half) * d + p % half;  // first column of the pair
+    const int j = t1 % d;
+    const int head = (col0 + t1) / d;
+    const int row = m0 + r;
+    if (row >= b || head >= heads) continue;
+    const float x1 = tile[r * QKV_CW + t1];
+    const float x2 = tile[r * QKV_CW + t1 + half];
+    float r1 = x1, r2 = x2;
+    if (head < n_heads + kvn) {
+      const float s = sin_t[(long long)row * half + j];
+      const float co = cos_t[(long long)row * half + j];
+      r1 = x1 * co - x2 * s;
+      r2 = x2 * co + x1 * s;
+    }
+    if (head < n_heads) {
+      T* qo = q_out + ((long long)row * n_heads + head) * d;
+      qo[j] = sli::from_f<T>(r1);
+      qo[j + half] = sli::from_f<T>(r2);
+      continue;
+    }
+    const bool is_k = head < n_heads + kvn;
+    const int kh = is_k ? head - n_heads : head - n_heads - kvn;
+    const int pos = positions[row];
+    const int pc = pos >= 0 ? pos / ps : -1;
+    int page = (pc >= 0 && pc < mp) ? tables[(long long)row * mp + pc] : -1;
+    if (page < 0) page = num_pages1 - 1;
+    const int slot = pos >= 0 ? pos % ps : 0;
+    const long long off =
+        ((((long long)layer * num_pages1 + page) * kvn + kh) * ps + slot) *
+        (long long)d;
+    void* pool = is_k ? pool_k : pool_v;
+    store_pool(pool, pool_bf16, off + j, r1);
+    store_pool(pool, pool_bf16, off + j + half, r2);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// x: [b, h] at row stride ldx (x_dtype); nw: the layer's norm weight [h]
+// (f32, or bf16 when nw_bf16); wq: the layer's [h, (n_heads + 2 kvn) d]
+// int8; ws: its [(n_heads + 2 kvn) d] f32 scales; sin/cos: [b, d/2] f32;
+// pools: [L, num_pages1, kvn, ps, d] (f32, or bf16 when pool_bf16),
+// written in place at `layer`; q_out: [b, n_heads, d] (x_dtype); tables:
+// [b, mp] int32; positions: [b] int32. vec: wq and its row length allow
+// 16-byte loads.
+int sli_qkv_fused(const void* x, long long ldx, const void* nw, int nw_bf16,
+                  const void* wq, const float* ws, const float* sin_t,
+                  const float* cos_t, void* pool_k, void* pool_v,
+                  int pool_bf16, void* q_out, const int* tables,
+                  const int* positions, int layer, int num_pages1, int kvn,
+                  int ps, int mp, int b, int h, int n_heads, int d, float eps,
+                  int x_dtype, int vec, void* stream) {
+  if (b <= 0 || h <= 0 || n_heads <= 0 || kvn <= 0 || ps <= 0 || mp <= 0)
+    return SLI_ERR_SHAPE;
+  if (d != 32 && d != 64 && d != 128) return SLI_ERR_HEAD_DIM;
+  const int nq = (n_heads + 2 * kvn) * d;
+  const dim3 grid((b + RT_MT - 1) / RT_MT, (nq + QKV_CW - 1) / QKV_CW);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int8_t* w = (const int8_t*)wq;
+  if (x_dtype == SLI_F32) {
+    qkv_fused_kernel<float><<<grid, RT_THREADS, 0, st>>>(
+        (const float*)x, ldx, nw, nw_bf16, w, ws, sin_t, cos_t, pool_k,
+        pool_v, pool_bf16, (float*)q_out, tables, positions, layer,
+        num_pages1, kvn, ps, mp, b, h, n_heads, d, eps, vec);
+  } else if (x_dtype == SLI_BF16) {
+    qkv_fused_kernel<__nv_bfloat16><<<grid, RT_THREADS, 0, st>>>(
+        (const __nv_bfloat16*)x, ldx, nw, nw_bf16, w, ws, sin_t, cos_t,
+        pool_k, pool_v, pool_bf16, (__nv_bfloat16*)q_out, tables, positions,
+        layer, num_pages1, kvn, ps, mp, b, h, n_heads, d, eps, vec);
+  } else {
+    return SLI_ERR_DTYPE;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

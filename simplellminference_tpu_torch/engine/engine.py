@@ -23,11 +23,15 @@ Scheduling is the JAX engine's:
 plain methods here: a Python loop over the burst steps, launching the
 CUDA kernels on the card.
 
+The engine serves whatever weights ``params`` carries (bf16/f32, or INT8
+``QuantizedWeight`` leaves); like the JAX engine it never reads
+``EngineConfig.quant``.
+
 Features outside this configuration raise NotImplementedError naming the
 feature: speculative decoding, guided decoding, LoRA adapters,
 tensor/sequence parallelism, chunked prefill, the prefix cache (the port
-never shares prompt pages), top_logprobs, quantized weights and KV,
-sliding windows and the non-Llama model branches. The JAX engine's
+never shares prompt pages), top_logprobs, quantized KV, sliding windows
+and the non-Llama model branches. The JAX engine's
 ``forward_paged``, ``draft`` and ``loras`` constructor arguments are not
 taken yet.
 """
@@ -70,8 +74,6 @@ def _check_engine_config(ec: EngineConfig) -> None:
         raise NotImplementedError("sequence-parallel prefill")
     if ec.mesh_shape and int(np.prod(list(ec.mesh_shape.values()))) > 1:
         raise NotImplementedError("tensor-parallel serving (mesh_shape)")
-    if ec.quant.enabled:
-        raise NotImplementedError(f"{ec.quant.mode} weights")
     if ec.kv.kv_dtype not in ("bf16", "f32"):
         raise NotImplementedError(f"{ec.kv.kv_dtype} KV cache")
 

@@ -5,6 +5,8 @@ package's params pytree — already moved to host numpy arrays by the
 caller, so this module needs no JAX — into the port's dict of torch
 tensors, name for name, on a given device and dtype. Weights made once
 (from one seed, with numpy or with JAX) can then drive both packages.
+INT8 ``QuantizedWeight`` leaves become the port's ``QuantizedWeight``:
+the int8 ``q`` byte for byte, the scales as f32.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import torch
 
 from simplellminference_tpu_torch.core.device import (resolve_device,
                                                       torch_dtype)
+from simplellminference_tpu_torch.ops.linear import (QuantizedWeight,
+                                                     check_servable)
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -33,7 +37,8 @@ def params_from_jax(tree, device=None, dtype="float32") -> dict:
 
     Floating leaves become ``dtype`` on ``device`` (CUDA unless
     ``device="cpu"``); integer leaves keep their type. Quantized weights
-    (objects carrying ``q``/``scales``) are not served yet and raise."""
+    (objects carrying ``q``/``scales``/``bits``) become
+    :class:`QuantizedWeight`; INT4 and zero-point ones raise."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype)
 
@@ -41,7 +46,12 @@ def params_from_jax(tree, device=None, dtype="float32") -> dict:
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
         if hasattr(x, "q") and hasattr(x, "scales"):
-            raise NotImplementedError("INT8/INT4 weights (QuantizedWeight)")
+            w = QuantizedWeight(q=_tensor(x.q, dev, None),
+                                scales=_tensor(x.scales, dev, torch.float32),
+                                bits=int(getattr(x, "bits", 8)),
+                                zs=getattr(x, "zs", None))
+            check_servable(w)
+            return w
         return _tensor(x, dev, dt)
 
     return conv(tree)

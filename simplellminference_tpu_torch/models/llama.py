@@ -8,6 +8,17 @@ single-token decode. A Python loop over layers stands in for the
 ``lax.scan``; stacked [L, ...] weights are indexed per layer, and the KV
 pools are written in place.
 
+Weights are plain tensors or INT8 :class:`~simplellminference_tpu_torch.
+ops.linear.QuantizedWeight` leaves (``runtime.weights.quantize_params``
+or ``models.convert.params_from_jax``). With INT8 weights the JAX gates
+pick the fused kernels (llama.py:583-632, :766-790): ``fused_qkv_append``
+for decode with per-channel ``wqkv`` and ``fused_ffn`` for m = B*S <= 64
+rows with per-channel ``w_gate_up``/``w_down``, prefill included. The
+JAX package takes that route only on a TPU; the port takes it on any
+device, and each wrapper runs its CUDA kernel or, for CPU tensors, its
+plain version. The TPU's VMEM tiling gates (``qkv_tiles``, ``ffn_tiles``)
+describe the TPU and are dropped.
+
 Params dict (the JAX package's names, layers stacked on a leading L):
 
     {"embed": [V, H],
@@ -28,9 +39,9 @@ from simplellminference_tpu_torch.core.config import ModelConfig
 from simplellminference_tpu_torch.core.device import (resolve_device,
                                                       torch_dtype)
 from simplellminference_tpu_torch.memory import paged_kv as pkv
-from simplellminference_tpu_torch.ops import ref_ops
+from simplellminference_tpu_torch.ops import ffn_fused, qkv_fused, ref_ops
 from simplellminference_tpu_torch.ops.attention import dispatch
-from simplellminference_tpu_torch.ops.linear import linear
+from simplellminference_tpu_torch.ops.linear import dot_f32, linear
 
 Params = dict[str, Any]
 
@@ -98,23 +109,48 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                                                nope)[0]
     lw = params["layers"]
     pk, pv = cache.k, cache.v
+    # the JAX gates of llama.py:583-594 and :766-775, TPU tiling aside
+    use_fqkv = (not prefill and s == 1 and "q_norm" not in lw
+                and cfg.pre_norms and cfg.partial_rotary_factor == 1.0
+                and not cfg.rope_interleaved
+                and qkv_fused.fused_qkv_available(lw, cfg, b, s, pk))
+    use_fffn = (cfg.pre_norms and cfg.hidden_act == "silu"
+                and "post_ffn_norm" not in lw and "w_gate_up_bias" not in lw
+                and ffn_fused.fused_ffn_available(lw, cfg.hidden_size, i_sz,
+                                                  b * s))
     for li in range(cfg.num_layers):
-        h = ref_ops.rmsnorm(x, lw["input_norm"][li], eps)
-        qkv = linear(h, lw["wqkv"], layer=li)
-        q = qkv[..., :n * d].reshape(b, s, n, d)
-        k = qkv[..., n * d:(n + kvn) * d].reshape(b, s, kvn, d)
-        v = qkv[..., (n + kvn) * d:].reshape(b, s, kvn, d)
-        q = ref_ops.apply_rope(q, sin, cos)
-        k = ref_ops.apply_rope(k, sin, cos)
-        if prefill:
-            pkv.write_prefill_stacked(pk, pv, k, v, tables, li)
-            attn = dispatch.attention(cfg, q, k, v)
+        if use_fqkv:
+            w = lw["wqkv"]
+            q1, pk, pv = qkv_fused.fused_qkv_append(
+                x[:, 0], lw["input_norm"], w.q, w.scales, sin[:, 0],
+                cos[:, 0], pk, pv, li, positions[:, 0], n_heads=n,
+                kv_heads=kvn, eps=eps, tables=tables)
+            attn = dispatch.attention_paged(cfg, q1[:, None], pk, pv, tables,
+                                            kv_lens, li)
         else:
-            pkv.write_decode_stacked(pk, pv, k[:, 0], v[:, 0], tables,
-                                     positions[:, 0], li)
-            attn = dispatch.attention_paged(cfg, q, pk, pv, tables, kv_lens,
-                                            li)
+            h = ref_ops.rmsnorm(x, lw["input_norm"][li], eps)
+            qkv = linear(h, lw["wqkv"], layer=li)
+            q = qkv[..., :n * d].reshape(b, s, n, d)
+            k = qkv[..., n * d:(n + kvn) * d].reshape(b, s, kvn, d)
+            v = qkv[..., (n + kvn) * d:].reshape(b, s, kvn, d)
+            q = ref_ops.apply_rope(q, sin, cos)
+            k = ref_ops.apply_rope(k, sin, cos)
+            if prefill:
+                pkv.write_prefill_stacked(pk, pv, k, v, tables, li)
+                attn = dispatch.attention(cfg, q, k, v)
+            else:
+                pkv.write_decode_stacked(pk, pv, k[:, 0], v[:, 0], tables,
+                                         positions[:, 0], li)
+                attn = dispatch.attention_paged(cfg, q, pk, pv, tables,
+                                                kv_lens, li)
         x = x + linear(attn.reshape(b, s, n * d), lw["wo"], layer=li)
+        if use_fffn:
+            gu, dn = lw["w_gate_up"], lw["w_down"]
+            x = ffn_fused.fused_ffn(
+                x.reshape(b * s, cfg.hidden_size), lw["post_norm"], gu.q,
+                gu.scales, dn.q, dn.scales, li, eps=eps
+            ).reshape(b, s, cfg.hidden_size)
+            continue
         h = ref_ops.rmsnorm(x, lw["post_norm"][li], eps)
         gate_up = linear(h, lw["w_gate_up"], layer=li)
         swi = ref_ops.glu_act(gate_up[..., :i_sz], gate_up[..., i_sz:],
@@ -127,7 +163,9 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     x = ref_ops.rmsnorm(x, params["final_norm"], eps)
     lm_head = params.get("lm_head")
     if lm_head is None:
-        logits = linear(x, params["embed"].t(), out_dtype=torch.float32)
+        # tied head: the f32 accumulator, as jnp.dot(...,
+        # preferred_element_type=float32) at llama.py:902-903
+        logits = dot_f32(x, params["embed"].t())
     else:
         logits = linear(x, lm_head, out_dtype=torch.float32)
     return logits.float(), cache

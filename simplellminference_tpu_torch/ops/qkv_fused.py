@@ -1,0 +1,184 @@
+"""Fused decode attention input: rmsnorm -> int8 qkv matmul x per-channel
+scale -> RoPE on q and k -> k/v appended in place to the paged pools.
+
+Counterpart of simplellminference_tpu/ops/qkv_fused.py:229
+(``fused_qkv_append``, kernel ``_kernel`` :37) in its paged form (with
+``tables``), and of ``fused_qkv_available`` (:414). For CUDA tensors
+:func:`fused_qkv_append` launches the hand-written kernel of
+``csrc/qkv_fused.cu``; for CPU tensors it runs
+:func:`fused_qkv_append_ref`, which is also what the kernel is held
+against on the card.
+
+Rounding: the TPU kernel rounds x and the normalized rows to bf16
+whatever the activation dtype (qkv_fused.py:264, :76-77). Here both
+versions round the normalized rows to the activation dtype (x's) and keep
+f32 from there on: q is rounded to x's dtype, k/v to the pool dtype. With
+bf16 activations that is the TPU kernel's math; with f32 ones nothing is
+rounded, as on the JAX package's CPU path.
+
+Pools are [L, P+1, kvN, ps, D] and are written in place; an unmapped (-1)
+page, or a position past the table, writes to the trash page (the last
+page row), as :func:`~simplellminference_tpu_torch.ops.paged_append.
+paged_append_decode` does.
+
+Not ported: the dense-arena form (``tables=None``, with the dense
+Generator), the quantizing form (``cache_ks``/``cache_vs``, with INT8 KV)
+and a cache layer different from the weight layer (``kv_layer``, sliding
+ring pools); each raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from simplellminference_tpu_torch.ops import cuda_build, ref_ops
+from simplellminference_tpu_torch.ops.linear import QuantizedWeight
+from simplellminference_tpu_torch.ops.paged_append import (
+    _check_pools, _index, paged_append_decode_ref)
+
+MAX_ROWS = 64
+HEAD_DIMS = (32, 64, 128)
+
+
+def _check(x, pool_k, tables, cache_ks, cache_vs, kv_layer, layer):
+    if tables is None:
+        raise NotImplementedError("fused_qkv_append on a dense KV arena "
+                                  "(tables=None)")
+    if cache_ks is not None or cache_vs is not None:
+        raise NotImplementedError("fused_qkv_append into INT8 KV pools "
+                                  "(cache_ks/cache_vs)")
+    if kv_layer is not None and int(kv_layer) != int(layer):
+        raise NotImplementedError("a KV layer apart from the weight layer "
+                                  "(kv_layer: sliding ring pools)")
+    if x.ndim != 2:
+        raise ValueError(f"x must be [B, H], got {tuple(x.shape)}")
+
+
+def _heads(wq, pool_k, n_heads, kv_heads):
+    nq = wq.shape[-1]
+    kvn, d = pool_k.shape[2], pool_k.shape[4]
+    kvh = kv_heads if kv_heads is not None else kvn
+    n = n_heads if n_heads is not None else nq // d - 2 * kvh
+    if (n + 2 * kvh) * d != nq or kvh != kvn:
+        raise ValueError(f"{n} + 2 x {kvh} heads of {d} do not make the "
+                         f"{nq} qkv columns over {kvn} pool heads")
+    return n, kvh, d
+
+
+def fused_qkv_append_ref(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
+                         layer: int, offsets, n_heads: int | None = None,
+                         kv_heads: int | None = None, eps: float = 1e-5,
+                         tables=None, cache_ks=None, cache_vs=None,
+                         kv_layer=None):
+    """Plain version of :func:`fused_qkv_append` (pools in place)."""
+    if x.is_cuda:
+        fused_qkv_append_ref.cuda_calls += 1
+    _check(x, pool_k, tables, cache_ks, cache_vs, kv_layer, layer)
+    n, kvn, d = _heads(wq, pool_k, n_heads, kv_heads)
+    b = x.shape[0]
+    xf = x.float()
+    inv = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    nw = norm_w[layer].reshape(-1).float()
+    xn = (xf * inv * nw).to(x.dtype)
+    qkv = ref_ops.quantized_matmul_ref(xn, wq[layer],
+                                       ws[layer].reshape(1, -1),
+                                       out_dtype=torch.float32)
+    half = d // 2
+    s, c = sin.float()[:, None, :], cos.float()[:, None, :]
+
+    def rope(t):
+        t1, t2 = t[..., :half], t[..., half:]
+        return torch.cat([t1 * c - t2 * s, t2 * c + t1 * s], dim=-1)
+
+    q = rope(qkv[:, :n * d].reshape(b, n, d))
+    k = rope(qkv[:, n * d:(n + kvn) * d].reshape(b, kvn, d))
+    v = qkv[:, (n + kvn) * d:].reshape(b, kvn, d)
+    paged_append_decode_ref(pool_k, pool_v, k, v, tables, offsets, layer)
+    return q.to(x.dtype), pool_k, pool_v
+
+
+fused_qkv_append_ref.cuda_calls = 0
+
+
+def fused_qkv_append(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
+                     layer: int, offsets, n_heads: int | None = None,
+                     kv_heads: int | None = None, eps: float = 1e-5,
+                     tables=None, cache_ks=None, cache_vs=None,
+                     kv_layer=None):
+    """x: [B, H] (B <= 64, the residual stream); norm_w: [L, H] (or
+    [L, 1, H]); wq: [L, H, (N + 2 kvN) D] int8 with per-channel ws
+    [L, 1, (N + 2 kvN) D] f32; sin/cos: [B, D/2]; pool_k/v: [L, P+1, kvN,
+    ps, D]; layer: int; offsets: [B] write positions; tables: [B, MP].
+    Returns (q [B, N, D] rotated, in x's dtype; pool_k; pool_v), the new
+    k/v rows already written in place."""
+    if not x.is_cuda:
+        return fused_qkv_append_ref(x, norm_w, wq, ws, sin, cos, pool_k,
+                                    pool_v, layer, offsets, n_heads,
+                                    kv_heads, eps, tables, cache_ks,
+                                    cache_vs, kv_layer)
+    _check(x, pool_k, tables, cache_ks, cache_vs, kv_layer, layer)
+    _check_pools(pool_k, pool_v, x, layer)
+    n, kvn, d = _heads(wq, pool_k, n_heads, kv_heads)
+    b, h = x.shape
+    n_layers, p1, _, ps, _ = pool_k.shape
+    if b > MAX_ROWS:
+        raise ValueError(f"fused_qkv_append takes at most {MAX_ROWS} rows")
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(f"head_dim {d} (kernel takes {HEAD_DIMS})")
+    nq = wq.shape[-1]
+    if (wq.dtype != torch.int8 or wq.ndim != 3 or wq.shape[1] != h
+            or not wq.is_contiguous() or ws.numel() != wq.shape[0] * nq):
+        raise ValueError("wq must be a contiguous [L, H, Nq] int8 weight "
+                         "with [L, 1, Nq] scales")
+    out = torch.empty((b, n, d), dtype=x.dtype, device=x.device)
+    if b == 0:
+        return out, pool_k, pool_v
+    xc = x if x.stride(-1) == 1 else x.contiguous()
+    nw = norm_w[layer].reshape(-1).contiguous()
+    if nw.dtype not in (torch.float32, torch.bfloat16) or nw.numel() != h:
+        raise ValueError("norm weight must be [L, H] f32 or bf16")
+    wl = wq[layer]
+    sl = ws[layer].reshape(-1).to(torch.float32).contiguous()
+    sin = sin.to(torch.float32).contiguous()
+    cos = cos.to(torch.float32).contiguous()
+    if sin.shape != (b, d // 2) or cos.shape != (b, d // 2):
+        raise ValueError("sin/cos must be [B, D/2]")
+    tables = _index(tables, b, "tables")
+    offsets = _index(offsets, b, "offsets")
+    vec = int(nq % 16 == 0 and wl.data_ptr() % 16 == 0)
+    lib = cuda_build.load()
+    rc = lib.sli_qkv_fused(
+        xc.data_ptr(), xc.stride(0), nw.data_ptr(),
+        int(nw.dtype == torch.bfloat16), wl.data_ptr(), sl.data_ptr(),
+        sin.data_ptr(), cos.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+        int(pool_k.dtype == torch.bfloat16), out.data_ptr(),
+        tables.data_ptr(), offsets.data_ptr(), layer, p1, kvn, ps,
+        tables.shape[1], b, h, n, d, float(eps),
+        cuda_build.dtype_code(x.dtype), vec,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(lib, rc, "fused_qkv_append")
+    fused_qkv_append.launches += 1
+    return out, pool_k, pool_v
+
+
+fused_qkv_append.launches = 0
+
+
+def fused_qkv_available(lw, cfg, b: int, s: int, cache_k,
+                        n_heads: int | None = None,
+                        kv_heads: int | None = None) -> bool:
+    """The gates of simplellminference_tpu/ops/qkv_fused.py:414 without its
+    TPU VMEM tiling (``qkv_tiles``): decode (S == 1), B <= 64, a stacked
+    per-channel 8-bit ``wqkv`` with no bias, [L, P, kvN, ps, D] pools and
+    a head split that makes the qkv columns."""
+    w = lw.get("wqkv")
+    if "wqkv_bias" in lw or s != 1 or b > MAX_ROWS:
+        return False
+    if not (isinstance(w, QuantizedWeight) and w.q.ndim == 3
+            and w.scales.shape[-2] == 1 and w.bits == 8):
+        return False
+    if cache_k is None or cache_k.ndim != 5:
+        return False
+    n = n_heads if n_heads is not None else cfg.num_heads
+    kv = kv_heads if kv_heads is not None else cfg.num_kv_heads
+    return (n + 2 * kv) * cfg.head_dim == w.q.shape[-1]

@@ -8,7 +8,8 @@ function and with the same shape conventions:
     weights: [K, N]              contraction-first (x @ w)
 
 Reductions and softmax run in float32 and cast back, as the reference
-does. The quantization helpers come with the INT8-weight slice.
+does. The INT8 weight helpers (simplellminference_tpu/ops/ref_ops.py:
+367-391 and :472-488) are at the end; INT4 and W8A8 are not ported.
 """
 
 from __future__ import annotations
@@ -150,3 +151,48 @@ def causal_mask(sq: int, sk: int, q_offset: int = 0,
     if window is not None:
         mask = mask & (ki > qi - window)
     return mask
+
+
+def quantize_int8_groupwise(w: torch.Tensor, group_size: int,
+                            scale_dtype=torch.float32):
+    """Symmetric per-group INT8 quantization along the contraction dim.
+
+    w: [..., K, N] -> (q: int8 [..., K, N], scales: [..., K // group, N]);
+    leading dims (the stacked layer axis) pass through.
+    scale = max(absmax(group) / 127, 1e-8); q = round(w / scale), ties to
+    even, as jnp.round."""
+    *lead, k, n = w.shape
+    if k % group_size:
+        raise ValueError(f"group {group_size} does not divide K={k}")
+    wg = w.float().reshape(*lead, k // group_size, group_size, n)
+    absmax = wg.abs().amax(dim=-2)                               # [..., G, N]
+    scales = torch.clamp(absmax / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(wg / scales[..., None, :]), -127, 127)
+    return q.to(torch.int8).reshape(*lead, k, n), scales.to(scale_dtype)
+
+
+def dequantize_int8_groupwise(q: torch.Tensor, scales: torch.Tensor,
+                              dtype=torch.float32) -> torch.Tensor:
+    """Inverse of quantize_int8_groupwise: [..., K, N] + [..., G, N]."""
+    *lead, k, n = q.shape
+    g = scales.shape[-2]
+    wq = q.float().reshape(*lead, g, k // g, n)
+    return (wq * scales.float()[..., None, :]).reshape(*lead, k, n).to(dtype)
+
+
+def quantized_matmul_ref(x: torch.Tensor, q: torch.Tensor,
+                         scales: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """x @ dequant(q, scales) for one layer: x [..., K]; q [K, N] int8;
+    scales [K // group, N]. Per-group partial sums in f32, each times its
+    group's scale, summed in f32, then rounded once to ``out_dtype``."""
+    out_dtype = out_dtype or x.dtype
+    k, n = q.shape
+    g = scales.shape[0]
+    xg = x.float().reshape(*x.shape[:-1], g, k // g)
+    if g == 1:
+        out = torch.matmul(xg[..., 0, :], q.float()) * scales[0].float()
+    else:
+        partial = torch.einsum("...gk,gkn->...gn", xg,
+                               q.float().reshape(g, k // g, n))
+        out = torch.einsum("...gn,gn->...n", partial, scales.float())
+    return out.to(out_dtype)

@@ -24,6 +24,9 @@ import simplellminference_tpu_torch
 from simplellminference_tpu_torch.engine import Engine
 from simplellminference_tpu_torch.models import convert, llama
 from simplellminference_tpu_torch.ops import cuda_build, sampling
+from simplellminference_tpu_torch.ops import ffn_fused, linear, matmul
+from simplellminference_tpu_torch.ops import qkv_fused, ref_ops
+from simplellminference_tpu_torch.runtime import weights
 from simplellminference_tpu_torch.ops.attention import dispatch
 from simplellminference_tpu_torch.memory import allocator, paged_kv
 from simplellminference_tpu_torch.tokenizer import StreamingDetokenizer

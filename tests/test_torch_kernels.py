@@ -10,7 +10,12 @@ has only PyTorch and the CUDA toolkit:
 Stated tolerances: the paged writes are exact (every page but the trash
 page); attention 1e-4 absolute in float32 and 2e-2 in bfloat16 (both sides
 accumulate in f32, in different orders; bf16 rounds the outputs); model
-logits 1e-3 in float32 with TF32 off.
+logits 1e-3 in float32 with TF32 off. The INT8 kernels sum exact products
+in f32 in another order than their plain versions: f32 outputs within
+1e-5 of the output's largest magnitude, bf16 outputs within one bf16 ulp
+beyond that, and the fused kernels' outputs (which also round
+intermediates to the activation dtype) within 2e-2 of their standard
+deviation in bf16.
 """
 
 import numpy as np
@@ -20,12 +25,19 @@ import torch
 from simplellminference_tpu_torch.core.config import (EngineConfig,
                                                       KVCacheConfig,
                                                       ModelConfig,
+                                                      QuantConfig,
                                                       SamplingParams)
 from simplellminference_tpu_torch.engine import Engine
 from simplellminference_tpu_torch.models import llama
+from simplellminference_tpu_torch.ops import ffn_fused as ff
+from simplellminference_tpu_torch.ops import matmul as mm
 from simplellminference_tpu_torch.ops import paged_append as pa
+from simplellminference_tpu_torch.ops import qkv_fused as qf
+from simplellminference_tpu_torch.ops import ref_ops
 from simplellminference_tpu_torch.ops.attention import flash_prefill as fp
 from simplellminference_tpu_torch.ops.attention import paged_decode as pd
+from simplellminference_tpu_torch.ops.linear import QuantizedWeight
+from simplellminference_tpu_torch.runtime.weights import quantize_params
 
 pytestmark = pytest.mark.gpu
 ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -161,3 +173,164 @@ def test_engine_card_matches_cpu(cuda):
         assert b.output_ids == a.output_ids
         np.testing.assert_allclose(b.output_logprobs, a.output_logprobs,
                                    atol=1e-3)
+
+
+def _bf16_ulp(a):
+    return torch.exp2(torch.floor(torch.log2(a.abs().clamp_min(2.0 ** -100)))
+                      - 7)
+
+
+def _qw(g, dev, shape, groups):
+    q = torch.randint(-127, 128, shape, generator=g, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand((*shape[:-2], groups, shape[-1]), generator=g,
+                   device=dev) * 1e-2 + 5e-3
+    return q, s
+
+
+@pytest.mark.parametrize("m,k,n,groups,xdt,odt", [
+    (8, 4096, 4096, 1, torch.bfloat16, torch.bfloat16),   # decode wo
+    (8, 4096, 3000, 32, torch.float32, torch.float32),    # rows, grouped
+    (3, 200, 40, 5, torch.float32, torch.float32),        # K % 128 != 0
+    (100, 512, 384, 4, torch.bfloat16, torch.float32),    # tiled, grouped
+    (70, 300, 136, 1, torch.float32, torch.bfloat16),     # N % 16 != 0
+])
+def test_quantized_matmul(cuda, m, k, n, groups, xdt, odt):
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    q, s = _qw(g, cuda, (2, k, n), groups)
+    x = torch.randn((m, k), generator=g, device=cuda).to(xdt)
+    before = mm.quantized_matmul.launches
+    got = mm.quantized_matmul(x, q, s, out_dtype=odt, layer=1)
+    assert mm.quantized_matmul.launches == before + 1
+    want = mm.quantized_matmul_ref(x, q, s, out_dtype=odt, layer=1)
+    assert got.dtype == odt and got.shape == (m, n)
+    diff = (got.float() - want.float()).abs()
+    if odt == torch.float32:
+        assert float(diff.max()) <= 1e-5 * float(want.abs().max())
+    else:
+        ulp = _bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
+        assert bool((diff <= ulp + 1e-5 * float(want.float().abs().max()))
+                    .all())
+
+
+def _check_qkv(cuda, g, xdt, pdt, n, kvn, d, pos, tables, h=512, ps=16):
+    L, b, mp = 2, tables.shape[0], tables.shape[1]
+    nq = (n + 2 * kvn) * d
+    wq, ws = _qw(g, cuda, (L, h, nq), 1)
+    nw = torch.rand((L, h), generator=g, device=cuda).to(xdt) + 0.5
+    x = torch.randn((b, h), generator=g, device=cuda).to(xdt)
+    sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
+    pk, pv = _pools(g, cuda, pdt, b=b, kvn=kvn, ps=ps, d=d, mp=mp)
+    a, r = (pk.clone(), pv.clone()), (pk.clone(), pv.clone())
+    before = qf.fused_qkv_append.launches
+    qa, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, *a, 1, pos,
+                                 n_heads=n, kv_heads=kvn, tables=tables)
+    assert qf.fused_qkv_append.launches == before + 1
+    qr, *_ = qf.fused_qkv_append_ref(x, nw, wq, ws, sin, cos, *r, 1, pos,
+                                     n_heads=n, kv_heads=kvn, tables=tables)
+    tol = 1e-5 if xdt == torch.float32 else 2e-2
+    sd = float(qr.float().std())
+    assert float((qa.float() - qr.float()).abs().max()) <= tol * sd
+    written = torch.zeros(pk.shape, dtype=torch.bool, device=cuda)
+    for i, p in enumerate(pos.tolist()):
+        page = int(tables[i, p // ps])
+        written[1, page if page >= 0 else pk.shape[1] - 1, :, p % ps] = True
+    for x_a, x_r in zip(a, r):
+        assert torch.equal(x_a[~written], x_r[~written])
+        w_r = x_r[written].float()
+        err = float((x_a[written].float() - w_r).abs().max())
+        assert err <= tol * float(w_r.std())
+
+
+@pytest.mark.parametrize("xdt,pdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("n,kvn,d", [(8, 2, 64), (4, 4, 128), (8, 4, 32)])
+def test_fused_qkv_append(cuda, xdt, pdt, n, kvn, d):
+    g = torch.Generator(device=cuda).manual_seed(n * kvn + d)
+    pos = torch.tensor([5, 20, 40], dtype=torch.int32, device=cuda)
+    tables = torch.tensor([[3, 7, 1], [0, 5, 8], [2, 4, -1]],
+                          dtype=torch.int32, device=cuda)
+    _check_qkv(cuda, g, xdt, pdt, n, kvn, d, pos, tables)
+
+
+def test_fused_qkv_append_many_rows(cuda):
+    # 20 rows: two full 8-row tiles and a partial one; row 7 unmapped
+    g = torch.Generator(device=cuda).manual_seed(20)
+    b, mp, ps = 20, 3, 16
+    pos = (2 * torch.arange(b, device=cuda)).to(torch.int32)
+    tables = torch.arange(b * mp, dtype=torch.int32,
+                          device=cuda).reshape(b, mp)
+    tables[7, 14 // ps] = -1
+    _check_qkv(cuda, g, torch.bfloat16, torch.bfloat16, 4, 2, 64, pos,
+               tables, h=256, ps=ps)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [3, 8, 40])
+def test_fused_ffn(cuda, dtype, m):
+    g = torch.Generator(device=cuda).manual_seed(m)
+    L, h, inter = 2, 512, 1408
+    q1, s1 = _qw(g, cuda, (L, h, 2 * inter), 1)
+    q2, s2 = _qw(g, cuda, (L, inter, h), 1)
+    nw = torch.rand((L, h), generator=g, device=cuda).to(dtype) + 0.5
+    x = torch.randn((m, h), generator=g, device=cuda).to(dtype)
+    before = ff.fused_ffn.launches
+    got = ff.fused_ffn(x, nw, q1, s1, q2, s2, 1)
+    assert ff.fused_ffn.launches == before + 1
+    want = ff.fused_ffn_ref(x, nw, q1, s1, q2, s2, 1)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    sd = float(want.float().std())
+    assert float((got.float() - want.float()).abs().max()) <= tol * sd
+
+
+def _int8_params(cfg, seed, device):
+    p = llama.init_params(cfg, seed=seed, device=device)
+    return quantize_params(p, QuantConfig(mode="int8", group_size=0,
+                                          quantize_lm_head=True))
+
+
+def test_int8_engine_runs_the_kernels_only(cuda):
+    cfg = ModelConfig.tiny_test(num_layers=2)
+    params = _int8_params(cfg, 0, cuda)
+    ecfg = EngineConfig(max_batch_size=2, prefix_cache_entries=0,
+                        kv=KVCacheConfig(page_size=16, num_pages=16,
+                                         max_pages_per_seq=4,
+                                         kv_dtype="f32"))
+    refs = (pa.paged_append_decode_ref, pa.paged_append_prefill_ref,
+            fp.flash_prefill_ref, pd.paged_flash_decode_ref,
+            mm.quantized_matmul_ref, qf.fused_qkv_append_ref,
+            ff.fused_ffn_ref)
+    calls = [f.cuda_calls for f in refs]
+    kerns = (mm.quantized_matmul, qf.fused_qkv_append, ff.fused_ffn)
+    launches = [f.launches for f in kerns]
+    eng = Engine(cfg, params, ecfg, decode_burst=4)
+    out = eng.generate([[1, 2, 3], [4, 5, 6, 7, 8]],
+                       SamplingParams(max_new_tokens=9))
+    assert [len(o) for o in out] == [9, 9]
+    assert [f.cuda_calls for f in refs] == calls
+    assert all(f.launches > n for f, n in zip(kerns, launches))
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, QuantizedWeight):
+        return QuantizedWeight(q=tree.q.to(dev), scales=tree.scales.to(dev))
+    return tree.to(dev)
+
+
+def test_int8_engine_card_matches_cpu(cuda):
+    cfg = ModelConfig.tiny_test(num_layers=2)
+    p_cpu = _int8_params(cfg, 3, "cpu")
+    p_gpu = _to(p_cpu, cuda)
+    ecfg = EngineConfig(max_batch_size=3, prefix_cache_entries=0,
+                        kv=KVCacheConfig(page_size=16, num_pages=32,
+                                         max_pages_per_seq=4,
+                                         kv_dtype="f32"))
+    prompts = [[1, 2, 3], [9, 8, 7, 6, 5, 4, 3, 2, 1, 0, 11],
+               list(range(20, 40))]
+    s = SamplingParams(max_new_tokens=12)
+    outs = [Engine(cfg, p, ecfg, decode_burst=4, device=dev).generate(
+        prompts, s) for p, dev in ((p_cpu, "cpu"), (p_gpu, cuda))]
+    assert outs[0] == outs[1]

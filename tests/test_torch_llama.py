@@ -82,10 +82,17 @@ def test_unsupported_model_features_raise(override, feature):
 
 
 def test_quantized_params_rejected():
-    q = QuantizedWeight(q=np.zeros((4, 4), np.int8),
-                        scales=np.ones((1, 4), np.float32))
+    # INT8 leaves are carried over (tests/test_torch_int8.py); INT4 and
+    # zero-point leaves are not served yet
+    q4 = QuantizedWeight(q=np.zeros((4, 4), np.int8),
+                         scales=np.ones((1, 4), np.float32), bits=4)
+    with pytest.raises(NotImplementedError, match="INT4"):
+        params_from_jax({"layers": {"wqkv": q4}}, device="cpu")
+    qz = QuantizedWeight(q=np.zeros((4, 4), np.int8),
+                         scales=np.ones((1, 4), np.float32), bits=4,
+                         zs=np.zeros((1, 4), np.float32))
     with pytest.raises(NotImplementedError):
-        params_from_jax({"layers": {"wqkv": q}}, device="cpu")
+        params_from_jax({"layers": {"wqkv": qz}}, device="cpu")
 
 
 def test_init_params_defaults_to_cuda():

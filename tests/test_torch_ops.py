@@ -129,7 +129,37 @@ def test_linear_plain(stacked):
 
 
 def test_linear_rejects_quantized():
+    # INT8 weights are served (tests/test_torch_matmul.py); INT4, zero
+    # points and W8A8 are not
     w = tlinear.QuantizedWeight(q=torch.zeros(4, 4, dtype=torch.int8),
                                 scales=torch.ones(1, 4))
-    with pytest.raises(NotImplementedError):
-        tlinear.linear(torch.zeros(1, 4), w)
+    w4 = tlinear.QuantizedWeight(q=w.q, scales=w.scales, bits=4)
+    with pytest.raises(NotImplementedError, match="INT4"):
+        tlinear.linear(torch.zeros(1, 8), w4)
+    wz = tlinear.QuantizedWeight(q=w.q, scales=w.scales, zs=w.scales)
+    with pytest.raises(NotImplementedError, match="zero points"):
+        tlinear.linear(torch.zeros(1, 4), wz)
+    with pytest.raises(NotImplementedError, match="W8A8"):
+        tlinear.linear(torch.zeros(1, 4), w, act_quant="int8")
+
+
+def test_linear_bf16_keeps_the_f32_accumulator():
+    # bf16 operands with an f32 output: the exact products summed in f32,
+    # as jnp.dot(..., preferred_element_type=float32). At the Llama-2-7B
+    # LM-head width a bf16 result cast up is off by up to half a bf16 ulp
+    # of the logits (~4e-3 here); f32 summation orders differ by ~1e-6.
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rand(rng, 8, 4096)).bfloat16()
+    w = torch.from_numpy(rand(rng, 4096, 512) * 0.02).bfloat16()
+    xj = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    wj = jnp.asarray(w.float().numpy()).astype(jnp.bfloat16)
+    want = np.asarray(jlinear.linear(xj, wj, out_dtype=jnp.float32))
+    for got in (tlinear.linear(x, w, out_dtype=torch.float32),
+                tlinear.dot_f32(x, w)):
+        assert got.dtype == torch.float32
+        close(got.numpy(), want, rtol=0, atol=1e-4)
+    # the smallest case: 1 + 2**-8 is a bf16 tie and rounds to 1.0
+    one = torch.tensor([[1.0, 1.0]], dtype=torch.bfloat16)
+    w2 = torch.tensor([[1.0], [2.0 ** -8]], dtype=torch.bfloat16)
+    assert float(tlinear.linear(one, w2, out_dtype=torch.float32)) == \
+        1.0 + 2.0 ** -8
