@@ -14,7 +14,11 @@ Phases, in order; any failure exits non-zero:
                 I=11008, N=kvN=32, D=128, V=32000, page 128, batch 8,
                 128-token prompts, kv_len 128-160, bf16), a GQA shape
                 (TinyLlama: H=2048, I=5632, N=32, kvN=4, D=64), ragged
-                prompts and K % 128 != 0; max |error| beside its
+                prompts and K % 128 != 0, and paged_flash_prefill at the
+                `prefix` path's dispatches (8 x 64 suffix rows and one
+                256-row chunk at offset 512, kv_len 540-576, bf16) and a
+                GQA case with ragged offsets, an unmapped page and a
+                padding row (f32); max |error| beside its
                 tolerance, kernel / plain / library times from CUDA-graph
                 replay, and the bound (the least time for the bytes and
                 operations of the call on an H100 SXM: 3.35 TB/s,
@@ -30,7 +34,14 @@ Phases, in order; any failure exits non-zero:
                 plain version may run on the card. Decode tokens/s from the
                 median walls of interleaved 32- and 16-token runs, after a
                 32-token warm-up, and one graph-replayed decode step beside
-                its bytes floor.
+                its bytes floor. Then the `prefix` path, the server's
+                default configuration (prefix cache on, 16 entries) with
+                prefill_chunk 256 and INT8 weights: a 512-token system
+                prompt + 64-token suffixes, one request (3 chunks), 7
+                sharing its pages after its first step (one suffix batch),
+                8 hitting the persistent store after all finish (one
+                suffix batch); exact launch counts and prefix metrics, and
+                the last wave's admit beside the same prompts uncached.
   5. cpu      — the same port at Llama-2-7B width, 2 layers, f32, TF32 off,
                 on the card (kernels) and on the host CPU (plain
                 versions), from one numpy draw of the weights, 4 requests,
@@ -38,7 +49,10 @@ Phases, in order; any failure exits non-zero:
                 quantized by the port: prefill and per-step logits of
                 forward_paged within 1e-3, and the Engine's greedy tokens
                 equal on both devices except where the top-2 margin is
-                below that tolerance.
+                below that tolerance; and the `prefix` path's traffic at a
+                small size with the float weights, its greedy tokens equal
+                on both devices and to the cache-off trace by the same
+                rule.
 
 Then one line ``{"kernels": [...]}`` and, last, the result line
 ``{"ok": true, "device": {...}}``; both only when every phase ran
@@ -92,8 +106,14 @@ KERNELS = {
     "fused_ffn": dict(
         source="simplellminference_tpu_torch/csrc/ffn_fused.cu",
         replaces="simplellminference_tpu/ops/ffn_fused.py:138"),
+    "paged_flash_prefill": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
 }
-PATHS = ("int8", "bf16")              # the Engine's weight paths, in order
+# the Engine's paths, in order: bench.py's weight paths (prefix cache
+# off), then the server's default configuration (prefix cache on,
+# chunked prefill) with INT8 weights
+PATHS = ("int8", "bf16", "prefix")
 
 
 class SmokeFailure(Exception):
@@ -623,6 +643,83 @@ def check_fused_ffn(torch, dev, results, extra):
             bound_ms=bms, bound_by=by)
 
 
+def check_paged_prefill(torch, dev, results, extra):
+    import torch.nn.functional as F
+
+    from simplellminference_tpu_torch.memory.paged_kv import gather_dense
+    from simplellminference_tpu_torch.ops.attention.paged_prefill import (
+        paged_flash_prefill, paged_flash_prefill_ref)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    bf, f32 = torch.bfloat16, torch.float32
+    # tag: (sq, n, kvn, d, ps, offsets, kv_lens, dtype, unmapped entries);
+    # the first two are the `prefix` path's dispatches (a suffix batch of
+    # 8 x 64 rows behind a 512-token prefix, one 256-row chunk), timed;
+    # the first is the row. The GQA case has ragged offsets, an unmapped
+    # page inside kv_len and a batch's padding row (-1 table, kv_len 1).
+    cases = {
+        "llama2-7b suffix batch": (64, 32, 32, 128, 128, [512] * 8,
+                                   [540 + 5 * i for i in range(8)], bf,
+                                   False),
+        "llama2-7b chunk": (256, 32, 32, 128, 128, [512], [576], bf, False),
+        "tinyllama-gqa f32": (100, 32, 4, 64, 16, [0, 48, 16, 0],
+                              [100, 130, 77, 1], f32, True),
+    }
+    timed = list(cases)[:2]
+    for tag, (sq, n, kvn, d, ps, offs, lens, dtype, unmapped) in \
+            cases.items():
+        b = len(offs)
+        mp = -(-max(o + sq for o in offs) // ps)
+        pk, pv = _pools(torch, gen, dev, 2, b * mp, kvn, ps, d, dtype)
+        tables = _tables(torch, dev, b, mp, dead_last=unmapped)
+        if unmapped:
+            tables[2, 1] = -1           # inside row 2's kv_len
+        q = torch.randn((b, sq, n, d), generator=gen, device=dev,
+                        dtype=dtype)
+        off_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+        kv_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        layer = 1
+        got = paged_flash_prefill(q, pk, pv, tables, kv_t, off_t, layer)
+        want = paged_flash_prefill_ref(q, pk, pv, tables, kv_t, off_t, layer)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        tol = TOL[dname(torch, dtype)]
+        print(f"[kernels] paged_flash_prefill {tag} (B={b} Sq={sq} N={n} "
+              f"kvN={kvn} D={d} ps={ps}): max|err| {err:.3e} (tol {tol:g}); "
+              f"every row finite: {bool(torch.isfinite(got).all())}",
+              flush=True)
+        require(bool(torch.isfinite(got).all()) and err <= tol,
+                f"paged_flash_prefill {tag} disagrees: {err}")
+        if tag not in timed:
+            continue
+        # what these inputs need: each row's keys below min(kv_len, its
+        # position + 1); K/V rows up to each sequence's frontier
+        es = q.element_size()
+        keys = sum(min(o + r + 1, ln) for o, ln in zip(offs, lens)
+                   for r in range(sq))
+        kv_rows = sum(min(ln, o + sq) for o, ln in zip(offs, lens))
+        nbytes = (2 * b * sq * n * d * es + 2 * kv_rows * kvn * d * es
+                  + tables.numel() * 4 + 2 * b * 4)
+        bms, by = bound_ms(nbytes, 4.0 * n * d * keys, dname(torch, dtype))
+        ck, cv = gather_dense(pk[layer], pv[layer], tables)
+        key_pos = torch.arange(ck.shape[2], device=dev)
+        q_pos = off_t.long()[:, None] + torch.arange(sq, device=dev)[None]
+        mask = ((key_pos[None, None] <= q_pos[:, :, None])
+                & (key_pos[None, None] < kv_t.long()[:, None, None]))[:, None]
+        qt = q.transpose(1, 2)
+        r = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: paged_flash_prefill(
+                q, pk, pv, tables, kv_t, off_t, layer)),
+            plain_ms=time_ms(torch, lambda: paged_flash_prefill_ref(
+                q, pk, pv, tables, kv_t, off_t, layer)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, ck, cv, attn_mask=mask)),
+            bound_ms=bms, bound_by=by)
+        extra.append(("paged_flash_prefill", tag, r))
+        if "paged_flash_prefill" not in results:
+            results["paged_flash_prefill"] = r
+
+
 LIBRARY = {"paged_append_decode": "index_put_ x2",
            "paged_append_prefill": "index_copy_ x2",
            "flash_prefill": "scaled_dot_product_attention, causal",
@@ -631,7 +728,9 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
            "quantized_matmul": "torch._weight_int8pack_mm",
            "fused_qkv_append": "torch._weight_int8pack_mm of the qkv "
                                "product alone",
-           "fused_ffn": "torch._weight_int8pack_mm x2 (gate_up, down)"}
+           "fused_ffn": "torch._weight_int8pack_mm x2 (gate_up, down)",
+           "paged_flash_prefill": "scaled_dot_product_attention on gathered "
+                                  "K/V, offset-causal mask"}
 
 
 def phase_kernels(torch, results):
@@ -644,6 +743,7 @@ def phase_kernels(torch, results):
     check_quantized_matmul(torch, dev, results, extra)
     check_fused_qkv(torch, dev, results, extra)
     check_fused_ffn(torch, dev, results, extra)
+    check_paged_prefill(torch, dev, results, extra)
     torch.cuda.empty_cache()
     rows = [(name, "main path shape", r) for name, r in results.items()]
     rows += [(name, tag, r) for name, tag, r in extra]
@@ -661,7 +761,9 @@ def _wrappers():
     from simplellminference_tpu_torch.ops import qkv_fused as qf
     from simplellminference_tpu_torch.ops.attention import (flash_prefill as
                                                             fp, paged_decode
-                                                            as pd)
+                                                            as pd,
+                                                            paged_prefill
+                                                            as pp)
     return {"paged_append_decode": (pa.paged_append_decode,
                                     pa.paged_append_decode_ref),
             "paged_append_prefill": (pa.paged_append_prefill,
@@ -673,7 +775,9 @@ def _wrappers():
                                  mm.quantized_matmul_ref),
             "fused_qkv_append": (qf.fused_qkv_append,
                                  qf.fused_qkv_append_ref),
-            "fused_ffn": (ff.fused_ffn, ff.fused_ffn_ref)}
+            "fused_ffn": (ff.fused_ffn, ff.fused_ffn_ref),
+            "paged_flash_prefill": (pp.paged_flash_prefill,
+                                    pp.paged_flash_prefill_ref)}
 
 
 def reset_counts():
@@ -732,25 +836,46 @@ def step_weight_bytes(params, batch: int) -> int:
             + batch * e.shape[1] * e.element_size())
 
 
-def path_launches(path: str, layers: int, prefills: int,
-                  steps: int) -> dict:
-    """Launches each kernel must show in one Engine run of a path: the
-    prefill (8 x 128 rows, so m > 64 and the FFN runs unfused) launches
-    4 quantized_matmul per layer plus the INT8 LM head; each decode step
-    launches the fused qkv and FFN per layer, wo per layer, and the head."""
-    want = {"flash_prefill": layers * prefills,
-            "paged_append_prefill": layers * prefills,
-            "paged_flash_decode": layers * steps}
-    if path == "int8":
-        want.update(paged_append_decode=0,
-                    quantized_matmul=((4 * layers + 1) * prefills
-                                      + (layers + 1) * steps),
-                    fused_qkv_append=layers * steps,
-                    fused_ffn=layers * steps)
+def path_launches(int8: bool, layers: int, dispatches, steps: int) -> dict:
+    """Launches each kernel must show in one Engine run of a path.
+
+    ``dispatches``: (attention kernel, rows m = B*S) of each prefill
+    dispatch — ``flash_prefill`` for a whole-prompt batch,
+    ``paged_flash_prefill`` for a chunk or a suffix batch; each also
+    writes its pages per layer. With INT8 weights a dispatch of m > 64
+    rows launches 4 quantized_matmul per layer plus the LM head, one of
+    m <= 64 rows quantized_matmul for wqkv and wo and fused_ffn per layer
+    plus the head; each decode step launches the fused qkv and FFN per
+    layer, wo per layer, and the head."""
+    want = {name: 0 for name in KERNELS}
+    for attn, m in dispatches:
+        want[attn] += layers
+        want["paged_append_prefill"] += layers
+        if int8 and m <= 64:
+            want["quantized_matmul"] += 2 * layers + 1
+            want["fused_ffn"] += layers
+        elif int8:
+            want["quantized_matmul"] += 4 * layers + 1
+    want["paged_flash_decode"] += layers * steps
+    if int8:
+        want["quantized_matmul"] += (layers + 1) * steps
+        want["fused_qkv_append"] += layers * steps
+        want["fused_ffn"] += layers * steps
     else:
-        want.update(paged_append_decode=layers * steps, quantized_matmul=0,
-                    fused_qkv_append=0, fused_ffn=0)
+        want["paged_append_decode"] += layers * steps
     return want
+
+
+def read_counts(path: str) -> dict:
+    """Every kernel's launch count since :func:`reset_counts`; fails if a
+    plain version ran on the card."""
+    got = {}
+    for name, (kern, ref) in _wrappers().items():
+        got[name] = kern.launches
+        require(ref.cuda_calls == 0,
+                f"[{path}] plain {name} ran on the card {ref.cuda_calls} "
+                f"times")
+    return got
 
 
 def serve_path(torch, path: str, cfg, params, launches: dict,
@@ -791,12 +916,7 @@ def serve_path(torch, path: str, cfg, params, launches: dict,
     serve(new)                  # warm-up at the measured length
     reset_counts()
     eng, reqs, wall = serve(new)                      # the measured run
-    got = {}
-    for name, (kern, ref) in _wrappers().items():
-        got[name] = kern.launches
-        require(ref.cuda_calls == 0,
-                f"[{path}] plain {name} ran on the card {ref.cuda_calls} "
-                f"times")
+    got = read_counts(path)
     launches[path] = got
     for r in reqs:
         require(r.state.value == "finished" and len(r.output_ids) == new,
@@ -807,7 +927,8 @@ def serve_path(torch, path: str, cfg, params, launches: dict,
     require(eng.metrics.prefills == batch, f"[{path}] {eng.metrics.prefills} "
             f"requests prefilled, expected {batch}")
     steps = eng.metrics.decode_bursts * burst
-    want = path_launches(path, layers, 1, steps)
+    want = path_launches(path == "int8", layers,
+                         [("flash_prefill", batch * prompt_len)], steps)
     for name, n in want.items():
         require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
                 f"path implies {n}")
@@ -856,6 +977,128 @@ def serve_path(torch, path: str, cfg, params, launches: dict,
     del eng
 
 
+def prefix_waves(rng, vocab: int, system_len: int, suffix_len: int,
+                 batch: int) -> list:
+    """The server traffic of the `prefix` path: every prompt is one shared
+    system prompt plus its own user suffix; waves of 1, batch - 1 and
+    batch prompts."""
+    system = rng.integers(1, vocab, system_len).tolist()
+    return [[system + rng.integers(1, vocab, suffix_len).tolist()
+             for _ in range(k)] for k in (1, batch - 1, batch)]
+
+
+def run_waves(eng, waves, samp) -> list:
+    """The first wave; after the engine's first step, the second (its
+    requests share the running request's system-prompt pages); after all
+    finish, the third (it hits the persistent store). Returns each wave's
+    requests."""
+    reqs = [[eng.add_request(prompt_ids=p, sampling=samp)
+             for p in waves[0]]]
+    eng.step()
+    for wave in waves[1:]:
+        reqs.append([eng.add_request(prompt_ids=p, sampling=samp)
+                     for p in wave])
+        eng.run()
+    return reqs
+
+
+def prefix_engine_config(batch: int, ps: int, chunk: int, cap: int,
+                         kv_dtype: str, **kw):
+    """``EngineConfig`` defaults (prefix cache on, 16 entries) but for the
+    batch, the chunk, the page size and the KV dtype."""
+    from simplellminference_tpu_torch.core.config import (EngineConfig,
+                                                          KVCacheConfig)
+    mp = -(-cap // ps)
+    return EngineConfig(max_batch_size=batch, prefill_chunk=chunk,
+                        kv=KVCacheConfig(page_size=ps,
+                                         num_pages=batch * mp + 16,
+                                         max_pages_per_seq=mp,
+                                         kv_dtype=kv_dtype), **kw)
+
+
+def serve_prefix(torch, cfg, params, launches: dict, dev: str = "cuda"):
+    """The server's default configuration on the card: prefix cache on,
+    prefill_chunk 256, page 128, bf16 KV, INT8 weights, batch 8. A
+    512-token system prompt with 64-token user suffixes: the first
+    request prefills as 3 chunks of 256, the 7 admitted after its first
+    step share its 512 cached tokens and prefill their suffixes as one
+    batch, and the 8 admitted after all finish hit the persistent store
+    as one batch. Launch counts are reset before and read after."""
+    import numpy as np
+
+    from simplellminference_tpu_torch.core.config import SamplingParams
+    from simplellminference_tpu_torch.engine import Engine
+
+    path, layers = "prefix", cfg.num_layers
+    batch, system_len, suffix, new, burst, ps, chunk = (8, 512, 64, 32, 16,
+                                                        128, 256)
+    prompt_len = system_len + suffix
+    ecfg = prefix_engine_config(batch, ps, chunk,
+                                prompt_len + new + 2 * burst + 1, "bf16")
+    require(ecfg.prefix_cache_entries == 16, "not the default prefix cache")
+    waves = prefix_waves(np.random.default_rng(1), cfg.vocab_size,
+                         system_len, suffix, batch)
+    samp = SamplingParams(max_new_tokens=new)
+    eng = Engine(cfg, params, ecfg, decode_burst=burst, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    reqs = run_waves(eng, waves, samp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts(path)
+    launches[path] = got
+    m = eng.metrics
+    for r in sum(reqs, []):
+        require(r.state.value == "finished" and len(r.output_ids) == new,
+                f"[{path}] request {r.req_id}: {r.state} with "
+                f"{len(r.output_ids)} tokens")
+        require(all(0 <= t < cfg.vocab_size for t in r.output_ids),
+                f"[{path}] token id out of range")
+    require([r.cached_len for w in reqs for r in w]
+            == [0] + [system_len] * (2 * batch - 1),
+            f"[{path}] cached lengths {[r.cached_len for r in sum(reqs, [])]}")
+    require((m.prefix_cache_hits, m.prefix_cache_persistent_hits,
+             m.prompt_tokens_cached, m.prefills) == (
+                2 * batch - 1, batch, (2 * batch - 1) * system_len,
+                2 * batch),
+            f"[{path}] prefix metrics {m.summary()}")
+    # 3 chunks of 256 rows, then two suffix batches of 8 x 64 rows
+    dispatches = ([("paged_flash_prefill", chunk)] * 3
+                  + [("paged_flash_prefill", batch * suffix)] * 2)
+    want = path_launches(True, layers, dispatches,
+                         m.decode_bursts * burst)
+    for name, n in want.items():
+        require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
+                f"path implies {n}")
+    ttft = [r.ttft for r in reqs[2]]
+    print(f"[engine:{path}] {2 * batch} requests ({system_len}-token system "
+          f"prompt + {suffix}-token suffixes) x {new} tokens in {wall:.3f} s; "
+          f"prefix hits {m.prefix_cache_hits} (persistent "
+          f"{m.prefix_cache_persistent_hits}), cached prompt tokens "
+          f"{m.prompt_tokens_cached}, {m.decode_bursts} bursts x {burst} "
+          f"steps", flush=True)
+    print(f"[engine:{path}] launches {json.dumps(got)}", flush=True)
+    # the last wave's admit (its TTFT: added, then admitted and prefilled
+    # in the next step) beside the same 8 prompts with the cache off
+    off = Engine(cfg, params, prefix_engine_config(
+        batch, ps, chunk, prompt_len + new + 2 * burst + 1, "bf16",
+        prefix_cache_entries=0), decode_burst=burst, device=dev)
+    torch.cuda.synchronize()
+    off_reqs = [off.add_request(prompt_ids=p, sampling=samp)
+                for p in waves[2]]
+    off.run()
+    ttft_off = [r.ttft for r in off_reqs]
+    same = sum(a.output_ids == b.output_ids
+               for a, b in zip(off_reqs, reqs[2]))
+    print(f"[engine:{path}] last wave admit (max TTFT of its 8 requests): "
+          f"{max(ttft) * 1e3:.3f} ms with the prefix cache (one suffix "
+          f"batch), {max(ttft_off) * 1e3:.3f} ms without it (8 x 3 chunks); "
+          f"TTFTs {ttft} / {ttft_off} s; bf16 greedy outputs equal in "
+          f"{same} of {batch} (card vs CPU in f32: phase 5)", flush=True)
+    del eng, off
+
+
 def phase_engine(torch, launches: dict):
     from simplellminference_tpu_torch.core.config import ModelConfig
     from simplellminference_tpu_torch.models import llama
@@ -863,15 +1106,18 @@ def phase_engine(torch, launches: dict):
     cfg = ModelConfig.llama2_7b(dtype="bfloat16")
     for path in PATHS:
         t0 = time.perf_counter()
-        if path == "int8":
+        if path in ("int8", "prefix"):
             params = int8_params(torch, cfg, "cuda", seed=0)
         else:
             params = llama.init_params(cfg, seed=0, device="cuda")
         torch.cuda.synchronize()
         print(f"[engine:{path}] Llama-2-7B width, {cfg.num_layers} layers, "
-              f"{path} random weights in {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        serve_path(torch, path, cfg, params, launches)
+              f"{'int8' if path == 'prefix' else path} random weights in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if path == "prefix":
+            serve_prefix(torch, cfg, params, launches)
+        else:
+            serve_path(torch, path, cfg, params, launches)
         del params
         torch.cuda.empty_cache()
 
@@ -922,6 +1168,20 @@ def _to_device(tree, dev):
     if isinstance(tree, QuantizedWeight):
         return QuantizedWeight(q=tree.q.to(dev), scales=tree.scales.to(dev))
     return tree.to(dev)
+
+
+def _first_divergence(torch, tag, what, a, b, logits, r):
+    """Greedy rows a and b may part only where the reference logits'
+    top-2 margin at that step is below LOGIT_TOL."""
+    t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if t is None:
+        return
+    top2 = torch.topk(logits[t, r], 2).values
+    margin = float(top2[0] - top2[1])
+    require(margin < LOGIT_TOL, f"[{tag}] request {r} step {t}: {what} "
+            f"differ with top-2 margin {margin:.3e}")
+    print(f"[cpu:{tag}] request {r}: {what} diverge at step {t}: top-2 "
+          f"margin {margin:.3e} < {LOGIT_TOL}", flush=True)
 
 
 def card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps):
@@ -977,17 +1237,58 @@ def card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps):
         require(b == tok_c[r].tolist(),
                 f"[{tag}] engine request {r} on the CPU departs from the "
                 f"trace")
-        t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
-        if t is not None:
-            top2 = torch.topk(lg_c[t, r], 2).values
-            margin = float(top2[0] - top2[1])
-            require(margin < LOGIT_TOL,
-                    f"[{tag}] engine request {r} step {t}: card and CPU "
-                    f"differ with top-2 margin {margin:.3e}")
-            print(f"[cpu:{tag}] engine request {r} diverges at step {t}: "
-                  f"top-2 margin {margin:.3e} < {LOGIT_TOL}", flush=True)
+        _first_divergence(torch, tag, "engine on card and CPU", a, b, lg_c,
+                          r)
     print(f"[cpu:{tag}] engine greedy tokens card == cpu: "
           f"{outs[0] == outs[1]}", flush=True)
+
+
+def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu):
+    """The `prefix` path's traffic at a small size (a 48-token system
+    prompt, 8-token suffixes, page 16, chunk 16, waves of 1, 3 and 4) on
+    the card and on the CPU: greedy tokens equal on both, and equal to
+    the cache-off greedy trace of the same prompts, except where the
+    trace's top-2 margin is below LOGIT_TOL."""
+    import numpy as np
+
+    from simplellminference_tpu_torch.core.config import SamplingParams
+    from simplellminference_tpu_torch.engine import Engine
+
+    tag = "prefix"
+    batch, system_len, suffix, new, burst, ps, chunk = 4, 48, 8, 8, 4, 16, 16
+    waves = prefix_waves(np.random.default_rng(9), cfg.vocab_size,
+                         system_len, suffix, batch)
+    prompts = sum(waves, [])
+    t0 = time.perf_counter()
+    tok_c, lg_c = _trace(torch, cfg, p_cpu, prompts, new - 1, "cpu")
+    outs = {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        eng = Engine(cfg, params, prefix_engine_config(
+            batch, ps, chunk, system_len + suffix + new + 2 * burst + 1,
+            "f32"), decode_burst=burst, device=dev)
+        reqs = sum(run_waves(eng, waves,
+                             SamplingParams(max_new_tokens=new)), [])
+        m = eng.metrics
+        require((m.prefix_cache_hits, m.prefix_cache_persistent_hits)
+                == (2 * batch - 1, batch),
+                f"[{tag}] {dev} prefix metrics {m.summary()}")
+        require(all(len(r.output_ids) == new for r in reqs),
+                f"[{tag}] {dev} requests short")
+        outs[dev] = [r.output_ids for r in reqs]
+    for r in range(len(prompts)):
+        ref = tok_c[r].tolist()
+        _first_divergence(torch, tag, "card and CPU", outs["cuda"][r],
+                          outs["cpu"][r], lg_c, r)
+        for dev in outs:
+            _first_divergence(torch, tag,
+                              f"{dev} prefix path and cache-off trace",
+                              outs[dev][r], ref, lg_c, r)
+    print(f"[cpu:{tag}] Llama-2-7B width, 2 layers, f32: {len(prompts)} "
+          f"requests in waves of 1, {batch - 1}, {batch} (prefix hits "
+          f"{2 * batch - 1}, persistent {batch}) on card and CPU in "
+          f"{time.perf_counter() - t0:.1f} s; greedy tokens card == cpu: "
+          f"{outs['cuda'] == outs['cpu']}, == cache-off trace: "
+          f"{outs['cpu'] == tok_c.tolist()}", flush=True)
 
 
 def phase_cpu(torch):
@@ -1021,8 +1322,10 @@ def phase_cpu(torch):
     p_cpu = params_from_jax(tree, device="cpu")
     del tree
     prompts = [rng.integers(1, v, ln).tolist() for ln in (40, 64, 17, 50)]
-    card_vs_cpu(torch, "bf16-path", cfg, _to_device(p_cpu, "cuda"), p_cpu,
-                prompts, steps=8)
+    p_gpu = _to_device(p_cpu, "cuda")
+    card_vs_cpu(torch, "bf16-path", cfg, p_gpu, p_cpu, prompts, steps=8)
+    prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu)
+    del p_gpu
     # INT8: the same draw quantized by the port (per output channel, INT8
     # LM head), on the CPU, then carried to the card byte for byte
     q_cpu = quantize_params(p_cpu, QuantConfig(mode="int8", group_size=0,

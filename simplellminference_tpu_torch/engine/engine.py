@@ -1,17 +1,30 @@
 """Continuous-batching engine core over the paged KV cache.
 
 Counterpart of simplellminference_tpu/engine/engine.py:439-2096 in its
-serving configuration: whole-prompt batched prefill, pipelined multi-step
-decode bursts, stop tokens / stop strings / max_new_tokens, logit bias,
-penalties and seeded sampling, preemption under page pressure.
+serving configuration: whole-prompt batched prefill, chunked prefill, the
+prefix cache (running-request page sharing and the persistent store of
+finished prompts), pipelined multi-step decode bursts, stop tokens / stop
+strings / max_new_tokens, logit bias, penalties and seeded sampling,
+preemption under page pressure, ``cancel`` and ``flush_prefix_cache``.
 
 Scheduling is the JAX engine's:
 
   * admit: WAITING requests take a free slot when the pool has pages for
-    their prompt; a cycle's admits prefill as ONE batched dispatch,
-    right-padded to a power-of-2 bucket (>= 16) with the row count
-    quantized to {1, max_batch}; padding rows carry -1 tables (the trash
-    page) and kv_len 1. The first token is sampled in the same call.
+    their prompt. A prompt first shares the complete pages of its longest
+    page-aligned prefix with a running request, or attaches them from a
+    retained prefix handle (whichever covers more), and allocates only the
+    rest; under pool pressure retained prefixes are evicted (LRU) before
+    live work waits. Dispatch order is dependency order: the cycle's
+    uncached admits prefill as ONE batched dispatch, right-padded to a
+    power-of-2 bucket (>= 16) with the row count quantized to
+    {1, max_batch}; then each prompt longer than ``prefill_chunk`` runs
+    its chunk loop; then the prefix-cached admits prefill their suffixes
+    as one batched dispatch at per-row page offsets. Padding rows carry -1
+    tables (the trash page) and kv_len 1. The first token is sampled in
+    the same call, and one host sync reads every admit's.
+  * finish: a finishing request's full prompt pages are detached into the
+    persistent store (refcounted allocator handles, at most
+    ``prefix_cache_entries``, LRU) before its slot is freed.
   * decode: bursts of ``decode_burst`` steps. Token, position and
     penalty-count state stay on the device between bursts; the next
     burst is dispatched before the previous one's tokens reach the host
@@ -19,9 +32,13 @@ Scheduling is the JAX engine's:
     and host-side admits merge through per-slot override masks.
   * finish / preempt / OOM as in the JAX engine.
 
-``_prefill_fn`` and ``_burst_fn`` (jitted graphs in the JAX engine) are
-plain methods here: a Python loop over the burst steps, launching the
-CUDA kernels on the card.
+``_prefill_fn``, ``_prefill_chunk_fn`` and ``_burst_fn`` (jitted graphs
+in the JAX engine) are plain methods here: a Python loop over the burst
+steps, launching the CUDA kernels on the card, all on one stream, so
+launch order is the dependency order above. Suffix buckets and chunk
+steps are not raised to 128 rows as the JAX engine does on a TPU
+(engine.py:1364-1369, :1550-1551): that floor serves the Pallas kernel's
+Sq % 128 gate, and the port's ``paged_flash_prefill`` takes any Sq.
 
 The engine serves whatever weights ``params`` carries (bf16/f32, or INT8
 ``QuantizedWeight`` leaves); like the JAX engine it never reads
@@ -29,11 +46,10 @@ The engine serves whatever weights ``params`` carries (bf16/f32, or INT8
 
 Features outside this configuration raise NotImplementedError naming the
 feature: speculative decoding, guided decoding, LoRA adapters,
-tensor/sequence parallelism, chunked prefill, the prefix cache (the port
-never shares prompt pages), top_logprobs, quantized KV, sliding windows
-and the non-Llama model branches. The JAX engine's
-``forward_paged``, ``draft`` and ``loras`` constructor arguments are not
-taken yet.
+tensor/sequence parallelism (``adopt_prefill`` included), top_logprobs,
+quantized KV, sliding windows and the non-Llama model branches. The JAX
+engine's ``forward_paged``, ``draft`` and ``loras`` constructor arguments
+are not taken yet.
 """
 
 from __future__ import annotations
@@ -63,11 +79,6 @@ from simplellminference_tpu_torch.ops import sampling as sampling_ops
 def _check_engine_config(ec: EngineConfig) -> None:
     if ec.spec_tokens:
         raise NotImplementedError("speculative decoding (spec_tokens)")
-    if ec.prefill_chunk:
-        raise NotImplementedError("chunked prefill (prefill_chunk)")
-    if ec.prefix_cache_entries:
-        raise NotImplementedError(
-            "persistent prefix cache (set prefix_cache_entries=0)")
     if ec.top_logprobs:
         raise NotImplementedError("top_logprobs")
     if ec.sp_prefill_threshold:
@@ -111,6 +122,14 @@ class Engine:
         self.waiting: deque[Request] = deque()
         self._req_ids = itertools.count()
         self.metrics = metrics_lib.EngineMetrics()
+
+        # persistent prefix cache: finished requests' prompt pages are
+        # DETACHED into refcounted allocator handles instead of freed, so
+        # a recurring system prompt skips its prefill even with no
+        # concurrent request in flight. LRU by insertion order; evicted
+        # under pool pressure before any preemption. Maps (lora, the
+        # retained page-aligned token prefix) -> allocator handle.
+        self._prefix_store: dict[tuple, int] = {}
 
         # host-side per-slot decode state
         self._pos = np.zeros(b, np.int32)          # next write position
@@ -203,6 +222,42 @@ class Engine:
         req.emit([], finished=True)
         return req
 
+    def flush_prefix_cache(self) -> int:
+        """Release every retained prefix (persistent prefix cache) back
+        to the page pool. Returns entries released. Serving never needs
+        this (pressure evicts LRU)."""
+        n = 0
+        while self._evict_prefix_lru():
+            n += 1
+        return n
+
+    def cancel(self, req: Request) -> bool:
+        """Client abort: reclaim the request's resources immediately.
+
+        WAITING and PREEMPTED requests leave the queue; RUNNING requests
+        free their pages and slot (an in-flight burst's tokens for the
+        slot are discarded by the snapshot identity check in
+        bookkeeping). Returns True if the request was live."""
+        if req.state in (RequestState.WAITING, RequestState.PREEMPTED):
+            try:
+                self.waiting.remove(req)
+            except ValueError:
+                return False
+        elif req.state == RequestState.RUNNING:
+            self._release_slot_bias(req.slot)
+            self.allocator.free_seq(req.slot)
+            self.slots[req.slot] = None
+            self._active_dirty = True
+            self._tables_dirty = True
+            req.slot = -1
+        else:
+            return False
+        req.state = RequestState.CANCELLED
+        self.metrics.requests_cancelled += 1
+        metrics_lib.log_event("request_cancelled", req_id=req.req_id)
+        req.emit([], finished=True)
+        return True
+
     @property
     def has_work(self) -> bool:
         return (bool(self.waiting) or self._inflight is not None
@@ -256,15 +311,134 @@ class Engine:
     def _free_slots(self) -> list[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
 
+    def _chunked(self, todo: int) -> bool:
+        """Whether ``todo`` prompt tokens run as a chunk loop."""
+        chunk = self.ecfg.prefill_chunk
+        return (chunk > 0 and todo > chunk
+                and chunk % self.ecfg.kv.page_size == 0)
+
+    def _find_prefix_source(self, req: Request,
+                            exclude: set[int]) -> tuple[int, int]:
+        """(src_slot, shareable_tokens): the RUNNING request whose prompt
+        shares the longest page-aligned prefix with ``req``. Shared pages
+        are complete and immutable — each sequence only writes at
+        positions >= its own prompt length >= the shared prefix.
+
+        ``exclude``: slots admitted THIS cycle whose prefill dispatches
+        after the uncached batch (cached/chunked admits) — sharing from
+        them would read pages before they are written."""
+        ps = self.ecfg.kv.page_size
+        best_slot, best = -1, 0
+        cap = req.total_len - 1  # at least one token must prefill
+        for cand in self.slots:
+            if cand is None or cand.state != RequestState.RUNNING \
+                    or cand.slot in exclude or cand.lora != req.lora:
+                continue
+            n = 0
+            for a, b in zip(req.prompt_ids, cand.prompt_ids):
+                if a != b:
+                    break
+                n += 1
+            n = (min(n, cap) // ps) * ps
+            if n > best:
+                best, best_slot = n, cand.slot
+        return best_slot, best
+
+    def _find_prefix_handle(self, req: Request) -> tuple[tuple, int, int]:
+        """(key, handle, tokens) of the RETAINED prefix sharing the most
+        full pages with ``req``'s prompt, or ((), -1, 0). Partial use of
+        a longer entry is fine: its leading pages are valid for any
+        prompt that begins with them."""
+        ps = self.ecfg.kv.page_size
+        best_key, best_h, best = (), -1, 0
+        cap = ((req.total_len - 1) // ps) * ps  # >= 1 token must prefill
+        for key, h in self._prefix_store.items():
+            lora_name, toks = key
+            if lora_name != req.lora:
+                continue
+            m = min(len(toks), cap)
+            common = 0
+            for a, b in zip(req.prompt_ids[:m], toks):
+                if a != b:
+                    break
+                common += 1
+            common = (common // ps) * ps
+            if common > best:
+                best_key, best_h, best = key, h, common
+        return best_key, best_h, best
+
+    def _evict_prefix_lru(self) -> bool:
+        """Release the least-recently-used retained prefix handle."""
+        if not self._prefix_store:
+            return False
+        key = next(iter(self._prefix_store))
+        h = self._prefix_store.pop(key)
+        self.allocator.prefix_release(h)
+        self.metrics.prefix_cache_evictions += 1
+        metrics_lib.log_event("prefix_evicted", tokens=len(key[1]))
+        return True
+
+    def _retain_prefix(self, req: Request):
+        """Detach a finishing request's full prompt pages into the
+        persistent store (refcounted — they survive the slot's
+        free_seq)."""
+        cap = self.ecfg.prefix_cache_entries
+        if cap <= 0 or req.slot < 0:
+            return
+        ps = self.ecfg.kv.page_size
+        n = (len(req.prompt_ids) // ps) * ps
+        if n <= 0:
+            return
+        key = (req.lora, tuple(req.prompt_ids[:n]))
+        if key in self._prefix_store:
+            self._prefix_store[key] = self._prefix_store.pop(key)  # LRU
+            return
+        h = self.allocator.prefix_detach(req.slot, n)
+        if h < 0:
+            return
+        self._prefix_store[key] = h
+        while len(self._prefix_store) > cap:
+            self._evict_prefix_lru()
+
     def _admit(self):
         free = self._free_slots()
         admitted: list[Request] = []
+        late: set[int] = set()  # this cycle's cached/chunked admits
         while free and self.waiting:
             req = self.waiting[0]
             slot = free[0]
-            req.cached_len = 0   # no prefix sharing: whole prompts only
-            if not self.allocator.alloc_seq(slot, req.total_len):
-                break            # pool exhausted: wait for finishes
+            # share complete prompt-prefix pages with a running request
+            # OR a retained prefix handle — whichever covers more — then
+            # allocate only the remainder; prefill starts after them
+            req.cached_len = 0
+            src, shareable = self._find_prefix_source(req, late)
+            pkey, ph, ph_tok = self._find_prefix_handle(req)
+            if ph_tok > shareable:
+                shared = self.allocator.prefix_attach(ph, slot, ph_tok)
+                if shared > 0 and self.allocator.extend(slot,
+                                                        req.total_len):
+                    req.cached_len = shared
+                    # LRU refresh
+                    self._prefix_store[pkey] = self._prefix_store.pop(pkey)
+                    self.metrics.prefix_cache_persistent_hits += 1
+                elif shared > 0:
+                    self.allocator.free_seq(slot)  # drop the share
+            if req.cached_len == 0 and src >= 0 and shareable > 0:
+                shared = self.allocator.share_prefix(src, slot, shareable)
+                if shared > 0:
+                    if self.allocator.extend(slot, req.total_len):
+                        req.cached_len = shared
+                    else:
+                        self.allocator.free_seq(slot)  # drop the share
+            if req.cached_len == 0 \
+                    and not self.allocator.alloc_seq(slot, req.total_len):
+                # pool exhausted: retained prefixes give way before live
+                # work waits — evict LRU and retry this same request
+                if self._evict_prefix_lru():
+                    continue
+                break  # truly exhausted — wait for finishes
+            if req.cached_len or self._chunked(req.total_len):
+                late.add(slot)
             self.waiting.popleft()
             free.pop(0)
             req.slot = slot
@@ -290,58 +464,138 @@ class Engine:
                 self._bias_ids[slot, j] = int(t)
                 self._bias_vals[slot, j] = float(v)
             admitted.append(req)
+            if req.cached_len:
+                self.metrics.prefix_cache_hits += 1
+                self.metrics.prompt_tokens_cached += req.cached_len
             metrics_lib.log_event("request_admitted", req_id=req.req_id,
-                                  slot=slot, cached=0)
+                                  slot=slot, cached=req.cached_len)
         if not admitted:
             return
         self._active_dirty = True
         self._tables_dirty = True
         self._samp_dirty = True
-        arr = self._prefill_batch(admitted)
-        for i, req in enumerate(admitted):
-            tok_id = int(arr[i, 0])
-            self._next_tok[req.slot] = tok_id
-            self._counts_host[req.slot, tok_id] += 1
-            self._override[req.slot] = True  # fresh state for the pipeline
-            self._emit_tokens(req, [tok_id], [float(arr[i, 1])])
+        batchable: list[Request] = []
+        others: list[Request] = []      # long remainder: chunk loop
+        cached: list[Request] = []      # short suffix: batched below
+        for req in admitted:
+            if self._chunked(req.total_len - req.cached_len):
+                others.append(req)
+            elif req.cached_len:
+                cached.append(req)
+            else:
+                batchable.append(req)
+        # dispatch order = dependency order: a prefix-cached request may
+        # share pages written by an EARLIER admit of this same cycle, so
+        # whole-prompt prefills go first and suffixes follow
+        pending: list[tuple[list[Request], torch.Tensor]] = []
+        if batchable:
+            pending.append((batchable, self._prefill_batch(batchable)))
+        for req in others:
+            pending.append(([req], self._prefill(req, start=req.cached_len)))
+        if cached:
+            pending.append((cached,
+                            self._prefill_batch(cached, suffixes=True)))
+        # one host sync for every admitted prefill: the dispatches queue
+        # back to back on the device
+        for reqs, packed in pending:
+            arr = packed.cpu().numpy()       # [n, 2]: token, logprob
+            for i, req in enumerate(reqs):
+                tok_id = int(arr[i, 0])
+                self._next_tok[req.slot] = tok_id
+                self._counts_host[req.slot, tok_id] += 1
+                self._override[req.slot] = True  # fresh pipeline state
+                self._emit_tokens(req, [tok_id], [float(arr[i, 1])])
 
-    def _prefill_batch(self, reqs: list[Request]) -> np.ndarray:
-        """ONE batched whole-prompt prefill for a cycle's admits: rows
-        right-padded to the longest power-of-2 bucket (>= 16), row count
-        quantized to {1, max_batch}; padding rows carry -1 tables (trash
-        page) and kv_len 1. Returns the host rows [len(reqs), 2]:
-        (first token, its logprob)."""
+    def _prefill_batch(self, reqs: list[Request],
+                       suffixes: bool = False) -> torch.Tensor:
+        """ONE batched prefill dispatch for a cycle's admits.
+
+        ``suffixes=False``: whole prompts (each row writes its own pages
+        from position 0). ``suffixes=True``: prefix-cached admits — each
+        row prefills only its uncached suffix at its own page-aligned
+        offset. Rows are right-padded to the longest power-of-2 bucket
+        (>= 16), the row count quantized to {1, max_batch}; padding rows
+        carry -1 tables (trash page), kv_len 1 and offset 0. Returns the
+        device rows [len(reqs), 2]: (first token, its logprob)."""
         n = len(reqs)
-        todo = [r.total_len for r in reqs]
+        starts = [r.cached_len if suffixes else 0 for r in reqs]
+        todo = [r.total_len - s for r, s in zip(reqs, starts)]
         bucket = next_power_of_2(max(max(todo), 16))
         nb = 1 if n == 1 else len(self.slots)
         tokens = np.zeros((nb, bucket), np.int32)
         mp = self.allocator.max_pages_per_seq
         tables = np.full((nb, mp), -1, np.int32)
         kv_len = np.ones(nb, np.int32)
+        offs = np.zeros(nb, np.int32)
         for i, r in enumerate(reqs):
             ids = r.prompt_ids + r.output_ids
-            tokens[i, :todo[i]] = ids
+            tokens[i, :todo[i]] = ids[starts[i]:]
             tables[i] = self.allocator.row(r.slot)
             kv_len[i] = r.total_len
+            offs[i] = starts[i]
             self._pos[r.slot] = r.total_len
             self.metrics.prefills += 1
             self.metrics.prompt_tokens += r.total_len
         idx = np.asarray([r.slot for r in reqs] + [0] * (nb - n))
-        packed = self._prefill_fn(tokens, tables, kv_len, idx)
-        return packed.cpu().numpy()[:n]
+        if suffixes:
+            packed = self._prefill_chunk_fn(tokens, tables, kv_len, offs,
+                                            idx)
+        else:
+            packed = self._prefill_fn(tokens, tables, kv_len, idx)
+        return packed[:n]
+
+    def _prefill(self, req: Request, start: int) -> torch.Tensor:
+        """B=1 chunk loop over prompt tokens [start, total): ``start`` > 0
+        means the prefix cache covered [0, start) with shared pages
+        (page-aligned). Steps of ``prefill_chunk`` tokens, each attending
+        through the page tables to everything before it. Returns the
+        last chunk's device row [1, 2]."""
+        ids = req.prompt_ids + req.output_ids
+        ln = len(ids)
+        todo = ln - start
+        tables = self.allocator.row(req.slot)[None]
+        idx = np.asarray([req.slot])
+        step = self.ecfg.prefill_chunk
+        n_chunks = -(-todo // step)
+        padded = np.zeros((n_chunks * step,), np.int32)
+        padded[:todo] = ids[start:]
+        for j in range(n_chunks):
+            off = start + j * step
+            packed = self._prefill_chunk_fn(
+                padded[None, j * step:(j + 1) * step], tables,
+                np.asarray([min(ln, off + step)], np.int32),
+                np.asarray([off], np.int32), idx)
+        self.metrics.prefills += 1
+        self.metrics.prompt_tokens += ln
+        self._pos[req.slot] = ln
+        return packed
 
     def _prefill_fn(self, tokens, tables, kv_len, idx) -> torch.Tensor:
         """Prefill forward + in-call sampling of each row's first token.
         The noise is keyed by the position of the consumed input token
         (kv_len - 1), like the burst recurrence."""
-        tok_d = self._upload(tokens)
-        kv_d = self._upload(kv_len)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=self.device)[None]
+        return self._forward_and_sample(tokens, positions, tables, kv_len,
+                                        idx, None)
+
+    def _prefill_chunk_fn(self, tokens, tables, kv_len, chunk_offset,
+                          idx) -> torch.Tensor:
+        """Chunked prefill forward (row b at its own page-aligned offset
+        ``chunk_offset[b]``) + in-call sampling, as :meth:`_prefill_fn`."""
+        offs = self._upload(chunk_offset)
+        positions = offs[:, None] + torch.arange(
+            tokens.shape[1], dtype=torch.int32, device=self.device)[None]
+        return self._forward_and_sample(tokens, positions, tables, kv_len,
+                                        idx, offs)
+
+    def _forward_and_sample(self, tokens, positions, tables, kv_len, idx,
+                            chunk_offset) -> torch.Tensor:
+        kv_d = self._upload(kv_len)
         logits, self.cache = llama.forward_paged(
-            self.cfg, self.params, tok_d, positions, self.cache,
-            self._upload(tables), kv_d, prefill=True, last_token_only=True)
+            self.cfg, self.params, self._upload(tokens), positions,
+            self.cache, self._upload(tables), kv_d, prefill=True,
+            last_token_only=True, chunk_offset=chunk_offset)
         samp = self._sampler_rows(idx, with_counts=True)
         last = logits[:, -1]
         tok = sampling_ops.sample(last, seed_pos=kv_d - 1, **samp)
@@ -417,6 +671,7 @@ class Engine:
 
     def _finish(self, req: Request):
         req.state = RequestState.FINISHED
+        self._retain_prefix(req)
         self._release_slot_bias(req.slot)
         self.allocator.free_seq(req.slot)
         self.slots[req.slot] = None
@@ -472,6 +727,10 @@ class Engine:
                         self._tables_dirty = True
             if ok:
                 return True
+            # retained prefixes are strictly lower priority than live
+            # requests: evict them all before preempting anyone
+            if self._evict_prefix_lru():
+                continue
             if not self._preempt_youngest():
                 return False
 

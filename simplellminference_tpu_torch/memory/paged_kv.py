@@ -71,12 +71,24 @@ class PagedKVCache:
 
 def write_prefill_stacked(pool_k, pool_v, new_k, new_v, tables, layer: int,
                           pool_ks=None, pool_vs=None, page_offset=None):
-    """Stacked-pool prefill write of a whole prompt from position 0.
-    Returns (pool_k, pool_v, None, None), updated in place."""
+    """Stacked-pool prefill write of S new rows per sequence: a whole
+    prompt from position 0, or with ``page_offset`` (the first table
+    column to write, a scalar or [B]: chunks and prefix-cached suffixes
+    start at their own page-aligned offsets) a chunk. Table columns past
+    the width map to -1, the trash page. Returns (pool_k, pool_v, None,
+    None), updated in place."""
     if pool_ks is not None or pool_vs is not None:
         raise NotImplementedError("INT8 KV (scale pools)")
     if page_offset is not None:
-        raise NotImplementedError("chunked / prefix-cached prefill writes")
+        b, mp = tables.shape
+        npg = -(-new_k.shape[1] // pool_k.shape[3])
+        po = torch.as_tensor(page_offset, dtype=torch.long,
+                             device=tables.device)
+        if po.ndim == 0:
+            po = po.expand(b)
+        cols = po[:, None] + torch.arange(npg, device=tables.device)[None]
+        got = tables.gather(1, cols.clamp(max=mp - 1))
+        tables = torch.where(cols < mp, got, torch.full_like(got, -1))
     pk, pv = paged_append_prefill(pool_k, pool_v, new_k, new_v, tables,
                                   layer)
     return pk, pv, None, None

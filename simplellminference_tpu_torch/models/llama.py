@@ -3,10 +3,12 @@ params dict.
 
 Counterpart of simplellminference_tpu/models/llama.py:484-911
 (``forward_paged``) and :914 (``init_params``) for the plain pre-norm,
-full-rotary Llama branch: whole-prompt prefill from position 0 and
-single-token decode. A Python loop over layers stands in for the
-``lax.scan``; stacked [L, ...] weights are indexed per layer, and the KV
-pools are written in place.
+full-rotary Llama branch: whole-prompt prefill from position 0, chunked
+prefill at per-row page-aligned offsets (prefill chunks and
+prefix-cached suffixes, attending through the page tables with
+``paged_flash_prefill``) and single-token decode. A Python loop over
+layers stands in for the ``lax.scan``; stacked [L, ...] weights are
+indexed per layer, and the KV pools are written in place.
 
 Weights are plain tensors or INT8 :class:`~simplellminference_tpu_torch.
 ops.linear.QuantizedWeight` leaves (``runtime.weights.quantize_params``
@@ -85,7 +87,8 @@ def check_supported(cfg: ModelConfig) -> None:
 def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                   positions: torch.Tensor, cache, tables: torch.Tensor,
                   kv_lens: torch.Tensor, prefill: bool,
-                  last_token_only: bool = False):
+                  last_token_only: bool = False,
+                  chunk_offset: torch.Tensor | None = None):
     """Forward pass over the paged KV cache (engine path).
 
     tokens/positions: [B, S]; cache: :class:`PagedKVCache` (updated in
@@ -93,12 +96,17 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     tokens AFTER this step. ``prefill``: S-token whole-prompt pass from
     position 0 (right-padded), attention is causal self-attention on the
     fresh k/v; otherwise S == 1 decode through the page tables.
+    ``chunk_offset`` ([B], page-aligned, with ``prefill``): chunked
+    prefill — row b processes prompt tokens [chunk_offset[b],
+    chunk_offset[b] + S), writes their pages and attends through the page
+    tables to every cached position < kv_lens[b] up to its own.
     ``last_token_only``: project only row b's position kv_lens[b]-1
     through the LM head. Returns (logits [B, S or 1, V] f32, cache)."""
     check_supported(cfg)
     b, s = tokens.shape
     if not prefill and s != 1:
         raise NotImplementedError("multi-token decode (speculative verify)")
+    chunked = prefill and chunk_offset is not None
     n, kvn, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     i_sz = cfg.intermediate_size
     eps = cfg.rms_norm_eps
@@ -109,6 +117,7 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                                                nope)[0]
     lw = params["layers"]
     pk, pv = cache.k, cache.v
+    page_offset = chunk_offset // cache.page_size if chunked else None
     # the JAX gates of llama.py:583-594 and :766-775, TPU tiling aside
     use_fqkv = (not prefill and s == 1 and "q_norm" not in lw
                 and cfg.pre_norms and cfg.partial_rotary_factor == 1.0
@@ -135,7 +144,12 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             v = qkv[..., (n + kvn) * d:].reshape(b, s, kvn, d)
             q = ref_ops.apply_rope(q, sin, cos)
             k = ref_ops.apply_rope(k, sin, cos)
-            if prefill:
+            if chunked:
+                pkv.write_prefill_stacked(pk, pv, k, v, tables, li,
+                                          page_offset=page_offset)
+                attn = dispatch.attention_paged_prefill(
+                    cfg, q, pk, pv, tables, kv_lens, chunk_offset, li)
+            elif prefill:
                 pkv.write_prefill_stacked(pk, pv, k, v, tables, li)
                 attn = dispatch.attention(cfg, q, k, v)
             else:
@@ -158,7 +172,11 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         x = x + linear(swi, lw["w_down"], layer=li)
 
     if last_token_only and s > 1:
-        idx = (kv_lens.long() - 1).to(x.device)
+        # the last valid slot kv_len-1 (absolute) as a chunk-local index
+        idx = kv_lens.long() - 1
+        if chunked:
+            idx = idx - chunk_offset.long()
+        idx = idx.to(x.device)
         x = x[torch.arange(b, device=x.device), idx][:, None]
     x = ref_ops.rmsnorm(x, params["final_norm"], eps)
     lm_head = params.get("lm_head")

@@ -1,11 +1,11 @@
 """Attention dispatch for the model.
 
-Counterpart of simplellminference_tpu/ops/attention/dispatch.py:68-94 and
-:197-269. There is no backend switch here: each kernel wrapper launches
-its CUDA kernel for CUDA tensors and takes its plain version for CPU
-tensors, so on the card every call goes through a kernel. Attention
-options the kernels do not take yet (sliding window, logit soft cap,
-sinks) raise.
+Counterpart of simplellminference_tpu/ops/attention/dispatch.py:68-94,
+:140-194 and :197-269. There is no backend switch here: each kernel
+wrapper launches its CUDA kernel for CUDA tensors and takes its plain
+version for CPU tensors, so on the card every call goes through a kernel.
+Attention options the kernels do not take yet (sliding window, logit soft
+cap, sinks) raise.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from simplellminference_tpu_torch.ops.attention.flash_prefill import (
     flash_prefill)
 from simplellminference_tpu_torch.ops.attention.paged_decode import (
     paged_flash_decode)
+from simplellminference_tpu_torch.ops.attention.paged_prefill import (
+    paged_flash_prefill)
 
 
 def _attn_opts(cfg: ModelConfig) -> float | None:
@@ -38,6 +40,20 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     """Causal self-attention of a prompt, no cache read-back.
     q: [B, S, N, D]; k/v: [B, S, kvN, D]."""
     return flash_prefill(q, k, v, sm_scale=_attn_opts(cfg))
+
+
+def attention_paged_prefill(cfg: ModelConfig, q: torch.Tensor,
+                            pool_k: torch.Tensor, pool_v: torch.Tensor,
+                            tables: torch.Tensor, kv_lens: torch.Tensor,
+                            chunk_offset: torch.Tensor,
+                            layer: int) -> torch.Tensor:
+    """Chunked-prefill attention through the page tables (counterpart of
+    dispatch.py:140-194): row b's queries sit at absolute positions
+    chunk_offset[b] + 0..S-1 and attend to every cached position
+    < kv_lens[b] up to the causal frontier. q: [B, S, N, D]; pools:
+    stacked [L, P+1, kvN, ps, D] with an int ``layer``."""
+    return paged_flash_prefill(q, pool_k, pool_v, tables, kv_lens,
+                               chunk_offset, layer, sm_scale=_attn_opts(cfg))
 
 
 def attention_paged(cfg: ModelConfig, q: torch.Tensor, pool_k: torch.Tensor,

@@ -1,0 +1,128 @@
+"""Paged flash prefill attention: a chunk of queries per sequence against
+the KV already in its pages, found through the block tables.
+
+Counterpart of simplellminference_tpu/ops/attention/paged_prefill.py:156.
+Row b's queries sit at absolute positions ``chunk_offset[b] + 0..Sq-1``
+(a prefill chunk, or a prefix-cached suffix, already written to its
+pages); each attends to every cached position < kv_lens[b] up to its
+causal frontier. For CUDA tensors :func:`paged_flash_prefill` launches the
+hand-written kernel of ``csrc/paged_prefill.cu`` (one block per 64-row q
+tile, q head and sequence; K/V tiles of 64 keys staged through shared
+memory, each key's page looked up in the table; f32 online softmax); for
+CPU tensors it runs :func:`paged_flash_prefill_ref`, the gather + masked
+dense reference of the JAX dispatcher (dispatch.py:172-194).
+
+The kernel takes every Sq (the TPU kernel needs Sq % bq == 0, and its
+dispatcher Sq % 128 == 0). ``bq`` and ``pages_per_block``, the TPU's MXU
+block knobs (paged_prefill.py:13-21, :180-182), have no counterpart.
+Unmapped (-1) pages inside kv_len read as zeros in both versions, as in
+:func:`~simplellminference_tpu_torch.memory.paged_kv.gather_dense`.
+Sliding window, logit soft cap, sinks, INT8 KV scales and shared-KV
+(absorbed MLA) pools are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from simplellminference_tpu_torch.memory.paged_kv import gather_dense
+from simplellminference_tpu_torch.ops import cuda_build, ref_ops
+
+HEAD_DIMS = (32, 64, 128)
+
+
+def _check_options(v_pool, window, logit_cap, sinks, k_scale, v_scale):
+    if v_pool is None:
+        raise NotImplementedError("shared-KV pools (absorbed MLA)")
+    if window is not None:
+        raise NotImplementedError("sliding-window attention")
+    if logit_cap:
+        raise NotImplementedError("attention logit soft cap")
+    if sinks is not None:
+        raise NotImplementedError("attention sinks")
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError("INT8 KV (scale pools)")
+
+
+def paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
+                            layer: int, sm_scale: float | None = None,
+                            window=None, logit_cap=None, sinks=None,
+                            k_scale=None, v_scale=None) -> torch.Tensor:
+    """Plain version: gather the pages densely, mask
+    key_pos <= q_pos and key_pos < kv_len per element, reference attention.
+    q: [B, Sq, N, D] -> [B, Sq, N, D]."""
+    _check_options(v_pool, window, logit_cap, sinks, k_scale, v_scale)
+    if q.is_cuda:
+        paged_flash_prefill_ref.cuda_calls += 1
+    ck, cv = gather_dense(k_pool[layer], v_pool[layer], tables)
+    smax = ck.shape[2]
+    s = q.shape[1]
+    key_pos = torch.arange(smax, device=q.device)[None, None, None, :]
+    q_pos = (chunk_offset.long().to(q.device)[:, None]
+             + torch.arange(s, device=q.device)[None])            # [B, Sq]
+    mask = ((key_pos <= q_pos[:, None, :, None])
+            & (key_pos < kv_lens.long().to(q.device)[:, None, None, None]))
+    return ref_ops.attention(q, ck.transpose(1, 2), cv.transpose(1, 2),
+                             mask, scale=sm_scale)
+
+
+paged_flash_prefill_ref.cuda_calls = 0
+
+
+def paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
+                        layer: int, sm_scale: float | None = None,
+                        window=None, logit_cap=None, sinks=None,
+                        k_scale=None, v_scale=None) -> torch.Tensor:
+    """q: [B, Sq, N, D] at absolute positions chunk_offset[b] + 0..Sq-1;
+    k/v_pool: stacked [L, P+1, kvN, ps, D] with an int ``layer``; tables:
+    [B, MP] int32 (-1 = unmapped); kv_lens: [B] valid tokens after the
+    chunk's write; chunk_offset: [B] -> out [B, Sq, N, D] in q's dtype.
+    Keys are positions < min(kv_len, MP*ps) up to each row's position."""
+    _check_options(v_pool, window, logit_cap, sinks, k_scale, v_scale)
+    if not q.is_cuda:
+        return paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens,
+                                       chunk_offset, layer, sm_scale)
+    b, s, n, d = q.shape
+    n_layers, p1, kvn, ps, pd = k_pool.shape
+    if pd != d or v_pool.shape != k_pool.shape:
+        raise ValueError("pools must be matching [L, P+1, kvN, ps, D]")
+    if n % kvn:
+        raise ValueError(f"{n} heads do not group over {kvn} kv heads")
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(f"head_dim {d} (kernel takes {HEAD_DIMS})")
+    if not (q.dtype == k_pool.dtype == v_pool.dtype):
+        raise NotImplementedError(
+            f"q {q.dtype} with {k_pool.dtype} pools (quantized KV)")
+    if any(t.device != q.device
+           for t in (k_pool, v_pool, tables, kv_lens, chunk_offset)):
+        raise ValueError("q, pools, tables, kv_lens and chunk_offset must "
+                         "share a device")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError("pools must be contiguous")
+    if not 0 <= layer < n_layers:
+        raise IndexError(f"layer {layer} out of range")
+    code = cuda_build.dtype_code(q.dtype)
+    out = torch.empty((b, s, n, d), dtype=q.dtype, device=q.device)
+    if b == 0 or s == 0:
+        return out
+    if q.stride(-1) != 1 or q.stride(-2) != d:
+        q = q.contiguous()
+    tables = tables.to(torch.int32).contiguous()
+    kv_lens = kv_lens.to(torch.int32).contiguous()
+    offs = chunk_offset.to(torch.int32).contiguous()
+    if tables.shape[0] != b or kv_lens.shape != (b,) or offs.shape != (b,):
+        raise ValueError("tables/kv_lens/chunk_offset rows do not match q")
+    scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    lib = cuda_build.load()
+    rc = lib.sli_paged_flash_prefill(
+        q.data_ptr(), q.stride(0), q.stride(1), k_pool.data_ptr(),
+        v_pool.data_ptr(), tables.data_ptr(), kv_lens.data_ptr(),
+        offs.data_ptr(), out.data_ptr(), b, s, n, layer, p1, kvn, ps,
+        tables.shape[1], n // kvn, d, scale, code,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(lib, rc, "paged_flash_prefill")
+    paged_flash_prefill.launches += 1
+    return out
+
+
+paged_flash_prefill.launches = 0

@@ -208,8 +208,6 @@ def test_sampled_requests_are_seeded_and_finish(model):
 
 @pytest.mark.parametrize("kw,feature", [
     (dict(spec_tokens=2), "speculative decoding"),
-    (dict(prefill_chunk=16), "chunked prefill"),
-    (dict(prefix_cache_entries=4), "prefix cache"),
     (dict(top_logprobs=2), "top_logprobs"),
     (dict(mesh_shape={"model": 2}), "tensor-parallel"),
     (dict(kv=KVCacheConfig(kv_dtype="int8")), "int8 KV"),

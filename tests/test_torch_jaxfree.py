@@ -28,6 +28,7 @@ from simplellminference_tpu_torch.ops import ffn_fused, linear, matmul
 from simplellminference_tpu_torch.ops import qkv_fused, ref_ops
 from simplellminference_tpu_torch.runtime import weights
 from simplellminference_tpu_torch.ops.attention import dispatch
+from simplellminference_tpu_torch.ops.attention import paged_prefill
 from simplellminference_tpu_torch.memory import allocator, paged_kv
 from simplellminference_tpu_torch.tokenizer import StreamingDetokenizer
 import chip_smoke

@@ -36,6 +36,7 @@ from simplellminference_tpu_torch.ops import qkv_fused as qf
 from simplellminference_tpu_torch.ops import ref_ops
 from simplellminference_tpu_torch.ops.attention import flash_prefill as fp
 from simplellminference_tpu_torch.ops.attention import paged_decode as pd
+from simplellminference_tpu_torch.ops.attention import paged_prefill as pp
 from simplellminference_tpu_torch.ops.linear import QuantizedWeight
 from simplellminference_tpu_torch.runtime.weights import quantize_params
 
@@ -130,6 +131,61 @@ def test_paged_flash_decode(cuda, dtype, n, kvn, d):
     want = pd.paged_flash_decode_ref(q, pk, pv, tables, kv, 1)
     assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
     assert not got[4].any()          # kv_len 0 -> zero output
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s,n,kvn,d,ps", [(64, 32, 32, 128, 128),
+                                          (100, 32, 4, 64, 16),
+                                          (1, 8, 2, 32, 8)])
+def test_paged_flash_prefill(cuda, dtype, s, n, kvn, d, ps):
+    g = torch.Generator(device=cuda).manual_seed(s + n)
+    b, mp = 4, 48 * 8 // ps
+    pk, pv = _pools(g, cuda, dtype, b=b, kvn=kvn, ps=ps, d=d, mp=mp)
+    q = torch.randn((b, s, n, d), generator=g, device=cuda, dtype=dtype)
+    tables = torch.randperm(b * mp, generator=g, device=cuda).to(
+        torch.int32).reshape(b, mp)
+    # ragged page-aligned offsets; row 2 has an unmapped page inside
+    # kv_len; row 3 is a batch's padding row (-1 table, kv_len 1)
+    offs = torch.tensor([0, 2 * ps, ps, 0], dtype=torch.int32, device=cuda)
+    kv = offs + torch.tensor([s, max(s - 7, 1), s, 1], dtype=torch.int32,
+                             device=cuda)
+    tables[2, 0] = -1
+    tables[3] = -1
+    before = pp.paged_flash_prefill.launches
+    got = pp.paged_flash_prefill(q, pk, pv, tables, kv, offs, 1)
+    assert pp.paged_flash_prefill.launches == before + 1
+    want = pp.paged_flash_prefill_ref(q, pk, pv, tables, kv, offs, 1)
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
+
+
+def test_prefix_cache_engine_card_matches_cpu(cuda):
+    # the JAX Engine's default configuration (prefix cache on) with
+    # chunked prefill: sharing, a suffix batch and a persistent hit run
+    # the kernels only and give the CPU's greedy tokens
+    cfg = ModelConfig.tiny_test(num_layers=2)
+    p_cpu = llama.init_params(cfg, seed=5, device="cpu")
+    p_gpu = _to(p_cpu, cuda)
+    ecfg = EngineConfig(max_batch_size=4, prefill_chunk=16,
+                        kv=KVCacheConfig(page_size=8, num_pages=64,
+                                         max_pages_per_seq=8,
+                                         kv_dtype="f32"))
+    system = list(range(3, 35))
+    waves = [[system + [40]], [system + [41, 42], system + [43] * 9],
+             [system + [44, 45, 46]]]
+    refs = (pa.paged_append_prefill_ref, pp.paged_flash_prefill_ref,
+            fp.flash_prefill_ref, pd.paged_flash_decode_ref)
+    calls = [f.cuda_calls for f in refs]
+    launches = pp.paged_flash_prefill.launches
+    outs = []
+    for p, dev in ((p_cpu, "cpu"), (p_gpu, cuda)):
+        eng = Engine(cfg, p, ecfg, decode_burst=4, device=dev)
+        outs.append([eng.generate(w, SamplingParams(max_new_tokens=6))
+                     for w in waves])
+        assert eng.metrics.prefix_cache_persistent_hits == 3
+    assert outs[0] == outs[1]
+    assert [f.cuda_calls for f in refs] == calls
+    assert pp.paged_flash_prefill.launches > launches
 
 
 def test_cuda_entry_points_never_take_the_plain_path(cuda):
