@@ -18,7 +18,14 @@ Phases, in order; any failure exits non-zero:
                 `prefix` path's dispatches (8 x 64 suffix rows and one
                 256-row chunk at offset 512, kv_len 540-576, bf16) and a
                 GQA case with ragged offsets, an unmapped page and a
-                padding row (f32); max |error| beside its
+                padding row (f32); then INT8 KV: paged_append_decode_quant
+                and paged_append_prefill_quant byte-equal to their plain
+                versions (bf16 and f32 rows), the INT8-KV forms of
+                paged_flash_decode and paged_flash_prefill at the same
+                shapes as their bf16 forms (int8 pools, f32 scale pools),
+                and the quantizing fused_qkv_append (codes at most 1
+                apart, scales within one bf16 ulp of the absmax or 1e-5
+                relative in f32); max |error| beside its
                 tolerance, kernel / plain / library times from CUDA-graph
                 replay, and the bound (the least time for the bytes and
                 operations of the call on an H100 SXM: 3.35 TB/s,
@@ -42,6 +49,12 @@ Phases, in order; any failure exits non-zero:
                 8 hitting the persistent store after all finish (one
                 suffix batch); exact launch counts and prefix metrics, and
                 the last wave's admit beside the same prompts uncached.
+                Then INT8 KV: `int8kv` (bench.py --kv-dtype int8: INT8
+                weights and KV, as the int8 path) with two graph-replayed
+                decode steps at kv_len 4096, batch 8, over bf16 and INT8
+                pools filled from a seed, beside their bytes floors; and
+                `int8kv_prefix` (the server CLI's --kv-dtype int8: bf16
+                weights, the prefix cache on; the prefix path's traffic).
   5. cpu      — the same port at Llama-2-7B width, 2 layers, f32, TF32 off,
                 on the card (kernels) and on the host CPU (plain
                 versions), from one numpy draw of the weights, 4 requests,
@@ -52,7 +65,8 @@ Phases, in order; any failure exits non-zero:
                 below that tolerance; and the `prefix` path's traffic at a
                 small size with the float weights, its greedy tokens equal
                 on both devices and to the cache-off trace by the same
-                rule.
+                rule. Each of these again over INT8 KV pools (the prefix
+                traffic with the float weights).
 
 Then one line ``{"kernels": [...]}`` and, last, the result line
 ``{"ok": true, "device": {...}}``; both only when every phase ran
@@ -81,6 +95,14 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # deviation
 F32_REL = 1e-5
 LOGIT_TOL = 1e-3
+# INT8 KV: card and CPU compute k/v in another summation order, so a value
+# at a rounding midpoint may take the neighbouring int8 code; one code
+# step is absmax / 127 of its row. While both caches hold the same codes
+# the logits are held to LOGIT_TOL; once a code is one apart, to this
+# (at 7B width, 2 layers, the first such step measured 1.3e-3 on an NVIDIA
+# H100 80GB HBM3 at 700.00 W; a wrong scale or a dropped key moves whole
+# rows of codes)
+LOGIT_TOL_CODE_APART = 1e-2
 RATE_RUNS = 5                       # engine runs per length for the rate
 PHASES = ("device", "build", "kernels", "engine", "cpu")
 
@@ -109,11 +131,29 @@ KERNELS = {
     "paged_flash_prefill": dict(
         source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
         replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    "paged_append_decode_quant": dict(
+        source="simplellminference_tpu_torch/csrc/paged_append_quant.cu",
+        replaces="simplellminference_tpu/ops/paged_append.py:210"),
+    "paged_append_prefill_quant": dict(
+        source="simplellminference_tpu_torch/csrc/paged_append_quant.cu",
+        replaces="simplellminference_tpu/ops/paged_append.py:295"),
+    # the INT8-KV forms of kernels 4, 6 and 8 (scale pools given)
+    "paged_flash_decode_int8kv": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "fused_qkv_append_int8kv": dict(
+        source="simplellminference_tpu_torch/csrc/qkv_fused.cu",
+        replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
+    "paged_flash_prefill_int8kv": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
 }
 # the Engine's paths, in order: bench.py's weight paths (prefix cache
 # off), then the server's default configuration (prefix cache on,
-# chunked prefill) with INT8 weights
-PATHS = ("int8", "bf16", "prefix")
+# chunked prefill) with INT8 weights, then INT8 KV: bench.py
+# --kv-dtype int8 (INT8 weights) and the server CLI's --kv-dtype int8
+# (bf16 weights, the prefix cache on)
+PATHS = ("int8", "bf16", "prefix", "int8kv", "int8kv_prefix")
 
 
 class SmokeFailure(Exception):
@@ -720,6 +760,374 @@ def check_paged_prefill(torch, dev, results, extra):
             results["paged_flash_prefill"] = r
 
 
+def _quant_pools(torch, gen, dev, layers, pages, kvn, ps, d):
+    """INT8 pools as the Engine fills them: N(0, 1) K/V rows (kernel 4's
+    and 8's pools) quantized per (token, head) by the plain quantize_kv."""
+    from simplellminference_tpu_torch.memory.paged_kv import quantize_kv
+    shape = (layers, pages + 1, kvn, ps, d)
+    qk, sk = quantize_kv(torch.randn(shape, generator=gen, device=dev))
+    qv, sv = quantize_kv(torch.randn(shape, generator=gen, device=dev))
+    return qk, qv, sk, sv
+
+
+def _quantize_lib(torch, x):
+    """quantize_kv in plain torch operations (the library yardstick)."""
+    xf = x.float()
+    amax = xf.abs().amax(-1)
+    s = (amax / torch.full_like(amax, 127.0)).clamp_min(1e-8)
+    return torch.round(xf / s[..., None]).clamp_(-127, 127).to(
+        torch.int8), s
+
+
+def check_append_decode_quant(torch, dev, results):
+    from simplellminference_tpu_torch.ops.paged_append import (
+        paged_append_decode_quant, paged_append_decode_quant_ref)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    main = None
+    for tag, (b, kvn, d, dtype) in {
+            "llama2-7b": (8, 32, 128, torch.bfloat16),
+            "gqa": (8, 4, 64, torch.float32)}.items():
+        ps, mp, layer = 128, 3, 1
+        pools = _quant_pools(torch, gen, dev, 2, b * mp, kvn, ps, d)
+        qkv = torch.randn((b, 3 * kvn * d), generator=gen, device=dev,
+                          dtype=dtype) * 4
+        nk = qkv[:, kvn * d:2 * kvn * d].reshape(b, kvn, d)
+        nv = qkv[:, 2 * kvn * d:].reshape(b, kvn, d)   # strided, like the model
+        tables = _tables(torch, dev, b, mp)
+        pos = (128 + 4 * torch.arange(b, device=dev)).to(torch.int32)
+        a, r = [p.clone() for p in pools], [p.clone() for p in pools]
+        paged_append_decode_quant(*a, nk, nv, tables, pos, layer)
+        paged_append_decode_quant_ref(*r, nk, nv, tables, pos, layer)
+        torch.cuda.synchronize()
+        err = max(max_err(x[:, :-1], y[:, :-1]) for x, y in zip(a, r))
+        print(f"[kernels] paged_append_decode_quant {tag}: codes and scales "
+              f"max|err| {err} (tol 0, byte-equal; trash page excluded)",
+              flush=True)
+        require(err == 0.0, f"paged_append_decode_quant {tag} disagrees: "
+                f"{err}")
+        if main is None:
+            p1 = pools[0].shape[1]
+            page = tables.long().gather(1, (pos.long() // ps)[:, None])[:, 0]
+            page = torch.where(page >= 0, page, p1 - 1)
+            slot = pos.long() % ps
+            heads = torch.arange(kvn, device=dev)
+            ix = (page[:, None], heads[None], slot[:, None])
+
+            def library():
+                for pool, sc, x in ((a[0], a[2], nk), (a[1], a[3], nv)):
+                    q, s = _quantize_lib(torch, x)
+                    pool[layer].index_put_(ix, q)
+                    sc[layer].index_put_(ix, s)
+
+            es = nk.element_size()
+            nbytes = (2 * b * kvn * d * es + 2 * b * kvn * (d + 4)
+                      + tables.numel() * 4 + pos.numel() * 4)
+            bms, by = bound_ms(nbytes, 0.0, dname(torch, dtype))
+            main = dict(
+                max_abs_err=err,
+                ms=time_ms(torch, lambda: paged_append_decode_quant(
+                    *a, nk, nv, tables, pos, layer)),
+                plain_ms=time_ms(torch, lambda: paged_append_decode_quant_ref(
+                    *r, nk, nv, tables, pos, layer)),
+                library_ms=time_ms(torch, library),
+                bound_ms=bms, bound_by=by)
+    results["paged_append_decode_quant"] = main
+
+
+def check_append_prefill_quant(torch, dev, results):
+    from simplellminference_tpu_torch.ops.paged_append import (
+        paged_append_prefill_quant, paged_append_prefill_quant_ref)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    main = None
+    for tag, (b, s, kvn, d, dtype) in {
+            "llama2-7b": (8, 128, 32, 128, torch.bfloat16),
+            "ragged": (8, 100, 32, 128, torch.bfloat16),
+            "gqa": (4, 300, 4, 64, torch.float32)}.items():
+        ps, mp, layer = 128, 3, 0
+        pools = _quant_pools(torch, gen, dev, 2, b * mp, kvn, ps, d)
+        qkv = torch.randn((b, s, 3 * kvn * d), generator=gen, device=dev,
+                          dtype=dtype) * 4
+        nk = qkv[..., kvn * d:2 * kvn * d].reshape(b, s, kvn, d)
+        nv = qkv[..., 2 * kvn * d:].reshape(b, s, kvn, d)   # strided views
+        tables = _tables(torch, dev, b, mp)
+        a, r = [p.clone() for p in pools], [p.clone() for p in pools]
+        paged_append_prefill_quant(*a, nk, nv, tables, layer)
+        paged_append_prefill_quant_ref(*r, nk, nv, tables, layer)
+        torch.cuda.synchronize()
+        err = max(max_err(x[:, :-1], y[:, :-1]) for x, y in zip(a, r))
+        print(f"[kernels] paged_append_prefill_quant {tag}: codes and scales "
+              f"max|err| {err} (tol 0, byte-equal; trash page excluded)",
+              flush=True)
+        require(err == 0.0, f"paged_append_prefill_quant {tag} disagrees: "
+                f"{err}")
+        if main is None:
+            npg = -(-s // ps)
+            p1 = pools[0].shape[1]
+            idx = tables[:, :npg].long()
+            idx = torch.where(idx >= 0, idx, p1 - 1).reshape(-1)
+
+            def library():
+                for pool, sc, x in ((a[0], a[2], nk), (a[1], a[3], nv)):
+                    q, sq = _quantize_lib(torch, x)
+                    pool[layer].index_copy_(0, idx, q.reshape(
+                        b, npg, ps, kvn, d).transpose(2, 3).reshape(
+                            b * npg, kvn, ps, d))
+                    sc[layer].index_copy_(0, idx, sq.reshape(
+                        b, npg, ps, kvn).transpose(2, 3).reshape(
+                            b * npg, kvn, ps))
+
+            es = nk.element_size()
+            nbytes = (2 * b * s * kvn * d * es
+                      + 2 * b * npg * ps * kvn * (d + 4) + b * mp * 4)
+            bms, by = bound_ms(nbytes, 0.0, dname(torch, dtype))
+            main = dict(
+                max_abs_err=err,
+                ms=time_ms(torch, lambda: paged_append_prefill_quant(
+                    *a, nk, nv, tables, layer)),
+                plain_ms=time_ms(torch, lambda: paged_append_prefill_quant_ref(
+                    *r, nk, nv, tables, layer)),
+                library_ms=time_ms(torch, library),
+                bound_ms=bms, bound_by=by)
+    results["paged_append_prefill_quant"] = main
+
+
+def _dequant_sdpa(torch, q4, pk, pv, ks, vs, tables, layer, mask):
+    """The library yardstick of the INT8-KV attention forms: gather and
+    dequantize in f32 (torch operations), cast to q's dtype, then
+    scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    from simplellminference_tpu_torch.memory.paged_kv import gather_dense
+    ck, cv = gather_dense(pk[layer], pv[layer], tables, ks[layer], vs[layer])
+    return F.scaled_dot_product_attention(q4, ck.to(q4.dtype),
+                                          cv.to(q4.dtype), attn_mask=mask)
+
+
+def check_paged_decode_int8kv(torch, dev, results):
+    from simplellminference_tpu_torch.ops.attention.paged_decode import (
+        paged_flash_decode_int8kv, paged_flash_decode_ref)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    main = None
+    # as kernel 4's cases: 8 live rows at 7B; the GQA cases end with a
+    # dead slot (all -1 table, kv_len 129: unmapped pages, a padding row)
+    cases = {
+        "llama2-7b": (8, 32, 32, 128, torch.bfloat16,
+                      [128 + 4 * i for i in range(8)], False),
+        "gqa-f32": (6, 32, 4, 64, torch.float32, [1, 5, 128, 200, 0, 129],
+                    True),
+        "gqa-bf16": (6, 32, 4, 64, torch.bfloat16, [1, 5, 128, 200, 0, 129],
+                     True),
+    }
+    for tag, (b, n, kvn, d, dtype, lens, dead) in cases.items():
+        ps, mp, layer = 128, 2, 1
+        pk, pv, ks, vs = _quant_pools(torch, gen, dev, 2, b * mp, kvn, ps, d)
+        q = torch.randn((b, n, d), generator=gen, device=dev, dtype=dtype)
+        tables = _tables(torch, dev, b, mp, dead_last=dead)
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = paged_flash_decode_int8kv(q, pk, pv, ks, vs, tables, kv_lens,
+                                        layer)
+        want = paged_flash_decode_ref(q, pk, pv, tables, kv_lens, layer,
+                                      k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        tol = TOL[dname(torch, dtype)]
+        print(f"[kernels] paged_flash_decode_int8kv {tag}: max|err| "
+              f"{err:.3e} (tol {tol:g})", flush=True)
+        require(bool(torch.isfinite(got).all()) and err <= tol,
+                f"paged_flash_decode_int8kv {tag} disagrees: {err}")
+        if main is None:
+            smax = mp * ps
+            mask = (torch.arange(smax, device=dev)[None, None, None, :]
+                    < kv_lens.long()[:, None, None, None])
+            key_pos = torch.arange(mp * ps, device=dev)
+            mapped = tables.long().repeat_interleave(ps, dim=1) >= 0
+            live = int((mapped & (key_pos[None] < kv_lens.long()[:, None]))
+                       .sum())
+            es = q.element_size()
+            # q in, out; each live key's int8 K and V rows and two scales
+            nbytes = (2 * b * n * d * es + live * kvn * 2 * (d + 4)
+                      + tables.numel() * 4 + b * 4)
+            bms, by = bound_ms(nbytes, 4.0 * n * d * live,
+                               dname(torch, dtype))
+            q4 = q[:, :, None]
+            main = dict(
+                max_abs_err=err,
+                ms=time_ms(torch, lambda: paged_flash_decode_int8kv(
+                    q, pk, pv, ks, vs, tables, kv_lens, layer)),
+                plain_ms=time_ms(torch, lambda: paged_flash_decode_ref(
+                    q, pk, pv, tables, kv_lens, layer, k_scale=ks,
+                    v_scale=vs)),
+                library_ms=time_ms(torch, lambda: _dequant_sdpa(
+                    torch, q4, pk, pv, ks, vs, tables, layer, mask)),
+                bound_ms=bms, bound_by=by)
+    results["paged_flash_decode_int8kv"] = main
+
+
+def check_paged_prefill_int8kv(torch, dev, results, extra):
+    from simplellminference_tpu_torch.ops.attention.paged_prefill import (
+        paged_flash_prefill_int8kv, paged_flash_prefill_ref)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    bf, f32 = torch.bfloat16, torch.float32
+    # kernel 8's cases over INT8 pools: the suffix batch and the chunk of
+    # the prefix paths (timed; the first is the row) and a GQA case with
+    # ragged offsets, an unmapped page inside kv_len and a padding row
+    cases = {
+        "llama2-7b suffix batch": (64, 32, 32, 128, 128, [512] * 8,
+                                   [540 + 5 * i for i in range(8)], bf,
+                                   False),
+        "llama2-7b chunk": (256, 32, 32, 128, 128, [512], [576], bf, False),
+        "tinyllama-gqa f32": (100, 32, 4, 64, 16, [0, 48, 16, 0],
+                              [100, 130, 77, 1], f32, True),
+    }
+    timed = list(cases)[:2]
+    for tag, (sq, n, kvn, d, ps, offs, lens, dtype, unmapped) in \
+            cases.items():
+        b = len(offs)
+        mp = -(-max(o + sq for o in offs) // ps)
+        pk, pv, ks, vs = _quant_pools(torch, gen, dev, 2, b * mp, kvn, ps, d)
+        tables = _tables(torch, dev, b, mp, dead_last=unmapped)
+        if unmapped:
+            tables[2, 1] = -1           # inside row 2's kv_len
+        q = torch.randn((b, sq, n, d), generator=gen, device=dev,
+                        dtype=dtype)
+        off_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+        kv_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        layer = 1
+        got = paged_flash_prefill_int8kv(q, pk, pv, ks, vs, tables, kv_t,
+                                         off_t, layer)
+        want = paged_flash_prefill_ref(q, pk, pv, tables, kv_t, off_t, layer,
+                                       k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        tol = TOL[dname(torch, dtype)]
+        print(f"[kernels] paged_flash_prefill_int8kv {tag} (B={b} Sq={sq} "
+              f"N={n} kvN={kvn} D={d} ps={ps}): max|err| {err:.3e} (tol "
+              f"{tol:g}); every row finite: "
+              f"{bool(torch.isfinite(got).all())}", flush=True)
+        require(bool(torch.isfinite(got).all()) and err <= tol,
+                f"paged_flash_prefill_int8kv {tag} disagrees: {err}")
+        if tag not in timed:
+            continue
+        es = q.element_size()
+        keys = sum(min(o + r + 1, ln) for o, ln in zip(offs, lens)
+                   for r in range(sq))
+        kv_rows = sum(min(ln, o + sq) for o, ln in zip(offs, lens))
+        nbytes = (2 * b * sq * n * d * es + kv_rows * kvn * 2 * (d + 4)
+                  + tables.numel() * 4 + 2 * b * 4)
+        bms, by = bound_ms(nbytes, 4.0 * n * d * keys, dname(torch, dtype))
+        key_pos = torch.arange(mp * ps, device=dev)
+        q_pos = off_t.long()[:, None] + torch.arange(sq, device=dev)[None]
+        mask = ((key_pos[None, None] <= q_pos[:, :, None])
+                & (key_pos[None, None] < kv_t.long()[:, None, None]))[:, None]
+        qt = q.transpose(1, 2)
+        r = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: paged_flash_prefill_int8kv(
+                q, pk, pv, ks, vs, tables, kv_t, off_t, layer)),
+            plain_ms=time_ms(torch, lambda: paged_flash_prefill_ref(
+                q, pk, pv, tables, kv_t, off_t, layer, k_scale=ks,
+                v_scale=vs)),
+            library_ms=time_ms(torch, lambda: _dequant_sdpa(
+                torch, qt, pk, pv, ks, vs, tables, layer, mask)),
+            bound_ms=bms, bound_by=by)
+        extra.append(("paged_flash_prefill_int8kv", tag, r))
+        if "paged_flash_prefill_int8kv" not in results:
+            results["paged_flash_prefill_int8kv"] = r
+
+
+def check_fused_qkv_int8kv(torch, dev, results, extra):
+    from simplellminference_tpu_torch.ops import ref_ops
+    from simplellminference_tpu_torch.ops.qkv_fused import (
+        fused_qkv_append_int8kv, fused_qkv_append_ref)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = {
+        "llama2-7b": (8, 4096, 32, 32, 128, bf, False),
+        "llama2-7b unmapped row": (8, 4096, 32, 32, 128, bf, True),
+        "tinyllama-gqa f32": (8, 2048, 32, 4, 64, f32, True),
+        "tinyllama-gqa bf16": (5, 2048, 32, 4, 64, bf, False),
+    }
+    for tag, (b, h, n, kvn, d, xdt, unmapped) in cases.items():
+        ps, mp, layer = 128, 3, 1
+        nq = (n + 2 * kvn) * d
+        wq, ws = _qweight(torch, gen, dev, (2, h, nq), 1)
+        nw = (1.0 + 0.1 * torch.randn((2, h), generator=gen, device=dev)
+              ).to(xdt)
+        x = torch.randn((b, h), generator=gen, device=dev).to(xdt)
+        pools = _quant_pools(torch, gen, dev, 2, b * mp, kvn, ps, d)
+        tables = _tables(torch, dev, b, mp, dead_last=False)
+        pos = (128 + 4 * torch.arange(b, device=dev)).to(torch.int32)
+        if unmapped:
+            tables[-1, 1] = -1          # the last row writes to the trash
+        sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
+        a, r = [p.clone() for p in pools], [p.clone() for p in pools]
+        qa, *_ = fused_qkv_append_int8kv(x, nw, wq, ws, sin, cos, *a, layer,
+                                         pos, n_heads=n, kv_heads=kvn,
+                                         tables=tables)
+        qr, *_ = fused_qkv_append_ref(x, nw, wq, ws, sin, cos, r[0], r[1],
+                                      layer, pos, n_heads=n, kv_heads=kvn,
+                                      tables=tables, cache_ks=r[2],
+                                      cache_vs=r[3])
+        torch.cuda.synchronize()
+        page = tables.long()[torch.arange(b, device=dev), pos.long() // ps]
+        page = torch.where(page >= 0, page, pools[0].shape[1] - 1)
+        written = torch.zeros(pools[2].shape, dtype=torch.bool, device=dev)
+        written[layer, page, :, pos.long() % ps] = True
+        err = max_err(qa, qr)
+        lim_q = (F32_REL * float(qr.abs().max()) if xdt == f32
+                 else TOL["bfloat16"] * float(qr.float().std()))
+        code_d = max(int((ta[written].int() - tr[written].int()).abs().max())
+                     for ta, tr in zip(a[:2], r[:2]))
+        share = sum(int((ta[written] != tr[written]).sum())
+                    for ta, tr in zip(a[:2], r[:2])) / (
+                        2 * int(written.sum()) * d)
+        s_err = max(max_err(sa[written], sr[written])
+                    for sa, sr in zip(a[2:], r[2:]))
+        if xdt == f32:
+            s_ok = all(bool(((sa[written] - sr[written]).abs()
+                             <= F32_REL * sr[written]).all())
+                       for sa, sr in zip(a[2:], r[2:]))
+            s_rule = f"{F32_REL:g} relative"
+        else:
+            s_ok = all(bool(((sa[written] - sr[written]).abs()
+                             <= _bf16_ulp(torch, sr[written] * 127.0)
+                             / 127.0 * (1 + 1e-6)).all())
+                       for sa, sr in zip(a[2:], r[2:]))
+            s_rule = "one bf16 ulp of the absmax / 127"
+        untouched = all(torch.equal(ta[~written], tr[~written])
+                        for ta, tr in zip(a[:2], r[:2])) and all(
+            torch.equal(sa[~written], sr[~written])
+            for sa, sr in zip(a[2:], r[2:]))
+        print(f"[kernels] fused_qkv_append_int8kv {tag}: q max|err| "
+              f"{err:.3e} (tol {lim_q:.3e}); k/v codes at most {code_d} "
+              f"apart (tol 1), {share:.3e} of them differ; scales max|err| "
+              f"{s_err:.3e} (tol {s_rule}): {s_ok}; other entries equal: "
+              f"{untouched}", flush=True)
+        require(bool(torch.isfinite(qa).all()) and err <= lim_q
+                and code_d <= 1 and s_ok and untouched,
+                f"fused_qkv_append_int8kv {tag} disagrees: {err}, {code_d}, "
+                f"{s_ok}, {untouched}")
+        if "fused_qkv_append_int8kv" in results:
+            continue
+        es = x.element_size()
+        nbytes = (h * nq + nq * 4 + b * h * es + h * nw.element_size()
+                  + 2 * b * (d // 2) * 4 + b * n * d * es
+                  + 2 * b * kvn * (d + 4) + tables.numel() * 4 + b * 4)
+        bms, by = bound_ms(nbytes, 2.0 * b * h * nq, dname(torch, xdt))
+        qt, st = _int8pack(torch, wq[layer], ws[layer], xdt)
+        results["fused_qkv_append_int8kv"] = dict(
+            max_abs_err=max(err, float(code_d), s_err),
+            ms=time_ms(torch, lambda: fused_qkv_append_int8kv(
+                x, nw, wq, ws, sin, cos, *a, layer, pos, n_heads=n,
+                kv_heads=kvn, tables=tables)),
+            plain_ms=time_ms(torch, lambda: fused_qkv_append_ref(
+                x, nw, wq, ws, sin, cos, r[0], r[1], layer, pos, n_heads=n,
+                kv_heads=kvn, tables=tables, cache_ks=r[2], cache_vs=r[3])),
+            library_ms=time_ms(torch, lambda: torch._weight_int8pack_mm(
+                x, qt, st)),
+            bound_ms=bms, bound_by=by)
+
+
 LIBRARY = {"paged_append_decode": "index_put_ x2",
            "paged_append_prefill": "index_copy_ x2",
            "flash_prefill": "scaled_dot_product_attention, causal",
@@ -730,7 +1138,19 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
                                "product alone",
            "fused_ffn": "torch._weight_int8pack_mm x2 (gate_up, down)",
            "paged_flash_prefill": "scaled_dot_product_attention on gathered "
-                                  "K/V, offset-causal mask"}
+                                  "K/V, offset-causal mask",
+           "paged_append_decode_quant": "torch quantize ops + index_put_ x4",
+           "paged_append_prefill_quant": "torch quantize ops + index_copy_ "
+                                         "x4",
+           "paged_flash_decode_int8kv": "gather + f32 dequant + "
+                                        "scaled_dot_product_attention "
+                                        "(dequant included)",
+           "fused_qkv_append_int8kv": "torch._weight_int8pack_mm of the qkv "
+                                      "product alone",
+           "paged_flash_prefill_int8kv": "gather + f32 dequant + "
+                                         "scaled_dot_product_attention, "
+                                         "offset-causal mask (dequant "
+                                         "included)"}
 
 
 def phase_kernels(torch, results):
@@ -744,6 +1164,11 @@ def phase_kernels(torch, results):
     check_fused_qkv(torch, dev, results, extra)
     check_fused_ffn(torch, dev, results, extra)
     check_paged_prefill(torch, dev, results, extra)
+    check_append_decode_quant(torch, dev, results)
+    check_append_prefill_quant(torch, dev, results)
+    check_paged_decode_int8kv(torch, dev, results)
+    check_fused_qkv_int8kv(torch, dev, results, extra)
+    check_paged_prefill_int8kv(torch, dev, results, extra)
     torch.cuda.empty_cache()
     rows = [(name, "main path shape", r) for name, r in results.items()]
     rows += [(name, tag, r) for name, tag, r in extra]
@@ -777,7 +1202,17 @@ def _wrappers():
                                  qf.fused_qkv_append_ref),
             "fused_ffn": (ff.fused_ffn, ff.fused_ffn_ref),
             "paged_flash_prefill": (pp.paged_flash_prefill,
-                                    pp.paged_flash_prefill_ref)}
+                                    pp.paged_flash_prefill_ref),
+            "paged_append_decode_quant": (pa.paged_append_decode_quant,
+                                          pa.paged_append_decode_quant_ref),
+            "paged_append_prefill_quant": (pa.paged_append_prefill_quant,
+                                           pa.paged_append_prefill_quant_ref),
+            "paged_flash_decode_int8kv": (pd.paged_flash_decode_int8kv,
+                                          pd.paged_flash_decode_ref),
+            "fused_qkv_append_int8kv": (qf.fused_qkv_append_int8kv,
+                                        qf.fused_qkv_append_ref),
+            "paged_flash_prefill_int8kv": (pp.paged_flash_prefill_int8kv,
+                                           pp.paged_flash_prefill_ref)}
 
 
 def reset_counts():
@@ -836,33 +1271,39 @@ def step_weight_bytes(params, batch: int) -> int:
             + batch * e.shape[1] * e.element_size())
 
 
-def path_launches(int8: bool, layers: int, dispatches, steps: int) -> dict:
+def path_launches(int8: bool, layers: int, dispatches, steps: int,
+                  int8kv: bool = False) -> dict:
     """Launches each kernel must show in one Engine run of a path.
 
     ``dispatches``: (attention kernel, rows m = B*S) of each prefill
     dispatch — ``flash_prefill`` for a whole-prompt batch,
-    ``paged_flash_prefill`` for a chunk or a suffix batch; each also
-    writes its pages per layer. With INT8 weights a dispatch of m > 64
+    ``paged_flash_prefill`` for a chunk or a suffix batch (its INT8-KV
+    form with ``int8kv``); each also writes its pages per layer
+    (quantizing with ``int8kv``). With INT8 weights a dispatch of m > 64
     rows launches 4 quantized_matmul per layer plus the LM head, one of
     m <= 64 rows quantized_matmul for wqkv and wo and fused_ffn per layer
     plus the head; each decode step launches the fused qkv and FFN per
-    layer, wo per layer, and the head."""
+    layer, wo per layer, and the head; with bf16 weights each decode step
+    writes K/V with the append kernel. INT8 KV takes each kernel's
+    INT8-KV form."""
     want = {name: 0 for name in KERNELS}
+    q = "_quant" if int8kv else ""
+    kv = "_int8kv" if int8kv else ""
     for attn, m in dispatches:
-        want[attn] += layers
-        want["paged_append_prefill"] += layers
+        want[attn + (kv if attn == "paged_flash_prefill" else "")] += layers
+        want["paged_append_prefill" + q] += layers
         if int8 and m <= 64:
             want["quantized_matmul"] += 2 * layers + 1
             want["fused_ffn"] += layers
         elif int8:
             want["quantized_matmul"] += 4 * layers + 1
-    want["paged_flash_decode"] += layers * steps
+    want["paged_flash_decode" + kv] += layers * steps
     if int8:
         want["quantized_matmul"] += (layers + 1) * steps
-        want["fused_qkv_append"] += layers * steps
+        want["fused_qkv_append" + kv] += layers * steps
         want["fused_ffn"] += layers * steps
     else:
-        want["paged_append_decode"] += layers * steps
+        want["paged_append_decode" + q] += layers * steps
     return want
 
 
@@ -878,9 +1319,18 @@ def read_counts(path: str) -> dict:
     return got
 
 
-def serve_path(torch, path: str, cfg, params, launches: dict,
-               dev: str = "cuda"):
-    """Drive one weight path of the Engine: warm-up, the measured run with
+def kv_bytes(layers: int, tokens: int, kvn: int, d: int,
+             kv_dtype: str) -> int:
+    """Bytes of K and V for ``tokens`` tokens of every layer: bf16 rows,
+    or int8 rows and one f32 scale per (token, kv head)."""
+    per_head = 2 * d if kv_dtype == "bf16" else d + 4
+    return 2 * layers * tokens * kvn * per_head
+
+
+def serve_path(torch, path: str, cfg, params, launches: dict, int8: bool,
+               kv_dtype: str = "bf16", dev: str = "cuda"):
+    """Drive one weight path of the Engine (bench.py's configuration,
+    prefix cache off, KV in ``kv_dtype``): warm-up, the measured run with
     every launch count reset before it and read after it, the decode rate,
     and one graph-replayed decode step beside its bytes floor."""
     import numpy as np
@@ -897,7 +1347,7 @@ def serve_path(torch, path: str, cfg, params, launches: dict,
     ecfg = EngineConfig(
         max_batch_size=batch,
         kv=KVCacheConfig(page_size=ps, num_pages=batch * (cap // ps + 1) + 8,
-                         max_pages_per_seq=cap // ps + 1, kv_dtype="bf16"),
+                         max_pages_per_seq=cap // ps + 1, kv_dtype=kv_dtype),
         prefix_cache_entries=0)
     rng = np.random.default_rng(0)
 
@@ -927,8 +1377,9 @@ def serve_path(torch, path: str, cfg, params, launches: dict,
     require(eng.metrics.prefills == batch, f"[{path}] {eng.metrics.prefills} "
             f"requests prefilled, expected {batch}")
     steps = eng.metrics.decode_bursts * burst
-    want = path_launches(path == "int8", layers,
-                         [("flash_prefill", batch * prompt_len)], steps)
+    want = path_launches(int8, layers,
+                         [("flash_prefill", batch * prompt_len)], steps,
+                         int8kv=kv_dtype == "int8")
     for name, n in want.items():
         require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
                 f"path implies {n}")
@@ -967,7 +1418,8 @@ def serve_path(torch, path: str, cfg, params, launches: dict,
         prefill=False), iters=5)
     engine_step_ms = (wall_full - wall_half) * 1e3 / (new - new // 2)
     wbytes = step_weight_bytes(params, batch)
-    kvbytes = 2 * layers * batch * ctx * cfg.num_kv_heads * cfg.head_dim * 2
+    kvbytes = kv_bytes(layers, batch * ctx, cfg.num_kv_heads, cfg.head_dim,
+                       kv_dtype)
     floor_ms = (wbytes + kvbytes) / HBM_BYTES_PER_S * 1e3
     print(f"[engine:{path}] decode step: engine {engine_step_ms:.3f} ms, "
           f"device (graph replay) {step_ms:.3f} ms, bytes floor "
@@ -1016,9 +1468,57 @@ def prefix_engine_config(batch: int, ps: int, chunk: int, cap: int,
                                          kv_dtype=kv_dtype), **kw)
 
 
-def serve_prefix(torch, cfg, params, launches: dict, dev: str = "cuda"):
+def long_context_steps(torch, cfg, params, dev: str = "cuda"):
+    """One graph-replayed forward_paged decode step at kv_len 4096, batch 8,
+    over bf16 pools and over INT8 pools (filled from a seed), beside each
+    one's bytes floor: the weights plus that KV read once."""
+    from simplellminference_tpu_torch.memory.paged_kv import (
+        PagedKVCache, kv_storage_dtype)
+    from simplellminference_tpu_torch.models import llama
+
+    batch, kv_len, ps = 8, 4096, 128
+    mp = kv_len // ps
+    layers, kvn, d = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    tables = torch.arange(batch * mp, dtype=torch.int32,
+                          device=dev).reshape(batch, mp)
+    tok = torch.ones((batch, 1), dtype=torch.int32, device=dev)
+    pos = torch.full((batch, 1), kv_len - 1, dtype=torch.int32, device=dev)
+    out = {}
+    for kv_dtype in ("bf16", "int8"):
+        gen = torch.Generator(device=dev).manual_seed(21)
+        cache = PagedKVCache.create(layers, batch * mp, kvn, ps, d,
+                                    kv_storage_dtype(kv_dtype), device=dev)
+        if kv_dtype == "int8":
+            for pool in (cache.k, cache.v):
+                pool.random_(-127, 128, generator=gen)
+            for sc in (cache.k_scale, cache.v_scale):
+                sc.uniform_(1e-3, 2e-2, generator=gen)
+        else:
+            for pool in (cache.k, cache.v):
+                pool.normal_(generator=gen)
+        torch.cuda.synchronize()
+        ms = time_ms(torch, lambda: llama.forward_paged(
+            cfg, params, tok, pos, cache, tables, pos[:, 0] + 1,
+            prefill=False), iters=5)
+        wbytes = step_weight_bytes(params, batch)
+        kvb = kv_bytes(layers, batch * kv_len, kvn, d, kv_dtype)
+        floor = (wbytes + kvb) / HBM_BYTES_PER_S * 1e3
+        out[kv_dtype] = (ms, floor)
+        print(f"[engine:int8kv] decode step at kv_len {kv_len}, batch "
+              f"{batch}, {kv_dtype} KV: device (graph replay) {ms:.3f} ms, "
+              f"bytes floor {floor:.3f} ms ({wbytes / 1e9:.3f} GB weights + "
+              f"{kvb / 1e9:.3f} GB KV)", flush=True)
+        del cache
+        torch.cuda.empty_cache()
+    print(f"[engine:int8kv] kv_len {kv_len}: INT8 KV step / bf16 KV step = "
+          f"{out['int8'][0] / out['bf16'][0]:.3f} (floors "
+          f"{out['int8'][1] / out['bf16'][1]:.3f})", flush=True)
+
+
+def serve_prefix(torch, path: str, cfg, params, launches: dict, int8: bool,
+                 kv_dtype: str = "bf16", dev: str = "cuda"):
     """The server's default configuration on the card: prefix cache on,
-    prefill_chunk 256, page 128, bf16 KV, INT8 weights, batch 8. A
+    prefill_chunk 256, page 128, KV in ``kv_dtype``, batch 8. A
     512-token system prompt with 64-token user suffixes: the first
     request prefills as 3 chunks of 256, the 7 admitted after its first
     step share its 512 cached tokens and prefill their suffixes as one
@@ -1029,12 +1529,12 @@ def serve_prefix(torch, cfg, params, launches: dict, dev: str = "cuda"):
     from simplellminference_tpu_torch.core.config import SamplingParams
     from simplellminference_tpu_torch.engine import Engine
 
-    path, layers = "prefix", cfg.num_layers
+    layers = cfg.num_layers
     batch, system_len, suffix, new, burst, ps, chunk = (8, 512, 64, 32, 16,
                                                         128, 256)
     prompt_len = system_len + suffix
     ecfg = prefix_engine_config(batch, ps, chunk,
-                                prompt_len + new + 2 * burst + 1, "bf16")
+                                prompt_len + new + 2 * burst + 1, kv_dtype)
     require(ecfg.prefix_cache_entries == 16, "not the default prefix cache")
     waves = prefix_waves(np.random.default_rng(1), cfg.vocab_size,
                          system_len, suffix, batch)
@@ -1066,8 +1566,8 @@ def serve_prefix(torch, cfg, params, launches: dict, dev: str = "cuda"):
     # 3 chunks of 256 rows, then two suffix batches of 8 x 64 rows
     dispatches = ([("paged_flash_prefill", chunk)] * 3
                   + [("paged_flash_prefill", batch * suffix)] * 2)
-    want = path_launches(True, layers, dispatches,
-                         m.decode_bursts * burst)
+    want = path_launches(int8, layers, dispatches,
+                         m.decode_bursts * burst, int8kv=kv_dtype == "int8")
     for name, n in want.items():
         require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
                 f"path implies {n}")
@@ -1082,7 +1582,7 @@ def serve_prefix(torch, cfg, params, launches: dict, dev: str = "cuda"):
     # the last wave's admit (its TTFT: added, then admitted and prefilled
     # in the next step) beside the same 8 prompts with the cache off
     off = Engine(cfg, params, prefix_engine_config(
-        batch, ps, chunk, prompt_len + new + 2 * burst + 1, "bf16",
+        batch, ps, chunk, prompt_len + new + 2 * burst + 1, kv_dtype,
         prefix_cache_entries=0), decode_burst=burst, device=dev)
     torch.cuda.synchronize()
     off_reqs = [off.add_request(prompt_ids=p, sampling=samp)
@@ -1099,40 +1599,52 @@ def serve_prefix(torch, cfg, params, launches: dict, dev: str = "cuda"):
     del eng, off
 
 
+# path: (INT8 weights, KV dtype, prefix-cache traffic)
+PATH_SETUP = {"int8": (True, "bf16", False), "bf16": (False, "bf16", False),
+              "prefix": (True, "bf16", True),
+              "int8kv": (True, "int8", False),
+              "int8kv_prefix": (False, "int8", True)}
+
+
 def phase_engine(torch, launches: dict):
     from simplellminference_tpu_torch.core.config import ModelConfig
     from simplellminference_tpu_torch.models import llama
 
     cfg = ModelConfig.llama2_7b(dtype="bfloat16")
     for path in PATHS:
+        int8, kv_dtype, prefix = PATH_SETUP[path]
         t0 = time.perf_counter()
-        if path in ("int8", "prefix"):
+        if int8:
             params = int8_params(torch, cfg, "cuda", seed=0)
         else:
             params = llama.init_params(cfg, seed=0, device="cuda")
         torch.cuda.synchronize()
         print(f"[engine:{path}] Llama-2-7B width, {cfg.num_layers} layers, "
-              f"{'int8' if path == 'prefix' else path} random weights in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        if path == "prefix":
-            serve_prefix(torch, cfg, params, launches)
+              f"{'int8' if int8 else 'bf16'} random weights, {kv_dtype} KV, "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        if prefix:
+            serve_prefix(torch, path, cfg, params, launches, int8, kv_dtype)
         else:
-            serve_path(torch, path, cfg, params, launches)
+            serve_path(torch, path, cfg, params, launches, int8, kv_dtype)
+        if path == "int8kv":
+            long_context_steps(torch, cfg, params)
         del params
         torch.cuda.empty_cache()
 
 
-def _trace(torch, cfg, params, prompts, steps, device):
-    """Greedy prefill + decode through forward_paged; returns (tokens
-    [R, steps+1], logits [steps+1, R, V]) on the host."""
+def _trace(torch, cfg, params, prompts, steps, device, kv_dtype="f32"):
+    """Greedy prefill + decode through forward_paged over ``kv_dtype``
+    pools; returns (tokens [R, steps+1], logits [steps+1, R, V], and for
+    INT8 KV the pools' codes after each call, else None) on the host."""
     from simplellminference_tpu_torch.core.config import next_power_of_2
-    from simplellminference_tpu_torch.memory.paged_kv import PagedKVCache
+    from simplellminference_tpu_torch.memory.paged_kv import (
+        PagedKVCache, kv_storage_dtype)
     from simplellminference_tpu_torch.models import llama
 
     r = len(prompts)
     ps, mp = 16, 8
     cache = PagedKVCache.create(cfg.num_layers, r * mp, cfg.num_kv_heads,
-                                ps, cfg.head_dim, torch.float32,
+                                ps, cfg.head_dim, kv_storage_dtype(kv_dtype),
                                 device=device)
     tables = torch.arange(r * mp, dtype=torch.int32,
                           device=device).reshape(r, mp)
@@ -1146,6 +1658,8 @@ def _trace(torch, cfg, params, prompts, steps, device):
     logits, cache = llama.forward_paged(cfg, params, toks.to(device), pos0,
                                         cache, tables, lens, prefill=True,
                                         last_token_only=True)
+    int8 = cache.k_scale is not None
+    codes = [torch.stack([cache.k, cache.v]).cpu()] if int8 else None
     outs = [logits[:, -1].cpu()]
     tok = logits[:, -1].argmax(-1).to(torch.int32)
     out_toks = [tok.cpu()]
@@ -1157,8 +1671,10 @@ def _trace(torch, cfg, params, prompts, steps, device):
         outs.append(logits[:, 0].cpu())
         tok = logits[:, 0].argmax(-1).to(torch.int32)
         out_toks.append(tok.cpu())
+        if int8:
+            codes.append(torch.stack([cache.k, cache.v]).cpu())
         pos = pos + 1
-    return torch.stack(out_toks, 1), torch.stack(outs, 0)
+    return torch.stack(out_toks, 1), torch.stack(outs, 0), codes
 
 
 def _to_device(tree, dev):
@@ -1170,54 +1686,73 @@ def _to_device(tree, dev):
     return tree.to(dev)
 
 
-def _first_divergence(torch, tag, what, a, b, logits, r):
+def _first_divergence(torch, tag, what, a, b, logits, r, tol=LOGIT_TOL):
     """Greedy rows a and b may part only where the reference logits'
-    top-2 margin at that step is below LOGIT_TOL."""
+    top-2 margin at that step is below ``tol``."""
     t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
     if t is None:
         return
     top2 = torch.topk(logits[t, r], 2).values
     margin = float(top2[0] - top2[1])
-    require(margin < LOGIT_TOL, f"[{tag}] request {r} step {t}: {what} "
+    require(margin < tol, f"[{tag}] request {r} step {t}: {what} "
             f"differ with top-2 margin {margin:.3e}")
     print(f"[cpu:{tag}] request {r}: {what} diverge at step {t}: top-2 "
-          f"margin {margin:.3e} < {LOGIT_TOL}", flush=True)
+          f"margin {margin:.3e} < {tol}", flush=True)
 
 
-def card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps):
+def card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps,
+                kv_dtype="f32"):
     """Greedy trace and Engine run of the same weights on the card and on
-    the host CPU: logits within LOGIT_TOL, greedy tokens equal except
-    where the CPU trace's top-2 margin is below it."""
+    the host CPU over ``kv_dtype`` pools: logits within LOGIT_TOL (INT8
+    KV: while both caches hold the same codes, else within
+    LOGIT_TOL_CODE_APART), greedy tokens equal except where the CPU
+    trace's top-2 margin is below that tolerance."""
     from simplellminference_tpu_torch.core.config import (EngineConfig,
                                                           KVCacheConfig,
                                                           SamplingParams)
     from simplellminference_tpu_torch.engine import Engine
 
     t0 = time.perf_counter()
-    tok_g, lg_g = _trace(torch, cfg, p_gpu, prompts, steps, "cuda")
-    tok_c, lg_c = _trace(torch, cfg, p_cpu, prompts, steps, "cpu")
-    print(f"[cpu:{tag}] Llama-2-7B width, 2 layers, f32, TF32 off: "
+    tok_g, lg_g, codes_g = _trace(torch, cfg, p_gpu, prompts, steps, "cuda",
+                                  kv_dtype)
+    tok_c, lg_c, codes_c = _trace(torch, cfg, p_cpu, prompts, steps, "cpu",
+                                  kv_dtype)
+    print(f"[cpu:{tag}] Llama-2-7B width, 2 layers, f32, {kv_dtype} KV, "
+          f"TF32 off: "
           f"{len(prompts)} requests, prefill + {steps} steps on card and "
           f"CPU in {time.perf_counter() - t0:.1f} s", flush=True)
-    worst = 0.0
+    # codes one apart between the card's and the CPU's caches, per call
+    apart = [0] * (steps + 1)
+    if codes_g is not None:
+        apart = [int((a != b).sum()) for a, b in zip(codes_g, codes_c)]
+        far = max(int((a.int() - b.int()).abs().max())
+                  for a, b in zip(codes_g, codes_c))
+        require(far <= 1, f"[{tag}] card and CPU codes {far} apart")
+    worst = {True: 0.0, False: 0.0}
     for r in range(len(prompts)):
         for t in range(steps + 1):
+            tol = LOGIT_TOL if apart[t] == 0 else LOGIT_TOL_CODE_APART
             e = max_err(lg_g[t, r], lg_c[t, r])
-            worst = max(worst, e)
-            require(e <= LOGIT_TOL,
-                    f"[{tag}] request {r} step {t}: logits differ by {e:.3e}")
+            worst[apart[t] == 0] = max(worst[apart[t] == 0], e)
+            require(e <= tol, f"[{tag}] request {r} step {t}: logits differ "
+                    f"by {e:.3e} ({apart[t]} codes one apart)")
             if int(tok_g[r, t]) != int(tok_c[r, t]):
                 top2 = torch.topk(lg_c[t, r], 2).values
                 margin = float(top2[0] - top2[1])
-                require(margin < LOGIT_TOL,
+                require(margin < tol,
                         f"[{tag}] request {r} step {t}: greedy tokens differ "
                         f"with top-2 margin {margin:.3e}")
                 print(f"[cpu:{tag}] request {r} diverges at step {t}: top-2 "
-                      f"margin {margin:.3e} < {LOGIT_TOL}", flush=True)
+                      f"margin {margin:.3e} < {tol}", flush=True)
                 break
-    print(f"[cpu:{tag}] logits max|card - cpu| {worst:.3e} (tol "
-          f"{LOGIT_TOL}); greedy tokens equal: "
+    codes_note = (f"; INT8 codes one apart after each call: {apart} of "
+                  f"{codes_g[0].numel()}; logits max|card - cpu| where "
+                  f"codes are apart {worst[False]:.3e} (tol "
+                  f"{LOGIT_TOL_CODE_APART})" if codes_g is not None else "")
+    print(f"[cpu:{tag}] logits max|card - cpu| {worst[True]:.3e} (tol "
+          f"{LOGIT_TOL}){codes_note}; greedy tokens equal: "
           f"{bool(torch.equal(tok_g, tok_c))}", flush=True)
+    tol = LOGIT_TOL if codes_g is None else LOGIT_TOL_CODE_APART
 
     # the same requests through the Engine on both devices: greedy outputs
     # equal, or diverging only where the trace's top-2 margin is below the
@@ -1225,7 +1760,7 @@ def card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps):
     ecfg = EngineConfig(max_batch_size=len(prompts), prefix_cache_entries=0,
                         kv=KVCacheConfig(page_size=16, num_pages=64,
                                          max_pages_per_seq=8,
-                                         kv_dtype="f32"))
+                                         kv_dtype=kv_dtype))
     samp = SamplingParams(max_new_tokens=steps + 1)
     outs = []
     for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
@@ -1238,34 +1773,40 @@ def card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps):
                 f"[{tag}] engine request {r} on the CPU departs from the "
                 f"trace")
         _first_divergence(torch, tag, "engine on card and CPU", a, b, lg_c,
-                          r)
+                          r, tol)
     print(f"[cpu:{tag}] engine greedy tokens card == cpu: "
           f"{outs[0] == outs[1]}", flush=True)
 
 
-def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu):
+def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="f32"):
     """The `prefix` path's traffic at a small size (a 48-token system
     prompt, 8-token suffixes, page 16, chunk 16, waves of 1, 3 and 4) on
     the card and on the CPU: greedy tokens equal on both, and equal to
     the cache-off greedy trace of the same prompts, except where the
-    trace's top-2 margin is below LOGIT_TOL."""
+    trace's top-2 margin is below LOGIT_TOL. INT8 KV: card and CPU within
+    LOGIT_TOL_CODE_APART by the same rule; the cache-off trace is no
+    reference there (its whole-prompt prefill attends the fresh,
+    unquantized k/v, the chunks attend the dequantized pools, as in the
+    JAX package), so only card and CPU are compared."""
     import numpy as np
 
     from simplellminference_tpu_torch.core.config import SamplingParams
     from simplellminference_tpu_torch.engine import Engine
 
-    tag = "prefix"
+    tag = "prefix" if kv_dtype == "f32" else f"prefix-{kv_dtype}kv"
     batch, system_len, suffix, new, burst, ps, chunk = 4, 48, 8, 8, 4, 16, 16
     waves = prefix_waves(np.random.default_rng(9), cfg.vocab_size,
                          system_len, suffix, batch)
     prompts = sum(waves, [])
     t0 = time.perf_counter()
-    tok_c, lg_c = _trace(torch, cfg, p_cpu, prompts, new - 1, "cpu")
+    tok_c, lg_c, _codes = _trace(torch, cfg, p_cpu, prompts, new - 1, "cpu",
+                                 kv_dtype)
+    int8 = kv_dtype == "int8"
     outs = {}
     for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
         eng = Engine(cfg, params, prefix_engine_config(
             batch, ps, chunk, system_len + suffix + new + 2 * burst + 1,
-            "f32"), decode_burst=burst, device=dev)
+            kv_dtype), decode_burst=burst, device=dev)
         reqs = sum(run_waves(eng, waves,
                              SamplingParams(max_new_tokens=new)), [])
         m = eng.metrics
@@ -1278,12 +1819,16 @@ def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu):
     for r in range(len(prompts)):
         ref = tok_c[r].tolist()
         _first_divergence(torch, tag, "card and CPU", outs["cuda"][r],
-                          outs["cpu"][r], lg_c, r)
+                          outs["cpu"][r], lg_c, r,
+                          LOGIT_TOL_CODE_APART if int8 else LOGIT_TOL)
+        if int8:
+            continue
         for dev in outs:
             _first_divergence(torch, tag,
                               f"{dev} prefix path and cache-off trace",
                               outs[dev][r], ref, lg_c, r)
-    print(f"[cpu:{tag}] Llama-2-7B width, 2 layers, f32: {len(prompts)} "
+    print(f"[cpu:{tag}] Llama-2-7B width, 2 layers, f32, {kv_dtype} KV: "
+          f"{len(prompts)} "
           f"requests in waves of 1, {batch - 1}, {batch} (prefix hits "
           f"{2 * batch - 1}, persistent {batch}) on card and CPU in "
           f"{time.perf_counter() - t0:.1f} s; greedy tokens card == cpu: "
@@ -1325,14 +1870,20 @@ def phase_cpu(torch):
     p_gpu = _to_device(p_cpu, "cuda")
     card_vs_cpu(torch, "bf16-path", cfg, p_gpu, p_cpu, prompts, steps=8)
     prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu)
+    # INT8 KV: the float weights, plain and with the prefix traffic
+    card_vs_cpu(torch, "bf16-path-int8kv", cfg, p_gpu, p_cpu, prompts,
+                steps=8, kv_dtype="int8")
+    prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="int8")
     del p_gpu
     # INT8: the same draw quantized by the port (per output channel, INT8
     # LM head), on the CPU, then carried to the card byte for byte
     q_cpu = quantize_params(p_cpu, QuantConfig(mode="int8", group_size=0,
                                                quantize_lm_head=True))
     del p_cpu
-    card_vs_cpu(torch, "int8", cfg, _to_device(q_cpu, "cuda"), q_cpu,
-                prompts, steps=8)
+    q_gpu = _to_device(q_cpu, "cuda")
+    card_vs_cpu(torch, "int8", cfg, q_gpu, q_cpu, prompts, steps=8)
+    card_vs_cpu(torch, "int8-int8kv", cfg, q_gpu, q_cpu, prompts, steps=8,
+                kv_dtype="int8")
 
 
 def main(argv=None) -> int:

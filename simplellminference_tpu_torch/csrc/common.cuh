@@ -1,7 +1,8 @@
 // Shared helpers for the port's CUDA kernels (plain C interface, loaded with
 // ctypes by simplellminference_tpu_torch/ops/cuda_build.py).
 //
-// Element types: SLI_F32 (float) and SLI_BF16 (__nv_bfloat16). Every
+// Element types: SLI_F32 (float) and SLI_BF16 (__nv_bfloat16); int8_t
+// for INT8-KV pools (read with to_f, dequantized by the caller). Every
 // launcher returns 0 on success, a cudaError_t code (> 0) from
 // cudaGetLastError() after the launch, or a negative code for arguments
 // the kernel does not take (sli_error_string names both).
@@ -29,6 +30,10 @@ __device__ __forceinline__ float to_f<float>(float x) {
 template <>
 __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+template <>
+__device__ __forceinline__ float to_f<int8_t>(int8_t x) {
+  return (float)x;  // an INT8-KV code, exact
 }
 
 template <typename T>

@@ -3,11 +3,14 @@
 //
 // Replaces the TPU kernel of simplellminference_tpu/ops/attention/
 // paged_decode.py: paged_flash_decode (_paged_kernel, paged_decode.py:
-// 24-299) with wins=1 (one query row per sequence).
+// 24-299) with wins=1 (one query row per sequence), over bf16/f32 pools
+// and, its INT8-KV form, over int8 pools with per-token-per-head f32
+// scale pools [L, P+1, kvN, ps].
 //
 // Bound on the H100: bytes. Each sequence's live K and V rows
-// (2*kv_len*kvN*D elements) are read once for ~4*kv_len*N*D operations:
-// about one operation per byte, far below the card's balance point.
+// (2*kv_len*kvN*D elements, plus 2*kv_len*kvN f32 scales for INT8 KV)
+// are read once for ~4*kv_len*N*D operations: about one operation per
+// byte (two for int8), far below the card's balance point.
 //
 // Design: one block per (sequence, kv head), holding that head's `group`
 // query rows, so every K/V row of the sequence is read from device memory
@@ -18,8 +21,13 @@
 // max/sum/accumulator stay in f32. An unmapped (-1) page inside kv_len
 // (the dead rows of a decode burst, whose tables are all -1) reads as
 // zeros, as the plain version's gather does, and never touches memory
-// outside the pool; kv_len <= 0 gives a zero output. Split-K over the
-// sequence (flash-decoding) and TMA page copies are later work.
+// outside the pool; kv_len <= 0 gives a zero output. INT8 KV dequantizes
+// late, as the TPU kernel does (paged_decode.py:84-89, :116-120): the
+// codes are staged as exact floats, each key's scale (staged beside its
+// chunk) multiplies its score after q.k, and each key's V scale folds
+// into its probability before the PV product, so the row sum l stays the
+// sum of the unscaled probabilities. Split-K over the sequence
+// (flash-decoding) and TMA page copies are later work.
 #include "common.cuh"
 
 namespace {
@@ -35,17 +43,21 @@ size_t smem_floats(int group) {
          + (size_t)KC * D           // V chunk
          + (size_t)group * KC       // probabilities
          + (size_t)group * D        // accumulator
-         + 3 * (size_t)group;       // max, sum, rescale
+         + 3 * (size_t)group        // max, sum, rescale
+         + 2 * (size_t)KC;          // INT8 KV: K and V scales of the chunk
 }
 
-// q: [B, N, D] with batch stride q_bs (elements); pools [L, P+1, kvN, ps, D];
+// q: [B, N, D] with batch stride q_bs (elements); pools [L, P+1, kvN, ps, D]
+// of P (T, or int8_t with the scale pools ksp/vsp [L, P+1, kvN, ps]);
 // out: [B, N, D] contiguous.
-template <typename T, int D>
+template <typename T, typename P, int D>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(
-    const T* __restrict__ q, long long q_bs, const T* __restrict__ pool_k,
-    const T* __restrict__ pool_v, const int* __restrict__ tables,
+    const T* __restrict__ q, long long q_bs, const P* __restrict__ pool_k,
+    const P* __restrict__ pool_v, const float* __restrict__ ksp,
+    const float* __restrict__ vsp, const int* __restrict__ tables,
     const int* __restrict__ kv_lens, T* __restrict__ out, int layer,
     int num_pages1, int kvn, int ps, int mp, int group, float scale) {
+  constexpr bool QUANT = sizeof(P) == 1;
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + group * D;
@@ -55,6 +67,8 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   float* ms = acc + group * D;
   float* ls = ms + group;
   float* al = ls + group;
+  float* ksc = al + group;  // [KC] (INT8 KV)
+  float* vsc = ksc + KC;    // [KC]
 
   const int b = blockIdx.x;
   const int g = blockIdx.y;
@@ -97,6 +111,21 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
       ks[r * (D + 1) + d] = kv;
       vs[r * D + d] = vv;
     }
+    if (QUANT && tid < KC) {
+      const int kp = k0 + tid;
+      float a = 0.f;
+      float c = 0.f;
+      if (kp < n_keys) {
+        const int page = row[kp / ps];
+        if (page >= 0) {
+          const long long so = ((layer_base + page) * kvn + g) * ps + kp % ps;
+          a = ksp[so];
+          c = vsp[so];
+        }
+      }
+      ksc[tid] = a;
+      vsc[tid] = c;
+    }
     __syncthreads();
 
     // scores: warp w takes query rows w, w+4, ...; lane = key of the chunk
@@ -106,6 +135,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
 #pragma unroll 8
       for (int d = 0; d < D; ++d) s += qs[r * D + d] * ks[lane * (D + 1) + d];
       s *= scale;
+      if (QUANT) s *= ksc[lane];  // late dequant of K
       if (k0 + lane >= n_keys) s = NEG_INF;
       float mx = s;
 #pragma unroll
@@ -117,7 +147,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      pr[r * KC + lane] = p;
+      pr[r * KC + lane] = QUANT ? p * vsc[lane] : p;  // V scale folded in
       if (lane == 0) {
         const float a = expf(m_old - m_new);
         al[r] = a;
@@ -146,40 +176,41 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   }
 }
 
-template <typename T, int D>
+template <typename T, typename P, int D>
 int launch(const void* q, long long q_bs, const void* pool_k,
-           const void* pool_v, const int* tables, const int* kv_lens,
-           void* out, int batch, int layer, int num_pages1, int kvn, int ps,
-           int mp, int group, float scale, cudaStream_t st) {
+           const void* pool_v, const float* ksp, const float* vsp,
+           const int* tables, const int* kv_lens, void* out, int batch,
+           int layer, int num_pages1, int kvn, int ps, int mp, int group,
+           float scale, cudaStream_t st) {
   const size_t bytes = smem_floats<D>(group) * sizeof(float);
-  cudaError_t e = sli::allow_smem(paged_decode_kernel<T, D>, bytes);
+  cudaError_t e = sli::allow_smem(paged_decode_kernel<T, P, D>, bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(batch, kvn);
-  paged_decode_kernel<T, D><<<grid, NT, bytes, st>>>(
-      (const T*)q, q_bs, (const T*)pool_k, (const T*)pool_v, tables, kv_lens,
-      (T*)out, layer, num_pages1, kvn, ps, mp, group, scale);
+  paged_decode_kernel<T, P, D><<<grid, NT, bytes, st>>>(
+      (const T*)q, q_bs, (const P*)pool_k, (const P*)pool_v, ksp, vsp, tables,
+      kv_lens, (T*)out, layer, num_pages1, kvn, ps, mp, group, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename P>
 int dispatch_d(int head_dim, const void* q, long long q_bs,
-               const void* pool_k, const void* pool_v, const int* tables,
-               const int* kv_lens, void* out, int batch, int layer,
-               int num_pages1, int kvn, int ps, int mp, int group,
-               float scale, cudaStream_t st) {
+               const void* pool_k, const void* pool_v, const float* ksp,
+               const float* vsp, const int* tables, const int* kv_lens,
+               void* out, int batch, int layer, int num_pages1, int kvn,
+               int ps, int mp, int group, float scale, cudaStream_t st) {
   switch (head_dim) {
     case 32:
-      return launch<T, 32>(q, q_bs, pool_k, pool_v, tables, kv_lens, out,
-                           batch, layer, num_pages1, kvn, ps, mp, group,
-                           scale, st);
+      return launch<T, P, 32>(q, q_bs, pool_k, pool_v, ksp, vsp, tables,
+                              kv_lens, out, batch, layer, num_pages1, kvn, ps,
+                              mp, group, scale, st);
     case 64:
-      return launch<T, 64>(q, q_bs, pool_k, pool_v, tables, kv_lens, out,
-                           batch, layer, num_pages1, kvn, ps, mp, group,
-                           scale, st);
+      return launch<T, P, 64>(q, q_bs, pool_k, pool_v, ksp, vsp, tables,
+                              kv_lens, out, batch, layer, num_pages1, kvn, ps,
+                              mp, group, scale, st);
     case 128:
-      return launch<T, 128>(q, q_bs, pool_k, pool_v, tables, kv_lens, out,
-                            batch, layer, num_pages1, kvn, ps, mp, group,
-                            scale, st);
+      return launch<T, P, 128>(q, q_bs, pool_k, pool_v, ksp, vsp, tables,
+                               kv_lens, out, batch, layer, num_pages1, kvn,
+                               ps, mp, group, scale, st);
     default:
       return SLI_ERR_HEAD_DIM;
   }
@@ -187,24 +218,41 @@ int dispatch_d(int head_dim, const void* q, long long q_bs,
 
 }  // namespace
 
+// k_scale/v_scale: null for bf16/f32 pools (of q's dtype); given, the pools
+// are int8 and these are their f32 scale pools [L, num_pages1, kvn, ps].
 extern "C" int sli_paged_flash_decode(const void* q, long long q_bs,
                                       const void* pool_k, const void* pool_v,
-                                      const int* tables, const int* kv_lens,
-                                      void* out, int batch, int layer,
-                                      int num_pages1, int kvn, int ps, int mp,
-                                      int group, int head_dim, float scale,
-                                      int dtype, void* stream) {
+                                      const void* k_scale,
+                                      const void* v_scale, const int* tables,
+                                      const int* kv_lens, void* out,
+                                      int batch, int layer, int num_pages1,
+                                      int kvn, int ps, int mp, int group,
+                                      int head_dim, float scale, int dtype,
+                                      void* stream) {
   if (batch <= 0 || kvn <= 0 || group <= 0 || ps <= 0 || mp <= 0)
     return SLI_ERR_SHAPE;
+  if ((k_scale == nullptr) != (v_scale == nullptr)) return SLI_ERR_SHAPE;
   cudaStream_t st = (cudaStream_t)stream;
+  const float* ksp = (const float*)k_scale;
+  const float* vsp = (const float*)v_scale;
+  const bool quant = ksp != nullptr;
   if (dtype == SLI_F32)
-    return dispatch_d<float>(head_dim, q, q_bs, pool_k, pool_v, tables,
-                             kv_lens, out, batch, layer, num_pages1, kvn, ps,
-                             mp, group, scale, st);
+    return quant ? dispatch_d<float, int8_t>(
+                       head_dim, q, q_bs, pool_k, pool_v, ksp, vsp, tables,
+                       kv_lens, out, batch, layer, num_pages1, kvn, ps, mp,
+                       group, scale, st)
+                 : dispatch_d<float, float>(
+                       head_dim, q, q_bs, pool_k, pool_v, ksp, vsp, tables,
+                       kv_lens, out, batch, layer, num_pages1, kvn, ps, mp,
+                       group, scale, st);
   if (dtype == SLI_BF16)
-    return dispatch_d<__nv_bfloat16>(head_dim, q, q_bs, pool_k, pool_v,
-                                     tables, kv_lens, out, batch, layer,
-                                     num_pages1, kvn, ps, mp, group, scale,
-                                     st);
+    return quant ? dispatch_d<__nv_bfloat16, int8_t>(
+                       head_dim, q, q_bs, pool_k, pool_v, ksp, vsp, tables,
+                       kv_lens, out, batch, layer, num_pages1, kvn, ps, mp,
+                       group, scale, st)
+                 : dispatch_d<__nv_bfloat16, __nv_bfloat16>(
+                       head_dim, q, q_bs, pool_k, pool_v, ksp, vsp, tables,
+                       kv_lens, out, batch, layer, num_pages1, kvn, ps, mp,
+                       group, scale, st);
   return SLI_ERR_DTYPE;
 }

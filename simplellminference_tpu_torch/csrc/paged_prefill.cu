@@ -4,16 +4,17 @@
 //
 // Replaces the TPU kernel of simplellminference_tpu/ops/attention/
 // paged_prefill.py: paged_flash_prefill (_paged_prefill_kernel,
-// paged_prefill.py:44-150), for bf16/f32 pools (the INT8-KV form with
-// scale pools, the window, soft cap, sinks and shared-KV forms raise in
-// the wrapper).
+// paged_prefill.py:44-150), for bf16/f32 pools and, its INT8-KV form,
+// int8 pools with per-token-per-head f32 scale pools [L, P+1, kvN, ps]
+// (the window, soft cap, sinks and shared-KV forms raise in the wrapper).
 //
 // Bound on the H100: for the serving shapes (a prefix-cached suffix of
 // Sq = 64 rows or a 256-row chunk behind a few hundred cached tokens) the
 // least time is set by bytes: q and the output (2*N*Sq*D elements per row)
 // plus each sequence's live K and V (2*kvN*kv_len*D elements), at
 // 3.35 TB/s, against 4*B*N*Sq*kv_len*D operations, which stay below the
-// card's ops-per-byte balance point at these lengths.
+// card's ops-per-byte balance point at these lengths. INT8 KV halves the
+// K/V bytes and adds one f32 scale per key row and head.
 //
 // Design: one block per (q tile of 64 rows, q head, sequence). Query row r
 // sits at absolute position off[b] + q0 + r. The block walks K/V tiles of
@@ -30,8 +31,11 @@
 // kv_len >= 1 sees key 0, so its sum is never 0; rows past kv_len (the
 // chunk's padding) and the batch's padding rows (-1 tables, kv_len 1)
 // stay finite, and the sum is guarded anyway. Every Sq is taken. GQA head
-// of q head h is h / group. Sharing a K/V tile across the GQA group, TMA
-// page copies and wgmma are later work.
+// of q head h is h / group. INT8 KV dequantizes each staged K/V element
+// as the TPU kernel dequantizes each page slab (paged_prefill.py:105-110):
+// code x its row's scale in f32, rounded to q's dtype, then used as the
+// bf16/f32 pools' values are. Sharing a K/V tile across the GQA group,
+// TMA page copies and wgmma are later work.
 #include "common.cuh"
 
 namespace {
@@ -50,16 +54,19 @@ constexpr size_t smem_bytes() {
 }
 
 // q: [B, Sq, N, D] with element strides q_bs (batch) and q_ss (row), heads
-// contiguous; pools [L, P+1, kvN, ps, D] contiguous; out [B, Sq, N, D]
+// contiguous; pools [L, P+1, kvN, ps, D] of P (T, or int8_t with the scale
+// pools ksp/vsp [L, P+1, kvN, ps]) contiguous; out [B, Sq, N, D]
 // contiguous.
-template <typename T, int D>
+template <typename T, typename P, int D>
 __global__ void __launch_bounds__(NT) paged_prefill_kernel(
     const T* __restrict__ q, long long q_bs, long long q_ss,
-    const T* __restrict__ pool_k, const T* __restrict__ pool_v,
+    const P* __restrict__ pool_k, const P* __restrict__ pool_v,
+    const float* __restrict__ ksp, const float* __restrict__ vsp,
     const int* __restrict__ tables, const int* __restrict__ kv_lens,
     const int* __restrict__ offs, T* __restrict__ out, int seq, int heads,
     int layer, int num_pages1, int kvn, int ps, int mp, int group,
     float scale) {
+  constexpr bool QUANT = sizeof(P) == 1;
   extern __shared__ float smem[];
   float* qs = smem;                  // [BQ][D+1]
   float* ks = qs + BQ * (D + 1);     // [BK][D+1]
@@ -127,6 +134,10 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
       if (o >= 0) {
         kv = sli::to_f(pool_k[o + d]);
         vv = sli::to_f(pool_v[o + d]);
+        if (QUANT) {  // dequantize in f32, round to q's dtype
+          kv = sli::to_f(sli::from_f<T>(kv * ksp[o / D]));
+          vv = sli::to_f(sli::from_f<T>(vv * vsp[o / D]));
+        }
       }
       ks[r * (D + 1) + d] = kv;
       vs[r * D + d] = vv;
@@ -222,67 +233,96 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
   }
 }
 
-template <typename T, int D>
+template <typename T, typename P, int D>
 int launch(const void* q, long long q_bs, long long q_ss, const void* pool_k,
-           const void* pool_v, const int* tables, const int* kv_lens,
-           const int* offs, void* out, int batch, int seq, int heads,
-           int layer, int num_pages1, int kvn, int ps, int mp, int group,
-           float scale, cudaStream_t st) {
+           const void* pool_v, const float* ksp, const float* vsp,
+           const int* tables, const int* kv_lens, const int* offs, void* out,
+           int batch, int seq, int heads, int layer, int num_pages1, int kvn,
+           int ps, int mp, int group, float scale, cudaStream_t st) {
   const size_t bytes = smem_bytes<D>();
-  cudaError_t e = sli::allow_smem(paged_prefill_kernel<T, D>, bytes);
+  cudaError_t e = sli::allow_smem(paged_prefill_kernel<T, P, D>, bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((seq + BQ - 1) / BQ, heads, batch);
-  paged_prefill_kernel<T, D><<<grid, NT, bytes, st>>>(
-      (const T*)q, q_bs, q_ss, (const T*)pool_k, (const T*)pool_v, tables,
-      kv_lens, offs, (T*)out, seq, heads, layer, num_pages1, kvn, ps, mp,
-      group, scale);
+  paged_prefill_kernel<T, P, D><<<grid, NT, bytes, st>>>(
+      (const T*)q, q_bs, q_ss, (const P*)pool_k, (const P*)pool_v, ksp, vsp,
+      tables, kv_lens, offs, (T*)out, seq, heads, layer, num_pages1, kvn, ps,
+      mp, group, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename P>
 int dispatch_d(int head_dim, const void* q, long long q_bs, long long q_ss,
-               const void* pool_k, const void* pool_v, const int* tables,
-               const int* kv_lens, const int* offs, void* out, int batch,
-               int seq, int heads, int layer, int num_pages1, int kvn, int ps,
-               int mp, int group, float scale, cudaStream_t st) {
+               const void* pool_k, const void* pool_v, const float* ksp,
+               const float* vsp, const int* tables, const int* kv_lens,
+               const int* offs, void* out, int batch, int seq, int heads,
+               int layer, int num_pages1, int kvn, int ps, int mp, int group,
+               float scale, cudaStream_t st) {
   switch (head_dim) {
     case 32:
-      return launch<T, 32>(q, q_bs, q_ss, pool_k, pool_v, tables, kv_lens,
-                           offs, out, batch, seq, heads, layer, num_pages1,
-                           kvn, ps, mp, group, scale, st);
+      return launch<T, P, 32>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
+                              tables, kv_lens, offs, out, batch, seq, heads,
+                              layer, num_pages1, kvn, ps, mp, group, scale,
+                              st);
     case 64:
-      return launch<T, 64>(q, q_bs, q_ss, pool_k, pool_v, tables, kv_lens,
-                           offs, out, batch, seq, heads, layer, num_pages1,
-                           kvn, ps, mp, group, scale, st);
+      return launch<T, P, 64>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
+                              tables, kv_lens, offs, out, batch, seq, heads,
+                              layer, num_pages1, kvn, ps, mp, group, scale,
+                              st);
     case 128:
-      return launch<T, 128>(q, q_bs, q_ss, pool_k, pool_v, tables, kv_lens,
-                            offs, out, batch, seq, heads, layer, num_pages1,
-                            kvn, ps, mp, group, scale, st);
+      return launch<T, P, 128>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
+                               tables, kv_lens, offs, out, batch, seq, heads,
+                               layer, num_pages1, kvn, ps, mp, group, scale,
+                               st);
     default:
       return SLI_ERR_HEAD_DIM;
   }
 }
 
+template <typename T>
+int dispatch_p(bool quant, int head_dim, const void* q, long long q_bs,
+               long long q_ss, const void* pool_k, const void* pool_v,
+               const float* ksp, const float* vsp, const int* tables,
+               const int* kv_lens, const int* offs, void* out, int batch,
+               int seq, int heads, int layer, int num_pages1, int kvn, int ps,
+               int mp, int group, float scale, cudaStream_t st) {
+  if (quant)
+    return dispatch_d<T, int8_t>(head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp,
+                                 vsp, tables, kv_lens, offs, out, batch, seq,
+                                 heads, layer, num_pages1, kvn, ps, mp, group,
+                                 scale, st);
+  return dispatch_d<T, T>(head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
+                          tables, kv_lens, offs, out, batch, seq, heads,
+                          layer, num_pages1, kvn, ps, mp, group, scale, st);
+}
+
 }  // namespace
 
+// k_scale/v_scale: null for bf16/f32 pools (of q's dtype); given, the pools
+// are int8 and these are their f32 scale pools [L, num_pages1, kvn, ps].
 extern "C" int sli_paged_flash_prefill(
     const void* q, long long q_bs, long long q_ss, const void* pool_k,
-    const void* pool_v, const int* tables, const int* kv_lens,
-    const int* offs, void* out, int batch, int seq, int heads, int layer,
-    int num_pages1, int kvn, int ps, int mp, int group, int head_dim,
-    float scale, int dtype, void* stream) {
+    const void* pool_v, const void* k_scale, const void* v_scale,
+    const int* tables, const int* kv_lens, const int* offs, void* out,
+    int batch, int seq, int heads, int layer, int num_pages1, int kvn, int ps,
+    int mp, int group, int head_dim, float scale, int dtype, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || kvn <= 0 || group <= 0 ||
       ps <= 0 || mp <= 0 || heads != kvn * group)
     return SLI_ERR_SHAPE;
+  if ((k_scale == nullptr) != (v_scale == nullptr)) return SLI_ERR_SHAPE;
   cudaStream_t st = (cudaStream_t)stream;
+  const float* ksp = (const float*)k_scale;
+  const float* vsp = (const float*)v_scale;
+  const bool quant = ksp != nullptr;
   if (dtype == SLI_F32)
-    return dispatch_d<float>(head_dim, q, q_bs, q_ss, pool_k, pool_v, tables,
-                             kv_lens, offs, out, batch, seq, heads, layer,
-                             num_pages1, kvn, ps, mp, group, scale, st);
+    return dispatch_p<float>(quant, head_dim, q, q_bs, q_ss, pool_k, pool_v,
+                             ksp, vsp, tables, kv_lens, offs, out, batch, seq,
+                             heads, layer, num_pages1, kvn, ps, mp, group,
+                             scale, st);
   if (dtype == SLI_BF16)
-    return dispatch_d<__nv_bfloat16>(head_dim, q, q_bs, q_ss, pool_k, pool_v,
-                                     tables, kv_lens, offs, out, batch, seq,
-                                     heads, layer, num_pages1, kvn, ps, mp,
-                                     group, scale, st);
+    return dispatch_p<__nv_bfloat16>(quant, head_dim, q, q_bs, q_ss, pool_k,
+                                     pool_v, ksp, vsp, tables, kv_lens, offs,
+                                     out, batch, seq, heads, layer,
+                                     num_pages1, kvn, ps, mp, group, scale,
+                                     st);
   return SLI_ERR_DTYPE;
 }

@@ -4,7 +4,8 @@
 //
 // Replaces the TPU kernel of simplellminference_tpu/ops/qkv_fused.py:
 //   fused_qkv_append (_kernel, qkv_fused.py:37-184; wrapper :229) in its
-//   paged form (tables given), without the quantizing (INT8-KV) variant.
+//   paged form (tables given), into bf16/f32 pools or, its quantizing
+//   (INT8-KV) form, into int8 pools with f32 scale pools.
 //
 // Bound on the H100: bytes. The qkv weight ([H, (N + 2 kvN) D] int8, 50.3
 // MB at Llama-2-7B: 15.0 us at 3.35 TB/s) dominates; x, the tables and
@@ -30,6 +31,15 @@
 // TPU kernel rounds them to bf16, qkv_fused.py:76-77) and everything after
 // stays f32 until q is stored in the activation dtype and k/v in the pool
 // dtype.
+//
+// INT8 KV (pool_ks/pool_vs given): the rotated k and the v rows, rounded
+// to the activation dtype (the TPU kernel rounds them to bf16,
+// qkv_fused.py:139-143), go back into the block's tile; then one warp per
+// (row, k/v head) reduces the head's absmax over D with shuffles (the
+// block owns whole heads, so the reduction stays in the block) and stores
+// the codes and the scale with quantize_kv's math: scale = max(absmax /
+// 127, 1e-8) by IEEE division, code = rint(x / scale) clipped to +-127.
+// Dead rows write to the trash page, so they never race with live rows.
 #include "int8_rows.cuh"
 
 namespace {
@@ -37,6 +47,21 @@ namespace {
 constexpr int QKV_CT = 8;                   // 16-column groups per block
 constexpr int QKV_CW = 16 * QKV_CT;         // 128 columns per block
 constexpr int QKV_KL = RT_THREADS / QKV_CT;
+
+// Row index into [L, num_pages1, kvn, ps] of token `row`'s slot for kv
+// head kh: an unmapped page or a position past the table -> the trash page.
+__device__ __forceinline__ long long slot_row(const int* __restrict__ tables,
+                                              const int* __restrict__ positions,
+                                              int row, int kh, int layer,
+                                              int num_pages1, int kvn, int ps,
+                                              int mp) {
+  const int pos = positions[row];
+  const int pc = pos >= 0 ? pos / ps : -1;
+  int page = (pc >= 0 && pc < mp) ? tables[(long long)row * mp + pc] : -1;
+  if (page < 0) page = num_pages1 - 1;
+  const int slot = pos >= 0 ? pos % ps : 0;
+  return (((long long)layer * num_pages1 + page) * kvn + kh) * ps + slot;
+}
 
 __device__ __forceinline__ void store_pool(void* pool, int bf16, long long i,
                                            float v) {
@@ -53,7 +78,8 @@ __global__ void __launch_bounds__(RT_THREADS, 1) qkv_fused_kernel(
     const T* __restrict__ x, long long ldx, const void* __restrict__ nw,
     int nw_bf16, const int8_t* __restrict__ wq, const float* __restrict__ ws,
     const float* __restrict__ sin_t, const float* __restrict__ cos_t,
-    void* pool_k, void* pool_v, int pool_bf16, T* __restrict__ q_out,
+    void* pool_k, void* pool_v, float* __restrict__ pool_ks,
+    float* __restrict__ pool_vs, int pool_bf16, T* __restrict__ q_out,
     const int* __restrict__ tables, const int* __restrict__ positions,
     int layer, int num_pages1, int kvn, int ps, int mp, int b, int h,
     int n_heads, int d, float eps, int vec) {
@@ -116,19 +142,49 @@ __global__ void __launch_bounds__(RT_THREADS, 1) qkv_fused_kernel(
       qo[j + half] = sli::from_f<T>(r2);
       continue;
     }
+    if (pool_ks != nullptr) {  // INT8 KV: quantized by the pass below
+      tile[r * QKV_CW + t1] = sli::to_f(sli::from_f<T>(r1));
+      tile[r * QKV_CW + t1 + half] = sli::to_f(sli::from_f<T>(r2));
+      continue;
+    }
     const bool is_k = head < n_heads + kvn;
     const int kh = is_k ? head - n_heads : head - n_heads - kvn;
-    const int pos = positions[row];
-    const int pc = pos >= 0 ? pos / ps : -1;
-    int page = (pc >= 0 && pc < mp) ? tables[(long long)row * mp + pc] : -1;
-    if (page < 0) page = num_pages1 - 1;
-    const int slot = pos >= 0 ? pos % ps : 0;
-    const long long off =
-        ((((long long)layer * num_pages1 + page) * kvn + kh) * ps + slot) *
-        (long long)d;
+    const long long off = slot_row(tables, positions, row, kh, layer,
+                                   num_pages1, kvn, ps, mp) *
+                          (long long)d;
     void* pool = is_k ? pool_k : pool_v;
     store_pool(pool, pool_bf16, off + j, r1);
     store_pool(pool, pool_bf16, off + j + half, r2);
+  }
+  if (pool_ks == nullptr) return;
+
+  // INT8 KV: one warp per (row, k/v head) of the block's columns
+  __syncthreads();
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int hpb = QKV_CW / d;  // whole heads per block
+  for (int t = warp; t < RT_MT * hpb; t += RT_THREADS / 32) {
+    const int r = t / hpb;
+    const int hb = t - r * hpb;
+    const int head = col0 / d + hb;
+    const int row = m0 + r;
+    if (row >= b || head < n_heads || head >= heads) continue;
+    const bool is_k = head < n_heads + kvn;
+    const int kh = is_k ? head - n_heads : head - n_heads - kvn;
+    const float* src = tile + r * QKV_CW + hb * d;
+    float amax = 0.f;
+    for (int i = lane; i < d; i += 32) amax = fmaxf(amax, fabsf(src[i]));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const float sc = fmaxf(amax / 127.f, 1e-8f);
+    const long long srow = slot_row(tables, positions, row, kh, layer,
+                                    num_pages1, kvn, ps, mp);
+    int8_t* dst = reinterpret_cast<int8_t*>(is_k ? pool_k : pool_v) +
+                  srow * (long long)d;
+    for (int i = lane; i < d; i += 32)
+      dst[i] = (int8_t)fminf(fmaxf(rintf(src[i] / sc), -127.f), 127.f);
+    if (lane == 0) (is_k ? pool_ks : pool_vs)[srow] = sc;
   }
 }
 
@@ -142,17 +198,22 @@ extern "C" {
 // pools: [L, num_pages1, kvn, ps, d] (f32, or bf16 when pool_bf16),
 // written in place at `layer`; q_out: [b, n_heads, d] (x_dtype); tables:
 // [b, mp] int32; positions: [b] int32. vec: wq and its row length allow
-// 16-byte loads.
+// 16-byte loads. pool_ks/pool_vs: null, or (INT8 KV) the f32 scale pools
+// [L, num_pages1, kvn, ps] of int8 pools (pool_bf16 is then unused).
 int sli_qkv_fused(const void* x, long long ldx, const void* nw, int nw_bf16,
                   const void* wq, const float* ws, const float* sin_t,
                   const float* cos_t, void* pool_k, void* pool_v,
-                  int pool_bf16, void* q_out, const int* tables,
+                  void* pool_ks, void* pool_vs, int pool_bf16, void* q_out,
+                  const int* tables,
                   const int* positions, int layer, int num_pages1, int kvn,
                   int ps, int mp, int b, int h, int n_heads, int d, float eps,
                   int x_dtype, int vec, void* stream) {
   if (b <= 0 || h <= 0 || n_heads <= 0 || kvn <= 0 || ps <= 0 || mp <= 0)
     return SLI_ERR_SHAPE;
   if (d != 32 && d != 64 && d != 128) return SLI_ERR_HEAD_DIM;
+  if ((pool_ks == nullptr) != (pool_vs == nullptr)) return SLI_ERR_SHAPE;
+  float* ks = (float*)pool_ks;
+  float* vs = (float*)pool_vs;
   const int nq = (n_heads + 2 * kvn) * d;
   const dim3 grid((b + RT_MT - 1) / RT_MT, (nq + QKV_CW - 1) / QKV_CW);
   cudaStream_t st = (cudaStream_t)stream;
@@ -160,12 +221,12 @@ int sli_qkv_fused(const void* x, long long ldx, const void* nw, int nw_bf16,
   if (x_dtype == SLI_F32) {
     qkv_fused_kernel<float><<<grid, RT_THREADS, 0, st>>>(
         (const float*)x, ldx, nw, nw_bf16, w, ws, sin_t, cos_t, pool_k,
-        pool_v, pool_bf16, (float*)q_out, tables, positions, layer,
+        pool_v, ks, vs, pool_bf16, (float*)q_out, tables, positions, layer,
         num_pages1, kvn, ps, mp, b, h, n_heads, d, eps, vec);
   } else if (x_dtype == SLI_BF16) {
     qkv_fused_kernel<__nv_bfloat16><<<grid, RT_THREADS, 0, st>>>(
         (const __nv_bfloat16*)x, ldx, nw, nw_bf16, w, ws, sin_t, cos_t,
-        pool_k, pool_v, pool_bf16, (__nv_bfloat16*)q_out, tables, positions,
+        pool_k, pool_v, ks, vs, pool_bf16, (__nv_bfloat16*)q_out, tables, positions,
         layer, num_pages1, kvn, ps, mp, b, h, n_heads, d, eps, vec);
   } else {
     return SLI_ERR_DTYPE;

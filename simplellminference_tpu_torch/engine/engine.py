@@ -42,12 +42,16 @@ Sq % 128 gate, and the port's ``paged_flash_prefill`` takes any Sq.
 
 The engine serves whatever weights ``params`` carries (bf16/f32, or INT8
 ``QuantizedWeight`` leaves); like the JAX engine it never reads
-``EngineConfig.quant``.
+``EngineConfig.quant``. KV storage is bf16, f32 or INT8
+(``kv_dtype="int8"``: int8 pools with per-token-per-head f32 scale pools
+at the same page ids, so prefix sharing, the persistent store and
+preemption move scales with their pages and need nothing more, as in the
+JAX engine, which never touches ``k_scale`` past creating it).
 
 Features outside this configuration raise NotImplementedError naming the
 feature: speculative decoding, guided decoding, LoRA adapters,
 tensor/sequence parallelism (``adopt_prefill`` included), top_logprobs,
-quantized KV, sliding windows and the non-Llama model branches. The JAX
+FP8 KV, sliding windows and the non-Llama model branches. The JAX
 engine's ``forward_paged``, ``draft`` and ``loras`` constructor arguments
 are not taken yet.
 """
@@ -85,7 +89,9 @@ def _check_engine_config(ec: EngineConfig) -> None:
         raise NotImplementedError("sequence-parallel prefill")
     if ec.mesh_shape and int(np.prod(list(ec.mesh_shape.values()))) > 1:
         raise NotImplementedError("tensor-parallel serving (mesh_shape)")
-    if ec.kv.kv_dtype not in ("bf16", "f32"):
+    if ec.kv.kv_dtype == "fp8":
+        raise NotImplementedError("FP8 KV cache (kv_dtype='fp8')")
+    if ec.kv.kv_dtype not in ("bf16", "f32", "int8"):
         raise NotImplementedError(f"{ec.kv.kv_dtype} KV cache")
 
 

@@ -1,10 +1,12 @@
 """Device-side paged KV cache: page pools + block-table indexed access.
 
-Counterpart of simplellminference_tpu/memory/paged_kv.py:47-415 for bf16
-and f32 storage. Pool layout k/v [L, num_pages + 1, kvN, page_size, D]:
-the last page row is the TRASH page, which unmapped (-1) table entries
-write to and the allocator never hands out, so pools compare page for
-page with the JAX package's.
+Counterpart of simplellminference_tpu/memory/paged_kv.py:47-415 for bf16,
+f32 and INT8 storage. Pool layout k/v [L, num_pages + 1, kvN, page_size,
+D]: the last page row is the TRASH page, which unmapped (-1) table
+entries write to and the allocator never hands out, so pools compare page
+for page with the JAX package's. INT8 pools carry per-token-per-head f32
+scale pools k/v_scale [L, num_pages + 1, kvN, page_size] at the same page
+ids, written beside the codes and read back through the same tables.
 
 The pools are updated IN PLACE by the write functions (the JAX package
 donates the cache to its jitted graphs and the Pallas kernels alias it);
@@ -19,8 +21,11 @@ import typing
 import torch
 
 from simplellminference_tpu_torch.core.device import resolve_device
-from simplellminference_tpu_torch.ops.paged_append import (
-    paged_append_decode, paged_append_prefill)
+# quantize_kv lives beside the kernels that repeat its math and is
+# exported here, where the JAX package keeps it
+from simplellminference_tpu_torch.ops.paged_append import (  # noqa: F401
+    check_scale_pools, paged_append_decode, paged_append_decode_quant,
+    paged_append_prefill, paged_append_prefill_quant, quantize_kv)
 
 
 def kv_storage_dtype(name: str) -> torch.dtype:
@@ -31,26 +36,37 @@ def kv_storage_dtype(name: str) -> torch.dtype:
 
 @dataclasses.dataclass
 class PagedKVCache:
-    """k/v: [L, num_pages + 1, kv_heads, page_size, head_dim]."""
+    """k/v: [L, num_pages + 1, kv_heads, page_size, head_dim]; for int8
+    storage k/v_scale: [L, num_pages + 1, kv_heads, page_size] f32."""
 
     k: torch.Tensor
     v: typing.Optional[torch.Tensor] = None
+    k_scale: typing.Optional[torch.Tensor] = None
+    v_scale: typing.Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, num_layers: int, num_pages: int, num_kv_heads: int,
                page_size: int, head_dim: int, dtype=torch.bfloat16,
                shared_kv: bool = False, device=None) -> "PagedKVCache":
         """Allocates ``num_pages`` usable pages + one trash page, zeroed,
-        on ``device`` (CUDA unless ``device="cpu"``)."""
+        on ``device`` (CUDA unless ``device="cpu"``); int8 pools get zeroed
+        scale pools."""
         if shared_kv:
             raise NotImplementedError("shared-KV pools (absorbed MLA)")
-        if dtype in (torch.int8, torch.float8_e4m3fn):
-            raise NotImplementedError(f"{dtype} KV storage")
+        if dtype == torch.float8_e4m3fn:
+            raise NotImplementedError("FP8 KV storage (kv_dtype='fp8')")
         dev = resolve_device(device)
         shape = (num_layers, num_pages + 1, num_kv_heads, page_size,
                  head_dim)
-        return cls(k=torch.zeros(shape, dtype=dtype, device=dev),
-                   v=torch.zeros(shape, dtype=dtype, device=dev))
+
+        def zeros(shape, dt):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
+        if dtype == torch.int8:
+            return cls(k=zeros(shape, dtype), v=zeros(shape, dtype),
+                       k_scale=zeros(shape[:-1], torch.float32),
+                       v_scale=zeros(shape[:-1], torch.float32))
+        return cls(k=zeros(shape, dtype), v=zeros(shape, dtype))
 
     def with_windowed(self, num_layers_w: int, num_pages_w: int):
         raise NotImplementedError("windowed ring pools (sliding-window KV "
@@ -75,10 +91,9 @@ def write_prefill_stacked(pool_k, pool_v, new_k, new_v, tables, layer: int,
     prompt from position 0, or with ``page_offset`` (the first table
     column to write, a scalar or [B]: chunks and prefix-cached suffixes
     start at their own page-aligned offsets) a chunk. Table columns past
-    the width map to -1, the trash page. Returns (pool_k, pool_v, None,
-    None), updated in place."""
-    if pool_ks is not None or pool_vs is not None:
-        raise NotImplementedError("INT8 KV (scale pools)")
+    the width map to -1, the trash page. With scale pools the rows are
+    quantized (:func:`quantize_kv`). Returns (pool_k, pool_v, pool_ks,
+    pool_vs), updated in place (the scale pools None without them)."""
     if page_offset is not None:
         b, mp = tables.shape
         npg = -(-new_k.shape[1] // pool_k.shape[3])
@@ -89,6 +104,9 @@ def write_prefill_stacked(pool_k, pool_v, new_k, new_v, tables, layer: int,
         cols = po[:, None] + torch.arange(npg, device=tables.device)[None]
         got = tables.gather(1, cols.clamp(max=mp - 1))
         tables = torch.where(cols < mp, got, torch.full_like(got, -1))
+    if pool_ks is not None or pool_vs is not None:
+        return paged_append_prefill_quant(pool_k, pool_v, pool_ks, pool_vs,
+                                          new_k, new_v, tables, layer)
     pk, pv = paged_append_prefill(pool_k, pool_v, new_k, new_v, tables,
                                   layer)
     return pk, pv, None, None
@@ -96,34 +114,46 @@ def write_prefill_stacked(pool_k, pool_v, new_k, new_v, tables, layer: int,
 
 def write_decode_stacked(pool_k, pool_v, new_k, new_v, tables, positions,
                          layer: int, pool_ks=None, pool_vs=None):
-    """Stacked-pool decode write: one token per sequence at ``layer``.
-    Returns (pool_k, pool_v, None, None), updated in place."""
+    """Stacked-pool decode write: one token per sequence at ``layer``,
+    quantized when scale pools are given. Returns (pool_k, pool_v,
+    pool_ks, pool_vs), updated in place."""
     if pool_ks is not None or pool_vs is not None:
-        raise NotImplementedError("INT8 KV (scale pools)")
+        return paged_append_decode_quant(pool_k, pool_v, pool_ks, pool_vs,
+                                         new_k, new_v, tables, positions,
+                                         layer)
     pk, pv = paged_append_decode(pool_k, pool_v, new_k, new_v, tables,
                                  positions, layer)
     return pk, pv, None, None
 
 
 def gather_dense(pool_k: torch.Tensor, pool_v: torch.Tensor,
-                 tables: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Reference path: gather pages into a dense [B, kvN, MP*ps, D] view.
+                 tables: torch.Tensor, pool_ks: torch.Tensor | None = None,
+                 pool_vs: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Reference path: gather pages into a dense [B, kvN, MP*ps, D] view,
+    dequantizing int8 storage through the scale pools (f32 codes x
+    scale, in f32).
 
-    pool_k/v: one layer, [P, kvN, ps, D]. Unmapped (-1) pages come back as
-    zeros, which is what the decode kernel reads there too. (The JAX
-    ``mode="fill"`` gather normalizes -1 to the last row first and so
-    reads the trash page; callers mask by kv_len, so only dead rows
-    differ.)"""
+    pool_k/v: one layer, [P, kvN, ps, D] (scale pools [P, kvN, ps]).
+    Unmapped (-1) pages come back as zeros, which is what the attention
+    kernels read there too. (The JAX ``mode="fill"`` gather normalizes -1
+    to the last row first and so reads the trash page; callers mask by
+    kv_len, so only dead rows differ.)"""
+    if pool_ks is not None or pool_vs is not None:
+        check_scale_pools(pool_k, pool_v, pool_ks, pool_vs)
     p, kvn, ps, d = pool_k.shape
     b, mp = tables.shape
     idx = tables.reshape(-1).long()
-    valid = ((idx >= 0) & (idx < p))[:, None, None, None]
+    valid = (idx >= 0) & (idx < p)
+    safe = idx.clamp(0, p - 1)
 
-    def g(pool):
-        x = pool[idx.clamp(0, p - 1)]
-        x = torch.where(valid, x, torch.zeros((), dtype=x.dtype,
-                                              device=x.device))
+    def g(pool, scales):
+        x = pool[safe]
+        if scales is not None:
+            x = x.float() * scales[safe][..., None]
+        x = torch.where(valid[:, None, None, None], x,
+                        torch.zeros((), dtype=x.dtype, device=x.device))
         return (x.reshape(b, mp, kvn, ps, d).permute(0, 2, 1, 3, 4)
                 .reshape(b, kvn, mp * ps, d))
 
-    return g(pool_k), g(pool_v)
+    return g(pool_k, pool_ks), g(pool_v, pool_vs)

@@ -10,6 +10,12 @@ prefix-cached suffixes, attending through the page tables with
 layers stands in for the ``lax.scan``; stacked [L, ...] weights are
 indexed per layer, and the KV pools are written in place.
 
+KV pools are bf16/f32, or INT8 with per-token-per-head scale pools
+(``cache.k_scale``/``cache.v_scale``): every write quantizes and every
+paged attention dequantizes through the scales, in every branch
+(llama.py:559, :610-628, :687-727). The whole-prompt prefill still attends
+to its fresh, unquantized k/v; only its write is quantized.
+
 Weights are plain tensors or INT8 :class:`~simplellminference_tpu_torch.
 ops.linear.QuantizedWeight` leaves (``runtime.weights.quantize_params``
 or ``models.convert.params_from_jax``). With INT8 weights the JAX gates
@@ -117,6 +123,8 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                                                nope)[0]
     lw = params["layers"]
     pk, pv = cache.k, cache.v
+    pks, pvs = cache.k_scale, cache.v_scale   # None unless INT8 KV
+    scales = dict(pool_ks=pks, pool_vs=pvs)
     page_offset = chunk_offset // cache.page_size if chunked else None
     # the JAX gates of llama.py:583-594 and :766-775, TPU tiling aside
     use_fqkv = (not prefill and s == 1 and "q_norm" not in lw
@@ -130,12 +138,13 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     for li in range(cfg.num_layers):
         if use_fqkv:
             w = lw["wqkv"]
-            q1, pk, pv = qkv_fused.fused_qkv_append(
+            q1, *_ = qkv_fused.fused_qkv_append(
                 x[:, 0], lw["input_norm"], w.q, w.scales, sin[:, 0],
                 cos[:, 0], pk, pv, li, positions[:, 0], n_heads=n,
-                kv_heads=kvn, eps=eps, tables=tables)
+                kv_heads=kvn, eps=eps, tables=tables, cache_ks=pks,
+                cache_vs=pvs)
             attn = dispatch.attention_paged(cfg, q1[:, None], pk, pv, tables,
-                                            kv_lens, li)
+                                            kv_lens, li, **scales)
         else:
             h = ref_ops.rmsnorm(x, lw["input_norm"][li], eps)
             qkv = linear(h, lw["wqkv"], layer=li)
@@ -146,17 +155,18 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             k = ref_ops.apply_rope(k, sin, cos)
             if chunked:
                 pkv.write_prefill_stacked(pk, pv, k, v, tables, li,
-                                          page_offset=page_offset)
+                                          page_offset=page_offset, **scales)
                 attn = dispatch.attention_paged_prefill(
-                    cfg, q, pk, pv, tables, kv_lens, chunk_offset, li)
+                    cfg, q, pk, pv, tables, kv_lens, chunk_offset, li,
+                    **scales)
             elif prefill:
-                pkv.write_prefill_stacked(pk, pv, k, v, tables, li)
+                pkv.write_prefill_stacked(pk, pv, k, v, tables, li, **scales)
                 attn = dispatch.attention(cfg, q, k, v)
             else:
                 pkv.write_decode_stacked(pk, pv, k[:, 0], v[:, 0], tables,
-                                         positions[:, 0], li)
+                                         positions[:, 0], li, **scales)
                 attn = dispatch.attention_paged(cfg, q, pk, pv, tables,
-                                                kv_lens, li)
+                                                kv_lens, li, **scales)
         x = x + linear(attn.reshape(b, s, n * d), lw["wo"], layer=li)
         if use_fffn:
             gu, dn = lw["w_gate_up"], lw["w_down"]

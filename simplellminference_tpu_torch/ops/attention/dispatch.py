@@ -4,8 +4,9 @@ Counterpart of simplellminference_tpu/ops/attention/dispatch.py:68-94,
 :140-194 and :197-269. There is no backend switch here: each kernel
 wrapper launches its CUDA kernel for CUDA tensors and takes its plain
 version for CPU tensors, so on the card every call goes through a kernel.
-Attention options the kernels do not take yet (sliding window, logit soft
-cap, sinks) raise.
+INT8-KV pools pass their scale pools (``pool_ks``/``pool_vs``) on to the
+paged kernels. Attention options the kernels do not take yet (sliding
+window, logit soft cap, sinks) raise.
 """
 
 from __future__ import annotations
@@ -45,25 +46,33 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
 def attention_paged_prefill(cfg: ModelConfig, q: torch.Tensor,
                             pool_k: torch.Tensor, pool_v: torch.Tensor,
                             tables: torch.Tensor, kv_lens: torch.Tensor,
-                            chunk_offset: torch.Tensor,
-                            layer: int) -> torch.Tensor:
+                            chunk_offset: torch.Tensor, layer: int,
+                            pool_ks: torch.Tensor | None = None,
+                            pool_vs: torch.Tensor | None = None
+                            ) -> torch.Tensor:
     """Chunked-prefill attention through the page tables (counterpart of
     dispatch.py:140-194): row b's queries sit at absolute positions
     chunk_offset[b] + 0..S-1 and attend to every cached position
     < kv_lens[b] up to the causal frontier. q: [B, S, N, D]; pools:
-    stacked [L, P+1, kvN, ps, D] with an int ``layer``."""
+    stacked [L, P+1, kvN, ps, D] with an int ``layer``, and their scale
+    pools [L, P+1, kvN, ps] for INT8 KV."""
     return paged_flash_prefill(q, pool_k, pool_v, tables, kv_lens,
-                               chunk_offset, layer, sm_scale=_attn_opts(cfg))
+                               chunk_offset, layer, sm_scale=_attn_opts(cfg),
+                               k_scale=pool_ks, v_scale=pool_vs)
 
 
 def attention_paged(cfg: ModelConfig, q: torch.Tensor, pool_k: torch.Tensor,
                     pool_v: torch.Tensor, tables: torch.Tensor,
-                    kv_lens: torch.Tensor, layer: int) -> torch.Tensor:
-    """Paged decode attention. q: [B, 1, N, D]; pools: stacked
-    [L, P+1, kvN, ps, D] with an int ``layer``."""
+                    kv_lens: torch.Tensor, layer: int,
+                    pool_ks: torch.Tensor | None = None,
+                    pool_vs: torch.Tensor | None = None) -> torch.Tensor:
+    """Paged decode attention (counterpart of dispatch.py:197-269).
+    q: [B, 1, N, D]; pools: stacked [L, P+1, kvN, ps, D] with an int
+    ``layer``, and their scale pools [L, P+1, kvN, ps] for INT8 KV."""
     if q.shape[1] != 1:
         raise NotImplementedError("multi-row verify windows (speculative "
                                   "decoding)")
     sm = _attn_opts(cfg)
     return paged_flash_decode(q[:, 0], pool_k, pool_v, tables, kv_lens,
-                              layer, sm_scale=sm)[:, None]
+                              layer, sm_scale=sm, k_scale=pool_ks,
+                              v_scale=pool_vs)[:, None]

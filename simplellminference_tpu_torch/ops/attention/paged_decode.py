@@ -3,12 +3,21 @@ tables.
 
 Counterpart of simplellminference_tpu/ops/attention/paged_decode.py:165
 (``paged_flash_decode`` with one query row per sequence; the speculative
-``paged_flash_verify`` is not ported yet). For CUDA tensors
-:func:`paged_flash_decode` launches the hand-written kernel of
-``csrc/paged_decode.cu`` (one block per sequence and kv head, page ids
-read from the table in the block, f32 online softmax over the live keys
-only); for CPU tensors it runs :func:`paged_flash_decode_ref`, the
-gather + dense reference path of the JAX dispatcher.
+``paged_flash_verify`` is not ported yet), over bf16/f32 pools or INT8
+pools with their per-token-per-head scale pools (``k_scale``/``v_scale``).
+For CUDA tensors :func:`paged_flash_decode` launches the hand-written
+kernel of ``csrc/paged_decode.cu`` (one block per sequence and kv head,
+page ids read from the table in the block, f32 online softmax over the
+live keys only); the INT8-KV form is its own wrapper,
+:func:`paged_flash_decode_int8kv`, with its own launch count. For CPU
+tensors both run :func:`paged_flash_decode_ref`, the gather (+ dequant)
++ dense reference path of the JAX dispatcher (dispatch.py:239-269).
+
+INT8 KV: the kernel dequantizes late, as the TPU kernel does
+(paged_decode.py:84-89, :116-120): the K scale multiplies each score after
+q.k, the V scale folds into p before the PV product, so the int8 codes
+enter the dot products as exact floats. The plain version dequantizes the
+gathered pages to f32 first; the two agree to f32 rounding.
 
 Unmapped (-1) pages inside kv_len read as zeros in both versions. The
 JAX package reads something else there — its TPU kernel clamps them to
@@ -23,18 +32,32 @@ import torch
 
 from simplellminference_tpu_torch.memory.paged_kv import gather_dense
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
+from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
 HEAD_DIMS = (32, 64, 128)
 
 
+def _check_scales(k_pool, v_pool, k_scale, v_scale) -> bool:
+    """True for INT8 pools with scale pools (checked), False without."""
+    if k_scale is None and v_scale is None:
+        return False
+    check_scale_pools(k_pool, v_pool, k_scale, v_scale)
+    return True
+
+
 def paged_flash_decode_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
-                           sm_scale: float | None = None) -> torch.Tensor:
-    """Plain version: gather the pages densely, mask key_pos < kv_len,
-    reference attention; a row with kv_len <= 0 is zero, as in the kernel.
+                           sm_scale: float | None = None, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
+    """Plain version: gather the pages densely (dequantized in f32 through
+    the scale pools when given), mask key_pos < kv_len, reference
+    attention; a row with kv_len <= 0 is zero, as in the kernel.
     q: [B, N, D] -> [B, N, D]."""
     if q.is_cuda:
         paged_flash_decode_ref.cuda_calls += 1
-    ck, cv = gather_dense(k_pool[layer], v_pool[layer], tables)
+    quant = _check_scales(k_pool, v_pool, k_scale, v_scale)
+    ck, cv = gather_dense(k_pool[layer], v_pool[layer], tables,
+                          k_scale[layer] if quant else None,
+                          v_scale[layer] if quant else None)
     smax = ck.shape[2]
     lens = kv_lens.long()
     key_pos = torch.arange(smax, device=q.device)
@@ -48,16 +71,57 @@ paged_flash_decode_ref.cuda_calls = 0
 
 
 def paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer: int,
-                       sm_scale: float | None = None) -> torch.Tensor:
+                       sm_scale: float | None = None, k_scale=None,
+                       v_scale=None) -> torch.Tensor:
     """q: [B, N, D]; k/v_pool: stacked [L, P+1, kvN, ps, D] with an int
-    ``layer``; tables: [B, MP] int32 (-1 = unmapped); kv_lens: [B] ->
+    ``layer`` (int8 with f32 ``k_scale``/``v_scale`` [L, P+1, kvN, ps]
+    for INT8 KV); tables: [B, MP] int32 (-1 = unmapped); kv_lens: [B] ->
     out [B, N, D] in q's dtype. Keys are positions < min(kv_len, MP*ps)."""
-    if not q.is_cuda:
-        return paged_flash_decode_ref(q, k_pool, v_pool, tables, kv_lens,
-                                      layer, sm_scale)
-    b, n, d = q.shape
     if v_pool is None:
         raise NotImplementedError("shared-KV pools (absorbed MLA)")
+    quant = _check_scales(k_pool, v_pool, k_scale, v_scale)
+    if not q.is_cuda:
+        return paged_flash_decode_ref(q, k_pool, v_pool, tables, kv_lens,
+                                      layer, sm_scale, k_scale, v_scale)
+    if quant:
+        return paged_flash_decode_int8kv(q, k_pool, v_pool, k_scale,
+                                         v_scale, tables, kv_lens, layer,
+                                         sm_scale)
+    if not (q.dtype == k_pool.dtype == v_pool.dtype):
+        raise NotImplementedError(
+            f"q {q.dtype} with {k_pool.dtype} pools (quantized KV)")
+    out = _launch(q, k_pool, v_pool, None, None, tables, kv_lens, layer,
+                  sm_scale, "paged_flash_decode")
+    paged_flash_decode.launches += 1
+    return out
+
+
+paged_flash_decode.launches = 0
+
+
+def paged_flash_decode_int8kv(q, k_pool, v_pool, k_scale, v_scale, tables,
+                              kv_lens, layer: int,
+                              sm_scale: float | None = None) -> torch.Tensor:
+    """The INT8-KV form of :func:`paged_flash_decode`: q [B, N, D] bf16 or
+    f32 against int8 pools and their f32 scale pools; out in q's dtype."""
+    if not q.is_cuda:
+        return paged_flash_decode_ref(q, k_pool, v_pool, tables, kv_lens,
+                                      layer, sm_scale, k_scale, v_scale)
+    check_scale_pools(k_pool, v_pool, k_scale, v_scale)
+    if any(t.device != q.device for t in (k_scale, v_scale)):
+        raise ValueError("q and the scale pools must share a device")
+    out = _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
+                  layer, sm_scale, "paged_flash_decode_int8kv")
+    paged_flash_decode_int8kv.launches += 1
+    return out
+
+
+paged_flash_decode_int8kv.launches = 0
+
+
+def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
+            sm_scale, what):
+    b, n, d = q.shape
     n_layers, p1, kvn, ps, pd = k_pool.shape
     if pd != d or v_pool.shape != k_pool.shape:
         raise ValueError("pools must be matching [L, P+1, kvN, ps, D]")
@@ -65,9 +129,6 @@ def paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer: int,
         raise ValueError(f"{n} heads do not group over {kvn} kv heads")
     if d not in HEAD_DIMS:
         raise NotImplementedError(f"head_dim {d} (kernel takes {HEAD_DIMS})")
-    if not (q.dtype == k_pool.dtype == v_pool.dtype):
-        raise NotImplementedError(
-            f"q {q.dtype} with {k_pool.dtype} pools (quantized KV)")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("pools must be contiguous")
     if not 0 <= layer < n_layers:
@@ -86,12 +147,10 @@ def paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer: int,
     lib = cuda_build.load()
     rc = lib.sli_paged_flash_decode(
         q.data_ptr(), q.stride(0), k_pool.data_ptr(), v_pool.data_ptr(),
+        0 if k_scale is None else k_scale.data_ptr(),
+        0 if v_scale is None else v_scale.data_ptr(),
         tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), b, layer, p1,
         kvn, ps, tables.shape[1], n // kvn, d, scale, code,
         torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(lib, rc, "paged_flash_decode")
-    paged_flash_decode.launches += 1
+    cuda_build.check(lib, rc, what)
     return out
-
-
-paged_flash_decode.launches = 0

@@ -12,13 +12,24 @@ memory, each key's page looked up in the table; f32 online softmax); for
 CPU tensors it runs :func:`paged_flash_prefill_ref`, the gather + masked
 dense reference of the JAX dispatcher (dispatch.py:172-194).
 
+INT8 KV (int8 pools with ``k_scale``/``v_scale`` [L, P+1, kvN, ps] f32):
+the kernel dequantizes each staged K/V element in f32 and rounds it to
+q's dtype, as the TPU kernel dequantizes its page slabs
+(paged_prefill.py:105-110); the INT8-KV form is its own wrapper,
+:func:`paged_flash_prefill_int8kv`, with its own launch count. The plain
+version does the same to the gathered pages (dequantize in f32, round to
+q's dtype): in f32 that is the JAX CPU path (dispatch.py:182-194); with
+bf16 q the JAX CPU path keeps f32 K/V, and the rounding moved the
+outputs by up to 0.25 at the card tests' shapes (NVIDIA H100 80GB HBM3,
+700.00 W), so the plain version repeats the kernel's rounding instead.
+
 The kernel takes every Sq (the TPU kernel needs Sq % bq == 0, and its
 dispatcher Sq % 128 == 0). ``bq`` and ``pages_per_block``, the TPU's MXU
 block knobs (paged_prefill.py:13-21, :180-182), have no counterpart.
 Unmapped (-1) pages inside kv_len read as zeros in both versions, as in
 :func:`~simplellminference_tpu_torch.memory.paged_kv.gather_dense`.
-Sliding window, logit soft cap, sinks, INT8 KV scales and shared-KV
-(absorbed MLA) pools are not ported yet and raise.
+Sliding window, logit soft cap, sinks and shared-KV (absorbed MLA) pools
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -27,11 +38,15 @@ import torch
 
 from simplellminference_tpu_torch.memory.paged_kv import gather_dense
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
+from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
 HEAD_DIMS = (32, 64, 128)
 
 
-def _check_options(v_pool, window, logit_cap, sinks, k_scale, v_scale):
+def _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
+                   v_scale) -> bool:
+    """Raise for the options not ported; True for INT8 KV (scale pools
+    given and checked)."""
     if v_pool is None:
         raise NotImplementedError("shared-KV pools (absorbed MLA)")
     if window is not None:
@@ -40,21 +55,30 @@ def _check_options(v_pool, window, logit_cap, sinks, k_scale, v_scale):
         raise NotImplementedError("attention logit soft cap")
     if sinks is not None:
         raise NotImplementedError("attention sinks")
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("INT8 KV (scale pools)")
+    if k_scale is None and v_scale is None:
+        return False
+    check_scale_pools(k_pool, v_pool, k_scale, v_scale)
+    return True
 
 
 def paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
                             layer: int, sm_scale: float | None = None,
                             window=None, logit_cap=None, sinks=None,
                             k_scale=None, v_scale=None) -> torch.Tensor:
-    """Plain version: gather the pages densely, mask
-    key_pos <= q_pos and key_pos < kv_len per element, reference attention.
+    """Plain version: gather the pages densely (dequantized in f32 through
+    the scale pools when given, then rounded to q's dtype as the kernel
+    rounds), mask key_pos <= q_pos and key_pos < kv_len per element,
+    reference attention.
     q: [B, Sq, N, D] -> [B, Sq, N, D]."""
-    _check_options(v_pool, window, logit_cap, sinks, k_scale, v_scale)
+    quant = _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
+                           v_scale)
     if q.is_cuda:
         paged_flash_prefill_ref.cuda_calls += 1
-    ck, cv = gather_dense(k_pool[layer], v_pool[layer], tables)
+    ck, cv = gather_dense(k_pool[layer], v_pool[layer], tables,
+                          k_scale[layer] if quant else None,
+                          v_scale[layer] if quant else None)
+    if quant:
+        ck, cv = ck.to(q.dtype), cv.to(q.dtype)
     smax = ck.shape[2]
     s = q.shape[1]
     key_pos = torch.arange(smax, device=q.device)[None, None, None, :]
@@ -74,14 +98,58 @@ def paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
                         window=None, logit_cap=None, sinks=None,
                         k_scale=None, v_scale=None) -> torch.Tensor:
     """q: [B, Sq, N, D] at absolute positions chunk_offset[b] + 0..Sq-1;
-    k/v_pool: stacked [L, P+1, kvN, ps, D] with an int ``layer``; tables:
-    [B, MP] int32 (-1 = unmapped); kv_lens: [B] valid tokens after the
-    chunk's write; chunk_offset: [B] -> out [B, Sq, N, D] in q's dtype.
-    Keys are positions < min(kv_len, MP*ps) up to each row's position."""
-    _check_options(v_pool, window, logit_cap, sinks, k_scale, v_scale)
+    k/v_pool: stacked [L, P+1, kvN, ps, D] with an int ``layer`` (int8
+    with f32 ``k_scale``/``v_scale`` [L, P+1, kvN, ps] for INT8 KV);
+    tables: [B, MP] int32 (-1 = unmapped); kv_lens: [B] valid tokens
+    after the chunk's write; chunk_offset: [B] -> out [B, Sq, N, D] in q's
+    dtype. Keys are positions < min(kv_len, MP*ps) up to each row's
+    position."""
+    quant = _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
+                           v_scale)
     if not q.is_cuda:
         return paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens,
-                                       chunk_offset, layer, sm_scale)
+                                       chunk_offset, layer, sm_scale,
+                                       k_scale=k_scale, v_scale=v_scale)
+    if quant:
+        return paged_flash_prefill_int8kv(q, k_pool, v_pool, k_scale,
+                                          v_scale, tables, kv_lens,
+                                          chunk_offset, layer, sm_scale)
+    if not (q.dtype == k_pool.dtype == v_pool.dtype):
+        raise NotImplementedError(
+            f"q {q.dtype} with {k_pool.dtype} pools (quantized KV)")
+    out = _launch(q, k_pool, v_pool, None, None, tables, kv_lens,
+                  chunk_offset, layer, sm_scale, "paged_flash_prefill")
+    paged_flash_prefill.launches += 1
+    return out
+
+
+paged_flash_prefill.launches = 0
+
+
+def paged_flash_prefill_int8kv(q, k_pool, v_pool, k_scale, v_scale, tables,
+                               kv_lens, chunk_offset, layer: int,
+                               sm_scale: float | None = None) -> torch.Tensor:
+    """The INT8-KV form of :func:`paged_flash_prefill`: q [B, Sq, N, D]
+    bf16 or f32 against int8 pools and their f32 scale pools; out in q's
+    dtype."""
+    if not q.is_cuda:
+        return paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens,
+                                       chunk_offset, layer, sm_scale,
+                                       k_scale=k_scale, v_scale=v_scale)
+    check_scale_pools(k_pool, v_pool, k_scale, v_scale)
+    if any(t.device != q.device for t in (k_scale, v_scale)):
+        raise ValueError("q and the scale pools must share a device")
+    out = _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
+                  chunk_offset, layer, sm_scale, "paged_flash_prefill_int8kv")
+    paged_flash_prefill_int8kv.launches += 1
+    return out
+
+
+paged_flash_prefill_int8kv.launches = 0
+
+
+def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
+            chunk_offset, layer, sm_scale, what):
     b, s, n, d = q.shape
     n_layers, p1, kvn, ps, pd = k_pool.shape
     if pd != d or v_pool.shape != k_pool.shape:
@@ -90,9 +158,6 @@ def paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
         raise ValueError(f"{n} heads do not group over {kvn} kv heads")
     if d not in HEAD_DIMS:
         raise NotImplementedError(f"head_dim {d} (kernel takes {HEAD_DIMS})")
-    if not (q.dtype == k_pool.dtype == v_pool.dtype):
-        raise NotImplementedError(
-            f"q {q.dtype} with {k_pool.dtype} pools (quantized KV)")
     if any(t.device != q.device
            for t in (k_pool, v_pool, tables, kv_lens, chunk_offset)):
         raise ValueError("q, pools, tables, kv_lens and chunk_offset must "
@@ -116,13 +181,10 @@ def paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
     lib = cuda_build.load()
     rc = lib.sli_paged_flash_prefill(
         q.data_ptr(), q.stride(0), q.stride(1), k_pool.data_ptr(),
-        v_pool.data_ptr(), tables.data_ptr(), kv_lens.data_ptr(),
-        offs.data_ptr(), out.data_ptr(), b, s, n, layer, p1, kvn, ps,
-        tables.shape[1], n // kvn, d, scale, code,
+        v_pool.data_ptr(), 0 if k_scale is None else k_scale.data_ptr(),
+        0 if v_scale is None else v_scale.data_ptr(), tables.data_ptr(),
+        kv_lens.data_ptr(), offs.data_ptr(), out.data_ptr(), b, s, n, layer,
+        p1, kvn, ps, tables.shape[1], n // kvn, d, scale, code,
         torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(lib, rc, "paged_flash_prefill")
-    paged_flash_prefill.launches += 1
+    cuda_build.check(lib, rc, what)
     return out
-
-
-paged_flash_prefill.launches = 0

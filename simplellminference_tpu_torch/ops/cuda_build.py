@@ -42,16 +42,23 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _I, _P],
     "sli_paged_append_prefill": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _P],
+    "sli_paged_append_decode_quant": [_P, _P, _P, _P, _P, _P, _L, _L, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sli_paged_append_prefill_quant": [_P, _P, _P, _P, _P, _P, _L, _L, _L,
+                                       _L, _P, _I, _I, _I, _I, _I, _I, _I,
+                                       _I, _I, _P],
     "sli_flash_prefill": [_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _L,
                           _I, _I, _I, _I, _I, _F, _I, _P],
-    "sli_paged_flash_decode": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _F, _I, _P],
-    "sli_paged_flash_prefill": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "sli_paged_flash_decode": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "sli_paged_flash_prefill": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                _I, _P],
     "sli_quantized_matmul": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P],
-    "sli_qkv_fused": [_P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "sli_qkv_fused": [_P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                      _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                      _P],
     "sli_ffn_fused": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _F, _I, _I, _I, _P],
 }

@@ -1,17 +1,20 @@
 """In-place paged KV writes: one decode row per sequence, and whole prompt
-pages at prefill.
+pages at prefill, into bf16/f32 pools or, quantizing, into INT8 pools.
 
-Counterpart of simplellminference_tpu/ops/paged_append.py:54 and :129.
-For CUDA tensors the wrappers launch the hand-written kernels of
-``csrc/paged_append.cu``; for CPU tensors they run the plain versions
-below (``*_ref``), which are also what the kernels are held against on
-the card.
+Counterpart of simplellminference_tpu/ops/paged_append.py:54, :129 (bf16
+and f32 pools) and :210, :295 (the ``*_quant`` forms for INT8 pools with
+per-token-per-head f32 scale pools). For CUDA tensors the wrappers launch
+the hand-written kernels of ``csrc/paged_append.cu`` and
+``csrc/paged_append_quant.cu``; for CPU tensors they run the plain
+versions below (``*_ref``), which are also what the kernels are held
+against on the card.
 
-Pools are [L, P+1, kvN, ps, D] and are updated in place (the JAX package
-aliases them through the Pallas call). An unmapped (-1) table entry, or a
-column past the table, writes to the TRASH page — the pool's last page
-row, which the allocator never hands out — as the TPU kernels and the
-JAX scatter (where -1 wraps to the last row) both do.
+Pools are [L, P+1, kvN, ps, D] (scale pools [L, P+1, kvN, ps]) and are
+updated in place (the JAX package aliases them through the Pallas call).
+An unmapped (-1) table entry, or a column past the table, writes to the
+TRASH page — the pool's last page row, which the allocator never hands
+out — as the TPU kernels and the JAX scatter (where -1 wraps to the last
+row) both do.
 """
 
 from __future__ import annotations
@@ -35,15 +38,34 @@ def _pages(tables: torch.Tensor, cols: torch.Tensor,
     return page if two_d else page[:, 0]
 
 
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token-per-head symmetric INT8: x [..., D] -> (q int8 [..., D],
+    scale f32 [...]), scale = max(absmax / 127, 1e-8), q = x / scale
+    rounded half to even and clipped to +-127 (simplellminference_tpu/
+    memory/paged_kv.py:134)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    # divide by a tensor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not the IEEE quotient that
+    # jnp and the kernels compute
+    scale = (amax / torch.full_like(amax, 127.0)).clamp_min(1e-8)
+    q = torch.round(xf / scale[..., None]).clamp_(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _decode_slots(tables, positions, p1, ps):
+    pos = positions.long()
+    page = _pages(tables, torch.where(pos >= 0, pos // ps, -1), p1)
+    return page, torch.where(pos >= 0, pos % ps, 0)
+
+
 def paged_append_decode_ref(pool_k, pool_v, new_k, new_v, tables, positions,
                             layer: int):
     """Plain version of :func:`paged_append_decode` (in place)."""
     if pool_k.is_cuda:
         paged_append_decode_ref.cuda_calls += 1
-    p1, ps = pool_k.shape[1], pool_k.shape[3]
-    pos = positions.long()
-    page = _pages(tables, torch.where(pos >= 0, pos // ps, -1), p1)
-    slot = torch.where(pos >= 0, pos % ps, 0)
+    page, slot = _decode_slots(tables, positions, pool_k.shape[1],
+                               pool_k.shape[3])
     pool_k[layer][page, :, slot, :] = new_k.to(pool_k.dtype)
     pool_v[layer][page, :, slot, :] = new_v.to(pool_v.dtype)
     return pool_k, pool_v
@@ -52,29 +74,79 @@ def paged_append_decode_ref(pool_k, pool_v, new_k, new_v, tables, positions,
 paged_append_decode_ref.cuda_calls = 0
 
 
+def _page_chunks(x, npg, ps):
+    """[B, S, kvN, ...] -> [B*npg, kvN, ps, ...], zero rows past S."""
+    b, s, kvn = x.shape[:3]
+    pad = npg * ps - s
+    if pad:
+        x = F.pad(x, (0, 0) * (x.ndim - 2) + (0, pad))
+    x = x.reshape(b, npg, ps, kvn, *x.shape[3:]).transpose(2, 3)
+    return x.reshape(b * npg, kvn, ps, *x.shape[4:])
+
+
+def _prefill_pages(tables, b, npg, p1):
+    cols = torch.arange(npg, device=tables.device)[None].expand(b, npg)
+    return _pages(tables, cols, p1).reshape(-1)
+
+
 def paged_append_prefill_ref(pool_k, pool_v, new_k, new_v, tables,
                              layer: int):
     """Plain version of :func:`paged_append_prefill` (in place)."""
     if pool_k.is_cuda:
         paged_append_prefill_ref.cuda_calls += 1
-    _, p1, kvn, ps, d = pool_k.shape
+    ps = pool_k.shape[3]
     b, s = new_k.shape[:2]
     npg = -(-s // ps)
-    pad = npg * ps - s
-
-    def chunks(x, dtype):
-        x = F.pad(x.to(dtype), (0, 0, 0, 0, 0, pad)) if pad else x.to(dtype)
-        return (x.reshape(b, npg, ps, kvn, d).permute(0, 1, 3, 2, 4)
-                .reshape(b * npg, kvn, ps, d))
-
-    cols = torch.arange(npg, device=tables.device)[None].expand(b, npg)
-    idx = _pages(tables, cols, p1).reshape(-1)
-    pool_k[layer].index_copy_(0, idx, chunks(new_k, pool_k.dtype))
-    pool_v[layer].index_copy_(0, idx, chunks(new_v, pool_v.dtype))
+    idx = _prefill_pages(tables, b, npg, pool_k.shape[1])
+    pool_k[layer].index_copy_(0, idx, _page_chunks(new_k.to(pool_k.dtype),
+                                                   npg, ps))
+    pool_v[layer].index_copy_(0, idx, _page_chunks(new_v.to(pool_v.dtype),
+                                                   npg, ps))
     return pool_k, pool_v
 
 
 paged_append_prefill_ref.cuda_calls = 0
+
+
+def paged_append_decode_quant_ref(pool_k, pool_v, pool_ks, pool_vs, new_k,
+                                  new_v, tables, positions, layer: int):
+    """Plain version of :func:`paged_append_decode_quant` (in place)."""
+    if pool_k.is_cuda:
+        paged_append_decode_quant_ref.cuda_calls += 1
+    page, slot = _decode_slots(tables, positions, pool_k.shape[1],
+                               pool_k.shape[3])
+    for pool, scales, x in ((pool_k, pool_ks, new_k), (pool_v, pool_vs,
+                                                        new_v)):
+        q, s = quantize_kv(x)
+        pool[layer][page, :, slot, :] = q
+        scales[layer][page, :, slot] = s
+    return pool_k, pool_v, pool_ks, pool_vs
+
+
+paged_append_decode_quant_ref.cuda_calls = 0
+
+
+def paged_append_prefill_quant_ref(pool_k, pool_v, pool_ks, pool_vs, new_k,
+                                   new_v, tables, layer: int):
+    """Plain version of :func:`paged_append_prefill_quant` (in place). Rows
+    past S in the last page get code 0 and scale 0, as the JAX package's
+    zero pad after quantizing gives."""
+    if pool_k.is_cuda:
+        paged_append_prefill_quant_ref.cuda_calls += 1
+    ps = pool_k.shape[3]
+    b, s = new_k.shape[:2]
+    npg = -(-s // ps)
+    idx = _prefill_pages(tables, b, npg, pool_k.shape[1])
+    for pool, scales, x in ((pool_k, pool_ks, new_k), (pool_v, pool_vs,
+                                                        new_v)):
+        q, sc = quantize_kv(x)
+        pool[layer].index_copy_(0, idx, _page_chunks(q, npg, ps))
+        scales[layer].index_copy_(0, idx, _page_chunks(sc[..., None], npg,
+                                                       ps)[..., 0])
+    return pool_k, pool_v, pool_ks, pool_vs
+
+
+paged_append_prefill_quant_ref.cuda_calls = 0
 
 
 def _check_pools(pool_k, pool_v, new_k, layer):
@@ -90,6 +162,39 @@ def _check_pools(pool_k, pool_v, new_k, layer):
     if not 0 <= layer < pool_k.shape[0]:
         raise IndexError(f"layer {layer} out of range")
     cuda_build.dtype_code(pool_k.dtype)
+
+
+def check_scale_pools(pool_k, pool_v, pool_ks, pool_vs):
+    """INT8 pools [L, P+1, kvN, ps, D] with their contiguous f32 scale
+    pools [L, P+1, kvN, ps]; a K scale pool alone (the shared-KV INT8
+    pools of absorbed MLA) is not ported."""
+    if pool_v is None or pool_vs is None:
+        raise NotImplementedError("INT8 KV with a K scale pool and no V "
+                                  "scale pool (shared-KV, absorbed MLA)")
+    if pool_ks is None:
+        raise ValueError("a V scale pool needs a K scale pool")
+    if pool_k.dtype != torch.int8 or pool_v.dtype != torch.int8:
+        raise ValueError(f"scale pools go with int8 pools, not "
+                         f"{pool_k.dtype}/{pool_v.dtype}")
+    for s, p in ((pool_ks, pool_k), (pool_vs, pool_v)):
+        if (s.dtype != torch.float32 or s.shape != p.shape[:-1]
+                or not s.is_contiguous()):
+            raise ValueError("scale pools must be contiguous f32 "
+                             "[L, P+1, kvN, ps] beside their pools")
+
+
+def _check_quant_pools(pool_k, pool_v, pool_ks, pool_vs, new_k, layer):
+    """What the quantizing kernels need beyond :func:`check_scale_pools`
+    (which every caller runs first)."""
+    if pool_k.shape != pool_v.shape or pool_k.ndim != 5:
+        raise ValueError("pools must be matching [L, P+1, kvN, ps, D]")
+    if not (pool_k.is_contiguous() and pool_v.is_contiguous()):
+        raise ValueError("pools must be contiguous")
+    if any(t.device != new_k.device for t in (pool_k, pool_v, pool_ks,
+                                              pool_vs)):
+        raise ValueError("pools and new rows must share a device")
+    if not 0 <= layer < pool_k.shape[0]:
+        raise IndexError(f"layer {layer} out of range")
 
 
 def _rows(x, kvn, d, dtype):
@@ -191,3 +296,84 @@ def paged_append_prefill(pool_k, pool_v, new_k, new_v, tables, layer: int):
 
 
 paged_append_prefill.launches = 0
+
+
+def _qrows(new_k, new_v, kvn, d):
+    """New K/V rows for the quantizing kernels: f32 or bf16 (others go to
+    f32, exactly), both of one dtype, [kvN, D] contiguous."""
+    dt = (new_k.dtype if new_k.dtype in (torch.float32, torch.bfloat16)
+          and new_v.dtype == new_k.dtype else torch.float32)
+    return _rows(new_k, kvn, d, dt), _rows(new_v, kvn, d, dt)
+
+
+def paged_append_decode_quant(pool_k, pool_v, pool_ks, pool_vs, new_k, new_v,
+                              tables, positions, layer: int):
+    """Quantize one token per sequence (:func:`quantize_kv`) and write its
+    int8 rows and scales into the stacked pools in place.
+
+    pool_k/v: [L, P+1, kvN, ps, D] int8; pool_ks/vs: [L, P+1, kvN, ps]
+    f32; new_k/v: [B, kvN, D] f32 or bf16; tables: [B, MP] (-1 =
+    unmapped, the trash page); positions: [B]. Returns (pool_k, pool_v,
+    pool_ks, pool_vs)."""
+    check_scale_pools(pool_k, pool_v, pool_ks, pool_vs)
+    if not pool_k.is_cuda:
+        return paged_append_decode_quant_ref(pool_k, pool_v, pool_ks,
+                                             pool_vs, new_k, new_v, tables,
+                                             positions, layer)
+    _check_quant_pools(pool_k, pool_v, pool_ks, pool_vs, new_k, layer)
+    n_layers, p1, kvn, ps, d = pool_k.shape
+    b = new_k.shape[0]
+    if b == 0:
+        return pool_k, pool_v, pool_ks, pool_vs
+    nk, nv = _qrows(new_k, new_v, kvn, d)
+    tables = _index(tables, b, "tables")
+    positions = _index(positions, b, "positions")
+    lib = cuda_build.load()
+    rc = lib.sli_paged_append_decode_quant(
+        pool_k.data_ptr(), pool_v.data_ptr(), pool_ks.data_ptr(),
+        pool_vs.data_ptr(), nk.data_ptr(), nv.data_ptr(), nk.stride(0),
+        nv.stride(0), tables.data_ptr(), positions.data_ptr(), layer, p1, kvn,
+        ps, d, tables.shape[1], b, cuda_build.dtype_code(nk.dtype),
+        torch.cuda.current_stream(pool_k.device).cuda_stream)
+    cuda_build.check(lib, rc, "paged_append_decode_quant")
+    paged_append_decode_quant.launches += 1
+    return pool_k, pool_v, pool_ks, pool_vs
+
+
+paged_append_decode_quant.launches = 0
+
+
+def paged_append_prefill_quant(pool_k, pool_v, pool_ks, pool_vs, new_k,
+                               new_v, tables, layer: int):
+    """Quantize a right-padded prompt (:func:`quantize_kv`) and write its
+    int8 pages and scale pages in place.
+
+    new_k/v: [B, S, kvN, D] f32 or bf16; ``tables[:, :ceil(S/ps)]`` names
+    the target pages (-1: the trash page); rows past S in the last page
+    get code 0 and scale 0. Returns (pool_k, pool_v, pool_ks, pool_vs)."""
+    check_scale_pools(pool_k, pool_v, pool_ks, pool_vs)
+    if not pool_k.is_cuda:
+        return paged_append_prefill_quant_ref(pool_k, pool_v, pool_ks,
+                                              pool_vs, new_k, new_v, tables,
+                                              layer)
+    _check_quant_pools(pool_k, pool_v, pool_ks, pool_vs, new_k, layer)
+    n_layers, p1, kvn, ps, d = pool_k.shape
+    b, s = new_k.shape[:2]
+    if b == 0 or s == 0:
+        return pool_k, pool_v, pool_ks, pool_vs
+    nk, nv = _qrows(new_k, new_v, kvn, d)
+    tables = _index(tables, b, "tables")
+    lib = cuda_build.load()
+    rc = lib.sli_paged_append_prefill_quant(
+        pool_k.data_ptr(), pool_v.data_ptr(), pool_ks.data_ptr(),
+        pool_vs.data_ptr(), nk.data_ptr(), nv.data_ptr(), nk.stride(0),
+        nk.stride(1), nv.stride(0), nv.stride(1), tables.data_ptr(), layer,
+        p1, kvn, ps, d, tables.shape[1], b, s,
+        cuda_build.dtype_code(nk.dtype),
+        torch.cuda.current_stream(pool_k.device).cuda_stream)
+    cuda_build.check(lib, rc, "paged_append_prefill_quant")
+    paged_append_prefill_quant.launches += 1
+    return pool_k, pool_v, pool_ks, pool_vs
+
+
+paged_append_prefill_quant.launches = 0

@@ -16,15 +16,22 @@ f32 from there on: q is rounded to x's dtype, k/v to the pool dtype. With
 bf16 activations that is the TPU kernel's math; with f32 ones nothing is
 rounded, as on the JAX package's CPU path.
 
+The quantizing form (``cache_ks``/``cache_vs``, INT8 KV; qkv_fused.py:
+139-151, :176-184): the rotated k and the v rows are rounded to the
+activation dtype (the TPU kernel rounds them to bf16, as its unfused path
+does through ``apply_rope``), then quantized per (token, kv head) with
+``quantize_kv``'s math, and the codes and the scale are written to the
+page slot. On the card it is its own wrapper,
+:func:`fused_qkv_append_int8kv`, with its own launch count.
+
 Pools are [L, P+1, kvN, ps, D] and are written in place; an unmapped (-1)
 page, or a position past the table, writes to the trash page (the last
 page row), as :func:`~simplellminference_tpu_torch.ops.paged_append.
 paged_append_decode` does.
 
 Not ported: the dense-arena form (``tables=None``, with the dense
-Generator), the quantizing form (``cache_ks``/``cache_vs``, with INT8 KV)
-and a cache layer different from the weight layer (``kv_layer``, sliding
-ring pools); each raises.
+Generator) and a cache layer different from the weight layer
+(``kv_layer``, sliding ring pools); each raises.
 """
 
 from __future__ import annotations
@@ -34,24 +41,29 @@ import torch
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
 from simplellminference_tpu_torch.ops.linear import QuantizedWeight
 from simplellminference_tpu_torch.ops.paged_append import (
-    _check_pools, _index, paged_append_decode_ref)
+    _check_pools, _check_quant_pools, _index, check_scale_pools,
+    paged_append_decode_quant_ref, paged_append_decode_ref)
 
 MAX_ROWS = 64
 HEAD_DIMS = (32, 64, 128)
 
 
-def _check(x, pool_k, tables, cache_ks, cache_vs, kv_layer, layer):
+def _check(x, pool_k, pool_v, tables, cache_ks, cache_vs, kv_layer,
+           layer) -> bool:
+    """Raise for the forms not ported; True for the quantizing form
+    (scale pools given and checked)."""
     if tables is None:
         raise NotImplementedError("fused_qkv_append on a dense KV arena "
                                   "(tables=None)")
-    if cache_ks is not None or cache_vs is not None:
-        raise NotImplementedError("fused_qkv_append into INT8 KV pools "
-                                  "(cache_ks/cache_vs)")
     if kv_layer is not None and int(kv_layer) != int(layer):
         raise NotImplementedError("a KV layer apart from the weight layer "
                                   "(kv_layer: sliding ring pools)")
     if x.ndim != 2:
         raise ValueError(f"x must be [B, H], got {tuple(x.shape)}")
+    if cache_ks is None and cache_vs is None:
+        return False
+    check_scale_pools(pool_k, pool_v, cache_ks, cache_vs)
+    return True
 
 
 def _heads(wq, pool_k, n_heads, kv_heads):
@@ -73,7 +85,8 @@ def fused_qkv_append_ref(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
     """Plain version of :func:`fused_qkv_append` (pools in place)."""
     if x.is_cuda:
         fused_qkv_append_ref.cuda_calls += 1
-    _check(x, pool_k, tables, cache_ks, cache_vs, kv_layer, layer)
+    quant = _check(x, pool_k, pool_v, tables, cache_ks, cache_vs, kv_layer,
+                   layer)
     n, kvn, d = _heads(wq, pool_k, n_heads, kv_heads)
     b = x.shape[0]
     xf = x.float()
@@ -93,6 +106,11 @@ def fused_qkv_append_ref(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
     q = rope(qkv[:, :n * d].reshape(b, n, d))
     k = rope(qkv[:, n * d:(n + kvn) * d].reshape(b, kvn, d))
     v = qkv[:, (n + kvn) * d:].reshape(b, kvn, d)
+    if quant:
+        paged_append_decode_quant_ref(pool_k, pool_v, cache_ks, cache_vs,
+                                      k.to(x.dtype), v.to(x.dtype), tables,
+                                      offsets, layer)
+        return q.to(x.dtype), pool_k, pool_v, cache_ks, cache_vs
     paged_append_decode_ref(pool_k, pool_v, k, v, tables, offsets, layer)
     return q.to(x.dtype), pool_k, pool_v
 
@@ -110,14 +128,60 @@ def fused_qkv_append(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
     [L, 1, (N + 2 kvN) D] f32; sin/cos: [B, D/2]; pool_k/v: [L, P+1, kvN,
     ps, D]; layer: int; offsets: [B] write positions; tables: [B, MP].
     Returns (q [B, N, D] rotated, in x's dtype; pool_k; pool_v), the new
-    k/v rows already written in place."""
+    k/v rows already written in place. With the scale pools
+    ``cache_ks``/``cache_vs`` [L, P+1, kvN, ps] f32 of int8 pools, k/v
+    are quantized into them and (q, pool_k, pool_v, cache_ks, cache_vs)
+    come back."""
+    quant = _check(x, pool_k, pool_v, tables, cache_ks, cache_vs, kv_layer,
+                   layer)
     if not x.is_cuda:
         return fused_qkv_append_ref(x, norm_w, wq, ws, sin, cos, pool_k,
                                     pool_v, layer, offsets, n_heads,
                                     kv_heads, eps, tables, cache_ks,
                                     cache_vs, kv_layer)
-    _check(x, pool_k, tables, cache_ks, cache_vs, kv_layer, layer)
+    if quant:
+        return fused_qkv_append_int8kv(x, norm_w, wq, ws, sin, cos, pool_k,
+                                       pool_v, cache_ks, cache_vs, layer,
+                                       offsets, n_heads, kv_heads, eps,
+                                       tables)
     _check_pools(pool_k, pool_v, x, layer)
+    q = _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, None, None,
+                layer, offsets, n_heads, kv_heads, eps, tables,
+                "fused_qkv_append")
+    fused_qkv_append.launches += 1
+    return q, pool_k, pool_v
+
+
+fused_qkv_append.launches = 0
+
+
+def fused_qkv_append_int8kv(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
+                            cache_ks, cache_vs, layer: int, offsets,
+                            n_heads: int | None = None,
+                            kv_heads: int | None = None, eps: float = 1e-5,
+                            tables=None):
+    """The quantizing form of :func:`fused_qkv_append` (INT8 KV): int8
+    pools with their f32 scale pools. Returns (q, pool_k, pool_v,
+    cache_ks, cache_vs)."""
+    if not x.is_cuda:
+        return fused_qkv_append_ref(x, norm_w, wq, ws, sin, cos, pool_k,
+                                    pool_v, layer, offsets, n_heads,
+                                    kv_heads, eps, tables, cache_ks,
+                                    cache_vs)
+    _check(x, pool_k, pool_v, tables, cache_ks, cache_vs, None, layer)
+    _check_quant_pools(pool_k, pool_v, cache_ks, cache_vs, x, layer)
+    q = _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, cache_ks,
+                cache_vs, layer, offsets, n_heads, kv_heads, eps, tables,
+                "fused_qkv_append_int8kv")
+    fused_qkv_append_int8kv.launches += 1
+    return q, pool_k, pool_v, cache_ks, cache_vs
+
+
+fused_qkv_append_int8kv.launches = 0
+
+
+def _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, cache_ks, cache_vs,
+            layer, offsets, n_heads, kv_heads, eps, tables, what):
     n, kvn, d = _heads(wq, pool_k, n_heads, kv_heads)
     b, h = x.shape
     n_layers, p1, _, ps, _ = pool_k.shape
@@ -132,7 +196,7 @@ def fused_qkv_append(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
                          "with [L, 1, Nq] scales")
     out = torch.empty((b, n, d), dtype=x.dtype, device=x.device)
     if b == 0:
-        return out, pool_k, pool_v
+        return out
     xc = x if x.stride(-1) == 1 else x.contiguous()
     nw = norm_w[layer].reshape(-1).contiguous()
     if nw.dtype not in (torch.float32, torch.bfloat16) or nw.numel() != h:
@@ -151,17 +215,15 @@ def fused_qkv_append(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
         xc.data_ptr(), xc.stride(0), nw.data_ptr(),
         int(nw.dtype == torch.bfloat16), wl.data_ptr(), sl.data_ptr(),
         sin.data_ptr(), cos.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+        0 if cache_ks is None else cache_ks.data_ptr(),
+        0 if cache_vs is None else cache_vs.data_ptr(),
         int(pool_k.dtype == torch.bfloat16), out.data_ptr(),
         tables.data_ptr(), offsets.data_ptr(), layer, p1, kvn, ps,
         tables.shape[1], b, h, n, d, float(eps),
         cuda_build.dtype_code(x.dtype), vec,
         torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(lib, rc, "fused_qkv_append")
-    fused_qkv_append.launches += 1
-    return out, pool_k, pool_v
-
-
-fused_qkv_append.launches = 0
+    cuda_build.check(lib, rc, what)
+    return out
 
 
 def fused_qkv_available(lw, cfg, b: int, s: int, cache_k,

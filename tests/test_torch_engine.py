@@ -210,7 +210,7 @@ def test_sampled_requests_are_seeded_and_finish(model):
     (dict(spec_tokens=2), "speculative decoding"),
     (dict(top_logprobs=2), "top_logprobs"),
     (dict(mesh_shape={"model": 2}), "tensor-parallel"),
-    (dict(kv=KVCacheConfig(kv_dtype="int8")), "int8 KV"),
+    (dict(kv=KVCacheConfig(kv_dtype="fp8")), "FP8 KV"),
 ])
 def test_unsupported_engine_features_raise(model, kw, feature):
     _jcfg, _jp, cfg, tp = model

@@ -187,7 +187,6 @@ def test_fused_qkv_append_unported_forms_raise():
     with pytest.raises(NotImplementedError, match="dense KV arena"):
         tqkv.fused_qkv_append(**base)
     with pytest.raises(NotImplementedError, match="INT8 KV"):
-        tqkv.fused_qkv_append(**base, tables=tables, cache_ks=pools,
-                              cache_vs=pools)
+        tqkv.fused_qkv_append(**base, tables=tables, cache_ks=pools[..., 0])
     with pytest.raises(NotImplementedError, match="kv_layer"):
         tqkv.fused_qkv_append(**base, tables=tables, kv_layer=0)

@@ -390,3 +390,200 @@ def test_int8_engine_card_matches_cpu(cuda):
     outs = [Engine(cfg, p, ecfg, decode_burst=4, device=dev).generate(
         prompts, s) for p, dev in ((p_cpu, "cpu"), (p_gpu, cuda))]
     assert outs[0] == outs[1]
+
+
+# ------------------------------------------------------------- INT8 KV
+# Kernels 9 and 10 are byte-equal to their plain versions; the INT8-KV
+# attention forms are held at the attention tolerances; the quantizing
+# fused qkv at codes at most 1 apart and scales within one bf16 ulp of
+# the absmax (bf16) or 1e-5 relative (f32).
+
+def _quant_pools(g, dev, b=3, kvn=4, ps=128, d=64, mp=2):
+    """INT8 pools as the Engine fills them: N(0, 1) rows (as _pools draws)
+    quantized per (token, head) by the plain quantize_kv."""
+    shape = (2, b * mp + 1, kvn, ps, d)
+    qk, sk = pa.quantize_kv(torch.randn(shape, generator=g, device=dev))
+    qv, sv = pa.quantize_kv(torch.randn(shape, generator=g, device=dev))
+    return qk, qv, sk, sv
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [128, 100, 1])
+def test_paged_append_prefill_quant(cuda, dtype, s):
+    g = torch.Generator(device=cuda).manual_seed(s)
+    pools = _quant_pools(g, cuda)
+    big = torch.randn((3, s, 3 * 4 * 64), generator=g, device=cuda,
+                      dtype=dtype) * 3
+    nk = big[..., :256].reshape(3, s, 4, 64)
+    nv = big[..., 512:].reshape(3, s, 4, 64)      # strided views
+    a, r = [p.clone() for p in pools], [p.clone() for p in pools]
+    before = pa.paged_append_prefill_quant.launches
+    pa.paged_append_prefill_quant(*a, nk, nv, _tables(cuda), 1)
+    assert pa.paged_append_prefill_quant.launches == before + 1
+    pa.paged_append_prefill_quant_ref(*r, nk, nv, _tables(cuda), 1)
+    for x, y in zip(a, r):
+        assert torch.equal(x[:, :-1], y[:, :-1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_append_decode_quant(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    pools = _quant_pools(g, cuda)
+    nk = torch.randn((3, 4, 64), generator=g, device=cuda, dtype=dtype)
+    nv = torch.randn((3, 4, 64), generator=g, device=cuda, dtype=dtype)
+    pos = torch.tensor([130, 7, 3], dtype=torch.int32, device=cuda)
+    a, r = [p.clone() for p in pools], [p.clone() for p in pools]
+    before = pa.paged_append_decode_quant.launches
+    pa.paged_append_decode_quant(*a, nk, nv, _tables(cuda), pos, 0)
+    assert pa.paged_append_decode_quant.launches == before + 1
+    pa.paged_append_decode_quant_ref(*r, nk, nv, _tables(cuda), pos, 0)
+    for x, y in zip(a, r):
+        assert torch.equal(x[:, :-1], y[:, :-1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,kvn,d", [(32, 32, 128), (32, 4, 64)])
+def test_paged_flash_decode_int8kv(cuda, dtype, n, kvn, d):
+    g = torch.Generator(device=cuda).manual_seed(n + kvn)
+    lens = [1, 128, 129, 200, 0, 57]
+    b, ps, mp = len(lens), 128, 2
+    pk, pv, ks, vs = _quant_pools(g, cuda, b=b, kvn=kvn, ps=ps, d=d, mp=mp)
+    q = torch.randn((b, n, d), generator=g, device=cuda, dtype=dtype)
+    tables = torch.randperm(b * mp, generator=g, device=cuda).to(
+        torch.int32).reshape(b, mp)
+    tables[-1] = -1
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = (pd.paged_flash_decode.launches,
+              pd.paged_flash_decode_int8kv.launches)
+    got = pd.paged_flash_decode(q, pk, pv, tables, kv, 1, k_scale=ks,
+                                v_scale=vs)
+    assert (pd.paged_flash_decode.launches,
+            pd.paged_flash_decode_int8kv.launches) == (before[0],
+                                                        before[1] + 1)
+    want = pd.paged_flash_decode_ref(q, pk, pv, tables, kv, 1, k_scale=ks,
+                                     v_scale=vs)
+    assert got.dtype == dtype
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
+    assert not got[4].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s,n,kvn,d,ps", [(64, 32, 32, 128, 128),
+                                          (100, 32, 4, 64, 16)])
+def test_paged_flash_prefill_int8kv(cuda, dtype, s, n, kvn, d, ps):
+    g = torch.Generator(device=cuda).manual_seed(s + n)
+    b, mp = 4, 48 * 8 // ps
+    pk, pv, ks, vs = _quant_pools(g, cuda, b=b, kvn=kvn, ps=ps, d=d, mp=mp)
+    q = torch.randn((b, s, n, d), generator=g, device=cuda, dtype=dtype)
+    tables = torch.randperm(b * mp, generator=g, device=cuda).to(
+        torch.int32).reshape(b, mp)
+    offs = torch.tensor([0, 2 * ps, ps, 0], dtype=torch.int32, device=cuda)
+    kv = offs + torch.tensor([s, max(s - 7, 1), s, 1], dtype=torch.int32,
+                             device=cuda)
+    tables[2, 0] = -1
+    tables[3] = -1
+    before = pp.paged_flash_prefill_int8kv.launches
+    got = pp.paged_flash_prefill(q, pk, pv, tables, kv, offs, 1, k_scale=ks,
+                                 v_scale=vs)
+    assert pp.paged_flash_prefill_int8kv.launches == before + 1
+    want = pp.paged_flash_prefill_ref(q, pk, pv, tables, kv, offs, 1,
+                                      k_scale=ks, v_scale=vs)
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("xdt", DTYPES)
+@pytest.mark.parametrize("n,kvn,d", [(8, 2, 64), (4, 4, 128), (8, 4, 32)])
+def test_fused_qkv_append_int8kv(cuda, xdt, n, kvn, d):
+    g = torch.Generator(device=cuda).manual_seed(n * kvn + d)
+    L, h, ps = 2, 512, 16
+    pos = torch.tensor([5, 20, 40], dtype=torch.int32, device=cuda)
+    tables = torch.tensor([[3, 7, 1], [0, 5, 8], [2, 4, -1]],
+                          dtype=torch.int32, device=cuda)
+    nq = (n + 2 * kvn) * d
+    wq, ws = _qw(g, cuda, (L, h, nq), 1)
+    nw = torch.rand((L, h), generator=g, device=cuda).to(xdt) + 0.5
+    x = torch.randn((3, h), generator=g, device=cuda).to(xdt)
+    sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
+    pools = _quant_pools(g, cuda, b=3, kvn=kvn, ps=ps, d=d, mp=3)
+    a, r = [p.clone() for p in pools], [p.clone() for p in pools]
+    before = (qf.fused_qkv_append.launches,
+              qf.fused_qkv_append_int8kv.launches)
+    qa, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, a[0], a[1], 1, pos,
+                                 n_heads=n, kv_heads=kvn, tables=tables,
+                                 cache_ks=a[2], cache_vs=a[3])
+    assert (qf.fused_qkv_append.launches,
+            qf.fused_qkv_append_int8kv.launches) == (before[0],
+                                                      before[1] + 1)
+    qr, *_ = qf.fused_qkv_append_ref(x, nw, wq, ws, sin, cos, r[0], r[1], 1,
+                                     pos, n_heads=n, kv_heads=kvn,
+                                     tables=tables, cache_ks=r[2],
+                                     cache_vs=r[3])
+    tol = 1e-5 if xdt == torch.float32 else 2e-2
+    assert float((qa.float() - qr.float()).abs().max()) <= tol * float(
+        qr.float().std())
+    written = torch.zeros(pools[2].shape, dtype=torch.bool, device=cuda)
+    for i, p in enumerate(pos.tolist()):
+        page = int(tables[i, p // ps])
+        written[1, page if page >= 0 else pools[2].shape[1] - 1, :,
+                p % ps] = True
+    for x_a, x_r in zip(a[:2], r[:2]):
+        assert torch.equal(x_a[~written], x_r[~written])
+        assert int((x_a[written].int() - x_r[written].int()).abs().max()) <= 1
+    for s_a, s_r in zip(a[2:], r[2:]):
+        assert torch.equal(s_a[~written], s_r[~written])
+        if xdt == torch.float32:
+            lim = 1e-5 * s_r[written]
+        else:
+            lim = _bf16_ulp(s_r[written] * 127.0) / 127.0 * (1 + 1e-6)
+        assert bool(((s_a[written] - s_r[written]).abs() <= lim).all())
+
+
+def test_int8kv_engine_runs_the_kernels_only(cuda):
+    # kv_dtype="int8" on both weight paths, with the prefix cache and
+    # chunked prefill: every INT8-KV form launches, no plain version runs
+    cfg = ModelConfig.tiny_test(num_layers=2)
+    refs = (pa.paged_append_decode_quant_ref,
+            pa.paged_append_prefill_quant_ref, fp.flash_prefill_ref,
+            pd.paged_flash_decode_ref, pp.paged_flash_prefill_ref,
+            mm.quantized_matmul_ref, qf.fused_qkv_append_ref,
+            ff.fused_ffn_ref)
+    calls = [f.cuda_calls for f in refs]
+    ecfg = EngineConfig(max_batch_size=4, prefill_chunk=16,
+                        kv=KVCacheConfig(page_size=8, num_pages=64,
+                                         max_pages_per_seq=8,
+                                         kv_dtype="int8"))
+    system = list(range(3, 35))
+    waves = [[[1, 2, 3]], [system + [40]],
+             [system + [41, 42], system + [43] * 9]]
+    for params, kerns in (
+            (llama.init_params(cfg, seed=0, device=cuda),
+             (pa.paged_append_decode_quant, pd.paged_flash_decode_int8kv,
+              pa.paged_append_prefill_quant, pp.paged_flash_prefill_int8kv)),
+            (_int8_params(cfg, 0, cuda),
+             (qf.fused_qkv_append_int8kv, pd.paged_flash_decode_int8kv,
+              pa.paged_append_prefill_quant))):
+        launches = [f.launches for f in kerns]
+        eng = Engine(cfg, params, ecfg, decode_burst=4)
+        assert eng.cache.k.dtype == torch.int8
+        outs = [eng.generate(w, SamplingParams(max_new_tokens=6))
+                for w in waves]
+        assert all(len(o) == 6 for w in outs for o in w)
+        assert all(f.launches > n for f, n in zip(kerns, launches))
+    assert [f.cuda_calls for f in refs] == calls
+
+
+def test_int8kv_engine_card_matches_cpu(cuda):
+    cfg = ModelConfig.tiny_test(num_layers=2)
+    p_cpu = llama.init_params(cfg, seed=3, device="cpu")
+    ecfg = EngineConfig(max_batch_size=3, prefill_chunk=16,
+                        kv=KVCacheConfig(page_size=8, num_pages=64,
+                                         max_pages_per_seq=8,
+                                         kv_dtype="int8"))
+    system = list(range(5, 29))
+    prompts = [system + [1, 2, 3], system + [9, 8, 7, 6], list(range(20, 40))]
+    s = SamplingParams(max_new_tokens=8)
+    for p in (p_cpu, _int8_params(cfg, 3, "cpu")):
+        outs = [Engine(cfg, pp_, ecfg, decode_burst=4, device=dev).generate(
+            prompts, s) for pp_, dev in ((p, "cpu"), (_to(p, cuda), cuda))]
+        assert outs[0] == outs[1]

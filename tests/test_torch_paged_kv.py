@@ -112,14 +112,16 @@ def test_cache_create_layout_and_unsupported():
     assert c.k.shape == (2, 6, 3, 8, 16) and c.v.shape == c.k.shape
     assert c.page_size == 8 and c.num_pages == 6 and not c.k.any()
     assert tpkv.kv_storage_dtype("bf16") == torch.bfloat16
-    with pytest.raises(NotImplementedError):
-        tpkv.PagedKVCache.create(2, 5, 3, 8, 16, torch.int8, device="cpu")
+    with pytest.raises(NotImplementedError, match="FP8"):
+        tpkv.PagedKVCache.create(2, 5, 3, 8, 16, torch.float8_e4m3fn,
+                                 device="cpu")
     with pytest.raises(NotImplementedError):
         tpkv.PagedKVCache.create(2, 5, 3, 8, 16, shared_kv=True,
                                  device="cpu")
-    with pytest.raises(NotImplementedError):
-        tpkv.write_decode_stacked(c.k, c.v, None, None, None, None, 0,
-                                  pool_ks=c.k)
+    q = tpkv.PagedKVCache.create(2, 5, 3, 8, 16, torch.int8, device="cpu")
+    with pytest.raises(NotImplementedError, match="no V scale pool"):
+        tpkv.write_decode_stacked(q.k, q.v, None, None, None, None, 0,
+                                  pool_ks=q.k_scale)
 
 
 def test_cache_defaults_to_cuda():

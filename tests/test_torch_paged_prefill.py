@@ -124,7 +124,7 @@ def test_plain_matches_jax_dispatch_any_sq(s, offs, lens):
     (dict(window=16), "sliding-window"),
     (dict(logit_cap=30.0), "soft cap"),
     (dict(sinks=torch.zeros(4)), "sinks"),
-    (dict(k_scale=torch.ones(1), v_scale=torch.ones(1)), "INT8 KV"),
+    (dict(k_scale=torch.ones(1)), "INT8 KV"),     # no V scale pool
 ])
 def test_unported_options_raise(kw, feature):
     rng = np.random.default_rng(0)
