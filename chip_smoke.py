@@ -25,7 +25,12 @@ Phases, in order; any failure exits non-zero:
                 shapes as their bf16 forms (int8 pools, f32 scale pools),
                 and the quantizing fused_qkv_append (codes at most 1
                 apart, scales within one bf16 ulp of the absmax or 1e-5
-                relative in f32); max |error| beside its
+                relative in f32); then speculative decoding:
+                paged_append_span byte-equal (8 x 5 rows at 7B, 8 rows at
+                GQA f32, a span across a page, a dead row) and
+                paged_flash_verify and its INT8-KV form at S in {1, 2, 5,
+                8}, GQA (N=32, kvN=8) and not, f32 and bf16, timed at the
+                spec paths' 8 x 5-row call; max |error| beside its
                 tolerance, kernel / plain / library times from CUDA-graph
                 replay, and the bound (the least time for the bytes and
                 operations of the call on an H100 SXM: 3.35 TB/s,
@@ -55,6 +60,15 @@ Phases, in order; any failure exits non-zero:
                 pools filled from a seed, beside their bytes floors; and
                 `int8kv_prefix` (the server CLI's --kv-dtype int8: bf16
                 weights, the prefix cache on; the prefix path's traffic).
+                Then speculation: `spec` (the server CLI's --spec-tokens 4:
+                bf16 weights and KV, the prefix cache on, burst 4) and
+                `spec_int8kv` (bench.py --kv-dtype int8 with spec_tokens
+                4): 8 greedy requests of 128-token prompts, half of them a
+                repeated 16-token pattern, 64 new tokens; exact launch
+                counts (no single-row decode kernel runs), the acceptance
+                rate, decode tok/s with and without speculation, and (bf16
+                KV) a graph-replayed verify step (S = 5) beside a decode
+                step at context 152.
   5. cpu      — the same port at Llama-2-7B width, 2 layers, f32, TF32 off,
                 on the card (kernels) and on the host CPU (plain
                 versions), from one numpy draw of the weights, 4 requests,
@@ -66,7 +80,12 @@ Phases, in order; any failure exits non-zero:
                 small size with the float weights, its greedy tokens equal
                 on both devices and to the cache-off trace by the same
                 rule. Each of these again over INT8 KV pools (the prefix
-                traffic with the float weights).
+                traffic with the float weights). And the spec Engine
+                (spec_tokens 4) on both devices, float weights over f32 KV
+                and INT8 weights over INT8 KV: greedy tokens equal card vs
+                CPU, to the same Engine with spec_tokens=0 and to the
+                CPU's greedy trace, by the same rule, and equal
+                speculative metrics.
 
 Then one line ``{"kernels": [...]}`` and, last, the result line
 ``{"ok": true, "device": {...}}``; both only when every phase ran
@@ -104,6 +123,7 @@ LOGIT_TOL = 1e-3
 # rows of codes)
 LOGIT_TOL_CODE_APART = 1e-2
 RATE_RUNS = 5                       # engine runs per length for the rate
+SPEC_RATE_RUNS = 3                  # the same, per engine on the spec paths
 PHASES = ("device", "build", "kernels", "engine", "cpu")
 
 KERNELS = {
@@ -147,13 +167,27 @@ KERNELS = {
     "paged_flash_prefill_int8kv": dict(
         source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
         replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    # speculative decoding: kernel 11 and the verify form of kernel 4
+    # (S rows per sequence; 4vq over INT8 KV)
+    "paged_append_span": dict(
+        source="simplellminference_tpu_torch/csrc/paged_append.cu",
+        replaces="simplellminference_tpu/ops/paged_append.py:392"),
+    "paged_flash_verify": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    "paged_flash_verify_int8kv": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
 }
 # the Engine's paths, in order: bench.py's weight paths (prefix cache
 # off), then the server's default configuration (prefix cache on,
 # chunked prefill) with INT8 weights, then INT8 KV: bench.py
 # --kv-dtype int8 (INT8 weights) and the server CLI's --kv-dtype int8
-# (bf16 weights, the prefix cache on)
-PATHS = ("int8", "bf16", "prefix", "int8kv", "int8kv_prefix")
+# (bf16 weights, the prefix cache on); then prompt-lookup speculation:
+# the server CLI's --spec-tokens 4 (bf16 weights and KV, the prefix cache
+# on) and bench.py --kv-dtype int8 with spec_tokens=4
+PATHS = ("int8", "bf16", "prefix", "int8kv", "int8kv_prefix", "spec",
+         "spec_int8kv")
 
 
 class SmokeFailure(Exception):
@@ -488,20 +522,24 @@ def check_quantized_matmul(torch, dev, results, extra):
         quantized_matmul, quantized_matmul_ref)
     gen = torch.Generator(device=dev).manual_seed(5)
     bf, f32 = torch.bfloat16, torch.float32
-    # tag: (m, k, n, scale groups, x dtype, out dtype); the first three
-    # are the 7B main path's calls (wo and the LM head per decode step,
-    # wqkv at the 8 x 128-token prefill), timed; the first is the row
+    # tag: (m, k, n, scale groups, x dtype, out dtype); the first six
+    # are the 7B main paths' calls (wo and the LM head per decode step,
+    # wqkv at the 8 x 128-token prefill, wqkv, wo and the LM head of a
+    # spec_int8kv verify step at 8 x 5 rows), timed; the first is the row
     cases = {
         "llama2-7b wo decode": (8, 4096, 4096, 1, bf, bf),
         "llama2-7b lm_head decode": (8, 4096, 32000, 1, bf, f32),
         "llama2-7b wqkv prefill": (1024, 4096, 12288, 1, bf, bf),
+        "llama2-7b wqkv verify": (40, 4096, 12288, 1, bf, bf),
+        "llama2-7b wo verify": (40, 4096, 4096, 1, bf, bf),
+        "llama2-7b lm_head verify": (40, 4096, 32000, 1, bf, f32),
         "llama2-7b wo group128": (8, 4096, 4096, 32, bf, bf),
         "tinyllama wqkv decode f32": (8, 2048, 2560, 1, f32, f32),
         "tinyllama w_down prefill": (512, 5632, 2048, 1, bf, bf),
         "k4000 decode f32": (8, 4000, 4096, 1, f32, f32),
         "k1000 prefill group125": (100, 1000, 2048, 8, bf, f32),
     }
-    timed = list(cases)[:3]
+    timed = list(cases)[:6]
     for tag, (m, k, n, groups, xdt, odt) in cases.items():
         q, s = _qweight(torch, gen, dev, (2, k, n), groups)
         x = torch.randn((m, k), generator=gen, device=dev).to(xdt)
@@ -642,7 +680,10 @@ def check_fused_ffn(torch, dev, results, extra):
                                                             fused_ffn_ref)
     gen = torch.Generator(device=dev).manual_seed(7)
     bf, f32 = torch.bfloat16, torch.float32
+    # the first is the decode row; the second a spec_int8kv verify step's
+    # 8 x 5 rows, timed too
     cases = {"llama2-7b": (8, 4096, 11008, bf),
+             "llama2-7b verify m40": (40, 4096, 11008, bf),
              "tinyllama f32": (3, 2048, 5632, f32),
              "tinyllama m40": (40, 2048, 5632, bf)}
     for tag, (m, h, inter, xdt) in cases.items():
@@ -662,7 +703,7 @@ def check_fused_ffn(torch, dev, results, extra):
               f"(tol {lim:.3e})", flush=True)
         require(bool(torch.isfinite(got).all()) and err <= lim,
                 f"fused_ffn {tag} disagrees: {err}")
-        if "fused_ffn" in results:
+        if not tag.startswith("llama2-7b"):
             continue
         es = x.element_size()
         nbytes = (3 * h * inter + (2 * inter + h) * 4 + 2 * m * h * es
@@ -671,7 +712,7 @@ def check_fused_ffn(torch, dev, results, extra):
         q1t, s1t = _int8pack(torch, q1[layer], s1[layer], xdt)
         q2t, s2t = _int8pack(torch, q2[layer], s2[layer], xdt)
         hx = torch.randn((m, inter), generator=gen, device=dev).to(xdt)
-        results["fused_ffn"] = dict(
+        r = dict(
             max_abs_err=err,
             ms=time_ms(torch, lambda: fused_ffn(x, nw, q1, s1, q2, s2,
                                                 layer)),
@@ -681,6 +722,8 @@ def check_fused_ffn(torch, dev, results, extra):
                 torch._weight_int8pack_mm(x, q1t, s1t),
                 torch._weight_int8pack_mm(hx, q2t, s2t))),
             bound_ms=bms, bound_by=by)
+        extra.append(("fused_ffn", tag, r))
+        results.setdefault("fused_ffn", r)
 
 
 def check_paged_prefill(torch, dev, results, extra):
@@ -1128,6 +1171,164 @@ def check_fused_qkv_int8kv(torch, dev, results, extra):
             bound_ms=bms, bound_by=by)
 
 
+def _span_case(torch, gen, dev, b, t, kvn, d, dtype, pos0, quant=False):
+    """Pools, strided new K/V [B, T, kvN, D], tables and positions of a
+    span write: row 0 crosses a page boundary, the last row is a dead
+    slot (all -1 table), the rest sit at pos0 + 4i."""
+    ps, mp, layer = 128, 3, 1
+    if quant:
+        pools = _quant_pools(torch, gen, dev, 2, b * mp, kvn, ps, d)
+    else:
+        pools = _pools(torch, gen, dev, 2, b * mp, kvn, ps, d, dtype)
+    qkv = torch.randn((b, t, 3 * kvn * d), generator=gen, device=dev,
+                      dtype=dtype)
+    nk = qkv[..., kvn * d:2 * kvn * d].reshape(b, t, kvn, d)
+    nv = qkv[..., 2 * kvn * d:].reshape(b, t, kvn, d)  # strided, like the model
+    tables = _tables(torch, dev, b, mp)
+    pos = (pos0 + 4 * torch.arange(b, device=dev)).to(torch.int32)
+    pos[0] = ps - 2
+    return pools, nk, nv, tables, pos, layer
+
+
+def check_append_span(torch, dev, results):
+    from simplellminference_tpu_torch.ops.paged_append import (
+        paged_append_span, paged_append_span_ref, span_slots)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    main = None
+    # the spec paths' call (8 rows x 5, 7B bf16) first, then a GQA f32
+    # case with the longest span
+    for tag, (b, t, kvn, d, dtype) in {
+            "llama2-7b": (8, 5, 32, 128, torch.bfloat16),
+            "gqa f32 span 8": (8, 8, 8, 128, torch.float32),
+            "tinyllama span 2": (5, 2, 4, 64, torch.bfloat16)}.items():
+        (pk, pv), nk, nv, tables, pos, layer = _span_case(
+            torch, gen, dev, b, t, kvn, d, dtype, 150)
+        ka, va, kb, vb = pk.clone(), pv.clone(), pk.clone(), pv.clone()
+        paged_append_span(ka, va, nk, nv, tables, pos, layer)
+        paged_append_span_ref(kb, vb, nk, nv, tables, pos, layer)
+        torch.cuda.synchronize()
+        err = max(max_err(ka[:, :-1], kb[:, :-1]),
+                  max_err(va[:, :-1], vb[:, :-1]))
+        print(f"[kernels] paged_append_span {tag} (B={b} T={t} kvN={kvn} "
+              f"D={d}; a span across a page, a dead row): max|err| {err} "
+              f"(tol 0, exact; trash page excluded)", flush=True)
+        require(err == 0.0, f"paged_append_span {tag} disagrees: {err}")
+        if main is not None:
+            continue
+        p1, ps = pk.shape[1], pk.shape[3]
+        page, slot = span_slots(tables, pos, t, p1, ps)
+        heads = torch.arange(kvn, device=dev)
+        flat = ((page[:, :, None] * kvn + heads) * ps
+                + slot[:, :, None]).reshape(-1)
+        rows_k = nk.reshape(-1, d)
+        rows_v = nv.reshape(-1, d)
+
+        def library():
+            ka[layer].view(-1, d).index_copy_(0, flat, rows_k)
+            va[layer].view(-1, d).index_copy_(0, flat, rows_v)
+
+        es = pk.element_size()
+        nbytes = (2 * 2 * b * t * kvn * d * es + tables.numel() * 4
+                  + pos.numel() * 4)
+        bms, by = bound_ms(nbytes, 0.0, dname(torch, dtype))
+        main = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: paged_append_span(
+                ka, va, nk, nv, tables, pos, layer)),
+            plain_ms=time_ms(torch, lambda: paged_append_span_ref(
+                kb, vb, nk, nv, tables, pos, layer)),
+            library_ms=time_ms(torch, library),
+            bound_ms=bms, bound_by=by)
+    results["paged_append_span"] = main
+
+
+def _verify_inputs(torch, gen, dev, b, s, n, kvn, d, dtype, lens, quant):
+    ps, mp, layer = 128, 2, 1
+    if quant:
+        pools = _quant_pools(torch, gen, dev, 2, b * mp, kvn, ps, d)
+    else:
+        pools = _pools(torch, gen, dev, 2, b * mp, kvn, ps, d, dtype)
+    q = torch.randn((b, s, n, d), generator=gen, device=dev, dtype=dtype)
+    tables = _tables(torch, dev, b, mp, dead_last=False)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return pools, q, tables, kv_lens, layer
+
+
+def check_paged_verify(torch, dev, results, quant: bool):
+    """Kernel 4v (``quant``: 4vq) against its plain version at S in {1, 2,
+    5, 8}, with GQA (N=32, kvN=8) and without (N=kvN=32), f32 and bf16;
+    timed at the spec paths' call (7B, 8 sequences x 5 rows, kv_len
+    ~152)."""
+    from simplellminference_tpu_torch.ops.attention.paged_decode import (
+        paged_flash_verify, paged_flash_verify_int8kv, paged_flash_verify_ref)
+    name = "paged_flash_verify" + ("_int8kv" if quant else "")
+    kern = paged_flash_verify_int8kv if quant else paged_flash_verify
+    gen = torch.Generator(device=dev).manual_seed(17 + quant)
+    main = None
+    cases = [("llama2-7b", 5, 32, 32, torch.bfloat16)]
+    cases += [(f"{'gqa' if kvn < n else 'mha'} S={s} {dname(torch, dt)}", s,
+               n, kvn, dt)
+              for s in (1, 2, 5, 8) for n, kvn in ((32, 8), (32, 32))
+              for dt in (torch.float32, torch.bfloat16)]
+    for tag, s, n, kvn, dtype in cases:
+        b, d = 8, 128
+        # 7B: the spec paths' contexts; the rest also cross a page and
+        # hold a row with no keys at all (kv_len 0)
+        lens = ([147 + 2 * i for i in range(b)] if main is None
+                else [s, 128, 129, 200, 0, 57 + s, 255, 130])
+        (pk, pv, *sc), q, tables, kv_lens, layer = _verify_inputs(
+            torch, gen, dev, b, s, n, kvn, d, dtype, lens, quant)
+        scales = dict(k_scale=sc[0], v_scale=sc[1]) if quant else {}
+        args = (q, pk, pv) + ((sc[0], sc[1]) if quant else ())
+        got = kern(*args, tables, kv_lens, layer)
+        want = paged_flash_verify_ref(q, pk, pv, tables, kv_lens, layer,
+                                      **scales)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        tol = TOL[dname(torch, dtype)]
+        print(f"[kernels] {name} {tag}: max|err| {err:.3e} (tol {tol:g})",
+              flush=True)
+        require(bool(torch.isfinite(got).all()) and err <= tol,
+                f"{name} {tag} disagrees: {err}")
+        if main is not None:
+            continue
+        # what these inputs need: row s of sequence i attends its keys at
+        # positions <= kv_len - S + s; each sequence's K/V rows once
+        keys = sum(max(0, ln - s + 1 + r) for ln in lens for r in range(s))
+        es = q.element_size()
+        per_key = 2 * (d + 4) if quant else 2 * d * pk.element_size()
+        nbytes = (2 * b * s * n * d * es + sum(lens) * kvn * per_key
+                  + tables.numel() * 4 + b * 4)
+        bms, by = bound_ms(nbytes, 4.0 * n * d * keys, dname(torch, dtype))
+        key_pos = torch.arange(tables.shape[1] * pk.shape[3], device=dev)
+        q_pos = (kv_lens.long()[:, None] - s
+                 + torch.arange(s, device=dev)[None])
+        mask = (key_pos[None, None, None, :] <= q_pos[:, None, :, None])
+        qt = q.transpose(1, 2)
+        if quant:
+            def library():
+                return _dequant_sdpa(torch, qt, pk, pv, sc[0], sc[1], tables,
+                                     layer, mask)
+        else:
+            import torch.nn.functional as F
+
+            from simplellminference_tpu_torch.memory.paged_kv import (
+                gather_dense)
+            ck, cv = gather_dense(pk[layer], pv[layer], tables)
+
+            def library():
+                return F.scaled_dot_product_attention(qt, ck, cv,
+                                                      attn_mask=mask)
+        main = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: kern(*args, tables, kv_lens, layer)),
+            plain_ms=time_ms(torch, lambda: paged_flash_verify_ref(
+                q, pk, pv, tables, kv_lens, layer, **scales)),
+            library_ms=time_ms(torch, library),
+            bound_ms=bms, bound_by=by)
+    results[name] = main
+
+
 LIBRARY = {"paged_append_decode": "index_put_ x2",
            "paged_append_prefill": "index_copy_ x2",
            "flash_prefill": "scaled_dot_product_attention, causal",
@@ -1150,7 +1351,13 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
            "paged_flash_prefill_int8kv": "gather + f32 dequant + "
                                          "scaled_dot_product_attention, "
                                          "offset-causal mask (dequant "
-                                         "included)"}
+                                         "included)",
+           "paged_append_span": "index_copy_ x2 (flattened rows)",
+           "paged_flash_verify": "scaled_dot_product_attention on gathered "
+                                 "K/V, verify mask",
+           "paged_flash_verify_int8kv": "gather + f32 dequant + "
+                                        "scaled_dot_product_attention, "
+                                        "verify mask (dequant included)"}
 
 
 def phase_kernels(torch, results):
@@ -1169,6 +1376,9 @@ def phase_kernels(torch, results):
     check_paged_decode_int8kv(torch, dev, results)
     check_fused_qkv_int8kv(torch, dev, results, extra)
     check_paged_prefill_int8kv(torch, dev, results, extra)
+    check_append_span(torch, dev, results)
+    check_paged_verify(torch, dev, results, quant=False)
+    check_paged_verify(torch, dev, results, quant=True)
     torch.cuda.empty_cache()
     rows = [(name, "main path shape", r) for name, r in results.items()]
     rows += [(name, tag, r) for name, tag, r in extra]
@@ -1212,7 +1422,13 @@ def _wrappers():
             "fused_qkv_append_int8kv": (qf.fused_qkv_append_int8kv,
                                         qf.fused_qkv_append_ref),
             "paged_flash_prefill_int8kv": (pp.paged_flash_prefill_int8kv,
-                                           pp.paged_flash_prefill_ref)}
+                                           pp.paged_flash_prefill_ref),
+            "paged_append_span": (pa.paged_append_span,
+                                  pa.paged_append_span_ref),
+            "paged_flash_verify": (pd.paged_flash_verify,
+                                   pd.paged_flash_verify_ref),
+            "paged_flash_verify_int8kv": (pd.paged_flash_verify_int8kv,
+                                          pd.paged_flash_verify_ref)}
 
 
 def reset_counts():
@@ -1599,11 +1815,165 @@ def serve_prefix(torch, path: str, cfg, params, launches: dict, int8: bool,
     del eng, off
 
 
+def spec_launches(int8: bool, layers: int, steps: int, int8kv: bool) -> dict:
+    """Launches of a speculative path's run: one whole-prompt prefill
+    dispatch of 8 x 128 rows (:func:`path_launches`), then ``steps``
+    verify forwards, each per layer a span write (an eager quantize and
+    indexed write over INT8 KV: no kernel) and a verify attention, with
+    INT8 weights at M = 8 x 5 = 40 rows: quantized_matmul for wqkv and wo
+    and fused_ffn per layer, plus the LM head. No single-row decode kernel
+    runs: every step is a verify window."""
+    want = path_launches(int8, layers, [("flash_prefill", 8 * 128)], 0,
+                         int8kv=int8kv)
+    want["paged_flash_verify" + ("_int8kv" if int8kv else "")] += (
+        layers * steps)
+    if not int8kv:
+        want["paged_append_span"] += layers * steps
+    if int8:
+        want["quantized_matmul"] += (2 * layers + 1) * steps
+        want["fused_ffn"] += layers * steps
+    return want
+
+
+def spec_prompts(rng, vocab: int, batch: int, prompt_len: int) -> list:
+    """The spec paths' traffic: half the prompts repeat a 16-token pattern
+    of their own (prompt lookup finds drafts there), half are random."""
+    out = []
+    for i in range(batch):
+        if i % 2 == 0:
+            pat = rng.integers(1, vocab, 16).tolist()
+            out.append((pat * (prompt_len // 16 + 1))[:prompt_len])
+        else:
+            out.append(rng.integers(1, vocab, prompt_len).tolist())
+    return out
+
+
+def spec_engine_config(spec: int, kv_dtype: str, batch: int, cap: int):
+    """The server CLI's engine configuration (cli/serve.py:23-43,
+    :108-118: page 128, 64 pages per sequence, the default prefix cache)
+    with ``--spec-tokens`` and ``--kv-dtype``, the pool cut to the pages
+    this traffic needs (the CLI's 2048 pages of 7B bf16 KV would take
+    137 GB)."""
+    from simplellminference_tpu_torch.core.config import (EngineConfig,
+                                                          KVCacheConfig)
+    ps = 128
+    return EngineConfig(max_batch_size=batch, spec_tokens=spec,
+                        kv=KVCacheConfig(page_size=ps,
+                                         num_pages=batch * -(-cap // ps) + 16,
+                                         max_pages_per_seq=64,
+                                         kv_dtype=kv_dtype))
+
+
+def serve_spec(torch, path: str, cfg, params, launches: dict, int8: bool,
+               kv_dtype: str, dev: str = "cuda"):
+    """Prompt-lookup speculation (spec_tokens 4, burst 4) serving 8 greedy
+    requests of 128-token prompts and 64 new tokens (:func:`spec_prompts`):
+    the measured run with the launch counts reset before and read after
+    it, the acceptance rate, decode tok/s by differencing 64- and
+    32-token runs beside the same engine with spec_tokens=0, and one
+    graph-replayed verify step (S = 5) beside one decode step (S = 1) at
+    context ~152."""
+    import numpy as np
+
+    from simplellminference_tpu_torch.core.config import SamplingParams
+    from simplellminference_tpu_torch.engine import Engine
+    from simplellminference_tpu_torch.models import llama
+
+    layers, g = cfg.num_layers, 4
+    batch, prompt_len, new, burst = 8, 128, 64, 4
+    prompts = spec_prompts(np.random.default_rng(3), cfg.vocab_size, batch,
+                           prompt_len)
+    cap = prompt_len + new + 2 * burst * (g + 1) + 1
+
+    def serve(spec: int, max_new: int):
+        eng = Engine(cfg, params, spec_engine_config(spec, kv_dtype, batch,
+                                                     cap),
+                     decode_burst=burst, device=dev)
+        reqs = [eng.add_request(prompt_ids=p, sampling=SamplingParams(
+            max_new_tokens=max_new)) for p in prompts]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        return eng, reqs, time.perf_counter() - t
+
+    serve(g, new)                       # warm-up at the measured length
+    reset_counts()
+    eng, reqs, wall = serve(g, new)     # the measured run
+    got = read_counts(path)
+    launches[path] = got
+    m = eng.metrics
+    for r in reqs:
+        require(r.state.value == "finished" and len(r.output_ids) == new,
+                f"[{path}] request {r.req_id}: {r.state} with "
+                f"{len(r.output_ids)} tokens")
+        require(all(0 <= t < cfg.vocab_size for t in r.output_ids),
+                f"[{path}] token id out of range")
+    require(m.prefills == batch and m.spec_steps > 0,
+            f"[{path}] metrics {m.summary()}")
+    want = spec_launches(int8, layers, m.decode_bursts * burst,
+                         kv_dtype == "int8")
+    for name, n in want.items():
+        require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
+                f"path implies {n}")
+    accept = m.spec_accepted / m.spec_steps / g
+    outs = [r.output_ids for r in reqs]
+    plain_eng, plain_reqs, plain_wall = serve(0, new)
+    same = sum(a == r.output_ids for a, r in zip(outs, plain_reqs))
+    print(f"[engine:{path}] {batch} requests x {new} tokens, spec_tokens {g}"
+          f", burst {burst}: wall {wall:.3f} s, {m.decode_bursts} bursts x "
+          f"{burst} verify steps; spec_steps {m.spec_steps}, spec_accepted "
+          f"{m.spec_accepted}: acceptance {accept} of the drafts; spec_tokens"
+          f"=0 wall {plain_wall:.3f} s ({plain_eng.metrics.decode_bursts} "
+          f"bursts); greedy outputs equal to spec_tokens=0 in {same} of "
+          f"{batch} (card vs CPU in f32: phase 5)", flush=True)
+    print(f"[engine:{path}] launches {json.dumps(got)}", flush=True)
+    # decode rate by differencing 64- and 32-token runs, interleaved, for
+    # the spec engine and the same engine with spec_tokens=0
+    rates = {}
+    for spec in (g, 0):
+        walls, halves = [], []
+        for _ in range(SPEC_RATE_RUNS):
+            walls.append(serve(spec, new)[2])
+            halves.append(serve(spec, new // 2)[2])
+        wf, wh = statistics.median(walls), statistics.median(halves)
+        require(wf > wh, f"[{path}] spec_tokens={spec} median walls: {new} "
+                f"tokens {wf} s, {new // 2} tokens {wh} s")
+        rates[spec] = batch * (new - new // 2) / (wf - wh)
+        print(f"[engine:{path}] spec_tokens={spec}: decode {rates[spec]} "
+              f"tok/s (median-wall difference); walls {walls} / {halves} s",
+              flush=True)
+    print(f"[engine:{path}] decode tok/s with speculation / without: "
+          f"{rates[g] / rates[0]:.3f}", flush=True)
+    # one verify step (S = 5) and one decode step (S = 1), graph-replayed,
+    # at context ~152 over the run's cache
+    ctx = prompt_len + 24
+    mp = 4
+    tables = torch.arange(batch * mp, dtype=torch.int32,
+                          device=dev).reshape(batch, mp)
+    times = {}
+    for s in (g + 1, 1):
+        tok = torch.ones((batch, s), dtype=torch.int32, device=dev)
+        pos = (ctx - 1 + torch.arange(s, dtype=torch.int32, device=dev)
+               )[None].expand(batch, s).contiguous()
+        kv = pos[:, 0] + s
+        times[s] = time_ms(torch, lambda: llama.forward_paged(
+            cfg, params, tok, pos, eng.cache, tables, kv, prefill=False),
+            iters=5)
+    print(f"[engine:{path}] device step (graph replay) at context {ctx}: "
+          f"verify (S={g + 1}) {times[g + 1]:.3f} ms, decode (S=1) "
+          f"{times[1]:.3f} ms, ratio {times[g + 1] / times[1]:.3f}",
+          flush=True)
+    del eng, plain_eng
+
+
 # path: (INT8 weights, KV dtype, prefix-cache traffic)
 PATH_SETUP = {"int8": (True, "bf16", False), "bf16": (False, "bf16", False),
               "prefix": (True, "bf16", True),
               "int8kv": (True, "int8", False),
-              "int8kv_prefix": (False, "int8", True)}
+              "int8kv_prefix": (False, "int8", True),
+              "spec": (False, "bf16", False),
+              "spec_int8kv": (True, "int8", False)}
 
 
 def phase_engine(torch, launches: dict):
@@ -1622,7 +1992,9 @@ def phase_engine(torch, launches: dict):
         print(f"[engine:{path}] Llama-2-7B width, {cfg.num_layers} layers, "
               f"{'int8' if int8 else 'bf16'} random weights, {kv_dtype} KV, "
               f"in {time.perf_counter() - t0:.1f} s", flush=True)
-        if prefix:
+        if path.startswith("spec"):
+            serve_spec(torch, path, cfg, params, launches, int8, kv_dtype)
+        elif prefix:
             serve_prefix(torch, path, cfg, params, launches, int8, kv_dtype)
         else:
             serve_path(torch, path, cfg, params, launches, int8, kv_dtype)
@@ -1836,6 +2208,82 @@ def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="f32"):
           f"{outs['cpu'] == tok_c.tolist()}", flush=True)
 
 
+def spec_card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, kv_dtype="f32"):
+    """The spec Engine (spec_tokens 4, burst 4) on the card and on the CPU,
+    4 greedy requests (two repeating a pattern, one whose logit_bias
+    forces a token) x 16 tokens: greedy tokens equal on both devices, to
+    the same Engine with spec_tokens=0 on the CPU and (unbiased) to the
+    CPU's greedy trace, except where the trace's top-2 margin is below
+    the tolerance (LOGIT_TOL; LOGIT_TOL_CODE_APART over INT8 KV); where
+    the card's and the CPU's tokens agree, their spec_steps and
+    spec_accepted agree too."""
+    import numpy as np
+
+    from simplellminference_tpu_torch.core.config import (EngineConfig,
+                                                          KVCacheConfig,
+                                                          SamplingParams)
+    from simplellminference_tpu_torch.engine import Engine
+
+    new = 16
+    prompts = spec_prompts(np.random.default_rng(11), cfg.vocab_size, 4, 48)
+    # the last request's logit_bias forces one token, so its history
+    # repeats and its drafts are accepted: the accepted-span bookkeeping
+    # runs on both devices (the unbiased trace is no reference for it)
+    forced = 7
+    samps = [SamplingParams(max_new_tokens=new)] * 3 + [SamplingParams(
+        max_new_tokens=new, logit_bias=((forced, 100.0),))]
+    t0 = time.perf_counter()
+    tok_c, lg_c, _codes = _trace(torch, cfg, p_cpu, prompts, new - 1, "cpu",
+                                 kv_dtype)
+    tol = LOGIT_TOL_CODE_APART if kv_dtype == "int8" else LOGIT_TOL
+
+    def ecfg(spec):
+        return EngineConfig(max_batch_size=4, spec_tokens=spec,
+                            prefix_cache_entries=0,
+                            kv=KVCacheConfig(page_size=16, num_pages=64,
+                                             max_pages_per_seq=8,
+                                             kv_dtype=kv_dtype))
+
+    plain = Engine(cfg, p_cpu, ecfg(0), decode_burst=4,
+                   device="cpu").generate(prompts, samps)
+    require(plain[-1] == [forced] * new,
+            f"[{tag}] spec_tokens=0: biased request {plain[-1]}")
+    outs, metrics = {}, {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        eng = Engine(cfg, params, ecfg(4), decode_burst=4, device=dev)
+        outs[dev] = eng.generate(prompts, samps)
+        metrics[dev] = (eng.metrics.spec_steps, eng.metrics.spec_accepted)
+        require(outs[dev][-1] == [forced] * new and metrics[dev][1] > 0,
+                f"[{tag}] {dev}: biased request {outs[dev][-1]}, spec "
+                f"metrics {metrics[dev]}")
+        require(all(len(o) == new for o in outs[dev]),
+                f"[{tag}] {dev} requests short")
+    for r in range(len(prompts)):
+        _first_divergence(torch, tag, "card and CPU", outs["cuda"][r],
+                          outs["cpu"][r], lg_c, r, tol)
+        for dev in outs:
+            if r == len(prompts) - 1:
+                continue                # biased: no trace to hold it to
+            _first_divergence(torch, tag,
+                              f"{dev} spec engine and greedy trace",
+                              outs[dev][r], tok_c[r].tolist(), lg_c, r, tol)
+            _first_divergence(torch, tag,
+                              f"{dev} spec engine and spec_tokens=0",
+                              outs[dev][r], plain[r], lg_c, r, tol)
+    if outs["cuda"] == outs["cpu"]:
+        require(metrics["cuda"] == metrics["cpu"],
+                f"[{tag}] spec_steps/spec_accepted card {metrics['cuda']}, "
+                f"cpu {metrics['cpu']}")
+    print(f"[cpu:{tag}] Llama-2-7B width, 2 layers, f32, {kv_dtype} KV, "
+          f"spec_tokens 4: {len(prompts)} requests x {new} tokens on card "
+          f"and CPU in {time.perf_counter() - t0:.1f} s; (spec_steps, "
+          f"spec_accepted) card {metrics['cuda']}, cpu {metrics['cpu']}; "
+          f"greedy tokens card == cpu: {outs['cuda'] == outs['cpu']}, "
+          f"== the same engine with spec_tokens=0: "
+          f"{outs['cpu'] == plain}, unbiased ones == the greedy trace: "
+          f"{outs['cpu'][:-1] == tok_c.tolist()[:-1]}", flush=True)
+
+
 def phase_cpu(torch):
     import numpy as np
 
@@ -1874,6 +2322,7 @@ def phase_cpu(torch):
     card_vs_cpu(torch, "bf16-path-int8kv", cfg, p_gpu, p_cpu, prompts,
                 steps=8, kv_dtype="int8")
     prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="int8")
+    spec_card_vs_cpu(torch, "spec", cfg, p_gpu, p_cpu)
     del p_gpu
     # INT8: the same draw quantized by the port (per output channel, INT8
     # LM head), on the CPU, then carried to the card byte for byte
@@ -1884,6 +2333,8 @@ def phase_cpu(torch):
     card_vs_cpu(torch, "int8", cfg, q_gpu, q_cpu, prompts, steps=8)
     card_vs_cpu(torch, "int8-int8kv", cfg, q_gpu, q_cpu, prompts, steps=8,
                 kv_dtype="int8")
+    spec_card_vs_cpu(torch, "spec-int8-int8kv", cfg, q_gpu, q_cpu,
+                     kv_dtype="int8")
 
 
 def main(argv=None) -> int:

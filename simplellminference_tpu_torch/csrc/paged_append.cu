@@ -1,20 +1,26 @@
-// In-place paged KV writes: one decode row per sequence, and whole prompt
-// pages at prefill.
+// In-place paged KV writes: one decode row per sequence, T <= 8 consecutive
+// rows per sequence (a speculative verify span), and whole prompt pages at
+// prefill.
 //
 // Replaces the TPU kernels of simplellminference_tpu/ops/paged_append.py:
 //   paged_append_decode  (_decode_kernel,  paged_append.py:34-113)
 //   paged_append_prefill (_prefill_kernel, paged_append.py:116-189)
+//   paged_append_span    (_span_kernel,    paged_append.py:368-479)
 //
-// Bound on the H100: bytes. Both kernels only copy (decode: 2*B*kvN*D
-// elements; prefill: 2*B*ceil(S/ps)*kvN*ps*D), so the least time is those
-// bytes read once and written once at the card's memory rate.
+// Bound on the H100: bytes. The kernels only copy (decode: 2*B*kvN*D
+// elements; span: 2*B*T*kvN*D; prefill: 2*B*ceil(S/ps)*kvN*ps*D), so the
+// least time is those bytes read once and written once at the card's
+// memory rate.
 //
 // Design against that bound: every thread moves 16-byte vectors (a row of
 // D=128 bf16 is 16 of them), neighbouring threads take neighbouring
 // addresses, and the pools are written in place: nothing else is read or
-// written. The TPU kernel's 8-row read-modify-write window (a Pallas out
-// block always writes back, paged_append.py:18-19) is gone: a CUDA thread
-// stores exactly the row it owns. Unmapped (-1) table entries, and columns
+// written. The TPU kernels' 8-row read-modify-write windows (a Pallas out
+// block always writes back, paged_append.py:18-19; the span kernel's two
+// windows, :404-407, :426-432) are gone: a CUDA block stores exactly the
+// row it owns, so a span that crosses a page boundary needs nothing
+// special (row t finds its own page, tables[b, (pos + t) / ps]). Decode is
+// the span kernel with T = 1. Unmapped (-1) table entries, and columns
 // past the table, still go to the trash page (the pool's last page row),
 // as on the TPU, so the plain version and the kernel agree on every page
 // but that one. Prefill rows past the prompt (the tail of the last page)
@@ -34,18 +40,22 @@ __device__ __forceinline__ unsigned short vzero<unsigned short>() {
   return 0;
 }
 
-// grid (B, kvN); the block copies row (b, h) of new K and new V into
-// pool[layer, page, h, slot, :]. Strides and row_bytes are in bytes.
+// grid (B, T, kvN); the block copies row (b, t, h) of new K and new V into
+// pool[layer, page, h, slot, :] at position positions[b] + t (a negative
+// position goes to slot 0 of the trash page). Strides and row_bytes are in
+// bytes.
 template <typename V>
-__global__ void paged_append_decode_kernel(
+__global__ void paged_append_rows_kernel(
     char* __restrict__ pool_k, char* __restrict__ pool_v,
     const char* __restrict__ new_k, const char* __restrict__ new_v,
-    long long k_bstride, long long v_bstride,
-    const int* __restrict__ tables, const int* __restrict__ positions,
-    int layer, int num_pages1, int kvn, int ps, int row_bytes, int mp) {
+    long long k_bstride, long long k_tstride, long long v_bstride,
+    long long v_tstride, const int* __restrict__ tables,
+    const int* __restrict__ positions, int layer, int num_pages1, int kvn,
+    int ps, int row_bytes, int mp) {
   const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int pos = positions[b];
+  const int t = blockIdx.y;
+  const int h = blockIdx.z;
+  const int pos = positions[b] + t;
   const int col = pos >= 0 ? pos / ps : -1;
   int page = (col >= 0 && col < mp) ? tables[(long long)b * mp + col] : -1;
   if (page < 0) page = num_pages1 - 1;
@@ -53,10 +63,12 @@ __global__ void paged_append_decode_kernel(
   const long long dst =
       ((((long long)layer * num_pages1 + page) * kvn + h) * ps + slot) *
       (long long)row_bytes;
-  const V* sk = reinterpret_cast<const V*>(new_k + (long long)b * k_bstride +
-                                           (long long)h * row_bytes);
-  const V* sv = reinterpret_cast<const V*>(new_v + (long long)b * v_bstride +
-                                           (long long)h * row_bytes);
+  const V* sk = reinterpret_cast<const V*>(
+      new_k + (long long)b * k_bstride + (long long)t * k_tstride +
+      (long long)h * row_bytes);
+  const V* sv = reinterpret_cast<const V*>(
+      new_v + (long long)b * v_bstride + (long long)t * v_tstride +
+      (long long)h * row_bytes);
   V* dk = reinterpret_cast<V*>(pool_k + dst);
   V* dv = reinterpret_cast<V*>(pool_v + dst);
   const int nvec = row_bytes / (int)sizeof(V);
@@ -128,26 +140,29 @@ const char* sli_error_string(int code) {
 }
 
 // vec16: 1 when every row start is 16-byte aligned (row_bytes and the byte
-// strides are multiples of 16), else rows move as 2-byte units.
-int sli_paged_append_decode(void* pool_k, void* pool_v, const void* new_k,
-                            const void* new_v, long long k_bstride,
-                            long long v_bstride, const int* tables,
-                            const int* positions, int layer, int num_pages1,
-                            int kvn, int ps, int row_bytes, int mp, int batch,
-                            int vec16, void* stream) {
-  if (batch <= 0 || kvn <= 0 || row_bytes <= 0) return SLI_ERR_SHAPE;
-  const dim3 grid(batch, kvn);
+// strides are multiples of 16), else rows move as 2-byte units. span: the T
+// rows written per sequence (1 for decode, whose t stride is unused).
+int sli_paged_append_span(void* pool_k, void* pool_v, const void* new_k,
+                          const void* new_v, long long k_bstride,
+                          long long k_tstride, long long v_bstride,
+                          long long v_tstride, const int* tables,
+                          const int* positions, int layer, int num_pages1,
+                          int kvn, int ps, int row_bytes, int mp, int batch,
+                          int span, int vec16, void* stream) {
+  if (batch <= 0 || span <= 0 || kvn <= 0 || row_bytes <= 0)
+    return SLI_ERR_SHAPE;
+  const dim3 grid(batch, span, kvn);
   cudaStream_t st = (cudaStream_t)stream;
   if (vec16) {
-    paged_append_decode_kernel<uint4><<<grid, 64, 0, st>>>(
+    paged_append_rows_kernel<uint4><<<grid, 64, 0, st>>>(
         (char*)pool_k, (char*)pool_v, (const char*)new_k, (const char*)new_v,
-        k_bstride, v_bstride, tables, positions, layer, num_pages1, kvn, ps,
-        row_bytes, mp);
+        k_bstride, k_tstride, v_bstride, v_tstride, tables, positions, layer,
+        num_pages1, kvn, ps, row_bytes, mp);
   } else {
-    paged_append_decode_kernel<unsigned short><<<grid, 64, 0, st>>>(
+    paged_append_rows_kernel<unsigned short><<<grid, 64, 0, st>>>(
         (char*)pool_k, (char*)pool_v, (const char*)new_k, (const char*)new_v,
-        k_bstride, v_bstride, tables, positions, layer, num_pages1, kvn, ps,
-        row_bytes, mp);
+        k_bstride, k_tstride, v_bstride, v_tstride, tables, positions, layer,
+        num_pages1, kvn, ps, row_bytes, mp);
   }
   return (int)cudaGetLastError();
 }

@@ -1,33 +1,44 @@
-// Paged flash-decode attention: one query token per sequence against its
-// KV pages, found through the block table, online softmax.
+// Paged flash-decode attention: one query token per sequence (decode), or a
+// verify window of S <= 8 consecutive query tokens per sequence (speculative
+// decoding), against its KV pages, found through the block table, online
+// softmax.
 //
 // Replaces the TPU kernel of simplellminference_tpu/ops/attention/
-// paged_decode.py: paged_flash_decode (_paged_kernel, paged_decode.py:
-// 24-299) with wins=1 (one query row per sequence), over bf16/f32 pools
-// and, its INT8-KV form, over int8 pools with per-token-per-head f32
-// scale pools [L, P+1, kvN, ps].
+// paged_decode.py: _paged_kernel (paged_decode.py:24-131), reached through
+// paged_flash_decode (:165, wins=1, one query row per sequence) and
+// paged_flash_verify (:136, wins=S, rows s at positions kv_len - S + s),
+// over bf16/f32 pools and, its INT8-KV form, over int8 pools with
+// per-token-per-head f32 scale pools [L, P+1, kvN, ps].
 //
 // Bound on the H100: bytes. Each sequence's live K and V rows
 // (2*kv_len*kvN*D elements, plus 2*kv_len*kvN f32 scales for INT8 KV)
-// are read once for ~4*kv_len*N*D operations: about one operation per
-// byte (two for int8), far below the card's balance point.
+// are read once for ~4*kv_len*N*S*D operations: about S operations per
+// byte (2S for int8), far below the card's balance point for S <= 8.
 //
-// Design: one block per (sequence, kv head), holding that head's `group`
-// query rows, so every K/V row of the sequence is read from device memory
-// once and serves all the query heads of its GQA group. The block reads
+// Design: one block per (sequence, kv head), holding that head's
+// `group` x S query rows (row r = window row r / group, head r % group),
+// so every K/V row of the sequence is read from device memory once and
+// serves all the query heads of its GQA group and every row of the verify
+// window: a verify step moves the KV bytes of one decode step, which is
+// the point of the TPU design (paged_decode.py:146-150). The block reads
 // its page ids from the table itself and walks the live keys
 // 0 .. min(kv_len, MP*ps)-1 in chunks of 32 keys staged through shared
-// memory in f32; pages past kv_len are never read. Scores and the running
-// max/sum/accumulator stay in f32. An unmapped (-1) page inside kv_len
-// (the dead rows of a decode burst, whose tables are all -1) reads as
-// zeros, as the plain version's gather does, and never touches memory
-// outside the pool; kv_len <= 0 gives a zero output. INT8 KV dequantizes
-// late, as the TPU kernel does (paged_decode.py:84-89, :116-120): the
-// codes are staged as exact floats, each key's scale (staged beside its
-// chunk) multiplies its score after q.k, and each key's V scale folds
-// into its probability before the PV product, so the row sum l stays the
-// sum of the unscaled probabilities. Split-K over the sequence
-// (flash-decoding) and TMA page copies are later work.
+// memory in f32; pages past kv_len are never read. Window row s attends
+// keys k_pos < kv_len - S + 1 + s (in-window causal; S = 1 is k_pos <
+// kv_len). Scores and the running max/sum/accumulator stay in f32; a
+// masked key contributes p = 0, so a row with no key at all (kv_len <= 0,
+// or kv_len < S - s) gives a zero output. An unmapped (-1) page inside
+// kv_len (the dead rows of a decode burst, whose tables are all -1) reads
+// as zeros, as the plain version's gather does, and never touches memory
+// outside the pool. INT8 KV dequantizes late, as the TPU kernel does
+// (paged_decode.py:84-89, :116-120): the codes are staged as exact floats,
+// each key's scale (staged beside its chunk) multiplies its score after
+// q.k, and each key's V scale folds into its probability before the PV
+// product, so the row sum l stays the sum of the unscaled probabilities.
+// Shared memory grows with group x S: 64 rows at D = 128 (GQA group 8,
+// S = 8) take 107.6 KB of the 227 KB a block may use; the wrapper refuses
+// more than 128 rows. Split-K over the sequence (flash-decoding) and TMA
+// page copies are later work.
 #include "common.cuh"
 
 namespace {
@@ -37,38 +48,40 @@ constexpr int NT = 128;  // threads per block
 constexpr float NEG_INF = -1e30f;
 
 template <int D>
-size_t smem_floats(int group) {
-  return (size_t)group * D          // q rows
+size_t smem_floats(int rows) {
+  return (size_t)rows * D           // q rows
          + (size_t)KC * (D + 1)     // K chunk (padded: lane = key)
          + (size_t)KC * D           // V chunk
-         + (size_t)group * KC       // probabilities
-         + (size_t)group * D        // accumulator
-         + 3 * (size_t)group        // max, sum, rescale
+         + (size_t)rows * KC        // probabilities
+         + (size_t)rows * D         // accumulator
+         + 3 * (size_t)rows         // max, sum, rescale
          + 2 * (size_t)KC;          // INT8 KV: K and V scales of the chunk
 }
 
-// q: [B, N, D] with batch stride q_bs (elements); pools [L, P+1, kvN, ps, D]
-// of P (T, or int8_t with the scale pools ksp/vsp [L, P+1, kvN, ps]);
-// out: [B, N, D] contiguous.
+// q: [B, S, N, D] with batch stride q_bs and window stride q_ss (elements;
+// S = wins); pools [L, P+1, kvN, ps, D] of P (T, or int8_t with the scale
+// pools ksp/vsp [L, P+1, kvN, ps]); out: [B, S, N, D] contiguous.
 template <typename T, typename P, int D>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(
-    const T* __restrict__ q, long long q_bs, const P* __restrict__ pool_k,
-    const P* __restrict__ pool_v, const float* __restrict__ ksp,
-    const float* __restrict__ vsp, const int* __restrict__ tables,
-    const int* __restrict__ kv_lens, T* __restrict__ out, int layer,
-    int num_pages1, int kvn, int ps, int mp, int group, float scale) {
+    const T* __restrict__ q, long long q_bs, long long q_ss,
+    const P* __restrict__ pool_k, const P* __restrict__ pool_v,
+    const float* __restrict__ ksp, const float* __restrict__ vsp,
+    const int* __restrict__ tables, const int* __restrict__ kv_lens,
+    T* __restrict__ out, int layer, int num_pages1, int kvn, int ps, int mp,
+    int group, int wins, float scale) {
   constexpr bool QUANT = sizeof(P) == 1;
+  const int rows = group * wins;
   extern __shared__ float smem[];
   float* qs = smem;
-  float* ks = qs + group * D;
+  float* ks = qs + rows * D;
   float* vs = ks + KC * (D + 1);
   float* pr = vs + KC * D;
-  float* acc = pr + group * KC;
-  float* ms = acc + group * D;
-  float* ls = ms + group;
-  float* al = ls + group;
-  float* ksc = al + group;  // [KC] (INT8 KV)
-  float* vsc = ksc + KC;    // [KC]
+  float* acc = pr + rows * KC;
+  float* ms = acc + rows * D;
+  float* ls = ms + rows;
+  float* al = ls + rows;
+  float* ksc = al + rows;  // [KC] (INT8 KV)
+  float* vsc = ksc + KC;   // [KC]
 
   const int b = blockIdx.x;
   const int g = blockIdx.y;
@@ -78,15 +91,18 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   const int h0 = g * group;
 
   const T* qb = q + (long long)b * q_bs + (long long)h0 * D;
-  for (int i = tid; i < group * D; i += NT) {
-    qs[i] = sli::to_f(qb[i]);
+  for (int i = tid; i < rows * D; i += NT) {
+    const int r = i / D;
+    const int w = r / group;
+    qs[i] = sli::to_f(qb[w * q_ss + (long long)(r - w * group) * D + i % D]);
     acc[i] = 0.f;
   }
-  for (int i = tid; i < group; i += NT) {
+  for (int i = tid; i < rows; i += NT) {
     ms[i] = NEG_INF;
     ls[i] = 0.f;
   }
-  const int n_keys = min(kv_lens[b], mp * ps);
+  const int kv_len = kv_lens[b];
+  const int n_keys = min(kv_len, mp * ps);
   const int* row = tables + (long long)b * mp;
   const long long layer_base = (long long)layer * num_pages1;
   __syncthreads();
@@ -128,21 +144,24 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     }
     __syncthreads();
 
-    // scores: warp w takes query rows w, w+4, ...; lane = key of the chunk
-    for (int r = warp; r < group; r += NT / 32) {
+    // scores: warp w takes query rows w, w+4, ...; lane = key of the chunk;
+    // window row r / group sees keys below kv_len - wins + 1 + r / group
+    for (int r = warp; r < rows; r += NT / 32) {
       const float m_old = ms[r];
       float s = 0.f;
 #pragma unroll 8
       for (int d = 0; d < D; ++d) s += qs[r * D + d] * ks[lane * (D + 1) + d];
       s *= scale;
       if (QUANT) s *= ksc[lane];  // late dequant of K
-      if (k0 + lane >= n_keys) s = NEG_INF;
+      const int kp = k0 + lane;
+      const bool live = kp < n_keys && kp < kv_len - wins + 1 + r / group;
+      if (!live) s = NEG_INF;
       float mx = s;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m_old, mx);
-      const float p = expf(s - m_new);
+      const float p = live ? expf(s - m_new) : 0.f;
       float sum = p;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -159,7 +178,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
 
     // PV: thread d owns output column d of every query row
     for (int d = tid; d < D; d += NT) {
-      for (int r = 0; r < group; ++r) {
+      for (int r = 0; r < rows; ++r) {
         float a = acc[r * D + d] * al[r];
 #pragma unroll 8
         for (int kk = 0; kk < KC; ++kk) a += pr[r * KC + kk] * vs[kk * D + d];
@@ -169,48 +188,53 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     __syncthreads();
   }
 
-  T* ob = out + ((long long)b * kvn * group + h0) * D;
-  for (int i = tid; i < group * D; i += NT) {
+  const int n = kvn * group;
+  for (int i = tid; i < rows * D; i += NT) {
     const int r = i / D;
-    ob[i] = sli::from_f<T>(acc[i] / fmaxf(ls[r], 1e-30f));
+    const int w = r / group;
+    const long long o =
+        (((long long)b * wins + w) * n + h0 + (r - w * group)) * D + i % D;
+    out[o] = sli::from_f<T>(acc[i] / fmaxf(ls[r], 1e-30f));
   }
 }
 
+// The kernel's arguments past the head dim, dtype and stream.
+struct Args {
+  const void* q;
+  long long q_bs, q_ss;
+  const void* pool_k;
+  const void* pool_v;
+  const float* ksp;
+  const float* vsp;
+  const int* tables;
+  const int* kv_lens;
+  void* out;
+  int batch, layer, num_pages1, kvn, ps, mp, group, wins;
+  float scale;
+};
+
 template <typename T, typename P, int D>
-int launch(const void* q, long long q_bs, const void* pool_k,
-           const void* pool_v, const float* ksp, const float* vsp,
-           const int* tables, const int* kv_lens, void* out, int batch,
-           int layer, int num_pages1, int kvn, int ps, int mp, int group,
-           float scale, cudaStream_t st) {
-  const size_t bytes = smem_floats<D>(group) * sizeof(float);
+int launch(const Args& a, cudaStream_t st) {
+  const size_t bytes = smem_floats<D>(a.group * a.wins) * sizeof(float);
   cudaError_t e = sli::allow_smem(paged_decode_kernel<T, P, D>, bytes);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(batch, kvn);
+  const dim3 grid(a.batch, a.kvn);
   paged_decode_kernel<T, P, D><<<grid, NT, bytes, st>>>(
-      (const T*)q, q_bs, (const P*)pool_k, (const P*)pool_v, ksp, vsp, tables,
-      kv_lens, (T*)out, layer, num_pages1, kvn, ps, mp, group, scale);
+      (const T*)a.q, a.q_bs, a.q_ss, (const P*)a.pool_k, (const P*)a.pool_v,
+      a.ksp, a.vsp, a.tables, a.kv_lens, (T*)a.out, a.layer, a.num_pages1,
+      a.kvn, a.ps, a.mp, a.group, a.wins, a.scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, typename P>
-int dispatch_d(int head_dim, const void* q, long long q_bs,
-               const void* pool_k, const void* pool_v, const float* ksp,
-               const float* vsp, const int* tables, const int* kv_lens,
-               void* out, int batch, int layer, int num_pages1, int kvn,
-               int ps, int mp, int group, float scale, cudaStream_t st) {
+int dispatch_d(int head_dim, const Args& a, cudaStream_t st) {
   switch (head_dim) {
     case 32:
-      return launch<T, P, 32>(q, q_bs, pool_k, pool_v, ksp, vsp, tables,
-                              kv_lens, out, batch, layer, num_pages1, kvn, ps,
-                              mp, group, scale, st);
+      return launch<T, P, 32>(a, st);
     case 64:
-      return launch<T, P, 64>(q, q_bs, pool_k, pool_v, ksp, vsp, tables,
-                              kv_lens, out, batch, layer, num_pages1, kvn, ps,
-                              mp, group, scale, st);
+      return launch<T, P, 64>(a, st);
     case 128:
-      return launch<T, P, 128>(q, q_bs, pool_k, pool_v, ksp, vsp, tables,
-                               kv_lens, out, batch, layer, num_pages1, kvn,
-                               ps, mp, group, scale, st);
+      return launch<T, P, 128>(a, st);
     default:
       return SLI_ERR_HEAD_DIM;
   }
@@ -220,39 +244,30 @@ int dispatch_d(int head_dim, const void* q, long long q_bs,
 
 // k_scale/v_scale: null for bf16/f32 pools (of q's dtype); given, the pools
 // are int8 and these are their f32 scale pools [L, num_pages1, kvn, ps].
+// q: [B, wins, N, D] with strides q_bs, q_ss (elements); wins = 1 is decode.
 extern "C" int sli_paged_flash_decode(const void* q, long long q_bs,
-                                      const void* pool_k, const void* pool_v,
-                                      const void* k_scale,
+                                      long long q_ss, const void* pool_k,
+                                      const void* pool_v, const void* k_scale,
                                       const void* v_scale, const int* tables,
                                       const int* kv_lens, void* out,
                                       int batch, int layer, int num_pages1,
                                       int kvn, int ps, int mp, int group,
-                                      int head_dim, float scale, int dtype,
-                                      void* stream) {
-  if (batch <= 0 || kvn <= 0 || group <= 0 || ps <= 0 || mp <= 0)
+                                      int wins, int head_dim, float scale,
+                                      int dtype, void* stream) {
+  if (batch <= 0 || kvn <= 0 || group <= 0 || ps <= 0 || mp <= 0 ||
+      wins <= 0)
     return SLI_ERR_SHAPE;
   if ((k_scale == nullptr) != (v_scale == nullptr)) return SLI_ERR_SHAPE;
   cudaStream_t st = (cudaStream_t)stream;
-  const float* ksp = (const float*)k_scale;
-  const float* vsp = (const float*)v_scale;
-  const bool quant = ksp != nullptr;
+  const Args a{q, q_bs, q_ss, pool_k, pool_v, (const float*)k_scale,
+               (const float*)v_scale, tables, kv_lens, out, batch, layer,
+               num_pages1, kvn, ps, mp, group, wins, scale};
+  const bool quant = k_scale != nullptr;
   if (dtype == SLI_F32)
-    return quant ? dispatch_d<float, int8_t>(
-                       head_dim, q, q_bs, pool_k, pool_v, ksp, vsp, tables,
-                       kv_lens, out, batch, layer, num_pages1, kvn, ps, mp,
-                       group, scale, st)
-                 : dispatch_d<float, float>(
-                       head_dim, q, q_bs, pool_k, pool_v, ksp, vsp, tables,
-                       kv_lens, out, batch, layer, num_pages1, kvn, ps, mp,
-                       group, scale, st);
+    return quant ? dispatch_d<float, int8_t>(head_dim, a, st)
+                 : dispatch_d<float, float>(head_dim, a, st);
   if (dtype == SLI_BF16)
-    return quant ? dispatch_d<__nv_bfloat16, int8_t>(
-                       head_dim, q, q_bs, pool_k, pool_v, ksp, vsp, tables,
-                       kv_lens, out, batch, layer, num_pages1, kvn, ps, mp,
-                       group, scale, st)
-                 : dispatch_d<__nv_bfloat16, __nv_bfloat16>(
-                       head_dim, q, q_bs, pool_k, pool_v, ksp, vsp, tables,
-                       kv_lens, out, batch, layer, num_pages1, kvn, ps, mp,
-                       group, scale, st);
+    return quant ? dispatch_d<__nv_bfloat16, int8_t>(head_dim, a, st)
+                 : dispatch_d<__nv_bfloat16, __nv_bfloat16>(head_dim, a, st);
   return SLI_ERR_DTYPE;
 }

@@ -3,9 +3,10 @@
 Counterpart of simplellminference_tpu/engine/engine.py:439-2096 in its
 serving configuration: whole-prompt batched prefill, chunked prefill, the
 prefix cache (running-request page sharing and the persistent store of
-finished prompts), pipelined multi-step decode bursts, stop tokens / stop
-strings / max_new_tokens, logit bias, penalties and seeded sampling,
-preemption under page pressure, ``cancel`` and ``flush_prefix_cache``.
+finished prompts), pipelined multi-step decode bursts, prompt-lookup
+speculative decoding (``spec_tokens``), stop tokens / stop strings /
+max_new_tokens, logit bias, penalties and seeded sampling, preemption
+under page pressure, ``cancel`` and ``flush_prefix_cache``.
 
 Scheduling is the JAX engine's:
 
@@ -30,10 +31,20 @@ Scheduling is the JAX engine's:
     burst is dispatched before the previous one's tokens reach the host
     (copied asynchronously to pinned memory and synced one burst late),
     and host-side admits merge through per-slot override masks.
+  * speculative decode (``EngineConfig.spec_tokens`` = G in [1, 7]):
+    each burst step drafts G tokens by prompt lookup (the latest earlier
+    occurrence of the context's last ``spec_ngram``-gram, from a token
+    history carried on the device), verifies G+1 positions in one
+    forward (``paged_append_span`` writes their K/V, ``paged_flash_verify``
+    attends them) and emits the accepted prefix plus one token: greedy
+    rows accept by equality with the argmax, sampled penalty-free rows by
+    rejection sampling against the shaped distribution, rows with
+    penalties take one sampled token per step.
   * finish / preempt / OOM as in the JAX engine.
 
-``_prefill_fn``, ``_prefill_chunk_fn`` and ``_burst_fn`` (jitted graphs
-in the JAX engine) are plain methods here: a Python loop over the burst
+``_prefill_fn``, ``_prefill_chunk_fn``, ``_burst_fn`` and
+``_spec_burst_fn`` (jitted graphs in the JAX engine) are plain methods
+here: a Python loop over the burst
 steps, launching the CUDA kernels on the card, all on one stream, so
 launch order is the dependency order above. Suffix buckets and chunk
 steps are not raised to 128 rows as the JAX engine does on a TPU
@@ -49,11 +60,11 @@ preemption move scales with their pages and need nothing more, as in the
 JAX engine, which never touches ``k_scale`` past creating it).
 
 Features outside this configuration raise NotImplementedError naming the
-feature: speculative decoding, guided decoding, LoRA adapters,
-tensor/sequence parallelism (``adopt_prefill`` included), top_logprobs,
-FP8 KV, sliding windows and the non-Llama model branches. The JAX
-engine's ``forward_paged``, ``draft`` and ``loras`` constructor arguments
-are not taken yet.
+feature: draft-model speculation (``draft=``), guided decoding, LoRA
+adapters, tensor/sequence parallelism (``adopt_prefill`` included),
+top_logprobs, FP8 KV, sliding windows and the non-Llama model branches.
+The JAX engine's ``forward_paged`` and ``loras`` constructor arguments are
+not taken yet.
 """
 
 from __future__ import annotations
@@ -64,6 +75,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from simplellminference_tpu_torch.core.config import (EngineConfig,
                                                       ModelConfig,
@@ -78,11 +90,16 @@ from simplellminference_tpu_torch.memory.paged_kv import (PagedKVCache,
                                                           kv_storage_dtype)
 from simplellminference_tpu_torch.models import llama
 from simplellminference_tpu_torch.ops import sampling as sampling_ops
+from simplellminference_tpu_torch.ops.paged_append import SPAN_MAX
 
 
 def _check_engine_config(ec: EngineConfig) -> None:
-    if ec.spec_tokens:
-        raise NotImplementedError("speculative decoding (spec_tokens)")
+    if ec.spec_tokens and not 1 <= ec.spec_tokens <= SPAN_MAX - 1:
+        raise ValueError(f"spec_tokens in [1, {SPAN_MAX - 1}] (the span "
+                         f"kernel writes <= {SPAN_MAX} rows)")
+    if ec.top_logprobs and ec.spec_tokens:
+        raise ValueError("top_logprobs is incompatible with speculative "
+                         "decoding (spec_tokens > 0)")
     if ec.top_logprobs:
         raise NotImplementedError("top_logprobs")
     if ec.sp_prefill_threshold:
@@ -99,10 +116,15 @@ class Engine:
     """Single-model continuous-batching inference engine."""
 
     def __init__(self, cfg: ModelConfig, params, engine_cfg: EngineConfig,
-                 tokenizer=None, decode_burst: int = 4, device=None):
+                 tokenizer=None, decode_burst: int = 4, device=None,
+                 draft=None):
         """``device``: CUDA unless ``device="cpu"``; ``params`` must live
         there (``models.llama.init_params`` or
-        ``models.convert.params_from_jax``)."""
+        ``models.convert.params_from_jax``). ``draft`` (a draft model for
+        speculation) is not taken yet: speculation drafts by prompt
+        lookup."""
+        if draft is not None:
+            raise NotImplementedError("draft-model speculation (draft=)")
         _check_engine_config(engine_cfg)
         llama.check_supported(cfg)
         self.device = resolve_device(device)
@@ -177,6 +199,18 @@ class Engine:
         self._active_dirty = True
         self._zero_ov = None
 
+        # speculative decoding: the token history the prompt-lookup draft
+        # reads (hist[b, 0..pos] = the context, hist[b, pos] the pending
+        # input token), carried on the device between bursts like the
+        # token and position, with host rows for the override path; the
+        # tail past the capacity absorbs writes of rows running past it
+        self.spec = engine_cfg.spec_tokens
+        if self.spec:
+            cap = kv.max_pages_per_seq * kv.page_size
+            self._hist_host = np.zeros((b, cap + self.spec + 8), np.int32)
+            self._dev_hist = None
+            self._zero_hist = None
+
     # ------------- public API -------------
 
     def add_request(self, prompt_ids: Optional[Sequence[int]] = None,
@@ -211,7 +245,9 @@ class Engine:
                                                  sampling.stop_strings)
         if len(self.waiting) >= self.ecfg.max_queue:
             return self._reject(req, "queue full")
-        max_len = self.ecfg.kv.max_pages_per_seq * self.ecfg.kv.page_size
+        # a verify window writes up to spec rows past the last token
+        max_len = (self.ecfg.kv.max_pages_per_seq * self.ecfg.kv.page_size
+                   - self.spec)
         if len(req.prompt_ids) + sampling.max_new_tokens > max_len:
             return self._reject(req, (
                 f"prompt+max_new ({len(req.prompt_ids)}+"
@@ -469,6 +505,10 @@ class Engine:
             for j, (t, v) in enumerate(s.logit_bias):
                 self._bias_ids[slot, j] = int(t)
                 self._bias_vals[slot, j] = float(v)
+            if self.spec:
+                ids = req.prompt_ids + req.output_ids
+                self._hist_host[slot] = 0
+                self._hist_host[slot, :len(ids)] = ids
             admitted.append(req)
             if req.cached_len:
                 self.metrics.prefix_cache_hits += 1
@@ -509,6 +549,9 @@ class Engine:
                 tok_id = int(arr[i, 0])
                 self._next_tok[req.slot] = tok_id
                 self._counts_host[req.slot, tok_id] += 1
+                if self.spec:
+                    # the pending input token closes the history row
+                    self._hist_host[req.slot, self._pos[req.slot]] = tok_id
                 self._override[req.slot] = True  # fresh pipeline state
                 self._emit_tokens(req, [tok_id], [float(arr[i, 1])])
 
@@ -712,16 +755,20 @@ class Engine:
     def _ensure_burst_pages(self) -> bool:
         """Extend every running slot's pages to cover the pipeline depth:
         host ``_pos`` lags the device position by up to one unprocessed
-        burst, and the burst about to dispatch advances one more."""
+        burst, and the burst about to dispatch advances one more (a
+        speculative step up to spec + 1 tokens)."""
+        per_step = self.spec + 1
         while True:
             ok = True
             for req in list(self.slots):
                 if req is None:
                     continue
-                # clamp to the request's lifetime maximum
-                lim = len(req.prompt_ids) + req.sampling.max_new_tokens
-                target = min(int(self._pos[req.slot]) + 2 * self.burst + 1,
-                             lim)
+                # clamp to the request's lifetime maximum (plus the rows a
+                # verify window writes past its last token)
+                lim = (len(req.prompt_ids) + req.sampling.max_new_tokens
+                       + self.spec)
+                target = min(int(self._pos[req.slot])
+                             + 2 * self.burst * per_step + 1, lim)
                 cur = self.allocator.seq_len(req.slot)
                 if cur < target:
                     if not self.allocator.extend(req.slot, target):
@@ -803,9 +850,25 @@ class Engine:
                   self._upload(self._counts_host), self._upload(ov_mask))
         else:
             ov = self._get_zero_ov()
-        packed, self._dev_tok, self._dev_pos, self._dev_counts = \
-            self._burst_fn(steps, dev_tok, dev_pos, dev_counts, *ov, tables,
-                           active, samp)
+        if self.spec:
+            # the first burst overrides every row (any_ov)
+            dev_hist = (self._get_zero_hist() if self._dev_hist is None
+                        else self._dev_hist)
+            ov_hist = (self._upload(self._hist_host) if any_ov
+                       else self._get_zero_hist())
+            # the cost tier of the rejection sampler, from the host rows
+            live = np.asarray([s is not None for s in self.slots])
+            any_rs = bool((live & (self._temp > 0.0) & (self._rep_p == 1.0)
+                           & (self._freq_p == 0.0)
+                           & (self._pres_p == 0.0)).any())
+            (packed, self._dev_tok, self._dev_pos, self._dev_counts,
+             self._dev_hist) = self._spec_burst_fn(
+                steps, dev_tok, dev_pos, dev_counts, dev_hist, ov, ov_hist,
+                tables, active, samp, any_rs)
+        else:
+            packed, self._dev_tok, self._dev_pos, self._dev_counts = \
+                self._burst_fn(steps, dev_tok, dev_pos, dev_counts, *ov,
+                               tables, active, samp)
         payload = self._to_host_async(packed)
         self._override[:] = False
         self.metrics.decode_bursts += 1
@@ -846,6 +909,127 @@ class Engine:
             tok = nxt
             out.append(torch.stack([nxt.float(), lp], dim=-1))
         return torch.stack(out, dim=1), tok, pos, counts
+
+    def _spec_burst_fn(self, steps, dev_tok, dev_pos, dev_counts, dev_hist,
+                       ov, ov_hist, tables, active, samp, any_rs: bool):
+        """``steps`` speculative steps of every slot (engine.py:227-433):
+        each drafts G tokens by prompt lookup, verifies G+1 positions in
+        one forward (kv_lens = pos + G + 1) and emits the accepted prefix
+        plus a bonus token per active row. ``ov`` = (token, pos, counts,
+        mask) overrides and ``ov_hist`` the history rows, as in
+        :meth:`_burst_fn`. ``any_rs``: some live row samples without
+        penalties (the rejection sampler runs). Returns (packed rows
+        [B, steps, 2(G+1)+1] of (emitted tokens, -1 past the count; their
+        logprobs; the count emitted), token, pos, counts, history)."""
+        g = self.spec
+        ov_tok, ov_pos, ov_counts, ov_mask = ov
+        tok = torch.where(ov_mask, ov_tok, dev_tok)
+        pos = torch.where(ov_mask, ov_pos, dev_pos)
+        counts = torch.where(ov_mask[:, None], ov_counts, dev_counts)
+        hist = torch.where(ov_mask[:, None], ov_hist, dev_hist)
+        b, hl = hist.shape
+        rows = torch.arange(b, device=self.device)[:, None]
+        kidx = torch.arange(g + 1, dtype=torch.int32, device=self.device)[None]
+        temp, top_k, top_p, min_p = (samp[k] for k in (
+            "temperature", "top_k", "top_p", "min_p"))
+        pen_neutral = ((samp["repetition_penalty"] == 1.0)
+                       & (samp["frequency_penalty"] == 0.0)
+                       & (samp["presence_penalty"] == 0.0))
+        greedy_row = (temp <= 0.0) & pen_neutral
+        rs_row = (temp > 0.0) & pen_neutral
+        bias = ((samp["bias_ids"], samp["bias_vals"]) if "bias_ids" in samp
+                else None)
+        plain_kw = {k: v for k, v in samp.items()
+                    if k not in ("bias_ids", "bias_vals")}
+        shaping = samp["shaping_on"]
+
+        def per_draft(x):          # [B] sampler row -> [B * G]
+            return x.repeat_interleave(g)
+
+        out = []
+        for _ in range(steps):
+            draft = self._find_draft(hist, pos)                   # [B, G]
+            logits, self.cache = llama.forward_paged(
+                self.cfg, self.params, torch.cat([tok[:, None], draft], 1),
+                pos[:, None] + kidx, self.cache, tables, pos + g + 1,
+                prefill=False)
+            # logit_bias shapes every decision; logprobs stay raw
+            logits_b = (sampling_ops.apply_logit_bias(logits, *bias)
+                        if bias is not None else logits)
+            pred = sampling_ops.greedy(logits_b)                  # [B, G+1]
+            # greedy rows accept drafts equal to the argmax
+            eq = (draft == pred[:, :g]) & greedy_row[:, None]
+            if any_rs:
+                # sampled penalty-free rows: accept draft d w.p. p(d)
+                pd = sampling_ops.shaped_token_prob(
+                    logits_b[:, :g].reshape(b * g, -1), draft.reshape(-1),
+                    per_draft(temp), per_draft(top_k), per_draft(top_p),
+                    per_draft(min_p), shaping_on=shaping).reshape(b, g)
+                u = sampling_ops.row_uniform(sampling_ops.spec_row_keys(
+                    per_draft(samp["seeds"]),
+                    (pos[:, None] + kidx[:, :g]).reshape(-1), 1)).reshape(b, g)
+                eq = eq | ((u < pd) & rs_row[:, None])
+            n_acc = torch.cumprod(eq.to(torch.int32), 1).sum(
+                1, dtype=torch.int32)
+            bonus = pred.gather(1, n_acc.long()[:, None])[:, 0]
+            if any_rs:
+                # the residual p | != d after a rejection, or the full
+                # shaped p after G accepts, from window n_acc's logits
+                lg = logits_b[torch.arange(b, device=self.device),
+                              n_acc.long()]
+                excl = torch.where(n_acc < g, draft.gather(
+                    1, n_acc.clamp(max=g - 1).long()[:, None])[:, 0], -1)
+                bonus = torch.where(rs_row, sampling_ops.sample_excluding(
+                    lg, temp, top_k, top_p, min_p, excl,
+                    sampling_ops.spec_row_keys(samp["seeds"], pos + n_acc, 2),
+                    shaping_on=shaping), bonus)
+            if samp["penalties_on"]:
+                # rows with penalties: one penalized sample per step
+                first = sampling_ops.sample(logits_b[:, 0], counts=counts,
+                                            seed_pos=pos, **plain_kw)
+                bonus = torch.where(greedy_row | rs_row, bonus, first)
+            draft_p = torch.cat([draft, torch.zeros_like(draft[:, :1])], 1)
+            emitted = torch.where(
+                kidx < n_acc[:, None], draft_p,
+                torch.where(kidx == n_acc[:, None], bonus[:, None], -1))
+            emitted = torch.where(active[:, None], emitted, -1)
+            n_em = torch.where(active, n_acc + 1, 0)
+            live = kidx < n_em[:, None]
+            safe = emitted.clamp(min=0)
+            # emitted tokens enter the history at positions pos+1+k
+            cols = torch.where(live, pos[:, None] + 1 + kidx, hl - 1)
+            hist.scatter_(1, cols.clamp(max=hl - 1).long(), safe)
+            if samp["penalties_on"]:
+                counts.index_put_((rows.expand(-1, g + 1), safe.long()),
+                                  live.float(), accumulate=True)
+            lps = torch.log_softmax(logits.float(), -1).gather(
+                -1, safe.long()[..., None])[..., 0]               # [B, G+1]
+            tok = torch.where(active, bonus, tok)
+            pos = pos + n_em
+            out.append(torch.cat([emitted.float(), lps,
+                                  n_em.float()[:, None]], -1))
+        return torch.stack(out, dim=1), tok, pos, counts, hist
+
+    def _find_draft(self, hist, pos):
+        """[B, G] draft tokens by prompt lookup (engine.py:260-278): the
+        continuation of the latest window ending before ``pos`` that
+        matches the context's last ``spec_ngram`` tokens (which end at
+        pos), drafting only from known context; 0 where none matches."""
+        ng = self.ecfg.spec_ngram
+        b, hl = hist.shape
+        idxs = torch.arange(hl, device=hist.device)[None]
+        p = pos.long()
+        m = (idxs < p[:, None]) & (idxs >= ng - 1)
+        for j in range(ng):
+            tj = hist.gather(1, (p - j).clamp(0, hl - 1)[:, None])
+            hj = hist if j == 0 else F.pad(hist[:, :hl - j], (j, 0), value=-1)
+            m &= hj == tj
+        e = torch.where(m, idxs, -1).amax(1)
+        found = (e >= 0) & (p >= ng)
+        gat = e[:, None] + 1 + torch.arange(self.spec, device=hist.device)[None]
+        draft = hist.gather(1, gat.clamp(0, hl - 1))
+        ok = found[:, None] & (gat <= p[:, None])
+        return torch.where(ok, draft, 0)
 
     def _dispatch_args(self, running):
         """Device-cached burst arguments, re-uploaded only when dirty:
@@ -893,6 +1077,14 @@ class Engine:
                                          device=self.device))
         return self._zero_ov
 
+    def _get_zero_hist(self):
+        """No-op history override rows, device-resident."""
+        if self._zero_hist is None:
+            self._zero_hist = torch.zeros(self._hist_host.shape,
+                                          dtype=torch.int32,
+                                          device=self.device)
+        return self._zero_hist
+
     def _process_inflight(self):
         """Drain the pipeline: sync + bookkeep the in-flight burst."""
         if self._inflight is None:
@@ -902,6 +1094,9 @@ class Engine:
         self._bookkeep(payload, snapshot)
 
     def _bookkeep(self, payload, snapshot):
+        if self.spec:
+            self._bookkeep_spec(payload, snapshot)
+            return
         arr = self._wait_host(payload)   # [B, burst, 2] — the sync point
         toks = arr[..., 0].astype(np.int64)
         blps = arr[..., 1]
@@ -915,3 +1110,31 @@ class Engine:
             if req.state == RequestState.RUNNING:
                 self._pos[slot] += n_valid
                 self._next_tok[slot] = burst_toks[-1]
+
+    def _bookkeep_spec(self, payload, snapshot):
+        """Emit a speculative burst's tokens (engine.py:2054-2077): each
+        step's accepted drafts and bonus token, in order; every step in
+        which a row emitted counts one verify step, every token past the
+        first of a step one accepted draft."""
+        arr = self._wait_host(payload)   # [B, steps, 2(G+1)+1]: the sync
+        g1 = self.spec + 1
+        ems = arr[..., :g1].astype(np.int64)
+        elps = arr[..., g1:2 * g1]
+        nems = arr[..., -1].astype(np.int64)
+        for slot, req, _n in snapshot:
+            if self.slots[slot] is not req \
+                    or req.state != RequestState.RUNNING:
+                continue
+            seq: list[int] = []
+            seq_lp: list[float] = []
+            for st in range(ems.shape[1]):
+                n = nems[slot, st]
+                seq.extend(ems[slot, st, :n].tolist())
+                seq_lp.extend(elps[slot, st, :n].tolist())
+            steps_active = int((nems[slot] > 0).sum())
+            self.metrics.spec_steps += steps_active
+            self.metrics.spec_accepted += len(seq) - steps_active
+            self._emit_tokens(req, seq, seq_lp)
+            if req.state == RequestState.RUNNING and seq:
+                self._pos[slot] += len(seq)
+                self._next_tok[slot] = seq[-1]

@@ -25,7 +25,8 @@ from simplellminference_tpu_torch.core.device import resolve_device
 # exported here, where the JAX package keeps it
 from simplellminference_tpu_torch.ops.paged_append import (  # noqa: F401
     check_scale_pools, paged_append_decode, paged_append_decode_quant,
-    paged_append_prefill, paged_append_prefill_quant, quantize_kv)
+    paged_append_prefill, paged_append_prefill_quant, paged_append_span,
+    quantize_kv, span_slots)
 
 
 def kv_storage_dtype(name: str) -> torch.dtype:
@@ -124,6 +125,32 @@ def write_decode_stacked(pool_k, pool_v, new_k, new_v, tables, positions,
     pk, pv = paged_append_decode(pool_k, pool_v, new_k, new_v, tables,
                                  positions, layer)
     return pk, pv, None, None
+
+
+def write_span_stacked(pool_k, pool_v, new_k, new_v, tables, positions,
+                       layer: int, pool_ks=None, pool_vs=None):
+    """Write T consecutive tokens per sequence at ``positions`` (the
+    speculative verify step; new_k/v [B, T, kvN, D], T <= 8), quantized
+    when scale pools are given. bf16/f32 pools take kernel 11
+    (:func:`paged_append_span`); INT8 pools quantize with
+    :func:`quantize_kv` and write codes and scales by indexed assignment,
+    plain torch operations on every device, as the JAX package leaves
+    them to XLA (paged_kv.py:363-374). Unmapped pages and columns past the
+    table go to the trash page. Returns (pool_k, pool_v, pool_ks,
+    pool_vs), updated in place."""
+    if pool_ks is None and pool_vs is None:
+        pk, pv = paged_append_span(pool_k, pool_v, new_k, new_v, tables,
+                                   positions, layer)
+        return pk, pv, None, None
+    check_scale_pools(pool_k, pool_v, pool_ks, pool_vs)
+    page, slot = span_slots(tables, positions, new_k.shape[1],
+                            pool_k.shape[1], pool_k.shape[3])
+    for pool, scales, x in ((pool_k, pool_ks, new_k), (pool_v, pool_vs,
+                                                        new_v)):
+        q, sc = quantize_kv(x)
+        pool[layer][page, :, slot, :] = q
+        scales[layer][page, :, slot] = sc
+    return pool_k, pool_v, pool_ks, pool_vs
 
 
 def gather_dense(pool_k: torch.Tensor, pool_v: torch.Tensor,

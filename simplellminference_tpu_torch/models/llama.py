@@ -6,7 +6,10 @@ Counterpart of simplellminference_tpu/models/llama.py:484-911
 full-rotary Llama branch: whole-prompt prefill from position 0, chunked
 prefill at per-row page-aligned offsets (prefill chunks and
 prefix-cached suffixes, attending through the page tables with
-``paged_flash_prefill``) and single-token decode. A Python loop over
+``paged_flash_prefill``), single-token decode, and the speculative verify
+window (S > 1 tokens per row at consecutive positions, written with
+``paged_append_span`` and attended with ``paged_flash_verify``; the JAX
+``spec`` branch, llama.py:548, :688-698). A Python loop over
 layers stands in for the ``lax.scan``; stacked [L, ...] weights are
 indexed per layer, and the KV pools are written in place.
 
@@ -101,7 +104,10 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     place); tables: [B, MP] page ids (-1 unmapped); kv_lens: [B] valid
     tokens AFTER this step. ``prefill``: S-token whole-prompt pass from
     position 0 (right-padded), attention is causal self-attention on the
-    fresh k/v; otherwise S == 1 decode through the page tables.
+    fresh k/v; otherwise decode through the page tables: S == 1, or a
+    speculative verify window of S <= 8 tokens at positions[b, 0] + 0..S-1
+    with kv_lens = positions[:, 0] + S (row s attends the keys up to its
+    own position).
     ``chunk_offset`` ([B], page-aligned, with ``prefill``): chunked
     prefill — row b processes prompt tokens [chunk_offset[b],
     chunk_offset[b] + S), writes their pages and attends through the page
@@ -110,9 +116,8 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     through the LM head. Returns (logits [B, S or 1, V] f32, cache)."""
     check_supported(cfg)
     b, s = tokens.shape
-    if not prefill and s != 1:
-        raise NotImplementedError("multi-token decode (speculative verify)")
     chunked = prefill and chunk_offset is not None
+    spec = not prefill and s > 1   # speculative-decoding verify window
     n, kvn, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     i_sz = cfg.intermediate_size
     eps = cfg.rms_norm_eps
@@ -162,6 +167,11 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             elif prefill:
                 pkv.write_prefill_stacked(pk, pv, k, v, tables, li, **scales)
                 attn = dispatch.attention(cfg, q, k, v)
+            elif spec:
+                pkv.write_span_stacked(pk, pv, k, v, tables, positions[:, 0],
+                                       li, **scales)
+                attn = dispatch.attention_paged(cfg, q, pk, pv, tables,
+                                                kv_lens, li, **scales)
             else:
                 pkv.write_decode_stacked(pk, pv, k[:, 0], v[:, 0], tables,
                                          positions[:, 0], li, **scales)

@@ -17,7 +17,7 @@ from simplellminference_tpu_torch.core.config import ModelConfig
 from simplellminference_tpu_torch.ops.attention.flash_prefill import (
     flash_prefill)
 from simplellminference_tpu_torch.ops.attention.paged_decode import (
-    paged_flash_decode)
+    paged_flash_decode, paged_flash_verify)
 from simplellminference_tpu_torch.ops.attention.paged_prefill import (
     paged_flash_prefill)
 
@@ -67,12 +67,14 @@ def attention_paged(cfg: ModelConfig, q: torch.Tensor, pool_k: torch.Tensor,
                     pool_ks: torch.Tensor | None = None,
                     pool_vs: torch.Tensor | None = None) -> torch.Tensor:
     """Paged decode attention (counterpart of dispatch.py:197-269).
-    q: [B, 1, N, D]; pools: stacked [L, P+1, kvN, ps, D] with an int
-    ``layer``, and their scale pools [L, P+1, kvN, ps] for INT8 KV."""
-    if q.shape[1] != 1:
-        raise NotImplementedError("multi-row verify windows (speculative "
-                                  "decoding)")
+    q: [B, S, N, D]: S = 1 is decode; S > 1 a speculative verify window,
+    whose row s sits at position kv_lens - S + s. Pools: stacked
+    [L, P+1, kvN, ps, D] with an int ``layer``, and their scale pools
+    [L, P+1, kvN, ps] for INT8 KV."""
     sm = _attn_opts(cfg)
-    return paged_flash_decode(q[:, 0], pool_k, pool_v, tables, kv_lens,
-                              layer, sm_scale=sm, k_scale=pool_ks,
-                              v_scale=pool_vs)[:, None]
+    if q.shape[1] == 1:
+        return paged_flash_decode(q[:, 0], pool_k, pool_v, tables, kv_lens,
+                                  layer, sm_scale=sm, k_scale=pool_ks,
+                                  v_scale=pool_vs)[:, None]
+    return paged_flash_verify(q, pool_k, pool_v, tables, kv_lens, layer,
+                              sm_scale=sm, k_scale=pool_ks, v_scale=pool_vs)

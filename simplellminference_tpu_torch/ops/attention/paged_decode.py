@@ -1,17 +1,21 @@
-"""Paged flash-decode attention: one query per sequence through the block
-tables.
+"""Paged flash-decode attention through the block tables: one query per
+sequence (decode), or a window of S <= 8 queries per sequence (the
+speculative verify step).
 
 Counterpart of simplellminference_tpu/ops/attention/paged_decode.py:165
-(``paged_flash_decode`` with one query row per sequence; the speculative
-``paged_flash_verify`` is not ported yet), over bf16/f32 pools or INT8
-pools with their per-token-per-head scale pools (``k_scale``/``v_scale``).
-For CUDA tensors :func:`paged_flash_decode` launches the hand-written
-kernel of ``csrc/paged_decode.cu`` (one block per sequence and kv head,
-page ids read from the table in the block, f32 online softmax over the
-live keys only); the INT8-KV form is its own wrapper,
-:func:`paged_flash_decode_int8kv`, with its own launch count. For CPU
-tensors both run :func:`paged_flash_decode_ref`, the gather (+ dequant)
-+ dense reference path of the JAX dispatcher (dispatch.py:239-269).
+(``paged_flash_decode``, one query row per sequence) and :136
+(``paged_flash_verify``, the same kernel with ``wins = S``: row s sits at
+position kv_len - S + s and attends the keys up to it), over bf16/f32
+pools or INT8 pools with their per-token-per-head scale pools
+(``k_scale``/``v_scale``). For CUDA tensors the wrappers launch the
+hand-written kernel of ``csrc/paged_decode.cu`` (one block per sequence
+and kv head holding every query row of its GQA group and window, page
+ids read from the table in the block, f32 online softmax over the live
+keys only); each form is its own wrapper with its own launch count
+(:func:`paged_flash_decode`, :func:`paged_flash_decode_int8kv`,
+:func:`paged_flash_verify`, :func:`paged_flash_verify_int8kv`). For CPU
+tensors they run the plain versions, the gather (+ dequant) + mask +
+dense reference path of the JAX dispatcher (dispatch.py:239-269).
 
 INT8 KV: the kernel dequantizes late, as the TPU kernel does
 (paged_decode.py:84-89, :116-120): the K scale multiplies each score after
@@ -35,6 +39,7 @@ from simplellminference_tpu_torch.ops import cuda_build, ref_ops
 from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
 HEAD_DIMS = (32, 64, 128)
+MAX_ROWS = 128   # query rows (GQA group x window rows) a block holds
 
 
 def _check_scales(k_pool, v_pool, k_scale, v_scale) -> bool:
@@ -45,29 +50,54 @@ def _check_scales(k_pool, v_pool, k_scale, v_scale) -> bool:
     return True
 
 
-def paged_flash_decode_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
-                           sm_scale: float | None = None, k_scale=None,
-                           v_scale=None) -> torch.Tensor:
-    """Plain version: gather the pages densely (dequantized in f32 through
-    the scale pools when given), mask key_pos < kv_len, reference
-    attention; a row with kv_len <= 0 is zero, as in the kernel.
-    q: [B, N, D] -> [B, N, D]."""
-    if q.is_cuda:
-        paged_flash_decode_ref.cuda_calls += 1
+def _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
+                k_scale, v_scale):
+    """Gather the pages densely (dequantized in f32 through the scale pools
+    when given), mask window row s to keys at positions <= kv_len - S + s,
+    reference attention; a row with no key is zero, as in the kernel.
+    q: [B, S, N, D] -> [B, S, N, D]."""
     quant = _check_scales(k_pool, v_pool, k_scale, v_scale)
     ck, cv = gather_dense(k_pool[layer], v_pool[layer], tables,
                           k_scale[layer] if quant else None,
                           v_scale[layer] if quant else None)
-    smax = ck.shape[2]
-    lens = kv_lens.long()
-    key_pos = torch.arange(smax, device=q.device)
-    mask = key_pos[None, None, None, :] < lens[:, None, None, None]
-    out = ref_ops.attention(q[:, None], ck.transpose(1, 2),
-                            cv.transpose(1, 2), mask, scale=sm_scale)[:, 0]
-    return torch.where((lens > 0)[:, None, None], out, torch.zeros_like(out))
+    s = q.shape[1]
+    q_pos = (kv_lens.long()[:, None] - s
+             + torch.arange(s, device=q.device)[None])           # [B, S]
+    key_pos = torch.arange(ck.shape[2], device=q.device)
+    mask = key_pos[None, None, None, :] <= q_pos[:, None, :, None]
+    out = ref_ops.attention(q, ck.transpose(1, 2), cv.transpose(1, 2), mask,
+                            scale=sm_scale)
+    return torch.where((q_pos >= 0)[:, :, None, None], out,
+                       torch.zeros_like(out))
+
+
+def paged_flash_decode_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
+                           sm_scale: float | None = None, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
+    """Plain version of :func:`paged_flash_decode` and its INT8-KV form:
+    keys at positions < kv_len; q: [B, N, D] -> [B, N, D]."""
+    if q.is_cuda:
+        paged_flash_decode_ref.cuda_calls += 1
+    return _attend_ref(q[:, None], k_pool, v_pool, tables, kv_lens, layer,
+                       sm_scale, k_scale, v_scale)[:, 0]
 
 
 paged_flash_decode_ref.cuda_calls = 0
+
+
+def paged_flash_verify_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
+                           sm_scale: float | None = None, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
+    """Plain version of :func:`paged_flash_verify` and its INT8-KV form,
+    the gather + mask + reference attention of the JAX dispatcher's
+    S > 1 branch (dispatch.py:239-269). q: [B, S, N, D] -> [B, S, N, D]."""
+    if q.is_cuda:
+        paged_flash_verify_ref.cuda_calls += 1
+    return _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
+                       k_scale, v_scale)
+
+
+paged_flash_verify_ref.cuda_calls = 0
 
 
 def paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer: int,
@@ -90,8 +120,8 @@ def paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer: int,
     if not (q.dtype == k_pool.dtype == v_pool.dtype):
         raise NotImplementedError(
             f"q {q.dtype} with {k_pool.dtype} pools (quantized KV)")
-    out = _launch(q, k_pool, v_pool, None, None, tables, kv_lens, layer,
-                  sm_scale, "paged_flash_decode")
+    out = _launch(q[:, None], k_pool, v_pool, None, None, tables, kv_lens,
+                  layer, sm_scale, "paged_flash_decode")[:, 0]
     paged_flash_decode.launches += 1
     return out
 
@@ -107,11 +137,9 @@ def paged_flash_decode_int8kv(q, k_pool, v_pool, k_scale, v_scale, tables,
     if not q.is_cuda:
         return paged_flash_decode_ref(q, k_pool, v_pool, tables, kv_lens,
                                       layer, sm_scale, k_scale, v_scale)
-    check_scale_pools(k_pool, v_pool, k_scale, v_scale)
-    if any(t.device != q.device for t in (k_scale, v_scale)):
-        raise ValueError("q and the scale pools must share a device")
-    out = _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
-                  layer, sm_scale, "paged_flash_decode_int8kv")
+    _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale)
+    out = _launch(q[:, None], k_pool, v_pool, k_scale, v_scale, tables,
+                  kv_lens, layer, sm_scale, "paged_flash_decode_int8kv")[:, 0]
     paged_flash_decode_int8kv.launches += 1
     return out
 
@@ -119,14 +147,73 @@ def paged_flash_decode_int8kv(q, k_pool, v_pool, k_scale, v_scale, tables,
 paged_flash_decode_int8kv.launches = 0
 
 
+def paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer: int,
+                       sm_scale: float | None = None, k_scale=None,
+                       v_scale=None) -> torch.Tensor:
+    """Multi-row decode windows (the speculative verify step): q
+    [B, S, N, D], where row s sits at position kv_len - S + s and attends
+    the keys at positions <= that one, through the same page walk as
+    :func:`paged_flash_decode` (KV traffic of one decode step). Pools,
+    tables and scale pools as there; out [B, S, N, D] in q's dtype."""
+    if v_pool is None:
+        raise NotImplementedError("shared-KV pools (absorbed MLA)")
+    quant = _check_scales(k_pool, v_pool, k_scale, v_scale)
+    if not q.is_cuda:
+        return paged_flash_verify_ref(q, k_pool, v_pool, tables, kv_lens,
+                                      layer, sm_scale, k_scale, v_scale)
+    if quant:
+        return paged_flash_verify_int8kv(q, k_pool, v_pool, k_scale,
+                                         v_scale, tables, kv_lens, layer,
+                                         sm_scale)
+    if not (q.dtype == k_pool.dtype == v_pool.dtype):
+        raise NotImplementedError(
+            f"q {q.dtype} with {k_pool.dtype} pools (quantized KV)")
+    out = _launch(q, k_pool, v_pool, None, None, tables, kv_lens, layer,
+                  sm_scale, "paged_flash_verify")
+    paged_flash_verify.launches += 1
+    return out
+
+
+paged_flash_verify.launches = 0
+
+
+def paged_flash_verify_int8kv(q, k_pool, v_pool, k_scale, v_scale, tables,
+                              kv_lens, layer: int,
+                              sm_scale: float | None = None) -> torch.Tensor:
+    """The INT8-KV form of :func:`paged_flash_verify`: q [B, S, N, D] bf16
+    or f32 against int8 pools and their f32 scale pools."""
+    if not q.is_cuda:
+        return paged_flash_verify_ref(q, k_pool, v_pool, tables, kv_lens,
+                                      layer, sm_scale, k_scale, v_scale)
+    _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale)
+    out = _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
+                  layer, sm_scale, "paged_flash_verify_int8kv")
+    paged_flash_verify_int8kv.launches += 1
+    return out
+
+
+paged_flash_verify_int8kv.launches = 0
+
+
+def _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale):
+    check_scale_pools(k_pool, v_pool, k_scale, v_scale)
+    if any(t.device != q.device for t in (k_scale, v_scale)):
+        raise ValueError("q and the scale pools must share a device")
+
+
 def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
             sm_scale, what):
-    b, n, d = q.shape
+    """The kernel on q [B, S, N, D] (S = 1: decode) -> [B, S, N, D]."""
+    b, s, n, d = q.shape
     n_layers, p1, kvn, ps, pd = k_pool.shape
     if pd != d or v_pool.shape != k_pool.shape:
         raise ValueError("pools must be matching [L, P+1, kvN, ps, D]")
     if n % kvn:
         raise ValueError(f"{n} heads do not group over {kvn} kv heads")
+    if (n // kvn) * s > MAX_ROWS:
+        raise NotImplementedError(
+            f"{n // kvn} heads per kv head x {s} window rows (the kernel "
+            f"holds at most {MAX_ROWS} query rows per block)")
     if d not in HEAD_DIMS:
         raise NotImplementedError(f"head_dim {d} (kernel takes {HEAD_DIMS})")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
@@ -134,8 +221,8 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
     if not 0 <= layer < n_layers:
         raise IndexError(f"layer {layer} out of range")
     code = cuda_build.dtype_code(q.dtype)
-    out = torch.empty((b, n, d), dtype=q.dtype, device=q.device)
-    if b == 0:
+    out = torch.empty((b, s, n, d), dtype=q.dtype, device=q.device)
+    if b == 0 or s == 0:
         return out
     if q.stride(-1) != 1 or q.stride(-2) != d:
         q = q.contiguous()
@@ -146,11 +233,11 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
     lib = cuda_build.load()
     rc = lib.sli_paged_flash_decode(
-        q.data_ptr(), q.stride(0), k_pool.data_ptr(), v_pool.data_ptr(),
-        0 if k_scale is None else k_scale.data_ptr(),
+        q.data_ptr(), q.stride(0), q.stride(1), k_pool.data_ptr(),
+        v_pool.data_ptr(), 0 if k_scale is None else k_scale.data_ptr(),
         0 if v_scale is None else v_scale.data_ptr(),
         tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), b, layer, p1,
-        kvn, ps, tables.shape[1], n // kvn, d, scale, code,
+        kvn, ps, tables.shape[1], n // kvn, s, d, scale, code,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, rc, what)
     return out

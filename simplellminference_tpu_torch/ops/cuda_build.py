@@ -38,8 +38,8 @@ _F = ctypes.c_float
 
 # C signatures of csrc/*.cu (every launcher returns an int status).
 _SIGNATURES = {
-    "sli_paged_append_decode": [_P, _P, _P, _P, _L, _L, _P, _P, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _P],
+    "sli_paged_append_span": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _P],
     "sli_paged_append_prefill": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _P],
     "sli_paged_append_decode_quant": [_P, _P, _P, _P, _P, _P, _L, _L, _P, _P,
@@ -49,8 +49,8 @@ _SIGNATURES = {
                                        _I, _I, _P],
     "sli_flash_prefill": [_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _L,
                           _I, _I, _I, _I, _I, _F, _I, _P],
-    "sli_paged_flash_decode": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "sli_paged_flash_decode": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "sli_paged_flash_prefill": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                 _I, _P],

@@ -1,9 +1,12 @@
-"""In-place paged KV writes: one decode row per sequence, and whole prompt
-pages at prefill, into bf16/f32 pools or, quantizing, into INT8 pools.
+"""In-place paged KV writes: one decode row per sequence, a span of T <= 8
+consecutive rows per sequence (speculative verify), and whole prompt pages
+at prefill, into bf16/f32 pools or, quantizing, into INT8 pools.
 
-Counterpart of simplellminference_tpu/ops/paged_append.py:54, :129 (bf16
-and f32 pools) and :210, :295 (the ``*_quant`` forms for INT8 pools with
-per-token-per-head f32 scale pools). For CUDA tensors the wrappers launch
+Counterpart of simplellminference_tpu/ops/paged_append.py:54, :129, :392
+(bf16 and f32 pools) and :210, :295 (the ``*_quant`` forms for INT8 pools
+with per-token-per-head f32 scale pools; an INT8 span is quantized and
+written by plain torch ops, as the JAX package leaves it to XLA). For
+CUDA tensors the wrappers launch
 the hand-written kernels of ``csrc/paged_append.cu`` and
 ``csrc/paged_append_quant.cu``; for CPU tensors they run the plain
 versions below (``*_ref``), which are also what the kernels are held
@@ -23,6 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from simplellminference_tpu_torch.ops import cuda_build
+
+SPAN_MAX = 8   # rows a span writes per sequence (the JAX kernel's _ROWS)
 
 
 def _pages(tables: torch.Tensor, cols: torch.Tensor,
@@ -59,6 +64,14 @@ def _decode_slots(tables, positions, p1, ps):
     return page, torch.where(pos >= 0, pos % ps, 0)
 
 
+def span_slots(tables, positions, t: int, p1: int, ps: int):
+    """(page [B, t], slot [B, t]) of rows positions[b] + 0..t-1: the trash
+    page for an unmapped page, a column past the table or a negative
+    position (slot 0)."""
+    pos = positions.long()[:, None] + torch.arange(t, device=positions.device)
+    return _decode_slots(tables, pos, p1, ps)
+
+
 def paged_append_decode_ref(pool_k, pool_v, new_k, new_v, tables, positions,
                             layer: int):
     """Plain version of :func:`paged_append_decode` (in place)."""
@@ -72,6 +85,21 @@ def paged_append_decode_ref(pool_k, pool_v, new_k, new_v, tables, positions,
 
 
 paged_append_decode_ref.cuda_calls = 0
+
+
+def paged_append_span_ref(pool_k, pool_v, new_k, new_v, tables, positions,
+                          layer: int):
+    """Plain version of :func:`paged_append_span` (in place)."""
+    if pool_k.is_cuda:
+        paged_append_span_ref.cuda_calls += 1
+    page, slot = span_slots(tables, positions, new_k.shape[1],
+                            pool_k.shape[1], pool_k.shape[3])
+    pool_k[layer][page, :, slot, :] = new_k.to(pool_k.dtype)
+    pool_v[layer][page, :, slot, :] = new_v.to(pool_v.dtype)
+    return pool_k, pool_v
+
+
+paged_append_span_ref.cuda_calls = 0
 
 
 def _page_chunks(x, npg, ps):
@@ -242,24 +270,67 @@ def paged_append_decode(pool_k, pool_v, new_k, new_v, tables, positions,
         return pool_k, pool_v
     nk = _rows(new_k, kvn, d, pool_k.dtype)
     nv = _rows(new_v, kvn, d, pool_v.dtype)
-    tables = _index(tables, b, "tables")
-    positions = _index(positions, b, "positions")
-    es = pool_k.element_size()
-    row_bytes = d * es
-    kbs, vbs = nk.stride(0) * es, nv.stride(0) * es
-    lib = cuda_build.load()
-    rc = lib.sli_paged_append_decode(
-        pool_k.data_ptr(), pool_v.data_ptr(), nk.data_ptr(), nv.data_ptr(),
-        kbs, vbs, tables.data_ptr(), positions.data_ptr(), layer, p1, kvn,
-        ps, row_bytes, tables.shape[1], b,
-        _vec16(row_bytes, pool_k, pool_v, nk, nv, kbs, vbs),
-        torch.cuda.current_stream(pool_k.device).cuda_stream)
-    cuda_build.check(lib, rc, "paged_append_decode")
+    _launch_rows(pool_k, pool_v, nk[:, None], nv[:, None], tables, positions,
+                 layer, "paged_append_decode")
     paged_append_decode.launches += 1
     return pool_k, pool_v
 
 
 paged_append_decode.launches = 0
+
+
+def paged_append_span(pool_k, pool_v, new_k, new_v, tables, positions,
+                      layer: int):
+    """Write T <= 8 consecutive tokens per sequence, starting at
+    ``positions[b]``, into the stacked pools in place (the speculative
+    verify step: T = draft + 1). Row t goes to table column
+    (positions[b] + t) // ps, so a span may cross a page boundary; a
+    column past the table or an unmapped (-1) page goes to the trash page.
+
+    pool_k/v: [L, P+1, kvN, ps, D]; new_k/v: [B, T, kvN, D]; tables:
+    [B, MP]; positions: [B]; ``layer``: int. Returns (pool_k, pool_v)."""
+    if pool_v is None:
+        raise NotImplementedError("shared-KV pools (absorbed MLA)")
+    if not pool_k.is_cuda:
+        return paged_append_span_ref(pool_k, pool_v, new_k, new_v, tables,
+                                     positions, layer)
+    _check_pools(pool_k, pool_v, new_k, layer)
+    n_layers, p1, kvn, ps, d = pool_k.shape
+    b, t = new_k.shape[:2]
+    if not 1 <= t <= SPAN_MAX:
+        raise ValueError(f"a span of {t} rows (the kernel takes 1 to "
+                         f"{SPAN_MAX})")
+    if b == 0:
+        return pool_k, pool_v
+    nk = _rows(new_k, kvn, d, pool_k.dtype)
+    nv = _rows(new_v, kvn, d, pool_v.dtype)
+    _launch_rows(pool_k, pool_v, nk, nv, tables, positions, layer,
+                 "paged_append_span")
+    paged_append_span.launches += 1
+    return pool_k, pool_v
+
+
+paged_append_span.launches = 0
+
+
+def _launch_rows(pool_k, pool_v, nk, nv, tables, positions, layer, what):
+    """The row-copy kernel: nk/nv [B, T, kvN, D] (kvN, D contiguous)."""
+    _, p1, kvn, ps, d = pool_k.shape
+    b, t = nk.shape[:2]
+    tables = _index(tables, b, "tables")
+    positions = _index(positions, b, "positions")
+    es = pool_k.element_size()
+    row_bytes = d * es
+    st = [nk.stride(0) * es, nk.stride(1) * es, nv.stride(0) * es,
+          nv.stride(1) * es]
+    lib = cuda_build.load()
+    rc = lib.sli_paged_append_span(
+        pool_k.data_ptr(), pool_v.data_ptr(), nk.data_ptr(), nv.data_ptr(),
+        *st, tables.data_ptr(), positions.data_ptr(), layer, p1, kvn, ps,
+        row_bytes, tables.shape[1], b, t,
+        _vec16(row_bytes, pool_k, pool_v, nk, nv, *st),
+        torch.cuda.current_stream(pool_k.device).cuda_stream)
+    cuda_build.check(lib, rc, what)
 
 
 def paged_append_prefill(pool_k, pool_v, new_k, new_v, tables, layer: int):

@@ -1,5 +1,6 @@
 """Token sampling on the device: greedy, temperature, top-k, top-p, min-p,
-repetition / frequency / presence penalties and logit bias.
+repetition / frequency / presence penalties and logit bias, and the
+speculative acceptance and residual draws.
 
 Counterpart of simplellminference_tpu/ops/sampling.py:18-296 with the same
 semantics and cost tiers (all-greedy batches pay one argmax; sampling
@@ -12,9 +13,10 @@ device-to-host sync.
 Random bits: a seeded row draws Gumbel noise from a counter-based hash of
 (seed, position, token id) — the role of the JAX package's
 ``fold_in(fold_in(key, seed), position)`` threefry keys, and like them
-independent of batch composition. The bits differ from JAX's, so only
-greedy rows are token-exact across the two packages; sampled rows agree
-in distribution. CPU and CUDA give the same bits.
+independent of batch composition. The speculative draws key (seed,
+position) on streams of their own (:func:`spec_row_keys`). The bits differ
+from JAX's, so only greedy rows are token-exact across the two packages;
+sampled rows agree in distribution. CPU and CUDA give the same bits.
 """
 
 from __future__ import annotations
@@ -47,11 +49,16 @@ def apply_penalties(logits, counts, repetition_penalty, frequency_penalty,
 
 def apply_logit_bias(logits, bias_ids, bias_vals) -> torch.Tensor:
     """OpenAI-style logit_bias: sparse per-row (token id, bias) pairs
-    [B, K], id -1 = unused slot. logits [B, V] -> biased f32 logits."""
+    [B, K], id -1 = unused slot. logits [B, V], or [B, S, V] (the same
+    row bias at every window position) -> biased f32 logits."""
     v = logits.shape[-1]
     safe = bias_ids.long().clamp(0, v - 1)
     vals = torch.where(bias_ids >= 0, bias_vals.float(),
                        torch.zeros((), device=logits.device))
+    if logits.ndim == 3:
+        s = logits.shape[1]
+        safe = safe[:, None].expand(-1, s, -1)
+        vals = vals[:, None].expand(-1, s, -1)
     return logits.float().scatter_add(-1, safe, vals)
 
 
@@ -72,17 +79,47 @@ def _hash32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def _row_keys(seeds: torch.Tensor, seed_pos: torch.Tensor) -> torch.Tensor:
+    """[B] 32-bit keys (int64) of (seed, position)."""
+    s = _hash32(seeds.long() & _M32)
+    p = _hash32((seed_pos.long() & _M32) ^ 0x9E3779B9)
+    return _hash32(s ^ _mul32(p, 0x85EBCA6B))
+
+
+def _uniform(bits: torch.Tensor) -> torch.Tensor:
+    """f32 uniforms in (0, 1) from the top 24 of 32 hashed bits."""
+    return ((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def _gumbel(keys: torch.Tensor, v: int) -> torch.Tensor:
+    """[B, V] f32 Gumbel noise keyed by (row key, token id)."""
+    tok = torch.arange(v, dtype=torch.int64, device=keys.device)[None]
+    u = _uniform(_hash32(keys[:, None] ^ _hash32(tok ^ 0x68E31DA4)))
+    return -torch.log(-torch.log(u))
+
+
 def row_gumbel(seeds: torch.Tensor, seed_pos: torch.Tensor,
                v: int) -> torch.Tensor:
     """[B, V] f32 Gumbel noise keyed by (seed, position, token id)."""
-    dev = seeds.device
-    s = _hash32(seeds.long() & _M32)
-    p = _hash32((seed_pos.long() & _M32) ^ 0x9E3779B9)
-    row = _hash32(s ^ _mul32(p, 0x85EBCA6B))[:, None]
-    tok = torch.arange(v, dtype=torch.int64, device=dev)[None]
-    bits = _hash32(row ^ _hash32(tok ^ 0x68E31DA4))
-    u = ((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))   # (0, 1)
-    return -torch.log(-torch.log(u))
+    return _gumbel(_row_keys(seeds, seed_pos), v)
+
+
+def spec_row_keys(seeds: torch.Tensor, seed_pos: torch.Tensor,
+                  tag: int) -> torch.Tensor:
+    """[B] keys for the speculative accept/residual draws: the (seed,
+    position) key mixed with a stream ``tag`` (1: the acceptance uniform,
+    2: the residual draw), so neither shares bits with the other or with
+    the plain path's draw at the same position (simplellminference_tpu/
+    ops/sampling.py:162-170)."""
+    tag_bits = _hash32(torch.full_like(seeds, tag, dtype=torch.int64)
+                       ^ 0x3C6EF372)
+    return _hash32(_row_keys(seeds, seed_pos) ^ _mul32(tag_bits, 0xC2B2AE35))
+
+
+def row_uniform(keys: torch.Tensor) -> torch.Tensor:
+    """[B] f32 uniforms in (0, 1), one per row key (the role of
+    ``jax.random.uniform`` on a key)."""
+    return _uniform(_hash32(keys ^ 0x27D4EB2F))
 
 
 def _shaped(logits, temperature, top_k, top_p, min_p) -> torch.Tensor:
@@ -104,6 +141,56 @@ def _shaped(logits, temperature, top_k, top_p, min_p) -> torch.Tensor:
     keep = keep & (probs >= min_p[:, None] * probs[:, :1])
     masked = torch.where(keep, sv, torch.full_like(sv, float("-inf")))
     return torch.full_like(scaled, float("-inf")).scatter(-1, si, masked)
+
+
+def _shaped_or_scaled(logits, temperature, top_k, top_p, min_p,
+                      shaping_on: Optional[bool]) -> torch.Tensor:
+    """The shaped logits of :func:`_shaped`, or only temperature-scaled
+    where no row filters (``shaping_on`` False; None reads the tensors)."""
+    if shaping_on is None:
+        shaping_on = not bool((top_k <= 0).all() & (top_p >= 1.0).all()
+                              & (min_p <= 0.0).all())
+    if shaping_on:
+        return _shaped(logits, temperature, top_k, top_p, min_p)
+    return logits.float() / torch.clamp(temperature, min=1e-6)[:, None]
+
+
+def shaped_token_prob(logits: torch.Tensor, tok: torch.Tensor,
+                      temperature: torch.Tensor, top_k: torch.Tensor,
+                      top_p: torch.Tensor, min_p: torch.Tensor,
+                      shaping_on: Optional[bool] = None) -> torch.Tensor:
+    """P(tok) under the shaped sampling distribution (temperature, then
+    top-k/top-p/min-p, renormalized): the acceptance probability of a
+    drafted token in speculative rejection sampling (a point-mass
+    proposal is accepted with probability p_target(tok)). logits [B, V],
+    tok [B] -> [B] f32 (0 for a filtered-out token)."""
+    shaped = _shaped_or_scaled(logits, temperature, top_k, top_p, min_p,
+                               shaping_on)
+    probs = torch.softmax(shaped, dim=-1)
+    return probs.gather(-1, tok.long()[:, None])[:, 0]
+
+
+def sample_excluding(logits: torch.Tensor, temperature: torch.Tensor,
+                     top_k: torch.Tensor, top_p: torch.Tensor,
+                     min_p: torch.Tensor, exclude: torch.Tensor,
+                     keys: torch.Tensor,
+                     shaping_on: Optional[bool] = None) -> torch.Tensor:
+    """Draw from the shaped distribution with token ``exclude`` removed
+    and renormalized: the residual draw after a speculative rejection
+    (for a point-mass proposal at d, max(0, p - q) / Z is p conditioned
+    on != d). ``exclude`` [B] (-1: nothing); ``keys`` [B] from
+    :func:`spec_row_keys`. A row whose support the exclusion empties
+    draws from the full shaped row. Gumbel-max in token order. -> [B]
+    int32."""
+    shaped = _shaped_or_scaled(logits, temperature, top_k, top_p, min_p,
+                               shaping_on)
+    v = shaped.shape[-1]
+    tok = torch.arange(v, device=shaped.device)[None]
+    excluded = torch.where(tok == exclude.long()[:, None],
+                           torch.full_like(shaped, float("-inf")), shaped)
+    ok = (excluded > float("-inf")).any(dim=-1, keepdim=True)
+    shaped = torch.where(ok, excluded, shaped)
+    return torch.argmax(shaped + _gumbel(keys, v), dim=-1).to(torch.int32)
 
 
 def sample(logits: torch.Tensor, temperature: torch.Tensor,
@@ -153,13 +240,8 @@ def sample(logits: torch.Tensor, temperature: torch.Tensor,
     gr = greedy(lf)
     if all_greedy:
         return gr
-    if shaping_on is None:
-        shaping_on = not bool((top_k <= 0).all() & (top_p >= 1.0).all()
-                              & (min_p <= 0.0).all())
-    if shaping_on:
-        shaped = _shaped(lf, temperature, top_k, top_p, min_p)
-    else:
-        shaped = lf / torch.clamp(temperature, min=1e-6)[:, None]
+    shaped = _shaped_or_scaled(lf, temperature, top_k, top_p, min_p,
+                               shaping_on)
     if seeds is None:
         raise ValueError("sampled rows need seeds and seed_pos")
     g = row_gumbel(seeds, seed_pos, v)

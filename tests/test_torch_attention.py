@@ -23,7 +23,7 @@ from simplellminference_tpu_torch.ops.attention import dispatch
 from simplellminference_tpu_torch.ops.attention.flash_prefill import (
     flash_prefill)
 from simplellminference_tpu_torch.ops.attention.paged_decode import (
-    paged_flash_decode)
+    paged_flash_decode, paged_flash_verify)
 
 RTOL, ATOL = 1e-5, 2e-6
 
@@ -107,8 +107,12 @@ def test_attention_paged_dispatch_shapes():
         torch.from_numpy(pv), torch.from_numpy(tables), torch.from_numpy(kv),
         0)
     assert out.shape == (2, 1, 4, 32)
+    # a multi-row window is a speculative verify step
+    q3 = torch.from_numpy(rand(rng, 2, 3, 4, 32))
+    args = tuple(torch.from_numpy(a) for a in (pk, pv, tables, kv))
+    out3 = dispatch.attention_paged(cfg, q3, *args, 0)
+    assert out3.shape == (2, 3, 4, 32)
+    assert torch.equal(out3, paged_flash_verify(q3, *args, 0))
     with pytest.raises(NotImplementedError):
-        dispatch.attention_paged(
-            cfg, torch.zeros(2, 3, 4, 32), torch.from_numpy(pk),
-            torch.from_numpy(pv), torch.from_numpy(tables),
-            torch.from_numpy(kv), 0)
+        dispatch.attention_paged(ModelConfig.tiny_test(sliding_window=4), q3,
+                                 *args, 0)

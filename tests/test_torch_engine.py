@@ -207,7 +207,7 @@ def test_sampled_requests_are_seeded_and_finish(model):
 
 
 @pytest.mark.parametrize("kw,feature", [
-    (dict(spec_tokens=2), "speculative decoding"),
+    (dict(sp_prefill_threshold=64), "sequence-parallel"),
     (dict(top_logprobs=2), "top_logprobs"),
     (dict(mesh_shape={"model": 2}), "tensor-parallel"),
     (dict(kv=KVCacheConfig(kv_dtype="fp8")), "FP8 KV"),

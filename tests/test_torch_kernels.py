@@ -587,3 +587,133 @@ def test_int8kv_engine_card_matches_cpu(cuda):
         outs = [Engine(cfg, pp_, ecfg, decode_burst=4, device=dev).generate(
             prompts, s) for pp_, dev in ((p, "cpu"), (_to(p, cuda), cuda))]
         assert outs[0] == outs[1]
+
+
+def _span_inputs(g, dev, dtype, span):
+    # row 0 crosses a page boundary, row 1 runs into an unmapped column,
+    # row 2 is a dead slot (all -1), row 3 runs past the last column
+    pk, pv = _pools(g, dev, dtype, b=4, kvn=4, ps=16, d=64, mp=3)
+    tables = torch.tensor([[4, 1, 7], [0, 2, -1], [-1, -1, -1], [3, 5, 6]],
+                          dtype=torch.int32, device=dev)
+    pos = torch.tensor([14, 29, 0, 44], dtype=torch.int32, device=dev)
+    big = torch.randn((4, span, 3 * 4 * 64), generator=g, device=dev,
+                      dtype=dtype)
+    nk = big[..., :256].reshape(4, span, 4, 64)
+    nv = big[..., 512:].reshape(4, span, 4, 64)      # strided views
+    return pk, pv, nk, nv, tables, pos
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("span", [1, 5, 8])
+def test_paged_append_span(cuda, dtype, span):
+    g = torch.Generator(device=cuda).manual_seed(span)
+    pk, pv, nk, nv, tables, pos = _span_inputs(g, cuda, dtype, span)
+    a, r = (pk.clone(), pv.clone()), (pk.clone(), pv.clone())
+    before = pa.paged_append_span.launches
+    pa.paged_append_span(*a, nk, nv, tables, pos, 1)
+    assert pa.paged_append_span.launches == before + 1
+    pa.paged_append_span_ref(*r, nk, nv, tables, pos, 1)
+    for x, y in zip(a, r):
+        assert torch.equal(x[:, :-1], y[:, :-1])
+
+
+def _verify_case(g, dev, dtype, s, n, kvn, d, int8):
+    lens = [s, 128, 129 + s, 200, 0, 57 + s]
+    b, ps, mp = len(lens), 128, 3
+    if int8:
+        pools = _quant_pools(g, dev, b=b, kvn=kvn, ps=ps, d=d, mp=mp)
+    else:
+        pools = _pools(g, dev, dtype, b=b, kvn=kvn, ps=ps, d=d, mp=mp)
+    q = torch.randn((b, s, n, d), generator=g, device=dev, dtype=dtype)
+    tables = torch.randperm(b * mp, generator=g, device=dev).to(
+        torch.int32).reshape(b, mp)
+    tables[-2] = -1                  # a dead slot: every entry unmapped
+    return q, pools, tables, torch.tensor(lens, dtype=torch.int32,
+                                          device=dev)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float-kv", "int8-kv"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [1, 2, 5, 8])
+@pytest.mark.parametrize("n,kvn,d", [(32, 32, 128), (32, 8, 128),
+                                     (32, 4, 64)])
+def test_paged_flash_verify(cuda, int8, dtype, s, n, kvn, d):
+    g = torch.Generator(device=cuda).manual_seed(s * 100 + kvn)
+    q, pools, tables, kv = _verify_case(g, cuda, dtype, s, n, kvn, d, int8)
+    scales = dict(k_scale=pools[2], v_scale=pools[3]) if int8 else {}
+    kern = pd.paged_flash_verify_int8kv if int8 else pd.paged_flash_verify
+    others = [f for f in (pd.paged_flash_verify, pd.paged_flash_verify_int8kv,
+                          pd.paged_flash_decode,
+                          pd.paged_flash_decode_int8kv) if f is not kern]
+    before = (kern.launches, [f.launches for f in others])
+    got = pd.paged_flash_verify(q, pools[0], pools[1], tables, kv, 1,
+                                **scales)
+    assert (kern.launches, [f.launches for f in others]) == (
+        before[0] + 1, before[1])
+    want = pd.paged_flash_verify_ref(q, pools[0], pools[1], tables, kv, 1,
+                                     **scales)
+    assert got.shape == q.shape and got.dtype == dtype
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
+    assert not got[4].any()          # kv_len 0 -> zero output
+
+
+def test_spec_engine_runs_the_kernels_only(cuda):
+    # spec_tokens=3 on both weight paths over f32 and INT8 KV, with the
+    # prefix cache and chunked prefill: the verify window writes spans and
+    # attends with the verify kernels, no single-row decode kernel runs,
+    # no plain version runs
+    cfg = ModelConfig.tiny_test(num_layers=2)
+    refs = (pa.paged_append_span_ref, pa.paged_append_decode_ref,
+            pa.paged_append_prefill_ref, pa.paged_append_decode_quant_ref,
+            pa.paged_append_prefill_quant_ref, fp.flash_prefill_ref,
+            pd.paged_flash_decode_ref, pd.paged_flash_verify_ref,
+            pp.paged_flash_prefill_ref, mm.quantized_matmul_ref,
+            qf.fused_qkv_append_ref, ff.fused_ffn_ref)
+    decode_kernels = (pa.paged_append_decode, pa.paged_append_decode_quant,
+                      pd.paged_flash_decode, pd.paged_flash_decode_int8kv,
+                      qf.fused_qkv_append, qf.fused_qkv_append_int8kv)
+    calls = [f.cuda_calls for f in refs]
+    decode = [f.launches for f in decode_kernels]
+    system = list(range(3, 35))
+    waves = [[[5, 6, 7, 8] * 4], [system + [40]],
+             [system + [41, 42], system + [43] * 9]]
+    for kv_dtype, verify in (("f32", pd.paged_flash_verify),
+                             ("int8", pd.paged_flash_verify_int8kv)):
+        for params in (llama.init_params(cfg, seed=0, device=cuda),
+                       _int8_params(cfg, 0, cuda)):
+            kerns = (verify, ) + ((pa.paged_append_span, )
+                                  if kv_dtype == "f32" else ())
+            launches = [f.launches for f in kerns]
+            eng = Engine(cfg, params, EngineConfig(
+                max_batch_size=4, prefill_chunk=16, spec_tokens=3,
+                kv=KVCacheConfig(page_size=8, num_pages=64,
+                                 max_pages_per_seq=8, kv_dtype=kv_dtype)),
+                decode_burst=4)
+            outs = [eng.generate(w, SamplingParams(max_new_tokens=6))
+                    for w in waves]
+            assert all(len(o) == 6 for w in outs for o in w)
+            assert all(f.launches > n for f, n in zip(kerns, launches))
+            assert eng.metrics.spec_steps > 0
+    assert [f.launches for f in decode_kernels] == decode
+    assert [f.cuda_calls for f in refs] == calls
+
+
+def test_spec_engine_card_matches_cpu(cuda):
+    cfg = ModelConfig.tiny_test(num_layers=2)
+    p_cpu = llama.init_params(cfg, seed=3, device="cpu")
+    prompts = [[5, 6, 7, 8] * 5, [9, 1, 2, 3] * 4, list(range(20, 40))]
+    s = SamplingParams(max_new_tokens=16)
+    for kv_dtype in ("f32", "int8"):
+        ecfg = EngineConfig(max_batch_size=3, prefill_chunk=16,
+                            spec_tokens=4,
+                            kv=KVCacheConfig(page_size=8, num_pages=64,
+                                             max_pages_per_seq=8,
+                                             kv_dtype=kv_dtype))
+        for p in (p_cpu, _int8_params(cfg, 3, "cpu")):
+            engs = [Engine(cfg, pp_, ecfg, decode_burst=4, device=dev)
+                    for pp_, dev in ((p, "cpu"), (_to(p, cuda), cuda))]
+            outs = [e.generate(prompts, s) for e in engs]
+            assert outs[0] == outs[1]
+            got = [(e.metrics.spec_steps, e.metrics.spec_accepted)
+                   for e in engs]
+            assert got[0] == got[1] and got[0][1] > 0
