@@ -124,6 +124,7 @@ LOGIT_TOL = 1e-3
 LOGIT_TOL_CODE_APART = 1e-2
 RATE_RUNS = 5                       # engine runs per length for the rate
 SPEC_RATE_RUNS = 3                  # the same, per engine on the spec paths
+DRAFT_TOKENS = 4                    # spec_tokens of the `draft` path
 PHASES = ("device", "build", "kernels", "engine", "cpu")
 
 KERNELS = {
@@ -178,6 +179,16 @@ KERNELS = {
     "paged_flash_verify_int8kv": dict(
         source="simplellminference_tpu_torch/csrc/paged_decode.cu",
         replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    # the dense path: kernels 12 and 13 and the dense-arena form of 6
+    "kv_append": dict(
+        source="simplellminference_tpu_torch/csrc/paged_append.cu",
+        replaces="simplellminference_tpu/ops/kv_append.py:63"),
+    "flash_decode": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_decode.py:114"),
+    "fused_qkv_append_dense": dict(
+        source="simplellminference_tpu_torch/csrc/qkv_fused.cu",
+        replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
 }
 # the Engine's paths, in order: bench.py's weight paths (prefix cache
 # off), then the server's default configuration (prefix cache on,
@@ -185,9 +196,11 @@ KERNELS = {
 # --kv-dtype int8 (INT8 weights) and the server CLI's --kv-dtype int8
 # (bf16 weights, the prefix cache on); then prompt-lookup speculation:
 # the server CLI's --spec-tokens 4 (bf16 weights and KV, the prefix cache
-# on) and bench.py --kv-dtype int8 with spec_tokens=4
+# on) and bench.py --kv-dtype int8 with spec_tokens=4; then the dense
+# path: bench.py's Generator (INT8 weights, and bf16 under --fp) and
+# draft-model speculation (the spec engine drafted by TinyLlama-1.1B)
 PATHS = ("int8", "bf16", "prefix", "int8kv", "int8kv_prefix", "spec",
-         "spec_int8kv")
+         "spec_int8kv", "dense", "dense_bf16", "draft")
 
 
 class SmokeFailure(Exception):
@@ -1329,6 +1342,257 @@ def check_paged_verify(torch, dev, results, quant: bool):
     results[name] = main
 
 
+def _arena(torch, gen, dev, layers, rows, kvn, smax, d, dtype):
+    shape = (layers, rows, kvn, smax, d)
+    return (torch.randn(shape, generator=gen, device=dev, dtype=dtype),
+            torch.randn(shape, generator=gen, device=dev, dtype=dtype))
+
+
+def draft_arena_shape() -> tuple[int, int]:
+    """Layers and slots per row of the `draft` path's arena: TinyLlama-
+    1.1B's depth and the Engine's slot count for that path's engine
+    configuration (:func:`serve_draft` checks the arena it serves)."""
+    from simplellminference_tpu_torch.core.config import ModelConfig
+    from simplellminference_tpu_torch.engine.engine import draft_arena_slots
+    return (ModelConfig.tinyllama_1_1b().num_layers,
+            draft_arena_slots(spec_engine_config(DRAFT_TOKENS, "bf16", 8, 0)))
+
+
+def check_kv_append(torch, dev, results, extra):
+    """Kernel 12 byte-equal to its plain version over the whole arena: the
+    dense paths' decode (S = 1) and prefill (S = 128) calls at 7B width,
+    bf16; the `draft` path's calls into its own arena (22 layers, 8320
+    slots, kvN 4, D 64, bf16: the prefill of 8 gathered rows at S = 128,
+    the rollout's B + 1 = 9 rows at S = 1); f32 GQA rows at and past Smax
+    (dropped) and a prefill block running past it; fewer rows than the
+    arena. Timed at the decode call (the row) and the prefill call."""
+    from simplellminference_tpu_torch.ops.kv_append import (kv_append,
+                                                            kv_append_ref)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    bf, f32 = torch.bfloat16, torch.float32
+    dl, dslots = draft_arena_shape()
+    # tag: (layers, rows, arena rows, S, kvN, D, Smax, dtype, offsets)
+    cases = {
+        "llama2-7b decode": (2, 8, 8, 1, 32, 128, 256, bf,
+                             [128 + 4 * i for i in range(8)]),
+        "llama2-7b prefill": (2, 8, 8, 128, 32, 128, 256, bf, [0] * 8),
+        "draft prefill": (dl, 8, 8, 128, 4, 64, dslots, bf, [0] * 8),
+        "draft rollout": (dl, 9, 9, 1, 4, 64, dslots, bf,
+                          [128 + 8 * i for i in range(8)] + [0]),
+        "gqa f32 decode at/past Smax": (2, 9, 9, 1, 4, 64, 384, f32,
+                                        [0, 1, 383, 384, 390, 7, 100, 200,
+                                         0]),
+        "gqa f32 prefill past Smax": (2, 4, 5, 128, 4, 64, 384, f32,
+                                      [0, 8, 300, 384]),
+        "bf16 S=8 odd offsets": (2, 3, 5, 8, 4, 64, 384, bf, [3, 17, 380]),
+    }
+    timed = list(cases)[:2]
+    for tag, (nl, b, rows, s, kvn, d, smax, dtype, offs) in cases.items():
+        layer = nl - 1
+        ck, cv = _arena(torch, gen, dev, nl, rows, kvn, smax, d, dtype)
+        qkv = torch.randn((b, s, 3 * kvn * d), generator=gen, device=dev,
+                          dtype=dtype)
+        nk = qkv[..., kvn * d:2 * kvn * d].reshape(b, s, kvn, d)
+        nv = qkv[..., 2 * kvn * d:].reshape(b, s, kvn, d)   # strided views
+        off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        a, r = (ck.clone(), cv.clone()), (ck.clone(), cv.clone())
+        kv_append(*a, nk, nv, layer, off)
+        kv_append_ref(*r, nk, nv, layer, off)
+        torch.cuda.synchronize()
+        err = max(max_err(x, y) for x, y in zip(a, r))
+        print(f"[kernels] kv_append {tag} (B={b} into {rows} rows, S={s}, "
+              f"L={nl}, Smax={smax}): max|err| {err} (tol 0, exact; whole "
+              f"arena)",
+              flush=True)
+        require(err == 0.0, f"kv_append {tag} disagrees: {err}")
+        if tag not in timed:
+            continue
+        es = ck.element_size()
+        nbytes = 2 * 2 * b * s * kvn * d * es + b * 4
+        bms, by = bound_ms(nbytes, 0.0, dname(torch, dtype))
+        # the library yardstick: index_copy_ of the flattened rows
+        slot = off.long()[:, None, None] + torch.arange(s, device=dev)
+        row = ((torch.arange(b, device=dev)[:, None, None] * kvn
+                + torch.arange(kvn, device=dev)[None, :, None]) * smax
+               + slot).reshape(-1)
+        sk = nk.permute(0, 2, 1, 3).reshape(-1, d).contiguous()
+        sv = nv.permute(0, 2, 1, 3).reshape(-1, d).contiguous()
+        fk, fv = (x[layer].view(-1, d) for x in a)
+
+        def library():
+            fk.index_copy_(0, row, sk)
+            fv.index_copy_(0, row, sv)
+
+        res = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: kv_append(*a, nk, nv, layer, off)),
+            plain_ms=time_ms(torch, lambda: kv_append_ref(*r, nk, nv, layer,
+                                                          off)),
+            library_ms=time_ms(torch, library),
+            bound_ms=bms, bound_by=by)
+        extra.append(("kv_append", tag, res))
+        results.setdefault("kv_append", res)
+
+
+def check_flash_decode(torch, dev, results, extra):
+    """Kernel 13 against its plain version: the dense 7B decode (B 8,
+    N = kvN 32, D 128, bf16, kv_len ~150, the row), kv_len 0, 1, 161,
+    Smax and past Smax, the TinyLlama draft's shape (N 32, kvN 4, D 64:
+    GQA group 8, B + 1 = 9 rows) in bf16 and f32, the `draft` path's
+    rollout over its own arena (22 layers, 8320 slots, bf16) at kv_len
+    ~150 and at the arena's edges, and fewer sequences than arena rows.
+    Timed at the row and at the draft rollout's call (8 rows at kv_len
+    ~150 and the pad row)."""
+    import torch.nn.functional as F
+
+    from simplellminference_tpu_torch.ops.attention.flash_decode import (
+        flash_decode, flash_decode_ref)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    bf, f32 = torch.bfloat16, torch.float32
+    edge = [0, 1, 161, 256, 300, 17, 128, 255]
+    dl, dslots = draft_arena_shape()
+    # tag: (layers, B, arena rows, N, kvN, D, Smax, dtype, kv_lens)
+    cases = {
+        "llama2-7b": (2, 8, 8, 32, 32, 128, 256, bf,
+                      [145 + 2 * i for i in range(8)]),
+        "llama2-7b edge lens": (2, 8, 8, 32, 32, 128, 256, bf, edge),
+        "llama2-7b f32 edge lens": (2, 8, 8, 32, 32, 128, 256, f32, edge),
+        "draft bf16": (2, 9, 9, 32, 4, 64, 384, bf, edge + [0]),
+        "draft f32": (2, 9, 9, 32, 4, 64, 384, f32, [1, 384, 161, 0, 5, 383,
+                                                     64, 65, 2]),
+        "rows < arena": (2, 3, 5, 32, 4, 64, 384, f32, [10, 0, 200]),
+        "draft rollout": (dl, 9, 9, 32, 4, 64, dslots, bf,
+                          [145 + 2 * i for i in range(8)] + [1]),
+        "draft arena edge lens": (dl, 9, 9, 32, 4, 64, dslots, bf,
+                                  [0, 1, 161, dslots - 1, dslots,
+                                   dslots + 5, 4097, 128, 1]),
+    }
+    timed = ("llama2-7b", "draft rollout")
+    for tag, (nl, b, rows, n, kvn, d, smax, dtype, lens) in cases.items():
+        layer = nl - 1
+        ck, cv = _arena(torch, gen, dev, nl, rows, kvn, smax, d, dtype)
+        q = torch.randn((b, n, d), generator=gen, device=dev, dtype=dtype)
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = flash_decode(q, ck, cv, kv_lens, layer=layer)
+        want = flash_decode_ref(q, ck, cv, kv_lens, layer=layer)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        tol = TOL[dname(torch, dtype)]
+        zero = all(bool((got[i] == 0).all()) for i in range(b)
+                   if lens[i] == 0)
+        print(f"[kernels] flash_decode {tag} (B={b} N={n} kvN={kvn} D={d} "
+              f"L={nl} Smax={smax}): max|err| {err:.3e} (tol {tol:g}); kv_len 0 "
+              f"rows zero: {zero}", flush=True)
+        require(bool(torch.isfinite(got).all()) and err <= tol and zero,
+                f"flash_decode {tag} disagrees: {err}, zero rows {zero}")
+        if tag not in timed:
+            continue
+        live = sum(min(ln, smax) for ln in lens)
+        es = q.element_size()
+        nbytes = 2 * b * n * d * es + 2 * live * kvn * d * es + b * 4
+        bms, by = bound_ms(nbytes, 4.0 * n * d * live, dname(torch, dtype))
+        top = max(lens)
+        k4, v4 = ck[layer, :b, :, :top], cv[layer, :b, :, :top]
+        mask = (torch.arange(top, device=dev)[None, None, None, :]
+                < kv_lens.long()[:, None, None, None])
+        q4 = q[:, :, None]
+        if kvn != n:   # GQA: SDPA takes the K/V heads repeated per group
+            k4 = k4.repeat_interleave(n // kvn, dim=1)
+            v4 = v4.repeat_interleave(n // kvn, dim=1)
+        res = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: flash_decode(q, ck, cv, kv_lens,
+                                                   layer=layer)),
+            plain_ms=time_ms(torch, lambda: flash_decode_ref(
+                q, ck, cv, kv_lens, layer=layer)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask)),
+            bound_ms=bms, bound_by=by)
+        extra.append(("flash_decode", tag, res))
+        results.setdefault("flash_decode", res)
+
+
+def check_fused_qkv_dense(torch, dev, results):
+    """Form 6d against its plain version: bench.py's Generator call (7B,
+    8 rows into an 8-row bf16 arena, the row), the draft rollout's B + 1
+    rows into a (B + 1)-row arena (TinyLlama GQA, f32, a slot at Smax
+    dropped), and fewer rows than the arena (bf16)."""
+    from simplellminference_tpu_torch.ops import ref_ops
+    from simplellminference_tpu_torch.ops.qkv_fused import (
+        fused_qkv_append_dense, fused_qkv_append_ref)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    bf, f32 = torch.bfloat16, torch.float32
+    # tag: (B, arena rows, H, N, kvN, D, Smax, dtype, offsets)
+    cases = {
+        "llama2-7b": (8, 8, 4096, 32, 32, 128, 256, bf,
+                      [128 + 4 * i for i in range(8)]),
+        "draft B+1 f32": (9, 9, 2048, 32, 4, 64, 384, f32,
+                          [0, 383, 384, 10, 200, 1, 2, 3, 0]),
+        "rows < arena bf16": (5, 8, 2048, 32, 4, 64, 384, bf,
+                              [7, 0, 100, 383, 50]),
+    }
+    for tag, (b, rows, h, n, kvn, d, smax, dt, offs) in cases.items():
+        layer = 1
+        nq = (n + 2 * kvn) * d
+        wq, ws = _qweight(torch, gen, dev, (2, h, nq), 1)
+        nw = (1.0 + 0.1 * torch.randn((2, h), generator=gen, device=dev)
+              ).to(dt)
+        x = torch.randn((b, h), generator=gen, device=dev).to(dt)
+        ck, cv = _arena(torch, gen, dev, 2, rows, kvn, smax, d, dt)
+        pos = torch.tensor(offs, dtype=torch.int32, device=dev)
+        sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
+        a, r = (ck.clone(), cv.clone()), (ck.clone(), cv.clone())
+        qa, *_ = fused_qkv_append_dense(x, nw, wq, ws, sin, cos, *a, layer,
+                                        pos, n_heads=n, kv_heads=kvn)
+        qr, *_ = fused_qkv_append_ref(x, nw, wq, ws, sin, cos, *r, layer,
+                                      pos, n_heads=n, kv_heads=kvn)
+        torch.cuda.synchronize()
+        written = torch.zeros(ck.shape, dtype=torch.bool, device=dev)
+        for i, o in enumerate(offs):
+            if 0 <= o < smax:
+                written[layer, i, :, o] = True
+        err = max_err(qa, qr)
+        kv_err = max(max_err(ta[written], tr[written])
+                     for ta, tr in zip(a, r))
+        untouched = all(torch.equal(ta[~written], tr[~written])
+                        for ta, tr in zip(a, r))
+        if dt == torch.float32:
+            lim_q = F32_REL * float(qr.abs().max())
+            lim_kv = F32_REL * max(float(tr[written].abs().max())
+                                   for tr in r)
+        else:
+            lim_q = TOL["bfloat16"] * float(qr.float().std())
+            lim_kv = TOL["bfloat16"] * max(float(tr[written].float().std())
+                                           for tr in r)
+        print(f"[kernels] fused_qkv_append_dense {tag}: q max|err| "
+              f"{err:.3e} (tol {lim_q:.3e}); k/v rows {kv_err:.3e} (tol "
+              f"{lim_kv:.3e}); other arena entries equal: {untouched}",
+              flush=True)
+        require(bool(torch.isfinite(qa).all()) and err <= lim_q
+                and kv_err <= lim_kv and untouched,
+                f"fused_qkv_append_dense {tag} disagrees: {err}, {kv_err}, "
+                f"{untouched}")
+        if "fused_qkv_append_dense" in results:
+            continue
+        es, aes = x.element_size(), ck.element_size()
+        nbytes = (h * nq + nq * 4 + b * h * es + h * nw.element_size()
+                  + 2 * b * (d // 2) * 4 + b * n * d * es
+                  + 2 * b * kvn * d * aes + b * 4)
+        bms, by = bound_ms(nbytes, 2.0 * b * h * nq, dname(torch, dt))
+        qt, st = _int8pack(torch, wq[layer], ws[layer], dt)
+        results["fused_qkv_append_dense"] = dict(
+            max_abs_err=max(err, kv_err),
+            ms=time_ms(torch, lambda: fused_qkv_append_dense(
+                x, nw, wq, ws, sin, cos, *a, layer, pos, n_heads=n,
+                kv_heads=kvn)),
+            plain_ms=time_ms(torch, lambda: fused_qkv_append_ref(
+                x, nw, wq, ws, sin, cos, *r, layer, pos, n_heads=n,
+                kv_heads=kvn)),
+            library_ms=time_ms(torch, lambda: torch._weight_int8pack_mm(
+                x, qt, st)),
+            bound_ms=bms, bound_by=by)
+
+
 LIBRARY = {"paged_append_decode": "index_put_ x2",
            "paged_append_prefill": "index_copy_ x2",
            "flash_prefill": "scaled_dot_product_attention, causal",
@@ -1357,7 +1621,12 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
                                  "K/V, verify mask",
            "paged_flash_verify_int8kv": "gather + f32 dequant + "
                                         "scaled_dot_product_attention, "
-                                        "verify mask (dequant included)"}
+                                        "verify mask (dequant included)",
+           "kv_append": "index_copy_ x2 (flattened rows)",
+           "flash_decode": "scaled_dot_product_attention on the arena "
+                           "slice, length mask",
+           "fused_qkv_append_dense": "torch._weight_int8pack_mm of the qkv "
+                                     "product alone"}
 
 
 def phase_kernels(torch, results):
@@ -1379,6 +1648,9 @@ def phase_kernels(torch, results):
     check_append_span(torch, dev, results)
     check_paged_verify(torch, dev, results, quant=False)
     check_paged_verify(torch, dev, results, quant=True)
+    check_kv_append(torch, dev, results, extra)
+    check_flash_decode(torch, dev, results, extra)
+    check_fused_qkv_dense(torch, dev, results)
     torch.cuda.empty_cache()
     rows = [(name, "main path shape", r) for name, r in results.items()]
     rows += [(name, tag, r) for name, tag, r in extra]
@@ -1391,14 +1663,14 @@ def phase_kernels(torch, results):
 
 def _wrappers():
     from simplellminference_tpu_torch.ops import ffn_fused as ff
+    from simplellminference_tpu_torch.ops import kv_append as ka
     from simplellminference_tpu_torch.ops import matmul as mm
     from simplellminference_tpu_torch.ops import paged_append as pa
     from simplellminference_tpu_torch.ops import qkv_fused as qf
-    from simplellminference_tpu_torch.ops.attention import (flash_prefill as
-                                                            fp, paged_decode
-                                                            as pd,
-                                                            paged_prefill
-                                                            as pp)
+    from simplellminference_tpu_torch.ops.attention import flash_decode as fd
+    from simplellminference_tpu_torch.ops.attention import flash_prefill as fp
+    from simplellminference_tpu_torch.ops.attention import paged_decode as pd
+    from simplellminference_tpu_torch.ops.attention import paged_prefill as pp
     return {"paged_append_decode": (pa.paged_append_decode,
                                     pa.paged_append_decode_ref),
             "paged_append_prefill": (pa.paged_append_prefill,
@@ -1428,7 +1700,11 @@ def _wrappers():
             "paged_flash_verify": (pd.paged_flash_verify,
                                    pd.paged_flash_verify_ref),
             "paged_flash_verify_int8kv": (pd.paged_flash_verify_int8kv,
-                                          pd.paged_flash_verify_ref)}
+                                          pd.paged_flash_verify_ref),
+            "kv_append": (ka.kv_append, ka.kv_append_ref),
+            "flash_decode": (fd.flash_decode, fd.flash_decode_ref),
+            "fused_qkv_append_dense": (qf.fused_qkv_append_dense,
+                                       qf.fused_qkv_append_ref)}
 
 
 def reset_counts():
@@ -1967,13 +2243,241 @@ def serve_spec(torch, path: str, cfg, params, launches: dict, int8: bool,
     del eng, plain_eng
 
 
+def dense_launches(int8: bool, layers: int, steps: int) -> dict:
+    """Launches of one ``generate_fused`` call of the dense paths: the
+    8 x 128-row prefill (per layer ``kv_append`` at S = 128 and causal
+    ``flash_prefill``; with INT8 weights 4 ``quantized_matmul`` per layer
+    at m = 1024 rows plus the LM head on the 8 last rows), then ``steps``
+    decode steps, each per layer ``flash_decode`` and, with INT8 weights,
+    the dense fused qkv, ``wo`` and ``fused_ffn`` plus the LM head, with
+    bf16 weights ``kv_append`` at S = 1 (the products are cuBLAS)."""
+    want = {name: 0 for name in KERNELS}
+    want["kv_append"] += layers
+    want["flash_prefill"] += layers
+    want["flash_decode"] += layers * steps
+    if int8:
+        want["quantized_matmul"] += 4 * layers + 1 + (layers + 1) * steps
+        want["fused_qkv_append_dense"] += layers * steps
+        want["fused_ffn"] += layers * steps
+    else:
+        want["kv_append"] += layers * steps
+    return want
+
+
+def serve_dense(torch, path: str, cfg, params, launches: dict, int8: bool,
+                dev: str = "cuda"):
+    """bench.py's Generator (bench.py:208-239): max_batch 8, max_seq 1024,
+    bf16 KV, ``generate_fused`` on 8 fresh 128-token prompts. The launch
+    counts of one 64-token call (reset before, read after); the same call
+    of the device part under ``torch.cuda.set_sync_debug_mode("error")``
+    (any host sync inside it raises); ``fused_decode_toks_s`` by bench.py's
+    differencing (the fastest of three 64- and of three 32-token calls);
+    one graph-replayed decode step beside its bytes floor."""
+    import numpy as np
+
+    from simplellminference_tpu_torch.runtime.generator import Generator
+
+    batch, prompt_len, steps = 8, 128, 64
+    half = steps // 2
+    gen = Generator(cfg, params, max_batch=batch, max_seq=1024,
+                    kv_dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(0)
+
+    def prompts():
+        return [rng.integers(1, cfg.vocab_size, prompt_len).tolist()
+                for _ in range(batch)]
+
+    def timed(n: int) -> float:
+        p = prompts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = gen.generate_fused(p, max_new_tokens=n).cpu()
+        wall = time.perf_counter() - t
+        require(tuple(out.shape) == (batch, n) and bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()),
+            f"[{path}] generate_fused gave {tuple(out.shape)} / ids out of "
+            f"range")
+        return wall
+
+    timed(half)
+    timed(steps)                        # warm-up at both lengths
+    reset_counts()
+    timed(steps)
+    got = read_counts(path)
+    launches[path] = got
+    want = dense_launches(int8, cfg.num_layers, steps)
+    for name, n in want.items():
+        require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
+                f"path implies {n}")
+    tokens, lens = gen._bucket(prompts())
+    tokens, lens = gen._tensor(tokens), gen._tensor(lens)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = gen._fused_generate(tokens, lens, steps)
+    except RuntimeError as e:
+        raise SmokeFailure(f"[{path}] a host sync inside the fused loop: "
+                           f"{e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(tuple(out.shape) == (batch, steps), f"[{path}] fused loop")
+    t_full = min(timed(steps) for _ in range(3))
+    t_half = min(timed(half) for _ in range(3))
+    require(t_full > t_half, f"[{path}] {steps} tokens {t_full} s, {half} "
+            f"tokens {t_half} s")
+    toks_s = batch * (steps - half) / (t_full - t_half)
+    step_wall = (t_full - t_half) * 1e3 / (steps - half)
+    print(f"[engine:{path}] Generator.generate_fused, batch {batch} x "
+          f"{prompt_len}-token prompts: fused_decode_toks_s {toks_s} "
+          f"(fastest of three {steps}-token calls {t_full} s, of three "
+          f"{half}-token calls {t_half} s); no host sync inside the loop "
+          f"(sync debug mode 'error')", flush=True)
+    print(f"[engine:{path}] launches {json.dumps(got)}", flush=True)
+    # one decode step, graph-replayed, at the differenced segment's mean
+    # context (bench.py's roofline: prompt + 3/4 of the steps)
+    ctx = prompt_len + steps * 3 // 4
+    cache = gen.new_cache(batch, prompt_len + steps)
+    tok = torch.ones(batch, dtype=torch.int32, device=dev)
+    pos = torch.full((batch,), ctx - 1, dtype=torch.int32, device=dev)
+    step_ms = time_ms(torch, lambda: gen._decode_fn(tok, pos, cache),
+                      iters=5)
+    wbytes = step_weight_bytes(params, batch)
+    kvb = kv_bytes(cfg.num_layers, batch * ctx, cfg.num_kv_heads,
+                   cfg.head_dim, "bf16")
+    floor_ms = (wbytes + kvb) / HBM_BYTES_PER_S * 1e3
+    print(f"[engine:{path}] decode step: loop {step_wall:.3f} ms, device "
+          f"(graph replay) {step_ms:.3f} ms, bytes floor {floor_ms:.3f} ms "
+          f"({wbytes / 1e9:.3f} GB weights + {kvb / 1e9:.3f} GB KV); device "
+          f"idle share of the loop step "
+          f"{max(0.0, 1 - step_ms / step_wall):.3f}", flush=True)
+    del gen, cache
+
+
+def serve_draft(torch, path: str, cfg, params, launches: dict,
+                dev: str = "cuda"):
+    """Draft-model speculation (``Engine(draft=...)``): Llama-2-7B bf16
+    weights and KV (the `spec` path's engine: the server CLI's
+    configuration with --spec-tokens 4, burst 4) drafted by TinyLlama-1.1B
+    at full width (22 layers, bf16, random weights from a seed), the
+    `spec` traffic (8 greedy requests of 128-token prompts, 64 new tokens).
+    The measured run's launch counts (reset before, read after), its
+    draft arena against the shape phase 3 checks the kernels at, the
+    acceptance, decode tok/s with and without the draft (spec_tokens 0)
+    by differencing the measured 64-token run and the 64-token run
+    without the draft against one 32-token run each, and one
+    graph-replayed draft rollout (G + 1 steps over B + 1 rows) beside one
+    verify step."""
+    import numpy as np
+
+    from simplellminference_tpu_torch.core.config import (ModelConfig,
+                                                          SamplingParams)
+    from simplellminference_tpu_torch.engine import Engine
+    from simplellminference_tpu_torch.models import llama
+
+    layers, g = cfg.num_layers, DRAFT_TOKENS
+    batch, prompt_len, new, burst = 8, 128, 64, 4
+    dcfg = ModelConfig.tinyllama_1_1b(dtype="bfloat16")
+    require(dcfg.vocab_size == cfg.vocab_size, "draft vocab")
+    dparams = llama.init_params(dcfg, seed=1, device=dev)
+    prompts = spec_prompts(np.random.default_rng(3), cfg.vocab_size, batch,
+                           prompt_len)
+    cap = prompt_len + new + 2 * burst * (g + 1) + 1
+
+    def serve(spec: int, max_new: int):
+        eng = Engine(cfg, params, spec_engine_config(spec, "bf16", batch,
+                                                     cap),
+                     decode_burst=burst, device=dev,
+                     draft=(dcfg, dparams) if spec else None)
+        reqs = [eng.add_request(prompt_ids=p, sampling=SamplingParams(
+            max_new_tokens=max_new)) for p in prompts]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        return eng, reqs, time.perf_counter() - t
+
+    serve(g, new // 2)                  # warm-up
+    reset_counts()
+    eng, reqs, wall = serve(g, new)     # the measured run
+    got = read_counts(path)
+    launches[path] = got
+    m = eng.metrics
+    for r in reqs:
+        require(r.state.value == "finished" and len(r.output_ids) == new,
+                f"[{path}] request {r.req_id}: {r.state} with "
+                f"{len(r.output_ids)} tokens")
+    require(m.prefills == batch and m.spec_steps > 0,
+            f"[{path}] metrics {m.summary()}")
+    dl, dslots = draft_arena_shape()
+    arena = (dl, batch + 1, dcfg.num_kv_heads, dslots, dcfg.head_dim)
+    require(tuple(eng._dcache.k.shape) == arena,
+            f"[{path}] draft arena {tuple(eng._dcache.k.shape)}, phase 3 "
+            f"checks {arena}")
+    steps = m.decode_bursts * burst
+    dl = dcfg.num_layers
+    want = spec_launches(False, layers, steps, False)
+    # the draft: one prefill dispatch of the 8 admits (kv_append at S =
+    # 128, flash_prefill), then G + 1 rollout steps per verify step
+    want["kv_append"] += dl + (g + 1) * dl * steps
+    want["flash_prefill"] += dl
+    want["flash_decode"] += (g + 1) * dl * steps
+    for name, n in want.items():
+        require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
+                f"path implies {n}")
+    accept = m.spec_accepted / m.spec_steps / g
+    outs = [r.output_ids for r in reqs]
+    plain_eng, plain_reqs, plain_wall = serve(0, new)
+    same = sum(a == r.output_ids for a, r in zip(outs, plain_reqs))
+    print(f"[engine:{path}] {batch} requests x {new} tokens, spec_tokens {g}"
+          f" drafted by TinyLlama-1.1B ({dl} layers, bf16, random weights), "
+          f"burst {burst}: wall {wall:.3f} s, {m.decode_bursts} bursts; "
+          f"spec_steps {m.spec_steps}, spec_accepted {m.spec_accepted}: "
+          f"acceptance {accept} of the drafts (random weights: the draft "
+          f"does not predict the target); spec_tokens=0 wall "
+          f"{plain_wall:.3f} s; greedy outputs equal to spec_tokens=0 in "
+          f"{same} of {batch}", flush=True)
+    print(f"[engine:{path}] launches {json.dumps(got)}", flush=True)
+    rates, walls = {}, {g: wall, 0: plain_wall}
+    for spec in (g, 0):
+        half = serve(spec, new // 2)[2]
+        require(walls[spec] > half, f"[{path}] spec_tokens={spec} walls: "
+                f"{new} tokens {walls[spec]} s, {new // 2} tokens {half} s")
+        rates[spec] = batch * (new - new // 2) / (walls[spec] - half)
+        print(f"[engine:{path}] {'draft' if spec else 'no draft'}: decode "
+              f"{rates[spec]} tok/s (wall difference); walls {walls[spec]} "
+              f"/ {half} s", flush=True)
+    print(f"[engine:{path}] decode tok/s with the draft / without: "
+          f"{rates[g] / rates[0]:.3f}", flush=True)
+    # one draft rollout and one verify step, graph-replayed, context ~152
+    ctx = prompt_len + 24
+    tok = torch.ones(batch, dtype=torch.int32, device=dev)
+    pos = torch.full((batch,), ctx - 1, dtype=torch.int32, device=dev)
+    roll_ms = time_ms(torch, lambda: eng._model_draft(tok, pos), iters=5)
+    mp = 4
+    tables = torch.arange(batch * mp, dtype=torch.int32,
+                          device=dev).reshape(batch, mp)
+    vtok = torch.ones((batch, g + 1), dtype=torch.int32, device=dev)
+    vpos = (pos[:, None] + torch.arange(g + 1, dtype=torch.int32,
+                                        device=dev)[None]).contiguous()
+    verify_ms = time_ms(torch, lambda: llama.forward_paged(
+        cfg, params, vtok, vpos, eng.cache, tables, pos + g + 1,
+        prefill=False), iters=5)
+    print(f"[engine:{path}] device time (graph replay) at context {ctx}: "
+          f"draft rollout ({g + 1} steps x {batch + 1} rows) {roll_ms:.3f} "
+          f"ms, verify step (S={g + 1}) {verify_ms:.3f} ms", flush=True)
+    del eng, plain_eng, dparams
+
+
 # path: (INT8 weights, KV dtype, prefix-cache traffic)
 PATH_SETUP = {"int8": (True, "bf16", False), "bf16": (False, "bf16", False),
               "prefix": (True, "bf16", True),
               "int8kv": (True, "int8", False),
               "int8kv_prefix": (False, "int8", True),
               "spec": (False, "bf16", False),
-              "spec_int8kv": (True, "int8", False)}
+              "spec_int8kv": (True, "int8", False),
+              "dense": (True, "bf16", False),
+              "dense_bf16": (False, "bf16", False),
+              "draft": (False, "bf16", False)}
 
 
 def phase_engine(torch, launches: dict):
@@ -1992,7 +2496,11 @@ def phase_engine(torch, launches: dict):
         print(f"[engine:{path}] Llama-2-7B width, {cfg.num_layers} layers, "
               f"{'int8' if int8 else 'bf16'} random weights, {kv_dtype} KV, "
               f"in {time.perf_counter() - t0:.1f} s", flush=True)
-        if path.startswith("spec"):
+        if path.startswith("dense"):
+            serve_dense(torch, path, cfg, params, launches, int8)
+        elif path == "draft":
+            serve_draft(torch, path, cfg, params, launches)
+        elif path.startswith("spec"):
             serve_spec(torch, path, cfg, params, launches, int8, kv_dtype)
         elif prefix:
             serve_prefix(torch, path, cfg, params, launches, int8, kv_dtype)
@@ -2284,6 +2792,132 @@ def spec_card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, kv_dtype="f32"):
           f"{outs['cpu'][:-1] == tok_c.tolist()[:-1]}", flush=True)
 
 
+def dense_card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps):
+    """The Generator on the card and on the CPU: a greedy prefill + decode
+    trace through its steps (logits within LOGIT_TOL), then ``generate``
+    and ``generate_fused``, whose greedy tokens must equal the CPU trace's
+    except where its top-2 margin is below LOGIT_TOL."""
+    from simplellminference_tpu_torch.core.config import SamplingParams
+    from simplellminference_tpu_torch.ops import sampling
+    from simplellminference_tpu_torch.runtime.generator import Generator
+
+    t0 = time.perf_counter()
+    traces, outs = {}, {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        gen = Generator(cfg, params, max_batch=len(prompts), max_seq=256,
+                        device=dev)
+        cache = gen.new_cache(len(prompts), 128 + steps + 1)
+        logits, cache, lens = gen.prefill(cache, prompts)
+        pos = gen._tensor(lens)
+        lg = [logits.cpu()]
+        tok = sampling.greedy(logits)
+        toks = [tok.cpu()]
+        for _ in range(steps):
+            logits, cache = gen._decode_fn(tok, pos, cache)
+            lg.append(logits.cpu())
+            tok = sampling.greedy(logits)
+            toks.append(tok.cpu())
+            pos = pos + 1
+        traces[dev] = (torch.stack(toks, 1), torch.stack(lg, 0))
+        outs[dev] = (gen.generate(prompts, SamplingParams(
+            max_new_tokens=steps + 1)).token_ids,
+            gen.generate_fused(prompts, steps + 1).cpu().tolist())
+    tok_c, lg_c = traces["cpu"]
+    err = max_err(traces["cuda"][1], lg_c)
+    require(err <= LOGIT_TOL, f"[{tag}] Generator logits card vs CPU {err}")
+    for r in range(len(prompts)):
+        ref = tok_c[r].tolist()
+        for dev in outs:
+            for what, got in zip(("generate", "generate_fused"), outs[dev]):
+                _first_divergence(torch, tag, f"{dev} {what} and the CPU "
+                                  f"trace", got[r], ref, lg_c, r)
+    print(f"[cpu:{tag}] Generator, Llama-2-7B width, 2 layers, f32: "
+          f"{len(prompts)} requests, prefill + {steps} steps on card and CPU "
+          f"in {time.perf_counter() - t0:.1f} s; logits max|card - cpu| "
+          f"{err:.3e} (tol {LOGIT_TOL}); greedy tokens of generate and "
+          f"generate_fused card == cpu: {outs['cuda'] == outs['cpu']}",
+          flush=True)
+
+
+def draft_card_vs_cpu(torch, cfg, p_gpu, p_cpu):
+    """The draft Engine with the target as its own draft (spec_tokens 4,
+    burst 4) on the card and on the CPU, 4 greedy requests x 16 tokens:
+    every draft is accepted on both devices, and the tokens equal the CPU
+    Engine's without speculation (except where the margin rule allows)."""
+    import numpy as np
+
+    from simplellminference_tpu_torch.core.config import (EngineConfig,
+                                                          KVCacheConfig,
+                                                          SamplingParams)
+    from simplellminference_tpu_torch.engine import Engine
+
+    g, new = 4, 16
+    prompts = spec_prompts(np.random.default_rng(13), cfg.vocab_size, 4, 48)
+    samp = SamplingParams(max_new_tokens=new)
+    t0 = time.perf_counter()
+    tok_c, lg_c, _codes = _trace(torch, cfg, p_cpu, prompts, new - 1, "cpu")
+
+    def ecfg(spec):
+        return EngineConfig(max_batch_size=4, spec_tokens=spec,
+                            prefix_cache_entries=0,
+                            kv=KVCacheConfig(page_size=16, num_pages=64,
+                                             max_pages_per_seq=8,
+                                             kv_dtype="f32"))
+
+    outs, metrics = {}, {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        eng = Engine(cfg, params, ecfg(g), decode_burst=4, device=dev,
+                     draft=(cfg, params))
+        outs[dev] = eng.generate(prompts, samp)
+        m = eng.metrics
+        metrics[dev] = (m.spec_steps, m.spec_accepted)
+        require(m.spec_steps > 0 and m.spec_accepted == g * m.spec_steps,
+                f"[draft] {dev}: a self-draft left drafts unaccepted "
+                f"{metrics[dev]}")
+    for r in range(len(prompts)):
+        for dev in outs:
+            _first_divergence(torch, "draft", f"{dev} draft engine and the "
+                              f"greedy trace", outs[dev][r],
+                              tok_c[r].tolist(), lg_c, r)
+    print(f"[cpu:draft] Llama-2-7B width, 2 layers, f32, drafted by itself "
+          f"(spec_tokens {g}): {len(prompts)} requests x {new} tokens on "
+          f"card and CPU in {time.perf_counter() - t0:.1f} s; (spec_steps, "
+          f"spec_accepted) card {metrics['cuda']}, cpu {metrics['cpu']}: "
+          f"every draft accepted; greedy tokens card == cpu: "
+          f"{outs['cuda'] == outs['cpu']}, == the greedy trace: "
+          f"{outs['cpu'] == tok_c.tolist()}", flush=True)
+
+
+def quantize_card_vs_cpu(torch, p_cpu, q_cpu):
+    """``quantize_params`` on the card against the CPU's, byte for byte;
+    and how many scales PyTorch's CUDA division by the Python scalar 127
+    would have given otherwise (the port divides by a tensor)."""
+    from simplellminference_tpu_torch.core.config import QuantConfig
+    from simplellminference_tpu_torch.runtime.weights import quantize_params
+
+    q_gpu = quantize_params(_to_device(p_cpu, "cuda"), QuantConfig(
+        mode="int8", group_size=0, quantize_lm_head=True))
+    same, scalar_apart, n = True, 0, 0
+    for name in ("wqkv", "wo", "w_gate_up", "w_down", "lm_head"):
+        a = q_cpu[name] if name == "lm_head" else q_cpu["layers"][name]
+        b = q_gpu[name] if name == "lm_head" else q_gpu["layers"][name]
+        same = same and torch.equal(a.q, b.q.cpu()) and torch.equal(
+            a.scales, b.scales.cpu())
+        w = (p_cpu[name] if name == "lm_head" else p_cpu["layers"][name]
+             ).to("cuda")
+        amax = w.abs().amax(dim=-2, keepdim=True)
+        scalar_apart += int(((amax / 127.0).clamp_min(1e-8)
+                             != b.scales).sum())
+        n += b.scales.numel()
+        del w, amax
+    require(same, "quantize_params: card and CPU codes or scales differ")
+    print(f"[cpu:quantize] quantize_params (per channel, INT8 LM head) of "
+          f"the 7B-width 2-layer weights: codes and scales byte-equal card "
+          f"vs CPU; CUDA division by the Python scalar 127 would give "
+          f"{scalar_apart} of {n} scales apart", flush=True)
+    del q_gpu
+
+
 def phase_cpu(torch):
     import numpy as np
 
@@ -2323,14 +2957,20 @@ def phase_cpu(torch):
                 steps=8, kv_dtype="int8")
     prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="int8")
     spec_card_vs_cpu(torch, "spec", cfg, p_gpu, p_cpu)
+    dense_card_vs_cpu(torch, "dense-f32", cfg, p_gpu, p_cpu, prompts,
+                      steps=8)
+    draft_card_vs_cpu(torch, cfg, p_gpu, p_cpu)
     del p_gpu
     # INT8: the same draw quantized by the port (per output channel, INT8
     # LM head), on the CPU, then carried to the card byte for byte
     q_cpu = quantize_params(p_cpu, QuantConfig(mode="int8", group_size=0,
                                                quantize_lm_head=True))
+    quantize_card_vs_cpu(torch, p_cpu, q_cpu)
     del p_cpu
     q_gpu = _to_device(q_cpu, "cuda")
     card_vs_cpu(torch, "int8", cfg, q_gpu, q_cpu, prompts, steps=8)
+    dense_card_vs_cpu(torch, "dense-int8", cfg, q_gpu, q_cpu, prompts,
+                      steps=8)
     card_vs_cpu(torch, "int8-int8kv", cfg, q_gpu, q_cpu, prompts, steps=8,
                 kv_dtype="int8")
     spec_card_vs_cpu(torch, "spec-int8-int8kv", cfg, q_gpu, q_cpu,

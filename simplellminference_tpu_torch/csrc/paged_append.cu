@@ -1,14 +1,25 @@
 // In-place paged KV writes: one decode row per sequence, T <= 8 consecutive
 // rows per sequence (a speculative verify span), and whole prompt pages at
-// prefill.
+// prefill; and the same row copy into the dense KV arena.
 //
 // Replaces the TPU kernels of simplellminference_tpu/ops/paged_append.py:
 //   paged_append_decode  (_decode_kernel,  paged_append.py:34-113)
 //   paged_append_prefill (_prefill_kernel, paged_append.py:116-189)
 //   paged_append_span    (_span_kernel,    paged_append.py:368-479)
+// and of simplellminference_tpu/ops/kv_append.py:
+//   kv_append            (_append_kernel,  kv_append.py:37-116)
+//
+// kv_append writes S rows per sequence into the dense arena [L, B', kvN,
+// Smax, D] at a per-sequence offset (the Generator's prefill, S = bucket,
+// and decode, S = 1). The TPU kernel read-modify-writes 8-row windows
+// (kv_append.py:10-18), hence its rule that offsets be multiples of 8 when
+// S > 1; here a block stores only the row it owns, so any offset works,
+// and a row whose slot falls outside the arena is dropped (the JAX jnp
+// fallback clamps the start instead; no caller reaches that case).
 //
 // Bound on the H100: bytes. The kernels only copy (decode: 2*B*kvN*D
-// elements; span: 2*B*T*kvN*D; prefill: 2*B*ceil(S/ps)*kvN*ps*D), so the
+// elements; span and kv_append: 2*B*T*kvN*D; prefill:
+// 2*B*ceil(S/ps)*kvN*ps*D), so the
 // least time is those bytes read once and written once at the card's
 // memory rate.
 //
@@ -43,8 +54,11 @@ __device__ __forceinline__ unsigned short vzero<unsigned short>() {
 // grid (B, T, kvN); the block copies row (b, t, h) of new K and new V into
 // pool[layer, page, h, slot, :] at position positions[b] + t (a negative
 // position goes to slot 0 of the trash page). Strides and row_bytes are in
-// bytes.
-template <typename V>
+// bytes. DENSE: the pool is a dense arena [L, B', kvN, Smax, D] (one page
+// of ps = Smax slots per sequence, num_pages1 = B' >= B rows, no table):
+// row b writes arena row b at slot positions[b] + t, and a slot outside
+// [0, Smax) is dropped, never written outside the arena.
+template <typename V, bool DENSE>
 __global__ void paged_append_rows_kernel(
     char* __restrict__ pool_k, char* __restrict__ pool_v,
     const char* __restrict__ new_k, const char* __restrict__ new_v,
@@ -56,10 +70,18 @@ __global__ void paged_append_rows_kernel(
   const int t = blockIdx.y;
   const int h = blockIdx.z;
   const int pos = positions[b] + t;
-  const int col = pos >= 0 ? pos / ps : -1;
-  int page = (col >= 0 && col < mp) ? tables[(long long)b * mp + col] : -1;
-  if (page < 0) page = num_pages1 - 1;
-  const int slot = pos >= 0 ? pos % ps : 0;
+  int page;
+  int slot;
+  if (DENSE) {
+    if (pos < 0 || pos >= ps) return;
+    page = b;
+    slot = pos;
+  } else {
+    const int col = pos >= 0 ? pos / ps : -1;
+    page = (col >= 0 && col < mp) ? tables[(long long)b * mp + col] : -1;
+    if (page < 0) page = num_pages1 - 1;
+    slot = pos >= 0 ? pos % ps : 0;
+  }
   const long long dst =
       ((((long long)layer * num_pages1 + page) * kvn + h) * ps + slot) *
       (long long)row_bytes;
@@ -154,15 +176,43 @@ int sli_paged_append_span(void* pool_k, void* pool_v, const void* new_k,
   const dim3 grid(batch, span, kvn);
   cudaStream_t st = (cudaStream_t)stream;
   if (vec16) {
-    paged_append_rows_kernel<uint4><<<grid, 64, 0, st>>>(
+    paged_append_rows_kernel<uint4, false><<<grid, 64, 0, st>>>(
         (char*)pool_k, (char*)pool_v, (const char*)new_k, (const char*)new_v,
         k_bstride, k_tstride, v_bstride, v_tstride, tables, positions, layer,
         num_pages1, kvn, ps, row_bytes, mp);
   } else {
-    paged_append_rows_kernel<unsigned short><<<grid, 64, 0, st>>>(
+    paged_append_rows_kernel<unsigned short, false><<<grid, 64, 0, st>>>(
         (char*)pool_k, (char*)pool_v, (const char*)new_k, (const char*)new_v,
         k_bstride, k_tstride, v_bstride, v_tstride, tables, positions, layer,
         num_pages1, kvn, ps, row_bytes, mp);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The dense arena [L, arena_rows, kvn, smax, D]: S rows of each of the
+// `batch` <= arena_rows sequences at slots offsets[b] + 0..S-1 of arena row
+// b; slots outside [0, smax) are dropped. Strides as sli_paged_append_span.
+int sli_kv_append(void* cache_k, void* cache_v, const void* new_k,
+                  const void* new_v, long long k_bstride, long long k_sstride,
+                  long long v_bstride, long long v_sstride,
+                  const int* offsets, int layer, int arena_rows, int kvn,
+                  int smax, int row_bytes, int batch, int seq, int vec16,
+                  void* stream) {
+  if (batch <= 0 || seq <= 0 || kvn <= 0 || row_bytes <= 0 || smax <= 0 ||
+      batch > arena_rows)
+    return SLI_ERR_SHAPE;
+  const dim3 grid(batch, seq, kvn);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec16) {
+    paged_append_rows_kernel<uint4, true><<<grid, 64, 0, st>>>(
+        (char*)cache_k, (char*)cache_v, (const char*)new_k,
+        (const char*)new_v, k_bstride, k_sstride, v_bstride, v_sstride,
+        nullptr, offsets, layer, arena_rows, kvn, smax, row_bytes, 1);
+  } else {
+    paged_append_rows_kernel<unsigned short, true><<<grid, 64, 0, st>>>(
+        (char*)cache_k, (char*)cache_v, (const char*)new_k,
+        (const char*)new_v, k_bstride, k_sstride, v_bstride, v_sstride,
+        nullptr, offsets, layer, arena_rows, kvn, smax, row_bytes, 1);
   }
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,15 @@
 // paged_flash_decode (:165, wins=1, one query row per sequence) and
 // paged_flash_verify (:136, wins=S, rows s at positions kv_len - S + s),
 // over bf16/f32 pools and, its INT8-KV form, over int8 pools with
-// per-token-per-head f32 scale pools [L, P+1, kvN, ps].
+// per-token-per-head f32 scale pools [L, P+1, kvN, ps]; and the TPU kernel
+// of simplellminference_tpu/ops/attention/flash_decode.py: _decode_kernel
+// (flash_decode.py:40-107), reached through flash_decode (:114), one query
+// row per sequence over the dense KV arena [L, B', kvN, Smax, D]. A dense
+// arena is a pool with one page of Smax slots per sequence, so the same
+// body serves it (template DENSE: sequence b reads arena row b, no table)
+// and walks only the keys below min(kv_len, Smax), where the TPU kernel
+// clamps past-the-end grid steps (flash_decode.py:172-181); its bk,
+// rows_target and max_kv tiling hints have no counterpart.
 //
 // Bound on the H100: bytes. Each sequence's live K and V rows
 // (2*kv_len*kvN*D elements, plus 2*kv_len*kvN f32 scales for INT8 KV)
@@ -60,8 +68,10 @@ size_t smem_floats(int rows) {
 
 // q: [B, S, N, D] with batch stride q_bs and window stride q_ss (elements;
 // S = wins); pools [L, P+1, kvN, ps, D] of P (T, or int8_t with the scale
-// pools ksp/vsp [L, P+1, kvN, ps]); out: [B, S, N, D] contiguous.
-template <typename T, typename P, int D>
+// pools ksp/vsp [L, P+1, kvN, ps]); out: [B, S, N, D] contiguous. DENSE:
+// the pools are a dense arena [L, B', kvN, Smax, D] (num_pages1 = B',
+// ps = Smax, mp = 1, no table): sequence b reads arena row b.
+template <typename T, typename P, int D, bool DENSE>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(
     const T* __restrict__ q, long long q_bs, long long q_ss,
     const P* __restrict__ pool_k, const P* __restrict__ pool_v,
@@ -103,7 +113,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   }
   const int kv_len = kv_lens[b];
   const int n_keys = min(kv_len, mp * ps);
-  const int* row = tables + (long long)b * mp;
+  const int* row = DENSE ? nullptr : tables + (long long)b * mp;
   const long long layer_base = (long long)layer * num_pages1;
   __syncthreads();
 
@@ -115,7 +125,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
       float kv = 0.f;
       float vv = 0.f;
       if (kp < n_keys) {
-        const int page = row[kp / ps];
+        const int page = DENSE ? b : row[kp / ps];
         if (page >= 0) {
           const long long off =
               (((layer_base + page) * kvn + g) * ps + kp % ps) * (long long)D +
@@ -132,7 +142,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
       float a = 0.f;
       float c = 0.f;
       if (kp < n_keys) {
-        const int page = row[kp / ps];
+        const int page = DENSE ? b : row[kp / ps];
         if (page >= 0) {
           const long long so = ((layer_base + page) * kvn + g) * ps + kp % ps;
           a = ksp[so];
@@ -213,34 +223,59 @@ struct Args {
   float scale;
 };
 
-template <typename T, typename P, int D>
+template <typename T, typename P, int D, bool DENSE>
 int launch(const Args& a, cudaStream_t st) {
   const size_t bytes = smem_floats<D>(a.group * a.wins) * sizeof(float);
-  cudaError_t e = sli::allow_smem(paged_decode_kernel<T, P, D>, bytes);
+  cudaError_t e =
+      sli::allow_smem(paged_decode_kernel<T, P, D, DENSE>, bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(a.batch, a.kvn);
-  paged_decode_kernel<T, P, D><<<grid, NT, bytes, st>>>(
+  paged_decode_kernel<T, P, D, DENSE><<<grid, NT, bytes, st>>>(
       (const T*)a.q, a.q_bs, a.q_ss, (const P*)a.pool_k, (const P*)a.pool_v,
       a.ksp, a.vsp, a.tables, a.kv_lens, (T*)a.out, a.layer, a.num_pages1,
       a.kvn, a.ps, a.mp, a.group, a.wins, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename P>
+template <typename T, typename P, bool DENSE = false>
 int dispatch_d(int head_dim, const Args& a, cudaStream_t st) {
   switch (head_dim) {
     case 32:
-      return launch<T, P, 32>(a, st);
+      return launch<T, P, 32, DENSE>(a, st);
     case 64:
-      return launch<T, P, 64>(a, st);
+      return launch<T, P, 64, DENSE>(a, st);
     case 128:
-      return launch<T, P, 128>(a, st);
+      return launch<T, P, 128, DENSE>(a, st);
     default:
       return SLI_ERR_HEAD_DIM;
   }
 }
 
 }  // namespace
+
+// Dense-arena decode (the flash_decode entry): q [B, N, D] at batch stride
+// q_bs (elements); cache_k/v the dense arena [L, arena_rows, kvn, smax, D]
+// of q's dtype, sequence b < batch <= arena_rows reading arena row b's
+// slots [0, min(kv_len, smax)); out [B, N, D] contiguous.
+extern "C" int sli_flash_decode(const void* q, long long q_bs,
+                                const void* cache_k, const void* cache_v,
+                                const int* kv_lens, void* out, int batch,
+                                int layer, int arena_rows, int kvn, int smax,
+                                int group, int head_dim, float scale,
+                                int dtype, void* stream) {
+  if (batch <= 0 || kvn <= 0 || group <= 0 || smax <= 0 ||
+      batch > arena_rows)
+    return SLI_ERR_SHAPE;
+  cudaStream_t st = (cudaStream_t)stream;
+  // one "page" of smax slots per sequence, one window row, no scales
+  const Args a{q, q_bs, 0LL, cache_k, cache_v, nullptr, nullptr, nullptr,
+               kv_lens, out, batch, layer, arena_rows, kvn, smax, 1, group,
+               1, scale};
+  if (dtype == SLI_F32) return dispatch_d<float, float, true>(head_dim, a, st);
+  if (dtype == SLI_BF16)
+    return dispatch_d<__nv_bfloat16, __nv_bfloat16, true>(head_dim, a, st);
+  return SLI_ERR_DTYPE;
+}
 
 // k_scale/v_scale: null for bf16/f32 pools (of q's dtype); given, the pools
 // are int8 and these are their f32 scale pools [L, num_pages1, kvn, ps].

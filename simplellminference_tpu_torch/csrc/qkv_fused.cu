@@ -5,7 +5,11 @@
 // Replaces the TPU kernel of simplellminference_tpu/ops/qkv_fused.py:
 //   fused_qkv_append (_kernel, qkv_fused.py:37-184; wrapper :229) in its
 //   paged form (tables given), into bf16/f32 pools or, its quantizing
-//   (INT8-KV) form, into int8 pools with f32 scale pools.
+//   (INT8-KV) form, into int8 pools with f32 scale pools; and in its
+//   dense-arena form (tables=None, qkv_fused.py:302-304: x row b writes
+//   arena row b at slot offsets[b]), into a bf16/f32 arena [L, B', kvN,
+//   Smax, D] with B' >= B, where only slot_row changes (no table; a slot
+//   past Smax is dropped).
 //
 // Bound on the H100: bytes. The qkv weight ([H, (N + 2 kvN) D] int8, 50.3
 // MB at Llama-2-7B: 15.0 us at 3.35 TB/s) dominates; x, the tables and
@@ -50,16 +54,27 @@ constexpr int QKV_KL = RT_THREADS / QKV_CT;
 
 // Row index into [L, num_pages1, kvn, ps] of token `row`'s slot for kv
 // head kh: an unmapped page or a position past the table -> the trash page.
+// Without tables (the dense arena [L, B', kvn, Smax, D]: num_pages1 = B',
+// ps = Smax) x row `row` owns arena row `row`, and a slot outside
+// [0, Smax) gives -1: the row is dropped.
 __device__ __forceinline__ long long slot_row(const int* __restrict__ tables,
                                               const int* __restrict__ positions,
                                               int row, int kh, int layer,
                                               int num_pages1, int kvn, int ps,
                                               int mp) {
   const int pos = positions[row];
-  const int pc = pos >= 0 ? pos / ps : -1;
-  int page = (pc >= 0 && pc < mp) ? tables[(long long)row * mp + pc] : -1;
-  if (page < 0) page = num_pages1 - 1;
-  const int slot = pos >= 0 ? pos % ps : 0;
+  int page;
+  int slot;
+  if (tables == nullptr) {
+    if (pos < 0 || pos >= ps) return -1;
+    page = row;
+    slot = pos;
+  } else {
+    const int pc = pos >= 0 ? pos / ps : -1;
+    page = (pc >= 0 && pc < mp) ? tables[(long long)row * mp + pc] : -1;
+    if (page < 0) page = num_pages1 - 1;
+    slot = pos >= 0 ? pos % ps : 0;
+  }
   return (((long long)layer * num_pages1 + page) * kvn + kh) * ps + slot;
 }
 
@@ -149,9 +164,10 @@ __global__ void __launch_bounds__(RT_THREADS, 1) qkv_fused_kernel(
     }
     const bool is_k = head < n_heads + kvn;
     const int kh = is_k ? head - n_heads : head - n_heads - kvn;
-    const long long off = slot_row(tables, positions, row, kh, layer,
-                                   num_pages1, kvn, ps, mp) *
-                          (long long)d;
+    const long long srow = slot_row(tables, positions, row, kh, layer,
+                                    num_pages1, kvn, ps, mp);
+    if (srow < 0) continue;  // dense arena: a slot past Smax is dropped
+    const long long off = srow * (long long)d;
     void* pool = is_k ? pool_k : pool_v;
     store_pool(pool, pool_bf16, off + j, r1);
     store_pool(pool, pool_bf16, off + j + half, r2);
@@ -180,6 +196,7 @@ __global__ void __launch_bounds__(RT_THREADS, 1) qkv_fused_kernel(
     const float sc = fmaxf(amax / 127.f, 1e-8f);
     const long long srow = slot_row(tables, positions, row, kh, layer,
                                     num_pages1, kvn, ps, mp);
+    if (srow < 0) continue;
     int8_t* dst = reinterpret_cast<int8_t*>(is_k ? pool_k : pool_v) +
                   srow * (long long)d;
     for (int i = lane; i < d; i += 32)
@@ -232,6 +249,25 @@ int sli_qkv_fused(const void* x, long long ldx, const void* nw, int nw_bf16,
     return SLI_ERR_DTYPE;
   }
   return (int)cudaGetLastError();
+}
+
+// The dense-arena form (fused_qkv_append with tables=None): cache_k/v are
+// [L, arena_rows, kvn, smax, d] (f32, or bf16 when cache_bf16); x row b <
+// b_rows <= arena_rows writes arena row b at slot positions[b] (dropped
+// outside [0, smax)). Other arguments as sli_qkv_fused; no INT8-KV form.
+int sli_qkv_fused_dense(const void* x, long long ldx, const void* nw,
+                        int nw_bf16, const void* wq, const float* ws,
+                        const float* sin_t, const float* cos_t,
+                        void* cache_k, void* cache_v, int cache_bf16,
+                        void* q_out, const int* positions, int layer,
+                        int arena_rows, int kvn, int smax, int b, int h,
+                        int n_heads, int d, float eps, int x_dtype, int vec,
+                        void* stream) {
+  if (b > arena_rows) return SLI_ERR_SHAPE;
+  return sli_qkv_fused(x, ldx, nw, nw_bf16, wq, ws, sin_t, cos_t, cache_k,
+                       cache_v, nullptr, nullptr, cache_bf16, q_out, nullptr,
+                       positions, layer, arena_rows, kvn, smax, 1, b, h,
+                       n_heads, d, eps, x_dtype, vec, stream);
 }
 
 }  // extern "C"

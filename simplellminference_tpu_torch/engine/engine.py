@@ -40,6 +40,13 @@ Scheduling is the JAX engine's:
     rows accept by equality with the argmax, sampled penalty-free rows by
     rejection sampling against the shaped distribution, rows with
     penalties take one sampled token per step.
+  * draft-model speculation (``draft=(draft_cfg, draft_params)``, with
+    ``spec_tokens``): the prompt-lookup draft gives way to a greedy
+    G+1-step rollout of the draft model's dense ``forward`` over its own
+    arena [L, B+1, kvN, cap, D] (row B is the trash row for padding),
+    indexed by absolute position: a rejected draft's stale entries sit at
+    or past kv_len and are never rolled back. Admits prefill the draft
+    over the whole context from position 0 (no prefix cache, no chunks).
   * finish / preempt / OOM as in the JAX engine.
 
 ``_prefill_fn``, ``_prefill_chunk_fn``, ``_burst_fn`` and
@@ -60,7 +67,7 @@ preemption move scales with their pages and need nothing more, as in the
 JAX engine, which never touches ``k_scale`` past creating it).
 
 Features outside this configuration raise NotImplementedError naming the
-feature: draft-model speculation (``draft=``), guided decoding, LoRA
+feature: guided decoding, LoRA
 adapters, tensor/sequence parallelism (``adopt_prefill`` included),
 top_logprobs, FP8 KV, sliding windows and the non-Llama model branches.
 The JAX engine's ``forward_paged`` and ``loras`` constructor arguments are
@@ -81,7 +88,8 @@ from simplellminference_tpu_torch.core.config import (EngineConfig,
                                                       ModelConfig,
                                                       SamplingParams,
                                                       next_power_of_2)
-from simplellminference_tpu_torch.core.device import resolve_device
+from simplellminference_tpu_torch.core.device import (resolve_device,
+                                                      torch_dtype)
 from simplellminference_tpu_torch.engine import metrics as metrics_lib
 from simplellminference_tpu_torch.engine.request import Request, RequestState
 from simplellminference_tpu_torch.engine.stop import StopStringMatcher
@@ -91,6 +99,7 @@ from simplellminference_tpu_torch.memory.paged_kv import (PagedKVCache,
 from simplellminference_tpu_torch.models import llama
 from simplellminference_tpu_torch.ops import sampling as sampling_ops
 from simplellminference_tpu_torch.ops.paged_append import SPAN_MAX
+from simplellminference_tpu_torch.runtime.kv_cache import DenseKVCache
 
 
 def _check_engine_config(ec: EngineConfig) -> None:
@@ -112,6 +121,15 @@ def _check_engine_config(ec: EngineConfig) -> None:
         raise NotImplementedError(f"{ec.kv.kv_dtype} KV cache")
 
 
+def draft_arena_slots(ec: EngineConfig) -> int:
+    """Slots per row of the draft model's dense arena: a sequence's page
+    capacity plus the rollout's G + 2 positions past it, rounded up to
+    128 (engine.py:707-709)."""
+    kv = ec.kv
+    return -(-(kv.max_pages_per_seq * kv.page_size + ec.spec_tokens + 2)
+             // 128) * 128
+
+
 class Engine:
     """Single-model continuous-batching inference engine."""
 
@@ -120,17 +138,25 @@ class Engine:
                  draft=None):
         """``device``: CUDA unless ``device="cpu"``; ``params`` must live
         there (``models.llama.init_params`` or
-        ``models.convert.params_from_jax``). ``draft`` (a draft model for
-        speculation) is not taken yet: speculation drafts by prompt
-        lookup."""
-        if draft is not None:
-            raise NotImplementedError("draft-model speculation (draft=)")
+        ``models.convert.params_from_jax``). ``draft``: an optional
+        (draft_cfg, draft_params) pair, a small model in the same token
+        space (params on the same device) that drafts the speculative
+        windows instead of prompt lookup; needs ``spec_tokens`` >= 1."""
         _check_engine_config(engine_cfg)
         llama.check_supported(cfg)
+        if draft is not None:
+            if engine_cfg.spec_tokens < 1:
+                raise ValueError("draft-model speculation needs "
+                                 "EngineConfig.spec_tokens >= 1")
+            if draft[0].vocab_size != cfg.vocab_size:
+                raise ValueError("draft and target must share the token "
+                                 "space")
+            llama.check_supported(draft[0])
         self.device = resolve_device(device)
-        if params["embed"].device.type != self.device.type:
-            raise ValueError(f"params live on {params['embed'].device}, "
-                             f"the engine on {self.device}")
+        for p in (params, draft[1] if draft is not None else params):
+            if p["embed"].device.type != self.device.type:
+                raise ValueError(f"params live on {p['embed'].device}, "
+                                 f"the engine on {self.device}")
         self.cfg = cfg
         self.params = params
         self.ecfg = engine_cfg
@@ -210,6 +236,18 @@ class Engine:
             self._hist_host = np.zeros((b, cap + self.spec + 8), np.int32)
             self._dev_hist = None
             self._zero_hist = None
+
+        # draft-model speculation: the draft's dense arena, indexed by
+        # absolute position (the rollout writes up to pos + G), row b the
+        # trash row of prefill padding and the rollout's pad row
+        self._dcache = None
+        if draft is not None:
+            self._dcfg, self._dparams = draft
+            self._dcache = DenseKVCache.create(
+                self._dcfg.num_layers, b + 1, draft_arena_slots(engine_cfg),
+                self._dcfg.num_kv_heads, self._dcfg.head_dim,
+                torch_dtype("float32" if self._dcfg.dtype == "float32"
+                            else "bfloat16"), device=self.device)
 
     # ------------- public API -------------
 
@@ -541,6 +579,8 @@ class Engine:
         if cached:
             pending.append((cached,
                             self._prefill_batch(cached, suffixes=True)))
+        if self._dcache is not None:
+            self._draft_prefill_admitted(admitted)
         # one host sync for every admitted prefill: the dispatches queue
         # back to back on the device
         for reqs, packed in pending:
@@ -554,6 +594,59 @@ class Engine:
                     self._hist_host[req.slot, self._pos[req.slot]] = tok_id
                 self._override[req.slot] = True  # fresh pipeline state
                 self._emit_tokens(req, [tok_id], [float(arr[i, 1])])
+
+    def _draft_prefill_admitted(self, reqs: list[Request]):
+        """One batched draft prefill for a cycle's admits (engine.py:
+        1319-1345, :717-732): the whole context from position 0 (the
+        draft has no prefix cache or chunking), rows gathered from the
+        arena, prefilled and scattered back; the row count quantized to
+        {1, max_batch}, padding rows on the trash row."""
+        n = len(reqs)
+        b = len(self.slots)
+        lens = [r.total_len for r in reqs]
+        cap = self._dcache.max_seq
+        if max(lens) > cap:
+            raise ValueError(f"a context of {max(lens)} tokens exceeds the "
+                             f"draft arena's {cap} slots")
+        bucket = min(next_power_of_2(max(max(lens), 16)), cap)
+        nb = 1 if n == 1 else b
+        tokens = np.zeros((nb, bucket), np.int32)
+        idx = np.full(nb, b, np.int64)            # default: the trash row
+        kv_lens = np.ones(nb, np.int32)
+        for i, r in enumerate(reqs):
+            ids = r.prompt_ids + r.output_ids
+            tokens[i, :len(ids)] = ids
+            idx[i] = r.slot
+            kv_lens[i] = len(ids)
+        idx_d = self._upload(idx)
+        dc = self._dcache
+        sub = DenseKVCache(k=dc.k.index_select(1, idx_d),
+                           v=dc.v.index_select(1, idx_d))
+        positions = torch.arange(bucket, dtype=torch.int32,
+                                 device=self.device)[None].expand(nb, bucket)
+        llama.forward(self._dcfg, self._dparams, self._upload(tokens),
+                      positions, sub,
+                      torch.zeros(nb, dtype=torch.int32, device=self.device),
+                      self._upload(kv_lens), last_token_only=True)
+        dc.k.index_copy_(1, idx_d, sub.k)
+        dc.v.index_copy_(1, idx_d, sub.v)
+
+    def _model_draft(self, tok, pos):
+        """[B, G] draft tokens by a greedy G+1-step rollout of the draft
+        model over its arena (engine.py:280-296): B+1 rows, the last a
+        pad row (token 0 at position 0, the trash row); the extra step
+        writes the G-th draft's K/V, so a full accept leaves no gap."""
+        b = tok.shape[0]
+        t = torch.cat([tok, tok.new_zeros(1)])
+        p = torch.cat([pos, pos.new_zeros(1)])
+        drafts = []
+        for _ in range(self.spec + 1):
+            logits, _ = llama.forward(self._dcfg, self._dparams, t[:, None],
+                                      p[:, None], self._dcache, p, p + 1)
+            t = sampling_ops.greedy(logits[:, -1])
+            p = p + 1
+            drafts.append(t)
+        return torch.stack(drafts[:self.spec], 1)[:b]
 
     def _prefill_batch(self, reqs: list[Request],
                        suffixes: bool = False) -> torch.Tensor:
@@ -948,7 +1041,8 @@ class Engine:
 
         out = []
         for _ in range(steps):
-            draft = self._find_draft(hist, pos)                   # [B, G]
+            draft = (self._model_draft(tok, pos) if self._dcache is not None
+                     else self._find_draft(hist, pos))            # [B, G]
             logits, self.cache = llama.forward_paged(
                 self.cfg, self.params, torch.cat([tok[:, None], draft], 1),
                 pos[:, None] + kidx, self.cache, tables, pos + g + 1,

@@ -1,8 +1,10 @@
-"""Llama-family decoder over the paged KV cache, as plain functions over a
-params dict.
+"""Llama-family decoder over the paged KV cache and over the dense KV
+arena, as plain functions over a params dict.
 
-Counterpart of simplellminference_tpu/models/llama.py:484-911
-(``forward_paged``) and :914 (``init_params``) for the plain pre-norm,
+Counterpart of simplellminference_tpu/models/llama.py:342-481
+(``forward``, the dense arena of the Generator and the draft model; see
+its docstring), :484-911 (``forward_paged``) and :914 (``init_params``)
+for the plain pre-norm,
 full-rotary Llama branch: whole-prompt prefill from position 0, chunked
 prefill at per-row page-aligned offsets (prefill chunks and
 prefix-cached suffixes, attending through the page tables with
@@ -52,6 +54,7 @@ from simplellminference_tpu_torch.core.device import (resolve_device,
 from simplellminference_tpu_torch.memory import paged_kv as pkv
 from simplellminference_tpu_torch.ops import ffn_fused, qkv_fused, ref_ops
 from simplellminference_tpu_torch.ops.attention import dispatch
+from simplellminference_tpu_torch.ops.kv_append import kv_append
 from simplellminference_tpu_torch.ops.linear import dot_f32, linear
 
 Params = dict[str, Any]
@@ -93,6 +96,155 @@ def check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(field)
 
 
+def _fqkv_gate(cfg: ModelConfig, lw, b: int, s: int, cache_k) -> bool:
+    """The JAX gate of the fused qkv route (llama.py:123-129, :583-594),
+    TPU tiling aside: decode, plain pre-norm full rotary, per-channel INT8
+    ``wqkv``."""
+    return (s == 1 and "q_norm" not in lw and cfg.pre_norms
+            and cfg.partial_rotary_factor == 1.0 and not cfg.rope_interleaved
+            and qkv_fused.fused_qkv_available(lw, cfg, b, s, cache_k))
+
+
+def _fffn_gate(cfg: ModelConfig, lw, m: int) -> bool:
+    """The JAX gate of the fused FFN route (llama.py:278-284, :766-775)
+    for ``m`` rows, TPU tiling aside."""
+    return (cfg.pre_norms and cfg.hidden_act == "silu"
+            and "post_ffn_norm" not in lw and "w_gate_up_bias" not in lw
+            and ffn_fused.fused_ffn_available(lw, cfg.hidden_size,
+                                              cfg.intermediate_size, m))
+
+
+def _qkv(cfg: ModelConfig, lw, li: int, x, sin, cos):
+    """rmsnorm, the qkv product and RoPE of layer ``li``: x [B, S, H] ->
+    (q [B, S, N, D], k, v [B, S, kvN, D])."""
+    b, s = x.shape[:2]
+    n, kvn, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h = ref_ops.rmsnorm(x, lw["input_norm"][li], cfg.rms_norm_eps)
+    qkv = linear(h, lw["wqkv"], layer=li)
+    q = qkv[..., :n * d].reshape(b, s, n, d)
+    k = qkv[..., n * d:(n + kvn) * d].reshape(b, s, kvn, d)
+    v = qkv[..., (n + kvn) * d:].reshape(b, s, kvn, d)
+    return ref_ops.apply_rope(q, sin, cos), ref_ops.apply_rope(k, sin, cos), v
+
+
+def _fused_qkv(cfg: ModelConfig, lw, li: int, x, sin, cos, ck, cv, offsets,
+               **kw):
+    """The fused qkv route for S = 1: q [B, N, D], k/v appended in place
+    to the pools (``tables`` in ``kw``) or to the dense arena."""
+    w = lw["wqkv"]
+    q1, *_ = qkv_fused.fused_qkv_append(
+        x[:, 0], lw["input_norm"], w.q, w.scales, sin[:, 0], cos[:, 0], ck,
+        cv, li, offsets, n_heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        eps=cfg.rms_norm_eps, **kw)
+    return q1
+
+
+def _post_attention(cfg: ModelConfig, lw, li: int, x, attn, use_fffn: bool):
+    """wo projection + residual + FFN (llama.py:224-334, the plain pre-norm
+    branch), with ``fused_ffn`` under its gate."""
+    b, s, h = x.shape
+    x = x + linear(attn.reshape(b, s, -1), lw["wo"], layer=li)
+    if use_fffn:
+        gu, dn = lw["w_gate_up"], lw["w_down"]
+        return ffn_fused.fused_ffn(
+            x.reshape(b * s, h), lw["post_norm"], gu.q, gu.scales, dn.q,
+            dn.scales, li, eps=cfg.rms_norm_eps).reshape(b, s, h)
+    i_sz = cfg.intermediate_size
+    hn = ref_ops.rmsnorm(x, lw["post_norm"][li], cfg.rms_norm_eps)
+    gate_up = linear(hn, lw["w_gate_up"], layer=li)
+    swi = ref_ops.glu_act(gate_up[..., :i_sz], gate_up[..., i_sz:],
+                          cfg.hidden_act)
+    return x + linear(swi, lw["w_down"], layer=li)
+
+
+def _logits(cfg: ModelConfig, params: Params, x) -> torch.Tensor:
+    """Final norm and LM head: f32 logits."""
+    x = ref_ops.rmsnorm(x, params["final_norm"], cfg.rms_norm_eps)
+    lm_head = params.get("lm_head")
+    if lm_head is None:
+        # tied head: the f32 accumulator, as jnp.dot(...,
+        # preferred_element_type=float32) at llama.py:472-473, :902-903
+        return dot_f32(x, params["embed"].t()).float()
+    return linear(x, lm_head, out_dtype=torch.float32).float()
+
+
+def _embed(cfg: ModelConfig, params: Params, tokens, positions):
+    """Embedding rows in the activation dtype and the rope tables."""
+    x = params["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
+    _period, wins, nope = cfg.scan_pattern()
+    sin, cos = ref_ops.rope_tables_by_sublayer(cfg, positions, wins,
+                                               nope)[0]
+    return x, sin, cos
+
+
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            positions: torch.Tensor, cache=None,
+            offsets: torch.Tensor | None = None,
+            kv_lens: torch.Tensor | None = None,
+            prefill_from_zero: bool = True, last_token_only: bool = False):
+    """Forward pass over the dense KV arena (the Generator's and the
+    draft model's path; counterpart of llama.py:342-481).
+
+    tokens/positions: [B, S]; cache: :class:`~simplellminference_tpu_torch.
+    runtime.kv_cache.DenseKVCache` (updated in place; its arena may have
+    more rows than B, row b serving sequence b) or None. ``offsets[b]``:
+    the arena slot of sequence b's first new token (default
+    positions[:, 0]); ``kv_lens[b]``: valid slots after this step (default
+    offsets + S).
+    - ``cache=None``: causal self-attention over the tokens, no cache.
+    - S > 1 with ``prefill_from_zero``: ``kv_append`` at the offsets, then
+      causal attention on the fresh k/v (llama.py:207-211).
+    - S = 1: with per-channel INT8 ``wqkv`` the dense ``fused_qkv_append``,
+      else the qkv product, RoPE and ``kv_append``; then ``flash_decode``.
+    S > 1 with ``prefill_from_zero=False`` (a multi-token continuation,
+    which the JAX package runs through its jnp reference even on a TPU)
+    is not ported and raises. ``last_token_only``: project only slot
+    kv_lens - 1 - offsets of each sequence (S - 1 without kv_lens).
+    Returns (logits [B, S or 1, V] f32, cache)."""
+    check_supported(cfg)
+    b, s = tokens.shape
+    if cache is not None and s > 1 and not prefill_from_zero:
+        raise NotImplementedError("dense multi-token continuation (S > 1 "
+                                  "with prefill_from_zero=False)")
+    x, sin, cos = _embed(cfg, params, tokens, positions)
+    lw = params["layers"]
+    use_fqkv = False
+    if cache is not None:
+        ck, cv = cache.k, cache.v
+        if offsets is None:
+            offsets = positions[:, 0]
+        if kv_lens is None:
+            kv_lens = offsets + s
+        use_fqkv = _fqkv_gate(cfg, lw, b, s, ck)
+    use_fffn = _fffn_gate(cfg, lw, b * s)
+    for li in range(cfg.num_layers):
+        if use_fqkv:
+            q1 = _fused_qkv(cfg, lw, li, x, sin, cos, ck, cv, offsets)
+            attn = dispatch.attention_cached(cfg, q1[:, None], ck, cv,
+                                             kv_lens, li)
+        else:
+            q, k, v = _qkv(cfg, lw, li, x, sin, cos)
+            if cache is not None:
+                kv_append(ck, cv, k, v, li, offsets)
+            if cache is None or s > 1:
+                # no cache, or a prefill from slot 0: the fresh k/v are
+                # the whole prefix
+                attn = dispatch.attention(cfg, q, k, v)
+            else:
+                attn = dispatch.attention_cached(cfg, q, ck, cv, kv_lens,
+                                                 li)
+        x = _post_attention(cfg, lw, li, x, attn, use_fffn)
+    if last_token_only and s > 1:
+        if kv_lens is None:
+            last = torch.full((b,), s - 1, device=x.device)
+        else:
+            last = kv_lens.long() - 1
+            if offsets is not None:
+                last = last - offsets.long()
+        x = x[torch.arange(b, device=x.device), last.to(x.device)][:, None]
+    return _logits(cfg, params, x), cache
+
+
 def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                   positions: torch.Tensor, cache, tables: torch.Tensor,
                   kv_lens: torch.Tensor, prefill: bool,
@@ -118,46 +270,23 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     b, s = tokens.shape
     chunked = prefill and chunk_offset is not None
     spec = not prefill and s > 1   # speculative-decoding verify window
-    n, kvn, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    i_sz = cfg.intermediate_size
-    eps = cfg.rms_norm_eps
-    dtype = torch_dtype(cfg.dtype)
-    x = params["embed"][tokens.long()].to(dtype)
-    _period, wins, nope = cfg.scan_pattern()
-    sin, cos = ref_ops.rope_tables_by_sublayer(cfg, positions, wins,
-                                               nope)[0]
+    x, sin, cos = _embed(cfg, params, tokens, positions)
     lw = params["layers"]
     pk, pv = cache.k, cache.v
     pks, pvs = cache.k_scale, cache.v_scale   # None unless INT8 KV
     scales = dict(pool_ks=pks, pool_vs=pvs)
     page_offset = chunk_offset // cache.page_size if chunked else None
-    # the JAX gates of llama.py:583-594 and :766-775, TPU tiling aside
-    use_fqkv = (not prefill and s == 1 and "q_norm" not in lw
-                and cfg.pre_norms and cfg.partial_rotary_factor == 1.0
-                and not cfg.rope_interleaved
-                and qkv_fused.fused_qkv_available(lw, cfg, b, s, pk))
-    use_fffn = (cfg.pre_norms and cfg.hidden_act == "silu"
-                and "post_ffn_norm" not in lw and "w_gate_up_bias" not in lw
-                and ffn_fused.fused_ffn_available(lw, cfg.hidden_size, i_sz,
-                                                  b * s))
+    use_fqkv = not prefill and _fqkv_gate(cfg, lw, b, s, pk)
+    use_fffn = _fffn_gate(cfg, lw, b * s)
     for li in range(cfg.num_layers):
         if use_fqkv:
-            w = lw["wqkv"]
-            q1, *_ = qkv_fused.fused_qkv_append(
-                x[:, 0], lw["input_norm"], w.q, w.scales, sin[:, 0],
-                cos[:, 0], pk, pv, li, positions[:, 0], n_heads=n,
-                kv_heads=kvn, eps=eps, tables=tables, cache_ks=pks,
-                cache_vs=pvs)
+            q1 = _fused_qkv(cfg, lw, li, x, sin, cos, pk, pv,
+                            positions[:, 0], tables=tables, cache_ks=pks,
+                            cache_vs=pvs)
             attn = dispatch.attention_paged(cfg, q1[:, None], pk, pv, tables,
                                             kv_lens, li, **scales)
         else:
-            h = ref_ops.rmsnorm(x, lw["input_norm"][li], eps)
-            qkv = linear(h, lw["wqkv"], layer=li)
-            q = qkv[..., :n * d].reshape(b, s, n, d)
-            k = qkv[..., n * d:(n + kvn) * d].reshape(b, s, kvn, d)
-            v = qkv[..., (n + kvn) * d:].reshape(b, s, kvn, d)
-            q = ref_ops.apply_rope(q, sin, cos)
-            k = ref_ops.apply_rope(k, sin, cos)
+            q, k, v = _qkv(cfg, lw, li, x, sin, cos)
             if chunked:
                 pkv.write_prefill_stacked(pk, pv, k, v, tables, li,
                                           page_offset=page_offset, **scales)
@@ -177,19 +306,7 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                                          positions[:, 0], li, **scales)
                 attn = dispatch.attention_paged(cfg, q, pk, pv, tables,
                                                 kv_lens, li, **scales)
-        x = x + linear(attn.reshape(b, s, n * d), lw["wo"], layer=li)
-        if use_fffn:
-            gu, dn = lw["w_gate_up"], lw["w_down"]
-            x = ffn_fused.fused_ffn(
-                x.reshape(b * s, cfg.hidden_size), lw["post_norm"], gu.q,
-                gu.scales, dn.q, dn.scales, li, eps=eps
-            ).reshape(b, s, cfg.hidden_size)
-            continue
-        h = ref_ops.rmsnorm(x, lw["post_norm"][li], eps)
-        gate_up = linear(h, lw["w_gate_up"], layer=li)
-        swi = ref_ops.glu_act(gate_up[..., :i_sz], gate_up[..., i_sz:],
-                              cfg.hidden_act)
-        x = x + linear(swi, lw["w_down"], layer=li)
+        x = _post_attention(cfg, lw, li, x, attn, use_fffn)
 
     if last_token_only and s > 1:
         # the last valid slot kv_len-1 (absolute) as a chunk-local index
@@ -198,15 +315,7 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             idx = idx - chunk_offset.long()
         idx = idx.to(x.device)
         x = x[torch.arange(b, device=x.device), idx][:, None]
-    x = ref_ops.rmsnorm(x, params["final_norm"], eps)
-    lm_head = params.get("lm_head")
-    if lm_head is None:
-        # tied head: the f32 accumulator, as jnp.dot(...,
-        # preferred_element_type=float32) at llama.py:902-903
-        logits = dot_f32(x, params["embed"].t())
-    else:
-        logits = linear(x, lm_head, out_dtype=torch.float32)
-    return logits.float(), cache
+    return _logits(cfg, params, x), cache
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,

@@ -1,6 +1,6 @@
 """Attention dispatch for the model.
 
-Counterpart of simplellminference_tpu/ops/attention/dispatch.py:68-94,
+Counterpart of simplellminference_tpu/ops/attention/dispatch.py:68-137,
 :140-194 and :197-269. There is no backend switch here: each kernel
 wrapper launches its CUDA kernel for CUDA tensors and takes its plain
 version for CPU tensors, so on the card every call goes through a kernel.
@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 
 from simplellminference_tpu_torch.core.config import ModelConfig
+from simplellminference_tpu_torch.ops.attention.flash_decode import (
+    flash_decode)
 from simplellminference_tpu_torch.ops.attention.flash_prefill import (
     flash_prefill)
 from simplellminference_tpu_torch.ops.attention.paged_decode import (
@@ -41,6 +43,22 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     """Causal self-attention of a prompt, no cache read-back.
     q: [B, S, N, D]; k/v: [B, S, kvN, D]."""
     return flash_prefill(q, k, v, sm_scale=_attn_opts(cfg))
+
+
+def attention_cached(cfg: ModelConfig, q: torch.Tensor,
+                     ck: torch.Tensor, cv: torch.Tensor,
+                     kv_lens: torch.Tensor,
+                     layer: int | None = None) -> torch.Tensor:
+    """Decode attention against the dense arena (counterpart of
+    dispatch.py:97-123): ``flash_decode`` over slots [0, kv_len).
+    q: [B, 1, N, D]; ck/cv: [B, kvN, Smax, D], or the stacked arena
+    [L, B', kvN, Smax, D] with an int ``layer``; kv_lens: [B]. A prefill
+    from slot 0 attends its fresh k/v through :func:`attention` instead,
+    as ``models.llama.forward`` does."""
+    if q.shape[1] != 1:
+        raise ValueError(f"one query row per sequence, not {q.shape[1]}")
+    return flash_decode(q[:, 0], ck, cv, kv_lens, layer=layer,
+                        sm_scale=_attn_opts(cfg))[:, None]
 
 
 def attention_paged_prefill(cfg: ModelConfig, q: torch.Tensor,

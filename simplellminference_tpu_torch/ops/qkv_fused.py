@@ -29,9 +29,17 @@ page, or a position past the table, writes to the trash page (the last
 page row), as :func:`~simplellminference_tpu_torch.ops.paged_append.
 paged_append_decode` does.
 
-Not ported: the dense-arena form (``tables=None``, with the dense
-Generator) and a cache layer different from the weight layer
-(``kv_layer``, sliding ring pools); each raises.
+The dense-arena form (``tables=None``; qkv_fused.py:302-304): the
+"pools" are the dense arena [L, B', kvN, Smax, D] with B' >= B rows, x
+row b writes arena row b at slot ``offsets[b]``, and a slot outside
+[0, Smax) is dropped (:func:`~simplellminference_tpu_torch.ops.kv_append.
+kv_append`'s rule). The rounding is the paged form's. On the card it is
+its own wrapper, :func:`fused_qkv_append_dense`, with its own launch
+count; its quantizing (INT8-KV) form stays paged-only and raises, as the
+JAX wrapper asserts (qkv_fused.py:291-292).
+
+Not ported: a cache layer different from the weight layer (``kv_layer``,
+sliding ring pools); it raises.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from __future__ import annotations
 import torch
 
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
+from simplellminference_tpu_torch.ops.kv_append import kv_append_ref
 from simplellminference_tpu_torch.ops.linear import QuantizedWeight
 from simplellminference_tpu_torch.ops.paged_append import (
     _check_pools, _check_quant_pools, _index, check_scale_pools,
@@ -52,9 +61,10 @@ def _check(x, pool_k, pool_v, tables, cache_ks, cache_vs, kv_layer,
            layer) -> bool:
     """Raise for the forms not ported; True for the quantizing form
     (scale pools given and checked)."""
-    if tables is None:
-        raise NotImplementedError("fused_qkv_append on a dense KV arena "
-                                  "(tables=None)")
+    if tables is None and (cache_ks is not None or cache_vs is not None):
+        raise NotImplementedError("INT8 KV on a dense KV arena (tables="
+                                  "None): the quantizing append is a "
+                                  "paged-pool path")
     if kv_layer is not None and int(kv_layer) != int(layer):
         raise NotImplementedError("a KV layer apart from the weight layer "
                                   "(kv_layer: sliding ring pools)")
@@ -111,7 +121,10 @@ def fused_qkv_append_ref(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
                                       k.to(x.dtype), v.to(x.dtype), tables,
                                       offsets, layer)
         return q.to(x.dtype), pool_k, pool_v, cache_ks, cache_vs
-    paged_append_decode_ref(pool_k, pool_v, k, v, tables, offsets, layer)
+    if tables is None:
+        kv_append_ref(pool_k, pool_v, k[:, None], v[:, None], layer, offsets)
+    else:
+        paged_append_decode_ref(pool_k, pool_v, k, v, tables, offsets, layer)
     return q.to(x.dtype), pool_k, pool_v
 
 
@@ -126,7 +139,9 @@ def fused_qkv_append(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
     """x: [B, H] (B <= 64, the residual stream); norm_w: [L, H] (or
     [L, 1, H]); wq: [L, H, (N + 2 kvN) D] int8 with per-channel ws
     [L, 1, (N + 2 kvN) D] f32; sin/cos: [B, D/2]; pool_k/v: [L, P+1, kvN,
-    ps, D]; layer: int; offsets: [B] write positions; tables: [B, MP].
+    ps, D] with tables [B, MP], or (``tables=None``) the dense arena
+    [L, B', kvN, Smax, D], B' >= B; layer: int; offsets: [B] write
+    positions.
     Returns (q [B, N, D] rotated, in x's dtype; pool_k; pool_v), the new
     k/v rows already written in place. With the scale pools
     ``cache_ks``/``cache_vs`` [L, P+1, kvN, ps] f32 of int8 pools, k/v
@@ -144,6 +159,10 @@ def fused_qkv_append(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
                                        pool_v, cache_ks, cache_vs, layer,
                                        offsets, n_heads, kv_heads, eps,
                                        tables)
+    if tables is None:
+        return fused_qkv_append_dense(x, norm_w, wq, ws, sin, cos, pool_k,
+                                      pool_v, layer, offsets, n_heads,
+                                      kv_heads, eps)
     _check_pools(pool_k, pool_v, x, layer)
     q = _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, None, None,
                 layer, offsets, n_heads, kv_heads, eps, tables,
@@ -153,6 +172,31 @@ def fused_qkv_append(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
 
 
 fused_qkv_append.launches = 0
+
+
+def fused_qkv_append_dense(x, norm_w, wq, ws, sin, cos, cache_k, cache_v,
+                           layer: int, offsets, n_heads: int | None = None,
+                           kv_heads: int | None = None, eps: float = 1e-5):
+    """The dense-arena form of :func:`fused_qkv_append` (``tables=None``):
+    x [B, H] into the arena [L, B', kvN, Smax, D], B <= B', row b at slot
+    ``offsets[b]``. Returns (q, cache_k, cache_v)."""
+    if not x.is_cuda:
+        return fused_qkv_append_ref(x, norm_w, wq, ws, sin, cos, cache_k,
+                                    cache_v, layer, offsets, n_heads,
+                                    kv_heads, eps)
+    _check(x, cache_k, cache_v, None, None, None, None, layer)
+    _check_pools(cache_k, cache_v, x, layer)
+    if x.shape[0] > cache_k.shape[1]:
+        raise ValueError(f"{x.shape[0]} rows for an arena of "
+                         f"{cache_k.shape[1]} rows")
+    q = _launch(x, norm_w, wq, ws, sin, cos, cache_k, cache_v, None, None,
+                layer, offsets, n_heads, kv_heads, eps, None,
+                "fused_qkv_append_dense")
+    fused_qkv_append_dense.launches += 1
+    return q, cache_k, cache_v
+
+
+fused_qkv_append_dense.launches = 0
 
 
 def fused_qkv_append_int8kv(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
@@ -207,10 +251,21 @@ def _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, cache_ks, cache_vs,
     cos = cos.to(torch.float32).contiguous()
     if sin.shape != (b, d // 2) or cos.shape != (b, d // 2):
         raise ValueError("sin/cos must be [B, D/2]")
-    tables = _index(tables, b, "tables")
     offsets = _index(offsets, b, "offsets")
     vec = int(nq % 16 == 0 and wl.data_ptr() % 16 == 0)
     lib = cuda_build.load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if tables is None:
+        rc = lib.sli_qkv_fused_dense(
+            xc.data_ptr(), xc.stride(0), nw.data_ptr(),
+            int(nw.dtype == torch.bfloat16), wl.data_ptr(), sl.data_ptr(),
+            sin.data_ptr(), cos.data_ptr(), pool_k.data_ptr(),
+            pool_v.data_ptr(), int(pool_k.dtype == torch.bfloat16),
+            out.data_ptr(), offsets.data_ptr(), layer, p1, kvn, ps, b, h, n,
+            d, float(eps), cuda_build.dtype_code(x.dtype), vec, stream)
+        cuda_build.check(lib, rc, what)
+        return out
+    tables = _index(tables, b, "tables")
     rc = lib.sli_qkv_fused(
         xc.data_ptr(), xc.stride(0), nw.data_ptr(),
         int(nw.dtype == torch.bfloat16), wl.data_ptr(), sl.data_ptr(),
@@ -220,8 +275,7 @@ def _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, cache_ks, cache_vs,
         int(pool_k.dtype == torch.bfloat16), out.data_ptr(),
         tables.data_ptr(), offsets.data_ptr(), layer, p1, kvn, ps,
         tables.shape[1], b, h, n, d, float(eps),
-        cuda_build.dtype_code(x.dtype), vec,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        cuda_build.dtype_code(x.dtype), vec, stream)
     cuda_build.check(lib, rc, what)
     return out
 
@@ -231,8 +285,8 @@ def fused_qkv_available(lw, cfg, b: int, s: int, cache_k,
                         kv_heads: int | None = None) -> bool:
     """The gates of simplellminference_tpu/ops/qkv_fused.py:414 without its
     TPU VMEM tiling (``qkv_tiles``): decode (S == 1), B <= 64, a stacked
-    per-channel 8-bit ``wqkv`` with no bias, [L, P, kvN, ps, D] pools and
-    a head split that makes the qkv columns."""
+    per-channel 8-bit ``wqkv`` with no bias, stacked 5-d pools or dense
+    arena and a head split that makes the qkv columns."""
     w = lw.get("wqkv")
     if "wqkv_bias" in lw or s != 1 or b > MAX_ROWS:
         return False

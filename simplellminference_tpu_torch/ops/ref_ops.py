@@ -166,7 +166,10 @@ def quantize_int8_groupwise(w: torch.Tensor, group_size: int,
         raise ValueError(f"group {group_size} does not divide K={k}")
     wg = w.float().reshape(*lead, k // group_size, group_size, n)
     absmax = wg.abs().amax(dim=-2)                               # [..., G, N]
-    scales = torch.clamp(absmax / 127.0, min=1e-8)
+    # divide by a tensor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not the IEEE quotient jnp
+    # computes (quantize_kv in ops/paged_append.py does the same)
+    scales = torch.clamp(absmax / torch.full_like(absmax, 127.0), min=1e-8)
     q = torch.clamp(torch.round(wg / scales[..., None, :]), -127, 127)
     return q.to(torch.int8).reshape(*lead, k, n), scales.to(scale_dtype)
 

@@ -125,11 +125,15 @@ def row_uniform(keys: torch.Tensor) -> torch.Tensor:
 def _shaped(logits, temperature, top_k, top_p, min_p) -> torch.Tensor:
     """Temperature-scaled logits with top-k, then top-p on the renormalized
     survivors, then min-p applied; filtered entries are -inf. Token order
-    (the JAX package works in sorted space and scatters back)."""
+    (the JAX package works in sorted space and scatters back). The sort is
+    the JAX package's (sampling.py:89-92): ascending and stable, then
+    reversed, so tied logits rank in descending token id and a cut inside
+    a tie keeps the same tokens in both packages."""
     b, v = logits.shape
     t = torch.clamp(temperature, min=1e-6)[:, None]
     scaled = logits.float() / t
-    sv, si = torch.sort(scaled, dim=-1, descending=True, stable=True)
+    sv, si = torch.sort(scaled, dim=-1, stable=True)
+    sv, si = sv.flip(-1), si.flip(-1)
     rank = torch.arange(v, device=logits.device)[None]
     k_eff = torch.where(top_k > 0, top_k.long(), torch.full_like(
         top_k.long(), v))[:, None]

@@ -184,8 +184,10 @@ def test_fused_qkv_append_unported_forms_raise():
                 cos=torch.ones(2, 16), pool_k=pools, pool_v=pools.clone(),
                 layer=1, offsets=torch.zeros(2, dtype=torch.int32))
     tables = torch.zeros(2, 2, dtype=torch.int32)
+    # the dense-arena form is ported; its quantizing form stays paged-only
     with pytest.raises(NotImplementedError, match="dense KV arena"):
-        tqkv.fused_qkv_append(**base)
+        tqkv.fused_qkv_append(**base, cache_ks=pools[..., 0],
+                              cache_vs=pools[..., 0])
     with pytest.raises(NotImplementedError, match="INT8 KV"):
         tqkv.fused_qkv_append(**base, tables=tables, cache_ks=pools[..., 0])
     with pytest.raises(NotImplementedError, match="kv_layer"):

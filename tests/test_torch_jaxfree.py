@@ -31,6 +31,11 @@ from simplellminference_tpu_torch.ops.attention import dispatch
 from simplellminference_tpu_torch.ops.attention import paged_prefill
 from simplellminference_tpu_torch.memory import allocator, paged_kv
 from simplellminference_tpu_torch.tokenizer import StreamingDetokenizer
+from simplellminference_tpu_torch.tokenizer import ByteTokenizer
+from simplellminference_tpu_torch.ops import kv_append
+from simplellminference_tpu_torch.ops.attention import flash_decode
+from simplellminference_tpu_torch.runtime import generator, kv_cache
+from simplellminference_tpu_torch.cli import generate
 import chip_smoke
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
        m.split(".")[0] in ("jax", "jaxlib")

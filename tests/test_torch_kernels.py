@@ -717,3 +717,161 @@ def test_spec_engine_card_matches_cpu(cuda):
             got = [(e.metrics.spec_steps, e.metrics.spec_accepted)
                    for e in engs]
             assert got[0] == got[1] and got[0][1] > 0
+
+
+# ------------------------------------------------------------ dense path
+# Kernel 12 is byte-equal to its plain version over the whole arena (rows
+# past Smax dropped); kernel 13 at the attention tolerances; form 6d at the
+# fused qkv tolerances; the Generator and the draft Engine equal on both
+# devices; quantize_params byte-equal on both devices.
+
+def _arena(g, dev, dtype, rows=5, kvn=4, smax=384, d=64):
+    shape = (2, rows, kvn, smax, d)
+    return (torch.randn(shape, generator=g, device=dev, dtype=dtype),
+            torch.randn(shape, generator=g, device=dev, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s,offs", [(1, [0, 383, 384, 7]),
+                                    (8, [3, 376, 380, 500]),
+                                    (128, [0, 256, 300, 0])])
+def test_kv_append(cuda, dtype, s, offs):
+    from simplellminference_tpu_torch.ops import kv_append as ka
+    g = torch.Generator(device=cuda).manual_seed(s)
+    ck, cv = _arena(g, cuda, dtype)
+    big = torch.randn((4, s, 3 * 4 * 64), generator=g, device=cuda,
+                      dtype=dtype)
+    nk = big[..., 256:512].reshape(4, s, 4, 64)
+    nv = big[..., 512:].reshape(4, s, 4, 64)          # strided views
+    off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    a, r = (ck.clone(), cv.clone()), (ck.clone(), cv.clone())
+    before = ka.kv_append.launches
+    ka.kv_append(*a, nk, nv, 1, off)
+    assert ka.kv_append.launches == before + 1
+    ka.kv_append_ref(*r, nk, nv, 1, off)
+    assert torch.equal(a[0], r[0]) and torch.equal(a[1], r[1])
+    assert torch.equal(a[0][0], ck[0]) and torch.equal(a[0][:, 4], ck[:, 4])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,kvn,d", [(32, 32, 128), (32, 4, 64), (8, 2, 32)])
+def test_flash_decode(cuda, dtype, n, kvn, d):
+    from simplellminference_tpu_torch.ops.attention import flash_decode as fd
+    g = torch.Generator(device=cuda).manual_seed(n + kvn + d)
+    ck, cv = _arena(g, cuda, dtype, rows=6, kvn=kvn, smax=256, d=d)
+    q = torch.randn((5, n, d), generator=g, device=cuda, dtype=dtype)
+    kv_lens = torch.tensor([1, 0, 161, 256, 300], dtype=torch.int32,
+                           device=cuda)
+    before = fd.flash_decode.launches
+    got = fd.flash_decode(q, ck, cv, kv_lens, layer=1)
+    assert fd.flash_decode.launches == before + 1
+    want = fd.flash_decode_ref(q, ck, cv, kv_lens, layer=1)
+    assert got.shape == q.shape and got.dtype == dtype
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
+    assert not got[1].any()          # kv_len 0 -> zero output
+    with pytest.raises(NotImplementedError, match="sliding-window"):
+        fd.flash_decode(q, ck, cv, kv_lens, layer=1, window=16)
+
+
+@pytest.mark.parametrize("xdt", DTYPES)
+@pytest.mark.parametrize("n,kvn,d,b,rows", [(8, 2, 64, 4, 5), (4, 4, 128, 3, 3),
+                                            (8, 4, 32, 5, 5)])
+def test_fused_qkv_append_dense(cuda, xdt, n, kvn, d, b, rows):
+    g = torch.Generator(device=cuda).manual_seed(n * kvn + d)
+    h, smax = 256, 128
+    nq = (n + 2 * kvn) * d
+    wq = torch.randint(-127, 128, (2, h, nq), generator=g, device=cuda,
+                       dtype=torch.int8)
+    ws = (torch.rand((2, 1, nq), generator=g, device=cuda) + 0.5) * 1e-2
+    nw = (1.0 + 0.1 * torch.randn((2, h), generator=g, device=cuda)).to(xdt)
+    x = torch.randn((b, h), generator=g, device=cuda).to(xdt)
+    pos = torch.tensor([5, 127, 128, 40, 3][:b], dtype=torch.int32,
+                       device=cuda)
+    sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
+    ck, cv = _arena(g, cuda, xdt, rows=rows, kvn=kvn, smax=smax, d=d)
+    a, r = (ck.clone(), cv.clone()), (ck.clone(), cv.clone())
+    before = qf.fused_qkv_append_dense.launches
+    qa, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, *a, 1, pos,
+                                 n_heads=n, kv_heads=kvn)
+    assert qf.fused_qkv_append_dense.launches == before + 1
+    qr, *_ = qf.fused_qkv_append_ref(x, nw, wq, ws, sin, cos, *r, 1, pos,
+                                     n_heads=n, kv_heads=kvn)
+    tol = 1e-5 if xdt == torch.float32 else 2e-2
+    sd = float(qr.float().std())
+    assert float((qa.float() - qr.float()).abs().max()) <= tol * sd
+    for ta, tr in zip(a, r):
+        assert float((ta.float() - tr.float()).abs().max()) <= tol * sd
+        assert torch.equal(ta[0], tr[0])              # other layer untouched
+    # slot 128 (row 2) is past Smax: dropped, the row keeps its bytes
+    assert torch.equal(a[0][1, 2], ck[1, 2])
+
+
+def test_quantize_params_card_matches_cpu(cuda):
+    # the scales divide by a tensor (IEEE) on both devices, so the codes
+    # and scales quantized on the card are the CPU's byte for byte
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn((2, 512, 384), generator=g) * 0.05
+    w[0, :, :7] *= 1e-3                 # small columns: small scales
+    params = {"embed": torch.zeros(4, 512), "final_norm": torch.ones(512),
+              "layers": {"wqkv": w}, "lm_head": w[0].clone()}
+    for gs in (0, 128):
+        qc = QuantConfig(mode="int8", group_size=gs, quantize_lm_head=True)
+        cpu = quantize_params(params, qc)
+        gpu = quantize_params(_to(params, cuda), qc)
+        for a, b in ((cpu["layers"]["wqkv"], gpu["layers"]["wqkv"]),
+                     (cpu["lm_head"], gpu["lm_head"])):
+            assert torch.equal(a.q, b.q.cpu())
+            assert torch.equal(a.scales, b.scales.cpu())
+
+
+def test_generator_runs_the_kernels_only_and_matches_cpu(cuda):
+    from simplellminference_tpu_torch.ops import kv_append as ka
+    from simplellminference_tpu_torch.ops.attention import flash_decode as fd
+    from simplellminference_tpu_torch.runtime.generator import Generator
+    cfg = ModelConfig.tiny_test(num_layers=2)
+    prompts = [[5, 9, 2, 44, 17], [33, 4, 250, 1, 2, 3, 4, 5, 6], [7]]
+    refs = (ka.kv_append_ref, fd.flash_decode_ref, fp.flash_prefill_ref,
+            qf.fused_qkv_append_ref)
+    calls = [f.cuda_calls for f in refs]
+    for p_cpu in (llama.init_params(cfg, seed=3, device="cpu"),
+                  _int8_params(cfg, 3, "cpu")):
+        kerns = (fd.flash_decode, fp.flash_prefill, ka.kv_append
+                 if isinstance(p_cpu["layers"]["wqkv"], torch.Tensor)
+                 else qf.fused_qkv_append_dense)
+        launches = [f.launches for f in kerns]
+        outs = []
+        for p, dev in ((p_cpu, "cpu"), (_to(p_cpu, cuda), cuda)):
+            gen = Generator(cfg, p, max_batch=3, max_seq=128, device=dev)
+            res = gen.generate(prompts, SamplingParams(max_new_tokens=12))
+            fused = gen.generate_fused(prompts, 12)
+            assert fused.tolist() == res.token_ids
+            outs.append(res.token_ids)
+        assert outs[0] == outs[1]
+        assert all(f.launches > n for f, n in zip(kerns, launches))
+    assert [f.cuda_calls for f in refs] == calls
+
+
+def test_draft_engine_card_matches_cpu(cuda):
+    cfg = ModelConfig.tiny_test(num_layers=2)
+    dcfg = ModelConfig.tiny_test(num_layers=1, hidden_size=64,
+                                 intermediate_size=128, num_heads=2,
+                                 num_kv_heads=1)
+    p_cpu = llama.init_params(cfg, seed=3, device="cpu")
+    d_cpu = llama.init_params(dcfg, seed=42, device="cpu")
+    prompts = [[5, 6, 7, 8] * 5, [9, 1, 2, 3], list(range(20, 40))]
+    s = SamplingParams(max_new_tokens=16)
+    ecfg = EngineConfig(max_batch_size=3, spec_tokens=3,
+                        kv=KVCacheConfig(page_size=8, num_pages=64,
+                                         max_pages_per_seq=8,
+                                         kv_dtype="f32"))
+    outs, metrics = [], []
+    for dev, to in (("cpu", lambda t: t), (cuda, lambda t: _to(t, cuda))):
+        for draft in ((dcfg, to(d_cpu)), (cfg, to(p_cpu))):
+            eng = Engine(cfg, to(p_cpu), ecfg, decode_burst=3, device=dev,
+                         draft=draft)
+            outs.append(eng.generate(prompts, s))
+            metrics.append((eng.metrics.spec_steps,
+                            eng.metrics.spec_accepted))
+    assert outs[0] == outs[1] == outs[2] == outs[3]
+    assert metrics[0] == metrics[2] and metrics[1] == metrics[3]
+    assert metrics[1][1] >= 2 * metrics[1][0]      # a self-draft accepts

@@ -150,3 +150,60 @@ def test_token_logprob():
                             torch.from_numpy(tok)).numpy(),
         np.asarray(jsamp.token_logprob(jnp.asarray(lg), jnp.asarray(tok))),
         rtol=1e-5, atol=1e-6)
+
+
+# Tied logits: the JAX package sorts ascending (stable) and reverses
+# (sampling.py:89-92), so ties rank in descending token id, and a top-k
+# or top-p cut inside a tie keeps the highest ids. The port must keep the
+# same tokens.
+TIES = [(np.asarray([0.0, 0.0, 0.0, -5.0], np.float32), 1, 1.0),
+        (np.asarray([0.0, 0.0, 0.0, -5.0], np.float32), 2, 1.0),
+        (np.asarray([1.0, 0.0, 0.0, 0.0, 0.0, -3.0], np.float32), 0, 0.6)]
+
+
+def _jax_kept(row, top_k, top_p):
+    """Tokens JAX's ``_shaped_sorted`` keeps for one row (temperature 1)."""
+    masked, si = jsamp._shaped_sorted(
+        jnp.asarray(row[None]), jnp.ones(1), jnp.asarray([top_k], jnp.int32),
+        jnp.asarray([top_p], jnp.float32), jnp.zeros(1))
+    keep = np.isfinite(np.asarray(masked[0]))
+    return set(np.asarray(si[0])[keep].tolist())
+
+
+def _rows(row, top_k, top_p, n=1):
+    return (torch.from_numpy(np.repeat(row[None], n, 0)),
+            torch.ones(n), torch.full((n,), top_k, dtype=torch.int32),
+            torch.full((n,), top_p), torch.zeros(n))
+
+
+@pytest.mark.parametrize("row,top_k,top_p", TIES,
+                         ids=["top_k1", "top_k2", "top_p_inside_tie"])
+def test_tied_logits_keep_jax_tokens(row, top_k, top_p):
+    kept = _jax_kept(row, top_k, top_p)
+    v = len(row)
+    n = 512
+    lg, temp, tk, tp, mp = _rows(row, top_k, top_p, n)
+    # sample: the drawn set is JAX's kept set (every kept token shows)
+    got = tsamp.sample(lg, temp, tk, tp, min_p=mp,
+                       seeds=torch.full((n,), 7, dtype=torch.int64),
+                       seed_pos=torch.arange(n, dtype=torch.int32))
+    assert set(got.tolist()) == kept
+    # shaped_token_prob: the same probability of every token as JAX
+    for t in range(v):
+        args = [torch.from_numpy(row[None]), torch.tensor([t]), temp[:1],
+                tk[:1], tp[:1], mp[:1]]
+        want = float(jsamp.shaped_token_prob(
+            jnp.asarray(row[None]), jnp.asarray([t]), jnp.ones(1),
+            jnp.asarray([top_k], jnp.int32),
+            jnp.asarray([top_p], jnp.float32), jnp.zeros(1))[0])
+        assert abs(float(tsamp.shaped_token_prob(*args)[0]) - want) < 1e-6
+        assert (want > 0) == (t in kept)
+    # sample_excluding: draws stay in JAX's kept set minus the excluded
+    # token (or the kept set when excluding empties it)
+    for ex in range(-1, v):
+        keys = tsamp.spec_row_keys(torch.full((n,), 3, dtype=torch.int64),
+                                   torch.arange(n), 2)
+        got = tsamp.sample_excluding(lg, temp, tk, tp, mp,
+                                     torch.full((n,), ex), keys)
+        want = (kept - {ex}) or kept
+        assert set(got.tolist()) == want, (ex, want)

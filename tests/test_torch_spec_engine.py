@@ -384,7 +384,9 @@ def test_spec_config_errors(model, kw, exc, match):
 
 
 def test_draft_model_speculation_raises(model):
+    # draft-model speculation is ported (tests/test_torch_draft_spec.py);
+    # without spec_tokens it raises, where the JAX engine asserts
     _jcfg, _jp, cfg, tp = model
-    with pytest.raises(NotImplementedError, match="draft-model"):
-        Engine(cfg, tp, EngineConfig(spec_tokens=3), device="cpu",
+    with pytest.raises(ValueError, match="draft-model"):
+        Engine(cfg, tp, EngineConfig(spec_tokens=0), device="cpu",
                draft=(cfg, tp))
