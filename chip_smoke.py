@@ -30,11 +30,17 @@ Phases, in order; any failure exits non-zero:
                 GQA f32, a span across a page, a dead row) and
                 paged_flash_verify and its INT8-KV form at S in {1, 2, 5,
                 8}, GQA (N=32, kvN=8) and not, f32 and bf16, timed at the
-                spec paths' 8 x 5-row call; max |error| beside its
-                tolerance, kernel / plain / library times from CUDA-graph
-                replay, and the bound (the least time for the bytes and
-                operations of the call on an H100 SXM: 3.35 TB/s,
-                989 TFLOP/s bf16, 67 TFLOP/s f32).
+                spec paths' 8 x 5-row call; then the INT4 product (and
+                its zero-point form, AWQ) at every 7B product's shape,
+                M in {1, 8, 1024}, per-channel and group 128, ragged M and
+                K/2 off a multiple of 128, and the W8A8 product at the
+                four prefill products, M in {128, 1024} and ragged, with
+                both quantizers byte-equal card vs CPU; max |error| beside
+                its tolerance, kernel / plain / library times from
+                CUDA-graph replay, and the bound (the least time for the
+                bytes and operations of the call on an H100 SXM:
+                3.35 TB/s, 989 TFLOP/s bf16, 67 TFLOP/s f32, 1,979 TOP/s
+                int8).
   4. engine   — the Engine serving Llama-2-7B at full width and depth
                 (32 layers, random weights from a seeded generator on the
                 card), 8 requests of 128-token prompts, 32 new tokens,
@@ -68,7 +74,15 @@ Phases, in order; any failure exits non-zero:
                 counts (no single-row decode kernel runs), the acceptance
                 rate, decode tok/s with and without speculation, and (bf16
                 KV) a graph-replayed verify step (S = 5) beside a decode
-                step at context 152.
+                step at context 152. Then the dense Generator (`dense`,
+                `dense_bf16`) and draft-model speculation (`draft`); then
+                INT4 weights as bench.py --quant int4 draws them through
+                the Engine (`int4`, rate and step as the int8 path) and
+                the Generator (`int4_dense`), every product on the INT4
+                kernel; and `w8a8` (the server CLI's --act-quant: the
+                prefix path's traffic, every prefill product of 128 rows
+                or more on the W8A8 kernel), each wave's TTFT beside the
+                `prefix` path's.
   5. cpu      — the same port at Llama-2-7B width, 2 layers, f32, TF32 off,
                 on the card (kernels) and on the host CPU (plain
                 versions), from one numpy draw of the weights, 4 requests,
@@ -85,7 +99,13 @@ Phases, in order; any failure exits non-zero:
                 and INT8 weights over INT8 KV: greedy tokens equal card vs
                 CPU, to the same Engine with spec_tokens=0 and to the
                 CPU's greedy trace, by the same rule, and equal
-                speculative metrics.
+                speculative metrics. Then the Generator, the self-drafted
+                Engine and quantize_params; INT4 (quantize_params, group
+                128) and AWQ (params from a seeded in-memory fetcher)
+                through the Engine and the Generator; and W8A8 over
+                group-128 INT8 weights, the Engine also on prefix
+                traffic, the card carrying on with the CPU's activation
+                codes (its own within one step of them).
 
 Then one line ``{"kernels": [...]}`` and, last, the result line
 ``{"ok": true, "device": {...}}``; both only when every phase ran
@@ -105,7 +125,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"bfloat16": 989e12,     # dense tensor-core bf16
-            "float32": 67e12}       # f32 outside the tensor cores
+            "float32": 67e12,       # f32 outside the tensor cores
+            "int8": 1979e12}        # dense tensor-core int8
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # the INT8 kernels: f32 outputs within this share of the output's largest
 # magnitude (f32 sums in another order); bf16 outputs of quantized_matmul
@@ -189,6 +210,16 @@ KERNELS = {
     "fused_qkv_append_dense": dict(
         source="simplellminference_tpu_torch/csrc/qkv_fused.cu",
         replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
+    # INT4 weights (14, and 14z with AWQ/GPTQ zero points) and W8A8 (15)
+    "quantized_matmul_int4": dict(
+        source="simplellminference_tpu_torch/csrc/quantized_matmul_int4.cu",
+        replaces="simplellminference_tpu/ops/matmul.py:354"),
+    "quantized_matmul_int4_zs": dict(
+        source="simplellminference_tpu_torch/csrc/quantized_matmul_int4.cu",
+        replaces="simplellminference_tpu/ops/matmul.py:354"),
+    "quantized_matmul_w8a8": dict(
+        source="simplellminference_tpu_torch/csrc/quantized_matmul_w8a8.cu",
+        replaces="simplellminference_tpu/ops/matmul.py:232"),
 }
 # the Engine's paths, in order: bench.py's weight paths (prefix cache
 # off), then the server's default configuration (prefix cache on,
@@ -198,9 +229,13 @@ KERNELS = {
 # the server CLI's --spec-tokens 4 (bf16 weights and KV, the prefix cache
 # on) and bench.py --kv-dtype int8 with spec_tokens=4; then the dense
 # path: bench.py's Generator (INT8 weights, and bf16 under --fp) and
-# draft-model speculation (the spec engine drafted by TinyLlama-1.1B)
+# draft-model speculation (the spec engine drafted by TinyLlama-1.1B); then
+# bench.py --quant int4 through the Engine (`int4`) and the Generator
+# (`int4_dense`), and the server CLI's --act-quant (W8A8 prefill) on the
+# prefix path's traffic
 PATHS = ("int8", "bf16", "prefix", "int8kv", "int8kv_prefix", "spec",
-         "spec_int8kv", "dense", "dense_bf16", "draft")
+         "spec_int8kv", "dense", "dense_bf16", "draft", "int4", "int4_dense",
+         "w8a8")
 
 
 class SmokeFailure(Exception):
@@ -1593,6 +1628,241 @@ def check_fused_qkv_dense(torch, dev, results):
             bound_ms=bms, bound_by=by)
 
 
+def _int4_weight(torch, gen, dev, k, n, groups, zs=False, layers=2):
+    """Random split-half packed bytes for a logical [layers, K, N] INT4
+    weight (every byte value, so both nibbles reach -8 and 7), f32 scales
+    around bench.py's K**-0.5 / 7 varied per column, and with ``zs`` zero
+    points (z - 8) * s for z in [0, 16) (the AWQ form)."""
+    q = torch.randint(-128, 128, (layers, k // 2, n), generator=gen,
+                      device=dev, dtype=torch.int8)
+    s = (torch.rand((layers, groups, n), generator=gen, device=dev) + 0.5
+         ) * (k ** -0.5 / 7.0)
+    z = None
+    if zs:
+        z = (torch.randint(0, 16, s.shape, generator=gen, device=dev) - 8
+             ).float() * s
+    return q, s, z
+
+
+def _matmul_rule(torch, got, want, odt):
+    """The INT8 product's rule: f32 outputs within F32_REL of the output's
+    largest magnitude; bf16 outputs within one bf16 ulp beyond that."""
+    err = max_err(got, want)
+    slack = F32_REL * float(want.float().abs().max())
+    if odt == torch.float32:
+        return err <= slack, err, f"tol {slack:.3e} = {F32_REL:g} x max|out|"
+    diff = (got.float() - want.float()).abs()
+    ulp = _bf16_ulp(torch, torch.maximum(got.float().abs(),
+                                         want.float().abs()))
+    return (bool((diff <= ulp + slack).all()), err,
+            f"tol one bf16 ulp of each output + {slack:.3e}")
+
+
+def _int4pack_library(torch, x, q, s, z, k):
+    """torch._weight_int4pack_mm on the same weights repacked for it
+    (uint4 codes c + 8 as [N, K/2] bytes, scales and zero terms -zs over
+    groups of 128 rows, bf16), if the card's PyTorch has it; else
+    torch.matmul on the dequantized bf16 weight. The scale groups must be
+    128 rows or a multiple. Returns (fn, name)."""
+    from simplellminference_tpu_torch.ops import ref_ops
+    rep = k // 128 // s.shape[0]               # 128-row groups per group
+    require(rep >= 1, "library INT4 needs scale groups of >= 128 rows")
+    xb = x.to(torch.bfloat16)
+    try:
+        u = (ref_ops.unpack_int4(q).int() + 8).t().contiguous()  # [N, K]
+        wp = torch._convert_weight_to_int4pack(
+            ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8), 8)
+        zt = torch.zeros_like(s) if z is None else -z
+        sz = torch.stack([s.repeat_interleave(rep, 0),
+                          zt.repeat_interleave(rep, 0)], -1).to(
+            torch.bfloat16).contiguous()
+
+        def fn():
+            return torch._weight_int4pack_mm(xb, wp, 128, sz)
+        fn()
+        return fn, "torch._weight_int4pack_mm (group 128)"
+    except (AttributeError, RuntimeError, TypeError) as e:
+        w = ref_ops.dequantize_int4_groupwise(q, s, torch.bfloat16, zs=z)
+        print(f"[kernels] torch._weight_int4pack_mm unavailable ({e}); "
+              f"library time from torch.matmul on the bf16 weight",
+              flush=True)
+        return (lambda: torch.matmul(xb, w)), ("torch.matmul on the "
+                                               "dequantized bf16 weight")
+
+
+def check_quantized_matmul_int4(torch, dev, results, extra):
+    from simplellminference_tpu_torch.ops.matmul import (
+        quantized_matmul_int4, quantized_matmul_int4_ref,
+        quantized_matmul_int4_zs)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    bf, f32 = torch.bfloat16, torch.float32
+    # tag: (m, k, n, scale groups, zero points, x dtype, out dtype, timed);
+    # bench.py --quant int4: per-channel scales, every decode product at
+    # M = 8 and the 8 x 128-row prefill, M = 1 (one request); the AWQ
+    # form (group 128, zero points) at decode and prefill; ragged M and a
+    # K whose K/2 is no multiple of 128
+    cases = {
+        "llama2-7b wqkv decode": (8, 4096, 12288, 1, False, bf, bf, True),
+        "llama2-7b wo decode": (8, 4096, 4096, 1, False, bf, bf, True),
+        "llama2-7b gate_up decode": (8, 4096, 22016, 1, False, bf, bf, True),
+        "llama2-7b down decode": (8, 11008, 4096, 1, False, bf, bf, True),
+        "llama2-7b lm_head decode": (8, 4096, 32000, 1, False, bf, f32,
+                                     True),
+        "llama2-7b wqkv prefill": (1024, 4096, 12288, 1, False, bf, bf, True),
+        "llama2-7b wqkv M=1": (1, 4096, 12288, 1, False, bf, bf, False),
+        "llama2-7b gate_up prefill": (1024, 4096, 22016, 1, False, bf, bf,
+                                      False),
+        "llama2-7b down prefill": (1024, 11008, 4096, 1, False, bf, bf,
+                                   False),
+        "llama2-7b wo group128": (8, 4096, 4096, 32, False, bf, bf, False),
+        "llama2-7b wqkv group128 f32": (8, 4096, 12288, 32, False, f32, f32,
+                                        False),
+        "awq wqkv decode": (8, 4096, 12288, 32, True, bf, bf, True),
+        "awq gate_up decode": (8, 4096, 22016, 32, True, bf, bf, False),
+        "awq down decode f32": (8, 11008, 4096, 86, True, f32, f32, False),
+        "awq wqkv prefill": (1024, 4096, 12288, 32, True, bf, bf, True),
+        "awq lm_head per-channel": (8, 4096, 32000, 1, True, bf, f32, False),
+        "ragged M=300 group128": (300, 4096, 4096, 32, True, bf, f32, False),
+        "k4000 (K/2 2000) decode": (5, 4000, 3000, 1, False, f32, f32,
+                                    False),
+        "k2000 group200 prefill": (77, 2000, 1000, 10, True, f32, bf, False),
+    }
+    for tag, (m, k, n, groups, zs, xdt, odt, timed) in cases.items():
+        q, s, z = _int4_weight(torch, gen, dev, k, n, groups, zs)
+        x = torch.randn((m, k), generator=gen, device=dev).to(xdt)
+        name = "quantized_matmul_int4_zs" if zs else "quantized_matmul_int4"
+        args = (x, q, s) + ((z,) if zs else ())
+
+        def kern(args=args, zs=zs, odt=odt):
+            fn = quantized_matmul_int4_zs if zs else quantized_matmul_int4
+            return fn(*args, out_dtype=odt, layer=1)
+
+        def plain(x=x, q=q, s=s, z=z, odt=odt):
+            return quantized_matmul_int4_ref(x, q, s, out_dtype=odt,
+                                             layer=1, zs=z)
+        got = kern()
+        want = plain()
+        torch.cuda.synchronize()
+        ok, err, rule = _matmul_rule(torch, got, want, odt)
+        print(f"[kernels] {name} {tag} (m={m} k={k} n={n} groups={groups}):"
+              f" max|err| {err:.3e} ({rule})", flush=True)
+        require(bool(torch.isfinite(got).all()) and ok,
+                f"{name} {tag} disagrees: {err}")
+        if not timed:
+            continue
+        zl = None if z is None else z[1]
+        lib, lib_name = _int4pack_library(torch, x, q[1], s[1], zl, k)
+        print(f"[kernels] {name} {tag}: library ({lib_name}) max|lib - "
+              f"plain| {max_err(lib(), want):.3e} of max|plain| "
+              f"{float(want.float().abs().max()):.3e}", flush=True)
+        nbytes = (m * k * x.element_size() + k // 2 * n
+                  + groups * n * 4 * (2 if zs else 1)
+                  + m * n * got.element_size())
+        bms, by = bound_ms(nbytes, 2.0 * m * k * n, dname(torch, xdt))
+        r = dict(max_abs_err=err, ms=time_ms(torch, kern),
+                 plain_ms=time_ms(torch, plain, iters=5),
+                 library_ms=time_ms(torch, lib), bound_ms=bms, bound_by=by,
+                 library=lib_name)
+        extra.append((name, tag, r))
+        if name not in results:
+            results[name] = r
+
+
+def check_quantized_matmul_w8a8(torch, dev, results, extra):
+    from simplellminference_tpu_torch.ops.matmul import (
+        quantize_activations_int8, quantized_matmul_w8a8,
+        quantized_matmul_w8a8_ref)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    bf, f32 = torch.bfloat16, torch.float32
+    # the four products of a prefill dispatch of 7B (the w8a8 path's
+    # chunks are 256 rows, its suffix batches 512; bench.py's whole-prompt
+    # prefill 1024), per-channel (bench.py's weights) and group 128
+    cases = {
+        "llama2-7b wqkv M=1024": (1024, 4096, 12288, 1, bf, bf, True),
+        "llama2-7b wo M=1024": (1024, 4096, 4096, 1, bf, bf, True),
+        "llama2-7b gate_up M=1024": (1024, 4096, 22016, 1, bf, bf, True),
+        "llama2-7b down M=1024": (1024, 11008, 4096, 1, bf, bf, True),
+        "llama2-7b wqkv M=128": (128, 4096, 12288, 1, bf, bf, True),
+        "llama2-7b wo M=128": (128, 4096, 4096, 1, bf, bf, False),
+        "llama2-7b gate_up M=128": (128, 4096, 22016, 1, bf, bf, False),
+        "llama2-7b down M=128": (128, 11008, 4096, 1, bf, bf, False),
+        "llama2-7b wqkv M=1024 group128": (1024, 4096, 12288, 32, bf, bf,
+                                           False),
+        "llama2-7b down M=128 group128": (128, 11008, 4096, 86, bf, f32,
+                                          False),
+        "llama2-7b gate_up M=256 group128 f32": (256, 4096, 22016, 32, f32,
+                                                 f32, False),
+        "ragged M=300 wo group128": (300, 4096, 4096, 32, bf, f32, False),
+        "ragged M=141 k1000 n136": (141, 1000, 136, 1, f32, bf, False),
+    }
+    for tag, (m, k, n, groups, xdt, odt, timed) in cases.items():
+        q, s = _qweight(torch, gen, dev, (2, k, n), groups)
+        x = torch.randn((m, k), generator=gen, device=dev).to(xdt)
+        x[1] = 0.0                              # a zero row: the 1e-10 floor
+
+        def kern(x=x, q=q, s=s, odt=odt):
+            return quantized_matmul_w8a8(x, q, s, out_dtype=odt, layer=1)
+
+        def plain(x=x, q=q, s=s, odt=odt):
+            return quantized_matmul_w8a8_ref(x, q, s, out_dtype=odt, layer=1)
+        got = kern()
+        want = plain()
+        torch.cuda.synchronize()
+        ok, err, rule = _matmul_rule(torch, got, want, odt)
+        print(f"[kernels] quantized_matmul_w8a8 {tag} (m={m} k={k} n={n} "
+              f"groups={groups}): max|err| {err:.3e} ({rule})", flush=True)
+        require(bool(torch.isfinite(got).all()) and ok and not got[1].any(),
+                f"quantized_matmul_w8a8 {tag} disagrees: {err}")
+        if not timed:
+            continue
+        q1, s1 = q[1].contiguous(), s[1]
+
+        def library(x=x, q1=q1, s1=s1, odt=odt):
+            xi, xs = quantize_activations_int8(x)
+            return ((torch._int_mm(xi, q1).float() * s1) * xs).to(odt)
+        nbytes = (m * k * x.element_size() + k * n + groups * n * 4
+                  + m * n * got.element_size())
+        bms, by = bound_ms(nbytes, 2.0 * m * k * n, "int8")
+        r = dict(max_abs_err=err, ms=time_ms(torch, kern),
+                 plain_ms=time_ms(torch, plain, iters=5),
+                 library_ms=time_ms(torch, library), bound_ms=bms,
+                 bound_by=by)
+        extra.append(("quantized_matmul_w8a8", tag, r))
+        if "quantized_matmul_w8a8" not in results:
+            results["quantized_matmul_w8a8"] = r
+        del q, s
+        torch.cuda.empty_cache()
+
+
+def check_quantizers(torch, dev):
+    """quantize_int4_groupwise (per channel and group 128, a 7B weight) and
+    quantize_activations_int8 (1024 x 4096 rows, bf16 and f32, a zero
+    row) on the card, byte-equal to the CPU's."""
+    from simplellminference_tpu_torch.ops import ref_ops
+    from simplellminference_tpu_torch.ops.matmul import (
+        quantize_activations_int8)
+    g = torch.Generator().manual_seed(16)
+    w = torch.randn((4096, 12288), generator=g) * 4096 ** -0.5
+    w[:, :5] *= 1e-3
+    for gs in (4096, 128):
+        qc, sc = ref_ops.quantize_int4_groupwise(w, gs)
+        qg, sg = ref_ops.quantize_int4_groupwise(w.to(dev), gs)
+        require(torch.equal(qc, qg.cpu()) and torch.equal(sc, sg.cpu()),
+                f"quantize_int4_groupwise (group {gs}): card and CPU differ")
+    x = torch.randn((1024, 4096), generator=g) * torch.rand(
+        (1024, 1), generator=g) * 4
+    x[7] = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        ic, sc = quantize_activations_int8(x.to(dt))
+        ig, sg = quantize_activations_int8(x.to(dt).to(dev))
+        require(torch.equal(ic, ig.cpu()) and torch.equal(sc, sg.cpu()),
+                f"quantize_activations_int8 ({dname(torch, dt)}): card and "
+                f"CPU differ")
+    print("[kernels] quantize_int4_groupwise (7B wqkv, per channel and "
+          "group 128) and quantize_activations_int8 (1024 x 4096, bf16 and "
+          "f32, a zero row): card byte-equal to the CPU", flush=True)
+
+
 LIBRARY = {"paged_append_decode": "index_put_ x2",
            "paged_append_prefill": "index_copy_ x2",
            "flash_prefill": "scaled_dot_product_attention, causal",
@@ -1626,7 +1896,12 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
            "flash_decode": "scaled_dot_product_attention on the arena "
                            "slice, length mask",
            "fused_qkv_append_dense": "torch._weight_int8pack_mm of the qkv "
-                                     "product alone"}
+                                     "product alone",
+           "quantized_matmul_int4": "torch._weight_int4pack_mm (group 128)",
+           "quantized_matmul_int4_zs": "torch._weight_int4pack_mm (group "
+                                       "128, zero points)",
+           "quantized_matmul_w8a8": "torch quantize ops + torch._int_mm + "
+                                    "scales"}
 
 
 def phase_kernels(torch, results):
@@ -1651,6 +1926,9 @@ def phase_kernels(torch, results):
     check_kv_append(torch, dev, results, extra)
     check_flash_decode(torch, dev, results, extra)
     check_fused_qkv_dense(torch, dev, results)
+    check_quantized_matmul_int4(torch, dev, results, extra)
+    check_quantized_matmul_w8a8(torch, dev, results, extra)
+    check_quantizers(torch, dev)
     torch.cuda.empty_cache()
     rows = [(name, "main path shape", r) for name, r in results.items()]
     rows += [(name, tag, r) for name, tag, r in extra]
@@ -1704,7 +1982,13 @@ def _wrappers():
             "kv_append": (ka.kv_append, ka.kv_append_ref),
             "flash_decode": (fd.flash_decode, fd.flash_decode_ref),
             "fused_qkv_append_dense": (qf.fused_qkv_append_dense,
-                                       qf.fused_qkv_append_ref)}
+                                       qf.fused_qkv_append_ref),
+            "quantized_matmul_int4": (mm.quantized_matmul_int4,
+                                      mm.quantized_matmul_int4_ref),
+            "quantized_matmul_int4_zs": (mm.quantized_matmul_int4_zs,
+                                         mm.quantized_matmul_int4_ref),
+            "quantized_matmul_w8a8": (mm.quantized_matmul_w8a8,
+                                      mm.quantized_matmul_w8a8_ref)}
 
 
 def reset_counts():
@@ -1746,9 +2030,36 @@ def int8_params(torch, cfg, dev, seed: int = 0) -> dict:
             "lm_head": w((h, v))}
 
 
+def int4_params(torch, cfg, dev, seed: int = 0) -> dict:
+    """Llama weights as bench.py:65-72 draws them for --quant int4, from a
+    seeded generator on the card: random split-half packed bytes [.., K/2,
+    N] (two codes a byte, every nibble value) with per-output-channel f32
+    scales K**-0.5 / 7 (an INT4 LM head too), the embedding and norms of
+    :func:`int8_params`."""
+    from simplellminference_tpu_torch.ops.linear import QuantizedWeight
+    base = int8_params(torch, cfg, dev, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+
+    def w4(shape):
+        *lead, k, n = shape
+        return QuantizedWeight(
+            q=torch.randint(-128, 128, (*lead, k // 2, n), generator=gen,
+                            device=dev, dtype=torch.int8),
+            scales=torch.full((*lead, 1, n), k ** -0.5 / 7.0, device=dev),
+            bits=4)
+
+    layers = base["layers"]
+    for name in ("wqkv", "wo", "w_gate_up", "w_down"):
+        layers[name] = w4(layers[name].shape)
+    base["lm_head"] = w4(base["lm_head"].shape)
+    return base
+
+
 def _nbytes(w) -> int:
     if hasattr(w, "q"):
-        return w.q.numel() + w.scales.numel() * w.scales.element_size()
+        zs = 0 if w.zs is None else w.zs.numel() * w.zs.element_size()
+        return (w.q.numel() + w.scales.numel() * w.scales.element_size()
+                + zs)
     return w.numel() * w.element_size()
 
 
@@ -1764,7 +2075,8 @@ def step_weight_bytes(params, batch: int) -> int:
 
 
 def path_launches(int8: bool, layers: int, dispatches, steps: int,
-                  int8kv: bool = False) -> dict:
+                  int8kv: bool = False, int4: bool = False,
+                  act_quant: bool = False) -> dict:
     """Launches each kernel must show in one Engine run of a path.
 
     ``dispatches``: (attention kernel, rows m = B*S) of each prefill
@@ -1777,19 +2089,30 @@ def path_launches(int8: bool, layers: int, dispatches, steps: int,
     plus the head; each decode step launches the fused qkv and FFN per
     layer, wo per layer, and the head; with bf16 weights each decode step
     writes K/V with the append kernel. INT8 KV takes each kernel's
-    INT8-KV form."""
+    INT8-KV form. ``int4``: every product (4 a layer, and the head) of
+    every dispatch and step on the INT4 kernel, K/V written as with bf16
+    weights. ``act_quant`` (INT8 weights): a dispatch of m >= 128 rows
+    runs its 4 layer products on the W8A8 kernel, the head (last rows
+    only) on quantized_matmul."""
     want = {name: 0 for name in KERNELS}
     q = "_quant" if int8kv else ""
     kv = "_int8kv" if int8kv else ""
     for attn, m in dispatches:
         want[attn + (kv if attn == "paged_flash_prefill" else "")] += layers
         want["paged_append_prefill" + q] += layers
-        if int8 and m <= 64:
+        if int4:
+            want["quantized_matmul_int4"] += 4 * layers + 1
+        elif int8 and m <= 64:
             want["quantized_matmul"] += 2 * layers + 1
             want["fused_ffn"] += layers
+        elif int8 and act_quant and m >= 128:
+            want["quantized_matmul_w8a8"] += 4 * layers
+            want["quantized_matmul"] += 1
         elif int8:
             want["quantized_matmul"] += 4 * layers + 1
     want["paged_flash_decode" + kv] += layers * steps
+    if int4:
+        want["quantized_matmul_int4"] += (4 * layers + 1) * steps
     if int8:
         want["quantized_matmul"] += (layers + 1) * steps
         want["fused_qkv_append" + kv] += layers * steps
@@ -1820,7 +2143,8 @@ def kv_bytes(layers: int, tokens: int, kvn: int, d: int,
 
 
 def serve_path(torch, path: str, cfg, params, launches: dict, int8: bool,
-               kv_dtype: str = "bf16", dev: str = "cuda"):
+               kv_dtype: str = "bf16", dev: str = "cuda",
+               int4: bool = False):
     """Drive one weight path of the Engine (bench.py's configuration,
     prefix cache off, KV in ``kv_dtype``): warm-up, the measured run with
     every launch count reset before it and read after it, the decode rate,
@@ -1871,7 +2195,7 @@ def serve_path(torch, path: str, cfg, params, launches: dict, int8: bool,
     steps = eng.metrics.decode_bursts * burst
     want = path_launches(int8, layers,
                          [("flash_prefill", batch * prompt_len)], steps,
-                         int8kv=kv_dtype == "int8")
+                         int8kv=kv_dtype == "int8", int4=int4)
     for name, n in want.items():
         require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
                 f"path implies {n}")
@@ -2008,7 +2332,7 @@ def long_context_steps(torch, cfg, params, dev: str = "cuda"):
 
 
 def serve_prefix(torch, path: str, cfg, params, launches: dict, int8: bool,
-                 kv_dtype: str = "bf16", dev: str = "cuda"):
+                 kv_dtype: str = "bf16", dev: str = "cuda") -> list:
     """The server's default configuration on the card: prefix cache on,
     prefill_chunk 256, page 128, KV in ``kv_dtype``, batch 8. A
     512-token system prompt with 64-token user suffixes: the first
@@ -2059,11 +2383,13 @@ def serve_prefix(torch, path: str, cfg, params, launches: dict, int8: bool,
     dispatches = ([("paged_flash_prefill", chunk)] * 3
                   + [("paged_flash_prefill", batch * suffix)] * 2)
     want = path_launches(int8, layers, dispatches,
-                         m.decode_bursts * burst, int8kv=kv_dtype == "int8")
+                         m.decode_bursts * burst, int8kv=kv_dtype == "int8",
+                         act_quant=cfg.act_quant == "int8")
     for name, n in want.items():
         require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
                 f"path implies {n}")
     ttft = [r.ttft for r in reqs[2]]
+    wave_ttft = [max(r.ttft for r in w) * 1e3 for w in reqs]
     print(f"[engine:{path}] {2 * batch} requests ({system_len}-token system "
           f"prompt + {suffix}-token suffixes) x {new} tokens in {wall:.3f} s; "
           f"prefix hits {m.prefix_cache_hits} (persistent "
@@ -2088,7 +2414,10 @@ def serve_prefix(torch, path: str, cfg, params, launches: dict, int8: bool,
           f"batch), {max(ttft_off) * 1e3:.3f} ms without it (8 x 3 chunks); "
           f"TTFTs {ttft} / {ttft_off} s; bf16 greedy outputs equal in "
           f"{same} of {batch} (card vs CPU in f32: phase 5)", flush=True)
+    print(f"[engine:{path}] max TTFT of each wave (1, {batch - 1}, {batch} "
+          f"requests): {wave_ttft} ms", flush=True)
     del eng, off
+    return wave_ttft
 
 
 def spec_launches(int8: bool, layers: int, steps: int, int8kv: bool) -> dict:
@@ -2243,19 +2572,25 @@ def serve_spec(torch, path: str, cfg, params, launches: dict, int8: bool,
     del eng, plain_eng
 
 
-def dense_launches(int8: bool, layers: int, steps: int) -> dict:
+def dense_launches(int8: bool, layers: int, steps: int,
+                   int4: bool = False) -> dict:
     """Launches of one ``generate_fused`` call of the dense paths: the
     8 x 128-row prefill (per layer ``kv_append`` at S = 128 and causal
     ``flash_prefill``; with INT8 weights 4 ``quantized_matmul`` per layer
     at m = 1024 rows plus the LM head on the 8 last rows), then ``steps``
     decode steps, each per layer ``flash_decode`` and, with INT8 weights,
     the dense fused qkv, ``wo`` and ``fused_ffn`` plus the LM head, with
-    bf16 weights ``kv_append`` at S = 1 (the products are cuBLAS)."""
+    bf16 weights ``kv_append`` at S = 1 (the products are cuBLAS). With
+    ``int4`` every product of the prefill and of each step (4 a layer and
+    the head) is an INT4 kernel launch, K/V written as with bf16."""
     want = {name: 0 for name in KERNELS}
     want["kv_append"] += layers
     want["flash_prefill"] += layers
     want["flash_decode"] += layers * steps
-    if int8:
+    if int4:
+        want["quantized_matmul_int4"] += (4 * layers + 1) * (1 + steps)
+        want["kv_append"] += layers * steps
+    elif int8:
         want["quantized_matmul"] += 4 * layers + 1 + (layers + 1) * steps
         want["fused_qkv_append_dense"] += layers * steps
         want["fused_ffn"] += layers * steps
@@ -2265,7 +2600,7 @@ def dense_launches(int8: bool, layers: int, steps: int) -> dict:
 
 
 def serve_dense(torch, path: str, cfg, params, launches: dict, int8: bool,
-                dev: str = "cuda"):
+                dev: str = "cuda", int4: bool = False):
     """bench.py's Generator (bench.py:208-239): max_batch 8, max_seq 1024,
     bf16 KV, ``generate_fused`` on 8 fresh 128-token prompts. The launch
     counts of one 64-token call (reset before, read after); the same call
@@ -2305,7 +2640,7 @@ def serve_dense(torch, path: str, cfg, params, launches: dict, int8: bool,
     timed(steps)
     got = read_counts(path)
     launches[path] = got
-    want = dense_launches(int8, cfg.num_layers, steps)
+    want = dense_launches(int8, cfg.num_layers, steps, int4=int4)
     for name, n in want.items():
         require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
                 f"path implies {n}")
@@ -2468,48 +2803,84 @@ def serve_draft(torch, path: str, cfg, params, launches: dict,
     del eng, plain_eng, dparams
 
 
-# path: (INT8 weights, KV dtype, prefix-cache traffic)
-PATH_SETUP = {"int8": (True, "bf16", False), "bf16": (False, "bf16", False),
-              "prefix": (True, "bf16", True),
-              "int8kv": (True, "int8", False),
-              "int8kv_prefix": (False, "int8", True),
-              "spec": (False, "bf16", False),
-              "spec_int8kv": (True, "int8", False),
-              "dense": (True, "bf16", False),
-              "dense_bf16": (False, "bf16", False),
-              "draft": (False, "bf16", False)}
+# path: (weights, KV dtype, prefix-cache traffic)
+PATH_SETUP = {"int8": ("int8", "bf16", False), "bf16": ("bf16", "bf16", False),
+              "prefix": ("int8", "bf16", True),
+              "int8kv": ("int8", "int8", False),
+              "int8kv_prefix": ("bf16", "int8", True),
+              "spec": ("bf16", "bf16", False),
+              "spec_int8kv": ("int8", "int8", False),
+              "dense": ("int8", "bf16", False),
+              "dense_bf16": ("bf16", "bf16", False),
+              "draft": ("bf16", "bf16", False),
+              "int4": ("int4", "bf16", False),
+              "int4_dense": ("int4", "bf16", False),
+              "w8a8": ("int8", "bf16", True)}
+# earlier paths cut in depth to keep the run within half its time limit
+# (their launch counts follow the cut: every count is per layer); the
+# paths of the newest slice keep the model's 32 layers
+PATH_LAYERS = {"spec": 16, "spec_int8kv": 16, "draft": 16}
 
 
 def phase_engine(torch, launches: dict):
+    import dataclasses
+
     from simplellminference_tpu_torch.core.config import ModelConfig
     from simplellminference_tpu_torch.models import llama
 
     cfg = ModelConfig.llama2_7b(dtype="bfloat16")
+    draws = {"int8": int8_params, "int4": int4_params}
+    ttft = {}
+    seconds = {}
+    params, drawn = None, None
+    full = cfg
     for path in PATHS:
-        int8, kv_dtype, prefix = PATH_SETUP[path]
+        weights, kv_dtype, prefix = PATH_SETUP[path]
+        int8 = weights == "int8"
+        cfg = dataclasses.replace(full, num_layers=PATH_LAYERS.get(
+            path, full.num_layers))
         t0 = time.perf_counter()
-        if int8:
-            params = int8_params(torch, cfg, "cuda", seed=0)
-        else:
-            params = llama.init_params(cfg, seed=0, device="cuda")
+        if (weights, cfg.num_layers) != drawn or weights != "int4":
+            del params
+            torch.cuda.empty_cache()
+            params = (draws[weights](torch, cfg, "cuda", seed=0)
+                      if weights in draws
+                      else llama.init_params(cfg, seed=0, device="cuda"))
+            drawn = (weights, cfg.num_layers)
         torch.cuda.synchronize()
         print(f"[engine:{path}] Llama-2-7B width, {cfg.num_layers} layers, "
-              f"{'int8' if int8 else 'bf16'} random weights, {kv_dtype} KV, "
-              f"in {time.perf_counter() - t0:.1f} s", flush=True)
-        if path.startswith("dense"):
-            serve_dense(torch, path, cfg, params, launches, int8)
+              f"{weights} random weights, {kv_dtype} KV, in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if path == "w8a8":
+            # the server CLI's --act-quant: W8A8 prefill, the prefix traffic
+            ttft[path] = serve_prefix(
+                torch, path, dataclasses.replace(full, act_quant="int8"),
+                params, launches, int8, kv_dtype)
+            print(f"[engine:w8a8] max TTFT of each wave, W8A8 prefill "
+                  f"{ttft['w8a8']} ms beside the prefix path's W8A16 "
+                  f"{ttft['prefix']} ms (ratios "
+                  f"{[a / b for a, b in zip(ttft['w8a8'], ttft['prefix'])]})",
+                  flush=True)
+        elif path.startswith("dense") or path == "int4_dense":
+            serve_dense(torch, path, cfg, params, launches, int8,
+                        int4=weights == "int4")
         elif path == "draft":
             serve_draft(torch, path, cfg, params, launches)
         elif path.startswith("spec"):
             serve_spec(torch, path, cfg, params, launches, int8, kv_dtype)
         elif prefix:
-            serve_prefix(torch, path, cfg, params, launches, int8, kv_dtype)
+            ttft[path] = serve_prefix(torch, path, cfg, params, launches,
+                                      int8, kv_dtype)
         else:
-            serve_path(torch, path, cfg, params, launches, int8, kv_dtype)
+            serve_path(torch, path, cfg, params, launches, int8, kv_dtype,
+                       int4=weights == "int4")
         if path == "int8kv":
             long_context_steps(torch, cfg, params)
-        del params
-        torch.cuda.empty_cache()
+        seconds[path] = round(time.perf_counter() - t0, 1)
+        print(f"[engine:{path}] path took {seconds[path]} s", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[engine] seconds per path {json.dumps(seconds)}", flush=True)
 
 
 def _trace(torch, cfg, params, prompts, steps, device, kv_dtype="f32"):
@@ -2562,8 +2933,71 @@ def _to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
     if isinstance(tree, QuantizedWeight):
-        return QuantizedWeight(q=tree.q.to(dev), scales=tree.scales.to(dev))
+        return QuantizedWeight(q=tree.q.to(dev), scales=tree.scales.to(dev),
+                               bits=tree.bits,
+                               zs=None if tree.zs is None else tree.zs.to(dev))
     return tree.to(dev)
+
+
+class _ActCodes:
+    """While active, records the codes of every quantize_activations_int8
+    call (the W8A8 prefill products), as [M, K] rows on the host. With
+    ``force`` (another run's record), each call instead hands on that
+    run's codes and scales, after requiring its own codes to lie within
+    one step of them: two devices sum the same f32 activations in other
+    orders, a value on a rounding midpoint takes either code, and one
+    code a step apart moves every later activation a little (measured at
+    7B width on an NVIDIA H100 80GB HBM3 at 700.00 W: 7.3-7.8% of the
+    codes of a free-running card and CPU apart after two layers, logits
+    0.17 or more apart), so card and CPU are held to each other on the
+    same codes."""
+
+    def __init__(self, tag: str = "", force=None):
+        self.tag, self.force = tag, force
+
+    def __enter__(self):
+        from simplellminference_tpu_torch.ops import matmul as mm
+        self.mm, self.orig, self.codes = mm, mm.quantize_activations_int8, []
+
+        def spy(x):
+            xi, xs = self.orig(x)
+            rows = xi.reshape(-1, xi.shape[-1]).cpu()
+            self.codes.append(rows)
+            if self.force is None:
+                return xi, xs
+            i = len(self.codes) - 1
+            require(i < len(self.force[0]), f"[{self.tag}] more W8A8 calls "
+                    f"than the reference run's {len(self.force[0])}")
+            ref_xi, ref_xs = self.force[0][i], self.force[1][i]
+            require(ref_xi.shape == rows.shape and int(
+                (ref_xi.int() - rows.int()).abs().max()) <= 1,
+                f"[{self.tag}] W8A8 call {i}: codes more than a step from "
+                f"the reference run's")
+            return (ref_xi.reshape(xi.shape).to(xi.device),
+                    ref_xs.reshape(xs.shape).to(xs.device))
+        self.scales = []
+        if self.force is None:
+            def record(x, _spy=spy):
+                xi, xs = _spy(x)
+                self.scales.append(xs.reshape(-1, 1).cpu())
+                return xi, xs
+            mm.quantize_activations_int8 = record
+        else:
+            mm.quantize_activations_int8 = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mm.quantize_activations_int8 = self.orig
+
+    def replay(self):
+        """This run's (codes, scales), to force on another run."""
+        return self.codes, self.scales
+
+
+def _act_apart(a, b) -> int:
+    """Activation codes apart between two runs' W8A8 calls."""
+    require(len(a) == len(b), f"{len(a)} vs {len(b)} W8A8 calls")
+    return sum(int((x != y).sum()) for x, y in zip(a, b))
 
 
 def _first_divergence(torch, tag, what, a, b, logits, r, tol=LOGIT_TOL):
@@ -2593,10 +3027,28 @@ def card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps,
     from simplellminference_tpu_torch.engine import Engine
 
     t0 = time.perf_counter()
-    tok_g, lg_g, codes_g = _trace(torch, cfg, p_gpu, prompts, steps, "cuda",
-                                  kv_dtype)
-    tok_c, lg_c, codes_c = _trace(torch, cfg, p_cpu, prompts, steps, "cpu",
-                                  kv_dtype)
+    with _ActCodes(tag) as act_c:
+        tok_c, lg_c, codes_c = _trace(torch, cfg, p_cpu, prompts, steps,
+                                      "cpu", kv_dtype)
+    if act_c.codes:
+        # W8A8 (cfg.act_quant): once free-running, then on the CPU's codes
+        with _ActCodes(tag) as act_free:
+            lg_free = _trace(torch, cfg, p_gpu, prompts, steps, "cuda",
+                             kv_dtype)[1]
+        print(f"[cpu:{tag}] W8A8 calls {len(act_c.codes)}; free-running "
+              f"card vs CPU: activation codes apart "
+              f"{_act_apart(act_free.codes, act_c.codes)} of "
+              f"{sum(c.numel() for c in act_c.codes)}, logits max|card - "
+              f"cpu| {max_err(lg_free, lg_c):.3e} (no bound: the card "
+              f"below carries on with the CPU's codes)", flush=True)
+    with _ActCodes(tag, force=act_c.replay() if act_c.codes else None
+                   ) as act_g:
+        tok_g, lg_g, codes_g = _trace(torch, cfg, p_gpu, prompts, steps,
+                                      "cuda", kv_dtype)
+    if act_c.codes:
+        print(f"[cpu:{tag}] on the CPU's codes, the card's own were apart "
+              f"in {_act_apart(act_g.codes, act_c.codes)} (each at most "
+              f"one step)", flush=True)
     print(f"[cpu:{tag}] Llama-2-7B width, 2 layers, f32, {kv_dtype} KV, "
           f"TF32 off: "
           f"{len(prompts)} requests, prefill + {steps} steps on card and "
@@ -2642,10 +3094,15 @@ def card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps,
                                          max_pages_per_seq=8,
                                          kv_dtype=kv_dtype))
     samp = SamplingParams(max_new_tokens=steps + 1)
-    outs = []
-    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
-        eng = Engine(cfg, params, ecfg, decode_burst=4, device=dev)
-        outs.append(eng.generate(prompts, samp))
+    outs = {}
+    force = None
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        # W8A8: the card's engine on the CPU engine's activation codes
+        with _ActCodes(tag, force=force) as act:
+            eng = Engine(cfg, params, ecfg, decode_burst=4, device=dev)
+            outs[dev] = eng.generate(prompts, samp)
+        force = act.replay() if act.codes else None
+    outs = [outs["cuda"], outs["cpu"]]
     for r, (a, b) in enumerate(zip(*outs)):
         require(len(a) == len(b) == steps + 1,
                 f"[{tag}] engine request {r} short")
@@ -2667,28 +3124,43 @@ def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="f32"):
     LOGIT_TOL_CODE_APART by the same rule; the cache-off trace is no
     reference there (its whole-prompt prefill attends the fresh,
     unquantized k/v, the chunks attend the dequantized pools, as in the
-    JAX package), so only card and CPU are compared."""
+    JAX package), so only card and CPU are compared. W8A8
+    (``cfg.act_quant``): a 32-token system prompt with 32-token suffixes
+    and chunk 64, so that the suffix batch of 4 x 32 rows runs W8A8; the
+    card's engine on the CPU engine's activation codes (``_ActCodes``),
+    card and CPU by the LOGIT_TOL rule, and the card must launch the W8A8
+    kernel."""
     import numpy as np
 
     from simplellminference_tpu_torch.core.config import SamplingParams
     from simplellminference_tpu_torch.engine import Engine
+    from simplellminference_tpu_torch.ops import matmul as mm
 
     tag = "prefix" if kv_dtype == "f32" else f"prefix-{kv_dtype}kv"
     batch, system_len, suffix, new, burst, ps, chunk = 4, 48, 8, 8, 4, 16, 16
+    if cfg.act_quant:
+        tag, system_len, suffix, chunk = "prefix-w8a8", 32, 32, 64
+    w8a8_before = mm.quantized_matmul_w8a8.launches
     waves = prefix_waves(np.random.default_rng(9), cfg.vocab_size,
                          system_len, suffix, batch)
     prompts = sum(waves, [])
     t0 = time.perf_counter()
     tok_c, lg_c, _codes = _trace(torch, cfg, p_cpu, prompts, new - 1, "cpu",
                                  kv_dtype)
+    # W8A8: the cache-off trace runs other products than the chunks and
+    # suffix batches, so it is no reference for the tokens; the card's
+    # engine runs on the CPU engine's activation codes (_ActCodes)
     int8 = kv_dtype == "int8"
     outs = {}
-    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
-        eng = Engine(cfg, params, prefix_engine_config(
-            batch, ps, chunk, system_len + suffix + new + 2 * burst + 1,
-            kv_dtype), decode_burst=burst, device=dev)
-        reqs = sum(run_waves(eng, waves,
-                             SamplingParams(max_new_tokens=new)), [])
+    force = None
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        with _ActCodes(tag, force=force) as act:
+            eng = Engine(cfg, params, prefix_engine_config(
+                batch, ps, chunk, system_len + suffix + new + 2 * burst + 1,
+                kv_dtype), decode_burst=burst, device=dev)
+            reqs = sum(run_waves(eng, waves,
+                                 SamplingParams(max_new_tokens=new)), [])
+        force = act.replay() if act.codes else None
         m = eng.metrics
         require((m.prefix_cache_hits, m.prefix_cache_persistent_hits)
                 == (2 * batch - 1, batch),
@@ -2696,12 +3168,15 @@ def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="f32"):
         require(all(len(r.output_ids) == new for r in reqs),
                 f"[{tag}] {dev} requests short")
         outs[dev] = [r.output_ids for r in reqs]
+    w8a8_launches = mm.quantized_matmul_w8a8.launches - w8a8_before
+    require(bool(cfg.act_quant) == (w8a8_launches > 0),
+            f"[{tag}] {w8a8_launches} W8A8 launches on the card")
     for r in range(len(prompts)):
         ref = tok_c[r].tolist()
         _first_divergence(torch, tag, "card and CPU", outs["cuda"][r],
                           outs["cpu"][r], lg_c, r,
                           LOGIT_TOL_CODE_APART if int8 else LOGIT_TOL)
-        if int8:
+        if int8 or cfg.act_quant:
             continue
         for dev in outs:
             _first_divergence(torch, tag,
@@ -2713,7 +3188,8 @@ def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="f32"):
           f"{2 * batch - 1}, persistent {batch}) on card and CPU in "
           f"{time.perf_counter() - t0:.1f} s; greedy tokens card == cpu: "
           f"{outs['cuda'] == outs['cpu']}, == cache-off trace: "
-          f"{outs['cpu'] == tok_c.tolist()}", flush=True)
+          f"{outs['cpu'] == tok_c.tolist()}; W8A8 launches on the card "
+          f"{w8a8_launches}", flush=True)
 
 
 def spec_card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, kv_dtype="f32"):
@@ -2918,12 +3394,56 @@ def quantize_card_vs_cpu(torch, p_cpu, q_cpu):
     del q_gpu
 
 
-def phase_cpu(torch):
+def awq_fetcher(cfg, seed: int):
+    """An in-memory AWQ checkpoint of ``cfg`` (dense Llama, group 128) as
+    ``fetch(hf_name) -> np.ndarray``: random packed int32 ``qweight`` and
+    ``qzeros`` (every nibble a valid uint4 code and zero point), f16
+    scales K**-0.5 / 6 varied per column, f32 embedding (x 0.02), norms of
+    ones and a plain LM head. Returns (fetch, quantization_config)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    nd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    gs = 128
+    t = {"model.embed_tokens.weight": rng.standard_normal(
+             (v, h), dtype=np.float32) * np.float32(0.02),
+         "model.norm.weight": np.ones((h,), np.float32),
+         "lm_head.weight": rng.standard_normal(
+             (v, h), dtype=np.float32) * np.float32(0.02)}
+
+    def quantized(name, k, n):
+        t[name + ".qweight"] = rng.integers(-2 ** 31, 2 ** 31, (k, n // 8),
+                                            dtype=np.int32)
+        t[name + ".qzeros"] = rng.integers(-2 ** 31, 2 ** 31,
+                                           (k // gs, n // 8), dtype=np.int32)
+        t[name + ".scales"] = ((rng.random((k // gs, n)) + 0.5)
+                               * (k ** -0.5 / 6)).astype(np.float16)
+
+    for li in range(cfg.num_layers):
+        p = f"model.layers.{li}."
+        t[p + "input_layernorm.weight"] = np.ones((h,), np.float32)
+        t[p + "post_attention_layernorm.weight"] = np.ones((h,), np.float32)
+        for nm, n in (("q", nd), ("k", kvd), ("v", kvd)):
+            quantized(p + f"self_attn.{nm}_proj", h, n)
+        quantized(p + "self_attn.o_proj", nd, h)
+        for nm in ("gate", "up"):
+            quantized(p + f"mlp.{nm}_proj", h, i)
+        quantized(p + "mlp.down_proj", i, h)
+    return t.__getitem__, dict(quant_method="awq", bits=4, group_size=gs,
+                               version="gemm")
+
+
+def phase_cpu(torch, launches: dict):
+    import dataclasses
+
     import numpy as np
 
     from simplellminference_tpu_torch.core.config import (ModelConfig,
                                                           QuantConfig)
     from simplellminference_tpu_torch.models.convert import params_from_jax
+    from simplellminference_tpu_torch.runtime.hf_quant import (
+        quantized_params_from_fetcher)
     from simplellminference_tpu_torch.runtime.weights import quantize_params
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
@@ -2948,6 +3468,16 @@ def phase_cpu(torch):
             "lm_head": w((h, v), 0.02)}
     p_cpu = params_from_jax(tree, device="cpu")
     del tree
+    t0 = time.perf_counter()
+    # INT4 (group 128, INT4 head) and INT8 group 128 for W8A8, quantized
+    # by the port on the CPU from the same draw, carried to the card
+    q4_cpu = quantize_params(p_cpu, QuantConfig(mode="int4", group_size=128,
+                                                quantize_lm_head=True))
+    q8g_cpu = quantize_params(p_cpu, QuantConfig(mode="int8",
+                                                 group_size=128,
+                                                 quantize_lm_head=True))
+    print(f"[cpu] INT4 and group-128 INT8 quantize_params on the CPU in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     prompts = [rng.integers(1, v, ln).tolist() for ln in (40, 64, 17, 50)]
     p_gpu = _to_device(p_cpu, "cuda")
     card_vs_cpu(torch, "bf16-path", cfg, p_gpu, p_cpu, prompts, steps=8)
@@ -2975,6 +3505,45 @@ def phase_cpu(torch):
                 kv_dtype="int8")
     spec_card_vs_cpu(torch, "spec-int8-int8kv", cfg, q_gpu, q_cpu,
                      kv_dtype="int8")
+    del q_gpu, q_cpu
+    # the INT4 and W8A8 checks' prompts: short (the CPU's plain INT4 and
+    # W8A8 products are slow at 7B width), W8A8's bucket of 32 giving the
+    # 128 prefill rows from which W8A8 applies
+    short = [p[:n] for p, n in zip(prompts, (12, 16, 5, 9))]
+    w8a8_prompts = [p[:n] for p, n in zip(prompts, (20, 32, 9, 25))]
+    # INT4: bench.py --quant int4's kernel on quantize_params' weights
+    q4_gpu = _to_device(q4_cpu, "cuda")
+    card_vs_cpu(torch, "int4", cfg, q4_gpu, q4_cpu, short, steps=4)
+    dense_card_vs_cpu(torch, "dense-int4", cfg, q4_gpu, q4_cpu, short,
+                      steps=2)
+    del q4_gpu, q4_cpu
+    # AWQ: the zero-point form, params from a seeded in-memory checkpoint
+    t0 = time.perf_counter()
+    fetch, qcfg = awq_fetcher(cfg, seed=8)
+    a_cpu = quantized_params_from_fetcher(cfg, fetch, qcfg, device="cpu")
+    del fetch
+    print(f"[cpu:awq] the in-memory AWQ checkpoint drawn and imported in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    a_gpu = _to_device(a_cpu, "cuda")
+    # the AWQ form's launches: the Engine and the Generator on the card
+    # (their CPU halves launch nothing), counted like a path of phase 4
+    reset_counts()
+    card_vs_cpu(torch, "awq", cfg, a_gpu, a_cpu, short, steps=4)
+    dense_card_vs_cpu(torch, "dense-awq", cfg, a_gpu, a_cpu, short,
+                      steps=2)
+    launches["awq"] = read_counts("awq")
+    require(launches["awq"]["quantized_matmul_int4_zs"] > 0
+            and launches["awq"]["quantized_matmul_int4"] == 0,
+            f"[awq] INT4 launches {launches['awq']}")
+    print(f"[cpu:awq] launches on the card {json.dumps(launches['awq'])}",
+          flush=True)
+    del a_gpu, a_cpu
+    # W8A8: the server's --act-quant over group-128 INT8 weights
+    cfg_aq = dataclasses.replace(cfg, act_quant="int8")
+    q8g_gpu = _to_device(q8g_cpu, "cuda")
+    card_vs_cpu(torch, "w8a8", cfg_aq, q8g_gpu, q8g_cpu, w8a8_prompts,
+                steps=4)
+    prefix_card_vs_cpu(torch, cfg_aq, q8g_gpu, q8g_cpu)
 
 
 def main(argv=None) -> int:
@@ -2996,13 +3565,16 @@ def main(argv=None) -> int:
         sys.path.insert(0, str(ROOT))
         results: dict = {}
         launches: dict = {}
-        phase_build()
-        if "kernels" in phases:
-            phase_kernels(torch, results)
-        if "engine" in phases:
-            phase_engine(torch, launches)
-        if "cpu" in phases:
-            phase_cpu(torch)
+        took = {}
+        for phase, run in (("build", phase_build),
+                           ("kernels", lambda: phase_kernels(torch, results)),
+                           ("engine", lambda: phase_engine(torch, launches)),
+                           ("cpu", lambda: phase_cpu(torch, launches))):
+            if phase in phases or phase == "build":
+                t0 = time.perf_counter()
+                run()
+                took[phase] = round(time.perf_counter() - t0, 1)
+        print(f"[timing] seconds per phase {json.dumps(took)}", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3013,7 +3585,7 @@ def main(argv=None) -> int:
     rows = []
     for kname, meta in KERNELS.items():
         r = results.get(kname, {})
-        by_path = {p: launches[p][kname] for p in PATHS}
+        by_path = {p: counts[kname] for p, counts in launches.items()}
         rows.append({"name": kname, "route": "cuda", **meta,
                      "status": "ported", "checked": bool(r),
                      "launches": sum(by_path.values()),

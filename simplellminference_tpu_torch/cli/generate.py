@@ -2,21 +2,23 @@
 
 Counterpart of simplellminference_tpu/cli/generate.py in its no-model
 path (:100-176): a random-weight TinyLlama (4 layers, the byte
-tokenizer's 258-token vocabulary), optionally INT8-quantized on the
-device, generating with the Python loop and streaming detokenization.
+tokenizer's 258-token vocabulary), optionally INT8- or INT4-quantized on
+the device, with W8A8 prefill under ``--act-quant``, generating with the
+Python loop and streaming detokenization.
 
 Usage:
     python -m simplellminference_tpu_torch.cli.generate \\
-        --prompt "..." --max-new-tokens 128 [--quant int8] \\
-        [--temperature 0.8 --top-k 50 --top-p 0.95] [--cpu]
+        --prompt "..." --max-new-tokens 128 [--quant int8|int4] \\
+        [--act-quant] [--temperature 0.8 --top-k 50 --top-p 0.95] [--cpu]
 
-Checkpoint loading, W8A8 prefill and INT4 weights are not ported yet, so
-the CLI has no options for them.
+Checkpoint loading (``--model-dir``, ``--blob``) is not ported yet, so the
+CLI has no options for it.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -34,7 +36,11 @@ def main(argv=None):
     ap.add_argument("--presence-penalty", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--quant", default="none",
-                    choices=["none", "int8"])
+                    choices=["none", "int8", "int4"])
+    ap.add_argument("--act-quant", action="store_true",
+                    help="W8A8 prefill: per-token int8 activations against "
+                         "INT8 weights for products of 128 rows or more "
+                         "(takes --quant int8)")
     ap.add_argument("--group-size", type=int, default=128)
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
@@ -68,6 +74,8 @@ def main(argv=None):
     tok = ByteTokenizer()
     load_s = time.perf_counter() - t0
 
+    if args.act_quant:
+        cfg = dataclasses.replace(cfg, act_quant="int8")
     gen = Generator(cfg, params, max_batch=1,
                     max_seq=min(args.max_seq, cfg.max_seq_len),
                     device=device)

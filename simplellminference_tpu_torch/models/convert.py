@@ -5,8 +5,9 @@ package's params pytree — already moved to host numpy arrays by the
 caller, so this module needs no JAX — into the port's dict of torch
 tensors, name for name, on a given device and dtype. Weights made once
 (from one seed, with numpy or with JAX) can then drive both packages.
-INT8 ``QuantizedWeight`` leaves become the port's ``QuantizedWeight``:
-the int8 ``q`` byte for byte, the scales as f32.
+``QuantizedWeight`` leaves become the port's ``QuantizedWeight``: the
+int8 ``q`` byte for byte (8-bit codes, or INT4's split-half packed
+bytes), the scales and the zero points ``zs`` as f32 tensors.
 """
 
 from __future__ import annotations
@@ -37,8 +38,9 @@ def params_from_jax(tree, device=None, dtype="float32") -> dict:
 
     Floating leaves become ``dtype`` on ``device`` (CUDA unless
     ``device="cpu"``); integer leaves keep their type. Quantized weights
-    (objects carrying ``q``/``scales``/``bits``) become
-    :class:`QuantizedWeight`; INT4 and zero-point ones raise."""
+    (objects carrying ``q``/``scales``/``bits``/``zs``) become
+    :class:`QuantizedWeight`; one the port cannot serve raises
+    (:func:`~simplellminference_tpu_torch.ops.linear.check_servable`)."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype)
 
@@ -46,10 +48,12 @@ def params_from_jax(tree, device=None, dtype="float32") -> dict:
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
         if hasattr(x, "q") and hasattr(x, "scales"):
+            zs = getattr(x, "zs", None)
             w = QuantizedWeight(q=_tensor(x.q, dev, None),
                                 scales=_tensor(x.scales, dev, torch.float32),
                                 bits=int(getattr(x, "bits", 8)),
-                                zs=getattr(x, "zs", None))
+                                zs=None if zs is None else _tensor(
+                                    zs, dev, torch.float32))
             check_servable(w)
             return w
         return _tensor(x, dev, dt)

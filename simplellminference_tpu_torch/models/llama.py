@@ -21,9 +21,13 @@ paged attention dequantizes through the scales, in every branch
 (llama.py:559, :610-628, :687-727). The whole-prompt prefill still attends
 to its fresh, unquantized k/v; only its write is quantized.
 
-Weights are plain tensors or INT8 :class:`~simplellminference_tpu_torch.
-ops.linear.QuantizedWeight` leaves (``runtime.weights.quantize_params``
-or ``models.convert.params_from_jax``). With INT8 weights the JAX gates
+Weights are plain tensors or :class:`~simplellminference_tpu_torch.ops.
+linear.QuantizedWeight` leaves, INT8 or split-half INT4 with optional
+zero points (``runtime.weights.quantize_params``,
+``runtime.hf_quant.quantized_params_from_fetcher`` or
+``models.convert.params_from_jax``). ``cfg.act_quant="int8"`` sends every
+product but the LM head's through ``linear``'s W8A8 gate (prefill rows
+over INT8 weights). With INT8 weights the JAX gates
 pick the fused kernels (llama.py:583-632, :766-790): ``fused_qkv_append``
 for decode with per-channel ``wqkv`` and ``fused_ffn`` for m = B*S <= 64
 rows with per-channel ``w_gate_up``/``w_down``, prefill included. The
@@ -80,7 +84,6 @@ def check_supported(cfg: ModelConfig) -> None:
         ("final_logit_softcap", "final logit soft cap"),
         ("rope_local_theta", "local rope theta"),
         ("rope_interleaved", "interleaved rotary"),
-        ("act_quant", "activation quantization"),
     ]
     for field, name in unsupported:
         if getattr(cfg, field):
@@ -94,6 +97,9 @@ def check_supported(cfg: ModelConfig) -> None:
     for field in ("embed_scale", "residual_scale", "logit_scale"):
         if getattr(cfg, field) != 1.0:
             raise NotImplementedError(field)
+    if cfg.act_quant not in (None, "int8"):
+        # the JAX package asserts this in ops/linear.py:87
+        raise ValueError(f"act_quant={cfg.act_quant!r} (only 'int8')")
 
 
 def _fqkv_gate(cfg: ModelConfig, lw, b: int, s: int, cache_k) -> bool:
@@ -120,7 +126,7 @@ def _qkv(cfg: ModelConfig, lw, li: int, x, sin, cos):
     b, s = x.shape[:2]
     n, kvn, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     h = ref_ops.rmsnorm(x, lw["input_norm"][li], cfg.rms_norm_eps)
-    qkv = linear(h, lw["wqkv"], layer=li)
+    qkv = linear(h, lw["wqkv"], layer=li, act_quant=cfg.act_quant)
     q = qkv[..., :n * d].reshape(b, s, n, d)
     k = qkv[..., n * d:(n + kvn) * d].reshape(b, s, kvn, d)
     v = qkv[..., (n + kvn) * d:].reshape(b, s, kvn, d)
@@ -143,7 +149,8 @@ def _post_attention(cfg: ModelConfig, lw, li: int, x, attn, use_fffn: bool):
     """wo projection + residual + FFN (llama.py:224-334, the plain pre-norm
     branch), with ``fused_ffn`` under its gate."""
     b, s, h = x.shape
-    x = x + linear(attn.reshape(b, s, -1), lw["wo"], layer=li)
+    aq = cfg.act_quant
+    x = x + linear(attn.reshape(b, s, -1), lw["wo"], layer=li, act_quant=aq)
     if use_fffn:
         gu, dn = lw["w_gate_up"], lw["w_down"]
         return ffn_fused.fused_ffn(
@@ -151,14 +158,15 @@ def _post_attention(cfg: ModelConfig, lw, li: int, x, attn, use_fffn: bool):
             dn.scales, li, eps=cfg.rms_norm_eps).reshape(b, s, h)
     i_sz = cfg.intermediate_size
     hn = ref_ops.rmsnorm(x, lw["post_norm"][li], cfg.rms_norm_eps)
-    gate_up = linear(hn, lw["w_gate_up"], layer=li)
+    gate_up = linear(hn, lw["w_gate_up"], layer=li, act_quant=aq)
     swi = ref_ops.glu_act(gate_up[..., :i_sz], gate_up[..., i_sz:],
                           cfg.hidden_act)
-    return x + linear(swi, lw["w_down"], layer=li)
+    return x + linear(swi, lw["w_down"], layer=li, act_quant=aq)
 
 
 def _logits(cfg: ModelConfig, params: Params, x) -> torch.Tensor:
-    """Final norm and LM head: f32 logits."""
+    """Final norm and LM head: f32 logits. The head takes no
+    ``act_quant`` (llama.py:475, :905)."""
     x = ref_ops.rmsnorm(x, params["final_norm"], cfg.rms_norm_eps)
     lm_head = params.get("lm_head")
     if lm_head is None:

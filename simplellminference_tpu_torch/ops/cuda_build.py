@@ -56,6 +56,10 @@ _SIGNATURES = {
                                 _I, _P],
     "sli_quantized_matmul": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P],
+    "sli_quantized_matmul_int4": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _P],
+    "sli_quantized_matmul_w8a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _P],
     "sli_qkv_fused": [_P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                       _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                       _P],

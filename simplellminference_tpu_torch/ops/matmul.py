@@ -1,24 +1,37 @@
-"""Weight-only INT8 dequant + matmul: y = sum_g (x_g @ q_g) * s_g.
+"""Quantized-weight products: weight-only INT8 and INT4, and W8A8.
 
-Counterpart of simplellminference_tpu/ops/matmul.py:522
-(``quantized_matmul``, kernel ``_qmm_kernel`` :69) for 8-bit weights, one
-layer of a stacked [L, K, N] weight or a plain [K, N] one, with
-per-output-channel ([.., 1, N]) or per-group ([.., K/G, N]) f32 scales,
-for any M, K and N. For CUDA tensors :func:`quantized_matmul` launches
-the hand-written kernels of ``csrc/quantized_matmul.cu``; for CPU tensors
-it runs :func:`quantized_matmul_ref`, which is also what the kernels are
+Counterparts of simplellminference_tpu/ops/matmul.py, one layer of a
+stacked [L, K, N] weight or a plain [K, N] one, for any M and N:
+
+* :func:`quantized_matmul` (:522, kernel ``_qmm_kernel`` :69), 8-bit
+  weights with per-output-channel ([.., 1, N]) or per-group ([.., K/G,
+  N]) f32 scales, any K; with ``bits=4`` it routes to
+* :func:`quantized_matmul_int4` (``_quantized_matmul_int4`` :354, kernel
+  ``_qmm4_kernel``): split-half packed 4-bit weights [.., K/2, N] (row i
+  in the low nibble, row i + K/2 in the high one), and its zero-point
+  form :func:`quantized_matmul_int4_zs` (AWQ/GPTQ: w = q * s - zs);
+* :func:`quantized_matmul_w8a8` (:232, kernel ``_qmm_w8a8_kernel``):
+  activations quantized per token to int8 by
+  :func:`quantize_activations_int8` (:219; torch ops, outside the kernel
+  as in the reference), int32 dots against int8 weights.
+
+For CUDA tensors each wrapper launches its hand-written kernel
+(``csrc/quantized_matmul.cu``, ``csrc/quantized_matmul_int4.cu``,
+``csrc/quantized_matmul_w8a8.cu``) and counts the launch; for CPU tensors
+it runs its plain version (``*_ref``), which is also what the kernels are
 held against on the card.
 
-Rounding: the TPU kernel rounds x to bf16 whatever its dtype
+Rounding: the TPU kernels round x to bf16 whatever its dtype
 (matmul.py:565). Here x is used in its own dtype (the activation dtype)
 and the products and sums stay f32 until the one rounding to
 ``out_dtype``: with bf16 activations that is the TPU kernel's math, with
-f32 ones the JAX package's CPU math (``quantized_matmul_ref``). Every K is
-exact: the TPU wrapper's K tile drops a K % 128 remainder
-(matmul.py:583-584); nothing here does.
+f32 ones the JAX package's CPU math. Every K is exact: the TPU wrapper's K
+tile drops a K % 128 remainder (matmul.py:583-584) and its INT4 wrapper
+sends K/2 or N off a multiple of 128 to the jnp reference (:382-398);
+nothing here does either.
 
-Not ported: ``n_start``/``n_size`` (the ring collective matmul) and
-``bits=4`` (INT4), which raise.
+Not ported: ``n_start``/``n_size`` (the ring collective matmul), which
+raise.
 """
 
 from __future__ import annotations
@@ -43,12 +56,31 @@ def rows_split(m: int, k: int, n: int) -> int:
     return -(-k // chunks)
 
 
-def _layer(q, scales, layer):
+def _layer(q, scales, layer, zs=None):
     if q.ndim == 3:
         if layer is None:
             raise ValueError("stacked weights need a layer index")
-        return q[layer], scales[layer]
-    return q, scales
+        return q[layer], scales[layer], None if zs is None else zs[layer]
+    return q, scales, zs
+
+
+def _rows(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x as [M, K] rows with unit stride along K."""
+    x2 = x.reshape(-1, k)
+    return x2 if x2.stride(-1) == 1 else x2.contiguous()
+
+
+def quantize_activations_int8(x: torch.Tensor):
+    """Per-token (last axis) symmetric int8: (xi int8 [..., K], xs f32
+    [..., 1]) with x ~= xi * xs. xs = max(absmax / 127, 1e-10); xi =
+    round(x / xs) (ties to even) clipped to [-127, 127]. Both divisions
+    divide by a tensor: PyTorch's CUDA division by a Python scalar
+    multiplies by the reciprocal, which is not jnp's IEEE quotient."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    xs = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-10)
+    xi = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+    return xi, xs
 
 
 def quantized_matmul_ref(x: torch.Tensor, q: torch.Tensor,
@@ -58,7 +90,7 @@ def quantized_matmul_ref(x: torch.Tensor, q: torch.Tensor,
     quantized_matmul_ref`` on the layer's weight."""
     if x.is_cuda:
         quantized_matmul_ref.cuda_calls += 1
-    q, scales = _layer(q, scales, layer)
+    q, scales, _ = _layer(q, scales, layer)
     return ref_ops.quantized_matmul_ref(x, q, scales, out_dtype=out_dtype)
 
 
@@ -73,17 +105,25 @@ def quantized_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
 
     x: [..., K] f32 or bf16; q: [K, N] int8 or [L, K, N] with ``layer``;
     scales: [K // G, N] f32 (or [L, K // G, N]). Returns [..., N] in
-    ``out_dtype`` (f32 or bf16)."""
-    if bits != 8:
-        raise NotImplementedError("INT4 weights (bits=4)")
-    if zs is not None:
-        raise NotImplementedError("asymmetric zero points (zs)")
+    ``out_dtype`` (f32 or bf16). ``bits=4``: q is split-half packed
+    [.., K/2, N] (:func:`quantized_matmul_int4`), ``zs`` its zero points
+    (:func:`quantized_matmul_int4_zs`)."""
     if n_start is not None or n_size is not None:
         raise NotImplementedError("column-chunked matmul (n_start/n_size: "
                                   "the ring collective matmul)")
+    if bits == 4:
+        if zs is None:
+            return quantized_matmul_int4(x, q, scales, out_dtype, layer)
+        return quantized_matmul_int4_zs(x, q, scales, zs, out_dtype, layer)
+    if bits != 8:
+        raise NotImplementedError(f"{bits}-bit weights (the port serves "
+                                  f"INT8 and INT4)")
+    if zs is not None:
+        raise ValueError("zero points (zs) come only with INT4 weights, as "
+                         "in the JAX package")
     if not x.is_cuda:
         return quantized_matmul_ref(x, q, scales, out_dtype, layer)
-    ql, sl = _layer(q, scales, layer)
+    ql, sl, _ = _layer(q, scales, layer)
     k, n = ql.shape
     if x.shape[-1] != k:
         raise ValueError(f"x has K={x.shape[-1]}, the weight K={k}")
@@ -97,9 +137,7 @@ def quantized_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
         raise ValueError("x, q and scales must share a device")
     ql = ql.contiguous()
     sl = sl.contiguous()
-    x2 = x.reshape(-1, k)
-    if x2.stride(-1) != 1:
-        x2 = x2.contiguous()
+    x2 = _rows(x, k)
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
@@ -121,3 +159,182 @@ def quantized_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
 
 
 quantized_matmul.launches = 0
+
+
+# ------------------------------------------------------------------ INT4
+
+def quantized_matmul_int4_ref(x: torch.Tensor, q: torch.Tensor,
+                              scales: torch.Tensor, out_dtype=torch.bfloat16,
+                              layer: int | None = None,
+                              zs: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of :func:`quantized_matmul_int4` and of its
+    zero-point form, in the kernel's arithmetic: per-channel scales
+    without zero points scale the f32 product once; grouped scales and
+    zero points fold into the f32 weight (w = q * s - zs) before it. (The
+    reference's per-group partial sums, ``ref_ops.
+    quantized_matmul_int4_ref``, differ only in f32 rounding order.)"""
+    if x.is_cuda:
+        quantized_matmul_int4_ref.cuda_calls += 1
+    q, scales, zs = _layer(q, scales, layer, zs)
+    w = ref_ops.unpack_int4(q).float()
+    if scales.shape[0] == 1 and zs is None:
+        out = torch.matmul(x.float(), w) * scales[0].float()
+    else:
+        w = ref_ops.dequantize_int8_groupwise(w, scales)
+        if zs is not None:
+            w = w - torch.repeat_interleave(zs.float(),
+                                            w.shape[0] // zs.shape[0], dim=0)
+        out = torch.matmul(x.float(), w)
+    return out.to(out_dtype)
+
+
+quantized_matmul_int4_ref.cuda_calls = 0
+
+
+def _int4_launch(x, q, scales, zs, out_dtype, layer) -> torch.Tensor:
+    """Checks and launches csrc/quantized_matmul_int4.cu."""
+    ql, sl, zl = _layer(q, scales, layer, zs)
+    kp, n = ql.shape
+    k = 2 * kp
+    if x.shape[-1] != k:
+        raise ValueError(f"x has K={x.shape[-1]}, the packed weight "
+                         f"K/2={kp}")
+    g = sl.shape[0]
+    if sl.shape != (g, n) or k % g:
+        raise ValueError(f"scales {tuple(sl.shape)} do not group K={k}, "
+                         f"N={n}")
+    gs = k // g
+    if gs != k and kp % gs:
+        raise ValueError(f"group {gs} does not divide K/2={kp} (split-half "
+                         f"packing)")
+    if zl is not None and (tuple(zl.shape) != (g, n)
+                           or zl.dtype != torch.float32 or not zl.is_cuda):
+        raise ValueError(f"zs {tuple(zl.shape)} {zl.dtype} must be f32 "
+                         f"[{g}, {n}] on the card")
+    if ql.dtype != torch.int8 or sl.dtype != torch.float32:
+        raise TypeError("INT4 weights are int8 bytes with f32 scales")
+    if not (ql.is_cuda and sl.is_cuda):
+        raise ValueError("x, q and scales must share a device")
+    ql, sl = ql.contiguous(), sl.contiguous()
+    zl = None if zl is None else zl.contiguous()
+    x2 = _rows(x, k)
+    m = x2.shape[0]
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out.reshape(*x.shape[:-1], n)
+    kch = rows_split(m, kp, n) if m <= ROWS_MAX_M else 0
+    chunks = -(-kp // kch) if kch else 0
+    work = torch.empty((chunks * m * n,), dtype=torch.float32,
+                       device=x.device)
+    vec = int(n % 8 == 0 and ql.data_ptr() % 8 == 0)
+    lib = cuda_build.load()
+    rc = lib.sli_quantized_matmul_int4(
+        x2.data_ptr(), x2.stride(0), ql.data_ptr(), sl.data_ptr(),
+        0 if zl is None else zl.data_ptr(), out.data_ptr(), work.data_ptr(),
+        m, kp, n, gs, kch, cuda_build.dtype_code(x2.dtype),
+        cuda_build.dtype_code(out_dtype), vec,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(lib, rc, "quantized_matmul_int4")
+    return out.reshape(*x.shape[:-1], n)
+
+
+def quantized_matmul_int4(x: torch.Tensor, q: torch.Tensor,
+                          scales: torch.Tensor, out_dtype=torch.bfloat16,
+                          layer: int | None = None) -> torch.Tensor:
+    """y = x @ dequant(q, scales) for split-half INT4 weights (kernel 14).
+
+    x: [..., K] f32 or bf16; q: [K/2, N] int8 (two codes a byte) or
+    [L, K/2, N] with ``layer``; scales: [K // G, N] f32 (or stacked), G
+    dividing K/2 or equal to K. Returns [..., N] in ``out_dtype``."""
+    if not x.is_cuda:
+        return quantized_matmul_int4_ref(x, q, scales, out_dtype, layer)
+    out = _int4_launch(x, q, scales, None, out_dtype, layer)
+    quantized_matmul_int4.launches += 1
+    return out
+
+
+quantized_matmul_int4.launches = 0
+
+
+def quantized_matmul_int4_zs(x: torch.Tensor, q: torch.Tensor,
+                             scales: torch.Tensor, zs: torch.Tensor,
+                             out_dtype=torch.bfloat16,
+                             layer: int | None = None) -> torch.Tensor:
+    """:func:`quantized_matmul_int4` with zero points (the AWQ/GPTQ form,
+    kernel 14 with ``has_zeros``): w = q * s - zs, zs [K // G, N] f32 (or
+    stacked) the per-group zero times scale."""
+    if not x.is_cuda:
+        return quantized_matmul_int4_ref(x, q, scales, out_dtype, layer, zs)
+    out = _int4_launch(x, q, scales, zs, out_dtype, layer)
+    quantized_matmul_int4_zs.launches += 1
+    return out
+
+
+quantized_matmul_int4_zs.launches = 0
+
+
+# ------------------------------------------------------------------ W8A8
+
+def quantized_matmul_w8a8_ref(x: torch.Tensor, q: torch.Tensor,
+                              scales: torch.Tensor, out_dtype=torch.bfloat16,
+                              layer: int | None = None) -> torch.Tensor:
+    """Plain version of :func:`quantized_matmul_w8a8`:
+    ``ref_ops.quantized_matmul_w8a8_ref`` on the layer's weight."""
+    if x.is_cuda:
+        quantized_matmul_w8a8_ref.cuda_calls += 1
+    q, scales, _ = _layer(q, scales, layer)
+    return ref_ops.quantized_matmul_w8a8_ref(x, q, scales,
+                                             out_dtype=out_dtype)
+
+
+quantized_matmul_w8a8_ref.cuda_calls = 0
+
+
+def quantized_matmul_w8a8(x: torch.Tensor, q: torch.Tensor,
+                          scales: torch.Tensor, out_dtype=torch.bfloat16,
+                          layer: int | None = None) -> torch.Tensor:
+    """y = quant8(x) @ dequant(q, scales): per-token int8 activations
+    against int8 weights (kernel 15), the prefill form of
+    :func:`quantized_matmul`.
+
+    x: [..., K] f32 or bf16; q: [K, N] int8 or [L, K, N] with ``layer``;
+    scales: [K // G, N] f32 (or stacked), G = K (per output channel) or a
+    multiple of 4 rows. Returns [..., N] in ``out_dtype``."""
+    if not x.is_cuda:
+        return quantized_matmul_w8a8_ref(x, q, scales, out_dtype, layer)
+    ql, sl, _ = _layer(q, scales, layer)
+    k, n = ql.shape
+    if x.shape[-1] != k:
+        raise ValueError(f"x has K={x.shape[-1]}, the weight K={k}")
+    g = sl.shape[0]
+    if sl.shape != (g, n) or k % g:
+        raise ValueError(f"scales {tuple(sl.shape)} do not group K={k}, "
+                         f"N={n}")
+    gs = k // g
+    if gs != k and gs % 4:
+        raise NotImplementedError(f"W8A8 with scale groups of {gs} rows "
+                                  f"(the kernel takes multiples of 4)")
+    if ql.dtype != torch.int8 or sl.dtype != torch.float32:
+        raise TypeError("quantized_matmul_w8a8 takes int8 weights and f32 "
+                        "scales")
+    if not (ql.is_cuda and sl.is_cuda):
+        raise ValueError("x, q and scales must share a device")
+    ql, sl = ql.contiguous(), sl.contiguous()
+    xi, xs = quantize_activations_int8(_rows(x, k))
+    m = xi.shape[0]
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out.reshape(*x.shape[:-1], n)
+    lib = cuda_build.load()
+    rc = lib.sli_quantized_matmul_w8a8(
+        xi.data_ptr(), xs.data_ptr(), ql.data_ptr(), sl.data_ptr(),
+        out.data_ptr(), m, k, n, gs, cuda_build.dtype_code(out_dtype),
+        int(n % 4 == 0 and ql.data_ptr() % 4 == 0),
+        int(k % 16 == 0 and xi.data_ptr() % 16 == 0),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(lib, rc, "quantized_matmul_w8a8")
+    quantized_matmul_w8a8.launches += 1
+    return out.reshape(*x.shape[:-1], n)
+
+
+quantized_matmul_w8a8.launches = 0

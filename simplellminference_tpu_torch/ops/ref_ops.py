@@ -8,8 +8,9 @@ function and with the same shape conventions:
     weights: [K, N]              contraction-first (x @ w)
 
 Reductions and softmax run in float32 and cast back, as the reference
-does. The INT8 weight helpers (simplellminference_tpu/ops/ref_ops.py:
-367-391 and :472-488) are at the end; INT4 and W8A8 are not ported.
+does. The quantized-weight helpers (simplellminference_tpu/ops/ref_ops.py:
+367-508: INT8, split-half INT4 with optional zero points, W8A8) are at
+the end.
 """
 
 from __future__ import annotations
@@ -199,3 +200,121 @@ def quantized_matmul_ref(x: torch.Tensor, q: torch.Tensor,
                                q.float().reshape(g, k // g, n))
         out = torch.einsum("...gn,gn->...n", partial, scales.float())
     return out.to(out_dtype)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """[..., K, N] int4 values in [-8, 7] -> the split-half layout
+    [..., K/2, N] int8: row i in the low nibble, row i + K/2 in the high
+    (int8 ops, whose left shift wraps in two's complement as jnp's)."""
+    k = q.shape[-2]
+    v = q.to(torch.int8)
+    return (v[..., :k // 2, :] & 0xF) | (v[..., k // 2:, :] << 4)
+
+
+def quantize_int4_groupwise(w: torch.Tensor, group_size: int,
+                            scale_dtype=torch.float32):
+    """Symmetric per-group INT4 quantization, split-half nibble packed.
+
+    w: [..., K, N] -> (packed: int8 [..., K/2, N], scales: [..., K//G, N]).
+    scale = max(absmax(group) / 7, 1e-8); q = round(w / scale) (ties to
+    even) clipped to [-7, 7]; ``packed[..., i, n]`` holds row i in its low
+    nibble and row i + K/2 in its high nibble. Needs ``group_size | K/2``
+    or ``group_size == K`` (per output channel), as the reference
+    asserts."""
+    *lead, k, n = w.shape
+    if k % 2 or not (group_size == k or (k // 2) % group_size == 0):
+        raise ValueError(f"split-half INT4 needs an even K and a group "
+                         f"dividing K/2 (or equal to K): K={k}, group "
+                         f"{group_size}")
+    wg = w.float().reshape(*lead, k // group_size, group_size, n)
+    absmax = wg.abs().amax(dim=-2)
+    # divide by a tensor (IEEE), as quantize_int8_groupwise does
+    scales = torch.clamp(absmax / torch.full_like(absmax, 7.0), min=1e-8)
+    q = torch.clamp(torch.round(wg / scales[..., None, :]), -7, 7)
+    return pack_int4(q.reshape(*lead, k, n)), scales.to(scale_dtype)
+
+
+def _nibbles(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(low, high) nibbles of int8 bytes, sign-extended by arithmetic
+    shifts on the int8 values, as the reference shifts (PyTorch's int8
+    left shift wraps in two's complement)."""
+    return (packed << 4) >> 4, packed >> 4
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of the split-half packing: [..., K/2, N] int8 ->
+    [..., K, N] int8 in [-8, 7] (each nibble sign-extended)."""
+    return torch.cat(_nibbles(packed), dim=-2)
+
+
+def dequantize_int4_groupwise(packed: torch.Tensor, scales: torch.Tensor,
+                              dtype=torch.float32,
+                              zs: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """[..., K/2, N] packed + [..., K//G, N] scales -> [..., K, N];
+    ``zs`` (AWQ/GPTQ): per-group zero * scale, w = q * s - zs, in f32."""
+    w = dequantize_int8_groupwise(unpack_int4(packed), scales, torch.float32)
+    if zs is not None:
+        k = w.shape[-2]
+        w = w - torch.repeat_interleave(zs.float(), k // zs.shape[-2],
+                                        dim=-2)
+    return w.to(dtype)
+
+
+def quantized_matmul_int4_ref(x: torch.Tensor, packed: torch.Tensor,
+                              scales: torch.Tensor, out_dtype=None,
+                              zs: torch.Tensor | None = None) -> torch.Tensor:
+    """x @ dequant(packed, scales, zs) for one layer, in the reference's
+    math: per-group f32 partial sums of x against the unpacked codes,
+    each times its scale; with ``zs`` minus rowsum_g(x) * zs[g] per
+    group."""
+    out = quantized_matmul_ref(x, unpack_int4(packed), scales,
+                               out_dtype=torch.float32)
+    if zs is not None:
+        k = x.shape[-1]
+        g = zs.shape[-2]
+        rs = x.float().reshape(*x.shape[:-1], g, k // g).sum(-1)  # [..., G]
+        out = out - torch.einsum("...g,gn->...n", rs, zs.float())
+    return out.to(out_dtype or x.dtype)
+
+
+def _int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer dot of int8 codes a [..., k] and b [k, n], as f32
+    (rounded once, as an int32 sum converts). The products and sums run
+    in f32 over chunks of at most 1024 rows, where every partial sum of
+    int8 products is an integer below 2^24 (1024 * 127 * 128), so exact in
+    any order; chunks add in float64. Needs TF32 off for f32 products on
+    the card (PyTorch's default)."""
+    k = a.shape[-1]
+    if k <= 1024:
+        return torch.matmul(a.float(), b.float())
+    acc = None
+    for c in range(0, k, 1024):
+        part = torch.matmul(a[..., c:c + 1024].float(),
+                            b[c:c + 1024].float()).double()
+        acc = part if acc is None else acc + part
+    return acc.float()
+
+
+def quantized_matmul_w8a8_ref(x: torch.Tensor, q: torch.Tensor,
+                              scales: torch.Tensor,
+                              out_dtype=None) -> torch.Tensor:
+    """W8A8 for one layer: x quantized per token to int8
+    (``matmul.quantize_activations_int8``), exact integer dots per scale
+    group against the int8 weight (:func:`_int_dot`), each group's sum as
+    f32 times its scale, summed over the groups in order, times the row
+    scale; one group at a time, so no [rows, groups, N] intermediate is
+    made."""
+    from simplellminference_tpu_torch.ops.matmul import (
+        quantize_activations_int8)
+    out_dtype = out_dtype or x.dtype
+    k, n = q.shape
+    g = scales.shape[0]
+    gs = k // g
+    xi, xs = quantize_activations_int8(x)
+    out = None
+    for j in range(g):
+        term = _int_dot(xi[..., j * gs:(j + 1) * gs],
+                        q[j * gs:(j + 1) * gs]) * scales[j].float()
+        out = term if out is None else out + term
+    return (out * xs).to(out_dtype)

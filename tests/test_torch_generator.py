@@ -155,11 +155,13 @@ def test_generator_defaults_to_cuda(float_models):
             Generator(cfg, tp)
 
 
-@pytest.mark.parametrize("quant", ["none", "int8"])
+@pytest.mark.parametrize("quant", ["none", "int8", "int4", "int8-act"])
 def test_generate_cli_no_model_path_prints_text(quant):
     out, err = io.StringIO(), io.StringIO()
+    flags = (["--quant", "int8", "--act-quant"] if quant == "int8-act"
+             else ["--quant", quant])
     with redirect_stdout(out), redirect_stderr(err):
-        cli_generate.main(["--cpu", "--dtype", "float32", "--quant", quant,
+        cli_generate.main(["--cpu", "--dtype", "float32", *flags,
                            "--prompt", "Hello", "--max-new-tokens", "6"])
     text = out.getvalue()
     assert text.startswith("Hello") and text.endswith("\n")
@@ -168,7 +170,8 @@ def test_generate_cli_no_model_path_prints_text(quant):
 
 
 @pytest.mark.parametrize("argv", [["--model-dir", "a_checkpoint_dir"],
-                                  ["--act-quant"], ["--quant", "int4"]])
+                                  ["--blob", "a_blob"],
+                                  ["--tokenizer", "a_tokenizer_dir"]])
 def test_generate_cli_refuses_unported_options(argv):
     with redirect_stderr(io.StringIO()), pytest.raises(SystemExit) as e:
         cli_generate.main(["--cpu", *argv])

@@ -123,9 +123,17 @@ def test_params_from_jax_carries_int8_leaves(model):
 
 
 def test_params_from_jax_refuses_int4():
-    w = JaxQW(q=np.zeros((4, 4), np.int8), scales=np.ones((1, 4), np.float32),
+    # INT4 leaves are carried over (tests/test_torch_int4.py); one whose
+    # scale groups do not fit the split-half packing is refused: K = 8,
+    # groups of 8/3 rows, and K = 12 with groups of 4 (4 does not divide
+    # K/2 = 6)
+    w = JaxQW(q=np.zeros((4, 4), np.int8), scales=np.ones((3, 4), np.float32),
               bits=4)
-    with pytest.raises(NotImplementedError, match="INT4"):
+    with pytest.raises(ValueError, match="do not group"):
+        params_from_jax({"layers": {"wqkv": w}}, device="cpu")
+    w = JaxQW(q=np.zeros((6, 4), np.int8), scales=np.ones((3, 4), np.float32),
+              bits=4)
+    with pytest.raises(ValueError, match="split-half"):
         params_from_jax({"layers": {"wqkv": w}}, device="cpu")
 
 

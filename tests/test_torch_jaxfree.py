@@ -26,7 +26,7 @@ from simplellminference_tpu_torch.models import convert, llama
 from simplellminference_tpu_torch.ops import cuda_build, sampling
 from simplellminference_tpu_torch.ops import ffn_fused, linear, matmul
 from simplellminference_tpu_torch.ops import qkv_fused, ref_ops
-from simplellminference_tpu_torch.runtime import weights
+from simplellminference_tpu_torch.runtime import hf_quant, weights
 from simplellminference_tpu_torch.ops.attention import dispatch
 from simplellminference_tpu_torch.ops.attention import paged_prefill
 from simplellminference_tpu_torch.memory import allocator, paged_kv

@@ -15,7 +15,9 @@ in f32 in another order than their plain versions: f32 outputs within
 1e-5 of the output's largest magnitude, bf16 outputs within one bf16 ulp
 beyond that, and the fused kernels' outputs (which also round
 intermediates to the activation dtype) within 2e-2 of their standard
-deviation in bf16.
+deviation in bf16. The INT4 kernel (with and without zero points) and
+the W8A8 kernel are held to the INT8 product's rule; the quantizers
+(INT4 weights, per-token int8 activations) are byte-equal card vs CPU.
 """
 
 import numpy as np
@@ -372,7 +374,9 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     if isinstance(tree, QuantizedWeight):
-        return QuantizedWeight(q=tree.q.to(dev), scales=tree.scales.to(dev))
+        return QuantizedWeight(q=tree.q.to(dev), scales=tree.scales.to(dev),
+                               bits=tree.bits,
+                               zs=None if tree.zs is None else tree.zs.to(dev))
     return tree.to(dev)
 
 
@@ -875,3 +879,131 @@ def test_draft_engine_card_matches_cpu(cuda):
     assert outs[0] == outs[1] == outs[2] == outs[3]
     assert metrics[0] == metrics[2] and metrics[1] == metrics[3]
     assert metrics[1][1] >= 2 * metrics[1][0]      # a self-draft accepts
+
+
+def _int4w(g, dev, shape, groups, zs):
+    """Random split-half packed bytes (every nibble, -8 included) for a
+    logical [.., K, N] weight, f32 scales and, with ``zs``, zero points
+    (z - 8) * s for z in [0, 16)."""
+    *lead, k, n = shape
+    q = torch.randint(-128, 128, (*lead, k // 2, n), generator=g, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand((*lead, groups, n), generator=g, device=dev) * 1e-2 + 5e-3
+    z = None
+    if zs:
+        z = (torch.randint(0, 16, s.shape, generator=g, device=dev) - 8) * s
+    return q, s, z
+
+
+def _close(got, want, odt):
+    diff = (got.float() - want.float()).abs()
+    slack = 1e-5 * float(want.float().abs().max())
+    if odt == torch.float32:
+        return float(diff.max()) <= slack
+    ulp = _bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
+    return bool((diff <= ulp + slack).all())
+
+
+@pytest.mark.parametrize("m,k,n,groups,xdt,odt,zs", [
+    (8, 4096, 4096, 1, torch.bfloat16, torch.bfloat16, False),  # bench.py
+    (1, 4096, 3000, 32, torch.float32, torch.float32, True),    # AWQ form
+    (5, 200, 40, 1, torch.float32, torch.float32, True),        # K/2 = 100
+    (8, 4096, 512, 32, torch.bfloat16, torch.float32, False),   # grouped
+    (100, 512, 384, 4, torch.bfloat16, torch.float32, False),   # tiled
+    (70, 300, 136, 10, torch.float32, torch.bfloat16, True),    # ragged
+    (1024, 256, 264, 1, torch.bfloat16, torch.bfloat16, False),
+])
+def test_quantized_matmul_int4(cuda, m, k, n, groups, xdt, odt, zs):
+    g = torch.Generator(device=cuda).manual_seed(m + k + zs)
+    q, s, z = _int4w(g, cuda, (2, k, n), groups, zs)
+    x = torch.randn((m, k), generator=g, device=cuda).to(xdt)
+    kern = mm.quantized_matmul_int4_zs if zs else mm.quantized_matmul_int4
+    before = kern.launches
+    got = mm.quantized_matmul(x, q, s, out_dtype=odt, layer=1, bits=4, zs=z)
+    assert kern.launches == before + 1
+    want = mm.quantized_matmul_int4_ref(x, q, s, out_dtype=odt, layer=1,
+                                        zs=z)
+    assert got.dtype == odt and got.shape == (m, n)
+    assert _close(got, want, odt)
+
+
+@pytest.mark.parametrize("m,k,n,groups,xdt,odt", [
+    (128, 4096, 4096, 1, torch.bfloat16, torch.bfloat16),       # wo prefill
+    (300, 512, 384, 4, torch.bfloat16, torch.float32),          # group 128
+    (129, 200, 40, 1, torch.float32, torch.float32),            # K % 16
+    (256, 1000, 136, 125, torch.float32, torch.float32),        # groups of 8
+    (130, 256, 70, 2, torch.float32, torch.bfloat16),           # N % 4
+])
+def test_quantized_matmul_w8a8(cuda, m, k, n, groups, xdt, odt):
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    q, s = _qw(g, cuda, (2, k, n), groups)
+    x = torch.randn((m, k), generator=g, device=cuda).to(xdt)
+    x[3] = 0.0                                  # the 1e-10 row-scale floor
+    before = mm.quantized_matmul_w8a8.launches
+    got = mm.quantized_matmul_w8a8(x, q, s, out_dtype=odt, layer=1)
+    assert mm.quantized_matmul_w8a8.launches == before + 1
+    want = mm.quantized_matmul_w8a8_ref(x, q, s, out_dtype=odt, layer=1)
+    assert got.dtype == odt and got.shape == (m, n)
+    assert not got[3].any()
+    assert _close(got, want, odt)
+
+
+def test_int4_and_activation_quantizers_card_match_cpu(cuda):
+    g = torch.Generator().manual_seed(1)
+    w = torch.randn((2, 512, 384), generator=g) * 0.05
+    w[0, :, :7] *= 1e-3
+    for gs in (512, 128):
+        qc, sc = ref_ops.quantize_int4_groupwise(w, gs)
+        qg, sg = ref_ops.quantize_int4_groupwise(w.to(cuda), gs)
+        assert torch.equal(qc, qg.cpu()) and torch.equal(sc, sg.cpu())
+    x = torch.randn((300, 4096), generator=g) * torch.rand((300, 1),
+                                                           generator=g)
+    x[5] = 0.0
+    for dt in DTYPES:
+        ic, sc = mm.quantize_activations_int8(x.to(dt))
+        ig, sg = mm.quantize_activations_int8(x.to(dt).to(cuda))
+        assert torch.equal(ic, ig.cpu()) and torch.equal(sc, sg.cpu())
+
+
+def test_int4_and_w8a8_engines_run_the_kernels_only_and_match_cpu(cuda):
+    import dataclasses
+    cfg = ModelConfig.tiny_test(num_layers=2)
+    p = llama.init_params(cfg, seed=3, device="cpu")
+    int4 = quantize_params(p, QuantConfig(mode="int4", group_size=32,
+                                          quantize_lm_head=True))
+    g = torch.Generator().manual_seed(4)
+    awq = {**int4, "layers": {
+        k: (QuantizedWeight(q=w.q, scales=w.scales, bits=4,
+                            zs=(torch.randint(0, 16, w.scales.shape,
+                                              generator=g) - 8) * w.scales
+                            * 0.1)
+            if isinstance(w, QuantizedWeight) else w)
+        for k, w in int4["layers"].items()}}
+    int8 = quantize_params(p, QuantConfig(mode="int8", group_size=32,
+                                          quantize_lm_head=True))
+    prompts = [list(range(1, 60)), [5, 6, 7] * 15, list(range(100, 140)),
+               [9] * 33]
+    ecfg = EngineConfig(max_batch_size=4, prefix_cache_entries=0,
+                        kv=KVCacheConfig(page_size=8, num_pages=64,
+                                         max_pages_per_seq=10,
+                                         kv_dtype="f32"))
+    refs = (mm.quantized_matmul_int4_ref, mm.quantized_matmul_w8a8_ref,
+            mm.quantized_matmul_ref)
+    calls = [f.cuda_calls for f in refs]
+    for params, act, kern in ((int4, None, mm.quantized_matmul_int4),
+                              (awq, None, mm.quantized_matmul_int4_zs),
+                              (int8, "int8", mm.quantized_matmul_w8a8)):
+        c = dataclasses.replace(cfg, act_quant=act)
+        before = kern.launches
+        outs = [Engine(c, pp, ecfg, decode_burst=4, device=dev).generate(
+            prompts, SamplingParams(max_new_tokens=10))
+            for pp, dev in ((params, "cpu"), (_to(params, cuda), cuda))]
+        # W8A8 only at the 4 x 64-row prefill: 4 products a layer
+        want = 4 * cfg.num_layers if act else None
+        assert kern.launches > before and (
+            want is None or kern.launches == before + want)
+        if act is None:
+            assert outs[0] == outs[1]           # f32 weights: same greedy
+        else:                                   # codes may part by a step
+            assert all(len(o) == 10 for o in outs[1])
+    assert [f.cuda_calls for f in refs] == calls

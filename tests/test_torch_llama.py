@@ -82,16 +82,17 @@ def test_unsupported_model_features_raise(override, feature):
 
 
 def test_quantized_params_rejected():
-    # INT8 leaves are carried over (tests/test_torch_int8.py); INT4 and
-    # zero-point leaves are not served yet
-    q4 = QuantizedWeight(q=np.zeros((4, 4), np.int8),
-                         scales=np.ones((1, 4), np.float32), bits=4)
+    # INT8 and INT4 leaves, zero points included, are carried over
+    # (tests/test_torch_int8.py, tests/test_torch_int4.py); other widths
+    # and zero points that do not fit their scales are not
+    q3 = QuantizedWeight(q=np.zeros((4, 4), np.int8),
+                         scales=np.ones((1, 4), np.float32), bits=3)
     with pytest.raises(NotImplementedError, match="INT4"):
-        params_from_jax({"layers": {"wqkv": q4}}, device="cpu")
+        params_from_jax({"layers": {"wqkv": q3}}, device="cpu")
     qz = QuantizedWeight(q=np.zeros((4, 4), np.int8),
                          scales=np.ones((1, 4), np.float32), bits=4,
-                         zs=np.zeros((1, 4), np.float32))
-    with pytest.raises(NotImplementedError):
+                         zs=np.zeros((2, 4), np.float32))
+    with pytest.raises(ValueError, match="zs"):
         params_from_jax({"layers": {"wqkv": qz}}, device="cpu")
 
 
