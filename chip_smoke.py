@@ -35,7 +35,16 @@ Phases, in order; any failure exits non-zero:
                 M in {1, 8, 1024}, per-channel and group 128, ragged M and
                 K/2 off a multiple of 128, and the W8A8 product at the
                 four prefill products, M in {128, 1024} and ragged, with
-                both quantizers byte-equal card vs CPU; max |error| beside
+                both quantizers byte-equal card vs CPU; then the sliding-
+                window forms (3w, 4w/4qw/4vw/4vqw, 8w/8qw at the
+                `mistral_window` path's shapes and at windows 200 and 6,
+                over ring tables whose columns below the window band
+                point at NaN pages, which no form may read) and 6k
+                (kv_layer != layer); then kernels 16 (fused_wo_ffn at
+                Llama-2-7B and Mistral-7B widths, m = 8, and an
+                oversubscribed cooperative grid refused) and 17
+                (flash_decode_dyn at the `dense` arena, bk 128 and 256
+                equal), which no path runs; max |error| beside
                 its tolerance, kernel / plain / library times from
                 CUDA-graph replay, and the bound (the least time for the
                 bytes and operations of the call on an H100 SXM:
@@ -82,10 +91,16 @@ Phases, in order; any failure exits non-zero:
                 kernel; and `w8a8` (the server CLI's --act-quant: the
                 prefix path's traffic, every prefill product of 128 rows
                 or more on the W8A8 kernel), each wave's TTFT beside the
-                `prefix` path's.
+                `prefix` path's. Then `mistral_window`: Mistral-7B (32
+                layers, sliding_window 4096, bench.py's INT8 weights,
+                bf16 KV, prefill_chunk 256) in the grouped engine, 4
+                greedy prompts of 4224 tokens and 320 new ones (the ring
+                of 35 pages wraps: kv_len 4544 > 4480), then bench.py's
+                shape for the decode rate beside `int8`'s.
   5. cpu      — the same port at Llama-2-7B width, 2 layers, f32, TF32 off,
                 on the card (kernels) and on the host CPU (plain
-                versions), from one numpy draw of the weights, 4 requests,
+                versions), from one draw of the weights (on the card,
+                copied to the host), 4 requests,
                 with bf16-path float weights and with INT8 weights
                 quantized by the port: prefill and per-step logits of
                 forward_paged within 1e-3, and the Engine's greedy tokens
@@ -105,9 +120,16 @@ Phases, in order; any failure exits non-zero:
                 through the Engine and the Generator; and W8A8 over
                 group-128 INT8 weights, the Engine also on prefix
                 traffic, the card carrying on with the CPU's activation
-                codes (its own within one step of them).
+                codes (its own within one step of them). Last, sliding
+                windows at Mistral-7B width (2 layers, window 4096, f32):
+                one 4224-token prompt through the grouped pools in
+                256-row chunks and 320 new tokens, logits of every step
+                within 1e-3, greedy tokens equal, and the card's grouped
+                Engine to the CPU's tokens.
 
-Then one line ``{"kernels": [...]}`` and, last, the result line
+Then one line ``{"kernels": [...]}`` (each kernel's launches on every
+path, and in phase 3: kernels 16 and 17 run only there) and, last, the
+result line
 ``{"ok": true, "device": {...}}``; both only when every phase ran
 (``--phases`` picks a subset for a quick check after an edit).
 """
@@ -130,6 +152,7 @@ PEAK_OPS = {"bfloat16": 989e12,     # dense tensor-core bf16
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # the INT8 kernels: f32 outputs within this share of the output's largest
 # magnitude (f32 sums in another order); bf16 outputs of quantized_matmul
+# and of the attention kernels of the newest slice (the window forms, 17)
 # within one bf16 ulp beyond that; the fused kernels (which also round
 # intermediates to bf16) within TOL["bfloat16"] of the output's standard
 # deviation
@@ -220,6 +243,39 @@ KERNELS = {
     "quantized_matmul_w8a8": dict(
         source="simplellminference_tpu_torch/csrc/quantized_matmul_w8a8.cu",
         replaces="simplellminference_tpu/ops/matmul.py:232"),
+    # sliding windows: the window forms of kernels 3, 4 (4w, 4qw, 4vw,
+    # 4vqw) and 8 (8w, 8qw), and the kv_layer form of 6 (6k)
+    "flash_prefill_window": dict(
+        source="simplellminference_tpu_torch/csrc/flash_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_prefill.py:102"),
+    "paged_flash_decode_window": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "paged_flash_decode_int8kv_window": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "paged_flash_verify_window": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    "paged_flash_verify_int8kv_window": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    "paged_flash_prefill_window": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    "paged_flash_prefill_int8kv_window": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    "fused_qkv_append_kv_layer": dict(
+        source="simplellminference_tpu_torch/csrc/qkv_fused.cu",
+        replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
+    # the last two TPU kernels, dispatched from no path (as in JAX)
+    "fused_wo_ffn": dict(
+        source="simplellminference_tpu_torch/csrc/wo_ffn.cu",
+        replaces="simplellminference_tpu/ops/ffn_fused.py:302"),
+    "flash_decode_dyn": dict(
+        source="simplellminference_tpu_torch/csrc/flash_decode_dyn.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_decode_dyn.py:105"),
 }
 # the Engine's paths, in order: bench.py's weight paths (prefix cache
 # off), then the server's default configuration (prefix cache on,
@@ -232,10 +288,13 @@ KERNELS = {
 # draft-model speculation (the spec engine drafted by TinyLlama-1.1B); then
 # bench.py --quant int4 through the Engine (`int4`) and the Generator
 # (`int4_dense`), and the server CLI's --act-quant (W8A8 prefill) on the
-# prefix path's traffic
+# prefix path's traffic; then sliding windows at Mistral-7B width through
+# the grouped engine
 PATHS = ("int8", "bf16", "prefix", "int8kv", "int8kv_prefix", "spec",
          "spec_int8kv", "dense", "dense_bf16", "draft", "int4", "int4_dense",
-         "w8a8")
+         "w8a8", "mistral_window")
+# every launch of phase 3, by kernel (filled by phase_kernels)
+phase3_launches: dict = {}
 
 
 class SmokeFailure(Exception):
@@ -1658,6 +1717,24 @@ def _matmul_rule(torch, got, want, odt):
             f"tol one bf16 ulp of each output + {slack:.3e}")
 
 
+def _rounding_rule(torch, got, want):
+    """The rule of the attention kernels, which compute in f32 as their
+    plain versions do (another summation order) and round once to the
+    output dtype: each element within F32_REL of the output's largest
+    magnitude, plus one bf16 ulp of itself for bf16 outputs. Returns
+    (ok, max|err|, the largest share of its limit an element takes,
+    the limit's text)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    lim = torch.full_like(diff, F32_REL * float(w.abs().max()))
+    note = f"tol {F32_REL:g} x max|out|"
+    if got.dtype == torch.bfloat16:
+        lim = lim + _bf16_ulp(torch, torch.maximum(g.abs(), w.abs()))
+        note = "tol one bf16 ulp of each output + " + note[4:]
+    share = float((diff / lim.clamp_min(1e-30)).max()) if diff.numel() else 0.0
+    return share <= 1.0, float(diff.max()) if diff.numel() else 0.0, share, note
+
+
 def _int4pack_library(torch, x, q, s, z, k):
     """torch._weight_int4pack_mm on the same weights repacked for it
     (uint4 codes c + 8 as [N, K/2] bytes, scales and zero terms -zs over
@@ -1863,6 +1940,544 @@ def check_quantizers(torch, dev):
           "f32, a zero row): card byte-equal to the CPU", flush=True)
 
 
+# ------------------------------------------------------ sliding windows
+# Mistral-7B-v0.1's config.json: "sliding_window": 4096 on every layer;
+# the `mistral_window` path's chunk of 256 rows and pages of 128 tokens
+# give a ring of (4096 + 256 - 2) // 128 + 2 = 35 pages a slot
+# (engine.py:524)
+WINDOW = 4096
+MISTRAL_CHUNK = 256
+MISTRAL_RING = (WINDOW + MISTRAL_CHUNK - 2) // 128 + 2
+
+
+def _ring_tables(torch, dev, b, r, mp):
+    """The grouped engine's ring tables: column j of slot s -> s*r + j%r."""
+    return (torch.arange(b, device=dev)[:, None] * r
+            + torch.arange(mp, device=dev)[None] % r).to(torch.int32)
+
+
+def _poisoned(torch, tables, k_lo, ps, first):
+    """``tables`` with every column that ends at or below key k_lo[b]
+    pointing at one of the 4 NaN pages from ``first`` on: no window form
+    may read them."""
+    tb = tables.clone()
+    cols = torch.arange(tables.shape[1], device=tables.device)
+    below = (cols[None] + 1) * ps <= k_lo.long()[:, None]
+    tb[below] = (first + cols[None].expand_as(tb)[below] % 4).to(torch.int32)
+    return tb
+
+
+def _ring_pools(torch, gen, dev, b, r, kvn, ps, d, dtype, quant):
+    """Two layers of ring pools (b x r pages), 4 NaN pages after them and
+    the trash page: bf16/f32 rows, or INT8 codes whose NaN is in the
+    scale pools."""
+    shape = (2, b * r + 5, kvn, ps, d)
+    if quant:
+        pk, pv, sk, sv = _quant_pools(torch, gen, dev, 2, b * r + 4, kvn,
+                                      ps, d)
+        sk[:, b * r:b * r + 4] = float("nan")
+        sv[:, b * r:b * r + 4] = float("nan")
+        return [pk, pv, sk, sv]
+    pk = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+    pv = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+    pk[:, b * r:b * r + 4] = float("nan")
+    pv[:, b * r:b * r + 4] = float("nan")
+    return [pk, pv]
+
+
+def _gqa(torch, k, n):
+    """[B, kvN, S, D] -> [B, N, S, D] (SDPA takes the heads repeated)."""
+    return k if k.shape[1] == n else k.repeat_interleave(n // k.shape[1],
+                                                        dim=1)
+
+
+def check_flash_prefill_window(torch, dev, results, extra):
+    """Form 3w against its plain version: the `mistral_window` path's
+    whole-prompt dispatch (bench.py's 8 x 128 prompts, Mistral heads,
+    window 4096; timed), window 200 across 600 rows, GQA f32 at window 6,
+    window 1."""
+    import torch.nn.functional as F
+
+    from simplellminference_tpu_torch.ops.attention.flash_prefill import (
+        flash_prefill_ref, flash_prefill_window)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = {"mistral-7b bench prompts": (8, 128, 32, 8, 128, bf, WINDOW),
+             "window 200": (2, 600, 32, 8, 128, bf, 200),
+             "gqa f32 window 6": (2, 100, 32, 4, 64, f32, 6),
+             "window 1": (1, 64, 8, 8, 128, bf, 1)}
+    for tag, (b, s, n, kvn, d, dtype, w) in cases.items():
+        q = torch.randn((b, s, n, d), generator=gen, device=dev, dtype=dtype)
+        k = torch.randn((b, s, kvn, d), generator=gen, device=dev,
+                        dtype=dtype)
+        v = torch.randn((b, s, kvn, d), generator=gen, device=dev,
+                        dtype=dtype)
+        got = flash_prefill_window(q, k, v, w)
+        want = flash_prefill_ref(q, k, v, window=w)
+        torch.cuda.synchronize()
+        ok, err, share, note = _rounding_rule(torch, got, want)
+        print(f"[kernels] flash_prefill_window {tag} (B={b} S={s} N={n} "
+              f"kvN={kvn} D={d} window={w}): max|err| {err:.3e} ({note}; "
+              f"the worst element at {share:.3f} of its limit)", flush=True)
+        require(bool(torch.isfinite(got).all()) and ok,
+                f"flash_prefill_window {tag} disagrees: {err}, {share}")
+        if "flash_prefill_window" in results:
+            continue
+        es = q.element_size()
+        pairs = sum(min(i + 1, w) for i in range(s))
+        nbytes = (2 * b * s * n * d + 2 * b * s * kvn * d) * es
+        bms, by = bound_ms(nbytes, 4.0 * b * n * d * pairs,
+                           dname(torch, dtype))
+        pos = torch.arange(s, device=dev)
+        mask = ((pos[None] <= pos[:, None])
+                & (pos[None] > pos[:, None] - w))[None, None]
+        qt = q.transpose(1, 2)
+        kt, vt = (_gqa(torch, x.transpose(1, 2), n) for x in (k, v))
+        results["flash_prefill_window"] = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: flash_prefill_window(q, k, v, w)),
+            plain_ms=time_ms(torch, lambda: flash_prefill_ref(
+                q, k, v, window=w)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask)),
+            bound_ms=bms, bound_by=by)
+
+
+def check_paged_decode_window(torch, dev, results, extra):
+    """Forms 4w, 4qw, 4vw and 4vqw against their plain versions over ring
+    tables: the `mistral_window` path's decode (4 rows at kv_len
+    4400-4543, past the ring's 35 x 128 = 4480 tokens, Mistral heads,
+    window 4096, R 35; timed, S = 5 for the
+    verify forms as spec_tokens 4 gives), window 200 (not a page multiple)
+    with kv_lens 150-1000 on both sides of it, and GQA f32 at window 6.
+    Every case also runs with the table columns wholly below the oldest
+    row's band pointing at NaN pages: the output must stay finite and
+    bit-equal to the clean run's, so those pages are never read."""
+    import torch.nn.functional as F
+
+    from simplellminference_tpu_torch.memory.paged_kv import gather_dense
+    from simplellminference_tpu_torch.ops.attention import paged_decode as pd
+    gen = torch.Generator(device=dev).manual_seed(42)
+    bf, f32 = torch.bfloat16, torch.float32
+    # tag: (lens, n, kvn, d, ps, window, dtype)
+    cases = {"mistral-7b decode": ([4400, 4480, 4500, 4543], 32, 8, 128, 128,
+                                   WINDOW, bf),
+             "window 200": ([150, 200, 201, 640, 1000], 32, 8, 128, 128, 200,
+                            bf),
+             "gqa f32 window 6": ([3, 7, 40], 32, 4, 64, 16, 6, f32)}
+    forms = {(False, 1): "paged_flash_decode_window",
+             (True, 1): "paged_flash_decode_int8kv_window",
+             (False, 5): "paged_flash_verify_window",
+             (True, 5): "paged_flash_verify_int8kv_window"}
+    for (quant, s), name in forms.items():
+        kern = getattr(pd, name)
+        ref = pd.paged_flash_decode_ref if s == 1 else pd.paged_flash_verify_ref
+        for tag, (lens, n, kvn, d, ps, w, dtype) in cases.items():
+            b = len(lens)
+            # the path's ring (sized for its 256-row chunks) at window 4096
+            r = MISTRAL_RING if w == WINDOW else (w + s - 2) // ps + 2
+            mp = -(-max(lens) // ps)
+            pools = _ring_pools(torch, gen, dev, b, r, kvn, ps, d, dtype,
+                                quant)
+            scales = pools[2:] if quant else []
+            clean = _ring_tables(torch, dev, b, r, mp)
+            kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+            dirty = _poisoned(torch, clean, kv - s - w + 1, ps, b * r)
+            q = torch.randn((b, s, n, d), generator=gen, device=dev,
+                            dtype=dtype)
+            qq = q[:, 0] if s == 1 else q
+
+            def run(tb, _q=qq, _p=pools, _kv=kv, _w=w, _sc=scales):
+                return kern(_q, _p[0], _p[1], *_sc, tb, _kv, 1, _w)
+
+            got, got_clean = run(dirty), run(clean)
+            kw = dict(k_scale=pools[2], v_scale=pools[3]) if quant else {}
+            want = ref(qq, pools[0], pools[1], clean, kv, 1, window=w, **kw)
+            torch.cuda.synchronize()
+            ok, err, share, note = _rounding_rule(torch, got, want)
+            same = bool(torch.equal(got, got_clean))
+            print(f"[kernels] {name} {tag} (B={b} S={s} N={n} kvN={kvn} "
+                  f"D={d} window={w} R={r}): max|err| {err:.3e} ({note}; "
+                  f"the worst element at {share:.3f} of its limit); NaN "
+                  f"pages below the band: finite "
+                  f"{bool(torch.isfinite(got).all())}, output unchanged "
+                  f"{same}", flush=True)
+            require(bool(torch.isfinite(got).all()) and same and ok,
+                    f"{name} {tag} disagrees: {err}, {share}, unchanged "
+                    f"{same}")
+            if name in results:
+                continue
+            # what these inputs need: each row's keys in its band
+            es = q.element_size()
+            band = [min(ln, w + s - 1) for ln in lens]
+            keys = sum(min(ln - s + j + 1, w) for ln in lens
+                       for j in range(s))
+            kvb = (d + 4) if quant else d * es
+            nbytes = (2 * b * s * n * d * es + 2 * sum(band) * kvn * kvb
+                      + clean.numel() * 4 + b * 4)
+            bms, by = bound_ms(nbytes, 4.0 * n * d * keys,
+                               dname(torch, dtype))
+            gk = [pools[0][1], pools[1][1]]
+            if quant:
+                gk += [pools[2][1], pools[3][1]]
+            ck, cv = gather_dense(gk[0], gk[1], clean,
+                                  *(gk[2:] if quant else []))
+            if quant:
+                ck, cv = ck.to(dtype), cv.to(dtype)
+            key_pos = torch.arange(ck.shape[2], device=dev)
+            q_pos = (kv.long()[:, None] - s
+                     + torch.arange(s, device=dev)[None])
+            mask = ((key_pos[None, None] <= q_pos[:, :, None])
+                    & (key_pos[None, None] > q_pos[:, :, None] - w))[:, None]
+            qt = q.transpose(1, 2)
+            ck4, cv4 = _gqa(torch, ck, n), _gqa(torch, cv, n)
+            kw_ = dict(k_scale=pools[2], v_scale=pools[3]) if quant else {}
+            results[name] = dict(
+                max_abs_err=err,
+                ms=time_ms(torch, lambda: run(clean)),
+                plain_ms=time_ms(torch, lambda: ref(
+                    qq, pools[0], pools[1], clean, kv, 1, window=w, **kw_)),
+                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, ck4, cv4, attn_mask=mask)),
+                bound_ms=bms, bound_by=by,
+                library=LIBRARY[name] + (" (gather and dequant outside the "
+                                         "timing)" if quant else ""))
+
+
+def check_paged_prefill_window(torch, dev, results, extra):
+    """Forms 8w and 8qw against their plain versions over ring tables: the
+    `mistral_window` path's chunks (256 rows at offset 3840, kv_len 4096,
+    and the last, 128 live rows at offset 4096; Mistral heads, window
+    4096, R 35; timed), window 200 with two sequences at offsets 256 and
+    512, and GQA f32 at window 6, each also over NaN pages below the band
+    (the output must stay finite and unchanged)."""
+    import torch.nn.functional as F
+
+    from simplellminference_tpu_torch.memory.paged_kv import gather_dense
+    from simplellminference_tpu_torch.ops.attention import paged_prefill as pp
+    gen = torch.Generator(device=dev).manual_seed(43)
+    bf, f32 = torch.bfloat16, torch.float32
+    # tag: (sq, offsets, kv_lens, n, kvn, d, ps, window, dtype)
+    cases = {
+        "mistral-7b chunk": (MISTRAL_CHUNK, [3840], [4096], 32, 8, 128, 128,
+                             WINDOW, bf),
+        "mistral-7b last chunk": (MISTRAL_CHUNK, [4096], [4224], 32, 8, 128,
+                                  128, WINDOW, bf),
+        "window 200": (256, [256, 512], [512, 612], 32, 8, 128, 128, 200,
+                       bf),
+        "gqa f32 window 6": (32, [16, 48], [48, 70], 32, 4, 64, 16, 6, f32),
+    }
+    for quant, name in ((False, "paged_flash_prefill_window"),
+                        (True, "paged_flash_prefill_int8kv_window")):
+        kern = getattr(pp, name)
+        for tag, (sq, offs, lens, n, kvn, d, ps, w, dtype) in cases.items():
+            b = len(offs)
+            r = (w + max(sq, 128) - 2) // ps + 2
+            mp = -(-max(o + sq for o in offs) // ps)
+            pools = _ring_pools(torch, gen, dev, b, r, kvn, ps, d, dtype,
+                                quant)
+            scales = pools[2:] if quant else []
+            clean = _ring_tables(torch, dev, b, r, mp)
+            off_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+            kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+            dirty = _poisoned(torch, clean, off_t - w + 1, ps, b * r)
+            q = torch.randn((b, sq, n, d), generator=gen, device=dev,
+                            dtype=dtype)
+
+            def run(tb, _q=q, _p=pools, _kv=kv, _o=off_t, _w=w, _sc=scales):
+                return kern(_q, _p[0], _p[1], *_sc, tb, _kv, _o, 1, _w)
+
+            got, got_clean = run(dirty), run(clean)
+            kw = dict(k_scale=pools[2], v_scale=pools[3]) if quant else {}
+            want = pp.paged_flash_prefill_ref(q, pools[0], pools[1], clean,
+                                              kv, off_t, 1, window=w, **kw)
+            torch.cuda.synchronize()
+            live = [ln - o for o, ln in zip(offs, lens)]
+            ok, err, share, note = _rounding_rule(
+                torch, torch.cat([got[i, :lv].reshape(-1)
+                                  for i, lv in enumerate(live)]),
+                torch.cat([want[i, :lv].reshape(-1)
+                           for i, lv in enumerate(live)]))
+            same = bool(torch.equal(got, got_clean))
+            print(f"[kernels] {name} {tag} (B={b} Sq={sq} N={n} kvN={kvn} "
+                  f"D={d} window={w} R={r}): max|err| {err:.3e} ({note}; "
+                  f"the worst element at {share:.3f} of its limit); NaN "
+                  f"pages below the band: finite "
+                  f"{bool(torch.isfinite(got).all())}, output unchanged "
+                  f"{same}", flush=True)
+            require(bool(torch.isfinite(got).all()) and same and ok,
+                    f"{name} {tag} disagrees: {err}, {share}, unchanged "
+                    f"{same}")
+            if not tag.startswith("mistral"):
+                continue
+            es = q.element_size()
+            keys = sum(min(o + i + 1, ln) - max(0, o + i - w + 1)
+                       for o, ln in zip(offs, lens) for i in range(sq)
+                       if o + i < ln)
+            rows = sum(min(ln, o + sq) - max(0, o - w + 1)
+                       for o, ln in zip(offs, lens))
+            kvb = (d + 4) if quant else d * es
+            nbytes = (2 * b * sq * n * d * es + 2 * rows * kvn * kvb
+                      + clean.numel() * 4 + 2 * b * 4)
+            bms, by = bound_ms(nbytes, 4.0 * n * d * keys,
+                               dname(torch, dtype))
+            gk = [pools[0][1], pools[1][1]]
+            if quant:
+                gk += [pools[2][1], pools[3][1]]
+            ck, cv = gather_dense(gk[0], gk[1], clean,
+                                  *(gk[2:] if quant else []))
+            if quant:
+                ck, cv = ck.to(dtype), cv.to(dtype)
+            key_pos = torch.arange(ck.shape[2], device=dev)
+            q_pos = (off_t.long()[:, None]
+                     + torch.arange(sq, device=dev)[None])
+            mask = ((key_pos[None, None] <= q_pos[:, :, None])
+                    & (key_pos[None, None] > q_pos[:, :, None] - w)
+                    & (key_pos[None, None] < kv.long()[:, None, None]))
+            mask = mask[:, None]
+            qt = q.transpose(1, 2)
+            ck4, cv4 = _gqa(torch, ck, n), _gqa(torch, cv, n)
+            res = dict(
+                max_abs_err=err,
+                ms=time_ms(torch, lambda: run(clean)),
+                plain_ms=time_ms(torch, lambda: pp.paged_flash_prefill_ref(
+                    q, pools[0], pools[1], clean, kv, off_t, 1, window=w,
+                    **kw)),
+                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, ck4, cv4, attn_mask=mask)),
+                bound_ms=bms, bound_by=by,
+                library=LIBRARY[name] + (" (gather and dequant outside the "
+                                         "timing)" if quant else ""))
+            extra.append((name, tag, res))
+            results.setdefault(name, res)
+
+
+def check_fused_qkv_kv_layer(torch, dev, results):
+    """Form 6k against its plain version: the `mistral_window` path's
+    decode call (4 rows, Mistral's H 4096 and 32/8 heads, ring pools of R
+    35, weights of layer 1 writing pool layer 0), and GQA f32 with an
+    unmapped row (its write goes to the trash page)."""
+    from simplellminference_tpu_torch.ops import ref_ops
+    from simplellminference_tpu_torch.ops.qkv_fused import (
+        fused_qkv_append_kv_layer, fused_qkv_append_ref)
+    gen = torch.Generator(device=dev).manual_seed(44)
+    bf, f32 = torch.bfloat16, torch.float32
+    # tag: (b, h, n, kvn, d, dtype, positions)
+    cases = {"mistral-7b decode": (4, 4096, 32, 8, 128, bf,
+                                   [4400, 4480, 4500, 4542]),
+             "tinyllama-gqa f32": (5, 2048, 32, 4, 64, f32,
+                                   [3, 150, 4000, 300, 1000])}
+    layer, kv_layer = 1, 0
+    for tag, (b, h, n, kvn, d, xdt, plist) in cases.items():
+        ps = 128
+        r = MISTRAL_RING
+        mp = -(-(max(plist) + 1) // ps)
+        nq = (n + 2 * kvn) * d
+        wq, ws = _qweight(torch, gen, dev, (2, h, nq), 1)
+        nw = (1.0 + 0.1 * torch.randn((2, h), generator=gen, device=dev)
+              ).to(xdt)
+        x = torch.randn((b, h), generator=gen, device=dev).to(xdt)
+        pk, pv = _pools(torch, gen, dev, 2, b * r, kvn, ps, d, xdt)
+        tables = _ring_tables(torch, dev, b, r, mp)
+        if tag.startswith("tinyllama"):
+            tables[2] = -1              # a dead row: its write goes to trash
+        pos = torch.tensor(plist, dtype=torch.int32, device=dev)
+        sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
+        a, rr = (pk.clone(), pv.clone()), (pk.clone(), pv.clone())
+        qa, *_ = fused_qkv_append_kv_layer(x, nw, wq, ws, sin, cos, *a,
+                                           layer, kv_layer, pos, tables,
+                                           n_heads=n, kv_heads=kvn)
+        qr, *_ = fused_qkv_append_ref(x, nw, wq, ws, sin, cos, *rr, layer,
+                                      pos, n_heads=n, kv_heads=kvn,
+                                      tables=tables, kv_layer=kv_layer)
+        torch.cuda.synchronize()
+        page = tables.long()[torch.arange(b, device=dev), pos.long() // ps]
+        page = torch.where(page >= 0, page, pk.shape[1] - 1)
+        written = torch.zeros(pk.shape, dtype=torch.bool, device=dev)
+        written[kv_layer, page, :, pos.long() % ps] = True
+        err = max_err(qa, qr)
+        kv_err = max(max_err(ta[written], tr[written])
+                     for ta, tr in zip(a, rr))
+        untouched = all(torch.equal(ta[~written], tr[~written])
+                        for ta, tr in zip(a, rr))
+        if xdt == f32:
+            lim_q = F32_REL * float(qr.abs().max())
+            lim_kv = F32_REL * max(float(tr[written].abs().max())
+                                   for tr in rr)
+        else:
+            lim_q = TOL["bfloat16"] * float(qr.float().std())
+            lim_kv = TOL["bfloat16"] * max(float(tr[written].float().std())
+                                           for tr in rr)
+        print(f"[kernels] fused_qkv_append_kv_layer {tag} (layer {layer}, "
+              f"pool layer {kv_layer}): q max|err| {err:.3e} (tol "
+              f"{lim_q:.3e}); k/v rows {kv_err:.3e} (tol {lim_kv:.3e}); "
+              f"other pool entries (layer {layer} included) equal: "
+              f"{untouched}", flush=True)
+        require(bool(torch.isfinite(qa).all()) and err <= lim_q
+                and kv_err <= lim_kv and untouched,
+                f"fused_qkv_append_kv_layer {tag} disagrees: {err}, "
+                f"{kv_err}, {untouched}")
+        if "fused_qkv_append_kv_layer" in results:
+            continue
+        es, pes = x.element_size(), pk.element_size()
+        nbytes = (h * nq + nq * 4 + b * h * es + h * nw.element_size()
+                  + 2 * b * (d // 2) * 4 + b * n * d * es
+                  + 2 * b * kvn * d * pes + tables.numel() * 4 + b * 4)
+        bms, by = bound_ms(nbytes, 2.0 * b * h * nq, dname(torch, xdt))
+        qt, st = _int8pack(torch, wq[layer], ws[layer], xdt)
+        results["fused_qkv_append_kv_layer"] = dict(
+            max_abs_err=max(err, kv_err),
+            ms=time_ms(torch, lambda: fused_qkv_append_kv_layer(
+                x, nw, wq, ws, sin, cos, *a, layer, kv_layer, pos, tables,
+                n_heads=n, kv_heads=kvn)),
+            plain_ms=time_ms(torch, lambda: fused_qkv_append_ref(
+                x, nw, wq, ws, sin, cos, *rr, layer, pos, n_heads=n,
+                kv_heads=kvn, tables=tables, kv_layer=kv_layer)),
+            library_ms=time_ms(torch, lambda: torch._weight_int8pack_mm(
+                x, qt, st)),
+            bound_ms=bms, bound_by=by)
+
+
+def check_fused_wo_ffn(torch, dev, results, extra):
+    """Kernel 16 against its plain version (the wo product rounded, the
+    residual, the plain FFN) at Llama-2-7B and Mistral-7B widths, m = 8
+    (timed), TinyLlama width in f32 (m 3) and bf16 (m 40), and a small
+    grid; a grid past what the card holds at once must raise."""
+    import torch.nn.functional as F
+
+    from simplellminference_tpu_torch.ops.ffn_fused import (
+        _fused_wo_ffn_launch, fused_wo_ffn, fused_wo_ffn_ref, wo_ffn_max_grid)
+    gen = torch.Generator(device=dev).manual_seed(45)
+    bf, f32 = torch.bfloat16, torch.float32
+    # tag: (m, N*D, H, I, dtype, grid)
+    cases = {"llama2-7b": (8, 4096, 4096, 11008, bf, None),
+             "mistral-7b": (8, 4096, 4096, 14336, bf, None),
+             "tinyllama f32 m3": (3, 2048, 2048, 5632, f32, None),
+             "tinyllama m40 grid 5": (40, 2048, 2048, 5632, bf, 5)}
+    for tag, (m, nd, h, inter, xdt, grid) in cases.items():
+        layer = 1
+        wq, ws = _qweight(torch, gen, dev, (2, nd, h), 1)
+        q1, s1 = _qweight(torch, gen, dev, (2, h, 2 * inter), 1)
+        q2, s2 = _qweight(torch, gen, dev, (2, inter, h), 1)
+        nw = (1.0 + 0.1 * torch.randn((2, h), generator=gen, device=dev)
+              ).to(xdt)
+        attn = torch.randn((m, nd), generator=gen, device=dev).to(xdt)
+        x = torch.randn((m, h), generator=gen, device=dev).to(xdt)
+        args = (attn, x, wq, ws, nw, q1, s1, q2, s2, layer)
+        most = wo_ffn_max_grid(xdt)
+        got = (fused_wo_ffn(*args) if grid is None
+               else _fused_wo_ffn_launch(*args, 1e-5, grid))
+        want = fused_wo_ffn_ref(*args)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        lim = (F32_REL * float(want.abs().max()) if xdt == f32
+               else TOL["bfloat16"] * float(want.float().std()))
+        try:
+            _fused_wo_ffn_launch(*args, 1e-5, most + 1)
+            refused = False
+        except RuntimeError:
+            refused = True
+        print(f"[kernels] fused_wo_ffn {tag} (m={m} N*D={nd} H={h} I={inter}"
+              f", grid {grid or most} of {most}): max|err| {err:.3e} (tol "
+              f"{lim:.3e}); a grid of {most + 1} refused: {refused}",
+              flush=True)
+        require(bool(torch.isfinite(got).all()) and err <= lim and refused,
+                f"fused_wo_ffn {tag} disagrees: {err}, refused {refused}")
+        if m != 8:
+            continue
+        es = x.element_size()
+        wbytes = nd * h + 3 * h * inter
+        nbytes = (wbytes + (2 * h + 2 * inter) * 4 + m * nd * es
+                  + 2 * m * h * es + h * nw.element_size())
+        bms, by = bound_ms(nbytes, 2.0 * m * wbytes, dname(torch, xdt))
+        pk0 = _int8pack(torch, wq[layer], ws[layer], xdt)
+        pk1 = _int8pack(torch, q1[layer], s1[layer], xdt)
+        pk2 = _int8pack(torch, q2[layer], s2[layer], xdt)
+        nwl = nw[layer]
+
+        def library():
+            xr = x + torch._weight_int8pack_mm(attn, *pk0)
+            xf = xr.float()
+            xn = (xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-5)
+                  * nwl.float()).to(xdt)
+            gu = torch._weight_int8pack_mm(xn, *pk1)
+            hh = F.silu(gu[:, :inter]) * gu[:, inter:]
+            return xr + torch._weight_int8pack_mm(hh, *pk2)
+
+        res = dict(max_abs_err=err, ms=time_ms(torch, lambda: fused_wo_ffn(
+                       *args)),
+                   plain_ms=time_ms(torch, lambda: fused_wo_ffn_ref(*args)),
+                   library_ms=time_ms(torch, library),
+                   bound_ms=bms, bound_by=by)
+        extra.append(("fused_wo_ffn", tag, res))
+        results.setdefault("fused_wo_ffn", res)
+
+
+def check_flash_decode_dyn(torch, dev, results, extra):
+    """Kernel 17 against its plain version at the `dense` path's arena
+    (Llama-2-7B: 8 rows, 32 kv heads, Smax 1024, D 128, bf16, kv_len
+    ~150; timed at bk 256, the TPU's default, and checked at bk 128 too,
+    equal), GQA in f32 with kv_len 0, 1, a tile edge and Smax, and a 4-D
+    cache with more rows than sequences."""
+    import torch.nn.functional as F
+
+    from simplellminference_tpu_torch.ops.attention.flash_decode_dyn import (
+        flash_decode_dyn, flash_decode_dyn_ref)
+    gen = torch.Generator(device=dev).manual_seed(46)
+    bf, f32 = torch.bfloat16, torch.float32
+    # tag: (layers, B, arena rows, N, kvN, Smax, dtype, kv_lens)
+    cases = {"llama2-7b dense arena": (2, 8, 8, 32, 32, 1024, bf,
+                                       [145 + 2 * i for i in range(8)]),
+             "gqa f32 edges": (2, 6, 6, 32, 8, 512, f32,
+                               [0, 1, 31, 32, 300, 512]),
+             "4-d, rows < arena": (1, 3, 5, 32, 8, 256, bf, [10, 0, 256])}
+    for tag, (nl, b, rows, n, kvn, smax, dtype, lens) in cases.items():
+        d = 128
+        ck, cv = _arena(torch, gen, dev, nl, rows, kvn, smax, d, dtype)
+        q = torch.randn((b, n, d), generator=gen, device=dev, dtype=dtype)
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+        if nl == 1:
+            ck, cv, layer = ck[0], cv[0], None
+        else:
+            layer = nl - 1
+        got = flash_decode_dyn(q, ck, cv, kv, bk=256, layer=layer)
+        got128 = flash_decode_dyn(q, ck, cv, kv, bk=128, layer=layer)
+        want = flash_decode_dyn_ref(q, ck, cv, kv, layer=layer)
+        torch.cuda.synchronize()
+        ok, err, share, note = _rounding_rule(torch, got, want)
+        zero = all(bool((got[i] == 0).all()) for i in range(b)
+                   if lens[i] == 0)
+        same = bool(torch.equal(got, got128))
+        print(f"[kernels] flash_decode_dyn {tag} (B={b} N={n} kvN={kvn} "
+              f"D={d} Smax={smax}): max|err| {err:.3e} ({note}; the worst "
+              f"element at {share:.3f} of its limit); kv_len 0 rows zero: "
+              f"{zero}; bk 128 == bk 256: {same}", flush=True)
+        require(bool(torch.isfinite(got).all()) and ok and zero and same,
+                f"flash_decode_dyn {tag} disagrees: {err}, {share}, zero "
+                f"rows {zero}, bk-equal {same}")
+        if "flash_decode_dyn" in results:
+            continue
+        live = sum(min(ln, smax) for ln in lens)
+        es = q.element_size()
+        nbytes = 2 * b * n * d * es + 2 * live * kvn * d * es + b * 4
+        bms, by = bound_ms(nbytes, 4.0 * n * d * live, dname(torch, dtype))
+        top = max(lens)
+        k4, v4 = ck[layer, :b, :, :top], cv[layer, :b, :, :top]
+        mask = (torch.arange(top, device=dev)[None, None, None, :]
+                < kv.long()[:, None, None, None])
+        q4 = q[:, :, None]
+        k4, v4 = _gqa(torch, k4, n), _gqa(torch, v4, n)
+        results["flash_decode_dyn"] = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: flash_decode_dyn(q, ck, cv, kv,
+                                                       layer=layer)),
+            plain_ms=time_ms(torch, lambda: flash_decode_dyn_ref(
+                q, ck, cv, kv, layer=layer)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask)),
+            bound_ms=bms, bound_by=by)
+
+
 LIBRARY = {"paged_append_decode": "index_put_ x2",
            "paged_append_prefill": "index_copy_ x2",
            "flash_prefill": "scaled_dot_product_attention, causal",
@@ -1901,12 +2516,40 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
            "quantized_matmul_int4_zs": "torch._weight_int4pack_mm (group "
                                        "128, zero points)",
            "quantized_matmul_w8a8": "torch quantize ops + torch._int_mm + "
-                                    "scales"}
+                                    "scales",
+           "flash_prefill_window": "scaled_dot_product_attention, window "
+                                   "mask",
+           "paged_flash_decode_window": "scaled_dot_product_attention on "
+                                        "gathered ring K/V, window mask",
+           "paged_flash_decode_int8kv_window": "scaled_dot_product_attention "
+                                               "on gathered, dequantized "
+                                               "ring K/V, window mask",
+           "paged_flash_verify_window": "scaled_dot_product_attention on "
+                                        "gathered ring K/V, verify and "
+                                        "window mask",
+           "paged_flash_verify_int8kv_window": "scaled_dot_product_attention "
+                                               "on gathered, dequantized "
+                                               "ring K/V, verify and window "
+                                               "mask",
+           "paged_flash_prefill_window": "scaled_dot_product_attention on "
+                                         "gathered ring K/V, offset-causal "
+                                         "window mask",
+           "paged_flash_prefill_int8kv_window": "scaled_dot_product_attention"
+                                                " on gathered, dequantized "
+                                                "ring K/V, offset-causal "
+                                                "window mask",
+           "fused_qkv_append_kv_layer": "torch._weight_int8pack_mm of the "
+                                        "qkv product alone",
+           "fused_wo_ffn": "torch._weight_int8pack_mm x3 + eager rmsnorm "
+                           "and SwiGLU",
+           "flash_decode_dyn": "scaled_dot_product_attention on the arena "
+                               "slice, length mask"}
 
 
 def phase_kernels(torch, results):
     dev = torch.device("cuda")
     extra: list = []
+    reset_counts()
     check_append_decode(torch, dev, results)
     check_append_prefill(torch, dev, results)
     check_flash_prefill(torch, dev, results)
@@ -1929,7 +2572,17 @@ def phase_kernels(torch, results):
     check_quantized_matmul_int4(torch, dev, results, extra)
     check_quantized_matmul_w8a8(torch, dev, results, extra)
     check_quantizers(torch, dev)
+    check_flash_prefill_window(torch, dev, results, extra)
+    check_paged_decode_window(torch, dev, results, extra)
+    check_paged_prefill_window(torch, dev, results, extra)
+    check_fused_qkv_kv_layer(torch, dev, results)
+    check_fused_wo_ffn(torch, dev, results, extra)
+    check_flash_decode_dyn(torch, dev, results, extra)
     torch.cuda.empty_cache()
+    # every launch of this phase (the checks, their timing): kernels 16
+    # and 17 run on no path, as in the JAX package, so these are theirs
+    phase3_launches.update({name: kern.launches
+                            for name, (kern, _ref) in _wrappers().items()})
     rows = [(name, "main path shape", r) for name, r in results.items()]
     rows += [(name, tag, r) for name, tag, r in extra]
     for name, tag, r in rows:
@@ -1946,6 +2599,8 @@ def _wrappers():
     from simplellminference_tpu_torch.ops import paged_append as pa
     from simplellminference_tpu_torch.ops import qkv_fused as qf
     from simplellminference_tpu_torch.ops.attention import flash_decode as fd
+    from simplellminference_tpu_torch.ops.attention import (
+        flash_decode_dyn as fdd)
     from simplellminference_tpu_torch.ops.attention import flash_prefill as fp
     from simplellminference_tpu_torch.ops.attention import paged_decode as pd
     from simplellminference_tpu_torch.ops.attention import paged_prefill as pp
@@ -1988,7 +2643,27 @@ def _wrappers():
             "quantized_matmul_int4_zs": (mm.quantized_matmul_int4_zs,
                                          mm.quantized_matmul_int4_ref),
             "quantized_matmul_w8a8": (mm.quantized_matmul_w8a8,
-                                      mm.quantized_matmul_w8a8_ref)}
+                                      mm.quantized_matmul_w8a8_ref),
+            "flash_prefill_window": (fp.flash_prefill_window,
+                                     fp.flash_prefill_ref),
+            "paged_flash_decode_window": (pd.paged_flash_decode_window,
+                                          pd.paged_flash_decode_ref),
+            "paged_flash_decode_int8kv_window": (
+                pd.paged_flash_decode_int8kv_window, pd.paged_flash_decode_ref),
+            "paged_flash_verify_window": (pd.paged_flash_verify_window,
+                                          pd.paged_flash_verify_ref),
+            "paged_flash_verify_int8kv_window": (
+                pd.paged_flash_verify_int8kv_window, pd.paged_flash_verify_ref),
+            "paged_flash_prefill_window": (pp.paged_flash_prefill_window,
+                                           pp.paged_flash_prefill_ref),
+            "paged_flash_prefill_int8kv_window": (
+                pp.paged_flash_prefill_int8kv_window,
+                pp.paged_flash_prefill_ref),
+            "fused_qkv_append_kv_layer": (qf.fused_qkv_append_kv_layer,
+                                          qf.fused_qkv_append_ref),
+            "fused_wo_ffn": (ff.fused_wo_ffn, ff.fused_wo_ffn_ref),
+            "flash_decode_dyn": (fdd.flash_decode_dyn,
+                                 fdd.flash_decode_dyn_ref)}
 
 
 def reset_counts():
@@ -2142,13 +2817,28 @@ def kv_bytes(layers: int, tokens: int, kvn: int, d: int,
     return 2 * layers * tokens * kvn * per_head
 
 
+def windowed(want: dict) -> dict:
+    """A path's launches under a sliding-window model in the grouped
+    engine: each attention kernel's window form, 6k for the fused qkv."""
+    ren = {"flash_prefill": "flash_prefill_window",
+           "paged_flash_prefill": "paged_flash_prefill_window",
+           "paged_flash_decode": "paged_flash_decode_window",
+           "fused_qkv_append": "fused_qkv_append_kv_layer"}
+    out = {name: 0 for name in KERNELS}
+    for name, n in want.items():
+        out[ren.get(name, name)] += n
+    return out
+
+
 def serve_path(torch, path: str, cfg, params, launches: dict, int8: bool,
                kv_dtype: str = "bf16", dev: str = "cuda",
-               int4: bool = False):
+               int4: bool = False) -> float:
     """Drive one weight path of the Engine (bench.py's configuration,
     prefix cache off, KV in ``kv_dtype``): warm-up, the measured run with
     every launch count reset before it and read after it, the decode rate,
-    and one graph-replayed decode step beside its bytes floor."""
+    and one graph-replayed decode step beside its bytes floor. A
+    sliding-window model runs grouped (its kernels' window forms). Returns
+    the decode rate."""
     import numpy as np
 
     from simplellminference_tpu_torch.core.config import (EngineConfig,
@@ -2196,6 +2886,8 @@ def serve_path(torch, path: str, cfg, params, launches: dict, int8: bool,
     want = path_launches(int8, layers,
                          [("flash_prefill", batch * prompt_len)], steps,
                          int8kv=kv_dtype == "int8", int4=int4)
+    if eng._grouped:
+        want = windowed(want)
     for name, n in want.items():
         require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
                 f"path implies {n}")
@@ -2229,6 +2921,8 @@ def serve_path(torch, path: str, cfg, params, launches: dict, int8: bool,
                           device=dev).reshape(batch, mp)
     tok = torch.ones((batch, 1), dtype=torch.int32, device=dev)
     pos = torch.full((batch, 1), ctx - 1, dtype=torch.int32, device=dev)
+    if eng._grouped:
+        tables = (tables, eng._ring_table(mp))
     step_ms = time_ms(torch, lambda: llama.forward_paged(
         cfg, params, tok, pos, eng.cache, tables, pos[:, 0] + 1,
         prefill=False), iters=5)
@@ -2243,6 +2937,7 @@ def serve_path(torch, path: str, cfg, params, launches: dict, int8: bool,
           f"{kvbytes / 1e9:.3f} GB KV); device idle share of the engine "
           f"step {max(0.0, 1 - step_ms / engine_step_ms):.3f}", flush=True)
     del eng
+    return decode_tps
 
 
 def prefix_waves(rng, vocab: int, system_len: int, suffix_len: int,
@@ -2803,6 +3498,113 @@ def serve_draft(torch, path: str, cfg, params, launches: dict,
     del eng, plain_eng, dparams
 
 
+def serve_mistral_window(torch, path: str, cfg, params, launches: dict,
+                         dev: str = "cuda"):
+    """Sliding-window attention through the Engine at Mistral-7B width
+    (the grouped engine: every layer on the ring pools, R = 35 pages of
+    128 tokens a slot at window 4096 and chunk 256): 4 greedy requests of
+    4224 random tokens, chunked prefill of 256 rows (the prompt crosses
+    the window), 320 new tokens in bursts of 16, so decode reaches kv_len
+    4544 past the ring's 35 x 128 = 4480 tokens and the ring wraps. Exact
+    launch counts with the counts reset around the run; the ring, its
+    pool bytes and the highest kv_len reached; the decode's own rate,
+    engine step, graph-replayed device step and idle share."""
+    import numpy as np
+
+    from simplellminference_tpu_torch.core.config import (EngineConfig,
+                                                          KVCacheConfig,
+                                                          SamplingParams)
+    from simplellminference_tpu_torch.engine import Engine
+    from simplellminference_tpu_torch.models import llama
+
+    batch, prompt_len, new, burst, ps = 4, 4224, 320, 16, 128
+    cap = prompt_len + new + 2 * burst + ps
+    mp = -(-cap // ps)
+    ecfg = EngineConfig(
+        max_batch_size=batch, prefill_chunk=MISTRAL_CHUNK,
+        kv=KVCacheConfig(page_size=ps, num_pages=batch * mp + 8,
+                         max_pages_per_seq=mp, kv_dtype="bf16"))
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, cfg.vocab_size, prompt_len).tolist()
+               for _ in range(batch)]
+    eng = Engine(cfg, params, ecfg, decode_burst=burst, device=dev)
+    require(eng._grouped and eng._ring == MISTRAL_RING
+            and eng.cache.k.shape[0] == 0
+            and eng.cache.k_w.shape[0] == cfg.num_layers,
+            f"[{path}] grouped {eng._grouped}, ring {eng._ring}, pools "
+            f"{tuple(eng.cache.k.shape)} / {tuple(eng.cache.k_w.shape)}")
+    ring_bytes = 2 * eng.cache.k_w.numel() * eng.cache.k_w.element_size()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.add_request(prompt_ids=p, sampling=SamplingParams(
+        max_new_tokens=new)) for p in prompts]
+    # eng.run(), stepped here to clock the decode apart from admission:
+    # (prefills before, bursts dispatched before, time after) per step
+    marks = []
+    while eng.has_work:
+        before = (eng.metrics.prefills, eng.metrics.decode_bursts)
+        eng.step()
+        marks.append((*before, time.perf_counter()))
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    wall = t_end - t0
+    got = read_counts(path)
+    for r in reqs:
+        require(r.state.value == "finished" and len(r.output_ids) == new
+                and all(0 <= t < cfg.vocab_size for t in r.output_ids),
+                f"[{path}] request {r.req_id}: {r.state} with "
+                f"{len(r.output_ids)} tokens")
+    steps = eng.metrics.decode_bursts * burst
+    top_kv = prompt_len + steps
+    require(top_kv > eng._ring * ps, f"[{path}] kv_len reached {top_kv}, "
+            f"not past the ring's {eng._ring * ps} tokens")
+    chunks = -(-prompt_len // MISTRAL_CHUNK)
+    want = windowed(path_launches(
+        True, cfg.num_layers,
+        [("paged_flash_prefill", MISTRAL_CHUNK)] * (batch * chunks), steps))
+    for name, n in want.items():
+        require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
+                f"path implies {n}")
+    print(f"[engine:{path}] Mistral-7B width (32 layers, window {WINDOW}): "
+          f"{batch} requests x {prompt_len} prompt tokens ({chunks} chunks "
+          f"of {MISTRAL_CHUNK} each) + {new} tokens in {wall:.2f} s; ring "
+          f"R = {eng._ring} pages of {ps} ({eng._ring * ps} tokens) a slot, "
+          f"ring pools {ring_bytes / 1e9:.3f} GB for {batch} slots (the "
+          f"full group: 0 layers); highest kv_len reached {top_kv} > "
+          f"{eng._ring * ps}: the ring wrapped", flush=True)
+    print(f"[engine:{path}] launches {json.dumps(got)}", flush=True)
+
+    # The decode alone: from the end of the first step that began with
+    # every prompt prefilled (it synced the burst before its own, so the
+    # bursts from its own on run after the clock starts) to the last
+    # burst's end; beside it one graph-replayed decode step at the mean
+    # kv_len of those bursts over the engine's ring pools.
+    first = next(i for i, (pf, _b, _t) in enumerate(marks) if pf == batch)
+    _pf, k0, t_dec = marks[first]
+    dec_steps = (eng.metrics.decode_bursts - k0) * burst
+    require(dec_steps > 0, f"[{path}] no decode burst after admission")
+    engine_step_ms = (t_end - t_dec) * 1e3 / dec_steps
+    ctx = prompt_len + burst * (k0 + eng.metrics.decode_bursts) // 2
+    tables = torch.arange(batch * mp, dtype=torch.int32,
+                          device=dev).reshape(batch, mp)
+    tok = torch.ones((batch, 1), dtype=torch.int32, device=dev)
+    pos = torch.full((batch, 1), ctx - 1, dtype=torch.int32, device=dev)
+    tables = (tables, eng._ring_table(mp))
+    step_ms = time_ms(torch, lambda: llama.forward_paged(
+        cfg, params, tok, pos, eng.cache, tables, pos[:, 0] + 1,
+        prefill=False), iters=5)
+    idle = max(0.0, 1 - step_ms / engine_step_ms)
+    print(f"[engine:{path}] long-run decode: {dec_steps} steps of {batch} "
+          f"rows at kv_len {prompt_len + burst * k0}-{top_kv} in "
+          f"{t_end - t_dec:.3f} s: {batch * dec_steps / (t_end - t_dec)} "
+          f"tok/s, engine step {engine_step_ms:.3f} ms; device step "
+          f"(graph replay at kv_len {ctx}) {step_ms:.3f} ms; device idle "
+          f"share of the engine step {idle:.3f}", flush=True)
+    del eng
+    return got
+
+
 # path: (weights, KV dtype, prefix-cache traffic)
 PATH_SETUP = {"int8": ("int8", "bf16", False), "bf16": ("bf16", "bf16", False),
               "prefix": ("int8", "bf16", True),
@@ -2815,11 +3617,13 @@ PATH_SETUP = {"int8": ("int8", "bf16", False), "bf16": ("bf16", "bf16", False),
               "draft": ("bf16", "bf16", False),
               "int4": ("int4", "bf16", False),
               "int4_dense": ("int4", "bf16", False),
-              "w8a8": ("int8", "bf16", True)}
+              "w8a8": ("int8", "bf16", True),
+              "mistral_window": ("int8", "bf16", False)}
 # earlier paths cut in depth to keep the run within half its time limit
 # (their launch counts follow the cut: every count is per layer); the
 # paths of the newest slice keep the model's 32 layers
-PATH_LAYERS = {"spec": 16, "spec_int8kv": 16, "draft": 16}
+PATH_LAYERS = {"spec": 16, "spec_int8kv": 16, "draft": 16,
+               "int4_dense": 16}
 
 
 def phase_engine(torch, launches: dict):
@@ -2831,6 +3635,7 @@ def phase_engine(torch, launches: dict):
     cfg = ModelConfig.llama2_7b(dtype="bfloat16")
     draws = {"int8": int8_params, "int4": int4_params}
     ttft = {}
+    rates = {}
     seconds = {}
     params, drawn = None, None
     full = cfg
@@ -2839,6 +3644,10 @@ def phase_engine(torch, launches: dict):
         int8 = weights == "int8"
         cfg = dataclasses.replace(full, num_layers=PATH_LAYERS.get(
             path, full.num_layers))
+        if path == "mistral_window":
+            cfg = ModelConfig.mistral_7b(sliding_window=WINDOW,
+                                         dtype="bfloat16")
+            drawn = None
         t0 = time.perf_counter()
         if (weights, cfg.num_layers) != drawn or weights != "int4":
             del params
@@ -2848,8 +3657,8 @@ def phase_engine(torch, launches: dict):
                       else llama.init_params(cfg, seed=0, device="cuda"))
             drawn = (weights, cfg.num_layers)
         torch.cuda.synchronize()
-        print(f"[engine:{path}] Llama-2-7B width, {cfg.num_layers} layers, "
-              f"{weights} random weights, {kv_dtype} KV, in "
+        print(f"[engine:{path}] {cfg.model_type} width, {cfg.num_layers} "
+              f"layers, {weights} random weights, {kv_dtype} KV, in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         if path == "w8a8":
             # the server CLI's --act-quant: W8A8 prefill, the prefix traffic
@@ -2871,9 +3680,22 @@ def phase_engine(torch, launches: dict):
         elif prefix:
             ttft[path] = serve_prefix(torch, path, cfg, params, launches,
                                       int8, kv_dtype)
+        elif path == "mistral_window":
+            # the long run, then bench.py's shape (8 x 128-token prompts,
+            # 32 new tokens: a whole-prompt dispatch, R 33) for the rate;
+            # the path's launches are both runs'
+            long_run = serve_mistral_window(torch, path, cfg, params,
+                                            launches)
+            rates[path] = serve_path(torch, path, cfg, params, launches,
+                                     int8, kv_dtype)
+            launches[path] = {k: n + long_run[k]
+                              for k, n in launches[path].items()}
+            print(f"[engine:{path}] decode {rates[path]} tok/s at bench.py's "
+                  f"shape beside the int8 path's {rates['int8']} (Llama-2-7B"
+                  f", same call)", flush=True)
         else:
-            serve_path(torch, path, cfg, params, launches, int8, kv_dtype,
-                       int4=weights == "int4")
+            rates[path] = serve_path(torch, path, cfg, params, launches,
+                                     int8, kv_dtype, int4=weights == "int4")
         if path == "int8kv":
             long_context_steps(torch, cfg, params)
         seconds[path] = round(time.perf_counter() - t0, 1)
@@ -3434,6 +4256,112 @@ def awq_fetcher(cfg, seed: int):
                                version="gemm")
 
 
+def _window_trace(torch, cfg, params, prompt, steps, device):
+    """Greedy chunked prefill (256-row chunks through the ring) + decode
+    of one request through forward_paged over the grouped engine's pools
+    (every layer sliding: a ring of R pages, no full group); returns
+    (tokens [steps + 1], logits [steps + 1, V]) on the host."""
+    from simplellminference_tpu_torch.memory.paged_kv import PagedKVCache
+    from simplellminference_tpu_torch.models import llama
+
+    ps, r, ln = 128, MISTRAL_RING, len(prompt)
+    mp = -(-(ln + steps + 1) // ps)
+    cache = PagedKVCache.create(0, 1, cfg.num_kv_heads, ps, cfg.head_dim,
+                                torch.float32, device=device).with_windowed(
+                                    cfg.num_layers, r)
+    tables = (torch.full((1, mp), -1, dtype=torch.int32, device=device),
+              (torch.arange(mp, device=device) % r).to(torch.int32)[None])
+    ids = torch.tensor(prompt, dtype=torch.int32)
+    for off in range(0, ln, MISTRAL_CHUNK):
+        chunk = torch.zeros((1, MISTRAL_CHUNK), dtype=torch.int32)
+        part = ids[off:off + MISTRAL_CHUNK]
+        chunk[0, :len(part)] = part
+        pos = off + torch.arange(MISTRAL_CHUNK, dtype=torch.int32,
+                                 device=device)[None]
+        kv = torch.tensor([min(ln, off + MISTRAL_CHUNK)], dtype=torch.int32,
+                          device=device)
+        logits, cache = llama.forward_paged(
+            cfg, params, chunk.to(device), pos, cache, tables, kv,
+            prefill=True, last_token_only=True,
+            chunk_offset=torch.tensor([off], dtype=torch.int32,
+                                      device=device))
+    outs = [logits[0, -1].cpu()]
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+    toks = [int(tok[0])]
+    pos = torch.tensor([ln], dtype=torch.int32, device=device)
+    for _ in range(steps):
+        logits, cache = llama.forward_paged(cfg, params, tok[:, None],
+                                            pos[:, None], cache, tables,
+                                            pos + 1, prefill=False)
+        outs.append(logits[0, 0].cpu())
+        tok = logits[:, 0].argmax(-1).to(torch.int32)
+        toks.append(int(tok[0]))
+        pos = pos + 1
+    return toks, torch.stack(outs, 0)
+
+
+def window_card_vs_cpu(torch, launches):
+    """Sliding windows card vs CPU at Mistral-7B width (2 layers, window
+    4096, f32, TF32 off): one 4224-token prompt, chunked prefill through
+    the ring (R 35), 320 new tokens (kv_len 4543, past the ring's 4480
+    tokens): logits of every step within LOGIT_TOL, greedy tokens equal
+    (or parting only where the CPU's top-2 margin is below it); and the
+    card's grouped Engine (prefill_chunk 256) serving the same prompt to
+    the CPU's tokens by the same rule."""
+    import numpy as np
+
+    from simplellminference_tpu_torch.core.config import (EngineConfig,
+                                                          KVCacheConfig,
+                                                          ModelConfig,
+                                                          SamplingParams)
+    from simplellminference_tpu_torch.engine import Engine
+    from simplellminference_tpu_torch.models import llama
+
+    tag = "mistral-window"
+    cfg = ModelConfig.mistral_7b(num_layers=2, sliding_window=WINDOW,
+                                 dtype="float32")
+    # one draw, on the card (a numpy draw of these 0.7 G values took
+    # 14.9 s of the host), copied to the host byte for byte
+    t0 = time.perf_counter()
+    p_gpu = llama.init_params(cfg, seed=11, device="cuda")
+    p_cpu = _to_device(p_gpu, "cpu")
+    rng = np.random.default_rng(11)
+    prompt, new = rng.integers(1, cfg.vocab_size, 4224).tolist(), 320
+    t1 = time.perf_counter()
+    tok_c, lg_c = _window_trace(torch, cfg, p_cpu, prompt, new - 1, "cpu")
+    t2 = time.perf_counter()
+    tok_g, lg_g = _window_trace(torch, cfg, p_gpu, prompt, new - 1, "cuda")
+    err = max(max_err(lg_g[t], lg_c[t]) for t in range(new))
+    part = next((t for t in range(new) if tok_g[t] != tok_c[t]), None)
+    if part is not None:
+        # the logits after a parted token follow another context
+        err = max(max_err(lg_g[t], lg_c[t]) for t in range(part + 1))
+    require(err <= LOGIT_TOL, f"[{tag}] logits differ by {err:.3e}")
+    _first_divergence(torch, tag, "greedy traces", tok_g, tok_c,
+                      lg_c[:, None], 0)
+    # the same prompt through the card's grouped Engine
+    ecfg = EngineConfig(max_batch_size=1, prefill_chunk=MISTRAL_CHUNK,
+                        kv=KVCacheConfig(page_size=128, num_pages=40,
+                                         max_pages_per_seq=38,
+                                         kv_dtype="f32"))
+    eng = Engine(cfg, p_gpu, ecfg, decode_burst=16, device="cuda")
+    require(eng._grouped and eng._ring == MISTRAL_RING,
+            f"[{tag}] engine grouped {eng._grouped}, ring {eng._ring}")
+    out = eng.generate([prompt], SamplingParams(max_new_tokens=new))[0]
+    require(len(out) == new, f"[{tag}] engine gave {len(out)} tokens")
+    _first_divergence(torch, tag, "card engine and CPU trace", out, tok_c,
+                      lg_c[:, None], 0)
+    print(f"[cpu:{tag}] Mistral-7B width, 2 layers, window {WINDOW}, f32, "
+          f"TF32 off, grouped pools (R {MISTRAL_RING}): {len(prompt)}-token "
+          f"prompt in {MISTRAL_CHUNK}-row chunks + {new} tokens (kv_len "
+          f"{len(prompt) + new - 1} > {MISTRAL_RING * 128}); CPU trace "
+          f"{t2 - t1:.1f} s (weights drawn in {t1 - t0:.1f} s); logits "
+          f"max|card - cpu| {err:.3e} (tol {LOGIT_TOL}); greedy tokens "
+          f"equal: trace {tok_g == tok_c}, card engine {out == tok_c}",
+          flush=True)
+    del p_gpu, p_cpu, eng
+
+
 def phase_cpu(torch, launches: dict):
     import dataclasses
 
@@ -3441,7 +4369,7 @@ def phase_cpu(torch, launches: dict):
 
     from simplellminference_tpu_torch.core.config import (ModelConfig,
                                                           QuantConfig)
-    from simplellminference_tpu_torch.models.convert import params_from_jax
+    from simplellminference_tpu_torch.models import llama
     from simplellminference_tpu_torch.runtime.hf_quant import (
         quantized_params_from_fetcher)
     from simplellminference_tpu_torch.runtime.weights import quantize_params
@@ -3450,24 +4378,11 @@ def phase_cpu(torch, launches: dict):
     torch.backends.cudnn.allow_tf32 = False
     cfg = ModelConfig.llama2_7b(num_layers=2, dtype="float32")
     rng = np.random.default_rng(7)
-    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
-    n, kvn, d, L = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 2
-
-    def w(shape, scale):
-        return rng.standard_normal(shape, dtype=np.float32) * np.float32(
-            scale)
-
-    tree = {"embed": w((v, h), 0.02),
-            "layers": {"input_norm": np.ones((L, h), np.float32),
-                       "post_norm": np.ones((L, h), np.float32),
-                       "wqkv": w((L, h, (n + 2 * kvn) * d), h ** -0.5),
-                       "wo": w((L, n * d, h), (n * d) ** -0.5),
-                       "w_gate_up": w((L, h, 2 * i), h ** -0.5),
-                       "w_down": w((L, i, h), i ** -0.5)},
-            "final_norm": np.ones((h,), np.float32),
-            "lm_head": w((h, v), 0.02)}
-    p_cpu = params_from_jax(tree, device="cpu")
-    del tree
+    v = cfg.vocab_size
+    # one draw of the weights, on the card (the host's numpy draw of these
+    # 0.67 G values took ~14 s), copied to the host byte for byte
+    p_cpu = _to_device(llama.init_params(cfg, seed=7, device="cuda"), "cpu")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     # INT4 (group 128, INT4 head) and INT8 group 128 for W8A8, quantized
     # by the port on the CPU from the same draw, carried to the card
@@ -3500,7 +4415,7 @@ def phase_cpu(torch, launches: dict):
     q_gpu = _to_device(q_cpu, "cuda")
     card_vs_cpu(torch, "int8", cfg, q_gpu, q_cpu, prompts, steps=8)
     dense_card_vs_cpu(torch, "dense-int8", cfg, q_gpu, q_cpu, prompts,
-                      steps=8)
+                      steps=4)
     card_vs_cpu(torch, "int8-int8kv", cfg, q_gpu, q_cpu, prompts, steps=8,
                 kv_dtype="int8")
     spec_card_vs_cpu(torch, "spec-int8-int8kv", cfg, q_gpu, q_cpu,
@@ -3544,6 +4459,8 @@ def phase_cpu(torch, launches: dict):
     card_vs_cpu(torch, "w8a8", cfg_aq, q8g_gpu, q8g_cpu, w8a8_prompts,
                 steps=4)
     prefix_card_vs_cpu(torch, cfg_aq, q8g_gpu, q8g_cpu)
+    del q8g_gpu, q8g_cpu
+    window_card_vs_cpu(torch, launches)
 
 
 def main(argv=None) -> int:
@@ -3590,6 +4507,7 @@ def main(argv=None) -> int:
                      "status": "ported", "checked": bool(r),
                      "launches": sum(by_path.values()),
                      "launches_by_path": by_path,
+                     "launches_phase3": phase3_launches.get(kname, 0),
                      "library": LIBRARY[kname],
                      "max_abs_err": r.get("max_abs_err"),
                      "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),

@@ -5,7 +5,8 @@
 // for INT8-KV pools (read with to_f, dequantized by the caller). Every
 // launcher returns 0 on success, a cudaError_t code (> 0) from
 // cudaGetLastError() after the launch, or a negative code for arguments
-// the kernel does not take (sli_error_string names both).
+// the kernel does not take, SLI_ERR_GRID for a cooperative grid larger
+// than the card holds at once (sli_error_string names them all).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -18,6 +19,7 @@
 #define SLI_ERR_DTYPE (-1)
 #define SLI_ERR_HEAD_DIM (-2)
 #define SLI_ERR_SHAPE (-3)
+#define SLI_ERR_GRID (-4)
 
 namespace sli {
 

@@ -1,7 +1,9 @@
 // Causal GQA flash attention over a prompt (prefill), online softmax.
 //
 // Replaces the TPU kernel of simplellminference_tpu/ops/attention/
-// flash_prefill.py: flash_prefill (_flash_kernel, flash_prefill.py:26-203).
+// flash_prefill.py: flash_prefill (_flash_kernel, flash_prefill.py:26-203),
+// with its sliding-window form (window > 0: query i attends keys with
+// q_pos - k_pos < window, flash_prefill.py:76-77).
 //
 // Bound on the H100: for the serving shapes (S = 128..2048) the least
 // time is set by bytes: q and k, v read once and the output written once,
@@ -18,7 +20,13 @@
 // products are plain FMAs (a 4 x 4 micro-tile per thread for QK^T, 4 rows
 // x D/16 columns for PV). Every S is taken: rows and keys past S are
 // masked in the kernel (the TPU dispatcher sends S % 128 != 0 to the jnp
-// reference instead). The GQA head of q head h is h / group.
+// reference instead). The GQA head of q head h is h / group. With a
+// window the walk starts at the tile holding the oldest query row's first
+// key, q0 - (window - 1) (flash_prefill.py:50-53, :154-157), so a tile
+// wholly below every row's window is never loaded and the cost is
+// O(S * window); a key outside its row's band is masked per element and
+// contributes p = 0, so a row whose first tiles hold none of its keys
+// carries nothing from them.
 #include "common.cuh"
 
 namespace {
@@ -42,7 +50,7 @@ __global__ void __launch_bounds__(NT) flash_prefill_kernel(
     const T* __restrict__ v, T* __restrict__ out, long long q_bs,
     long long q_ss, long long k_bs, long long k_ss, long long v_bs,
     long long v_ss, long long o_bs, long long o_ss, int seq, int group,
-    float scale) {
+    int window, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                  // [BQ][D+1]
   float* ks = qs + BQ * (D + 1);     // [BK][D+1]
@@ -83,8 +91,10 @@ __global__ void __launch_bounds__(NT) flash_prefill_kernel(
   }
 
   const int last_q = min(q0 + BQ, seq) - 1;
-  const int nkt = last_q / BK + 1;  // tiles 0 .. causal frontier
-  for (int kt = 0; kt < nkt; ++kt) {
+  const int nkt = last_q / BK + 1;  // tiles .. causal frontier
+  // window: from the tile of the oldest row's first key
+  const int kt0 = window > 0 ? max(0, q0 - (window - 1)) / BK : 0;
+  for (int kt = kt0; kt < nkt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's readers are done
     for (int i = tid; i < BK * D; i += NT) {
@@ -130,7 +140,8 @@ __global__ void __launch_bounds__(NT) flash_prefill_kernel(
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
         float s = sc[i][j] * scale;
-        if (kp > qp || kp >= seq) s = NEG_INF;
+        if (kp > qp || kp >= seq || (window > 0 && kp <= qp - window))
+          s = NEG_INF;
         sc[i][j] = s;
         mx = fmaxf(mx, s);
       }
@@ -142,7 +153,8 @@ __global__ void __launch_bounds__(NT) flash_prefill_kernel(
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - m_new);
+        // a masked key, or a row that has seen no key yet, keeps p = 0
+        const float p = sc[i][j] <= NEG_INF ? 0.f : expf(sc[i][j] - m_new);
         sc[i][j] = p;
         rs += p;
       }
@@ -193,7 +205,7 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out,
            long long q_bs, long long q_ss, long long k_bs, long long k_ss,
            long long v_bs, long long v_ss, long long o_bs, long long o_ss,
-           int batch, int seq, int heads, int group, float scale,
+           int batch, int seq, int heads, int group, int window, float scale,
            cudaStream_t st) {
   const size_t bytes = smem_floats<D>() * sizeof(float);
   cudaError_t e = sli::allow_smem(flash_prefill_kernel<T, D>, bytes);
@@ -201,7 +213,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((seq + BQ - 1) / BQ, heads, batch);
   flash_prefill_kernel<T, D><<<grid, NT, bytes, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, q_bs, q_ss, k_bs, k_ss,
-      v_bs, v_ss, o_bs, o_ss, seq, group, scale);
+      v_bs, v_ss, o_bs, o_ss, seq, group, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -210,18 +222,20 @@ int dispatch_d(int head_dim, const void* q, const void* k, const void* v,
                void* out, long long q_bs, long long q_ss, long long k_bs,
                long long k_ss, long long v_bs, long long v_ss, long long o_bs,
                long long o_ss, int batch, int seq, int heads, int group,
-               float scale, cudaStream_t st) {
+               int window, float scale, cudaStream_t st) {
   switch (head_dim) {
     case 32:
       return launch<T, 32>(q, k, v, out, q_bs, q_ss, k_bs, k_ss, v_bs, v_ss,
-                           o_bs, o_ss, batch, seq, heads, group, scale, st);
+                           o_bs, o_ss, batch, seq, heads, group, window, scale,
+                           st);
     case 64:
       return launch<T, 64>(q, k, v, out, q_bs, q_ss, k_bs, k_ss, v_bs, v_ss,
-                           o_bs, o_ss, batch, seq, heads, group, scale, st);
+                           o_bs, o_ss, batch, seq, heads, group, window, scale,
+                           st);
     case 128:
       return launch<T, 128>(q, k, v, out, q_bs, q_ss, k_bs, k_ss, v_bs,
-                            v_ss, o_bs, o_ss, batch, seq, heads, group, scale,
-                            st);
+                            v_ss, o_bs, o_ss, batch, seq, heads, group, window,
+                            scale, st);
     default:
       return SLI_ERR_HEAD_DIM;
   }
@@ -229,23 +243,26 @@ int dispatch_d(int head_dim, const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// window: 0 for plain causal attention, else the sliding window (>= 1).
 extern "C" int sli_flash_prefill(const void* q, const void* k, const void* v,
                                  void* out, long long q_bs, long long q_ss,
                                  long long k_bs, long long k_ss,
                                  long long v_bs, long long v_ss,
                                  long long o_bs, long long o_ss, int batch,
                                  int seq, int heads, int group, int head_dim,
-                                 float scale, int dtype, void* stream) {
-  if (batch <= 0 || seq <= 0 || heads <= 0 || group <= 0)
+                                 int window, float scale, int dtype,
+                                 void* stream) {
+  if (batch <= 0 || seq <= 0 || heads <= 0 || group <= 0 || window < 0)
     return SLI_ERR_SHAPE;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == SLI_F32)
     return dispatch_d<float>(head_dim, q, k, v, out, q_bs, q_ss, k_bs, k_ss,
                              v_bs, v_ss, o_bs, o_ss, batch, seq, heads, group,
-                             scale, st);
+                             window, scale, st);
   if (dtype == SLI_BF16)
     return dispatch_d<__nv_bfloat16>(head_dim, q, k, v, out, q_bs, q_ss,
                                      k_bs, k_ss, v_bs, v_ss, o_bs, o_ss,
-                                     batch, seq, heads, group, scale, st);
+                                     batch, seq, heads, group, window, scale,
+                                     st);
   return SLI_ERR_DTYPE;
 }

@@ -156,6 +156,8 @@ const char* sli_error_string(int code) {
       return "unsupported head dim";
     case SLI_ERR_SHAPE:
       return "unsupported shape";
+    case SLI_ERR_GRID:
+      return "cooperative grid larger than the blocks the card holds at once";
     default:
       return cudaGetErrorString((cudaError_t)code);
   }

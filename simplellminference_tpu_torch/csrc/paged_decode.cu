@@ -16,7 +16,10 @@
 // body serves it (template DENSE: sequence b reads arena row b, no table)
 // and walks only the keys below min(kv_len, Smax), where the TPU kernel
 // clamps past-the-end grid steps (flash_decode.py:172-181); its bk,
-// rows_target and max_kv tiling hints have no counterpart.
+// rows_target and max_kv tiling hints have no counterpart. The paged forms
+// take the sliding window of the TPU kernel (paged_decode.py:73-75,
+// :98-101; window > 0): each row attends only keys within `window` of its
+// own position.
 //
 // Bound on the H100: bytes. Each sequence's live K and V rows
 // (2*kv_len*kvN*D elements, plus 2*kv_len*kvN f32 scales for INT8 KV)
@@ -43,6 +46,13 @@
 // each key's scale (staged beside its chunk) multiplies its score after
 // q.k, and each key's V scale folds into its probability before the PV
 // product, so the row sum l stays the sum of the unscaled probabilities.
+// Sliding window: the key walk starts at the oldest verify row's first key,
+// k_lo = kv_len - S - window + 1, and reads no key below it, not even
+// inside k_lo's page. This is what keeps the grouped engine's ring pools
+// right: there table column j maps to ring page s*R + j % R, so a column
+// below the window band aliases the live page of a newer position, and
+// masking after the read would still fetch it. Rows newer than the oldest
+// mask the keys below their own band per element (p = 0).
 // Shared memory grows with group x S: 64 rows at D = 128 (GQA group 8,
 // S = 8) take 107.6 KB of the 227 KB a block may use; the wrapper refuses
 // more than 128 rows. Split-K over the sequence (flash-decoding) and TMA
@@ -78,7 +88,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     const float* __restrict__ ksp, const float* __restrict__ vsp,
     const int* __restrict__ tables, const int* __restrict__ kv_lens,
     T* __restrict__ out, int layer, int num_pages1, int kvn, int ps, int mp,
-    int group, int wins, float scale) {
+    int group, int wins, int window, float scale) {
   constexpr bool QUANT = sizeof(P) == 1;
   const int rows = group * wins;
   extern __shared__ float smem[];
@@ -113,11 +123,13 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   }
   const int kv_len = kv_lens[b];
   const int n_keys = min(kv_len, mp * ps);
+  // window: no key below the oldest row's band is ever read
+  const int k_lo = window > 0 ? max(0, kv_len - wins - window + 1) : 0;
   const int* row = DENSE ? nullptr : tables + (long long)b * mp;
   const long long layer_base = (long long)layer * num_pages1;
   __syncthreads();
 
-  for (int k0 = 0; k0 < n_keys; k0 += KC) {
+  for (int k0 = k_lo; k0 < n_keys; k0 += KC) {
     for (int i = tid; i < KC * D; i += NT) {
       const int r = i / D;
       const int d = i - r * D;
@@ -155,16 +167,19 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     __syncthreads();
 
     // scores: warp w takes query rows w, w+4, ...; lane = key of the chunk;
-    // window row r / group sees keys below kv_len - wins + 1 + r / group
+    // window row w = r / group sees keys below kv_len - wins + 1 + w and,
+    // with a sliding window, above kv_len - wins + w - window
     for (int r = warp; r < rows; r += NT / 32) {
       const float m_old = ms[r];
+      const int w = r / group;
       float s = 0.f;
 #pragma unroll 8
       for (int d = 0; d < D; ++d) s += qs[r * D + d] * ks[lane * (D + 1) + d];
       s *= scale;
       if (QUANT) s *= ksc[lane];  // late dequant of K
       const int kp = k0 + lane;
-      const bool live = kp < n_keys && kp < kv_len - wins + 1 + r / group;
+      const bool live = kp < n_keys && kp < kv_len - wins + 1 + w &&
+                        (window <= 0 || kp > kv_len - wins + w - window);
       if (!live) s = NEG_INF;
       float mx = s;
 #pragma unroll
@@ -219,7 +234,7 @@ struct Args {
   const int* tables;
   const int* kv_lens;
   void* out;
-  int batch, layer, num_pages1, kvn, ps, mp, group, wins;
+  int batch, layer, num_pages1, kvn, ps, mp, group, wins, window;
   float scale;
 };
 
@@ -233,7 +248,7 @@ int launch(const Args& a, cudaStream_t st) {
   paged_decode_kernel<T, P, D, DENSE><<<grid, NT, bytes, st>>>(
       (const T*)a.q, a.q_bs, a.q_ss, (const P*)a.pool_k, (const P*)a.pool_v,
       a.ksp, a.vsp, a.tables, a.kv_lens, (T*)a.out, a.layer, a.num_pages1,
-      a.kvn, a.ps, a.mp, a.group, a.wins, a.scale);
+      a.kvn, a.ps, a.mp, a.group, a.wins, a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -270,7 +285,7 @@ extern "C" int sli_flash_decode(const void* q, long long q_bs,
   // one "page" of smax slots per sequence, one window row, no scales
   const Args a{q, q_bs, 0LL, cache_k, cache_v, nullptr, nullptr, nullptr,
                kv_lens, out, batch, layer, arena_rows, kvn, smax, 1, group,
-               1, scale};
+               1, 0, scale};
   if (dtype == SLI_F32) return dispatch_d<float, float, true>(head_dim, a, st);
   if (dtype == SLI_BF16)
     return dispatch_d<__nv_bfloat16, __nv_bfloat16, true>(head_dim, a, st);
@@ -280,6 +295,7 @@ extern "C" int sli_flash_decode(const void* q, long long q_bs,
 // k_scale/v_scale: null for bf16/f32 pools (of q's dtype); given, the pools
 // are int8 and these are their f32 scale pools [L, num_pages1, kvn, ps].
 // q: [B, wins, N, D] with strides q_bs, q_ss (elements); wins = 1 is decode.
+// window: 0 for none, else the sliding window (>= 1).
 extern "C" int sli_paged_flash_decode(const void* q, long long q_bs,
                                       long long q_ss, const void* pool_k,
                                       const void* pool_v, const void* k_scale,
@@ -287,16 +303,16 @@ extern "C" int sli_paged_flash_decode(const void* q, long long q_bs,
                                       const int* kv_lens, void* out,
                                       int batch, int layer, int num_pages1,
                                       int kvn, int ps, int mp, int group,
-                                      int wins, int head_dim, float scale,
-                                      int dtype, void* stream) {
+                                      int wins, int head_dim, int window,
+                                      float scale, int dtype, void* stream) {
   if (batch <= 0 || kvn <= 0 || group <= 0 || ps <= 0 || mp <= 0 ||
-      wins <= 0)
+      wins <= 0 || window < 0)
     return SLI_ERR_SHAPE;
   if ((k_scale == nullptr) != (v_scale == nullptr)) return SLI_ERR_SHAPE;
   cudaStream_t st = (cudaStream_t)stream;
   const Args a{q, q_bs, q_ss, pool_k, pool_v, (const float*)k_scale,
                (const float*)v_scale, tables, kv_lens, out, batch, layer,
-               num_pages1, kvn, ps, mp, group, wins, scale};
+               num_pages1, kvn, ps, mp, group, wins, window, scale};
   const bool quant = k_scale != nullptr;
   if (dtype == SLI_F32)
     return quant ? dispatch_d<float, int8_t>(head_dim, a, st)

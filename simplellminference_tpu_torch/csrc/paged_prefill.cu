@@ -5,8 +5,9 @@
 // Replaces the TPU kernel of simplellminference_tpu/ops/attention/
 // paged_prefill.py: paged_flash_prefill (_paged_prefill_kernel,
 // paged_prefill.py:44-150), for bf16/f32 pools and, its INT8-KV form,
-// int8 pools with per-token-per-head f32 scale pools [L, P+1, kvN, ps]
-// (the window, soft cap, sinks and shared-KV forms raise in the wrapper).
+// int8 pools with per-token-per-head f32 scale pools [L, P+1, kvN, ps],
+// and the sliding-window form of both (window > 0, paged_prefill.py:90-92,
+// :131-132; the soft cap, sinks and shared-KV forms raise in the wrapper).
 //
 // Bound on the H100: for the serving shapes (a prefix-cached suffix of
 // Sq = 64 rows or a 256-row chunk behind a few hundred cached tokens) the
@@ -34,7 +35,13 @@
 // of q head h is h / group. INT8 KV dequantizes each staged K/V element
 // as the TPU kernel dequantizes each page slab (paged_prefill.py:105-110):
 // code x its row's scale in f32, rounded to q's dtype, then used as the
-// bf16/f32 pools' values are. Sharing a K/V tile across the GQA group,
+// bf16/f32 pools' values are. Sliding window: query q_pos attends keys
+// q_pos - window < k_pos <= q_pos; the walk starts at the oldest row of
+// the tile's first key, off + q0 - window + 1, and reads no key below it
+// (its tiles start there, not at a multiple of 64), so over the grouped
+// engine's ring pools a table column below the band, which aliases the
+// live page of a newer position, is never read. A row's keys below its own
+// band are masked per element (p = 0). Sharing a K/V tile across the GQA group,
 // TMA page copies and wgmma are later work.
 #include "common.cuh"
 
@@ -65,7 +72,7 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
     const int* __restrict__ tables, const int* __restrict__ kv_lens,
     const int* __restrict__ offs, T* __restrict__ out, int seq, int heads,
     int layer, int num_pages1, int kvn, int ps, int mp, int group,
-    float scale) {
+    int window, float scale) {
   constexpr bool QUANT = sizeof(P) == 1;
   extern __shared__ float smem[];
   float* qs = smem;                  // [BQ][D+1]
@@ -107,12 +114,14 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
   }
 
-  // keys 0 .. min(newest query position of the tile, n_keys - 1)
+  // keys k_lo .. min(newest query position of the tile, n_keys - 1); k_lo
+  // is 0, or with a window the oldest row's first key
   const int last_key = min(off + min(q0 + BQ, seq) - 1, n_keys - 1);
-  const int nkt = last_key < 0 ? 0 : last_key / BK + 1;
+  const int k_lo = window > 0 ? max(0, off + q0 - window + 1) : 0;
+  const int nkt = last_key < k_lo ? 0 : (last_key - k_lo) / BK + 1;
   const long long layer_base = (long long)layer * num_pages1;
   for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * BK;
+    const int k0 = k_lo + kt * BK;
     __syncthreads();  // the previous tile's readers are done
     if (tid < BK) {
       const int kp = k0 + tid;
@@ -172,7 +181,8 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
         float s = sc[i][j] * scale;
-        if (kp > qp || kp >= n_keys) s = NEG_INF;
+        if (kp > qp || kp >= n_keys || (window > 0 && kp <= qp - window))
+          s = NEG_INF;
         sc[i][j] = s;
         mx = fmaxf(mx, s);
       }
@@ -184,7 +194,7 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        // a row that has seen no key yet keeps p = 0 (m_new == NEG_INF)
+        // a masked key, or a row that has seen no key yet, keeps p = 0
         const float p = sc[i][j] <= NEG_INF ? 0.f : expf(sc[i][j] - m_new);
         sc[i][j] = p;
         rs += p;
@@ -238,7 +248,8 @@ int launch(const void* q, long long q_bs, long long q_ss, const void* pool_k,
            const void* pool_v, const float* ksp, const float* vsp,
            const int* tables, const int* kv_lens, const int* offs, void* out,
            int batch, int seq, int heads, int layer, int num_pages1, int kvn,
-           int ps, int mp, int group, float scale, cudaStream_t st) {
+           int ps, int mp, int group, int window, float scale,
+           cudaStream_t st) {
   const size_t bytes = smem_bytes<D>();
   cudaError_t e = sli::allow_smem(paged_prefill_kernel<T, P, D>, bytes);
   if (e != cudaSuccess) return (int)e;
@@ -246,7 +257,7 @@ int launch(const void* q, long long q_bs, long long q_ss, const void* pool_k,
   paged_prefill_kernel<T, P, D><<<grid, NT, bytes, st>>>(
       (const T*)q, q_bs, q_ss, (const P*)pool_k, (const P*)pool_v, ksp, vsp,
       tables, kv_lens, offs, (T*)out, seq, heads, layer, num_pages1, kvn, ps,
-      mp, group, scale);
+      mp, group, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -256,23 +267,23 @@ int dispatch_d(int head_dim, const void* q, long long q_bs, long long q_ss,
                const float* vsp, const int* tables, const int* kv_lens,
                const int* offs, void* out, int batch, int seq, int heads,
                int layer, int num_pages1, int kvn, int ps, int mp, int group,
-               float scale, cudaStream_t st) {
+               int window, float scale, cudaStream_t st) {
   switch (head_dim) {
     case 32:
       return launch<T, P, 32>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
                               tables, kv_lens, offs, out, batch, seq, heads,
-                              layer, num_pages1, kvn, ps, mp, group, scale,
-                              st);
+                              layer, num_pages1, kvn, ps, mp, group, window,
+                              scale, st);
     case 64:
       return launch<T, P, 64>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
                               tables, kv_lens, offs, out, batch, seq, heads,
-                              layer, num_pages1, kvn, ps, mp, group, scale,
-                              st);
+                              layer, num_pages1, kvn, ps, mp, group, window,
+                              scale, st);
     case 128:
       return launch<T, P, 128>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
                                tables, kv_lens, offs, out, batch, seq, heads,
-                               layer, num_pages1, kvn, ps, mp, group, scale,
-                               st);
+                               layer, num_pages1, kvn, ps, mp, group, window,
+                               scale, st);
     default:
       return SLI_ERR_HEAD_DIM;
   }
@@ -284,29 +295,32 @@ int dispatch_p(bool quant, int head_dim, const void* q, long long q_bs,
                const float* ksp, const float* vsp, const int* tables,
                const int* kv_lens, const int* offs, void* out, int batch,
                int seq, int heads, int layer, int num_pages1, int kvn, int ps,
-               int mp, int group, float scale, cudaStream_t st) {
+               int mp, int group, int window, float scale, cudaStream_t st) {
   if (quant)
     return dispatch_d<T, int8_t>(head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp,
                                  vsp, tables, kv_lens, offs, out, batch, seq,
                                  heads, layer, num_pages1, kvn, ps, mp, group,
-                                 scale, st);
+                                 window, scale, st);
   return dispatch_d<T, T>(head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
                           tables, kv_lens, offs, out, batch, seq, heads,
-                          layer, num_pages1, kvn, ps, mp, group, scale, st);
+                          layer, num_pages1, kvn, ps, mp, group, window, scale,
+                          st);
 }
 
 }  // namespace
 
 // k_scale/v_scale: null for bf16/f32 pools (of q's dtype); given, the pools
 // are int8 and these are their f32 scale pools [L, num_pages1, kvn, ps].
+// window: 0 for none, else the sliding window (>= 1).
 extern "C" int sli_paged_flash_prefill(
     const void* q, long long q_bs, long long q_ss, const void* pool_k,
     const void* pool_v, const void* k_scale, const void* v_scale,
     const int* tables, const int* kv_lens, const int* offs, void* out,
     int batch, int seq, int heads, int layer, int num_pages1, int kvn, int ps,
-    int mp, int group, int head_dim, float scale, int dtype, void* stream) {
+    int mp, int group, int head_dim, int window, float scale, int dtype,
+    void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || kvn <= 0 || group <= 0 ||
-      ps <= 0 || mp <= 0 || heads != kvn * group)
+      ps <= 0 || mp <= 0 || heads != kvn * group || window < 0)
     return SLI_ERR_SHAPE;
   if ((k_scale == nullptr) != (v_scale == nullptr)) return SLI_ERR_SHAPE;
   cudaStream_t st = (cudaStream_t)stream;
@@ -317,12 +331,12 @@ extern "C" int sli_paged_flash_prefill(
     return dispatch_p<float>(quant, head_dim, q, q_bs, q_ss, pool_k, pool_v,
                              ksp, vsp, tables, kv_lens, offs, out, batch, seq,
                              heads, layer, num_pages1, kvn, ps, mp, group,
-                             scale, st);
+                             window, scale, st);
   if (dtype == SLI_BF16)
     return dispatch_p<__nv_bfloat16>(quant, head_dim, q, q_bs, q_ss, pool_k,
                                      pool_v, ksp, vsp, tables, kv_lens, offs,
                                      out, batch, seq, heads, layer,
-                                     num_pages1, kvn, ps, mp, group, scale,
-                                     st);
+                                     num_pages1, kvn, ps, mp, group, window,
+                                     scale, st);
   return SLI_ERR_DTYPE;
 }

@@ -9,7 +9,11 @@
 //   dense-arena form (tables=None, qkv_fused.py:302-304: x row b writes
 //   arena row b at slot offsets[b]), into a bf16/f32 arena [L, B', kvN,
 //   Smax, D] with B' >= B, where only slot_row changes (no table; a slot
-//   past Smax is dropped).
+//   past Smax is dropped). Its kv_layer form (qkv_fused.py:294-299: the
+//   cache indexed by the grouped engine's group-local layer, the weights
+//   by the global one) needs nothing of the kernel: the launcher gets the
+//   layer's weight, scale and norm pointers and indexes the pools only by
+//   kv_layer.
 //
 // Bound on the H100: bytes. The qkv weight ([H, (N + 2 kvN) D] int8, 50.3
 // MB at Llama-2-7B: 15.0 us at 3.35 TB/s) dominates; x, the tables and
@@ -213,7 +217,8 @@ extern "C" {
 // (f32, or bf16 when nw_bf16); wq: the layer's [h, (n_heads + 2 kvn) d]
 // int8; ws: its [(n_heads + 2 kvn) d] f32 scales; sin/cos: [b, d/2] f32;
 // pools: [L, num_pages1, kvn, ps, d] (f32, or bf16 when pool_bf16),
-// written in place at `layer`; q_out: [b, n_heads, d] (x_dtype); tables:
+// written in place at pool layer `kv_layer` (the weight layer's pointers
+// come in already); q_out: [b, n_heads, d] (x_dtype); tables:
 // [b, mp] int32; positions: [b] int32. vec: wq and its row length allow
 // 16-byte loads. pool_ks/pool_vs: null, or (INT8 KV) the f32 scale pools
 // [L, num_pages1, kvn, ps] of int8 pools (pool_bf16 is then unused).
@@ -222,9 +227,9 @@ int sli_qkv_fused(const void* x, long long ldx, const void* nw, int nw_bf16,
                   const float* cos_t, void* pool_k, void* pool_v,
                   void* pool_ks, void* pool_vs, int pool_bf16, void* q_out,
                   const int* tables,
-                  const int* positions, int layer, int num_pages1, int kvn,
-                  int ps, int mp, int b, int h, int n_heads, int d, float eps,
-                  int x_dtype, int vec, void* stream) {
+                  const int* positions, int kv_layer, int num_pages1,
+                  int kvn, int ps, int mp, int b, int h, int n_heads, int d,
+                  float eps, int x_dtype, int vec, void* stream) {
   if (b <= 0 || h <= 0 || n_heads <= 0 || kvn <= 0 || ps <= 0 || mp <= 0)
     return SLI_ERR_SHAPE;
   if (d != 32 && d != 64 && d != 128) return SLI_ERR_HEAD_DIM;
@@ -238,13 +243,14 @@ int sli_qkv_fused(const void* x, long long ldx, const void* nw, int nw_bf16,
   if (x_dtype == SLI_F32) {
     qkv_fused_kernel<float><<<grid, RT_THREADS, 0, st>>>(
         (const float*)x, ldx, nw, nw_bf16, w, ws, sin_t, cos_t, pool_k,
-        pool_v, ks, vs, pool_bf16, (float*)q_out, tables, positions, layer,
-        num_pages1, kvn, ps, mp, b, h, n_heads, d, eps, vec);
+        pool_v, ks, vs, pool_bf16, (float*)q_out, tables, positions,
+        kv_layer, num_pages1, kvn, ps, mp, b, h, n_heads, d, eps, vec);
   } else if (x_dtype == SLI_BF16) {
     qkv_fused_kernel<__nv_bfloat16><<<grid, RT_THREADS, 0, st>>>(
         (const __nv_bfloat16*)x, ldx, nw, nw_bf16, w, ws, sin_t, cos_t,
-        pool_k, pool_v, ks, vs, pool_bf16, (__nv_bfloat16*)q_out, tables, positions,
-        layer, num_pages1, kvn, ps, mp, b, h, n_heads, d, eps, vec);
+        pool_k, pool_v, ks, vs, pool_bf16, (__nv_bfloat16*)q_out, tables,
+        positions, kv_layer, num_pages1, kvn, ps, mp, b, h, n_heads, d, eps,
+        vec);
   } else {
     return SLI_ERR_DTYPE;
   }

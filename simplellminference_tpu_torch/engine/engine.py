@@ -66,10 +66,24 @@ at the same page ids, so prefix sharing, the persistent store and
 preemption move scales with their pages and need nothing more, as in the
 JAX engine, which never touches ``k_scale`` past creating it).
 
+Sliding-window models (Mistral's ``sliding_window``, alternating
+``layer_types``) with ``KVCacheConfig.sliding_reclaim`` (the default) and
+one window size run in grouped mode (engine.py:483-531): the sliding
+layers keep their KV in per-slot ring pools of R pages, R = (window +
+span - 2) // page + 2 with span the largest single write (a verify window
+or a ``max(prefill_chunk, 128)``-row chunk), and table column j of slot s
+maps to ring page s*R + j % R; full layers keep the allocator's pools.
+The ring tables are a pure function of (slot, column), cached per width.
+Whole-prompt prefills write through ring rows masked to the in-window
+columns, chunk loops through the unmasked rows (engine.py:1397-1403,
+:1519-1530), and prefix sharing is off (ring pages are slot-owned), as is
+``adopt_prefill``. Without reclaim the windows run over the ordinary
+pools.
+
 Features outside this configuration raise NotImplementedError naming the
 feature: guided decoding, LoRA
 adapters, tensor/sequence parallelism (``adopt_prefill`` included),
-top_logprobs, FP8 KV, sliding windows and the non-Llama model branches.
+top_logprobs, FP8 KV and the non-Llama model branches.
 The JAX engine's ``forward_paged`` and ``loras`` constructor arguments are
 not taken yet.
 """
@@ -151,7 +165,7 @@ class Engine:
             if draft[0].vocab_size != cfg.vocab_size:
                 raise ValueError("draft and target must share the token "
                                  "space")
-            llama.check_supported(draft[0])
+            llama.check_dense_supported(draft[0])
         self.device = resolve_device(device)
         for p in (params, draft[1] if draft is not None else params):
             if p["embed"].device.type != self.device.type:
@@ -167,9 +181,35 @@ class Engine:
         self.allocator = PageAllocator(
             kv.num_pages, kv.page_size, engine_cfg.max_batch_size,
             kv.max_pages_per_seq)
-        self.cache = PagedKVCache.create(
-            cfg.num_layers, kv.num_pages, cfg.num_kv_heads, kv.page_size,
-            cfg.head_dim, kv_storage_dtype(kv.kv_dtype), device=self.device)
+        kv_dtype = kv_storage_dtype(kv.kv_dtype)
+        # sliding-window KV reclamation (engine.py:483-531): the sliding
+        # layers' ring pools, slot s owning ring pages [s*R, (s+1)*R)
+        wins = cfg.layer_windows
+        w_set = {w for w in wins if w is not None}
+        self._grouped = kv.sliding_reclaim and len(w_set) == 1
+        self._window = next(iter(w_set)) if self._grouped else None
+        self._ring = 0
+        self._ring_tables: dict = {}
+        if self._grouped:
+            chunk = engine_cfg.prefill_chunk
+            chunking = chunk and chunk > 0 and chunk % kv.page_size == 0
+            # the ring absorbs the largest single write span (a chunk or
+            # a verify window) plus the window without aliasing a live
+            # column; the 128 floor is the JAX engine's sizing, kept so
+            # that pools compare page for page
+            span = max(engine_cfg.spec_tokens + 1,
+                       max(chunk, 128) if chunking else 1)
+            self._ring = (self._window + span - 2) // kv.page_size + 2
+            lw = sum(w is not None for w in wins)
+            self.cache = PagedKVCache.create(
+                cfg.num_layers - lw, kv.num_pages, cfg.num_kv_heads,
+                kv.page_size, cfg.head_dim, kv_dtype,
+                device=self.device).with_windowed(
+                    lw, engine_cfg.max_batch_size * self._ring)
+        else:
+            self.cache = PagedKVCache.create(
+                cfg.num_layers, kv.num_pages, cfg.num_kv_heads,
+                kv.page_size, cfg.head_dim, kv_dtype, device=self.device)
 
         b = engine_cfg.max_batch_size
         self.slots: list[Optional[Request]] = [None] * b
@@ -294,6 +334,19 @@ class Engine:
         metrics_lib.log_event("request_added", req_id=req.req_id,
                               prompt_len=len(req.prompt_ids))
         return req
+
+    def adopt_prefill(self, prompt_ids, first_token: int, write_cache_fn,
+                      sampling: SamplingParams = SamplingParams(),
+                      first_logprob: float = 0.0, on_tokens=None):
+        """The sequence-parallel prefill handoff (engine.py:842): not
+        ported. Grouped sliding-window pools refuse it first, as the JAX
+        engine does (engine.py:862-865)."""
+        if self._grouped:
+            raise RuntimeError(
+                "adopt_prefill is unsupported with grouped sliding-window "
+                "pools (KVCacheConfig.sliding_reclaim=False to use it)")
+        raise NotImplementedError("adopt_prefill (sequence-parallel "
+                                  "prefill handoff)")
 
     def _reject(self, req: Request, error: str) -> Request:
         req.state = RequestState.FAILED
@@ -463,7 +516,7 @@ class Engine:
         persistent store (refcounted — they survive the slot's
         free_seq)."""
         cap = self.ecfg.prefix_cache_entries
-        if cap <= 0 or req.slot < 0:
+        if cap <= 0 or req.slot < 0 or self._grouped:
             return
         ps = self.ecfg.kv.page_size
         n = (len(req.prompt_ids) // ps) * ps
@@ -489,10 +542,16 @@ class Engine:
             slot = free[0]
             # share complete prompt-prefix pages with a running request
             # OR a retained prefix handle — whichever covers more — then
-            # allocate only the remainder; prefill starts after them
+            # allocate only the remainder; prefill starts after them.
+            # Grouped sliding pools share nothing: ring pages are
+            # slot-owned, and a shared full-group prefix would leave the
+            # sliding group's window unwritten
             req.cached_len = 0
-            src, shareable = self._find_prefix_source(req, late)
-            pkey, ph, ph_tok = self._find_prefix_handle(req)
+            if self._grouped:
+                src, shareable, pkey, ph, ph_tok = -1, 0, (), -1, 0
+            else:
+                src, shareable = self._find_prefix_source(req, late)
+                pkey, ph, ph_tok = self._find_prefix_handle(req)
             if ph_tok > shareable:
                 shared = self.allocator.prefix_attach(ph, slot, ph_tok)
                 if shared > 0 and self.allocator.extend(slot,
@@ -679,6 +738,13 @@ class Engine:
             self.metrics.prefills += 1
             self.metrics.prompt_tokens += r.total_len
         idx = np.asarray([r.slot for r in reqs] + [0] * (nb - n))
+        if self._grouped:
+            # whole-prompt dispatch: ring rows masked to the in-window
+            # columns (no suffix dispatch runs grouped: no prefix cache)
+            tw = np.full((nb, mp), -1, np.int32)
+            for i, r in enumerate(reqs):
+                tw[i] = self._ring_row_masked(r.slot, int(kv_len[i]), mp)
+            tables = (tables, tw)
         if suffixes:
             packed = self._prefill_chunk_fn(tokens, tables, kv_len, offs,
                                             idx)
@@ -696,6 +762,11 @@ class Engine:
         ln = len(ids)
         todo = ln - start
         tables = self.allocator.row(req.slot)[None]
+        if self._grouped:
+            # chunks read back through the ring (paged prefill
+            # attention): the unmasked ring row, sized for window + chunk
+            mp = self.allocator.max_pages_per_seq
+            tables = (tables, self._ring_row(req.slot, mp)[None])
         idx = np.asarray([req.slot])
         step = self.ecfg.prefill_chunk
         n_chunks = -(-todo // step)
@@ -734,9 +805,11 @@ class Engine:
     def _forward_and_sample(self, tokens, positions, tables, kv_len, idx,
                             chunk_offset) -> torch.Tensor:
         kv_d = self._upload(kv_len)
+        tables = (tuple(self._upload(t) for t in tables)
+                  if isinstance(tables, tuple) else self._upload(tables))
         logits, self.cache = llama.forward_paged(
             self.cfg, self.params, self._upload(tokens), positions,
-            self.cache, self._upload(tables), kv_d, prefill=True,
+            self.cache, tables, kv_d, prefill=True,
             last_token_only=True, chunk_offset=chunk_offset)
         samp = self._sampler_rows(idx, with_counts=True)
         last = logits[:, -1]
@@ -1154,9 +1227,43 @@ class Engine:
         width = min(width, mp)
         if (self._tables_dirty or self._tables_dev is None
                 or self._tables_width != width):
-            self._tables_dev = self._upload(self.allocator.table()[:, :width])
+            full = self._upload(self.allocator.table()[:, :width])
+            # grouped pools: the ring table never changes for a width
+            self._tables_dev = ((full, self._ring_table(width))
+                                if self._grouped else full)
             self._tables_width = width
             self._tables_dirty = False
+
+    def _ring_row(self, slot: int, width: int) -> np.ndarray:
+        """Slot ``slot``'s ring table row: column j -> ring page
+        slot*R + j % R."""
+        return (slot * self._ring
+                + np.arange(width, dtype=np.int32) % self._ring)
+
+    def _ring_table(self, width: int) -> torch.Tensor:
+        """The device ring tables [B, width] (engine.py:2001-2012), cached
+        per width (a column below a row's window band aliases a live page;
+        the attention kernels never read one)."""
+        rt = self._ring_tables.get(width)
+        if rt is None:
+            rt = self._upload(np.stack([self._ring_row(s, width)
+                                        for s in range(len(self.slots))]))
+            self._ring_tables[width] = rt
+        return rt
+
+    def _ring_row_masked(self, slot: int, kv_len: int,
+                         mp: int) -> np.ndarray:
+        """Ring row of a whole-prompt prefill (engine.py:2014-2026): only
+        the in-window columns are mapped, the older ones -1 (the trash
+        page), so the ring takes no duplicate page writes in one
+        dispatch."""
+        ps = self.ecfg.kv.page_size
+        row = np.full(mp, -1, np.int32)
+        lo = max(0, kv_len - self._window) // ps
+        hi = (kv_len - 1) // ps
+        cols = np.arange(lo, min(hi, mp - 1) + 1, dtype=np.int32)
+        row[cols] = slot * self._ring + cols % self._ring
+        return row
 
     def _get_zero_ov(self):
         """(tok, pos, counts, mask) no-op overrides — device-resident so

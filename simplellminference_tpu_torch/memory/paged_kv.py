@@ -8,6 +8,12 @@ for page with the JAX package's. INT8 pools carry per-token-per-head f32
 scale pools k/v_scale [L, num_pages + 1, kvN, page_size] at the same page
 ids, written beside the codes and read back through the same tables.
 
+The windowed group (paged_kv.py:71-119, the grouped engine's
+sliding-window KV reclamation): models with sliding layers keep those
+layers' KV in separate pools k_w/v_w [Lw, Pw+1, kvN, ps, D] (with
+k_w_scale/v_w_scale for INT8 KV), Pw = max_batch * R ring pages, which
+the engine addresses through static per-slot ring tables.
+
 The pools are updated IN PLACE by the write functions (the JAX package
 donates the cache to its jitted graphs and the Pallas kernels alias it);
 they return the same tensors for symmetry with the reference.
@@ -38,12 +44,18 @@ def kv_storage_dtype(name: str) -> torch.dtype:
 @dataclasses.dataclass
 class PagedKVCache:
     """k/v: [L, num_pages + 1, kv_heads, page_size, head_dim]; for int8
-    storage k/v_scale: [L, num_pages + 1, kv_heads, page_size] f32."""
+    storage k/v_scale: [L, num_pages + 1, kv_heads, page_size] f32. The
+    windowed group's pools k_w/v_w (and k_w_scale/v_w_scale): the same
+    with Lw layers and Pw + 1 pages, None without a windowed group."""
 
     k: torch.Tensor
     v: typing.Optional[torch.Tensor] = None
     k_scale: typing.Optional[torch.Tensor] = None
     v_scale: typing.Optional[torch.Tensor] = None
+    k_w: typing.Optional[torch.Tensor] = None
+    v_w: typing.Optional[torch.Tensor] = None
+    k_w_scale: typing.Optional[torch.Tensor] = None
+    v_w_scale: typing.Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, num_layers: int, num_pages: int, num_kv_heads: int,
@@ -69,9 +81,24 @@ class PagedKVCache:
                        v_scale=zeros(shape[:-1], torch.float32))
         return cls(k=zeros(shape, dtype), v=zeros(shape, dtype))
 
-    def with_windowed(self, num_layers_w: int, num_pages_w: int):
-        raise NotImplementedError("windowed ring pools (sliding-window KV "
-                                  "reclamation)")
+    def with_windowed(self, num_layers_w: int,
+                      num_pages_w: int) -> "PagedKVCache":
+        """This cache with a windowed-group pool set attached: zeroed
+        [Lw, Pw+1, kvN, ps, D] pools (the usual trash page last) of this
+        cache's geometry, dtype and device, and zeroed f32 scale pools for
+        int8 storage."""
+        _, _, kvn, ps, d = self.k.shape
+        shape = (num_layers_w, num_pages_w + 1, kvn, ps, d)
+
+        def zeros(shape, dt):
+            return torch.zeros(shape, dtype=dt, device=self.k.device)
+
+        kw = dict(k_w=zeros(shape, self.k.dtype),
+                  v_w=zeros(shape, self.k.dtype))
+        if self.k_scale is not None:
+            kw.update(k_w_scale=zeros(shape[:-1], torch.float32),
+                      v_w_scale=zeros(shape[:-1], torch.float32))
+        return dataclasses.replace(self, **kw)
 
     @property
     def page_size(self) -> int:

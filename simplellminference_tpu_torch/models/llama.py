@@ -13,7 +13,10 @@ window (S > 1 tokens per row at consecutive positions, written with
 ``paged_append_span`` and attended with ``paged_flash_verify``; the JAX
 ``spec`` branch, llama.py:548, :688-698). A Python loop over
 layers stands in for the ``lax.scan``; stacked [L, ...] weights are
-indexed per layer, and the KV pools are written in place.
+indexed per layer, and the KV pools are written in place. Sliding-window
+attention (Mistral's ``sliding_window``, alternating ``layer_types``)
+runs in every ``forward_paged`` branch, over the ordinary pools or the
+grouped engine's ring pools; the dense ``forward`` refuses it.
 
 KV pools are bf16/f32, or INT8 with per-token-per-head scale pools
 (``cache.k_scale``/``cache.v_scale``): every write quantizes and every
@@ -77,8 +80,6 @@ def check_supported(cfg: ModelConfig) -> None:
         ("o_bias", "o_proj bias"),
         ("mlp_bias", "FFN biases"),
         ("sandwich_norms", "sandwich norms"),
-        ("sliding_window", "sliding-window attention"),
-        ("layer_types", "per-layer attention types"),
         ("nope_layers", "NoPE layers"),
         ("attn_logit_softcap", "attention logit soft cap"),
         ("final_logit_softcap", "final logit soft cap"),
@@ -100,6 +101,16 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.act_quant not in (None, "int8"):
         # the JAX package asserts this in ops/linear.py:87
         raise ValueError(f"act_quant={cfg.act_quant!r} (only 'int8')")
+
+
+def check_dense_supported(cfg: ModelConfig) -> None:
+    """:func:`check_supported` for the dense-arena ``forward`` (the
+    Generator and the draft model), which also refuses sliding windows:
+    their decode needs the window form of ``flash_decode``, not ported."""
+    check_supported(cfg)
+    if any(w is not None for w in cfg.layer_windows):
+        raise NotImplementedError("sliding-window attention on the dense "
+                                  "KV arena (flash_decode's window form)")
 
 
 def _fqkv_gate(cfg: ModelConfig, lw, b: int, s: int, cache_k) -> bool:
@@ -136,7 +147,8 @@ def _qkv(cfg: ModelConfig, lw, li: int, x, sin, cos):
 def _fused_qkv(cfg: ModelConfig, lw, li: int, x, sin, cos, ck, cv, offsets,
                **kw):
     """The fused qkv route for S = 1: q [B, N, D], k/v appended in place
-    to the pools (``tables`` in ``kw``) or to the dense arena."""
+    to the pools (``tables`` in ``kw``, and ``kv_layer`` for the grouped
+    engine's pools) or to the dense arena."""
     w = lw["wqkv"]
     q1, *_ = qkv_fused.fused_qkv_append(
         x[:, 0], lw["input_norm"], w.q, w.scales, sin[:, 0], cos[:, 0], ck,
@@ -208,8 +220,9 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     which the JAX package runs through its jnp reference even on a TPU)
     is not ported and raises. ``last_token_only``: project only slot
     kv_lens - 1 - offsets of each sequence (S - 1 without kv_lens).
-    Returns (logits [B, S or 1, V] f32, cache)."""
-    check_supported(cfg)
+    Returns (logits [B, S or 1, V] f32, cache). Sliding windows raise
+    (:func:`check_dense_supported`)."""
+    check_dense_supported(cfg)
     b, s = tokens.shape
     if cache is not None and s > 1 and not prefill_from_zero:
         raise NotImplementedError("dense multi-token continuation (S > 1 "
@@ -273,47 +286,74 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     chunk_offset[b] + S), writes their pages and attends through the page
     tables to every cached position < kv_lens[b] up to its own.
     ``last_token_only``: project only row b's position kv_lens[b]-1
-    through the LM head. Returns (logits [B, S or 1, V] f32, cache)."""
+    through the LM head.
+
+    Sliding windows (``cfg.sliding_window``, per layer with
+    ``layer_types``) go to the attention kernels' window forms. The
+    grouped engine (llama.py:515-530, :826-848) passes ``tables`` as a
+    (full tables, ring tables) pair with a cache carrying the windowed
+    group's pools (``cache.k_w``): sliding layers read and write those
+    through the ring tables at group-local layer indices, full layers the
+    main pools likewise; the weights keep the global index.
+    Returns (logits [B, S or 1, V] f32, cache)."""
     check_supported(cfg)
+    if isinstance(tables, (tuple, list)):
+        tables, tables_w = tables
+    else:
+        tables_w = None
+    grouped = tables_w is not None
+    if grouped != (cache.k_w is not None):
+        raise ValueError("a windowed-group cache needs (full, ring) tables, "
+                         "and the other way round")
     b, s = tokens.shape
     chunked = prefill and chunk_offset is not None
     spec = not prefill and s > 1   # speculative-decoding verify window
     x, sin, cos = _embed(cfg, params, tokens, positions)
     lw = params["layers"]
-    pk, pv = cache.k, cache.v
-    pks, pvs = cache.k_scale, cache.v_scale   # None unless INT8 KV
-    scales = dict(pool_ks=pks, pool_vs=pvs)
     page_offset = chunk_offset // cache.page_size if chunked else None
-    use_fqkv = not prefill and _fqkv_gate(cfg, lw, b, s, pk)
+    use_fqkv = not prefill and _fqkv_gate(cfg, lw, b, s, cache.k)
     use_fffn = _fffn_gate(cfg, lw, b * s)
-    for li in range(cfg.num_layers):
+    n_group = {True: 0, False: 0}   # layers seen so far per pool group
+    for li, window in enumerate(cfg.layer_windows):
+        # the pools, tables and pool layer of this layer's group
+        sliding = grouped and window is not None
+        if sliding:
+            pk, pv, tbl = cache.k_w, cache.v_w, tables_w
+            pks, pvs = cache.k_w_scale, cache.v_w_scale
+        else:
+            pk, pv, tbl = cache.k, cache.v, tables
+            pks, pvs = cache.k_scale, cache.v_scale   # None unless INT8 KV
+        kli = n_group[sliding] if grouped else li
+        n_group[sliding] += 1
+        scales = dict(pool_ks=pks, pool_vs=pvs)
         if use_fqkv:
             q1 = _fused_qkv(cfg, lw, li, x, sin, cos, pk, pv,
-                            positions[:, 0], tables=tables, cache_ks=pks,
-                            cache_vs=pvs)
-            attn = dispatch.attention_paged(cfg, q1[:, None], pk, pv, tables,
-                                            kv_lens, li, **scales)
+                            positions[:, 0], tables=tbl, cache_ks=pks,
+                            cache_vs=pvs, kv_layer=kli if grouped else None)
+            attn = dispatch.attention_paged(cfg, q1[:, None], pk, pv, tbl,
+                                            kv_lens, kli, window=window,
+                                            **scales)
         else:
             q, k, v = _qkv(cfg, lw, li, x, sin, cos)
             if chunked:
-                pkv.write_prefill_stacked(pk, pv, k, v, tables, li,
+                pkv.write_prefill_stacked(pk, pv, k, v, tbl, kli,
                                           page_offset=page_offset, **scales)
                 attn = dispatch.attention_paged_prefill(
-                    cfg, q, pk, pv, tables, kv_lens, chunk_offset, li,
-                    **scales)
+                    cfg, q, pk, pv, tbl, kv_lens, chunk_offset, kli,
+                    window=window, **scales)
             elif prefill:
-                pkv.write_prefill_stacked(pk, pv, k, v, tables, li, **scales)
-                attn = dispatch.attention(cfg, q, k, v)
+                pkv.write_prefill_stacked(pk, pv, k, v, tbl, kli, **scales)
+                attn = dispatch.attention(cfg, q, k, v, window=window)
             elif spec:
-                pkv.write_span_stacked(pk, pv, k, v, tables, positions[:, 0],
-                                       li, **scales)
-                attn = dispatch.attention_paged(cfg, q, pk, pv, tables,
-                                                kv_lens, li, **scales)
+                pkv.write_span_stacked(pk, pv, k, v, tbl, positions[:, 0],
+                                       kli, **scales)
+                attn = dispatch.attention_paged(cfg, q, pk, pv, tbl, kv_lens,
+                                                kli, window=window, **scales)
             else:
-                pkv.write_decode_stacked(pk, pv, k[:, 0], v[:, 0], tables,
-                                         positions[:, 0], li, **scales)
-                attn = dispatch.attention_paged(cfg, q, pk, pv, tables,
-                                                kv_lens, li, **scales)
+                pkv.write_decode_stacked(pk, pv, k[:, 0], v[:, 0], tbl,
+                                         positions[:, 0], kli, **scales)
+                attn = dispatch.attention_paged(cfg, q, pk, pv, tbl, kv_lens,
+                                                kli, window=window, **scales)
         x = _post_attention(cfg, lw, li, x, attn, use_fffn)
 
     if last_token_only and s > 1:

@@ -5,8 +5,11 @@ Counterpart of simplellminference_tpu/ops/attention/dispatch.py:68-137,
 wrapper launches its CUDA kernel for CUDA tensors and takes its plain
 version for CPU tensors, so on the card every call goes through a kernel.
 INT8-KV pools pass their scale pools (``pool_ks``/``pool_vs``) on to the
-paged kernels. Attention options the kernels do not take yet (sliding
-window, logit soft cap, sinks) raise.
+paged kernels, and a sliding window (``cfg.sliding_window``, or the
+per-layer ``window`` a caller passes for ``layer_types`` stacks) goes to
+each kernel's window form. Attention options the kernels do not take yet
+(logit soft cap, sinks) raise; so does a window on the dense arena
+(``flash_decode``'s window form is not ported).
 """
 
 from __future__ import annotations
@@ -24,25 +27,32 @@ from simplellminference_tpu_torch.ops.attention.paged_prefill import (
     paged_flash_prefill)
 
 
-def _attn_opts(cfg: ModelConfig) -> float | None:
-    """sm_scale for one attention call (query_pre_attn_scalar**-0.5 when
-    set, else the kernels' D**-0.5); the window and soft cap of the JAX
-    version are not ported yet."""
-    if cfg.sliding_window is not None or cfg.layer_types is not None:
-        raise NotImplementedError("sliding-window attention")
+_UNSET = object()
+
+
+def _attn_opts(cfg: ModelConfig, window=_UNSET):
+    """(window, sm_scale) for one attention call (dispatch.py:68-79):
+    ``window`` defaults to cfg.sliding_window, and alternating
+    sliding/full stacks (``layer_types``) pass each layer's; sm_scale is
+    query_pre_attn_scalar**-0.5 when set, else None (the kernels'
+    D**-0.5). The soft cap and sinks of the JAX version are not ported
+    yet."""
     if cfg.attn_logit_softcap:
         raise NotImplementedError("attention logit soft cap")
     if cfg.attn_sinks:
         raise NotImplementedError("attention sinks")
-    return (None if cfg.query_pre_attn_scalar is None
-            else cfg.query_pre_attn_scalar ** -0.5)
+    w = cfg.sliding_window if window is _UNSET else window
+    sm = (None if cfg.query_pre_attn_scalar is None
+          else cfg.query_pre_attn_scalar ** -0.5)
+    return w, sm
 
 
 def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
-              v: torch.Tensor) -> torch.Tensor:
+              v: torch.Tensor, window=_UNSET) -> torch.Tensor:
     """Causal self-attention of a prompt, no cache read-back.
     q: [B, S, N, D]; k/v: [B, S, kvN, D]."""
-    return flash_prefill(q, k, v, sm_scale=_attn_opts(cfg))
+    window, sm = _attn_opts(cfg, window)
+    return flash_prefill(q, k, v, sm_scale=sm, window=window)
 
 
 def attention_cached(cfg: ModelConfig, q: torch.Tensor,
@@ -57,8 +67,9 @@ def attention_cached(cfg: ModelConfig, q: torch.Tensor,
     as ``models.llama.forward`` does."""
     if q.shape[1] != 1:
         raise ValueError(f"one query row per sequence, not {q.shape[1]}")
+    window, sm = _attn_opts(cfg)
     return flash_decode(q[:, 0], ck, cv, kv_lens, layer=layer,
-                        sm_scale=_attn_opts(cfg))[:, None]
+                        window=window, sm_scale=sm)[:, None]
 
 
 def attention_paged_prefill(cfg: ModelConfig, q: torch.Tensor,
@@ -66,33 +77,37 @@ def attention_paged_prefill(cfg: ModelConfig, q: torch.Tensor,
                             tables: torch.Tensor, kv_lens: torch.Tensor,
                             chunk_offset: torch.Tensor, layer: int,
                             pool_ks: torch.Tensor | None = None,
-                            pool_vs: torch.Tensor | None = None
-                            ) -> torch.Tensor:
+                            pool_vs: torch.Tensor | None = None,
+                            window=_UNSET) -> torch.Tensor:
     """Chunked-prefill attention through the page tables (counterpart of
     dispatch.py:140-194): row b's queries sit at absolute positions
     chunk_offset[b] + 0..S-1 and attend to every cached position
     < kv_lens[b] up to the causal frontier. q: [B, S, N, D]; pools:
     stacked [L, P+1, kvN, ps, D] with an int ``layer``, and their scale
     pools [L, P+1, kvN, ps] for INT8 KV."""
+    window, sm = _attn_opts(cfg, window)
     return paged_flash_prefill(q, pool_k, pool_v, tables, kv_lens,
-                               chunk_offset, layer, sm_scale=_attn_opts(cfg),
-                               k_scale=pool_ks, v_scale=pool_vs)
+                               chunk_offset, layer, sm_scale=sm,
+                               window=window, k_scale=pool_ks,
+                               v_scale=pool_vs)
 
 
 def attention_paged(cfg: ModelConfig, q: torch.Tensor, pool_k: torch.Tensor,
                     pool_v: torch.Tensor, tables: torch.Tensor,
                     kv_lens: torch.Tensor, layer: int,
                     pool_ks: torch.Tensor | None = None,
-                    pool_vs: torch.Tensor | None = None) -> torch.Tensor:
+                    pool_vs: torch.Tensor | None = None,
+                    window=_UNSET) -> torch.Tensor:
     """Paged decode attention (counterpart of dispatch.py:197-269).
     q: [B, S, N, D]: S = 1 is decode; S > 1 a speculative verify window,
     whose row s sits at position kv_lens - S + s. Pools: stacked
     [L, P+1, kvN, ps, D] with an int ``layer``, and their scale pools
     [L, P+1, kvN, ps] for INT8 KV."""
-    sm = _attn_opts(cfg)
+    window, sm = _attn_opts(cfg, window)
     if q.shape[1] == 1:
         return paged_flash_decode(q[:, 0], pool_k, pool_v, tables, kv_lens,
                                   layer, sm_scale=sm, k_scale=pool_ks,
-                                  v_scale=pool_vs)[:, None]
+                                  v_scale=pool_vs, window=window)[:, None]
     return paged_flash_verify(q, pool_k, pool_v, tables, kv_lens, layer,
-                              sm_scale=sm, k_scale=pool_ks, v_scale=pool_vs)
+                              sm_scale=sm, k_scale=pool_ks, v_scale=pool_vs,
+                              window=window)

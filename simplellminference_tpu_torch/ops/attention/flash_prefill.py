@@ -6,7 +6,12 @@ For CUDA tensors :func:`flash_prefill` launches the hand-written kernel of
 through shared memory up to the causal frontier, f32 online softmax); for
 CPU tensors it runs :func:`flash_prefill_ref`. Unlike the TPU dispatcher,
 which sends S % 128 != 0 to the jnp reference, the kernel takes every S.
-Sliding window, logit soft cap and sinks are not ported yet.
+
+The sliding-window form (``window``: query i attends keys with q_pos -
+k_pos < window; flash_prefill.py:50-53, :76-77) is the same kernel walking
+only the key tiles that reach the window band; on the card it is its own
+wrapper, :func:`flash_prefill_window`, with its own launch count. Logit
+soft cap and sinks are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,14 +23,25 @@ from simplellminference_tpu_torch.ops import cuda_build, ref_ops
 HEAD_DIMS = (32, 64, 128)
 
 
+def window_size(window) -> int:
+    """A sliding window as an int >= 1 (the kernels take 0 for none)."""
+    w = int(window)
+    if w < 1:
+        raise ValueError(f"sliding window {window} (must be >= 1)")
+    return w
+
+
 def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      sm_scale: float | None = None) -> torch.Tensor:
-    """Plain version: causal reference attention (f32 softmax).
+                      sm_scale: float | None = None,
+                      window: int | None = None) -> torch.Tensor:
+    """Plain version: causal reference attention (f32 softmax), keys
+    within ``window`` of each query when given.
     q: [B, S, N, D]; k/v: [B, S, kvN, D] -> [B, S, N, D]."""
     if q.is_cuda:
         flash_prefill_ref.cuda_calls += 1
     s = q.shape[1]
-    mask = ref_ops.causal_mask(s, s, device=q.device)[None, None]
+    mask = ref_ops.causal_mask(s, s, window=window,
+                               device=q.device)[None, None]
     return ref_ops.attention(q, k, v, mask, scale=sm_scale)
 
 
@@ -39,13 +55,42 @@ def _heads_contiguous(x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  sm_scale: float | None = None) -> torch.Tensor:
+                  sm_scale: float | None = None,
+                  window: int | None = None) -> torch.Tensor:
     """Causal self-attention of a (right-padded) prompt.
 
     q: [B, S, N, D]; k/v: [B, S, kvN, D] (bsnd; GQA by ``head // group``)
-    -> [B, S, N, D] in q's dtype. ``sm_scale`` defaults to D**-0.5."""
+    -> [B, S, N, D] in q's dtype. ``sm_scale`` defaults to D**-0.5;
+    ``window`` takes :func:`flash_prefill_window`."""
+    if window is not None:
+        return flash_prefill_window(q, k, v, window, sm_scale)
     if not q.is_cuda:
         return flash_prefill_ref(q, k, v, sm_scale)
+    out = _launch(q, k, v, sm_scale, 0, "flash_prefill")
+    flash_prefill.launches += 1
+    return out
+
+
+flash_prefill.launches = 0
+
+
+def flash_prefill_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         window: int,
+                         sm_scale: float | None = None) -> torch.Tensor:
+    """The sliding-window form of :func:`flash_prefill`: query i attends
+    keys i - window < j <= i."""
+    window = window_size(window)
+    if not q.is_cuda:
+        return flash_prefill_ref(q, k, v, sm_scale, window)
+    out = _launch(q, k, v, sm_scale, window, "flash_prefill_window")
+    flash_prefill_window.launches += 1
+    return out
+
+
+flash_prefill_window.launches = 0
+
+
+def _launch(q, k, v, sm_scale, window: int, what: str) -> torch.Tensor:
     b, s, n, d = q.shape
     kvn = k.shape[2]
     if k.shape != (b, s, kvn, d) or v.shape != k.shape:
@@ -69,11 +114,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-        b, s, n, n // kvn, d, scale, code,
+        b, s, n, n // kvn, d, window, scale, code,
         torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(lib, rc, "flash_prefill")
-    flash_prefill.launches += 1
+    cuda_build.check(lib, rc, what)
     return out
-
-
-flash_prefill.launches = 0

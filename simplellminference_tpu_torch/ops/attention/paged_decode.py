@@ -11,9 +11,10 @@ pools or INT8 pools with their per-token-per-head scale pools
 hand-written kernel of ``csrc/paged_decode.cu`` (one block per sequence
 and kv head holding every query row of its GQA group and window, page
 ids read from the table in the block, f32 online softmax over the live
-keys only); each form is its own wrapper with its own launch count
-(:func:`paged_flash_decode`, :func:`paged_flash_decode_int8kv`,
-:func:`paged_flash_verify`, :func:`paged_flash_verify_int8kv`). For CPU
+keys only); each form has its own launch count and a wrapper of its
+name (:func:`paged_flash_decode`, :func:`paged_flash_decode_int8kv`,
+:func:`paged_flash_verify`, :func:`paged_flash_verify_int8kv`), and a
+call counts as the form its options name. For CPU
 tensors they run the plain versions, the gather (+ dequant) + mask +
 dense reference path of the JAX dispatcher (dispatch.py:239-269).
 
@@ -22,6 +23,17 @@ INT8 KV: the kernel dequantizes late, as the TPU kernel does
 q.k, the V scale folds into p before the PV product, so the int8 codes
 enter the dot products as exact floats. The plain version dequantizes the
 gathered pages to f32 first; the two agree to f32 rounding.
+
+The sliding-window forms (``window``: row s attends keys with row_pos -
+k_pos < window; paged_decode.py:73-75, :98-101) walk the keys from the
+oldest row's first key in the window, kv_len - S - window + 1, and read
+none below it: over the grouped engine's ring pools the table columns
+below the band alias live pages of newer positions (engine.py:483-492),
+so the walk's start, not the mask, keeps the answer right. They are
+:func:`paged_flash_decode_window`,
+:func:`paged_flash_decode_int8kv_window`, :func:`paged_flash_verify_window`
+and :func:`paged_flash_verify_int8kv_window`, each with its own launch
+count.
 
 Unmapped (-1) pages inside kv_len read as zeros in both versions. The
 JAX package reads something else there — its TPU kernel clamps them to
@@ -36,6 +48,8 @@ import torch
 
 from simplellminference_tpu_torch.memory.paged_kv import gather_dense
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
+from simplellminference_tpu_torch.ops.attention.flash_prefill import (
+    window_size)
 from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
 HEAD_DIMS = (32, 64, 128)
@@ -50,21 +64,39 @@ def _check_scales(k_pool, v_pool, k_scale, v_scale) -> bool:
     return True
 
 
+def band_tables(tables: torch.Tensor, k_lo: torch.Tensor,
+                ps: int) -> torch.Tensor:
+    """``tables`` with every column that ends at or below key ``k_lo[b]``
+    unmapped (-1): the plain versions of the window forms gather, as the
+    kernels read, no page wholly below the window band (over the ring
+    pools those columns alias live pages of newer positions)."""
+    ends = (torch.arange(tables.shape[1], device=tables.device) + 1) * ps
+    keep = ends[None, :] > k_lo.to(tables.device).long()[:, None]
+    return torch.where(keep, tables, torch.full_like(tables, -1))
+
+
 def _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
-                k_scale, v_scale):
+                k_scale, v_scale, window=None):
     """Gather the pages densely (dequantized in f32 through the scale pools
-    when given), mask window row s to keys at positions <= kv_len - S + s,
-    reference attention; a row with no key is zero, as in the kernel.
+    when given), mask window row s to keys at positions <= kv_len - S + s
+    (and, with a sliding ``window``, > kv_len - S + s - window), reference
+    attention; a row with no key is zero, as in the kernel.
     q: [B, S, N, D] -> [B, S, N, D]."""
     quant = _check_scales(k_pool, v_pool, k_scale, v_scale)
+    s = q.shape[1]
+    if window is not None:
+        tables = band_tables(tables, kv_lens.long() - s - window_size(window)
+                             + 1, k_pool.shape[3])
     ck, cv = gather_dense(k_pool[layer], v_pool[layer], tables,
                           k_scale[layer] if quant else None,
                           v_scale[layer] if quant else None)
-    s = q.shape[1]
     q_pos = (kv_lens.long()[:, None] - s
              + torch.arange(s, device=q.device)[None])           # [B, S]
     key_pos = torch.arange(ck.shape[2], device=q.device)
     mask = key_pos[None, None, None, :] <= q_pos[:, None, :, None]
+    if window is not None:
+        mask = mask & (key_pos[None, None, None, :]
+                       > q_pos[:, None, :, None] - window_size(window))
     out = ref_ops.attention(q, ck.transpose(1, 2), cv.transpose(1, 2), mask,
                             scale=sm_scale)
     return torch.where((q_pos >= 0)[:, :, None, None], out,
@@ -73,13 +105,14 @@ def _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
 
 def paged_flash_decode_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
                            sm_scale: float | None = None, k_scale=None,
-                           v_scale=None) -> torch.Tensor:
-    """Plain version of :func:`paged_flash_decode` and its INT8-KV form:
-    keys at positions < kv_len; q: [B, N, D] -> [B, N, D]."""
+                           v_scale=None, window=None) -> torch.Tensor:
+    """Plain version of :func:`paged_flash_decode` and its INT8-KV and
+    window forms: keys at positions < kv_len (and >= kv_len - window);
+    q: [B, N, D] -> [B, N, D]."""
     if q.is_cuda:
         paged_flash_decode_ref.cuda_calls += 1
     return _attend_ref(q[:, None], k_pool, v_pool, tables, kv_lens, layer,
-                       sm_scale, k_scale, v_scale)[:, 0]
+                       sm_scale, k_scale, v_scale, window)[:, 0]
 
 
 paged_flash_decode_ref.cuda_calls = 0
@@ -87,14 +120,15 @@ paged_flash_decode_ref.cuda_calls = 0
 
 def paged_flash_verify_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
                            sm_scale: float | None = None, k_scale=None,
-                           v_scale=None) -> torch.Tensor:
-    """Plain version of :func:`paged_flash_verify` and its INT8-KV form,
-    the gather + mask + reference attention of the JAX dispatcher's
-    S > 1 branch (dispatch.py:239-269). q: [B, S, N, D] -> [B, S, N, D]."""
+                           v_scale=None, window=None) -> torch.Tensor:
+    """Plain version of :func:`paged_flash_verify` and its INT8-KV and
+    window forms, the gather + mask + reference attention of the JAX
+    dispatcher's S > 1 branch (dispatch.py:239-269).
+    q: [B, S, N, D] -> [B, S, N, D]."""
     if q.is_cuda:
         paged_flash_verify_ref.cuda_calls += 1
     return _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
-                       k_scale, v_scale)
+                       k_scale, v_scale, window)
 
 
 paged_flash_verify_ref.cuda_calls = 0
@@ -102,97 +136,131 @@ paged_flash_verify_ref.cuda_calls = 0
 
 def paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer: int,
                        sm_scale: float | None = None, k_scale=None,
-                       v_scale=None) -> torch.Tensor:
+                       v_scale=None, window=None) -> torch.Tensor:
     """q: [B, N, D]; k/v_pool: stacked [L, P+1, kvN, ps, D] with an int
     ``layer`` (int8 with f32 ``k_scale``/``v_scale`` [L, P+1, kvN, ps]
     for INT8 KV); tables: [B, MP] int32 (-1 = unmapped); kv_lens: [B] ->
-    out [B, N, D] in q's dtype. Keys are positions < min(kv_len, MP*ps)."""
-    if v_pool is None:
-        raise NotImplementedError("shared-KV pools (absorbed MLA)")
-    quant = _check_scales(k_pool, v_pool, k_scale, v_scale)
-    if not q.is_cuda:
-        return paged_flash_decode_ref(q, k_pool, v_pool, tables, kv_lens,
-                                      layer, sm_scale, k_scale, v_scale)
-    if quant:
-        return paged_flash_decode_int8kv(q, k_pool, v_pool, k_scale,
-                                         v_scale, tables, kv_lens, layer,
-                                         sm_scale)
-    if not (q.dtype == k_pool.dtype == v_pool.dtype):
-        raise NotImplementedError(
-            f"q {q.dtype} with {k_pool.dtype} pools (quantized KV)")
-    out = _launch(q[:, None], k_pool, v_pool, None, None, tables, kv_lens,
-                  layer, sm_scale, "paged_flash_decode")[:, 0]
-    paged_flash_decode.launches += 1
-    return out
+    out [B, N, D] in q's dtype. Keys are positions < min(kv_len, MP*ps),
+    and >= kv_len - ``window`` with a sliding window. The launch counts
+    as the form the options name (4, 4q, 4w, 4qw)."""
+    return _run("paged_flash_decode", q[:, None], k_pool, v_pool, k_scale,
+                v_scale, tables, kv_lens, layer, sm_scale, window)[:, 0]
 
 
-paged_flash_decode.launches = 0
+def paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer: int,
+                       sm_scale: float | None = None, k_scale=None,
+                       v_scale=None, window=None) -> torch.Tensor:
+    """Multi-row decode windows (the speculative verify step): q
+    [B, S, N, D], where row s sits at position kv_len - S + s and attends
+    the keys at positions <= that one, through the same page walk as
+    :func:`paged_flash_decode` (KV traffic of one decode step). Pools,
+    tables, scale pools and ``window`` as there; out [B, S, N, D] in q's
+    dtype. The launch counts as the form the options name (4v, 4vq, 4vw,
+    4vqw)."""
+    return _run("paged_flash_verify", q, k_pool, v_pool, k_scale, v_scale,
+                tables, kv_lens, layer, sm_scale, window)
+
+
+def paged_flash_decode_window(q, k_pool, v_pool, tables, kv_lens,
+                              layer: int, window: int,
+                              sm_scale: float | None = None) -> torch.Tensor:
+    """4w: :func:`paged_flash_decode` over keys kv_len - window ..
+    kv_len - 1; no page below them is read."""
+    return paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer,
+                              sm_scale, window=window_size(window))
 
 
 def paged_flash_decode_int8kv(q, k_pool, v_pool, k_scale, v_scale, tables,
                               kv_lens, layer: int,
                               sm_scale: float | None = None) -> torch.Tensor:
-    """The INT8-KV form of :func:`paged_flash_decode`: q [B, N, D] bf16 or
-    f32 against int8 pools and their f32 scale pools; out in q's dtype."""
-    if not q.is_cuda:
-        return paged_flash_decode_ref(q, k_pool, v_pool, tables, kv_lens,
-                                      layer, sm_scale, k_scale, v_scale)
-    _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale)
-    out = _launch(q[:, None], k_pool, v_pool, k_scale, v_scale, tables,
-                  kv_lens, layer, sm_scale, "paged_flash_decode_int8kv")[:, 0]
-    paged_flash_decode_int8kv.launches += 1
-    return out
+    """4q: :func:`paged_flash_decode` of q [B, N, D] bf16 or f32 against
+    int8 pools and their f32 scale pools; out in q's dtype."""
+    check_scale_pools(k_pool, v_pool, k_scale, v_scale)
+    return paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer,
+                              sm_scale, k_scale, v_scale)
 
 
-paged_flash_decode_int8kv.launches = 0
+def paged_flash_decode_int8kv_window(q, k_pool, v_pool, k_scale, v_scale,
+                                     tables, kv_lens, layer: int,
+                                     window: int,
+                                     sm_scale: float | None = None
+                                     ) -> torch.Tensor:
+    """4qw: :func:`paged_flash_decode_int8kv` with a sliding window."""
+    check_scale_pools(k_pool, v_pool, k_scale, v_scale)
+    return paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer,
+                              sm_scale, k_scale, v_scale, window_size(window))
 
 
-def paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer: int,
-                       sm_scale: float | None = None, k_scale=None,
-                       v_scale=None) -> torch.Tensor:
-    """Multi-row decode windows (the speculative verify step): q
-    [B, S, N, D], where row s sits at position kv_len - S + s and attends
-    the keys at positions <= that one, through the same page walk as
-    :func:`paged_flash_decode` (KV traffic of one decode step). Pools,
-    tables and scale pools as there; out [B, S, N, D] in q's dtype."""
-    if v_pool is None:
-        raise NotImplementedError("shared-KV pools (absorbed MLA)")
-    quant = _check_scales(k_pool, v_pool, k_scale, v_scale)
-    if not q.is_cuda:
-        return paged_flash_verify_ref(q, k_pool, v_pool, tables, kv_lens,
-                                      layer, sm_scale, k_scale, v_scale)
-    if quant:
-        return paged_flash_verify_int8kv(q, k_pool, v_pool, k_scale,
-                                         v_scale, tables, kv_lens, layer,
-                                         sm_scale)
-    if not (q.dtype == k_pool.dtype == v_pool.dtype):
-        raise NotImplementedError(
-            f"q {q.dtype} with {k_pool.dtype} pools (quantized KV)")
-    out = _launch(q, k_pool, v_pool, None, None, tables, kv_lens, layer,
-                  sm_scale, "paged_flash_verify")
-    paged_flash_verify.launches += 1
-    return out
-
-
-paged_flash_verify.launches = 0
+def paged_flash_verify_window(q, k_pool, v_pool, tables, kv_lens,
+                              layer: int, window: int,
+                              sm_scale: float | None = None) -> torch.Tensor:
+    """4vw: :func:`paged_flash_verify` where row s attends keys
+    kv_len - S + s - window < k_pos <= kv_len - S + s; no page below the
+    oldest row's band is read."""
+    return paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer,
+                              sm_scale, window=window_size(window))
 
 
 def paged_flash_verify_int8kv(q, k_pool, v_pool, k_scale, v_scale, tables,
                               kv_lens, layer: int,
                               sm_scale: float | None = None) -> torch.Tensor:
-    """The INT8-KV form of :func:`paged_flash_verify`: q [B, S, N, D] bf16
-    or f32 against int8 pools and their f32 scale pools."""
+    """4vq: :func:`paged_flash_verify` of q [B, S, N, D] bf16 or f32
+    against int8 pools and their f32 scale pools."""
+    check_scale_pools(k_pool, v_pool, k_scale, v_scale)
+    return paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer,
+                              sm_scale, k_scale, v_scale)
+
+
+def paged_flash_verify_int8kv_window(q, k_pool, v_pool, k_scale, v_scale,
+                                     tables, kv_lens, layer: int,
+                                     window: int,
+                                     sm_scale: float | None = None
+                                     ) -> torch.Tensor:
+    """4vqw: :func:`paged_flash_verify_int8kv` with a sliding window."""
+    check_scale_pools(k_pool, v_pool, k_scale, v_scale)
+    return paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer,
+                              sm_scale, k_scale, v_scale, window_size(window))
+
+
+# name -> the form whose launch count a call adds to
+_FORMS = {f.__name__: f for f in (
+    paged_flash_decode, paged_flash_decode_int8kv, paged_flash_decode_window,
+    paged_flash_decode_int8kv_window, paged_flash_verify,
+    paged_flash_verify_int8kv, paged_flash_verify_window,
+    paged_flash_verify_int8kv_window)}
+for _f in _FORMS.values():
+    _f.launches = 0
+
+
+def _run(name, q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
+         sm_scale, window):
+    """Every form's body on q [B, S, N, D]: the plain version for CPU
+    tensors; for CUDA tensors the kernel, one launch added to the count
+    of the form the options name (``name``, ``_int8kv`` with scale pools,
+    ``_window`` with a window)."""
+    if v_pool is None:
+        raise NotImplementedError("shared-KV pools (absorbed MLA)")
+    quant = _check_scales(k_pool, v_pool, k_scale, v_scale)
+    if window is not None:
+        window = window_size(window)
     if not q.is_cuda:
-        return paged_flash_verify_ref(q, k_pool, v_pool, tables, kv_lens,
-                                      layer, sm_scale, k_scale, v_scale)
-    _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale)
+        return _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer,
+                           sm_scale, k_scale, v_scale, window)
+    if quant:
+        _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale)
+    else:
+        _check_float_pools(q, k_pool, v_pool)
+    form = _FORMS[name + "_int8kv" * quant + "_window" * (window is not None)]
     out = _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
-                  layer, sm_scale, "paged_flash_verify_int8kv")
-    paged_flash_verify_int8kv.launches += 1
+                  layer, sm_scale, window or 0, form.__name__)
+    form.launches += 1
     return out
 
 
-paged_flash_verify_int8kv.launches = 0
+def _check_float_pools(q, k_pool, v_pool):
+    if not (q.dtype == k_pool.dtype == v_pool.dtype):
+        raise NotImplementedError(
+            f"q {q.dtype} with {k_pool.dtype} pools (quantized KV)")
 
 
 def _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale):
@@ -202,7 +270,7 @@ def _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale):
 
 
 def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
-            sm_scale, what):
+            sm_scale, window: int, what):
     """The kernel on q [B, S, N, D] (S = 1: decode) -> [B, S, N, D]."""
     b, s, n, d = q.shape
     n_layers, p1, kvn, ps, pd = k_pool.shape
@@ -237,7 +305,7 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
         v_pool.data_ptr(), 0 if k_scale is None else k_scale.data_ptr(),
         0 if v_scale is None else v_scale.data_ptr(),
         tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), b, layer, p1,
-        kvn, ps, tables.shape[1], n // kvn, s, d, scale, code,
+        kvn, ps, tables.shape[1], n // kvn, s, d, window, scale, code,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, rc, what)
     return out

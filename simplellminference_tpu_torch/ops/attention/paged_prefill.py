@@ -15,8 +15,9 @@ dense reference of the JAX dispatcher (dispatch.py:172-194).
 INT8 KV (int8 pools with ``k_scale``/``v_scale`` [L, P+1, kvN, ps] f32):
 the kernel dequantizes each staged K/V element in f32 and rounds it to
 q's dtype, as the TPU kernel dequantizes its page slabs
-(paged_prefill.py:105-110); the INT8-KV form is its own wrapper,
-:func:`paged_flash_prefill_int8kv`, with its own launch count. The plain
+(paged_prefill.py:105-110); the INT8-KV form has a wrapper of its name,
+:func:`paged_flash_prefill_int8kv`, and its own launch count, and a call
+counts as the form its options name. The plain
 version does the same to the gathered pages (dequantize in f32, round to
 q's dtype): in f32 that is the JAX CPU path (dispatch.py:182-194); with
 bf16 q the JAX CPU path keeps f32 K/V, and the rounding moved the
@@ -28,8 +29,16 @@ dispatcher Sq % 128 == 0). ``bq`` and ``pages_per_block``, the TPU's MXU
 block knobs (paged_prefill.py:13-21, :180-182), have no counterpart.
 Unmapped (-1) pages inside kv_len read as zeros in both versions, as in
 :func:`~simplellminference_tpu_torch.memory.paged_kv.gather_dense`.
-Sliding window, logit soft cap, sinks and shared-KV (absorbed MLA) pools
-are not ported yet and raise.
+
+The sliding-window forms (``window``: query q_pos attends keys q_pos -
+window < k_pos <= q_pos; paged_prefill.py:90-92, :131-132) start each q
+tile's key walk at its oldest row's first key and read no key below it,
+which keeps the grouped engine's ring pools right (a column below the
+band aliases the live page of a newer position). They are
+:func:`paged_flash_prefill_window` and
+:func:`paged_flash_prefill_int8kv_window`, each with its own launch count.
+Logit soft cap, sinks and shared-KV (absorbed MLA) pools are not ported
+yet and raise.
 """
 
 from __future__ import annotations
@@ -38,6 +47,10 @@ import torch
 
 from simplellminference_tpu_torch.memory.paged_kv import gather_dense
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
+from simplellminference_tpu_torch.ops.attention.flash_prefill import (
+    window_size)
+from simplellminference_tpu_torch.ops.attention.paged_decode import (
+    band_tables)
 from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
 HEAD_DIMS = (32, 64, 128)
@@ -50,7 +63,7 @@ def _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
     if v_pool is None:
         raise NotImplementedError("shared-KV pools (absorbed MLA)")
     if window is not None:
-        raise NotImplementedError("sliding-window attention")
+        window_size(window)
     if logit_cap:
         raise NotImplementedError("attention logit soft cap")
     if sinks is not None:
@@ -67,13 +80,18 @@ def paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
                             k_scale=None, v_scale=None) -> torch.Tensor:
     """Plain version: gather the pages densely (dequantized in f32 through
     the scale pools when given, then rounded to q's dtype as the kernel
-    rounds), mask key_pos <= q_pos and key_pos < kv_len per element,
-    reference attention.
+    rounds), mask key_pos <= q_pos and key_pos < kv_len per element (and
+    key_pos > q_pos - window with a sliding window, the pages wholly below
+    the band left ungathered), reference attention.
     q: [B, Sq, N, D] -> [B, Sq, N, D]."""
     quant = _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
                            v_scale)
     if q.is_cuda:
         paged_flash_prefill_ref.cuda_calls += 1
+    if window is not None:
+        # no page below the oldest row's band: chunk_offset - window + 1
+        tables = band_tables(tables, chunk_offset.long() - int(window) + 1,
+                             k_pool.shape[3])
     ck, cv = gather_dense(k_pool[layer], v_pool[layer], tables,
                           k_scale[layer] if quant else None,
                           v_scale[layer] if quant else None)
@@ -86,6 +104,8 @@ def paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
              + torch.arange(s, device=q.device)[None])            # [B, Sq]
     mask = ((key_pos <= q_pos[:, None, :, None])
             & (key_pos < kv_lens.long().to(q.device)[:, None, None, None]))
+    if window is not None:
+        mask = mask & (key_pos > q_pos[:, None, :, None] - int(window))
     return ref_ops.attention(q, ck.transpose(1, 2), cv.transpose(1, 2),
                              mask, scale=sm_scale)
 
@@ -103,53 +123,84 @@ def paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
     tables: [B, MP] int32 (-1 = unmapped); kv_lens: [B] valid tokens
     after the chunk's write; chunk_offset: [B] -> out [B, Sq, N, D] in q's
     dtype. Keys are positions < min(kv_len, MP*ps) up to each row's
-    position."""
+    position, and within ``window`` of it with a sliding window. The
+    launch counts as the form the options name (8, 8q, 8w, 8qw)."""
     quant = _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
                            v_scale)
+    if window is not None:
+        window = window_size(window)
     if not q.is_cuda:
         return paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens,
                                        chunk_offset, layer, sm_scale,
-                                       k_scale=k_scale, v_scale=v_scale)
+                                       window=window, k_scale=k_scale,
+                                       v_scale=v_scale)
     if quant:
-        return paged_flash_prefill_int8kv(q, k_pool, v_pool, k_scale,
-                                          v_scale, tables, kv_lens,
-                                          chunk_offset, layer, sm_scale)
-    if not (q.dtype == k_pool.dtype == v_pool.dtype):
-        raise NotImplementedError(
-            f"q {q.dtype} with {k_pool.dtype} pools (quantized KV)")
-    out = _launch(q, k_pool, v_pool, None, None, tables, kv_lens,
-                  chunk_offset, layer, sm_scale, "paged_flash_prefill")
-    paged_flash_prefill.launches += 1
+        _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale)
+    else:
+        _check_float_pools(q, k_pool, v_pool)
+    form = _FORMS[quant, window is not None]
+    out = _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
+                  chunk_offset, layer, sm_scale, window or 0, form.__name__)
+    form.launches += 1
     return out
 
 
-paged_flash_prefill.launches = 0
+def paged_flash_prefill_window(q, k_pool, v_pool, tables, kv_lens,
+                               chunk_offset, layer: int, window: int,
+                               sm_scale: float | None = None) -> torch.Tensor:
+    """8w: :func:`paged_flash_prefill` with a sliding window."""
+    return paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens,
+                               chunk_offset, layer, sm_scale,
+                               window=window_size(window))
 
 
 def paged_flash_prefill_int8kv(q, k_pool, v_pool, k_scale, v_scale, tables,
                                kv_lens, chunk_offset, layer: int,
                                sm_scale: float | None = None) -> torch.Tensor:
-    """The INT8-KV form of :func:`paged_flash_prefill`: q [B, Sq, N, D]
-    bf16 or f32 against int8 pools and their f32 scale pools; out in q's
-    dtype."""
-    if not q.is_cuda:
-        return paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens,
-                                       chunk_offset, layer, sm_scale,
-                                       k_scale=k_scale, v_scale=v_scale)
+    """8q: :func:`paged_flash_prefill` of q [B, Sq, N, D] bf16 or f32
+    against int8 pools and their f32 scale pools; out in q's dtype."""
+    check_scale_pools(k_pool, v_pool, k_scale, v_scale)
+    return paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens,
+                               chunk_offset, layer, sm_scale,
+                               k_scale=k_scale, v_scale=v_scale)
+
+
+def paged_flash_prefill_int8kv_window(q, k_pool, v_pool, k_scale, v_scale,
+                                      tables, kv_lens, chunk_offset,
+                                      layer: int, window: int,
+                                      sm_scale: float | None = None
+                                      ) -> torch.Tensor:
+    """8qw: :func:`paged_flash_prefill_int8kv` with a sliding window."""
+    check_scale_pools(k_pool, v_pool, k_scale, v_scale)
+    return paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens,
+                               chunk_offset, layer, sm_scale,
+                               window=window_size(window), k_scale=k_scale,
+                               v_scale=v_scale)
+
+
+# (INT8 KV, sliding window) -> the form whose launch count a call adds to
+_FORMS = {(False, False): paged_flash_prefill,
+          (False, True): paged_flash_prefill_window,
+          (True, False): paged_flash_prefill_int8kv,
+          (True, True): paged_flash_prefill_int8kv_window}
+for _f in _FORMS.values():
+    _f.launches = 0
+
+
+def _check_float_pools(q, k_pool, v_pool):
+    if not (q.dtype == k_pool.dtype == v_pool.dtype):
+        raise NotImplementedError(
+            f"q {q.dtype} with {k_pool.dtype} pools (quantized KV)")
+
+
+def _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale):
     check_scale_pools(k_pool, v_pool, k_scale, v_scale)
     if any(t.device != q.device for t in (k_scale, v_scale)):
         raise ValueError("q and the scale pools must share a device")
-    out = _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
-                  chunk_offset, layer, sm_scale, "paged_flash_prefill_int8kv")
-    paged_flash_prefill_int8kv.launches += 1
-    return out
-
-
-paged_flash_prefill_int8kv.launches = 0
 
 
 def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
-            chunk_offset, layer, sm_scale, what):
+            chunk_offset, layer, sm_scale, window: int, what):
     b, s, n, d = q.shape
     n_layers, p1, kvn, ps, pd = k_pool.shape
     if pd != d or v_pool.shape != k_pool.shape:
@@ -184,7 +235,7 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
         v_pool.data_ptr(), 0 if k_scale is None else k_scale.data_ptr(),
         0 if v_scale is None else v_scale.data_ptr(), tables.data_ptr(),
         kv_lens.data_ptr(), offs.data_ptr(), out.data_ptr(), b, s, n, layer,
-        p1, kvn, ps, tables.shape[1], n // kvn, d, scale, code,
+        p1, kvn, ps, tables.shape[1], n // kvn, d, window, scale, code,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, rc, what)
     return out

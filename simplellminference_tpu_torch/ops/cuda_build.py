@@ -48,12 +48,13 @@ _SIGNATURES = {
                                        _L, _P, _I, _I, _I, _I, _I, _I, _I,
                                        _I, _I, _P],
     "sli_flash_prefill": [_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _L,
-                          _I, _I, _I, _I, _I, _F, _I, _P],
+                          _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "sli_paged_flash_decode": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                               _P],
     "sli_paged_flash_prefill": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                                _I, _P],
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _F, _I, _P],
     "sli_quantized_matmul": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P],
     "sli_quantized_matmul_int4": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -72,6 +73,11 @@ _SIGNATURES = {
     "sli_qkv_fused_dense": [_P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P,
                             _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                             _P],
+    "sli_wo_ffn_max_grid": [_I, _P],
+    "sli_wo_ffn": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                   _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
+    "sli_flash_decode_dyn": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _F, _I, _P],
 }
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}

@@ -38,8 +38,14 @@ its own wrapper, :func:`fused_qkv_append_dense`, with its own launch
 count; its quantizing (INT8-KV) form stays paged-only and raises, as the
 JAX wrapper asserts (qkv_fused.py:291-292).
 
-Not ported: a cache layer different from the weight layer (``kv_layer``,
-sliding ring pools); it raises.
+The ``kv_layer`` form (qkv_fused.py:294-299, the grouped engine's ring
+pools): the pools are indexed by ``kv_layer`` (the windowed group's local
+layer) while the weights and the norm keep the global ``layer``. The
+kernel indexes the pools only by the layer it is given, so the form needs
+no kernel change; over bf16/f32 pools it is its own wrapper,
+:func:`fused_qkv_append_kv_layer` (6k), with its own launch count, and
+the quantizing wrapper takes ``kv_layer`` too (INT8 ring pools). The dense
+arena has no caller with a kv_layer and raises for one.
 """
 
 from __future__ import annotations
@@ -65,9 +71,10 @@ def _check(x, pool_k, pool_v, tables, cache_ks, cache_vs, kv_layer,
         raise NotImplementedError("INT8 KV on a dense KV arena (tables="
                                   "None): the quantizing append is a "
                                   "paged-pool path")
-    if kv_layer is not None and int(kv_layer) != int(layer):
-        raise NotImplementedError("a KV layer apart from the weight layer "
-                                  "(kv_layer: sliding ring pools)")
+    if (tables is None and kv_layer is not None
+            and int(kv_layer) != int(layer)):
+        raise NotImplementedError("kv_layer apart from the weight layer on "
+                                  "a dense KV arena (tables=None)")
     if x.ndim != 2:
         raise ValueError(f"x must be [B, H], got {tuple(x.shape)}")
     if cache_ks is None and cache_vs is None:
@@ -92,11 +99,13 @@ def fused_qkv_append_ref(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
                          kv_heads: int | None = None, eps: float = 1e-5,
                          tables=None, cache_ks=None, cache_vs=None,
                          kv_layer=None):
-    """Plain version of :func:`fused_qkv_append` (pools in place)."""
+    """Plain version of :func:`fused_qkv_append` (pools in place, at
+    ``kv_layer`` when given)."""
     if x.is_cuda:
         fused_qkv_append_ref.cuda_calls += 1
     quant = _check(x, pool_k, pool_v, tables, cache_ks, cache_vs, kv_layer,
                    layer)
+    kli = layer if kv_layer is None else int(kv_layer)
     n, kvn, d = _heads(wq, pool_k, n_heads, kv_heads)
     b = x.shape[0]
     xf = x.float()
@@ -119,12 +128,12 @@ def fused_qkv_append_ref(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
     if quant:
         paged_append_decode_quant_ref(pool_k, pool_v, cache_ks, cache_vs,
                                       k.to(x.dtype), v.to(x.dtype), tables,
-                                      offsets, layer)
+                                      offsets, kli)
         return q.to(x.dtype), pool_k, pool_v, cache_ks, cache_vs
     if tables is None:
-        kv_append_ref(pool_k, pool_v, k[:, None], v[:, None], layer, offsets)
+        kv_append_ref(pool_k, pool_v, k[:, None], v[:, None], kli, offsets)
     else:
-        paged_append_decode_ref(pool_k, pool_v, k, v, tables, offsets, layer)
+        paged_append_decode_ref(pool_k, pool_v, k, v, tables, offsets, kli)
     return q.to(x.dtype), pool_k, pool_v
 
 
@@ -146,7 +155,8 @@ def fused_qkv_append(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
     k/v rows already written in place. With the scale pools
     ``cache_ks``/``cache_vs`` [L, P+1, kvN, ps] f32 of int8 pools, k/v
     are quantized into them and (q, pool_k, pool_v, cache_ks, cache_vs)
-    come back."""
+    come back. ``kv_layer``: the pool layer, when it is not ``layer``
+    (the grouped engine's ring pools)."""
     quant = _check(x, pool_k, pool_v, tables, cache_ks, cache_vs, kv_layer,
                    layer)
     if not x.is_cuda:
@@ -158,20 +168,48 @@ def fused_qkv_append(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
         return fused_qkv_append_int8kv(x, norm_w, wq, ws, sin, cos, pool_k,
                                        pool_v, cache_ks, cache_vs, layer,
                                        offsets, n_heads, kv_heads, eps,
-                                       tables)
+                                       tables, kv_layer)
     if tables is None:
         return fused_qkv_append_dense(x, norm_w, wq, ws, sin, cos, pool_k,
                                       pool_v, layer, offsets, n_heads,
                                       kv_heads, eps)
+    if kv_layer is not None:
+        return fused_qkv_append_kv_layer(x, norm_w, wq, ws, sin, cos, pool_k,
+                                         pool_v, layer, kv_layer, offsets,
+                                         tables, n_heads, kv_heads, eps)
     _check_pools(pool_k, pool_v, x, layer)
     q = _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, None, None,
-                layer, offsets, n_heads, kv_heads, eps, tables,
+                layer, layer, offsets, n_heads, kv_heads, eps, tables,
                 "fused_qkv_append")
     fused_qkv_append.launches += 1
     return q, pool_k, pool_v
 
 
 fused_qkv_append.launches = 0
+
+
+def fused_qkv_append_kv_layer(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
+                              layer: int, kv_layer: int, offsets, tables,
+                              n_heads: int | None = None,
+                              kv_heads: int | None = None,
+                              eps: float = 1e-5):
+    """The kv_layer form of :func:`fused_qkv_append` (6k): weights and
+    norm of ``layer``, k/v written into the bf16/f32 pools at
+    ``kv_layer``. Returns (q, pool_k, pool_v)."""
+    if not x.is_cuda:
+        return fused_qkv_append_ref(x, norm_w, wq, ws, sin, cos, pool_k,
+                                    pool_v, layer, offsets, n_heads,
+                                    kv_heads, eps, tables, kv_layer=kv_layer)
+    _check(x, pool_k, pool_v, tables, None, None, kv_layer, layer)
+    _check_pools(pool_k, pool_v, x, int(kv_layer))
+    q = _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, None, None,
+                layer, int(kv_layer), offsets, n_heads, kv_heads, eps, tables,
+                "fused_qkv_append_kv_layer")
+    fused_qkv_append_kv_layer.launches += 1
+    return q, pool_k, pool_v
+
+
+fused_qkv_append_kv_layer.launches = 0
 
 
 def fused_qkv_append_dense(x, norm_w, wq, ws, sin, cos, cache_k, cache_v,
@@ -190,7 +228,7 @@ def fused_qkv_append_dense(x, norm_w, wq, ws, sin, cos, cache_k, cache_v,
         raise ValueError(f"{x.shape[0]} rows for an arena of "
                          f"{cache_k.shape[1]} rows")
     q = _launch(x, norm_w, wq, ws, sin, cos, cache_k, cache_v, None, None,
-                layer, offsets, n_heads, kv_heads, eps, None,
+                layer, layer, offsets, n_heads, kv_heads, eps, None,
                 "fused_qkv_append_dense")
     fused_qkv_append_dense.launches += 1
     return q, cache_k, cache_v
@@ -203,19 +241,20 @@ def fused_qkv_append_int8kv(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
                             cache_ks, cache_vs, layer: int, offsets,
                             n_heads: int | None = None,
                             kv_heads: int | None = None, eps: float = 1e-5,
-                            tables=None):
+                            tables=None, kv_layer=None):
     """The quantizing form of :func:`fused_qkv_append` (INT8 KV): int8
-    pools with their f32 scale pools. Returns (q, pool_k, pool_v,
-    cache_ks, cache_vs)."""
+    pools with their f32 scale pools, written at ``kv_layer`` when given
+    (INT8 ring pools). Returns (q, pool_k, pool_v, cache_ks, cache_vs)."""
     if not x.is_cuda:
         return fused_qkv_append_ref(x, norm_w, wq, ws, sin, cos, pool_k,
                                     pool_v, layer, offsets, n_heads,
                                     kv_heads, eps, tables, cache_ks,
-                                    cache_vs)
-    _check(x, pool_k, pool_v, tables, cache_ks, cache_vs, None, layer)
-    _check_quant_pools(pool_k, pool_v, cache_ks, cache_vs, x, layer)
+                                    cache_vs, kv_layer)
+    _check(x, pool_k, pool_v, tables, cache_ks, cache_vs, kv_layer, layer)
+    kli = layer if kv_layer is None else int(kv_layer)
+    _check_quant_pools(pool_k, pool_v, cache_ks, cache_vs, x, kli)
     q = _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, cache_ks,
-                cache_vs, layer, offsets, n_heads, kv_heads, eps, tables,
+                cache_vs, layer, kli, offsets, n_heads, kv_heads, eps, tables,
                 "fused_qkv_append_int8kv")
     fused_qkv_append_int8kv.launches += 1
     return q, pool_k, pool_v, cache_ks, cache_vs
@@ -225,7 +264,7 @@ fused_qkv_append_int8kv.launches = 0
 
 
 def _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, cache_ks, cache_vs,
-            layer, offsets, n_heads, kv_heads, eps, tables, what):
+            layer, kv_layer, offsets, n_heads, kv_heads, eps, tables, what):
     n, kvn, d = _heads(wq, pool_k, n_heads, kv_heads)
     b, h = x.shape
     n_layers, p1, _, ps, _ = pool_k.shape
@@ -273,7 +312,7 @@ def _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, cache_ks, cache_vs,
         0 if cache_ks is None else cache_ks.data_ptr(),
         0 if cache_vs is None else cache_vs.data_ptr(),
         int(pool_k.dtype == torch.bfloat16), out.data_ptr(),
-        tables.data_ptr(), offsets.data_ptr(), layer, p1, kvn, ps,
+        tables.data_ptr(), offsets.data_ptr(), kv_layer, p1, kvn, ps,
         tables.shape[1], b, h, n, d, float(eps),
         cuda_build.dtype_code(x.dtype), vec, stream)
     cuda_build.check(lib, rc, what)

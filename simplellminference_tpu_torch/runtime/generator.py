@@ -54,7 +54,7 @@ class Generator:
                  device=None):
         """``device``: CUDA unless ``device="cpu"``; ``params`` must live
         there. ``kv_dtype``: the arena's dtype (default the model's)."""
-        llama.check_supported(cfg)
+        llama.check_dense_supported(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "

@@ -113,6 +113,6 @@ def test_attention_paged_dispatch_shapes():
     out3 = dispatch.attention_paged(cfg, q3, *args, 0)
     assert out3.shape == (2, 3, 4, 32)
     assert torch.equal(out3, paged_flash_verify(q3, *args, 0))
-    with pytest.raises(NotImplementedError):
-        dispatch.attention_paged(ModelConfig.tiny_test(sliding_window=4), q3,
-                                 *args, 0)
+    with pytest.raises(NotImplementedError, match="soft cap"):
+        dispatch.attention_paged(
+            ModelConfig.tiny_test(attn_logit_softcap=50.0), q3, *args, 0)

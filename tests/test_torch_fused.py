@@ -191,4 +191,4 @@ def test_fused_qkv_append_unported_forms_raise():
     with pytest.raises(NotImplementedError, match="INT8 KV"):
         tqkv.fused_qkv_append(**base, tables=tables, cache_ks=pools[..., 0])
     with pytest.raises(NotImplementedError, match="kv_layer"):
-        tqkv.fused_qkv_append(**base, tables=tables, kv_layer=0)
+        tqkv.fused_qkv_append(**base, kv_layer=0)     # the dense arena

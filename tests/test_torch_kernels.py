@@ -1007,3 +1007,237 @@ def test_int4_and_w8a8_engines_run_the_kernels_only_and_match_cpu(cuda):
         else:                                   # codes may part by a step
             assert all(len(o) == 10 for o in outs[1])
     assert [f.cuda_calls for f in refs] == calls
+
+
+# ------------------------------------------------------- sliding windows
+# The window forms 3w, 4w/4qw/4vw/4vqw and 8w/8qw at the attention
+# tolerances against their plain versions, at windows off a page multiple
+# and kv_lens on both sides of them; over ring tables whose columns below
+# the oldest row's band point at NaN pages, which neither version reads
+# (the outputs stay finite and equal the clean run's); 6k at the fused qkv
+# tolerances with kv_layer != layer; the grouped engine on the kernels
+# only and equal to the CPU.
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [1, 6, 200])
+def test_flash_prefill_window(cuda, dtype, window):
+    g = torch.Generator(device=cuda).manual_seed(window)
+    s, n, kvn, d = 300, 8, 2, 128
+    q = torch.randn((2, s, n, d), generator=g, device=cuda, dtype=dtype)
+    k = torch.randn((2, s, kvn, d), generator=g, device=cuda, dtype=dtype)
+    v = torch.randn((2, s, kvn, d), generator=g, device=cuda, dtype=dtype)
+    before = (fp.flash_prefill_window.launches, fp.flash_prefill.launches)
+    got = fp.flash_prefill(q, k, v, window=window)
+    assert (fp.flash_prefill_window.launches,
+            fp.flash_prefill.launches) == (before[0] + 1, before[1])
+    want = fp.flash_prefill_ref(q, k, v, window=window)
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
+
+
+def _ring_case(g, dev, dtype, int8, b, r, mp, kvn, d, ps):
+    """Ring pools (b slots x r pages, 4 NaN poison pages, the trash page)
+    and the ring tables (column j of slot s -> s*r + j % r)."""
+    shape = (2, b * r + 5, kvn, ps, d)
+    if int8:
+        pk, sk = pa.quantize_kv(torch.randn(shape, generator=g, device=dev))
+        pv, sv = pa.quantize_kv(torch.randn(shape, generator=g, device=dev))
+        sk[:, b * r:b * r + 4] = float("nan")
+        sv[:, b * r:b * r + 4] = float("nan")
+        pools = [pk, pv, sk, sv]
+    else:
+        pk = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+        pv = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+        pk[:, b * r:b * r + 4] = float("nan")
+        pv[:, b * r:b * r + 4] = float("nan")
+        pools = [pk, pv]
+    ring = (torch.arange(b, device=dev)[:, None] * r
+            + torch.arange(mp, device=dev)[None] % r).to(torch.int32)
+    return pools, ring
+
+
+def _poisoned(ring, k_lo, ps, first):
+    """The ring tables with every column that ends at or below k_lo[b]
+    pointing at a NaN page."""
+    tb = ring.clone()
+    ends = (torch.arange(ring.shape[1], device=ring.device) + 1) * ps
+    below = ends[None, :] <= k_lo[:, None]
+    tb[below] = first + (torch.arange(ring.shape[1], device=ring.device)
+                         [None].expand_as(ring)[below] % 4).to(torch.int32)
+    return tb
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float-kv", "int8-kv"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [1, 5])
+def test_paged_flash_decode_window_reads_only_the_band(cuda, int8, dtype, s):
+    g = torch.Generator(device=cuda).manual_seed(s + 10 * int8)
+    b, r, mp, kvn, n, d, ps, window = 4, 4, 8, 8, 32, 128, 128, 200
+    pools, ring = _ring_case(g, cuda, dtype, int8, b, r, mp, kvn, d, ps)
+    kv = torch.tensor([150, 201, 640, 1000], dtype=torch.int32, device=cuda)
+    q = torch.randn((b, s, n, d), generator=g, device=cuda, dtype=dtype)
+    scales = dict(k_scale=pools[2], v_scale=pools[3]) if int8 else {}
+    if s == 1:
+        fn, ref = pd.paged_flash_decode, pd.paged_flash_decode_ref
+        kern = (pd.paged_flash_decode_int8kv_window if int8
+                else pd.paged_flash_decode_window)
+        q = q[:, 0]
+    else:
+        fn, ref = pd.paged_flash_verify, pd.paged_flash_verify_ref
+        kern = (pd.paged_flash_verify_int8kv_window if int8
+                else pd.paged_flash_verify_window)
+    dirty = _poisoned(ring, kv.long() - s - window + 1, ps, b * r)
+    before = kern.launches
+    got = fn(q, pools[0], pools[1], dirty, kv, 1, window=window, **scales)
+    assert kern.launches == before + 1
+    clean = fn(q, pools[0], pools[1], ring, kv, 1, window=window, **scales)
+    want = ref(q, pools[0], pools[1], ring, kv, 1, window=window, **scales)
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, clean)
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float-kv", "int8-kv"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_flash_prefill_window_reads_only_the_band(cuda, int8, dtype):
+    g = torch.Generator(device=cuda).manual_seed(7 + int8)
+    b, r, mp, kvn, n, d, ps, window = 2, 5, 8, 8, 32, 128, 128, 200
+    pools, ring = _ring_case(g, cuda, dtype, int8, b, r, mp, kvn, d, ps)
+    offs = torch.tensor([256, 512], dtype=torch.int32, device=cuda)
+    kv = offs + torch.tensor([256, 100], dtype=torch.int32, device=cuda)
+    q = torch.randn((b, 256, n, d), generator=g, device=cuda, dtype=dtype)
+    scales = dict(k_scale=pools[2], v_scale=pools[3]) if int8 else {}
+    kern = (pp.paged_flash_prefill_int8kv_window if int8
+            else pp.paged_flash_prefill_window)
+    dirty = _poisoned(ring, offs.long() - window + 1, ps, b * r)
+    before = kern.launches
+    got = pp.paged_flash_prefill(q, pools[0], pools[1], dirty, kv, offs, 1,
+                                 window=window, **scales)
+    assert kern.launches == before + 1
+    clean = pp.paged_flash_prefill(q, pools[0], pools[1], ring, kv, offs, 1,
+                                   window=window, **scales)
+    want = pp.paged_flash_prefill_ref(q, pools[0], pools[1], ring, kv, offs,
+                                      1, window=window, **scales)
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, clean)
+    for i in range(b):
+        live = int(kv[i] - offs[i])
+        err = (got[i, :live].float() - want[i, :live].float()).abs().max()
+        assert float(err) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("xdt", DTYPES)
+def test_fused_qkv_append_kv_layer(cuda, xdt):
+    g = torch.Generator(device=cuda).manual_seed(61)
+    n, kvn, d, h, ps, L = 32, 8, 128, 512, 16, 2
+    nq = (n + 2 * kvn) * d
+    wq, ws = _qw(g, cuda, (L, h, nq), 1)
+    nw = torch.rand((L, h), generator=g, device=cuda).to(xdt) + 0.5
+    x = torch.randn((3, h), generator=g, device=cuda).to(xdt)
+    pos = torch.tensor([5, 20, 40], dtype=torch.int32, device=cuda)
+    tables = torch.tensor([[3, 7, 1], [0, 5, 8], [2, 4, 6]],
+                          dtype=torch.int32, device=cuda)
+    sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
+    pk, pv = _pools(g, cuda, xdt, b=3, kvn=kvn, ps=ps, d=d, mp=3)
+    a, r = (pk.clone(), pv.clone()), (pk.clone(), pv.clone())
+    before = (qf.fused_qkv_append_kv_layer.launches,
+              qf.fused_qkv_append.launches)
+    qa, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, *a, 1, pos,
+                                 tables=tables, kv_layer=0)
+    assert (qf.fused_qkv_append_kv_layer.launches,
+            qf.fused_qkv_append.launches) == (before[0] + 1, before[1])
+    qr, *_ = qf.fused_qkv_append_ref(x, nw, wq, ws, sin, cos, *r, 1, pos,
+                                     tables=tables, kv_layer=0)
+    tol = 1e-5 if xdt == torch.float32 else 2e-2
+    assert float((qa.float() - qr.float()).abs().max()) <= tol * float(
+        qr.float().std())
+    for x_a, x_r, x_0 in zip(a, r, (pk, pv)):
+        assert torch.equal(x_a[1], x_0[1])          # weight layer untouched
+        w_r = x_r[0].float()
+        assert float((x_a[0].float() - w_r).abs().max()) <= tol * float(
+            w_r.std())
+
+
+def test_grouped_engine_runs_the_kernels_only_and_matches_cpu(cuda):
+    # all-sliding and alternating stacks, float and INT8 weights, f32 and
+    # INT8 KV, chunked prefill and a verify span: the window forms and 6k
+    # run on the card, no plain version runs, tokens equal the CPU's
+    refs = (fp.flash_prefill_ref, pd.paged_flash_decode_ref,
+            pd.paged_flash_verify_ref, pp.paged_flash_prefill_ref,
+            qf.fused_qkv_append_ref, ff.fused_ffn_ref,
+            mm.quantized_matmul_ref)
+    calls = [f.cuda_calls for f in refs]
+    kerns = (fp.flash_prefill_window, pd.paged_flash_decode_window,
+             pp.paged_flash_prefill_window, qf.fused_qkv_append_kv_layer,
+             pd.paged_flash_verify_window)
+    before = [f.launches for f in kerns]
+    prompts = [list(range(1, 40)), [7, 3, 9] * 3, list(range(50, 61))]
+    for types in (None, ("sliding_attention", "full_attention")):
+        cfg = ModelConfig.tiny_test(num_layers=2, sliding_window=13,
+                                    layer_types=types)
+        for spec, kv_dtype in ((0, "f32"), (3, "f32"), (0, "int8")):
+            ecfg = EngineConfig(max_batch_size=3, prefill_chunk=16,
+                                spec_tokens=spec,
+                                kv=KVCacheConfig(page_size=8, num_pages=64,
+                                                 max_pages_per_seq=10,
+                                                 kv_dtype=kv_dtype))
+            for p in (llama.init_params(cfg, seed=5, device="cpu"),
+                      _int8_params(cfg, 5, "cpu")):
+                outs = [Engine(cfg, pp_, ecfg, decode_burst=4,
+                               device=dev).generate(
+                    prompts, SamplingParams(max_new_tokens=12))
+                    for pp_, dev in ((p, "cpu"), (_to(p, cuda), cuda))]
+                assert outs[0] == outs[1]
+    assert all(f.launches > n for f, n in zip(kerns, before))
+    assert [f.cuda_calls for f in refs] == calls
+
+
+# ---------------------------------------------------- kernels 16 and 17
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [3, 8, 40])
+def test_fused_wo_ffn(cuda, dtype, m):
+    g = torch.Generator(device=cuda).manual_seed(m + 1)
+    L, h, nd, inter = 2, 512, 640, 1408
+    wq, ws = _qw(g, cuda, (L, nd, h), 1)
+    q1, s1 = _qw(g, cuda, (L, h, 2 * inter), 1)
+    q2, s2 = _qw(g, cuda, (L, inter, h), 1)
+    nw = torch.rand((L, h), generator=g, device=cuda).to(dtype) + 0.5
+    attn = torch.randn((m, nd), generator=g, device=cuda).to(dtype)
+    x = torch.randn((m, h), generator=g, device=cuda).to(dtype)
+    before = ff.fused_wo_ffn.launches
+    got = ff.fused_wo_ffn(attn, x, wq, ws, nw, q1, s1, q2, s2, 1)
+    assert ff.fused_wo_ffn.launches == before + 1
+    want = ff.fused_wo_ffn_ref(attn, x, wq, ws, nw, q1, s1, q2, s2, 1)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    sd = float(want.float().std())
+    assert float((got.float() - want.float()).abs().max()) <= tol * sd
+    # a grid past what the card holds at once would deadlock: refused
+    most = ff.wo_ffn_max_grid(dtype)
+    assert most > 0
+    with pytest.raises(RuntimeError, match="cooperative grid"):
+        ff._fused_wo_ffn_launch(attn, x, wq, ws, nw, q1, s1, q2, s2, 1,
+                                1e-5, most + 1)
+    small = ff._fused_wo_ffn_launch(attn, x, wq, ws, nw, q1, s1, q2, s2, 1,
+                                    1e-5, 3)
+    assert float((small.float() - want.float()).abs().max()) <= tol * sd
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bk", [128, 256])
+@pytest.mark.parametrize("n,kvn", [(32, 32), (32, 8)])
+def test_flash_decode_dyn(cuda, dtype, bk, n, kvn):
+    from simplellminference_tpu_torch.ops.attention import flash_decode_dyn
+
+    g = torch.Generator(device=cuda).manual_seed(bk + kvn)
+    shape = (2, 6, kvn, 512, 128)
+    ck = torch.randn(shape, generator=g, device=cuda, dtype=dtype)
+    cv = torch.randn(shape, generator=g, device=cuda, dtype=dtype)
+    q = torch.randn((5, n, 128), generator=g, device=cuda, dtype=dtype)
+    kv = torch.tensor([0, 1, 33, 300, 512], dtype=torch.int32, device=cuda)
+    kern = flash_decode_dyn.flash_decode_dyn
+    before = kern.launches
+    got = kern(q, ck, cv, kv, bk=bk, layer=1)
+    assert kern.launches == before + 1
+    want = flash_decode_dyn.flash_decode_dyn_ref(q, ck, cv, kv, layer=1)
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
+    assert not got[0].any()          # kv_len 0 -> zero output
+    other = kern(q, ck, cv, kv, bk=384 - bk, layer=1)
+    assert torch.equal(got, other)   # bk does not change the result

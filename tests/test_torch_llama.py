@@ -73,7 +73,7 @@ def test_init_params_layout_matches_jax(model):
 @pytest.mark.parametrize("override,feature", [
     (dict(num_experts=4), "mixture-of-experts"),
     (dict(attention_bias=True), "QKV bias"),
-    (dict(sliding_window=16), "sliding-window"),
+    (dict(attn_logit_softcap=50.0), "soft cap"),
     (dict(hidden_act="gelu"), "activation"),
 ])
 def test_unsupported_model_features_raise(override, feature):

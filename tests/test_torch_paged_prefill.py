@@ -121,7 +121,7 @@ def test_plain_matches_jax_dispatch_any_sq(s, offs, lens):
 
 
 @pytest.mark.parametrize("kw,feature", [
-    (dict(window=16), "sliding-window"),
+    (dict(window=16, sinks=torch.zeros(4)), "sinks"),   # gpt-oss form
     (dict(logit_cap=30.0), "soft cap"),
     (dict(sinks=torch.zeros(4)), "sinks"),
     (dict(k_scale=torch.ones(1)), "INT8 KV"),     # no V scale pool
