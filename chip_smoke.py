@@ -44,7 +44,14 @@ Phases, in order; any failure exits non-zero:
                 Llama-2-7B and Mistral-7B widths, m = 8, and an
                 oversubscribed cooperative grid refused) and 17
                 (flash_decode_dyn at the `dense` arena, bk 128 and 256
-                equal), which no path runs; max |error| beside
+                equal), which no path runs. Every form of the decode
+                attention kernel (4*, 13) is held to one bf16 ulp of each
+                output (+ 1e-5 of the largest), with split-edge cases
+                (kv_len 0, 1, each boundary of the key splits +- 1, a dead
+                slot) and timed at the long step's shape too (B 8, kv_len
+                4096); kernel 5 is timed at `mistral_window`'s 256-row
+                chunk and at M 16, 64 and 65, its tensor-core regime
+                (quantized_matmul_mma) apart. Max |error| beside
                 its tolerance, kernel / plain / library times from
                 CUDA-graph replay, and the bound (the least time for the
                 bytes and operations of the call on an H100 SXM:
@@ -116,16 +123,17 @@ Phases, in order; any failure exits non-zero:
                 CPU's greedy trace, by the same rule, and equal
                 speculative metrics. Then the Generator, the self-drafted
                 Engine and quantize_params; INT4 (quantize_params, group
-                128) and AWQ (params from a seeded in-memory fetcher)
-                through the Engine and the Generator; and W8A8 over
-                group-128 INT8 weights, the Engine also on prefix
-                traffic, the card carrying on with the CPU's activation
-                codes (its own within one step of them). Last, sliding
-                windows at Mistral-7B width (2 layers, window 4096, f32):
-                one 4224-token prompt through the grouped pools in
-                256-row chunks and 320 new tokens, logits of every step
-                within 1e-3, greedy tokens equal, and the card's grouped
-                Engine to the CPU's tokens.
+                128) through the Engine and the Generator, AWQ (params
+                from a seeded in-memory fetcher) through the Engine; and
+                W8A8 over group-128 INT8 weights, the Engine also on
+                prefix traffic, the card carrying on with the CPU's
+                activation codes (its own within one step of them).
+                Last, sliding windows at Mistral-7B width (2 layers,
+                window 4096, f32): one 4448-token prompt through the
+                grouped pools in 256-row chunks and 40 new tokens (the
+                ring wraps), logits of every step within 1e-3, greedy
+                tokens equal, and the card's grouped Engine to the CPU's
+                tokens.
 
 Then one line ``{"kernels": [...]}`` (each kernel's launches on every
 path, and in phase 3: kernels 16 and 17 run only there) and, last, the
@@ -152,8 +160,8 @@ PEAK_OPS = {"bfloat16": 989e12,     # dense tensor-core bf16
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # the INT8 kernels: f32 outputs within this share of the output's largest
 # magnitude (f32 sums in another order); bf16 outputs of quantized_matmul
-# and of the attention kernels of the newest slice (the window forms, 17)
-# within one bf16 ulp beyond that; the fused kernels (which also round
+# and of the decode attention kernels (every form of 4, 13, 17) within one
+# bf16 ulp beyond that; the fused kernels (which also round
 # intermediates to bf16) within TOL["bfloat16"] of the output's standard
 # deviation
 F32_REL = 1e-5
@@ -186,6 +194,11 @@ KERNELS = {
         replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
     "quantized_matmul": dict(
         source="simplellminference_tpu_torch/csrc/quantized_matmul.cu",
+        replaces="simplellminference_tpu/ops/matmul.py:522"),
+    # kernel 5's tensor-core regime (M > 8, bf16 activations): its
+    # launches apart; quantized_matmul's count holds every regime's
+    "quantized_matmul_mma": dict(
+        source="simplellminference_tpu_torch/csrc/quantized_matmul_mma.cu",
         replaces="simplellminference_tpu/ops/matmul.py:522"),
     "fused_qkv_append": dict(
         source="simplellminference_tpu_torch/csrc/qkv_fused.cu",
@@ -540,26 +553,78 @@ def check_flash_prefill(torch, dev, results):
     results["flash_prefill"] = main
 
 
-def check_paged_decode(torch, dev, results):
+def _split_edge_lens(kvn, span, wins=1, rows=1):
+    """Batches of kv_lens for the split edges of kernel 4's key walk: 1,
+    every boundary of the splits over the whole span +- 1 and the span
+    itself, each batch as large as keeps more than one split (a wave of two
+    blocks per SM), sequence 0 at kv_len 0, the last a pad (a dead slot's
+    row where the caller wants one)."""
+    from simplellminference_tpu_torch.ops.attention import paged_decode as pd
+    rb = pd.row_blocks(rows)
+    b = max(i for i in range(2, 65) if pd.decode_splits(i, kvn, span, rb) > 1)
+    z = pd.decode_splits(b, kvn, span, rb)
+    cuts = [lo for lo, _hi in pd.split_keys(span, wins, 0, span, z)][1:]
+    edges = sorted({min(span, c + e) for c in cuts for e in (-1, 0, 1)}
+                   | {1, span - 1, span})
+    require(b >= 4, f"split edges: {b} sequences")
+    return [([0] + edges[i:i + b - 2] + [wins + 7 * j for j in range(b)])[:b]
+            for i in range(0, len(edges), b - 2)]
+
+
+def _attn_check(torch, name, tag, got, want, dead=None):
+    """Kernel 4's forms and 13 against their plain versions by
+    :func:`_rounding_rule`; rows ``dead`` (kv_len 0, or an all -1 table)
+    must be zero."""
+    ok, err, share, note = _rounding_rule(torch, got, want)
+    zero = all(bool((got[i] == 0).all()) for i in (dead or []))
+    print(f"[kernels] {name} {tag}: max|err| {err:.3e} ({note}; the worst "
+          f"element at {share:.3f} of its limit); rows without keys zero: "
+          f"{zero}", flush=True)
+    require(bool(torch.isfinite(got).all()) and ok and zero,
+            f"{name} {tag} disagrees: {err}, {share}, zero rows {zero}")
+    return err
+
+
+def _decode_bytes(torch, tables, kv_lens, ps, per_key):
+    """KV bytes kernel 4 must read: each key below kv_len in a mapped page
+    (an unmapped page reads as zeros without touching memory) once, per
+    kv head ``per_key`` bytes of K and V. Returns (bytes, live keys)."""
+    mp = tables.shape[1]
+    key_pos = torch.arange(mp * ps, device=tables.device)
+    mapped = tables.long().repeat_interleave(ps, dim=1) >= 0
+    live = int((mapped & (key_pos[None] < kv_lens.long()[:, None])).sum())
+    return live * per_key, live
+
+
+def check_paged_decode(torch, dev, results, extra):
+    """Kernel 4 against its plain version by the rounding rule: the bench
+    shape (the row: 8 live rows at kv_len 128-156, as the engine's decode,
+    7B), GQA f32 and bf16 with a dead slot (all -1 table, kv_len 129), the
+    split edges (kv_len 0, 1, each split boundary +- 1, the span; MHA at
+    D 128 and GQA at D 64, a dead slot) and the long step's shape (B 8,
+    kv_len 4096, 7B; timed)."""
     import torch.nn.functional as F
 
     from simplellminference_tpu_torch.memory.paged_kv import gather_dense
     from simplellminference_tpu_torch.ops.attention.paged_decode import (
         paged_flash_decode, paged_flash_decode_ref)
     gen = torch.Generator(device=dev).manual_seed(4)
-    main = None
-    # the main case has 8 live rows, as the engine's decode does; the GQA
-    # cases end with a dead slot (all -1 table, kv_len 129)
+    bf, f32 = torch.bfloat16, torch.float32
+    # tag: (n, kvn, d, dtype, lens, mp, dead slot)
     cases = {
-        "llama2-7b": (8, 32, 32, 128, torch.bfloat16,
-                      [128 + 4 * i for i in range(8)], False),
-        "gqa-f32": (6, 32, 4, 64, torch.float32, [1, 5, 128, 200, 0, 129],
-                    True),
-        "gqa-bf16": (6, 32, 4, 64, torch.bfloat16, [1, 5, 128, 200, 0, 129],
-                     True),
+        "llama2-7b": (32, 32, 128, bf, [128 + 4 * i for i in range(8)], 2,
+                      False),
+        "gqa-f32": (32, 4, 64, f32, [1, 5, 128, 200, 0, 129], 2, True),
+        "gqa-bf16": (32, 4, 64, bf, [1, 5, 128, 200, 0, 129], 2, True),
+        "llama2-7b kv_len 4096": (32, 32, 128, bf, [4096] * 8, 32, False),
     }
-    for tag, (b, n, kvn, d, dtype, lens, dead) in cases.items():
-        ps, mp, layer = 128, 2, 1
+    for i, lens in enumerate(_split_edge_lens(32, 2048)):
+        cases[f"split edges mha-bf16 {i}"] = (32, 32, 128, bf, lens, 16, True)
+    for i, lens in enumerate(_split_edge_lens(4, 2048, rows=8)):
+        cases[f"split edges gqa-f32 {i}"] = (32, 4, 64, f32, lens, 16, True)
+    timed = ("llama2-7b", "llama2-7b kv_len 4096")
+    for tag, (n, kvn, d, dtype, lens, mp, dead) in cases.items():
+        b, ps, layer = len(lens), 128, 1
         pk, pv = _pools(torch, gen, dev, 2, b * mp, kvn, ps, d, dtype)
         q = torch.randn((b, n, d), generator=gen, device=dev, dtype=dtype)
         tables = _tables(torch, dev, b, mp, dead_last=dead)
@@ -567,39 +632,31 @@ def check_paged_decode(torch, dev, results):
         got = paged_flash_decode(q, pk, pv, tables, kv_lens, layer)
         want = paged_flash_decode_ref(q, pk, pv, tables, kv_lens, layer)
         torch.cuda.synchronize()
-        err = max_err(got, want)
-        tol = TOL[dname(torch, dtype)]
-        print(f"[kernels] paged_flash_decode {tag}: max|err| {err:.3e} "
-              f"(tol {tol:g})", flush=True)
-        require(bool(torch.isfinite(got).all()) and err <= tol,
-                f"paged_flash_decode {tag} disagrees: {err}")
-        if main is None:
-            ck, cv = gather_dense(pk[layer], pv[layer], tables)
-            smax = ck.shape[2]
-            mask = (torch.arange(smax, device=dev)[None, None, None, :]
-                    < kv_lens.long()[:, None, None, None])
-            q4 = q[:, :, None]
-            es = q.element_size()
-            # keys the kernel reads: those below kv_len in mapped pages
-            # (an unmapped page is read as zeros without touching memory)
-            key_pos = torch.arange(mp * ps, device=dev)
-            mapped = tables.long().repeat_interleave(ps, dim=1) >= 0
-            live = int((mapped & (key_pos[None] < kv_lens.long()[:, None]))
-                       .sum())
-            nbytes = (2 * b * n * d * es + 2 * live * kvn * d * es
-                      + tables.numel() * 4 + b * 4)
-            ops = 4.0 * n * d * live
-            bms, by = bound_ms(nbytes, ops, dname(torch, dtype))
-            main = dict(
-                max_abs_err=err,
-                ms=time_ms(torch, lambda: paged_flash_decode(
-                    q, pk, pv, tables, kv_lens, layer)),
-                plain_ms=time_ms(torch, lambda: paged_flash_decode_ref(
-                    q, pk, pv, tables, kv_lens, layer)),
-                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    q4, ck, cv, attn_mask=mask)),
-                bound_ms=bms, bound_by=by)
-    results["paged_flash_decode"] = main
+        zero = [i for i in range(b) if lens[i] == 0] + [b - 1] * dead
+        err = _attn_check(torch, "paged_flash_decode", tag, got, want, zero)
+        if tag not in timed:
+            continue
+        ck, cv = gather_dense(pk[layer], pv[layer], tables)
+        mask = (torch.arange(ck.shape[2], device=dev)[None, None, None, :]
+                < kv_lens.long()[:, None, None, None])
+        q4 = q[:, :, None]
+        es = q.element_size()
+        kvb, live = _decode_bytes(torch, tables, kv_lens, ps,
+                                  2 * kvn * d * es)
+        nbytes = 2 * b * n * d * es + kvb + tables.numel() * 4 + b * 4
+        bms, by = bound_ms(nbytes, 4.0 * n * d * live, dname(torch, dtype))
+        res = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: paged_flash_decode(
+                q, pk, pv, tables, kv_lens, layer)),
+            plain_ms=time_ms(torch, lambda: paged_flash_decode_ref(
+                q, pk, pv, tables, kv_lens, layer)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, ck, cv, attn_mask=mask)),
+            bound_ms=bms, bound_by=by)
+        extra.append(("paged_flash_decode", tag, res))
+        results.setdefault("paged_flash_decode", res)
+        del ck, cv
 
 
 def _qweight(torch, gen, dev, shape, groups):
@@ -625,14 +682,18 @@ def _int8pack(torch, q, s, dtype):
 
 
 def check_quantized_matmul(torch, dev, results, extra):
+    from simplellminference_tpu_torch.ops import matmul as mm
     from simplellminference_tpu_torch.ops.matmul import (
         quantized_matmul, quantized_matmul_ref)
     gen = torch.Generator(device=dev).manual_seed(5)
     bf, f32 = torch.bfloat16, torch.float32
-    # tag: (m, k, n, scale groups, x dtype, out dtype); the first six
-    # are the 7B main paths' calls (wo and the LM head per decode step,
-    # wqkv at the 8 x 128-token prefill, wqkv, wo and the LM head of a
-    # spec_int8kv verify step at 8 x 5 rows), timed; the first is the row
+    # tag: (m, k, n, scale groups, x dtype, out dtype); the first twelve
+    # are timed: the 7B main paths' calls (wo and the LM head per decode
+    # step, wqkv at the 8 x 128-token prefill, wqkv, wo and the LM head of
+    # a spec_int8kv verify step at 8 x 5 rows), `mistral_window`'s chunk
+    # of 256 rows (wqkv, gate_up, down) and wo at M 16, 64 and 65; the
+    # first is the row of the few-rows and FMA regimes, the prefill wqkv
+    # the row of the tensor-core regime (quantized_matmul_mma)
     cases = {
         "llama2-7b wo decode": (8, 4096, 4096, 1, bf, bf),
         "llama2-7b lm_head decode": (8, 4096, 32000, 1, bf, f32),
@@ -640,13 +701,23 @@ def check_quantized_matmul(torch, dev, results, extra):
         "llama2-7b wqkv verify": (40, 4096, 12288, 1, bf, bf),
         "llama2-7b wo verify": (40, 4096, 4096, 1, bf, bf),
         "llama2-7b lm_head verify": (40, 4096, 32000, 1, bf, f32),
+        "mistral-7b wqkv chunk": (256, 4096, 6144, 1, bf, bf),
+        "mistral-7b gate_up chunk": (256, 4096, 28672, 1, bf, bf),
+        "mistral-7b down chunk": (256, 14336, 4096, 1, bf, bf),
+        "llama2-7b wo m16": (16, 4096, 4096, 1, bf, bf),
+        "llama2-7b wo m64": (64, 4096, 4096, 1, bf, bf),
+        "llama2-7b wo m65": (65, 4096, 4096, 1, bf, bf),
         "llama2-7b wo group128": (8, 4096, 4096, 32, bf, bf),
+        "llama2-7b wo prefill group128": (1024, 4096, 4096, 32, bf, f32),
+        "verify group32 n4000": (40, 4096, 4000, 128, bf, bf),
         "tinyllama wqkv decode f32": (8, 2048, 2560, 1, f32, f32),
         "tinyllama w_down prefill": (512, 5632, 2048, 1, bf, bf),
         "k4000 decode f32": (8, 4000, 4096, 1, f32, f32),
+        "k4000 prefill": (100, 4000, 4096, 1, bf, bf),
         "k1000 prefill group125": (100, 1000, 2048, 8, bf, f32),
+        "f32 prefill": (100, 1024, 1024, 1, f32, f32),
     }
-    timed = list(cases)[:6]
+    timed = list(cases)[:12]
     for tag, (m, k, n, groups, xdt, odt) in cases.items():
         q, s = _qweight(torch, gen, dev, (2, k, n), groups)
         x = torch.randn((m, k), generator=gen, device=dev).to(xdt)
@@ -668,8 +739,10 @@ def check_quantized_matmul(torch, dev, results, extra):
             ok = bool((diff <= ulp + slack).all())
             rule = (f"tol one bf16 ulp of each output + {slack:.3e} = "
                     f"{F32_REL:g} x max|out|")
+        regime = mm.tiled_regime(m, k, n, k // groups, xdt)
         print(f"[kernels] quantized_matmul {tag} (m={m} k={k} n={n} "
-              f"groups={groups}): max|err| {err:.3e} ({rule})", flush=True)
+              f"groups={groups}, {regime}): max|err| {err:.3e} ({rule})",
+              flush=True)
         require(bool(torch.isfinite(got).all()) and ok,
                 f"quantized_matmul {tag} disagrees: {err}")
         if tag not in timed:
@@ -698,9 +771,9 @@ def check_quantized_matmul(torch, dev, results, extra):
                 x, q, s, out_dtype=odt, layer=1), iters=5),
             library_ms=time_ms(torch, library),
             bound_ms=bms, bound_by=by, library=lib_name)
-        extra.append(("quantized_matmul", tag, r))
-        if "quantized_matmul" not in results:
-            results["quantized_matmul"] = r
+        name = "quantized_matmul" + "_mma" * (regime == "mma")
+        extra.append((name, tag, r))
+        results.setdefault(name, r)
 
 
 def check_fused_qkv(torch, dev, results, extra):
@@ -1053,23 +1126,28 @@ def _dequant_sdpa(torch, q4, pk, pv, ks, vs, tables, layer, mask):
                                           cv.to(q4.dtype), attn_mask=mask)
 
 
-def check_paged_decode_int8kv(torch, dev, results):
+def check_paged_decode_int8kv(torch, dev, results, extra):
+    """Form 4q against its plain version by the rounding rule, at kernel
+    4's cases: the bench shape (the row), GQA with a dead slot, the split
+    edges and the long step's shape (B 8, kv_len 4096; timed)."""
     from simplellminference_tpu_torch.ops.attention.paged_decode import (
         paged_flash_decode_int8kv, paged_flash_decode_ref)
     gen = torch.Generator(device=dev).manual_seed(13)
-    main = None
-    # as kernel 4's cases: 8 live rows at 7B; the GQA cases end with a
-    # dead slot (all -1 table, kv_len 129: unmapped pages, a padding row)
+    bf, f32 = torch.bfloat16, torch.float32
     cases = {
-        "llama2-7b": (8, 32, 32, 128, torch.bfloat16,
-                      [128 + 4 * i for i in range(8)], False),
-        "gqa-f32": (6, 32, 4, 64, torch.float32, [1, 5, 128, 200, 0, 129],
-                    True),
-        "gqa-bf16": (6, 32, 4, 64, torch.bfloat16, [1, 5, 128, 200, 0, 129],
-                     True),
+        "llama2-7b": (32, 32, 128, bf, [128 + 4 * i for i in range(8)], 2,
+                      False),
+        "gqa-f32": (32, 4, 64, f32, [1, 5, 128, 200, 0, 129], 2, True),
+        "gqa-bf16": (32, 4, 64, bf, [1, 5, 128, 200, 0, 129], 2, True),
+        "llama2-7b kv_len 4096": (32, 32, 128, bf, [4096] * 8, 32, False),
     }
-    for tag, (b, n, kvn, d, dtype, lens, dead) in cases.items():
-        ps, mp, layer = 128, 2, 1
+    for i, lens in enumerate(_split_edge_lens(32, 2048)):
+        cases[f"split edges mha-bf16 {i}"] = (32, 32, 128, bf, lens, 16, True)
+    for i, lens in enumerate(_split_edge_lens(4, 2048, rows=8)):
+        cases[f"split edges gqa-f32 {i}"] = (32, 4, 64, f32, lens, 16, True)
+    timed = ("llama2-7b", "llama2-7b kv_len 4096")
+    for tag, (n, kvn, d, dtype, lens, mp, dead) in cases.items():
+        b, ps, layer = len(lens), 128, 1
         pk, pv, ks, vs = _quant_pools(torch, gen, dev, 2, b * mp, kvn, ps, d)
         q = torch.randn((b, n, d), generator=gen, device=dev, dtype=dtype)
         tables = _tables(torch, dev, b, mp, dead_last=dead)
@@ -1079,38 +1157,32 @@ def check_paged_decode_int8kv(torch, dev, results):
         want = paged_flash_decode_ref(q, pk, pv, tables, kv_lens, layer,
                                       k_scale=ks, v_scale=vs)
         torch.cuda.synchronize()
-        err = max_err(got, want)
-        tol = TOL[dname(torch, dtype)]
-        print(f"[kernels] paged_flash_decode_int8kv {tag}: max|err| "
-              f"{err:.3e} (tol {tol:g})", flush=True)
-        require(bool(torch.isfinite(got).all()) and err <= tol,
-                f"paged_flash_decode_int8kv {tag} disagrees: {err}")
-        if main is None:
-            smax = mp * ps
-            mask = (torch.arange(smax, device=dev)[None, None, None, :]
-                    < kv_lens.long()[:, None, None, None])
-            key_pos = torch.arange(mp * ps, device=dev)
-            mapped = tables.long().repeat_interleave(ps, dim=1) >= 0
-            live = int((mapped & (key_pos[None] < kv_lens.long()[:, None]))
-                       .sum())
-            es = q.element_size()
-            # q in, out; each live key's int8 K and V rows and two scales
-            nbytes = (2 * b * n * d * es + live * kvn * 2 * (d + 4)
-                      + tables.numel() * 4 + b * 4)
-            bms, by = bound_ms(nbytes, 4.0 * n * d * live,
-                               dname(torch, dtype))
-            q4 = q[:, :, None]
-            main = dict(
-                max_abs_err=err,
-                ms=time_ms(torch, lambda: paged_flash_decode_int8kv(
-                    q, pk, pv, ks, vs, tables, kv_lens, layer)),
-                plain_ms=time_ms(torch, lambda: paged_flash_decode_ref(
-                    q, pk, pv, tables, kv_lens, layer, k_scale=ks,
-                    v_scale=vs)),
-                library_ms=time_ms(torch, lambda: _dequant_sdpa(
-                    torch, q4, pk, pv, ks, vs, tables, layer, mask)),
-                bound_ms=bms, bound_by=by)
-    results["paged_flash_decode_int8kv"] = main
+        zero = [i for i in range(b) if lens[i] == 0] + [b - 1] * dead
+        err = _attn_check(torch, "paged_flash_decode_int8kv", tag, got, want,
+                          zero)
+        if tag not in timed:
+            continue
+        mask = (torch.arange(mp * ps, device=dev)[None, None, None, :]
+                < kv_lens.long()[:, None, None, None])
+        es = q.element_size()
+        # q in, out; each live key's int8 K and V rows and two scales
+        kvb, live = _decode_bytes(torch, tables, kv_lens, ps,
+                                  kvn * 2 * (d + 4))
+        nbytes = 2 * b * n * d * es + kvb + tables.numel() * 4 + b * 4
+        bms, by = bound_ms(nbytes, 4.0 * n * d * live, dname(torch, dtype))
+        q4 = q[:, :, None]
+        res = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: paged_flash_decode_int8kv(
+                q, pk, pv, ks, vs, tables, kv_lens, layer)),
+            plain_ms=time_ms(torch, lambda: paged_flash_decode_ref(
+                q, pk, pv, tables, kv_lens, layer, k_scale=ks,
+                v_scale=vs)),
+            library_ms=time_ms(torch, lambda: _dequant_sdpa(
+                torch, q4, pk, pv, ks, vs, tables, layer, mask)),
+            bound_ms=bms, bound_by=by)
+        extra.append(("paged_flash_decode_int8kv", tag, res))
+        results.setdefault("paged_flash_decode_int8kv", res)
 
 
 def check_paged_prefill_int8kv(torch, dev, results, extra):
@@ -1349,55 +1421,49 @@ def check_append_span(torch, dev, results):
     results["paged_append_span"] = main
 
 
-def _verify_inputs(torch, gen, dev, b, s, n, kvn, d, dtype, lens, quant):
-    ps, mp, layer = 128, 2, 1
-    if quant:
-        pools = _quant_pools(torch, gen, dev, 2, b * mp, kvn, ps, d)
-    else:
-        pools = _pools(torch, gen, dev, 2, b * mp, kvn, ps, d, dtype)
-    q = torch.randn((b, s, n, d), generator=gen, device=dev, dtype=dtype)
-    tables = _tables(torch, dev, b, mp, dead_last=False)
-    kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
-    return pools, q, tables, kv_lens, layer
-
-
-def check_paged_verify(torch, dev, results, quant: bool):
-    """Kernel 4v (``quant``: 4vq) against its plain version at S in {1, 2,
-    5, 8}, with GQA (N=32, kvN=8) and without (N=kvN=32), f32 and bf16;
-    timed at the spec paths' call (7B, 8 sequences x 5 rows, kv_len
-    ~152)."""
+def check_paged_verify(torch, dev, results, extra, quant: bool):
+    """Kernel 4v (``quant``: 4vq) against its plain version by the rounding
+    rule at S in {1, 2, 5, 8}, with GQA (N=32, kvN=8) and without
+    (N=kvN=32), f32 and bf16, kv_len 0 and across a page; the split edges
+    at S 5 (GQA bf16); timed at the spec paths' 8 x 5-row call (the row)
+    and at long context (kv_len 4096)."""
     from simplellminference_tpu_torch.ops.attention.paged_decode import (
         paged_flash_verify, paged_flash_verify_int8kv, paged_flash_verify_ref)
     name = "paged_flash_verify" + ("_int8kv" if quant else "")
     kern = paged_flash_verify_int8kv if quant else paged_flash_verify
     gen = torch.Generator(device=dev).manual_seed(17 + quant)
-    main = None
-    cases = [("llama2-7b", 5, 32, 32, torch.bfloat16)]
+    bf = torch.bfloat16
+    # tag: (S, n, kvn, dtype, lens, mp)
+    cases = [("llama2-7b", 5, 32, 32, bf, [147 + 2 * i for i in range(8)],
+              2)]
     cases += [(f"{'gqa' if kvn < n else 'mha'} S={s} {dname(torch, dt)}", s,
-               n, kvn, dt)
+               n, kvn, dt, [s, 128, 129, 200, 0, 57 + s, 255, 130], 2)
               for s in (1, 2, 5, 8) for n, kvn in ((32, 8), (32, 32))
               for dt in (torch.float32, torch.bfloat16)]
-    for tag, s, n, kvn, dtype in cases:
-        b, d = 8, 128
-        # 7B: the spec paths' contexts; the rest also cross a page and
-        # hold a row with no keys at all (kv_len 0)
-        lens = ([147 + 2 * i for i in range(b)] if main is None
-                else [s, 128, 129, 200, 0, 57 + s, 255, 130])
-        (pk, pv, *sc), q, tables, kv_lens, layer = _verify_inputs(
-            torch, gen, dev, b, s, n, kvn, d, dtype, lens, quant)
+    cases += [(f"split edges gqa S=5 bfloat16 {i}", 5, 32, 8, bf, lens, 16)
+              for i, lens in enumerate(
+                  _split_edge_lens(8, 2048, wins=5, rows=20))]
+    cases += [("llama2-7b kv_len 4096", 5, 32, 32, bf, [4096] * 8, 33)]
+    timed = ("llama2-7b", "llama2-7b kv_len 4096")
+    for tag, s, n, kvn, dtype, lens, mp in cases:
+        b, d, ps, layer = len(lens), 128, 128, 1
+        if quant:
+            pools = _quant_pools(torch, gen, dev, 2, b * mp, kvn, ps, d)
+        else:
+            pools = _pools(torch, gen, dev, 2, b * mp, kvn, ps, d, dtype)
+        pk, pv, *sc = pools
+        q = torch.randn((b, s, n, d), generator=gen, device=dev, dtype=dtype)
+        tables = _tables(torch, dev, b, mp, dead_last=False)
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
         scales = dict(k_scale=sc[0], v_scale=sc[1]) if quant else {}
         args = (q, pk, pv) + ((sc[0], sc[1]) if quant else ())
         got = kern(*args, tables, kv_lens, layer)
         want = paged_flash_verify_ref(q, pk, pv, tables, kv_lens, layer,
                                       **scales)
         torch.cuda.synchronize()
-        err = max_err(got, want)
-        tol = TOL[dname(torch, dtype)]
-        print(f"[kernels] {name} {tag}: max|err| {err:.3e} (tol {tol:g})",
-              flush=True)
-        require(bool(torch.isfinite(got).all()) and err <= tol,
-                f"{name} {tag} disagrees: {err}")
-        if main is not None:
+        err = _attn_check(torch, name, tag, got, want,
+                          [i for i in range(b) if lens[i] == 0])
+        if tag not in timed:
             continue
         # what these inputs need: row s of sequence i attends its keys at
         # positions <= kv_len - S + s; each sequence's K/V rows once
@@ -1426,14 +1492,15 @@ def check_paged_verify(torch, dev, results, quant: bool):
             def library():
                 return F.scaled_dot_product_attention(qt, ck, cv,
                                                       attn_mask=mask)
-        main = dict(
+        res = dict(
             max_abs_err=err,
             ms=time_ms(torch, lambda: kern(*args, tables, kv_lens, layer)),
             plain_ms=time_ms(torch, lambda: paged_flash_verify_ref(
                 q, pk, pv, tables, kv_lens, layer, **scales)),
             library_ms=time_ms(torch, library),
             bound_ms=bms, bound_by=by)
-    results[name] = main
+        extra.append((name, tag, res))
+        results.setdefault(name, res)
 
 
 def _arena(torch, gen, dev, layers, rows, kvn, smax, d, dtype):
@@ -1561,6 +1628,9 @@ def check_flash_decode(torch, dev, results, extra):
                                   [0, 1, 161, dslots - 1, dslots,
                                    dslots + 5, 4097, 128, 1]),
     }
+    for i, edge in enumerate(_split_edge_lens(4, 2048, rows=8)):
+        cases[f"split edges gqa bf16 {i}"] = (2, len(edge), len(edge) + 1, 32,
+                                              4, 64, 2048, bf, edge)
     timed = ("llama2-7b", "draft rollout")
     for tag, (nl, b, rows, n, kvn, d, smax, dtype, lens) in cases.items():
         layer = nl - 1
@@ -1570,15 +1640,10 @@ def check_flash_decode(torch, dev, results, extra):
         got = flash_decode(q, ck, cv, kv_lens, layer=layer)
         want = flash_decode_ref(q, ck, cv, kv_lens, layer=layer)
         torch.cuda.synchronize()
-        err = max_err(got, want)
-        tol = TOL[dname(torch, dtype)]
-        zero = all(bool((got[i] == 0).all()) for i in range(b)
-                   if lens[i] == 0)
-        print(f"[kernels] flash_decode {tag} (B={b} N={n} kvN={kvn} D={d} "
-              f"L={nl} Smax={smax}): max|err| {err:.3e} (tol {tol:g}); kv_len 0 "
-              f"rows zero: {zero}", flush=True)
-        require(bool(torch.isfinite(got).all()) and err <= tol and zero,
-                f"flash_decode {tag} disagrees: {err}, zero rows {zero}")
+        err = _attn_check(torch, "flash_decode",
+                          f"{tag} (B={b} N={n} kvN={kvn} D={d} L={nl} "
+                          f"Smax={smax})", got, want,
+                          [i for i in range(b) if lens[i] <= 0])
         if tag not in timed:
             continue
         live = sum(min(ln, smax) for ln in lens)
@@ -2484,6 +2549,7 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
            "paged_flash_decode": "scaled_dot_product_attention on gathered "
                                  "K/V",
            "quantized_matmul": "torch._weight_int8pack_mm",
+           "quantized_matmul_mma": "torch.matmul on the bf16 weight",
            "fused_qkv_append": "torch._weight_int8pack_mm of the qkv "
                                "product alone",
            "fused_ffn": "torch._weight_int8pack_mm x2 (gate_up, down)",
@@ -2553,19 +2619,19 @@ def phase_kernels(torch, results):
     check_append_decode(torch, dev, results)
     check_append_prefill(torch, dev, results)
     check_flash_prefill(torch, dev, results)
-    check_paged_decode(torch, dev, results)
+    check_paged_decode(torch, dev, results, extra)
     check_quantized_matmul(torch, dev, results, extra)
     check_fused_qkv(torch, dev, results, extra)
     check_fused_ffn(torch, dev, results, extra)
     check_paged_prefill(torch, dev, results, extra)
     check_append_decode_quant(torch, dev, results)
     check_append_prefill_quant(torch, dev, results)
-    check_paged_decode_int8kv(torch, dev, results)
+    check_paged_decode_int8kv(torch, dev, results, extra)
     check_fused_qkv_int8kv(torch, dev, results, extra)
     check_paged_prefill_int8kv(torch, dev, results, extra)
     check_append_span(torch, dev, results)
-    check_paged_verify(torch, dev, results, quant=False)
-    check_paged_verify(torch, dev, results, quant=True)
+    check_paged_verify(torch, dev, results, extra, quant=False)
+    check_paged_verify(torch, dev, results, extra, quant=True)
     check_kv_append(torch, dev, results, extra)
     check_flash_decode(torch, dev, results, extra)
     check_fused_qkv_dense(torch, dev, results)
@@ -2592,6 +2658,23 @@ def phase_kernels(torch, results):
               f"{r['bound_ms']:.6g} by {r['bound_by']})", flush=True)
 
 
+class _Regime:
+    """The launch count of one regime of a wrapper with a kernel per
+    regime (kernel 5: ``matmul.REGIME_LAUNCHES``), read and reset like a
+    wrapper's own ``launches``."""
+
+    def __init__(self, counts: dict, key: str):
+        self.counts, self.key = counts, key
+
+    @property
+    def launches(self) -> int:
+        return self.counts[self.key]
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.counts[self.key] = n
+
+
 def _wrappers():
     from simplellminference_tpu_torch.ops import ffn_fused as ff
     from simplellminference_tpu_torch.ops import kv_append as ka
@@ -2613,6 +2696,8 @@ def _wrappers():
                                    pd.paged_flash_decode_ref),
             "quantized_matmul": (mm.quantized_matmul,
                                  mm.quantized_matmul_ref),
+            "quantized_matmul_mma": (_Regime(mm.REGIME_LAUNCHES, "mma"),
+                                     mm.quantized_matmul_ref),
             "fused_qkv_append": (qf.fused_qkv_append,
                                  qf.fused_qkv_append_ref),
             "fused_ffn": (ff.fused_ffn, ff.fused_ffn_ref),
@@ -2768,7 +2853,10 @@ def path_launches(int8: bool, layers: int, dispatches, steps: int,
     every dispatch and step on the INT4 kernel, K/V written as with bf16
     weights. ``act_quant`` (INT8 weights): a dispatch of m >= 128 rows
     runs its 4 layer products on the W8A8 kernel, the head (last rows
-    only) on quantized_matmul."""
+    only) on quantized_matmul. Every quantized_matmul of more than 8 rows
+    (bf16 activations, per-channel scales) also counts as one of its
+    tensor-core regime (quantized_matmul_mma); the head's rows (the
+    dispatch's sequences, at most 8) stay on its few-rows kernel."""
     want = {name: 0 for name in KERNELS}
     q = "_quant" if int8kv else ""
     kv = "_int8kv" if int8kv else ""
@@ -2779,12 +2867,14 @@ def path_launches(int8: bool, layers: int, dispatches, steps: int,
             want["quantized_matmul_int4"] += 4 * layers + 1
         elif int8 and m <= 64:
             want["quantized_matmul"] += 2 * layers + 1
+            want["quantized_matmul_mma"] += 2 * layers * (m > 8)
             want["fused_ffn"] += layers
         elif int8 and act_quant and m >= 128:
             want["quantized_matmul_w8a8"] += 4 * layers
             want["quantized_matmul"] += 1
         elif int8:
             want["quantized_matmul"] += 4 * layers + 1
+            want["quantized_matmul_mma"] += 4 * layers
     want["paged_flash_decode" + kv] += layers * steps
     if int4:
         want["quantized_matmul_int4"] += (4 * layers + 1) * steps
@@ -3121,8 +3211,9 @@ def spec_launches(int8: bool, layers: int, steps: int, int8kv: bool) -> dict:
     verify forwards, each per layer a span write (an eager quantize and
     indexed write over INT8 KV: no kernel) and a verify attention, with
     INT8 weights at M = 8 x 5 = 40 rows: quantized_matmul for wqkv and wo
-    and fused_ffn per layer, plus the LM head. No single-row decode kernel
-    runs: every step is a verify window."""
+    and fused_ffn per layer, plus the LM head, the quantized_matmul calls
+    on its tensor-core regime. No single-row decode kernel runs: every
+    step is a verify window."""
     want = path_launches(int8, layers, [("flash_prefill", 8 * 128)], 0,
                          int8kv=int8kv)
     want["paged_flash_verify" + ("_int8kv" if int8kv else "")] += (
@@ -3131,6 +3222,7 @@ def spec_launches(int8: bool, layers: int, steps: int, int8kv: bool) -> dict:
         want["paged_append_span"] += layers * steps
     if int8:
         want["quantized_matmul"] += (2 * layers + 1) * steps
+        want["quantized_matmul_mma"] += (2 * layers + 1) * steps
         want["fused_ffn"] += layers * steps
     return want
 
@@ -3272,7 +3364,8 @@ def dense_launches(int8: bool, layers: int, steps: int,
     """Launches of one ``generate_fused`` call of the dense paths: the
     8 x 128-row prefill (per layer ``kv_append`` at S = 128 and causal
     ``flash_prefill``; with INT8 weights 4 ``quantized_matmul`` per layer
-    at m = 1024 rows plus the LM head on the 8 last rows), then ``steps``
+    at m = 1024 rows, its tensor-core regime, plus the LM head on the 8
+    last rows), then ``steps``
     decode steps, each per layer ``flash_decode`` and, with INT8 weights,
     the dense fused qkv, ``wo`` and ``fused_ffn`` plus the LM head, with
     bf16 weights ``kv_append`` at S = 1 (the products are cuBLAS). With
@@ -3287,6 +3380,7 @@ def dense_launches(int8: bool, layers: int, steps: int,
         want["kv_append"] += layers * steps
     elif int8:
         want["quantized_matmul"] += 4 * layers + 1 + (layers + 1) * steps
+        want["quantized_matmul_mma"] += 4 * layers
         want["fused_qkv_append_dense"] += layers * steps
         want["fused_ffn"] += layers * steps
     else:
@@ -4014,10 +4108,11 @@ def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="f32"):
           f"{w8a8_launches}", flush=True)
 
 
-def spec_card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, kv_dtype="f32"):
+def spec_card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, kv_dtype="f32",
+                     new: int = 16):
     """The spec Engine (spec_tokens 4, burst 4) on the card and on the CPU,
     4 greedy requests (two repeating a pattern, one whose logit_bias
-    forces a token) x 16 tokens: greedy tokens equal on both devices, to
+    forces a token) x ``new`` tokens: greedy tokens equal on both devices, to
     the same Engine with spec_tokens=0 on the CPU and (unbiased) to the
     CPU's greedy trace, except where the trace's top-2 margin is below
     the tolerance (LOGIT_TOL; LOGIT_TOL_CODE_APART over INT8 KV); where
@@ -4030,7 +4125,6 @@ def spec_card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, kv_dtype="f32"):
                                                           SamplingParams)
     from simplellminference_tpu_torch.engine import Engine
 
-    new = 16
     prompts = spec_prompts(np.random.default_rng(11), cfg.vocab_size, 4, 48)
     # the last request's logit_bias forces one token, so its history
     # repeats and its drafts are accepted: the accepted-span bookkeeping
@@ -4302,8 +4396,8 @@ def _window_trace(torch, cfg, params, prompt, steps, device):
 
 def window_card_vs_cpu(torch, launches):
     """Sliding windows card vs CPU at Mistral-7B width (2 layers, window
-    4096, f32, TF32 off): one 4224-token prompt, chunked prefill through
-    the ring (R 35), 320 new tokens (kv_len 4543, past the ring's 4480
+    4096, f32, TF32 off): one 4448-token prompt, chunked prefill through
+    the ring (R 35), 40 new tokens (kv_len 4487, past the ring's 4480
     tokens): logits of every step within LOGIT_TOL, greedy tokens equal
     (or parting only where the CPU's top-2 margin is below it); and the
     card's grouped Engine (prefill_chunk 256) serving the same prompt to
@@ -4326,7 +4420,7 @@ def window_card_vs_cpu(torch, launches):
     p_gpu = llama.init_params(cfg, seed=11, device="cuda")
     p_cpu = _to_device(p_gpu, "cpu")
     rng = np.random.default_rng(11)
-    prompt, new = rng.integers(1, cfg.vocab_size, 4224).tolist(), 320
+    prompt, new = rng.integers(1, cfg.vocab_size, 4448).tolist(), 40
     t1 = time.perf_counter()
     tok_c, lg_c = _window_trace(torch, cfg, p_cpu, prompt, new - 1, "cpu")
     t2 = time.perf_counter()
@@ -4419,7 +4513,7 @@ def phase_cpu(torch, launches: dict):
     card_vs_cpu(torch, "int8-int8kv", cfg, q_gpu, q_cpu, prompts, steps=8,
                 kv_dtype="int8")
     spec_card_vs_cpu(torch, "spec-int8-int8kv", cfg, q_gpu, q_cpu,
-                     kv_dtype="int8")
+                     kv_dtype="int8", new=8)
     del q_gpu, q_cpu
     # the INT4 and W8A8 checks' prompts: short (the CPU's plain INT4 and
     # W8A8 products are slow at 7B width), W8A8's bucket of 32 giving the
@@ -4444,8 +4538,6 @@ def phase_cpu(torch, launches: dict):
     # (their CPU halves launch nothing), counted like a path of phase 4
     reset_counts()
     card_vs_cpu(torch, "awq", cfg, a_gpu, a_cpu, short, steps=4)
-    dense_card_vs_cpu(torch, "dense-awq", cfg, a_gpu, a_cpu, short,
-                      steps=2)
     launches["awq"] = read_counts("awq")
     require(launches["awq"]["quantized_matmul_int4_zs"] > 0
             and launches["awq"]["quantized_matmul_int4"] == 0,

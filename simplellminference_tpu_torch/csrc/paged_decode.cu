@@ -1,7 +1,7 @@
 // Paged flash-decode attention: one query token per sequence (decode), or a
 // verify window of S <= 8 consecutive query tokens per sequence (speculative
 // decoding), against its KV pages, found through the block table, online
-// softmax.
+// softmax, the keys split over blocks (flash-decoding).
 //
 // Replaces the TPU kernel of simplellminference_tpu/ops/attention/
 // paged_decode.py: _paged_kernel (paged_decode.py:24-131), reached through
@@ -26,172 +26,373 @@
 // are read once for ~4*kv_len*N*S*D operations: about S operations per
 // byte (2S for int8), far below the card's balance point for S <= 8.
 //
-// Design: one block per (sequence, kv head), holding that head's
-// `group` x S query rows (row r = window row r / group, head r % group),
-// so every K/V row of the sequence is read from device memory once and
-// serves all the query heads of its GQA group and every row of the verify
-// window: a verify step moves the KV bytes of one decode step, which is
-// the point of the TPU design (paged_decode.py:146-150). The block reads
-// its page ids from the table itself and walks the live keys
-// 0 .. min(kv_len, MP*ps)-1 in chunks of 32 keys staged through shared
-// memory in f32; pages past kv_len are never read. Window row s attends
-// keys k_pos < kv_len - S + 1 + s (in-window causal; S = 1 is k_pos <
-// kv_len). Scores and the running max/sum/accumulator stay in f32; a
-// masked key contributes p = 0, so a row with no key at all (kv_len <= 0,
-// or kv_len < S - s) gives a zero output. An unmapped (-1) page inside
-// kv_len (the dead rows of a decode burst, whose tables are all -1) reads
-// as zeros, as the plain version's gather does, and never touches memory
-// outside the pool. INT8 KV dequantizes late, as the TPU kernel does
-// (paged_decode.py:84-89, :116-120): the codes are staged as exact floats,
-// each key's scale (staged beside its chunk) multiplies its score after
-// q.k, and each key's V scale folds into its probability before the PV
-// product, so the row sum l stays the sum of the unscaled probabilities.
-// Sliding window: the key walk starts at the oldest verify row's first key,
-// k_lo = kv_len - S - window + 1, and reads no key below it, not even
-// inside k_lo's page. This is what keeps the grouped engine's ring pools
-// right: there table column j maps to ring page s*R + j % R, so a column
-// below the window band aliases the live page of a newer position, and
-// masking after the read would still fetch it. Rows newer than the oldest
-// mask the keys below their own band per element (p = 0).
-// Shared memory grows with group x S: 64 rows at D = 128 (GQA group 8,
-// S = 8) take 107.6 KB of the 227 KB a block may use; the wrapper refuses
-// more than 128 rows. Split-K over the sequence (flash-decoding) and TMA
-// page copies are later work.
+// Design. The grid is (sequence, kv head x row block, split). A block
+// holds up to RB = 32 query rows of one kv head (row r = window row r /
+// group, head r % group; a GQA group x S past 32 rows takes more row
+// blocks), so every K/V row read serves all the query heads of its group
+// and every row of the verify window: a verify step moves the KV bytes of
+// one decode step, the point of the TPU design (paged_decode.py:146-150).
+// The wrapper picks the number of splits from shapes alone (the key span a
+// block can meet, never kv_len: no host sync, so the call can be captured
+// in a CUDA graph) to fill one wave of two blocks on each of the 132 SMs
+// (a second, partial wave would double the time); inside, each block cuts
+// the live keys [k_lo, min(kv_len, MP*ps)) of its own sequence into
+// `splits` ranges of whole 64-key tiles and walks its range only. Tiles
+// stream through a ring of shared-memory stages (3 for bf16 pools, 4 for
+// int8, 2 for f32) with cp.async, 16 bytes a thread and copy, so two tiles
+// are in flight while the block computes on a third, kept in the
+// pool's storage dtype (bf16, f32 or int8 codes; rows padded by 16 bytes
+// so the score loop's 16-byte reads of neighbouring keys hit distinct
+// banks); a tile reads its page id from the table once when the page size
+// is a multiple of the tile. Keys outside the live span are zero-filled by
+// the copy itself (nothing read) and masked; an unmapped (-1) page inside
+// kv_len reads as zeros, as the plain version's gather does, and never
+// touches memory outside the pool. 256 threads a block (8 warps, so two
+// blocks an SM hide the copies' and shared memory's latency). Scores:
+// four threads a key of the tile, a quarter of D each, f32 dot products
+// against q held
+// in shared memory as f32; softmax: one warp per row, 2 keys a lane; PV:
+// each thread owns 8 output columns and, when the block holds few rows
+// (<= 8: decode, Llama's verify window), all of them over a slice of the
+// tile's keys (each V chunk loaded once for every row), the slices summed
+// at the end, or else a few rows over all the keys. Window
+// row s attends keys k_pos < kv_len - S + 1 + s (in-window causal; S = 1 is
+// k_pos < kv_len). Scores, the running max/sum and the accumulator stay in
+// f32. A block writes f32 partials (m, l, acc[rows, D]) and a second small
+// kernel merges the splits by log-sum-exp, divides by l and rounds once to
+// the output dtype; with one split the block writes the output itself. A
+// split with no key writes m = -1e30 (for -inf: exp(m - M) stays finite
+// when every split is empty) and l = 0, so a row with no key at all
+// (kv_len <= 0, or kv_len < S - s) gives a zero output. INT8 KV
+// dequantizes late, as the TPU kernel does (paged_decode.py:84-89,
+// :116-120): each key's scale (copied beside its tile) multiplies its
+// score after q.k, and each key's V scale folds into its probability
+// before the PV product, so the row sum l stays the sum of the unscaled
+// probabilities. Sliding window: the key walk starts at the oldest verify
+// row's first key, k_lo = kv_len - S - window + 1, and no split reads a key
+// below it, not even inside k_lo's page. This is what keeps the grouped
+// engine's ring pools right: there table column j maps to ring page
+// s*R + j % R, so a column below the window band aliases the live page of
+// a newer position, and masking after the read would still fetch it. Rows
+// newer than the oldest mask the keys below their own band per element
+// (p = 0).
 #include "common.cuh"
 
 namespace {
 
-constexpr int KC = 32;   // keys per chunk (one per lane)
-constexpr int NT = 128;  // threads per block
+constexpr int BK = 64;         // keys per tile
+constexpr int NT = 256;        // threads per block
+constexpr int PARTS = NT / BK; // threads a key in the score phase
+constexpr int RB = 32;         // query rows a block holds at most
+constexpr int FEW = 8;         // rows every thread holds in PV (and the
+                               // most units a thread holds past them)
+constexpr int PSTR = BK + 1;   // probability row stride (floats)
 constexpr float NEG_INF = -1e30f;
+static_assert(PARTS == 4, "the score phase adds four parts a key");
+static_assert(RB * 128 / 8 <= FEW * NT, "PV units must fit the threads");
 
-template <int D>
-size_t smem_floats(int rows) {
-  return (size_t)rows * D           // q rows
-         + (size_t)KC * (D + 1)     // K chunk (padded: lane = key)
-         + (size_t)KC * D           // V chunk
-         + (size_t)rows * KC        // probabilities
-         + (size_t)rows * D         // accumulator
-         + 3 * (size_t)rows         // max, sum, rescale
-         + 2 * (size_t)KC;          // INT8 KV: K and V scales of the chunk
+template <typename P, int D>
+struct Geo {
+  static constexpr int ES = (int)sizeof(P);
+  static constexpr int ROWB = D * ES + 16;  // padded key row bytes
+  static constexpr int TILE = BK * ROWB;    // one K or V tile
+  static constexpr int CH = D * ES / 16;    // 16-byte chunks of a key row
+  static constexpr int STAGES = ES == 1 ? 4 : ES == 2 ? 3 : 2;
+  static_assert(STAGES * 2 * TILE >= NT * 8 * (int)sizeof(float),
+                "the key slices' reduction fits the ring");
+  // ring (K, V tiles and their scales; after the walk, the key slices'
+  // reduction), q, the probabilities, max, sum and rescale
+  static size_t bytes(int rows) {
+    return (size_t)STAGES * 2 * (TILE + BK * sizeof(float)) +
+           sizeof(float) * ((size_t)rows * D + (size_t)rows * PSTR +
+                            3 * (size_t)rows);
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = valid ? 16 : 0;  // 0: zero-fill, nothing read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 8 consecutive elements of a key row (16 bytes of bf16, 32 of f32, 8 of
+// int8 codes) -> 8 exact floats.
+template <typename P>
+__device__ __forceinline__ void unpack8(const unsigned char* p, float* f);
+template <>
+__device__ __forceinline__ void unpack8<float>(const unsigned char* p,
+                                               float* f) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 16);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+template <>
+__device__ __forceinline__ void unpack8<__nv_bfloat16>(const unsigned char* p,
+                                                       float* f) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[2 * j] = __uint_as_float(w[j] << 16);
+    f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
+template <>
+__device__ __forceinline__ void unpack8<int8_t>(const unsigned char* p,
+                                                float* f) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const unsigned w[2] = {v.x, v.y};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    f[j] = (float)(signed char)((w[j >> 2] >> (8 * (j & 3))) & 0xffu);
 }
 
 // q: [B, S, N, D] with batch stride q_bs and window stride q_ss (elements;
 // S = wins); pools [L, P+1, kvN, ps, D] of P (T, or int8_t with the scale
 // pools ksp/vsp [L, P+1, kvN, ps]); out: [B, S, N, D] contiguous. DENSE:
 // the pools are a dense arena [L, B', kvN, Smax, D] (num_pages1 = B',
-// ps = Smax, mp = 1, no table): sequence b reads arena row b.
+// ps = Smax, mp = 1, no table): sequence b reads arena row b. rcap: the
+// rows of the shared-memory layout (min(RB, group * wins)). splits > 1:
+// the block writes part (acc [splits][B*S*N][D], then m, l
+// [splits][B*S*N][2], f32) for merge_kernel; splits == 1: out.
 template <typename T, typename P, int D, bool DENSE>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(
     const T* __restrict__ q, long long q_bs, long long q_ss,
     const P* __restrict__ pool_k, const P* __restrict__ pool_v,
     const float* __restrict__ ksp, const float* __restrict__ vsp,
     const int* __restrict__ tables, const int* __restrict__ kv_lens,
-    T* __restrict__ out, int layer, int num_pages1, int kvn, int ps, int mp,
-    int group, int wins, int window, float scale) {
+    T* __restrict__ out, float* __restrict__ part, int layer,
+    int num_pages1, int kvn, int ps, int mp, int group, int wins, int window,
+    int rcap, float scale) {
+  using G = Geo<P, D>;
   constexpr bool QUANT = sizeof(P) == 1;
-  const int rows = group * wins;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + rows * D;
-  float* vs = ks + KC * (D + 1);
-  float* pr = vs + KC * D;
-  float* acc = pr + rows * KC;
-  float* ms = acc + rows * D;
-  float* ls = ms + rows;
-  float* al = ls + rows;
-  float* ksc = al + rows;  // [KC] (INT8 KV)
-  float* vsc = ksc + KC;   // [KC]
+  constexpr int EPC = 16 / G::ES;  // elements per 16-byte copy
+  constexpr int C8 = D / 8;        // PV units of a row
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;  // [STAGES][K, V][BK][ROWB]
+  float* scl = reinterpret_cast<float*>(smem + G::STAGES * 2 * G::TILE);
+  float* qs = scl + G::STAGES * 2 * BK;  // [rcap][D]
+  float* red = reinterpret_cast<float*>(ring);  // [NT][8], after the walk
+  float* pr = qs + rcap * D;             // [rcap][PSTR]
+  float* ms = pr + rcap * PSTR;
+  float* ls = ms + rcap;
+  float* al = ls + rcap;
 
   const int b = blockIdx.x;
-  const int g = blockIdx.y;
+  const int nrb = (group * wins + RB - 1) / RB;
+  const int g = blockIdx.y / nrb;
+  const int row0 = (blockIdx.y - g * nrb) * RB;
+  const int rows = min(RB, group * wins - row0);
+  const int splits = gridDim.z;
+  const int z = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int h0 = g * group;
+  const int n_heads = kvn * group;
 
-  const T* qb = q + (long long)b * q_bs + (long long)h0 * D;
   for (int i = tid; i < rows * D; i += NT) {
     const int r = i / D;
-    const int w = r / group;
-    qs[i] = sli::to_f(qb[w * q_ss + (long long)(r - w * group) * D + i % D]);
-    acc[i] = 0.f;
+    const int rr = row0 + r;
+    const int w = rr / group;
+    qs[i] = sli::to_f(q[(long long)b * q_bs + w * q_ss +
+                        (long long)(g * group + rr - w * group) * D + i % D]);
   }
   for (int i = tid; i < rows; i += NT) {
     ms[i] = NEG_INF;
     ls[i] = 0.f;
   }
   const int kv_len = kv_lens[b];
-  const int n_keys = min(kv_len, mp * ps);
+  const int n_keys = max(0, min(kv_len, mp * ps));
   // window: no key below the oldest row's band is ever read
   const int k_lo = window > 0 ? max(0, kv_len - wins - window + 1) : 0;
-  const int* row = DENSE ? nullptr : tables + (long long)b * mp;
+  // this split's tiles [ta, tb) of the live tiles [t_lo, t_hi)
+  const int t_lo = k_lo / BK;
+  const int nt = max(0, (n_keys + BK - 1) / BK - t_lo);
+  const int per = (nt + splits - 1) / splits;
+  const int ta = t_lo + min(nt, z * per);
+  const int ntile = t_lo + min(nt, (z + 1) * per) - ta;
+  const int* trow = DENSE ? nullptr : tables + (long long)b * mp;
   const long long layer_base = (long long)layer * num_pages1;
-  __syncthreads();
+  const bool one_page = DENSE || ps % BK == 0;
 
-  for (int k0 = k_lo; k0 < n_keys; k0 += KC) {
-    for (int i = tid; i < KC * D; i += NT) {
-      const int r = i / D;
-      const int d = i - r * D;
-      const int kp = k0 + r;
-      float kv = 0.f;
-      float vv = 0.f;
-      if (kp < n_keys) {
-        const int page = DENSE ? b : row[kp / ps];
-        if (page >= 0) {
-          const long long off =
-              (((layer_base + page) * kvn + g) * ps + kp % ps) * (long long)D +
-              d;
-          kv = sli::to_f(pool_k[off]);
-          vv = sli::to_f(pool_v[off]);
-        }
-      }
-      ks[r * (D + 1) + d] = kv;
-      vs[r * D + d] = vv;
+  // tile t into stage st: BK rows x CH 16-byte copies, K and V (+ scales);
+  // the pool row of key kp, or -1 for none (outside the live span, or an
+  // unmapped page); a tile inside one page has contiguous rows
+  auto load = [&](int t, int st) {
+    unsigned char* kd = ring + (2 * st) * G::TILE;
+    unsigned char* vd = kd + G::TILE;
+    const int k0 = t * BK;
+    long long base = -1;
+    if (one_page) {
+      const int page = DENSE ? b : trow[k0 / ps];
+      if (page >= 0)
+        base = ((layer_base + page) * kvn + g) * (long long)ps + k0 % ps;
     }
-    if (QUANT && tid < KC) {
-      const int kp = k0 + tid;
-      float a = 0.f;
-      float c = 0.f;
-      if (kp < n_keys) {
-        const int page = DENSE ? b : row[kp / ps];
-        if (page >= 0) {
-          const long long so = ((layer_base + page) * kvn + g) * ps + kp % ps;
-          a = ksp[so];
-          c = vsp[so];
+    auto row_of = [&](int kp) -> long long {
+      if (kp < k_lo || kp >= n_keys) return -1;
+      if (one_page) return base < 0 ? -1 : base + (kp - k0);
+      const int page = trow[kp / ps];
+      return page < 0 ? -1
+                      : ((layer_base + page) * kvn + g) * (long long)ps +
+                            kp % ps;
+    };
+    for (int i = tid; i < BK * G::CH; i += NT) {
+      const int r = i / G::CH;
+      const int c = i % G::CH;
+      const long long row = row_of(k0 + r);
+      const long long off = row < 0 ? 0 : row * D + c * EPC;
+      cp_async16(kd + r * G::ROWB + c * 16, pool_k + off, row >= 0);
+      cp_async16(vd + r * G::ROWB + c * 16, pool_v + off, row >= 0);
+    }
+    if (QUANT && tid < BK) {
+      const long long row = row_of(k0 + tid);
+      float* sd = scl + (2 * st) * BK;
+      // zero-filled: the score and the V weight are 0
+      cp_async4(sd + tid, ksp + (row < 0 ? 0 : row), row >= 0);
+      cp_async4(sd + BK + tid, vsp + (row < 0 ? 0 : row), row >= 0);
+    }
+  };
+
+  // PV ownership. Few rows (<= FEW): thread (c8, slice) = (tid % C8,
+  // tid / C8) holds every row of the block for columns 8 * c8 .. + 8 over
+  // the keys slice, slice + RSTEP, ...: each V chunk it loads serves all
+  // its rows. More rows: unit u = (row u / C8, columns 8 * (u % C8)), a
+  // thread's units u0 + j * NT share its columns (rows r_first + j *
+  // RSTEP); with fewer units than threads, key slices share a unit.
+  constexpr int RSTEP = NT / C8;
+  const bool few = rows <= FEW;
+  const int units = rows * C8;
+  const int ks_n = few ? RSTEP : units >= NT ? 1 : NT / units;
+  const int slice = few ? tid / C8 : units >= NT ? 0 : tid / units;
+  const bool pv_on = slice < ks_n;
+  const int u0 = few ? tid % C8 : units >= NT ? tid : tid - slice * units;
+  const int c8 = u0 % C8;
+  const int r_first = few ? 0 : u0 / C8;
+  const int r_step = few ? 1 : RSTEP;
+  const int n_acc = few ? rows : units >= NT ? (units - u0 + NT - 1) / NT : 1;
+  float acc[FEW][8];
+#pragma unroll
+  for (int j = 0; j < FEW; ++j)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[j][e] = 0.f;
+
+  for (int s = 0; s < G::STAGES - 1; ++s) {
+    if (s < ntile) load(ta + s, s);
+    cp_async_commit();
+  }
+  __syncthreads();  // q, max and sum are in place
+
+  for (int i = 0; i < ntile; ++i) {
+    cp_async_wait<G::STAGES - 2>();  // tile i has landed
+    __syncthreads();                 // and tile i - 1 is read by all
+    {
+      const int nx = i + G::STAGES - 1;
+      if (nx < ntile) load(ta + nx, nx % G::STAGES);
+      cp_async_commit();  // possibly empty: keeps the group count
+    }
+    const int st = i % G::STAGES;
+    const unsigned char* kt = ring + (2 * st) * G::TILE;
+    const unsigned char* vt = kt + G::TILE;
+    const float* kscl = scl + (2 * st) * BK;
+    const int k0 = (ta + i) * BK;
+
+    // scores: PARTS threads a key of the tile (kk = tid / PARTS), each with
+    // a quarter of its 8-element groups (in an order rotated by the part,
+    // so a key's four threads read other banks), rows in groups of 4
+    // against q in shared memory, the parts added by shuffles; window row
+    // w = r / group sees keys below kv_len - wins + 1 + w and, with a
+    // sliding window, above kv_len - wins + w - window
+    {
+      constexpr int GPP = D / 8 / PARTS;  // 8-element groups a part
+      const int kk = tid / PARTS;
+      const int part = tid % PARTS;
+      const unsigned char* krow = kt + kk * G::ROWB;
+      const int kp = k0 + kk;
+      const float ks = QUANT ? kscl[kk] : 1.f;  // late dequant of K
+      for (int r0 = 0; r0 < rows; r0 += 4) {
+        float sacc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int gi = 0; gi < GPP; ++gi) {
+          const int e0 = (part * GPP + (gi + part) % GPP) * 8;
+          float f[8];
+          unpack8<P>(krow + e0 * G::ES, f);
+          const float* qc = qs + r0 * D + e0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (r0 + j < rows) {
+              const float4 qa = *reinterpret_cast<const float4*>(qc + j * D);
+              const float4 qb =
+                  *reinterpret_cast<const float4*>(qc + j * D + 4);
+              float a = sacc[j];
+              a = fmaf(qa.x, f[0], a);
+              a = fmaf(qa.y, f[1], a);
+              a = fmaf(qa.z, f[2], a);
+              a = fmaf(qa.w, f[3], a);
+              a = fmaf(qb.x, f[4], a);
+              a = fmaf(qb.y, f[5], a);
+              a = fmaf(qb.z, f[6], a);
+              a = fmaf(qb.w, f[7], a);
+              sacc[j] = a;
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float sc = sacc[j] + __shfl_xor_sync(0xffffffffu, sacc[j], 1);
+          sc += __shfl_xor_sync(0xffffffffu, sc, 2);
+          const int r = r0 + j;
+          if (part == 0 && r < rows) {
+            const int w = (row0 + r) / group;
+            const bool live =
+                kp >= k_lo && kp < n_keys && kp < kv_len - wins + 1 + w &&
+                (window <= 0 || kp > kv_len - wins + w - window);
+            pr[r * PSTR + kk] = live ? sc * scale * ks : -INFINITY;
+          }
         }
       }
-      ksc[tid] = a;
-      vsc[tid] = c;
     }
     __syncthreads();
 
-    // scores: warp w takes query rows w, w+4, ...; lane = key of the chunk;
-    // window row w = r / group sees keys below kv_len - wins + 1 + w and,
-    // with a sliding window, above kv_len - wins + w - window
+    // online softmax: warp w takes rows w, w + 8, ...; lane keys lane and
+    // lane + 32; masked keys (-inf) give p = 0
     for (int r = warp; r < rows; r += NT / 32) {
+      const float s0 = pr[r * PSTR + lane];
+      const float s1 = pr[r * PSTR + lane + 32];
+      float mx = fmaxf(s0, s1);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       const float m_old = ms[r];
-      const int w = r / group;
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) s += qs[r * D + d] * ks[lane * (D + 1) + d];
-      s *= scale;
-      if (QUANT) s *= ksc[lane];  // late dequant of K
-      const int kp = k0 + lane;
-      const bool live = kp < n_keys && kp < kv_len - wins + 1 + w &&
-                        (window <= 0 || kp > kv_len - wins + w - window);
-      if (!live) s = NEG_INF;
-      float mx = s;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m_old, mx);
-      const float p = live ? expf(s - m_new) : 0.f;
-      float sum = p;
+      const float p0 = expf(s0 - m_new);
+      const float p1 = expf(s1 - m_new);
+      float sum = p0 + p1;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      pr[r * KC + lane] = QUANT ? p * vsc[lane] : p;  // V scale folded in
+      for (int o = 16; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      const float* vscl = kscl + BK;  // V scale folded into p
+      pr[r * PSTR + lane] = QUANT ? p0 * vscl[lane] : p0;
+      pr[r * PSTR + lane + 32] = QUANT ? p1 * vscl[lane + 32] : p1;
       if (lane == 0) {
         const float a = expf(m_old - m_new);
         al[r] = a;
@@ -201,25 +402,126 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     }
     __syncthreads();
 
-    // PV: thread d owns output column d of every query row
-    for (int d = tid; d < D; d += NT) {
-      for (int r = 0; r < rows; ++r) {
-        float a = acc[r * D + d] * al[r];
-#pragma unroll 8
-        for (int kk = 0; kk < KC; ++kk) a += pr[r * KC + kk] * vs[kk * D + d];
-        acc[r * D + d] = a;
+    // PV: rows r_first + j * r_step (j < n_acc), columns c8, keys slice,
+    // slice + ks_n, ...: one V chunk load a key for all of them
+    if (pv_on) {
+#pragma unroll
+      for (int j = 0; j < FEW; ++j) {
+        if (j >= n_acc) break;
+        const float a = al[r_first + j * r_step];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[j][e] *= a;
+      }
+      const unsigned char* vcol = vt + c8 * 8 * G::ES;
+      const float* prow = pr + r_first * PSTR;
+#pragma unroll 2
+      for (int kk = slice; kk < BK; kk += ks_n) {
+        float v[8];
+        unpack8<P>(vcol + kk * G::ROWB, v);
+#pragma unroll
+        for (int j = 0; j < FEW; ++j) {
+          if (j >= n_acc) break;
+          const float p = prow[j * r_step * PSTR + kk];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[j][e] = fmaf(p, v[e], acc[j][e]);
+        }
       }
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();  // only empty groups can remain
 
-  const int n = kvn * group;
+  // the rows' sums meet in fin [rows][D] (q's place, no longer read);
+  // key slices add up through red (the ring, no longer read either)
+  float* fin = qs;
+  __syncthreads();
+  if (ks_n == 1) {
+#pragma unroll
+    for (int j = 0; j < FEW; ++j) {
+      if (!pv_on || j >= n_acc) break;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        fin[(r_first + j * r_step) * D + c8 * 8 + e] = acc[j][e];
+    }
+  } else {
+    // slice s of unit (row r, columns c8) at red[(s * units + r * C8 + c8)
+    // * 8]; rows one at a time when each thread holds all (few)
+    const int passes = few ? rows : 1;
+    for (int j = 0; j < passes; ++j) {
+      const int r = r_first + j;
+      if (pv_on) {
+#pragma unroll
+        for (int jj = 0; jj < FEW; ++jj) {
+          if (jj == j) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              red[((slice * (few ? C8 : units)) + (few ? c8 : u0)) * 8 + e] =
+                  acc[jj][e];
+          }
+        }
+      }
+      __syncthreads();
+      const int width = few ? C8 : units;  // units a slice holds
+      for (int i = tid; i < width * 8; i += NT) {
+        float sum = 0.f;
+        for (int sl = 0; sl < ks_n; ++sl) sum += red[sl * width * 8 + i];
+        // i = unit * 8 + e: unit (row, columns) of this pass
+        const int uu = i / 8;
+        const int rr = few ? r : uu / C8;
+        fin[rr * D + (uu % C8) * 8 + i % 8] = sum;
+      }
+      __syncthreads();
+    }
+  }
+  __syncthreads();
+
+  // write-out: each row's D columns, divided by l (one split) or as f32
+  // partials with m and l (several)
+  const long long n_rows = (long long)gridDim.x * wins * n_heads;
   for (int i = tid; i < rows * D; i += NT) {
     const int r = i / D;
-    const int w = r / group;
-    const long long o =
-        (((long long)b * wins + w) * n + h0 + (r - w * group)) * D + i % D;
-    out[o] = sli::from_f<T>(acc[i] / fmaxf(ls[r], 1e-30f));
+    const int d = i - r * D;
+    const int rr = row0 + r;
+    const int w = rr / group;
+    const long long orow =
+        ((long long)b * wins + w) * n_heads + g * group + rr - w * group;
+    if (splits == 1) {
+      out[orow * D + d] = sli::from_f<T>(fin[i] / fmaxf(ls[r], 1e-30f));
+    } else {
+      part[((long long)z * n_rows + orow) * D + d] = fin[i];
+      if (d == 0) {
+        float* pm = part + (long long)splits * n_rows * D +
+                    ((long long)z * n_rows + orow) * 2;
+        pm[0] = ms[r];
+        pm[1] = ls[r];
+      }
+    }
+  }
+}
+
+// out[row, d] = sum_z acc_z[row, d] e^(m_z - M) / sum_z l_z e^(m_z - M),
+// M = max_z m_z, rounded once to T; a row whose splits are all empty
+// (l = 0) gives zero.
+template <typename T>
+__global__ void merge_kernel(const float* __restrict__ part,
+                             T* __restrict__ out, long long n_rows, int d,
+                             int splits) {
+  const long long total = n_rows * d;
+  const float* ml = part + (long long)splits * total;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    const long long row = i / d;
+    float mx = NEG_INF;
+    for (int z = 0; z < splits; ++z)
+      mx = fmaxf(mx, ml[(z * n_rows + row) * 2]);
+    float l = 0.f;
+    float a = 0.f;
+    for (int z = 0; z < splits; ++z) {
+      const float* mz = ml + (z * n_rows + row) * 2;
+      const float w = expf(mz[0] - mx);
+      l = fmaf(mz[1], w, l);
+      a = fmaf(part[z * total + i], w, a);
+    }
+    out[i] = sli::from_f<T>(a / fmaxf(l, 1e-30f));
   }
 }
 
@@ -234,21 +536,35 @@ struct Args {
   const int* tables;
   const int* kv_lens;
   void* out;
-  int batch, layer, num_pages1, kvn, ps, mp, group, wins, window;
+  float* part;
+  int batch, layer, num_pages1, kvn, ps, mp, group, wins, window, splits;
   float scale;
 };
 
 template <typename T, typename P, int D, bool DENSE>
 int launch(const Args& a, cudaStream_t st) {
-  const size_t bytes = smem_floats<D>(a.group * a.wins) * sizeof(float);
+  const int rows = a.group * a.wins;
+  const int rcap = rows < RB ? rows : RB;
+  const size_t bytes = Geo<P, D>::bytes(rcap);
+  if (bytes > 227 * 1024) return SLI_ERR_SHAPE;
+  if (a.splits < 1 || (a.splits > 1 && a.part == nullptr))
+    return SLI_ERR_SHAPE;
   cudaError_t e =
       sli::allow_smem(paged_decode_kernel<T, P, D, DENSE>, bytes);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(a.batch, a.kvn);
+  const dim3 grid(a.batch, a.kvn * ((rows + RB - 1) / RB), a.splits);
   paged_decode_kernel<T, P, D, DENSE><<<grid, NT, bytes, st>>>(
       (const T*)a.q, a.q_bs, a.q_ss, (const P*)a.pool_k, (const P*)a.pool_v,
-      a.ksp, a.vsp, a.tables, a.kv_lens, (T*)a.out, a.layer, a.num_pages1,
-      a.kvn, a.ps, a.mp, a.group, a.wins, a.window, a.scale);
+      a.ksp, a.vsp, a.tables, a.kv_lens, (T*)a.out, a.part, a.layer,
+      a.num_pages1, a.kvn, a.ps, a.mp, a.group, a.wins, a.window, rcap,
+      a.scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || a.splits == 1) return (int)e;
+  const long long n_rows = (long long)a.batch * a.wins * a.kvn * a.group;
+  long long blocks = (n_rows * D + 255) / 256;
+  if (blocks > 4096) blocks = 4096;
+  merge_kernel<T><<<(int)blocks, 256, 0, st>>>(a.part, (T*)a.out, n_rows, D,
+                                                a.splits);
   return (int)cudaGetLastError();
 }
 
@@ -271,21 +587,23 @@ int dispatch_d(int head_dim, const Args& a, cudaStream_t st) {
 // Dense-arena decode (the flash_decode entry): q [B, N, D] at batch stride
 // q_bs (elements); cache_k/v the dense arena [L, arena_rows, kvn, smax, D]
 // of q's dtype, sequence b < batch <= arena_rows reading arena row b's
-// slots [0, min(kv_len, smax)); out [B, N, D] contiguous.
+// slots [0, min(kv_len, smax)); out [B, N, D] contiguous. splits > 1: part
+// holds splits * B * N * (D + 2) floats of workspace.
 extern "C" int sli_flash_decode(const void* q, long long q_bs,
                                 const void* cache_k, const void* cache_v,
-                                const int* kv_lens, void* out, int batch,
-                                int layer, int arena_rows, int kvn, int smax,
-                                int group, int head_dim, float scale,
-                                int dtype, void* stream) {
+                                const int* kv_lens, void* out, float* part,
+                                int batch, int layer, int arena_rows, int kvn,
+                                int smax, int group, int head_dim,
+                                int splits, float scale, int dtype,
+                                void* stream) {
   if (batch <= 0 || kvn <= 0 || group <= 0 || smax <= 0 ||
       batch > arena_rows)
     return SLI_ERR_SHAPE;
   cudaStream_t st = (cudaStream_t)stream;
   // one "page" of smax slots per sequence, one window row, no scales
   const Args a{q, q_bs, 0LL, cache_k, cache_v, nullptr, nullptr, nullptr,
-               kv_lens, out, batch, layer, arena_rows, kvn, smax, 1, group,
-               1, 0, scale};
+               kv_lens, out, part, batch, layer, arena_rows, kvn, smax, 1,
+               group, 1, 0, splits, scale};
   if (dtype == SLI_F32) return dispatch_d<float, float, true>(head_dim, a, st);
   if (dtype == SLI_BF16)
     return dispatch_d<__nv_bfloat16, __nv_bfloat16, true>(head_dim, a, st);
@@ -295,24 +613,24 @@ extern "C" int sli_flash_decode(const void* q, long long q_bs,
 // k_scale/v_scale: null for bf16/f32 pools (of q's dtype); given, the pools
 // are int8 and these are their f32 scale pools [L, num_pages1, kvn, ps].
 // q: [B, wins, N, D] with strides q_bs, q_ss (elements); wins = 1 is decode.
-// window: 0 for none, else the sliding window (>= 1).
-extern "C" int sli_paged_flash_decode(const void* q, long long q_bs,
-                                      long long q_ss, const void* pool_k,
-                                      const void* pool_v, const void* k_scale,
-                                      const void* v_scale, const int* tables,
-                                      const int* kv_lens, void* out,
-                                      int batch, int layer, int num_pages1,
-                                      int kvn, int ps, int mp, int group,
-                                      int wins, int head_dim, int window,
-                                      float scale, int dtype, void* stream) {
+// window: 0 for none, else the sliding window (>= 1). splits > 1: part
+// holds splits * B * wins * N * (D + 2) floats of workspace.
+extern "C" int sli_paged_flash_decode(
+    const void* q, long long q_bs, long long q_ss, const void* pool_k,
+    const void* pool_v, const void* k_scale, const void* v_scale,
+    const int* tables, const int* kv_lens, void* out, float* part, int batch,
+    int layer, int num_pages1, int kvn, int ps, int mp, int group, int wins,
+    int head_dim, int window, int splits, float scale, int dtype,
+    void* stream) {
   if (batch <= 0 || kvn <= 0 || group <= 0 || ps <= 0 || mp <= 0 ||
       wins <= 0 || window < 0)
     return SLI_ERR_SHAPE;
   if ((k_scale == nullptr) != (v_scale == nullptr)) return SLI_ERR_SHAPE;
   cudaStream_t st = (cudaStream_t)stream;
   const Args a{q, q_bs, q_ss, pool_k, pool_v, (const float*)k_scale,
-               (const float*)v_scale, tables, kv_lens, out, batch, layer,
-               num_pages1, kvn, ps, mp, group, wins, window, scale};
+               (const float*)v_scale, tables, kv_lens, out, part, batch,
+               layer, num_pages1, kvn, ps, mp, group, wins, window, splits,
+               scale};
   const bool quant = k_scale != nullptr;
   if (dtype == SLI_F32)
     return quant ? dispatch_d<float, int8_t>(head_dim, a, st)

@@ -5,7 +5,9 @@
 //   weights with per-output-channel scales ([1, N]) or per-group scales
 //   ([K/G, N], group G along K).
 //
-// Two regimes, chosen by the wrapper (ops/matmul.py):
+// Two of kernel 5's three regimes, chosen by the wrapper (ops/matmul.py
+// tiled_regime; the third, M > 8 with bf16 activations on the tensor
+// cores, is quantized_matmul_mma.cu):
 //
 // * A few rows (decode, M <= 8: wo and the LM head): bound by bytes, the
 //   K*N weight bytes read once (the 7B wo, 16.8 MB, in 5.0 us; the int8
@@ -17,12 +19,12 @@
 //   f32 partial sums and qmm_finish_kernel adds them, applies the
 //   per-channel scale once, and rounds once to the output dtype, as
 //   _qmm_kernel applies its per-channel scale once at write-out.
-// * Many rows (prefill, M = 1024): bound by operations (the 7B wqkv is
-//   103 GFLOP, 0.104 ms at the bf16 tensor-core peak). qmm_tiled_kernel is
-//   a shared-memory tiled FMA kernel (64 x 128 output tile, 32-deep K
-//   slabs, 4 x 8 outputs a thread): the int8 tile is converted to f32 once
-//   in shared memory and reused by all 64 rows. It runs on the f32 pipes,
-//   not the tensor cores, so it stays well above that bound.
+// * Many rows the tensor-core kernel does not take (f32 activations,
+//   scale groups off a multiple of its 64-row slab, K off a multiple of 8
+//   or N of 16): qmm_tiled_kernel, a shared-memory tiled FMA kernel (64 x
+//   128 output tile, 32-deep K slabs, 4 x 8 outputs a thread): the int8
+//   tile is converted to f32 once in shared memory and reused by all 64
+//   rows. It runs on the f32 pipes, far above an operation bound.
 //
 // Grouped scales are folded into the converted weights (w * s[g], f32)
 // before the FMA instead of scaling each group's partial sum; both are

@@ -5,11 +5,13 @@ Counterpart of simplellminference_tpu/ops/attention/flash_decode.py:114
 (``flash_decode``). For CUDA tensors :func:`flash_decode` launches the
 dense form of the hand-written kernel of ``csrc/paged_decode.cu``
 (``sli_flash_decode``): a dense arena [L, B', kvN, Smax, D] is a page pool
-with one page of Smax slots per sequence, so kernel 4's body serves it,
-one block per (sequence, kv head) holding the GQA group's query rows,
-walking only the live keys below min(kv_len, Smax) with an f32 online
-softmax. For CPU tensors it runs :func:`flash_decode_ref`, which is also
-what the kernel is held against on the card.
+with one page of Smax slots per sequence, so kernel 4's body serves it:
+the live keys below min(kv_len, Smax) split over blocks
+(:func:`~simplellminference_tpu_torch.ops.attention.paged_decode.
+decode_splits` on the span Smax), each block holding the GQA group's query
+rows with an f32 online softmax, the splits merged by log-sum-exp. For
+CPU tensors it runs :func:`flash_decode_ref`, which is also what the
+kernel is held against on the card.
 
 A row with kv_len <= 0 comes out as zeros, as from the JAX kernel (its
 running sum stays 0). ``bk``, ``rows_target`` and ``max_kv`` are the TPU
@@ -24,7 +26,7 @@ import torch
 
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
 from simplellminference_tpu_torch.ops.attention.paged_decode import (
-    HEAD_DIMS, MAX_ROWS)
+    HEAD_DIMS, MAX_ROWS, decode_splits, row_blocks, workspace)
 
 
 def _stacked(k_cache, v_cache, layer):
@@ -108,11 +110,14 @@ def flash_decode(q, k_cache, v_cache, kv_lens, bk: int | None = None,
     if kv_lens.shape != (b,):
         raise ValueError("kv_lens rows do not match q")
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    splits = decode_splits(b, kvn, smax, row_blocks(n // kvn))
+    part = workspace(b, n, d, splits, q.device)
     lib = cuda_build.load()
     rc = lib.sli_flash_decode(
         q.data_ptr(), q.stride(0), ck.data_ptr(), cv.data_ptr(),
-        kv_lens.data_ptr(), out.data_ptr(), b, layer, arena_rows, kvn, smax,
-        n // kvn, d, scale, code,
+        kv_lens.data_ptr(), out.data_ptr(),
+        0 if part is None else part.data_ptr(), b, layer, arena_rows, kvn,
+        smax, n // kvn, d, splits, scale, code,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, rc, "flash_decode")
     flash_decode.launches += 1

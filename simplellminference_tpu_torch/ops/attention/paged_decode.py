@@ -8,13 +8,16 @@ Counterpart of simplellminference_tpu/ops/attention/paged_decode.py:165
 position kv_len - S + s and attends the keys up to it), over bf16/f32
 pools or INT8 pools with their per-token-per-head scale pools
 (``k_scale``/``v_scale``). For CUDA tensors the wrappers launch the
-hand-written kernel of ``csrc/paged_decode.cu`` (one block per sequence
-and kv head holding every query row of its GQA group and window, page
-ids read from the table in the block, f32 online softmax over the live
-keys only); each form has its own launch count and a wrapper of its
-name (:func:`paged_flash_decode`, :func:`paged_flash_decode_int8kv`,
+hand-written kernel of ``csrc/paged_decode.cu``: the live keys of each
+sequence split over blocks (flash-decoding; :func:`decode_splits` picks
+the number of splits from shapes alone, :func:`split_keys` is the cut a
+block makes), each block holding every query row of its GQA group and
+window (up to 32 rows), page ids read from the table in the block, f32
+online softmax over its keys, f32 partials merged by log-sum-exp in a
+second small kernel. Each form has its own launch count and a wrapper of
+its name (:func:`paged_flash_decode`, :func:`paged_flash_decode_int8kv`,
 :func:`paged_flash_verify`, :func:`paged_flash_verify_int8kv`), and a
-call counts as the form its options name. For CPU
+call counts as one launch of the form its options name. For CPU
 tensors they run the plain versions, the gather (+ dequant) + mask +
 dense reference path of the JAX dispatcher (dispatch.py:239-269).
 
@@ -50,10 +53,60 @@ from simplellminference_tpu_torch.memory.paged_kv import gather_dense
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
 from simplellminference_tpu_torch.ops.attention.flash_prefill import (
     window_size)
+from simplellminference_tpu_torch.ops.matmul import SM_COUNT
 from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
 HEAD_DIMS = (32, 64, 128)
-MAX_ROWS = 128   # query rows (GQA group x window rows) a block holds
+MAX_ROWS = 128   # query rows (GQA group x window rows) a call takes
+ROW_BLOCK = 32   # query rows a block of the kernel holds
+TILE_KEYS = 64   # keys per tile of the kernel; splits cut whole tiles
+MAX_SPLITS = 32
+
+
+def decode_splits(b: int, kvn: int, span: int, row_blocks: int = 1) -> int:
+    """Splits of the key walk for a grid of ``b`` sequences x ``kvn`` kv
+    heads x ``row_blocks``: as many as one wave of two blocks per SM holds
+    (a grid just past it would run a second, nearly empty wave), at most
+    one per 64-key tile of ``span`` (the most keys a block can meet:
+    MP * ps, the window band, or the dense arena's Smax) and at most 32.
+    From shapes alone, never from kv_lens: the call needs no host sync."""
+    blocks = max(1, b * kvn * row_blocks)
+    want = 2 * SM_COUNT // blocks
+    return max(1, min(want, -(-span // TILE_KEYS), MAX_SPLITS))
+
+
+def split_keys(kv_len: int, wins: int, window: int, n_cap: int,
+               splits: int) -> list[tuple[int, int]]:
+    """The key range [lo, hi) each split of the kernel walks for one
+    sequence (empty: lo == hi), as the kernel computes it: the live keys
+    [k_lo, min(kv_len, n_cap)) (k_lo = kv_len - wins - window + 1 with a
+    sliding ``window`` > 0, else 0) cut into ``splits`` runs of whole
+    64-key tiles, tile-aligned to the pool, ceil(tiles / splits) each."""
+    n_keys = max(0, min(kv_len, n_cap))
+    k_lo = max(0, kv_len - wins - window + 1) if window > 0 else 0
+    t_lo = k_lo // TILE_KEYS
+    nt = max(0, -(-n_keys // TILE_KEYS) - t_lo)
+    per = -(-nt // splits)
+    out = []
+    for z in range(splits):
+        ta, tb = t_lo + min(nt, z * per), t_lo + min(nt, (z + 1) * per)
+        lo = max(k_lo, ta * TILE_KEYS)
+        out.append((lo, max(lo, min(n_keys, tb * TILE_KEYS))))
+    return out
+
+
+def row_blocks(rows: int) -> int:
+    """Blocks a (sequence, kv head) takes for ``rows`` query rows."""
+    return -(-rows // ROW_BLOCK)
+
+
+def workspace(b: int, rows: int, d: int, splits: int, device):
+    """The f32 partials of a split call (acc, then m and l, per split and
+    output row), or None with one split."""
+    if splits == 1:
+        return None
+    return torch.empty((splits * b * rows * (d + 2),), dtype=torch.float32,
+                       device=device)
 
 
 def _check_scales(k_pool, v_pool, k_scale, v_scale) -> bool:
@@ -299,13 +352,18 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
     if tables.shape[0] != b or kv_lens.shape != (b,):
         raise ValueError("tables/kv_lens rows do not match q")
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    mp = tables.shape[1]
+    span = mp * ps if not window else min(mp * ps, window + s - 1)
+    splits = decode_splits(b, kvn, span, row_blocks((n // kvn) * s))
+    part = workspace(b, s * n, d, splits, q.device)
     lib = cuda_build.load()
     rc = lib.sli_paged_flash_decode(
         q.data_ptr(), q.stride(0), q.stride(1), k_pool.data_ptr(),
         v_pool.data_ptr(), 0 if k_scale is None else k_scale.data_ptr(),
         0 if v_scale is None else v_scale.data_ptr(),
-        tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), b, layer, p1,
-        kvn, ps, tables.shape[1], n // kvn, s, d, window, scale, code,
+        tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+        0 if part is None else part.data_ptr(), b, layer, p1, kvn, ps, mp,
+        n // kvn, s, d, window, splits, scale, code,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, rc, what)
     return out

@@ -49,14 +49,16 @@ _SIGNATURES = {
                                        _I, _I, _P],
     "sli_flash_prefill": [_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _L,
                           _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    "sli_paged_flash_decode": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                               _P],
+    "sli_paged_flash_decode": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _F, _I, _P],
     "sli_paged_flash_prefill": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _F, _I, _P],
     "sli_quantized_matmul": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P],
+    "sli_quantized_matmul_mma": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _P],
     "sli_quantized_matmul_int4": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _P],
     "sli_quantized_matmul_w8a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -68,8 +70,8 @@ _SIGNATURES = {
                       _F, _I, _I, _I, _P],
     "sli_kv_append": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _I, _I, _I, _I, _I,
                       _I, _I, _I, _P],
-    "sli_flash_decode": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _I, _P],
+    "sli_flash_decode": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _F, _I, _P],
     "sli_qkv_fused_dense": [_P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P,
                             _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                             _P],

@@ -19,7 +19,14 @@ For CUDA tensors each wrapper launches its hand-written kernel
 (``csrc/quantized_matmul.cu``, ``csrc/quantized_matmul_int4.cu``,
 ``csrc/quantized_matmul_w8a8.cu``) and counts the launch; for CPU tensors
 it runs its plain version (``*_ref``), which is also what the kernels are
-held against on the card.
+held against on the card. The 8-bit product has three kernels, one per
+regime, chosen before the launch by :func:`tiled_regime` and each with
+its own count in :data:`REGIME_LAUNCHES` (``quantized_matmul.launches``
+counts every call): ``rows`` (M <= 8, bytes-bound: f32 FMAs streaming the
+weight), ``mma`` (M > 8 with bf16 activations: bf16 tensor cores by wgmma,
+``csrc/quantized_matmul_mma.cu``) and ``fma`` (the rest: f32 activations,
+scale groups off a multiple of 64 rows, K off a multiple of 8 or N of 16:
+a shared-memory tiled f32 FMA kernel).
 
 Rounding: the TPU kernels round x to bf16 whatever its dtype
 (matmul.py:565). Here x is used in its own dtype (the activation dtype)
@@ -36,6 +43,8 @@ raise.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
@@ -44,6 +53,40 @@ SM_COUNT = 132            # H100 SXM: K splits aim at two blocks per SM
 ROWS_MAX_M = 8            # up to this many rows: the few-rows kernel
 ROWS_COLS = 256           # output columns per block of that kernel
 ROWS_MIN_K = 256          # smallest K range a block of it takes
+MMA_BN = 128              # output columns per block of the mma kernel
+MMA_BK = 64               # its K slab: K splits fall on slab edges
+MMA_MIN_K = 256           # smallest K range a block of it takes
+# launches of each 8-bit regime's kernel (quantized_matmul counts them all)
+REGIME_LAUNCHES = {"rows": 0, "mma": 0, "fma": 0}
+
+
+def tiled_regime(m: int, k: int, n: int, group: int, dtype) -> str:
+    """The kernel of an 8-bit product of ``m`` rows x [k, n] weights with
+    scale groups of ``group`` rows (``k``: per output channel), from dtype
+    and shape alone: "rows" for m <= 8; "mma" (bf16 tensor cores) for bf16
+    activations with K a multiple of 8, N of 16 and groups per channel or
+    of a multiple of its 64-row K slab; "fma" otherwise."""
+    if m <= ROWS_MAX_M:
+        return "rows"
+    if (dtype == torch.bfloat16 and k % 8 == 0 and n % 16 == 0
+            and (group >= k or group % MMA_BK == 0)):
+        return "mma"
+    return "fma"
+
+
+def mma_split(m: int, k: int, n: int, group: int) -> tuple[int, int]:
+    """(warpgroups along M, K rows per block) of the mma kernel: 128-row
+    tiles from m = 128 (two warpgroups, one block an SM), else 64-row tiles
+    (one warpgroup, two blocks an SM); K is split on slab (and, grouped,
+    group) edges while the grid still fits one wave of those blocks, each
+    block taking at least 256 rows."""
+    wm = 2 if m >= 128 else 1
+    tiles = -(-n // MMA_BN) * -(-m // (64 * wm))
+    want = (SM_COUNT if wm == 2 else 2 * SM_COUNT) // tiles
+    chunks = max(1, min(want, k // MMA_MIN_K))
+    unit = MMA_BK if group >= k else math.lcm(MMA_BK, group)
+    per = -(-k // chunks)
+    return wm, -(-per // unit) * unit
 
 
 def rows_split(m: int, k: int, n: int) -> int:
@@ -142,19 +185,38 @@ def quantized_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out.reshape(*x.shape[:-1], n)
-    kch = rows_split(m, k, n) if m <= ROWS_MAX_M else 0
-    chunks = -(-k // kch) if kch else 0
-    work = torch.empty((chunks * m * n,), dtype=torch.float32,
-                       device=x.device)
-    vec = int(n % 16 == 0 and ql.data_ptr() % 16 == 0)
+    regime = tiled_regime(m, k, n, k // g, x2.dtype)
     lib = cuda_build.load()
-    rc = lib.sli_quantized_matmul(
-        x2.data_ptr(), x2.stride(0), ql.data_ptr(), sl.data_ptr(),
-        out.data_ptr(), work.data_ptr(), m, k, n, k // g, kch,
-        cuda_build.dtype_code(x2.dtype), cuda_build.dtype_code(out_dtype),
-        vec, torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(lib, rc, "quantized_matmul")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if regime == "mma":
+        # the 16-byte copies need aligned rows (a contiguous copy of an
+        # odd view; K % 8 == 0 keeps its rows aligned)
+        if x2.data_ptr() % 16 or x2.stride(0) % 8:
+            x2 = x2.clone(memory_format=torch.contiguous_format)
+        if ql.data_ptr() % 16:
+            ql = ql.clone()
+        wm, kch = mma_split(m, k, n, k // g)
+        chunks = -(-k // kch)
+        work = torch.empty((chunks * m * n if chunks > 1 else 0,),
+                           dtype=torch.float32, device=x.device)
+        rc = lib.sli_quantized_matmul_mma(
+            x2.data_ptr(), x2.stride(0), ql.data_ptr(), sl.data_ptr(),
+            out.data_ptr(), work.data_ptr() if chunks > 1 else 0, m, k, n,
+            k // g, kch, wm, cuda_build.dtype_code(out_dtype), stream)
+    else:
+        kch = rows_split(m, k, n) if regime == "rows" else 0
+        chunks = -(-k // kch) if kch else 0
+        work = torch.empty((chunks * m * n,), dtype=torch.float32,
+                           device=x.device)
+        vec = int(n % 16 == 0 and ql.data_ptr() % 16 == 0)
+        rc = lib.sli_quantized_matmul(
+            x2.data_ptr(), x2.stride(0), ql.data_ptr(), sl.data_ptr(),
+            out.data_ptr(), work.data_ptr(), m, k, n, k // g, kch,
+            cuda_build.dtype_code(x2.dtype),
+            cuda_build.dtype_code(out_dtype), vec, stream)
+    cuda_build.check(lib, rc, f"quantized_matmul ({regime})")
     quantized_matmul.launches += 1
+    REGIME_LAUNCHES[regime] += 1
     return out.reshape(*x.shape[:-1], n)
 
 

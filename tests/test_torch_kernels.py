@@ -115,12 +115,36 @@ def test_flash_prefill(cuda, dtype, s, n, kvn, d):
     assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
 
 
+def _split_edge_lens(kvn, span, wins=1, rows=1):
+    """Batches of kv_lens for the split edges of the key walk: 1, every
+    boundary of the splits over the whole span +- 1 and the span itself,
+    each batch as large as keeps more than one split, sequence 0 at kv_len
+    0 and the last one left for the test's dead all -1 slot."""
+    rb = pd.row_blocks(rows)
+    b = max(i for i in range(2, 65) if pd.decode_splits(i, kvn, span, rb) > 1)
+    z = pd.decode_splits(b, kvn, span, rb)
+    cuts = [lo for lo, _hi in pd.split_keys(span, wins, 0, span, z)][1:]
+    edges = sorted({min(span, c + e) for c in cuts for e in (-1, 0, 1)}
+                   | {1, span - 1, span})
+    assert b >= 4
+    return [([0] + edges[i:i + b - 2] + [wins + 7 * j for j in range(b)])[:b]
+            for i in range(0, len(edges), b - 2)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,kvn,d", [(32, 32, 128), (32, 4, 64)])
-def test_paged_flash_decode(cuda, dtype, n, kvn, d):
+@pytest.mark.parametrize("edges", [False, True], ids=["lens", "split-edges"])
+def test_paged_flash_decode(cuda, dtype, n, kvn, d, edges):
     g = torch.Generator(device=cuda).manual_seed(n + kvn)
-    lens = [1, 128, 129, 200, 0, 57]
-    b, ps, mp = len(lens), 128, 2
+    batches = ([[1, 128, 129, 200, 0, 57]] if not edges
+               else _split_edge_lens(kvn, 16 * 128, rows=n // kvn))
+    for lens in batches:
+        _check_paged_flash_decode(g, cuda, dtype, n, kvn, d, lens,
+                                  2 if not edges else 16)
+
+
+def _check_paged_flash_decode(g, cuda, dtype, n, kvn, d, lens, mp):
+    b, ps = len(lens), 128
     pk, pv = _pools(g, cuda, dtype, b=b, kvn=kvn, ps=ps, d=d, mp=mp)
     q = torch.randn((b, n, d), generator=g, device=cuda, dtype=dtype)
     tables = torch.randperm(b * mp, generator=g, device=cuda).to(
@@ -132,7 +156,8 @@ def test_paged_flash_decode(cuda, dtype, n, kvn, d):
     assert pd.paged_flash_decode.launches == before + 1
     want = pd.paged_flash_decode_ref(q, pk, pv, tables, kv, 1)
     assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
-    assert not got[4].any()          # kv_len 0 -> zero output
+    assert not got[lens.index(0)].any()   # kv_len 0 -> zero output
+    assert not got[-1].any()              # the dead slot reads zeros
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -250,16 +275,32 @@ def _qw(g, dev, shape, groups):
     (8, 4096, 4096, 1, torch.bfloat16, torch.bfloat16),   # decode wo
     (8, 4096, 3000, 32, torch.float32, torch.float32),    # rows, grouped
     (3, 200, 40, 5, torch.float32, torch.float32),        # K % 128 != 0
-    (100, 512, 384, 4, torch.bfloat16, torch.float32),    # tiled, grouped
+    (100, 512, 384, 4, torch.bfloat16, torch.float32),    # mma, group 128
     (70, 300, 136, 1, torch.float32, torch.bfloat16),     # N % 16 != 0
+    # the mma kernel: M across its 64- and 128-row tiles and K splits,
+    # N off a multiple of 128, K 4000, groups of 32, 128 and 125 (fma)
+    (9, 4096, 4096, 1, torch.bfloat16, torch.bfloat16),
+    (16, 4096, 4000, 1, torch.bfloat16, torch.bfloat16),
+    (40, 4096, 4096, 1, torch.bfloat16, torch.bfloat16),
+    (40, 4096, 32000, 1, torch.bfloat16, torch.float32),
+    (64, 4000, 4096, 125, torch.bfloat16, torch.bfloat16),
+    (65, 4000, 1040, 1, torch.bfloat16, torch.float32),
+    (256, 4096, 6144, 32, torch.bfloat16, torch.bfloat16),
+    (256, 14336, 4096, 1, torch.bfloat16, torch.bfloat16),
+    (1024, 4096, 12288, 32, torch.bfloat16, torch.bfloat16),
+    (1024, 1000, 2000, 8, torch.bfloat16, torch.float32),  # group 125
+    (1000, 4096, 4000, 128, torch.bfloat16, torch.float32),
 ])
 def test_quantized_matmul(cuda, m, k, n, groups, xdt, odt):
     g = torch.Generator(device=cuda).manual_seed(m + k)
     q, s = _qw(g, cuda, (2, k, n), groups)
     x = torch.randn((m, k), generator=g, device=cuda).to(xdt)
-    before = mm.quantized_matmul.launches
+    regime = mm.tiled_regime(m, k, n, k // groups, xdt)
+    before = (mm.quantized_matmul.launches, dict(mm.REGIME_LAUNCHES))
     got = mm.quantized_matmul(x, q, s, out_dtype=odt, layer=1)
-    assert mm.quantized_matmul.launches == before + 1
+    assert mm.quantized_matmul.launches == before[0] + 1
+    assert mm.REGIME_LAUNCHES == {r: c + (r == regime)
+                                  for r, c in before[1].items()}
     want = mm.quantized_matmul_ref(x, q, s, out_dtype=odt, layer=1)
     assert got.dtype == odt and got.shape == (m, n)
     diff = (got.float() - want.float()).abs()
@@ -621,9 +662,13 @@ def test_paged_append_span(cuda, dtype, span):
         assert torch.equal(x[:, :-1], y[:, :-1])
 
 
-def _verify_case(g, dev, dtype, s, n, kvn, d, int8):
-    lens = [s, 128, 129 + s, 200, 0, 57 + s]
-    b, ps, mp = len(lens), 128, 3
+def _verify_case(g, dev, dtype, s, n, kvn, d, int8, lens=None):
+    """Pools, q and tables for kv_lens ``lens`` (default: across a page and
+    kv_len 0 at row 4, the second-last slot dead (all -1); the split-edge
+    batches' last slot is dead)."""
+    mp, dead = (3, -2) if lens is None else (16, -1)
+    lens = [s, 128, 129 + s, 200, 0, 57 + s] if lens is None else lens
+    b, ps = len(lens), 128
     if int8:
         pools = _quant_pools(g, dev, b=b, kvn=kvn, ps=ps, d=d, mp=mp)
     else:
@@ -631,7 +676,7 @@ def _verify_case(g, dev, dtype, s, n, kvn, d, int8):
     q = torch.randn((b, s, n, d), generator=g, device=dev, dtype=dtype)
     tables = torch.randperm(b * mp, generator=g, device=dev).to(
         torch.int32).reshape(b, mp)
-    tables[-2] = -1                  # a dead slot: every entry unmapped
+    tables[dead] = -1                # a dead slot: every entry unmapped
     return q, pools, tables, torch.tensor(lens, dtype=torch.int32,
                                           device=dev)
 
@@ -641,9 +686,18 @@ def _verify_case(g, dev, dtype, s, n, kvn, d, int8):
 @pytest.mark.parametrize("s", [1, 2, 5, 8])
 @pytest.mark.parametrize("n,kvn,d", [(32, 32, 128), (32, 8, 128),
                                      (32, 4, 64)])
-def test_paged_flash_verify(cuda, int8, dtype, s, n, kvn, d):
+@pytest.mark.parametrize("edges", [False, True], ids=["lens", "split-edges"])
+def test_paged_flash_verify(cuda, int8, dtype, s, n, kvn, d, edges):
     g = torch.Generator(device=cuda).manual_seed(s * 100 + kvn)
-    q, pools, tables, kv = _verify_case(g, cuda, dtype, s, n, kvn, d, int8)
+    batches = ([None] if not edges else
+               _split_edge_lens(kvn, 16 * 128, wins=s, rows=s * n // kvn))
+    for lens in batches:
+        _check_paged_flash_verify(g, cuda, int8, dtype, s, n, kvn, d, lens)
+
+
+def _check_paged_flash_verify(g, cuda, int8, dtype, s, n, kvn, d, lens):
+    q, pools, tables, kv = _verify_case(g, cuda, dtype, s, n, kvn, d, int8,
+                                        lens)
     scales = dict(k_scale=pools[2], v_scale=pools[3]) if int8 else {}
     kern = pd.paged_flash_verify_int8kv if int8 else pd.paged_flash_verify
     others = [f for f in (pd.paged_flash_verify, pd.paged_flash_verify_int8kv,
@@ -658,7 +712,7 @@ def test_paged_flash_verify(cuda, int8, dtype, s, n, kvn, d):
                                      **scales)
     assert got.shape == q.shape and got.dtype == dtype
     assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
-    assert not got[4].any()          # kv_len 0 -> zero output
+    assert not got[kv.tolist().index(0)].any()   # kv_len 0 -> zero output
 
 
 def test_spec_engine_runs_the_kernels_only(cuda):
@@ -759,13 +813,25 @@ def test_kv_append(cuda, dtype, s, offs):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,kvn,d", [(32, 32, 128), (32, 4, 64), (8, 2, 32)])
-def test_flash_decode(cuda, dtype, n, kvn, d):
-    from simplellminference_tpu_torch.ops.attention import flash_decode as fd
+@pytest.mark.parametrize("edges", [False, True], ids=["lens", "split-edges"])
+def test_flash_decode(cuda, dtype, n, kvn, d, edges):
     g = torch.Generator(device=cuda).manual_seed(n + kvn + d)
-    ck, cv = _arena(g, cuda, dtype, rows=6, kvn=kvn, smax=256, d=d)
-    q = torch.randn((5, n, d), generator=g, device=cuda, dtype=dtype)
-    kv_lens = torch.tensor([1, 0, 161, 256, 300], dtype=torch.int32,
-                           device=cuda)
+    if not edges:
+        _check_flash_decode(g, cuda, dtype, n, kvn, d, [1, 0, 161, 256, 300],
+                            256)
+        return
+    for lens in _split_edge_lens(kvn, 2048, rows=n // kvn):
+        # kv_len 0 at row 1, past Smax in the last row
+        lens[0], lens[1], lens[-1] = lens[1], 0, 2048 + 5
+        _check_flash_decode(g, cuda, dtype, n, kvn, d, lens, 2048)
+
+
+def _check_flash_decode(g, cuda, dtype, n, kvn, d, lens, smax):
+    from simplellminference_tpu_torch.ops.attention import flash_decode as fd
+    ck, cv = _arena(g, cuda, dtype, rows=len(lens) + 1, kvn=kvn, smax=smax,
+                    d=d)
+    q = torch.randn((len(lens), n, d), generator=g, device=cuda, dtype=dtype)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
     before = fd.flash_decode.launches
     got = fd.flash_decode(q, ck, cv, kv_lens, layer=1)
     assert fd.flash_decode.launches == before + 1
@@ -1069,9 +1135,11 @@ def _poisoned(ring, k_lo, ps, first):
 @pytest.mark.parametrize("int8", [False, True], ids=["float-kv", "int8-kv"])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("s", [1, 5])
-def test_paged_flash_decode_window_reads_only_the_band(cuda, int8, dtype, s):
+@pytest.mark.parametrize("window", [200, 700])   # bands over 4 and 9 splits
+def test_paged_flash_decode_window_reads_only_the_band(cuda, int8, dtype, s,
+                                                       window):
     g = torch.Generator(device=cuda).manual_seed(s + 10 * int8)
-    b, r, mp, kvn, n, d, ps, window = 4, 4, 8, 8, 32, 128, 128, 200
+    b, r, mp, kvn, n, d, ps = 4, 4 if window == 200 else 8, 8, 8, 32, 128, 128
     pools, ring = _ring_case(g, cuda, dtype, int8, b, r, mp, kvn, d, ps)
     kv = torch.tensor([150, 201, 640, 1000], dtype=torch.int32, device=cuda)
     q = torch.randn((b, s, n, d), generator=g, device=cuda, dtype=dtype)

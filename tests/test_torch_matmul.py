@@ -202,3 +202,89 @@ def test_rows_split_covers_k(m, k, n):
     blocks = chunks * -(-n // tmm.ROWS_COLS)
     assert blocks >= min(2 * tmm.SM_COUNT, -(-k // tmm.ROWS_MIN_K)
                          * -(-n // tmm.ROWS_COLS))
+
+
+@pytest.mark.parametrize("m,k,n,group,dtype,want", [
+    (8, 4096, 4096, 4096, torch.bfloat16, "rows"),     # decode: M <= 8
+    (8, 4096, 4096, 4096, torch.float32, "rows"),
+    (9, 4096, 4096, 4096, torch.bfloat16, "mma"),      # the first mma row
+    (40, 4096, 32000, 4096, torch.bfloat16, "mma"),    # verify head
+    (1024, 4096, 12288, 128, torch.bfloat16, "mma"),   # group 128
+    (256, 4096, 6144, 64, torch.bfloat16, "mma"),      # group 64
+    (256, 4096, 6144, 32, torch.bfloat16, "fma"),      # group 32: off-slab
+    (1024, 4096, 12288, 4096, torch.float32, "fma"),   # f32 activations
+    (100, 1000, 2048, 125, torch.bfloat16, "fma"),     # off-slab group
+    (100, 1000, 2048, 8, torch.bfloat16, "fma"),       # group of 8 rows
+    (70, 300, 136, 300, torch.bfloat16, "fma"),        # N % 16 != 0
+    (70, 300, 4096, 300, torch.bfloat16, "fma"),       # K % 8 != 0
+])
+def test_tiled_regime_from_dtype_and_shape(m, k, n, group, dtype, want):
+    assert tmm.tiled_regime(m, k, n, group, dtype) == want
+    # the CPU takes the plain version: no kernel launches, no count moves
+    before = dict(tmm.REGIME_LAUNCHES)
+    x = torch.zeros((min(m, 9), k), dtype=dtype)
+    tmm.quantized_matmul(x, torch.zeros((k, 32), dtype=torch.int8),
+                         torch.ones((1, 32)))
+    assert tmm.REGIME_LAUNCHES == before
+
+
+@pytest.mark.parametrize("m,k,n,group", [
+    (1024, 4096, 12288, 4096), (40, 4096, 4096, 4096),
+    (40, 4096, 32000, 4096), (256, 14336, 4096, 14336),
+    (256, 4096, 6144, 32), (64, 4000, 4096, 4000), (100, 512, 384, 128),
+    (9, 40, 16, 40), (1000, 4096, 4000, 32)])
+def test_mma_split_covers_k_on_slab_and_group_edges(m, k, n, group):
+    wm, kch = tmm.mma_split(m, k, n, group)
+    assert wm == (2 if m >= 128 else 1)
+    assert kch % tmm.MMA_BK == 0 and (group >= k or kch % group == 0)
+    chunks = -(-k // kch)
+    assert (chunks - 1) * kch < k <= chunks * kch
+    tiles = -(-n // tmm.MMA_BN) * -(-m // (64 * wm))
+    target = tmm.SM_COUNT * (1 if wm == 2 else 2)
+    # one wave of blocks at most, at least 256 rows a block
+    assert chunks <= max(1, min(target // tiles, k // tmm.MMA_MIN_K))
+
+
+def _mma_order(x, q, s, kch):
+    """The mma kernel's sums in f32 (plain torch): K blocks of kch rows,
+    their f32 partials added in block order as qmm_finish adds them; in a
+    block, exact bf16 products summed per scale group, each group's
+    partial times its scale (grouped), or the blocks' total times the
+    per-channel scale once."""
+    k = q.shape[0]
+    g = s.shape[0]
+    gs = k // g
+    xf, qf, sf = x.float(), q.float(), s.float()
+    total = torch.zeros((x.shape[0], q.shape[1]))
+    for k0 in range(0, k, kch):
+        k1 = min(k, k0 + kch)
+        if g == 1:
+            total = total + xf[:, k0:k1] @ qf[k0:k1]
+            continue
+        block = torch.zeros_like(total)
+        for g0 in range(k0, k1, gs):
+            block = block + (xf[:, g0:g0 + gs] @ qf[g0:g0 + gs]) * sf[g0 // gs]
+        total = total + block
+    return total * sf[0] if g == 1 else total
+
+
+@pytest.mark.parametrize("group", [32, 64, 128, 512],
+                         ids=["g32", "g64", "g128", "per-channel"])
+@pytest.mark.parametrize("m", [40, 128])
+def test_group_partial_order_matches_jax_kernel(group, m):
+    rng = np.random.default_rng(group + m)
+    k, n = 512, 256
+    q, s = _qweights(rng, k, n, k // group)
+    xt = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)
+                          ).bfloat16()
+    _wm, kch = tmm.mma_split(m, k, n, group)
+    got = _mma_order(xt, torch.from_numpy(q), torch.from_numpy(s), kch)
+    want = np.asarray(jqmm(jnp.asarray(xt.float().numpy()).astype(
+        jnp.bfloat16), jnp.asarray(q), jnp.asarray(s),
+        out_dtype=jnp.float32, interpret=True))
+    lim = 1e-5 * float(np.abs(want).max())
+    assert float(np.abs(got.numpy() - want).max()) <= lim
+    # and the port's plain version (per-group partials in one block)
+    plain = tmm.quantized_matmul(xt, torch.from_numpy(q), torch.from_numpy(s),
+                                 out_dtype=torch.float32)
+    assert float((got - plain).abs().max()) <= lim
