@@ -49,6 +49,16 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// Four signed bytes of w -> four exact floats (a byte permute into the
+// mantissa of 2^23, then one subtract: no int-to-float instruction).
+__device__ __forceinline__ void i8x4_to_f32(unsigned int w, float* f) {
+  const unsigned int u = w ^ 0x80808080u;  // b -> b + 128, as unsigned
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    f[j] = __int_as_float((int)__byte_perm(u, 0x4B000000u, 0x7540 + j)) -
+           8388736.f;  // 2^23 + 128
+}
+
 // Sets the dynamic shared memory limit of `kernel` when it needs more than
 // the 48 KB a launch gets without opting in.
 template <typename K>

@@ -1,33 +1,37 @@
 // Causal GQA flash attention over a prompt (prefill), online softmax.
 //
 // Replaces the TPU kernel of simplellminference_tpu/ops/attention/
-// flash_prefill.py: flash_prefill (_flash_kernel, flash_prefill.py:26-203),
-// with its sliding-window form (window > 0: query i attends keys with
-// q_pos - k_pos < window, flash_prefill.py:76-77).
+// flash_prefill.py: flash_prefill (_flash_kernel, flash_prefill.py:26-100,
+// wrapper :102), with its sliding-window form (window > 0: query i attends
+// keys with q_pos - k_pos < window, flash_prefill.py:76-77): forms 3, 3w.
 //
-// Bound on the H100: for the serving shapes (S = 128..2048) the least
-// time is set by bytes: q and k, v read once and the output written once,
-// (2*N + 2*kvN)*B*S*D elements, against 2*B*N*D*S*(S+1) causal
-// multiply-add operations, which stay below the card's ops-per-byte
-// balance point until S is a few thousand.
+// Bound on the H100: for the serving shapes (S = 128..2048) bytes: q and
+// k, v read once and the output written once, (2*N + 2*kvN)*B*S*D
+// elements, against 2*B*N*D*S*(S+1) causal multiply-add operations, which
+// stay below the card's ops-per-byte balance point until S is a few
+// thousand.
 //
-// Design: one block per (q tile of 64 rows, q head, batch); K/V tiles of
-// 64 rows are staged through shared memory in f32, and the block walks
-// them from the first tile up to the causal frontier of its q tile only
-// (tiles above the diagonal are never loaded), so each K/V byte of a head
-// is read once per q tile and the [S, S] score matrix never leaves the
-// SM. Scores, the running max and sum, and the accumulator stay in f32;
-// products are plain FMAs (a 4 x 4 micro-tile per thread for QK^T, 4 rows
-// x D/16 columns for PV). Every S is taken: rows and keys past S are
-// masked in the kernel (the TPU dispatcher sends S % 128 != 0 to the jnp
-// reference instead). The GQA head of q head h is h / group. With a
-// window the walk starts at the tile holding the oldest query row's first
-// key, q0 - (window - 1) (flash_prefill.py:50-53, :154-157), so a tile
-// wholly below every row's window is never loaded and the cost is
-// O(S * window); a key outside its row's band is masked per element and
-// contributes p = 0, so a row whose first tiles hold none of its keys
-// carries nothing from them.
+// Design, bf16: prefill_mma.cuh, on the tensor cores. One warpgroup a
+// block and a 64-row query tile that packs 64 / group positions x the
+// group's q heads of one kv head, so each K/V tile is read once for the
+// whole GQA group; K/V rows (strided views taken as they are, 16-byte
+// aligned) through a two-stage cp.async ring; S = QK^T and O += PV on
+// wgmma with P split hi + lo in bf16, the f32 online softmax on the
+// fragments. The walk runs from key 0, or with a window from the tile's
+// oldest row's first key q0 - (window - 1) (flash_prefill.py:50-53,
+// :154-157; cost O(S * window)), up to the tile's newest position; rows
+// past S are zero-filled by the copy and masked. Every S is taken (the
+// TPU dispatcher sends S % 128 != 0 to the jnp reference instead). When
+// the tiles alone leave fewer than two blocks an SM, the key walk is split
+// over blocks (from shapes alone) and merged by log-sum-exp.
+//
+// Design, f32: the first, FMA kernel below (TF32 tensor cores would not
+// hold f32's tolerance): one block per (q tile of 64 rows, q head,
+// batch); K/V tiles of 64 rows staged through shared memory in f32, a
+// 4 x 4 micro-tile per thread for QK^T and 4 rows x D/16 columns for PV,
+// the same walk, a key outside its row's band masked per element.
 #include "common.cuh"
+#include "prefill_mma.cuh"
 
 namespace {
 
@@ -241,9 +245,99 @@ int dispatch_d(int head_dim, const void* q, const void* k, const void* v,
   }
 }
 
+// The K/V rows of one sequence and kv head of dense [B, S, kvN, D]
+// arrays for pfa::attend: key kp is row kp (no pages, no lookups).
+struct DenseRows {
+  const __nv_bfloat16* kb;  // k + b * k_bs + kh * D
+  const __nv_bfloat16* vb;
+  long long k_ss, v_ss;
+  struct Cursor {
+    int kp;
+  };
+  __device__ Cursor cursor(int kp) const { return {kp}; }
+  __device__ void advance(Cursor& c) const { c.kp += sli::pfa::TILE; }
+  __device__ int page(const Cursor&) const { return 0; }
+  __device__ long long row(const Cursor& c, int) const { return c.kp; }
+  __device__ const void* k(long long r) const { return kb + r * k_ss; }
+  __device__ const void* v(long long r) const { return vb + r * v_ss; }
+};
+
+// bf16 q [B, S, N, D], k/v [B, S, kvN, D] (element strides, heads
+// contiguous, 16-byte aligned rows); out [B, S, N, D] contiguous, or the
+// split partials in work.
+template <int D>
+__global__ void __launch_bounds__(sli::pfa::NT) flash_prefill_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ work, long long q_bs, long long q_ss, long long k_bs,
+    long long k_ss, long long v_bs, long long v_ss, int batch, int seq,
+    int heads, int group, int window, float scale_log2, int splits) {
+  const int b = blockIdx.z / splits;
+  const long long kh = blockIdx.y;
+  const DenseRows src{k + b * k_bs + kh * D, v + b * v_bs + kh * D, k_ss,
+                      v_ss};
+  sli::pfa::attend<D, false>(q + b * q_bs, q_ss, src,
+                             out + (long long)b * seq * heads * D, work,
+                             batch, b, seq, heads, group, 0, seq, window,
+                             scale_log2, splits);
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               float* work, long long q_bs, long long q_ss, long long k_bs,
+               long long k_ss, long long v_bs, long long v_ss, int batch,
+               int seq, int heads, int group, int window, float scale,
+               int splits, cudaStream_t st) {
+  namespace pfa = sli::pfa;
+  constexpr int bytes = pfa::Smem<D, false>::BYTES;
+  auto kern = flash_prefill_mma_kernel<D>;
+  cudaError_t e = sli::allow_smem(kern, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int h = min(group, pfa::TILE);
+  const int tiles = (seq + pfa::TILE / h - 1) / (pfa::TILE / h) *
+                    ((group + h - 1) / h);
+  const dim3 grid(tiles, heads / group, batch * splits);
+  kern<<<grid, pfa::NT, bytes, st>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, work, q_bs, q_ss, k_bs,
+      k_ss, v_bs, v_ss, batch, seq, heads, group, window, scale * pfa::LOG2E,
+      splits);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  return (int)sli::launch_merge<__nv_bfloat16>(
+      work, out, (long long)batch * seq * heads, D, splits, st);
+}
+
+int dispatch_mma(int head_dim, const void* q, const void* k, const void* v,
+                 void* out, float* work, long long q_bs, long long q_ss,
+                 long long k_bs, long long k_ss, long long v_bs,
+                 long long v_ss, int batch, int seq, int heads, int group,
+                 int window, float scale, int splits, cudaStream_t st) {
+  switch (head_dim) {
+    case 32:
+      return launch_mma<32>(q, k, v, out, work, q_bs, q_ss, k_bs, k_ss, v_bs,
+                            v_ss, batch, seq, heads, group, window, scale,
+                            splits, st);
+    case 64:
+      return launch_mma<64>(q, k, v, out, work, q_bs, q_ss, k_bs, k_ss, v_bs,
+                            v_ss, batch, seq, heads, group, window, scale,
+                            splits, st);
+    case 128:
+      return launch_mma<128>(q, k, v, out, work, q_bs, q_ss, k_bs, k_ss,
+                             v_bs, v_ss, batch, seq, heads, group, window,
+                             scale, splits, st);
+    default:
+      return SLI_ERR_HEAD_DIM;
+  }
+}
+
 }  // namespace
 
 // window: 0 for plain causal attention, else the sliding window (>= 1).
+// bf16 takes the tensor-core kernel: q, k, v rows 16-byte aligned (base
+// pointers and strides), out contiguous, and with splits > 1, work holds
+// splits * batch * seq * heads * (head_dim + 2) floats. f32 takes the FMA
+// kernel (splits 1).
 extern "C" int sli_flash_prefill(const void* q, const void* k, const void* v,
                                  void* out, long long q_bs, long long q_ss,
                                  long long k_bs, long long k_ss,
@@ -251,18 +345,27 @@ extern "C" int sli_flash_prefill(const void* q, const void* k, const void* v,
                                  long long o_bs, long long o_ss, int batch,
                                  int seq, int heads, int group, int head_dim,
                                  int window, float scale, int dtype,
-                                 void* stream) {
-  if (batch <= 0 || seq <= 0 || heads <= 0 || group <= 0 || window < 0)
+                                 void* work, int splits, void* stream) {
+  if (batch <= 0 || seq <= 0 || heads <= 0 || group <= 0 || window < 0 ||
+      heads % group || splits < 1 || (splits > 1 && work == nullptr))
     return SLI_ERR_SHAPE;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == SLI_F32)
+  if (dtype == SLI_F32) {
+    if (splits != 1) return SLI_ERR_SHAPE;
     return dispatch_d<float>(head_dim, q, k, v, out, q_bs, q_ss, k_bs, k_ss,
                              v_bs, v_ss, o_bs, o_ss, batch, seq, heads, group,
                              window, scale, st);
-  if (dtype == SLI_BF16)
-    return dispatch_d<__nv_bfloat16>(head_dim, q, k, v, out, q_bs, q_ss,
-                                     k_bs, k_ss, v_bs, v_ss, o_bs, o_ss,
-                                     batch, seq, heads, group, window, scale,
-                                     st);
+  }
+  if (dtype == SLI_BF16) {
+    const long long hd = (long long)heads * head_dim;
+    if (((unsigned long long)q | (unsigned long long)k |
+         (unsigned long long)v | (unsigned long long)out) % 16 ||
+        (q_bs | q_ss | k_bs | k_ss | v_bs | v_ss) % 8 || o_ss != hd ||
+        o_bs != seq * hd)
+      return SLI_ERR_SHAPE;
+    return dispatch_mma(head_dim, q, k, v, out, (float*)work, q_bs, q_ss,
+                        k_bs, k_ss, v_bs, v_ss, batch, seq, heads, group,
+                        window, scale, splits, st);
+  }
   return SLI_ERR_DTYPE;
 }

@@ -40,14 +40,7 @@ __device__ __forceinline__ int4 load_w16(const int8_t* __restrict__ row,
   return make_int4((int)u[0], (int)u[1], (int)u[2], (int)u[3]);
 }
 
-// Four signed bytes of w -> four exact floats.
-__device__ __forceinline__ void i8x4_to_f32(unsigned int w, float* f) {
-  const unsigned int u = w ^ 0x80808080u;  // b -> b + 128, as unsigned
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    f[j] = __int_as_float((int)__byte_perm(u, 0x4B000000u, 0x7540 + j)) -
-           8388736.f;  // 2^23 + 128
-}
+using sli::i8x4_to_f32;
 
 // acc[r][j] += xk[r] * (w[j] * sc[j]) for the 16 weights of one row.
 template <bool SCALED>

@@ -77,6 +77,7 @@
 // newer than the oldest mask the keys below their own band per element
 // (p = 0).
 #include "common.cuh"
+#include "split_merge.cuh"
 
 namespace {
 
@@ -498,33 +499,6 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   }
 }
 
-// out[row, d] = sum_z acc_z[row, d] e^(m_z - M) / sum_z l_z e^(m_z - M),
-// M = max_z m_z, rounded once to T; a row whose splits are all empty
-// (l = 0) gives zero.
-template <typename T>
-__global__ void merge_kernel(const float* __restrict__ part,
-                             T* __restrict__ out, long long n_rows, int d,
-                             int splits) {
-  const long long total = n_rows * d;
-  const float* ml = part + (long long)splits * total;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const long long row = i / d;
-    float mx = NEG_INF;
-    for (int z = 0; z < splits; ++z)
-      mx = fmaxf(mx, ml[(z * n_rows + row) * 2]);
-    float l = 0.f;
-    float a = 0.f;
-    for (int z = 0; z < splits; ++z) {
-      const float* mz = ml + (z * n_rows + row) * 2;
-      const float w = expf(mz[0] - mx);
-      l = fmaf(mz[1], w, l);
-      a = fmaf(part[z * total + i], w, a);
-    }
-    out[i] = sli::from_f<T>(a / fmaxf(l, 1e-30f));
-  }
-}
-
 // The kernel's arguments past the head dim, dtype and stream.
 struct Args {
   const void* q;
@@ -561,11 +535,7 @@ int launch(const Args& a, cudaStream_t st) {
   e = cudaGetLastError();
   if (e != cudaSuccess || a.splits == 1) return (int)e;
   const long long n_rows = (long long)a.batch * a.wins * a.kvn * a.group;
-  long long blocks = (n_rows * D + 255) / 256;
-  if (blocks > 4096) blocks = 4096;
-  merge_kernel<T><<<(int)blocks, 256, 0, st>>>(a.part, (T*)a.out, n_rows, D,
-                                                a.splits);
-  return (int)cudaGetLastError();
+  return (int)sli::launch_merge<T>(a.part, a.out, n_rows, D, a.splits, st);
 }
 
 template <typename T, typename P, bool DENSE = false>

@@ -4,46 +4,52 @@
 //
 // Replaces the TPU kernel of simplellminference_tpu/ops/attention/
 // paged_prefill.py: paged_flash_prefill (_paged_prefill_kernel,
-// paged_prefill.py:44-150), for bf16/f32 pools and, its INT8-KV form,
-// int8 pools with per-token-per-head f32 scale pools [L, P+1, kvN, ps],
-// and the sliding-window form of both (window > 0, paged_prefill.py:90-92,
-// :131-132; the soft cap, sinks and shared-KV forms raise in the wrapper).
+// paged_prefill.py:44-150, wrapper :156), for bf16/f32 pools and, its
+// INT8-KV form, int8 pools with per-token-per-head f32 scale pools
+// [L, P+1, kvN, ps], and the sliding-window form of both (window > 0,
+// paged_prefill.py:90-92, :131-132; the soft cap, sinks and shared-KV
+// forms raise in the wrapper): forms 8, 8q, 8w, 8qw.
 //
-// Bound on the H100: for the serving shapes (a prefix-cached suffix of
-// Sq = 64 rows or a 256-row chunk behind a few hundred cached tokens) the
-// least time is set by bytes: q and the output (2*N*Sq*D elements per row)
-// plus each sequence's live K and V (2*kvN*kv_len*D elements), at
-// 3.35 TB/s, against 4*B*N*Sq*kv_len*D operations, which stay below the
-// card's ops-per-byte balance point at these lengths. INT8 KV halves the
-// K/V bytes and adds one f32 scale per key row and head.
+// Bound on the H100: at the prefix path's shapes bytes (a suffix batch of
+// 8 x 64 rows behind 512 cached tokens, a 256-row chunk: q and the output,
+// 2*N*Sq*D elements per sequence, plus each sequence's live K and V,
+// 2*kvN*kv_len*D elements, at 3.35 TB/s, against 4*N*D operations per
+// (row, key) pair); at the Mistral window chunk (256 rows against 4096
+// keys, window 4096) operations: 4*N*D per pair, 17 GFLOP, 0.017 ms at
+// the bf16 tensor-core peak, 26 GFLOP with the split P below. INT8 KV
+// halves the K/V bytes and adds one f32 scale per key row and head.
 //
-// Design: one block per (q tile of 64 rows, q head, sequence). Query row r
-// sits at absolute position off[b] + q0 + r. The block walks K/V tiles of
-// 64 keys from key 0 up to min(its last query position, kv_len - 1) only:
-// tiles past the causal frontier or past kv_len are never loaded. The page
-// of each key row of a tile is looked up once per tile (key p reads row
-// p % ps of page tables[b, p / ps], so pages smaller than the tile work)
-// into shared memory; an unmapped (-1) entry reads zeros, as the plain
-// version's gather does, and never touches memory outside the pool. K/V
-// rows are staged through shared memory in f32; scores, the running
-// max/sum and the accumulator stay in f32 (a 4 x 4 micro-tile per thread
-// for QK^T, 4 rows x D/16 columns for PV, plain FMAs). The mask is per
-// element: k_pos <= q_pos && k_pos < kv_len. Every row of a sequence with
-// kv_len >= 1 sees key 0, so its sum is never 0; rows past kv_len (the
-// chunk's padding) and the batch's padding rows (-1 tables, kv_len 1)
-// stay finite, and the sum is guarded anyway. Every Sq is taken. GQA head
-// of q head h is h / group. INT8 KV dequantizes each staged K/V element
-// as the TPU kernel dequantizes each page slab (paged_prefill.py:105-110):
-// code x its row's scale in f32, rounded to q's dtype, then used as the
-// bf16/f32 pools' values are. Sliding window: query q_pos attends keys
-// q_pos - window < k_pos <= q_pos; the walk starts at the oldest row of
-// the tile's first key, off + q0 - window + 1, and reads no key below it
-// (its tiles start there, not at a multiple of 64), so over the grouped
-// engine's ring pools a table column below the band, which aliases the
-// live page of a newer position, is never read. A row's keys below its own
-// band are masked per element (p = 0). Sharing a K/V tile across the GQA group,
-// TMA page copies and wgmma are later work.
+// Design, bf16 (the forms the Engine runs): prefill_mma.cuh, on the
+// tensor cores. One warpgroup a block and a 64-row query tile that packs
+// 64 / group positions x the group's q heads of one kv head, so each K/V
+// tile is read once for the whole GQA group (the first design read it
+// once per q head); K/V rows through a two-stage cp.async ring, each key
+// row's page looked up in the table (key p reads row p % ps of page
+// tables[b, p / ps], so pages smaller than the tile work) one tile ahead;
+// S = QK^T and O += PV on wgmma with P split hi + lo in bf16; the f32
+// online softmax on the fragments. The walk runs from the tile's oldest
+// row's band start (0 without a window) to min(its newest position,
+// kv_len - 1) only; a row outside it, an unmapped (-1) page and the
+// chunk's padding rows are zero-filled by the copy, never read, so over
+// the grouped engine's ring pools a table column below the band, which
+// aliases the live page of a newer position, is never read, and an
+// unmapped page inside kv_len reads zeros as the plain version's gather
+// does. When the tiles alone leave fewer than two blocks an SM (the
+// Mistral chunk: 128 tiles), the key walk is split over blocks from shapes
+// alone and the partials merged by log-sum-exp. INT8 KV converts each
+// staged row in registers, code x its row's scale in f32 rounded to bf16
+// (paged_prefill.py:105-110), into the swizzled tiles. Every Sq is taken;
+// a batch's padding row (-1 table, kv_len 1) stays finite.
+//
+// Design, f32: the first, FMA kernel below (TF32 tensor cores would not
+// hold f32's tolerance): one block per (q tile of 64 rows, q head,
+// sequence); K/V tiles of 64 keys staged through shared memory in f32
+// (each tile's rows looked up once into shared memory), a 4 x 4 micro-tile
+// per thread for QK^T and 4 rows x D/16 columns for PV; the same walk and
+// per-element mask (k_pos <= q_pos, k_pos < kv_len, k_pos > q_pos - window),
+// a row's sum guarded.
 #include "common.cuh"
+#include "prefill_mma.cuh"
 
 namespace {
 
@@ -307,36 +313,174 @@ int dispatch_p(bool quant, int head_dim, const void* q, long long q_bs,
                           st);
 }
 
+// The K/V rows of one sequence and kv head in the stacked pools, for
+// pfa::attend: a cursor on key kp holds its table column kp / ps and its
+// row in the page kp % ps, advanced 64 keys a tile without a division;
+// the page is the table entry (fetched one tile ahead), the row
+// ((layer * P1 + page) * kvN + kh) * ps + kp % ps, -1 (zeros) for an
+// unmapped or out-of-range page.
+template <int D, bool QUANT>
+struct PagedRows {
+  const unsigned char* pk;
+  const unsigned char* pv;
+  const float* ks;
+  const float* vs;
+  const int* table;
+  long long base;  // layer * P1
+  int kvn, kh, ps, p1;
+  int step_col, step_row;  // 64 keys: 64 / ps columns and 64 % ps rows
+  static constexpr int ROW = QUANT ? D : 2 * D;  // bytes of a pool row
+  struct Cursor {
+    int col, in;
+  };
+  __device__ Cursor cursor(int kp) const { return {kp / ps, kp % ps}; }
+  __device__ void advance(Cursor& c) const {
+    c.col += step_col;
+    c.in += step_row;
+    if (c.in >= ps) {
+      c.in -= ps;
+      ++c.col;
+    }
+  }
+  __device__ int page(const Cursor& c) const { return __ldg(table + c.col); }
+  __device__ long long row(const Cursor& c, int pg) const {
+    if (pg < 0 || pg >= p1) return -1;
+    return ((base + pg) * kvn + kh) * ps + c.in;
+  }
+  __device__ const void* k(long long r) const { return pk + r * ROW; }
+  __device__ const void* v(long long r) const { return pv + r * ROW; }
+  __device__ const float* ksc(long long r) const { return ks + r; }
+  __device__ const float* vsc(long long r) const { return vs + r; }
+};
+
+// bf16 q [B, Sq, N, D] (element strides q_bs, q_ss; 16-byte aligned
+// rows) against bf16 pools, or int8 pools (QUANT) with their scale pools;
+// out [B, Sq, N, D] contiguous, or the split partials in work.
+template <int D, bool QUANT>
+__global__ void __launch_bounds__(sli::pfa::NT) paged_prefill_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, long long q_bs, long long q_ss,
+    const void* __restrict__ pool_k, const void* __restrict__ pool_v,
+    const float* __restrict__ ksp, const float* __restrict__ vsp,
+    const int* __restrict__ tables, const int* __restrict__ kv_lens,
+    const int* __restrict__ offs, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ work, int batch, int seq, int heads, int layer,
+    int num_pages1, int kvn, int ps, int mp, int group, int window,
+    float scale_log2, int splits) {
+  const int b = blockIdx.z / splits;
+  const PagedRows<D, QUANT> src{
+      (const unsigned char*)pool_k, (const unsigned char*)pool_v, ksp, vsp,
+      tables + (long long)b * mp, (long long)layer * num_pages1, kvn,
+      (int)blockIdx.y, ps, num_pages1, sli::pfa::TILE / ps,
+      sli::pfa::TILE % ps};
+  sli::pfa::attend<D, QUANT>(q + (long long)b * q_bs, q_ss, src,
+                             out + (long long)b * seq * heads * D, work,
+                             batch, b, seq, heads, group, offs[b],
+                             min(kv_lens[b], mp * ps), window, scale_log2,
+                             splits);
+}
+
+template <int D, bool QUANT>
+int launch_mma(const void* q, long long q_bs, long long q_ss,
+               const void* pool_k, const void* pool_v, const float* ksp,
+               const float* vsp, const int* tables, const int* kv_lens,
+               const int* offs, void* out, float* work, int batch, int seq,
+               int heads, int layer, int num_pages1, int kvn, int ps, int mp,
+               int group, int window, float scale, int splits,
+               cudaStream_t st) {
+  namespace pfa = sli::pfa;
+  constexpr int bytes = pfa::Smem<D, QUANT>::BYTES;
+  auto kern = paged_prefill_mma_kernel<D, QUANT>;
+  cudaError_t e = sli::allow_smem(kern, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int h = min(group, pfa::TILE);
+  const int tiles = (seq + pfa::TILE / h - 1) / (pfa::TILE / h) *
+                    ((group + h - 1) / h);
+  const dim3 grid(tiles, kvn, batch * splits);
+  kern<<<grid, pfa::NT, bytes, st>>>(
+      (const __nv_bfloat16*)q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,
+      kv_lens, offs, (__nv_bfloat16*)out, work, batch, seq, heads, layer,
+      num_pages1, kvn, ps, mp, group, window, scale * pfa::LOG2E, splits);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  return (int)sli::launch_merge<__nv_bfloat16>(
+      work, out, (long long)batch * seq * heads, D, splits, st);
+}
+
+template <bool QUANT>
+int dispatch_mma(int head_dim, const void* q, long long q_bs, long long q_ss,
+                 const void* pool_k, const void* pool_v, const float* ksp,
+                 const float* vsp, const int* tables, const int* kv_lens,
+                 const int* offs, void* out, float* work, int batch, int seq,
+                 int heads, int layer, int num_pages1, int kvn, int ps,
+                 int mp, int group, int window, float scale, int splits,
+                 cudaStream_t st) {
+  switch (head_dim) {
+    case 32:
+      return launch_mma<32, QUANT>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
+                                   tables, kv_lens, offs, out, work, batch,
+                                   seq, heads, layer, num_pages1, kvn, ps, mp,
+                                   group, window, scale, splits, st);
+    case 64:
+      return launch_mma<64, QUANT>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
+                                   tables, kv_lens, offs, out, work, batch,
+                                   seq, heads, layer, num_pages1, kvn, ps, mp,
+                                   group, window, scale, splits, st);
+    case 128:
+      return launch_mma<128, QUANT>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
+                                    tables, kv_lens, offs, out, work, batch,
+                                    seq, heads, layer, num_pages1, kvn, ps,
+                                    mp, group, window, scale, splits, st);
+    default:
+      return SLI_ERR_HEAD_DIM;
+  }
+}
+
 }  // namespace
 
 // k_scale/v_scale: null for bf16/f32 pools (of q's dtype); given, the pools
 // are int8 and these are their f32 scale pools [L, num_pages1, kvn, ps].
-// window: 0 for none, else the sliding window (>= 1).
+// window: 0 for none, else the sliding window (>= 1). bf16 q takes the
+// tensor-core kernel: q rows 16-byte aligned (q, q_bs, q_ss), and with
+// splits > 1, work holds splits * batch * seq * heads * (head_dim + 2)
+// floats. f32 q takes the FMA kernel (splits 1).
 extern "C" int sli_paged_flash_prefill(
     const void* q, long long q_bs, long long q_ss, const void* pool_k,
     const void* pool_v, const void* k_scale, const void* v_scale,
     const int* tables, const int* kv_lens, const int* offs, void* out,
     int batch, int seq, int heads, int layer, int num_pages1, int kvn, int ps,
     int mp, int group, int head_dim, int window, float scale, int dtype,
-    void* stream) {
+    void* work, int splits, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || kvn <= 0 || group <= 0 ||
-      ps <= 0 || mp <= 0 || heads != kvn * group || window < 0)
+      ps <= 0 || mp <= 0 || heads != kvn * group || window < 0 ||
+      splits < 1 || (splits > 1 && work == nullptr))
     return SLI_ERR_SHAPE;
   if ((k_scale == nullptr) != (v_scale == nullptr)) return SLI_ERR_SHAPE;
   cudaStream_t st = (cudaStream_t)stream;
   const float* ksp = (const float*)k_scale;
   const float* vsp = (const float*)v_scale;
   const bool quant = ksp != nullptr;
-  if (dtype == SLI_F32)
+  if (dtype == SLI_F32) {
+    if (splits != 1) return SLI_ERR_SHAPE;
     return dispatch_p<float>(quant, head_dim, q, q_bs, q_ss, pool_k, pool_v,
                              ksp, vsp, tables, kv_lens, offs, out, batch, seq,
                              heads, layer, num_pages1, kvn, ps, mp, group,
                              window, scale, st);
-  if (dtype == SLI_BF16)
-    return dispatch_p<__nv_bfloat16>(quant, head_dim, q, q_bs, q_ss, pool_k,
-                                     pool_v, ksp, vsp, tables, kv_lens, offs,
-                                     out, batch, seq, heads, layer,
-                                     num_pages1, kvn, ps, mp, group, window,
-                                     scale, st);
+  }
+  if (dtype == SLI_BF16) {
+    if (((unsigned long long)q | (unsigned long long)pool_k |
+         (unsigned long long)pool_v) % 16 || q_bs % 8 || q_ss % 8)
+      return SLI_ERR_SHAPE;
+    float* w = (float*)work;
+    return quant ? dispatch_mma<true>(head_dim, q, q_bs, q_ss, pool_k,
+                                      pool_v, ksp, vsp, tables, kv_lens,
+                                      offs, out, w, batch, seq, heads, layer,
+                                      num_pages1, kvn, ps, mp, group, window,
+                                      scale, splits, st)
+                 : dispatch_mma<false>(head_dim, q, q_bs, q_ss, pool_k,
+                                       pool_v, ksp, vsp, tables, kv_lens,
+                                       offs, out, w, batch, seq, heads, layer,
+                                       num_pages1, kvn, ps, mp, group, window,
+                                       scale, splits, st);
+  }
   return SLI_ERR_DTYPE;
 }

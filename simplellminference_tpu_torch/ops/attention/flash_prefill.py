@@ -2,10 +2,14 @@
 
 Counterpart of simplellminference_tpu/ops/attention/flash_prefill.py:102.
 For CUDA tensors :func:`flash_prefill` launches the hand-written kernel of
-``csrc/flash_prefill.cu`` (one block per 64-row q tile, K/V tiles staged
-through shared memory up to the causal frontier, f32 online softmax); for
-CPU tensors it runs :func:`flash_prefill_ref`. Unlike the TPU dispatcher,
-which sends S % 128 != 0 to the jnp reference, the kernel takes every S.
+``csrc/flash_prefill.cu``: in bf16 on the tensor cores (each 64-row tile
+packs the positions x q heads of one kv head, :mod:`.prefill_tiles`; K/V
+tiles through a cp.async ring up to the causal frontier; f32 online
+softmax, P split into two bf16 parts for the PV product; the key walk
+split over blocks when the tiles alone leave the card idle), in f32 with
+FMAs; for CPU tensors it runs :func:`flash_prefill_ref`. Unlike the TPU
+dispatcher, which sends S % 128 != 0 to the jnp reference, the kernel
+takes every S.
 
 The sliding-window form (``window``: query i attends keys with q_pos -
 k_pos < window; flash_prefill.py:50-53, :76-77) is the same kernel walking
@@ -19,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
+from simplellminference_tpu_torch.ops.attention import prefill_tiles
 
 HEAD_DIMS = (32, 64, 128)
 
@@ -48,8 +53,13 @@ def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_prefill_ref.cuda_calls = 0
 
 
-def _heads_contiguous(x: torch.Tensor) -> torch.Tensor:
-    if x.stride(-1) != 1 or x.stride(-2) != x.shape[-1]:
+def heads_contiguous(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with each row's [heads, D] contiguous and, for the tensor-core
+    kernel's 16-byte copies, its base and row strides 16-byte aligned (a
+    contiguous copy otherwise)."""
+    if (x.stride(-1) != 1 or x.stride(-2) != x.shape[-1]
+            or x.data_ptr() % 16
+            or any(st * x.element_size() % 16 for st in x.stride()[:2])):
         x = x.contiguous()
     return x
 
@@ -107,14 +117,16 @@ def _launch(q, k, v, sm_scale, window: int, what: str) -> torch.Tensor:
     out = torch.empty((b, s, n, d), dtype=q.dtype, device=q.device)
     if b == 0 or s == 0:
         return out
-    q, k, v = (_heads_contiguous(x) for x in (q, k, v))
+    q, k, v = (heads_contiguous(x) for x in (q, k, v))
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    splits, work = prefill_tiles.workspace(q, kvn, window, s)
     lib = cuda_build.load()
     rc = lib.sli_flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), out.stride(0), out.stride(1),
         b, s, n, n // kvn, d, window, scale, code,
+        0 if work is None else work.data_ptr(), splits,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, rc, what)
     return out

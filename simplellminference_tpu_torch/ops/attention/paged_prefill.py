@@ -6,14 +6,17 @@ Row b's queries sit at absolute positions ``chunk_offset[b] + 0..Sq-1``
 (a prefill chunk, or a prefix-cached suffix, already written to its
 pages); each attends to every cached position < kv_lens[b] up to its
 causal frontier. For CUDA tensors :func:`paged_flash_prefill` launches the
-hand-written kernel of ``csrc/paged_prefill.cu`` (one block per 64-row q
-tile, q head and sequence; K/V tiles of 64 keys staged through shared
-memory, each key's page looked up in the table; f32 online softmax); for
-CPU tensors it runs :func:`paged_flash_prefill_ref`, the gather + masked
+hand-written kernel of ``csrc/paged_prefill.cu``: with bf16 q on the
+tensor cores (each 64-row tile packs the positions x q heads of one kv
+head, :mod:`.prefill_tiles`; K/V tiles of 64 keys through a cp.async
+ring, each key's page looked up in the table; f32 online softmax, P split
+into two bf16 parts for the PV product; the key walk split over blocks
+when the tiles alone leave the card idle), with f32 q on FMAs; for CPU
+tensors it runs :func:`paged_flash_prefill_ref`, the gather + masked
 dense reference of the JAX dispatcher (dispatch.py:172-194).
 
 INT8 KV (int8 pools with ``k_scale``/``v_scale`` [L, P+1, kvN, ps] f32):
-the kernel dequantizes each staged K/V element in f32 and rounds it to
+the kernel dequantizes each staged K/V row in f32 and rounds it to
 q's dtype, as the TPU kernel dequantizes its page slabs
 (paged_prefill.py:105-110); the INT8-KV form has a wrapper of its name,
 :func:`paged_flash_prefill_int8kv`, and its own launch count, and a call
@@ -47,8 +50,9 @@ import torch
 
 from simplellminference_tpu_torch.memory.paged_kv import gather_dense
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
+from simplellminference_tpu_torch.ops.attention import prefill_tiles
 from simplellminference_tpu_torch.ops.attention.flash_prefill import (
-    window_size)
+    heads_contiguous, window_size)
 from simplellminference_tpu_torch.ops.attention.paged_decode import (
     band_tables)
 from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
@@ -215,20 +219,24 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
                          "share a device")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("pools must be contiguous")
+    if q.dtype == torch.bfloat16 and (k_pool.data_ptr() % 16
+                                      or v_pool.data_ptr() % 16):
+        raise ValueError("pools must start 16-byte aligned (16-byte copies)")
     if not 0 <= layer < n_layers:
         raise IndexError(f"layer {layer} out of range")
     code = cuda_build.dtype_code(q.dtype)
     out = torch.empty((b, s, n, d), dtype=q.dtype, device=q.device)
     if b == 0 or s == 0:
         return out
-    if q.stride(-1) != 1 or q.stride(-2) != d:
-        q = q.contiguous()
+    q = heads_contiguous(q)
     tables = tables.to(torch.int32).contiguous()
     kv_lens = kv_lens.to(torch.int32).contiguous()
     offs = chunk_offset.to(torch.int32).contiguous()
     if tables.shape[0] != b or kv_lens.shape != (b,) or offs.shape != (b,):
         raise ValueError("tables/kv_lens/chunk_offset rows do not match q")
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    splits, work = prefill_tiles.workspace(q, kvn, window,
+                                           tables.shape[1] * ps)
     lib = cuda_build.load()
     rc = lib.sli_paged_flash_prefill(
         q.data_ptr(), q.stride(0), q.stride(1), k_pool.data_ptr(),
@@ -236,6 +244,7 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
         0 if v_scale is None else v_scale.data_ptr(), tables.data_ptr(),
         kv_lens.data_ptr(), offs.data_ptr(), out.data_ptr(), b, s, n, layer,
         p1, kvn, ps, tables.shape[1], n // kvn, d, window, scale, code,
+        0 if work is None else work.data_ptr(), splits,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, rc, what)
     return out

@@ -9,7 +9,10 @@ has only PyTorch and the CUDA toolkit:
 (``--noconftest``: the suite's conftest.py sets JAX up for the CPU).
 Stated tolerances: the paged writes are exact (every page but the trash
 page); attention 1e-4 absolute in float32 and 2e-2 in bfloat16 (both sides
-accumulate in f32, in different orders; bf16 rounds the outputs); model
+accumulate in f32, in different orders; bf16 rounds the outputs), the
+bf16 prefill forms (3, 3w, 8, 8q, 8w, 8qw, on the tensor cores with P
+split into two bf16 parts) within one bf16 ulp of each output plus 1e-5
+of the largest (``_attn_ok``); model
 logits 1e-3 in float32 with TF32 off. The INT8 kernels sum exact products
 in f32 in another order than their plain versions: f32 outputs within
 1e-5 of the output's largest magnitude, bf16 outputs within one bf16 ulp
@@ -112,7 +115,44 @@ def test_flash_prefill(cuda, dtype, s, n, kvn, d):
     got = fp.flash_prefill(q, k, v)
     assert fp.flash_prefill.launches == before + 1
     want = fp.flash_prefill_ref(q, k, v)
-    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
+    assert _attn_ok(got, want)
+
+
+def _attn_ok(got, want):
+    """Kernels 3 and 8 against their plain versions: f32 within ATTN_TOL,
+    bf16 within one bf16 ulp of each output plus 1e-5 of the largest."""
+    if got.dtype == torch.float32:
+        return float((got - want).abs().max()) <= ATTN_TOL[torch.float32]
+    return bool(torch.isfinite(got).all()) and _close(got, want, got.dtype)
+
+
+# bf16 tensor-core tiles of kernel 3: packed GQA groups (32/8 at D 128,
+# 32/4 at D 64), D 32, S 1, a window whose tiles start off a multiple of
+# 64, a strided v, and key walks split over blocks (few tiles)
+@pytest.mark.parametrize("b,s,n,kvn,d,window", [
+    (8, 128, 32, 8, 128, None),      # Mistral-7B bench prompts
+    (2, 256, 32, 4, 64, None),
+    (3, 77, 8, 2, 32, None),
+    (2, 1, 32, 8, 128, None),
+    (3, 300, 32, 8, 128, 200),
+    (1, 1000, 8, 8, 128, None),      # 16 tiles: the walk split 2 ways
+    (1, 1500, 4, 4, 64, 1100),       # window walks split 2 ways
+    (2, 70, 12, 4, 64, 20),          # group 3: 21 positions, a pad row
+    (1, 50, 80, 1, 64, None),        # group 80: two head chunks a position
+])
+def test_flash_prefill_tensor_core_tiles(cuda, b, s, n, kvn, d, window):
+    g = torch.Generator(device=cuda).manual_seed(s + n + d)
+    bf = torch.bfloat16
+    q = torch.randn((b, s, n, d), generator=g, device=cuda, dtype=bf)
+    k = torch.randn((b, s, kvn, d), generator=g, device=cuda, dtype=bf)
+    vbig = torch.randn((b, s, 3 * kvn * d), generator=g, device=cuda,
+                       dtype=bf)
+    v = vbig[..., kvn * d:2 * kvn * d].reshape(b, s, kvn, d)
+    kern = fp.flash_prefill_window if window else fp.flash_prefill
+    before = kern.launches
+    got = fp.flash_prefill(q, k, v, window=window)
+    assert kern.launches == before + 1
+    assert _attn_ok(got, fp.flash_prefill_ref(q, k, v, window=window))
 
 
 def _split_edge_lens(kvn, span, wins=1, rows=1):
@@ -183,7 +223,72 @@ def test_paged_flash_prefill(cuda, dtype, s, n, kvn, d, ps):
     assert pp.paged_flash_prefill.launches == before + 1
     want = pp.paged_flash_prefill_ref(q, pk, pv, tables, kv, offs, 1)
     assert bool(torch.isfinite(got).all())
-    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
+    assert _attn_ok(got, want)
+
+
+# bf16 tensor-core tiles of kernel 8, every KV kind: packed GQA groups,
+# D 32, Sq 1, page 16 (a key tile over four pages), ragged offsets off a
+# page multiple, an unmapped page inside kv_len, a padding row
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16-kv", "int8-kv"])
+@pytest.mark.parametrize("s,n,kvn,d,ps", [(256, 32, 8, 128, 128),
+                                          (64, 32, 4, 64, 16),
+                                          (37, 8, 2, 32, 16),
+                                          (1, 32, 8, 128, 16),
+                                          (45, 6, 2, 64, 16)])
+def test_paged_flash_prefill_tensor_core_tiles(cuda, int8, s, n, kvn, d, ps):
+    g = torch.Generator(device=cuda).manual_seed(s + n + d + int8)
+    b, mp = 4, -(-(s + 300) // ps)
+    if int8:
+        pk, pv, ks, vs = _quant_pools(g, cuda, b=b, kvn=kvn, ps=ps, d=d,
+                                      mp=mp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        pk, pv = _pools(g, cuda, torch.bfloat16, b=b, kvn=kvn, ps=ps, d=d,
+                        mp=mp)
+        scales = {}
+    q = torch.randn((b, s, n, d), generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    tables = torch.randperm(b * mp, generator=g, device=cuda).to(
+        torch.int32).reshape(b, mp)
+    offs = torch.tensor([0, 37, 300, 0], dtype=torch.int32, device=cuda)
+    kv = offs + torch.tensor([s, max(s - 5, 1), s, 1], dtype=torch.int32,
+                             device=cuda)
+    tables[2, 1] = -1
+    tables[3] = -1
+    kern = (pp.paged_flash_prefill_int8kv if int8
+            else pp.paged_flash_prefill)
+    before = kern.launches
+    got = pp.paged_flash_prefill(q, pk, pv, tables, kv, offs, 1, **scales)
+    assert kern.launches == before + 1
+    want = pp.paged_flash_prefill_ref(q, pk, pv, tables, kv, offs, 1,
+                                      **scales)
+    assert _attn_ok(got, want)
+
+
+# the split key walk's edges: one sequence (few tiles, the walk split 4
+# ways over a 2048-key table, 2 ways over a 1500-key band) at offsets that
+# put its tiles' last keys on both sides of the splits' 64-key cuts
+@pytest.mark.parametrize("window", [None, 1500])
+def test_paged_flash_prefill_split_edges(cuda, window):
+    from simplellminference_tpu_torch.ops.attention import prefill_tiles
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n, kvn, d, ps, mp, s = 32, 8, 128, 16, 128, 64
+    assert prefill_tiles.launch_splits(1, s, n, kvn, window or 0,
+                                       mp * ps) > 1
+    pk, pv = _pools(g, cuda, torch.bfloat16, b=1, kvn=kvn, ps=ps, d=d, mp=mp)
+    tables = torch.randperm(mp, generator=g, device=cuda).to(
+        torch.int32).reshape(1, mp)
+    q = torch.randn((1, s, n, d), generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    for off in (0, 1, 48, 49, 63, 64, 65, 447, 448, 449, 895, 960, 1500,
+                1983):
+        offs = torch.tensor([off], dtype=torch.int32, device=cuda)
+        kv = offs + s
+        got = pp.paged_flash_prefill(q, pk, pv, tables, kv, offs, 1,
+                                     window=window)
+        want = pp.paged_flash_prefill_ref(q, pk, pv, tables, kv, offs, 1,
+                                          window=window)
+        assert _attn_ok(got, want), off
 
 
 def test_prefix_cache_engine_card_matches_cpu(cuda):
@@ -534,7 +639,7 @@ def test_paged_flash_prefill_int8kv(cuda, dtype, s, n, kvn, d, ps):
     want = pp.paged_flash_prefill_ref(q, pk, pv, tables, kv, offs, 1,
                                       k_scale=ks, v_scale=vs)
     assert bool(torch.isfinite(got).all())
-    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
+    assert _attn_ok(got, want)
 
 
 @pytest.mark.parametrize("xdt", DTYPES)
@@ -1097,7 +1202,7 @@ def test_flash_prefill_window(cuda, dtype, window):
     assert (fp.flash_prefill_window.launches,
             fp.flash_prefill.launches) == (before[0] + 1, before[1])
     want = fp.flash_prefill_ref(q, k, v, window=window)
-    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
+    assert _attn_ok(got, want)
 
 
 def _ring_case(g, dev, dtype, int8, b, r, mp, kvn, d, ps):
@@ -1187,8 +1292,7 @@ def test_paged_flash_prefill_window_reads_only_the_band(cuda, int8, dtype):
     assert bool(torch.isfinite(got).all()) and torch.equal(got, clean)
     for i in range(b):
         live = int(kv[i] - offs[i])
-        err = (got[i, :live].float() - want[i, :live].float()).abs().max()
-        assert float(err) <= ATTN_TOL[dtype]
+        assert _attn_ok(got[i, :live], want[i, :live])
 
 
 @pytest.mark.parametrize("xdt", DTYPES)
