@@ -36,7 +36,11 @@ Phases, in order; any failure exits non-zero:
                 spec paths' 8 x 5-row call; then the INT4 product (and
                 its zero-point form, AWQ) at every 7B product's shape,
                 M in {1, 8, 1024}, per-channel and group 128, ragged M and
-                K/2 off a multiple of 128, and the W8A8 product at the
+                K/2 off a multiple of 128, each case with its regime
+                (tensor cores: mma.sync at M <= 8, wgmma above, with bf16
+                activations; FMA kernels otherwise), its decode cases
+                also timed over weight copies past the 50 MB L2, and the
+                W8A8 product at the
                 four prefill products, M in {128, 1024} and ragged, with
                 both quantizers byte-equal card vs CPU; then the sliding-
                 window forms (3w, 4w/4qw/4vw/4vqw, 8w/8qw at the
@@ -101,7 +105,10 @@ Phases, in order; any failure exits non-zero:
                 INT4 weights as bench.py --quant int4 draws them through
                 the Engine (`int4`, rate and step as the int8 path) and
                 the Generator (`int4_dense`), every product on the INT4
-                kernel; and `w8a8` (the server CLI's --act-quant: the
+                kernel (each also counted in its tensor-core regime) and
+                the Engine's admission (max TTFT of its wave of 8
+                prompts) printed; and `w8a8` (the server CLI's
+                --act-quant: the
                 prefix path's traffic, every prefill product of 128 rows
                 or more on the W8A8 kernel), each wave's TTFT beside the
                 `prefix` path's. Then `mistral_window`: Mistral-7B (32
@@ -130,7 +137,9 @@ Phases, in order; any failure exits non-zero:
                 speculative metrics. Then the Generator, the self-drafted
                 Engine and quantize_params; INT4 (quantize_params, group
                 128) through the Engine and the Generator, AWQ (params
-                from a seeded in-memory fetcher) through the Engine; and
+                from a seeded in-memory fetcher) through the Engine, and
+                again with bf16 activations on the card's tensor-core
+                regimes (greedy outputs card == CPU printed); and
                 W8A8 over group-128 INT8 weights, the Engine also on
                 prefix traffic, the card carrying on with the CPU's
                 activation codes (its own within one step of them).
@@ -145,7 +154,8 @@ Then one line ``{"kernels": [...]}`` (each kernel's launches on every
 path, and in phase 3: kernels 16 and 17 run only there) and, last, the
 result line
 ``{"ok": true, "device": {...}}``; both only when every phase ran
-(``--phases`` picks a subset for a quick check after an edit).
+(``--phases`` picks a subset for a quick check after an edit, ``--paths``
+a subset of phase 4's paths).
 """
 
 from __future__ import annotations
@@ -160,6 +170,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
+L2_BYTES = 50e6                     # H100 SXM L2 cache
 PEAK_OPS = {"bfloat16": 989e12,     # dense tensor-core bf16
             "float32": 67e12,       # f32 outside the tensor cores
             "int8": 1979e12}        # dense tensor-core int8
@@ -258,6 +269,16 @@ KERNELS = {
         replaces="simplellminference_tpu/ops/matmul.py:354"),
     "quantized_matmul_int4_zs": dict(
         source="simplellminference_tpu_torch/csrc/quantized_matmul_int4.cu",
+        replaces="simplellminference_tpu/ops/matmul.py:354"),
+    # the INT4 product's tensor-core regimes (bf16 activations), both forms
+    # together: mma.sync for M <= 8, wgmma for more rows; the two rows
+    # above count every launch of their form, these each regime's
+    "quantized_matmul_int4_mma": dict(
+        source="simplellminference_tpu_torch/csrc/quantized_matmul_int4_mma.cu",
+        replaces="simplellminference_tpu/ops/matmul.py:354"),
+    "quantized_matmul_int4_wgmma": dict(
+        source="simplellminference_tpu_torch/csrc/"
+               "quantized_matmul_int4_wgmma.cu",
         replaces="simplellminference_tpu/ops/matmul.py:354"),
     "quantized_matmul_w8a8": dict(
         source="simplellminference_tpu_torch/csrc/quantized_matmul_w8a8.cu",
@@ -394,15 +415,18 @@ def phase_build():
     print_hgmma(Path(info["dir"]) / cuda_build.LIB_NAME)
 
 
-# the tensor-core kernels whose SASS phase 2 searches for HGMMA
-MMA_KERNELS = ("flash_prefill_mma_kernel", "paged_prefill_mma_kernel",
-               "qmm_mma_kernel")
+# the tensor-core kernels whose SASS phase 2 searches, and for which
+# instruction: HGMMA (wgmma) or HMMA (mma.sync)
+MMA_KERNELS = {"flash_prefill_mma_kernel": "HGMMA",
+               "paged_prefill_mma_kernel": "HGMMA",
+               "qmm_mma_kernel": "HGMMA", "qmm4_wgmma_kernel": "HGMMA",
+               "qmm4_mma_rows_kernel": "HMMA"}
 
 
 def print_hgmma(lib: Path) -> None:
-    """Tensor-core evidence: the HGMMA instructions in the SASS of each
-    instantiation of MMA_KERNELS (``cuobjdump -sass``), or a line saying
-    cuobjdump is not there."""
+    """Tensor-core evidence: the HGMMA or HMMA instructions in the SASS of
+    each instantiation of MMA_KERNELS (``cuobjdump -sass``), or a line
+    saying cuobjdump is not there."""
     import re
     import shutil
 
@@ -420,16 +444,18 @@ def print_hgmma(lib: Path) -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts.setdefault(fn, 0)
-        elif "HGMMA" in line and fn is not None:
-            counts[fn] += 1
-    for kname in MMA_KERNELS:
+            counts.setdefault(fn, {"HGMMA": 0, "HMMA": 0})
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                if f" {op}." in line or f" {op} " in line:
+                    counts[fn][op] += 1
+    for kname, op in MMA_KERNELS.items():
         for fn, n in sorted(counts.items()):
             if kname not in fn:
                 continue
             args = re.search(kname + r"I(.*?)EEv", fn)
-            print(f"[build] HGMMA in {kname}<"
-                  f"{args.group(1) if args else '?'}>: {n}", flush=True)
+            print(f"[build] {op} in {kname}<"
+                  f"{args.group(1) if args else '?'}>: {n[op]}", flush=True)
 
 
 def _pools(torch, gen, dev, layers, pages, kvn, ps, d, dtype):
@@ -1897,7 +1923,9 @@ def check_quantized_matmul_int4(torch, dev, results, extra):
     # bench.py --quant int4: per-channel scales, every decode product at
     # M = 8 and the 8 x 128-row prefill, M = 1 (one request); the AWQ
     # form (group 128, zero points) at decode and prefill; ragged M and a
-    # K whose K/2 is no multiple of 128
+    # K whose K/2 is no multiple of 128. Each case prints its regime: the
+    # tensor-core kernels take bf16 activations (mma.sync at M <= 8, wgmma
+    # above), the FMA kernels f32 ones and misfit groups or K/2
     cases = {
         "llama2-7b wqkv decode": (8, 4096, 12288, 1, False, bf, bf, True),
         "llama2-7b wo decode": (8, 4096, 4096, 1, False, bf, bf, True),
@@ -1908,12 +1936,14 @@ def check_quantized_matmul_int4(torch, dev, results, extra):
         "llama2-7b wqkv prefill": (1024, 4096, 12288, 1, False, bf, bf, True),
         "llama2-7b wqkv M=1": (1, 4096, 12288, 1, False, bf, bf, False),
         "llama2-7b gate_up prefill": (1024, 4096, 22016, 1, False, bf, bf,
-                                      False),
+                                      True),
         "llama2-7b down prefill": (1024, 11008, 4096, 1, False, bf, bf,
-                                   False),
+                                   True),
         "llama2-7b wo group128": (8, 4096, 4096, 32, False, bf, bf, False),
         "llama2-7b wqkv group128 f32": (8, 4096, 12288, 32, False, f32, f32,
                                         False),
+        "llama2-7b down prefill group128": (1024, 11008, 4096, 86, False, bf,
+                                            bf, False),
         "awq wqkv decode": (8, 4096, 12288, 32, True, bf, bf, True),
         "awq gate_up decode": (8, 4096, 22016, 32, True, bf, bf, False),
         "awq down decode f32": (8, 11008, 4096, 86, True, f32, f32, False),
@@ -1928,11 +1958,12 @@ def check_quantized_matmul_int4(torch, dev, results, extra):
         q, s, z = _int4_weight(torch, gen, dev, k, n, groups, zs)
         x = torch.randn((m, k), generator=gen, device=dev).to(xdt)
         name = "quantized_matmul_int4_zs" if zs else "quantized_matmul_int4"
-        args = (x, q, s) + ((z,) if zs else ())
+        fn = quantized_matmul_int4_zs if zs else quantized_matmul_int4
+        regime = int4_regime(m, k, n, k // groups, xdt)
 
-        def kern(args=args, zs=zs, odt=odt):
-            fn = quantized_matmul_int4_zs if zs else quantized_matmul_int4
-            return fn(*args, out_dtype=odt, layer=1)
+        def kern(x=x, q=q, s=s, z=z, fn=fn, odt=odt, layer=1):
+            return fn(x, q, s, *((z,) if z is not None else ()),
+                      out_dtype=odt, layer=layer)
 
         def plain(x=x, q=q, s=s, z=z, odt=odt):
             return quantized_matmul_int4_ref(x, q, s, out_dtype=odt,
@@ -1941,8 +1972,8 @@ def check_quantized_matmul_int4(torch, dev, results, extra):
         want = plain()
         torch.cuda.synchronize()
         ok, err, rule = _matmul_rule(torch, got, want, odt)
-        print(f"[kernels] {name} {tag} (m={m} k={k} n={n} groups={groups}):"
-              f" max|err| {err:.3e} ({rule})", flush=True)
+        print(f"[kernels] {name} {tag} (m={m} k={k} n={n} groups={groups}, "
+              f"{regime}): max|err| {err:.3e} ({rule})", flush=True)
         require(bool(torch.isfinite(got).all()) and ok,
                 f"{name} {tag} disagrees: {err}")
         if not timed:
@@ -1952,17 +1983,45 @@ def check_quantized_matmul_int4(torch, dev, results, extra):
         print(f"[kernels] {name} {tag}: library ({lib_name}) max|lib - "
               f"plain| {max_err(lib(), want):.3e} of max|plain| "
               f"{float(want.float().abs().max()):.3e}", flush=True)
-        nbytes = (m * k * x.element_size() + k // 2 * n
-                  + groups * n * 4 * (2 if zs else 1)
-                  + m * n * got.element_size())
+        wbytes = k // 2 * n + groups * n * 4 * (2 if zs else 1)
+        nbytes = wbytes + m * k * x.element_size() + m * n * got.element_size()
         bms, by = bound_ms(nbytes, 2.0 * m * k * n, dname(torch, xdt))
         r = dict(max_abs_err=err, ms=time_ms(torch, kern),
                  plain_ms=time_ms(torch, plain, iters=5),
                  library_ms=time_ms(torch, lib), bound_ms=bms, bound_by=by,
-                 library=lib_name)
+                 library=lib_name, regime=regime)
+        if m <= 8:
+            # decode over weights past the L2: enough layer copies that
+            # the set exceeds it, each call the next copy (the same-input
+            # time above may read the 8-45 MB weight from L2)
+            copies = max(2, int(2 * L2_BYTES // wbytes) + 1)
+            qr, sr, zr = _int4_weight(torch, gen, dev, k, n, groups, zs,
+                                      layers=copies)
+            turn = iter(range(1 << 30))
+
+            def rotating(qr=qr, sr=sr, zr=zr, fn=fn, x=x, odt=odt,
+                         copies=copies):
+                return fn(x, qr, sr, *((zr,) if zr is not None else ()),
+                          out_dtype=odt, layer=next(turn) % copies)
+            r["cold_ms"] = time_ms(torch, rotating)
+            # the host's share of a decode call: the wrapper's Python and
+            # the launches, enqueued back to back (the queue stays short)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                kern()
+            r["host_ms"] = (time.perf_counter() - t0) * 10.0
+            torch.cuda.synchronize()
+            print(f"[kernels] {name} {tag} ({regime}): {r['ms']:.6g} ms on "
+                  f"the same inputs, {r['cold_ms']:.6g} ms over {copies} "
+                  f"weight copies ({copies * wbytes / 1e6:.1f} MB, past the "
+                  f"L2); bound {bms:.6g}; host {r['host_ms']:.6g} ms a "
+                  f"call (wrapper and launches)", flush=True)
+            del qr, sr, zr
         extra.append((name, tag, r))
-        if name not in results:
-            results[name] = r
+        results.setdefault(name, r)
+        if regime in ("mma", "wgmma"):
+            results.setdefault("quantized_matmul_int4_" + regime, r)
 
 
 def check_quantized_matmul_w8a8(torch, dev, results, extra):
@@ -2636,6 +2695,10 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
            "quantized_matmul_int4": "torch._weight_int4pack_mm (group 128)",
            "quantized_matmul_int4_zs": "torch._weight_int4pack_mm (group "
                                        "128, zero points)",
+           "quantized_matmul_int4_mma": "torch._weight_int4pack_mm (group "
+                                        "128)",
+           "quantized_matmul_int4_wgmma": "torch._weight_int4pack_mm (group "
+                                          "128)",
            "quantized_matmul_w8a8": "torch quantize ops + torch._int_mm + "
                                     "scales",
            "flash_prefill_window": "scaled_dot_product_attention, window "
@@ -2707,23 +2770,63 @@ def phase_kernels(torch, results):
     rows = [(name, "main path shape", r) for name, r in results.items()]
     rows += [(name, tag, r) for name, tag, r in extra]
     for name, tag, r in rows:
-        print(f"[kernels] {name} ({tag}): {r['ms']:.6g} ms (plain "
-              f"{r['plain_ms']:.6g}, library {r['library_ms']:.6g} "
+        cold = (f", {r['cold_ms']:.6g} over weight copies past the L2"
+                if "cold_ms" in r else "")
+        regime = f" [{r['regime']}]" if "regime" in r else ""
+        print(f"[kernels] {name} ({tag}){regime}: {r['ms']:.6g} ms{cold} "
+              f"(plain {r['plain_ms']:.6g}, library {r['library_ms']:.6g} "
               f"[{r.get('library', LIBRARY[name])}], bound "
               f"{r['bound_ms']:.6g} by {r['bound_by']})", flush=True)
 
 
+def int4_regime_launches(mm) -> dict:
+    """``matmul.INT4_REGIME_LAUNCHES``, or an empty count for a package
+    without the INT4 tensor-core regimes (this script also times an
+    earlier tree of the package, whose INT4 products then count in
+    neither regime row)."""
+    return getattr(mm, "INT4_REGIME_LAUNCHES", {})
+
+
+def int4_regime(m: int, k: int, n: int, group: int, dtype) -> str:
+    """The kernel the INT4 wrapper picks for m rows x [k, n] weights
+    (``matmul.int4_regime``; "fma" for a package without it)."""
+    from simplellminference_tpu_torch.ops import matmul as mm
+    fn = getattr(mm, "int4_regime", None)
+    return fn(m, k // 2, n, group, dtype) if fn else "fma"
+
+
+def int4_regime_counts(cfg, m: int, head_rows: int, layers: int) -> dict:
+    """Launches of the INT4 tensor-core regime rows for one dispatch or
+    step of ``m`` rows with bf16 activations and per-channel scales (as
+    bench.py --quant int4 draws them): each layer's wqkv, wo, gate_up and
+    down at m rows, the LM head at ``head_rows``. A product an FMA kernel
+    takes counts in neither row."""
+    import torch
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    want = {"quantized_matmul_int4_mma": 0, "quantized_matmul_int4_wgmma": 0}
+    for k, n, rows, count in ((h, qkv, m, layers),
+                              (cfg.num_heads * cfg.head_dim, h, m, layers),
+                              (h, 2 * i, m, layers), (i, h, m, layers),
+                              (h, cfg.vocab_size, head_rows, 1)):
+        regime = int4_regime(rows, k, n, k, torch.bfloat16)
+        if regime in ("mma", "wgmma"):
+            want["quantized_matmul_int4_" + regime] += count
+    return want
+
+
 class _Regime:
     """The launch count of one regime of a wrapper with a kernel per
-    regime (kernel 5: ``matmul.REGIME_LAUNCHES``), read and reset like a
-    wrapper's own ``launches``."""
+    regime (kernel 5: ``matmul.REGIME_LAUNCHES``; the INT4 product:
+    ``matmul.INT4_REGIME_LAUNCHES``), read and reset like a wrapper's own
+    ``launches``."""
 
     def __init__(self, counts: dict, key: str):
         self.counts, self.key = counts, key
 
     @property
     def launches(self) -> int:
-        return self.counts[self.key]
+        return self.counts.get(self.key, 0)
 
     @launches.setter
     def launches(self, n: int) -> None:
@@ -2782,6 +2885,12 @@ def _wrappers():
                                       mm.quantized_matmul_int4_ref),
             "quantized_matmul_int4_zs": (mm.quantized_matmul_int4_zs,
                                          mm.quantized_matmul_int4_ref),
+            "quantized_matmul_int4_mma": (
+                _Regime(int4_regime_launches(mm), "mma"),
+                mm.quantized_matmul_int4_ref),
+            "quantized_matmul_int4_wgmma": (
+                _Regime(int4_regime_launches(mm), "wgmma"),
+                mm.quantized_matmul_int4_ref),
             "quantized_matmul_w8a8": (mm.quantized_matmul_w8a8,
                                       mm.quantized_matmul_w8a8_ref),
             "flash_prefill_window": (fp.flash_prefill_window,
@@ -2890,8 +2999,8 @@ def step_weight_bytes(params, batch: int) -> int:
 
 
 def path_launches(int8: bool, layers: int, dispatches, steps: int,
-                  int8kv: bool = False, int4: bool = False,
-                  act_quant: bool = False) -> dict:
+                  int8kv: bool = False, int4=None,
+                  act_quant: bool = False, batch: int = 8) -> dict:
     """Launches each kernel must show in one Engine run of a path.
 
     ``dispatches``: (attention kernel, rows m = B*S) of each prefill
@@ -2904,9 +3013,11 @@ def path_launches(int8: bool, layers: int, dispatches, steps: int,
     plus the head; each decode step launches the fused qkv and FFN per
     layer, wo per layer, and the head; with bf16 weights each decode step
     writes K/V with the append kernel. INT8 KV takes each kernel's
-    INT8-KV form. ``int4``: every product (4 a layer, and the head) of
-    every dispatch and step on the INT4 kernel, K/V written as with bf16
-    weights. ``act_quant`` (INT8 weights): a dispatch of m >= 128 rows
+    INT8-KV form. ``int4`` (the model config of INT4 weights): every
+    product (4 a layer, and the head over the dispatch's sequences, at
+    most ``batch``) of every dispatch and step on the INT4 kernel, each
+    also in its tensor-core regime's row (:func:`int4_regime_counts`;
+    decode steps of ``batch`` rows), K/V written as with bf16 weights. ``act_quant`` (INT8 weights): a dispatch of m >= 128 rows
     runs its 4 layer products on the W8A8 kernel, the head (last rows
     only) on quantized_matmul. Every quantized_matmul of more than 8 rows
     (bf16 activations, per-channel scales) also counts as one of its
@@ -2920,6 +3031,9 @@ def path_launches(int8: bool, layers: int, dispatches, steps: int,
         want["paged_append_prefill" + q] += layers
         if int4:
             want["quantized_matmul_int4"] += 4 * layers + 1
+            for name, c in int4_regime_counts(int4, m, min(m, batch),
+                                              layers).items():
+                want[name] += c
         elif int8 and m <= 64:
             want["quantized_matmul"] += 2 * layers + 1
             want["quantized_matmul_mma"] += 2 * layers * (m > 8)
@@ -2933,6 +3047,9 @@ def path_launches(int8: bool, layers: int, dispatches, steps: int,
     want["paged_flash_decode" + kv] += layers * steps
     if int4:
         want["quantized_matmul_int4"] += (4 * layers + 1) * steps
+        for name, c in int4_regime_counts(int4, batch, batch,
+                                          layers).items():
+            want[name] += c * steps
     if int8:
         want["quantized_matmul"] += (layers + 1) * steps
         want["fused_qkv_append" + kv] += layers * steps
@@ -3027,10 +3144,12 @@ def serve_path(torch, path: str, cfg, params, launches: dict, int8: bool,
                 f"[{path}] token id out of range")
     require(eng.metrics.prefills == batch, f"[{path}] {eng.metrics.prefills} "
             f"requests prefilled, expected {batch}")
+    admit_ms = max(r.ttft for r in reqs) * 1e3
     steps = eng.metrics.decode_bursts * burst
     want = path_launches(int8, layers,
                          [("flash_prefill", batch * prompt_len)], steps,
-                         int8kv=kv_dtype == "int8", int4=int4)
+                         int8kv=kv_dtype == "int8", int4=cfg if int4 else None,
+                         batch=batch)
     if eng._grouped:
         want = windowed(want)
     for name, n in want.items():
@@ -3057,6 +3176,9 @@ def serve_path(torch, path: str, cfg, params, launches: dict, int8: bool,
     print(f"[engine:{path}] decode {decode_tps} tok/s (median-wall "
           f"difference); per pair {pair_tps}", flush=True)
     print(f"[engine:{path}] launches {json.dumps(got)}", flush=True)
+    print(f"[engine:{path}] admission: max TTFT of the wave of {batch} x "
+          f"{prompt_len}-token prompts {admit_ms:.3f} ms (the measured "
+          f"run)", flush=True)
 
     # One decode step's device time without host gaps: forward_paged at
     # the run's mean context, captured in a CUDA graph and replayed.
@@ -3415,7 +3537,7 @@ def serve_spec(torch, path: str, cfg, params, launches: dict, int8: bool,
 
 
 def dense_launches(int8: bool, layers: int, steps: int,
-                   int4: bool = False) -> dict:
+                   int4=None) -> dict:
     """Launches of one ``generate_fused`` call of the dense paths: the
     8 x 128-row prefill (per layer ``kv_append`` at S = 128 and causal
     ``flash_prefill``; with INT8 weights 4 ``quantized_matmul`` per layer
@@ -3424,14 +3546,19 @@ def dense_launches(int8: bool, layers: int, steps: int,
     decode steps, each per layer ``flash_decode`` and, with INT8 weights,
     the dense fused qkv, ``wo`` and ``fused_ffn`` plus the LM head, with
     bf16 weights ``kv_append`` at S = 1 (the products are cuBLAS). With
-    ``int4`` every product of the prefill and of each step (4 a layer and
-    the head) is an INT4 kernel launch, K/V written as with bf16."""
+    ``int4`` (the model config of INT4 weights) every product of the
+    prefill and of each step (4 a layer and the head) is an INT4 kernel
+    launch, each also in its tensor-core regime's row (the prefill's 1024
+    rows, the head and every step at 8), K/V written as with bf16."""
     want = {name: 0 for name in KERNELS}
     want["kv_append"] += layers
     want["flash_prefill"] += layers
     want["flash_decode"] += layers * steps
     if int4:
         want["quantized_matmul_int4"] += (4 * layers + 1) * (1 + steps)
+        for m, times in ((1024, 1), (8, steps)):
+            for name, c in int4_regime_counts(int4, m, 8, layers).items():
+                want[name] += c * times
         want["kv_append"] += layers * steps
     elif int8:
         want["quantized_matmul"] += 4 * layers + 1 + (layers + 1) * steps
@@ -3484,7 +3611,8 @@ def serve_dense(torch, path: str, cfg, params, launches: dict, int8: bool,
     timed(steps)
     got = read_counts(path)
     launches[path] = got
-    want = dense_launches(int8, cfg.num_layers, steps, int4=int4)
+    want = dense_launches(int8, cfg.num_layers, steps,
+                          int4=cfg if int4 else None)
     for name, n in want.items():
         require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
                 f"path implies {n}")
@@ -3775,7 +3903,7 @@ PATH_LAYERS = {"spec": 16, "spec_int8kv": 16, "draft": 16,
                "int4_dense": 16}
 
 
-def phase_engine(torch, launches: dict):
+def phase_engine(torch, launches: dict, paths=PATHS):
     import dataclasses
 
     from simplellminference_tpu_torch.core.config import ModelConfig
@@ -3788,7 +3916,7 @@ def phase_engine(torch, launches: dict):
     seconds = {}
     params, drawn = None, None
     full = cfg
-    for path in PATHS:
+    for path in paths:
         weights, kv_dtype, prefix = PATH_SETUP[path]
         int8 = weights == "int8"
         cfg = dataclasses.replace(full, num_layers=PATH_LAYERS.get(
@@ -3814,10 +3942,11 @@ def phase_engine(torch, launches: dict):
             ttft[path] = serve_prefix(
                 torch, path, dataclasses.replace(full, act_quant="int8"),
                 params, launches, int8, kv_dtype)
+            base = ttft.get("prefix", [])
             print(f"[engine:w8a8] max TTFT of each wave, W8A8 prefill "
                   f"{ttft['w8a8']} ms beside the prefix path's W8A16 "
-                  f"{ttft['prefix']} ms (ratios "
-                  f"{[a / b for a, b in zip(ttft['w8a8'], ttft['prefix'])]})",
+                  f"{base} ms (ratios "
+                  f"{[a / b for a, b in zip(ttft['w8a8'], base)]})",
                   flush=True)
         elif path.startswith("dense") or path == "int4_dense":
             serve_dense(torch, path, cfg, params, launches, int8,
@@ -3840,8 +3969,8 @@ def phase_engine(torch, launches: dict):
             launches[path] = {k: n + long_run[k]
                               for k, n in launches[path].items()}
             print(f"[engine:{path}] decode {rates[path]} tok/s at bench.py's "
-                  f"shape beside the int8 path's {rates['int8']} (Llama-2-7B"
-                  f", same call)", flush=True)
+                  f"shape beside the int8 path's {rates.get('int8')} "
+                  f"(Llama-2-7B, same call)", flush=True)
         else:
             rates[path] = serve_path(torch, path, cfg, params, launches,
                                      int8, kv_dtype, int4=weights == "int4")
@@ -4405,6 +4534,51 @@ def awq_fetcher(cfg, seed: int):
                                version="gemm")
 
 
+def _float_to(tree, dtype):
+    """The tree with its float tensors (embedding, norms) in ``dtype``;
+    quantized weights as they are."""
+    from simplellminference_tpu_torch.ops.linear import QuantizedWeight
+    if isinstance(tree, dict):
+        return {k: _float_to(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, QuantizedWeight) or not tree.is_floating_point():
+        return tree
+    return tree.to(dtype)
+
+
+def awq_bf16(torch, cfg, p_gpu, p_cpu, prompts, new: int = 5):
+    """The AWQ weights with bf16 activations, the server's dtype (the f32
+    check above runs the FMA kernels): the Engine on the card, through
+    the INT4 product's tensor-core regimes, and on the CPU. Every request
+    finishes with valid tokens on both; the greedy outputs equal card vs
+    CPU are printed, not held (bf16 activations round by summation
+    order, and random weights leave near-tied logits)."""
+    import dataclasses
+
+    from simplellminference_tpu_torch.core.config import (EngineConfig,
+                                                          KVCacheConfig,
+                                                          SamplingParams)
+    from simplellminference_tpu_torch.engine import Engine
+
+    cfg_bf = dataclasses.replace(cfg, dtype="bfloat16")
+    ecfg = EngineConfig(max_batch_size=len(prompts), prefix_cache_entries=0,
+                        kv=KVCacheConfig(page_size=16, num_pages=64,
+                                         max_pages_per_seq=8,
+                                         kv_dtype="bf16"))
+    outs = {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        eng = Engine(cfg_bf, _float_to(params, torch.bfloat16), ecfg,
+                     decode_burst=4, device=dev)
+        outs[dev] = eng.generate(prompts, SamplingParams(max_new_tokens=new))
+        for o in outs[dev]:
+            require(len(o) == new and all(0 <= t < cfg.vocab_size
+                                          for t in o),
+                    f"[awq-bf16] {dev} output {o}")
+    same = sum(a == b for a, b in zip(outs["cuda"], outs["cpu"]))
+    print(f"[cpu:awq-bf16] bf16 activations, {len(prompts)} requests x "
+          f"{new} tokens: greedy outputs card == cpu in {same} of "
+          f"{len(prompts)}", flush=True)
+
+
 def _window_trace(torch, cfg, params, prompt, steps, device):
     """Greedy chunked prefill (256-row chunks through the ring) + decode
     of one request through forward_paged over the grouped engine's pools
@@ -4593,10 +4767,16 @@ def phase_cpu(torch, launches: dict):
     # (their CPU halves launch nothing), counted like a path of phase 4
     reset_counts()
     card_vs_cpu(torch, "awq", cfg, a_gpu, a_cpu, short, steps=4)
+    awq_bf16(torch, cfg, a_gpu, a_cpu, short)
     launches["awq"] = read_counts("awq")
     require(launches["awq"]["quantized_matmul_int4_zs"] > 0
             and launches["awq"]["quantized_matmul_int4"] == 0,
             f"[awq] INT4 launches {launches['awq']}")
+    from simplellminference_tpu_torch.ops import matmul as mm
+    if int4_regime_launches(mm):
+        require(launches["awq"]["quantized_matmul_int4_mma"] > 0
+                and launches["awq"]["quantized_matmul_int4_wgmma"] > 0,
+                f"[awq] no tensor-core INT4 launches: {launches['awq']}")
     print(f"[cpu:awq] launches on the card {json.dumps(launches['awq'])}",
           flush=True)
     del a_gpu, a_cpu
@@ -4614,9 +4794,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--paths", default=",".join(PATHS),
+                    help="the engine phase's paths: a comma-separated "
+                         "subset of " + ",".join(PATHS))
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
-    full_run = phases >= set(PHASES)
+    paths = [p for p in PATHS if p in args.paths.split(",")]
+    full_run = phases >= set(PHASES) and paths == list(PATHS)
     try:
         import torch
     except ImportError:
@@ -4632,7 +4816,8 @@ def main(argv=None) -> int:
         took = {}
         for phase, run in (("build", phase_build),
                            ("kernels", lambda: phase_kernels(torch, results)),
-                           ("engine", lambda: phase_engine(torch, launches)),
+                           ("engine", lambda: phase_engine(torch, launches,
+                                                           paths)),
                            ("cpu", lambda: phase_cpu(torch, launches))):
             if phase in phases or phase == "build":
                 t0 = time.perf_counter()
@@ -4643,8 +4828,9 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     if not full_run:
-        print(f"chip_smoke: ran only {sorted(phases)}; the result lines "
-              f"come from a run of every phase", flush=True)
+        print(f"chip_smoke: ran only {sorted(phases)} (paths {paths}); the "
+              f"result lines come from a run of every phase and path",
+              flush=True)
         return 0
     rows = []
     for kname, meta in KERNELS.items():
@@ -4660,7 +4846,8 @@ def main(argv=None) -> int:
                      "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                      "bound_ms": r.get("bound_ms"),
                      "bound_by": r.get("bound_by"),
-                     "library_ms": r.get("library_ms")})
+                     "library_ms": r.get("library_ms"),
+                     "cold_ms": r.get("cold_ms")})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

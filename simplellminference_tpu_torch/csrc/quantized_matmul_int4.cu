@@ -17,8 +17,13 @@
 // it). The low half of the packed rows uses scale rows [0, G/2), the high
 // half [G/2, G) (row i + K/2 is in group (i + K/2) / gs).
 //
-// Two regimes, chosen by the wrapper (ops/matmul.py), as for the INT8
-// kernel (quantized_matmul.cu):
+// These are the FMA kernels of the product: the wrapper (ops/matmul.py
+// int4_regime) sends them f32 activations and the shapes the tensor-core
+// kernels do not take (N off a multiple of 16, K/2 off a multiple of 64,
+// scale groups off a multiple of 64 rows); bf16 activations of other
+// shapes go to quantized_matmul_int4_mma.cu (M <= 8) and
+// quantized_matmul_int4_wgmma.cu. Two regimes, as for the INT8 kernel
+// (quantized_matmul.cu):
 //
 // * A few rows (decode, M <= 8: wqkv, wo, gate_up, down and the LM head
 //   of every step, since the fused decode kernels take only INT8): the

@@ -61,6 +61,10 @@ _SIGNATURES = {
                                  _I, _I, _P],
     "sli_quantized_matmul_int4": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _P],
+    "sli_quantized_matmul_int4_mma": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _I, _I, _P],
+    "sli_quantized_matmul_int4_wgmma": [_P, _L, _P, _P, _P, _P, _P, _I, _I,
+                                        _I, _I, _I, _I, _I, _P],
     "sli_quantized_matmul_w8a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _P],
     "sli_qkv_fused": [_P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,

@@ -9,14 +9,16 @@ stacked [L, K, N] weight or a plain [K, N] one, for any M and N:
 * :func:`quantized_matmul_int4` (``_quantized_matmul_int4`` :354, kernel
   ``_qmm4_kernel``): split-half packed 4-bit weights [.., K/2, N] (row i
   in the low nibble, row i + K/2 in the high one), and its zero-point
-  form :func:`quantized_matmul_int4_zs` (AWQ/GPTQ: w = q * s - zs);
+  form :func:`quantized_matmul_int4_zs` (AWQ/GPTQ: w = q * s - zs), four
+  kernels chosen by :func:`int4_regime` and counted in
+  :data:`INT4_REGIME_LAUNCHES`;
 * :func:`quantized_matmul_w8a8` (:232, kernel ``_qmm_w8a8_kernel``):
   activations quantized per token to int8 by
   :func:`quantize_activations_int8` (:219; torch ops, outside the kernel
   as in the reference), int32 dots against int8 weights.
 
 For CUDA tensors each wrapper launches its hand-written kernel
-(``csrc/quantized_matmul.cu``, ``csrc/quantized_matmul_int4.cu``,
+(``csrc/quantized_matmul.cu``, ``csrc/quantized_matmul_int4*.cu``,
 ``csrc/quantized_matmul_w8a8.cu``) and counts the launch; for CPU tensors
 it runs its plain version (``*_ref``), which is also what the kernels are
 held against on the card. The 8-bit product has three kernels, one per
@@ -26,7 +28,13 @@ counts every call): ``rows`` (M <= 8, bytes-bound: f32 FMAs streaming the
 weight), ``mma`` (M > 8 with bf16 activations: bf16 tensor cores by wgmma,
 ``csrc/quantized_matmul_mma.cu``) and ``fma`` (the rest: f32 activations,
 scale groups off a multiple of 64 rows, K off a multiple of 8 or N of 16:
-a shared-memory tiled f32 FMA kernel).
+a shared-memory tiled f32 FMA kernel). The INT4 product has four, by
+:func:`int4_regime` in :data:`INT4_REGIME_LAUNCHES`: ``mma`` (M <= 8,
+bf16 activations: mma.sync on bf16 tensor cores,
+``csrc/quantized_matmul_int4_mma.cu``), ``wgmma`` (M > 8, bf16
+activations: ``csrc/quantized_matmul_int4_wgmma.cu``), and the f32 FMA
+kernels ``rows`` and ``tiled`` (``csrc/quantized_matmul_int4.cu``) for the
+rest.
 
 Rounding: the TPU kernels round x to bf16 whatever its dtype
 (matmul.py:565). Here x is used in its own dtype (the activation dtype)
@@ -58,6 +66,12 @@ MMA_BK = 64               # its K slab: K splits fall on slab edges
 MMA_MIN_K = 256           # smallest K range a block of it takes
 # launches of each 8-bit regime's kernel (quantized_matmul counts them all)
 REGIME_LAUNCHES = {"rows": 0, "mma": 0, "fma": 0}
+INT4_KP = 64              # packed rows a stage of the INT4 tensor-core kernels
+INT4_MIN_KP = 256         # fewest packed rows a block of them takes
+INT4_MMA_COLS = 128       # output columns a block of the few-rows one
+# launches of each INT4 regime's kernel, both forms together (the wrappers
+# quantized_matmul_int4 and quantized_matmul_int4_zs count each form's)
+INT4_REGIME_LAUNCHES = {"mma": 0, "wgmma": 0, "rows": 0, "tiled": 0}
 
 
 def tiled_regime(m: int, k: int, n: int, group: int, dtype) -> str:
@@ -72,6 +86,54 @@ def tiled_regime(m: int, k: int, n: int, group: int, dtype) -> str:
             and (group >= k or group % MMA_BK == 0)):
         return "mma"
     return "fma"
+
+
+def int4_regime(m: int, kp: int, n: int, group: int, dtype) -> str:
+    """The kernel of an INT4 product of ``m`` rows x split-half packed
+    [kp, n] weights with scale groups of ``group`` logical rows (``2 *
+    kp``: per output channel), from dtype and shape alone.
+
+    The tensor-core kernels take bf16 activations (the port never rounds
+    activations: f32 ones keep the f32 FMA kernels, as the f32 forms of
+    kernels 3 and 8 do), N a multiple of 16 (their 16-byte copies of the
+    packed rows), K/2 a multiple of their 64-row stage, and per-channel
+    scales or groups of a multiple of 64 rows (a k-step must lie in one
+    group: groups of 32, or 30 and 200 off a multiple of 64, do not). Of
+    those, "mma" (mma.sync) takes m <= 8, "wgmma" the rest; every other
+    product takes the FMA kernels, "rows" for m <= 8, else "tiled"."""
+    few = m <= ROWS_MAX_M
+    if (dtype == torch.bfloat16 and n % 16 == 0 and kp % INT4_KP == 0
+            and (group >= 2 * kp or group % INT4_KP == 0)):
+        return "mma" if few else "wgmma"
+    return "rows" if few else "tiled"
+
+
+def int4_mma_split(kp: int, n: int) -> int:
+    """Packed rows a block of the INT4 few-rows tensor-core kernel takes:
+    K/2 is split on 64-row stages until the grid of 128-column blocks holds
+    about three blocks an SM (its copies keep ~30 KB a block in flight),
+    each block taking at least 256 rows."""
+    tiles = -(-n // INT4_MMA_COLS)
+    want = -(-3 * SM_COUNT // tiles)
+    chunks = max(1, min(want, kp // INT4_MIN_KP))
+    per = -(-kp // chunks)
+    return -(-per // INT4_KP) * INT4_KP
+
+
+def int4_wgmma_split(m: int, kp: int, n: int, group: int,
+                     zeros: bool) -> tuple[int, int]:
+    """(activation rows a block, packed rows a block) of the INT4 wgmma
+    kernel: blocks of 256 columns x 128 rows with per-channel scales and no
+    zero points (64 rows when m <= 64), x 64 rows with grouped scales or
+    zero points (an f32 total beside the accumulators); K/2 is split on
+    64-row stages while the tiles (one block an SM) leave SMs idle, each
+    block taking at least 256 rows."""
+    grouped = zeros or group < 2 * kp
+    bm = 64 if grouped or m <= 64 else 128
+    tiles = -(-n // 256) * -(-m // bm)
+    chunks = max(1, min(SM_COUNT // tiles, kp // INT4_MIN_KP))
+    per = -(-kp // chunks)
+    return bm, -(-per // INT4_KP) * INT4_KP
 
 
 def mma_split(m: int, k: int, n: int, group: int) -> tuple[int, int]:
@@ -230,31 +292,23 @@ def quantized_matmul_int4_ref(x: torch.Tensor, q: torch.Tensor,
                               layer: int | None = None,
                               zs: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of :func:`quantized_matmul_int4` and of its
-    zero-point form, in the kernel's arithmetic: per-channel scales
-    without zero points scale the f32 product once; grouped scales and
-    zero points fold into the f32 weight (w = q * s - zs) before it. (The
-    reference's per-group partial sums, ``ref_ops.
-    quantized_matmul_int4_ref``, differ only in f32 rounding order.)"""
+    zero-point form: ``ref_ops.quantized_matmul_int4_ref`` on the layer's
+    weight, the TPU kernel's order (f32 sums of x against the codes, each
+    group's times its scale, minus rowsum_g(x) * zs per group; a
+    per-channel scale once at the end). The kernels differ from it only in
+    f32 summation order."""
     if x.is_cuda:
         quantized_matmul_int4_ref.cuda_calls += 1
     q, scales, zs = _layer(q, scales, layer, zs)
-    w = ref_ops.unpack_int4(q).float()
-    if scales.shape[0] == 1 and zs is None:
-        out = torch.matmul(x.float(), w) * scales[0].float()
-    else:
-        w = ref_ops.dequantize_int8_groupwise(w, scales)
-        if zs is not None:
-            w = w - torch.repeat_interleave(zs.float(),
-                                            w.shape[0] // zs.shape[0], dim=0)
-        out = torch.matmul(x.float(), w)
-    return out.to(out_dtype)
+    return ref_ops.quantized_matmul_int4_ref(x, q, scales,
+                                             out_dtype=out_dtype, zs=zs)
 
 
 quantized_matmul_int4_ref.cuda_calls = 0
 
 
 def _int4_launch(x, q, scales, zs, out_dtype, layer) -> torch.Tensor:
-    """Checks and launches csrc/quantized_matmul_int4.cu."""
+    """Checks and launches the INT4 kernel :func:`int4_regime` picks."""
     ql, sl, zl = _layer(q, scales, layer, zs)
     kp, n = ql.shape
     k = 2 * kp
@@ -284,19 +338,53 @@ def _int4_launch(x, q, scales, zs, out_dtype, layer) -> torch.Tensor:
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out.reshape(*x.shape[:-1], n)
-    kch = rows_split(m, kp, n) if m <= ROWS_MAX_M else 0
-    chunks = -(-kp // kch) if kch else 0
-    work = torch.empty((chunks * m * n,), dtype=torch.float32,
-                       device=x.device)
-    vec = int(n % 8 == 0 and ql.data_ptr() % 8 == 0)
+    regime = int4_regime(m, kp, n, gs, x2.dtype)
     lib = cuda_build.load()
-    rc = lib.sli_quantized_matmul_int4(
-        x2.data_ptr(), x2.stride(0), ql.data_ptr(), sl.data_ptr(),
-        0 if zl is None else zl.data_ptr(), out.data_ptr(), work.data_ptr(),
-        m, kp, n, gs, kch, cuda_build.dtype_code(x2.dtype),
-        cuda_build.dtype_code(out_dtype), vec,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(lib, rc, "quantized_matmul_int4")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    zp = 0 if zl is None else zl.data_ptr()
+    if regime in ("mma", "wgmma"):
+        # the 16-byte copies need aligned rows (a contiguous copy of an
+        # odd view; K/2 % 64 == 0 keeps its rows aligned)
+        if x2.data_ptr() % 16 or x2.stride(0) % 8:
+            x2 = x2.clone(memory_format=torch.contiguous_format)
+        if ql.data_ptr() % 16:
+            ql = ql.clone()
+        if sl.data_ptr() % 16:      # float4 scale (and zero point) reads
+            sl = sl.clone()
+        if zl is not None and zl.data_ptr() % 16:
+            zl = zl.clone()
+        zp = 0 if zl is None else zl.data_ptr()
+        if regime == "mma":
+            bm, kch = 0, int4_mma_split(kp, n)
+        else:
+            bm, kch = int4_wgmma_split(m, kp, n, gs, zl is not None)
+        chunks = -(-kp // kch)
+        work = torch.empty((chunks * m * n if chunks > 1 else 0,),
+                           dtype=torch.float32, device=x.device)
+        wp = work.data_ptr() if chunks > 1 else 0
+        if regime == "mma":
+            rc = lib.sli_quantized_matmul_int4_mma(
+                x2.data_ptr(), x2.stride(0), ql.data_ptr(), sl.data_ptr(),
+                zp, out.data_ptr(), wp, m, kp, n, gs, kch,
+                cuda_build.dtype_code(out_dtype), stream)
+        else:
+            rc = lib.sli_quantized_matmul_int4_wgmma(
+                x2.data_ptr(), x2.stride(0), ql.data_ptr(), sl.data_ptr(),
+                zp, out.data_ptr(), wp, m, kp, n, gs, kch, bm,
+                cuda_build.dtype_code(out_dtype), stream)
+    else:
+        kch = rows_split(m, kp, n) if regime == "rows" else 0
+        chunks = -(-kp // kch) if kch else 0
+        work = torch.empty((chunks * m * n,), dtype=torch.float32,
+                           device=x.device)
+        vec = int(n % 8 == 0 and ql.data_ptr() % 8 == 0)
+        rc = lib.sli_quantized_matmul_int4(
+            x2.data_ptr(), x2.stride(0), ql.data_ptr(), sl.data_ptr(), zp,
+            out.data_ptr(), work.data_ptr(), m, kp, n, gs, kch,
+            cuda_build.dtype_code(x2.dtype),
+            cuda_build.dtype_code(out_dtype), vec, stream)
+    cuda_build.check(lib, rc, f"quantized_matmul_int4 ({regime})")
+    INT4_REGIME_LAUNCHES[regime] += 1
     return out.reshape(*x.shape[:-1], n)
 
 

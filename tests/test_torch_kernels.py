@@ -1098,6 +1098,48 @@ def test_quantized_matmul_int4(cuda, m, k, n, groups, xdt, odt, zs):
     assert _close(got, want, odt)
 
 
+# The tensor-core regimes of the INT4 product: mma.sync (M <= 8) and wgmma
+# (M > 8) with bf16 activations, per channel, in groups of 128 (and 192)
+# and with zero points; bf16 and f32 outputs; ragged M; K/2 split across
+# blocks with the split on a group edge (5 x 4096 x 4096: 256-row ranges,
+# 65 x 1024 x 384) and off one (8 x 11008: 448-row ranges, 24 x 2688:
+# 320-row ranges over groups of 192); each launch counted in its regime.
+@pytest.mark.parametrize("m,k,n,groups,zs,odt", [
+    (1, 4096, 12288, 1, False, torch.bfloat16),     # wqkv, one request
+    (5, 4096, 4096, 32, False, torch.float32),      # group 128, split edges
+    (8, 4096, 22016, 1, False, torch.bfloat16),     # gate_up
+    (8, 11008, 4096, 86, True, torch.bfloat16),     # AWQ down, mid-group
+    (8, 4096, 32000, 1, True, torch.float32),       # per-channel zs, head
+    (8, 512, 256, 4, True, torch.bfloat16),         # one range, no split
+    (9, 4096, 4096, 1, False, torch.bfloat16),      # 64-row tiles, split
+    (65, 4096, 4096, 1, False, torch.float32),      # 128-row tiles, split
+    (65, 1024, 384, 8, True, torch.bfloat16),       # grouped split at edge
+    (24, 2688, 256, 14, True, torch.float32),       # groups of 192, mid
+    (300, 4096, 4096, 32, True, torch.float32),     # ragged AWQ
+    (300, 11008, 4096, 86, False, torch.bfloat16),  # grouped, no zs
+    (1024, 4096, 12288, 1, False, torch.bfloat16),  # prefill wqkv
+    (1024, 4096, 12288, 32, True, torch.bfloat16),  # AWQ prefill wqkv
+])
+def test_quantized_matmul_int4_tensor_core_regimes(cuda, m, k, n, groups, zs,
+                                                   odt):
+    g = torch.Generator(device=cuda).manual_seed(m + k + n + zs)
+    q, s, z = _int4w(g, cuda, (2, k, n), groups, zs)
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    regime = mm.int4_regime(m, k // 2, n, k // groups, torch.bfloat16)
+    assert regime == ("mma" if m <= 8 else "wgmma")
+    kern = mm.quantized_matmul_int4_zs if zs else mm.quantized_matmul_int4
+    before = (kern.launches, dict(mm.INT4_REGIME_LAUNCHES))
+    got = mm.quantized_matmul(x, q, s, out_dtype=odt, layer=1, bits=4, zs=z)
+    assert kern.launches == before[0] + 1
+    assert mm.INT4_REGIME_LAUNCHES == {r: c + (r == regime)
+                                       for r, c in before[1].items()}
+    want = mm.quantized_matmul_int4_ref(x, q, s, out_dtype=odt, layer=1,
+                                        zs=z)
+    assert got.dtype == odt and got.shape == (m, n)
+    assert bool(torch.isfinite(got).all())
+    assert _close(got, want, odt)
+
+
 @pytest.mark.parametrize("m,k,n,groups,xdt,odt", [
     (128, 4096, 4096, 1, torch.bfloat16, torch.bfloat16),       # wo prefill
     (300, 512, 384, 4, torch.bfloat16, torch.float32),          # group 128
