@@ -17,7 +17,10 @@ Phases, in order; any failure exits non-zero:
                 I=11008, N=kvN=32, D=128, V=32000, page 128, batch 8,
                 128-token prompts, kv_len 128-160, bf16), a GQA shape
                 (TinyLlama: H=2048, I=5632, N=32, kvN=4, D=64), ragged
-                prompts and K % 128 != 0, and paged_flash_prefill at the
+                prompts and K % 128 != 0, fused_ffn at m 1, 8, 9, 40
+                and 64 (bf16: the tensor cores, mma.sync; f32 at 7B
+                width timed too: the FMA kernels), and
+                paged_flash_prefill at the
                 `prefix` path's dispatches (8 x 64 suffix rows and one
                 256-row chunk at offset 512, kv_len 540-576, bf16) and a
                 GQA case with ragged offsets, an unmapped page and a
@@ -41,7 +44,12 @@ Phases, in order; any failure exits non-zero:
                 activations; FMA kernels otherwise), its decode cases
                 also timed over weight copies past the 50 MB L2, and the
                 W8A8 product at the
-                four prefill products, M in {128, 1024} and ragged, with
+                four prefill products, M in {128, 1024} and ragged, each
+                with its regime (the int8 tensor cores, wgmma, or dp4a
+                for K or N off 16 and groups off 128: timed at the
+                group-64 wqkv), the count of its per-channel outputs
+                bit-unequal to the plain version and the quantize ops'
+                share of its time, with
                 both quantizers byte-equal card vs CPU; then the sliding-
                 window forms (3w, 4w/4qw/4vw/4vqw, 8w/8qw at the
                 `mistral_window` path's shapes and at windows 200 and 6,
@@ -223,6 +231,12 @@ KERNELS = {
     "fused_ffn": dict(
         source="simplellminference_tpu_torch/csrc/ffn_fused.cu",
         replaces="simplellminference_tpu/ops/ffn_fused.py:138"),
+    # kernel 7's tensor-core regime (bf16 activations, H and I multiples of
+    # 64: mma.sync, all rows in one weight pass): its launches apart;
+    # fused_ffn's count holds every call
+    "fused_ffn_mma": dict(
+        source="simplellminference_tpu_torch/csrc/ffn_fused_mma.cu",
+        replaces="simplellminference_tpu/ops/ffn_fused.py:138"),
     "paged_flash_prefill": dict(
         source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
         replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
@@ -282,6 +296,12 @@ KERNELS = {
         replaces="simplellminference_tpu/ops/matmul.py:354"),
     "quantized_matmul_w8a8": dict(
         source="simplellminference_tpu_torch/csrc/quantized_matmul_w8a8.cu",
+        replaces="simplellminference_tpu/ops/matmul.py:232"),
+    # kernel 15's int8 tensor-core regime (wgmma s8, K and N multiples of
+    # 16, groups of a multiple of 128): its launches apart
+    "quantized_matmul_w8a8_wgmma": dict(
+        source="simplellminference_tpu_torch/csrc/"
+               "quantized_matmul_w8a8_wgmma.cu",
         replaces="simplellminference_tpu/ops/matmul.py:232"),
     # sliding windows: the window forms of kernels 3, 4 (4w, 4qw, 4vw,
     # 4vqw) and 8 (8w, 8qw), and the kv_layer form of 6 (6k)
@@ -420,13 +440,16 @@ def phase_build():
 MMA_KERNELS = {"flash_prefill_mma_kernel": "HGMMA",
                "paged_prefill_mma_kernel": "HGMMA",
                "qmm_mma_kernel": "HGMMA", "qmm4_wgmma_kernel": "HGMMA",
-               "qmm4_mma_rows_kernel": "HMMA"}
+               "qmm4_mma_rows_kernel": "HMMA",
+               "qmm_w8a8_wgmma_kernel": "IGMMA",
+               "ffn_gate_up_mma_kernel": "HMMA",
+               "ffn_down_mma_kernel": "HMMA"}
 
 
 def print_hgmma(lib: Path) -> None:
-    """Tensor-core evidence: the HGMMA or HMMA instructions in the SASS of
-    each instantiation of MMA_KERNELS (``cuobjdump -sass``), or a line
-    saying cuobjdump is not there."""
+    """Tensor-core evidence: the HGMMA, IGMMA (integer wgmma) or HMMA
+    instructions in the SASS of each instantiation of MMA_KERNELS
+    (``cuobjdump -sass``), or a line saying cuobjdump is not there."""
     import re
     import shutil
 
@@ -444,9 +467,9 @@ def print_hgmma(lib: Path) -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts.setdefault(fn, {"HGMMA": 0, "HMMA": 0})
+            counts.setdefault(fn, {"HGMMA": 0, "HMMA": 0, "IGMMA": 0})
         elif fn is not None:
-            for op in ("HGMMA", "HMMA"):
+            for op in ("HGMMA", "HMMA", "IGMMA"):
                 if f" {op}." in line or f" {op} " in line:
                     counts[fn][op] += 1
     for kname, op in MMA_KERNELS.items():
@@ -926,17 +949,26 @@ def check_fused_qkv(torch, dev, results, extra):
 
 
 def check_fused_ffn(torch, dev, results, extra):
+    from simplellminference_tpu_torch.ops import ffn_fused as ff
     from simplellminference_tpu_torch.ops.ffn_fused import (fused_ffn,
                                                             fused_ffn_ref)
     gen = torch.Generator(device=dev).manual_seed(7)
     bf, f32 = torch.bfloat16, torch.float32
-    # the first is the decode row; the second a spec_int8kv verify step's
-    # 8 x 5 rows, timed too
-    cases = {"llama2-7b": (8, 4096, 11008, bf),
-             "llama2-7b verify m40": (40, 4096, 11008, bf),
-             "tinyllama f32": (3, 2048, 5632, f32),
-             "tinyllama m40": (40, 2048, 5632, bf)}
-    for tag, (m, h, inter, xdt) in cases.items():
+    # timed (the "llama2-7b" tags): the decode row, a spec_int8kv verify
+    # step's 8 x 5 rows, the most rows the kernel takes (64), on the
+    # tensor-core regime (fused_ffn_mma), and the decode row with f32
+    # activations, the FMA kernels' row (phase 5's f32 paths run them)
+    cases = {"llama2-7b": (8, 4096, 11008, bf, True),
+             "llama2-7b verify m40": (40, 4096, 11008, bf, True),
+             "llama2-7b m64": (64, 4096, 11008, bf, True),
+             "llama2-7b f32": (8, 4096, 11008, f32, True),
+             "llama2-7b m1": (1, 4096, 11008, bf, False),
+             "llama2-7b m9": (9, 4096, 11008, bf, False),
+             "mistral-7b": (4, 4096, 14336, bf, False),
+             "tinyllama f32": (3, 2048, 5632, f32, False),
+             "tinyllama m40": (40, 2048, 5632, bf, False)}
+    regime_of = getattr(ff, "ffn_regime", lambda *a: "fma")
+    for tag, (m, h, inter, xdt, timed) in cases.items():
         layer = 1
         q1, s1 = _qweight(torch, gen, dev, (2, h, 2 * inter), 1)
         q2, s2 = _qweight(torch, gen, dev, (2, inter, h), 1)
@@ -949,11 +981,12 @@ def check_fused_ffn(torch, dev, results, extra):
         err = max_err(got, want)
         lim = (F32_REL * float(want.abs().max()) if xdt == torch.float32
                else TOL["bfloat16"] * float(want.float().std()))
-        print(f"[kernels] fused_ffn {tag} (m={m}): max|err| {err:.3e} "
-              f"(tol {lim:.3e})", flush=True)
+        regime = regime_of(m, h, inter, xdt)
+        print(f"[kernels] fused_ffn {tag} (m={m}, {regime}): max|err| "
+              f"{err:.3e} (tol {lim:.3e})", flush=True)
         require(bool(torch.isfinite(got).all()) and err <= lim,
                 f"fused_ffn {tag} disagrees: {err}")
-        if not tag.startswith("llama2-7b"):
+        if not timed:
             continue
         es = x.element_size()
         nbytes = (3 * h * inter + (2 * inter + h) * 4 + 2 * m * h * es
@@ -971,9 +1004,36 @@ def check_fused_ffn(torch, dev, results, extra):
             library_ms=time_ms(torch, lambda: (
                 torch._weight_int8pack_mm(x, q1t, s1t),
                 torch._weight_int8pack_mm(hx, q2t, s2t))),
-            bound_ms=bms, bound_by=by)
-        extra.append(("fused_ffn", tag, r))
-        results.setdefault("fused_ffn", r)
+            bound_ms=bms, bound_by=by, regime=regime)
+        if regime == "mma":
+            print_kernel_split(torch, f"fused_ffn {tag}", lambda: fused_ffn(
+                x, nw, q1, s1, q2, s2, layer))
+        name = "fused_ffn" + "_mma" * (regime == "mma")
+        extra.append((name, tag, r))
+        results.setdefault(name, r)
+
+
+def print_kernel_split(torch, tag: str, fn, calls: int = 20) -> None:
+    """Device time of each CUDA kernel one call of ``fn`` launches, from
+    ``torch.profiler`` over ``calls`` calls (the 7m FFN's three launches:
+    where its time goes)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = re.search(r"(\w+(<[^(]*>)?)\(", e.key)
+            parts.append(f"{name.group(1) if name else e.key[:40]} "
+                         f"{e.device_time_total / calls / 1e3:.6g} ms")
+    print(f"[kernels] {tag} by kernel (torch.profiler, a call): "
+          f"{'; '.join(parts) or 'no device time recorded'}", flush=True)
 
 
 def check_paged_prefill(torch, dev, results, extra):
@@ -2025,6 +2085,7 @@ def check_quantized_matmul_int4(torch, dev, results, extra):
 
 
 def check_quantized_matmul_w8a8(torch, dev, results, extra):
+    from simplellminference_tpu_torch.ops import matmul as mm
     from simplellminference_tpu_torch.ops.matmul import (
         quantize_activations_int8, quantized_matmul_w8a8,
         quantized_matmul_w8a8_ref)
@@ -2032,8 +2093,13 @@ def check_quantized_matmul_w8a8(torch, dev, results, extra):
     bf, f32 = torch.bfloat16, torch.float32
     # the four products of a prefill dispatch of 7B (the w8a8 path's
     # chunks are 256 rows, its suffix batches 512; bench.py's whole-prompt
-    # prefill 1024), per-channel (bench.py's weights) and group 128
+    # prefill 1024), per-channel (bench.py's weights) and group 128; the
+    # timed ones on the int8 tensor cores (quantized_matmul_w8a8_wgmma)
+    # but the group-64 wqkv, the dp4a kernel's row (groups off a multiple
+    # of the 128-row slab)
     cases = {
+        "llama2-7b wqkv M=1024 group64": (1024, 4096, 12288, 64, bf, bf,
+                                          True),
         "llama2-7b wqkv M=1024": (1024, 4096, 12288, 1, bf, bf, True),
         "llama2-7b wo M=1024": (1024, 4096, 4096, 1, bf, bf, True),
         "llama2-7b gate_up M=1024": (1024, 4096, 22016, 1, bf, bf, True),
@@ -2051,6 +2117,7 @@ def check_quantized_matmul_w8a8(torch, dev, results, extra):
         "ragged M=300 wo group128": (300, 4096, 4096, 32, bf, f32, False),
         "ragged M=141 k1000 n136": (141, 1000, 136, 1, f32, bf, False),
     }
+    regime_of = getattr(mm, "w8a8_regime", lambda *a: "dp4a")
     for tag, (m, k, n, groups, xdt, odt, timed) in cases.items():
         q, s = _qweight(torch, gen, dev, (2, k, n), groups)
         x = torch.randn((m, k), generator=gen, device=dev).to(xdt)
@@ -2065,8 +2132,15 @@ def check_quantized_matmul_w8a8(torch, dev, results, extra):
         want = plain()
         torch.cuda.synchronize()
         ok, err, rule = _matmul_rule(torch, got, want, odt)
+        regime = regime_of(m, k, n, k // groups)
+        # per channel the integer sums are exact and the two f32 multiplies
+        # come in the plain version's order: count outputs that differ at
+        # all (0 wherever the plain version's f32 chunk sums are exact)
+        apart = (f"; {int((got != want).sum())} of {got.numel()} outputs "
+                 f"bit-unequal" if groups == 1 else "")
         print(f"[kernels] quantized_matmul_w8a8 {tag} (m={m} k={k} n={n} "
-              f"groups={groups}): max|err| {err:.3e} ({rule})", flush=True)
+              f"groups={groups}, {regime}): max|err| {err:.3e} ({rule})"
+              f"{apart}", flush=True)
         require(bool(torch.isfinite(got).all()) and ok and not got[1].any(),
                 f"quantized_matmul_w8a8 {tag} disagrees: {err}")
         if not timed:
@@ -2079,13 +2153,31 @@ def check_quantized_matmul_w8a8(torch, dev, results, extra):
         nbytes = (m * k * x.element_size() + k * n + groups * n * 4
                   + m * n * got.element_size())
         bms, by = bound_ms(nbytes, 2.0 * m * k * n, "int8")
+        # grouped scales: no one PyTorch call sums int8 products per group
         r = dict(max_abs_err=err, ms=time_ms(torch, kern),
                  plain_ms=time_ms(torch, plain, iters=5),
-                 library_ms=time_ms(torch, library), bound_ms=bms,
-                 bound_by=by)
-        extra.append(("quantized_matmul_w8a8", tag, r))
-        if "quantized_matmul_w8a8" not in results:
-            results["quantized_matmul_w8a8"] = r
+                 library_ms=(time_ms(torch, library) if groups == 1
+                             else None), bound_ms=bms, bound_by=by,
+                 regime=regime)
+        if groups > 1:
+            r["library"] = "none for grouped scales"
+        # the quantize ops (torch, outside the kernel as in the JAX
+        # package) alone, and the kernel alone on their codes: their
+        # shares of the wrapper's time
+        quant_ms = time_ms(torch, lambda x=x: quantize_activations_int8(x))
+        launch = getattr(mm, "w8a8_codes_launch", None)
+        if launch is not None:
+            xi, xs = quantize_activations_int8(x)
+            r["kernel_ms"] = time_ms(torch, lambda: launch(xi, xs, q1, s1,
+                                                           odt))
+        alone = (f"; the kernel alone {r['kernel_ms']:.6g} ms"
+                 if "kernel_ms" in r else "")
+        print(f"[kernels] quantized_matmul_w8a8 {tag}: quantize ops "
+              f"{quant_ms:.6g} ms of the wrapper's {r['ms']:.6g} "
+              f"(share {quant_ms / r['ms']:.3f}){alone}", flush=True)
+        name = "quantized_matmul_w8a8" + "_wgmma" * (regime == "wgmma")
+        extra.append((name, tag, r))
+        results.setdefault(name, r)
         del q, s
         torch.cuda.empty_cache()
 
@@ -2667,6 +2759,7 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
            "fused_qkv_append": "torch._weight_int8pack_mm of the qkv "
                                "product alone",
            "fused_ffn": "torch._weight_int8pack_mm x2 (gate_up, down)",
+           "fused_ffn_mma": "torch._weight_int8pack_mm x2 (gate_up, down)",
            "paged_flash_prefill": "scaled_dot_product_attention on gathered "
                                   "K/V, offset-causal mask",
            "paged_append_decode_quant": "torch quantize ops + index_put_ x4",
@@ -2701,6 +2794,8 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
                                           "128)",
            "quantized_matmul_w8a8": "torch quantize ops + torch._int_mm + "
                                     "scales",
+           "quantized_matmul_w8a8_wgmma": "torch quantize ops + "
+                                          "torch._int_mm + scales",
            "flash_prefill_window": "scaled_dot_product_attention, window "
                                    "mask",
            "paged_flash_decode_window": "scaled_dot_product_attention on "
@@ -2773,8 +2868,10 @@ def phase_kernels(torch, results):
         cold = (f", {r['cold_ms']:.6g} over weight copies past the L2"
                 if "cold_ms" in r else "")
         regime = f" [{r['regime']}]" if "regime" in r else ""
+        lib_ms = r["library_ms"]
         print(f"[kernels] {name} ({tag}){regime}: {r['ms']:.6g} ms{cold} "
-              f"(plain {r['plain_ms']:.6g}, library {r['library_ms']:.6g} "
+              f"(plain {r['plain_ms']:.6g}, library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.6g}'} "
               f"[{r.get('library', LIBRARY[name])}], bound "
               f"{r['bound_ms']:.6g} by {r['bound_by']})", flush=True)
 
@@ -2813,6 +2910,35 @@ def int4_regime_counts(cfg, m: int, head_rows: int, layers: int) -> dict:
         if regime in ("mma", "wgmma"):
             want["quantized_matmul_int4_" + regime] += count
     return want
+
+
+def regime_rows(want: dict, cfg) -> dict:
+    """``want`` with the rows of kernel 7's and kernel 15's tensor-core
+    regimes filled for a path of ``cfg``'s model: every fused_ffn call
+    (m <= 64 rows of ``cfg.dtype``) in ``fused_ffn_mma`` when
+    ``ffn_fused.ffn_regime`` sends the model's H and I there, and each W8A8
+    call whose layer product (wqkv, wo, gate_up, down; per-channel scales)
+    ``matmul.w8a8_regime`` sends to the int8 tensor cores in
+    ``quantized_matmul_w8a8_wgmma``. Both rows stay 0 for a package
+    without the regimes (an earlier tree timed beside this one)."""
+    import torch
+
+    from simplellminference_tpu_torch.ops import ffn_fused as ff
+    from simplellminference_tpu_torch.ops import matmul as mm
+    out = dict(want)
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    ffn = getattr(ff, "ffn_regime", None)
+    dtype = getattr(torch, cfg.dtype)
+    out["fused_ffn_mma"] = (want["fused_ffn"] if ffn is not None and ffn(
+        8, h, i, dtype) == "mma" else 0)
+    w8 = getattr(mm, "w8a8_regime", None)
+    qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    shapes = ((h, qkv), (cfg.num_heads * cfg.head_dim, h), (h, 2 * i), (i, h))
+    wg = sum(w8 is not None and w8(128, k, n, k) == "wgmma"
+             for k, n in shapes)
+    out["quantized_matmul_w8a8_wgmma"] = (want["quantized_matmul_w8a8"]
+                                          // 4 * wg)
+    return out
 
 
 class _Regime:
@@ -2859,6 +2985,9 @@ def _wrappers():
             "fused_qkv_append": (qf.fused_qkv_append,
                                  qf.fused_qkv_append_ref),
             "fused_ffn": (ff.fused_ffn, ff.fused_ffn_ref),
+            "fused_ffn_mma": (
+                _Regime(getattr(ff, "FFN_REGIME_LAUNCHES", {}), "mma"),
+                ff.fused_ffn_ref),
             "paged_flash_prefill": (pp.paged_flash_prefill,
                                     pp.paged_flash_prefill_ref),
             "paged_append_decode_quant": (pa.paged_append_decode_quant,
@@ -2893,6 +3022,9 @@ def _wrappers():
                 mm.quantized_matmul_int4_ref),
             "quantized_matmul_w8a8": (mm.quantized_matmul_w8a8,
                                       mm.quantized_matmul_w8a8_ref),
+            "quantized_matmul_w8a8_wgmma": (
+                _Regime(getattr(mm, "W8A8_REGIME_LAUNCHES", {}), "wgmma"),
+                mm.quantized_matmul_w8a8_ref),
             "flash_prefill_window": (fp.flash_prefill_window,
                                      fp.flash_prefill_ref),
             "paged_flash_decode_window": (pd.paged_flash_decode_window,
@@ -3152,6 +3284,7 @@ def serve_path(torch, path: str, cfg, params, launches: dict, int8: bool,
                          batch=batch)
     if eng._grouped:
         want = windowed(want)
+    want = regime_rows(want, cfg)
     for name, n in want.items():
         require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
                 f"path implies {n}")
@@ -3347,6 +3480,7 @@ def serve_prefix(torch, path: str, cfg, params, launches: dict, int8: bool,
     want = path_launches(int8, layers, dispatches,
                          m.decode_bursts * burst, int8kv=kv_dtype == "int8",
                          act_quant=cfg.act_quant == "int8")
+    want = regime_rows(want, cfg)
     for name, n in want.items():
         require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
                 f"path implies {n}")
@@ -3482,6 +3616,7 @@ def serve_spec(torch, path: str, cfg, params, launches: dict, int8: bool,
             f"[{path}] metrics {m.summary()}")
     want = spec_launches(int8, layers, m.decode_bursts * burst,
                          kv_dtype == "int8")
+    want = regime_rows(want, cfg)
     for name, n in want.items():
         require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
                 f"path implies {n}")
@@ -3613,6 +3748,7 @@ def serve_dense(torch, path: str, cfg, params, launches: dict, int8: bool,
     launches[path] = got
     want = dense_launches(int8, cfg.num_layers, steps,
                           int4=cfg if int4 else None)
+    want = regime_rows(want, cfg)
     for name, n in want.items():
         require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
                 f"path implies {n}")
@@ -3728,6 +3864,7 @@ def serve_draft(torch, path: str, cfg, params, launches: dict,
     want["kv_append"] += dl + (g + 1) * dl * steps
     want["flash_prefill"] += dl
     want["flash_decode"] += (g + 1) * dl * steps
+    want = regime_rows(want, cfg)
     for name, n in want.items():
         require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
                 f"path implies {n}")
@@ -3840,6 +3977,7 @@ def serve_mistral_window(torch, path: str, cfg, params, launches: dict,
     want = windowed(path_launches(
         True, cfg.num_layers,
         [("paged_flash_prefill", MISTRAL_CHUNK)] * (batch * chunks), steps))
+    want = regime_rows(want, cfg)
     for name, n in want.items():
         require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
                 f"path implies {n}")
@@ -4783,9 +4921,14 @@ def phase_cpu(torch, launches: dict):
     # W8A8: the server's --act-quant over group-128 INT8 weights
     cfg_aq = dataclasses.replace(cfg, act_quant="int8")
     q8g_gpu = _to_device(q8g_cpu, "cuda")
+    counts = getattr(mm, "W8A8_REGIME_LAUNCHES", {})
+    before = dict(counts)
     card_vs_cpu(torch, "w8a8", cfg_aq, q8g_gpu, q8g_cpu, w8a8_prompts,
                 steps=4)
     prefix_card_vs_cpu(torch, cfg_aq, q8g_gpu, q8g_cpu)
+    by_regime = {r: c - before[r] for r, c in counts.items()}
+    print(f"[cpu:w8a8] W8A8 launches on the card by regime {by_regime}",
+          flush=True)
     del q8g_gpu, q8g_cpu
     window_card_vs_cpu(torch, launches)
 

@@ -3,7 +3,9 @@
 // -> + residual.
 //
 // Replaces the TPU kernel of simplellminference_tpu/ops/ffn_fused.py:
-//   fused_ffn (_kernel, ffn_fused.py:42-98; wrapper :138).
+//   fused_ffn (_kernel, ffn_fused.py:42-98; wrapper :138). Since the
+//   tensor-core kernels (ffn_fused_mma.cu) these take only f32 rows and
+//   H or I off a multiple of 64 (ops/ffn_fused.py ffn_regime).
 //
 // Bound on the H100: bytes. The two weights ([H, 2I] and [I, H] int8,
 // 135.3 MB at Llama-2-7B: 40.4 us at 3.35 TB/s) dominate.

@@ -7,7 +7,10 @@
 //   quantize_activations_int8, outside the kernel as in the reference),
 //   q [K, N] int8 of one layer, scales per output channel ([1, N]) or per
 //   group ([K/G, N]). The prefill form of the INT8 product: the linear
-//   layer takes it for 128 rows or more (ops/linear.py).
+//   layer takes it for 128 rows or more (ops/linear.py). Since the int8
+//   tensor-core kernel (quantized_matmul_w8a8_wgmma.cu) this one takes
+//   only what that one does not: K or N off a multiple of 16, and groups
+//   off a multiple of its 128-row slab (ops/matmul.py w8a8_regime).
 //
 // Bound: operations. At M = 1024 the 7B wqkv is 103 G integer
 // multiply-adds, 0.052 ms at the int8 tensor-core peak (1,979 TOP/s).

@@ -67,11 +67,15 @@ _SIGNATURES = {
                                         _I, _I, _I, _I, _I, _P],
     "sli_quantized_matmul_w8a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _P],
+    "sli_quantized_matmul_w8a8_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                        _I, _I, _I, _I, _P],
     "sli_qkv_fused": [_P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                       _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                       _P],
     "sli_ffn_fused": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _F, _I, _I, _I, _P],
+    "sli_ffn_fused_mma": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _I, _F, _P],
     "sli_kv_append": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _I, _I, _I, _I, _I,
                       _I, _I, _I, _P],
     "sli_flash_decode": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

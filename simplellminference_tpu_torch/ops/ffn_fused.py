@@ -3,10 +3,16 @@
 
 Counterpart of simplellminference_tpu/ops/ffn_fused.py:138 (``fused_ffn``,
 kernel ``_kernel`` :42) and of ``fused_ffn_available`` (:424). For CUDA
-tensors :func:`fused_ffn` launches the hand-written kernels of
-``csrc/ffn_fused.cu`` (gate_up + SwiGLU, then down + residual: one
-wrapper call, one count); for CPU tensors it runs :func:`fused_ffn_ref`,
-which is also what the kernels are held against on the card.
+tensors :func:`fused_ffn` launches the hand-written kernels of one of two
+regimes, chosen before the launch by :func:`ffn_regime` and each counted in
+:data:`FFN_REGIME_LAUNCHES` (one wrapper call, one count in
+``fused_ffn.launches``): ``mma`` (bf16 activations, H and I multiples of
+64: ``csrc/ffn_fused_mma.cu``, the rmsnorm once, then gate_up + SwiGLU and
+down + residual on the bf16 tensor cores, all rows in one pass over the
+weights) and ``fma`` (the rest, f32 activations among them:
+``csrc/ffn_fused.cu``, f32 FMAs, 8 rows at a time). For CPU tensors it
+runs :func:`fused_ffn_ref`, which is also what the kernels are held
+against on the card.
 
 Rounding: the TPU kernel rounds x, the normalized rows and the SwiGLU
 output to bf16 whatever the activation dtype (ffn_fused.py:151, :54-55,
@@ -28,9 +34,48 @@ import torch
 
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
 from simplellminference_tpu_torch.ops.linear import QuantizedWeight
-from simplellminference_tpu_torch.ops.matmul import rows_split
+from simplellminference_tpu_torch.ops.matmul import SM_COUNT, rows_split
 
 MAX_ROWS = 64
+MMA_KT = 64               # K rows a stage of the tensor-core kernels
+MMA_MIN_K = 256           # fewest K rows a block of them takes
+MMA_MAX_SPLIT = 8         # most K ranges a product is split into
+# launches of each regime's kernels (fused_ffn.launches counts every call)
+FFN_REGIME_LAUNCHES = {"mma": 0, "fma": 0}
+
+
+def ffn_regime(m: int, h: int, inter: int, dtype) -> str:
+    """The kernels of a fused FFN of ``m`` rows (m <= 64) at hidden size
+    ``h`` and intermediate size ``inter``, from dtype and shape alone:
+    "mma" (the bf16 tensor cores) for bf16 activations with H and I
+    multiples of the 64-row stage (which keeps every 16-byte copy aligned);
+    "fma" (f32 FMAs) otherwise: the port never rounds f32 activations to
+    bf16, as the f32 forms of kernels 3, 8 and 14 do not."""
+    if (dtype == torch.bfloat16 and m <= MAX_ROWS and h % MMA_KT == 0
+            and inter % MMA_KT == 0):
+        return "mma"
+    return "fma"
+
+
+def ffn_resident(m: int) -> int:
+    """Blocks of the tensor-core FFN kernels an SM holds for m rows (their
+    launch bounds in csrc/ffn_fused_mma.cu: registers grow with the n8
+    row tiles)."""
+    nt = -(-m // 8)
+    return 4 if nt == 1 else 3 if nt <= 5 else 2
+
+
+def ffn_split(m: int, k: int, tiles: int) -> int:
+    """K rows a block of a tensor-core FFN product takes, over ``tiles``
+    column tiles: K is split on 64-row stages while the grid still fits the
+    blocks the card holds at once (:func:`ffn_resident` an SM), into at
+    most 8 ranges (the last block at a column tile adds every range's
+    partials, so more ranges lengthen the tail), each block taking at
+    least 256 rows. From shapes alone, so CUDA-graph capture holds."""
+    chunks = max(1, min(ffn_resident(m) * SM_COUNT // tiles,
+                        k // MMA_MIN_K, MMA_MAX_SPLIT))
+    per = -(-k // chunks)
+    return -(-per // MMA_KT) * MMA_KT
 
 
 def fused_ffn_ref(x, norm_w, q1, s1, q2, s2, layer: int,
@@ -94,21 +139,43 @@ def fused_ffn(x, norm_w, q1, s1, q2, s2, layer: int,
     w1, w2 = q1[layer], q2[layer]
     sc1 = s1[layer].reshape(-1).to(torch.float32).contiguous()
     sc2 = s2[layer].reshape(-1).to(torch.float32).contiguous()
-    hbuf = torch.empty((m, inter), dtype=x.dtype, device=x.device)
-    kch = rows_split(m, inter, h)
-    work = torch.empty((-(-inter // kch) * m * h,), dtype=torch.float32,
-                       device=x.device)
-    vec1 = int(inter % 16 == 0 and w1.data_ptr() % 16 == 0)
-    vec2 = int(h % 16 == 0 and w2.data_ptr() % 16 == 0)
+    regime = ffn_regime(m, h, inter, x.dtype)
     lib = cuda_build.load()
-    rc = lib.sli_ffn_fused(
-        xc.data_ptr(), nw.data_ptr(), int(nw.dtype == torch.bfloat16),
-        w1.data_ptr(), sc1.data_ptr(), w2.data_ptr(), sc2.data_ptr(),
-        hbuf.data_ptr(), work.data_ptr(), out.data_ptr(), m, h, inter, kch,
-        float(eps), cuda_build.dtype_code(x.dtype), vec1, vec2,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(lib, rc, "fused_ffn")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    hbuf = torch.empty((m, inter), dtype=x.dtype, device=x.device)
+    if regime == "mma":
+        # the 16-byte copies and the epilogue's vector accesses
+        w1, w2, xc, sc1, sc2 = (t if t.data_ptr() % 16 == 0 else t.clone()
+                                for t in (w1, w2, xc, sc1, sc2))
+        kch1 = ffn_split(m, h, inter // MMA_KT)
+        kch2 = ffn_split(m, inter, -(-h // 128))
+        c1, c2 = -(-h // kch1), -(-inter // kch2)
+        # the partials of a split product (gate_up's are read before down
+        # starts, so both use one buffer)
+        size = max(c1 * m * 2 * inter if c1 > 1 else 0,
+                   c2 * m * h if c2 > 1 else 0)
+        work = torch.empty((size,), dtype=torch.float32, device=x.device)
+        xn = torch.empty_like(xc)
+        rc = lib.sli_ffn_fused_mma(
+            xc.data_ptr(), nw.data_ptr(), int(nw.dtype == torch.bfloat16),
+            w1.data_ptr(), sc1.data_ptr(), w2.data_ptr(), sc2.data_ptr(),
+            xn.data_ptr(), hbuf.data_ptr(), work.data_ptr() if size else 0,
+            out.data_ptr(), m, h, inter, kch1, kch2, float(eps), stream)
+    else:
+        kch = rows_split(m, inter, h)
+        work = torch.empty((-(-inter // kch) * m * h,), dtype=torch.float32,
+                           device=x.device)
+        vec1 = int(inter % 16 == 0 and w1.data_ptr() % 16 == 0)
+        vec2 = int(h % 16 == 0 and w2.data_ptr() % 16 == 0)
+        rc = lib.sli_ffn_fused(
+            xc.data_ptr(), nw.data_ptr(), int(nw.dtype == torch.bfloat16),
+            w1.data_ptr(), sc1.data_ptr(), w2.data_ptr(), sc2.data_ptr(),
+            hbuf.data_ptr(), work.data_ptr(), out.data_ptr(), m, h, inter,
+            kch, float(eps), cuda_build.dtype_code(x.dtype), vec1, vec2,
+            stream)
+    cuda_build.check(lib, rc, f"fused_ffn ({regime})")
     fused_ffn.launches += 1
+    FFN_REGIME_LAUNCHES[regime] += 1
     return out
 
 

@@ -15,11 +15,13 @@ stacked [L, K, N] weight or a plain [K, N] one, for any M and N:
 * :func:`quantized_matmul_w8a8` (:232, kernel ``_qmm_w8a8_kernel``):
   activations quantized per token to int8 by
   :func:`quantize_activations_int8` (:219; torch ops, outside the kernel
-  as in the reference), int32 dots against int8 weights.
+  as in the reference), int32 dots against int8 weights; two kernels
+  chosen by :func:`w8a8_regime` and counted in
+  :data:`W8A8_REGIME_LAUNCHES`.
 
 For CUDA tensors each wrapper launches its hand-written kernel
 (``csrc/quantized_matmul.cu``, ``csrc/quantized_matmul_int4*.cu``,
-``csrc/quantized_matmul_w8a8.cu``) and counts the launch; for CPU tensors
+``csrc/quantized_matmul_w8a8*.cu``) and counts the launch; for CPU tensors
 it runs its plain version (``*_ref``), which is also what the kernels are
 held against on the card. The 8-bit product has three kernels, one per
 regime, chosen before the launch by :func:`tiled_regime` and each with
@@ -34,7 +36,10 @@ bf16 activations: mma.sync on bf16 tensor cores,
 ``csrc/quantized_matmul_int4_mma.cu``), ``wgmma`` (M > 8, bf16
 activations: ``csrc/quantized_matmul_int4_wgmma.cu``), and the f32 FMA
 kernels ``rows`` and ``tiled`` (``csrc/quantized_matmul_int4.cu``) for the
-rest.
+rest. The W8A8 product has two, by :func:`w8a8_regime` in
+:data:`W8A8_REGIME_LAUNCHES`: ``wgmma`` (the int8 tensor cores,
+``csrc/quantized_matmul_w8a8_wgmma.cu``) and ``dp4a`` (the rest,
+``csrc/quantized_matmul_w8a8.cu``).
 
 Rounding: the TPU kernels round x to bf16 whatever its dtype
 (matmul.py:565). Here x is used in its own dtype (the activation dtype)
@@ -72,6 +77,10 @@ INT4_MMA_COLS = 128       # output columns a block of the few-rows one
 # launches of each INT4 regime's kernel, both forms together (the wrappers
 # quantized_matmul_int4 and quantized_matmul_int4_zs count each form's)
 INT4_REGIME_LAUNCHES = {"mma": 0, "wgmma": 0, "rows": 0, "tiled": 0}
+W8A8_BK = 128             # K slab of the W8A8 tensor-core kernel (bytes)
+W8A8_MIN_K = 512          # smallest K range a block of it takes
+# launches of each W8A8 regime's kernel (quantized_matmul_w8a8 counts all)
+W8A8_REGIME_LAUNCHES = {"wgmma": 0, "dp4a": 0}
 
 
 def tiled_regime(m: int, k: int, n: int, group: int, dtype) -> str:
@@ -106,6 +115,37 @@ def int4_regime(m: int, kp: int, n: int, group: int, dtype) -> str:
             and (group >= 2 * kp or group % INT4_KP == 0)):
         return "mma" if few else "wgmma"
     return "rows" if few else "tiled"
+
+
+def w8a8_regime(m: int, k: int, n: int, group: int) -> str:
+    """The kernel of a W8A8 product of ``m`` rows x [k, n] int8 weights
+    with scale groups of ``group`` rows (``k``: per output channel), from
+    shape alone (x is quantized to int8 whatever its dtype, so f32
+    activations take the tensor cores too): "wgmma" (the int8 tensor
+    cores) for K and N multiples of 16 (its 16-byte copies) and
+    per-channel scales or groups of a multiple of its 128-row K slab;
+    "dp4a" (the integer pipes) otherwise."""
+    del m                     # every row count: rows past M are zero-filled
+    if k % 16 == 0 and n % 16 == 0 and (group >= k or group % W8A8_BK == 0):
+        return "wgmma"
+    return "dp4a"
+
+
+def w8a8_split(m: int, k: int, n: int, group: int) -> tuple[int, int]:
+    """(warpgroups along M, K rows per block) of the W8A8 tensor-core
+    kernel: 256-row tiles from m = 256 with per-channel scales (four
+    warpgroups: a weight slab's copies and transpose serve more rows),
+    128-row tiles from m = 128, else 64-row tiles, one block an SM (its
+    ring takes up to 225 KB); K is split on slab (and, grouped, group)
+    edges while the tiles leave whole SMs idle, each block taking at least
+    512 rows. The 7B wqkv at M 128 (96 column tiles) stays whole: a split
+    into two would run 192 half blocks in 1.45 waves, no sooner."""
+    wm = 4 if m >= 256 and group >= k else 2 if m >= 128 else 1
+    tiles = -(-n // MMA_BN) * -(-m // (64 * wm))
+    chunks = max(1, min(SM_COUNT // tiles, k // W8A8_MIN_K))
+    unit = W8A8_BK if group >= k else math.lcm(W8A8_BK, group)
+    per = -(-k // chunks)
+    return wm, -(-per // unit) * unit
 
 
 def int4_mma_split(kp: int, n: int) -> int:
@@ -471,20 +511,48 @@ def quantized_matmul_w8a8(x: torch.Tensor, q: torch.Tensor,
         raise ValueError("x, q and scales must share a device")
     ql, sl = ql.contiguous(), sl.contiguous()
     xi, xs = quantize_activations_int8(_rows(x, k))
-    m = xi.shape[0]
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m == 0:
-        return out.reshape(*x.shape[:-1], n)
-    lib = cuda_build.load()
-    rc = lib.sli_quantized_matmul_w8a8(
-        xi.data_ptr(), xs.data_ptr(), ql.data_ptr(), sl.data_ptr(),
-        out.data_ptr(), m, k, n, gs, cuda_build.dtype_code(out_dtype),
-        int(n % 4 == 0 and ql.data_ptr() % 4 == 0),
-        int(k % 16 == 0 and xi.data_ptr() % 16 == 0),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(lib, rc, "quantized_matmul_w8a8")
-    quantized_matmul_w8a8.launches += 1
+    out = w8a8_codes_launch(xi, xs, ql, sl, out_dtype)
     return out.reshape(*x.shape[:-1], n)
+
+
+def w8a8_codes_launch(xi: torch.Tensor, xs: torch.Tensor, q: torch.Tensor,
+                      scales: torch.Tensor, out_dtype) -> torch.Tensor:
+    """Kernel 15 on activation codes already made: xi [M, K] int8 and xs
+    [M, 1] f32 from :func:`quantize_activations_int8`, q [K, N] int8 and
+    scales [K // G, N] f32 contiguous on the card. Launches the kernel
+    :func:`w8a8_regime` picks and counts it (in
+    ``quantized_matmul_w8a8.launches`` and :data:`W8A8_REGIME_LAUNCHES`);
+    :func:`quantized_matmul_w8a8` is the quantize ops and this."""
+    m, k = xi.shape
+    n = q.shape[1]
+    gs = k // scales.shape[0]
+    out = torch.empty((m, n), dtype=out_dtype, device=xi.device)
+    if m == 0:
+        return out
+    regime = w8a8_regime(m, k, n, gs)
+    lib = cuda_build.load()
+    stream = torch.cuda.current_stream(xi.device).cuda_stream
+    if regime == "wgmma":
+        if q.data_ptr() % 16:     # the 16-byte copies
+            q = q.clone()
+        wm, kch = w8a8_split(m, k, n, gs)
+        chunks = -(-k // kch)
+        work = torch.empty((chunks * m * n if chunks > 1 else 0,),
+                           dtype=torch.int32, device=xi.device)
+        rc = lib.sli_quantized_matmul_w8a8_wgmma(
+            xi.data_ptr(), xs.data_ptr(), q.data_ptr(), scales.data_ptr(),
+            out.data_ptr(), work.data_ptr() if chunks > 1 else 0, m, k, n,
+            gs, kch, wm, cuda_build.dtype_code(out_dtype), stream)
+    else:
+        rc = lib.sli_quantized_matmul_w8a8(
+            xi.data_ptr(), xs.data_ptr(), q.data_ptr(), scales.data_ptr(),
+            out.data_ptr(), m, k, n, gs, cuda_build.dtype_code(out_dtype),
+            int(n % 4 == 0 and q.data_ptr() % 4 == 0),
+            int(k % 16 == 0 and xi.data_ptr() % 16 == 0), stream)
+    cuda_build.check(lib, rc, f"quantized_matmul_w8a8 ({regime})")
+    quantized_matmul_w8a8.launches += 1
+    W8A8_REGIME_LAUNCHES[regime] += 1
+    return out
 
 
 quantized_matmul_w8a8.launches = 0

@@ -471,21 +471,79 @@ def test_fused_qkv_append_many_rows(cuda):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("m", [3, 8, 40])
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 40, 64])
 def test_fused_ffn(cuda, dtype, m):
+    # bf16 rows take the tensor-core regime (H 512, I 1408: multiples of
+    # 64), f32 rows the FMA kernels
     g = torch.Generator(device=cuda).manual_seed(m)
     L, h, inter = 2, 512, 1408
     q1, s1 = _qw(g, cuda, (L, h, 2 * inter), 1)
     q2, s2 = _qw(g, cuda, (L, inter, h), 1)
     nw = torch.rand((L, h), generator=g, device=cuda).to(dtype) + 0.5
     x = torch.randn((m, h), generator=g, device=cuda).to(dtype)
-    before = ff.fused_ffn.launches
+    regime = ff.ffn_regime(m, h, inter, dtype)
+    assert regime == ("mma" if dtype == torch.bfloat16 else "fma")
+    before = (ff.fused_ffn.launches, dict(ff.FFN_REGIME_LAUNCHES))
     got = ff.fused_ffn(x, nw, q1, s1, q2, s2, 1)
-    assert ff.fused_ffn.launches == before + 1
+    assert ff.fused_ffn.launches == before[0] + 1
+    assert ff.FFN_REGIME_LAUNCHES == {r: c + (r == regime)
+                                      for r, c in before[1].items()}
     want = ff.fused_ffn_ref(x, nw, q1, s1, q2, s2, 1)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     sd = float(want.float().std())
     assert float((got.float() - want.float()).abs().max()) <= tol * sd
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 40, 64])
+@pytest.mark.parametrize("h,inter", [(4096, 11008), (4096, 14336),
+                                     (480, 1400)],
+                         ids=["llama2-7b", "mistral-7b", "h480-fma"])
+def test_fused_ffn_tensor_core_regime(cuda, h, inter, m):
+    # bf16 rows at the 7B widths (K split over blocks, the last block at a
+    # column tile finishing it) and at widths off a multiple of 64 (the
+    # FMA kernels); the fused tolerance of test_fused_ffn. Scales as
+    # bench.py draws them (K^-0.5 / 127, times 0.5-1.5): with _qw's 1e-2
+    # the FFN's output at 7B width reaches 5e5, where one bf16 ulp (of a
+    # summation-order flip) is 4096, above 2e-2 of the output's std
+    g = torch.Generator(device=cuda).manual_seed(m + h + inter)
+    q1, s1 = _qw(g, cuda, (2, h, 2 * inter), 1)
+    q2, s2 = _qw(g, cuda, (2, inter, h), 1)
+    s1 = s1 * (h ** -0.5 / 127 / 1e-2)
+    s2 = s2 * (inter ** -0.5 / 127 / 1e-2)
+    nw = (torch.rand((2, h), generator=g, device=cuda) + 0.5).to(
+        torch.bfloat16)
+    x = torch.randn((m, h), generator=g, device=cuda).to(torch.bfloat16)
+    regime = ff.ffn_regime(m, h, inter, torch.bfloat16)
+    assert regime == ("fma" if h % 64 or inter % 64 else "mma")
+    before = dict(ff.FFN_REGIME_LAUNCHES)
+    got = ff.fused_ffn(x, nw, q1, s1, q2, s2, 1)
+    assert ff.FFN_REGIME_LAUNCHES == {r: c + (r == regime)
+                                      for r, c in before.items()}
+    want = ff.fused_ffn_ref(x, nw, q1, s1, q2, s2, 1)
+    sd = float(want.float().std())
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2 * sd
+
+
+def test_fused_ffn_tensor_core_graph_replay(cuda):
+    # the K-split grids' arrival counters are left at zero by every launch:
+    # replays of a captured call (and eager calls between them) give the
+    # eager output bit for bit
+    g = torch.Generator(device=cuda).manual_seed(11)
+    h, inter, m = 4096, 11008, 8
+    q1, s1 = _qw(g, cuda, (1, h, 2 * inter), 1)
+    q2, s2 = _qw(g, cuda, (1, inter, h), 1)
+    nw = torch.ones((1, h), device=cuda, dtype=torch.bfloat16)
+    x = torch.randn((m, h), generator=g, device=cuda).to(torch.bfloat16)
+    eager = ff.fused_ffn(x, nw, q1, s1, q2, s2, 0)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ff.fused_ffn(x, nw, q1, s1, q2, s2, 0)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert torch.equal(ff.fused_ffn(x, nw, q1, s1, q2, s2, 0), eager)
 
 
 def _int8_params(cfg, seed, device):
@@ -1146,19 +1204,36 @@ def test_quantized_matmul_int4_tensor_core_regimes(cuda, m, k, n, groups, zs,
     (129, 200, 40, 1, torch.float32, torch.float32),            # K % 16
     (256, 1000, 136, 125, torch.float32, torch.float32),        # groups of 8
     (130, 256, 70, 2, torch.float32, torch.bfloat16),           # N % 4
+    # the int8 tensor cores at M 128, 300 and 1024, per channel and group
+    # 128, K split (wo, down at M 128) and not; group 64: the dp4a kernel
+    (128, 4096, 12288, 1, torch.bfloat16, torch.bfloat16),      # wqkv
+    (128, 11008, 4096, 86, torch.bfloat16, torch.float32),      # down g128
+    (300, 4096, 4096, 1, torch.float32, torch.bfloat16),        # ragged M
+    (300, 4096, 4096, 32, torch.bfloat16, torch.bfloat16),      # group 128
+    (1024, 4096, 4096, 1, torch.bfloat16, torch.float32),       # wo
+    (1024, 11008, 4096, 86, torch.bfloat16, torch.bfloat16),    # down g128
+    (1024, 4096, 4096, 64, torch.bfloat16, torch.bfloat16),     # group 64
+    (64, 4096, 4096, 1, torch.bfloat16, torch.bfloat16),        # 64-row tiles
 ])
 def test_quantized_matmul_w8a8(cuda, m, k, n, groups, xdt, odt):
     g = torch.Generator(device=cuda).manual_seed(m + k)
     q, s = _qw(g, cuda, (2, k, n), groups)
     x = torch.randn((m, k), generator=g, device=cuda).to(xdt)
     x[3] = 0.0                                  # the 1e-10 row-scale floor
-    before = mm.quantized_matmul_w8a8.launches
+    regime = mm.w8a8_regime(m, k, n, k // groups)
+    before = (mm.quantized_matmul_w8a8.launches,
+              dict(mm.W8A8_REGIME_LAUNCHES))
     got = mm.quantized_matmul_w8a8(x, q, s, out_dtype=odt, layer=1)
-    assert mm.quantized_matmul_w8a8.launches == before + 1
+    assert mm.quantized_matmul_w8a8.launches == before[0] + 1
+    assert mm.W8A8_REGIME_LAUNCHES == {r: c + (r == regime)
+                                       for r, c in before[1].items()}
     want = mm.quantized_matmul_w8a8_ref(x, q, s, out_dtype=odt, layer=1)
     assert got.dtype == odt and got.shape == (m, n)
     assert not got[3].any()
     assert _close(got, want, odt)
+    if regime == "wgmma" and groups == 1:
+        # exact integer sums, the plain version's two f32 products
+        assert torch.equal(got, want)
 
 
 def test_int4_and_activation_quantizers_card_match_cpu(cuda):
