@@ -59,7 +59,15 @@ Phases, in order; any failure exits non-zero:
                 Llama-2-7B and Mistral-7B widths, m = 8, and an
                 oversubscribed cooperative grid refused) and 17
                 (flash_decode_dyn at the `dense` arena, bk 128 and 256
-                equal), which no path runs. Every form of the decode
+                equal), which no path runs. Every bf16 case of the fused
+                qkv (6, 6d, 6q, 6k: 7B at 1, 8 and 64 rows, an unmapped
+                row, TinyLlama's GQA, Mistral's kv_layer, the dense
+                arena's edges) runs its tensor-core regime (6m) and is
+                timed beside the FMA kernel it replaces (forced, the same
+                inputs), the main cases also over weight copies past the
+                L2; so is kernel 5's few-rows regime (5r: the decode wo
+                and head at 1 and 8 rows, an odd 64-column group), with
+                its K-split cap swept at the wo. Every form of the decode
                 attention kernel (4*, 13) is held to one bf16 ulp of each
                 output (+ 1e-5 of the largest), with split-edge cases
                 (kv_len 0, 1, each boundary of the key splits +- 1, a dead
@@ -86,7 +94,10 @@ Phases, in order; any failure exits non-zero:
                 plain version may run on the card. Decode tokens/s from the
                 median walls of interleaved 32- and 16-token runs, after a
                 32-token warm-up, and one graph-replayed decode step beside
-                its bytes floor. Then the `prefix` path, the server's
+                its bytes floor (the INT8 path's also split by kernel,
+                torch.profiler); every path's regime counts of kernels 5,
+                6, 7 and 15 held too (no few-row FMA product, no FMA qkv on
+                a bf16 path). Then the `prefix` path, the server's
                 default configuration (prefix cache on, 16 entries) with
                 prefill_chunk 256 and INT8 weights: a 512-token system
                 prompt + 64-token suffixes, one request (3 chunks), 7
@@ -225,8 +236,19 @@ KERNELS = {
     "quantized_matmul_mma": dict(
         source="simplellminference_tpu_torch/csrc/quantized_matmul_mma.cu",
         replaces="simplellminference_tpu/ops/matmul.py:522"),
+    # its few-rows tensor-core regime (M <= 8, bf16 activations, per-channel
+    # scales, K and N multiples of 64: mma.sync; 5r): its launches apart
+    "quantized_matmul_rows_mma": dict(
+        source="simplellminference_tpu_torch/csrc/quantized_matmul_rows_mma.cu",
+        replaces="simplellminference_tpu/ops/matmul.py:522"),
     "fused_qkv_append": dict(
         source="simplellminference_tpu_torch/csrc/qkv_fused.cu",
+        replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
+    # kernel 6's tensor-core regime (bf16 rows, H a multiple of 64, the qkv
+    # columns of 128: mma.sync; 6m), its four forms together (6, 6d, 6q,
+    # 6k): its launches apart; each form's row counts every call of it
+    "fused_qkv_append_mma": dict(
+        source="simplellminference_tpu_torch/csrc/qkv_fused_mma.cu",
         replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
     "fused_ffn": dict(
         source="simplellminference_tpu_torch/csrc/ffn_fused.cu",
@@ -443,7 +465,9 @@ MMA_KERNELS = {"flash_prefill_mma_kernel": "HGMMA",
                "qmm4_mma_rows_kernel": "HMMA",
                "qmm_w8a8_wgmma_kernel": "IGMMA",
                "ffn_gate_up_mma_kernel": "HMMA",
-               "ffn_down_mma_kernel": "HMMA"}
+               "ffn_down_mma_kernel": "HMMA",
+               "qkv_fused_mma_kernel": "HMMA",
+               "qmm_rows_mma_kernel": "HMMA"}
 
 
 def print_hgmma(lib: Path) -> None:
@@ -774,6 +798,35 @@ def _int8pack(torch, q, s, dtype):
     return q.t().contiguous(), s.reshape(-1).to(dtype).contiguous()
 
 
+class _Forced:
+    """Within the block, ``module.name`` (a regime chooser) returns
+    ``regime`` where it would return ``instead``: a kernel's FMA regime
+    timed on the inputs its tensor-core regime takes, in the same call."""
+
+    def __init__(self, module, name: str, instead: str, regime: str):
+        self.module, self.name = module, name
+        self.instead, self.regime = instead, regime
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def chooser(*a, **kw):
+            r = self.orig(*a, **kw)
+            return self.regime if r == self.instead else r
+        setattr(self.module, self.name, chooser)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _rotating(fn, copies: int):
+    """``fn(layer)`` over layers 0 .. copies - 1 in turn, one a call: each
+    call reads the next copy of the weights, so a set of copies past the
+    50 MB L2 is read from device memory."""
+    turn = iter(range(1 << 30))
+    return lambda: fn(next(turn) % copies)
+
+
 def check_quantized_matmul(torch, dev, results, extra):
     from simplellminference_tpu_torch.ops import matmul as mm
     from simplellminference_tpu_torch.ops.matmul import (
@@ -784,12 +837,18 @@ def check_quantized_matmul(torch, dev, results, extra):
     # are timed: the 7B main paths' calls (wo and the LM head per decode
     # step, wqkv at the 8 x 128-token prefill, wqkv, wo and the LM head of
     # a spec_int8kv verify step at 8 x 5 rows), `mistral_window`'s chunk
-    # of 256 rows (wqkv, gate_up, down) and wo at M 16, 64 and 65; the
-    # first is the row of the few-rows and FMA regimes, the prefill wqkv
-    # the row of the tensor-core regime (quantized_matmul_mma)
+    # of 256 rows (wqkv, gate_up, down) and wo at M 16, 64 and 65; so are
+    # the few-rows tensor-core regime's cases (rmma: wo and the head at M 8
+    # and 1), each also on the FMA kernel it replaces (forced, the same
+    # inputs) and over weight copies past the L2. The 7B wo decode is the
+    # row of 5r and, forced, of the FMA kernels (quantized_matmul); the
+    # prefill wqkv the row of the wgmma regime (quantized_matmul_mma)
     cases = {
         "llama2-7b wo decode": (8, 4096, 4096, 1, bf, bf),
         "llama2-7b lm_head decode": (8, 4096, 32000, 1, bf, f32),
+        "llama2-7b wo m1": (1, 4096, 4096, 1, bf, bf),
+        "llama2-7b lm_head m1": (1, 4096, 32000, 1, bf, f32),
+        "n4160 decode (odd 64-column group)": (8, 4096, 4160, 1, bf, bf),
         "llama2-7b wqkv prefill": (1024, 4096, 12288, 1, bf, bf),
         "llama2-7b wqkv verify": (40, 4096, 12288, 1, bf, bf),
         "llama2-7b wo verify": (40, 4096, 4096, 1, bf, bf),
@@ -810,34 +869,30 @@ def check_quantized_matmul(torch, dev, results, extra):
         "k1000 prefill group125": (100, 1000, 2048, 8, bf, f32),
         "f32 prefill": (100, 1024, 1024, 1, f32, f32),
     }
-    timed = list(cases)[:12]
+    timed = list(cases)[:15]
     for tag, (m, k, n, groups, xdt, odt) in cases.items():
         q, s = _qweight(torch, gen, dev, (2, k, n), groups)
         x = torch.randn((m, k), generator=gen, device=dev).to(xdt)
+        regime = mm.tiled_regime(m, k, n, k // groups, xdt)
         got = quantized_matmul(x, q, s, out_dtype=odt, layer=1)
         want = quantized_matmul_ref(x, q, s, out_dtype=odt, layer=1)
         torch.cuda.synchronize()
-        err = max_err(got, want)
-        diff = (got.float() - want.float()).abs()
-        if odt == torch.float32:
-            lim = F32_REL * float(want.abs().max())
-            ok = err <= lim
-            rule = f"tol {lim:.3e} = {F32_REL:g} x max|out|"
-        else:
-            # one bf16 ulp of each output, beyond the f32 summation
-            # difference (which decides the rounding of outputs near 0)
-            ulp = _bf16_ulp(torch, torch.maximum(got.float().abs(),
-                                                 want.float().abs()))
-            slack = F32_REL * float(want.float().abs().max())
-            ok = bool((diff <= ulp + slack).all())
-            rule = (f"tol one bf16 ulp of each output + {slack:.3e} = "
-                    f"{F32_REL:g} x max|out|")
-        regime = mm.tiled_regime(m, k, n, k // groups, xdt)
+        ok, err, rule = _matmul_rule(torch, got, want, odt)
         print(f"[kernels] quantized_matmul {tag} (m={m} k={k} n={n} "
               f"groups={groups}, {regime}): max|err| {err:.3e} ({rule})",
               flush=True)
         require(bool(torch.isfinite(got).all()) and ok,
                 f"quantized_matmul {tag} disagrees: {err}")
+        if regime == "rmma":
+            # the FMA kernel 5r replaces, on the same inputs
+            with _Forced(mm, "tiled_regime", "rmma", "rows"):
+                got_f = quantized_matmul(x, q, s, out_dtype=odt, layer=1)
+            torch.cuda.synchronize()
+            ok_f, err_f, _ = _matmul_rule(torch, got_f, want, odt)
+            print(f"[kernels] quantized_matmul {tag} (rows, forced): "
+                  f"max|err| {err_f:.3e}", flush=True)
+            require(bool(torch.isfinite(got_f).all()) and ok_f,
+                    f"quantized_matmul {tag} (rows) disagrees: {err_f}")
         if tag not in timed:
             continue
         es = x.element_size()
@@ -863,22 +918,125 @@ def check_quantized_matmul(torch, dev, results, extra):
             plain_ms=time_ms(torch, lambda: quantized_matmul_ref(
                 x, q, s, out_dtype=odt, layer=1), iters=5),
             library_ms=time_ms(torch, library),
-            bound_ms=bms, bound_by=by, library=lib_name)
-        name = "quantized_matmul" + "_mma" * (regime == "mma")
+            bound_ms=bms, bound_by=by, library=lib_name, regime=regime)
+        name = {"mma": "quantized_matmul_mma",
+                "rmma": "quantized_matmul_rows_mma"}.get(regime,
+                                                         "quantized_matmul")
+        if regime == "rmma":
+            _time_rows_mma(torch, gen, dev, mm, tag, (m, k, n, odt), x, q, s,
+                           r, err_f, results, extra)
         extra.append((name, tag, r))
         results.setdefault(name, r)
 
 
+def _time_rows_mma(torch, gen, dev, mm, tag, shape, x, q, s, r, err_f,
+                   results, extra):
+    """5r's case beside the FMA kernel it replaces (forced, same inputs),
+    both also over weight copies past the L2; at the 7B wo, its time at
+    each cap of the K split (ROWS_MMA_MAX_SPLIT, the reason for its
+    value)."""
+    from simplellminference_tpu_torch.ops.matmul import quantized_matmul
+    m, k, n, odt = shape
+    copies = max(2, int(2 * L2_BYTES // (k * n)) + 1)
+    qr, sr = _qweight(torch, gen, dev, (copies, k, n), 1)
+
+    def call(layer, q=q, s=s):
+        return quantized_matmul(x, q, s, out_dtype=odt, layer=layer)
+
+    def cold(layer):
+        return call(layer, qr, sr)
+    r["cold_ms"] = time_ms(torch, _rotating(cold, copies))
+    with _Forced(mm, "tiled_regime", "rmma", "rows"):
+        fma = dict(r, max_abs_err=err_f, regime="rows (forced)",
+                   ms=time_ms(torch, lambda: call(1)),
+                   cold_ms=time_ms(torch, _rotating(cold, copies)))
+    print(f"[kernels] quantized_matmul {tag}: rmma {r['ms']:.6g} ms, "
+          f"{r['cold_ms']:.6g} over {copies} weight copies "
+          f"({copies * k * n / 1e6:.1f} MB, past the L2); the FMA kernel "
+          f"(rows, forced) {fma['ms']:.6g}, {fma['cold_ms']:.6g}; bound "
+          f"{r['bound_ms']:.6g}; library {r['library_ms']:.6g}", flush=True)
+    extra.append(("quantized_matmul", tag + ", rows forced", fma))
+    results.setdefault("quantized_matmul", fma)
+    if tag != "llama2-7b wo decode":
+        return
+    cap0, min0 = mm.ROWS_MMA_MAX_SPLIT, mm.ROWS_MMA_MIN_K
+    try:
+        for cap, min_k in ((4, 256), (8, 256), (16, 256), (32, 128)):
+            mm.ROWS_MMA_MAX_SPLIT, mm.ROWS_MMA_MIN_K = cap, min_k
+            print(f"[kernels] quantized_matmul {tag} rmma, K split cap "
+                  f"{cap} (min {min_k} rows: {mm.rows_mma_split(m, k, n)} "
+                  f"rows a block): {time_ms(torch, lambda: call(1)):.6g} "
+                  f"ms, {time_ms(torch, _rotating(cold, copies)):.6g} over "
+                  f"the copies", flush=True)
+    finally:
+        mm.ROWS_MMA_MAX_SPLIT, mm.ROWS_MMA_MIN_K = cap0, min0
+
+
+def _time_qkv(torch, form, tag, call, plain, q_ref, nbytes, ops, dtype,
+              lib_w, results, extra, err, cold=None):
+    """Times a fused qkv case on the tensor-core regime (6m: the wrapper,
+    as the path calls it) and, forced on the same inputs, on the FMA kernel
+    it replaces (whose q is held to the plain version's by the case's
+    rule first), beside the plain version, the library call on the qkv
+    product alone and, with ``cold`` (``call`` over weight copies past the
+    L2), both again. The form's row takes the FMA kernel's first case,
+    ``fused_qkv_append_mma`` 6m's first."""
+    from simplellminference_tpu_torch.ops import qkv_fused as qf
+    bms, by = bound_ms(nbytes, ops, dtype)
+    x, qt, st = lib_w
+    r = dict(max_abs_err=err, ms=time_ms(torch, call),
+             plain_ms=time_ms(torch, plain),
+             library_ms=time_ms(torch, lambda: torch._weight_int8pack_mm(
+                 x, qt, st)),
+             bound_ms=bms, bound_by=by, regime="mma")
+    if cold is not None:
+        r["cold_ms"] = time_ms(torch, cold)
+    with _Forced(qf, "qkv_regime", "mma", "fma"):
+        q_f = call()[0]
+        torch.cuda.synchronize()
+        err_f = max_err(q_f, q_ref)
+        lim = TOL["bfloat16"] * float(q_ref.float().std())
+        require(bool(torch.isfinite(q_f).all()) and err_f <= lim,
+                f"{form} {tag} (fma, forced) disagrees: {err_f}")
+        fma = dict(r, max_abs_err=err_f, regime="fma (forced)",
+                   ms=time_ms(torch, call))
+        if cold is not None:
+            fma["cold_ms"] = time_ms(torch, cold)
+    cold_txt = ("" if cold is None else f" ({r['cold_ms']:.6g} and "
+                f"{fma['cold_ms']:.6g} over weight copies past the L2)")
+    print(f"[kernels] {form} {tag}: 6m (mma) {r['ms']:.6g} ms, the FMA "
+          f"kernel (forced) {fma['ms']:.6g}{cold_txt}; bound "
+          f"{bms:.6g}; library {r['library_ms']:.6g}; plain "
+          f"{r['plain_ms']:.6g}", flush=True)
+    extra.append(("fused_qkv_append_mma", f"{form} {tag}", r))
+    extra.append((form, f"{tag}, fma forced", fma))
+    results.setdefault("fused_qkv_append_mma", r)
+    results.setdefault(form, fma)
+
+
+def _qkv_nbytes(h, nq, b, n, kvn, d, xes, nwes, kv_row, extra=0):
+    """Bytes a fused qkv call must move: the weight and its scales, x, the
+    norm weight, sin/cos, q out, the k/v rows (``kv_row`` bytes each) and
+    the tables or positions (``extra``)."""
+    return (h * nq + nq * 4 + b * h * xes + h * nwes + 2 * b * (d // 2) * 4
+            + b * n * d * xes + 2 * b * kvn * kv_row + extra)
+
+
 def check_fused_qkv(torch, dev, results, extra):
+    from simplellminference_tpu_torch.ops import qkv_fused as qf
     from simplellminference_tpu_torch.ops import ref_ops
     from simplellminference_tpu_torch.ops.qkv_fused import (
         fused_qkv_append, fused_qkv_append_ref)
     gen = torch.Generator(device=dev).manual_seed(6)
     bf, f32 = torch.bfloat16, torch.float32
-    # tag: (b, h, n, kvn, d, activation dtype, pool dtype, unmapped row)
+    # tag: (b, h, n, kvn, d, activation dtype, pool dtype, unmapped row);
+    # every bf16 case is timed on 6m and on the FMA kernel, the first also
+    # over weight copies past the L2
     cases = {
         "llama2-7b": (8, 4096, 32, 32, 128, bf, bf, False),
         "llama2-7b unmapped row": (8, 4096, 32, 32, 128, bf, bf, True),
+        "llama2-7b m1": (1, 4096, 32, 32, 128, bf, bf, False),
+        "llama2-7b m64": (64, 4096, 32, 32, 128, bf, bf, True),
         "tinyllama-gqa f32": (8, 2048, 32, 4, 64, f32, f32, True),
         "tinyllama-gqa bf16": (5, 2048, 32, 4, 64, bf, bf, False),
     }
@@ -893,7 +1051,8 @@ def check_fused_qkv(torch, dev, results, extra):
         tables = _tables(torch, dev, b, mp, dead_last=False)
         pos = (128 + 4 * torch.arange(b, device=dev)).to(torch.int32)
         if unmapped:
-            tables[-1, 1] = -1          # the last row writes to the trash
+            # the last row's page unmapped: its write goes to the trash
+            tables[-1, int(pos[-1]) // ps] = -1
         sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
         a, r = (pk.clone(), pv.clone()), (pk.clone(), pv.clone())
         qa, *_ = fused_qkv_append(x, nw, wq, ws, sin, cos, *a, layer, pos,
@@ -919,33 +1078,38 @@ def check_fused_qkv(torch, dev, results, extra):
             lim_q = TOL["bfloat16"] * float(qr.float().std())
             lim_kv = TOL["bfloat16"] * max(float(tr[written].float().std())
                                            for tr in r)
-        print(f"[kernels] fused_qkv_append {tag}: q max|err| {err:.3e} "
-              f"(tol {lim_q:.3e}); k/v rows {kv_err:.3e} (tol "
+        regime = qf.qkv_regime(b, h, nq, d, xdt)
+        print(f"[kernels] fused_qkv_append {tag} ({regime}): q max|err| "
+              f"{err:.3e} (tol {lim_q:.3e}); k/v rows {kv_err:.3e} (tol "
               f"{lim_kv:.3e}); other pool entries equal: {untouched}",
               flush=True)
         require(bool(torch.isfinite(qa).all()) and err <= lim_q
                 and kv_err <= lim_kv and untouched,
                 f"fused_qkv_append {tag} disagrees: {err}, {kv_err}, "
                 f"{untouched}")
-        if "fused_qkv_append" in results:
+        if regime != "mma":
             continue
-        es, pes = x.element_size(), pk.element_size()
-        nbytes = (h * nq + nq * 4 + b * h * es + h * nw.element_size()
-                  + 2 * b * (d // 2) * 4 + b * n * d * es
-                  + 2 * b * kvn * d * pes + tables.numel() * 4 + b * 4)
-        bms, by = bound_ms(nbytes, 2.0 * b * h * nq, dname(torch, xdt))
+        nbytes = _qkv_nbytes(h, nq, b, n, kvn, d, x.element_size(),
+                             nw.element_size(), d * pk.element_size(),
+                             tables.numel() * 4 + b * 4)
         qt, st = _int8pack(torch, wq[layer], ws[layer], xdt)
-        results["fused_qkv_append"] = dict(
-            max_abs_err=max(err, kv_err),
-            ms=time_ms(torch, lambda: fused_qkv_append(
-                x, nw, wq, ws, sin, cos, *a, layer, pos, n_heads=n,
-                kv_heads=kvn, tables=tables)),
-            plain_ms=time_ms(torch, lambda: fused_qkv_append_ref(
-                x, nw, wq, ws, sin, cos, *r, layer, pos, n_heads=n,
-                kv_heads=kvn, tables=tables)),
-            library_ms=time_ms(torch, lambda: torch._weight_int8pack_mm(
-                x, qt, st)),
-            bound_ms=bms, bound_by=by)
+        cold = None
+        copies = max(2, int(2 * L2_BYTES // (h * nq)) + 1)
+        if tag == "llama2-7b" and copies <= pk.shape[0]:
+            wc, sc = _qweight(torch, gen, dev, (copies, h, nq), 1)
+            nwc = nw[layer].expand(copies, h).contiguous()
+            cold = _rotating(lambda li: fused_qkv_append(
+                x, nwc, wc, sc, sin, cos, *a, li, pos, n_heads=n,
+                kv_heads=kvn, tables=tables), copies)
+        _time_qkv(torch, "fused_qkv_append", tag,
+                  lambda: fused_qkv_append(
+                      x, nw, wq, ws, sin, cos, *a, layer, pos, n_heads=n,
+                      kv_heads=kvn, tables=tables),
+                  lambda: fused_qkv_append_ref(
+                      x, nw, wq, ws, sin, cos, *r, layer, pos, n_heads=n,
+                      kv_heads=kvn, tables=tables),
+                  qr, nbytes, 2.0 * b * h * nq, dname(torch, xdt),
+                  (x, qt, st), results, extra, max(err, kv_err), cold)
 
 
 def check_fused_ffn(torch, dev, results, extra):
@@ -1015,8 +1179,8 @@ def check_fused_ffn(torch, dev, results, extra):
 
 def print_kernel_split(torch, tag: str, fn, calls: int = 20) -> None:
     """Device time of each CUDA kernel one call of ``fn`` launches, from
-    ``torch.profiler`` over ``calls`` calls (the 7m FFN's three launches:
-    where its time goes)."""
+    ``torch.profiler`` over ``calls`` calls (the 7m FFN's three launches,
+    or every kernel of a decode step: where its time goes)."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -1386,14 +1550,18 @@ def check_paged_prefill_int8kv(torch, dev, results, extra):
 
 
 def check_fused_qkv_int8kv(torch, dev, results, extra):
+    from simplellminference_tpu_torch.ops import qkv_fused as qf
     from simplellminference_tpu_torch.ops import ref_ops
     from simplellminference_tpu_torch.ops.qkv_fused import (
         fused_qkv_append_int8kv, fused_qkv_append_ref)
     gen = torch.Generator(device=dev).manual_seed(15)
     bf, f32 = torch.bfloat16, torch.float32
+    # every bf16 case is timed on 6m and on the FMA kernel
     cases = {
         "llama2-7b": (8, 4096, 32, 32, 128, bf, False),
         "llama2-7b unmapped row": (8, 4096, 32, 32, 128, bf, True),
+        "llama2-7b m1": (1, 4096, 32, 32, 128, bf, False),
+        "llama2-7b m64": (64, 4096, 32, 32, 128, bf, True),
         "tinyllama-gqa f32": (8, 2048, 32, 4, 64, f32, True),
         "tinyllama-gqa bf16": (5, 2048, 32, 4, 64, bf, False),
     }
@@ -1408,7 +1576,8 @@ def check_fused_qkv_int8kv(torch, dev, results, extra):
         tables = _tables(torch, dev, b, mp, dead_last=False)
         pos = (128 + 4 * torch.arange(b, device=dev)).to(torch.int32)
         if unmapped:
-            tables[-1, 1] = -1          # the last row writes to the trash
+            # the last row's page unmapped: its write goes to the trash
+            tables[-1, int(pos[-1]) // ps] = -1
         sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
         a, r = [p.clone() for p in pools], [p.clone() for p in pools]
         qa, *_ = fused_qkv_append_int8kv(x, nw, wq, ws, sin, cos, *a, layer,
@@ -1448,34 +1617,33 @@ def check_fused_qkv_int8kv(torch, dev, results, extra):
                         for ta, tr in zip(a[:2], r[:2])) and all(
             torch.equal(sa[~written], sr[~written])
             for sa, sr in zip(a[2:], r[2:]))
-        print(f"[kernels] fused_qkv_append_int8kv {tag}: q max|err| "
-              f"{err:.3e} (tol {lim_q:.3e}); k/v codes at most {code_d} "
-              f"apart (tol 1), {share:.3e} of them differ; scales max|err| "
-              f"{s_err:.3e} (tol {s_rule}): {s_ok}; other entries equal: "
-              f"{untouched}", flush=True)
+        regime = qf.qkv_regime(b, h, nq, d, xdt)
+        print(f"[kernels] fused_qkv_append_int8kv {tag} ({regime}): q "
+              f"max|err| {err:.3e} (tol {lim_q:.3e}); k/v codes at most "
+              f"{code_d} apart (tol 1), {share:.3e} of them differ; scales "
+              f"max|err| {s_err:.3e} (tol {s_rule}): {s_ok}; other entries "
+              f"equal: {untouched}", flush=True)
         require(bool(torch.isfinite(qa).all()) and err <= lim_q
                 and code_d <= 1 and s_ok and untouched,
                 f"fused_qkv_append_int8kv {tag} disagrees: {err}, {code_d}, "
                 f"{s_ok}, {untouched}")
-        if "fused_qkv_append_int8kv" in results:
+        if regime != "mma":
             continue
-        es = x.element_size()
-        nbytes = (h * nq + nq * 4 + b * h * es + h * nw.element_size()
-                  + 2 * b * (d // 2) * 4 + b * n * d * es
-                  + 2 * b * kvn * (d + 4) + tables.numel() * 4 + b * 4)
-        bms, by = bound_ms(nbytes, 2.0 * b * h * nq, dname(torch, xdt))
+        nbytes = _qkv_nbytes(h, nq, b, n, kvn, d, x.element_size(),
+                             nw.element_size(), d + 4,
+                             tables.numel() * 4 + b * 4)
         qt, st = _int8pack(torch, wq[layer], ws[layer], xdt)
-        results["fused_qkv_append_int8kv"] = dict(
-            max_abs_err=max(err, float(code_d), s_err),
-            ms=time_ms(torch, lambda: fused_qkv_append_int8kv(
-                x, nw, wq, ws, sin, cos, *a, layer, pos, n_heads=n,
-                kv_heads=kvn, tables=tables)),
-            plain_ms=time_ms(torch, lambda: fused_qkv_append_ref(
-                x, nw, wq, ws, sin, cos, r[0], r[1], layer, pos, n_heads=n,
-                kv_heads=kvn, tables=tables, cache_ks=r[2], cache_vs=r[3])),
-            library_ms=time_ms(torch, lambda: torch._weight_int8pack_mm(
-                x, qt, st)),
-            bound_ms=bms, bound_by=by)
+        _time_qkv(torch, "fused_qkv_append_int8kv", tag,
+                  lambda: fused_qkv_append_int8kv(
+                      x, nw, wq, ws, sin, cos, *a, layer, pos, n_heads=n,
+                      kv_heads=kvn, tables=tables),
+                  lambda: fused_qkv_append_ref(
+                      x, nw, wq, ws, sin, cos, r[0], r[1], layer, pos,
+                      n_heads=n, kv_heads=kvn, tables=tables, cache_ks=r[2],
+                      cache_vs=r[3]),
+                  qr, nbytes, 2.0 * b * h * nq, dname(torch, xdt),
+                  (x, qt, st), results, extra,
+                  max(err, float(code_d), s_err))
 
 
 def _span_case(torch, gen, dev, b, t, kvn, d, dtype, pos0, quant=False):
@@ -1799,22 +1967,27 @@ def check_flash_decode(torch, dev, results, extra):
         results.setdefault("flash_decode", res)
 
 
-def check_fused_qkv_dense(torch, dev, results):
+def check_fused_qkv_dense(torch, dev, results, extra):
     """Form 6d against its plain version: bench.py's Generator call (7B,
     8 rows into an 8-row bf16 arena, the row), the draft rollout's B + 1
     rows into a (B + 1)-row arena (TinyLlama GQA, f32, a slot at Smax
     dropped), and fewer rows than the arena (bf16)."""
+    from simplellminference_tpu_torch.ops import qkv_fused as qf
     from simplellminference_tpu_torch.ops import ref_ops
     from simplellminference_tpu_torch.ops.qkv_fused import (
         fused_qkv_append_dense, fused_qkv_append_ref)
     gen = torch.Generator(device=dev).manual_seed(33)
     bf, f32 = torch.bfloat16, torch.float32
-    # tag: (B, arena rows, H, N, kvN, D, Smax, dtype, offsets)
+    # tag: (B, arena rows, H, N, kvN, D, Smax, dtype, offsets); every bf16
+    # case is timed on 6m and on the FMA kernel
     cases = {
         "llama2-7b": (8, 8, 4096, 32, 32, 128, 256, bf,
                       [128 + 4 * i for i in range(8)]),
+        "llama2-7b m1": (1, 8, 4096, 32, 32, 128, 256, bf, [255]),
         "draft B+1 f32": (9, 9, 2048, 32, 4, 64, 384, f32,
                           [0, 383, 384, 10, 200, 1, 2, 3, 0]),
+        "draft B+1 bf16 (edges)": (9, 9, 2048, 32, 4, 64, 384, bf,
+                                   [0, 383, 384, 10, 200, 1, 2, 3, 0]),
         "rows < arena bf16": (5, 8, 2048, 32, 4, 64, 384, bf,
                               [7, 0, 100, 383, 50]),
     }
@@ -1851,33 +2024,29 @@ def check_fused_qkv_dense(torch, dev, results):
             lim_q = TOL["bfloat16"] * float(qr.float().std())
             lim_kv = TOL["bfloat16"] * max(float(tr[written].float().std())
                                            for tr in r)
-        print(f"[kernels] fused_qkv_append_dense {tag}: q max|err| "
-              f"{err:.3e} (tol {lim_q:.3e}); k/v rows {kv_err:.3e} (tol "
-              f"{lim_kv:.3e}); other arena entries equal: {untouched}",
+        regime = qf.qkv_regime(b, h, nq, d, dt)
+        print(f"[kernels] fused_qkv_append_dense {tag} ({regime}): q "
+              f"max|err| {err:.3e} (tol {lim_q:.3e}); k/v rows {kv_err:.3e} "
+              f"(tol {lim_kv:.3e}); other arena entries equal: {untouched}",
               flush=True)
         require(bool(torch.isfinite(qa).all()) and err <= lim_q
                 and kv_err <= lim_kv and untouched,
                 f"fused_qkv_append_dense {tag} disagrees: {err}, {kv_err}, "
                 f"{untouched}")
-        if "fused_qkv_append_dense" in results:
+        if regime != "mma":
             continue
-        es, aes = x.element_size(), ck.element_size()
-        nbytes = (h * nq + nq * 4 + b * h * es + h * nw.element_size()
-                  + 2 * b * (d // 2) * 4 + b * n * d * es
-                  + 2 * b * kvn * d * aes + b * 4)
-        bms, by = bound_ms(nbytes, 2.0 * b * h * nq, dname(torch, dt))
+        nbytes = _qkv_nbytes(h, nq, b, n, kvn, d, x.element_size(),
+                             nw.element_size(), d * ck.element_size(), b * 4)
         qt, st = _int8pack(torch, wq[layer], ws[layer], dt)
-        results["fused_qkv_append_dense"] = dict(
-            max_abs_err=max(err, kv_err),
-            ms=time_ms(torch, lambda: fused_qkv_append_dense(
-                x, nw, wq, ws, sin, cos, *a, layer, pos, n_heads=n,
-                kv_heads=kvn)),
-            plain_ms=time_ms(torch, lambda: fused_qkv_append_ref(
-                x, nw, wq, ws, sin, cos, *r, layer, pos, n_heads=n,
-                kv_heads=kvn)),
-            library_ms=time_ms(torch, lambda: torch._weight_int8pack_mm(
-                x, qt, st)),
-            bound_ms=bms, bound_by=by)
+        _time_qkv(torch, "fused_qkv_append_dense", tag,
+                  lambda: fused_qkv_append_dense(
+                      x, nw, wq, ws, sin, cos, *a, layer, pos, n_heads=n,
+                      kv_heads=kvn),
+                  lambda: fused_qkv_append_ref(
+                      x, nw, wq, ws, sin, cos, *r, layer, pos, n_heads=n,
+                      kv_heads=kvn),
+                  qr, nbytes, 2.0 * b * h * nq, dname(torch, dt),
+                  (x, qt, st), results, extra, max(err, kv_err))
 
 
 def _int4_weight(torch, gen, dev, k, n, groups, zs=False, layers=2):
@@ -2523,21 +2692,27 @@ def check_paged_prefill_window(torch, dev, results, extra):
             results.setdefault(name, res)
 
 
-def check_fused_qkv_kv_layer(torch, dev, results):
+def check_fused_qkv_kv_layer(torch, dev, results, extra):
     """Form 6k against its plain version: the `mistral_window` path's
     decode call (4 rows, Mistral's H 4096 and 32/8 heads, ring pools of R
     35, weights of layer 1 writing pool layer 0), and GQA f32 with an
     unmapped row (its write goes to the trash page)."""
+    from simplellminference_tpu_torch.ops import qkv_fused as qf
     from simplellminference_tpu_torch.ops import ref_ops
     from simplellminference_tpu_torch.ops.qkv_fused import (
         fused_qkv_append_kv_layer, fused_qkv_append_ref)
     gen = torch.Generator(device=dev).manual_seed(44)
     bf, f32 = torch.bfloat16, torch.float32
-    # tag: (b, h, n, kvn, d, dtype, positions)
+    # tag: (b, h, n, kvn, d, dtype, positions); every bf16 case is timed on
+    # 6m and on the FMA kernel, the first also over weight copies past the
+    # L2 (the pool layer stays kv_layer)
     cases = {"mistral-7b decode": (4, 4096, 32, 8, 128, bf,
                                    [4400, 4480, 4500, 4542]),
+             "mistral-7b m1": (1, 4096, 32, 8, 128, bf, [4479]),
              "tinyllama-gqa f32": (5, 2048, 32, 4, 64, f32,
-                                   [3, 150, 4000, 300, 1000])}
+                                   [3, 150, 4000, 300, 1000]),
+             "tinyllama-gqa bf16": (5, 2048, 32, 4, 64, bf,
+                                    [3, 150, 4000, 300, 1000])}
     layer, kv_layer = 1, 0
     for tag, (b, h, n, kvn, d, xdt, plist) in cases.items():
         ps = 128
@@ -2579,8 +2754,9 @@ def check_fused_qkv_kv_layer(torch, dev, results):
             lim_q = TOL["bfloat16"] * float(qr.float().std())
             lim_kv = TOL["bfloat16"] * max(float(tr[written].float().std())
                                            for tr in rr)
-        print(f"[kernels] fused_qkv_append_kv_layer {tag} (layer {layer}, "
-              f"pool layer {kv_layer}): q max|err| {err:.3e} (tol "
+        regime = qf.qkv_regime(b, h, nq, d, xdt)
+        print(f"[kernels] fused_qkv_append_kv_layer {tag} ({regime}; layer "
+              f"{layer}, pool layer {kv_layer}): q max|err| {err:.3e} (tol "
               f"{lim_q:.3e}); k/v rows {kv_err:.3e} (tol {lim_kv:.3e}); "
               f"other pool entries (layer {layer} included) equal: "
               f"{untouched}", flush=True)
@@ -2588,25 +2764,29 @@ def check_fused_qkv_kv_layer(torch, dev, results):
                 and kv_err <= lim_kv and untouched,
                 f"fused_qkv_append_kv_layer {tag} disagrees: {err}, "
                 f"{kv_err}, {untouched}")
-        if "fused_qkv_append_kv_layer" in results:
+        if regime != "mma":
             continue
-        es, pes = x.element_size(), pk.element_size()
-        nbytes = (h * nq + nq * 4 + b * h * es + h * nw.element_size()
-                  + 2 * b * (d // 2) * 4 + b * n * d * es
-                  + 2 * b * kvn * d * pes + tables.numel() * 4 + b * 4)
-        bms, by = bound_ms(nbytes, 2.0 * b * h * nq, dname(torch, xdt))
+        nbytes = _qkv_nbytes(h, nq, b, n, kvn, d, x.element_size(),
+                             nw.element_size(), d * pk.element_size(),
+                             tables.numel() * 4 + b * 4)
         qt, st = _int8pack(torch, wq[layer], ws[layer], xdt)
-        results["fused_qkv_append_kv_layer"] = dict(
-            max_abs_err=max(err, kv_err),
-            ms=time_ms(torch, lambda: fused_qkv_append_kv_layer(
-                x, nw, wq, ws, sin, cos, *a, layer, kv_layer, pos, tables,
-                n_heads=n, kv_heads=kvn)),
-            plain_ms=time_ms(torch, lambda: fused_qkv_append_ref(
-                x, nw, wq, ws, sin, cos, *rr, layer, pos, n_heads=n,
-                kv_heads=kvn, tables=tables, kv_layer=kv_layer)),
-            library_ms=time_ms(torch, lambda: torch._weight_int8pack_mm(
-                x, qt, st)),
-            bound_ms=bms, bound_by=by)
+        cold = None
+        if tag == "mistral-7b decode":
+            copies = max(2, int(2 * L2_BYTES // (h * nq)) + 1)
+            wc, sc = _qweight(torch, gen, dev, (copies, h, nq), 1)
+            nwc = nw[layer].expand(copies, h).contiguous()
+            cold = _rotating(lambda li: fused_qkv_append_kv_layer(
+                x, nwc, wc, sc, sin, cos, *a, li, kv_layer, pos, tables,
+                n_heads=n, kv_heads=kvn), copies)
+        _time_qkv(torch, "fused_qkv_append_kv_layer", tag,
+                  lambda: fused_qkv_append_kv_layer(
+                      x, nw, wq, ws, sin, cos, *a, layer, kv_layer, pos,
+                      tables, n_heads=n, kv_heads=kvn),
+                  lambda: fused_qkv_append_ref(
+                      x, nw, wq, ws, sin, cos, *rr, layer, pos, n_heads=n,
+                      kv_heads=kvn, tables=tables, kv_layer=kv_layer),
+                  qr, nbytes, 2.0 * b * h * nq, dname(torch, xdt),
+                  (x, qt, st), results, extra, max(err, kv_err), cold)
 
 
 def check_fused_wo_ffn(torch, dev, results, extra):
@@ -2756,8 +2936,11 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
                                  "K/V",
            "quantized_matmul": "torch._weight_int8pack_mm",
            "quantized_matmul_mma": "torch.matmul on the bf16 weight",
+           "quantized_matmul_rows_mma": "torch._weight_int8pack_mm",
            "fused_qkv_append": "torch._weight_int8pack_mm of the qkv "
                                "product alone",
+           "fused_qkv_append_mma": "torch._weight_int8pack_mm of the qkv "
+                                   "product alone",
            "fused_ffn": "torch._weight_int8pack_mm x2 (gate_up, down)",
            "fused_ffn_mma": "torch._weight_int8pack_mm x2 (gate_up, down)",
            "paged_flash_prefill": "scaled_dot_product_attention on gathered "
@@ -2847,14 +3030,14 @@ def phase_kernels(torch, results):
     check_paged_verify(torch, dev, results, extra, quant=True)
     check_kv_append(torch, dev, results, extra)
     check_flash_decode(torch, dev, results, extra)
-    check_fused_qkv_dense(torch, dev, results)
+    check_fused_qkv_dense(torch, dev, results, extra)
     check_quantized_matmul_int4(torch, dev, results, extra)
     check_quantized_matmul_w8a8(torch, dev, results, extra)
     check_quantizers(torch, dev)
     check_flash_prefill_window(torch, dev, results, extra)
     check_paged_decode_window(torch, dev, results, extra)
     check_paged_prefill_window(torch, dev, results, extra)
-    check_fused_qkv_kv_layer(torch, dev, results)
+    check_fused_qkv_kv_layer(torch, dev, results, extra)
     check_fused_wo_ffn(torch, dev, results, extra)
     check_flash_decode_dyn(torch, dev, results, extra)
     torch.cuda.empty_cache()
@@ -2913,22 +3096,46 @@ def int4_regime_counts(cfg, m: int, head_rows: int, layers: int) -> dict:
 
 
 def regime_rows(want: dict, cfg) -> dict:
-    """``want`` with the rows of kernel 7's and kernel 15's tensor-core
-    regimes filled for a path of ``cfg``'s model: every fused_ffn call
+    """``want`` with the rows of the tensor-core regimes of kernels 5, 6, 7
+    and 15 filled for a path of ``cfg``'s model: every fused_ffn call
     (m <= 64 rows of ``cfg.dtype``) in ``fused_ffn_mma`` when
-    ``ffn_fused.ffn_regime`` sends the model's H and I there, and each W8A8
+    ``ffn_fused.ffn_regime`` sends the model's H and I there; every call
+    of the four fused qkv forms in ``fused_qkv_append_mma`` when
+    ``qkv_fused.qkv_regime`` sends the model's H and qkv columns there,
+    else in ``fused_qkv_append_fma``; every quantized_matmul call of at
+    most 8 rows (those not in ``quantized_matmul_mma``: bf16 activations,
+    per-channel scales) in ``quantized_matmul_rows_mma`` when
+    ``matmul.tiled_regime`` sends the model's wqkv, wo and head there,
+    else in ``quantized_matmul_rows`` (the FMA kernel); and each W8A8
     call whose layer product (wqkv, wo, gate_up, down; per-channel scales)
     ``matmul.w8a8_regime`` sends to the int8 tensor cores in
-    ``quantized_matmul_w8a8_wgmma``. Both rows stay 0 for a package
-    without the regimes (an earlier tree timed beside this one)."""
+    ``quantized_matmul_w8a8_wgmma``. A regime row stays 0 for a package
+    without the regime (an earlier tree timed beside this one)."""
     import torch
 
     from simplellminference_tpu_torch.ops import ffn_fused as ff
     from simplellminference_tpu_torch.ops import matmul as mm
+    from simplellminference_tpu_torch.ops import qkv_fused as qf
     out = dict(want)
     h, i = cfg.hidden_size, cfg.intermediate_size
-    ffn = getattr(ff, "ffn_regime", None)
     dtype = getattr(torch, cfg.dtype)
+    qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    qreg = getattr(qf, "qkv_regime", None)
+    forms = sum(want[k] for k in (
+        "fused_qkv_append", "fused_qkv_append_dense",
+        "fused_qkv_append_int8kv", "fused_qkv_append_kv_layer"))
+    on_mma = qreg is not None and qreg(8, h, qkv, cfg.head_dim,
+                                       dtype) == "mma"
+    out["fused_qkv_append_mma"] = forms if on_mma else 0
+    out["fused_qkv_append_fma"] = (0 if on_mma else forms
+                                   if qreg is not None else 0)
+    few = want["quantized_matmul"] - want["quantized_matmul_mma"]
+    rmma = all(mm.tiled_regime(8, k, n, k, dtype) == "rmma"
+               for k, n in ((h, qkv), (cfg.num_heads * cfg.head_dim, h),
+                            (h, cfg.vocab_size)))
+    out["quantized_matmul_rows_mma"] = few if rmma else 0
+    out["quantized_matmul_rows"] = 0 if rmma else few
+    ffn = getattr(ff, "ffn_regime", None)
     out["fused_ffn_mma"] = (want["fused_ffn"] if ffn is not None and ffn(
         8, h, i, dtype) == "mma" else 0)
     w8 = getattr(mm, "w8a8_regime", None)
@@ -2982,8 +3189,20 @@ def _wrappers():
                                  mm.quantized_matmul_ref),
             "quantized_matmul_mma": (_Regime(mm.REGIME_LAUNCHES, "mma"),
                                      mm.quantized_matmul_ref),
+            "quantized_matmul_rows_mma": (
+                _Regime(mm.REGIME_LAUNCHES, "rmma"), mm.quantized_matmul_ref),
+            # the few-rows FMA regime: no kernels-line row, but phase 4
+            # holds its count (0 on every bf16 path where 5r takes it)
+            "quantized_matmul_rows": (_Regime(mm.REGIME_LAUNCHES, "rows"),
+                                      mm.quantized_matmul_ref),
             "fused_qkv_append": (qf.fused_qkv_append,
                                  qf.fused_qkv_append_ref),
+            "fused_qkv_append_mma": (
+                _Regime(getattr(qf, "QKV_REGIME_LAUNCHES", {}), "mma"),
+                qf.fused_qkv_append_ref),
+            "fused_qkv_append_fma": (
+                _Regime(getattr(qf, "QKV_REGIME_LAUNCHES", {}), "fma"),
+                qf.fused_qkv_append_ref),
             "fused_ffn": (ff.fused_ffn, ff.fused_ffn_ref),
             "fused_ffn_mma": (
                 _Regime(getattr(ff, "FFN_REGIME_LAUNCHES", {}), "mma"),
@@ -3326,6 +3545,12 @@ def serve_path(torch, path: str, cfg, params, launches: dict, int8: bool,
     step_ms = time_ms(torch, lambda: llama.forward_paged(
         cfg, params, tok, pos, eng.cache, tables, pos[:, 0] + 1,
         prefill=False), iters=5)
+    if path == "int8":
+        # where the INT8 device step's time goes, kernel by kernel
+        print_kernel_split(torch, f"[engine:{path}] decode step",
+                           lambda: llama.forward_paged(
+                               cfg, params, tok, pos, eng.cache, tables,
+                               pos[:, 0] + 1, prefill=False), calls=5)
     engine_step_ms = (wall_full - wall_half) * 1e3 / (new - new // 2)
     wbytes = step_weight_bytes(params, batch)
     kvbytes = kv_bytes(layers, batch * ctx, cfg.num_kv_heads, cfg.head_dim,

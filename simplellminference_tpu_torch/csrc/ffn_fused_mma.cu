@@ -14,9 +14,9 @@
 // streamed again for every 8 rows.
 //
 // Design: one wrapper call launches, in order on one stream,
-//   (a) ffn_norm_kernel: the rmsnorm of each row once, in f32, rounded to
-//       bf16 into xn [m, H] (the block of the old kernel recomputed every
-//       row's norm);
+//   (a) i8m::norm_rows_kernel: the rmsnorm of each row once, in f32,
+//       rounded to bf16 into xn [m, H] (the block of the old kernel
+//       recomputed every row's norm);
 //   (b) ffn_gate_up_mma_kernel: a block streams gate columns [j0, j0 + 64)
 //       and the matching up columns [I + j0, I + j0 + 64) of a K range
 //       against all m rows of xn in one pass (int8_mma_rows.cuh:
@@ -64,43 +64,6 @@ struct FfnRes {
 __device__ __forceinline__ float swiglu(float g, float u) {
   const float sg = 1.f / (1.f + expf(-g));
   return g * sg * u;
-}
-
-// xn[r, :] = bf16((x[r, :] * inv_r) * nw) with inv_r = rsqrt(mean(x_r^2)
-// + eps) in f32; one block a row.
-__global__ void __launch_bounds__(256)
-    ffn_norm_kernel(const __nv_bfloat16* __restrict__ x,
-                    const void* __restrict__ nw, int nw_bf16,
-                    __nv_bfloat16* __restrict__ xn, int h, float eps) {
-  __shared__ float part[8];
-  __shared__ float inv_s;
-  const int row = blockIdx.x;
-  const __nv_bfloat16* xr = x + (long long)row * h;
-  float s = 0.f;
-  for (int k = threadIdx.x; k < h; k += 256) {
-    const float v = __bfloat162float(xr[k]);
-    s = fmaf(v, v, s);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < 8; ++w) t += part[w];
-    inv_s = rsqrtf(t / (float)h + eps);
-  }
-  __syncthreads();
-  const float inv = inv_s;
-  for (int k = threadIdx.x; k < h; k += 256) {
-    const float w =
-        nw_bf16 ? __bfloat162float(
-                      reinterpret_cast<const __nv_bfloat16*>(nw)[k])
-                : reinterpret_cast<const float*>(nw)[k];
-    xn[(long long)row * h + k] =
-        __float2bfloat16(__bfloat162float(xr[k]) * inv * w);
-  }
 }
 
 // grid (I / 64, chunks): block (x, z) takes gate columns [64x, 64x + 64),
@@ -260,7 +223,7 @@ int run_nt(const __nv_bfloat16* x, const void* nw, int nw_bf16,
   cudaError_t e = sli::allow_smem(gu, SMEM);
   if (e == cudaSuccess) e = sli::allow_smem(dn, SMEM);
   if (e != cudaSuccess) return (int)e;
-  ffn_norm_kernel<<<m, 256, 0, st>>>(x, nw, nw_bf16, xn, h, eps);
+  i8m::norm_rows_kernel<<<m, 256, 0, st>>>(x, h, nw, nw_bf16, xn, h, eps);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const dim3 g1(inter / 64, (h + kch1 - 1) / kch1);

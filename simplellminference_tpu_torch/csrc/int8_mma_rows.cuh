@@ -1,8 +1,9 @@
 // Building blocks of an int8-weight product for a few activation rows
 // (m <= 64, bf16) on the bf16 tensor cores (mma.sync.m16n8k16, f32
 // accumulators): y[m, n] = sum_k x[m, k] * q[k, n], q int8 [K, N]
-// row-major. Used by ffn_fused_mma.cu (kernel 7m); written so that the
-// few-rows products of kernels 5 and 6 can adopt it.
+// row-major. Used by ffn_fused_mma.cu (kernel 7m), qkv_fused_mma.cu
+// (kernel 6m) and quantized_matmul_rows_mma.cu (kernel 5r); 7m and 6m
+// also share its rmsnorm pass (norm_rows_kernel).
 //
 // Bound: bytes. Each weight byte feeds m multiply-adds, so the least time
 // is the K x N weight bytes at the card's memory rate. The f32 FMA loop
@@ -261,6 +262,44 @@ __device__ __forceinline__ bool last_to_arrive(int* counter, int chunks) {
   __syncthreads();
   if (last) __threadfence();
   return last != 0;
+}
+
+// xn[r, :] = bf16((x[r, :] * inv_r) * nw) with inv_r = rsqrt(mean(x_r^2)
+// + eps) in f32; one block of 256 threads a row (x rows at element stride
+// ldx, xn rows at h). The rmsnorm of kernels 7m and 6m, once per row.
+static __global__ void __launch_bounds__(256)
+    norm_rows_kernel(const __nv_bfloat16* __restrict__ x, long long ldx,
+                     const void* __restrict__ nw, int nw_bf16,
+                     __nv_bfloat16* __restrict__ xn, int h, float eps) {
+  __shared__ float part[8];
+  __shared__ float inv_s;
+  const int row = blockIdx.x;
+  const __nv_bfloat16* xr = x + (long long)row * ldx;
+  float s = 0.f;
+  for (int k = threadIdx.x; k < h; k += 256) {
+    const float v = __bfloat162float(xr[k]);
+    s = fmaf(v, v, s);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) t += part[w];
+    inv_s = rsqrtf(t / (float)h + eps);
+  }
+  __syncthreads();
+  const float inv = inv_s;
+  for (int k = threadIdx.x; k < h; k += 256) {
+    const float w =
+        nw_bf16 ? __bfloat162float(
+                      reinterpret_cast<const __nv_bfloat16*>(nw)[k])
+                : reinterpret_cast<const float*>(nw)[k];
+    xn[(long long)row * h + k] =
+        __float2bfloat16(__bfloat162float(xr[k]) * inv * w);
+  }
 }
 
 }  // namespace i8m

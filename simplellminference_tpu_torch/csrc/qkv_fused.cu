@@ -2,6 +2,11 @@
 // per-channel scale -> RoPE on q and k -> k/v rows written in place into
 // the paged pools; q is returned.
 //
+// Since the tensor-core regime (qkv_fused_mma.cu, kernel 6m: bf16 rows,
+// H a multiple of 64 and the qkv columns of 128; ops/qkv_fused.py
+// qkv_regime) serves bf16 rows at every model width the port runs, this
+// FMA kernel serves f32 activations and the shapes 6m does not take.
+//
 // Replaces the TPU kernel of simplellminference_tpu/ops/qkv_fused.py:
 //   fused_qkv_append (_kernel, qkv_fused.py:37-184; wrapper :229) in its
 //   paged form (tables given), into bf16/f32 pools or, its quantizing
@@ -49,47 +54,13 @@
 // 127, 1e-8) by IEEE division, code = rint(x / scale) clipped to +-127.
 // Dead rows write to the trash page, so they never race with live rows.
 #include "int8_rows.cuh"
+#include "qkv_slots.cuh"
 
 namespace {
 
 constexpr int QKV_CT = 8;                   // 16-column groups per block
 constexpr int QKV_CW = 16 * QKV_CT;         // 128 columns per block
 constexpr int QKV_KL = RT_THREADS / QKV_CT;
-
-// Row index into [L, num_pages1, kvn, ps] of token `row`'s slot for kv
-// head kh: an unmapped page or a position past the table -> the trash page.
-// Without tables (the dense arena [L, B', kvn, Smax, D]: num_pages1 = B',
-// ps = Smax) x row `row` owns arena row `row`, and a slot outside
-// [0, Smax) gives -1: the row is dropped.
-__device__ __forceinline__ long long slot_row(const int* __restrict__ tables,
-                                              const int* __restrict__ positions,
-                                              int row, int kh, int layer,
-                                              int num_pages1, int kvn, int ps,
-                                              int mp) {
-  const int pos = positions[row];
-  int page;
-  int slot;
-  if (tables == nullptr) {
-    if (pos < 0 || pos >= ps) return -1;
-    page = row;
-    slot = pos;
-  } else {
-    const int pc = pos >= 0 ? pos / ps : -1;
-    page = (pc >= 0 && pc < mp) ? tables[(long long)row * mp + pc] : -1;
-    if (page < 0) page = num_pages1 - 1;
-    slot = pos >= 0 ? pos % ps : 0;
-  }
-  return (((long long)layer * num_pages1 + page) * kvn + kh) * ps + slot;
-}
-
-__device__ __forceinline__ void store_pool(void* pool, int bf16, long long i,
-                                           float v) {
-  if (bf16) {
-    reinterpret_cast<__nv_bfloat16*>(pool)[i] = __float2bfloat16(v);
-  } else {
-    reinterpret_cast<float*>(pool)[i] = v;
-  }
-}
 
 // grid (ceil(B / 8), ceil(Nq / 128)).
 template <typename T>
@@ -168,13 +139,13 @@ __global__ void __launch_bounds__(RT_THREADS, 1) qkv_fused_kernel(
     }
     const bool is_k = head < n_heads + kvn;
     const int kh = is_k ? head - n_heads : head - n_heads - kvn;
-    const long long srow = slot_row(tables, positions, row, kh, layer,
-                                    num_pages1, kvn, ps, mp);
+    const long long srow = qkv::slot_row(tables, positions, row, kh,
+                                         layer, num_pages1, kvn, ps, mp);
     if (srow < 0) continue;  // dense arena: a slot past Smax is dropped
     const long long off = srow * (long long)d;
     void* pool = is_k ? pool_k : pool_v;
-    store_pool(pool, pool_bf16, off + j, r1);
-    store_pool(pool, pool_bf16, off + j + half, r2);
+    qkv::store_pool(pool, pool_bf16, off + j, r1);
+    qkv::store_pool(pool, pool_bf16, off + j + half, r2);
   }
   if (pool_ks == nullptr) return;
 
@@ -198,8 +169,8 @@ __global__ void __launch_bounds__(RT_THREADS, 1) qkv_fused_kernel(
     for (int o = 16; o > 0; o >>= 1)
       amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
     const float sc = fmaxf(amax / 127.f, 1e-8f);
-    const long long srow = slot_row(tables, positions, row, kh, layer,
-                                    num_pages1, kvn, ps, mp);
+    const long long srow = qkv::slot_row(tables, positions, row, kh,
+                                         layer, num_pages1, kvn, ps, mp);
     if (srow < 0) continue;
     int8_t* dst = reinterpret_cast<int8_t*>(is_k ? pool_k : pool_v) +
                   srow * (long long)d;

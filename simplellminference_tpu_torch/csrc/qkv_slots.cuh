@@ -1,0 +1,45 @@
+// Where kernel 6's k/v rows go: the slot of a token in the paged pools or
+// the dense arena, and a store in the pool's dtype. Shared by the FMA
+// kernel (qkv_fused.cu) and the tensor-core one (qkv_fused_mma.cu).
+#pragma once
+
+#include "common.cuh"
+
+namespace qkv {
+
+// Row index into [L, num_pages1, kvn, ps] of token `row`'s slot for kv
+// head kh: an unmapped page or a position past the table -> the trash page.
+// Without tables (the dense arena [L, B', kvn, Smax, D]: num_pages1 = B',
+// ps = Smax) x row `row` owns arena row `row`, and a slot outside
+// [0, Smax) gives -1: the row is dropped.
+__device__ __forceinline__ long long slot_row(const int* __restrict__ tables,
+                                              const int* __restrict__ positions,
+                                              int row, int kh, int layer,
+                                              int num_pages1, int kvn, int ps,
+                                              int mp) {
+  const int pos = positions[row];
+  int page;
+  int slot;
+  if (tables == nullptr) {
+    if (pos < 0 || pos >= ps) return -1;
+    page = row;
+    slot = pos;
+  } else {
+    const int pc = pos >= 0 ? pos / ps : -1;
+    page = (pc >= 0 && pc < mp) ? tables[(long long)row * mp + pc] : -1;
+    if (page < 0) page = num_pages1 - 1;
+    slot = pos >= 0 ? pos % ps : 0;
+  }
+  return (((long long)layer * num_pages1 + page) * kvn + kh) * ps + slot;
+}
+
+__device__ __forceinline__ void store_pool(void* pool, int bf16, long long i,
+                                           float v) {
+  if (bf16) {
+    reinterpret_cast<__nv_bfloat16*>(pool)[i] = __float2bfloat16(v);
+  } else {
+    reinterpret_cast<float*>(pool)[i] = v;
+  }
+}
+
+}  // namespace qkv

@@ -5,11 +5,15 @@
 //   weights with per-output-channel scales ([1, N]) or per-group scales
 //   ([K/G, N], group G along K).
 //
-// Two of kernel 5's three regimes, chosen by the wrapper (ops/matmul.py
-// tiled_regime; the third, M > 8 with bf16 activations on the tensor
-// cores, is quantized_matmul_mma.cu):
+// Two of kernel 5's four regimes, chosen by the wrapper (ops/matmul.py
+// tiled_regime; the other two run bf16 activations on the tensor cores:
+// M > 8 in quantized_matmul_mma.cu (5m), and M <= 8 with per-channel
+// scales, K and N multiples of 64 in quantized_matmul_rows_mma.cu (5r),
+// which takes the decode wo and LM head at every model width the port
+// runs):
 //
-// * A few rows (decode, M <= 8: wo and the LM head): bound by bytes, the
+// * A few rows that 5r does not take (M <= 8 with f32 activations,
+//   grouped scales, or K or N off a multiple of 64): bound by bytes, the
 //   K*N weight bytes read once (the 7B wo, 16.8 MB, in 5.0 us; the int8
 //   LM head, 131 MB, in 39.1 us at 3.35 TB/s). qmm_rows_kernel
 //   (int8_rows.cuh): one block per 256 output columns and K range, 16-byte

@@ -59,6 +59,8 @@ _SIGNATURES = {
                              _I, _I, _P],
     "sli_quantized_matmul_mma": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _I, _P],
+    "sli_quantized_matmul_rows_mma": [_P, _L, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _I, _P],
     "sli_quantized_matmul_int4": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _P],
     "sli_quantized_matmul_int4_mma": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -72,6 +74,9 @@ _SIGNATURES = {
     "sli_qkv_fused": [_P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                       _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                       _P],
+    "sli_qkv_fused_mma": [_P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                          _P, _P, _I, _P],
     "sli_ffn_fused": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _F, _I, _I, _I, _P],
     "sli_ffn_fused_mma": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -23,11 +23,14 @@ For CUDA tensors each wrapper launches its hand-written kernel
 (``csrc/quantized_matmul.cu``, ``csrc/quantized_matmul_int4*.cu``,
 ``csrc/quantized_matmul_w8a8*.cu``) and counts the launch; for CPU tensors
 it runs its plain version (``*_ref``), which is also what the kernels are
-held against on the card. The 8-bit product has three kernels, one per
+held against on the card. The 8-bit product has four kernels, one per
 regime, chosen before the launch by :func:`tiled_regime` and each with
 its own count in :data:`REGIME_LAUNCHES` (``quantized_matmul.launches``
-counts every call): ``rows`` (M <= 8, bytes-bound: f32 FMAs streaming the
-weight), ``mma`` (M > 8 with bf16 activations: bf16 tensor cores by wgmma,
+counts every call): ``rmma`` (M <= 8 with bf16 activations, per-channel
+scales, K and N multiples of 64: mma.sync on bf16 tensor cores, all rows
+in one weight pass, ``csrc/quantized_matmul_rows_mma.cu``), ``rows`` (the
+other M <= 8 products, bytes-bound: f32 FMAs streaming the weight),
+``mma`` (M > 8 with bf16 activations: bf16 tensor cores by wgmma,
 ``csrc/quantized_matmul_mma.cu``) and ``fma`` (the rest: f32 activations,
 scale groups off a multiple of 64 rows, K off a multiple of 8 or N of 16:
 a shared-memory tiled f32 FMA kernel). The INT4 product has four, by
@@ -69,8 +72,14 @@ ROWS_MIN_K = 256          # smallest K range a block of it takes
 MMA_BN = 128              # output columns per block of the mma kernel
 MMA_BK = 64               # its K slab: K splits fall on slab edges
 MMA_MIN_K = 256           # smallest K range a block of it takes
+ROWS_MMA_KT = 64          # K rows a stage of the few-rows tensor-core kernel
+ROWS_MMA_COLS = 128       # its output columns a block
+ROWS_MMA_RES = 4          # its blocks an SM holds (launch bounds)
+ROWS_MMA_MAX_SPLIT = 8    # most K ranges it splits a product into
+ROWS_MMA_MIN_K = 256      # fewest K rows a block of it takes
+ROWS_MMA_MAX_TILES = 4096  # most column tiles (its arrival counters)
 # launches of each 8-bit regime's kernel (quantized_matmul counts them all)
-REGIME_LAUNCHES = {"rows": 0, "mma": 0, "fma": 0}
+REGIME_LAUNCHES = {"rows": 0, "rmma": 0, "mma": 0, "fma": 0}
 INT4_KP = 64              # packed rows a stage of the INT4 tensor-core kernels
 INT4_MIN_KP = 256         # fewest packed rows a block of them takes
 INT4_MMA_COLS = 128       # output columns a block of the few-rows one
@@ -86,10 +95,19 @@ W8A8_REGIME_LAUNCHES = {"wgmma": 0, "dp4a": 0}
 def tiled_regime(m: int, k: int, n: int, group: int, dtype) -> str:
     """The kernel of an 8-bit product of ``m`` rows x [k, n] weights with
     scale groups of ``group`` rows (``k``: per output channel), from dtype
-    and shape alone: "rows" for m <= 8; "mma" (bf16 tensor cores) for bf16
-    activations with K a multiple of 8, N of 16 and groups per channel or
-    of a multiple of its 64-row K slab; "fma" otherwise."""
+    and shape alone. For m <= 8: "rmma" (mma.sync on bf16 tensor cores) for
+    bf16 activations, per-channel scales and K and N multiples of 64 (its
+    64-row stages and 64-column groups), else "rows" (f32 FMAs): f32
+    activations, which the port never rounds, and grouped scales, which
+    would need a scale flush a stage inside the header's k loop. Above 8
+    rows: "mma" (bf16 tensor cores, wgmma) for bf16 activations with K a
+    multiple of 8, N of 16 and groups per channel or of a multiple of its
+    64-row K slab; "fma" otherwise."""
     if m <= ROWS_MAX_M:
+        if (dtype == torch.bfloat16 and group >= k and k % ROWS_MMA_KT == 0
+                and n % 64 == 0
+                and -(-n // ROWS_MMA_COLS) <= ROWS_MMA_MAX_TILES):
+            return "rmma"
         return "rows"
     if (dtype == torch.bfloat16 and k % 8 == 0 and n % 16 == 0
             and (group >= k or group % MMA_BK == 0)):
@@ -191,6 +209,24 @@ def mma_split(m: int, k: int, n: int, group: int) -> tuple[int, int]:
     return wm, -(-per // unit) * unit
 
 
+def rows_mma_split(m: int, k: int, n: int) -> int:
+    """K rows a block of the few-rows tensor-core kernel takes: K is split
+    on 64-row stages while the grid of 128-column tiles still fits the
+    blocks the card holds at once (4 an SM), into at most
+    ``ROWS_MMA_MAX_SPLIT`` ranges, each block taking at least 256 rows. The
+    7B wo (32 tiles) takes 8 ranges of 512 rows, the LM head (250 tiles)
+    2. The cap is measured (H100, the 7B wo at m 8, chip_smoke.py phase 3):
+    8 ranges ran 0.0113 ms, 4 0.0141 and 16 0.0125 (the last block adds
+    twice the partials over blocks of half the stages). From shapes
+    alone, so CUDA-graph capture holds."""
+    del m                     # one n8 tile of rows whatever m <= 8
+    tiles = -(-n // ROWS_MMA_COLS)
+    chunks = max(1, min(ROWS_MMA_RES * SM_COUNT // tiles,
+                        k // ROWS_MMA_MIN_K, ROWS_MMA_MAX_SPLIT))
+    per = -(-k // chunks)
+    return -(-per // ROWS_MMA_KT) * ROWS_MMA_KT
+
+
 def rows_split(m: int, k: int, n: int) -> int:
     """K rows per block of the few-rows kernel (csrc/int8_rows.cuh):
     K is split until the grid holds about two blocks per SM. The blocks
@@ -290,13 +326,25 @@ def quantized_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
     regime = tiled_regime(m, k, n, k // g, x2.dtype)
     lib = cuda_build.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if regime == "mma":
+    if regime in ("mma", "rmma"):
         # the 16-byte copies need aligned rows (a contiguous copy of an
         # odd view; K % 8 == 0 keeps its rows aligned)
         if x2.data_ptr() % 16 or x2.stride(0) % 8:
             x2 = x2.clone(memory_format=torch.contiguous_format)
         if ql.data_ptr() % 16:
             ql = ql.clone()
+    if regime == "rmma":
+        if sl.data_ptr() % 16:
+            sl = sl.clone()
+        kch = rows_mma_split(m, k, n)
+        chunks = -(-k // kch)
+        work = torch.empty((chunks * m * n if chunks > 1 else 0,),
+                           dtype=torch.float32, device=x.device)
+        rc = lib.sli_quantized_matmul_rows_mma(
+            x2.data_ptr(), x2.stride(0), ql.data_ptr(), sl.data_ptr(),
+            out.data_ptr(), work.data_ptr() if chunks > 1 else 0, m, k, n,
+            kch, cuda_build.dtype_code(out_dtype), stream)
+    elif regime == "mma":
         wm, kch = mma_split(m, k, n, k // g)
         chunks = -(-k // kch)
         work = torch.empty((chunks * m * n if chunks > 1 else 0,),

@@ -4,10 +4,17 @@ scale -> RoPE on q and k -> k/v appended in place to the paged pools.
 Counterpart of simplellminference_tpu/ops/qkv_fused.py:229
 (``fused_qkv_append``, kernel ``_kernel`` :37) in its paged form (with
 ``tables``), and of ``fused_qkv_available`` (:414). For CUDA tensors
-:func:`fused_qkv_append` launches the hand-written kernel of
-``csrc/qkv_fused.cu``; for CPU tensors it runs
-:func:`fused_qkv_append_ref`, which is also what the kernel is held
-against on the card.
+:func:`fused_qkv_append` launches the hand-written kernels of one of two
+regimes, chosen before the launch by :func:`qkv_regime` and each counted
+in :data:`QKV_REGIME_LAUNCHES` (every form together; each form's wrapper
+counts its own calls in ``launches``): ``mma`` (bf16 activations, H a
+multiple of 64 and the qkv columns of 128: ``csrc/qkv_fused_mma.cu``, the
+rmsnorm once, then the product on the bf16 tensor cores with all rows in
+one weight pass, K split over blocks by :func:`qkv_split` and the tail in
+the last block at a column tile) and ``fma`` (the rest, f32 activations
+among them: ``csrc/qkv_fused.cu``, f32 FMAs, 8 rows at a time). For CPU
+tensors it runs :func:`fused_qkv_append_ref`, which is also what the
+kernels are held against on the card.
 
 Rounding: the TPU kernel rounds x and the normalized rows to bf16
 whatever the activation dtype (qkv_fused.py:264, :76-77). Here both
@@ -53,6 +60,7 @@ from __future__ import annotations
 import torch
 
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
+from simplellminference_tpu_torch.ops.ffn_fused import ffn_split
 from simplellminference_tpu_torch.ops.kv_append import kv_append_ref
 from simplellminference_tpu_torch.ops.linear import QuantizedWeight
 from simplellminference_tpu_torch.ops.paged_append import (
@@ -61,6 +69,36 @@ from simplellminference_tpu_torch.ops.paged_append import (
 
 MAX_ROWS = 64
 HEAD_DIMS = (32, 64, 128)
+MMA_KT = 64               # K rows a stage of the tensor-core kernel
+MMA_COLS = 128            # qkv columns a block of it: whole heads
+MMA_MAX_TILES = 4096      # most column tiles (its arrival counters)
+# launches of each regime's kernels, the four forms together
+QKV_REGIME_LAUNCHES = {"mma": 0, "fma": 0}
+
+
+def qkv_regime(m: int, h: int, nq: int, d: int, dtype) -> str:
+    """The kernels of a fused qkv append of ``m`` rows (m <= 64) at hidden
+    size ``h`` into ``nq`` qkv columns of heads of ``d``, from dtype and
+    shape alone: "mma" (the bf16 tensor cores) for bf16 activations with H
+    a multiple of the 64-row stage and Nq of the 128-column block (whole
+    heads a block at D 32, 64 and 128, so every RoPE pair and every INT8-KV
+    head stays in one block); "fma" (f32 FMAs) otherwise: the port never
+    rounds f32 activations to bf16."""
+    if (dtype == torch.bfloat16 and m <= MAX_ROWS and d in HEAD_DIMS
+            and h % MMA_KT == 0 and nq % MMA_COLS == 0
+            and nq // MMA_COLS <= MMA_MAX_TILES):
+        return "mma"
+    return "fma"
+
+
+def qkv_split(m: int, h: int, tiles: int) -> int:
+    """H rows a block of the tensor-core qkv kernel takes over ``tiles``
+    128-column tiles: the rule of the FFN's products
+    (:func:`~simplellminference_tpu_torch.ops.ffn_fused.ffn_split`), whose
+    launch bounds and finish the kernel shares: 64-row stages while the
+    grid fits the blocks the card holds at once, at most 8 ranges of at
+    least 256 rows. 7B (96 tiles, m 8): 5 ranges; Mistral-7B (48): 8."""
+    return ffn_split(m, h, tiles)
 
 
 def _check(x, pool_k, pool_v, tables, cache_ks, cache_vs, kv_layer,
@@ -291,9 +329,35 @@ def _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, cache_ks, cache_vs,
     if sin.shape != (b, d // 2) or cos.shape != (b, d // 2):
         raise ValueError("sin/cos must be [B, D/2]")
     offsets = _index(offsets, b, "offsets")
-    vec = int(nq % 16 == 0 and wl.data_ptr() % 16 == 0)
+    if tables is not None:
+        tables = _index(tables, b, "tables")
+    regime = qkv_regime(b, h, nq, d, x.dtype)
     lib = cuda_build.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    if regime == "mma":
+        # the 16-byte copies and the tail's vector loads
+        wl, sl, sin, cos = (t if t.data_ptr() % 16 == 0 else t.clone()
+                            for t in (wl, sl, sin, cos))
+        kch = qkv_split(b, h, nq // MMA_COLS)
+        chunks = -(-h // kch)
+        work = torch.empty((chunks * b * nq if chunks > 1 else 0,),
+                           dtype=torch.float32, device=x.device)
+        xn = torch.empty((b, h), dtype=x.dtype, device=x.device)
+        rc = lib.sli_qkv_fused_mma(
+            xc.data_ptr(), xc.stride(0), nw.data_ptr(),
+            int(nw.dtype == torch.bfloat16), wl.data_ptr(), sl.data_ptr(),
+            sin.data_ptr(), cos.data_ptr(), pool_k.data_ptr(),
+            pool_v.data_ptr(), 0 if cache_ks is None else cache_ks.data_ptr(),
+            0 if cache_vs is None else cache_vs.data_ptr(),
+            int(pool_k.dtype == torch.bfloat16), out.data_ptr(),
+            0 if tables is None else tables.data_ptr(), offsets.data_ptr(),
+            kv_layer, p1, kvn, ps, 1 if tables is None else tables.shape[1],
+            b, h, n, d, float(eps), xn.data_ptr(),
+            work.data_ptr() if chunks > 1 else 0, kch, stream)
+        cuda_build.check(lib, rc, f"{what} (mma)")
+        QKV_REGIME_LAUNCHES["mma"] += 1
+        return out
+    vec = int(nq % 16 == 0 and wl.data_ptr() % 16 == 0)
     if tables is None:
         rc = lib.sli_qkv_fused_dense(
             xc.data_ptr(), xc.stride(0), nw.data_ptr(),
@@ -302,9 +366,9 @@ def _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, cache_ks, cache_vs,
             pool_v.data_ptr(), int(pool_k.dtype == torch.bfloat16),
             out.data_ptr(), offsets.data_ptr(), layer, p1, kvn, ps, b, h, n,
             d, float(eps), cuda_build.dtype_code(x.dtype), vec, stream)
-        cuda_build.check(lib, rc, what)
+        cuda_build.check(lib, rc, f"{what} (fma)")
+        QKV_REGIME_LAUNCHES["fma"] += 1
         return out
-    tables = _index(tables, b, "tables")
     rc = lib.sli_qkv_fused(
         xc.data_ptr(), xc.stride(0), nw.data_ptr(),
         int(nw.dtype == torch.bfloat16), wl.data_ptr(), sl.data_ptr(),
@@ -315,7 +379,8 @@ def _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, cache_ks, cache_vs,
         tables.data_ptr(), offsets.data_ptr(), kv_layer, p1, kvn, ps,
         tables.shape[1], b, h, n, d, float(eps),
         cuda_build.dtype_code(x.dtype), vec, stream)
-    cuda_build.check(lib, rc, what)
+    cuda_build.check(lib, rc, f"{what} (fma)")
+    QKV_REGIME_LAUNCHES["fma"] += 1
     return out
 
 

@@ -382,6 +382,16 @@ def _qw(g, dev, shape, groups):
     (3, 200, 40, 5, torch.float32, torch.float32),        # K % 128 != 0
     (100, 512, 384, 4, torch.bfloat16, torch.float32),    # mma, group 128
     (70, 300, 136, 1, torch.float32, torch.bfloat16),     # N % 16 != 0
+    # the few-rows tensor-core kernel (rmma): M 1 to 8, the head's f32
+    # output, K split and whole, an odd 64-column group; grouped scales
+    # keep the FMA kernel (rows)
+    (1, 4096, 32000, 1, torch.bfloat16, torch.float32),
+    (8, 4096, 32000, 1, torch.bfloat16, torch.float32),
+    (1, 4096, 4096, 1, torch.bfloat16, torch.bfloat16),
+    (8, 4096, 4160, 1, torch.bfloat16, torch.bfloat16),
+    (3, 512, 192, 1, torch.bfloat16, torch.float32),
+    (5, 11008, 4096, 1, torch.bfloat16, torch.bfloat16),
+    (8, 4096, 4096, 32, torch.bfloat16, torch.bfloat16),
     # the mma kernel: M across its 64- and 128-row tiles and K splits,
     # N off a multiple of 128, K 4000, groups of 32, 128 and 125 (fma)
     (9, 4096, 4096, 1, torch.bfloat16, torch.bfloat16),
@@ -417,6 +427,22 @@ def test_quantized_matmul(cuda, m, k, n, groups, xdt, odt):
                     .all())
 
 
+class _one_launch:
+    """Within the block, one launch of ``regime`` in the regime counts
+    ``counts`` and none of the others."""
+
+    def __init__(self, counts, regime):
+        self.counts, self.regime = counts, regime
+
+    def __enter__(self):
+        self.before = dict(self.counts)
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            assert self.counts == {r: c + (r == self.regime)
+                                   for r, c in self.before.items()}
+
+
 def _check_qkv(cuda, g, xdt, pdt, n, kvn, d, pos, tables, h=512, ps=16):
     L, b, mp = 2, tables.shape[0], tables.shape[1]
     nq = (n + 2 * kvn) * d
@@ -427,8 +453,10 @@ def _check_qkv(cuda, g, xdt, pdt, n, kvn, d, pos, tables, h=512, ps=16):
     pk, pv = _pools(g, cuda, pdt, b=b, kvn=kvn, ps=ps, d=d, mp=mp)
     a, r = (pk.clone(), pv.clone()), (pk.clone(), pv.clone())
     before = qf.fused_qkv_append.launches
-    qa, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, *a, 1, pos,
-                                 n_heads=n, kv_heads=kvn, tables=tables)
+    with _one_launch(qf.QKV_REGIME_LAUNCHES,
+                     qf.qkv_regime(b, h, nq, d, xdt)):
+        qa, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, *a, 1, pos,
+                                     n_heads=n, kv_heads=kvn, tables=tables)
     assert qf.fused_qkv_append.launches == before + 1
     qr, *_ = qf.fused_qkv_append_ref(x, nw, wq, ws, sin, cos, *r, 1, pos,
                                      n_heads=n, kv_heads=kvn, tables=tables)
@@ -458,10 +486,12 @@ def test_fused_qkv_append(cuda, xdt, pdt, n, kvn, d):
     _check_qkv(cuda, g, xdt, pdt, n, kvn, d, pos, tables)
 
 
-def test_fused_qkv_append_many_rows(cuda):
-    # 20 rows: two full 8-row tiles and a partial one; row 7 unmapped
-    g = torch.Generator(device=cuda).manual_seed(20)
-    b, mp, ps = 20, 3, 16
+@pytest.mark.parametrize("b,mp", [(20, 3), (64, 8)])
+def test_fused_qkv_append_many_rows(cuda, b, mp):
+    # 20 rows: two full 8-row tiles and a partial one; 64: the most the
+    # kernels take (eight n8 tiles on the tensor cores); row 7 unmapped
+    g = torch.Generator(device=cuda).manual_seed(b)
+    ps = 16
     pos = (2 * torch.arange(b, device=cuda)).to(torch.int32)
     tables = torch.arange(b * mp, dtype=torch.int32,
                           device=cuda).reshape(b, mp)
@@ -544,6 +574,54 @@ def test_fused_ffn_tensor_core_graph_replay(cuda):
         torch.cuda.synchronize()
         assert torch.equal(out, eager)
         assert torch.equal(ff.fused_ffn(x, nw, q1, s1, q2, s2, 0), eager)
+
+
+@pytest.mark.parametrize("kind", ["qkv", "qkv-int8kv", "rows"])
+def test_tensor_core_qkv_and_rows_graph_replay(cuda, kind):
+    # 6m's and 5r's K-split grids leave their arrival counters at zero:
+    # replays of a captured call (and eager calls between them) give the
+    # eager output bit for bit (7B widths, 8 rows: 5 and 8 K ranges)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    h, b = 4096, 8
+    x = torch.randn((b, h), generator=g, device=cuda).to(torch.bfloat16)
+    if kind == "rows":
+        q, s = _qw(g, cuda, (1, h, h), 1)
+        assert mm.tiled_regime(b, h, h, h, x.dtype) == "rmma"
+
+        def call():
+            return (mm.quantized_matmul(x, q, s, layer=0),)
+    else:
+        n, kvn, d, ps, mp = 32, 32, 128, 128, 2
+        nq = (n + 2 * kvn) * d
+        wq, ws = _qw(g, cuda, (1, h, nq), 1)
+        assert qf.qkv_regime(b, h, nq, d, x.dtype) == "mma"
+        nw = torch.ones((1, h), device=cuda, dtype=torch.bfloat16)
+        pos = (100 + torch.arange(b, device=cuda)).to(torch.int32)
+        tables = torch.arange(b * mp, dtype=torch.int32,
+                              device=cuda).reshape(b, mp)
+        sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
+        if kind == "qkv":
+            pools = _pools(g, cuda, torch.bfloat16, b=b, kvn=kvn, ps=ps, d=d,
+                           mp=mp)
+        else:
+            pools = _quant_pools(g, cuda, b=b, kvn=kvn, ps=ps, d=d, mp=mp)
+        extra = (dict(cache_ks=pools[2], cache_vs=pools[3])
+                 if kind == "qkv-int8kv" else {})
+
+        def call():
+            qo, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, pools[0],
+                                         pools[1], 0, pos, tables=tables,
+                                         **extra)
+            return (qo, *(p.clone() for p in pools))
+    eager = call()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, e) for o, e in zip(out, eager))
+        assert all(torch.equal(o, e) for o, e in zip(call(), eager))
 
 
 def _int8_params(cfg, seed, device):
@@ -717,9 +795,12 @@ def test_fused_qkv_append_int8kv(cuda, xdt, n, kvn, d):
     a, r = [p.clone() for p in pools], [p.clone() for p in pools]
     before = (qf.fused_qkv_append.launches,
               qf.fused_qkv_append_int8kv.launches)
-    qa, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, a[0], a[1], 1, pos,
-                                 n_heads=n, kv_heads=kvn, tables=tables,
-                                 cache_ks=a[2], cache_vs=a[3])
+    with _one_launch(qf.QKV_REGIME_LAUNCHES,
+                     qf.qkv_regime(3, h, nq, d, xdt)):
+        qa, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, a[0], a[1], 1,
+                                     pos, n_heads=n, kv_heads=kvn,
+                                     tables=tables, cache_ks=a[2],
+                                     cache_vs=a[3])
     assert (qf.fused_qkv_append.launches,
             qf.fused_qkv_append_int8kv.launches) == (before[0],
                                                       before[1] + 1)
@@ -1024,8 +1105,10 @@ def test_fused_qkv_append_dense(cuda, xdt, n, kvn, d, b, rows):
     ck, cv = _arena(g, cuda, xdt, rows=rows, kvn=kvn, smax=smax, d=d)
     a, r = (ck.clone(), cv.clone()), (ck.clone(), cv.clone())
     before = qf.fused_qkv_append_dense.launches
-    qa, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, *a, 1, pos,
-                                 n_heads=n, kv_heads=kvn)
+    with _one_launch(qf.QKV_REGIME_LAUNCHES,
+                     qf.qkv_regime(b, h, nq, d, xdt)):
+        qa, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, *a, 1, pos,
+                                     n_heads=n, kv_heads=kvn)
     assert qf.fused_qkv_append_dense.launches == before + 1
     qr, *_ = qf.fused_qkv_append_ref(x, nw, wq, ws, sin, cos, *r, 1, pos,
                                      n_heads=n, kv_heads=kvn)
@@ -1412,8 +1495,9 @@ def test_paged_flash_prefill_window_reads_only_the_band(cuda, int8, dtype):
         assert _attn_ok(got[i, :live], want[i, :live])
 
 
+@pytest.mark.parametrize("dead", [False, True], ids=["mapped", "dead-row"])
 @pytest.mark.parametrize("xdt", DTYPES)
-def test_fused_qkv_append_kv_layer(cuda, xdt):
+def test_fused_qkv_append_kv_layer(cuda, xdt, dead):
     g = torch.Generator(device=cuda).manual_seed(61)
     n, kvn, d, h, ps, L = 32, 8, 128, 512, 16, 2
     nq = (n + 2 * kvn) * d
@@ -1423,13 +1507,17 @@ def test_fused_qkv_append_kv_layer(cuda, xdt):
     pos = torch.tensor([5, 20, 40], dtype=torch.int32, device=cuda)
     tables = torch.tensor([[3, 7, 1], [0, 5, 8], [2, 4, 6]],
                           dtype=torch.int32, device=cuda)
+    if dead:
+        tables[1] = -1                # its write goes to the trash page
     sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
     pk, pv = _pools(g, cuda, xdt, b=3, kvn=kvn, ps=ps, d=d, mp=3)
     a, r = (pk.clone(), pv.clone()), (pk.clone(), pv.clone())
     before = (qf.fused_qkv_append_kv_layer.launches,
               qf.fused_qkv_append.launches)
-    qa, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, *a, 1, pos,
-                                 tables=tables, kv_layer=0)
+    with _one_launch(qf.QKV_REGIME_LAUNCHES,
+                     qf.qkv_regime(3, h, nq, d, xdt)):
+        qa, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, *a, 1, pos,
+                                     tables=tables, kv_layer=0)
     assert (qf.fused_qkv_append_kv_layer.launches,
             qf.fused_qkv_append.launches) == (before[0] + 1, before[1])
     qr, *_ = qf.fused_qkv_append_ref(x, nw, wq, ws, sin, cos, *r, 1, pos,

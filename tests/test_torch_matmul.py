@@ -205,8 +205,10 @@ def test_rows_split_covers_k(m, k, n):
 
 
 @pytest.mark.parametrize("m,k,n,group,dtype,want", [
-    (8, 4096, 4096, 4096, torch.bfloat16, "rows"),     # decode: M <= 8
+    (8, 4096, 4096, 4096, torch.bfloat16, "rmma"),     # decode: M <= 8
     (8, 4096, 4096, 4096, torch.float32, "rows"),
+    (8, 4096, 4096, 128, torch.bfloat16, "rows"),      # grouped, M <= 8
+    (8, 4096, 4000, 4096, torch.bfloat16, "rows"),     # N % 64 != 0
     (9, 4096, 4096, 4096, torch.bfloat16, "mma"),      # the first mma row
     (40, 4096, 32000, 4096, torch.bfloat16, "mma"),    # verify head
     (1024, 4096, 12288, 128, torch.bfloat16, "mma"),   # group 128
