@@ -276,7 +276,7 @@ __global__ void __launch_bounds__(sli::pfa::NT) flash_prefill_mma_kernel(
   const long long kh = blockIdx.y;
   const DenseRows src{k + b * k_bs + kh * D, v + b * v_bs + kh * D, k_ss,
                       v_ss};
-  sli::pfa::attend<D, false>(q + b * q_bs, q_ss, src,
+  sli::pfa::attend<D, sli::pfa::KV_BF16>(q + b * q_bs, q_ss, src,
                              out + (long long)b * seq * heads * D, work,
                              batch, b, seq, heads, group, 0, seq, window,
                              scale_log2, splits);
@@ -289,7 +289,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
                int seq, int heads, int group, int window, float scale,
                int splits, cudaStream_t st) {
   namespace pfa = sli::pfa;
-  constexpr int bytes = pfa::Smem<D, false>::BYTES;
+  constexpr int bytes = pfa::Smem<D, pfa::KV_BF16>::BYTES;
   auto kern = flash_prefill_mma_kernel<D>;
   cudaError_t e = sli::allow_smem(kern, bytes);
   if (e != cudaSuccess) return (int)e;

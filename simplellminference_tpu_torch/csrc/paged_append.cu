@@ -36,6 +36,16 @@
 // as on the TPU, so the plain version and the kernel agree on every page
 // but that one. Prefill rows past the prompt (the tail of the last page)
 // are written as zeros, like the JAX pad.
+//
+// FP8 (e4m3) KV pools, forms 1e, 2e and 11e (the same TPU kernels over
+// float8_e4m3fn pools: the rows are cast to the pool dtype at
+// paged_append.py:45, :49, :74, :148-151): each thread reads 8 elements of
+// a bf16 or f32 row (16 or 32 bytes), converts them in registers with the
+// JAX package's rounding (common.cuh f_to_e4m3: nearest even, NaN past
+// 464), and stores 8 code bytes; the cast is the row's own dtype -> e4m3,
+// never a torch cast in the wrapper, so bf16 rows round once from bf16 as
+// the JAX cast does. Page, slot and trash-page rules are the copies'.
+// Bound: bytes (the rows read in their dtype, 1 byte an element written).
 #include "common.cuh"
 
 namespace {
@@ -144,6 +154,153 @@ __global__ void paged_append_prefill_kernel(
   }
 }
 
+// 8 row elements of T from 16-byte aligned memory -> 8 floats.
+__device__ __forceinline__ void load8(const __nv_bfloat16* s, float* f) {
+  const uint4 v = *reinterpret_cast<const uint4*>(s);
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[2 * j] = __uint_as_float(w[j] << 16);
+    f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void load8(const float* s, float* f) {
+  const float4 a = *reinterpret_cast<const float4*>(s);
+  const float4 b = *reinterpret_cast<const float4*>(s + 4);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+// E elements of a row (T) -> E e4m3 codes at o; E 8 (16-byte aligned
+// source, 8-byte aligned o) or 1. s null: zeros (a prefill pad row).
+template <typename T, int E>
+__device__ __forceinline__ void store_e4m3(unsigned char* o, const T* s) {
+  if constexpr (E == 8) {
+    unsigned w[2] = {0u, 0u};
+    if (s != nullptr) {
+      float f[8];
+      load8(s, f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        w[j >> 2] |= (unsigned)sli::f_to_e4m3(f[j]) << (8 * (j & 3));
+    }
+    *reinterpret_cast<uint2*>(o) = make_uint2(w[0], w[1]);
+  } else {
+    o[0] = s != nullptr ? sli::f_to_e4m3(sli::to_f(s[0])) : 0;
+  }
+}
+
+// grid (B, T, kvN): forms 1e and 11e. Row (b, t, h) of new K and new V (T:
+// f32 or bf16; strides in elements) converted into the e4m3 pools at
+// pool[layer, page, h, slot, :], the slot rules of
+// paged_append_rows_kernel. E: elements a thread handles at once.
+template <typename T, int E>
+__global__ void paged_append_rows_e4m3_kernel(
+    unsigned char* __restrict__ pool_k, unsigned char* __restrict__ pool_v,
+    const T* __restrict__ new_k, const T* __restrict__ new_v,
+    long long k_bstride, long long k_tstride, long long v_bstride,
+    long long v_tstride, const int* __restrict__ tables,
+    const int* __restrict__ positions, int layer, int num_pages1, int kvn,
+    int ps, int d, int mp) {
+  const int b = blockIdx.x;
+  const int t = blockIdx.y;
+  const int h = blockIdx.z;
+  const int pos = positions[b] + t;
+  const int col = pos >= 0 ? pos / ps : -1;
+  int page = (col >= 0 && col < mp) ? tables[(long long)b * mp + col] : -1;
+  if (page < 0) page = num_pages1 - 1;
+  const int slot = pos >= 0 ? pos % ps : 0;
+  const long long dst =
+      ((((long long)layer * num_pages1 + page) * kvn + h) * ps + slot) *
+      (long long)d;
+  const T* sk = new_k + (long long)b * k_bstride + (long long)t * k_tstride +
+                (long long)h * d;
+  const T* sv = new_v + (long long)b * v_bstride + (long long)t * v_tstride +
+                (long long)h * d;
+  const int n = d / E;
+  for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) {
+    const bool v = i >= n;
+    const int c = (v ? i - n : i) * E;
+    store_e4m3<T, E>((v ? pool_v : pool_k) + dst + c, (v ? sv : sk) + c);
+  }
+}
+
+// grid (B, ceil(S/ps), kvN): form 2e. The ps x D tile of rows
+// [pg*ps, pg*ps+ps) of head h converted into page tables[b, pg] (the
+// trash page for -1 or a column past the table), code 0 past row S.
+template <typename T, int E>
+__global__ void paged_append_prefill_e4m3_kernel(
+    unsigned char* __restrict__ pool_k, unsigned char* __restrict__ pool_v,
+    const T* __restrict__ new_k, const T* __restrict__ new_v,
+    long long k_bstride, long long k_sstride, long long v_bstride,
+    long long v_sstride, const int* __restrict__ tables, int layer,
+    int num_pages1, int kvn, int ps, int d, int mp, int seq) {
+  const int b = blockIdx.x;
+  const int pg = blockIdx.y;
+  const int h = blockIdx.z;
+  int page = pg < mp ? tables[(long long)b * mp + pg] : -1;
+  if (page < 0) page = num_pages1 - 1;
+  const long long base =
+      (((long long)layer * num_pages1 + page) * kvn + h) * (long long)ps * d;
+  const int n = d / E;
+  for (int i = threadIdx.x; i < 2 * ps * n; i += blockDim.x) {
+    const bool v = i >= ps * n;
+    const int j = v ? i - ps * n : i;
+    const int r = j / n;
+    const int c = (j - r * n) * E;
+    const int s = pg * ps + r;
+    const T* src = nullptr;
+    if (s < seq)
+      src = (v ? new_v + (long long)b * v_bstride + (long long)s * v_sstride
+               : new_k + (long long)b * k_bstride + (long long)s * k_sstride) +
+            (long long)h * d + c;
+    store_e4m3<T, E>((v ? pool_v : pool_k) + base + (long long)r * d + c, src);
+  }
+}
+
+template <typename T>
+int launch_rows_e4m3(void* pool_k, void* pool_v, const void* new_k,
+                     const void* new_v, long long k_bstride,
+                     long long k_tstride, long long v_bstride,
+                     long long v_tstride, const int* tables,
+                     const int* positions, int layer, int num_pages1, int kvn,
+                     int ps, int d, int mp, int batch, int span, int vec8,
+                     cudaStream_t st) {
+  const dim3 grid(batch, span, kvn);
+  if (vec8)
+    paged_append_rows_e4m3_kernel<T, 8><<<grid, 64, 0, st>>>(
+        (unsigned char*)pool_k, (unsigned char*)pool_v, (const T*)new_k,
+        (const T*)new_v, k_bstride, k_tstride, v_bstride, v_tstride, tables,
+        positions, layer, num_pages1, kvn, ps, d, mp);
+  else
+    paged_append_rows_e4m3_kernel<T, 1><<<grid, 64, 0, st>>>(
+        (unsigned char*)pool_k, (unsigned char*)pool_v, (const T*)new_k,
+        (const T*)new_v, k_bstride, k_tstride, v_bstride, v_tstride, tables,
+        positions, layer, num_pages1, kvn, ps, d, mp);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_prefill_e4m3(void* pool_k, void* pool_v, const void* new_k,
+                        const void* new_v, long long k_bstride,
+                        long long k_sstride, long long v_bstride,
+                        long long v_sstride, const int* tables, int layer,
+                        int num_pages1, int kvn, int ps, int d, int mp,
+                        int batch, int seq, int vec8, cudaStream_t st) {
+  const dim3 grid(batch, (seq + ps - 1) / ps, kvn);
+  if (vec8)
+    paged_append_prefill_e4m3_kernel<T, 8><<<grid, 128, 0, st>>>(
+        (unsigned char*)pool_k, (unsigned char*)pool_v, (const T*)new_k,
+        (const T*)new_v, k_bstride, k_sstride, v_bstride, v_sstride, tables,
+        layer, num_pages1, kvn, ps, d, mp, seq);
+  else
+    paged_append_prefill_e4m3_kernel<T, 1><<<grid, 128, 0, st>>>(
+        (unsigned char*)pool_k, (unsigned char*)pool_v, (const T*)new_k,
+        (const T*)new_v, k_bstride, k_sstride, v_bstride, v_sstride, tables,
+        layer, num_pages1, kvn, ps, d, mp, seq);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -243,6 +400,61 @@ int sli_paged_append_prefill(void* pool_k, void* pool_v, const void* new_k,
         num_pages1, kvn, ps, row_bytes, mp, seq);
   }
   return (int)cudaGetLastError();
+}
+
+// Forms 1e and 11e: the rows of sli_paged_append_span converted into e4m3
+// pools [L, num_pages1, kvn, ps, d]. new_k/new_v: rows of `dtype` (SLI_F32
+// or SLI_BF16), strides in elements; vec8: d % 8 == 0 with every row start
+// 16-byte aligned (8 elements a thread), else one element a thread.
+int sli_paged_append_span_e4m3(void* pool_k, void* pool_v, const void* new_k,
+                               const void* new_v, long long k_bstride,
+                               long long k_tstride, long long v_bstride,
+                               long long v_tstride, const int* tables,
+                               const int* positions, int layer,
+                               int num_pages1, int kvn, int ps, int d, int mp,
+                               int batch, int span, int dtype, int vec8,
+                               void* stream) {
+  if (batch <= 0 || span <= 0 || kvn <= 0 || d <= 0 || (vec8 && d % 8))
+    return SLI_ERR_SHAPE;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == SLI_F32)
+    return launch_rows_e4m3<float>(pool_k, pool_v, new_k, new_v, k_bstride,
+                                   k_tstride, v_bstride, v_tstride, tables,
+                                   positions, layer, num_pages1, kvn, ps, d,
+                                   mp, batch, span, vec8, st);
+  if (dtype == SLI_BF16)
+    return launch_rows_e4m3<__nv_bfloat16>(
+        pool_k, pool_v, new_k, new_v, k_bstride, k_tstride, v_bstride,
+        v_tstride, tables, positions, layer, num_pages1, kvn, ps, d, mp,
+        batch, span, vec8, st);
+  return SLI_ERR_DTYPE;
+}
+
+// Form 2e: a right-padded prompt of `dtype` rows converted into e4m3
+// pages (code 0 past row seq); strides in elements, vec8 as above.
+int sli_paged_append_prefill_e4m3(void* pool_k, void* pool_v,
+                                  const void* new_k, const void* new_v,
+                                  long long k_bstride, long long k_sstride,
+                                  long long v_bstride, long long v_sstride,
+                                  const int* tables, int layer,
+                                  int num_pages1, int kvn, int ps, int d,
+                                  int mp, int batch, int seq, int dtype,
+                                  int vec8, void* stream) {
+  if (batch <= 0 || seq <= 0 || kvn <= 0 || ps <= 0 || d <= 0 ||
+      (vec8 && d % 8))
+    return SLI_ERR_SHAPE;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == SLI_F32)
+    return launch_prefill_e4m3<float>(pool_k, pool_v, new_k, new_v,
+                                      k_bstride, k_sstride, v_bstride,
+                                      v_sstride, tables, layer, num_pages1,
+                                      kvn, ps, d, mp, batch, seq, vec8, st);
+  if (dtype == SLI_BF16)
+    return launch_prefill_e4m3<__nv_bfloat16>(
+        pool_k, pool_v, new_k, new_v, k_bstride, k_sstride, v_bstride,
+        v_sstride, tables, layer, num_pages1, kvn, ps, d, mp, batch, seq,
+        vec8, st);
+  return SLI_ERR_DTYPE;
 }
 
 }  // extern "C"

@@ -39,9 +39,9 @@
 // the live keys [k_lo, min(kv_len, MP*ps)) of its own sequence into
 // `splits` ranges of whole 64-key tiles and walks its range only. Tiles
 // stream through a ring of shared-memory stages (3 for bf16 pools, 4 for
-// int8, 2 for f32) with cp.async, 16 bytes a thread and copy, so two tiles
-// are in flight while the block computes on a third, kept in the
-// pool's storage dtype (bf16, f32 or int8 codes; rows padded by 16 bytes
+// int8 and e4m3, 2 for f32) with cp.async, 16 bytes a thread and copy, so
+// two tiles are in flight while the block computes on a third, kept in the
+// pool's storage dtype (bf16, f32, int8 or e4m3 codes; rows padded by 16 bytes
 // so the score loop's 16-byte reads of neighbouring keys hit distinct
 // banks); a tile reads its page id from the table once when the page size
 // is a multiple of the tile. Keys outside the live span are zero-filled by
@@ -68,7 +68,13 @@
 // :116-120): each key's scale (copied beside its tile) multiplies its
 // score after q.k, and each key's V scale folds into its probability
 // before the PV product, so the row sum l stays the sum of the unscaled
-// probabilities. Sliding window: the key walk starts at the oldest verify
+// probabilities. FP8 KV (forms 4e, 4ve: float8_e4m3fn pools, no scales;
+// the TPU kernel casts each e4m3 element straight to f32,
+// paged_decode.py:79-80, :113): the tiles of 1-byte codes go through the
+// ring as the int8 ones do (4 stages), and each 8-element group converts
+// in registers (cvt.f16x2.e4m3x2, then to f32: both exact), so q.k and
+// p.v see the exact stored values with no scale. Sliding window: the key
+// walk starts at the oldest verify
 // row's first key, k_lo = kv_len - S - window + 1, and no split reads a key
 // below it, not even inside k_lo's page. This is what keeps the grouped
 // engine's ring pools right: there table column j maps to ring page
@@ -76,6 +82,8 @@
 // a newer position, and masking after the read would still fetch it. Rows
 // newer than the oldest mask the keys below their own band per element
 // (p = 0).
+#include <type_traits>
+
 #include "common.cuh"
 #include "split_merge.cuh"
 
@@ -136,7 +144,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // 8 consecutive elements of a key row (16 bytes of bf16, 32 of f32, 8 of
-// int8 codes) -> 8 exact floats.
+// int8 or e4m3 codes) -> 8 exact floats.
 template <typename P>
 __device__ __forceinline__ void unpack8(const unsigned char* p, float* f);
 template <>
@@ -167,10 +175,24 @@ __device__ __forceinline__ void unpack8<int8_t>(const unsigned char* p,
   for (int j = 0; j < 8; ++j)
     f[j] = (float)(signed char)((w[j >> 2] >> (8 * (j & 3))) & 0xffu);
 }
+template <>
+__device__ __forceinline__ void unpack8<__nv_fp8_e4m3>(const unsigned char* p,
+                                                       float* f) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const unsigned w[2] = {v.x, v.y};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 x = sli::e4m3x2_to_f2(
+        (unsigned short)(w[j >> 1] >> (16 * (j & 1))));
+    f[2 * j] = x.x;
+    f[2 * j + 1] = x.y;
+  }
+}
 
 // q: [B, S, N, D] with batch stride q_bs and window stride q_ss (elements;
-// S = wins); pools [L, P+1, kvN, ps, D] of P (T, or int8_t with the scale
-// pools ksp/vsp [L, P+1, kvN, ps]); out: [B, S, N, D] contiguous. DENSE:
+// S = wins); pools [L, P+1, kvN, ps, D] of P (T, __nv_fp8_e4m3, or int8_t
+// with the scale pools ksp/vsp [L, P+1, kvN, ps]); out: [B, S, N, D]
+// contiguous. DENSE:
 // the pools are a dense arena [L, B', kvN, Smax, D] (num_pages1 = B',
 // ps = Smax, mp = 1, no table): sequence b reads arena row b. rcap: the
 // rows of the shared-memory layout (min(RB, group * wins)). splits > 1:
@@ -186,7 +208,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     int num_pages1, int kvn, int ps, int mp, int group, int wins, int window,
     int rcap, float scale) {
   using G = Geo<P, D>;
-  constexpr bool QUANT = sizeof(P) == 1;
+  constexpr bool QUANT = std::is_same_v<P, int8_t>;  // scales beside codes
   constexpr int EPC = 16 / G::ES;  // elements per 16-byte copy
   constexpr int C8 = D / 8;        // PV units of a row
   extern __shared__ __align__(16) unsigned char smem[];
@@ -580,33 +602,46 @@ extern "C" int sli_flash_decode(const void* q, long long q_bs,
   return SLI_ERR_DTYPE;
 }
 
-// k_scale/v_scale: null for bf16/f32 pools (of q's dtype); given, the pools
-// are int8 and these are their f32 scale pools [L, num_pages1, kvn, ps].
-// q: [B, wins, N, D] with strides q_bs, q_ss (elements); wins = 1 is decode.
-// window: 0 for none, else the sliding window (>= 1). splits > 1: part
-// holds splits * B * wins * N * (D + 2) floats of workspace.
+template <typename T>
+int dispatch_pool(int pool, int head_dim, const Args& a, cudaStream_t st) {
+  switch (pool) {
+    case SLI_POOL_I8:
+      return dispatch_d<T, int8_t>(head_dim, a, st);
+    case SLI_POOL_E4M3:
+      return dispatch_d<T, __nv_fp8_e4m3>(head_dim, a, st);
+    default:  // bf16 or f32 pools: q's own dtype
+      return pool == (std::is_same_v<T, float> ? SLI_POOL_F32 : SLI_POOL_BF16)
+                 ? dispatch_d<T, T>(head_dim, a, st)
+                 : SLI_ERR_DTYPE;
+  }
+}
+
+// pool: the pools' dtype (SLI_POOL_*): q's dtype, e4m3 (forms 4e, 4ve), or
+// int8 with k_scale/v_scale, their f32 scale pools [L, num_pages1, kvn,
+// ps] (null for every other pool dtype). q: [B, wins, N, D] with strides
+// q_bs, q_ss (elements); wins = 1 is decode. window: 0 for none, else the
+// sliding window (>= 1). splits > 1: part holds splits * B * wins * N *
+// (D + 2) floats of workspace.
 extern "C" int sli_paged_flash_decode(
     const void* q, long long q_bs, long long q_ss, const void* pool_k,
     const void* pool_v, const void* k_scale, const void* v_scale,
     const int* tables, const int* kv_lens, void* out, float* part, int batch,
     int layer, int num_pages1, int kvn, int ps, int mp, int group, int wins,
-    int head_dim, int window, int splits, float scale, int dtype,
+    int head_dim, int window, int splits, float scale, int dtype, int pool,
     void* stream) {
   if (batch <= 0 || kvn <= 0 || group <= 0 || ps <= 0 || mp <= 0 ||
       wins <= 0 || window < 0)
     return SLI_ERR_SHAPE;
-  if ((k_scale == nullptr) != (v_scale == nullptr)) return SLI_ERR_SHAPE;
+  if ((k_scale == nullptr) != (v_scale == nullptr) ||
+      (k_scale != nullptr) != (pool == SLI_POOL_I8))
+    return SLI_ERR_SHAPE;
   cudaStream_t st = (cudaStream_t)stream;
   const Args a{q, q_bs, q_ss, pool_k, pool_v, (const float*)k_scale,
                (const float*)v_scale, tables, kv_lens, out, part, batch,
                layer, num_pages1, kvn, ps, mp, group, wins, window, splits,
                scale};
-  const bool quant = k_scale != nullptr;
-  if (dtype == SLI_F32)
-    return quant ? dispatch_d<float, int8_t>(head_dim, a, st)
-                 : dispatch_d<float, float>(head_dim, a, st);
+  if (dtype == SLI_F32) return dispatch_pool<float>(pool, head_dim, a, st);
   if (dtype == SLI_BF16)
-    return quant ? dispatch_d<__nv_bfloat16, int8_t>(head_dim, a, st)
-                 : dispatch_d<__nv_bfloat16, __nv_bfloat16>(head_dim, a, st);
+    return dispatch_pool<__nv_bfloat16>(pool, head_dim, a, st);
   return SLI_ERR_DTYPE;
 }

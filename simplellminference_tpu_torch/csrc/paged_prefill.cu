@@ -8,7 +8,11 @@
 // INT8-KV form, int8 pools with per-token-per-head f32 scale pools
 // [L, P+1, kvN, ps], and the sliding-window form of both (window > 0,
 // paged_prefill.py:90-92, :131-132; the soft cap, sinks and shared-KV
-// forms raise in the wrapper): forms 8, 8q, 8w, 8qw.
+// forms raise in the wrapper): forms 8, 8q, 8w, 8qw; and, its FP8-KV form
+// 8e, float8_e4m3fn pools (no scales; the TPU kernel casts the page slabs
+// to q's dtype, paged_prefill.py:108-110): bf16 q on the tensor cores, each
+// staged code converted exactly to bf16 in the block where INT8 KV
+// dequantizes, f32 q on the FMA kernel, each code read exactly as f32.
 //
 // Bound on the H100: at the prefix path's shapes bytes (a suffix batch of
 // 8 x 64 rows behind 512 cached tokens, a 256-row chunk: q and the output,
@@ -48,6 +52,8 @@
 // per thread for QK^T and 4 rows x D/16 columns for PV; the same walk and
 // per-element mask (k_pos <= q_pos, k_pos < kv_len, k_pos > q_pos - window),
 // a row's sum guarded.
+#include <type_traits>
+
 #include "common.cuh"
 #include "prefill_mma.cuh"
 
@@ -67,9 +73,9 @@ constexpr size_t smem_bytes() {
 }
 
 // q: [B, Sq, N, D] with element strides q_bs (batch) and q_ss (row), heads
-// contiguous; pools [L, P+1, kvN, ps, D] of P (T, or int8_t with the scale
-// pools ksp/vsp [L, P+1, kvN, ps]) contiguous; out [B, Sq, N, D]
-// contiguous.
+// contiguous; pools [L, P+1, kvN, ps, D] of P (T, __nv_fp8_e4m3, or int8_t
+// with the scale pools ksp/vsp [L, P+1, kvN, ps]) contiguous; out [B, Sq,
+// N, D] contiguous.
 template <typename T, typename P, int D>
 __global__ void __launch_bounds__(NT) paged_prefill_kernel(
     const T* __restrict__ q, long long q_bs, long long q_ss,
@@ -79,7 +85,7 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
     const int* __restrict__ offs, T* __restrict__ out, int seq, int heads,
     int layer, int num_pages1, int kvn, int ps, int mp, int group,
     int window, float scale) {
-  constexpr bool QUANT = sizeof(P) == 1;
+  constexpr bool QUANT = std::is_same_v<P, int8_t>;  // scales beside codes
   extern __shared__ float smem[];
   float* qs = smem;                  // [BQ][D+1]
   float* ks = qs + BQ * (D + 1);     // [BK][D+1]
@@ -296,17 +302,24 @@ int dispatch_d(int head_dim, const void* q, long long q_bs, long long q_ss,
 }
 
 template <typename T>
-int dispatch_p(bool quant, int head_dim, const void* q, long long q_bs,
+int dispatch_p(int pool, int head_dim, const void* q, long long q_bs,
                long long q_ss, const void* pool_k, const void* pool_v,
                const float* ksp, const float* vsp, const int* tables,
                const int* kv_lens, const int* offs, void* out, int batch,
                int seq, int heads, int layer, int num_pages1, int kvn, int ps,
                int mp, int group, int window, float scale, cudaStream_t st) {
-  if (quant)
+  if (pool == SLI_POOL_I8)
     return dispatch_d<T, int8_t>(head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp,
                                  vsp, tables, kv_lens, offs, out, batch, seq,
                                  heads, layer, num_pages1, kvn, ps, mp, group,
                                  window, scale, st);
+  if (pool == SLI_POOL_E4M3)
+    return dispatch_d<T, __nv_fp8_e4m3>(
+        head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables, kv_lens,
+        offs, out, batch, seq, heads, layer, num_pages1, kvn, ps, mp, group,
+        window, scale, st);
+  if (pool != (std::is_same_v<T, float> ? SLI_POOL_F32 : SLI_POOL_BF16))
+    return SLI_ERR_DTYPE;
   return dispatch_d<T, T>(head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
                           tables, kv_lens, offs, out, batch, seq, heads,
                           layer, num_pages1, kvn, ps, mp, group, window, scale,
@@ -319,7 +332,7 @@ int dispatch_p(bool quant, int head_dim, const void* q, long long q_bs,
 // the page is the table entry (fetched one tile ahead), the row
 // ((layer * P1 + page) * kvN + kh) * ps + kp % ps, -1 (zeros) for an
 // unmapped or out-of-range page.
-template <int D, bool QUANT>
+template <int D, int KV>
 struct PagedRows {
   const unsigned char* pk;
   const unsigned char* pv;
@@ -329,7 +342,7 @@ struct PagedRows {
   long long base;  // layer * P1
   int kvn, kh, ps, p1;
   int step_col, step_row;  // 64 keys: 64 / ps columns and 64 % ps rows
-  static constexpr int ROW = QUANT ? D : 2 * D;  // bytes of a pool row
+  static constexpr int ROW = KV != sli::pfa::KV_BF16 ? D : 2 * D;  // bytes
   struct Cursor {
     int col, in;
   };
@@ -354,9 +367,10 @@ struct PagedRows {
 };
 
 // bf16 q [B, Sq, N, D] (element strides q_bs, q_ss; 16-byte aligned
-// rows) against bf16 pools, or int8 pools (QUANT) with their scale pools;
-// out [B, Sq, N, D] contiguous, or the split partials in work.
-template <int D, bool QUANT>
+// rows) against bf16 pools, e4m3 pools (KV_E4M3), or int8 pools (KV_I8)
+// with their scale pools; out [B, Sq, N, D] contiguous, or the split
+// partials in work.
+template <int D, int KV>
 __global__ void __launch_bounds__(sli::pfa::NT) paged_prefill_mma_kernel(
     const __nv_bfloat16* __restrict__ q, long long q_bs, long long q_ss,
     const void* __restrict__ pool_k, const void* __restrict__ pool_v,
@@ -367,19 +381,19 @@ __global__ void __launch_bounds__(sli::pfa::NT) paged_prefill_mma_kernel(
     int num_pages1, int kvn, int ps, int mp, int group, int window,
     float scale_log2, int splits) {
   const int b = blockIdx.z / splits;
-  const PagedRows<D, QUANT> src{
+  const PagedRows<D, KV> src{
       (const unsigned char*)pool_k, (const unsigned char*)pool_v, ksp, vsp,
       tables + (long long)b * mp, (long long)layer * num_pages1, kvn,
       (int)blockIdx.y, ps, num_pages1, sli::pfa::TILE / ps,
       sli::pfa::TILE % ps};
-  sli::pfa::attend<D, QUANT>(q + (long long)b * q_bs, q_ss, src,
+  sli::pfa::attend<D, KV>(q + (long long)b * q_bs, q_ss, src,
                              out + (long long)b * seq * heads * D, work,
                              batch, b, seq, heads, group, offs[b],
                              min(kv_lens[b], mp * ps), window, scale_log2,
                              splits);
 }
 
-template <int D, bool QUANT>
+template <int D, int KV>
 int launch_mma(const void* q, long long q_bs, long long q_ss,
                const void* pool_k, const void* pool_v, const float* ksp,
                const float* vsp, const int* tables, const int* kv_lens,
@@ -388,8 +402,8 @@ int launch_mma(const void* q, long long q_bs, long long q_ss,
                int group, int window, float scale, int splits,
                cudaStream_t st) {
   namespace pfa = sli::pfa;
-  constexpr int bytes = pfa::Smem<D, QUANT>::BYTES;
-  auto kern = paged_prefill_mma_kernel<D, QUANT>;
+  constexpr int bytes = pfa::Smem<D, KV>::BYTES;
+  auto kern = paged_prefill_mma_kernel<D, KV>;
   cudaError_t e = sli::allow_smem(kern, bytes);
   if (e != cudaSuccess) return (int)e;
   const int h = min(group, pfa::TILE);
@@ -406,7 +420,7 @@ int launch_mma(const void* q, long long q_bs, long long q_ss,
       work, out, (long long)batch * seq * heads, D, splits, st);
 }
 
-template <bool QUANT>
+template <int KV>
 int dispatch_mma(int head_dim, const void* q, long long q_bs, long long q_ss,
                  const void* pool_k, const void* pool_v, const float* ksp,
                  const float* vsp, const int* tables, const int* kv_lens,
@@ -416,17 +430,17 @@ int dispatch_mma(int head_dim, const void* q, long long q_bs, long long q_ss,
                  cudaStream_t st) {
   switch (head_dim) {
     case 32:
-      return launch_mma<32, QUANT>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
+      return launch_mma<32, KV>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
                                    tables, kv_lens, offs, out, work, batch,
                                    seq, heads, layer, num_pages1, kvn, ps, mp,
                                    group, window, scale, splits, st);
     case 64:
-      return launch_mma<64, QUANT>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
+      return launch_mma<64, KV>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
                                    tables, kv_lens, offs, out, work, batch,
                                    seq, heads, layer, num_pages1, kvn, ps, mp,
                                    group, window, scale, splits, st);
     case 128:
-      return launch_mma<128, QUANT>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
+      return launch_mma<128, KV>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
                                     tables, kv_lens, offs, out, work, batch,
                                     seq, heads, layer, num_pages1, kvn, ps,
                                     mp, group, window, scale, splits, st);
@@ -437,31 +451,33 @@ int dispatch_mma(int head_dim, const void* q, long long q_bs, long long q_ss,
 
 }  // namespace
 
-// k_scale/v_scale: null for bf16/f32 pools (of q's dtype); given, the pools
-// are int8 and these are their f32 scale pools [L, num_pages1, kvn, ps].
-// window: 0 for none, else the sliding window (>= 1). bf16 q takes the
-// tensor-core kernel: q rows 16-byte aligned (q, q_bs, q_ss), and with
-// splits > 1, work holds splits * batch * seq * heads * (head_dim + 2)
-// floats. f32 q takes the FMA kernel (splits 1).
+// pool: the pools' dtype (SLI_POOL_*): q's dtype, e4m3 (form 8e), or int8
+// with k_scale/v_scale, their f32 scale pools [L, num_pages1, kvn, ps]
+// (null for every other pool dtype). window: 0 for none, else the sliding
+// window (>= 1). bf16 q takes the tensor-core kernel: q rows 16-byte
+// aligned (q, q_bs, q_ss), and with splits > 1, work holds splits * batch
+// * seq * heads * (head_dim + 2) floats. f32 q takes the FMA kernel
+// (splits 1).
 extern "C" int sli_paged_flash_prefill(
     const void* q, long long q_bs, long long q_ss, const void* pool_k,
     const void* pool_v, const void* k_scale, const void* v_scale,
     const int* tables, const int* kv_lens, const int* offs, void* out,
     int batch, int seq, int heads, int layer, int num_pages1, int kvn, int ps,
     int mp, int group, int head_dim, int window, float scale, int dtype,
-    void* work, int splits, void* stream) {
+    int pool, void* work, int splits, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || kvn <= 0 || group <= 0 ||
       ps <= 0 || mp <= 0 || heads != kvn * group || window < 0 ||
       splits < 1 || (splits > 1 && work == nullptr))
     return SLI_ERR_SHAPE;
-  if ((k_scale == nullptr) != (v_scale == nullptr)) return SLI_ERR_SHAPE;
+  if ((k_scale == nullptr) != (v_scale == nullptr) ||
+      (k_scale != nullptr) != (pool == SLI_POOL_I8))
+    return SLI_ERR_SHAPE;
   cudaStream_t st = (cudaStream_t)stream;
   const float* ksp = (const float*)k_scale;
   const float* vsp = (const float*)v_scale;
-  const bool quant = ksp != nullptr;
   if (dtype == SLI_F32) {
     if (splits != 1) return SLI_ERR_SHAPE;
-    return dispatch_p<float>(quant, head_dim, q, q_bs, q_ss, pool_k, pool_v,
+    return dispatch_p<float>(pool, head_dim, q, q_bs, q_ss, pool_k, pool_v,
                              ksp, vsp, tables, kv_lens, offs, out, batch, seq,
                              heads, layer, num_pages1, kvn, ps, mp, group,
                              window, scale, st);
@@ -471,16 +487,26 @@ extern "C" int sli_paged_flash_prefill(
          (unsigned long long)pool_v) % 16 || q_bs % 8 || q_ss % 8)
       return SLI_ERR_SHAPE;
     float* w = (float*)work;
-    return quant ? dispatch_mma<true>(head_dim, q, q_bs, q_ss, pool_k,
-                                      pool_v, ksp, vsp, tables, kv_lens,
-                                      offs, out, w, batch, seq, heads, layer,
-                                      num_pages1, kvn, ps, mp, group, window,
-                                      scale, splits, st)
-                 : dispatch_mma<false>(head_dim, q, q_bs, q_ss, pool_k,
-                                       pool_v, ksp, vsp, tables, kv_lens,
-                                       offs, out, w, batch, seq, heads, layer,
-                                       num_pages1, kvn, ps, mp, group, window,
-                                       scale, splits, st);
+    namespace pfa = sli::pfa;
+    switch (pool) {
+      case SLI_POOL_BF16:
+        return dispatch_mma<pfa::KV_BF16>(
+            head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,
+            kv_lens, offs, out, w, batch, seq, heads, layer, num_pages1, kvn,
+            ps, mp, group, window, scale, splits, st);
+      case SLI_POOL_I8:
+        return dispatch_mma<pfa::KV_I8>(
+            head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,
+            kv_lens, offs, out, w, batch, seq, heads, layer, num_pages1, kvn,
+            ps, mp, group, window, scale, splits, st);
+      case SLI_POOL_E4M3:
+        return dispatch_mma<pfa::KV_E4M3>(
+            head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,
+            kv_lens, offs, out, w, batch, seq, heads, layer, num_pages1, kvn,
+            ps, mp, group, window, scale, splits, st);
+      default:
+        return SLI_ERR_DTYPE;
+    }
   }
   return SLI_ERR_DTYPE;
 }

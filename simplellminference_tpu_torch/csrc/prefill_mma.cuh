@@ -1,9 +1,10 @@
 // Prefill attention on the H100's bf16 tensor cores (wgmma), shared by the
 // bf16 forms of kernel 3 (flash_prefill.cu: 3, 3w) and kernel 8
-// (paged_prefill.cu: 8, 8q, 8w, 8qw). Each .cu file gives the rows of its
-// keys (a Src: a dense [B, S, kvN, D] array, or pages through a block
-// table) and launches attend<D, QUANT, Src>; the f32 forms keep their FMA
-// kernels (TF32 would not hold f32's tolerance).
+// (paged_prefill.cu: 8, 8q, 8e, 8w, 8qw). Each .cu file gives the rows of
+// its keys (a Src: a dense [B, S, kvN, D] array, or pages through a block
+// table) and launches attend<D, KV, Src> for its pools' kind (KV_BF16,
+// KV_I8, KV_E4M3); the f32 forms keep their FMA kernels (TF32 would not
+// hold f32's tolerance).
 //
 // Tiles. A block is one warpgroup (128 threads) and one 64-row tile of
 // queries that packs 64 / H positions x H q heads of one kv head (H =
@@ -31,11 +32,15 @@
 // the product (p = 0), and 0 x NaN would be NaN. bf16 tiles land in the
 // 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8); rows of D > 64
 // in 128-byte slabs) or, at D = 32, the 64-byte one (c ^ (r / 2 % 4)).
-// INT8 KV (QUANT): the codes and each row's f32 scales land unswizzled;
+// INT8 KV (KV_I8): the codes and each row's f32 scales land unswizzled;
 // after a barrier the block converts them, code x scale in f32 rounded to
 // bf16 (the TPU kernel's page dequant, paged_prefill.py:105-110), into
 // swizzled K and V tiles, then fence.proxy.async and a second barrier
-// before the wgmma.
+// before the wgmma. FP8 KV (KV_E4M3, form 8e): the e4m3 codes land
+// the same way, with no scales, and convert exactly to bf16 (e4m3 -> f16 ->
+// f32 -> bf16, each step exact: e4m3's 4 significant bits and exponents
+// 2^-9 .. 2^8 fit bf16), which is the TPU kernel's cast of its page slabs
+// to q's dtype (paged_prefill.py:108-110).
 //
 // Products. S = Q K^T: wgmma.m64n64k16, Q and K both K-major from shared
 // memory (D / 16 steps), f32. Online softmax in f32 on the fragments, in
@@ -63,6 +68,10 @@ constexpr int NT = 128;   // one warpgroup a block
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+// the pools' kind: bf16 rows, or 1-byte codes converted in the block
+constexpr int KV_BF16 = 0;
+constexpr int KV_I8 = 1;    // int8 codes x their rows' f32 scales
+constexpr int KV_E4M3 = 2;  // e4m3 codes, exact
 
 // A bf16 [64][D] tile in shared memory.
 template <int D>
@@ -77,13 +86,18 @@ struct Geo {
   static constexpr int Q8_STAGE = 2 * TILE * D + 2 * TILE * 4;
 };
 
-template <int D, bool QUANT>
+template <int D, int KV>
 struct Smem {
   using G = Geo<D>;
-  static constexpr int STAGE = QUANT ? G::Q8_STAGE : 2 * G::BYTES;
+  static constexpr bool CODES = KV != KV_BF16;
+  static constexpr int STAGE = KV == KV_I8     ? G::Q8_STAGE
+                               : KV == KV_E4M3 ? 2 * TILE * D
+                                               : 2 * G::BYTES;
   // 1024: the base is rounded up to the swizzle atom; Q, two stages, for
-  // INT8 the converted K and V tiles, then the two stages' row tables
-  static constexpr int ROWS = G::BYTES + 2 * STAGE + (QUANT ? 2 * G::BYTES : 0);
+  // 1-byte codes the converted K and V tiles, then the two stages' row
+  // tables
+  static constexpr int ROWS =
+      G::BYTES + 2 * STAGE + (CODES ? 2 * G::BYTES : 0);
   static constexpr int BYTES = 1024 + ROWS + 2 * TILE * 8;
 };
 
@@ -293,7 +307,7 @@ __device__ __forceinline__ Walk walk(int seq, int group, int off, int n_keys,
 //   work: else split_merge.cuh's f32 partials over the B * Sq * N rows.
 // Query row at position s sits at off + s and sees keys k <= off + s,
 // k < n_keys and, with a window, k > off + s - window.
-template <int D, bool QUANT, typename Src>
+template <int D, int KV, typename Src>
 __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
                                        long long q_ss, const Src& src,
                                        __nv_bfloat16* __restrict__ out,
@@ -302,14 +316,15 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
                                        int off, int n_keys, int window,
                                        float scale_log2, int splits) {
   using G = Geo<D>;
-  using S = Smem<D, QUANT>;
+  using S = Smem<D, KV>;
+  constexpr bool CODES = S::CODES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm =
       smem_raw + ((1024 - ((unsigned)__cvta_generic_to_shared(smem_raw) &
                            1023)) & 1023);
   unsigned char* qs = sm;
   unsigned char* stages = qs + G::BYTES;
-  unsigned char* kc = stages + 2 * S::STAGE;  // QUANT: converted K, then V
+  unsigned char* kc = stages + 2 * S::STAGE;  // CODES: converted K, then V
   unsigned char* vc = kc + G::BYTES;
 
   long long* rowtab = (long long*)(sm + S::ROWS);  // [2][64]: -1 zeros
@@ -344,7 +359,7 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
   auto load = [&](int st) {
     unsigned char* sb = stages + st * S::STAGE;
     const long long* rt = rowtab + st * TILE;
-    if constexpr (QUANT) {
+    if constexpr (CODES) {
 #pragma unroll
       for (int it = 0; it < TILE * G::CH8 / NT; ++it) {
         const int i = it * NT + tid;
@@ -357,10 +372,12 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
         cp16(sb + (TILE + r) * D + c * 16, (const int8_t*)src.v(at) + c * 16,
              ok);
       }
-      const long long row = rt[tid & (TILE - 1)];
-      const long long at = row >= 0 ? row : 0;
-      cp4((float*)(sb + 2 * TILE * D) + tid,
-          tid < TILE ? src.ksc(at) : src.vsc(at), row >= 0);
+      if constexpr (KV == KV_I8) {
+        const long long row = rt[tid & (TILE - 1)];
+        const long long at = row >= 0 ? row : 0;
+        cp4((float*)(sb + 2 * TILE * D) + tid,
+            tid < TILE ? src.ksc(at) : src.vsc(at), row >= 0);
+      }
     } else {
 #pragma unroll
       for (int it = 0; it < TILE * G::CH / NT; ++it) {
@@ -378,8 +395,9 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
     }
   };
 
-  // QUANT: stage st's codes x their rows' scales, rounded to bf16, into the
-  // swizzled K and V tiles (after the barrier: any thread's copies)
+  // CODES: stage st's codes (INT8: x their rows' scales, rounded to bf16;
+  // e4m3: exact) into the swizzled K and V tiles (after the barrier: any
+  // thread's copies)
   auto convert = [&](int st) {
     const unsigned char* sb = stages + st * S::STAGE;
     const float* sc = (const float*)(sb + 2 * TILE * D);
@@ -389,16 +407,22 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
       const int kv = i / (TILE * G::CH8);
       const int r = i / G::CH8 % TILE;
       const int c = i % G::CH8;
-      const float scale = sc[kv * TILE + r];
       const uint4 raw = *(const uint4*)(sb + (kv * TILE + r) * D + c * 16);
       const unsigned wd[4] = {raw.x, raw.y, raw.z, raw.w};
       unsigned o[8];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float f[4];
-        i8x4_to_f32(wd[j], f);  // exact codes
+        if constexpr (KV == KV_I8) {
+          const float scale = sc[kv * TILE + r];
+          i8x4_to_f32(wd[j], f);  // exact codes
 #pragma unroll
-        for (int e = 0; e < 4; ++e) f[e] *= scale;
+          for (int e = 0; e < 4; ++e) f[e] *= scale;
+        } else {
+          const float2 a = e4m3x2_to_f2((unsigned short)(wd[j] & 0xffffu));
+          const float2 b = e4m3x2_to_f2((unsigned short)(wd[j] >> 16));
+          f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+        }
         o[2 * j] = bf16x2(f[0], f[1]);
         o[2 * j + 1] = bf16x2(f[2], f[3]);
       }
@@ -448,7 +472,7 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
       src.advance(nxt);
     }
     cp_wait_all();
-    if constexpr (QUANT) {
+    if constexpr (CODES) {
       __syncthreads();
       convert(st);
     }
@@ -458,8 +482,8 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
     if (t + 1 < w.tb) load(st ^ 1);
     cp_commit();
 
-    const unsigned char* kt = QUANT ? kc : stages + st * S::STAGE;
-    const unsigned char* vt = QUANT ? vc : kt + G::BYTES;
+    const unsigned char* kt = CODES ? kc : stages + st * S::STAGE;
+    const unsigned char* vt = CODES ? vc : kt + G::BYTES;
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;

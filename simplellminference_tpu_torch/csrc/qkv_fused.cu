@@ -18,7 +18,10 @@
 //   cache indexed by the grouped engine's group-local layer, the weights
 //   by the global one) needs nothing of the kernel: the launcher gets the
 //   layer's weight, scale and norm pointers and indexes the pools only by
-//   kv_layer.
+//   kv_layer. Its FP8-KV form (6e, paged): the rotated k and the v rows go
+//   from f32 straight to e4m3 (qkv_slots.cuh store_pool, the JAX
+//   package's rounding), as the TPU kernel rounds them into slabs of the
+//   pool dtype (qkv_fused.py:155-158, :370-371).
 //
 // Bound on the H100: bytes. The qkv weight ([H, (N + 2 kvN) D] int8, 50.3
 // MB at Llama-2-7B: 15.0 us at 3.35 TB/s) dominates; x, the tables and
@@ -69,7 +72,7 @@ __global__ void __launch_bounds__(RT_THREADS, 1) qkv_fused_kernel(
     int nw_bf16, const int8_t* __restrict__ wq, const float* __restrict__ ws,
     const float* __restrict__ sin_t, const float* __restrict__ cos_t,
     void* pool_k, void* pool_v, float* __restrict__ pool_ks,
-    float* __restrict__ pool_vs, int pool_bf16, T* __restrict__ q_out,
+    float* __restrict__ pool_vs, int pool_dt, T* __restrict__ q_out,
     const int* __restrict__ tables, const int* __restrict__ positions,
     int layer, int num_pages1, int kvn, int ps, int mp, int b, int h,
     int n_heads, int d, float eps, int vec) {
@@ -144,8 +147,8 @@ __global__ void __launch_bounds__(RT_THREADS, 1) qkv_fused_kernel(
     if (srow < 0) continue;  // dense arena: a slot past Smax is dropped
     const long long off = srow * (long long)d;
     void* pool = is_k ? pool_k : pool_v;
-    qkv::store_pool(pool, pool_bf16, off + j, r1);
-    qkv::store_pool(pool, pool_bf16, off + j + half, r2);
+    qkv::store_pool(pool, pool_dt, off + j, r1);
+    qkv::store_pool(pool, pool_dt, off + j + half, r2);
   }
   if (pool_ks == nullptr) return;
 
@@ -187,16 +190,17 @@ extern "C" {
 // x: [b, h] at row stride ldx (x_dtype); nw: the layer's norm weight [h]
 // (f32, or bf16 when nw_bf16); wq: the layer's [h, (n_heads + 2 kvn) d]
 // int8; ws: its [(n_heads + 2 kvn) d] f32 scales; sin/cos: [b, d/2] f32;
-// pools: [L, num_pages1, kvn, ps, d] (f32, or bf16 when pool_bf16),
+// pools: [L, num_pages1, kvn, ps, d] of pool_dt (SLI_POOL_F32, _BF16, or
+// _E4M3: form 6e),
 // written in place at pool layer `kv_layer` (the weight layer's pointers
 // come in already); q_out: [b, n_heads, d] (x_dtype); tables:
 // [b, mp] int32; positions: [b] int32. vec: wq and its row length allow
 // 16-byte loads. pool_ks/pool_vs: null, or (INT8 KV) the f32 scale pools
-// [L, num_pages1, kvn, ps] of int8 pools (pool_bf16 is then unused).
+// [L, num_pages1, kvn, ps] of int8 pools (pool_dt SLI_POOL_I8).
 int sli_qkv_fused(const void* x, long long ldx, const void* nw, int nw_bf16,
                   const void* wq, const float* ws, const float* sin_t,
                   const float* cos_t, void* pool_k, void* pool_v,
-                  void* pool_ks, void* pool_vs, int pool_bf16, void* q_out,
+                  void* pool_ks, void* pool_vs, int pool_dt, void* q_out,
                   const int* tables,
                   const int* positions, int kv_layer, int num_pages1,
                   int kvn, int ps, int mp, int b, int h, int n_heads, int d,
@@ -205,6 +209,7 @@ int sli_qkv_fused(const void* x, long long ldx, const void* nw, int nw_bf16,
     return SLI_ERR_SHAPE;
   if (d != 32 && d != 64 && d != 128) return SLI_ERR_HEAD_DIM;
   if ((pool_ks == nullptr) != (pool_vs == nullptr)) return SLI_ERR_SHAPE;
+  if (!qkv::pool_ok(pool_dt, pool_ks != nullptr)) return SLI_ERR_DTYPE;
   float* ks = (float*)pool_ks;
   float* vs = (float*)pool_vs;
   const int nq = (n_heads + 2 * kvn) * d;
@@ -214,12 +219,12 @@ int sli_qkv_fused(const void* x, long long ldx, const void* nw, int nw_bf16,
   if (x_dtype == SLI_F32) {
     qkv_fused_kernel<float><<<grid, RT_THREADS, 0, st>>>(
         (const float*)x, ldx, nw, nw_bf16, w, ws, sin_t, cos_t, pool_k,
-        pool_v, ks, vs, pool_bf16, (float*)q_out, tables, positions,
+        pool_v, ks, vs, pool_dt, (float*)q_out, tables, positions,
         kv_layer, num_pages1, kvn, ps, mp, b, h, n_heads, d, eps, vec);
   } else if (x_dtype == SLI_BF16) {
     qkv_fused_kernel<__nv_bfloat16><<<grid, RT_THREADS, 0, st>>>(
         (const __nv_bfloat16*)x, ldx, nw, nw_bf16, w, ws, sin_t, cos_t,
-        pool_k, pool_v, ks, vs, pool_bf16, (__nv_bfloat16*)q_out, tables,
+        pool_k, pool_v, ks, vs, pool_dt, (__nv_bfloat16*)q_out, tables,
         positions, kv_layer, num_pages1, kvn, ps, mp, b, h, n_heads, d, eps,
         vec);
   } else {
@@ -229,20 +234,22 @@ int sli_qkv_fused(const void* x, long long ldx, const void* nw, int nw_bf16,
 }
 
 // The dense-arena form (fused_qkv_append with tables=None): cache_k/v are
-// [L, arena_rows, kvn, smax, d] (f32, or bf16 when cache_bf16); x row b <
+// [L, arena_rows, kvn, smax, d] (cache_dt SLI_POOL_F32 or _BF16); x row b <
 // b_rows <= arena_rows writes arena row b at slot positions[b] (dropped
 // outside [0, smax)). Other arguments as sli_qkv_fused; no INT8-KV form.
 int sli_qkv_fused_dense(const void* x, long long ldx, const void* nw,
                         int nw_bf16, const void* wq, const float* ws,
                         const float* sin_t, const float* cos_t,
-                        void* cache_k, void* cache_v, int cache_bf16,
+                        void* cache_k, void* cache_v, int cache_dt,
                         void* q_out, const int* positions, int layer,
                         int arena_rows, int kvn, int smax, int b, int h,
                         int n_heads, int d, float eps, int x_dtype, int vec,
                         void* stream) {
   if (b > arena_rows) return SLI_ERR_SHAPE;
+  if (cache_dt != SLI_POOL_F32 && cache_dt != SLI_POOL_BF16)
+    return SLI_ERR_DTYPE;
   return sli_qkv_fused(x, ldx, nw, nw_bf16, wq, ws, sin_t, cos_t, cache_k,
-                       cache_v, nullptr, nullptr, cache_bf16, q_out, nullptr,
+                       cache_v, nullptr, nullptr, cache_dt, q_out, nullptr,
                        positions, layer, arena_rows, kvn, smax, 1, b, h,
                        n_heads, d, eps, x_dtype, vec, stream);
 }

@@ -8,7 +8,9 @@
 // simplellminference_tpu/ops/qkv_fused.py: fused_qkv_append (_kernel,
 // qkv_fused.py:37-184; wrapper :229) in all four of its forms: paged (6),
 // dense arena (6d), quantizing INT8 KV (6q) and kv_layer (6k, pools
-// indexed by kv_layer: nothing of the kernel changes).
+// indexed by kv_layer: nothing of the kernel changes), and over e4m3
+// pools (6e, paged): each k/v element rounded from f32 to e4m3 once in the
+// tail's store (qkv_slots.cuh store_pool).
 //
 // Bound on the H100: bytes. The qkv weight ([H, (N + 2 kvN) D] int8, 50.3
 // MB at Llama-2-7B: 15.0 us at 3.35 TB/s; 25.2 MB, 7.5 us at Mistral-7B)
@@ -87,7 +89,7 @@ __global__ void __launch_bounds__(i8m::THREADS, QkvRes<NT>::value)
                          const float* __restrict__ sin_t,
                          const float* __restrict__ cos_t, void* pool_k,
                          void* pool_v, float* __restrict__ pool_ks,
-                         float* __restrict__ pool_vs, int pool_bf16,
+                         float* __restrict__ pool_vs, int pool_dt,
                          __nv_bfloat16* __restrict__ q_out,
                          const int* __restrict__ tables,
                          const int* __restrict__ positions, int layer,
@@ -204,8 +206,8 @@ __global__ void __launch_bounds__(i8m::THREADS, QkvRes<NT>::value)
     void* pool = is_k ? pool_k : pool_v;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      qkv::store_pool(pool, pool_bf16, off + e, r1[e]);
-      qkv::store_pool(pool, pool_bf16, off + half + e, r2[e]);
+      qkv::store_pool(pool, pool_dt, off + e, r1[e]);
+      qkv::store_pool(pool, pool_dt, off + half + e, r2[e]);
     }
   }
   if (!quant) return;
@@ -244,7 +246,7 @@ template <int NT>
 int run_nt(const __nv_bfloat16* x, long long ldx, const void* nw,
            int nw_bf16, const int8_t* wq, const float* ws,
            const float* sin_t, const float* cos_t, void* pool_k,
-           void* pool_v, float* pool_ks, float* pool_vs, int pool_bf16,
+           void* pool_v, float* pool_ks, float* pool_vs, int pool_dt,
            __nv_bfloat16* q_out, const int* tables, const int* positions,
            int layer, int num_pages1, int kvn, int ps, int mp, int b, int h,
            int n_heads, int d, float eps, __nv_bfloat16* xn, float* work,
@@ -259,7 +261,7 @@ int run_nt(const __nv_bfloat16* x, long long ldx, const void* nw,
   const int nq = (n_heads + 2 * kvn) * d;
   const dim3 grid(nq / 128, (h + kch - 1) / kch);
   kern<<<grid, i8m::THREADS, SMEM, st>>>(
-      xn, wq, ws, sin_t, cos_t, pool_k, pool_v, pool_ks, pool_vs, pool_bf16,
+      xn, wq, ws, sin_t, cos_t, pool_k, pool_v, pool_ks, pool_vs, pool_dt,
       q_out, tables, positions, layer, num_pages1, kvn, ps, mp, b, h,
       n_heads, d, kch, work);
   return (int)cudaGetLastError();
@@ -270,22 +272,23 @@ int run_nt(const __nv_bfloat16* x, long long ldx, const void* nw,
 extern "C" {
 
 // x: [b, h] bf16 at row stride ldx (b <= 64); nw: the layer's norm weight
-// [h] (f32, or bf16 when nw_bf16); wq: the layer's [h, (n_heads + 2 kvn)
-// d] int8 with ws its f32 scales; sin/cos: [b, d/2] f32; pools: [L,
-// num_pages1, kvn, ps, d] (f32, or bf16 when pool_bf16), written at pool
-// layer kv_layer, with tables [b, mp] int32; tables null: the dense arena
-// [L, num_pages1 >= b, kvn, ps = Smax, d], x row r into arena row r;
-// pool_ks/pool_vs: null, or (INT8 KV, paged) the f32 scale pools [L,
-// num_pages1, kvn, ps] of int8 pools; positions: [b] int32; q_out: [b,
-// n_heads, d] bf16; xn: [b, h] bf16 scratch; work: ceil(h / kch) * b * nq
-// floats when K is split (null otherwise). h a multiple of 64, nq =
-// (n_heads + 2 kvn) d of 128, d 32, 64 or 128; kch: H rows a block, a
-// multiple of 64. wq, ws, sin, cos and work 16-byte aligned.
+// [h] (f32, or bf16 when nw_bf16); wq: the layer's [h, (n_heads + 2 kvn) d]
+// int8 with ws its f32 scales; sin/cos: [b, d/2] f32; pools: [L,
+// num_pages1, kvn, ps, d] of pool_dt (SLI_POOL_F32, _BF16, or _E4M3: form
+// 6e, paged only), written at pool layer kv_layer, with tables [b, mp]
+// int32; tables null: the dense arena [L, num_pages1 >= b, kvn, ps = Smax,
+// d], x row r into arena row r; pool_ks/pool_vs: null, or (INT8 KV, paged)
+// the f32 scale pools [L, num_pages1, kvn, ps] of int8 pools; positions:
+// [b] int32; q_out: [b, n_heads, d] bf16; xn: [b, h] bf16 scratch; work:
+// ceil(h / kch) * b * nq floats when K is split (null otherwise). h a
+// multiple of 64, nq = (n_heads + 2 kvn) d of 128, d 32, 64 or 128; kch: H
+// rows a block, a multiple of 64. wq, ws, sin, cos and work 16-byte
+// aligned.
 int sli_qkv_fused_mma(const void* x, long long ldx, const void* nw,
                       int nw_bf16, const void* wq, const float* ws,
                       const float* sin_t, const float* cos_t, void* pool_k,
                       void* pool_v, void* pool_ks, void* pool_vs,
-                      int pool_bf16, void* q_out, const int* tables,
+                      int pool_dt, void* q_out, const int* tables,
                       const int* positions, int kv_layer, int num_pages1,
                       int kvn, int ps, int mp, int b, int h, int n_heads,
                       int d, float eps, void* xn, float* work, int kch,
@@ -297,6 +300,9 @@ int sli_qkv_fused_mma(const void* x, long long ldx, const void* nw,
   const int nq = (n_heads + 2 * kvn) * d;
   if (nq % 128 || nq / 128 > QKV_MAX_TILES) return SLI_ERR_SHAPE;
   if ((pool_ks == nullptr) != (pool_vs == nullptr)) return SLI_ERR_SHAPE;
+  if (!qkv::pool_ok(pool_dt, pool_ks != nullptr) ||
+      (tables == nullptr && pool_dt == SLI_POOL_E4M3))
+    return SLI_ERR_DTYPE;
   if (pool_ks != nullptr && tables == nullptr) return SLI_ERR_SHAPE;
   if (tables == nullptr && b > num_pages1) return SLI_ERR_SHAPE;
   if (kch < h && work == nullptr) return SLI_ERR_SHAPE;
@@ -315,7 +321,7 @@ int sli_qkv_fused_mma(const void* x, long long ldx, const void* nw,
 #define SLI_QKV_NT(NT)                                                        \
   case NT:                                                                    \
     return run_nt<NT>(xb, ldx, nw, nw_bf16, w, ws, sin_t, cos_t, pool_k,      \
-                      pool_v, ks, vs, pool_bf16, qo, tables, positions,       \
+                      pool_v, ks, vs, pool_dt, qo, tables, positions,       \
                       kv_layer, num_pages1, kvn, ps, mp, b, h, n_heads, d,    \
                       eps, xnb, work, kch, st);
     SLI_QKV_NT(1)

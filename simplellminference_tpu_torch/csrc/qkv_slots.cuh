@@ -1,5 +1,8 @@
 // Where kernel 6's k/v rows go: the slot of a token in the paged pools or
-// the dense arena, and a store in the pool's dtype. Shared by the FMA
+// the dense arena, and a store in the pool's dtype (f32, bf16, or e4m3 with
+// the JAX package's rounding: form 6e, the k/v rows rounded from f32 to
+// the pool dtype once, as the TPU kernel's slabs are, qkv_fused.py:155-158,
+// :370-371). Shared by the FMA
 // kernel (qkv_fused.cu) and the tensor-core one (qkv_fused_mma.cu).
 #pragma once
 
@@ -33,13 +36,25 @@ __device__ __forceinline__ long long slot_row(const int* __restrict__ tables,
   return (((long long)layer * num_pages1 + page) * kvn + kh) * ps + slot;
 }
 
-__device__ __forceinline__ void store_pool(void* pool, int bf16, long long i,
-                                           float v) {
-  if (bf16) {
+// pool_dt: SLI_POOL_F32, SLI_POOL_BF16 or SLI_POOL_E4M3 (INT8 pools are
+// quantized by the kernels' own pass, not through here).
+__device__ __forceinline__ void store_pool(void* pool, int pool_dt,
+                                           long long i, float v) {
+  if (pool_dt == SLI_POOL_BF16) {
     reinterpret_cast<__nv_bfloat16*>(pool)[i] = __float2bfloat16(v);
+  } else if (pool_dt == SLI_POOL_E4M3) {
+    reinterpret_cast<unsigned char*>(pool)[i] = sli::f_to_e4m3(v);
   } else {
     reinterpret_cast<float*>(pool)[i] = v;
   }
+}
+
+// A pool dtype code the kernels take: f32, bf16 or e4m3 without scale
+// pools, int8 with them.
+__host__ inline bool pool_ok(int pool_dt, bool scales) {
+  return scales ? pool_dt == SLI_POOL_I8
+                : (pool_dt == SLI_POOL_F32 || pool_dt == SLI_POOL_BF16 ||
+                   pool_dt == SLI_POOL_E4M3);
 }
 
 }  // namespace qkv

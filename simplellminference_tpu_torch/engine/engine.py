@@ -60,11 +60,15 @@ Sq % 128 gate, and the port's ``paged_flash_prefill`` takes any Sq.
 
 The engine serves whatever weights ``params`` carries (bf16/f32, or INT8
 ``QuantizedWeight`` leaves); like the JAX engine it never reads
-``EngineConfig.quant``. KV storage is bf16, f32 or INT8
-(``kv_dtype="int8"``: int8 pools with per-token-per-head f32 scale pools
-at the same page ids, so prefix sharing, the persistent store and
-preemption move scales with their pages and need nothing more, as in the
-JAX engine, which never touches ``k_scale`` past creating it).
+``EngineConfig.quant``. KV storage is bf16, f32, FP8 (``kv_dtype="fp8"``:
+float8_e4m3fn pools, no scales, rows cast with the JAX package's rounding)
+or INT8 (``kv_dtype="int8"``: int8 pools with per-token-per-head f32
+scale pools at the same page ids, so prefix sharing, the persistent store
+and preemption move scales with their pages and need nothing more, as in
+the JAX engine, which never touches ``k_scale`` past creating it). FP8 KV
+with sliding windows raises (the window kernels take no e4m3 pools). The
+JAX engine's warning that FP8 KV is slow on a TPU v5e (engine.py:466-476)
+is a claim about that chip and is not carried over.
 
 Sliding-window models (Mistral's ``sliding_window``, alternating
 ``layer_types``) with ``KVCacheConfig.sliding_reclaim`` (the default) and
@@ -129,9 +133,7 @@ def _check_engine_config(ec: EngineConfig) -> None:
         raise NotImplementedError("sequence-parallel prefill")
     if ec.mesh_shape and int(np.prod(list(ec.mesh_shape.values()))) > 1:
         raise NotImplementedError("tensor-parallel serving (mesh_shape)")
-    if ec.kv.kv_dtype == "fp8":
-        raise NotImplementedError("FP8 KV cache (kv_dtype='fp8')")
-    if ec.kv.kv_dtype not in ("bf16", "f32", "int8"):
+    if ec.kv.kv_dtype not in ("bf16", "f32", "fp8", "int8"):
         raise NotImplementedError(f"{ec.kv.kv_dtype} KV cache")
 
 
@@ -158,6 +160,9 @@ class Engine:
         windows instead of prompt lookup; needs ``spec_tokens`` >= 1."""
         _check_engine_config(engine_cfg)
         llama.check_supported(cfg)
+        if engine_cfg.kv.kv_dtype == "fp8" and any(
+                w is not None for w in cfg.layer_windows):
+            raise NotImplementedError("FP8 KV with sliding windows")
         if draft is not None:
             if engine_cfg.spec_tokens < 1:
                 raise ValueError("draft-model speculation needs "

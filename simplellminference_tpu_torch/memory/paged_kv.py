@@ -1,18 +1,22 @@
 """Device-side paged KV cache: page pools + block-table indexed access.
 
 Counterpart of simplellminference_tpu/memory/paged_kv.py:47-415 for bf16,
-f32 and INT8 storage. Pool layout k/v [L, num_pages + 1, kvN, page_size,
-D]: the last page row is the TRASH page, which unmapped (-1) table
-entries write to and the allocator never hands out, so pools compare page
-for page with the JAX package's. INT8 pools carry per-token-per-head f32
-scale pools k/v_scale [L, num_pages + 1, kvN, page_size] at the same page
-ids, written beside the codes and read back through the same tables.
+f32, FP8 (float8_e4m3fn, no scale pools: the rows are cast with the JAX
+package's rounding, ``ops.ref_ops.to_e4m3``) and INT8 storage. Pool layout
+k/v [L, num_pages + 1, kvN, page_size, D]: the last page row is the TRASH
+page, which unmapped (-1) table entries write to and the allocator never
+hands out, so pools compare page for page with the JAX package's. INT8
+pools carry per-token-per-head f32 scale pools k/v_scale [L, num_pages +
+1, kvN, page_size] at the same page ids, written beside the codes and read
+back through the same tables.
 
 The windowed group (paged_kv.py:71-119, the grouped engine's
 sliding-window KV reclamation): models with sliding layers keep those
 layers' KV in separate pools k_w/v_w [Lw, Pw+1, kvN, ps, D] (with
 k_w_scale/v_w_scale for INT8 KV), Pw = max_batch * R ring pages, which
-the engine addresses through static per-slot ring tables.
+the engine addresses through static per-slot ring tables. FP8 KV with
+sliding windows is not ported (the window forms of the attention kernels
+take no e4m3 pools) and raises.
 
 The pools are updated IN PLACE by the write functions (the JAX package
 donates the cache to its jitted graphs and the Pallas kernels alias it);
@@ -63,11 +67,9 @@ class PagedKVCache:
                shared_kv: bool = False, device=None) -> "PagedKVCache":
         """Allocates ``num_pages`` usable pages + one trash page, zeroed,
         on ``device`` (CUDA unless ``device="cpu"``); int8 pools get zeroed
-        scale pools."""
+        scale pools, float8_e4m3fn pools none."""
         if shared_kv:
             raise NotImplementedError("shared-KV pools (absorbed MLA)")
-        if dtype == torch.float8_e4m3fn:
-            raise NotImplementedError("FP8 KV storage (kv_dtype='fp8')")
         dev = resolve_device(device)
         shape = (num_layers, num_pages + 1, num_kv_heads, page_size,
                  head_dim)
@@ -86,7 +88,10 @@ class PagedKVCache:
         """This cache with a windowed-group pool set attached: zeroed
         [Lw, Pw+1, kvN, ps, D] pools (the usual trash page last) of this
         cache's geometry, dtype and device, and zeroed f32 scale pools for
-        int8 storage."""
+        int8 storage. FP8 storage raises: the window forms of the
+        attention kernels take no e4m3 pools."""
+        if self.k.dtype == torch.float8_e4m3fn:
+            raise NotImplementedError("FP8 KV with sliding windows")
         _, _, kvn, ps, d = self.k.shape
         shape = (num_layers_w, num_pages_w + 1, kvn, ps, d)
 
@@ -120,8 +125,10 @@ def write_prefill_stacked(pool_k, pool_v, new_k, new_v, tables, layer: int,
     column to write, a scalar or [B]: chunks and prefix-cached suffixes
     start at their own page-aligned offsets) a chunk. Table columns past
     the width map to -1, the trash page. With scale pools the rows are
-    quantized (:func:`quantize_kv`). Returns (pool_k, pool_v, pool_ks,
-    pool_vs), updated in place (the scale pools None without them)."""
+    quantized (:func:`quantize_kv`); into e4m3 pools they are converted
+    with the JAX package's rounding (kernel 2e). Returns (pool_k, pool_v,
+    pool_ks, pool_vs), updated in place (the scale pools None without
+    them)."""
     if page_offset is not None:
         b, mp = tables.shape
         npg = -(-new_k.shape[1] // pool_k.shape[3])
@@ -143,8 +150,9 @@ def write_prefill_stacked(pool_k, pool_v, new_k, new_v, tables, layer: int,
 def write_decode_stacked(pool_k, pool_v, new_k, new_v, tables, positions,
                          layer: int, pool_ks=None, pool_vs=None):
     """Stacked-pool decode write: one token per sequence at ``layer``,
-    quantized when scale pools are given. Returns (pool_k, pool_v,
-    pool_ks, pool_vs), updated in place."""
+    quantized when scale pools are given, converted into e4m3 pools
+    (kernel 1e). Returns (pool_k, pool_v, pool_ks, pool_vs), updated in
+    place."""
     if pool_ks is not None or pool_vs is not None:
         return paged_append_decode_quant(pool_k, pool_v, pool_ks, pool_vs,
                                          new_k, new_v, tables, positions,
@@ -159,12 +167,12 @@ def write_span_stacked(pool_k, pool_v, new_k, new_v, tables, positions,
     """Write T consecutive tokens per sequence at ``positions`` (the
     speculative verify step; new_k/v [B, T, kvN, D], T <= 8), quantized
     when scale pools are given. bf16/f32 pools take kernel 11
-    (:func:`paged_append_span`); INT8 pools quantize with
-    :func:`quantize_kv` and write codes and scales by indexed assignment,
-    plain torch operations on every device, as the JAX package leaves
-    them to XLA (paged_kv.py:363-374). Unmapped pages and columns past the
-    table go to the trash page. Returns (pool_k, pool_v, pool_ks,
-    pool_vs), updated in place."""
+    (:func:`paged_append_span`), e4m3 pools its form 11e; INT8 pools
+    quantize with :func:`quantize_kv` and write codes and scales by
+    indexed assignment, plain torch operations on every device, as the JAX
+    package leaves them to XLA (paged_kv.py:363-374). Unmapped pages and
+    columns past the table go to the trash page. Returns (pool_k, pool_v,
+    pool_ks, pool_vs), updated in place."""
     if pool_ks is None and pool_vs is None:
         pk, pv = paged_append_span(pool_k, pool_v, new_k, new_v, tables,
                                    positions, layer)
@@ -186,7 +194,8 @@ def gather_dense(pool_k: torch.Tensor, pool_v: torch.Tensor,
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Reference path: gather pages into a dense [B, kvN, MP*ps, D] view,
     dequantizing int8 storage through the scale pools (f32 codes x
-    scale, in f32).
+    scale, in f32); e4m3 storage comes back as its exact f32 values (JAX
+    gathers the e4m3 values, which its callers cast).
 
     pool_k/v: one layer, [P, kvN, ps, D] (scale pools [P, kvN, ps]).
     Unmapped (-1) pages come back as zeros, which is what the attention
@@ -203,6 +212,8 @@ def gather_dense(pool_k: torch.Tensor, pool_v: torch.Tensor,
 
     def g(pool, scales):
         x = pool[safe]
+        if x.dtype == torch.float8_e4m3fn:
+            x = x.float()
         if scales is not None:
             x = x.float() * scales[safe][..., None]
         x = torch.where(valid[:, None, None, None], x,

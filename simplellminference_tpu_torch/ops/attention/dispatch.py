@@ -5,7 +5,8 @@ Counterpart of simplellminference_tpu/ops/attention/dispatch.py:68-137,
 wrapper launches its CUDA kernel for CUDA tensors and takes its plain
 version for CPU tensors, so on the card every call goes through a kernel.
 INT8-KV pools pass their scale pools (``pool_ks``/``pool_vs``) on to the
-paged kernels, and a sliding window (``cfg.sliding_window``, or the
+paged kernels, FP8 (e4m3) pools go, by their dtype, to the kernels'
+FP8-KV forms (4e, 4ve, 8e), and a sliding window (``cfg.sliding_window``, or the
 per-layer ``window`` a caller passes for ``layer_types`` stacks) goes to
 each kernel's window form. Attention options the kernels do not take yet
 (logit soft cap, sinks) raise; so does a window on the dense arena

@@ -6,26 +6,34 @@ Counterpart of simplellminference_tpu/ops/attention/paged_decode.py:165
 (``paged_flash_decode``, one query row per sequence) and :136
 (``paged_flash_verify``, the same kernel with ``wins = S``: row s sits at
 position kv_len - S + s and attends the keys up to it), over bf16/f32
-pools or INT8 pools with their per-token-per-head scale pools
-(``k_scale``/``v_scale``). For CUDA tensors the wrappers launch the
-hand-written kernel of ``csrc/paged_decode.cu``: the live keys of each
-sequence split over blocks (flash-decoding; :func:`decode_splits` picks
-the number of splits from shapes alone, :func:`split_keys` is the cut a
-block makes), each block holding every query row of its GQA group and
-window (up to 32 rows), page ids read from the table in the block, f32
-online softmax over its keys, f32 partials merged by log-sum-exp in a
-second small kernel. Each form has its own launch count and a wrapper of
-its name (:func:`paged_flash_decode`, :func:`paged_flash_decode_int8kv`,
-:func:`paged_flash_verify`, :func:`paged_flash_verify_int8kv`), and a
-call counts as one launch of the form its options name. For CPU
-tensors they run the plain versions, the gather (+ dequant) + mask +
-dense reference path of the JAX dispatcher (dispatch.py:239-269).
+pools, FP8 (float8_e4m3fn) pools, or INT8 pools with their
+per-token-per-head scale pools (``k_scale``/``v_scale``). For CUDA tensors
+the wrappers launch the hand-written kernel of ``csrc/paged_decode.cu``:
+the live keys of each sequence split over blocks (flash-decoding;
+:func:`decode_splits` picks the number of splits from shapes alone,
+:func:`split_keys` is the cut a block makes), each block holding every
+query row of its GQA group and window (up to 32 rows), page ids read from
+the table in the block, f32 online softmax over its keys, f32 partials
+merged by log-sum-exp in a second small kernel. Each form has its own
+launch count and a wrapper of its name (:func:`paged_flash_decode`,
+:func:`paged_flash_decode_int8kv`, :func:`paged_flash_decode_fp8kv`,
+:func:`paged_flash_verify`, :func:`paged_flash_verify_int8kv`,
+:func:`paged_flash_verify_fp8kv`), and a call counts as one launch of the
+form its options and pools name. For CPU tensors they run the plain
+versions, the gather (+ dequant) + mask + dense reference path of the JAX
+dispatcher (dispatch.py:239-269).
 
 INT8 KV: the kernel dequantizes late, as the TPU kernel does
 (paged_decode.py:84-89, :116-120): the K scale multiplies each score after
 q.k, the V scale folds into p before the PV product, so the int8 codes
 enter the dot products as exact floats. The plain version dequantizes the
 gathered pages to f32 first; the two agree to f32 rounding.
+
+FP8 KV (forms 4e and 4ve, e4m3 pools with bf16 or f32 q): the TPU kernel
+casts each e4m3 element straight to f32 (paged_decode.py:79-80, :113);
+the kernel converts each staged code exactly in registers, the plain
+version gathers the exact f32 values. The window forms take no e4m3
+pools: a window with e4m3 pools raises (ROADMAP: still to port).
 
 The sliding-window forms (``window``: row s attends keys with row_pos -
 k_pos < window; paged_decode.py:73-75, :98-101) walk the keys from the
@@ -109,6 +117,11 @@ def workspace(b: int, rows: int, d: int, splits: int, device):
                        device=device)
 
 
+def _check_fp8_window(k_pool, window):
+    if window is not None and k_pool.dtype == torch.float8_e4m3fn:
+        raise NotImplementedError("FP8 KV with sliding windows")
+
+
 def _check_scales(k_pool, v_pool, k_scale, v_scale) -> bool:
     """True for INT8 pools with scale pools (checked), False without."""
     if k_scale is None and v_scale is None:
@@ -159,9 +172,10 @@ def _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
 def paged_flash_decode_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
                            sm_scale: float | None = None, k_scale=None,
                            v_scale=None, window=None) -> torch.Tensor:
-    """Plain version of :func:`paged_flash_decode` and its INT8-KV and
-    window forms: keys at positions < kv_len (and >= kv_len - window);
+    """Plain version of :func:`paged_flash_decode` and its INT8-KV, FP8-KV
+    and window forms: keys at positions < kv_len (and >= kv_len - window);
     q: [B, N, D] -> [B, N, D]."""
+    _check_fp8_window(k_pool, window)
     if q.is_cuda:
         paged_flash_decode_ref.cuda_calls += 1
     return _attend_ref(q[:, None], k_pool, v_pool, tables, kv_lens, layer,
@@ -174,10 +188,11 @@ paged_flash_decode_ref.cuda_calls = 0
 def paged_flash_verify_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
                            sm_scale: float | None = None, k_scale=None,
                            v_scale=None, window=None) -> torch.Tensor:
-    """Plain version of :func:`paged_flash_verify` and its INT8-KV and
-    window forms, the gather + mask + reference attention of the JAX
+    """Plain version of :func:`paged_flash_verify` and its INT8-KV, FP8-KV
+    and window forms, the gather + mask + reference attention of the JAX
     dispatcher's S > 1 branch (dispatch.py:239-269).
     q: [B, S, N, D] -> [B, S, N, D]."""
+    _check_fp8_window(k_pool, window)
     if q.is_cuda:
         paged_flash_verify_ref.cuda_calls += 1
     return _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
@@ -191,11 +206,12 @@ def paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer: int,
                        sm_scale: float | None = None, k_scale=None,
                        v_scale=None, window=None) -> torch.Tensor:
     """q: [B, N, D]; k/v_pool: stacked [L, P+1, kvN, ps, D] with an int
-    ``layer`` (int8 with f32 ``k_scale``/``v_scale`` [L, P+1, kvN, ps]
-    for INT8 KV); tables: [B, MP] int32 (-1 = unmapped); kv_lens: [B] ->
-    out [B, N, D] in q's dtype. Keys are positions < min(kv_len, MP*ps),
-    and >= kv_len - ``window`` with a sliding window. The launch counts
-    as the form the options name (4, 4q, 4w, 4qw)."""
+    ``layer`` (q's dtype, float8_e4m3fn for FP8 KV, or int8 with f32
+    ``k_scale``/``v_scale`` [L, P+1, kvN, ps] for INT8 KV); tables:
+    [B, MP] int32 (-1 = unmapped); kv_lens: [B] -> out [B, N, D] in q's
+    dtype. Keys are positions < min(kv_len, MP*ps), and >= kv_len -
+    ``window`` with a sliding window. The launch counts as the form the
+    options and pools name (4, 4q, 4e, 4w, 4qw)."""
     return _run("paged_flash_decode", q[:, None], k_pool, v_pool, k_scale,
                 v_scale, tables, kv_lens, layer, sm_scale, window)[:, 0]
 
@@ -208,8 +224,8 @@ def paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer: int,
     the keys at positions <= that one, through the same page walk as
     :func:`paged_flash_decode` (KV traffic of one decode step). Pools,
     tables, scale pools and ``window`` as there; out [B, S, N, D] in q's
-    dtype. The launch counts as the form the options name (4v, 4vq, 4vw,
-    4vqw)."""
+    dtype. The launch counts as the form the options and pools name (4v,
+    4vq, 4ve, 4vw, 4vqw)."""
     return _run("paged_flash_verify", q, k_pool, v_pool, k_scale, v_scale,
                 tables, kv_lens, layer, sm_scale, window)
 
@@ -242,6 +258,32 @@ def paged_flash_decode_int8kv_window(q, k_pool, v_pool, k_scale, v_scale,
     check_scale_pools(k_pool, v_pool, k_scale, v_scale)
     return paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer,
                               sm_scale, k_scale, v_scale, window_size(window))
+
+
+def paged_flash_decode_fp8kv(q, k_pool, v_pool, tables, kv_lens,
+                             layer: int,
+                             sm_scale: float | None = None) -> torch.Tensor:
+    """4e: :func:`paged_flash_decode` of q [B, N, D] bf16 or f32 against
+    float8_e4m3fn pools (no scales); out in q's dtype."""
+    _check_e4m3(k_pool, v_pool)
+    return paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer,
+                              sm_scale)
+
+
+def paged_flash_verify_fp8kv(q, k_pool, v_pool, tables, kv_lens,
+                             layer: int,
+                             sm_scale: float | None = None) -> torch.Tensor:
+    """4ve: :func:`paged_flash_verify` of q [B, S, N, D] bf16 or f32
+    against float8_e4m3fn pools (no scales)."""
+    _check_e4m3(k_pool, v_pool)
+    return paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer,
+                              sm_scale)
+
+
+def _check_e4m3(k_pool, v_pool):
+    if (k_pool.dtype != torch.float8_e4m3fn
+            or v_pool is None or v_pool.dtype != torch.float8_e4m3fn):
+        raise ValueError("the FP8-KV forms take float8_e4m3fn pools")
 
 
 def paged_flash_verify_window(q, k_pool, v_pool, tables, kv_lens,
@@ -277,10 +319,10 @@ def paged_flash_verify_int8kv_window(q, k_pool, v_pool, k_scale, v_scale,
 
 # name -> the form whose launch count a call adds to
 _FORMS = {f.__name__: f for f in (
-    paged_flash_decode, paged_flash_decode_int8kv, paged_flash_decode_window,
-    paged_flash_decode_int8kv_window, paged_flash_verify,
-    paged_flash_verify_int8kv, paged_flash_verify_window,
-    paged_flash_verify_int8kv_window)}
+    paged_flash_decode, paged_flash_decode_int8kv, paged_flash_decode_fp8kv,
+    paged_flash_decode_window, paged_flash_decode_int8kv_window,
+    paged_flash_verify, paged_flash_verify_int8kv, paged_flash_verify_fp8kv,
+    paged_flash_verify_window, paged_flash_verify_int8kv_window)}
 for _f in _FORMS.values():
     _f.launches = 0
 
@@ -290,10 +332,11 @@ def _run(name, q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
     """Every form's body on q [B, S, N, D]: the plain version for CPU
     tensors; for CUDA tensors the kernel, one launch added to the count
     of the form the options name (``name``, ``_int8kv`` with scale pools,
-    ``_window`` with a window)."""
+    ``_fp8kv`` with e4m3 pools, ``_window`` with a window)."""
     if v_pool is None:
         raise NotImplementedError("shared-KV pools (absorbed MLA)")
     quant = _check_scales(k_pool, v_pool, k_scale, v_scale)
+    _check_fp8_window(k_pool, window)
     if window is not None:
         window = window_size(window)
     if not q.is_cuda:
@@ -303,7 +346,9 @@ def _run(name, q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
         _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale)
     else:
         _check_float_pools(q, k_pool, v_pool)
-    form = _FORMS[name + "_int8kv" * quant + "_window" * (window is not None)]
+    fp8 = k_pool.dtype == torch.float8_e4m3fn
+    form = _FORMS[name + "_int8kv" * quant + "_fp8kv" * fp8
+                  + "_window" * (window is not None)]
     out = _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
                   layer, sm_scale, window or 0, form.__name__)
     form.launches += 1
@@ -311,7 +356,12 @@ def _run(name, q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
 
 
 def _check_float_pools(q, k_pool, v_pool):
-    if not (q.dtype == k_pool.dtype == v_pool.dtype):
+    """Pools of q's dtype, or float8_e4m3fn pools (FP8 KV) under bf16 or
+    f32 q."""
+    if k_pool.dtype != v_pool.dtype or not (
+            q.dtype == k_pool.dtype or (k_pool.dtype == torch.float8_e4m3fn
+                                        and q.dtype in (torch.bfloat16,
+                                                        torch.float32))):
         raise NotImplementedError(
             f"q {q.dtype} with {k_pool.dtype} pools (quantized KV)")
 
@@ -364,6 +414,7 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
         tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
         0 if part is None else part.data_ptr(), b, layer, p1, kvn, ps, mp,
         n // kvn, s, d, window, splits, scale, code,
+        cuda_build.pool_code(k_pool.dtype),
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, rc, what)
     return out

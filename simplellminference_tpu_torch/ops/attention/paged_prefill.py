@@ -27,6 +27,15 @@ bf16 q the JAX CPU path keeps f32 K/V, and the rounding moved the
 outputs by up to 0.25 at the card tests' shapes (NVIDIA H100 80GB HBM3,
 700.00 W), so the plain version repeats the kernel's rounding instead.
 
+FP8 KV (float8_e4m3fn pools, no scales; the TPU kernel casts its page
+slabs to q's dtype, paged_prefill.py:108-110): form 8e,
+:func:`paged_flash_prefill_fp8kv`, with its own launch count. With bf16 q
+the tensor-core kernel converts each staged e4m3 row exactly to bf16 where
+INT8 KV dequantizes; with f32 q the FMA kernel reads each code exactly as
+f32; the plain version gathers the exact values and casts them to q's
+dtype (exact too). The window forms take no e4m3 pools: a window with
+e4m3 pools raises.
+
 The kernel takes every Sq (the TPU kernel needs Sq % bq == 0, and its
 dispatcher Sq % 128 == 0). ``bq`` and ``pages_per_block``, the TPU's MXU
 block knobs (paged_prefill.py:13-21, :180-182), have no counterpart.
@@ -54,7 +63,7 @@ from simplellminference_tpu_torch.ops.attention import prefill_tiles
 from simplellminference_tpu_torch.ops.attention.flash_prefill import (
     heads_contiguous, window_size)
 from simplellminference_tpu_torch.ops.attention.paged_decode import (
-    band_tables)
+    _check_e4m3, _check_float_pools, band_tables)
 from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
 HEAD_DIMS = (32, 64, 128)
@@ -68,6 +77,8 @@ def _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
         raise NotImplementedError("shared-KV pools (absorbed MLA)")
     if window is not None:
         window_size(window)
+        if k_pool.dtype == torch.float8_e4m3fn:
+            raise NotImplementedError("FP8 KV with sliding windows")
     if logit_cap:
         raise NotImplementedError("attention logit soft cap")
     if sinks is not None:
@@ -99,7 +110,7 @@ def paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
     ck, cv = gather_dense(k_pool[layer], v_pool[layer], tables,
                           k_scale[layer] if quant else None,
                           v_scale[layer] if quant else None)
-    if quant:
+    if quant or k_pool.dtype == torch.float8_e4m3fn:
         ck, cv = ck.to(q.dtype), cv.to(q.dtype)
     smax = ck.shape[2]
     s = q.shape[1]
@@ -122,13 +133,15 @@ def paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
                         window=None, logit_cap=None, sinks=None,
                         k_scale=None, v_scale=None) -> torch.Tensor:
     """q: [B, Sq, N, D] at absolute positions chunk_offset[b] + 0..Sq-1;
-    k/v_pool: stacked [L, P+1, kvN, ps, D] with an int ``layer`` (int8
-    with f32 ``k_scale``/``v_scale`` [L, P+1, kvN, ps] for INT8 KV);
+    k/v_pool: stacked [L, P+1, kvN, ps, D] with an int ``layer`` (q's
+    dtype, float8_e4m3fn for FP8 KV, or int8 with f32
+    ``k_scale``/``v_scale`` [L, P+1, kvN, ps] for INT8 KV);
     tables: [B, MP] int32 (-1 = unmapped); kv_lens: [B] valid tokens
     after the chunk's write; chunk_offset: [B] -> out [B, Sq, N, D] in q's
     dtype. Keys are positions < min(kv_len, MP*ps) up to each row's
     position, and within ``window`` of it with a sliding window. The
-    launch counts as the form the options name (8, 8q, 8w, 8qw)."""
+    launch counts as the form the options and pools name (8, 8q, 8e, 8w,
+    8qw)."""
     quant = _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
                            v_scale)
     if window is not None:
@@ -142,7 +155,9 @@ def paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
         _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale)
     else:
         _check_float_pools(q, k_pool, v_pool)
-    form = _FORMS[quant, window is not None]
+    kind = ("int8kv" if quant else "fp8kv"
+            if k_pool.dtype == torch.float8_e4m3fn else "")
+    form = _FORMS[kind, window is not None]
     out = _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
                   chunk_offset, layer, sm_scale, window or 0, form.__name__)
     form.launches += 1
@@ -182,19 +197,24 @@ def paged_flash_prefill_int8kv_window(q, k_pool, v_pool, k_scale, v_scale,
                                v_scale=v_scale)
 
 
-# (INT8 KV, sliding window) -> the form whose launch count a call adds to
-_FORMS = {(False, False): paged_flash_prefill,
-          (False, True): paged_flash_prefill_window,
-          (True, False): paged_flash_prefill_int8kv,
-          (True, True): paged_flash_prefill_int8kv_window}
+def paged_flash_prefill_fp8kv(q, k_pool, v_pool, tables, kv_lens,
+                              chunk_offset, layer: int,
+                              sm_scale: float | None = None) -> torch.Tensor:
+    """8e: :func:`paged_flash_prefill` of q [B, Sq, N, D] bf16 or f32
+    against float8_e4m3fn pools (no scales); out in q's dtype."""
+    _check_e4m3(k_pool, v_pool)
+    return paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens,
+                               chunk_offset, layer, sm_scale)
+
+
+# (KV kind, sliding window) -> the form whose launch count a call adds to
+_FORMS = {("", False): paged_flash_prefill,
+          ("", True): paged_flash_prefill_window,
+          ("int8kv", False): paged_flash_prefill_int8kv,
+          ("int8kv", True): paged_flash_prefill_int8kv_window,
+          ("fp8kv", False): paged_flash_prefill_fp8kv}
 for _f in _FORMS.values():
     _f.launches = 0
-
-
-def _check_float_pools(q, k_pool, v_pool):
-    if not (q.dtype == k_pool.dtype == v_pool.dtype):
-        raise NotImplementedError(
-            f"q {q.dtype} with {k_pool.dtype} pools (quantized KV)")
 
 
 def _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale):
@@ -244,6 +264,7 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
         0 if v_scale is None else v_scale.data_ptr(), tables.data_ptr(),
         kv_lens.data_ptr(), offs.data_ptr(), out.data_ptr(), b, s, n, layer,
         p1, kvn, ps, tables.shape[1], n // kvn, d, window, scale, code,
+        cuda_build.pool_code(k_pool.dtype),
         0 if work is None else work.data_ptr(), splits,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, rc, what)

@@ -42,6 +42,10 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _I, _P],
     "sli_paged_append_prefill": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _P],
+    "sli_paged_append_span_e4m3": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _I,
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sli_paged_append_prefill_e4m3": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _I,
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sli_paged_append_decode_quant": [_P, _P, _P, _P, _P, _P, _L, _L, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sli_paged_append_prefill_quant": [_P, _P, _P, _P, _P, _P, _L, _L, _L,
@@ -51,10 +55,10 @@ _SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _F, _I, _P, _I, _P],
     "sli_paged_flash_decode": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                               _F, _I, _P],
+                               _F, _I, _I, _P],
     "sli_paged_flash_prefill": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                _F, _I, _P, _I, _P],
+                                _F, _I, _I, _P, _I, _P],
     "sli_quantized_matmul": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P],
     "sli_quantized_matmul_mma": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -96,6 +100,8 @@ _SIGNATURES = {
 }
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+# KV pool dtypes (common.cuh SLI_POOL_*), apart from the activation codes
+POOL_CODES = {"float32": 0, "bfloat16": 1, "int8": 2, "float8_e4m3fn": 3}
 
 _lock = threading.Lock()
 _lib = None
@@ -215,3 +221,13 @@ def dtype_code(dtype) -> int:
     if name not in DTYPE_CODES:
         raise TypeError(f"CUDA kernels take float32 or bfloat16, not {name}")
     return DTYPE_CODES[name]
+
+
+def pool_code(dtype) -> int:
+    """The code of a KV pool dtype: f32, bf16, int8 (with scale pools) or
+    float8_e4m3fn (FP8 KV)."""
+    name = str(dtype).replace("torch.", "")
+    if name not in POOL_CODES:
+        raise TypeError(f"KV pools are float32, bfloat16, int8 or "
+                        f"float8_e4m3fn, not {name}")
+    return POOL_CODES[name]

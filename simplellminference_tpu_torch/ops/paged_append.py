@@ -1,6 +1,7 @@
 """In-place paged KV writes: one decode row per sequence, a span of T <= 8
 consecutive rows per sequence (speculative verify), and whole prompt pages
-at prefill, into bf16/f32 pools or, quantizing, into INT8 pools.
+at prefill, into bf16/f32 pools, FP8 (e4m3) pools or, quantizing, into
+INT8 pools.
 
 Counterpart of simplellminference_tpu/ops/paged_append.py:54, :129, :392
 (bf16 and f32 pools) and :210, :295 (the ``*_quant`` forms for INT8 pools
@@ -18,6 +19,18 @@ An unmapped (-1) table entry, or a column past the table, writes to the
 TRASH page — the pool's last page row, which the allocator never hands
 out — as the TPU kernels and the JAX scatter (where -1 wraps to the last
 row) both do.
+
+FP8 (float8_e4m3fn) pools, forms 1e, 2e and 11e (the same TPU kernels
+over e4m3 pools, whose rows are cast to the pool dtype at
+paged_append.py:45, :49, :74, :148-151): the rows are converted from
+their own dtype (bf16 or f32) with the JAX package's rounding
+(:func:`~simplellminference_tpu_torch.ops.ref_ops.to_e4m3`: nearest even,
+NaN past 464, whatever PyTorch's own cast does), in the kernel on the card
+and by ``to_e4m3`` in the plain versions, which write e4m3 pools through
+``uint8`` views (CPU PyTorch has no ``index_copy_`` for float8). On the
+card ``paged_append_decode``/``_span``/``_prefill`` hand e4m3 pools to
+their wrappers of the form's name (``*_fp8kv``), each with its launch
+count.
 """
 
 from __future__ import annotations
@@ -26,8 +39,22 @@ import torch
 import torch.nn.functional as F
 
 from simplellminference_tpu_torch.ops import cuda_build
+from simplellminference_tpu_torch.ops.ref_ops import E4M3, to_e4m3
 
 SPAN_MAX = 8   # rows a span writes per sequence (the JAX kernel's _ROWS)
+
+
+def _stored(pool):
+    """The pool as the plain versions write it: e4m3 pools as uint8."""
+    return pool.view(torch.uint8) if pool.dtype == E4M3 else pool
+
+
+def _as_pool(x, pool):
+    """Rows in the pool's storage: e4m3 codes (:func:`to_e4m3`, as uint8)
+    for an e4m3 pool, else x cast to the pool dtype."""
+    if pool.dtype == E4M3:
+        return to_e4m3(x).view(torch.uint8)
+    return x.to(pool.dtype)
 
 
 def _pages(tables: torch.Tensor, cols: torch.Tensor,
@@ -79,8 +106,8 @@ def paged_append_decode_ref(pool_k, pool_v, new_k, new_v, tables, positions,
         paged_append_decode_ref.cuda_calls += 1
     page, slot = _decode_slots(tables, positions, pool_k.shape[1],
                                pool_k.shape[3])
-    pool_k[layer][page, :, slot, :] = new_k.to(pool_k.dtype)
-    pool_v[layer][page, :, slot, :] = new_v.to(pool_v.dtype)
+    _stored(pool_k)[layer][page, :, slot, :] = _as_pool(new_k, pool_k)
+    _stored(pool_v)[layer][page, :, slot, :] = _as_pool(new_v, pool_v)
     return pool_k, pool_v
 
 
@@ -94,8 +121,8 @@ def paged_append_span_ref(pool_k, pool_v, new_k, new_v, tables, positions,
         paged_append_span_ref.cuda_calls += 1
     page, slot = span_slots(tables, positions, new_k.shape[1],
                             pool_k.shape[1], pool_k.shape[3])
-    pool_k[layer][page, :, slot, :] = new_k.to(pool_k.dtype)
-    pool_v[layer][page, :, slot, :] = new_v.to(pool_v.dtype)
+    _stored(pool_k)[layer][page, :, slot, :] = _as_pool(new_k, pool_k)
+    _stored(pool_v)[layer][page, :, slot, :] = _as_pool(new_v, pool_v)
     return pool_k, pool_v
 
 
@@ -126,10 +153,9 @@ def paged_append_prefill_ref(pool_k, pool_v, new_k, new_v, tables,
     b, s = new_k.shape[:2]
     npg = -(-s // ps)
     idx = _prefill_pages(tables, b, npg, pool_k.shape[1])
-    pool_k[layer].index_copy_(0, idx, _page_chunks(new_k.to(pool_k.dtype),
-                                                   npg, ps))
-    pool_v[layer].index_copy_(0, idx, _page_chunks(new_v.to(pool_v.dtype),
-                                                   npg, ps))
+    for pool, x in ((pool_k, new_k), (pool_v, new_v)):
+        _stored(pool)[layer].index_copy_(0, idx, _page_chunks(
+            _as_pool(x, pool), npg, ps))
     return pool_k, pool_v
 
 
@@ -177,7 +203,7 @@ def paged_append_prefill_quant_ref(pool_k, pool_v, pool_ks, pool_vs, new_k,
 paged_append_prefill_quant_ref.cuda_calls = 0
 
 
-def _check_pools(pool_k, pool_v, new_k, layer):
+def _check_layout(pool_k, pool_v, new_k, layer):
     if pool_v is None:
         raise NotImplementedError("shared-KV pools (absorbed MLA)")
     if (pool_k.shape != pool_v.shape or pool_k.dtype != pool_v.dtype
@@ -189,6 +215,11 @@ def _check_pools(pool_k, pool_v, new_k, layer):
         raise ValueError("pools and new rows must share a device")
     if not 0 <= layer < pool_k.shape[0]:
         raise IndexError(f"layer {layer} out of range")
+
+
+def _check_pools(pool_k, pool_v, new_k, layer):
+    """Matching bf16 or f32 pools for the row-copy kernels."""
+    _check_layout(pool_k, pool_v, new_k, layer)
     cuda_build.dtype_code(pool_k.dtype)
 
 
@@ -263,6 +294,9 @@ def paged_append_decode(pool_k, pool_v, new_k, new_v, tables, positions,
     if not pool_k.is_cuda:
         return paged_append_decode_ref(pool_k, pool_v, new_k, new_v, tables,
                                        positions, layer)
+    if pool_k.dtype == E4M3:
+        return paged_append_decode_fp8kv(pool_k, pool_v, new_k, new_v,
+                                         tables, positions, layer)
     _check_pools(pool_k, pool_v, new_k, layer)
     n_layers, p1, kvn, ps, d = pool_k.shape
     b = new_k.shape[0]
@@ -294,6 +328,9 @@ def paged_append_span(pool_k, pool_v, new_k, new_v, tables, positions,
     if not pool_k.is_cuda:
         return paged_append_span_ref(pool_k, pool_v, new_k, new_v, tables,
                                      positions, layer)
+    if pool_k.dtype == E4M3:
+        return paged_append_span_fp8kv(pool_k, pool_v, new_k, new_v, tables,
+                                       positions, layer)
     _check_pools(pool_k, pool_v, new_k, layer)
     n_layers, p1, kvn, ps, d = pool_k.shape
     b, t = new_k.shape[:2]
@@ -342,6 +379,9 @@ def paged_append_prefill(pool_k, pool_v, new_k, new_v, tables, layer: int):
     if not pool_k.is_cuda:
         return paged_append_prefill_ref(pool_k, pool_v, new_k, new_v, tables,
                                         layer)
+    if pool_k.dtype == E4M3:
+        return paged_append_prefill_fp8kv(pool_k, pool_v, new_k, new_v,
+                                          tables, layer)
     _check_pools(pool_k, pool_v, new_k, layer)
     n_layers, p1, kvn, ps, d = pool_k.shape
     b, s = new_k.shape[:2]
@@ -369,8 +409,112 @@ def paged_append_prefill(pool_k, pool_v, new_k, new_v, tables, layer: int):
 paged_append_prefill.launches = 0
 
 
+def _check_e4m3_pools(pool_k, pool_v, new_k, layer):
+    """Matching float8_e4m3fn pools for the FP8-KV forms."""
+    _check_layout(pool_k, pool_v, new_k, layer)
+    if pool_k.dtype != E4M3:
+        raise ValueError(f"the FP8-KV forms take float8_e4m3fn pools, not "
+                         f"{pool_k.dtype}")
+
+
+def _launch_e4m3(fn, pool_k, pool_v, nk, nv, tables, positions, layer, n,
+                 what):
+    """A conversion kernel of ``csrc/paged_append.cu`` on rows nk/nv
+    [B, n, kvN, D] (f32 or bf16, kvN and D contiguous; n: the span T, or
+    the prompt's S for prefill, ``positions`` then None)."""
+    _, p1, kvn, ps, d = pool_k.shape
+    b = nk.shape[0]
+    tables = _index(tables, b, "tables")
+    es = nk.element_size()
+    st = [nk.stride(0), nk.stride(1), nv.stride(0), nv.stride(1)]
+    vec8 = int(d % 8 == 0 and _vec16(d * es, nk, nv,
+                                     *[x * es for x in st]) == 1)
+    pos = () if positions is None else (
+        _index(positions, b, "positions").data_ptr(),)
+    lib = cuda_build.load()
+    rc = getattr(lib, fn)(
+        pool_k.data_ptr(), pool_v.data_ptr(), nk.data_ptr(), nv.data_ptr(),
+        *st, tables.data_ptr(), *pos, layer, p1, kvn, ps, d, tables.shape[1],
+        b, n, cuda_build.dtype_code(nk.dtype), vec8,
+        torch.cuda.current_stream(pool_k.device).cuda_stream)
+    cuda_build.check(lib, rc, what)
+
+
+def paged_append_decode_fp8kv(pool_k, pool_v, new_k, new_v, tables,
+                              positions, layer: int):
+    """1e: :func:`paged_append_decode` into float8_e4m3fn pools, each
+    element converted from new_k/v's dtype (bf16 or f32) with the JAX
+    package's rounding in the kernel. Returns (pool_k, pool_v)."""
+    if not pool_k.is_cuda:
+        return paged_append_decode_ref(pool_k, pool_v, new_k, new_v, tables,
+                                       positions, layer)
+    _check_e4m3_pools(pool_k, pool_v, new_k, layer)
+    kvn, d = pool_k.shape[2], pool_k.shape[4]
+    if new_k.shape[0] == 0:
+        return pool_k, pool_v
+    nk, nv = _qrows(new_k, new_v, kvn, d)
+    _launch_e4m3("sli_paged_append_span_e4m3", pool_k, pool_v, nk[:, None],
+                 nv[:, None], tables, positions, layer, 1,
+                 "paged_append_decode_fp8kv")
+    paged_append_decode_fp8kv.launches += 1
+    return pool_k, pool_v
+
+
+paged_append_decode_fp8kv.launches = 0
+
+
+def paged_append_span_fp8kv(pool_k, pool_v, new_k, new_v, tables, positions,
+                            layer: int):
+    """11e: :func:`paged_append_span` (T <= 8 rows per sequence) into
+    float8_e4m3fn pools, converted in the kernel. Returns (pool_k,
+    pool_v)."""
+    if not pool_k.is_cuda:
+        return paged_append_span_ref(pool_k, pool_v, new_k, new_v, tables,
+                                     positions, layer)
+    _check_e4m3_pools(pool_k, pool_v, new_k, layer)
+    kvn, d = pool_k.shape[2], pool_k.shape[4]
+    b, t = new_k.shape[:2]
+    if not 1 <= t <= SPAN_MAX:
+        raise ValueError(f"a span of {t} rows (the kernel takes 1 to "
+                         f"{SPAN_MAX})")
+    if b == 0:
+        return pool_k, pool_v
+    nk, nv = _qrows(new_k, new_v, kvn, d)
+    _launch_e4m3("sli_paged_append_span_e4m3", pool_k, pool_v, nk, nv,
+                 tables, positions, layer, t, "paged_append_span_fp8kv")
+    paged_append_span_fp8kv.launches += 1
+    return pool_k, pool_v
+
+
+paged_append_span_fp8kv.launches = 0
+
+
+def paged_append_prefill_fp8kv(pool_k, pool_v, new_k, new_v, tables,
+                               layer: int):
+    """2e: :func:`paged_append_prefill` into float8_e4m3fn pools, converted
+    in the kernel; rows past S in the last page get code 0. Returns
+    (pool_k, pool_v)."""
+    if not pool_k.is_cuda:
+        return paged_append_prefill_ref(pool_k, pool_v, new_k, new_v, tables,
+                                        layer)
+    _check_e4m3_pools(pool_k, pool_v, new_k, layer)
+    kvn, d = pool_k.shape[2], pool_k.shape[4]
+    b, s = new_k.shape[:2]
+    if b == 0 or s == 0:
+        return pool_k, pool_v
+    nk, nv = _qrows(new_k, new_v, kvn, d)
+    _launch_e4m3("sli_paged_append_prefill_e4m3", pool_k, pool_v, nk, nv,
+                 tables, None, layer, s, "paged_append_prefill_fp8kv")
+    paged_append_prefill_fp8kv.launches += 1
+    return pool_k, pool_v
+
+
+paged_append_prefill_fp8kv.launches = 0
+
+
 def _qrows(new_k, new_v, kvn, d):
-    """New K/V rows for the quantizing kernels: f32 or bf16 (others go to
+    """New K/V rows for the quantizing and converting kernels: f32 or bf16
+    (others go to
     f32, exactly), both of one dtype, [kvN, D] contiguous."""
     dt = (new_k.dtype if new_k.dtype in (torch.float32, torch.bfloat16)
           and new_v.dtype == new_k.dtype else torch.float32)

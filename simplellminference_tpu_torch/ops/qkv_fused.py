@@ -31,6 +31,16 @@ does through ``apply_rope``), then quantized per (token, kv head) with
 page slot. On the card it is its own wrapper,
 :func:`fused_qkv_append_int8kv`, with its own launch count.
 
+The FP8-KV form (float8_e4m3fn pools, paged, no scale pools): k/v are
+rounded from f32 to e4m3 once, with the JAX package's rounding
+(:func:`~simplellminference_tpu_torch.ops.ref_ops.to_e4m3`), as the TPU
+kernel rounds its f32 rows into slabs of the pool dtype
+(qkv_fused.py:155-158, :370-371); on the card it is its own wrapper,
+:func:`fused_qkv_append_fp8kv` (6e), with its own launch count. The pool
+dtype goes to the kernels as its own code (``cuda_build.pool_code``),
+apart from the activation dtype. e4m3 pools on the dense arena or with a
+``kv_layer`` (the grouped engine's ring pools) raise.
+
 Pools are [L, P+1, kvN, ps, D] and are written in place; an unmapped (-1)
 page, or a position past the table, writes to the trash page (the last
 page row), as :func:`~simplellminference_tpu_torch.ops.paged_append.
@@ -64,8 +74,10 @@ from simplellminference_tpu_torch.ops.ffn_fused import ffn_split
 from simplellminference_tpu_torch.ops.kv_append import kv_append_ref
 from simplellminference_tpu_torch.ops.linear import QuantizedWeight
 from simplellminference_tpu_torch.ops.paged_append import (
-    _check_pools, _check_quant_pools, _index, check_scale_pools,
-    paged_append_decode_quant_ref, paged_append_decode_ref)
+    _check_e4m3_pools, _check_pools, _check_quant_pools, _index,
+    check_scale_pools, paged_append_decode_quant_ref,
+    paged_append_decode_ref)
+from simplellminference_tpu_torch.ops.ref_ops import E4M3
 
 MAX_ROWS = 64
 HEAD_DIMS = (32, 64, 128)
@@ -105,6 +117,10 @@ def _check(x, pool_k, pool_v, tables, cache_ks, cache_vs, kv_layer,
            layer) -> bool:
     """Raise for the forms not ported; True for the quantizing form
     (scale pools given and checked)."""
+    if pool_k.dtype == E4M3 and tables is None:
+        raise NotImplementedError("FP8 KV on a dense KV arena (tables=None)")
+    if pool_k.dtype == E4M3 and kv_layer is not None:
+        raise NotImplementedError("FP8 KV with sliding windows (kv_layer)")
     if tables is None and (cache_ks is not None or cache_vs is not None):
         raise NotImplementedError("INT8 KV on a dense KV arena (tables="
                                   "None): the quantizing append is a "
@@ -215,6 +231,10 @@ def fused_qkv_append(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
         return fused_qkv_append_kv_layer(x, norm_w, wq, ws, sin, cos, pool_k,
                                          pool_v, layer, kv_layer, offsets,
                                          tables, n_heads, kv_heads, eps)
+    if pool_k.dtype == E4M3:
+        return fused_qkv_append_fp8kv(x, norm_w, wq, ws, sin, cos, pool_k,
+                                      pool_v, layer, offsets, tables,
+                                      n_heads, kv_heads, eps)
     _check_pools(pool_k, pool_v, x, layer)
     q = _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, None, None,
                 layer, layer, offsets, n_heads, kv_heads, eps, tables,
@@ -248,6 +268,29 @@ def fused_qkv_append_kv_layer(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
 
 
 fused_qkv_append_kv_layer.launches = 0
+
+
+def fused_qkv_append_fp8kv(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
+                           layer: int, offsets, tables,
+                           n_heads: int | None = None,
+                           kv_heads: int | None = None, eps: float = 1e-5):
+    """The FP8-KV form of :func:`fused_qkv_append` (6e): k/v rounded from
+    f32 to e4m3 into the float8_e4m3fn pools. Returns (q, pool_k,
+    pool_v)."""
+    if not x.is_cuda:
+        return fused_qkv_append_ref(x, norm_w, wq, ws, sin, cos, pool_k,
+                                    pool_v, layer, offsets, n_heads,
+                                    kv_heads, eps, tables)
+    _check(x, pool_k, pool_v, tables, None, None, None, layer)
+    _check_e4m3_pools(pool_k, pool_v, x, layer)
+    q = _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, None, None,
+                layer, layer, offsets, n_heads, kv_heads, eps, tables,
+                "fused_qkv_append_fp8kv")
+    fused_qkv_append_fp8kv.launches += 1
+    return q, pool_k, pool_v
+
+
+fused_qkv_append_fp8kv.launches = 0
 
 
 def fused_qkv_append_dense(x, norm_w, wq, ws, sin, cos, cache_k, cache_v,
@@ -349,7 +392,7 @@ def _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, cache_ks, cache_vs,
             sin.data_ptr(), cos.data_ptr(), pool_k.data_ptr(),
             pool_v.data_ptr(), 0 if cache_ks is None else cache_ks.data_ptr(),
             0 if cache_vs is None else cache_vs.data_ptr(),
-            int(pool_k.dtype == torch.bfloat16), out.data_ptr(),
+            cuda_build.pool_code(pool_k.dtype), out.data_ptr(),
             0 if tables is None else tables.data_ptr(), offsets.data_ptr(),
             kv_layer, p1, kvn, ps, 1 if tables is None else tables.shape[1],
             b, h, n, d, float(eps), xn.data_ptr(),
@@ -363,7 +406,7 @@ def _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, cache_ks, cache_vs,
             xc.data_ptr(), xc.stride(0), nw.data_ptr(),
             int(nw.dtype == torch.bfloat16), wl.data_ptr(), sl.data_ptr(),
             sin.data_ptr(), cos.data_ptr(), pool_k.data_ptr(),
-            pool_v.data_ptr(), int(pool_k.dtype == torch.bfloat16),
+            pool_v.data_ptr(), cuda_build.pool_code(pool_k.dtype),
             out.data_ptr(), offsets.data_ptr(), layer, p1, kvn, ps, b, h, n,
             d, float(eps), cuda_build.dtype_code(x.dtype), vec, stream)
         cuda_build.check(lib, rc, f"{what} (fma)")
@@ -375,7 +418,7 @@ def _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, cache_ks, cache_vs,
         sin.data_ptr(), cos.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         0 if cache_ks is None else cache_ks.data_ptr(),
         0 if cache_vs is None else cache_vs.data_ptr(),
-        int(pool_k.dtype == torch.bfloat16), out.data_ptr(),
+        cuda_build.pool_code(pool_k.dtype), out.data_ptr(),
         tables.data_ptr(), offsets.data_ptr(), kv_layer, p1, kvn, ps,
         tables.shape[1], b, h, n, d, float(eps),
         cuda_build.dtype_code(x.dtype), vec, stream)

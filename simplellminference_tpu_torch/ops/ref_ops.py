@@ -8,9 +8,10 @@ function and with the same shape conventions:
     weights: [K, N]              contraction-first (x @ w)
 
 Reductions and softmax run in float32 and cast back, as the reference
-does. The quantized-weight helpers (simplellminference_tpu/ops/ref_ops.py:
-367-508: INT8, split-half INT4 with optional zero points, W8A8) are at
-the end.
+does. :func:`to_e4m3` is the cast into FP8 (e4m3) KV pools with the JAX
+package's rounding. The quantized-weight helpers
+(simplellminference_tpu/ops/ref_ops.py:367-508: INT8, split-half INT4
+with optional zero points, W8A8) are at the end.
 """
 
 from __future__ import annotations
@@ -152,6 +153,31 @@ def causal_mask(sq: int, sk: int, q_offset: int = 0,
     if window is not None:
         mask = mask & (ki > qi - window)
     return mask
+
+
+E4M3 = torch.float8_e4m3fn
+
+
+def to_e4m3(x: torch.Tensor) -> torch.Tensor:
+    """x (f32, bf16, ...) -> float8_e4m3fn with the JAX package's cast
+    (ml_dtypes and XLA: ``x.astype(jnp.float8_e4m3fn)``), byte for byte:
+    round to nearest even from x's exact f32 value; |x| > 464 (past the
+    tie between 448 and 480, which goes to the even 448) and NaN become
+    NaN with x's sign (0x7F | sign). PyTorch's own cast does not keep to
+    that across versions (2.13 saturates to +-448 on the CPU), so the
+    bytes are computed here with integer operations, alike on every
+    device and version: normal results round the f32 mantissa to 3 bits
+    (carry into the exponent included), subnormal ones (|x| < 2^-6) are
+    round_half_even(|x| * 512) units of 2^-9."""
+    xf = x.float()
+    sign = (xf.view(torch.int32) >> 24) & 0x80
+    a = xf.abs()
+    ab = a.view(torch.int32)
+    normal = ((ab + 0x7FFFF + ((ab >> 20) & 1)) >> 20) - (120 << 3)
+    sub = torch.round(a * 512).to(torch.int32)
+    code = torch.where(a < 2.0 ** -6, sub, normal)
+    code = torch.where(a <= 464, code, 0x7F) | sign   # NaN fails a <= 464
+    return code.to(torch.uint8).view(E4M3)
 
 
 def quantize_int8_groupwise(w: torch.Tensor, group_size: int,

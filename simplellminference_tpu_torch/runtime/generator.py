@@ -53,7 +53,8 @@ class Generator:
                  max_seq: Optional[int] = None, kv_dtype=None,
                  device=None):
         """``device``: CUDA unless ``device="cpu"``; ``params`` must live
-        there. ``kv_dtype``: the arena's dtype (default the model's)."""
+        there. ``kv_dtype``: the arena's dtype (default the model's; FP8 is
+        not ported to the dense arena and raises)."""
         llama.check_dense_supported(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -64,6 +65,8 @@ class Generator:
         self.max_batch = max_batch
         self.max_seq = max_seq or cfg.max_seq_len
         self.kv_dtype = torch_dtype(kv_dtype or cfg.dtype)
+        if self.kv_dtype == torch.float8_e4m3fn:
+            raise NotImplementedError("FP8 KV on the dense arena")
 
     def _tensor(self, a, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)

@@ -1618,3 +1618,257 @@ def test_flash_decode_dyn(cuda, dtype, bk, n, kvn):
     assert not got[0].any()          # kv_len 0 -> zero output
     other = kern(q, ck, cv, kv, bk=384 - bk, layer=1)
     assert torch.equal(got, other)   # bk does not change the result
+
+
+# ----------------------------------------------- FP8 (e4m3) KV: 1e-8e
+
+E4 = torch.float8_e4m3fn
+
+
+def _e4m3_pools(g, dev, b=3, kvn=4, ps=128, d=64, mp=2):
+    """e4m3 pools as the Engine fills them: N(0, 1) rows (as _pools draws)
+    cast by the plain to_e4m3."""
+    shape = (2, b * mp + 1, kvn, ps, d)
+    return tuple(ref_ops.to_e4m3(torch.randn(shape, generator=g, device=dev))
+                 for _ in range(2))
+
+
+def _bytes_equal(a, b):
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def _ordinal(x):
+    """e4m3 codes in value order: +-0 both 0, one step per code."""
+    u = x.view(torch.uint8).int()
+    return torch.where(u >= 128, -(u & 0x7F), u & 0x7F)
+
+
+def test_e4m3_conversion_every_bf16_pattern_and_f32_edges(cuda):
+    # every bf16 bit pattern through form 2e (bf16 rows), f32 edges through
+    # form 1e (f32 rows), each byte-equal to to_e4m3 computed on the CPU
+    pat = torch.arange(-32768, 32768, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16)
+    want = ref_ops.to_e4m3(pat).view(torch.uint8)
+    rows = pat.reshape(1, 512, 1, 128).to(cuda)
+    pk = torch.zeros((1, 5, 1, 128, 128), dtype=E4, device=cuda)
+    pv = torch.zeros_like(pk)
+    tables = torch.tensor([[0, 1, 2, 3]], dtype=torch.int32, device=cuda)
+    pa.paged_append_prefill_fp8kv(pk, pv, rows, rows, tables, 0)
+    got = pk[0, :4, 0].reshape(-1).view(torch.uint8).cpu()
+    assert torch.equal(got, want)
+    edges = torch.tensor([448, 464, 464.00003, 480, 500, 1e4, float("inf"),
+                          float("nan"), 0.0, 2.0 ** -9, 2.0 ** -10,
+                          3 * 2.0 ** -10, 2.0 ** -6 * 0.99, 1e-40, 240, 232],
+                         dtype=torch.float32)
+    edges = torch.cat([edges, -edges])
+    for d, rows in ((32, edges.reshape(1, 1, 32)),          # 8 a thread
+                    (8, edges.reshape(4, 1, 8))):           # vec8 off
+        pk = torch.zeros((1, 5, 1, 8, d), dtype=E4, device=cuda)
+        pv = torch.zeros_like(pk)
+        b = rows.shape[0]
+        tbl = torch.arange(b, dtype=torch.int32, device=cuda)[:, None]
+        pa.paged_append_decode_fp8kv(pk, pv, rows.to(cuda), rows.to(cuda),
+                                     tbl, torch.zeros(b, dtype=torch.int32,
+                                                      device=cuda), 0)
+        got = pk[0, :b, 0, 0].reshape(-1).view(torch.uint8).cpu()
+        assert torch.equal(got, ref_ops.to_e4m3(edges).view(torch.uint8))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [128, 100, 1])
+def test_paged_append_prefill_fp8kv(cuda, dtype, s):
+    g = torch.Generator(device=cuda).manual_seed(s)
+    pools = _e4m3_pools(g, cuda)
+    big = torch.randn((3, s, 3 * 4 * 64), generator=g, device=cuda,
+                      dtype=dtype) * 200                 # some past 464
+    nk = big[..., :256].reshape(3, s, 4, 64)
+    nv = big[..., 512:].reshape(3, s, 4, 64)      # strided views
+    a, r = [p.clone() for p in pools], [p.clone() for p in pools]
+    before = (pa.paged_append_prefill.launches,
+              pa.paged_append_prefill_fp8kv.launches)
+    pa.paged_append_prefill(*a, nk, nv, _tables(cuda), 1)
+    assert (pa.paged_append_prefill.launches,
+            pa.paged_append_prefill_fp8kv.launches) == (before[0],
+                                                         before[1] + 1)
+    pa.paged_append_prefill_ref(*r, nk, nv, _tables(cuda), 1)
+    for x, y in zip(a, r):
+        assert _bytes_equal(x[:, :-1], y[:, :-1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("span", [0, 1, 5, 8])
+def test_paged_append_decode_and_span_fp8kv(cuda, dtype, span):
+    g = torch.Generator(device=cuda).manual_seed(span)
+    _pk, _pv, nk, nv, tables, pos = _span_inputs(g, cuda, dtype,
+                                                 max(span, 1))
+    pools = _e4m3_pools(g, cuda, b=4, kvn=4, ps=16, d=64, mp=3)
+    nk, nv = nk * 200, nv * 200
+    a, r = [p.clone() for p in pools], [p.clone() for p in pools]
+    if span == 0:              # one row per sequence: form 1e
+        kern, ref = pa.paged_append_decode_fp8kv, pa.paged_append_decode_ref
+        nk, nv = nk[:, 0], nv[:, 0]
+    else:
+        kern, ref = pa.paged_append_span_fp8kv, pa.paged_append_span_ref
+    before = kern.launches
+    kern(*a, nk, nv, tables, pos, 1)
+    assert kern.launches == before + 1
+    ref(*r, nk, nv, tables, pos, 1)
+    for x, y in zip(a, r):
+        assert _bytes_equal(x[:, :-1], y[:, :-1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [1, 5])
+@pytest.mark.parametrize("n,kvn,d", [(32, 32, 128), (32, 4, 64)])
+def test_paged_flash_decode_and_verify_fp8kv(cuda, dtype, s, n, kvn, d):
+    g = torch.Generator(device=cuda).manual_seed(n + kvn + s)
+    lens = [s, 128, 129, 200, 0, 57]
+    b, ps, mp = len(lens), 128, 2
+    pk, pv = _e4m3_pools(g, cuda, b=b, kvn=kvn, ps=ps, d=d, mp=mp)
+    q = torch.randn((b, s, n, d), generator=g, device=cuda, dtype=dtype)
+    tables = torch.randperm(b * mp, generator=g, device=cuda).to(
+        torch.int32).reshape(b, mp)
+    tables[-1] = -1
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    if s == 1:
+        form, ref = pd.paged_flash_decode_fp8kv, pd.paged_flash_decode_ref
+        q = q[:, 0]
+        call = pd.paged_flash_decode
+    else:
+        form, ref = pd.paged_flash_verify_fp8kv, pd.paged_flash_verify_ref
+        call = pd.paged_flash_verify
+    before = (call.launches, form.launches)
+    got = call(q, pk, pv, tables, kv, 1)
+    assert (call.launches, form.launches) == (before[0], before[1] + 1)
+    want = ref(q, pk, pv, tables, kv, 1)
+    assert got.dtype == dtype
+    assert _close(got, want, dtype)
+    assert not got[4].any()
+    with pytest.raises(NotImplementedError, match="FP8 KV with sliding"):
+        call(q, pk, pv, tables, kv, 1, window=16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s,n,kvn,d,ps", [(64, 32, 32, 128, 128),
+                                          (100, 32, 4, 64, 16),
+                                          (256, 32, 8, 128, 128)])
+def test_paged_flash_prefill_fp8kv(cuda, dtype, s, n, kvn, d, ps):
+    g = torch.Generator(device=cuda).manual_seed(s + n)
+    b, mp = 4, 768 // ps
+    pk, pv = _e4m3_pools(g, cuda, b=b, kvn=kvn, ps=ps, d=d, mp=mp)
+    q = torch.randn((b, s, n, d), generator=g, device=cuda, dtype=dtype)
+    tables = torch.randperm(b * mp, generator=g, device=cuda).to(
+        torch.int32).reshape(b, mp)
+    offs = torch.tensor([0, 2 * ps, ps, 0], dtype=torch.int32, device=cuda)
+    kv = offs + torch.tensor([s, max(s - 7, 1), s, 1], dtype=torch.int32,
+                             device=cuda)
+    tables[2, 0] = -1
+    tables[3] = -1
+    before = pp.paged_flash_prefill_fp8kv.launches
+    got = pp.paged_flash_prefill(q, pk, pv, tables, kv, offs, 1)
+    assert pp.paged_flash_prefill_fp8kv.launches == before + 1
+    want = pp.paged_flash_prefill_ref(q, pk, pv, tables, kv, offs, 1)
+    assert bool(torch.isfinite(got).all())
+    assert _attn_ok(got, want)
+
+
+@pytest.mark.parametrize("xdt", DTYPES)
+@pytest.mark.parametrize("n,kvn,d,h", [(8, 2, 64, 512), (4, 4, 128, 512),
+                                       (8, 4, 32, 512), (32, 32, 128, 4096)])
+def test_fused_qkv_append_fp8kv(cuda, xdt, n, kvn, d, h):
+    g = torch.Generator(device=cuda).manual_seed(n * kvn + d)
+    L, ps = 2, 16
+    pos = torch.tensor([5, 20, 40], dtype=torch.int32, device=cuda)
+    tables = torch.tensor([[3, 7, 1], [0, 5, 8], [2, 4, -1]],
+                          dtype=torch.int32, device=cuda)
+    nq = (n + 2 * kvn) * d
+    wq, ws = _qw(g, cuda, (L, h, nq), 1)
+    ws = ws * 30                                    # k/v past 464 too
+    nw = torch.rand((L, h), generator=g, device=cuda).to(xdt) + 0.5
+    x = torch.randn((3, h), generator=g, device=cuda).to(xdt)
+    sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
+    pools = _e4m3_pools(g, cuda, b=3, kvn=kvn, ps=ps, d=d, mp=3)
+    a, r = [p.clone() for p in pools], [p.clone() for p in pools]
+    before = (qf.fused_qkv_append.launches,
+              qf.fused_qkv_append_fp8kv.launches)
+    with _one_launch(qf.QKV_REGIME_LAUNCHES,
+                     qf.qkv_regime(3, h, nq, d, xdt)):
+        qa, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, a[0], a[1], 1,
+                                     pos, n_heads=n, kv_heads=kvn,
+                                     tables=tables)
+    assert (qf.fused_qkv_append.launches,
+            qf.fused_qkv_append_fp8kv.launches) == (before[0], before[1] + 1)
+    qr, *_ = qf.fused_qkv_append_ref(x, nw, wq, ws, sin, cos, r[0], r[1], 1,
+                                     pos, n_heads=n, kv_heads=kvn,
+                                     tables=tables)
+    tol = 1e-5 if xdt == torch.float32 else 2e-2
+    assert float((qa.float() - qr.float()).abs().max()) <= tol * float(
+        qr.float().std())
+    written = torch.zeros(pools[0].shape, dtype=torch.bool, device=cuda)
+    for i, p in enumerate(pos.tolist()):
+        page = int(tables[i, p // ps])
+        written[1, page if page >= 0 else pools[0].shape[1] - 1, :,
+                p % ps] = True
+    for x_a, x_r in zip(a, r):
+        assert _bytes_equal(x_a[~written], x_r[~written])
+        # k/v from sums in another order: a code one step apart at most
+        assert int((_ordinal(x_a[written]) - _ordinal(x_r[written])).abs()
+                   .max()) <= 1
+        assert bool((x_r[written].view(torch.uint8) & 0x7F == 0x7F).any())
+
+
+def test_fp8kv_engine_runs_the_kernels_only(cuda):
+    # kv_dtype="fp8" on both weight paths, with the prefix cache, chunked
+    # prefill and speculation: every FP8-KV form launches, no plain version
+    # runs
+    cfg = ModelConfig.tiny_test(num_layers=2)
+    refs = (pa.paged_append_decode_ref, pa.paged_append_prefill_ref,
+            pa.paged_append_span_ref, fp.flash_prefill_ref,
+            pd.paged_flash_decode_ref, pd.paged_flash_verify_ref,
+            pp.paged_flash_prefill_ref, mm.quantized_matmul_ref,
+            qf.fused_qkv_append_ref, ff.fused_ffn_ref)
+    calls = [f.cuda_calls for f in refs]
+    system = list(range(3, 35))
+    waves = [[[1, 2, 3]], [system + [40]],
+             [system + [41, 42], system + [43, 44] * 9]]
+    for params, spec, kerns in (
+            (llama.init_params(cfg, seed=0, device=cuda), 0,
+             (pa.paged_append_decode_fp8kv, pd.paged_flash_decode_fp8kv,
+              pa.paged_append_prefill_fp8kv, pp.paged_flash_prefill_fp8kv)),
+            (_int8_params(cfg, 0, cuda), 0,
+             (qf.fused_qkv_append_fp8kv, pd.paged_flash_decode_fp8kv,
+              pa.paged_append_prefill_fp8kv)),
+            (llama.init_params(cfg, seed=0, device=cuda), 3,
+             (pa.paged_append_span_fp8kv, pd.paged_flash_verify_fp8kv))):
+        ecfg = EngineConfig(max_batch_size=4, prefill_chunk=16,
+                            spec_tokens=spec,
+                            kv=KVCacheConfig(page_size=8, num_pages=64,
+                                             max_pages_per_seq=8,
+                                             kv_dtype="fp8"))
+        launches = [f.launches for f in kerns]
+        eng = Engine(cfg, params, ecfg, decode_burst=4)
+        assert eng.cache.k.dtype == E4 and eng.cache.k_scale is None
+        outs = [eng.generate(w, SamplingParams(max_new_tokens=6))
+                for w in waves]
+        assert all(len(o) == 6 for w in outs for o in w)
+        assert all(f.launches > n for f, n in zip(kerns, launches))
+    assert [f.cuda_calls for f in refs] == calls
+
+
+def test_fp8kv_engine_card_matches_cpu(cuda):
+    cfg = ModelConfig.tiny_test(num_layers=2)
+    p_cpu = llama.init_params(cfg, seed=3, device="cpu")
+    system = list(range(5, 29))
+    prompts = [system + [1, 2, 3], system + [9, 8, 7, 6], list(range(20, 40))]
+    s = SamplingParams(max_new_tokens=8)
+    for p in (p_cpu, _int8_params(cfg, 3, "cpu")):
+        for spec in (0, 2):
+            ecfg = EngineConfig(max_batch_size=3, prefill_chunk=16,
+                                spec_tokens=spec,
+                                kv=KVCacheConfig(page_size=8, num_pages=64,
+                                                 max_pages_per_seq=8,
+                                                 kv_dtype="fp8"))
+            outs = [Engine(cfg, pp_, ecfg, decode_burst=4,
+                           device=dev).generate(prompts, s)
+                    for pp_, dev in ((p, "cpu"), (_to(p, cuda), cuda))]
+            assert outs[0] == outs[1]
