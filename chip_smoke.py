@@ -83,7 +83,14 @@ Phases, in order; any failure exits non-zero:
                 byte-equal to their plain versions (rows past 464: NaN
                 codes); 4e, 4ve and 8e at their e4m3-less forms' cases by
                 the same rules; 6e's k/v codes at most one e4m3 step
-                apart. Max
+                apart. Then head_dim 256 at Gemma-2B's shapes (8 q heads
+                over one kv head, page 128, batch 8): 1 and 2 byte-exact,
+                3, 4, 13 and 8 by the same rules as their other head dims
+                (split walks, split edges, kv_len 4096, f32 forms), 6m and
+                the FMA kernel 6 (f32 rows, and forced beside 6m on bf16
+                rows) and 6d; each D-256 form has its own row, and the
+                forms outside the slice (INT8-KV, e4m3, verify, window)
+                must raise at D 256 before any launch. Max
                 |error| beside
                 its tolerance, kernel / plain / library times from
                 CUDA-graph replay, and the bound (the least time for the
@@ -149,7 +156,16 @@ Phases, in order; any failure exits non-zero:
                 floor), `fp8kv_prefix` (the server CLI's --kv-dtype fp8:
                 bf16 weights, the prefix path's traffic) and `spec_fp8kv`
                 (spec_tokens 4 over e4m3 pools, INT8 weights, 16
-                layers), each with its exact launch counts.
+                layers), each with its exact launch counts. Last,
+                Gemma-2B at full width and depth (18 layers, H 2048,
+                I 16384, V 256000, 8 heads over one kv head of 256,
+                GeGLU, the embedding scale, a tied bf16 head): `gemma`
+                (bench.py's shape with INT8 weights, the prefix cache
+                off: 2, 3, 6m, 4, 5r and 5m, each D-256 form's row too)
+                and `gemma_prefix` (the server's default: bf16 weights,
+                the prefix path's traffic: 2, 8, 1 and 4), each with its
+                exact launch counts, decode rate, graph-replayed step,
+                bytes floor, idle share and TTFT.
   5. cpu      — the same port at Llama-2-7B width, 2 layers, f32, TF32 off,
                 on the card (kernels) and on the host CPU (plain
                 versions), from one draw of the weights (on the card,
@@ -184,7 +200,9 @@ Phases, in order; any failure exits non-zero:
                 grouped pools in 256-row chunks and 40 new tokens (the
                 ring wraps), logits of every step within 1e-3, greedy
                 tokens equal, and the card's grouped Engine to the CPU's
-                tokens.
+                tokens. Then Gemma-2B at full width, 2 layers, f32 and
+                INT8 weights (the tied head the f32 embedding), 8 greedy
+                steps and the prefix traffic, by the same rules.
 
 Then one line ``{"kernels": [...]}`` (each kernel's launches on every
 path, and in phase 3: kernels 16 and 17 run only there) and, last, the
@@ -391,6 +409,27 @@ KERNELS = {
     "paged_flash_prefill_fp8kv": dict(
         source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
         replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    # head_dim 256 (Gemma-2B): the D-256 forms of kernels 3, 4, 8, 13 and 6
+    # (6m on bf16 rows, the FMA kernel on f32 ones); each launch also
+    # counts in its form's row above
+    "flash_prefill_d256": dict(
+        source="simplellminference_tpu_torch/csrc/flash_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_prefill.py:102"),
+    "paged_flash_decode_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "paged_flash_prefill_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    "flash_decode_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_decode.py:114"),
+    "fused_qkv_append_mma_d256": dict(
+        source="simplellminference_tpu_torch/csrc/qkv_fused_mma.cu",
+        replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
+    "fused_qkv_append_d256": dict(
+        source="simplellminference_tpu_torch/csrc/qkv_fused.cu",
+        replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
     # the last two TPU kernels, dispatched from no path (as in JAX)
     "fused_wo_ffn": dict(
         source="simplellminference_tpu_torch/csrc/wo_ffn.cu",
@@ -413,11 +452,13 @@ KERNELS = {
 # bench.py --quant int4 through the Engine (`int4`) and the Generator
 # (`int4_dense`), and the server CLI's --act-quant (W8A8 prefill) on the
 # prefix path's traffic; then sliding windows at Mistral-7B width through
-# the grouped engine
+# the grouped engine; then Gemma-2B (head_dim 256, one kv head, GeGLU,
+# a tied bf16 head) as bench.py draws its default INT8 path and as the
+# server serves it by default (bf16 weights, the prefix path's traffic)
 PATHS = ("int8", "bf16", "prefix", "int8kv", "int8kv_prefix", "spec",
          "spec_int8kv", "fp8kv", "fp8kv_prefix", "spec_fp8kv", "dense",
          "dense_bf16", "draft", "int4", "int4_dense", "w8a8",
-         "mistral_window")
+         "mistral_window", "gemma", "gemma_prefix")
 # every launch of phase 3, by kernel (filled by phase_kernels)
 phase3_launches: dict = {}
 
@@ -3365,6 +3406,399 @@ def check_flash_decode_dyn(torch, dev, results, extra):
             bound_ms=bms, bound_by=by)
 
 
+# ------------------------------------------------- head_dim 256 (Gemma-2B)
+
+GEMMA = dict(h=2048, n=8, kvn=1, d=256)   # ModelConfig.gemma_2b's attention
+
+
+def check_head_dim_256(torch, dev, results, extra):
+    """The D-256 forms at Gemma-2B's shapes (8 q heads over one kv head, D
+    256, page 128, batch 8): the writes 1 and 2 byte-exact (bf16 rows of
+    512 bytes, the 16-byte path); 3 at bench.py's prefill (8 x 128, the
+    row), a 1000-row prompt whose key walk splits and f32; 4 at the decode
+    context (kv_len 128-156, the row), f32 with a dead slot, the split
+    edges and kv_len 4096; 13 over a dense arena (bf16, the row, and f32
+    edge lens); 8 at `gemma_prefix`'s dispatches (8 x 64 suffix rows
+    behind 512 cached tokens, the row; a 256-row chunk at offset 256) and
+    f32 with ragged offsets, an unmapped page and a padding row, all by
+    the attention rules; 6 at the decode (8 rows, 6m: q by the fused
+    rule, k/v rows likewise, every other pool byte equal; timed beside
+    the FMA kernel forced on the same inputs), with an unmapped row, 1
+    row, f32 rows (the FMA kernel) and the dense arena (6d). Then the
+    forms outside the slice must raise at D 256 before any launch."""
+    import torch.nn.functional as F
+
+    from simplellminference_tpu_torch.memory.paged_kv import gather_dense
+    from simplellminference_tpu_torch.ops import paged_append as pa
+    from simplellminference_tpu_torch.ops import qkv_fused as qf
+    from simplellminference_tpu_torch.ops import ref_ops
+    from simplellminference_tpu_torch.ops.attention import flash_decode as fd
+    from simplellminference_tpu_torch.ops.attention import flash_prefill as fp
+    from simplellminference_tpu_torch.ops.attention import paged_decode as pd
+    from simplellminference_tpu_torch.ops.attention import paged_prefill as pp
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(256)
+    bf, f32 = torch.bfloat16, torch.float32
+    h, n, kvn, d = GEMMA["h"], GEMMA["n"], GEMMA["kvn"], GEMMA["d"]
+    b, ps, layer = 8, 128, 1
+
+    # 1 and 2: byte-exact, timed at the decode write and bench.py's prompt
+    for dtype in (bf, f32):
+        s, mp = 128, 3
+        pk, pv = _pools(torch, gen, dev, 2, b * mp, kvn, ps, d, dtype)
+        qkv = torch.randn((b, s, 3 * kvn * d), generator=gen, device=dev,
+                          dtype=dtype)
+        nk = qkv[..., kvn * d:2 * kvn * d].reshape(b, s, kvn, d)
+        nv = qkv[..., 2 * kvn * d:].reshape(b, s, kvn, d)   # strided views
+        tables = _tables(torch, dev, b, mp)
+        pos = (128 + 4 * torch.arange(b, device=dev)).to(torch.int32)
+        a, r = (pk.clone(), pv.clone()), (pk.clone(), pv.clone())
+        pa.paged_append_prefill(*a, nk, nv, tables, 0)
+        pa.paged_append_prefill_ref(*r, nk, nv, tables, 0)
+        pa.paged_append_decode(*a, nk[:, 0], nv[:, 0], tables, pos, layer)
+        pa.paged_append_decode_ref(*r, nk[:, 0], nv[:, 0], tables, pos,
+                                   layer)
+        torch.cuda.synchronize()
+        err = max(max_err(x[:, :-1], y[:, :-1]) for x, y in zip(a, r))
+        print(f"[kernels] paged_append_prefill + paged_append_decode "
+              f"gemma-2b d256 {dname(torch, dtype)}: max|err| {err} (tol 0, "
+              f"exact; trash page excluded)", flush=True)
+        require(err == 0.0, f"paged_append d256 {dtype} disagrees: {err}")
+        if dtype != bf:
+            continue
+        es = pk.element_size()
+        p1 = pk.shape[1]
+        col = tables.long().gather(1, (pos.long() // ps)[:, None])[:, 0]
+        page = torch.where(col >= 0, col, p1 - 1)
+        slot, heads = pos.long() % ps, torch.arange(kvn, device=dev)
+        k0, v0 = nk[:, 0].contiguous(), nv[:, 0].contiguous()
+
+        def put():
+            a[0][layer].index_put_((page[:, None], heads[None],
+                                    slot[:, None]), k0)
+            a[1][layer].index_put_((page[:, None], heads[None],
+                                    slot[:, None]), v0)
+
+        nbytes = 2 * b * kvn * d * es * 2 + tables.numel() * 4 + b * 4
+        bms, by = bound_ms(nbytes, 0.0, "bfloat16")
+        extra.append(("paged_append_decode", "gemma-2b d256", dict(
+            max_abs_err=err, ms=time_ms(torch, lambda: pa.paged_append_decode(
+                *a, nk[:, 0], nv[:, 0], tables, pos, layer)),
+            plain_ms=time_ms(torch, lambda: pa.paged_append_decode_ref(
+                *r, nk[:, 0], nv[:, 0], tables, pos, layer)),
+            library_ms=time_ms(torch, put), bound_ms=bms, bound_by=by)))
+        idx = torch.where(tables[:, 0] >= 0, tables[:, 0].long(), p1 - 1)
+        ck = nk.permute(0, 2, 1, 3).contiguous()
+        cv = nv.permute(0, 2, 1, 3).contiguous()
+
+        def copy():
+            a[0][0].index_copy_(0, idx, ck)
+            a[1][0].index_copy_(0, idx, cv)
+
+        nbytes = 2 * 2 * b * s * kvn * d * es + tables.numel() * 4
+        bms, by = bound_ms(nbytes, 0.0, "bfloat16")
+        extra.append(("paged_append_prefill", "gemma-2b d256", dict(
+            max_abs_err=err, ms=time_ms(torch, lambda: pa.paged_append_prefill(
+                *a, nk, nv, tables, 0)),
+            plain_ms=time_ms(torch, lambda: pa.paged_append_prefill_ref(
+                *r, nk, nv, tables, 0)),
+            library_ms=time_ms(torch, copy), bound_ms=bms, bound_by=by)))
+
+    # 3: (B, S, dtype); the first timed, the row
+    for tag, (bb, s, dtype) in {"gemma-2b": (8, 128, bf),
+                                "gemma-2b split walk": (1, 1000, bf),
+                                "gemma-2b f32": (2, 100, f32)}.items():
+        q = torch.randn((bb, s, n, d), generator=gen, device=dev,
+                        dtype=dtype)
+        big = torch.randn((bb, s, (n + 2 * kvn) * d), generator=gen,
+                          device=dev, dtype=dtype)
+        k = big[..., n * d:(n + kvn) * d].reshape(bb, s, kvn, d)
+        v = big[..., (n + kvn) * d:].reshape(bb, s, kvn, d)
+        got = fp.flash_prefill(q, k, v)
+        want = fp.flash_prefill_ref(q, k, v)
+        torch.cuda.synchronize()
+        ok, err, note = _prefill_rule(torch, got, want)
+        print(f"[kernels] flash_prefill d256 {tag} (B={bb} S={s}): max|err| "
+              f"{err:.3e} ({note})", flush=True)
+        require(bool(torch.isfinite(got).all()) and ok,
+                f"flash_prefill d256 {tag} disagrees: {err} ({note})")
+        if tag != "gemma-2b":
+            continue
+        qt = q.transpose(1, 2)
+        kt = _gqa(torch, k.transpose(1, 2), n).contiguous()
+        vt = _gqa(torch, v.transpose(1, 2), n).contiguous()
+        es = q.element_size()
+        nbytes = (2 * bb * s * n * d + 2 * bb * s * kvn * d) * es
+        bms, by = bound_ms(nbytes, 4.0 * bb * n * d * s * (s + 1) / 2,
+                           "bfloat16")
+        results["flash_prefill_d256"] = dict(
+            max_abs_err=err, ms=time_ms(torch, lambda: fp.flash_prefill(
+                q, k, v)),
+            plain_ms=time_ms(torch, lambda: fp.flash_prefill_ref(q, k, v)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)),
+            bound_ms=bms, bound_by=by)
+
+    # 4: (dtype, kv_lens, table columns, dead slot)
+    cases = {
+        "gemma-2b": (bf, [128 + 4 * i for i in range(8)], 2, False),
+        "gemma-2b f32": (f32, [1, 5, 128, 200, 0, 129, 150, 33], 2, True),
+        "gemma-2b kv_len 4096": (bf, [4096] * 8, 32, False),
+    }
+    for i, lens in enumerate(_split_edge_lens(kvn, 2048, rows=n)):
+        cases[f"gemma-2b split edges {i}"] = (bf, lens, 16, True)
+    for tag, (dtype, lens, mp, dead) in cases.items():
+        bb = len(lens)
+        pk, pv = _pools(torch, gen, dev, 2, bb * mp, kvn, ps, d, dtype)
+        q = torch.randn((bb, n, d), generator=gen, device=dev, dtype=dtype)
+        tables = _tables(torch, dev, bb, mp, dead_last=dead)
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = pd.paged_flash_decode(q, pk, pv, tables, kv_lens, layer)
+        want = pd.paged_flash_decode_ref(q, pk, pv, tables, kv_lens, layer)
+        torch.cuda.synchronize()
+        zero = [i for i in range(bb) if lens[i] == 0] + [bb - 1] * dead
+        err = _attn_check(torch, "paged_flash_decode d256", tag, got, want,
+                          zero)
+        if tag not in ("gemma-2b", "gemma-2b kv_len 4096"):
+            continue
+        ck, cv = gather_dense(pk[layer], pv[layer], tables)
+        ck, cv = _gqa(torch, ck, n), _gqa(torch, cv, n)
+        mask = (torch.arange(ck.shape[2], device=dev)[None, None, None, :]
+                < kv_lens.long()[:, None, None, None])
+        es = q.element_size()
+        kvb, live = _decode_bytes(torch, tables, kv_lens, ps,
+                                  2 * kvn * d * es)
+        nbytes = 2 * bb * n * d * es + kvb + tables.numel() * 4 + bb * 4
+        bms, by = bound_ms(nbytes, 4.0 * n * d * live, "bfloat16")
+        res = dict(
+            max_abs_err=err, ms=time_ms(torch, lambda: pd.paged_flash_decode(
+                q, pk, pv, tables, kv_lens, layer)),
+            plain_ms=time_ms(torch, lambda: pd.paged_flash_decode_ref(
+                q, pk, pv, tables, kv_lens, layer)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None], ck, cv, attn_mask=mask)),
+            bound_ms=bms, bound_by=by)
+        extra.append(("paged_flash_decode_d256", tag, res))
+        results.setdefault("paged_flash_decode_d256", res)
+        del ck, cv
+
+    # 13: the dense arena (layers 2, 8 rows, Smax 1024)
+    for tag, (dtype, lens) in {
+            "gemma-2b": (bf, [145 + 2 * i for i in range(8)]),
+            "gemma-2b f32 edge lens": (f32, [0, 1, 161, 1023, 1024, 1030, 64,
+                                             65])}.items():
+        smax = 1024
+        ck, cv = _arena(torch, gen, dev, 2, b, kvn, smax, d, dtype)
+        q = torch.randn((b, n, d), generator=gen, device=dev, dtype=dtype)
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = fd.flash_decode(q, ck, cv, kv_lens, layer=layer)
+        want = fd.flash_decode_ref(q, ck, cv, kv_lens, layer=layer)
+        torch.cuda.synchronize()
+        err = _attn_check(torch, "flash_decode d256", tag, got, want,
+                          [i for i in range(b) if lens[i] <= 0])
+        if tag != "gemma-2b":
+            continue
+        top = max(lens)
+        k4 = _gqa(torch, ck[layer, :, :, :top], n)
+        v4 = _gqa(torch, cv[layer, :, :, :top], n)
+        mask = (torch.arange(top, device=dev)[None, None, None, :]
+                < kv_lens.long()[:, None, None, None])
+        live = sum(min(ln, smax) for ln in lens)
+        es = q.element_size()
+        nbytes = 2 * b * n * d * es + 2 * live * kvn * d * es + b * 4
+        bms, by = bound_ms(nbytes, 4.0 * n * d * live, "bfloat16")
+        results["flash_decode_d256"] = dict(
+            max_abs_err=err, ms=time_ms(torch, lambda: fd.flash_decode(
+                q, ck, cv, kv_lens, layer=layer)),
+            plain_ms=time_ms(torch, lambda: fd.flash_decode_ref(
+                q, ck, cv, kv_lens, layer=layer)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k4, v4, attn_mask=mask)),
+            bound_ms=bms, bound_by=by)
+
+    # 8: (Sq, page, offsets, kv_lens, dtype, unmapped entries)
+    cases = {
+        "gemma-2b suffix batch": (64, 128, [512] * 8,
+                                  [540 + 5 * i for i in range(8)], bf, False),
+        "gemma-2b chunk": (256, 128, [256], [512], bf, False),
+        "gemma-2b f32": (100, 16, [0, 48, 16, 0], [100, 130, 77, 1], f32,
+                         True),
+    }
+    for tag, (sq, pss, offs, lens, dtype, unmapped) in cases.items():
+        bb = len(offs)
+        mp = -(-max(o + sq for o in offs) // pss)
+        pk, pv = _pools(torch, gen, dev, 2, bb * mp, kvn, pss, d, dtype)
+        tables = _tables(torch, dev, bb, mp, dead_last=unmapped)
+        if unmapped:
+            tables[2, 1] = -1           # inside row 2's kv_len
+        q = torch.randn((bb, sq, n, d), generator=gen, device=dev,
+                        dtype=dtype)
+        off_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+        kv_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = pp.paged_flash_prefill(q, pk, pv, tables, kv_t, off_t, layer)
+        want = pp.paged_flash_prefill_ref(q, pk, pv, tables, kv_t, off_t,
+                                          layer)
+        torch.cuda.synchronize()
+        ok, err, note = _prefill_rule(torch, got, want)
+        print(f"[kernels] paged_flash_prefill d256 {tag} (B={bb} Sq={sq} "
+              f"ps={pss}): max|err| {err:.3e} ({note})", flush=True)
+        require(bool(torch.isfinite(got).all()) and ok,
+                f"paged_flash_prefill d256 {tag} disagrees: {err} ({note})")
+        if dtype != bf:
+            continue
+        es = q.element_size()
+        keys = sum(min(o + rr + 1, ln) for o, ln in zip(offs, lens)
+                   for rr in range(sq))
+        kv_rows = sum(min(ln, o + sq) for o, ln in zip(offs, lens))
+        nbytes = (2 * bb * sq * n * d * es + 2 * kv_rows * kvn * d * es
+                  + tables.numel() * 4 + 2 * bb * 4)
+        bms, by = bound_ms(nbytes, 4.0 * n * d * keys, "bfloat16")
+        ck, cv = gather_dense(pk[layer], pv[layer], tables)
+        ck, cv = _gqa(torch, ck, n), _gqa(torch, cv, n)
+        key_pos = torch.arange(ck.shape[2], device=dev)
+        q_pos = off_t.long()[:, None] + torch.arange(sq, device=dev)[None]
+        mask = ((key_pos[None, None] <= q_pos[:, :, None])
+                & (key_pos[None, None] < kv_t.long()[:, None, None]))[:, None]
+        qt = q.transpose(1, 2)
+        res = dict(
+            max_abs_err=err, ms=time_ms(torch, lambda: pp.paged_flash_prefill(
+                q, pk, pv, tables, kv_t, off_t, layer)),
+            plain_ms=time_ms(torch, lambda: pp.paged_flash_prefill_ref(
+                q, pk, pv, tables, kv_t, off_t, layer)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, ck, cv, attn_mask=mask)),
+            bound_ms=bms, bound_by=by)
+        extra.append(("paged_flash_prefill_d256", tag, res))
+        results.setdefault("paged_flash_prefill_d256", res)
+        del ck, cv
+
+    # 6 (6m for bf16 rows, the FMA kernel for f32) and 6d: (rows, dtype,
+    # unmapped row, dense arena)
+    nq = (n + 2 * kvn) * d
+    for tag, (bb, dtype, unmapped, dense) in {
+            "gemma-2b": (8, bf, False, False),
+            "gemma-2b unmapped row": (8, bf, True, False),
+            "gemma-2b m1": (1, bf, False, False),
+            "gemma-2b f32": (8, f32, True, False),
+            "gemma-2b dense": (8, bf, False, True)}.items():
+        wq, ws = _qweight(torch, gen, dev, (2, h, nq), 1)
+        nw = (1.0 + 0.1 * torch.randn((2, h), generator=gen, device=dev)
+              ).to(dtype)
+        x = torch.randn((bb, h), generator=gen, device=dev).to(dtype)
+        pos = (128 + 4 * torch.arange(bb, device=dev)).to(torch.int32)
+        sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
+        mp = 3
+        if dense:
+            pk, pv = _arena(torch, gen, dev, 2, bb, kvn, 1024, d, dtype)
+            tables, kw = None, {}
+        else:
+            pk, pv = _pools(torch, gen, dev, 2, bb * mp, kvn, ps, d, dtype)
+            tables = _tables(torch, dev, bb, mp, dead_last=False)
+            if unmapped:
+                tables[-1, int(pos[-1]) // ps] = -1
+            kw = dict(tables=tables)
+        a, r = (pk.clone(), pv.clone()), (pk.clone(), pv.clone())
+        qa, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, *a, layer,
+                                     pos, n_heads=n, kv_heads=kvn, **kw)
+        qr, *_ = qf.fused_qkv_append_ref(x, nw, wq, ws, sin, cos, *r, layer,
+                                         pos, n_heads=n, kv_heads=kvn, **kw)
+        torch.cuda.synchronize()
+        written = torch.zeros(pk.shape, dtype=torch.bool, device=dev)
+        if dense:
+            written[layer, torch.arange(bb, device=dev), :,
+                    pos.long()] = True
+        else:
+            page = tables.long()[torch.arange(bb, device=dev),
+                                 pos.long() // ps]
+            page = torch.where(page >= 0, page, pk.shape[1] - 1)
+            written[layer, page, :, pos.long() % ps] = True
+        err = max_err(qa, qr)
+        kv_err = max(max_err(ta[written], tr[written])
+                     for ta, tr in zip(a, r))
+        untouched = all(torch.equal(ta[~written], tr[~written])
+                        for ta, tr in zip(a, r))
+        if dtype == f32:
+            lim_q = F32_REL * float(qr.abs().max())
+            lim_kv = F32_REL * max(float(tr[written].abs().max())
+                                   for tr in r)
+        else:
+            lim_q = TOL["bfloat16"] * float(qr.float().std())
+            lim_kv = TOL["bfloat16"] * max(float(tr[written].float().std())
+                                           for tr in r)
+        regime = qf.qkv_regime(bb, h, nq, d, dtype)
+        print(f"[kernels] fused_qkv_append d256 {tag} ({regime}): q "
+              f"max|err| {err:.3e} (tol {lim_q:.3e}); k/v rows {kv_err:.3e} "
+              f"(tol {lim_kv:.3e}); other pool entries equal: {untouched}",
+              flush=True)
+        require(bool(torch.isfinite(qa).all()) and err <= lim_q
+                and kv_err <= lim_kv and untouched,
+                f"fused_qkv_append d256 {tag} disagrees: {err}, {kv_err}, "
+                f"{untouched}")
+        if tag != "gemma-2b":
+            continue
+        nbytes = _qkv_nbytes(h, nq, bb, n, kvn, d, x.element_size(),
+                             nw.element_size(), d * pk.element_size(),
+                             tables.numel() * 4 + bb * 4)
+        qt, st = _int8pack(torch, wq[layer], ws[layer], dtype)
+        timed: dict = {}
+        _time_qkv(torch, "fused_qkv_append", tag + " d256",
+                  lambda: qf.fused_qkv_append(
+                      x, nw, wq, ws, sin, cos, *a, layer, pos, n_heads=n,
+                      kv_heads=kvn, tables=tables),
+                  lambda: qf.fused_qkv_append_ref(
+                      x, nw, wq, ws, sin, cos, *r, layer, pos, n_heads=n,
+                      kv_heads=kvn, tables=tables),
+                  qr, nbytes, 2.0 * bb * h * nq, "bfloat16", (x, qt, st),
+                  timed, extra, max(err, kv_err))
+        results["fused_qkv_append_mma_d256"] = timed["fused_qkv_append_mma"]
+        results["fused_qkv_append_d256"] = timed["fused_qkv_append"]
+
+    # the forms outside the slice raise at D 256, before any launch
+    pk, pv = _pools(torch, gen, dev, 2, 6, kvn, ps, d, bf)
+    qk, sk = pa.quantize_kv(pk.float())
+    qv, sv = pa.quantize_kv(pv.float())
+    ek, ev = pk.to(torch.float8_e4m3fn), pv.to(torch.float8_e4m3fn)
+    tables = _tables(torch, dev, 3, 2, dead_last=False)
+    kv_lens = torch.tensor([5, 9, 2], dtype=torch.int32, device=dev)
+    zero = torch.zeros(3, dtype=torch.int32, device=dev)
+    q1 = torch.randn((3, n, d), generator=gen, device=dev, dtype=bf)
+    q3 = torch.randn((3, 3, n, d), generator=gen, device=dev, dtype=bf)
+    nk = torch.randn((3, 3, kvn, d), generator=gen, device=dev, dtype=bf)
+    before = {k: w.launches for k, (w, _r) in _wrappers().items()}
+    refused = {
+        "4q": lambda: pd.paged_flash_decode(q1, qk, qv, tables, kv_lens, 0,
+                                            k_scale=sk, v_scale=sv),
+        "4e": lambda: pd.paged_flash_decode(q1, ek, ev, tables, kv_lens, 0),
+        "4w": lambda: pd.paged_flash_decode(q1, pk, pv, tables, kv_lens, 0,
+                                            window=4),
+        "4v": lambda: pd.paged_flash_verify(q3, pk, pv, tables, kv_lens, 0),
+        "8q": lambda: pp.paged_flash_prefill(q3, qk, qv, tables, kv_lens,
+                                             zero, 0, k_scale=sk,
+                                             v_scale=sv),
+        "8e": lambda: pp.paged_flash_prefill(q3, ek, ev, tables, kv_lens,
+                                             zero, 0),
+        "3w": lambda: fp.flash_prefill(q3, nk, nk, window=4),
+        "9": lambda: pa.paged_append_decode_quant(
+            qk, qv, sk, sv, nk[:, 0], nk[:, 0], tables, zero, 0),
+        "1e": lambda: pa.paged_append_decode(ek, ev, nk[:, 0], nk[:, 0],
+                                             tables, zero, 0),
+    }
+    for form, call in refused.items():
+        try:
+            call()
+        except NotImplementedError as e:
+            require("head_dim 256" in str(e), f"{form} at D 256: {e}")
+            continue
+        raise SmokeFailure(f"{form} ran at D 256")
+    require(before == {k: w.launches for k, (w, _r) in _wrappers().items()},
+            "a form outside the D-256 slice launched")
+    print(f"[kernels] d256: the forms outside the slice raise "
+          f"NotImplementedError at D 256 before any launch: "
+          f"{', '.join(refused)}; the D-256 checks took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+
 LIBRARY = {"paged_append_decode": "index_put_ x2",
            "paged_append_prefill": "index_copy_ x2",
            "flash_prefill": "scaled_dot_product_attention, causal",
@@ -3455,6 +3889,19 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
            "paged_flash_prefill_fp8kv": "gather + cast to q's dtype + "
                                         "scaled_dot_product_attention, "
                                         "offset-causal mask (cast included)",
+           "flash_prefill_d256": "scaled_dot_product_attention, causal (K/V "
+                                 "repeated per group)",
+           "paged_flash_decode_d256": "scaled_dot_product_attention on "
+                                      "gathered K/V (repeated per group)",
+           "paged_flash_prefill_d256": "scaled_dot_product_attention on "
+                                       "gathered K/V (repeated per group), "
+                                       "offset-causal mask",
+           "flash_decode_d256": "scaled_dot_product_attention on the arena "
+                                "slice (repeated per group), length mask",
+           "fused_qkv_append_mma_d256": "torch._weight_int8pack_mm of the "
+                                        "qkv product alone",
+           "fused_qkv_append_d256": "torch._weight_int8pack_mm of the qkv "
+                                    "product alone",
            "fused_wo_ffn": "torch._weight_int8pack_mm x3 + eager rmsnorm "
                            "and SwiGLU",
            "flash_decode_dyn": "scaled_dot_product_attention on the arena "
@@ -3500,6 +3947,8 @@ def phase_kernels(torch, results):
     check_paged_verify(torch, dev, results, extra, kv="fp8")
     check_paged_prefill_fp8kv(torch, dev, results, extra)
     check_fused_qkv_fp8kv(torch, dev, results, extra)
+    # head_dim 256 (Gemma-2B): forms 1, 2, 3, 4, 13, 8 and 6 at its shapes
+    check_head_dim_256(torch, dev, results, extra)
     torch.cuda.empty_cache()
     # every launch of this phase (the checks, their timing): kernels 16
     # and 17 run on no path, as in the JAX package, so these are theirs
@@ -3591,9 +4040,13 @@ def regime_rows(want: dict, cfg) -> dict:
     out["fused_qkv_append_fma"] = (0 if on_mma else forms
                                    if qreg is not None else 0)
     few = want["quantized_matmul"] - want["quantized_matmul_mma"]
+    few_shapes = [(h, qkv), (cfg.num_heads * cfg.head_dim, h),
+                  (h, cfg.vocab_size)]
+    if cfg.hidden_act != "silu":
+        # GeGLU (Gemma): no fused FFN, so its products run on kernel 5
+        few_shapes += [(h, 2 * i), (i, h)]
     rmma = all(mm.tiled_regime(8, k, n, k, dtype) == "rmma"
-               for k, n in ((h, qkv), (cfg.num_heads * cfg.head_dim, h),
-                            (h, cfg.vocab_size)))
+               for k, n in few_shapes)
     out["quantized_matmul_rows_mma"] = few if rmma else 0
     out["quantized_matmul_rows"] = 0 if rmma else few
     ffn = getattr(ff, "ffn_regime", None)
@@ -3606,6 +4059,15 @@ def regime_rows(want: dict, cfg) -> dict:
              for k, n in shapes)
     out["quantized_matmul_w8a8_wgmma"] = (want["quantized_matmul_w8a8"]
                                           // 4 * wg)
+    # head_dim 256: every launch of kernels 3, 4, 8, 13 and 6 is a D-256 one
+    d256 = cfg.head_dim == 256
+    for row, of in (("flash_prefill_d256", "flash_prefill"),
+                    ("paged_flash_decode_d256", "paged_flash_decode"),
+                    ("paged_flash_prefill_d256", "paged_flash_prefill"),
+                    ("flash_decode_d256", "flash_decode"),
+                    ("fused_qkv_append_mma_d256", "fused_qkv_append_mma"),
+                    ("fused_qkv_append_d256", "fused_qkv_append_fma")):
+        out[row] = out[of] if d256 else 0
     return out
 
 
@@ -3736,6 +4198,24 @@ def _wrappers():
                                        qf.fused_qkv_append_ref),
             "paged_flash_prefill_fp8kv": (pp.paged_flash_prefill_fp8kv,
                                           pp.paged_flash_prefill_ref),
+            "flash_prefill_d256": (
+                _Regime(getattr(fp, "D256_LAUNCHES", {}), "flash_prefill"),
+                fp.flash_prefill_ref),
+            "paged_flash_decode_d256": (
+                _Regime(getattr(pd, "D256_LAUNCHES", {}),
+                        "paged_flash_decode"), pd.paged_flash_decode_ref),
+            "paged_flash_prefill_d256": (
+                _Regime(getattr(pp, "D256_LAUNCHES", {}),
+                        "paged_flash_prefill"), pp.paged_flash_prefill_ref),
+            "flash_decode_d256": (
+                _Regime(getattr(fd, "D256_LAUNCHES", {}), "flash_decode"),
+                fd.flash_decode_ref),
+            "fused_qkv_append_mma_d256": (
+                _Regime(getattr(qf, "D256_LAUNCHES", {}), "mma"),
+                qf.fused_qkv_append_ref),
+            "fused_qkv_append_d256": (
+                _Regime(getattr(qf, "D256_LAUNCHES", {}), "fma"),
+                qf.fused_qkv_append_ref),
             "fused_wo_ffn": (ff.fused_wo_ffn, ff.fused_wo_ffn_ref),
             "flash_decode_dyn": (fdd.flash_decode_dyn,
                                  fdd.flash_decode_dyn_ref)}
@@ -3751,7 +4231,9 @@ def int8_params(torch, cfg, dev, seed: int = 0) -> dict:
     """Llama weights as bench.py:60-99 draws them for its default INT8
     path, from a seeded generator on the card: random int8 [.., K, N]
     with per-output-channel f32 scales K**-0.5 / 127 (an INT8 LM head
-    too), a bf16 embedding of int8 draws x 0.002, bf16 norms of ones."""
+    too, but for a tied model: its head is the bf16 embedding, as in the
+    JAX package), a bf16 embedding of int8 draws x 0.002, bf16 norms of
+    ones."""
     from simplellminference_tpu_torch.ops.linear import QuantizedWeight
     gen = torch.Generator(device=dev).manual_seed(seed)
     h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
@@ -3768,16 +4250,19 @@ def int8_params(torch, cfg, dev, seed: int = 0) -> dict:
             (*shape[:-2], 1, shape[-1]), shape[-2] ** -0.5 / 127.0,
             device=dev))
 
-    return {"embed": i8((v, h)).to(bf) * 0.002,
-            "layers": {"input_norm": torch.ones((L, h), dtype=bf,
-                                                device=dev),
-                       "post_norm": torch.ones((L, h), dtype=bf, device=dev),
-                       "wqkv": w((L, h, (n + 2 * kvn) * d)),
-                       "wo": w((L, n * d, h)),
-                       "w_gate_up": w((L, h, 2 * i)),
-                       "w_down": w((L, i, h))},
-            "final_norm": torch.ones((h,), dtype=bf, device=dev),
-            "lm_head": w((h, v))}
+    params = {"embed": i8((v, h)).to(bf) * 0.002,
+              "layers": {"input_norm": torch.ones((L, h), dtype=bf,
+                                                  device=dev),
+                         "post_norm": torch.ones((L, h), dtype=bf,
+                                                 device=dev),
+                         "wqkv": w((L, h, (n + 2 * kvn) * d)),
+                         "wo": w((L, n * d, h)),
+                         "w_gate_up": w((L, h, 2 * i)),
+                         "w_down": w((L, i, h))},
+              "final_norm": torch.ones((h,), dtype=bf, device=dev)}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = w((h, v))
+    return params
 
 
 def int4_params(torch, cfg, dev, seed: int = 0) -> dict:
@@ -3826,7 +4311,8 @@ def step_weight_bytes(params, batch: int) -> int:
 
 def path_launches(int8: bool, layers: int, dispatches, steps: int,
                   kv_dtype: str = "bf16", int4=None,
-                  act_quant: bool = False, batch: int = 8) -> dict:
+                  act_quant: bool = False, batch: int = 8,
+                  cfg=None) -> dict:
     """Launches each kernel must show in one Engine run of a path.
 
     ``dispatches``: (attention kernel, rows m = B*S) of each prefill
@@ -3849,7 +4335,12 @@ def path_launches(int8: bool, layers: int, dispatches, steps: int,
     only) on quantized_matmul. Every quantized_matmul of more than 8 rows
     (bf16 activations, per-channel scales) also counts as one of its
     tensor-core regime (quantized_matmul_mma); the head's rows (the
-    dispatch's sequences, at most 8) stay on its few-rows kernel."""
+    dispatch's sequences, at most 8) stay on its few-rows kernel. ``cfg``
+    (the model's config, when not Llama's): a tied head
+    (``tie_word_embeddings``, Gemma) is a bf16 torch.matmul, no launch; a
+    GeGLU FFN takes no fused_ffn but two quantized_matmul a layer."""
+    head = int(cfg is None or not cfg.tie_word_embeddings)
+    glu = cfg is None or cfg.hidden_act == "silu"   # the fused FFN's gate
     want = {name: 0 for name in KERNELS}
     q = {"int8": "_quant", "fp8": "_fp8kv"}.get(kv_dtype, "")
     kv = {"int8": "_int8kv", "fp8": "_fp8kv"}.get(kv_dtype, "")
@@ -3861,16 +4352,16 @@ def path_launches(int8: bool, layers: int, dispatches, steps: int,
             for name, c in int4_regime_counts(int4, m, min(m, batch),
                                               layers).items():
                 want[name] += c
-        elif int8 and m <= 64:
-            want["quantized_matmul"] += 2 * layers + 1
+        elif int8 and m <= 64 and glu:
+            want["quantized_matmul"] += 2 * layers + head
             want["quantized_matmul_mma"] += 2 * layers * (m > 8)
             want["fused_ffn"] += layers
         elif int8 and act_quant and m >= 128:
             want["quantized_matmul_w8a8"] += 4 * layers
-            want["quantized_matmul"] += 1
+            want["quantized_matmul"] += head
         elif int8:
-            want["quantized_matmul"] += 4 * layers + 1
-            want["quantized_matmul_mma"] += 4 * layers
+            want["quantized_matmul"] += 4 * layers + head
+            want["quantized_matmul_mma"] += 4 * layers * (m > 8)
     want["paged_flash_decode" + kv] += layers * steps
     if int4:
         want["quantized_matmul_int4"] += (4 * layers + 1) * steps
@@ -3878,9 +4369,10 @@ def path_launches(int8: bool, layers: int, dispatches, steps: int,
                                           layers).items():
             want[name] += c * steps
     if int8:
-        want["quantized_matmul"] += (layers + 1) * steps
+        want["quantized_matmul"] += (layers * (1 if glu else 3)
+                                     + head) * steps
         want["fused_qkv_append" + kv] += layers * steps
-        want["fused_ffn"] += layers * steps
+        want["fused_ffn"] += layers * steps * glu
     else:
         want["paged_append_decode" + q] += layers * steps
     return want
@@ -3976,7 +4468,7 @@ def serve_path(torch, path: str, cfg, params, launches: dict, int8: bool,
     want = path_launches(int8, layers,
                          [("flash_prefill", batch * prompt_len)], steps,
                          kv_dtype=kv_dtype, int4=cfg if int4 else None,
-                         batch=batch)
+                         batch=batch, cfg=cfg)
     if eng._grouped:
         want = windowed(want)
     want = regime_rows(want, cfg)
@@ -4021,7 +4513,7 @@ def serve_path(torch, path: str, cfg, params, launches: dict, int8: bool,
     step_ms = time_ms(torch, lambda: llama.forward_paged(
         cfg, params, tok, pos, eng.cache, tables, pos[:, 0] + 1,
         prefill=False), iters=5)
-    if path == "int8":
+    if path in ("int8", "gemma"):
         # where the INT8 device step's time goes, kernel by kernel
         print_kernel_split(torch, f"[engine:{path}] decode step",
                            lambda: llama.forward_paged(
@@ -4187,7 +4679,7 @@ def serve_prefix(torch, path: str, cfg, params, launches: dict, int8: bool,
                   + [("paged_flash_prefill", batch * suffix)] * 2)
     want = path_launches(int8, layers, dispatches,
                          m.decode_bursts * burst, kv_dtype=kv_dtype,
-                         act_quant=cfg.act_quant == "int8")
+                         act_quant=cfg.act_quant == "int8", cfg=cfg)
     want = regime_rows(want, cfg)
     for name, n in want.items():
         require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
@@ -4222,6 +4714,82 @@ def serve_prefix(torch, path: str, cfg, params, launches: dict, int8: bool,
           f"requests): {wave_ttft} ms", flush=True)
     del eng, off
     return wave_ttft
+
+
+def prefix_decode(torch, path: str, cfg, params, kv_dtype: str,
+                  dev: str = "cuda") -> float:
+    """The decode rate of the server's default configuration (the prefix
+    path's engine: prefix cache on, chunk 256, page 128, burst 16) on the
+    prefix traffic once its 512-token system prompt is cached: waves of 8
+    requests (64-token suffixes, one suffix batch each) with 32 and 16 new
+    tokens, interleaved on one engine, the rate from the median walls'
+    difference; then one graph-replayed decode step at the mean context
+    beside its bytes floor and the device's idle share of the engine
+    step. Returns the rate."""
+    import numpy as np
+
+    from simplellminference_tpu_torch.core.config import SamplingParams
+    from simplellminference_tpu_torch.engine import Engine
+    from simplellminference_tpu_torch.models import llama
+
+    batch, system_len, suffix, new, burst, ps, chunk = (8, 512, 64, 32, 16,
+                                                        128, 256)
+    ecfg = prefix_engine_config(batch, ps, chunk,
+                                system_len + suffix + new + 2 * burst + 1,
+                                kv_dtype)
+    rng = np.random.default_rng(2)
+    system = rng.integers(1, cfg.vocab_size, system_len).tolist()
+    eng = Engine(cfg, params, ecfg, decode_burst=burst, device=dev)
+
+    def wave(max_new: int) -> float:
+        reqs = [eng.add_request(
+            prompt_ids=system + rng.integers(1, cfg.vocab_size,
+                                             suffix).tolist(),
+            sampling=SamplingParams(max_new_tokens=max_new))
+            for _ in range(batch)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        require(all(r.state.value == "finished"
+                    and len(r.output_ids) == max_new for r in reqs),
+                f"[{path}] a request of the rate's waves did not finish")
+        return time.perf_counter() - t
+
+    wave(new)                   # the system prompt cached, warm
+    walls, halves = [], []
+    for _ in range(3):
+        walls.append(wave(new))
+        halves.append(wave(new // 2))
+    require(eng.metrics.prefix_cache_hits >= 6 * batch,
+            f"[{path}] the rate's waves missed the prefix cache")
+    wall_full, wall_half = statistics.median(walls), statistics.median(halves)
+    tokens = batch * (new - new // 2)
+    rate = tokens / (wall_full - wall_half)
+    engine_step_ms = (wall_full - wall_half) * 1e3 / (new - new // 2)
+    ctx = system_len + suffix + new // 2 + new // 4
+    mp = ecfg.kv.max_pages_per_seq
+    tables = torch.arange(batch * mp, dtype=torch.int32,
+                          device=dev).reshape(batch, mp)
+    tok = torch.ones((batch, 1), dtype=torch.int32, device=dev)
+    pos = torch.full((batch, 1), ctx - 1, dtype=torch.int32, device=dev)
+    step_ms = time_ms(torch, lambda: llama.forward_paged(
+        cfg, params, tok, pos, eng.cache, tables, pos[:, 0] + 1,
+        prefill=False), iters=5)
+    wbytes = step_weight_bytes(params, batch)
+    kvbytes = kv_bytes(cfg.num_layers, batch * ctx, cfg.num_kv_heads,
+                       cfg.head_dim, kv_dtype)
+    floor_ms = (wbytes + kvbytes) / HBM_BYTES_PER_S * 1e3
+    print(f"[engine:{path}] decode {rate} tok/s with the system prompt "
+          f"cached (median-wall difference of waves of {batch} x {new} and "
+          f"{new // 2} tokens: walls {walls} / {halves} s)", flush=True)
+    print(f"[engine:{path}] decode step: engine {engine_step_ms:.3f} ms, "
+          f"device (graph replay) {step_ms:.3f} ms, bytes floor "
+          f"{floor_ms:.3f} ms ({wbytes / 1e9:.3f} GB weights + "
+          f"{kvbytes / 1e9:.3f} GB KV); device idle share of the engine "
+          f"step {max(0.0, 1 - step_ms / engine_step_ms):.3f}", flush=True)
+    del eng
+    return rate
 
 
 def spec_launches(int8: bool, layers: int, steps: int,
@@ -4745,7 +5313,9 @@ PATH_SETUP = {"int8": ("int8", "bf16", False), "bf16": ("bf16", "bf16", False),
               "int4": ("int4", "bf16", False),
               "int4_dense": ("int4", "bf16", False),
               "w8a8": ("int8", "bf16", True),
-              "mistral_window": ("int8", "bf16", False)}
+              "mistral_window": ("int8", "bf16", False),
+              "gemma": ("int8", "bf16", False),
+              "gemma_prefix": ("bf16", "bf16", True)}
 # earlier paths cut in depth to keep the run within half its time limit
 # (their launch counts follow the cut: every count is per layer); the
 # paths of the newest slice keep the model's 32 layers
@@ -4774,6 +5344,9 @@ def phase_engine(torch, launches: dict, paths=PATHS):
         if path == "mistral_window":
             cfg = ModelConfig.mistral_7b(sliding_window=WINDOW,
                                          dtype="bfloat16")
+            drawn = None
+        if path.startswith("gemma"):
+            cfg = ModelConfig.gemma_2b(dtype="bfloat16")
             drawn = None
         t0 = time.perf_counter()
         if (weights, cfg.num_layers) != drawn or weights != "int4":
@@ -4808,6 +5381,9 @@ def phase_engine(torch, launches: dict, paths=PATHS):
         elif prefix:
             ttft[path] = serve_prefix(torch, path, cfg, params, launches,
                                       int8, kv_dtype)
+            if path == "gemma_prefix":
+                rates[path] = prefix_decode(torch, path, cfg, params,
+                                            kv_dtype)
         elif path == "mistral_window":
             # the long run, then bench.py's shape (8 x 128-token prompts,
             # 32 new tokens: a whole-prompt dispatch, R 33) for the rate;
@@ -5033,7 +5609,7 @@ def card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps,
         print(f"[cpu:{tag}] on the CPU's codes, the card's own were apart "
               f"in {_act_apart(act_g.codes, act_c.codes)} (each at most "
               f"one step)", flush=True)
-    print(f"[cpu:{tag}] Llama-2-7B width, 2 layers, f32, {kv_dtype} KV, "
+    print(f"[cpu:{tag}] {_width(cfg)}, 2 layers, f32, {kv_dtype} KV, "
           f"TF32 off: "
           f"{len(prompts)} requests, prefill + {steps} steps on card and "
           f"CPU in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -5113,7 +5689,14 @@ def card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps,
           f"{outs[0] == outs[1]}", flush=True)
 
 
-def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="f32"):
+def _width(cfg) -> str:
+    """The model whose widths a phase-5 check runs at, for its lines."""
+    return ("Gemma-2B width" if cfg.model_type == "gemma"
+            else "Llama-2-7B width")
+
+
+def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="f32",
+                       tag=None):
     """The `prefix` path's traffic at a small size (a 48-token system
     prompt, 8-token suffixes, page 16, chunk 16, waves of 1, 3 and 4) on
     the card and on the CPU: greedy tokens equal on both, and equal to
@@ -5127,14 +5710,14 @@ def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="f32"):
     and chunk 64, so that the suffix batch of 4 x 32 rows runs W8A8; the
     card's engine on the CPU engine's activation codes (``_ActCodes``),
     card and CPU by the LOGIT_TOL rule, and the card must launch the W8A8
-    kernel."""
+    kernel. ``tag`` names the check (default: by the KV dtype)."""
     import numpy as np
 
     from simplellminference_tpu_torch.core.config import SamplingParams
     from simplellminference_tpu_torch.engine import Engine
     from simplellminference_tpu_torch.ops import matmul as mm
 
-    tag = "prefix" if kv_dtype == "f32" else f"prefix-{kv_dtype}kv"
+    tag = tag or ("prefix" if kv_dtype == "f32" else f"prefix-{kv_dtype}kv")
     batch, system_len, suffix, new, burst, ps, chunk = 4, 48, 8, 8, 4, 16, 16
     if cfg.act_quant:
         tag, system_len, suffix, chunk = "prefix-w8a8", 32, 32, 64
@@ -5180,7 +5763,7 @@ def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="f32"):
             _first_divergence(torch, tag,
                               f"{dev} prefix path and cache-off trace",
                               outs[dev][r], ref, lg_c, r)
-    print(f"[cpu:{tag}] Llama-2-7B width, 2 layers, f32, {kv_dtype} KV: "
+    print(f"[cpu:{tag}] {_width(cfg)}, 2 layers, f32, {kv_dtype} KV: "
           f"{len(prompts)} "
           f"requests in waves of 1, {batch - 1}, {batch} (prefix hits "
           f"{2 * batch - 1}, persistent {batch}) on card and CPU in "
@@ -5694,6 +6277,51 @@ def phase_cpu(torch, launches: dict):
           flush=True)
     del q8g_gpu, q8g_cpu
     window_card_vs_cpu(torch, launches)
+    gemma_card_vs_cpu(torch)
+
+
+def gemma_card_vs_cpu(torch):
+    """Gemma-2B at full width (H 2048, I 16384, V 256000, 8 heads over one
+    kv head of 256, GeGLU, the embedding scale, a tied head), 2 layers,
+    f32, TF32 off, from one seeded draw on the card copied to the host:
+    the f32 weights and the same draw quantized by the port (INT8 per
+    channel; the tied head stays the f32 embedding) through
+    :func:`card_vs_cpu` (prefill + 8 greedy steps, logits within
+    LOGIT_TOL, greedy tokens equal by the margin rule, the Engine on both
+    devices), and the prefix traffic with the f32 weights through
+    :func:`prefix_card_vs_cpu`. The card runs the D-256 forms: 3, 4, 8,
+    the FMA kernel 6 (f32 rows), 1 and 2."""
+    import numpy as np
+
+    from simplellminference_tpu_torch.core.config import (ModelConfig,
+                                                          QuantConfig)
+    from simplellminference_tpu_torch.models import llama
+    from simplellminference_tpu_torch.ops.attention import paged_decode as pd
+    from simplellminference_tpu_torch.runtime.weights import quantize_params
+
+    cfg = ModelConfig.gemma_2b(num_layers=2, dtype="float32")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, cfg.vocab_size, ln).tolist()
+               for ln in (40, 64, 17, 50)]
+    t0 = time.perf_counter()
+    p_cpu = _to_device(llama.init_params(cfg, seed=11, device="cuda"), "cpu")
+    torch.cuda.empty_cache()
+    before = pd.D256_LAUNCHES["paged_flash_decode"]
+    p_gpu = _to_device(p_cpu, "cuda")
+    card_vs_cpu(torch, "gemma-f32", cfg, p_gpu, p_cpu, prompts, steps=8)
+    prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, tag="gemma-prefix")
+    del p_gpu
+    q_cpu = quantize_params(p_cpu, QuantConfig(mode="int8", group_size=0))
+    del p_cpu
+    q_gpu = _to_device(q_cpu, "cuda")
+    card_vs_cpu(torch, "gemma-int8", cfg, q_gpu, q_cpu, prompts, steps=8)
+    del q_gpu, q_cpu
+    torch.cuda.empty_cache()
+    ran = pd.D256_LAUNCHES["paged_flash_decode"] - before
+    require(ran > 0, "[cpu:gemma] no D-256 decode launch on the card")
+    print(f"[cpu:gemma] Gemma-2B card vs CPU (f32, INT8, prefix traffic) in "
+          f"{time.perf_counter() - t0:.1f} s; D-256 decode launches on the "
+          f"card {ran}", flush=True)
 
 
 def main(argv=None) -> int:

@@ -25,6 +25,10 @@
 // the tiles alone leave fewer than two blocks an SM, the key walk is split
 // over blocks (from shapes alone) and merged by log-sum-exp.
 //
+// Head dims 32, 64, 128 for both forms, and 256 (Gemma) without a window:
+// its register and shared-memory budget is prefill_mma.cuh's note; the
+// f32 FMA kernel's tiles at D 256 take 213,760 bytes of shared memory.
+//
 // Design, f32: the first, FMA kernel below (TF32 tensor cores would not
 // hold f32's tolerance): one block per (q tile of 64 rows, q head,
 // batch); K/V tiles of 64 rows staged through shared memory in f32, a
@@ -240,6 +244,11 @@ int dispatch_d(int head_dim, const void* q, const void* k, const void* v,
       return launch<T, 128>(q, k, v, out, q_bs, q_ss, k_bs, k_ss, v_bs,
                             v_ss, o_bs, o_ss, batch, seq, heads, group, window,
                             scale, st);
+    case 256:  // no window at D 256
+      if (window != 0) return SLI_ERR_HEAD_DIM;
+      return launch<T, 256>(q, k, v, out, q_bs, q_ss, k_bs, k_ss, v_bs,
+                            v_ss, o_bs, o_ss, batch, seq, heads, group, window,
+                            scale, st);
     default:
       return SLI_ERR_HEAD_DIM;
   }
@@ -324,6 +333,11 @@ int dispatch_mma(int head_dim, const void* q, const void* k, const void* v,
                             splits, st);
     case 128:
       return launch_mma<128>(q, k, v, out, work, q_bs, q_ss, k_bs, k_ss,
+                             v_bs, v_ss, batch, seq, heads, group, window,
+                             scale, splits, st);
+    case 256:  // no window at D 256
+      if (window != 0) return SLI_ERR_HEAD_DIM;
+      return launch_mma<256>(q, k, v, out, work, q_bs, q_ss, k_bs, k_ss,
                              v_bs, v_ss, batch, seq, heads, group, window,
                              scale, splits, st);
     default:

@@ -82,6 +82,17 @@
 // a newer position, and masking after the read would still fetch it. Rows
 // newer than the oldest mask the keys below their own band per element
 // (p = 0).
+//
+// Head dims 32, 64 and 128 for every form; 256 (Gemma) for decode (one
+// window row, no sliding window) over pools of q's own dtype, paged (4)
+// and dense (13). At D 256 the work a key is 4x D 64's, the bytes bound
+// the same: a bf16 K+V stage is 2 x 64 keys x 528 bytes = 66 KB, so the
+// ring keeps 2 stages, one tile in flight while the block computes on the
+// other (f32: one 130 KB stage, loaded, then computed), 178 KB of shared
+// memory at 32 rows (8 at Gemma's group: 147 KB), one block an SM. A row
+// has 32 PV units of 8 columns: few rows take 8 key slices of the tile,
+// more rows up to 4 units a thread; each thread's accumulators stay 64
+// floats at every D, and the merge takes a 256-thread block a row.
 #include <type_traits>
 
 #include "common.cuh"
@@ -98,7 +109,18 @@ constexpr int FEW = 8;         // rows every thread holds in PV (and the
 constexpr int PSTR = BK + 1;   // probability row stride (floats)
 constexpr float NEG_INF = -1e30f;
 static_assert(PARTS == 4, "the score phase adds four parts a key");
-static_assert(RB * 128 / 8 <= FEW * NT, "PV units must fit the threads");
+static_assert(RB * 256 / 8 <= FEW * NT, "PV units must fit the threads");
+
+// Stages of the ring: 4 for 1-byte codes, 3 for bf16, 2 for f32; at D 256
+// one fewer for bf16 and f32 (a bf16 stage of K and V is 66 KB there, an
+// f32 one 130 KB: 2 bf16 stages and the q, probability and state arrays of
+// 32 rows make 173 KB, one f32 stage 171 KB, within the 227 KB a block
+// may take; the card holds one such block an SM, and one 64-key tile in
+// flight then still covers the SM's share of the memory rate).
+template <int ES, int D>
+constexpr int stages() {
+  return ES == 1 ? 4 : (ES == 2 ? 3 : 2) - (D >= 256 ? 1 : 0);
+}
 
 template <typename P, int D>
 struct Geo {
@@ -106,7 +128,7 @@ struct Geo {
   static constexpr int ROWB = D * ES + 16;  // padded key row bytes
   static constexpr int TILE = BK * ROWB;    // one K or V tile
   static constexpr int CH = D * ES / 16;    // 16-byte chunks of a key row
-  static constexpr int STAGES = ES == 1 ? 4 : ES == 2 ? 3 : 2;
+  static constexpr int STAGES = stages<ES, D>();
   static_assert(STAGES * 2 * TILE >= NT * 8 * (int)sizeof(float),
                 "the key slices' reduction fits the ring");
   // ring (K, V tiles and their scales; after the walk, the key slices'
@@ -326,9 +348,15 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   __syncthreads();  // q, max and sum are in place
 
   for (int i = 0; i < ntile; ++i) {
-    cp_async_wait<G::STAGES - 2>();  // tile i has landed
-    __syncthreads();                 // and tile i - 1 is read by all
-    {
+    if constexpr (G::STAGES == 1) {  // f32 at D 256: load, then compute
+      __syncthreads();               // tile i - 1 is read by all
+      load(ta + i, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      cp_async_wait<G::STAGES - 2>();  // tile i has landed
+      __syncthreads();                 // and tile i - 1 is read by all
       const int nx = i + G::STAGES - 1;
       if (nx < ntile) load(ta + nx, nx % G::STAGES);
       cp_async_commit();  // possibly empty: keeps the group count
@@ -560,6 +588,9 @@ int launch(const Args& a, cudaStream_t st) {
   return (int)sli::launch_merge<T>(a.part, a.out, n_rows, D, a.splits, st);
 }
 
+// D 256 (Gemma) only over pools of q's own dtype, one window row (decode)
+// and no sliding window: the INT8-KV, e4m3, verify and window forms take
+// D <= 128 (the wrappers raise for them).
 template <typename T, typename P, bool DENSE = false>
 int dispatch_d(int head_dim, const Args& a, cudaStream_t st) {
   switch (head_dim) {
@@ -569,6 +600,12 @@ int dispatch_d(int head_dim, const Args& a, cudaStream_t st) {
       return launch<T, P, 64, DENSE>(a, st);
     case 128:
       return launch<T, P, 128, DENSE>(a, st);
+    case 256:
+      if constexpr (std::is_same_v<T, P>) {
+        if (a.wins == 1 && a.window == 0)
+          return launch<T, P, 256, DENSE>(a, st);
+      }
+      return SLI_ERR_HEAD_DIM;
     default:
       return SLI_ERR_HEAD_DIM;
   }

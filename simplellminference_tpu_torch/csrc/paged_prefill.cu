@@ -43,7 +43,10 @@
 // alone and the partials merged by log-sum-exp. INT8 KV converts each
 // staged row in registers, code x its row's scale in f32 rounded to bf16
 // (paged_prefill.py:105-110), into the swizzled tiles. Every Sq is taken;
-// a batch's padding row (-1 table, kv_len 1) stays finite.
+// a batch's padding row (-1 table, kv_len 1) stays finite. Head dims 32,
+// 64 and 128 for every form; 256 (Gemma) only over pools of q's dtype
+// (8 and its f32 FMA form) without a window, budget in prefill_mma.cuh's
+// note (the FMA kernel's tiles: 214,272 bytes of shared memory).
 //
 // Design, f32: the first, FMA kernel below (TF32 tensor cores would not
 // hold f32's tolerance): one block per (q tile of 64 rows, q head,
@@ -296,6 +299,15 @@ int dispatch_d(int head_dim, const void* q, long long q_bs, long long q_ss,
                                tables, kv_lens, offs, out, batch, seq, heads,
                                layer, num_pages1, kvn, ps, mp, group, window,
                                scale, st);
+    case 256:  // pools of q's dtype, no window
+      if constexpr (std::is_same_v<T, P>) {
+        if (window == 0)
+          return launch<T, P, 256>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
+                                   tables, kv_lens, offs, out, batch, seq,
+                                   heads, layer, num_pages1, kvn, ps, mp,
+                                   group, window, scale, st);
+      }
+      return SLI_ERR_HEAD_DIM;
     default:
       return SLI_ERR_HEAD_DIM;
   }
@@ -444,6 +456,16 @@ int dispatch_mma(int head_dim, const void* q, long long q_bs, long long q_ss,
                                     tables, kv_lens, offs, out, work, batch,
                                     seq, heads, layer, num_pages1, kvn, ps,
                                     mp, group, window, scale, splits, st);
+    case 256:  // bf16 pools, no window
+      if constexpr (KV == sli::pfa::KV_BF16) {
+        if (window == 0)
+          return launch_mma<256, KV>(q, q_bs, q_ss, pool_k, pool_v, ksp,
+                                     vsp, tables, kv_lens, offs, out, work,
+                                     batch, seq, heads, layer, num_pages1,
+                                     kvn, ps, mp, group, window, scale,
+                                     splits, st);
+      }
+      return SLI_ERR_HEAD_DIM;
     default:
       return SLI_ERR_HEAD_DIM;
   }

@@ -55,6 +55,23 @@
 // outputs stay within one bf16 ulp of the plain f32-P version (rounding P
 // alone misses that rule many times over at the serving shapes:
 // tests/test_torch_prefill_tiles.py).
+//
+// D 256 (Gemma-2B: 8 q heads over one kv head, so a tile packs 8
+// positions x 8 heads, as TinyLlama's at D 64), bf16 pools only and no
+// window: S = QK^T takes 16 k-steps of m64n64k16; O += PV is one
+// wgmma.m64n256k16 a 16-key step (P from registers, V as B in four
+// 64-column slabs at the slab stride, the same descriptor as n128's two),
+// for p_hi and again for p_lo. Its accumulator is float[128] a thread,
+// on top of S (32), the P fragments (32: hi and lo kept, the one-ulp
+// rule needs both) and the softmax state; a one-warpgroup block may use
+// 255 registers a thread, and chip_smoke's build prints ptxas's count and
+// spills for each instantiation. Shared memory: Q 32 KB, two stages of K
+// and V at 64 KB each, the row tables and the 1 KB alignment pad: 165,888
+// bytes (Smem<256, KV_BF16>::BYTES), so one block an SM; every 16-byte
+// chunk lands in the 128-byte swizzle of its 64-column slab (four slabs a
+// row). Bound at Gemma's prefill (a 128-row prompt, 8 heads): bytes, as
+// for D 128; at the 512-key prefix chunks the tensor cores (4 x 8 x 256
+// operations a (row, key) pair, 6 with P's two parts).
 #pragma once
 
 #include "common.cuh"
@@ -261,6 +278,36 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const unsigned (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// O[64 x 256] += A[64 x 16] B[16 x 256]: A from registers (the m64k16
+// fragment), B MN-major in shared memory (the transposed mode); D 256's
+// 128 accumulators a thread.
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const unsigned (&a)[4],
+                                             unsigned long long db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
                                          const unsigned (&a)[4],
@@ -268,6 +315,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
   if constexpr (D == 32) wgmma_rs_n32(d, a, db);
   if constexpr (D == 64) wgmma_rs_n64(d, a, db);
   if constexpr (D == 128) wgmma_rs_n128(d, a, db);
+  if constexpr (D == 256) wgmma_rs_n256(d, a, db);
 }
 
 // The block's tile of queries and the run of key tiles it walks.

@@ -32,7 +32,11 @@
 // parallel and share nothing, so each block recomputes the rmsnorm of its
 // rows (one warp per row, from L2) and owns 128 whole columns: one head of
 // D = 128 (or 2 of 64, 4 of 32), so every RoPE pair (c, c + D/2) stays in
-// the block. It streams the int8 product over all of K (int8_rows.cuh:
+// the block; at D 256 (Gemma) the block's 128 columns are two 64-column
+// runs of one head, 128 apart (qkv_slots.cuh block_col), so the pairs
+// still do (bf16/f32 pools only: the INT8-KV pass needs whole heads), with
+// the registers and shared memory of every other D. It
+// streams the int8 product over all of K (int8_rows.cuh:
 // 16-byte loads, f32 FMAs against the normalized rows in shared memory),
 // applies the per-channel scale, rotates q and k in f32, writes q out and
 // stores each k/v row straight into its pool slot. An unmapped (-1) page,
@@ -83,11 +87,11 @@ __global__ void __launch_bounds__(RT_THREADS, 1) qkv_fused_kernel(
   const int heads = n_heads + 2 * kvn;
   const int nq = heads * d;
   const int m0 = blockIdx.x * RT_MT;
-  const int col0 = blockIdx.y * QKV_CW;
+  const int col0 = blockIdx.y * QKV_CW;  // the INT8-KV pass's (D <= 128)
   const int tid = threadIdx.x;
   const int ct = tid % QKV_CT;
   const int klane = tid / QKV_CT;
-  const int c = col0 + ct * 16;
+  const int c = qkv::block_col(blockIdx.y, ct * 16, d);
 
   row_rms<T>(x, ldx, m0, b, h, eps, inv);
   float acc[RT_MT][16];
@@ -106,7 +110,7 @@ __global__ void __launch_bounds__(RT_THREADS, 1) qkv_fused_kernel(
   }
   reduce_lanes<QKV_CT>(acc, red, tile);
   for (int i = tid; i < RT_MT * QKV_CW; i += RT_THREADS) {
-    const int col = col0 + i % QKV_CW;
+    const int col = qkv::block_col(blockIdx.y, i % QKV_CW, d);
     if (col < nq) tile[i] *= __ldg(ws + col);
   }
   __syncthreads();
@@ -115,13 +119,15 @@ __global__ void __launch_bounds__(RT_THREADS, 1) qkv_fused_kernel(
   for (int i = tid; i < RT_MT * QKV_CW / 2; i += RT_THREADS) {
     const int r = i / (QKV_CW / 2);
     const int p = i - r * (QKV_CW / 2);
-    const int t1 = (p / half) * d + p % half;  // first column of the pair
-    const int j = t1 % d;
-    const int head = (col0 + t1) / d;
+    const int t1 = qkv::pair_col(p, d);    // first column of the pair
+    const int t2 = qkv::pair_partner(t1, d);
+    const int g1 = qkv::block_col(blockIdx.y, t1, d);
+    const int j = g1 % d;
+    const int head = g1 / d;
     const int row = m0 + r;
     if (row >= b || head >= heads) continue;
     const float x1 = tile[r * QKV_CW + t1];
-    const float x2 = tile[r * QKV_CW + t1 + half];
+    const float x2 = tile[r * QKV_CW + t2];
     float r1 = x1, r2 = x2;
     if (head < n_heads + kvn) {
       const float s = sin_t[(long long)row * half + j];
@@ -137,7 +143,7 @@ __global__ void __launch_bounds__(RT_THREADS, 1) qkv_fused_kernel(
     }
     if (pool_ks != nullptr) {  // INT8 KV: quantized by the pass below
       tile[r * QKV_CW + t1] = sli::to_f(sli::from_f<T>(r1));
-      tile[r * QKV_CW + t1 + half] = sli::to_f(sli::from_f<T>(r2));
+      tile[r * QKV_CW + t2] = sli::to_f(sli::from_f<T>(r2));
       continue;
     }
     const bool is_k = head < n_heads + kvn;
@@ -207,7 +213,10 @@ int sli_qkv_fused(const void* x, long long ldx, const void* nw, int nw_bf16,
                   float eps, int x_dtype, int vec, void* stream) {
   if (b <= 0 || h <= 0 || n_heads <= 0 || kvn <= 0 || ps <= 0 || mp <= 0)
     return SLI_ERR_SHAPE;
-  if (d != 32 && d != 64 && d != 128) return SLI_ERR_HEAD_DIM;
+  if (d != 32 && d != 64 && d != 128 && d != 256) return SLI_ERR_HEAD_DIM;
+  // D 256: bf16/f32 pools (the INT8-KV pass and e4m3 take D <= 128)
+  if (d == 256 && pool_dt != SLI_POOL_BF16 && pool_dt != SLI_POOL_F32)
+    return SLI_ERR_HEAD_DIM;
   if ((pool_ks == nullptr) != (pool_vs == nullptr)) return SLI_ERR_SHAPE;
   if (!qkv::pool_ok(pool_dt, pool_ks != nullptr)) return SLI_ERR_DTYPE;
   float* ks = (float*)pool_ks;

@@ -24,10 +24,17 @@
 // order on one stream,
 //   (a) i8m::norm_rows_kernel: the rmsnorm of each row once, in f32,
 //       rounded to bf16 into xn [b, H];
-//   (b) qkv_fused_mma_kernel: a block owns 128 contiguous qkv columns, the
-//       header's two 64-column groups (col1 = col0 + 64): whole heads at
-//       D 32, 64 and 128 (four, two or one), so every RoPE pair (c,
-//       c + D/2) and every INT8-KV head's absmax stays in the block. It
+//   (b) qkv_fused_mma_kernel: a block owns 128 qkv columns, the
+//       header's two 64-column groups: at D 32, 64 and 128 contiguous
+//       (col1 = col0 + 64), whole heads (four, two or one), so every RoPE
+//       pair (c, c + D/2) and every INT8-KV head's absmax stays in the
+//       block; at D 256 (Gemma) the groups are a head's columns
+//       [64 k, + 64) and [128 + 64 k, + 64), k = 0, 1 (qkv_slots.cuh
+//       block_col), so the pairs still stay in the block, and the grid
+//       keeps Nq / 128 blocks a K range (20 at Gemma-2B's 2560 columns;
+//       the INT8-KV and e4m3 forms keep D <= 128); registers, shared
+//       memory and the bytes bound (5.2 MB of weight at Gemma-2B) do not
+//       depend on D, only the tail's column map does. It
 //       streams a K range of the weight against all b rows of xn in one
 //       pass (int8_mma_rows.cuh: mma.sync with the weight as A, converted
 //       exactly to bf16 in registers; a 4-stage cp.async ring). K is split
@@ -99,7 +106,8 @@ __global__ void __launch_bounds__(i8m::THREADS, QkvRes<NT>::value)
   extern __shared__ __align__(16) unsigned char smem[];
   using G = i8m::Geo<NT>;
   const int nq = (n_heads + 2 * kvn) * d;
-  const int col0 = blockIdx.x * 128;
+  const int col0 = qkv::block_col(blockIdx.x, 0, d);
+  const int col1 = qkv::block_col(blockIdx.x, 64, d);
   const int z = blockIdx.y;
   const int chunks = gridDim.y;
   const int kb = z * kch;
@@ -111,8 +119,7 @@ __global__ void __launch_bounds__(i8m::THREADS, QkvRes<NT>::value)
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[tj][nt][e] = 0.f;
-  i8m::stream<NT>(smem, wq, nq, col0, col0 + 64, true, xn, h, b, kb, ke,
-                  acc);
+  i8m::stream<NT>(smem, wq, nq, col0, col1, true, xn, h, b, kb, ke, acc);
   float* red = reinterpret_cast<float*>(smem);
   i8m::spill<NT>(acc, red);
   const int tid = threadIdx.x;
@@ -121,43 +128,43 @@ __global__ void __launch_bounds__(i8m::THREADS, QkvRes<NT>::value)
     for (int i = tid; i < b * 128; i += i8m::THREADS) {
       const int row = i >> 7;
       const int c = i & 127;
-      pz[(long long)row * nq + col0 + c] =
+      pz[(long long)row * nq + (c < 64 ? col0 + c : col1 + c - 64)] =
           i8m::block_sum<NT>(red, c >> 6, c & 63, row);
     }
     if (!i8m::last_to_arrive(qkv_arrivals + blockIdx.x, chunks)) return;
   }
 
   // The tail: a thread takes 4 neighbouring pairs (c, c + D/2) of a head
-  // (the 64 first columns of the block's pairs, in 16 groups a row).
+  // (the block's 64 pairs, in 16 groups a row; qkv_slots.cuh pair_col).
   float* tile = red + G::RED / 4;
   const bool quant = pool_ks != nullptr;
   const int half = d >> 1;
   for (int i = tid; i < b * 16; i += i8m::THREADS) {
     const int row = i >> 4;
-    const int p0 = (i & 15) * 4;
-    const int t1 = (p0 / half) * d + p0 % half;  // block column of c
-    const int head = (col0 + t1) / d;
-    const int j = t1 % d;  // col0 is a multiple of d
+    const int t1 = qkv::pair_col((i & 15) * 4, d);  // block column of c
+    const int t2 = qkv::pair_partner(t1, d);        // and of c + D/2
+    const int g1 = qkv::block_col(blockIdx.x, t1, d);  // qkv column of c
+    const int head = g1 / d;
+    const int j = g1 % d;
     float v1[4], v2[4];
     if (chunks == 1) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c1 = t1 + e;
-        const int c2 = t1 + half + e;
+        const int c2 = t2 + e;
         v1[e] = i8m::block_sum<NT>(red, c1 >> 6, c1 & 63, row);
         v2[e] = i8m::block_sum<NT>(red, c2 >> 6, c2 & 63, row);
       }
     } else {
-      const float* p = work + (long long)row * nq + col0 + t1;
+      const float* p = work + (long long)row * nq + g1;
       const long long stride = (long long)b * nq;
       const float4 a = i8m::sum_partials4(p, stride, chunks);
       const float4 c = i8m::sum_partials4(p + half, stride, chunks);
       v1[0] = a.x; v1[1] = a.y; v1[2] = a.z; v1[3] = a.w;
       v2[0] = c.x; v2[1] = c.y; v2[2] = c.z; v2[3] = c.w;
     }
-    const float4 s1 = __ldg(reinterpret_cast<const float4*>(ws + col0 + t1));
-    const float4 s2 =
-        __ldg(reinterpret_cast<const float4*>(ws + col0 + t1 + half));
+    const float4 s1 = __ldg(reinterpret_cast<const float4*>(ws + g1));
+    const float4 s2 = __ldg(reinterpret_cast<const float4*>(ws + g1 + half));
     v1[0] *= s1.x; v1[1] *= s1.y; v1[2] *= s1.z; v1[3] *= s1.w;
     v2[0] *= s2.x; v2[1] *= s2.y; v2[2] *= s2.z; v2[3] *= s2.w;
     float r1[4], r2[4];
@@ -192,7 +199,7 @@ __global__ void __launch_bounds__(i8m::THREADS, QkvRes<NT>::value)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         tile[row * 128 + t1 + e] = __bfloat162float(__float2bfloat16(r1[e]));
-        tile[row * 128 + t1 + half + e] =
+        tile[row * 128 + t2 + e] =
             __bfloat162float(__float2bfloat16(r2[e]));
       }
       continue;
@@ -296,7 +303,10 @@ int sli_qkv_fused_mma(const void* x, long long ldx, const void* nw,
   if (b <= 0 || b > 64 || h <= 0 || h % 64 || n_heads <= 0 || kvn <= 0 ||
       ps <= 0 || mp <= 0 || kch <= 0 || kch % 64)
     return SLI_ERR_SHAPE;
-  if (d != 32 && d != 64 && d != 128) return SLI_ERR_HEAD_DIM;
+  if (d != 32 && d != 64 && d != 128 && d != 256) return SLI_ERR_HEAD_DIM;
+  // D 256: bf16/f32 pools (the INT8-KV pass and e4m3 take D <= 128)
+  if (d == 256 && pool_dt != SLI_POOL_BF16 && pool_dt != SLI_POOL_F32)
+    return SLI_ERR_HEAD_DIM;
   const int nq = (n_heads + 2 * kvn) * d;
   if (nq % 128 || nq / 128 > QKV_MAX_TILES) return SLI_ERR_SHAPE;
   if ((pool_ks == nullptr) != (pool_vs == nullptr)) return SLI_ERR_SHAPE;

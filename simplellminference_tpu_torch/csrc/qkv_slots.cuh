@@ -36,6 +36,27 @@ __device__ __forceinline__ long long slot_row(const int* __restrict__ tables,
   return (((long long)layer * num_pages1 + page) * kvn + kh) * ps + slot;
 }
 
+// The qkv column of local column t (0 .. 127) of column block x, for both
+// kernels: 128 contiguous columns at D <= 128 (whole heads, so every RoPE
+// pair (c, c + D/2) stays in the block); at D 256 (Gemma) a pair would
+// span two such blocks, so block x takes two 64-column runs of head x / 2,
+// [64 (x % 2), + 64) and the 64 columns D/2 = 128 past them: local
+// column t < 64 pairs with t + 64, and every pair stays in the block.
+__host__ __device__ __forceinline__ int block_col(int x, int t, int d) {
+  if (d < 256) return x * 128 + t;
+  return (x >> 1) * 256 + (x & 1) * 64 + (t & 63) + (t >> 6) * 128;
+}
+
+// The local columns (t1, t2 = the partner D/2 past t1's qkv column) of a
+// block's pair p (0 .. 63).
+__device__ __forceinline__ int pair_col(int p, int d) {
+  const int half = d >> 1;
+  return d < 256 ? (p / half) * d + p % half : p;
+}
+__device__ __forceinline__ int pair_partner(int t1, int d) {
+  return t1 + (d < 256 ? d >> 1 : 64);
+}
+
 // pool_dt: SLI_POOL_F32, SLI_POOL_BF16 or SLI_POOL_E4M3 (INT8 pools are
 // quantized by the kernels' own pass, not through here).
 __device__ __forceinline__ void store_pool(void* pool, int pool_dt,

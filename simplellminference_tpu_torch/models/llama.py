@@ -93,9 +93,9 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError("post-norm-only blocks (OLMo-2)")
     if cfg.partial_rotary_factor != 1.0:
         raise NotImplementedError("partial rotary")
-    if cfg.hidden_act != "silu":
+    if cfg.hidden_act not in ref_ops.GLU_ACTS:
         raise NotImplementedError(f"activation {cfg.hidden_act!r}")
-    for field in ("embed_scale", "residual_scale", "logit_scale"):
+    for field in ("residual_scale", "logit_scale"):
         if getattr(cfg, field) != 1.0:
             raise NotImplementedError(field)
     if cfg.act_quant not in (None, "int8"):
@@ -189,8 +189,14 @@ def _logits(cfg: ModelConfig, params: Params, x) -> torch.Tensor:
 
 
 def _embed(cfg: ModelConfig, params: Params, tokens, positions):
-    """Embedding rows in the activation dtype and the rope tables."""
-    x = params["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
+    """Embedding rows in the activation dtype, times Gemma's embed_scale
+    rounded to that dtype first (llama.py:365-366, :545-546: in bf16
+    sqrt(2048) multiplies as 45.25), and the rope tables."""
+    dtype = torch_dtype(cfg.dtype)
+    x = params["embed"][tokens.long()].to(dtype)
+    if cfg.embed_scale != 1.0:
+        # the rounded scale as a Python number: no host-to-device copy
+        x = x * float(torch.tensor(cfg.embed_scale, dtype=dtype))
     _period, wins, nope = cfg.scan_pattern()
     sin, cos = ref_ops.rope_tables_by_sublayer(cfg, positions, wins,
                                                nope)[0]

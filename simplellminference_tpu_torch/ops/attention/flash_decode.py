@@ -28,6 +28,9 @@ from simplellminference_tpu_torch.ops import cuda_build, ref_ops
 from simplellminference_tpu_torch.ops.attention.paged_decode import (
     HEAD_DIMS, MAX_ROWS, decode_splits, row_blocks, workspace)
 
+# launches at head_dim 256 (Gemma; each also counts in ``launches``)
+D256_LAUNCHES = {"flash_decode": 0}
+
 
 def _stacked(k_cache, v_cache, layer):
     """[B, kvN, Smax, D] caches become a one-layer stack (layer 0)."""
@@ -121,6 +124,8 @@ def flash_decode(q, k_cache, v_cache, kv_lens, bk: int | None = None,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, rc, "flash_decode")
     flash_decode.launches += 1
+    if d == 256:
+        D256_LAUNCHES["flash_decode"] += 1
     return out
 
 

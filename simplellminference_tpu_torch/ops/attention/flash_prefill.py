@@ -25,7 +25,11 @@ import torch
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
 from simplellminference_tpu_torch.ops.attention import prefill_tiles
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
+# the forms of this module that take head_dim 256 (Gemma), and their
+# launches at that head dim (each also counts in its form's ``launches``)
+D256_FORMS = ("flash_prefill",)
+D256_LAUNCHES = {"flash_prefill": 0}
 
 
 def window_size(window) -> int:
@@ -78,6 +82,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_prefill_ref(q, k, v, sm_scale)
     out = _launch(q, k, v, sm_scale, 0, "flash_prefill")
     flash_prefill.launches += 1
+    if q.shape[-1] == 256:
+        D256_LAUNCHES["flash_prefill"] += 1
     return out
 
 
@@ -90,6 +96,8 @@ def flash_prefill_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The sliding-window form of :func:`flash_prefill`: query i attends
     keys i - window < j <= i."""
     window = window_size(window)
+    cuda_build.check_head_dim(q.shape[-1], "flash_prefill_window",
+                              D256_FORMS)
     if not q.is_cuda:
         return flash_prefill_ref(q, k, v, sm_scale, window)
     out = _launch(q, k, v, sm_scale, window, "flash_prefill_window")

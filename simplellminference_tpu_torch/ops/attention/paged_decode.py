@@ -64,7 +64,11 @@ from simplellminference_tpu_torch.ops.attention.flash_prefill import (
 from simplellminference_tpu_torch.ops.matmul import SM_COUNT
 from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
+# the forms that take head_dim 256 (Gemma): decode over pools of q's
+# dtype; and their launches at that head dim (each also in ``launches``)
+D256_FORMS = ("paged_flash_decode",)
+D256_LAUNCHES = {"paged_flash_decode": 0}
 MAX_ROWS = 128   # query rows (GQA group x window rows) a call takes
 ROW_BLOCK = 32   # query rows a block of the kernel holds
 TILE_KEYS = 64   # keys per tile of the kernel; splits cut whole tiles
@@ -339,6 +343,10 @@ def _run(name, q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
     _check_fp8_window(k_pool, window)
     if window is not None:
         window = window_size(window)
+    fp8 = k_pool.dtype == torch.float8_e4m3fn
+    form = _FORMS[name + "_int8kv" * quant + "_fp8kv" * fp8
+                  + "_window" * (window is not None)]
+    cuda_build.check_head_dim(q.shape[-1], form.__name__, D256_FORMS)
     if not q.is_cuda:
         return _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer,
                            sm_scale, k_scale, v_scale, window)
@@ -346,12 +354,11 @@ def _run(name, q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
         _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale)
     else:
         _check_float_pools(q, k_pool, v_pool)
-    fp8 = k_pool.dtype == torch.float8_e4m3fn
-    form = _FORMS[name + "_int8kv" * quant + "_fp8kv" * fp8
-                  + "_window" * (window is not None)]
     out = _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
                   layer, sm_scale, window or 0, form.__name__)
     form.launches += 1
+    if q.shape[-1] == 256:
+        D256_LAUNCHES[form.__name__] += 1
     return out
 
 

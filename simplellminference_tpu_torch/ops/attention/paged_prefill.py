@@ -66,7 +66,11 @@ from simplellminference_tpu_torch.ops.attention.paged_decode import (
     _check_e4m3, _check_float_pools, band_tables)
 from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
+# the forms that take head_dim 256 (Gemma): pools of q's dtype, no
+# window; and their launches at that head dim (each also in ``launches``)
+D256_FORMS = ("paged_flash_prefill",)
+D256_LAUNCHES = {"paged_flash_prefill": 0}
 
 
 def _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
@@ -146,6 +150,10 @@ def paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
                            v_scale)
     if window is not None:
         window = window_size(window)
+    kind = ("int8kv" if quant else "fp8kv"
+            if k_pool.dtype == torch.float8_e4m3fn else "")
+    form = _FORMS[kind, window is not None]
+    cuda_build.check_head_dim(q.shape[-1], form.__name__, D256_FORMS)
     if not q.is_cuda:
         return paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens,
                                        chunk_offset, layer, sm_scale,
@@ -155,12 +163,11 @@ def paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
         _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale)
     else:
         _check_float_pools(q, k_pool, v_pool)
-    kind = ("int8kv" if quant else "fp8kv"
-            if k_pool.dtype == torch.float8_e4m3fn else "")
-    form = _FORMS[kind, window is not None]
     out = _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
                   chunk_offset, layer, sm_scale, window or 0, form.__name__)
     form.launches += 1
+    if q.shape[-1] == 256:
+        D256_LAUNCHES[form.__name__] += 1
     return out
 
 

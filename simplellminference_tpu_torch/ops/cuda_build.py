@@ -231,3 +231,16 @@ def pool_code(dtype) -> int:
         raise TypeError(f"KV pools are float32, bfloat16, int8 or "
                         f"float8_e4m3fn, not {name}")
     return POOL_CODES[name]
+
+
+def check_head_dim(d: int, form: str, d256_forms) -> None:
+    """Raise NotImplementedError for ``form`` at head_dim 256 unless it is
+    one of ``d256_forms``: at Gemma's D the kernels take the forms over
+    bf16/f32 KV with no window and no verify rows; the INT8-KV, e4m3,
+    verify and window forms take D 32, 64 and 128. The wrappers call it
+    for CPU and CUDA tensors alike, so a form outside the slice raises on
+    both."""
+    if d == 256 and form not in d256_forms:
+        took = ", ".join(d256_forms) or "none of its module's forms"
+        raise NotImplementedError(
+            f"head_dim 256 in {form} (at D 256 the kernels take {took})")

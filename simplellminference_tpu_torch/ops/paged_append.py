@@ -291,12 +291,12 @@ def paged_append_decode(pool_k, pool_v, new_k, new_v, tables, positions,
     pool_k/v: [L, P+1, kvN, ps, D] (last page = trash); new_k/v:
     [B, kvN, D]; tables: [B, MP] (-1 = unmapped); positions: [B];
     ``layer``: int. Returns (pool_k, pool_v)."""
-    if not pool_k.is_cuda:
-        return paged_append_decode_ref(pool_k, pool_v, new_k, new_v, tables,
-                                       positions, layer)
     if pool_k.dtype == E4M3:
         return paged_append_decode_fp8kv(pool_k, pool_v, new_k, new_v,
                                          tables, positions, layer)
+    if not pool_k.is_cuda:
+        return paged_append_decode_ref(pool_k, pool_v, new_k, new_v, tables,
+                                       positions, layer)
     _check_pools(pool_k, pool_v, new_k, layer)
     n_layers, p1, kvn, ps, d = pool_k.shape
     b = new_k.shape[0]
@@ -376,12 +376,12 @@ def paged_append_prefill(pool_k, pool_v, new_k, new_v, tables, layer: int):
     new_k/v: [B, S, kvN, D]; ``tables[:, :ceil(S/ps)]`` names the target
     pages; -1 entries land in the trash page; rows past S in the last
     page are written as zeros. Returns (pool_k, pool_v)."""
-    if not pool_k.is_cuda:
-        return paged_append_prefill_ref(pool_k, pool_v, new_k, new_v, tables,
-                                        layer)
     if pool_k.dtype == E4M3:
         return paged_append_prefill_fp8kv(pool_k, pool_v, new_k, new_v,
                                           tables, layer)
+    if not pool_k.is_cuda:
+        return paged_append_prefill_ref(pool_k, pool_v, new_k, new_v, tables,
+                                        layer)
     _check_pools(pool_k, pool_v, new_k, layer)
     n_layers, p1, kvn, ps, d = pool_k.shape
     b, s = new_k.shape[:2]
@@ -445,6 +445,8 @@ def paged_append_decode_fp8kv(pool_k, pool_v, new_k, new_v, tables,
     """1e: :func:`paged_append_decode` into float8_e4m3fn pools, each
     element converted from new_k/v's dtype (bf16 or f32) with the JAX
     package's rounding in the kernel. Returns (pool_k, pool_v)."""
+    cuda_build.check_head_dim(pool_k.shape[-1],
+                              "paged_append_decode_fp8kv", ())
     if not pool_k.is_cuda:
         return paged_append_decode_ref(pool_k, pool_v, new_k, new_v, tables,
                                        positions, layer)
@@ -494,6 +496,8 @@ def paged_append_prefill_fp8kv(pool_k, pool_v, new_k, new_v, tables,
     """2e: :func:`paged_append_prefill` into float8_e4m3fn pools, converted
     in the kernel; rows past S in the last page get code 0. Returns
     (pool_k, pool_v)."""
+    cuda_build.check_head_dim(pool_k.shape[-1],
+                              "paged_append_prefill_fp8kv", ())
     if not pool_k.is_cuda:
         return paged_append_prefill_ref(pool_k, pool_v, new_k, new_v, tables,
                                         layer)
@@ -531,6 +535,8 @@ def paged_append_decode_quant(pool_k, pool_v, pool_ks, pool_vs, new_k, new_v,
     unmapped, the trash page); positions: [B]. Returns (pool_k, pool_v,
     pool_ks, pool_vs)."""
     check_scale_pools(pool_k, pool_v, pool_ks, pool_vs)
+    cuda_build.check_head_dim(pool_k.shape[-1],
+                              "paged_append_decode_quant", ())
     if not pool_k.is_cuda:
         return paged_append_decode_quant_ref(pool_k, pool_v, pool_ks,
                                              pool_vs, new_k, new_v, tables,
@@ -567,6 +573,8 @@ def paged_append_prefill_quant(pool_k, pool_v, pool_ks, pool_vs, new_k,
     the target pages (-1: the trash page); rows past S in the last page
     get code 0 and scale 0. Returns (pool_k, pool_v, pool_ks, pool_vs)."""
     check_scale_pools(pool_k, pool_v, pool_ks, pool_vs)
+    cuda_build.check_head_dim(pool_k.shape[-1],
+                              "paged_append_prefill_quant", ())
     if not pool_k.is_cuda:
         return paged_append_prefill_quant_ref(pool_k, pool_v, pool_ks,
                                               pool_vs, new_k, new_v, tables,

@@ -80,7 +80,13 @@ from simplellminference_tpu_torch.ops.paged_append import (
 from simplellminference_tpu_torch.ops.ref_ops import E4M3
 
 MAX_ROWS = 64
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
+# the forms that take head_dim 256 (Gemma): paged and dense over bf16/f32
+# KV, no kv_layer
+D256_FORMS = ("fused_qkv_append", "fused_qkv_append_dense")
+# launches of each regime at head_dim 256, the forms together (each also
+# counts in QKV_REGIME_LAUNCHES)
+D256_LAUNCHES = {"mma": 0, "fma": 0}
 MMA_KT = 64               # K rows a stage of the tensor-core kernel
 MMA_COLS = 128            # qkv columns a block of it: whole heads
 MMA_MAX_TILES = 4096      # most column tiles (its arrival counters)
@@ -94,8 +100,9 @@ def qkv_regime(m: int, h: int, nq: int, d: int, dtype) -> str:
     shape alone: "mma" (the bf16 tensor cores) for bf16 activations with H
     a multiple of the 64-row stage and Nq of the 128-column block (whole
     heads a block at D 32, 64 and 128, so every RoPE pair and every INT8-KV
-    head stays in one block); "fma" (f32 FMAs) otherwise: the port never
-    rounds f32 activations to bf16."""
+    head stays in one block; at D 256 two 64-column runs of one head, 128
+    apart, so the pairs still do); "fma" (f32 FMAs) otherwise: the port
+    never rounds f32 activations to bf16."""
     if (dtype == torch.bfloat16 and m <= MAX_ROWS and d in HEAD_DIMS
             and h % MMA_KT == 0 and nq % MMA_COLS == 0
             and nq // MMA_COLS <= MMA_MAX_TILES):
@@ -131,6 +138,11 @@ def _check(x, pool_k, pool_v, tables, cache_ks, cache_vs, kv_layer,
                                   "a dense KV arena (tables=None)")
     if x.ndim != 2:
         raise ValueError(f"x must be [B, H], got {tuple(x.shape)}")
+    form = ("fused_qkv_append_int8kv" if cache_ks is not None
+            else "fused_qkv_append_fp8kv" if pool_k.dtype == E4M3
+            else "fused_qkv_append_kv_layer" if kv_layer is not None
+            and tables is not None else "fused_qkv_append")
+    cuda_build.check_head_dim(pool_k.shape[-1], form, D256_FORMS)
     if cache_ks is None and cache_vs is None:
         return False
     check_scale_pools(pool_k, pool_v, cache_ks, cache_vs)
@@ -399,6 +411,7 @@ def _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, cache_ks, cache_vs,
             work.data_ptr() if chunks > 1 else 0, kch, stream)
         cuda_build.check(lib, rc, f"{what} (mma)")
         QKV_REGIME_LAUNCHES["mma"] += 1
+        D256_LAUNCHES["mma"] += int(d == 256)
         return out
     vec = int(nq % 16 == 0 and wl.data_ptr() % 16 == 0)
     if tables is None:
@@ -411,6 +424,7 @@ def _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, cache_ks, cache_vs,
             d, float(eps), cuda_build.dtype_code(x.dtype), vec, stream)
         cuda_build.check(lib, rc, f"{what} (fma)")
         QKV_REGIME_LAUNCHES["fma"] += 1
+        D256_LAUNCHES["fma"] += int(d == 256)
         return out
     rc = lib.sli_qkv_fused(
         xc.data_ptr(), xc.stride(0), nw.data_ptr(),
@@ -424,6 +438,7 @@ def _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, cache_ks, cache_vs,
         cuda_build.dtype_code(x.dtype), vec, stream)
     cuda_build.check(lib, rc, f"{what} (fma)")
     QKV_REGIME_LAUNCHES["fma"] += 1
+    D256_LAUNCHES["fma"] += int(d == 256)
     return out
 
 

@@ -32,14 +32,30 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
     return (xf * torch.rsqrt(var + eps)).to(dtype) * weight
 
 
+# the activations glu_act runs: SwiGLU and Gemma's GeGLU
+GLU_ACTS = ("silu", "gelu_pytorch_tanh", "gelu_tanh", "gelu")
+
+
 def glu_act(gate: torch.Tensor, up: torch.Tensor,
             act: str = "silu") -> torch.Tensor:
-    """Gated linear unit; only SwiGLU ("silu", the Llama family) is
-    ported."""
-    if act != "silu":
-        raise NotImplementedError(f"activation {act!r}")
+    """Gated linear unit with a configurable activation, in f32, cast back
+    to gate's dtype (simplellminference_tpu/ops/ref_ops.py:46-75): "silu"
+    is SwiGLU (the Llama family), "gelu_pytorch_tanh"/"gelu_tanh" and
+    "gelu" are Gemma's GeGLU (tanh approximation and exact erf). GPT-OSS's
+    clamped "swiglu_oss" belongs to the MoE FFN, not ported; an unknown
+    name raises ValueError, as in the JAX package."""
     g = gate.float()
-    return (g * torch.sigmoid(g) * up.float()).to(gate.dtype)
+    if act == "swiglu_oss":
+        raise NotImplementedError(f"activation {act!r} (the MoE FFN)")
+    if act == "silu":
+        a = g * torch.sigmoid(g)
+    elif act in ("gelu_pytorch_tanh", "gelu_tanh"):
+        a = torch.nn.functional.gelu(g, approximate="tanh")
+    elif act == "gelu":
+        a = torch.nn.functional.gelu(g)
+    else:
+        raise ValueError(f"unknown activation {act!r}")
+    return (a * up.float()).to(gate.dtype)
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,

@@ -1872,3 +1872,191 @@ def test_fp8kv_engine_card_matches_cpu(cuda):
                            device=dev).generate(prompts, s)
                     for pp_, dev in ((p, "cpu"), (_to(p, cuda), cuda))]
             assert outs[0] == outs[1]
+
+
+# ------------------------------------------------ head_dim 256 (Gemma-2B)
+# Gemma-2B's attention: 8 q heads over one kv head, D 256, page 128.
+
+G_N, G_KVN, G_D = 8, 1, 256
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [128, 100, 1])
+def test_paged_append_head_dim_256(cuda, dtype, s):
+    # kernels 1 and 2 on 512-byte (bf16) and 1 KB (f32) rows: the
+    # 16-byte vector path, byte-exact against the plain versions
+    g = torch.Generator(device=cuda).manual_seed(256 + s)
+    pk, pv = _pools(g, cuda, dtype, kvn=G_KVN, d=G_D)
+    nk = torch.randn((3, s, G_KVN, G_D), generator=g, device=cuda,
+                     dtype=dtype)
+    nv = torch.randn((3, s, G_KVN, G_D), generator=g, device=cuda,
+                     dtype=dtype)
+    a, r = (pk.clone(), pv.clone()), (pk.clone(), pv.clone())
+    before = pa.paged_append_prefill.launches
+    pa.paged_append_prefill(*a, nk, nv, _tables(cuda), 1)
+    assert pa.paged_append_prefill.launches == before + 1
+    pa.paged_append_prefill_ref(*r, nk, nv, _tables(cuda), 1)
+    pos = torch.tensor([s, 130, 5], dtype=torch.int32, device=cuda)
+    before = pa.paged_append_decode.launches
+    pa.paged_append_decode(*a, nk[:, 0], nv[:, 0], _tables(cuda), pos, 0)
+    assert pa.paged_append_decode.launches == before + 1
+    pa.paged_append_decode_ref(*r, nk[:, 0], nv[:, 0], _tables(cuda), pos, 0)
+    for x, y in zip(a, r):
+        assert torch.equal(x[:, :-1], y[:, :-1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s", [(8, 128), (3, 77), (2, 1), (1, 1000)])
+def test_flash_prefill_head_dim_256(cuda, dtype, b, s):
+    # kernel 3 at D 256: bf16 on wgmma.m64n256k16 (8 positions x 8 heads a
+    # tile; (1, 1000): the key walk split over blocks), f32 on FMAs; a
+    # strided v
+    g = torch.Generator(device=cuda).manual_seed(b * s)
+    q = torch.randn((b, s, G_N, G_D), generator=g, device=cuda, dtype=dtype)
+    k = torch.randn((b, s, G_KVN, G_D), generator=g, device=cuda,
+                    dtype=dtype)
+    vbig = torch.randn((b, s, 3 * G_D), generator=g, device=cuda,
+                       dtype=dtype)
+    v = vbig[..., G_D:2 * G_D].reshape(b, s, G_KVN, G_D)
+    before = fp.flash_prefill.launches
+    got = fp.flash_prefill(q, k, v)
+    assert fp.flash_prefill.launches == before + 1
+    assert _attn_ok(got, fp.flash_prefill_ref(q, k, v))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("edges", [False, True], ids=["lens", "split-edges"])
+def test_paged_flash_decode_head_dim_256(cuda, dtype, edges):
+    g = torch.Generator(device=cuda).manual_seed(256 + edges)
+    batches = ([[1, 128, 129, 200, 0, 57, 152, 3]] if not edges
+               else _split_edge_lens(G_KVN, 16 * 128, rows=G_N // G_KVN))
+    for lens in batches:
+        _check_paged_flash_decode(g, cuda, dtype, G_N, G_KVN, G_D, lens,
+                                  2 if not edges else 16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("edges", [False, True], ids=["lens", "split-edges"])
+def test_flash_decode_head_dim_256(cuda, dtype, edges):
+    g = torch.Generator(device=cuda).manual_seed(257 + edges)
+    if not edges:
+        _check_flash_decode(g, cuda, dtype, G_N, G_KVN, G_D,
+                            [1, 0, 161, 256, 300], 256)
+        return
+    for lens in _split_edge_lens(G_KVN, 2048, rows=G_N // G_KVN):
+        lens[0], lens[1], lens[-1] = lens[1], 0, 2048 + 5
+        _check_flash_decode(g, cuda, dtype, G_N, G_KVN, G_D, lens, 2048)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s,ps", [(64, 128), (256, 128), (37, 16), (1, 16)])
+def test_paged_flash_prefill_head_dim_256(cuda, dtype, s, ps):
+    # kernel 8 at D 256: ragged offsets off a page multiple, an unmapped
+    # page inside kv_len, a batch's padding row (-1 table, kv_len 1)
+    g = torch.Generator(device=cuda).manual_seed(s + ps)
+    b, mp = 4, -(-(s + 600) // ps)
+    pk, pv = _pools(g, cuda, dtype, b=b, kvn=G_KVN, ps=ps, d=G_D, mp=mp)
+    q = torch.randn((b, s, G_N, G_D), generator=g, device=cuda, dtype=dtype)
+    tables = torch.randperm(b * mp, generator=g, device=cuda).to(
+        torch.int32).reshape(b, mp)
+    offs = torch.tensor([0, 37, 512, 0], dtype=torch.int32, device=cuda)
+    kv = offs + torch.tensor([s, max(s - 5, 1), s, 1], dtype=torch.int32,
+                             device=cuda)
+    tables[2, 1] = -1
+    tables[3] = -1
+    before = pp.paged_flash_prefill.launches
+    got = pp.paged_flash_prefill(q, pk, pv, tables, kv, offs, 1)
+    assert pp.paged_flash_prefill.launches == before + 1
+    want = pp.paged_flash_prefill_ref(q, pk, pv, tables, kv, offs, 1)
+    assert bool(torch.isfinite(got).all())
+    assert _attn_ok(got, want)
+
+
+@pytest.mark.parametrize("xdt,pdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("b", [3, 8])
+def test_fused_qkv_append_head_dim_256(cuda, xdt, pdt, b):
+    # kernel 6 at Gemma-2B's shape (H 2048, 10 heads of 256: 2560 qkv
+    # columns): bf16 rows on 6m, whose blocks take a head's RoPE pairs
+    # (two 64-column runs 128 apart), f32 rows on the FMA kernel
+    g = torch.Generator(device=cuda).manual_seed(256 * b)
+    pos = torch.tensor([5, 127, 128, 40, 300, 3, 255, 600][:b],
+                       dtype=torch.int32, device=cuda)
+    tables = torch.arange(b * 6, dtype=torch.int32,
+                          device=cuda).reshape(b, 6)
+    tables[b - 1, pos[b - 1] // 128] = -1      # the trash page
+    assert qf.qkv_regime(b, 2048, 2560, G_D, xdt) == (
+        "mma" if xdt == torch.bfloat16 else "fma")
+    _check_qkv(cuda, g, xdt, pdt, G_N, G_KVN, G_D, pos, tables, h=2048,
+               ps=128)
+
+
+@pytest.mark.parametrize("xdt", DTYPES)
+def test_fused_qkv_append_dense_head_dim_256(cuda, xdt):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    b, h, smax = 4, 2048, 128
+    nq = (G_N + 2 * G_KVN) * G_D
+    wq = torch.randint(-127, 128, (2, h, nq), generator=g, device=cuda,
+                       dtype=torch.int8)
+    ws = (torch.rand((2, 1, nq), generator=g, device=cuda) + 0.5) * 1e-2
+    nw = (1.0 + 0.1 * torch.randn((2, h), generator=g, device=cuda)).to(xdt)
+    x = torch.randn((b, h), generator=g, device=cuda).to(xdt)
+    pos = torch.tensor([5, 127, 128, 40], dtype=torch.int32, device=cuda)
+    sin, cos = ref_ops.rope_tables(pos, G_D, 10000.0)
+    ck, cv = _arena(g, cuda, xdt, rows=5, kvn=G_KVN, smax=smax, d=G_D)
+    a, r = (ck.clone(), cv.clone()), (ck.clone(), cv.clone())
+    before = qf.fused_qkv_append_dense.launches
+    qa, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, *a, 1, pos,
+                                 n_heads=G_N, kv_heads=G_KVN)
+    assert qf.fused_qkv_append_dense.launches == before + 1
+    qr, *_ = qf.fused_qkv_append_ref(x, nw, wq, ws, sin, cos, *r, 1, pos,
+                                     n_heads=G_N, kv_heads=G_KVN)
+    tol = 1e-5 if xdt == torch.float32 else 2e-2
+    sd = float(qr.float().std())
+    assert float((qa.float() - qr.float()).abs().max()) <= tol * sd
+    for ta, tr in zip(a, r):
+        assert float((ta.float() - tr.float()).abs().max()) <= tol * sd
+    assert torch.equal(a[0][1, 2], ck[1, 2])   # slot 128 past Smax: dropped
+
+
+def test_head_dim_256_forms_outside_the_slice_raise(cuda):
+    # the INT8-KV, e4m3, verify and window forms take D <= 128: at D 256
+    # each raises before a launch, naming the head dim and its form
+    g = torch.Generator(device=cuda).manual_seed(0)
+    bf, e4 = torch.bfloat16, torch.float8_e4m3fn
+    pk, pv = _pools(g, cuda, bf, kvn=G_KVN, d=G_D)
+    qk, qv, ks, vs = _quant_pools(g, cuda, kvn=G_KVN, d=G_D)
+    ek, ev = pk.to(e4), pv.to(e4)
+    tables, kv = _tables(cuda), torch.tensor([5, 9, 0], dtype=torch.int32,
+                                             device=cuda)
+    q1 = torch.randn((3, G_N, G_D), generator=g, device=cuda, dtype=bf)
+    q3 = torch.randn((3, 3, G_N, G_D), generator=g, device=cuda, dtype=bf)
+    offs = torch.zeros(3, dtype=torch.int32, device=cuda)
+    nk = torch.randn((3, 4, G_KVN, G_D), generator=g, device=cuda, dtype=bf)
+    calls = [
+        lambda: pd.paged_flash_decode(q1, qk, qv, tables, kv, 0, k_scale=ks,
+                                      v_scale=vs),
+        lambda: pd.paged_flash_decode(q1, ek, ev, tables, kv, 0),
+        lambda: pd.paged_flash_decode(q1, pk, pv, tables, kv, 0, window=4),
+        lambda: pd.paged_flash_verify(q3, pk, pv, tables, kv, 0),
+        lambda: pd.paged_flash_verify(q3, qk, qv, tables, kv, 0, k_scale=ks,
+                                      v_scale=vs),
+        lambda: pd.paged_flash_verify(q3, ek, ev, tables, kv, 0),
+        lambda: pp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
+                                       k_scale=ks, v_scale=vs),
+        lambda: pp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0),
+        lambda: pp.paged_flash_prefill(q3, pk, pv, tables, kv, offs, 0,
+                                       window=4),
+        lambda: fp.flash_prefill(q3, nk[:, :3], nk[:, :3], window=4),
+        lambda: pa.paged_append_decode_quant(qk, qv, ks, vs, nk[:, 0],
+                                             nk[:, 0], tables, offs, 0),
+        lambda: pa.paged_append_prefill_quant(qk, qv, ks, vs, nk, nk,
+                                              tables, 0),
+        lambda: pa.paged_append_decode(ek, ev, nk[:, 0], nk[:, 0], tables,
+                                       offs, 0),
+        lambda: pa.paged_append_prefill(ek, ev, nk, nk, tables, 0),
+    ]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="head_dim 256"):
+            call()

@@ -74,7 +74,8 @@ def test_init_params_layout_matches_jax(model):
     (dict(num_experts=4), "mixture-of-experts"),
     (dict(attention_bias=True), "QKV bias"),
     (dict(attn_logit_softcap=50.0), "soft cap"),
-    (dict(hidden_act="gelu"), "activation"),
+    # GeGLU runs since Gemma's slice; GPT-OSS's clamped SwiGLU (MoE) not
+    (dict(hidden_act="swiglu_oss"), "activation"),
 ])
 def test_unsupported_model_features_raise(override, feature):
     with pytest.raises(NotImplementedError, match=feature):

@@ -41,8 +41,12 @@ def test_glu_act_silu():
     g, u = rand(rng, 3, 7, 48), rand(rng, 3, 7, 48)
     close(tref.glu_act(torch.from_numpy(g), torch.from_numpy(u)),
           jref.glu_act(jnp.asarray(g), jnp.asarray(u), "silu"))
+    # GeGLU is ported (tests/test_torch_gemma.py); GPT-OSS's clamped
+    # SwiGLU (the MoE FFN) is not, and an unknown name raises as in JAX
     with pytest.raises(NotImplementedError):
-        tref.glu_act(torch.from_numpy(g), torch.from_numpy(u), "gelu")
+        tref.glu_act(torch.from_numpy(g), torch.from_numpy(u), "swiglu_oss")
+    with pytest.raises(ValueError):
+        tref.glu_act(torch.from_numpy(g), torch.from_numpy(u), "relu")
 
 
 @pytest.mark.parametrize("scaling", [
