@@ -89,8 +89,16 @@ Phases, in order; any failure exits non-zero:
                 (split walks, split edges, kv_len 4096, f32 forms), 6m and
                 the FMA kernel 6 (f32 rows, and forced beside 6m on bf16
                 rows) and 6d; each D-256 form has its own row, and the
-                forms outside the slice (INT8-KV, e4m3, verify, window)
-                must raise at D 256 before any launch. Max
+                forms outside the slice (INT8-KV, e4m3, verify) must
+                raise at D 256 before any launch. Then Gemma-2-2B's
+                shapes (8 q heads over 4 kv heads, D 256, soft cap 50,
+                window 4096): the capped forms 3c, 3wc, 4c, 4wc (over ring
+                tables, NaN pages below the band), 8c and 8wc by their
+                uncapped forms' rules, past the cap (|s| several times
+                it), at window edges and kv_len 0, in f32 and at D 128,
+                each timed case beside scaled_dot_product_attention
+                without the cap; and 6k at D 256 (timed beside the FMA
+                kernel forced). Max
                 |error| beside
                 its tolerance, kernel / plain / library times from
                 CUDA-graph replay, and the bound (the least time for the
@@ -155,8 +163,11 @@ Phases, in order; any failure exits non-zero:
                 a decode step at kv_len 4096 over e4m3 pools beside its
                 floor), `fp8kv_prefix` (the server CLI's --kv-dtype fp8:
                 bf16 weights, the prefix path's traffic) and `spec_fp8kv`
-                (spec_tokens 4 over e4m3 pools, INT8 weights, 16
-                layers), each with its exact launch counts. Last,
+                (spec_tokens 4 over e4m3 pools, INT8 weights), each with
+                its exact launch counts. Depth cuts, to keep the run
+                within half its time limit: the spec paths at 8 layers,
+                `bf16`, `dense_bf16`, `int4`, `int4_dense` and `draft`'s
+                target at 16. Then,
                 Gemma-2B at full width and depth (18 layers, H 2048,
                 I 16384, V 256000, 8 heads over one kv head of 256,
                 GeGLU, the embedding scale, a tied bf16 head): `gemma`
@@ -165,8 +176,18 @@ Phases, in order; any failure exits non-zero:
                 and `gemma_prefix` (the server's default: bf16 weights,
                 the prefix path's traffic: 2, 8, 1 and 4), each with its
                 exact launch counts, decode rate, graph-replayed step,
-                bytes floor, idle share and TTFT.
-  5. cpu      — the same port at Llama-2-7B width, 2 layers, f32, TF32 off,
+                bytes floor, idle share and TTFT. Then Gemma-2-2B at full
+                width and depth (26 layers, H 2304, I 9216, V 256000, 8
+                heads over 4 kv heads of 256, soft caps 50 and 30, the
+                sandwich norms, sliding and full layers alternating at
+                window 4096, a tied head) in the grouped engine: `gemma2`
+                (bench.py's shape with INT8 weights: 3c, 3wc, 6k, 4c, 4wc,
+                5r, 5m) and `gemma2_window` (bf16 weights, prefill_chunk
+                256, 4 x 4224-token prompts + 320 new ones: 8c, 8wc, 2,
+                1, 4c, 4wc; the window trims and the ring of 35 pages
+                wraps), each with its exact launch counts, graph-replayed
+                step beside its bytes floor, and idle share.
+  5. cpu      — the same port at Llama-2-7B width, 1 layer, f32, TF32 off,
                 on the card (kernels) and on the host CPU (plain
                 versions), from one draw of the weights (on the card,
                 copied to the host), 4 requests,
@@ -202,7 +223,10 @@ Phases, in order; any failure exits non-zero:
                 tokens equal, and the card's grouped Engine to the CPU's
                 tokens. Then Gemma-2B at full width, 2 layers, f32 and
                 INT8 weights (the tied head the f32 embedding), 8 greedy
-                steps and the prefix traffic, by the same rules.
+                steps and the prefix traffic, by the same rules; and
+                Gemma-2-2B at full width, 2 layers (a sliding and a full
+                one), f32 and INT8 weights, the sandwich norms drawn away
+                from ones, by the same rules.
 
 Then one line ``{"kernels": [...]}`` (each kernel's launches on every
 path, and in phase 3: kernels 16 and 17 run only there) and, last, the
@@ -430,6 +454,31 @@ KERNELS = {
     "fused_qkv_append_d256": dict(
         source="simplellminference_tpu_torch/csrc/qkv_fused.cu",
         replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
+    # Gemma-2-2B: Gemma-2's attention soft cap in kernels 3, 4 and 8 and
+    # their window forms at head_dim 256 (3c, 3wc, 4c, 4wc, 8c, 8wc), and
+    # the kv_layer form 6k at D 256; each launch also counts in its form's
+    # row above (and the uncapped rows' D-256 count where it has one)
+    "flash_prefill_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/flash_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_prefill.py:102"),
+    "flash_prefill_window_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/flash_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_prefill.py:102"),
+    "paged_flash_decode_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "paged_flash_decode_window_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "paged_flash_prefill_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    "paged_flash_prefill_window_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    "fused_qkv_append_kv_layer_d256": dict(
+        source="simplellminference_tpu_torch/csrc/qkv_fused_mma.cu",
+        replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
     # the last two TPU kernels, dispatched from no path (as in JAX)
     "fused_wo_ffn": dict(
         source="simplellminference_tpu_torch/csrc/wo_ffn.cu",
@@ -454,11 +503,38 @@ KERNELS = {
 # prefix path's traffic; then sliding windows at Mistral-7B width through
 # the grouped engine; then Gemma-2B (head_dim 256, one kv head, GeGLU,
 # a tied bf16 head) as bench.py draws its default INT8 path and as the
-# server serves it by default (bf16 weights, the prefix path's traffic)
+# server serves it by default (bf16 weights, the prefix path's traffic);
+# then Gemma-2-2B (soft caps, sandwich norms, alternating sliding and full
+# layers at head_dim 256) as bench.py draws its INT8 path and, with bf16
+# weights and chunked prefill, over prompts past its window
 PATHS = ("int8", "bf16", "prefix", "int8kv", "int8kv_prefix", "spec",
          "spec_int8kv", "fp8kv", "fp8kv_prefix", "spec_fp8kv", "dense",
          "dense_bf16", "draft", "int4", "int4_dense", "w8a8",
-         "mistral_window", "gemma", "gemma_prefix")
+         "mistral_window", "gemma", "gemma_prefix", "gemma2",
+         "gemma2_window")
+# google/gemma-2-2b's config.json (huggingface.co/google/gemma-2-2b), the
+# published values the Gemma-2 paths serve; its layer_types as
+# transformers.Gemma2Config derives them: sliding on even layers, full on
+# odd ones
+GEMMA2_2B_HF = dict(
+    model_type="gemma2", vocab_size=256000, hidden_size=2304,
+    intermediate_size=9216, num_hidden_layers=26, num_attention_heads=8,
+    num_key_value_heads=4, head_dim=256, max_position_embeddings=8192,
+    rms_norm_eps=1e-6, rope_theta=10000.0,
+    hidden_activation="gelu_pytorch_tanh", hidden_act="gelu_pytorch_tanh",
+    query_pre_attn_scalar=256, sliding_window=4096,
+    attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+    tie_word_embeddings=True)
+
+
+def gemma2_2b(num_layers: int = 26, dtype: str = "bfloat16"):
+    """Gemma-2-2B's ModelConfig from :data:`GEMMA2_2B_HF` through the
+    port's ``from_hf_dict`` (depth ``num_layers``: the alternation kept)."""
+    from simplellminference_tpu_torch.core.config import ModelConfig
+    d = dict(GEMMA2_2B_HF, num_hidden_layers=num_layers, layer_types=[
+        "sliding_attention" if i % 2 == 0 else "full_attention"
+        for i in range(num_layers)])
+    return ModelConfig.from_hf_dict(d, dtype=dtype)
 # every launch of phase 3, by kernel (filled by phase_kernels)
 phase3_launches: dict = {}
 
@@ -538,7 +614,7 @@ def phase_build():
     for line in info.get("ptxas", "").splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  " + line.strip(), flush=True)
-    print_hgmma(Path(info["dir"]) / cuda_build.LIB_NAME)
+    return HgmmaCount(Path(info["dir"]) / cuda_build.LIB_NAME)
 
 
 # the tensor-core kernels whose SASS phase 2 searches, and for which
@@ -554,22 +630,40 @@ MMA_KERNELS = {"flash_prefill_mma_kernel": "HGMMA",
                "qmm_rows_mma_kernel": "HMMA"}
 
 
-def print_hgmma(lib: Path) -> None:
+class HgmmaCount:
     """Tensor-core evidence: the HGMMA, IGMMA (integer wgmma) or HMMA
     instructions in the SASS of each instantiation of MMA_KERNELS
-    (``cuobjdump -sass``), or a line saying cuobjdump is not there."""
-    import re
-    import shutil
+    (``cuobjdump -sass``), or a line saying cuobjdump is not there. The
+    disassembly (some 40 s of host time) runs while the kernel checks do;
+    :meth:`print` waits for it, :meth:`stop` ends it unread."""
 
-    from simplellminference_tpu_torch.ops import cuda_build
-    cand = Path(cuda_build.nvcc_path()).with_name("cuobjdump")
-    tool = str(cand) if cand.is_file() else shutil.which("cuobjdump")
-    if tool is None:
-        print("[build] cuobjdump not found: no SASS evidence of HGMMA",
-              flush=True)
-        return
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300).stdout
+    def __init__(self, lib: Path):
+        import shutil
+
+        from simplellminference_tpu_torch.ops import cuda_build
+        cand = Path(cuda_build.nvcc_path()).with_name("cuobjdump")
+        tool = str(cand) if cand.is_file() else shutil.which("cuobjdump")
+        self.proc = None if tool is None else subprocess.Popen(
+            [tool, "-sass", str(lib)], stdout=subprocess.PIPE,
+            stderr=subprocess.DEVNULL, text=True)
+
+    def stop(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def print(self) -> None:
+        if self.proc is None:
+            print("[build] cuobjdump not found: no SASS evidence of HGMMA",
+                  flush=True)
+            return
+        sass = self.proc.communicate(timeout=300)[0]
+        print_hgmma(sass)
+
+
+def print_hgmma(sass: str) -> None:
+    """The instruction counts of :class:`HgmmaCount` from ``sass``."""
+    import re
     counts: dict = {}
     fn = None
     for line in sass.splitlines():
@@ -3769,15 +3863,14 @@ def check_head_dim_256(torch, dev, results, extra):
         "4q": lambda: pd.paged_flash_decode(q1, qk, qv, tables, kv_lens, 0,
                                             k_scale=sk, v_scale=sv),
         "4e": lambda: pd.paged_flash_decode(q1, ek, ev, tables, kv_lens, 0),
-        "4w": lambda: pd.paged_flash_decode(q1, pk, pv, tables, kv_lens, 0,
-                                            window=4),
         "4v": lambda: pd.paged_flash_verify(q3, pk, pv, tables, kv_lens, 0),
+        "4vw": lambda: pd.paged_flash_verify(q3, pk, pv, tables, kv_lens, 0,
+                                             window=4),
         "8q": lambda: pp.paged_flash_prefill(q3, qk, qv, tables, kv_lens,
                                              zero, 0, k_scale=sk,
                                              v_scale=sv),
         "8e": lambda: pp.paged_flash_prefill(q3, ek, ev, tables, kv_lens,
                                              zero, 0),
-        "3w": lambda: fp.flash_prefill(q3, nk, nk, window=4),
         "9": lambda: pa.paged_append_decode_quant(
             qk, qv, sk, sv, nk[:, 0], nk[:, 0], tables, zero, 0),
         "1e": lambda: pa.paged_append_decode(ek, ev, nk[:, 0], nk[:, 0],
@@ -3795,6 +3888,353 @@ def check_head_dim_256(torch, dev, results, extra):
     print(f"[kernels] d256: the forms outside the slice raise "
           f"NotImplementedError at D 256 before any launch: "
           f"{', '.join(refused)}; the D-256 checks took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+
+# google/gemma-2-2b config.json: hidden_size 2304, 8 heads over 4 kv heads
+# of 256, attn_logit_softcapping 50.0, sliding_window 4096
+GEMMA2 = dict(h=2304, n=8, kvn=4, d=256, cap=50.0)
+
+
+def _scores_pass(torch, q, k, cap, scale):
+    """The largest |score| of sequence 0, kv head 0's first q head (the
+    cap bites where it is past ``cap``)."""
+    s = (q[0, ..., 0, :].float() @ k[0, ..., 0, :].float().T) * scale
+    return float(s.abs().max())
+
+
+def check_gemma2(torch, dev, results, extra):
+    """The capped forms at Gemma-2-2B's shapes (8 q heads over 4 kv heads,
+    D 256, cap 50, window 4096, page 128) against their plain versions by
+    the rules their uncapped forms use: 3c and 3wc at bench.py's prefill
+    (8 x 128, the rows), past the cap (q x 60: |s| to several times the
+    cap), a window of 100 across 700 rows whose walk splits, f32 and D
+    128; 4c at `gemma2`'s decode context (the row) and kv_len 4096, and
+    4wc over ring tables (R 35) at `gemma2_window`'s decode (4 rows at
+    kv_len 4400-4543, the row), with window edges (kv_len 0, 1, 4096,
+    4097) past the cap, D 128 and f32, the columns below the band on NaN
+    pages; 8c at `gemma2_window`'s chunk (256 rows at offset 3840, the
+    row) and 8wc at its chunk past the window over the ring (offset 4096,
+    the row), ragged f32 and D-128 cases past the cap; 6k at `gemma2`'s
+    decode (8 rows, H 2304, weights of layer 1 into pool layer 0; timed
+    beside the FMA kernel forced). Each timed case beside its plain
+    version, its bytes bound and scaled_dot_product_attention at the same
+    shape without the cap (no PyTorch call computes the capped function
+    without compiling)."""
+    import torch.nn.functional as F
+
+    from simplellminference_tpu_torch.memory.paged_kv import gather_dense
+    from simplellminference_tpu_torch.ops import qkv_fused as qf
+    from simplellminference_tpu_torch.ops import ref_ops
+    from simplellminference_tpu_torch.ops.attention import flash_prefill as fp
+    from simplellminference_tpu_torch.ops.attention import paged_decode as pd
+    from simplellminference_tpu_torch.ops.attention import paged_prefill as pp
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(2304)
+    bf, f32 = torch.bfloat16, torch.float32
+    h, n, kvn, cap = GEMMA2["h"], GEMMA2["n"], GEMMA2["kvn"], GEMMA2["cap"]
+    ps, layer = 128, 1
+    uncapped = " (uncapped: the library computes no soft cap)"
+
+    # 3c, 3wc: (b, s, window, q scale, dtype, d, kv heads); rows first
+    cases = {"gemma-2-2b": (8, 128, None, 1.0, bf, 256, kvn),
+             "gemma-2-2b window": (8, 128, WINDOW, 1.0, bf, 256, kvn),
+             "past the cap": (2, 300, None, 60.0, bf, 256, kvn),
+             "past the cap window 100": (1, 700, 100, 60.0, bf, 256, kvn),
+             "d128 past the cap": (3, 200, 64, 60.0, bf, 128, 8),
+             "f32 past the cap window 40": (2, 100, 40, 60.0, f32, 256,
+                                            kvn)}
+    for tag, (b, s, w, qx, dtype, d, kh) in cases.items():
+        nh = 32 if d == 128 else n
+        q = torch.randn((b, s, nh, d), generator=gen, device=dev,
+                        dtype=dtype) * qx
+        big = torch.randn((b, s, 2 * kh * d), generator=gen, device=dev,
+                          dtype=dtype)
+        k = big[..., :kh * d].reshape(b, s, kh, d)
+        v = big[..., kh * d:].reshape(b, s, kh, d)
+        got = fp.flash_prefill(q, k, v, window=w, logit_cap=cap)
+        want = fp.flash_prefill_ref(q, k, v, window=w, logit_cap=cap)
+        torch.cuda.synchronize()
+        ok, err, note = _prefill_rule(torch, got, want)
+        top = _scores_pass(torch, q, k, cap, d ** -0.5)
+        print(f"[kernels] flash_prefill capped {tag} (B={b} S={s} N={nh} "
+              f"kvN={kh} D={d} window={w} cap {cap}; max|score| {top:.1f}):"
+              f" max|err| {err:.3e} ({note})", flush=True)
+        require(bool(torch.isfinite(got).all()) and ok,
+                f"flash_prefill capped {tag} disagrees: {err} ({note})")
+        require(qx == 1.0 or top > cap, f"{tag}: the cap does not bite")
+        if tag.startswith("f32"):
+            continue
+        qt = q.transpose(1, 2)
+        kt = _gqa(torch, k.transpose(1, 2), nh).contiguous()
+        vt = _gqa(torch, v.transpose(1, 2), nh).contiguous()
+        keys = sum(min(i + 1, w or s) for i in range(s))
+        es = q.element_size()
+        bms, by = bound_ms((2 * b * s * nh * d + 2 * b * s * kh * d) * es,
+                           4.0 * b * nh * d * keys, "bfloat16")
+        if w is None:
+            def lib(qt=qt, kt=kt, vt=vt):
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+        else:
+            mask = ref_ops.causal_mask(s, s, window=w, device=dev)
+
+            def lib(qt=qt, kt=kt, vt=vt, mask=mask):
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+        row = ("flash_prefill_cap_d256" if w is None
+               else "flash_prefill_window_cap_d256")
+        res = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: fp.flash_prefill(
+                q, k, v, window=w, logit_cap=cap)),
+            plain_ms=time_ms(torch, lambda: fp.flash_prefill_ref(
+                q, k, v, window=w, logit_cap=cap)),
+            library_ms=time_ms(torch, lib), bound_ms=bms, bound_by=by,
+            library=(LIBRARY[row] if d == 256 else LIBRARY[
+                "flash_prefill" if w is None else "flash_prefill_window"]
+                + uncapped))
+        if tag.startswith("gemma-2-2b"):
+            results[row] = res
+        else:
+            extra.append((row if d == 256 else "flash_prefill" + (
+                "_window" if w else ""), tag, res))
+        del big
+
+    # 4c (table columns, dead last slot) and 4wc over the ring (R 35):
+    # (lens, window, q scale, dtype, d); the rows first
+    r_ring = (WINDOW + MISTRAL_CHUNK - 2) // ps + 2
+    cases = {"gemma-2-2b": ([128 + 4 * i for i in range(8)], None, 1.0, bf,
+                            256),
+             "gemma-2-2b window": ([4400, 4480, 4500, 4543], WINDOW, 1.0,
+                                   bf, 256),
+             "gemma-2-2b kv_len 4096": ([4096] * 8, None, 1.0, bf, 256),
+             "edges past the cap": ([0, 1, 4095, 4096, 4097, 4200, 300, 5],
+                                    None, 60.0, bf, 256),
+             "window edges past the cap": ([0, 1, 4096, 4097, 4100, 4479,
+                                            4480, 4543], WINDOW, 60.0, bf,
+                                           256),
+             "d128 window past the cap": ([0, 150, 4097, 4543], WINDOW, 60.0,
+                                          bf, 128),
+             "f32 window past the cap": ([0, 7, 4097, 4300], WINDOW, 60.0,
+                                         f32, 256)}
+    for tag, (lens, w, qx, dtype, d) in cases.items():
+        b = len(lens)
+        nh, kh = (32, 8) if d == 128 else (n, kvn)
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn((b, nh, d), generator=gen, device=dev,
+                        dtype=dtype) * qx
+        mp = -(-max(max(lens), 1) // ps)
+        if w is None:
+            pk, pv = _pools(torch, gen, dev, 2, b * mp, kh, ps, d, dtype)
+            clean = _tables(torch, dev, b, mp, dead_last=qx != 1.0)
+            dirty = clean
+        else:
+            pk, pv = _ring_pools(torch, gen, dev, b, r_ring, kh, ps, d,
+                                 dtype, False)
+            clean = _ring_tables(torch, dev, b, r_ring, mp)
+            dirty = _poisoned(torch, clean, kv - w, ps, b * r_ring)
+
+        def run(tb, q=q, pk=pk, pv=pv, kv=kv, w=w):
+            return pd.paged_flash_decode(q, pk, pv, tb, kv, layer, window=w,
+                                         logit_cap=cap)
+
+        got = run(dirty)
+        want = pd.paged_flash_decode_ref(q, pk, pv, clean, kv, layer,
+                                         window=w, logit_cap=cap)
+        torch.cuda.synchronize()
+        dead = ([i for i in range(b) if lens[i] == 0]
+                + ([b - 1] if w is None and qx != 1.0 else []))
+        err = _attn_check(torch, "paged_flash_decode capped", tag, got, want,
+                          dead)
+        same = bool(torch.equal(got, run(clean)))
+        require(same, f"paged_flash_decode capped {tag}: a page below the "
+                f"window band was read")
+        if dtype == f32 or tag.startswith(("edges", "window edges")):
+            continue
+        es = q.element_size()
+        span = [min(ln, w) if w else ln for ln in lens]
+        kvb = 2 * sum(span) * kh * d * es
+        bms, by = bound_ms(2 * b * nh * d * es + kvb + clean.numel() * 4
+                           + b * 4, 4.0 * nh * d * sum(span), "bfloat16")
+        ck, cv = gather_dense(pk[layer], pv[layer], clean)
+        ck, cv = _gqa(torch, ck, nh), _gqa(torch, cv, nh)
+        key_pos = torch.arange(ck.shape[2], device=dev)[None, None, None]
+        mask = key_pos < kv.long()[:, None, None, None]
+        if w:
+            mask = mask & (key_pos >= kv.long()[:, None, None, None] - w)
+        row = ("paged_flash_decode_cap_d256" if w is None
+               else "paged_flash_decode_window_cap_d256")
+        res = dict(
+            max_abs_err=err, ms=time_ms(torch, lambda: run(clean)),
+            plain_ms=time_ms(torch, lambda: pd.paged_flash_decode_ref(
+                q, pk, pv, clean, kv, layer, window=w, logit_cap=cap)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None], ck, cv, attn_mask=mask)),
+            bound_ms=bms, bound_by=by,
+            library=(LIBRARY[row] if d == 256 else LIBRARY[
+                "paged_flash_decode_window"] + uncapped))
+        if tag in ("gemma-2-2b", "gemma-2-2b window"):
+            results[row] = res
+        else:
+            extra.append((row if d == 256 else "paged_flash_decode_window",
+                          tag, res))
+        del ck, cv, pk, pv
+
+    # 8c and 8wc (over the ring: R for the window's 256-row chunks, or for
+    # a window of 300 and 128-row chunks): (Sq, offsets, kv_lens, window,
+    # q scale, dtype, d, page); rows first
+    cases = {"gemma-2-2b chunk": (256, [3840], [4096], None, 1.0, bf, 256,
+                                  128),
+             "gemma-2-2b window chunk": (256, [4096], [4352], WINDOW, 1.0,
+                                         bf, 256, 128),
+             "ragged past the cap": (100, [0, 48, 16, 0], [100, 130, 77, 1],
+                                     None, 60.0, bf, 256, 16),
+             "window 300 past the cap": (128, [512, 1024], [640, 1100], 300,
+                                         60.0, bf, 256, 128),
+             "d128 window 300 past the cap": (128, [512, 1024], [640, 1100],
+                                              300, 60.0, bf, 128, 128),
+             "f32 ragged past the cap": (100, [0, 48, 16, 0],
+                                         [100, 130, 77, 1], None, 60.0, f32,
+                                         256, 16)}
+    for tag, (sq, offs, lens, w, qx, dtype, d, pss) in cases.items():
+        b = len(offs)
+        nh, kh = (32, 8) if d == 128 else (n, kvn)
+        mp = -(-max(o + sq for o in offs) // pss)
+        off_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+        kv_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        if w is None:
+            pk, pv = _pools(torch, gen, dev, 2, b * mp, kh, pss, d, dtype)
+            clean = _tables(torch, dev, b, mp, dead_last=qx != 1.0)
+            if qx != 1.0:
+                clean[2, 1] = -1          # inside row 2's kv_len
+            dirty = clean
+        else:
+            rr = (w + sq - 2) // pss + 2 if w != WINDOW else r_ring
+            pk, pv = _ring_pools(torch, gen, dev, b, rr, kh, pss, d, dtype,
+                                 False)
+            clean = _ring_tables(torch, dev, b, rr, mp)
+            dirty = _poisoned(torch, clean, off_t - w + 1, pss, b * rr)
+        q = torch.randn((b, sq, nh, d), generator=gen, device=dev,
+                        dtype=dtype) * qx
+
+        def run(tb, q=q, pk=pk, pv=pv, kv_t=kv_t, off_t=off_t, w=w):
+            return pp.paged_flash_prefill(q, pk, pv, tb, kv_t, off_t, layer,
+                                          window=w, logit_cap=cap)
+
+        got = run(dirty)
+        want = pp.paged_flash_prefill_ref(q, pk, pv, clean, kv_t, off_t,
+                                          layer, window=w, logit_cap=cap)
+        torch.cuda.synchronize()
+        ok, err, note = _prefill_rule(torch, got, want)
+        same = bool(torch.equal(got, run(clean)))
+        print(f"[kernels] paged_flash_prefill capped {tag} (B={b} Sq={sq} "
+              f"D={d} ps={pss} window={w}): max|err| {err:.3e} ({note}); "
+              f"NaN pages below the band unread: {same}", flush=True)
+        require(bool(torch.isfinite(got).all()) and ok and same,
+                f"paged_flash_prefill capped {tag} disagrees: {err} ({note})"
+                f", unchanged {same}")
+        if dtype == f32 or "ragged" in tag:
+            continue
+        es = q.element_size()
+        keys = sum(min(o + i + 1, ln) - (max(0, o + i - w + 1) if w else 0)
+                   for o, ln in zip(offs, lens) for i in range(sq)
+                   if o + i < ln)
+        rows = sum(min(ln, o + sq) - (max(0, o - w + 1) if w else 0)
+                   for o, ln in zip(offs, lens))
+        bms, by = bound_ms(2 * b * sq * nh * d * es + 2 * rows * kh * d * es
+                           + clean.numel() * 4 + 2 * b * 4,
+                           4.0 * nh * d * keys, "bfloat16")
+        ck, cv = gather_dense(pk[layer], pv[layer], clean)
+        ck, cv = _gqa(torch, ck, nh), _gqa(torch, cv, nh)
+        key_pos = torch.arange(ck.shape[2], device=dev)
+        q_pos = off_t.long()[:, None] + torch.arange(sq, device=dev)[None]
+        mask = ((key_pos[None, None] <= q_pos[:, :, None])
+                & (key_pos[None, None] < kv_t.long()[:, None, None]))
+        if w:
+            mask = mask & (key_pos[None, None] > q_pos[:, :, None] - w)
+        mask = mask[:, None]
+        qt = q.transpose(1, 2)
+        row = ("paged_flash_prefill_cap_d256" if w is None
+               else "paged_flash_prefill_window_cap_d256")
+        res = dict(
+            max_abs_err=err, ms=time_ms(torch, lambda: run(clean)),
+            plain_ms=time_ms(torch, lambda: pp.paged_flash_prefill_ref(
+                q, pk, pv, clean, kv_t, off_t, layer, window=w,
+                logit_cap=cap)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, ck, cv, attn_mask=mask)),
+            bound_ms=bms, bound_by=by,
+            library=(LIBRARY[row] if d == 256 else LIBRARY[
+                "paged_flash_prefill_window"] + uncapped))
+        if tag.startswith("gemma-2-2b"):
+            results[row] = res
+        else:
+            extra.append((row if d == 256 else "paged_flash_prefill_window",
+                          tag, res))
+        del ck, cv, pk, pv
+
+    # 6k at D 256: `gemma2`'s decode (8 rows) and one row, weights of
+    # layer 1, pools at layer 0 (the ring pools' index)
+    d = GEMMA2["d"]
+    nq = (n + 2 * kvn) * d
+    for tag, bb in {"gemma-2-2b": 8, "gemma-2-2b m1": 1}.items():
+        wq, ws = _qweight(torch, gen, dev, (2, h, nq), 1)
+        nw = (1.0 + 0.1 * torch.randn((2, h), generator=gen, device=dev)
+              ).to(bf)
+        x = torch.randn((bb, h), generator=gen, device=dev).to(bf)
+        pos = (128 + 4 * torch.arange(bb, device=dev)).to(torch.int32)
+        sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
+        mp = 3
+        pk, pv = _pools(torch, gen, dev, 2, bb * mp, kvn, ps, d, bf)
+        tables = _ring_tables(torch, dev, bb, mp, mp)
+        a, r = (pk.clone(), pv.clone()), (pk.clone(), pv.clone())
+        qa, *_ = qf.fused_qkv_append_kv_layer(x, nw, wq, ws, sin, cos, *a,
+                                              layer, 0, pos, tables,
+                                              n_heads=n, kv_heads=kvn)
+        qr, *_ = qf.fused_qkv_append_ref(x, nw, wq, ws, sin, cos, *r, layer,
+                                         pos, n_heads=n, kv_heads=kvn,
+                                         tables=tables, kv_layer=0)
+        torch.cuda.synchronize()
+        page = tables.long()[torch.arange(bb, device=dev), pos.long() // ps]
+        written = torch.zeros(pk.shape, dtype=torch.bool, device=dev)
+        written[0, page, :, pos.long() % ps] = True
+        err = max_err(qa, qr)
+        kv_err = max(max_err(ta[written], tr[written]) for ta, tr in zip(a, r))
+        untouched = all(torch.equal(ta[~written], tr[~written])
+                        for ta, tr in zip(a, r))
+        lim_q = TOL["bfloat16"] * float(qr.float().std())
+        lim_kv = TOL["bfloat16"] * max(float(tr[written].float().std())
+                                       for tr in r)
+        print(f"[kernels] fused_qkv_append_kv_layer d256 {tag} "
+              f"({qf.qkv_regime(bb, h, nq, d, bf)}; layer {layer}, pool "
+              f"layer 0): q max|err| {err:.3e} (tol {lim_q:.3e}); k/v rows "
+              f"{kv_err:.3e} (tol {lim_kv:.3e}); other pool entries equal: "
+              f"{untouched}", flush=True)
+        require(bool(torch.isfinite(qa).all()) and err <= lim_q
+                and kv_err <= lim_kv and untouched,
+                f"fused_qkv_append_kv_layer d256 {tag} disagrees: {err}, "
+                f"{kv_err}, {untouched}")
+        if tag != "gemma-2-2b":
+            continue
+        nbytes = _qkv_nbytes(h, nq, bb, n, kvn, d, x.element_size(),
+                             nw.element_size(), d * pk.element_size(),
+                             tables.numel() * 4 + bb * 4)
+        qt, st = _int8pack(torch, wq[layer], ws[layer], bf)
+        timed: dict = {}
+        _time_qkv(torch, "fused_qkv_append_kv_layer", tag + " d256",
+                  lambda: qf.fused_qkv_append_kv_layer(
+                      x, nw, wq, ws, sin, cos, *a, layer, 0, pos, tables,
+                      n_heads=n, kv_heads=kvn),
+                  lambda: qf.fused_qkv_append_ref(
+                      x, nw, wq, ws, sin, cos, *r, layer, pos, n_heads=n,
+                      kv_heads=kvn, tables=tables, kv_layer=0),
+                  qr, nbytes, 2.0 * bb * h * nq, "bfloat16", (x, qt, st),
+                  timed, extra, max(err, kv_err))
+        results["fused_qkv_append_kv_layer_d256"] = timed[
+            "fused_qkv_append_mma"]
+    print(f"[kernels] gemma-2-2b: the capped and D-256 window checks took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
@@ -3902,6 +4342,27 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
                                         "qkv product alone",
            "fused_qkv_append_d256": "torch._weight_int8pack_mm of the qkv "
                                     "product alone",
+           "flash_prefill_cap_d256": "scaled_dot_product_attention, causal "
+                                     "(K/V repeated per group; uncapped)",
+           "flash_prefill_window_cap_d256": "scaled_dot_product_attention, "
+                                            "window mask (K/V repeated per "
+                                            "group; uncapped)",
+           "paged_flash_decode_cap_d256": "scaled_dot_product_attention on "
+                                          "gathered K/V (repeated per "
+                                          "group; uncapped)",
+           "paged_flash_decode_window_cap_d256": "scaled_dot_product_"
+                                                 "attention on gathered ring "
+                                                 "K/V, window mask "
+                                                 "(uncapped)",
+           "paged_flash_prefill_cap_d256": "scaled_dot_product_attention on "
+                                           "gathered K/V, offset-causal mask "
+                                           "(uncapped)",
+           "paged_flash_prefill_window_cap_d256": "scaled_dot_product_"
+                                                  "attention on gathered "
+                                                  "ring K/V, offset-causal "
+                                                  "window mask (uncapped)",
+           "fused_qkv_append_kv_layer_d256": "torch._weight_int8pack_mm of "
+                                             "the qkv product alone",
            "fused_wo_ffn": "torch._weight_int8pack_mm x3 + eager rmsnorm "
                            "and SwiGLU",
            "flash_decode_dyn": "scaled_dot_product_attention on the arena "
@@ -3949,6 +4410,8 @@ def phase_kernels(torch, results):
     check_fused_qkv_fp8kv(torch, dev, results, extra)
     # head_dim 256 (Gemma-2B): forms 1, 2, 3, 4, 13, 8 and 6 at its shapes
     check_head_dim_256(torch, dev, results, extra)
+    # Gemma-2-2B: the soft cap (3c, 3wc, 4c, 4wc, 8c, 8wc) and 6k at D 256
+    check_gemma2(torch, dev, results, extra)
     torch.cuda.empty_cache()
     # every launch of this phase (the checks, their timing): kernels 16
     # and 17 run on no path, as in the JAX package, so these are theirs
@@ -4066,8 +4529,16 @@ def regime_rows(want: dict, cfg) -> dict:
                     ("paged_flash_prefill_d256", "paged_flash_prefill"),
                     ("flash_decode_d256", "flash_decode"),
                     ("fused_qkv_append_mma_d256", "fused_qkv_append_mma"),
-                    ("fused_qkv_append_d256", "fused_qkv_append_fma")):
+                    ("fused_qkv_append_d256", "fused_qkv_append_fma"),
+                    ("fused_qkv_append_kv_layer_d256",
+                     "fused_qkv_append_kv_layer")):
         out[row] = out[of] if d256 else 0
+    # Gemma-2: every attention launch of a capped model is a capped one
+    cap = d256 and bool(cfg.attn_logit_softcap)
+    for form in ("flash_prefill", "flash_prefill_window",
+                 "paged_flash_decode", "paged_flash_decode_window",
+                 "paged_flash_prefill", "paged_flash_prefill_window"):
+        out[f"{form}_cap_d256"] = out[form] if cap else 0
     return out
 
 
@@ -4216,6 +4687,20 @@ def _wrappers():
             "fused_qkv_append_d256": (
                 _Regime(getattr(qf, "D256_LAUNCHES", {}), "fma"),
                 qf.fused_qkv_append_ref),
+            **{f"{form}_cap_d256": (
+                _Regime(getattr(fp, "CAP_LAUNCHES", {}), (form, 256)), ref)
+               for form, ref in (
+                   ("flash_prefill", fp.flash_prefill_ref),
+                   ("flash_prefill_window", fp.flash_prefill_ref),
+                   ("paged_flash_decode", pd.paged_flash_decode_ref),
+                   ("paged_flash_decode_window", pd.paged_flash_decode_ref),
+                   ("paged_flash_prefill", pp.paged_flash_prefill_ref),
+                   ("paged_flash_prefill_window",
+                    pp.paged_flash_prefill_ref))},
+            "fused_qkv_append_kv_layer_d256": (
+                _Regime(getattr(qf, "D256_FORM_LAUNCHES", {}),
+                        "fused_qkv_append_kv_layer"),
+                qf.fused_qkv_append_ref),
             "fused_wo_ffn": (ff.fused_wo_ffn, ff.fused_wo_ffn_ref),
             "flash_decode_dyn": (fdd.flash_decode_dyn,
                                  fdd.flash_decode_dyn_ref)}
@@ -4260,6 +4745,10 @@ def int8_params(torch, cfg, dev, seed: int = 0) -> dict:
                          "w_gate_up": w((L, h, 2 * i)),
                          "w_down": w((L, i, h))},
               "final_norm": torch.ones((h,), dtype=bf, device=dev)}
+    if cfg.sandwich_norms:   # Gemma-2's pre-residual output norms
+        for name in ("post_attn_norm", "post_ffn_norm"):
+            params["layers"][name] = torch.ones((L, h), dtype=bf,
+                                                device=dev)
     if not cfg.tie_word_embeddings:
         params["lm_head"] = w((h, v))
     return params
@@ -4398,16 +4887,27 @@ def kv_bytes(layers: int, tokens: int, kvn: int, d: int,
     return 2 * layers * tokens * kvn * per_head
 
 
-def windowed(want: dict) -> dict:
-    """A path's launches under a sliding-window model in the grouped
-    engine: each attention kernel's window form, 6k for the fused qkv."""
+def windowed(want: dict, cfg) -> dict:
+    """A path's launches under ``cfg``'s sliding-window model in the
+    grouped engine: each attention kernel's window form on the sliding
+    layers (every layer of Mistral's stack, every other one of Gemma-2's),
+    its plain form on the full ones, and 6k for the fused qkv on every
+    layer (the grouped engine indexes both pool groups by a group-local
+    layer)."""
+    share = sum(w is not None for w in cfg.layer_windows) / cfg.num_layers
     ren = {"flash_prefill": "flash_prefill_window",
            "paged_flash_prefill": "paged_flash_prefill_window",
-           "paged_flash_decode": "paged_flash_decode_window",
-           "fused_qkv_append": "fused_qkv_append_kv_layer"}
+           "paged_flash_decode": "paged_flash_decode_window"}
     out = {name: 0 for name in KERNELS}
     for name, n in want.items():
-        out[ren.get(name, name)] += n
+        if name == "fused_qkv_append":
+            out["fused_qkv_append_kv_layer"] += n
+        elif name in ren:
+            slide = round(n * share)
+            out[ren[name]] += slide
+            out[name] += n - slide
+        else:
+            out[name] += n
     return out
 
 
@@ -4470,7 +4970,7 @@ def serve_path(torch, path: str, cfg, params, launches: dict, int8: bool,
                          kv_dtype=kv_dtype, int4=cfg if int4 else None,
                          batch=batch, cfg=cfg)
     if eng._grouped:
-        want = windowed(want)
+        want = windowed(want, cfg)
     want = regime_rows(want, cfg)
     for name, n in want.items():
         require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
@@ -5190,16 +5690,18 @@ def serve_draft(torch, path: str, cfg, params, launches: dict,
 
 
 def serve_mistral_window(torch, path: str, cfg, params, launches: dict,
-                         dev: str = "cuda"):
-    """Sliding-window attention through the Engine at Mistral-7B width
-    (the grouped engine: every layer on the ring pools, R = 35 pages of
-    128 tokens a slot at window 4096 and chunk 256): 4 greedy requests of
-    4224 random tokens, chunked prefill of 256 rows (the prompt crosses
-    the window), 320 new tokens in bursts of 16, so decode reaches kv_len
-    4544 past the ring's 35 x 128 = 4480 tokens and the ring wraps. Exact
-    launch counts with the counts reset around the run; the ring, its
-    pool bytes and the highest kv_len reached; the decode's own rate,
-    engine step, graph-replayed device step and idle share."""
+                         dev: str = "cuda", int8: bool = True):
+    """Sliding-window attention through the Engine at the width of ``cfg``
+    (Mistral-7B: every layer on the ring pools; Gemma-2-2B: the sliding
+    half on the ring pools, the full half on the main pools), the grouped
+    engine's ring of R = 35 pages of 128 tokens a slot at window 4096 and
+    chunk 256: 4 greedy requests of 4224 random tokens, chunked prefill of
+    256 rows (the prompt crosses the window), 320 new tokens in bursts of
+    16, so decode reaches kv_len 4544 past the ring's 35 x 128 = 4480
+    tokens and the ring wraps. Exact launch counts with the counts reset
+    around the run; the ring, its pool bytes and the highest kv_len
+    reached; the decode's own rate, engine step, graph-replayed device
+    step beside its bytes floor, and idle share."""
     import numpy as np
 
     from simplellminference_tpu_torch.core.config import (EngineConfig,
@@ -5219,9 +5721,10 @@ def serve_mistral_window(torch, path: str, cfg, params, launches: dict,
     prompts = [rng.integers(1, cfg.vocab_size, prompt_len).tolist()
                for _ in range(batch)]
     eng = Engine(cfg, params, ecfg, decode_burst=burst, device=dev)
+    n_w = sum(w is not None for w in cfg.layer_windows)
     require(eng._grouped and eng._ring == MISTRAL_RING
-            and eng.cache.k.shape[0] == 0
-            and eng.cache.k_w.shape[0] == cfg.num_layers,
+            and eng.cache.k.shape[0] == cfg.num_layers - n_w
+            and eng.cache.k_w.shape[0] == n_w,
             f"[{path}] grouped {eng._grouped}, ring {eng._ring}, pools "
             f"{tuple(eng.cache.k.shape)} / {tuple(eng.cache.k_w.shape)}")
     ring_bytes = 2 * eng.cache.k_w.numel() * eng.cache.k_w.element_size()
@@ -5252,19 +5755,21 @@ def serve_mistral_window(torch, path: str, cfg, params, launches: dict,
             f"not past the ring's {eng._ring * ps} tokens")
     chunks = -(-prompt_len // MISTRAL_CHUNK)
     want = windowed(path_launches(
-        True, cfg.num_layers,
-        [("paged_flash_prefill", MISTRAL_CHUNK)] * (batch * chunks), steps))
+        int8, cfg.num_layers,
+        [("paged_flash_prefill", MISTRAL_CHUNK)] * (batch * chunks), steps,
+        cfg=cfg), cfg)
     want = regime_rows(want, cfg)
     for name, n in want.items():
         require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
                 f"path implies {n}")
-    print(f"[engine:{path}] Mistral-7B width (32 layers, window {WINDOW}): "
-          f"{batch} requests x {prompt_len} prompt tokens ({chunks} chunks "
-          f"of {MISTRAL_CHUNK} each) + {new} tokens in {wall:.2f} s; ring "
-          f"R = {eng._ring} pages of {ps} ({eng._ring * ps} tokens) a slot, "
-          f"ring pools {ring_bytes / 1e9:.3f} GB for {batch} slots (the "
-          f"full group: 0 layers); highest kv_len reached {top_kv} > "
-          f"{eng._ring * ps}: the ring wrapped", flush=True)
+    print(f"[engine:{path}] {_width(cfg)} ({cfg.num_layers} layers, "
+          f"{n_w} of them sliding, window {WINDOW}): {batch} requests x "
+          f"{prompt_len} prompt tokens ({chunks} chunks of {MISTRAL_CHUNK} "
+          f"each) + {new} tokens in {wall:.2f} s; ring R = {eng._ring} pages "
+          f"of {ps} ({eng._ring * ps} tokens) a slot, ring pools "
+          f"{ring_bytes / 1e9:.3f} GB for {batch} slots (the full group: "
+          f"{cfg.num_layers - n_w} layers); highest kv_len reached {top_kv} "
+          f"> {eng._ring * ps}: the ring wrapped", flush=True)
     print(f"[engine:{path}] launches {json.dumps(got)}", flush=True)
 
     # The decode alone: from the end of the first step that began with
@@ -5287,12 +5792,22 @@ def serve_mistral_window(torch, path: str, cfg, params, launches: dict,
         cfg, params, tok, pos, eng.cache, tables, pos[:, 0] + 1,
         prefill=False), iters=5)
     idle = max(0.0, 1 - step_ms / engine_step_ms)
+    # bytes floor: the weights, the batch's embedding rows and the live KV
+    # (a sliding layer's window, a full layer's whole context)
+    wbytes = step_weight_bytes(params, batch)
+    kvbytes = (kv_bytes(n_w, batch * min(ctx, WINDOW), cfg.num_kv_heads,
+                        cfg.head_dim, "bf16")
+               + kv_bytes(cfg.num_layers - n_w, batch * ctx,
+                          cfg.num_kv_heads, cfg.head_dim, "bf16"))
+    floor_ms = (wbytes + kvbytes) / HBM_BYTES_PER_S * 1e3
     print(f"[engine:{path}] long-run decode: {dec_steps} steps of {batch} "
           f"rows at kv_len {prompt_len + burst * k0}-{top_kv} in "
           f"{t_end - t_dec:.3f} s: {batch * dec_steps / (t_end - t_dec)} "
           f"tok/s, engine step {engine_step_ms:.3f} ms; device step "
-          f"(graph replay at kv_len {ctx}) {step_ms:.3f} ms; device idle "
-          f"share of the engine step {idle:.3f}", flush=True)
+          f"(graph replay at kv_len {ctx}) {step_ms:.3f} ms, bytes floor "
+          f"{floor_ms:.3f} ms ({wbytes / 1e9:.3f} GB weights + "
+          f"{kvbytes / 1e9:.3f} GB KV); device idle share of the engine "
+          f"step {idle:.3f}", flush=True)
     del eng
     return got
 
@@ -5315,12 +5830,15 @@ PATH_SETUP = {"int8": ("int8", "bf16", False), "bf16": ("bf16", "bf16", False),
               "w8a8": ("int8", "bf16", True),
               "mistral_window": ("int8", "bf16", False),
               "gemma": ("int8", "bf16", False),
-              "gemma_prefix": ("bf16", "bf16", True)}
-# earlier paths cut in depth to keep the run within half its time limit
-# (their launch counts follow the cut: every count is per layer); the
-# paths of the newest slice keep the model's 32 layers
-PATH_LAYERS = {"spec": 16, "spec_int8kv": 16, "spec_fp8kv": 16, "draft": 16,
-               "int4_dense": 16}
+              "gemma_prefix": ("bf16", "bf16", True),
+              "gemma2": ("int8", "bf16", False),
+              "gemma2_window": ("bf16", "bf16", False)}
+# earlier Llama-2-7B paths cut in depth to keep the run within half its
+# time limit (their launch counts follow the cut: every count is per
+# layer); `int8`, the prefix and KV paths keep the model's 32 layers,
+# Mistral-7B and the Gemma paths their models' full depth
+PATH_LAYERS = {"spec": 8, "spec_int8kv": 8, "spec_fp8kv": 8, "draft": 16,
+               "int4_dense": 16, "bf16": 16, "dense_bf16": 16, "int4": 16}
 
 
 def phase_engine(torch, launches: dict, paths=PATHS):
@@ -5345,8 +5863,11 @@ def phase_engine(torch, launches: dict, paths=PATHS):
             cfg = ModelConfig.mistral_7b(sliding_window=WINDOW,
                                          dtype="bfloat16")
             drawn = None
-        if path.startswith("gemma"):
+        if path in ("gemma", "gemma_prefix"):
             cfg = ModelConfig.gemma_2b(dtype="bfloat16")
+            drawn = None
+        if path.startswith("gemma2"):
+            cfg = gemma2_2b()
             drawn = None
         t0 = time.perf_counter()
         if (weights, cfg.num_layers) != drawn or weights != "int4":
@@ -5384,6 +5905,10 @@ def phase_engine(torch, launches: dict, paths=PATHS):
             if path == "gemma_prefix":
                 rates[path] = prefix_decode(torch, path, cfg, params,
                                             kv_dtype)
+        elif path == "gemma2_window":
+            # bf16 weights, chunked prefill past the window: the long run
+            launches[path] = serve_mistral_window(torch, path, cfg, params,
+                                                  launches, int8=False)
         elif path == "mistral_window":
             # the long run, then bench.py's shape (8 x 128-token prompts,
             # 32 new tokens: a whole-prompt dispatch, R 33) for the rate;
@@ -5609,7 +6134,8 @@ def card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps,
         print(f"[cpu:{tag}] on the CPU's codes, the card's own were apart "
               f"in {_act_apart(act_g.codes, act_c.codes)} (each at most "
               f"one step)", flush=True)
-    print(f"[cpu:{tag}] {_width(cfg)}, 2 layers, f32, {kv_dtype} KV, "
+    print(f"[cpu:{tag}] {_width(cfg)}, {cfg.num_layers} layers, f32, "
+          f"{kv_dtype} KV, "
           f"TF32 off: "
           f"{len(prompts)} requests, prefill + {steps} steps on card and "
           f"CPU in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -5690,9 +6216,10 @@ def card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps,
 
 
 def _width(cfg) -> str:
-    """The model whose widths a phase-5 check runs at, for its lines."""
-    return ("Gemma-2B width" if cfg.model_type == "gemma"
-            else "Llama-2-7B width")
+    """The model whose widths a check runs at, for its lines."""
+    return {"gemma": "Gemma-2B width", "gemma2": "Gemma-2-2B width",
+            "mistral": "Mistral-7B width"}.get(cfg.model_type,
+                                                 "Llama-2-7B width")
 
 
 def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="f32",
@@ -5763,7 +6290,8 @@ def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="f32",
             _first_divergence(torch, tag,
                               f"{dev} prefix path and cache-off trace",
                               outs[dev][r], ref, lg_c, r)
-    print(f"[cpu:{tag}] {_width(cfg)}, 2 layers, f32, {kv_dtype} KV: "
+    print(f"[cpu:{tag}] {_width(cfg)}, {cfg.num_layers} layers, f32, "
+          f"{kv_dtype} KV: "
           f"{len(prompts)} "
           f"requests in waves of 1, {batch - 1}, {batch} (prefix hits "
           f"{2 * batch - 1}, persistent {batch}) on card and CPU in "
@@ -5839,7 +6367,8 @@ def spec_card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, kv_dtype="f32",
         require(metrics["cuda"] == metrics["cpu"],
                 f"[{tag}] spec_steps/spec_accepted card {metrics['cuda']}, "
                 f"cpu {metrics['cpu']}")
-    print(f"[cpu:{tag}] Llama-2-7B width, 2 layers, f32, {kv_dtype} KV, "
+    print(f"[cpu:{tag}] Llama-2-7B width, {cfg.num_layers} layers, f32, "
+          f"{kv_dtype} KV, "
           f"spec_tokens 4: {len(prompts)} requests x {new} tokens on card "
           f"and CPU in {time.perf_counter() - t0:.1f} s; (spec_steps, "
           f"spec_accepted) card {metrics['cuda']}, cpu {metrics['cpu']}; "
@@ -5888,7 +6417,8 @@ def dense_card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps):
             for what, got in zip(("generate", "generate_fused"), outs[dev]):
                 _first_divergence(torch, tag, f"{dev} {what} and the CPU "
                                   f"trace", got[r], ref, lg_c, r)
-    print(f"[cpu:{tag}] Generator, Llama-2-7B width, 2 layers, f32: "
+    print(f"[cpu:{tag}] Generator, Llama-2-7B width, {cfg.num_layers} "
+          f"layers, f32: "
           f"{len(prompts)} requests, prefill + {steps} steps on card and CPU "
           f"in {time.perf_counter() - t0:.1f} s; logits max|card - cpu| "
           f"{err:.3e} (tol {LOGIT_TOL}); greedy tokens of generate and "
@@ -5936,7 +6466,8 @@ def draft_card_vs_cpu(torch, cfg, p_gpu, p_cpu):
             _first_divergence(torch, "draft", f"{dev} draft engine and the "
                               f"greedy trace", outs[dev][r],
                               tok_c[r].tolist(), lg_c, r)
-    print(f"[cpu:draft] Llama-2-7B width, 2 layers, f32, drafted by itself "
+    print(f"[cpu:draft] Llama-2-7B width, {cfg.num_layers} layers, f32, "
+          f"drafted by itself "
           f"(spec_tokens {g}): {len(prompts)} requests x {new} tokens on "
           f"card and CPU in {time.perf_counter() - t0:.1f} s; (spec_steps, "
           f"spec_accepted) card {metrics['cuda']}, cpu {metrics['cpu']}: "
@@ -6180,7 +6711,9 @@ def phase_cpu(torch, launches: dict):
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     torch.backends.cudnn.allow_tf32 = False
-    cfg = ModelConfig.llama2_7b(num_layers=2, dtype="float32")
+    # one layer at Llama-2-7B width, to keep the run within half its time
+    # limit: every kernel still runs at the model's shapes
+    cfg = ModelConfig.llama2_7b(num_layers=1, dtype="float32")
     rng = np.random.default_rng(7)
     v = cfg.vocab_size
     # one draw of the weights, on the card (the host's numpy draw of these
@@ -6278,6 +6811,7 @@ def phase_cpu(torch, launches: dict):
     del q8g_gpu, q8g_cpu
     window_card_vs_cpu(torch, launches)
     gemma_card_vs_cpu(torch)
+    gemma2_card_vs_cpu(torch)
 
 
 def gemma_card_vs_cpu(torch):
@@ -6324,6 +6858,55 @@ def gemma_card_vs_cpu(torch):
           f"card {ran}", flush=True)
 
 
+def gemma2_card_vs_cpu(torch):
+    """Gemma-2-2B at full width (H 2304, I 9216, V 256000, 8 heads over 4
+    kv heads of 256, the soft caps, the sandwich norms, a sliding and a
+    full layer), 2 layers, f32, TF32 off, from one seeded draw on the card
+    copied to the host (the sandwich norms drawn away from ones, so that a
+    dropped norm shows): the f32 weights and the same draw quantized by
+    the port (INT8 per channel) through :func:`card_vs_cpu` (prefill + 8
+    greedy steps, logits within LOGIT_TOL, greedy tokens equal by the
+    margin rule, the grouped Engine on both devices). The card runs the
+    capped forms 3c, 3wc, 4c and 4wc (and 6k with INT8 weights: f32 rows
+    take the FMA kernel)."""
+    import numpy as np
+
+    from simplellminference_tpu_torch.core.config import QuantConfig
+    from simplellminference_tpu_torch.models import llama
+    from simplellminference_tpu_torch.ops.attention import flash_prefill as fp
+    from simplellminference_tpu_torch.runtime.weights import quantize_params
+
+    cfg = gemma2_2b(num_layers=2, dtype="float32")
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(1, cfg.vocab_size, ln).tolist()
+               for ln in (40, 64, 17, 50)]
+    t0 = time.perf_counter()
+    p_gpu = llama.init_params(cfg, seed=12, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for name in ("post_attn_norm", "post_ffn_norm"):
+        p_gpu["layers"][name] = 1.0 + 0.3 * torch.randn(
+            p_gpu["layers"][name].shape, generator=gen, device="cuda")
+    p_cpu = _to_device(p_gpu, "cpu")
+    before = dict(fp.CAP_LAUNCHES)
+    card_vs_cpu(torch, "gemma2-f32", cfg, p_gpu, p_cpu, prompts, steps=8)
+    del p_gpu
+    q_cpu = quantize_params(p_cpu, QuantConfig(mode="int8", group_size=0))
+    del p_cpu
+    q_gpu = _to_device(q_cpu, "cuda")
+    card_vs_cpu(torch, "gemma2-int8", cfg, q_gpu, q_cpu, prompts, steps=8)
+    del q_gpu, q_cpu
+    torch.cuda.empty_cache()
+    ran = {f"{form}/{d}": n - before.get((form, d), 0)
+           for (form, d), n in fp.CAP_LAUNCHES.items()}
+    require(all(ran.get(f"{form}/256", 0) > 0 for form in (
+        "flash_prefill", "flash_prefill_window", "paged_flash_decode",
+        "paged_flash_decode_window")),
+        f"[cpu:gemma2] the capped forms did not all run on the card: {ran}")
+    print(f"[cpu:gemma2] Gemma-2-2B card vs CPU (f32, INT8) in "
+          f"{time.perf_counter() - t0:.1f} s; capped launches on the card "
+          f"{ran}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6340,6 +6923,7 @@ def main(argv=None) -> int:
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 1
+    sass = None
     try:
         name, count, _smi = phase_device(torch)
         if not (ROOT / "simplellminference_tpu_torch").is_dir():
@@ -6355,12 +6939,22 @@ def main(argv=None) -> int:
                            ("cpu", lambda: phase_cpu(torch, launches))):
             if phase in phases or phase == "build":
                 t0 = time.perf_counter()
-                run()
+                out = run()
                 took[phase] = round(time.perf_counter() - t0, 1)
+                if phase == "build":
+                    sass = out
+                if sass is not None and (phase == "kernels"
+                                         or "kernels" not in phases):
+                    # the build's SASS counts, disassembled meanwhile
+                    sass.print()
+                    sass = None
         print(f"[timing] seconds per phase {json.dumps(took)}", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if sass is not None:
+            sass.stop()
     if not full_run:
         print(f"chip_smoke: ran only {sorted(phases)} (paths {paths}); the "
               f"result lines come from a run of every phase and path",

@@ -3,7 +3,11 @@
 // Replaces the TPU kernel of simplellminference_tpu/ops/attention/
 // flash_prefill.py: flash_prefill (_flash_kernel, flash_prefill.py:26-100,
 // wrapper :102), with its sliding-window form (window > 0: query i attends
-// keys with q_pos - k_pos < window, flash_prefill.py:76-77): forms 3, 3w.
+// keys with q_pos - k_pos < window, flash_prefill.py:76-77): forms 3, 3w;
+// and Gemma-2's soft cap of both (cap > 0: each live score becomes
+// cap * tanh(s * scale * (1 / cap)) before the mask, flash_prefill.py:
+// 67-68): forms 3c, 3wc, a template flag of each kernel (the uncapped
+// forms are compiled as before).
 //
 // Bound on the H100: for the serving shapes (S = 128..2048) bytes: q and
 // k, v read once and the output written once, (2*N + 2*kvN)*B*S*D
@@ -25,15 +29,16 @@
 // the tiles alone leave fewer than two blocks an SM, the key walk is split
 // over blocks (from shapes alone) and merged by log-sum-exp.
 //
-// Head dims 32, 64, 128 for both forms, and 256 (Gemma) without a window:
-// its register and shared-memory budget is prefill_mma.cuh's note; the
-// f32 FMA kernel's tiles at D 256 take 213,760 bytes of shared memory.
+// Head dims 32, 64, 128 and 256 (Gemma) for every form: D 256's register
+// and shared-memory budget is prefill_mma.cuh's note; the f32 FMA kernel's
+// tiles at D 256 take 213,760 bytes of shared memory.
 //
 // Design, f32: the first, FMA kernel below (TF32 tensor cores would not
 // hold f32's tolerance): one block per (q tile of 64 rows, q head,
 // batch); K/V tiles of 64 rows staged through shared memory in f32, a
 // 4 x 4 micro-tile per thread for QK^T and 4 rows x D/16 columns for PV,
-// the same walk, a key outside its row's band masked per element.
+// the same walk, a key outside its row's band masked per element; with
+// CAP the live scores capped by tanhf (prefill_mma.cuh's note).
 #include "common.cuh"
 #include "prefill_mma.cuh"
 
@@ -52,13 +57,13 @@ constexpr size_t smem_floats() {
 
 // Element strides: *_bs between batch rows, *_ss between sequence rows;
 // the [heads, D] part of each row is contiguous.
-template <typename T, int D>
+template <typename T, int D, bool CAP>
 __global__ void __launch_bounds__(NT) flash_prefill_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, long long q_bs,
     long long q_ss, long long k_bs, long long k_ss, long long v_bs,
     long long v_ss, long long o_bs, long long o_ss, int seq, int group,
-    int window, float scale) {
+    int window, float scale, float cap) {
   extern __shared__ float smem[];
   float* qs = smem;                  // [BQ][D+1]
   float* ks = qs + BQ * (D + 1);     // [BK][D+1]
@@ -148,6 +153,7 @@ __global__ void __launch_bounds__(NT) flash_prefill_kernel(
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
         float s = sc[i][j] * scale;
+        if constexpr (CAP) s = cap * tanhf(s * (1.f / cap));
         if (kp > qp || kp >= seq || (window > 0 && kp <= qp - window))
           s = NEG_INF;
         sc[i][j] = s;
@@ -209,20 +215,35 @@ __global__ void __launch_bounds__(NT) flash_prefill_kernel(
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAP>
 int launch(const void* q, const void* k, const void* v, void* out,
            long long q_bs, long long q_ss, long long k_bs, long long k_ss,
            long long v_bs, long long v_ss, long long o_bs, long long o_ss,
            int batch, int seq, int heads, int group, int window, float scale,
-           cudaStream_t st) {
+           float cap, cudaStream_t st) {
   const size_t bytes = smem_floats<D>() * sizeof(float);
-  cudaError_t e = sli::allow_smem(flash_prefill_kernel<T, D>, bytes);
+  cudaError_t e = sli::allow_smem(flash_prefill_kernel<T, D, CAP>, bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((seq + BQ - 1) / BQ, heads, batch);
-  flash_prefill_kernel<T, D><<<grid, NT, bytes, st>>>(
+  flash_prefill_kernel<T, D, CAP><<<grid, NT, bytes, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, q_bs, q_ss, k_bs, k_ss,
-      v_bs, v_ss, o_bs, o_ss, seq, group, window, scale);
+      v_bs, v_ss, o_bs, o_ss, seq, group, window, scale, cap);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_c(const void* q, const void* k, const void* v, void* out,
+             long long q_bs, long long q_ss, long long k_bs, long long k_ss,
+             long long v_bs, long long v_ss, long long o_bs, long long o_ss,
+             int batch, int seq, int heads, int group, int window,
+             float scale, float cap, cudaStream_t st) {
+  if (cap > 0.f)
+    return launch<T, D, true>(q, k, v, out, q_bs, q_ss, k_bs, k_ss, v_bs,
+                              v_ss, o_bs, o_ss, batch, seq, heads, group,
+                              window, scale, cap, st);
+  return launch<T, D, false>(q, k, v, out, q_bs, q_ss, k_bs, k_ss, v_bs,
+                             v_ss, o_bs, o_ss, batch, seq, heads, group,
+                             window, scale, cap, st);
 }
 
 template <typename T>
@@ -230,28 +251,21 @@ int dispatch_d(int head_dim, const void* q, const void* k, const void* v,
                void* out, long long q_bs, long long q_ss, long long k_bs,
                long long k_ss, long long v_bs, long long v_ss, long long o_bs,
                long long o_ss, int batch, int seq, int heads, int group,
-               int window, float scale, cudaStream_t st) {
+               int window, float scale, float cap, cudaStream_t st) {
+#define SLI_FP_CASE(DD)                                                      \
+  case DD:                                                                   \
+    return launch_c<T, DD>(q, k, v, out, q_bs, q_ss, k_bs, k_ss, v_bs, v_ss, \
+                           o_bs, o_ss, batch, seq, heads, group, window,     \
+                           scale, cap, st);
   switch (head_dim) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, q_bs, q_ss, k_bs, k_ss, v_bs, v_ss,
-                           o_bs, o_ss, batch, seq, heads, group, window, scale,
-                           st);
-    case 64:
-      return launch<T, 64>(q, k, v, out, q_bs, q_ss, k_bs, k_ss, v_bs, v_ss,
-                           o_bs, o_ss, batch, seq, heads, group, window, scale,
-                           st);
-    case 128:
-      return launch<T, 128>(q, k, v, out, q_bs, q_ss, k_bs, k_ss, v_bs,
-                            v_ss, o_bs, o_ss, batch, seq, heads, group, window,
-                            scale, st);
-    case 256:  // no window at D 256
-      if (window != 0) return SLI_ERR_HEAD_DIM;
-      return launch<T, 256>(q, k, v, out, q_bs, q_ss, k_bs, k_ss, v_bs,
-                            v_ss, o_bs, o_ss, batch, seq, heads, group, window,
-                            scale, st);
+    SLI_FP_CASE(32)
+    SLI_FP_CASE(64)
+    SLI_FP_CASE(128)
+    SLI_FP_CASE(256)
     default:
       return SLI_ERR_HEAD_DIM;
   }
+#undef SLI_FP_CASE
 }
 
 // The K/V rows of one sequence and kv head of dense [B, S, kvN, D]
@@ -274,32 +288,31 @@ struct DenseRows {
 // bf16 q [B, S, N, D], k/v [B, S, kvN, D] (element strides, heads
 // contiguous, 16-byte aligned rows); out [B, S, N, D] contiguous, or the
 // split partials in work.
-template <int D>
+template <int D, bool CAP>
 __global__ void __launch_bounds__(sli::pfa::NT) flash_prefill_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
     float* __restrict__ work, long long q_bs, long long q_ss, long long k_bs,
     long long k_ss, long long v_bs, long long v_ss, int batch, int seq,
-    int heads, int group, int window, float scale_log2, int splits) {
+    int heads, int group, int window, sli::pfa::Score sc, int splits) {
   const int b = blockIdx.z / splits;
   const long long kh = blockIdx.y;
   const DenseRows src{k + b * k_bs + kh * D, v + b * v_bs + kh * D, k_ss,
                       v_ss};
-  sli::pfa::attend<D, sli::pfa::KV_BF16>(q + b * q_bs, q_ss, src,
-                             out + (long long)b * seq * heads * D, work,
-                             batch, b, seq, heads, group, 0, seq, window,
-                             scale_log2, splits);
+  sli::pfa::attend<D, sli::pfa::KV_BF16, CAP>(
+      q + b * q_bs, q_ss, src, out + (long long)b * seq * heads * D, work,
+      batch, b, seq, heads, group, 0, seq, window, sc, splits);
 }
 
-template <int D>
+template <int D, bool CAP>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                float* work, long long q_bs, long long q_ss, long long k_bs,
                long long k_ss, long long v_bs, long long v_ss, int batch,
                int seq, int heads, int group, int window, float scale,
-               int splits, cudaStream_t st) {
+               float cap, int splits, cudaStream_t st) {
   namespace pfa = sli::pfa;
   constexpr int bytes = pfa::Smem<D, pfa::KV_BF16>::BYTES;
-  auto kern = flash_prefill_mma_kernel<D>;
+  auto kern = flash_prefill_mma_kernel<D, CAP>;
   cudaError_t e = sli::allow_smem(kern, bytes);
   if (e != cudaSuccess) return (int)e;
   const int h = min(group, pfa::TILE);
@@ -309,8 +322,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
   kern<<<grid, pfa::NT, bytes, st>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)out, work, q_bs, q_ss, k_bs,
-      k_ss, v_bs, v_ss, batch, seq, heads, group, window, scale * pfa::LOG2E,
-      splits);
+      k_ss, v_bs, v_ss, batch, seq, heads, group, window,
+      pfa::make_score(scale, cap), splits);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
   return (int)sli::launch_merge<__nv_bfloat16>(
@@ -321,54 +334,54 @@ int dispatch_mma(int head_dim, const void* q, const void* k, const void* v,
                  void* out, float* work, long long q_bs, long long q_ss,
                  long long k_bs, long long k_ss, long long v_bs,
                  long long v_ss, int batch, int seq, int heads, int group,
-                 int window, float scale, int splits, cudaStream_t st) {
+                 int window, float scale, float cap, int splits,
+                 cudaStream_t st) {
+#define SLI_FP_CASE(DD)                                                       \
+  case DD:                                                                    \
+    return cap > 0.f                                                          \
+               ? launch_mma<DD, true>(q, k, v, out, work, q_bs, q_ss, k_bs,   \
+                                      k_ss, v_bs, v_ss, batch, seq, heads,    \
+                                      group, window, scale, cap, splits, st)  \
+               : launch_mma<DD, false>(q, k, v, out, work, q_bs, q_ss, k_bs,  \
+                                       k_ss, v_bs, v_ss, batch, seq, heads,   \
+                                       group, window, scale, cap, splits, st);
   switch (head_dim) {
-    case 32:
-      return launch_mma<32>(q, k, v, out, work, q_bs, q_ss, k_bs, k_ss, v_bs,
-                            v_ss, batch, seq, heads, group, window, scale,
-                            splits, st);
-    case 64:
-      return launch_mma<64>(q, k, v, out, work, q_bs, q_ss, k_bs, k_ss, v_bs,
-                            v_ss, batch, seq, heads, group, window, scale,
-                            splits, st);
-    case 128:
-      return launch_mma<128>(q, k, v, out, work, q_bs, q_ss, k_bs, k_ss,
-                             v_bs, v_ss, batch, seq, heads, group, window,
-                             scale, splits, st);
-    case 256:  // no window at D 256
-      if (window != 0) return SLI_ERR_HEAD_DIM;
-      return launch_mma<256>(q, k, v, out, work, q_bs, q_ss, k_bs, k_ss,
-                             v_bs, v_ss, batch, seq, heads, group, window,
-                             scale, splits, st);
+    SLI_FP_CASE(32)
+    SLI_FP_CASE(64)
+    SLI_FP_CASE(128)
+    SLI_FP_CASE(256)
     default:
       return SLI_ERR_HEAD_DIM;
   }
+#undef SLI_FP_CASE
 }
 
 }  // namespace
 
-// window: 0 for plain causal attention, else the sliding window (>= 1).
-// bf16 takes the tensor-core kernel: q, k, v rows 16-byte aligned (base
-// pointers and strides), out contiguous, and with splits > 1, work holds
-// splits * batch * seq * heads * (head_dim + 2) floats. f32 takes the FMA
-// kernel (splits 1).
+// window: 0 for plain causal attention, else the sliding window (>= 1);
+// cap: 0 for none, else the soft cap (> 0). bf16 takes the tensor-core
+// kernel: q, k, v rows 16-byte aligned (base pointers and strides), out
+// contiguous, and with splits > 1, work holds splits * batch * seq *
+// heads * (head_dim + 2) floats. f32 takes the FMA kernel (splits 1).
 extern "C" int sli_flash_prefill(const void* q, const void* k, const void* v,
                                  void* out, long long q_bs, long long q_ss,
                                  long long k_bs, long long k_ss,
                                  long long v_bs, long long v_ss,
                                  long long o_bs, long long o_ss, int batch,
                                  int seq, int heads, int group, int head_dim,
-                                 int window, float scale, int dtype,
-                                 void* work, int splits, void* stream) {
+                                 int window, float scale, float cap,
+                                 int dtype, void* work, int splits,
+                                 void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || group <= 0 || window < 0 ||
-      heads % group || splits < 1 || (splits > 1 && work == nullptr))
+      cap < 0.f || heads % group || splits < 1 ||
+      (splits > 1 && work == nullptr))
     return SLI_ERR_SHAPE;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == SLI_F32) {
     if (splits != 1) return SLI_ERR_SHAPE;
     return dispatch_d<float>(head_dim, q, k, v, out, q_bs, q_ss, k_bs, k_ss,
                              v_bs, v_ss, o_bs, o_ss, batch, seq, heads, group,
-                             window, scale, st);
+                             window, scale, cap, st);
   }
   if (dtype == SLI_BF16) {
     const long long hd = (long long)heads * head_dim;
@@ -379,7 +392,7 @@ extern "C" int sli_flash_prefill(const void* q, const void* k, const void* v,
       return SLI_ERR_SHAPE;
     return dispatch_mma(head_dim, q, k, v, out, (float*)work, q_bs, q_ss,
                         k_bs, k_ss, v_bs, v_ss, batch, seq, heads, group,
-                        window, scale, splits, st);
+                        window, scale, cap, splits, st);
   }
   return SLI_ERR_DTYPE;
 }

@@ -19,7 +19,14 @@
 // rows_target and max_kv tiling hints have no counterpart. The paged forms
 // take the sliding window of the TPU kernel (paged_decode.py:73-75,
 // :98-101; window > 0): each row attends only keys within `window` of its
-// own position.
+// own position. The paged decode forms over pools of q's dtype take
+// Gemma-2's soft cap (cap > 0: each live score becomes
+// cap * tanh(s * scale * (1 / cap)) before the mask, paged_decode.py:
+// 90-91; forms 4c, 4wc), a template flag (CAP), so the uncapped forms are
+// compiled as before; tanh is tanhf, CUDA's full-precision one
+// (prefill_mma.cuh's note says why not tanh.approx.f32). The cap over
+// int8 or e4m3 pools, on verify rows and on the dense arena raises in the
+// wrappers and is refused here.
 //
 // Bound on the H100: bytes. Each sequence's live K and V rows
 // (2*kv_len*kvN*D elements, plus 2*kv_len*kvN f32 scales for INT8 KV)
@@ -84,8 +91,9 @@
 // (p = 0).
 //
 // Head dims 32, 64 and 128 for every form; 256 (Gemma) for decode (one
-// window row, no sliding window) over pools of q's own dtype, paged (4)
-// and dense (13). At D 256 the work a key is 4x D 64's, the bytes bound
+// window row) over pools of q's own dtype, paged (4, 4w, 4c, 4wc) and
+// dense (13); a window at D 256 starts its walk at the band as at every
+// head dim. Gemma-2-2B's GQA group of 2 makes 2 rows a block. At D 256 the work a key is 4x D 64's, the bytes bound
 // the same: a bf16 K+V stage is 2 x 64 keys x 528 bytes = 66 KB, so the
 // ring keeps 2 stages, one tile in flight while the block computes on the
 // other (f32: one 130 KB stage, loaded, then computed), 178 KB of shared
@@ -220,7 +228,7 @@ __device__ __forceinline__ void unpack8<__nv_fp8_e4m3>(const unsigned char* p,
 // rows of the shared-memory layout (min(RB, group * wins)). splits > 1:
 // the block writes part (acc [splits][B*S*N][D], then m, l
 // [splits][B*S*N][2], f32) for merge_kernel; splits == 1: out.
-template <typename T, typename P, int D, bool DENSE>
+template <typename T, typename P, int D, bool DENSE, bool CAP>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(
     const T* __restrict__ q, long long q_bs, long long q_ss,
     const P* __restrict__ pool_k, const P* __restrict__ pool_v,
@@ -228,7 +236,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     const int* __restrict__ tables, const int* __restrict__ kv_lens,
     T* __restrict__ out, float* __restrict__ part, int layer,
     int num_pages1, int kvn, int ps, int mp, int group, int wins, int window,
-    int rcap, float scale) {
+    int rcap, float scale, float cap) {
   using G = Geo<P, D>;
   constexpr bool QUANT = std::is_same_v<P, int8_t>;  // scales beside codes
   constexpr int EPC = 16 / G::ES;  // elements per 16-byte copy
@@ -380,6 +388,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
       const unsigned char* krow = kt + kk * G::ROWB;
       const int kp = k0 + kk;
       const float ks = QUANT ? kscl[kk] : 1.f;  // late dequant of K
+      const float inv_cap = CAP ? 1.f / cap : 0.f;
       for (int r0 = 0; r0 < rows; r0 += 4) {
         float sacc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -417,7 +426,9 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
             const bool live =
                 kp >= k_lo && kp < n_keys && kp < kv_len - wins + 1 + w &&
                 (window <= 0 || kp > kv_len - wins + w - window);
-            pr[r * PSTR + kk] = live ? sc * scale * ks : -INFINITY;
+            float v = sc * scale * ks;
+            if constexpr (CAP) v = cap * tanhf(v * inv_cap);
+            pr[r * PSTR + kk] = live ? v : -INFINITY;
           }
         }
       }
@@ -562,10 +573,10 @@ struct Args {
   void* out;
   float* part;
   int batch, layer, num_pages1, kvn, ps, mp, group, wins, window, splits;
-  float scale;
+  float scale, cap;
 };
 
-template <typename T, typename P, int D, bool DENSE>
+template <typename T, typename P, int D, bool DENSE, bool CAP>
 int launch(const Args& a, cudaStream_t st) {
   const int rows = a.group * a.wins;
   const int rcap = rows < RB ? rows : RB;
@@ -574,36 +585,45 @@ int launch(const Args& a, cudaStream_t st) {
   if (a.splits < 1 || (a.splits > 1 && a.part == nullptr))
     return SLI_ERR_SHAPE;
   cudaError_t e =
-      sli::allow_smem(paged_decode_kernel<T, P, D, DENSE>, bytes);
+      sli::allow_smem(paged_decode_kernel<T, P, D, DENSE, CAP>, bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(a.batch, a.kvn * ((rows + RB - 1) / RB), a.splits);
-  paged_decode_kernel<T, P, D, DENSE><<<grid, NT, bytes, st>>>(
+  paged_decode_kernel<T, P, D, DENSE, CAP><<<grid, NT, bytes, st>>>(
       (const T*)a.q, a.q_bs, a.q_ss, (const P*)a.pool_k, (const P*)a.pool_v,
       a.ksp, a.vsp, a.tables, a.kv_lens, (T*)a.out, a.part, a.layer,
       a.num_pages1, a.kvn, a.ps, a.mp, a.group, a.wins, a.window, rcap,
-      a.scale);
+      a.scale, a.cap);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.splits == 1) return (int)e;
   const long long n_rows = (long long)a.batch * a.wins * a.kvn * a.group;
   return (int)sli::launch_merge<T>(a.part, a.out, n_rows, D, a.splits, st);
 }
 
-// D 256 (Gemma) only over pools of q's own dtype, one window row (decode)
-// and no sliding window: the INT8-KV, e4m3, verify and window forms take
-// D <= 128 (the wrappers raise for them).
+// The cap (CAP) only over pools of q's own dtype, one window row and the
+// paged pools; D 256 (Gemma) only over pools of q's own dtype and one
+// window row (decode, with or without a sliding window): the INT8-KV,
+// e4m3 and verify forms take D <= 128 (the wrappers raise for them).
+template <typename T, typename P, int D, bool DENSE>
+int launch_c(const Args& a, cudaStream_t st) {
+  if (a.cap <= 0.f) return launch<T, P, D, DENSE, false>(a, st);
+  if constexpr (std::is_same_v<T, P> && !DENSE) {
+    if (a.wins == 1) return launch<T, P, D, DENSE, true>(a, st);
+  }
+  return SLI_ERR_DTYPE;
+}
+
 template <typename T, typename P, bool DENSE = false>
 int dispatch_d(int head_dim, const Args& a, cudaStream_t st) {
   switch (head_dim) {
     case 32:
-      return launch<T, P, 32, DENSE>(a, st);
+      return launch_c<T, P, 32, DENSE>(a, st);
     case 64:
-      return launch<T, P, 64, DENSE>(a, st);
+      return launch_c<T, P, 64, DENSE>(a, st);
     case 128:
-      return launch<T, P, 128, DENSE>(a, st);
+      return launch_c<T, P, 128, DENSE>(a, st);
     case 256:
       if constexpr (std::is_same_v<T, P>) {
-        if (a.wins == 1 && a.window == 0)
-          return launch<T, P, 256, DENSE>(a, st);
+        if (a.wins == 1) return launch_c<T, P, 256, DENSE>(a, st);
       }
       return SLI_ERR_HEAD_DIM;
     default:
@@ -632,7 +652,7 @@ extern "C" int sli_flash_decode(const void* q, long long q_bs,
   // one "page" of smax slots per sequence, one window row, no scales
   const Args a{q, q_bs, 0LL, cache_k, cache_v, nullptr, nullptr, nullptr,
                kv_lens, out, part, batch, layer, arena_rows, kvn, smax, 1,
-               group, 1, 0, splits, scale};
+               group, 1, 0, splits, scale, 0.f};
   if (dtype == SLI_F32) return dispatch_d<float, float, true>(head_dim, a, st);
   if (dtype == SLI_BF16)
     return dispatch_d<__nv_bfloat16, __nv_bfloat16, true>(head_dim, a, st);
@@ -657,17 +677,18 @@ int dispatch_pool(int pool, int head_dim, const Args& a, cudaStream_t st) {
 // int8 with k_scale/v_scale, their f32 scale pools [L, num_pages1, kvn,
 // ps] (null for every other pool dtype). q: [B, wins, N, D] with strides
 // q_bs, q_ss (elements); wins = 1 is decode. window: 0 for none, else the
-// sliding window (>= 1). splits > 1: part holds splits * B * wins * N *
-// (D + 2) floats of workspace.
+// sliding window (>= 1); cap: 0 for none, else the soft cap (> 0; decode
+// over pools of q's dtype only). splits > 1: part holds splits * B * wins
+// * N * (D + 2) floats of workspace.
 extern "C" int sli_paged_flash_decode(
     const void* q, long long q_bs, long long q_ss, const void* pool_k,
     const void* pool_v, const void* k_scale, const void* v_scale,
     const int* tables, const int* kv_lens, void* out, float* part, int batch,
     int layer, int num_pages1, int kvn, int ps, int mp, int group, int wins,
-    int head_dim, int window, int splits, float scale, int dtype, int pool,
-    void* stream) {
+    int head_dim, int window, int splits, float scale, float cap, int dtype,
+    int pool, void* stream) {
   if (batch <= 0 || kvn <= 0 || group <= 0 || ps <= 0 || mp <= 0 ||
-      wins <= 0 || window < 0)
+      wins <= 0 || window < 0 || cap < 0.f)
     return SLI_ERR_SHAPE;
   if ((k_scale == nullptr) != (v_scale == nullptr) ||
       (k_scale != nullptr) != (pool == SLI_POOL_I8))
@@ -676,7 +697,7 @@ extern "C" int sli_paged_flash_decode(
   const Args a{q, q_bs, q_ss, pool_k, pool_v, (const float*)k_scale,
                (const float*)v_scale, tables, kv_lens, out, part, batch,
                layer, num_pages1, kvn, ps, mp, group, wins, window, splits,
-               scale};
+               scale, cap};
   if (dtype == SLI_F32) return dispatch_pool<float>(pool, head_dim, a, st);
   if (dtype == SLI_BF16)
     return dispatch_pool<__nv_bfloat16>(pool, head_dim, a, st);

@@ -7,8 +7,13 @@
 // paged_prefill.py:44-150, wrapper :156), for bf16/f32 pools and, its
 // INT8-KV form, int8 pools with per-token-per-head f32 scale pools
 // [L, P+1, kvN, ps], and the sliding-window form of both (window > 0,
-// paged_prefill.py:90-92, :131-132; the soft cap, sinks and shared-KV
-// forms raise in the wrapper): forms 8, 8q, 8w, 8qw; and, its FP8-KV form
+// paged_prefill.py:90-92, :131-132; sinks and shared-KV raise in the
+// wrapper): forms 8, 8q, 8w, 8qw; Gemma-2's soft cap over pools of q's
+// dtype (cap > 0: each live score becomes cap * tanh(s * scale * (1 /
+// cap)) before the mask, paged_prefill.py:123-124; prefill_mma.cuh's
+// note): forms 8c, 8wc, a template flag of each kernel, the uncapped
+// forms compiled as before (the cap over INT8 or e4m3 pools raises in the
+// wrapper, and here); and, its FP8-KV form
 // 8e, float8_e4m3fn pools (no scales; the TPU kernel casts the page slabs
 // to q's dtype, paged_prefill.py:108-110): bf16 q on the tensor cores, each
 // staged code converted exactly to bf16 in the block where INT8 KV
@@ -45,7 +50,7 @@
 // (paged_prefill.py:105-110), into the swizzled tiles. Every Sq is taken;
 // a batch's padding row (-1 table, kv_len 1) stays finite. Head dims 32,
 // 64 and 128 for every form; 256 (Gemma) only over pools of q's dtype
-// (8 and its f32 FMA form) without a window, budget in prefill_mma.cuh's
+// (8, 8w, 8c, 8wc and their f32 FMA forms), budget in prefill_mma.cuh's
 // note (the FMA kernel's tiles: 214,272 bytes of shared memory).
 //
 // Design, f32: the first, FMA kernel below (TF32 tensor cores would not
@@ -79,7 +84,7 @@ constexpr size_t smem_bytes() {
 // contiguous; pools [L, P+1, kvN, ps, D] of P (T, __nv_fp8_e4m3, or int8_t
 // with the scale pools ksp/vsp [L, P+1, kvN, ps]) contiguous; out [B, Sq,
 // N, D] contiguous.
-template <typename T, typename P, int D>
+template <typename T, typename P, int D, bool CAP>
 __global__ void __launch_bounds__(NT) paged_prefill_kernel(
     const T* __restrict__ q, long long q_bs, long long q_ss,
     const P* __restrict__ pool_k, const P* __restrict__ pool_v,
@@ -87,7 +92,7 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
     const int* __restrict__ tables, const int* __restrict__ kv_lens,
     const int* __restrict__ offs, T* __restrict__ out, int seq, int heads,
     int layer, int num_pages1, int kvn, int ps, int mp, int group,
-    int window, float scale) {
+    int window, float scale, float cap) {
   constexpr bool QUANT = std::is_same_v<P, int8_t>;  // scales beside codes
   extern __shared__ float smem[];
   float* qs = smem;                  // [BQ][D+1]
@@ -196,6 +201,7 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
         float s = sc[i][j] * scale;
+        if constexpr (CAP) s = cap * tanhf(s * (1.f / cap));
         if (kp > qp || kp >= n_keys || (window > 0 && kp <= qp - window))
           s = NEG_INF;
         sc[i][j] = s;
@@ -258,59 +264,59 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
   }
 }
 
-template <typename T, typename P, int D>
+template <typename T, typename P, int D, bool CAP>
 int launch(const void* q, long long q_bs, long long q_ss, const void* pool_k,
            const void* pool_v, const float* ksp, const float* vsp,
            const int* tables, const int* kv_lens, const int* offs, void* out,
            int batch, int seq, int heads, int layer, int num_pages1, int kvn,
-           int ps, int mp, int group, int window, float scale,
+           int ps, int mp, int group, int window, float scale, float cap,
            cudaStream_t st) {
   const size_t bytes = smem_bytes<D>();
-  cudaError_t e = sli::allow_smem(paged_prefill_kernel<T, P, D>, bytes);
+  cudaError_t e = sli::allow_smem(paged_prefill_kernel<T, P, D, CAP>, bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((seq + BQ - 1) / BQ, heads, batch);
-  paged_prefill_kernel<T, P, D><<<grid, NT, bytes, st>>>(
+  paged_prefill_kernel<T, P, D, CAP><<<grid, NT, bytes, st>>>(
       (const T*)q, q_bs, q_ss, (const P*)pool_k, (const P*)pool_v, ksp, vsp,
       tables, kv_lens, offs, (T*)out, seq, heads, layer, num_pages1, kvn, ps,
-      mp, group, window, scale);
+      mp, group, window, scale, cap);
   return (int)cudaGetLastError();
 }
 
+// D 256 only over pools of q's dtype; the cap only over those too
 template <typename T, typename P>
 int dispatch_d(int head_dim, const void* q, long long q_bs, long long q_ss,
                const void* pool_k, const void* pool_v, const float* ksp,
                const float* vsp, const int* tables, const int* kv_lens,
                const int* offs, void* out, int batch, int seq, int heads,
                int layer, int num_pages1, int kvn, int ps, int mp, int group,
-               int window, float scale, cudaStream_t st) {
+               int window, float scale, float cap, cudaStream_t st) {
+  constexpr bool OWN = std::is_same_v<T, P>;
+  if (cap > 0.f && !OWN) return SLI_ERR_DTYPE;
+#define SLI_PP_LAUNCH(DD, C)                                                 \
+  launch<T, P, DD, C>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,       \
+                      kv_lens, offs, out, batch, seq, heads, layer,          \
+                      num_pages1, kvn, ps, mp, group, window, scale, cap, st)
+#define SLI_PP_CASE(DD)                                                      \
+  case DD:                                                                   \
+    if constexpr (OWN) {                                                     \
+      if (cap > 0.f) return SLI_PP_LAUNCH(DD, true);                         \
+    }                                                                        \
+    return SLI_PP_LAUNCH(DD, false);
   switch (head_dim) {
-    case 32:
-      return launch<T, P, 32>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
-                              tables, kv_lens, offs, out, batch, seq, heads,
-                              layer, num_pages1, kvn, ps, mp, group, window,
-                              scale, st);
-    case 64:
-      return launch<T, P, 64>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
-                              tables, kv_lens, offs, out, batch, seq, heads,
-                              layer, num_pages1, kvn, ps, mp, group, window,
-                              scale, st);
-    case 128:
-      return launch<T, P, 128>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
-                               tables, kv_lens, offs, out, batch, seq, heads,
-                               layer, num_pages1, kvn, ps, mp, group, window,
-                               scale, st);
-    case 256:  // pools of q's dtype, no window
-      if constexpr (std::is_same_v<T, P>) {
-        if (window == 0)
-          return launch<T, P, 256>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
-                                   tables, kv_lens, offs, out, batch, seq,
-                                   heads, layer, num_pages1, kvn, ps, mp,
-                                   group, window, scale, st);
+    SLI_PP_CASE(32)
+    SLI_PP_CASE(64)
+    SLI_PP_CASE(128)
+    case 256:  // pools of q's dtype
+      if constexpr (OWN) {
+        if (cap > 0.f) return SLI_PP_LAUNCH(256, true);
+        return SLI_PP_LAUNCH(256, false);
       }
       return SLI_ERR_HEAD_DIM;
     default:
       return SLI_ERR_HEAD_DIM;
   }
+#undef SLI_PP_CASE
+#undef SLI_PP_LAUNCH
 }
 
 template <typename T>
@@ -319,23 +325,24 @@ int dispatch_p(int pool, int head_dim, const void* q, long long q_bs,
                const float* ksp, const float* vsp, const int* tables,
                const int* kv_lens, const int* offs, void* out, int batch,
                int seq, int heads, int layer, int num_pages1, int kvn, int ps,
-               int mp, int group, int window, float scale, cudaStream_t st) {
+               int mp, int group, int window, float scale, float cap,
+               cudaStream_t st) {
   if (pool == SLI_POOL_I8)
     return dispatch_d<T, int8_t>(head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp,
                                  vsp, tables, kv_lens, offs, out, batch, seq,
                                  heads, layer, num_pages1, kvn, ps, mp, group,
-                                 window, scale, st);
+                                 window, scale, cap, st);
   if (pool == SLI_POOL_E4M3)
     return dispatch_d<T, __nv_fp8_e4m3>(
         head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables, kv_lens,
         offs, out, batch, seq, heads, layer, num_pages1, kvn, ps, mp, group,
-        window, scale, st);
+        window, scale, cap, st);
   if (pool != (std::is_same_v<T, float> ? SLI_POOL_F32 : SLI_POOL_BF16))
     return SLI_ERR_DTYPE;
   return dispatch_d<T, T>(head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
                           tables, kv_lens, offs, out, batch, seq, heads,
                           layer, num_pages1, kvn, ps, mp, group, window, scale,
-                          st);
+                          cap, st);
 }
 
 // The K/V rows of one sequence and kv head in the stacked pools, for
@@ -382,7 +389,7 @@ struct PagedRows {
 // rows) against bf16 pools, e4m3 pools (KV_E4M3), or int8 pools (KV_I8)
 // with their scale pools; out [B, Sq, N, D] contiguous, or the split
 // partials in work.
-template <int D, int KV>
+template <int D, int KV, bool CAP>
 __global__ void __launch_bounds__(sli::pfa::NT) paged_prefill_mma_kernel(
     const __nv_bfloat16* __restrict__ q, long long q_bs, long long q_ss,
     const void* __restrict__ pool_k, const void* __restrict__ pool_v,
@@ -391,31 +398,30 @@ __global__ void __launch_bounds__(sli::pfa::NT) paged_prefill_mma_kernel(
     const int* __restrict__ offs, __nv_bfloat16* __restrict__ out,
     float* __restrict__ work, int batch, int seq, int heads, int layer,
     int num_pages1, int kvn, int ps, int mp, int group, int window,
-    float scale_log2, int splits) {
+    sli::pfa::Score sc, int splits) {
   const int b = blockIdx.z / splits;
   const PagedRows<D, KV> src{
       (const unsigned char*)pool_k, (const unsigned char*)pool_v, ksp, vsp,
       tables + (long long)b * mp, (long long)layer * num_pages1, kvn,
       (int)blockIdx.y, ps, num_pages1, sli::pfa::TILE / ps,
       sli::pfa::TILE % ps};
-  sli::pfa::attend<D, KV>(q + (long long)b * q_bs, q_ss, src,
-                             out + (long long)b * seq * heads * D, work,
-                             batch, b, seq, heads, group, offs[b],
-                             min(kv_lens[b], mp * ps), window, scale_log2,
-                             splits);
+  sli::pfa::attend<D, KV, CAP>(q + (long long)b * q_bs, q_ss, src,
+                               out + (long long)b * seq * heads * D, work,
+                               batch, b, seq, heads, group, offs[b],
+                               min(kv_lens[b], mp * ps), window, sc, splits);
 }
 
-template <int D, int KV>
+template <int D, int KV, bool CAP>
 int launch_mma(const void* q, long long q_bs, long long q_ss,
                const void* pool_k, const void* pool_v, const float* ksp,
                const float* vsp, const int* tables, const int* kv_lens,
                const int* offs, void* out, float* work, int batch, int seq,
                int heads, int layer, int num_pages1, int kvn, int ps, int mp,
-               int group, int window, float scale, int splits,
+               int group, int window, float scale, float cap, int splits,
                cudaStream_t st) {
   namespace pfa = sli::pfa;
   constexpr int bytes = pfa::Smem<D, KV>::BYTES;
-  auto kern = paged_prefill_mma_kernel<D, KV>;
+  auto kern = paged_prefill_mma_kernel<D, KV, CAP>;
   cudaError_t e = sli::allow_smem(kern, bytes);
   if (e != cudaSuccess) return (int)e;
   const int h = min(group, pfa::TILE);
@@ -425,50 +431,51 @@ int launch_mma(const void* q, long long q_bs, long long q_ss,
   kern<<<grid, pfa::NT, bytes, st>>>(
       (const __nv_bfloat16*)q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,
       kv_lens, offs, (__nv_bfloat16*)out, work, batch, seq, heads, layer,
-      num_pages1, kvn, ps, mp, group, window, scale * pfa::LOG2E, splits);
+      num_pages1, kvn, ps, mp, group, window, pfa::make_score(scale, cap),
+      splits);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
   return (int)sli::launch_merge<__nv_bfloat16>(
       work, out, (long long)batch * seq * heads, D, splits, st);
 }
 
+// D 256 and the cap only over bf16 pools (KV_BF16)
 template <int KV>
 int dispatch_mma(int head_dim, const void* q, long long q_bs, long long q_ss,
                  const void* pool_k, const void* pool_v, const float* ksp,
                  const float* vsp, const int* tables, const int* kv_lens,
                  const int* offs, void* out, float* work, int batch, int seq,
                  int heads, int layer, int num_pages1, int kvn, int ps,
-                 int mp, int group, int window, float scale, int splits,
-                 cudaStream_t st) {
+                 int mp, int group, int window, float scale, float cap,
+                 int splits, cudaStream_t st) {
+  constexpr bool OWN = KV == sli::pfa::KV_BF16;
+  if (cap > 0.f && !OWN) return SLI_ERR_DTYPE;
+#define SLI_PP_LAUNCH(DD, C)                                                  \
+  launch_mma<DD, KV, C>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,      \
+                        kv_lens, offs, out, work, batch, seq, heads, layer,   \
+                        num_pages1, kvn, ps, mp, group, window, scale, cap,   \
+                        splits, st)
+#define SLI_PP_CASE(DD)                                                       \
+  case DD:                                                                    \
+    if constexpr (OWN) {                                                      \
+      if (cap > 0.f) return SLI_PP_LAUNCH(DD, true);                          \
+    }                                                                         \
+    return SLI_PP_LAUNCH(DD, false);
   switch (head_dim) {
-    case 32:
-      return launch_mma<32, KV>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
-                                   tables, kv_lens, offs, out, work, batch,
-                                   seq, heads, layer, num_pages1, kvn, ps, mp,
-                                   group, window, scale, splits, st);
-    case 64:
-      return launch_mma<64, KV>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
-                                   tables, kv_lens, offs, out, work, batch,
-                                   seq, heads, layer, num_pages1, kvn, ps, mp,
-                                   group, window, scale, splits, st);
-    case 128:
-      return launch_mma<128, KV>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
-                                    tables, kv_lens, offs, out, work, batch,
-                                    seq, heads, layer, num_pages1, kvn, ps,
-                                    mp, group, window, scale, splits, st);
-    case 256:  // bf16 pools, no window
-      if constexpr (KV == sli::pfa::KV_BF16) {
-        if (window == 0)
-          return launch_mma<256, KV>(q, q_bs, q_ss, pool_k, pool_v, ksp,
-                                     vsp, tables, kv_lens, offs, out, work,
-                                     batch, seq, heads, layer, num_pages1,
-                                     kvn, ps, mp, group, window, scale,
-                                     splits, st);
+    SLI_PP_CASE(32)
+    SLI_PP_CASE(64)
+    SLI_PP_CASE(128)
+    case 256:  // bf16 pools
+      if constexpr (OWN) {
+        if (cap > 0.f) return SLI_PP_LAUNCH(256, true);
+        return SLI_PP_LAUNCH(256, false);
       }
       return SLI_ERR_HEAD_DIM;
     default:
       return SLI_ERR_HEAD_DIM;
   }
+#undef SLI_PP_CASE
+#undef SLI_PP_LAUNCH
 }
 
 }  // namespace
@@ -476,7 +483,8 @@ int dispatch_mma(int head_dim, const void* q, long long q_bs, long long q_ss,
 // pool: the pools' dtype (SLI_POOL_*): q's dtype, e4m3 (form 8e), or int8
 // with k_scale/v_scale, their f32 scale pools [L, num_pages1, kvn, ps]
 // (null for every other pool dtype). window: 0 for none, else the sliding
-// window (>= 1). bf16 q takes the tensor-core kernel: q rows 16-byte
+// window (>= 1); cap: 0 for none, else the soft cap (> 0; pools of q's
+// dtype only). bf16 q takes the tensor-core kernel: q rows 16-byte
 // aligned (q, q_bs, q_ss), and with splits > 1, work holds splits * batch
 // * seq * heads * (head_dim + 2) floats. f32 q takes the FMA kernel
 // (splits 1).
@@ -485,11 +493,11 @@ extern "C" int sli_paged_flash_prefill(
     const void* pool_v, const void* k_scale, const void* v_scale,
     const int* tables, const int* kv_lens, const int* offs, void* out,
     int batch, int seq, int heads, int layer, int num_pages1, int kvn, int ps,
-    int mp, int group, int head_dim, int window, float scale, int dtype,
-    int pool, void* work, int splits, void* stream) {
+    int mp, int group, int head_dim, int window, float scale, float cap,
+    int dtype, int pool, void* work, int splits, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || kvn <= 0 || group <= 0 ||
       ps <= 0 || mp <= 0 || heads != kvn * group || window < 0 ||
-      splits < 1 || (splits > 1 && work == nullptr))
+      cap < 0.f || splits < 1 || (splits > 1 && work == nullptr))
     return SLI_ERR_SHAPE;
   if ((k_scale == nullptr) != (v_scale == nullptr) ||
       (k_scale != nullptr) != (pool == SLI_POOL_I8))
@@ -502,7 +510,7 @@ extern "C" int sli_paged_flash_prefill(
     return dispatch_p<float>(pool, head_dim, q, q_bs, q_ss, pool_k, pool_v,
                              ksp, vsp, tables, kv_lens, offs, out, batch, seq,
                              heads, layer, num_pages1, kvn, ps, mp, group,
-                             window, scale, st);
+                             window, scale, cap, st);
   }
   if (dtype == SLI_BF16) {
     if (((unsigned long long)q | (unsigned long long)pool_k |
@@ -515,17 +523,17 @@ extern "C" int sli_paged_flash_prefill(
         return dispatch_mma<pfa::KV_BF16>(
             head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,
             kv_lens, offs, out, w, batch, seq, heads, layer, num_pages1, kvn,
-            ps, mp, group, window, scale, splits, st);
+            ps, mp, group, window, scale, cap, splits, st);
       case SLI_POOL_I8:
         return dispatch_mma<pfa::KV_I8>(
             head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,
             kv_lens, offs, out, w, batch, seq, heads, layer, num_pages1, kvn,
-            ps, mp, group, window, scale, splits, st);
+            ps, mp, group, window, scale, cap, splits, st);
       case SLI_POOL_E4M3:
         return dispatch_mma<pfa::KV_E4M3>(
             head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,
             kv_lens, offs, out, w, batch, seq, heads, layer, num_pages1, kvn,
-            ps, mp, group, window, scale, splits, st);
+            ps, mp, group, window, scale, cap, splits, st);
       default:
         return SLI_ERR_DTYPE;
     }

@@ -45,7 +45,18 @@
 // Products. S = Q K^T: wgmma.m64n64k16, Q and K both K-major from shared
 // memory (D / 16 steps), f32. Online softmax in f32 on the fragments, in
 // log2 units (scale x log2 e), a masked key at p = 0 (no mask where both
-// of a thread's rows see the whole tile). O += P V:
+// of a thread's rows see the whole tile).
+//
+// Soft cap (Gemma-2's attn_logit_softcapping; template flag CAP, the
+// uncapped forms keep the one multiply by scale x log2 e): each live
+// score becomes cap * tanh(s * scale * (1 / cap)), the TPU kernels'
+// order (flash_prefill.py:65-68, paged_prefill.py:121-124), then x log2
+// e; a masked key stays -1e30 (p = 0), never -cap. tanh is tanhf (CUDA's
+// full-precision tanh, 2 ulp), not tanh.approx.f32: the approximation's
+// relative error of about 2^-11 is an absolute error of up to cap x
+// 2^-11 = 0.024 in a capped score at cap 50, which moves p by 2.4%, six
+// bf16 ulps, where the one-ulp rule below leaves about one; tanhf's
+// error is about 6e-6 there. O += P V:
 // wgmma.m64n{D}k16, P from registers as A, V as B from the same [key][d]
 // tile in the MN-major (transposed) mode. The TPU kernel rounds P to the
 // value dtype before this product (p.astype(v.dtype),
@@ -57,8 +68,9 @@
 // tests/test_torch_prefill_tiles.py).
 //
 // D 256 (Gemma-2B: 8 q heads over one kv head, so a tile packs 8
-// positions x 8 heads, as TinyLlama's at D 64), bf16 pools only and no
-// window: S = QK^T takes 16 k-steps of m64n64k16; O += PV is one
+// positions x 8 heads, as TinyLlama's at D 64; Gemma-2-2B: 2 over each of
+// 4, 32 positions x 2 heads), bf16 pools only, with or without a window
+// and the cap: S = QK^T takes 16 k-steps of m64n64k16; O += PV is one
 // wgmma.m64n256k16 a 16-key step (P from registers, V as B in four
 // 64-column slabs at the slab stride, the same descriptor as n128's two),
 // for p_hi and again for p_lo. Its accumulator is float[128] a thread,
@@ -203,6 +215,25 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// A score's units: log2 (the softmax runs on ex2). Uncapped: mul =
+// scale x log2 e, one multiply. Capped: mul = scale, inv_cap = 1 / cap,
+// cap_l2 = cap x log2 e.
+struct Score {
+  float mul, inv_cap, cap_l2;
+};
+
+__host__ inline Score make_score(float scale, float cap) {
+  if (cap > 0.f)
+    return {scale, (float)(1.0 / (double)cap), cap * LOG2E};
+  return {scale * LOG2E, 0.f, 0.f};
+}
+
+template <bool CAP>
+__device__ __forceinline__ float score(float s, const Score& c) {
+  if constexpr (CAP) return tanhf(s * c.mul * c.inv_cap) * c.cap_l2;
+  return s * c.mul;
 }
 
 __device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
@@ -354,15 +385,16 @@ __device__ __forceinline__ Walk walk(int seq, int group, int off, int n_keys,
 //   out: this sequence's [Sq, N, D] (contiguous), written when splits == 1;
 //   work: else split_merge.cuh's f32 partials over the B * Sq * N rows.
 // Query row at position s sits at off + s and sees keys k <= off + s,
-// k < n_keys and, with a window, k > off + s - window.
-template <int D, int KV, typename Src>
+// k < n_keys and, with a window, k > off + s - window. sc: the scores'
+// scale (and cap, with CAP), make_score's.
+template <int D, int KV, bool CAP, typename Src>
 __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
                                        long long q_ss, const Src& src,
                                        __nv_bfloat16* __restrict__ out,
                                        float* __restrict__ work, int batch,
                                        int b, int seq, int heads, int group,
                                        int off, int n_keys, int window,
-                                       float scale_log2, int splits) {
+                                       Score sc, int splits) {
   using G = Geo<D>;
   using S = Smem<D, KV>;
   constexpr bool CODES = S::CODES;
@@ -554,7 +586,7 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float v = s[4 * j + e] * scale_log2;
+          const float v = score<CAP>(s[4 * j + e], sc);
           s[4 * j + e] = v;
           if (e < 2) mx0 = fmaxf(mx0, v);
           else mx1 = fmaxf(mx1, v);
@@ -567,7 +599,7 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
           const int kp = k0 + 8 * j + (e & 1);
           const bool ok = e < 2 ? (kp >= lo0 && kp <= hi0)
                                 : (kp >= lo1 && kp <= hi1);
-          const float v = ok ? s[4 * j + e] * scale_log2 : NEG_INF;
+          const float v = ok ? score<CAP>(s[4 * j + e], sc) : NEG_INF;
           s[4 * j + e] = v;
           if (e < 2) mx0 = fmaxf(mx0, v);
           else mx1 = fmaxf(mx1, v);

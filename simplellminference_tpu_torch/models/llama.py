@@ -16,7 +16,11 @@ layers stands in for the ``lax.scan``; stacked [L, ...] weights are
 indexed per layer, and the KV pools are written in place. Sliding-window
 attention (Mistral's ``sliding_window``, alternating ``layer_types``)
 runs in every ``forward_paged`` branch, over the ordinary pools or the
-grouped engine's ring pools; the dense ``forward`` refuses it.
+grouped engine's ring pools; the dense ``forward`` refuses it. Gemma-2's
+pieces run in ``forward_paged``: the attention soft cap (the kernels'
+capped forms), the final logit soft cap, the sandwich norms and
+``query_pre_attn_scalar``; the dense ``forward`` refuses the attention
+cap with the windows.
 
 KV pools are bf16/f32, or INT8 with per-token-per-head scale pools
 (``cache.k_scale``/``cache.v_scale``): every write quantizes and every
@@ -44,7 +48,9 @@ Params dict (the JAX package's names, layers stacked on a leading L):
     {"embed": [V, H],
      "layers": {"input_norm": [L, H], "post_norm": [L, H],
                 "wqkv": [L, H, (N + 2*kvN) * D], "wo": [L, N*D, H],
-                "w_gate_up": [L, H, 2*I], "w_down": [L, I, H]},
+                "w_gate_up": [L, H, 2*I], "w_down": [L, I, H],
+                # Gemma-2 (sandwich_norms) only:
+                "post_attn_norm": [L, H], "post_ffn_norm": [L, H]},
      "final_norm": [H],
      "lm_head": [H, V]}          # absent when tie_word_embeddings
 """
@@ -79,10 +85,7 @@ def check_supported(cfg: ModelConfig) -> None:
         ("attn_sinks", "attention sinks"),
         ("o_bias", "o_proj bias"),
         ("mlp_bias", "FFN biases"),
-        ("sandwich_norms", "sandwich norms"),
         ("nope_layers", "NoPE layers"),
-        ("attn_logit_softcap", "attention logit soft cap"),
-        ("final_logit_softcap", "final logit soft cap"),
         ("rope_local_theta", "local rope theta"),
         ("rope_interleaved", "interleaved rotary"),
     ]
@@ -105,12 +108,16 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def check_dense_supported(cfg: ModelConfig) -> None:
     """:func:`check_supported` for the dense-arena ``forward`` (the
-    Generator and the draft model), which also refuses sliding windows:
-    their decode needs the window form of ``flash_decode``, not ported."""
+    Generator and the draft model), which also refuses sliding windows and
+    the attention soft cap: their decode needs the window and capped forms
+    of ``flash_decode``, not ported."""
     check_supported(cfg)
     if any(w is not None for w in cfg.layer_windows):
         raise NotImplementedError("sliding-window attention on the dense "
                                   "KV arena (flash_decode's window form)")
+    if cfg.attn_logit_softcap:
+        raise NotImplementedError("attention logit soft cap on the dense "
+                                  "KV arena (flash_decode's capped form)")
 
 
 def _fqkv_gate(cfg: ModelConfig, lw, b: int, s: int, cache_k) -> bool:
@@ -159,10 +166,17 @@ def _fused_qkv(cfg: ModelConfig, lw, li: int, x, sin, cos, ck, cv, offsets,
 
 def _post_attention(cfg: ModelConfig, lw, li: int, x, attn, use_fffn: bool):
     """wo projection + residual + FFN (llama.py:224-334, the plain pre-norm
-    branch), with ``fused_ffn`` under its gate."""
+    branch), with ``fused_ffn`` under its gate. Gemma-2's sandwich norms
+    (llama.py:258-260, :328-330): ``post_attn_norm`` on the attention
+    output and ``post_ffn_norm`` on the FFN's, each before its residual
+    add (``post_ffn_norm`` closes the fused FFN's gate)."""
     b, s, h = x.shape
     aq = cfg.act_quant
-    x = x + linear(attn.reshape(b, s, -1), lw["wo"], layer=li, act_quant=aq)
+    attn = linear(attn.reshape(b, s, -1), lw["wo"], layer=li, act_quant=aq)
+    if "post_attn_norm" in lw:
+        attn = ref_ops.rmsnorm(attn, lw["post_attn_norm"][li],
+                               cfg.rms_norm_eps)
+    x = x + attn
     if use_fffn:
         gu, dn = lw["w_gate_up"], lw["w_down"]
         return ffn_fused.fused_ffn(
@@ -173,19 +187,30 @@ def _post_attention(cfg: ModelConfig, lw, li: int, x, attn, use_fffn: bool):
     gate_up = linear(hn, lw["w_gate_up"], layer=li, act_quant=aq)
     swi = ref_ops.glu_act(gate_up[..., :i_sz], gate_up[..., i_sz:],
                           cfg.hidden_act)
-    return x + linear(swi, lw["w_down"], layer=li, act_quant=aq)
+    down = linear(swi, lw["w_down"], layer=li, act_quant=aq)
+    if "post_ffn_norm" in lw:
+        down = ref_ops.rmsnorm(down, lw["post_ffn_norm"][li],
+                               cfg.rms_norm_eps)
+    return x + down
 
 
 def _logits(cfg: ModelConfig, params: Params, x) -> torch.Tensor:
-    """Final norm and LM head: f32 logits. The head takes no
-    ``act_quant`` (llama.py:475, :905)."""
+    """Final norm and LM head: f32 logits, soft-capped as
+    cap * tanh(logits / cap) with Gemma-2's final_logit_softcap
+    (llama.py:478-480, :908-910). The head takes no ``act_quant``
+    (llama.py:475, :905)."""
     x = ref_ops.rmsnorm(x, params["final_norm"], cfg.rms_norm_eps)
     lm_head = params.get("lm_head")
     if lm_head is None:
         # tied head: the f32 accumulator, as jnp.dot(...,
         # preferred_element_type=float32) at llama.py:472-473, :902-903
-        return dot_f32(x, params["embed"].t()).float()
-    return linear(x, lm_head, out_dtype=torch.float32).float()
+        logits = dot_f32(x, params["embed"].t()).float()
+    else:
+        logits = linear(x, lm_head, out_dtype=torch.float32).float()
+    cap = cfg.final_logit_softcap
+    if cap:
+        logits = cap * torch.tanh(logits / cap)
+    return logits
 
 
 def _embed(cfg: ModelConfig, params: Params, tokens, positions):
@@ -410,6 +435,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
         },
         "final_norm": ones((h,)),
     }
+    if cfg.sandwich_norms:   # Gemma-2's pre-residual output norms
+        params["layers"]["post_attn_norm"] = ones((L, h))
+        params["layers"]["post_ffn_norm"] = ones((L, h))
     if not cfg.tie_word_embeddings:
         params["lm_head"] = w((h, v), 0.02)
     return params

@@ -8,9 +8,12 @@ INT8-KV pools pass their scale pools (``pool_ks``/``pool_vs``) on to the
 paged kernels, FP8 (e4m3) pools go, by their dtype, to the kernels'
 FP8-KV forms (4e, 4ve, 8e), and a sliding window (``cfg.sliding_window``, or the
 per-layer ``window`` a caller passes for ``layer_types`` stacks) goes to
-each kernel's window form. Attention options the kernels do not take yet
-(logit soft cap, sinks) raise; so does a window on the dense arena
-(``flash_decode``'s window form is not ported).
+each kernel's window form, and Gemma-2's logit soft cap
+(``cfg.attn_logit_softcap``) to the capped forms of kernels 3, 4 and 8
+over bf16/f32 KV. Attention options the kernels do not take yet (sinks;
+the cap over INT8 or FP8 KV, on verify rows and on the dense arena)
+raise; so does a window on the dense arena (``flash_decode``'s window
+form is not ported).
 """
 
 from __future__ import annotations
@@ -32,28 +35,26 @@ _UNSET = object()
 
 
 def _attn_opts(cfg: ModelConfig, window=_UNSET):
-    """(window, sm_scale) for one attention call (dispatch.py:68-79):
-    ``window`` defaults to cfg.sliding_window, and alternating
-    sliding/full stacks (``layer_types``) pass each layer's; sm_scale is
-    query_pre_attn_scalar**-0.5 when set, else None (the kernels'
-    D**-0.5). The soft cap and sinks of the JAX version are not ported
-    yet."""
-    if cfg.attn_logit_softcap:
-        raise NotImplementedError("attention logit soft cap")
+    """(window, sm_scale, logit_cap) for one attention call
+    (dispatch.py:68-79): ``window`` defaults to cfg.sliding_window, and
+    alternating sliding/full stacks (``layer_types``) pass each layer's;
+    sm_scale is query_pre_attn_scalar**-0.5 when set, else None (the
+    kernels' D**-0.5); logit_cap is attn_logit_softcap (Gemma-2). The
+    sinks of the JAX version are not ported yet."""
     if cfg.attn_sinks:
         raise NotImplementedError("attention sinks")
     w = cfg.sliding_window if window is _UNSET else window
     sm = (None if cfg.query_pre_attn_scalar is None
           else cfg.query_pre_attn_scalar ** -0.5)
-    return w, sm
+    return w, sm, cfg.attn_logit_softcap
 
 
 def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor, window=_UNSET) -> torch.Tensor:
     """Causal self-attention of a prompt, no cache read-back.
     q: [B, S, N, D]; k/v: [B, S, kvN, D]."""
-    window, sm = _attn_opts(cfg, window)
-    return flash_prefill(q, k, v, sm_scale=sm, window=window)
+    window, sm, cap = _attn_opts(cfg, window)
+    return flash_prefill(q, k, v, sm_scale=sm, window=window, logit_cap=cap)
 
 
 def attention_cached(cfg: ModelConfig, q: torch.Tensor,
@@ -68,9 +69,9 @@ def attention_cached(cfg: ModelConfig, q: torch.Tensor,
     as ``models.llama.forward`` does."""
     if q.shape[1] != 1:
         raise ValueError(f"one query row per sequence, not {q.shape[1]}")
-    window, sm = _attn_opts(cfg)
+    window, sm, cap = _attn_opts(cfg)
     return flash_decode(q[:, 0], ck, cv, kv_lens, layer=layer,
-                        window=window, sm_scale=sm)[:, None]
+                        window=window, sm_scale=sm, logit_cap=cap)[:, None]
 
 
 def attention_paged_prefill(cfg: ModelConfig, q: torch.Tensor,
@@ -86,10 +87,10 @@ def attention_paged_prefill(cfg: ModelConfig, q: torch.Tensor,
     < kv_lens[b] up to the causal frontier. q: [B, S, N, D]; pools:
     stacked [L, P+1, kvN, ps, D] with an int ``layer``, and their scale
     pools [L, P+1, kvN, ps] for INT8 KV."""
-    window, sm = _attn_opts(cfg, window)
+    window, sm, cap = _attn_opts(cfg, window)
     return paged_flash_prefill(q, pool_k, pool_v, tables, kv_lens,
                                chunk_offset, layer, sm_scale=sm,
-                               window=window, k_scale=pool_ks,
+                               window=window, logit_cap=cap, k_scale=pool_ks,
                                v_scale=pool_vs)
 
 
@@ -104,11 +105,12 @@ def attention_paged(cfg: ModelConfig, q: torch.Tensor, pool_k: torch.Tensor,
     whose row s sits at position kv_lens - S + s. Pools: stacked
     [L, P+1, kvN, ps, D] with an int ``layer``, and their scale pools
     [L, P+1, kvN, ps] for INT8 KV."""
-    window, sm = _attn_opts(cfg, window)
+    window, sm, cap = _attn_opts(cfg, window)
     if q.shape[1] == 1:
         return paged_flash_decode(q[:, 0], pool_k, pool_v, tables, kv_lens,
                                   layer, sm_scale=sm, k_scale=pool_ks,
-                                  v_scale=pool_vs, window=window)[:, None]
+                                  v_scale=pool_vs, window=window,
+                                  logit_cap=cap)[:, None]
     return paged_flash_verify(q, pool_k, pool_v, tables, kv_lens, layer,
                               sm_scale=sm, k_scale=pool_ks, v_scale=pool_vs,
-                              window=window)
+                              window=window, logit_cap=cap)

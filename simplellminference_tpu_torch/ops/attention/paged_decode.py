@@ -46,6 +46,14 @@ so the walk's start, not the mask, keeps the answer right. They are
 and :func:`paged_flash_verify_int8kv_window`, each with its own launch
 count.
 
+Gemma-2's soft cap (``logit_cap``: each score becomes
+cap * tanh(s * scale * (1 / cap)) before the mask, paged_decode.py:90-91)
+on the decode forms over pools of q's dtype, with or without a window
+(4c, 4wc): a compile-time flag of the kernel, so the uncapped forms run
+the code they ran before; capped launches count in their form's
+``launches`` and in :data:`~.flash_prefill.CAP_LAUNCHES`. The cap over
+INT8 or e4m3 pools and on verify rows raises (not ported yet).
+
 Unmapped (-1) pages inside kv_len read as zeros in both versions. The
 JAX package reads something else there — its TPU kernel clamps them to
 page 0, its reference gather reads the trash page (``mode="fill"``
@@ -60,15 +68,16 @@ import torch
 from simplellminference_tpu_torch.memory.paged_kv import gather_dense
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
 from simplellminference_tpu_torch.ops.attention.flash_prefill import (
-    window_size)
+    cap_value, count_launch, window_size)
 from simplellminference_tpu_torch.ops.matmul import SM_COUNT
 from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
 HEAD_DIMS = (32, 64, 128, 256)
 # the forms that take head_dim 256 (Gemma): decode over pools of q's
-# dtype; and their launches at that head dim (each also in ``launches``)
-D256_FORMS = ("paged_flash_decode",)
-D256_LAUNCHES = {"paged_flash_decode": 0}
+# dtype, with or without a window; and their launches at that head dim
+# (each also in ``launches``)
+D256_FORMS = ("paged_flash_decode", "paged_flash_decode_window")
+D256_LAUNCHES = {"paged_flash_decode": 0, "paged_flash_decode_window": 0}
 MAX_ROWS = 128   # query rows (GQA group x window rows) a call takes
 ROW_BLOCK = 32   # query rows a block of the kernel holds
 TILE_KEYS = 64   # keys per tile of the kernel; splits cut whole tiles
@@ -126,6 +135,19 @@ def _check_fp8_window(k_pool, window):
         raise NotImplementedError("FP8 KV with sliding windows")
 
 
+def _check_cap(name, k_pool, k_scale, logit_cap):
+    """The soft cap runs on the decode forms over pools of q's dtype;
+    raise for the rest."""
+    if not cap_value(logit_cap):
+        return
+    if name == "paged_flash_verify":
+        raise NotImplementedError("attention logit soft cap on verify rows")
+    if k_scale is not None:
+        raise NotImplementedError("attention logit soft cap over INT8 KV")
+    if k_pool.dtype == torch.float8_e4m3fn:
+        raise NotImplementedError("attention logit soft cap over FP8 KV")
+
+
 def _check_scales(k_pool, v_pool, k_scale, v_scale) -> bool:
     """True for INT8 pools with scale pools (checked), False without."""
     if k_scale is None and v_scale is None:
@@ -146,11 +168,12 @@ def band_tables(tables: torch.Tensor, k_lo: torch.Tensor,
 
 
 def _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
-                k_scale, v_scale, window=None):
+                k_scale, v_scale, window=None, logit_cap=None):
     """Gather the pages densely (dequantized in f32 through the scale pools
     when given), mask window row s to keys at positions <= kv_len - S + s
     (and, with a sliding ``window``, > kv_len - S + s - window), reference
-    attention; a row with no key is zero, as in the kernel.
+    attention with the scores capped by ``logit_cap`` before the mask; a
+    row with no key is zero, as in the kernel.
     q: [B, S, N, D] -> [B, S, N, D]."""
     quant = _check_scales(k_pool, v_pool, k_scale, v_scale)
     s = q.shape[1]
@@ -168,22 +191,24 @@ def _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
         mask = mask & (key_pos[None, None, None, :]
                        > q_pos[:, None, :, None] - window_size(window))
     out = ref_ops.attention(q, ck.transpose(1, 2), cv.transpose(1, 2), mask,
-                            scale=sm_scale)
+                            scale=sm_scale, logit_cap=cap_value(logit_cap))
     return torch.where((q_pos >= 0)[:, :, None, None], out,
                        torch.zeros_like(out))
 
 
 def paged_flash_decode_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
                            sm_scale: float | None = None, k_scale=None,
-                           v_scale=None, window=None) -> torch.Tensor:
-    """Plain version of :func:`paged_flash_decode` and its INT8-KV, FP8-KV
-    and window forms: keys at positions < kv_len (and >= kv_len - window);
-    q: [B, N, D] -> [B, N, D]."""
+                           v_scale=None, window=None,
+                           logit_cap=None) -> torch.Tensor:
+    """Plain version of :func:`paged_flash_decode` and its INT8-KV, FP8-KV,
+    window and capped forms: keys at positions < kv_len (and >= kv_len -
+    window); q: [B, N, D] -> [B, N, D]."""
     _check_fp8_window(k_pool, window)
+    _check_cap("paged_flash_decode", k_pool, k_scale, logit_cap)
     if q.is_cuda:
         paged_flash_decode_ref.cuda_calls += 1
     return _attend_ref(q[:, None], k_pool, v_pool, tables, kv_lens, layer,
-                       sm_scale, k_scale, v_scale, window)[:, 0]
+                       sm_scale, k_scale, v_scale, window, logit_cap)[:, 0]
 
 
 paged_flash_decode_ref.cuda_calls = 0
@@ -191,12 +216,14 @@ paged_flash_decode_ref.cuda_calls = 0
 
 def paged_flash_verify_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
                            sm_scale: float | None = None, k_scale=None,
-                           v_scale=None, window=None) -> torch.Tensor:
+                           v_scale=None, window=None,
+                           logit_cap=None) -> torch.Tensor:
     """Plain version of :func:`paged_flash_verify` and its INT8-KV, FP8-KV
     and window forms, the gather + mask + reference attention of the JAX
     dispatcher's S > 1 branch (dispatch.py:239-269).
     q: [B, S, N, D] -> [B, S, N, D]."""
     _check_fp8_window(k_pool, window)
+    _check_cap("paged_flash_verify", k_pool, k_scale, logit_cap)
     if q.is_cuda:
         paged_flash_verify_ref.cuda_calls += 1
     return _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
@@ -208,39 +235,46 @@ paged_flash_verify_ref.cuda_calls = 0
 
 def paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer: int,
                        sm_scale: float | None = None, k_scale=None,
-                       v_scale=None, window=None) -> torch.Tensor:
+                       v_scale=None, window=None,
+                       logit_cap=None) -> torch.Tensor:
     """q: [B, N, D]; k/v_pool: stacked [L, P+1, kvN, ps, D] with an int
     ``layer`` (q's dtype, float8_e4m3fn for FP8 KV, or int8 with f32
     ``k_scale``/``v_scale`` [L, P+1, kvN, ps] for INT8 KV); tables:
     [B, MP] int32 (-1 = unmapped); kv_lens: [B] -> out [B, N, D] in q's
     dtype. Keys are positions < min(kv_len, MP*ps), and >= kv_len -
-    ``window`` with a sliding window. The launch counts as the form the
-    options and pools name (4, 4q, 4e, 4w, 4qw)."""
+    ``window`` with a sliding window; ``logit_cap`` > 0 soft-caps the
+    scores (pools of q's dtype). The launch counts as the form the
+    options and pools name (4, 4q, 4e, 4w, 4qw; a capped 4 or 4w in its
+    form's count)."""
     return _run("paged_flash_decode", q[:, None], k_pool, v_pool, k_scale,
-                v_scale, tables, kv_lens, layer, sm_scale, window)[:, 0]
+                v_scale, tables, kv_lens, layer, sm_scale, window,
+                logit_cap)[:, 0]
 
 
 def paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer: int,
                        sm_scale: float | None = None, k_scale=None,
-                       v_scale=None, window=None) -> torch.Tensor:
+                       v_scale=None, window=None,
+                       logit_cap=None) -> torch.Tensor:
     """Multi-row decode windows (the speculative verify step): q
     [B, S, N, D], where row s sits at position kv_len - S + s and attends
     the keys at positions <= that one, through the same page walk as
     :func:`paged_flash_decode` (KV traffic of one decode step). Pools,
     tables, scale pools and ``window`` as there; out [B, S, N, D] in q's
     dtype. The launch counts as the form the options and pools name (4v,
-    4vq, 4ve, 4vw, 4vqw)."""
+    4vq, 4ve, 4vw, 4vqw); a ``logit_cap`` raises (not ported)."""
     return _run("paged_flash_verify", q, k_pool, v_pool, k_scale, v_scale,
-                tables, kv_lens, layer, sm_scale, window)
+                tables, kv_lens, layer, sm_scale, window, logit_cap)
 
 
 def paged_flash_decode_window(q, k_pool, v_pool, tables, kv_lens,
                               layer: int, window: int,
-                              sm_scale: float | None = None) -> torch.Tensor:
+                              sm_scale: float | None = None,
+                              logit_cap=None) -> torch.Tensor:
     """4w: :func:`paged_flash_decode` over keys kv_len - window ..
-    kv_len - 1; no page below them is read."""
+    kv_len - 1; no page below them is read (4wc with a ``logit_cap``)."""
     return paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer,
-                              sm_scale, window=window_size(window))
+                              sm_scale, window=window_size(window),
+                              logit_cap=logit_cap)
 
 
 def paged_flash_decode_int8kv(q, k_pool, v_pool, k_scale, v_scale, tables,
@@ -332,7 +366,7 @@ for _f in _FORMS.values():
 
 
 def _run(name, q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
-         sm_scale, window):
+         sm_scale, window, logit_cap=None):
     """Every form's body on q [B, S, N, D]: the plain version for CPU
     tensors; for CUDA tensors the kernel, one launch added to the count
     of the form the options name (``name``, ``_int8kv`` with scale pools,
@@ -341,6 +375,8 @@ def _run(name, q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
         raise NotImplementedError("shared-KV pools (absorbed MLA)")
     quant = _check_scales(k_pool, v_pool, k_scale, v_scale)
     _check_fp8_window(k_pool, window)
+    _check_cap(name, k_pool, k_scale, logit_cap)
+    cap = cap_value(logit_cap)
     if window is not None:
         window = window_size(window)
     fp8 = k_pool.dtype == torch.float8_e4m3fn
@@ -349,16 +385,15 @@ def _run(name, q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
     cuda_build.check_head_dim(q.shape[-1], form.__name__, D256_FORMS)
     if not q.is_cuda:
         return _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer,
-                           sm_scale, k_scale, v_scale, window)
+                           sm_scale, k_scale, v_scale, window, cap)
     if quant:
         _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale)
     else:
         _check_float_pools(q, k_pool, v_pool)
     out = _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
-                  layer, sm_scale, window or 0, form.__name__)
+                  layer, sm_scale, window or 0, cap, form.__name__)
     form.launches += 1
-    if q.shape[-1] == 256:
-        D256_LAUNCHES[form.__name__] += 1
+    count_launch(form.__name__, q.shape[-1], cap, D256_LAUNCHES)
     return out
 
 
@@ -380,7 +415,7 @@ def _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale):
 
 
 def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
-            sm_scale, window: int, what):
+            sm_scale, window: int, cap, what):
     """The kernel on q [B, S, N, D] (S = 1: decode) -> [B, S, N, D]."""
     b, s, n, d = q.shape
     n_layers, p1, kvn, ps, pd = k_pool.shape
@@ -420,7 +455,7 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
         0 if v_scale is None else v_scale.data_ptr(),
         tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
         0 if part is None else part.data_ptr(), b, layer, p1, kvn, ps, mp,
-        n // kvn, s, d, window, splits, scale, code,
+        n // kvn, s, d, window, splits, scale, cap or 0.0, code,
         cuda_build.pool_code(k_pool.dtype),
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, rc, what)

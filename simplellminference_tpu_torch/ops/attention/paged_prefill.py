@@ -49,8 +49,13 @@ which keeps the grouped engine's ring pools right (a column below the
 band aliases the live page of a newer position). They are
 :func:`paged_flash_prefill_window` and
 :func:`paged_flash_prefill_int8kv_window`, each with its own launch count.
-Logit soft cap, sinks and shared-KV (absorbed MLA) pools are not ported
-yet and raise.
+
+Gemma-2's soft cap (``logit_cap``: cap * tanh(s * scale * (1 / cap))
+before the mask, paged_prefill.py:123-124) over pools of q's dtype, with
+or without a window (forms 8c, 8wc): a compile-time flag of the kernels;
+capped launches count in their form's ``launches`` and in
+:data:`~.flash_prefill.CAP_LAUNCHES`. The cap over INT8 or e4m3 pools,
+sinks and shared-KV (absorbed MLA) pools are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -61,16 +66,17 @@ from simplellminference_tpu_torch.memory.paged_kv import gather_dense
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
 from simplellminference_tpu_torch.ops.attention import prefill_tiles
 from simplellminference_tpu_torch.ops.attention.flash_prefill import (
-    heads_contiguous, window_size)
+    cap_value, count_launch, heads_contiguous, window_size)
 from simplellminference_tpu_torch.ops.attention.paged_decode import (
     _check_e4m3, _check_float_pools, band_tables)
 from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
 HEAD_DIMS = (32, 64, 128, 256)
-# the forms that take head_dim 256 (Gemma): pools of q's dtype, no
-# window; and their launches at that head dim (each also in ``launches``)
-D256_FORMS = ("paged_flash_prefill",)
-D256_LAUNCHES = {"paged_flash_prefill": 0}
+# the forms that take head_dim 256 (Gemma): pools of q's dtype, with or
+# without a window; and their launches at that head dim (each also in
+# ``launches``)
+D256_FORMS = ("paged_flash_prefill", "paged_flash_prefill_window")
+D256_LAUNCHES = {"paged_flash_prefill": 0, "paged_flash_prefill_window": 0}
 
 
 def _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
@@ -83,12 +89,14 @@ def _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
         window_size(window)
         if k_pool.dtype == torch.float8_e4m3fn:
             raise NotImplementedError("FP8 KV with sliding windows")
-    if logit_cap:
-        raise NotImplementedError("attention logit soft cap")
     if sinks is not None:
         raise NotImplementedError("attention sinks")
+    if cap_value(logit_cap) and k_pool.dtype == torch.float8_e4m3fn:
+        raise NotImplementedError("attention logit soft cap over FP8 KV")
     if k_scale is None and v_scale is None:
         return False
+    if cap_value(logit_cap):
+        raise NotImplementedError("attention logit soft cap over INT8 KV")
     check_scale_pools(k_pool, v_pool, k_scale, v_scale)
     return True
 
@@ -101,8 +109,8 @@ def paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
     the scale pools when given, then rounded to q's dtype as the kernel
     rounds), mask key_pos <= q_pos and key_pos < kv_len per element (and
     key_pos > q_pos - window with a sliding window, the pages wholly below
-    the band left ungathered), reference attention.
-    q: [B, Sq, N, D] -> [B, Sq, N, D]."""
+    the band left ungathered), reference attention, the scores capped by
+    ``logit_cap`` before the mask. q: [B, Sq, N, D] -> [B, Sq, N, D]."""
     quant = _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
                            v_scale)
     if q.is_cuda:
@@ -126,7 +134,8 @@ def paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
     if window is not None:
         mask = mask & (key_pos > q_pos[:, None, :, None] - int(window))
     return ref_ops.attention(q, ck.transpose(1, 2), cv.transpose(1, 2),
-                             mask, scale=sm_scale)
+                             mask, scale=sm_scale,
+                             logit_cap=cap_value(logit_cap))
 
 
 paged_flash_prefill_ref.cuda_calls = 0
@@ -143,11 +152,13 @@ def paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
     tables: [B, MP] int32 (-1 = unmapped); kv_lens: [B] valid tokens
     after the chunk's write; chunk_offset: [B] -> out [B, Sq, N, D] in q's
     dtype. Keys are positions < min(kv_len, MP*ps) up to each row's
-    position, and within ``window`` of it with a sliding window. The
+    position, and within ``window`` of it with a sliding window;
+    ``logit_cap`` > 0 soft-caps the scores (pools of q's dtype). The
     launch counts as the form the options and pools name (8, 8q, 8e, 8w,
-    8qw)."""
+    8qw; a capped 8 or 8w in its form's count)."""
     quant = _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
                            v_scale)
+    cap = cap_value(logit_cap)
     if window is not None:
         window = window_size(window)
     kind = ("int8kv" if quant else "fp8kv"
@@ -157,27 +168,31 @@ def paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
     if not q.is_cuda:
         return paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens,
                                        chunk_offset, layer, sm_scale,
-                                       window=window, k_scale=k_scale,
-                                       v_scale=v_scale)
+                                       window=window, logit_cap=cap,
+                                       k_scale=k_scale, v_scale=v_scale)
     if quant:
         _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale)
     else:
         _check_float_pools(q, k_pool, v_pool)
     out = _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
-                  chunk_offset, layer, sm_scale, window or 0, form.__name__)
+                  chunk_offset, layer, sm_scale, window or 0, cap,
+                  form.__name__)
     form.launches += 1
-    if q.shape[-1] == 256:
-        D256_LAUNCHES[form.__name__] += 1
+    count_launch(form.__name__, q.shape[-1], cap, D256_LAUNCHES)
     return out
 
 
 def paged_flash_prefill_window(q, k_pool, v_pool, tables, kv_lens,
                                chunk_offset, layer: int, window: int,
-                               sm_scale: float | None = None) -> torch.Tensor:
-    """8w: :func:`paged_flash_prefill` with a sliding window."""
+                               sm_scale: float | None = None,
+                               logit_cap: float | None = None
+                               ) -> torch.Tensor:
+    """8w: :func:`paged_flash_prefill` with a sliding window (8wc with a
+    ``logit_cap``)."""
     return paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens,
                                chunk_offset, layer, sm_scale,
-                               window=window_size(window))
+                               window=window_size(window),
+                               logit_cap=logit_cap)
 
 
 def paged_flash_prefill_int8kv(q, k_pool, v_pool, k_scale, v_scale, tables,
@@ -231,7 +246,7 @@ def _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale):
 
 
 def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
-            chunk_offset, layer, sm_scale, window: int, what):
+            chunk_offset, layer, sm_scale, window: int, cap, what):
     b, s, n, d = q.shape
     n_layers, p1, kvn, ps, pd = k_pool.shape
     if pd != d or v_pool.shape != k_pool.shape:
@@ -270,7 +285,8 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
         v_pool.data_ptr(), 0 if k_scale is None else k_scale.data_ptr(),
         0 if v_scale is None else v_scale.data_ptr(), tables.data_ptr(),
         kv_lens.data_ptr(), offs.data_ptr(), out.data_ptr(), b, s, n, layer,
-        p1, kvn, ps, tables.shape[1], n // kvn, d, window, scale, code,
+        p1, kvn, ps, tables.shape[1], n // kvn, d, window, scale,
+        cap or 0.0, code,
         cuda_build.pool_code(k_pool.dtype),
         0 if work is None else work.data_ptr(), splits,
         torch.cuda.current_stream(q.device).cuda_stream)

@@ -52,13 +52,13 @@ _SIGNATURES = {
                                        _L, _P, _I, _I, _I, _I, _I, _I, _I,
                                        _I, _I, _P],
     "sli_flash_prefill": [_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _L,
-                          _I, _I, _I, _I, _I, _I, _F, _I, _P, _I, _P],
+                          _I, _I, _I, _I, _I, _I, _F, _F, _I, _P, _I, _P],
     "sli_paged_flash_decode": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                               _F, _I, _I, _P],
+                               _F, _F, _I, _I, _P],
     "sli_paged_flash_prefill": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                _F, _I, _I, _P, _I, _P],
+                                _F, _F, _I, _I, _P, _I, _P],
     "sli_quantized_matmul": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P],
     "sli_quantized_matmul_mma": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -236,8 +236,9 @@ def pool_code(dtype) -> int:
 def check_head_dim(d: int, form: str, d256_forms) -> None:
     """Raise NotImplementedError for ``form`` at head_dim 256 unless it is
     one of ``d256_forms``: at Gemma's D the kernels take the forms over
-    bf16/f32 KV with no window and no verify rows; the INT8-KV, e4m3,
-    verify and window forms take D 32, 64 and 128. The wrappers call it
+    bf16/f32 KV with no verify rows (windows and the soft cap included);
+    the INT8-KV, e4m3 and verify forms take D 32, 64 and 128. The
+    wrappers call it
     for CPU and CUDA tensors alike, so a form outside the slice raises on
     both."""
     if d == 256 and form not in d256_forms:

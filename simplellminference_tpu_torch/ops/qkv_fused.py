@@ -82,11 +82,14 @@ from simplellminference_tpu_torch.ops.ref_ops import E4M3
 MAX_ROWS = 64
 HEAD_DIMS = (32, 64, 128, 256)
 # the forms that take head_dim 256 (Gemma): paged and dense over bf16/f32
-# KV, no kv_layer
-D256_FORMS = ("fused_qkv_append", "fused_qkv_append_dense")
+# KV, and the kv_layer form (6k: Gemma-2's ring pools) over bf16/f32 KV
+D256_FORMS = ("fused_qkv_append", "fused_qkv_append_dense",
+              "fused_qkv_append_kv_layer")
 # launches of each regime at head_dim 256, the forms together (each also
-# counts in QKV_REGIME_LAUNCHES)
+# counts in QKV_REGIME_LAUNCHES), and of the kv_layer form there (6k:
+# Gemma-2's grouped pools)
 D256_LAUNCHES = {"mma": 0, "fma": 0}
+D256_FORM_LAUNCHES = {"fused_qkv_append_kv_layer": 0}
 MMA_KT = 64               # K rows a stage of the tensor-core kernel
 MMA_COLS = 128            # qkv columns a block of it: whole heads
 MMA_MAX_TILES = 4096      # most column tiles (its arrival counters)
@@ -276,6 +279,8 @@ def fused_qkv_append_kv_layer(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
                 layer, int(kv_layer), offsets, n_heads, kv_heads, eps, tables,
                 "fused_qkv_append_kv_layer")
     fused_qkv_append_kv_layer.launches += 1
+    D256_FORM_LAUNCHES["fused_qkv_append_kv_layer"] += int(
+        pool_k.shape[-1] == 256)
     return q, pool_k, pool_v
 
 

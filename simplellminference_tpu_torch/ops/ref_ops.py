@@ -138,17 +138,23 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: torch.Tensor | None = None,
-              scale: float | None = None) -> torch.Tensor:
+              scale: float | None = None,
+              logit_cap: float | None = None) -> torch.Tensor:
     """Dense reference attention with fp32 softmax.
 
     q: [B, Sq, N, D]; k/v: [B, Sk, kvN, D]; mask: broadcastable to
-    [B, N, Sq, Sk] (True = attend; masked logits are -1e30)."""
+    [B, N, Sq, Sk] (True = attend; masked logits are -1e30).
+    ``logit_cap``: Gemma-2's score soft cap, cap * tanh(s / cap) on the
+    f32 scores after the scale and before the mask (ref_ops.py:336-338),
+    so a masked key still gets no weight."""
     n_rep = q.shape[2] // k.shape[2]
     k = repeat_kv(k, n_rep)
     v = repeat_kv(v, n_rep)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * scale
+    if logit_cap:
+        logits = logit_cap * torch.tanh(logits / logit_cap)
     if mask is not None:
         logits = torch.where(mask, logits,
                              torch.full((), NEG_INF, dtype=logits.dtype,

@@ -66,16 +66,28 @@ _UNMAPPED = [
     ("attn_sinks", "attention sinks (GPT-OSS)"),
     ("o_bias", "o_proj biases (GPT-OSS)"),
     ("mlp_bias", "FFN biases (Ernie-4.5)"),
-    ("sandwich_norms", "sandwich norms (Gemma-2/3, GLM-4)"),
+    ("sandwich_norms", "sandwich norms (Gemma-3, GLM-4)"),
 ]
+
+# Gemma-2's sandwich norms (weights.py:182-205): post_attention_layernorm
+# norms the attention OUTPUT, the pre-FFN norm (the post_norm role) loads
+# from pre_feedforward_layernorm
+_HF_GEMMA2_NORMS = {
+    "layers/post_attn_norm":
+        "model.layers.{i}.post_attention_layernorm.weight",
+    "layers/post_norm": "model.layers.{i}.pre_feedforward_layernorm.weight",
+    "layers/post_ffn_norm":
+        "model.layers.{i}.post_feedforward_layernorm.weight",
+}
 
 
 def llama_hf_param_map(cfg: ModelConfig) -> dict[str, Any]:
     """Param path -> HF tensor name(s) for the dense Llama graph (Llama,
-    Mistral and their like). The other families' names raise
-    NotImplementedError naming them."""
+    Mistral, Gemma, Gemma-2 and their like). The other families' names
+    raise NotImplementedError naming them."""
+    gemma2 = cfg.sandwich_norms and cfg.model_type == "gemma2"
     for field, name in _UNMAPPED:
-        if getattr(cfg, field):
+        if getattr(cfg, field) and not (field == "sandwich_norms" and gemma2):
             raise NotImplementedError(f"HF names of {name}")
     if cfg.model_type == "phi3":
         raise NotImplementedError("HF names of Phi-3's fused projections")
@@ -83,6 +95,8 @@ def llama_hf_param_map(cfg: ModelConfig) -> dict[str, Any]:
         raise NotImplementedError("HF names of post-norm-only blocks "
                                   "(OLMo-2)")
     m = dict(_HF_LLAMA_MAP)
+    if gemma2:
+        m.update(_HF_GEMMA2_NORMS)
     if cfg.tie_word_embeddings:
         m.pop("lm_head")
     return m

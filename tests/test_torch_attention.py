@@ -61,8 +61,19 @@ def test_flash_prefill_sm_scale_via_dispatch():
                              causal=True, interpret=True,
                              sm_scale=24.0 ** -0.5)
     close(got, want)
-    with pytest.raises(NotImplementedError):
-        dispatch.attention(ModelConfig.tiny_test(attn_logit_softcap=30.0),
+    # Gemma-2's soft cap goes through too (scores x3 so that it bites);
+    # sinks still raise
+    q3 = q * 3.0
+    got = dispatch.attention(
+        ModelConfig.tiny_test(query_pre_attn_scalar=24.0,
+                              attn_logit_softcap=2.0),
+        *(torch.from_numpy(a) for a in (q3, k, v)))
+    want = jax_flash_prefill(*(jnp.asarray(a) for a in (q3, k, v)),
+                             causal=True, interpret=True,
+                             sm_scale=24.0 ** -0.5, logit_cap=2.0)
+    close(got, want)
+    with pytest.raises(NotImplementedError, match="sinks"):
+        dispatch.attention(ModelConfig.tiny_test(attn_sinks=True),
                            *(torch.from_numpy(a) for a in (q, k, v)))
 
 

@@ -159,7 +159,7 @@ def test_check_supported_admits_gemma_and_refuses_the_rest():
     for kw, name in ((dict(hidden_act="swiglu_oss"), "swiglu_oss"),
                      (dict(logit_scale=0.5), "logit_scale"),
                      (dict(residual_scale=0.5), "residual_scale"),
-                     (dict(attn_logit_softcap=50.0), "soft cap")):
+                     (dict(qk_norm=True), "q/k RMSNorm")):
         with pytest.raises(NotImplementedError, match=name):
             tllama.check_supported(ModelConfig.gemma_2b(**kw))
 
@@ -533,8 +533,6 @@ def test_forms_outside_the_slice_raise_at_d256():
         "4q": lambda: tpd.paged_flash_decode(q1, qk, qv, tables, kv, 0,
                                              k_scale=ks, v_scale=vs),
         "4e": lambda: tpd.paged_flash_decode(q1, ek, ev, tables, kv, 0),
-        "4w": lambda: tpd.paged_flash_decode(q1, pk, pv, tables, kv, 0,
-                                             window=4),
         "4qw": lambda: tpd.paged_flash_decode(q1, qk, qv, tables, kv, 0,
                                               k_scale=ks, v_scale=vs,
                                               window=4),
@@ -548,17 +546,11 @@ def test_forms_outside_the_slice_raise_at_d256():
                                               0, k_scale=ks, v_scale=vs),
         "8e": lambda: tpp.paged_flash_prefill(q3, ek, ev, tables, kv, offs,
                                               0),
-        "8w": lambda: tpp.paged_flash_prefill(q3, pk, pv, tables, kv, offs,
-                                              0, window=4),
-        "3w": lambda: tfp.flash_prefill(q3, nk[:, :3], nk[:, :3], window=4),
         "6q": lambda: tqkv.fused_qkv_append(
             *qkv, qk, qv, 0, offs, n_heads=8, kv_heads=1, tables=tables,
             cache_ks=ks, cache_vs=vs),
         "6e": lambda: tqkv.fused_qkv_append(
             *qkv, ek, ev, 0, offs, n_heads=8, kv_heads=1, tables=tables),
-        "6k": lambda: tqkv.fused_qkv_append(
-            *qkv, pk, pv, 1, offs, n_heads=8, kv_heads=1, tables=tables,
-            kv_layer=0),
         "9": lambda: tpa.paged_append_decode_quant(
             qk, qv, ks, vs, nk[:, 0], nk[:, 0], tables, offs, 0),
         "10": lambda: tpa.paged_append_prefill_quant(qk, qv, ks, vs, nk, nk,
@@ -570,8 +562,17 @@ def test_forms_outside_the_slice_raise_at_d256():
     for form, call in calls.items():
         with pytest.raises(NotImplementedError, match="head_dim 256"):
             call()
-    # and the forms of the slice run at D 256 on the CPU
+    # and the forms of the slice run at D 256 on the CPU, since Gemma-2's
+    # slice the window forms 4w, 8w, 3w and 6k too
     assert tpd.paged_flash_decode(q1, pk, pv, tables, kv, 0).shape == (
         3, 8, D)
     tqkv.fused_qkv_append(*qkv, pk, pv, 0, offs, n_heads=8, kv_heads=1,
                           tables=tables)
+    assert tpd.paged_flash_decode(q1, pk, pv, tables, kv, 0,
+                                  window=4).shape == (3, 8, D)
+    assert tpp.paged_flash_prefill(q3, pk, pv, tables, kv, offs, 0,
+                                   window=4).shape == (3, 3, 8, D)
+    assert tfp.flash_prefill(q3, nk[:, :3], nk[:, :3],
+                             window=4).shape == (3, 3, 8, D)
+    tqkv.fused_qkv_append(*qkv, pk, pv, 1, offs, n_heads=8, kv_heads=1,
+                          tables=tables, kv_layer=0)

@@ -443,8 +443,15 @@ class _one_launch:
                                    for r, c in self.before.items()}
 
 
-def _check_qkv(cuda, g, xdt, pdt, n, kvn, d, pos, tables, h=512, ps=16):
+def _check_qkv(cuda, g, xdt, pdt, n, kvn, d, pos, tables, h=512, ps=16,
+               kv_layer=None):
+    """One fused qkv append (weights of layer 1; pools at layer 1, or at
+    ``kv_layer``: the form 6k) against its plain version."""
     L, b, mp = 2, tables.shape[0], tables.shape[1]
+    kli = 1 if kv_layer is None else kv_layer
+    form = (qf.fused_qkv_append if kv_layer is None
+            else qf.fused_qkv_append_kv_layer)
+    kw = {} if kv_layer is None else dict(kv_layer=kv_layer)
     nq = (n + 2 * kvn) * d
     wq, ws = _qw(g, cuda, (L, h, nq), 1)
     nw = torch.rand((L, h), generator=g, device=cuda).to(xdt) + 0.5
@@ -452,21 +459,24 @@ def _check_qkv(cuda, g, xdt, pdt, n, kvn, d, pos, tables, h=512, ps=16):
     sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
     pk, pv = _pools(g, cuda, pdt, b=b, kvn=kvn, ps=ps, d=d, mp=mp)
     a, r = (pk.clone(), pv.clone()), (pk.clone(), pv.clone())
-    before = qf.fused_qkv_append.launches
+    before = form.launches
     with _one_launch(qf.QKV_REGIME_LAUNCHES,
                      qf.qkv_regime(b, h, nq, d, xdt)):
         qa, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, *a, 1, pos,
-                                     n_heads=n, kv_heads=kvn, tables=tables)
-    assert qf.fused_qkv_append.launches == before + 1
+                                     n_heads=n, kv_heads=kvn, tables=tables,
+                                     **kw)
+    assert form.launches == before + 1
     qr, *_ = qf.fused_qkv_append_ref(x, nw, wq, ws, sin, cos, *r, 1, pos,
-                                     n_heads=n, kv_heads=kvn, tables=tables)
+                                     n_heads=n, kv_heads=kvn, tables=tables,
+                                     **kw)
     tol = 1e-5 if xdt == torch.float32 else 2e-2
     sd = float(qr.float().std())
     assert float((qa.float() - qr.float()).abs().max()) <= tol * sd
     written = torch.zeros(pk.shape, dtype=torch.bool, device=cuda)
     for i, p in enumerate(pos.tolist()):
         page = int(tables[i, p // ps])
-        written[1, page if page >= 0 else pk.shape[1] - 1, :, p % ps] = True
+        written[kli, page if page >= 0 else pk.shape[1] - 1, :,
+                p % ps] = True
     for x_a, x_r in zip(a, r):
         assert torch.equal(x_a[~written], x_r[~written])
         w_r = x_r[written].float()
@@ -2021,8 +2031,9 @@ def test_fused_qkv_append_dense_head_dim_256(cuda, xdt):
 
 
 def test_head_dim_256_forms_outside_the_slice_raise(cuda):
-    # the INT8-KV, e4m3, verify and window forms take D <= 128: at D 256
-    # each raises before a launch, naming the head dim and its form
+    # the INT8-KV, e4m3 and verify forms take D <= 128 (the window forms
+    # 3w, 4w, 8w and 6k run at D 256 since Gemma-2's slice): at D 256 each
+    # raises before a launch, naming the head dim and its form
     g = torch.Generator(device=cuda).manual_seed(0)
     bf, e4 = torch.bfloat16, torch.float8_e4m3fn
     pk, pv = _pools(g, cuda, bf, kvn=G_KVN, d=G_D)
@@ -2038,7 +2049,6 @@ def test_head_dim_256_forms_outside_the_slice_raise(cuda):
         lambda: pd.paged_flash_decode(q1, qk, qv, tables, kv, 0, k_scale=ks,
                                       v_scale=vs),
         lambda: pd.paged_flash_decode(q1, ek, ev, tables, kv, 0),
-        lambda: pd.paged_flash_decode(q1, pk, pv, tables, kv, 0, window=4),
         lambda: pd.paged_flash_verify(q3, pk, pv, tables, kv, 0),
         lambda: pd.paged_flash_verify(q3, qk, qv, tables, kv, 0, k_scale=ks,
                                       v_scale=vs),
@@ -2046,9 +2056,7 @@ def test_head_dim_256_forms_outside_the_slice_raise(cuda):
         lambda: pp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
                                        k_scale=ks, v_scale=vs),
         lambda: pp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0),
-        lambda: pp.paged_flash_prefill(q3, pk, pv, tables, kv, offs, 0,
-                                       window=4),
-        lambda: fp.flash_prefill(q3, nk[:, :3], nk[:, :3], window=4),
+        lambda: pd.paged_flash_verify(q3, pk, pv, tables, kv, 0, window=4),
         lambda: pa.paged_append_decode_quant(qk, qv, ks, vs, nk[:, 0],
                                              nk[:, 0], tables, offs, 0),
         lambda: pa.paged_append_prefill_quant(qk, qv, ks, vs, nk, nk,
@@ -2060,3 +2068,183 @@ def test_head_dim_256_forms_outside_the_slice_raise(cuda):
     for call in calls:
         with pytest.raises(NotImplementedError, match="head_dim 256"):
             call()
+
+
+# ------------------------------------- Gemma-2-2B: the soft cap, D-256 windows
+# Gemma-2-2B's attention: 8 q heads over 4 kv heads (GQA group 2), D 256,
+# query_pre_attn_scalar 256 (the D**-0.5 scale), attention soft cap 50,
+# window 4096 on the sliding layers. Scores x SCORE_X pass the cap.
+
+G2_N, G2_KVN, G2_CAP = 8, 4, 50.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 40], ids=["3c", "3wc"])
+@pytest.mark.parametrize("d,big", [(256, False), (256, True), (128, True)],
+                         ids=["d256", "d256-past-cap", "d128-past-cap"])
+def test_flash_prefill_softcap(cuda, dtype, window, d, big):
+    # bench.py's prefill at Gemma-2-2B (8 x 128) and a window whose tiles
+    # start off a multiple of 64; scores of ~1 (the cap barely bites) or
+    # ~100 (|s| past the cap)
+    g = torch.Generator(device=cuda).manual_seed(d + big + (window or 0))
+    b, s = (8, 128) if d == 256 else (3, 130)
+    q = torch.randn((b, s, G2_N, d), generator=g, device=cuda, dtype=dtype)
+    if big:
+        q = q * 100
+    k = torch.randn((b, s, G2_KVN, d), generator=g, device=cuda, dtype=dtype)
+    v = torch.randn((b, s, G2_KVN, d), generator=g, device=cuda, dtype=dtype)
+    form = fp.flash_prefill_window if window else fp.flash_prefill
+    before = form.launches, fp.CAP_LAUNCHES.get((form.__name__, d), 0)
+    got = fp.flash_prefill(q, k, v, window=window, logit_cap=G2_CAP)
+    assert (form.launches, fp.CAP_LAUNCHES[form.__name__, d]) == (
+        before[0] + 1, before[1] + 1)
+    want = fp.flash_prefill_ref(q, k, v, window=window, logit_cap=G2_CAP)
+    assert _attn_ok(got, want)
+    # past the cap the outputs move (the cap bites)
+    if big:
+        plain = fp.flash_prefill_ref(q, k, v, window=window)
+        assert float((plain.float() - got.float()).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 4096, 100],
+                         ids=["4c", "4wc", "4wc-100"])
+@pytest.mark.parametrize("d", [256, 128])
+def test_paged_flash_decode_softcap(cuda, dtype, window, d):
+    # Gemma-2's decode at the bench batch, kv_len 0 and 1, the window's
+    # edges (kv_len window, window + 1, a band starting inside a page)
+    # and past the cap; a dead slot
+    g = torch.Generator(device=cuda).manual_seed(d + (window or 1))
+    lens = [0, 1, 128, 4096, 4097, 4200, 4321, 3]
+    b, ps, mp = len(lens), 128, 35
+    pk, pv = _pools(g, cuda, dtype, b=b, kvn=G2_KVN, ps=ps, d=d, mp=mp)
+    q = torch.randn((b, G2_N, d), generator=g, device=cuda,
+                    dtype=dtype) * 60
+    tables = torch.randperm(b * mp, generator=g, device=cuda).to(
+        torch.int32).reshape(b, mp)
+    tables[-1] = -1
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    form = pd.paged_flash_decode_window if window else pd.paged_flash_decode
+    before = form.launches, fp.CAP_LAUNCHES.get((form.__name__, d), 0)
+    got = pd.paged_flash_decode(q, pk, pv, tables, kv, 1, window=window,
+                                logit_cap=G2_CAP)
+    assert (form.launches, fp.CAP_LAUNCHES[form.__name__, d]) == (
+        before[0] + 1, before[1] + 1)
+    want = pd.paged_flash_decode_ref(q, pk, pv, tables, kv, 1,
+                                     window=window, logit_cap=G2_CAP)
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
+    assert not got[0].any() and not got[-1].any()
+
+
+def test_paged_flash_decode_window_d256_reads_no_page_below_the_band(cuda):
+    # 4wc at D 256 over ring tables whose columns below the band point at
+    # NaN pages: finite, and equal to the clean tables' outputs
+    g = torch.Generator(device=cuda).manual_seed(4)
+    b, r, mp, ps, window = 2, 4, 12, 16, 40
+    pk, pv = _pools(g, cuda, torch.bfloat16, b=b, kvn=G2_KVN, ps=ps,
+                    d=G_D, mp=r + 2)
+    poison = torch.arange(b * r, b * r + 4, device=cuda)
+    pk[:, poison] = float("nan")
+    pv[:, poison] = float("nan")
+    ring = (torch.arange(b, device=cuda)[:, None] * r
+            + torch.arange(mp, device=cuda)[None] % r).to(torch.int32)
+    lens = torch.tensor([150, 171], dtype=torch.int32, device=cuda)
+    dirty = ring.clone()
+    for i in range(b):
+        below = (torch.arange(mp, device=cuda) + 1) * ps <= (
+            int(lens[i]) - window)
+        dirty[i, below] = poison[torch.arange(int(below.sum()),
+                                              device=cuda) % 4].to(
+            torch.int32)
+    q = torch.randn((b, G2_N, G_D), generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    clean = pd.paged_flash_decode(q, pk, pv, ring, lens, 1, window=window,
+                                  logit_cap=G2_CAP)
+    got = pd.paged_flash_decode(q, pk, pv, dirty, lens, 1, window=window,
+                                logit_cap=G2_CAP)
+    assert bool(torch.isfinite(clean).all()) and torch.equal(got, clean)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 4096, 70],
+                         ids=["8c", "8wc", "8wc-70"])
+@pytest.mark.parametrize("d,s", [(256, 256), (256, 37), (128, 64)])
+def test_paged_flash_prefill_softcap(cuda, dtype, window, d, s):
+    # 8c/8wc: Gemma-2's 256-row chunks past a window of 4096 (offset
+    # 4096), ragged offsets, an unmapped page inside kv_len, a padding row;
+    # scores past the cap
+    g = torch.Generator(device=cuda).manual_seed(d + s + (window or 0))
+    ps = 128
+    b, mp = 4, -(-(s + 4200) // ps)
+    pk, pv = _pools(g, cuda, dtype, b=b, kvn=G2_KVN, ps=ps, d=d, mp=mp)
+    q = torch.randn((b, s, G2_N, d), generator=g, device=cuda,
+                    dtype=dtype) * 60
+    tables = torch.randperm(b * mp, generator=g, device=cuda).to(
+        torch.int32).reshape(b, mp)
+    offs = torch.tensor([4096, 37, 512, 0], dtype=torch.int32, device=cuda)
+    kv = offs + torch.tensor([s, max(s - 5, 1), s, 1], dtype=torch.int32,
+                             device=cuda)
+    tables[2, 1] = -1
+    tables[3] = -1
+    form = (pp.paged_flash_prefill_window if window
+            else pp.paged_flash_prefill)
+    before = form.launches, fp.CAP_LAUNCHES.get((form.__name__, d), 0)
+    got = pp.paged_flash_prefill(q, pk, pv, tables, kv, offs, 1,
+                                 window=window, logit_cap=G2_CAP)
+    assert (form.launches, fp.CAP_LAUNCHES[form.__name__, d]) == (
+        before[0] + 1, before[1] + 1)
+    want = pp.paged_flash_prefill_ref(q, pk, pv, tables, kv, offs, 1,
+                                      window=window, logit_cap=G2_CAP)
+    assert bool(torch.isfinite(got).all())
+    assert _attn_ok(got, want)
+
+
+@pytest.mark.parametrize("xdt,pdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32)])
+@pytest.mark.parametrize("b", [1, 8])
+def test_fused_qkv_append_kv_layer_head_dim_256(cuda, xdt, pdt, b):
+    # 6k at Gemma-2-2B's shape (H 2304, 8 + 2 x 4 heads of 256: 4096 qkv
+    # columns): the weights of layer 1, k/v into the ring pools' layer 0;
+    # bf16 rows on 6m, f32 rows on the FMA kernel
+    g = torch.Generator(device=cuda).manual_seed(2304 + b)
+    pos = torch.tensor([5, 127, 128, 40, 300, 3, 255, 600][:b],
+                       dtype=torch.int32, device=cuda)
+    tables = torch.arange(b * 6, dtype=torch.int32,
+                          device=cuda).reshape(b, 6)
+    assert qf.qkv_regime(b, 2304, 4096, G_D, xdt) == (
+        "mma" if xdt == torch.bfloat16 else "fma")
+    _check_qkv(cuda, g, xdt, pdt, G2_N, G2_KVN, G_D, pos, tables, h=2304,
+               ps=128, kv_layer=0)
+
+
+def test_softcap_forms_outside_the_slice_raise(cuda):
+    # the cap over INT8 and e4m3 pools, on verify rows and on the dense
+    # arena raise before any launch
+    g = torch.Generator(device=cuda).manual_seed(1)
+    bf, e4 = torch.bfloat16, torch.float8_e4m3fn
+    pk, pv = _pools(g, cuda, bf, kvn=2, d=64)
+    qk, qv, ks, vs = _quant_pools(g, cuda, kvn=2, d=64)
+    ek, ev = pk.to(e4), pv.to(e4)
+    tables, kv = _tables(cuda), torch.tensor([5, 9, 0], dtype=torch.int32,
+                                             device=cuda)
+    q1 = torch.randn((3, 4, 64), generator=g, device=cuda, dtype=bf)
+    q3 = torch.randn((3, 3, 4, 64), generator=g, device=cuda, dtype=bf)
+    offs = torch.zeros(3, dtype=torch.int32, device=cuda)
+    cap = dict(logit_cap=G2_CAP)
+    calls = [
+        lambda: pd.paged_flash_decode(q1, qk, qv, tables, kv, 0, k_scale=ks,
+                                      v_scale=vs, **cap),
+        lambda: pd.paged_flash_decode(q1, ek, ev, tables, kv, 0, **cap),
+        lambda: pd.paged_flash_verify(q3, pk, pv, tables, kv, 0, **cap),
+        lambda: pp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
+                                       k_scale=ks, v_scale=vs, **cap),
+        lambda: pp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0,
+                                       **cap),
+    ]
+    before = (pd.paged_flash_decode_int8kv.launches,
+              pd.paged_flash_verify.launches, dict(fp.CAP_LAUNCHES))
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="soft cap"):
+            call()
+    assert before == (pd.paged_flash_decode_int8kv.launches,
+                      pd.paged_flash_verify.launches, dict(fp.CAP_LAUNCHES))

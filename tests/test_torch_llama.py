@@ -73,7 +73,8 @@ def test_init_params_layout_matches_jax(model):
 @pytest.mark.parametrize("override,feature", [
     (dict(num_experts=4), "mixture-of-experts"),
     (dict(attention_bias=True), "QKV bias"),
-    (dict(attn_logit_softcap=50.0), "soft cap"),
+    # Gemma-2's soft caps and sandwich norms run since its slice
+    (dict(attn_sinks=True), "sinks"),
     # GeGLU runs since Gemma's slice; GPT-OSS's clamped SwiGLU (MoE) not
     (dict(hidden_act="swiglu_oss"), "activation"),
 ])
