@@ -98,7 +98,16 @@ Phases, in order; any failure exits non-zero:
                 it), at window edges and kv_len 0, in f32 and at D 128,
                 each timed case beside scaled_dot_product_attention
                 without the cap; and 6k at D 256 (timed beside the FMA
-                kernel forced). Max
+                kernel forced). Then Gemma-2 on the dense arena and under
+                speculation: 13c/256 and 13wc/256 at `gemma2_dense`'s
+                decode (4 rows over an arena of 8192 slots, kv_len
+                4224-4288) and the draft's rollout, 13w at Mistral-7B's
+                decode (window 4096), kv_len 0, below the window, its
+                edges and past it, past the cap, f32 and D 128; the
+                verify forms at S 5: 4v/256 and 4vw/256 at Gemma-1's
+                group of 8 (two row blocks), 4vc/256 and 4vwc/256 at
+                Gemma-2-2B's and -9B's groups of 2 (the window over ring
+                tables, NaN pages below the band), D 128, f32. Max
                 |error| beside
                 its tolerance, kernel / plain / library times from
                 CUDA-graph replay, and the bound (the least time for the
@@ -152,7 +161,7 @@ Phases, in order; any failure exits non-zero:
                 --act-quant: the
                 prefix path's traffic, every prefill product of 128 rows
                 or more on the W8A8 kernel), each wave's TTFT beside the
-                `prefix` path's. Then `mistral_window`: Mistral-7B (32
+                `prefix` path's. Then `mistral_window`: Mistral-7B (8
                 layers, sliding_window 4096, bench.py's INT8 weights,
                 bf16 KV, prefill_chunk 256) in the grouped engine, 4
                 greedy prompts of 4224 tokens and 320 new ones (the ring
@@ -165,9 +174,10 @@ Phases, in order; any failure exits non-zero:
                 bf16 weights, the prefix path's traffic) and `spec_fp8kv`
                 (spec_tokens 4 over e4m3 pools, INT8 weights), each with
                 its exact launch counts. Depth cuts, to keep the run
-                within half its time limit: the spec paths at 8 layers,
-                `bf16`, `dense_bf16`, `int4`, `int4_dense` and `draft`'s
-                target at 16. Then,
+                within half its time limit: the spec paths at 4 layers,
+                `bf16`, `dense_bf16`, `int4`, `int4_dense`, `draft`'s
+                target, `mistral_window` and `gemma2_window` at 8,
+                `gemma2_draft`'s target at 14. Then,
                 Gemma-2B at full width and depth (18 layers, H 2048,
                 I 16384, V 256000, 8 heads over one kv head of 256,
                 GeGLU, the embedding scale, a tied bf16 head): `gemma`
@@ -182,11 +192,25 @@ Phases, in order; any failure exits non-zero:
                 sandwich norms, sliding and full layers alternating at
                 window 4096, a tied head) in the grouped engine: `gemma2`
                 (bench.py's shape with INT8 weights: 3c, 3wc, 6k, 4c, 4wc,
-                5r, 5m) and `gemma2_window` (bf16 weights, prefill_chunk
-                256, 4 x 4224-token prompts + 320 new ones: 8c, 8wc, 2,
-                1, 4c, 4wc; the window trims and the ring of 35 pages
-                wraps), each with its exact launch counts, graph-replayed
-                step beside its bytes floor, and idle share.
+                5r, 5m) and `gemma2_window` (8 layers, bf16 weights,
+                prefill_chunk 256, 4 x 4224-token prompts + 320 new ones:
+                8c, 8wc, 2, 1, 4c, 4wc; the window trims and the ring
+                of 35 pages wraps), each with its exact launch counts,
+                graph-replayed step beside its bytes floor, and idle
+                share. Then Gemma-2
+                on the dense arena and under speculation: `gemma2_dense`
+                (bench.py's Generator.generate_fused at Gemma-2-2B, INT8
+                weights, 4 x 4224-token prompts, max_seq 4608, 64 new
+                tokens: 12, 3c, 3wc, 6d (6m), 13c, 13wc, 5r, 5m; the
+                sliding layers' window trims from the first step),
+                `gemma2_spec` (the server CLI's --spec-tokens 4 at
+                Gemma-2-2B, bf16, the grouped engine, the `spec` traffic:
+                2, 3c, 3wc, 11, 4vc, 4vwc) and `gemma2_draft` (Gemma-2-9B
+                at its published width and 14 of its 42 layers,
+                google/gemma-2-9b's config.json in `GEMMA2_9B_HF`, bf16,
+                drafted by Gemma-2-2B at 26 layers, the `draft` traffic:
+                the rollout's 12, 13c, 13wc, 3c, 3wc, the target's 4vc,
+                4vwc), each with its exact launch counts.
   5. cpu      — the same port at Llama-2-7B width, 1 layer, f32, TF32 off,
                 on the card (kernels) and on the host CPU (plain
                 versions), from one draw of the weights (on the card,
@@ -226,7 +250,11 @@ Phases, in order; any failure exits non-zero:
                 steps and the prefix traffic, by the same rules; and
                 Gemma-2-2B at full width, 2 layers (a sliding and a full
                 one), f32 and INT8 weights, the sandwich norms drawn away
-                from ones, by the same rules.
+                from ones, by the same rules; and, the window cut to 32 so
+                that the prompts and steps pass it, the Generator, the
+                prompt-lookup spec Engine and the draft Engine (a
+                Gemma-2-9B-wide target of 2 layers drafted by that
+                Gemma-2-2B) on both devices.
 
 Then one line ``{"kernels": [...]}`` (each kernel's launches on every
 path, and in phase 3: kernels 16 and 17 run only there) and, last, the
@@ -479,6 +507,32 @@ KERNELS = {
     "fused_qkv_append_kv_layer_d256": dict(
         source="simplellminference_tpu_torch/csrc/qkv_fused_mma.cu",
         replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
+    # Gemma-2 on the dense arena and under speculation: the window form of
+    # kernel 13 (13w, every head dim; capped launches too), its capped
+    # forms at head_dim 256 (13c, 13wc), and the verify forms of kernel 4
+    # at head_dim 256 (4v, 4vw) and capped (4vc, 4vwc); each launch also
+    # counts in its form's row above
+    "flash_decode_window": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_decode.py:114"),
+    "flash_decode_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_decode.py:114"),
+    "flash_decode_window_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_decode.py:114"),
+    "paged_flash_verify_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    "paged_flash_verify_window_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    "paged_flash_verify_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    "paged_flash_verify_window_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
     # the last two TPU kernels, dispatched from no path (as in JAX)
     "fused_wo_ffn": dict(
         source="simplellminference_tpu_torch/csrc/wo_ffn.cu",
@@ -506,12 +560,15 @@ KERNELS = {
 # server serves it by default (bf16 weights, the prefix path's traffic);
 # then Gemma-2-2B (soft caps, sandwich norms, alternating sliding and full
 # layers at head_dim 256) as bench.py draws its INT8 path and, with bf16
-# weights and chunked prefill, over prompts past its window
+# weights and chunked prefill, over prompts past its window; then Gemma-2
+# on the dense arena and under speculation: bench.py's Generator over
+# prompts past the window (INT8 weights), the server CLI's --spec-tokens 4
+# (bf16) and Gemma-2-9B drafted by Gemma-2-2B (bf16)
 PATHS = ("int8", "bf16", "prefix", "int8kv", "int8kv_prefix", "spec",
          "spec_int8kv", "fp8kv", "fp8kv_prefix", "spec_fp8kv", "dense",
          "dense_bf16", "draft", "int4", "int4_dense", "w8a8",
          "mistral_window", "gemma", "gemma_prefix", "gemma2",
-         "gemma2_window")
+         "gemma2_window", "gemma2_dense", "gemma2_spec", "gemma2_draft")
 # google/gemma-2-2b's config.json (huggingface.co/google/gemma-2-2b), the
 # published values the Gemma-2 paths serve; its layer_types as
 # transformers.Gemma2Config derives them: sliding on even layers, full on
@@ -527,14 +584,31 @@ GEMMA2_2B_HF = dict(
     tie_word_embeddings=True)
 
 
-def gemma2_2b(num_layers: int = 26, dtype: str = "bfloat16"):
-    """Gemma-2-2B's ModelConfig from :data:`GEMMA2_2B_HF` through the
+# google/gemma-2-9b's config.json (huggingface.co/google/gemma-2-9b): the
+# target the `gemma2_draft` path serves, drafted by Gemma-2-2B
+GEMMA2_9B_HF = dict(
+    GEMMA2_2B_HF, hidden_size=3584, intermediate_size=14336,
+    num_hidden_layers=42, num_attention_heads=16, num_key_value_heads=8)
+
+
+def _gemma2(hf: dict, num_layers: int, dtype: str):
+    """A Gemma-2 ModelConfig from its config.json values through the
     port's ``from_hf_dict`` (depth ``num_layers``: the alternation kept)."""
     from simplellminference_tpu_torch.core.config import ModelConfig
-    d = dict(GEMMA2_2B_HF, num_hidden_layers=num_layers, layer_types=[
+    d = dict(hf, num_hidden_layers=num_layers, layer_types=[
         "sliding_attention" if i % 2 == 0 else "full_attention"
         for i in range(num_layers)])
     return ModelConfig.from_hf_dict(d, dtype=dtype)
+
+
+def gemma2_2b(num_layers: int = 26, dtype: str = "bfloat16"):
+    """Gemma-2-2B's ModelConfig from :data:`GEMMA2_2B_HF`."""
+    return _gemma2(GEMMA2_2B_HF, num_layers, dtype)
+
+
+def gemma2_9b(num_layers: int = 42, dtype: str = "bfloat16"):
+    """Gemma-2-9B's ModelConfig from :data:`GEMMA2_9B_HF`."""
+    return _gemma2(GEMMA2_9B_HF, num_layers, dtype)
 # every launch of phase 3, by kernel (filled by phase_kernels)
 phase3_launches: dict = {}
 
@@ -3863,9 +3937,9 @@ def check_head_dim_256(torch, dev, results, extra):
         "4q": lambda: pd.paged_flash_decode(q1, qk, qv, tables, kv_lens, 0,
                                             k_scale=sk, v_scale=sv),
         "4e": lambda: pd.paged_flash_decode(q1, ek, ev, tables, kv_lens, 0),
-        "4v": lambda: pd.paged_flash_verify(q3, pk, pv, tables, kv_lens, 0),
-        "4vw": lambda: pd.paged_flash_verify(q3, pk, pv, tables, kv_lens, 0,
-                                             window=4),
+        "4vq": lambda: pd.paged_flash_verify(q3, qk, qv, tables, kv_lens, 0,
+                                             k_scale=sk, v_scale=sv),
+        "4ve": lambda: pd.paged_flash_verify(q3, ek, ev, tables, kv_lens, 0),
         "8q": lambda: pp.paged_flash_prefill(q3, qk, qv, tables, kv_lens,
                                              zero, 0, k_scale=sk,
                                              v_scale=sv),
@@ -4239,6 +4313,238 @@ def check_gemma2(torch, dev, results, extra):
     torch.cuda.empty_cache()
 
 
+# Gemma-2 on the dense arena and under speculation: 13w, 13c, 13wc and the
+# verify forms at D 256 and capped. Gemma-2-9B (google/gemma-2-9b): 16 q
+# heads over 8 kv heads of 256, the same caps and window.
+GEMMA2_9B = dict(n=16, kvn=8, d=256)
+DENSE_SMAX = 8192      # between `gemma2_dense`'s arena (4608 slots) and
+                       # the Gemma-2-2B draft's (8320)
+
+
+def _verify_keys(lens, s, w):
+    """(keys the verify rows attend, K/V rows they need) over the
+    sequences' rows s' at positions kv_len - S + s': keys <= the position
+    and, with a window ``w``, > the position - w."""
+    keys = rows = 0
+    for ln in lens:
+        lo = max(0, ln - s - w + 1) if w else 0
+        rows += max(0, ln - lo)
+        for r in range(s):
+            p = ln - s + r
+            keys += max(0, p + 1 - (max(0, p - w + 1) if w else 0))
+    return keys, rows
+
+
+def check_gemma2_dense(torch, dev, results, extra):
+    """The dense arena's window and capped forms (13w, 13c, 13wc) and the
+    verify forms at D 256 and capped (4v/256, 4vw/256, 4vc, 4vwc) against
+    their plain versions by the rounding rule. 13c/256 and 13wc/256 at
+    `gemma2_dense`'s decode (4 rows, 8 q heads over 4 kv heads of 256, an
+    arena of 8192 slots, kv_len 4224-4288: the sliding layers' window
+    trims; the rows) and the draft's rollout (9 rows at kv_len ~150);
+    kv_len 0, 1, below the window, its edges, past it and the whole arena,
+    past the cap (q x 60), f32 and D 128; 13w at Mistral-7B's decode (32
+    over 8 heads of 128, window 4096; the row). The verify forms at S 5:
+    4v/256 and 4vw/256 at Gemma-1's group of 8 (40 rows: two row blocks;
+    the rows, and kv_len 4096), 4vc/256 at `gemma2_spec`'s verify step (8
+    rows at context ~150) and 4vwc/256 over the ring tables (R 35) at
+    kv_len 4224-4504, both at Gemma-2-2B's and Gemma-2-9B's groups of 2
+    (the rows: 2B's), window edges past the cap, f32, D 128; the ring
+    columns below the band on NaN pages, which no form may read. Each
+    timed case beside its plain version, its bytes bound and
+    scaled_dot_product_attention with the same mask (uncapped where the
+    form caps)."""
+    import torch.nn.functional as F
+
+    from simplellminference_tpu_torch.memory.paged_kv import gather_dense
+    from simplellminference_tpu_torch.ops.attention import flash_decode as fd
+    from simplellminference_tpu_torch.ops.attention import paged_decode as pd
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(3584)
+    bf, f32 = torch.bfloat16, torch.float32
+    cap, layer, ps = GEMMA2["cap"], 1, 128
+    g2 = (GEMMA2["n"], GEMMA2["kvn"], GEMMA2["d"])
+    g1 = (GEMMA["n"], GEMMA["kvn"], GEMMA["d"])
+    g9 = (GEMMA2_9B["n"], GEMMA2_9B["kvn"], GEMMA2_9B["d"])
+    mistral = (32, 8, 128)
+    uncapped = " (uncapped: the library computes no soft cap)"
+    dense_lens = [4224, 4245, 4266, 4288]
+    edges = [0, 1, 100, 4095, 4096, 4097, 4543, DENSE_SMAX]
+
+    # 13c, 13wc, 13w: tag -> (heads, window, cap, q scale, dtype, lens,
+    # kernels-line row if timed)
+    cases = {
+        "gemma-2-2b": (g2, None, cap, 1.0, bf, dense_lens,
+                       "flash_decode_cap_d256"),
+        "gemma-2-2b window": (g2, WINDOW, cap, 1.0, bf, dense_lens,
+                              "flash_decode_window_cap_d256"),
+        "gemma-2-2b draft rollout": (g2, WINDOW, cap, 1.0, bf,
+                                     [150 + 2 * i for i in range(8)] + [1],
+                                     "flash_decode_window_cap_d256"),
+        "mistral-7b window": (mistral, WINDOW, None, 1.0, bf,
+                              [4224 + 40 * i for i in range(8)],
+                              "flash_decode_window"),
+        "edges past the cap": (g2, None, cap, 60.0, bf, edges, None),
+        "window edges past the cap": (g2, WINDOW, cap, 60.0, bf, edges,
+                                      None),
+        "f32 window past the cap": (g2, WINDOW, cap, 60.0, f32,
+                                    [0, 7, 4097, 5000], None),
+        "d128 window past the cap": (mistral, WINDOW, cap, 60.0, bf,
+                                     [0, 150, 4097, 4543], None),
+    }
+    for tag, ((n, kvn, d), w, cp, qx, dtype, lens, row) in cases.items():
+        b = len(lens)
+        ck, cv = _arena(torch, gen, dev, 2, b + 1, kvn, DENSE_SMAX, d, dtype)
+        q = torch.randn((b, n, d), generator=gen, device=dev,
+                        dtype=dtype) * qx
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+        def run(q=q, ck=ck, cv=cv, kv=kv, w=w, cp=cp):
+            return fd.flash_decode(q, ck, cv, kv, layer=layer, window=w,
+                                   logit_cap=cp)
+
+        def plain(q=q, ck=ck, cv=cv, kv=kv, w=w, cp=cp):
+            return fd.flash_decode_ref(q, ck, cv, kv, layer=layer,
+                                       window=w, logit_cap=cp)
+
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = _attn_check(torch, "flash_decode", f"{tag} (B={b} N={n} "
+                          f"kvN={kvn} D={d} Smax={DENSE_SMAX} window={w} "
+                          f"cap {cp})", got, want,
+                          [i for i in range(b) if lens[i] == 0])
+        if row is None:
+            del ck, cv
+            continue
+        span = [min(ln, DENSE_SMAX) - (max(0, ln - w) if w else 0)
+                for ln in lens]
+        es = q.element_size()
+        bms, by = bound_ms(2 * b * n * d * es + 2 * sum(span) * kvn * d * es
+                           + b * 4, 4.0 * n * d * sum(span), "bfloat16")
+        top = max(lens)
+        k4 = _gqa(torch, ck[layer, :b, :, :top], n)
+        v4 = _gqa(torch, cv[layer, :b, :, :top], n)
+        key_pos = torch.arange(top, device=dev)[None, None, None, :]
+        mask = key_pos < kv.long()[:, None, None, None]
+        if w:
+            mask = mask & (key_pos >= kv.long()[:, None, None, None] - w)
+        res = dict(
+            max_abs_err=err, ms=time_ms(torch, run),
+            plain_ms=time_ms(torch, plain),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k4, v4, attn_mask=mask)),
+            bound_ms=bms, bound_by=by, library=LIBRARY[row])
+        if tag in ("gemma-2-2b", "gemma-2-2b window", "mistral-7b window"):
+            results[row] = res
+        else:
+            extra.append((row, tag, res))
+        del ck, cv, k4, v4
+
+    # the verify forms, S 5: tag -> (heads, window, cap, q scale, dtype,
+    # lens, kernels-line row if timed); a window over the ring tables
+    s_rows = 5
+    r_ring = (WINDOW + MISTRAL_CHUNK - 2) // ps + 2
+    spec_lens = [147 + 2 * i for i in range(8)]
+    long_lens = [4224 + 40 * i for i in range(8)]
+    cases = {
+        "gemma-1": (g1, None, None, 1.0, bf, spec_lens,
+                    "paged_flash_verify_d256"),
+        "gemma-1 window": (g1, WINDOW, None, 1.0, bf, long_lens,
+                           "paged_flash_verify_window_d256"),
+        "gemma-1 kv_len 4096": (g1, None, None, 1.0, bf, [4096] * 8,
+                                "paged_flash_verify_d256"),
+        "gemma-2-2b": (g2, None, cap, 1.0, bf, spec_lens,
+                       "paged_flash_verify_cap_d256"),
+        "gemma-2-2b window": (g2, WINDOW, cap, 1.0, bf, long_lens,
+                              "paged_flash_verify_window_cap_d256"),
+        "gemma-2-9b": (g9, None, cap, 1.0, bf, spec_lens,
+                       "paged_flash_verify_cap_d256"),
+        "gemma-2-9b window": (g9, WINDOW, cap, 1.0, bf, long_lens,
+                              "paged_flash_verify_window_cap_d256"),
+        "d128 past the cap": (mistral, None, cap, 60.0, bf, spec_lens,
+                              "paged_flash_verify"),
+        "d128 window past the cap": (mistral, WINDOW, cap, 60.0, bf,
+                                     [0, 150, 4097, 4543],
+                                     "paged_flash_verify_window"),
+        "gemma-1 f32": (g1, None, None, 1.0, f32, [0, 7, 129, 300], None),
+        "edges past the cap": (g2, None, cap, 60.0, bf,
+                               [0, 1, 3, 5, 4096, 4097, 4200, 300], None),
+        "window edges past the cap": (g2, WINDOW, cap, 60.0, bf,
+                                      [0, 1, 4096, 4097, 4100, 4479, 4480,
+                                       4543], None),
+        "f32 window past the cap": (g2, WINDOW, cap, 60.0, f32,
+                                    [0, 7, 4097, 4300], None),
+    }
+    for tag, ((n, kvn, d), w, cp, qx, dtype, lens, row) in cases.items():
+        b = len(lens)
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+        mp = -(-max(max(lens), 1) // ps)
+        if w is None:
+            pk, pv = _pools(torch, gen, dev, 2, b * mp, kvn, ps, d, dtype)
+            clean = _tables(torch, dev, b, mp, dead_last=False)
+            dirty = clean
+        else:
+            pk, pv = _ring_pools(torch, gen, dev, b, r_ring, kvn, ps, d,
+                                 dtype, False)
+            clean = _ring_tables(torch, dev, b, r_ring, mp)
+            dirty = _poisoned(torch, clean, kv - s_rows - w + 1, ps,
+                              b * r_ring)
+        q = torch.randn((b, s_rows, n, d), generator=gen, device=dev,
+                        dtype=dtype) * qx
+
+        def run(tb, q=q, pk=pk, pv=pv, kv=kv, w=w, cp=cp):
+            return pd.paged_flash_verify(q, pk, pv, tb, kv, layer, window=w,
+                                         logit_cap=cp)
+
+        def plain(q=q, pk=pk, pv=pv, clean=clean, kv=kv, w=w, cp=cp):
+            return pd.paged_flash_verify_ref(q, pk, pv, clean, kv, layer,
+                                             window=w, logit_cap=cp)
+
+        got, want = run(dirty), plain()
+        torch.cuda.synchronize()
+        err = _attn_check(torch, "paged_flash_verify", f"{tag} (B={b} S="
+                          f"{s_rows} N={n} kvN={kvn} D={d} window={w} cap "
+                          f"{cp})", got, want,
+                          [i for i in range(b) if lens[i] == 0])
+        same = bool(torch.equal(got, run(clean)))
+        require(same, f"paged_flash_verify {tag}: a page below the window "
+                f"band was read")
+        if row is None:
+            del pk, pv
+            continue
+        keys, kv_rows = _verify_keys(lens, s_rows, w)
+        es = q.element_size()
+        bms, by = bound_ms(2 * b * s_rows * n * d * es
+                           + 2 * kv_rows * kvn * d * es + clean.numel() * 4
+                           + b * 4, 4.0 * n * d * keys, "bfloat16")
+        ck, cv = gather_dense(pk[layer], pv[layer], clean)
+        ck, cv = _gqa(torch, ck, n), _gqa(torch, cv, n)
+        key_pos = torch.arange(ck.shape[2], device=dev)
+        q_pos = (kv.long()[:, None] - s_rows
+                 + torch.arange(s_rows, device=dev)[None])
+        mask = key_pos[None, None] <= q_pos[:, :, None]
+        if w:
+            mask = mask & (key_pos[None, None] > q_pos[:, :, None] - w)
+        mask = mask[:, None]
+        qt = q.transpose(1, 2)
+        res = dict(
+            max_abs_err=err, ms=time_ms(torch, lambda: run(clean)),
+            plain_ms=time_ms(torch, plain),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, ck, cv, attn_mask=mask)),
+            bound_ms=bms, bound_by=by,
+            library=LIBRARY[row] + (uncapped if cp and d != 256 else ""))
+        if tag in ("gemma-1", "gemma-1 window", "gemma-2-2b",
+                   "gemma-2-2b window"):
+            results[row] = res
+        else:
+            extra.append((row, tag, res))
+        del ck, cv, pk, pv
+    print(f"[kernels] gemma-2 dense and verify: the checks took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+
 LIBRARY = {"paged_append_decode": "index_put_ x2",
            "paged_append_prefill": "index_copy_ x2",
            "flash_prefill": "scaled_dot_product_attention, causal",
@@ -4363,6 +4669,29 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
                                                   "window mask (uncapped)",
            "fused_qkv_append_kv_layer_d256": "torch._weight_int8pack_mm of "
                                              "the qkv product alone",
+           "flash_decode_window": "scaled_dot_product_attention on the "
+                                  "arena slice (repeated per group), "
+                                  "window mask",
+           "flash_decode_cap_d256": "scaled_dot_product_attention on the "
+                                    "arena slice (repeated per group), "
+                                    "length mask (uncapped)",
+           "flash_decode_window_cap_d256": "scaled_dot_product_attention on "
+                                           "the arena slice (repeated per "
+                                           "group), window mask (uncapped)",
+           "paged_flash_verify_d256": "scaled_dot_product_attention on "
+                                      "gathered K/V (repeated per group), "
+                                      "verify mask",
+           "paged_flash_verify_window_d256": "scaled_dot_product_attention "
+                                             "on gathered ring K/V "
+                                             "(repeated per group), verify "
+                                             "and window mask",
+           "paged_flash_verify_cap_d256": "scaled_dot_product_attention on "
+                                          "gathered K/V (repeated per "
+                                          "group), verify mask (uncapped)",
+           "paged_flash_verify_window_cap_d256": "scaled_dot_product_"
+                                                 "attention on gathered ring "
+                                                 "K/V, verify and window "
+                                                 "mask (uncapped)",
            "fused_wo_ffn": "torch._weight_int8pack_mm x3 + eager rmsnorm "
                            "and SwiGLU",
            "flash_decode_dyn": "scaled_dot_product_attention on the arena "
@@ -4412,6 +4741,9 @@ def phase_kernels(torch, results):
     check_head_dim_256(torch, dev, results, extra)
     # Gemma-2-2B: the soft cap (3c, 3wc, 4c, 4wc, 8c, 8wc) and 6k at D 256
     check_gemma2(torch, dev, results, extra)
+    # Gemma-2 on the dense arena and under speculation: 13w, 13c, 13wc,
+    # 4v/256, 4vw/256, 4vc, 4vwc
+    check_gemma2_dense(torch, dev, results, extra)
     torch.cuda.empty_cache()
     # every launch of this phase (the checks, their timing): kernels 16
     # and 17 run on no path, as in the JAX package, so these are theirs
@@ -4531,13 +4863,18 @@ def regime_rows(want: dict, cfg) -> dict:
                     ("fused_qkv_append_mma_d256", "fused_qkv_append_mma"),
                     ("fused_qkv_append_d256", "fused_qkv_append_fma"),
                     ("fused_qkv_append_kv_layer_d256",
-                     "fused_qkv_append_kv_layer")):
+                     "fused_qkv_append_kv_layer"),
+                    ("paged_flash_verify_d256", "paged_flash_verify"),
+                    ("paged_flash_verify_window_d256",
+                     "paged_flash_verify_window")):
         out[row] = out[of] if d256 else 0
     # Gemma-2: every attention launch of a capped model is a capped one
     cap = d256 and bool(cfg.attn_logit_softcap)
     for form in ("flash_prefill", "flash_prefill_window",
                  "paged_flash_decode", "paged_flash_decode_window",
-                 "paged_flash_prefill", "paged_flash_prefill_window"):
+                 "paged_flash_prefill", "paged_flash_prefill_window",
+                 "flash_decode", "flash_decode_window",
+                 "paged_flash_verify", "paged_flash_verify_window"):
         out[f"{form}_cap_d256"] = out[form] if cap else 0
     return out
 
@@ -4621,6 +4958,8 @@ def _wrappers():
                                           pd.paged_flash_verify_ref),
             "kv_append": (ka.kv_append, ka.kv_append_ref),
             "flash_decode": (fd.flash_decode, fd.flash_decode_ref),
+            "flash_decode_window": (fd.flash_decode_window,
+                                    fd.flash_decode_ref),
             "fused_qkv_append_dense": (qf.fused_qkv_append_dense,
                                        qf.fused_qkv_append_ref),
             "quantized_matmul_int4": (mm.quantized_matmul_int4,
@@ -4696,7 +5035,17 @@ def _wrappers():
                    ("paged_flash_decode_window", pd.paged_flash_decode_ref),
                    ("paged_flash_prefill", pp.paged_flash_prefill_ref),
                    ("paged_flash_prefill_window",
-                    pp.paged_flash_prefill_ref))},
+                    pp.paged_flash_prefill_ref),
+                   ("flash_decode", fd.flash_decode_ref),
+                   ("flash_decode_window", fd.flash_decode_ref),
+                   ("paged_flash_verify", pd.paged_flash_verify_ref),
+                   ("paged_flash_verify_window",
+                    pd.paged_flash_verify_ref))},
+            **{f"{form}_d256": (
+                _Regime(getattr(pd, "D256_LAUNCHES", {}), form),
+                pd.paged_flash_verify_ref)
+               for form in ("paged_flash_verify",
+                            "paged_flash_verify_window")},
             "fused_qkv_append_kv_layer_d256": (
                 _Regime(getattr(qf, "D256_FORM_LAUNCHES", {}),
                         "fused_qkv_append_kv_layer"),
@@ -4867,6 +5216,13 @@ def path_launches(int8: bool, layers: int, dispatches, steps: int,
     return want
 
 
+def check_launches(path: str, got: dict, want: dict) -> None:
+    """Fail, naming every kernel whose count differs, unless each kernel's
+    launches in the run equal what the path implies."""
+    off = {name: (got[name], n) for name, n in want.items() if got[name] != n}
+    require(not off, f"[{path}] launches (got, path implies): {off}")
+
+
 def read_counts(path: str) -> dict:
     """Every kernel's launch count since :func:`reset_counts`; fails if a
     plain version ran on the card."""
@@ -4897,7 +5253,9 @@ def windowed(want: dict, cfg) -> dict:
     share = sum(w is not None for w in cfg.layer_windows) / cfg.num_layers
     ren = {"flash_prefill": "flash_prefill_window",
            "paged_flash_prefill": "paged_flash_prefill_window",
-           "paged_flash_decode": "paged_flash_decode_window"}
+           "paged_flash_decode": "paged_flash_decode_window",
+           "paged_flash_verify": "paged_flash_verify_window",
+           "flash_decode": "flash_decode_window"}
     out = {name: 0 for name in KERNELS}
     for name, n in want.items():
         if name == "fused_qkv_append":
@@ -4972,9 +5330,7 @@ def serve_path(torch, path: str, cfg, params, launches: dict, int8: bool,
     if eng._grouped:
         want = windowed(want, cfg)
     want = regime_rows(want, cfg)
-    for name, n in want.items():
-        require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
-                f"path implies {n}")
+    check_launches(path, got, want)
     # decode rate by differencing full and half-length runs (bench.py's
     # method): fresh-engine runs, interleaved, the rate from the medians
     # and its spread from each adjacent (full, half) pair
@@ -5181,9 +5537,7 @@ def serve_prefix(torch, path: str, cfg, params, launches: dict, int8: bool,
                          m.decode_bursts * burst, kv_dtype=kv_dtype,
                          act_quant=cfg.act_quant == "int8", cfg=cfg)
     want = regime_rows(want, cfg)
-    for name, n in want.items():
-        require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
-                f"path implies {n}")
+    check_launches(path, got, want)
     ttft = [r.ttft for r in reqs[2]]
     wave_ttft = [max(r.ttft for r in w) * 1e3 for w in reqs]
     print(f"[engine:{path}] {2 * batch} requests ({system_len}-token system "
@@ -5393,10 +5747,10 @@ def serve_spec(torch, path: str, cfg, params, launches: dict, int8: bool,
     require(m.prefills == batch and m.spec_steps > 0,
             f"[{path}] metrics {m.summary()}")
     want = spec_launches(int8, layers, m.decode_bursts * burst, kv_dtype)
+    if eng._grouped:
+        want = windowed(want, cfg)
     want = regime_rows(want, cfg)
-    for name, n in want.items():
-        require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
-                f"path implies {n}")
+    check_launches(path, got, want)
     accept = m.spec_accepted / m.spec_steps / g
     outs = [r.output_ids for r in reqs]
     plain_eng, plain_reqs, plain_wall = serve(0, new)
@@ -5432,6 +5786,8 @@ def serve_spec(torch, path: str, cfg, params, launches: dict, int8: bool,
     mp = 4
     tables = torch.arange(batch * mp, dtype=torch.int32,
                           device=dev).reshape(batch, mp)
+    if eng._grouped:
+        tables = (tables, eng._ring_table(mp))
     times = {}
     for s in (g + 1, 1):
         tok = torch.ones((batch, s), dtype=torch.int32, device=dev)
@@ -5449,7 +5805,7 @@ def serve_spec(torch, path: str, cfg, params, launches: dict, int8: bool,
 
 
 def dense_launches(int8: bool, layers: int, steps: int,
-                   int4=None) -> dict:
+                   int4=None, cfg=None) -> dict:
     """Launches of one ``generate_fused`` call of the dense paths: the
     8 x 128-row prefill (per layer ``kv_append`` at S = 128 and causal
     ``flash_prefill``; with INT8 weights 4 ``quantized_matmul`` per layer
@@ -5461,7 +5817,12 @@ def dense_launches(int8: bool, layers: int, steps: int,
     ``int4`` (the model config of INT4 weights) every product of the
     prefill and of each step (4 a layer and the head) is an INT4 kernel
     launch, each also in its tensor-core regime's row (the prefill's 1024
-    rows, the head and every step at 8), K/V written as with bf16."""
+    rows, the head and every step at 8), K/V written as with bf16. ``cfg``
+    (the model's config, when not Llama's): a tied head (Gemma) is a bf16
+    torch.matmul, no launch; a GeGLU FFN takes no fused_ffn but two
+    quantized_matmul a layer."""
+    head = int(cfg is None or not cfg.tie_word_embeddings)
+    glu = cfg is None or cfg.hidden_act == "silu"   # the fused FFN's gate
     want = {name: 0 for name in KERNELS}
     want["kv_append"] += layers
     want["flash_prefill"] += layers
@@ -5473,31 +5834,36 @@ def dense_launches(int8: bool, layers: int, steps: int,
                 want[name] += c * times
         want["kv_append"] += layers * steps
     elif int8:
-        want["quantized_matmul"] += 4 * layers + 1 + (layers + 1) * steps
+        want["quantized_matmul"] += 4 * layers + head + (
+            layers * (1 if glu else 3) + head) * steps
         want["quantized_matmul_mma"] += 4 * layers
         want["fused_qkv_append_dense"] += layers * steps
-        want["fused_ffn"] += layers * steps
+        want["fused_ffn"] += layers * steps * glu
     else:
         want["kv_append"] += layers * steps
     return want
 
 
 def serve_dense(torch, path: str, cfg, params, launches: dict, int8: bool,
-                dev: str = "cuda", int4: bool = False):
-    """bench.py's Generator (bench.py:208-239): max_batch 8, max_seq 1024,
-    bf16 KV, ``generate_fused`` on 8 fresh 128-token prompts. The launch
-    counts of one 64-token call (reset before, read after); the same call
-    of the device part under ``torch.cuda.set_sync_debug_mode("error")``
-    (any host sync inside it raises); ``fused_decode_toks_s`` by bench.py's
-    differencing (the fastest of three 64- and of three 32-token calls);
-    one graph-replayed decode step beside its bytes floor."""
+                dev: str = "cuda", int4: bool = False, batch: int = 8,
+                prompt_len: int = 128, max_seq: int = 1024):
+    """bench.py's Generator (bench.py:208-239): bf16 KV, ``generate_fused``
+    on ``batch`` fresh ``prompt_len``-token prompts (max_seq 1024, 8 x 128
+    at bench.py's shape). The launch counts of one 64-token call (reset
+    before, read after); the same call of the device part under
+    ``torch.cuda.set_sync_debug_mode("error")`` (any host sync inside it
+    raises); ``fused_decode_toks_s`` by bench.py's differencing (the
+    fastest of three 64- and of three 32-token calls); one graph-replayed
+    decode step beside its bytes floor. A sliding-window model's layers
+    take the window forms (3w, 13w) and their bytes floor reads at most
+    the window's keys."""
     import numpy as np
 
     from simplellminference_tpu_torch.runtime.generator import Generator
 
-    batch, prompt_len, steps = 8, 128, 64
+    steps = 64
     half = steps // 2
-    gen = Generator(cfg, params, max_batch=batch, max_seq=1024,
+    gen = Generator(cfg, params, max_batch=batch, max_seq=max_seq,
                     kv_dtype=torch.bfloat16, device=dev)
     rng = np.random.default_rng(0)
 
@@ -5524,11 +5890,11 @@ def serve_dense(torch, path: str, cfg, params, launches: dict, int8: bool,
     got = read_counts(path)
     launches[path] = got
     want = dense_launches(int8, cfg.num_layers, steps,
-                          int4=cfg if int4 else None)
+                          int4=cfg if int4 else None, cfg=cfg)
+    if any(w is not None for w in cfg.layer_windows):
+        want = windowed(want, cfg)
     want = regime_rows(want, cfg)
-    for name, n in want.items():
-        require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
-                f"path implies {n}")
+    check_launches(path, got, want)
     tokens, lens = gen._bucket(prompts())
     tokens, lens = gen._tensor(tokens), gen._tensor(lens)
     torch.cuda.synchronize()
@@ -5562,10 +5928,12 @@ def serve_dense(torch, path: str, cfg, params, launches: dict, int8: bool,
     step_ms = time_ms(torch, lambda: gen._decode_fn(tok, pos, cache),
                       iters=5)
     wbytes = step_weight_bytes(params, batch)
-    kvb = kv_bytes(cfg.num_layers, batch * ctx, cfg.num_kv_heads,
-                   cfg.head_dim, "bf16")
+    kvb = kv_bytes(1, batch * sum(min(ctx, w or ctx)
+                                  for w in cfg.layer_windows),
+                   cfg.num_kv_heads, cfg.head_dim, "bf16")
     floor_ms = (wbytes + kvb) / HBM_BYTES_PER_S * 1e3
-    print(f"[engine:{path}] decode step: loop {step_wall:.3f} ms, device "
+    print(f"[engine:{path}] decode step at context {ctx}: loop "
+          f"{step_wall:.3f} ms, device "
           f"(graph replay) {step_ms:.3f} ms, bytes floor {floor_ms:.3f} ms "
           f"({wbytes / 1e9:.3f} GB weights + {kvb / 1e9:.3f} GB KV); device "
           f"idle share of the loop step "
@@ -5574,17 +5942,18 @@ def serve_dense(torch, path: str, cfg, params, launches: dict, int8: bool,
 
 
 def serve_draft(torch, path: str, cfg, params, launches: dict,
-                dev: str = "cuda"):
-    """Draft-model speculation (``Engine(draft=...)``): Llama-2-7B bf16
-    weights and KV (the `spec` path's engine: the server CLI's
-    configuration with --spec-tokens 4, burst 4) drafted by TinyLlama-1.1B
-    at full width (22 layers, bf16, random weights from a seed), the
-    `spec` traffic (8 greedy requests of 128-token prompts, 64 new tokens).
-    The measured run's launch counts (reset before, read after), its
-    draft arena against the shape phase 3 checks the kernels at, the
-    acceptance, decode tok/s with and without the draft (spec_tokens 0)
-    by differencing the measured 64-token run and the 64-token run
-    without the draft against one 32-token run each, and one
+                dev: str = "cuda", draft_cfg=None, draft_name=None):
+    """Draft-model speculation (``Engine(draft=...)``): the target ``cfg``
+    (Llama-2-7B; Gemma-2-9B) with bf16 weights and KV (the `spec` path's
+    engine: the server CLI's configuration with --spec-tokens 4, burst 4;
+    a sliding-window target runs grouped) drafted by ``draft_cfg`` (default
+    TinyLlama-1.1B) at full width and depth (bf16, random weights from a
+    seed), the `spec` traffic (8 greedy requests of 128-token prompts, 64
+    new tokens). The measured run's launch counts (reset before, read
+    after), TinyLlama's draft arena against the shape phase 3 checks the
+    kernels at, the acceptance, decode tok/s with and without the draft
+    (spec_tokens 0) by differencing the measured 64-token run and the
+    64-token run without the draft against one 32-token run each, and one
     graph-replayed draft rollout (G + 1 steps over B + 1 rows) beside one
     verify step."""
     import numpy as np
@@ -5596,7 +5965,8 @@ def serve_draft(torch, path: str, cfg, params, launches: dict,
 
     layers, g = cfg.num_layers, DRAFT_TOKENS
     batch, prompt_len, new, burst = 8, 128, 64, 4
-    dcfg = ModelConfig.tinyllama_1_1b(dtype="bfloat16")
+    dcfg = draft_cfg or ModelConfig.tinyllama_1_1b(dtype="bfloat16")
+    draft_name = draft_name or "TinyLlama-1.1B"
     require(dcfg.vocab_size == cfg.vocab_size, "draft vocab")
     dparams = llama.init_params(dcfg, seed=1, device=dev)
     prompts = spec_prompts(np.random.default_rng(3), cfg.vocab_size, batch,
@@ -5628,33 +5998,38 @@ def serve_draft(torch, path: str, cfg, params, launches: dict,
                 f"{len(r.output_ids)} tokens")
     require(m.prefills == batch and m.spec_steps > 0,
             f"[{path}] metrics {m.summary()}")
-    dl, dslots = draft_arena_shape()
-    arena = (dl, batch + 1, dcfg.num_kv_heads, dslots, dcfg.head_dim)
-    require(tuple(eng._dcache.k.shape) == arena,
-            f"[{path}] draft arena {tuple(eng._dcache.k.shape)}, phase 3 "
-            f"checks {arena}")
+    if draft_cfg is None:
+        dl, dslots = draft_arena_shape()
+        arena = (dl, batch + 1, dcfg.num_kv_heads, dslots, dcfg.head_dim)
+        require(tuple(eng._dcache.k.shape) == arena,
+                f"[{path}] draft arena {tuple(eng._dcache.k.shape)}, phase "
+                f"3 checks {arena}")
     steps = m.decode_bursts * burst
     dl = dcfg.num_layers
     want = spec_launches(False, layers, steps)
     # the draft: one prefill dispatch of the 8 admits (kv_append at S =
     # 128, flash_prefill), then G + 1 rollout steps per verify step
-    want["kv_append"] += dl + (g + 1) * dl * steps
-    want["flash_prefill"] += dl
-    want["flash_decode"] += (g + 1) * dl * steps
-    want = regime_rows(want, cfg)
-    for name, n in want.items():
-        require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
-                f"path implies {n}")
+    dwant = {name: 0 for name in KERNELS}
+    dwant["kv_append"] += dl + (g + 1) * dl * steps
+    dwant["flash_prefill"] += dl
+    dwant["flash_decode"] += (g + 1) * dl * steps
+    # each model's sliding layers take the window forms
+    if eng._grouped:
+        want = windowed(want, cfg)
+    if any(w is not None for w in dcfg.layer_windows):
+        dwant = windowed(dwant, dcfg)
+    want = regime_rows({k: n + dwant[k] for k, n in want.items()}, cfg)
+    check_launches(path, got, want)
     accept = m.spec_accepted / m.spec_steps / g
     outs = [r.output_ids for r in reqs]
     plain_eng, plain_reqs, plain_wall = serve(0, new)
     same = sum(a == r.output_ids for a, r in zip(outs, plain_reqs))
     print(f"[engine:{path}] {batch} requests x {new} tokens, spec_tokens {g}"
-          f" drafted by TinyLlama-1.1B ({dl} layers, bf16, random weights), "
+          f" drafted by {draft_name} ({dl} layers, bf16, random weights), "
           f"burst {burst}: wall {wall:.3f} s, {m.decode_bursts} bursts; "
           f"spec_steps {m.spec_steps}, spec_accepted {m.spec_accepted}: "
-          f"acceptance {accept} of the drafts (random weights: the draft "
-          f"does not predict the target); spec_tokens=0 wall "
+          f"acceptance {accept} of the drafts (random weights); "
+          f"spec_tokens=0 wall "
           f"{plain_wall:.3f} s; greedy outputs equal to spec_tokens=0 in "
           f"{same} of {batch}", flush=True)
     print(f"[engine:{path}] launches {json.dumps(got)}", flush=True)
@@ -5677,6 +6052,8 @@ def serve_draft(torch, path: str, cfg, params, launches: dict,
     mp = 4
     tables = torch.arange(batch * mp, dtype=torch.int32,
                           device=dev).reshape(batch, mp)
+    if eng._grouped:
+        tables = (tables, eng._ring_table(mp))
     vtok = torch.ones((batch, g + 1), dtype=torch.int32, device=dev)
     vpos = (pos[:, None] + torch.arange(g + 1, dtype=torch.int32,
                                         device=dev)[None]).contiguous()
@@ -5759,9 +6136,7 @@ def serve_mistral_window(torch, path: str, cfg, params, launches: dict,
         [("paged_flash_prefill", MISTRAL_CHUNK)] * (batch * chunks), steps,
         cfg=cfg), cfg)
     want = regime_rows(want, cfg)
-    for name, n in want.items():
-        require(got[name] == n, f"[{path}] {name}: {got[name]} launches, "
-                f"path implies {n}")
+    check_launches(path, got, want)
     print(f"[engine:{path}] {_width(cfg)} ({cfg.num_layers} layers, "
           f"{n_w} of them sliding, window {WINDOW}): {batch} requests x "
           f"{prompt_len} prompt tokens ({chunks} chunks of {MISTRAL_CHUNK} "
@@ -5832,13 +6207,18 @@ PATH_SETUP = {"int8": ("int8", "bf16", False), "bf16": ("bf16", "bf16", False),
               "gemma": ("int8", "bf16", False),
               "gemma_prefix": ("bf16", "bf16", True),
               "gemma2": ("int8", "bf16", False),
-              "gemma2_window": ("bf16", "bf16", False)}
-# earlier Llama-2-7B paths cut in depth to keep the run within half its
-# time limit (their launch counts follow the cut: every count is per
-# layer); `int8`, the prefix and KV paths keep the model's 32 layers,
-# Mistral-7B and the Gemma paths their models' full depth
-PATH_LAYERS = {"spec": 8, "spec_int8kv": 8, "spec_fp8kv": 8, "draft": 16,
-               "int4_dense": 16, "bf16": 16, "dense_bf16": 16, "int4": 16}
+              "gemma2_window": ("bf16", "bf16", False),
+              "gemma2_dense": ("int8", "bf16", False),
+              "gemma2_spec": ("bf16", "bf16", False),
+              "gemma2_draft": ("bf16", "bf16", False)}
+# paths cut in depth to keep the run within half its time limit (their
+# launch counts follow the cut: every count is per layer; a Gemma-2 cut
+# keeps the sliding/full alternation): `int8`, the prefix and KV paths
+# keep Llama-2-7B's 32 layers, `gemma`, `gemma_prefix`, `gemma2`,
+# `gemma2_dense` and `gemma2_spec` their models' full depth
+PATH_LAYERS = {"spec": 4, "spec_int8kv": 4, "spec_fp8kv": 4, "draft": 8,
+               "int4_dense": 8, "bf16": 8, "dense_bf16": 8, "int4": 8,
+               "mistral_window": 8, "gemma2_window": 8, "gemma2_draft": 14}
 
 
 def phase_engine(torch, launches: dict, paths=PATHS):
@@ -5860,14 +6240,17 @@ def phase_engine(torch, launches: dict, paths=PATHS):
         cfg = dataclasses.replace(full, num_layers=PATH_LAYERS.get(
             path, full.num_layers))
         if path == "mistral_window":
-            cfg = ModelConfig.mistral_7b(sliding_window=WINDOW,
-                                         dtype="bfloat16")
+            cfg = ModelConfig.mistral_7b(
+                sliding_window=WINDOW, dtype="bfloat16",
+                num_layers=PATH_LAYERS.get(path, 32))
             drawn = None
         if path in ("gemma", "gemma_prefix"):
             cfg = ModelConfig.gemma_2b(dtype="bfloat16")
             drawn = None
         if path.startswith("gemma2"):
-            cfg = gemma2_2b()
+            cfg = (gemma2_9b(PATH_LAYERS.get(path, 42))
+                   if path == "gemma2_draft"
+                   else gemma2_2b(PATH_LAYERS.get(path, 26)))
             drawn = None
         t0 = time.perf_counter()
         if (weights, cfg.num_layers) != drawn or weights != "int4":
@@ -5895,9 +6278,17 @@ def phase_engine(torch, launches: dict, paths=PATHS):
         elif path.startswith("dense") or path == "int4_dense":
             serve_dense(torch, path, cfg, params, launches, int8,
                         int4=weights == "int4")
+        elif path == "gemma2_dense":
+            # bench.py's fused loop over 4 prompts past the window: the
+            # sliding layers' 13wc trims from the first step
+            serve_dense(torch, path, cfg, params, launches, int8, batch=4,
+                        prompt_len=4224, max_seq=4608)
         elif path == "draft":
             serve_draft(torch, path, cfg, params, launches)
-        elif path.startswith("spec"):
+        elif path == "gemma2_draft":
+            serve_draft(torch, path, cfg, params, launches,
+                        draft_cfg=gemma2_2b(), draft_name="Gemma-2-2B")
+        elif path.startswith("spec") or path == "gemma2_spec":
             serve_spec(torch, path, cfg, params, launches, int8, kv_dtype)
         elif prefix:
             ttft[path] = serve_prefix(torch, path, cfg, params, launches,
@@ -6217,6 +6608,8 @@ def card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps,
 
 def _width(cfg) -> str:
     """The model whose widths a check runs at, for its lines."""
+    if cfg.model_type == "gemma2" and cfg.hidden_size == 3584:
+        return "Gemma-2-9B width"
     return {"gemma": "Gemma-2B width", "gemma2": "Gemma-2-2B width",
             "mistral": "Mistral-7B width"}.get(cfg.model_type,
                                                  "Llama-2-7B width")
@@ -6367,7 +6760,7 @@ def spec_card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, kv_dtype="f32",
         require(metrics["cuda"] == metrics["cpu"],
                 f"[{tag}] spec_steps/spec_accepted card {metrics['cuda']}, "
                 f"cpu {metrics['cpu']}")
-    print(f"[cpu:{tag}] Llama-2-7B width, {cfg.num_layers} layers, f32, "
+    print(f"[cpu:{tag}] {_width(cfg)}, {cfg.num_layers} layers, f32, "
           f"{kv_dtype} KV, "
           f"spec_tokens 4: {len(prompts)} requests x {new} tokens on card "
           f"and CPU in {time.perf_counter() - t0:.1f} s; (spec_steps, "
@@ -6417,7 +6810,7 @@ def dense_card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps):
             for what, got in zip(("generate", "generate_fused"), outs[dev]):
                 _first_divergence(torch, tag, f"{dev} {what} and the CPU "
                                   f"trace", got[r], ref, lg_c, r)
-    print(f"[cpu:{tag}] Generator, Llama-2-7B width, {cfg.num_layers} "
+    print(f"[cpu:{tag}] Generator, {_width(cfg)}, {cfg.num_layers} "
           f"layers, f32: "
           f"{len(prompts)} requests, prefill + {steps} steps on card and CPU "
           f"in {time.perf_counter() - t0:.1f} s; logits max|card - cpu| "
@@ -6426,11 +6819,12 @@ def dense_card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps):
           flush=True)
 
 
-def draft_card_vs_cpu(torch, cfg, p_gpu, p_cpu):
-    """The draft Engine with the target as its own draft (spec_tokens 4,
-    burst 4) on the card and on the CPU, 4 greedy requests x 16 tokens:
-    every draft is accepted on both devices, and the tokens equal the CPU
-    Engine's without speculation (except where the margin rule allows)."""
+def draft_card_vs_cpu(torch, cfg, p_gpu, p_cpu, draft=None, tag="draft"):
+    """The draft Engine (spec_tokens 4, burst 4) on the card and on the
+    CPU, 4 greedy requests x 16 tokens, with the target as its own draft
+    (every draft accepted on both devices) or ``draft`` = (draft config,
+    its params on the card, on the CPU): the tokens equal the CPU's
+    greedy trace of the target (except where the margin rule allows)."""
     import numpy as np
 
     from simplellminference_tpu_torch.core.config import (EngineConfig,
@@ -6452,26 +6846,30 @@ def draft_card_vs_cpu(torch, cfg, p_gpu, p_cpu):
                                              kv_dtype="f32"))
 
     outs, metrics = {}, {}
-    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+    for i, (dev, params) in enumerate((("cuda", p_gpu), ("cpu", p_cpu))):
         eng = Engine(cfg, params, ecfg(g), decode_burst=4, device=dev,
-                     draft=(cfg, params))
+                     draft=(cfg, params) if draft is None
+                     else (draft[0], draft[1 + i]))
         outs[dev] = eng.generate(prompts, samp)
         m = eng.metrics
         metrics[dev] = (m.spec_steps, m.spec_accepted)
-        require(m.spec_steps > 0 and m.spec_accepted == g * m.spec_steps,
-                f"[draft] {dev}: a self-draft left drafts unaccepted "
+        require(m.spec_steps > 0 and (draft is not None
+                                      or m.spec_accepted == g * m.spec_steps),
+                f"[{tag}] {dev}: a self-draft left drafts unaccepted "
                 f"{metrics[dev]}")
     for r in range(len(prompts)):
         for dev in outs:
-            _first_divergence(torch, "draft", f"{dev} draft engine and the "
+            _first_divergence(torch, tag, f"{dev} draft engine and the "
                               f"greedy trace", outs[dev][r],
                               tok_c[r].tolist(), lg_c, r)
-    print(f"[cpu:draft] Llama-2-7B width, {cfg.num_layers} layers, f32, "
-          f"drafted by itself "
+    by = ("itself" if draft is None
+          else f"{_width(draft[0])} at {draft[0].num_layers} layers")
+    print(f"[cpu:{tag}] {_width(cfg)}, {cfg.num_layers} layers, f32, "
+          f"drafted by {by} "
           f"(spec_tokens {g}): {len(prompts)} requests x {new} tokens on "
           f"card and CPU in {time.perf_counter() - t0:.1f} s; (spec_steps, "
-          f"spec_accepted) card {metrics['cuda']}, cpu {metrics['cpu']}: "
-          f"every draft accepted; greedy tokens card == cpu: "
+          f"spec_accepted) card {metrics['cuda']}, cpu {metrics['cpu']}; "
+          f"greedy tokens card == cpu: "
           f"{outs['cuda'] == outs['cpu']}, == the greedy trace: "
           f"{outs['cpu'] == tok_c.tolist()}", flush=True)
 
@@ -6868,7 +7266,15 @@ def gemma2_card_vs_cpu(torch):
     greedy steps, logits within LOGIT_TOL, greedy tokens equal by the
     margin rule, the grouped Engine on both devices). The card runs the
     capped forms 3c, 3wc, 4c and 4wc (and 6k with INT8 weights: f32 rows
-    take the FMA kernel)."""
+    take the FMA kernel). Then, the window cut to 32 so that the prompts
+    and the steps pass it, the f32 weights through the Generator
+    (:func:`dense_card_vs_cpu`: 13c, 13wc), the prompt-lookup spec Engine
+    (:func:`spec_card_vs_cpu`: 4vc, 4vwc over the ring pools) and, as the
+    draft of a Gemma-2-9B-wide target (2 layers, f32, a seeded draw), the
+    draft Engine (:func:`draft_card_vs_cpu`: the rollout's 13c/13wc, the
+    target's 4vc/4vwc)."""
+    import dataclasses
+
     import numpy as np
 
     from simplellminference_tpu_torch.core.config import QuantConfig
@@ -6889,7 +7295,17 @@ def gemma2_card_vs_cpu(torch):
     p_cpu = _to_device(p_gpu, "cpu")
     before = dict(fp.CAP_LAUNCHES)
     card_vs_cpu(torch, "gemma2-f32", cfg, p_gpu, p_cpu, prompts, steps=8)
-    del p_gpu
+    cfg_w = dataclasses.replace(cfg, sliding_window=32)
+    dense_card_vs_cpu(torch, "gemma2-dense", cfg_w, p_gpu, p_cpu, prompts,
+                      steps=8)
+    spec_card_vs_cpu(torch, "gemma2-spec", cfg_w, p_gpu, p_cpu)
+    t_cfg = dataclasses.replace(gemma2_9b(num_layers=2, dtype="float32"),
+                                sliding_window=32)
+    t_gpu = llama.init_params(t_cfg, seed=14, device="cuda")
+    t_cpu = _to_device(t_gpu, "cpu")
+    draft_card_vs_cpu(torch, t_cfg, t_gpu, t_cpu,
+                      draft=(cfg_w, p_gpu, p_cpu), tag="gemma2-draft")
+    del t_gpu, t_cpu, p_gpu
     q_cpu = quantize_params(p_cpu, QuantConfig(mode="int8", group_size=0))
     del p_cpu
     q_gpu = _to_device(q_cpu, "cuda")
@@ -6900,9 +7316,11 @@ def gemma2_card_vs_cpu(torch):
            for (form, d), n in fp.CAP_LAUNCHES.items()}
     require(all(ran.get(f"{form}/256", 0) > 0 for form in (
         "flash_prefill", "flash_prefill_window", "paged_flash_decode",
-        "paged_flash_decode_window")),
+        "paged_flash_decode_window", "flash_decode", "flash_decode_window",
+        "paged_flash_verify", "paged_flash_verify_window")),
         f"[cpu:gemma2] the capped forms did not all run on the card: {ran}")
-    print(f"[cpu:gemma2] Gemma-2-2B card vs CPU (f32, INT8) in "
+    print(f"[cpu:gemma2] Gemma-2-2B card vs CPU (f32, INT8; the Generator, "
+          f"the spec and the draft Engines) in "
           f"{time.perf_counter() - t0:.1f} s; capped launches on the card "
           f"{ran}", flush=True)
 

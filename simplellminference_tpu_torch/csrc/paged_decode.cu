@@ -16,17 +16,20 @@
 // body serves it (template DENSE: sequence b reads arena row b, no table)
 // and walks only the keys below min(kv_len, Smax), where the TPU kernel
 // clamps past-the-end grid steps (flash_decode.py:172-181); its bk,
-// rows_target and max_kv tiling hints have no counterpart. The paged forms
-// take the sliding window of the TPU kernel (paged_decode.py:73-75,
-// :98-101; window > 0): each row attends only keys within `window` of its
-// own position. The paged decode forms over pools of q's dtype take
-// Gemma-2's soft cap (cap > 0: each live score becomes
-// cap * tanh(s * scale * (1 / cap)) before the mask, paged_decode.py:
-// 90-91; forms 4c, 4wc), a template flag (CAP), so the uncapped forms are
+// rows_target and max_kv tiling hints have no counterpart. The forms take
+// the sliding window of the TPU kernels (paged_decode.py:73-75, :98-101;
+// flash_decode.py:67-70, :83-86; window > 0; the wrappers refuse it over
+// e4m3 pools): each row attends only keys within `window` of its own
+// position, and the dense walk starts at the band, kv_len - window, as
+// the TPU kernel's index map skips the blocks below it
+// (flash_decode.py:172-181: a step costs O(window), not O(kv_len)).
+// Every form over pools of q's dtype takes Gemma-2's soft cap (cap > 0:
+// each live score becomes cap * tanh(s * scale * (1 / cap)) before the
+// mask, paged_decode.py:90-91, flash_decode.py:80-81; forms 4c, 4wc, 4vc,
+// 4vwc, 13c, 13wc), a template flag (CAP), so the uncapped forms are
 // compiled as before; tanh is tanhf, CUDA's full-precision one
 // (prefill_mma.cuh's note says why not tanh.approx.f32). The cap over
-// int8 or e4m3 pools, on verify rows and on the dense arena raises in the
-// wrappers and is refused here.
+// int8 or e4m3 pools raises in the wrappers and is refused here.
 //
 // Bound on the H100: bytes. Each sequence's live K and V rows
 // (2*kv_len*kvN*D elements, plus 2*kv_len*kvN f32 scales for INT8 KV)
@@ -90,14 +93,18 @@
 // newer than the oldest mask the keys below their own band per element
 // (p = 0).
 //
-// Head dims 32, 64 and 128 for every form; 256 (Gemma) for decode (one
-// window row) over pools of q's own dtype, paged (4, 4w, 4c, 4wc) and
-// dense (13); a window at D 256 starts its walk at the band as at every
-// head dim. Gemma-2-2B's GQA group of 2 makes 2 rows a block. At D 256 the work a key is 4x D 64's, the bytes bound
-// the same: a bf16 K+V stage is 2 x 64 keys x 528 bytes = 66 KB, so the
-// ring keeps 2 stages, one tile in flight while the block computes on the
-// other (f32: one 130 KB stage, loaded, then computed), 178 KB of shared
-// memory at 32 rows (8 at Gemma's group: 147 KB), one block an SM. A row
+// Head dims 32, 64 and 128 for every form; 256 (Gemma) for every form over
+// pools of q's own dtype: paged decode and verify (4, 4w, 4c, 4wc, 4v,
+// 4vw, 4vc, 4vwc) and dense (13, 13w, 13c, 13wc); a window at D 256 starts
+// its walk at the band as at every head dim. Gemma-2's GQA group of 2
+// makes 2 rows a block at decode and 10 at a 5-row verify window (the
+// "more rows" PV branch); Gemma-1's group of 8 makes 40 verify rows, two
+// row blocks of 32 and 8, each reading the keys once (K/V twice over). At
+// D 256 the work a key is 4x D 64's, the bytes bound the same: a bf16 K+V
+// stage is 2 x 64 keys x 528 bytes = 66 KB, so the ring keeps 2 stages,
+// one tile in flight while the block computes on the other (f32: one 130
+// KB stage, loaded, then computed), 178 KB of shared memory at 32 rows (8
+// at Gemma's group: 147 KB), one block an SM. A row
 // has 32 PV units of 8 columns: few rows take 8 key slices of the tile,
 // more rows up to 4 units a thread; each thread's accumulators stay 64
 // floats at every D, and the merge takes a 256-thread block a row.
@@ -599,17 +606,16 @@ int launch(const Args& a, cudaStream_t st) {
   return (int)sli::launch_merge<T>(a.part, a.out, n_rows, D, a.splits, st);
 }
 
-// The cap (CAP) only over pools of q's own dtype, one window row and the
-// paged pools; D 256 (Gemma) only over pools of q's own dtype and one
-// window row (decode, with or without a sliding window): the INT8-KV,
-// e4m3 and verify forms take D <= 128 (the wrappers raise for them).
+// The cap (CAP) only over pools of q's own dtype; D 256 (Gemma) only over
+// pools of q's own dtype: the INT8-KV and e4m3 forms take D <= 128 (the
+// wrappers raise for them).
 template <typename T, typename P, int D, bool DENSE>
 int launch_c(const Args& a, cudaStream_t st) {
   if (a.cap <= 0.f) return launch<T, P, D, DENSE, false>(a, st);
-  if constexpr (std::is_same_v<T, P> && !DENSE) {
-    if (a.wins == 1) return launch<T, P, D, DENSE, true>(a, st);
-  }
-  return SLI_ERR_DTYPE;
+  if constexpr (std::is_same_v<T, P>)
+    return launch<T, P, D, DENSE, true>(a, st);
+  else
+    return SLI_ERR_DTYPE;
 }
 
 template <typename T, typename P, bool DENSE = false>
@@ -622,10 +628,10 @@ int dispatch_d(int head_dim, const Args& a, cudaStream_t st) {
     case 128:
       return launch_c<T, P, 128, DENSE>(a, st);
     case 256:
-      if constexpr (std::is_same_v<T, P>) {
-        if (a.wins == 1) return launch_c<T, P, 256, DENSE>(a, st);
-      }
-      return SLI_ERR_HEAD_DIM;
+      if constexpr (std::is_same_v<T, P>)
+        return launch_c<T, P, 256, DENSE>(a, st);
+      else
+        return SLI_ERR_HEAD_DIM;
     default:
       return SLI_ERR_HEAD_DIM;
   }
@@ -636,23 +642,25 @@ int dispatch_d(int head_dim, const Args& a, cudaStream_t st) {
 // Dense-arena decode (the flash_decode entry): q [B, N, D] at batch stride
 // q_bs (elements); cache_k/v the dense arena [L, arena_rows, kvn, smax, D]
 // of q's dtype, sequence b < batch <= arena_rows reading arena row b's
-// slots [0, min(kv_len, smax)); out [B, N, D] contiguous. splits > 1: part
-// holds splits * B * N * (D + 2) floats of workspace.
+// slots [0, min(kv_len, smax)), or with window > 0 only the slots
+// [kv_len - window, kv_len) of them (forms 13w, 13wc); cap: 0 for none,
+// else the soft cap (> 0; forms 13c, 13wc); out [B, N, D] contiguous.
+// splits > 1: part holds splits * B * N * (D + 2) floats of workspace.
 extern "C" int sli_flash_decode(const void* q, long long q_bs,
                                 const void* cache_k, const void* cache_v,
                                 const int* kv_lens, void* out, float* part,
                                 int batch, int layer, int arena_rows, int kvn,
-                                int smax, int group, int head_dim,
-                                int splits, float scale, int dtype,
+                                int smax, int group, int head_dim, int window,
+                                int splits, float scale, float cap, int dtype,
                                 void* stream) {
   if (batch <= 0 || kvn <= 0 || group <= 0 || smax <= 0 ||
-      batch > arena_rows)
+      batch > arena_rows || window < 0 || cap < 0.f)
     return SLI_ERR_SHAPE;
   cudaStream_t st = (cudaStream_t)stream;
   // one "page" of smax slots per sequence, one window row, no scales
   const Args a{q, q_bs, 0LL, cache_k, cache_v, nullptr, nullptr, nullptr,
                kv_lens, out, part, batch, layer, arena_rows, kvn, smax, 1,
-               group, 1, 0, splits, scale, 0.f};
+               group, 1, window, splits, scale, cap};
   if (dtype == SLI_F32) return dispatch_d<float, float, true>(head_dim, a, st);
   if (dtype == SLI_BF16)
     return dispatch_d<__nv_bfloat16, __nv_bfloat16, true>(head_dim, a, st);
@@ -677,8 +685,8 @@ int dispatch_pool(int pool, int head_dim, const Args& a, cudaStream_t st) {
 // int8 with k_scale/v_scale, their f32 scale pools [L, num_pages1, kvn,
 // ps] (null for every other pool dtype). q: [B, wins, N, D] with strides
 // q_bs, q_ss (elements); wins = 1 is decode. window: 0 for none, else the
-// sliding window (>= 1); cap: 0 for none, else the soft cap (> 0; decode
-// over pools of q's dtype only). splits > 1: part holds splits * B * wins
+// sliding window (>= 1); cap: 0 for none, else the soft cap (> 0; pools
+// of q's dtype only). splits > 1: part holds splits * B * wins
 // * N * (D + 2) floats of workspace.
 extern "C" int sli_paged_flash_decode(
     const void* q, long long q_bs, long long q_ss, const void* pool_k,

@@ -170,7 +170,7 @@ class Engine:
             if draft[0].vocab_size != cfg.vocab_size:
                 raise ValueError("draft and target must share the token "
                                  "space")
-            llama.check_dense_supported(draft[0])
+            llama.check_supported(draft[0])
         self.device = resolve_device(device)
         for p in (params, draft[1] if draft is not None else params):
             if p["embed"].device.type != self.device.type:

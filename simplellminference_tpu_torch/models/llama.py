@@ -15,12 +15,12 @@ window (S > 1 tokens per row at consecutive positions, written with
 layers stands in for the ``lax.scan``; stacked [L, ...] weights are
 indexed per layer, and the KV pools are written in place. Sliding-window
 attention (Mistral's ``sliding_window``, alternating ``layer_types``)
-runs in every ``forward_paged`` branch, over the ordinary pools or the
-grouped engine's ring pools; the dense ``forward`` refuses it. Gemma-2's
-pieces run in ``forward_paged``: the attention soft cap (the kernels'
-capped forms), the final logit soft cap, the sandwich norms and
-``query_pre_attn_scalar``; the dense ``forward`` refuses the attention
-cap with the windows.
+runs in every branch of both forwards, over the ordinary pools, the
+grouped engine's ring pools or the dense arena, each layer with its own
+window (the JAX scan's static window per sublayer, llama.py:376-456).
+Gemma-2's pieces run in both: the attention soft cap (the kernels' capped
+forms), the final logit soft cap, the sandwich norms and
+``query_pre_attn_scalar``.
 
 KV pools are bf16/f32, or INT8 with per-token-per-head scale pools
 (``cache.k_scale``/``cache.v_scale``): every write quantizes and every
@@ -104,20 +104,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.act_quant not in (None, "int8"):
         # the JAX package asserts this in ops/linear.py:87
         raise ValueError(f"act_quant={cfg.act_quant!r} (only 'int8')")
-
-
-def check_dense_supported(cfg: ModelConfig) -> None:
-    """:func:`check_supported` for the dense-arena ``forward`` (the
-    Generator and the draft model), which also refuses sliding windows and
-    the attention soft cap: their decode needs the window and capped forms
-    of ``flash_decode``, not ported."""
-    check_supported(cfg)
-    if any(w is not None for w in cfg.layer_windows):
-        raise NotImplementedError("sliding-window attention on the dense "
-                                  "KV arena (flash_decode's window form)")
-    if cfg.attn_logit_softcap:
-        raise NotImplementedError("attention logit soft cap on the dense "
-                                  "KV arena (flash_decode's capped form)")
 
 
 def _fqkv_gate(cfg: ModelConfig, lw, b: int, s: int, cache_k) -> bool:
@@ -251,9 +237,11 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     which the JAX package runs through its jnp reference even on a TPU)
     is not ported and raises. ``last_token_only``: project only slot
     kv_lens - 1 - offsets of each sequence (S - 1 without kv_lens).
-    Returns (logits [B, S or 1, V] f32, cache). Sliding windows raise
-    (:func:`check_dense_supported`)."""
-    check_dense_supported(cfg)
+    Each layer attends with its own window (``cfg.layer_windows``: the
+    window forms 3w and 13w on sliding layers) and the soft cap, as
+    :func:`forward_paged` does. Returns (logits [B, S or 1, V] f32,
+    cache)."""
+    check_supported(cfg)
     b, s = tokens.shape
     if cache is not None and s > 1 and not prefill_from_zero:
         raise NotImplementedError("dense multi-token continuation (S > 1 "
@@ -269,11 +257,11 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             kv_lens = offsets + s
         use_fqkv = _fqkv_gate(cfg, lw, b, s, ck)
     use_fffn = _fffn_gate(cfg, lw, b * s)
-    for li in range(cfg.num_layers):
+    for li, window in enumerate(cfg.layer_windows):
         if use_fqkv:
             q1 = _fused_qkv(cfg, lw, li, x, sin, cos, ck, cv, offsets)
             attn = dispatch.attention_cached(cfg, q1[:, None], ck, cv,
-                                             kv_lens, li)
+                                             kv_lens, li, window=window)
         else:
             q, k, v = _qkv(cfg, lw, li, x, sin, cos)
             if cache is not None:
@@ -281,10 +269,10 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             if cache is None or s > 1:
                 # no cache, or a prefill from slot 0: the fresh k/v are
                 # the whole prefix
-                attn = dispatch.attention(cfg, q, k, v)
+                attn = dispatch.attention(cfg, q, k, v, window=window)
             else:
                 attn = dispatch.attention_cached(cfg, q, ck, cv, kv_lens,
-                                                 li)
+                                                 li, window=window)
         x = _post_attention(cfg, lw, li, x, attn, use_fffn)
     if last_token_only and s > 1:
         if kv_lens is None:

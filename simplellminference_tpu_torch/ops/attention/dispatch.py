@@ -8,12 +8,11 @@ INT8-KV pools pass their scale pools (``pool_ks``/``pool_vs``) on to the
 paged kernels, FP8 (e4m3) pools go, by their dtype, to the kernels'
 FP8-KV forms (4e, 4ve, 8e), and a sliding window (``cfg.sliding_window``, or the
 per-layer ``window`` a caller passes for ``layer_types`` stacks) goes to
-each kernel's window form, and Gemma-2's logit soft cap
-(``cfg.attn_logit_softcap``) to the capped forms of kernels 3, 4 and 8
-over bf16/f32 KV. Attention options the kernels do not take yet (sinks;
-the cap over INT8 or FP8 KV, on verify rows and on the dense arena)
-raise; so does a window on the dense arena (``flash_decode``'s window
-form is not ported).
+each kernel's window form, the dense arena's included (13w), and
+Gemma-2's logit soft cap (``cfg.attn_logit_softcap``) to the capped forms
+of kernels 3, 4 (decode and verify rows), 8 and 13 over bf16/f32 KV.
+Attention options the kernels do not take yet (sinks; the cap over INT8
+or FP8 KV) raise.
 """
 
 from __future__ import annotations
@@ -59,17 +58,19 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
 
 def attention_cached(cfg: ModelConfig, q: torch.Tensor,
                      ck: torch.Tensor, cv: torch.Tensor,
-                     kv_lens: torch.Tensor,
-                     layer: int | None = None) -> torch.Tensor:
+                     kv_lens: torch.Tensor, layer: int | None = None,
+                     window=_UNSET) -> torch.Tensor:
     """Decode attention against the dense arena (counterpart of
-    dispatch.py:97-123): ``flash_decode`` over slots [0, kv_len).
-    q: [B, 1, N, D]; ck/cv: [B, kvN, Smax, D], or the stacked arena
-    [L, B', kvN, Smax, D] with an int ``layer``; kv_lens: [B]. A prefill
-    from slot 0 attends its fresh k/v through :func:`attention` instead,
-    as ``models.llama.forward`` does."""
+    dispatch.py:95-123): ``flash_decode`` over slots [0, kv_len), the last
+    ``window`` of them with a sliding window (default cfg.sliding_window;
+    alternating ``layer_types`` stacks pass each layer's, as for
+    :func:`attention`). q: [B, 1, N, D]; ck/cv: [B, kvN, Smax, D], or the
+    stacked arena [L, B', kvN, Smax, D] with an int ``layer``; kv_lens:
+    [B]. A prefill from slot 0 attends its fresh k/v through
+    :func:`attention` instead, as ``models.llama.forward`` does."""
     if q.shape[1] != 1:
         raise ValueError(f"one query row per sequence, not {q.shape[1]}")
-    window, sm, cap = _attn_opts(cfg)
+    window, sm, cap = _attn_opts(cfg, window)
     return flash_decode(q[:, 0], ck, cv, kv_lens, layer=layer,
                         window=window, sm_scale=sm, logit_cap=cap)[:, None]
 

@@ -1,5 +1,6 @@
 """Flash decode attention over the dense KV arena: one query row per
-sequence against arena slots [0, kv_len).
+sequence against arena slots [0, kv_len), or with a sliding window only
+the last ``window`` of them.
 
 Counterpart of simplellminference_tpu/ops/attention/flash_decode.py:114
 (``flash_decode``). For CUDA tensors :func:`flash_decode` launches the
@@ -8,16 +9,28 @@ dense form of the hand-written kernel of ``csrc/paged_decode.cu``
 with one page of Smax slots per sequence, so kernel 4's body serves it:
 the live keys below min(kv_len, Smax) split over blocks
 (:func:`~simplellminference_tpu_torch.ops.attention.paged_decode.
-decode_splits` on the span Smax), each block holding the GQA group's query
-rows with an f32 online softmax, the splits merged by log-sum-exp. For
-CPU tensors it runs :func:`flash_decode_ref`, which is also what the
-kernel is held against on the card.
+decode_splits` on the span the walk can meet: Smax, or the window), each
+block holding the GQA group's query rows with an f32 online softmax, the
+splits merged by log-sum-exp. For CPU tensors it runs
+:func:`flash_decode_ref`, which is also what the kernel is held against on
+the card.
+
+The sliding-window form (``window``: keys kv_len - window <= k < kv_len;
+flash_decode.py:67-70, :83-86) walks from the band's first key and reads
+none below it, as the TPU kernel's index map clamps the blocks before it
+(flash_decode.py:172-181); on the card it is its own wrapper,
+:func:`flash_decode_window` (13w), with its own launch count. Gemma-2's
+soft cap (``logit_cap``: each score becomes cap * tanh(s * scale *
+(1 / cap)) before the mask, flash_decode.py:80-81) is a compile-time flag
+of the kernel (13c, 13wc); capped launches count in their form's
+``launches`` and in :data:`~.flash_prefill.CAP_LAUNCHES` by (form, head
+dim).
 
 A row with kv_len <= 0 comes out as zeros, as from the JAX kernel (its
 running sum stays 0). ``bk``, ``rows_target`` and ``max_kv`` are the TPU
 kernel's tiling hints and bounds on its grid; the kernel stops at kv_len
-by itself, so they are taken and ignored. Sliding windows, the logit
-soft cap and attention sinks are not ported and raise.
+by itself, so they are taken and ignored. Attention sinks are not ported
+and raise.
 """
 
 from __future__ import annotations
@@ -25,11 +38,14 @@ from __future__ import annotations
 import torch
 
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
+from simplellminference_tpu_torch.ops.attention.flash_prefill import (
+    cap_value, count_launch, window_size)
 from simplellminference_tpu_torch.ops.attention.paged_decode import (
     HEAD_DIMS, MAX_ROWS, decode_splits, row_blocks, workspace)
 
-# launches at head_dim 256 (Gemma; each also counts in ``launches``)
-D256_LAUNCHES = {"flash_decode": 0}
+# launches at head_dim 256 (Gemma; each also counts in its form's
+# ``launches``)
+D256_LAUNCHES = {"flash_decode": 0, "flash_decode_window": 0}
 
 
 def _stacked(k_cache, v_cache, layer):
@@ -41,31 +57,31 @@ def _stacked(k_cache, v_cache, layer):
     return k_cache, v_cache, int(layer)
 
 
-def _check_opts(window, logit_cap, sinks):
-    if window is not None:
-        raise NotImplementedError("sliding-window attention")
-    if logit_cap:
-        raise NotImplementedError("attention logit soft cap")
-    if sinks is not None:
-        raise NotImplementedError("attention sinks")
-
-
 def flash_decode_ref(q, k_cache, v_cache, kv_lens, layer=None,
-                     sm_scale: float | None = None) -> torch.Tensor:
-    """Plain version of :func:`flash_decode`: reference attention over the
-    arena rows of the batch, keys at slots < kv_len; zeros where
-    kv_len <= 0. q [B, N, D] -> [B, N, D]."""
+                     sm_scale: float | None = None,
+                     window: int | None = None,
+                     logit_cap: float | None = None) -> torch.Tensor:
+    """Plain version of :func:`flash_decode` and its window and capped
+    forms: reference attention over the arena rows of the batch, keys at
+    slots < kv_len (and >= kv_len - ``window``), the scores soft-capped by
+    ``logit_cap`` before the mask; zeros for a row with no such slot
+    (kv_len <= 0, or a window wholly past Smax).
+    q [B, N, D] -> [B, N, D]."""
     if q.is_cuda:
         flash_decode_ref.cuda_calls += 1
     ck, cv, layer = _stacked(k_cache, v_cache, layer)
     b = q.shape[0]
     ck, cv = ck[layer, :b], cv[layer, :b]                  # [B, kvN, Smax, D]
-    lens = kv_lens.long().to(q.device)
-    mask = (torch.arange(ck.shape[2], device=q.device)[None, None, None, :]
-            < lens[:, None, None, None])
+    lens = kv_lens.long().to(q.device)[:, None, None, None]
+    key_pos = torch.arange(ck.shape[2], device=q.device)[None, None, None, :]
+    mask = key_pos < lens
+    if window is not None:
+        mask = mask & (key_pos >= lens - window_size(window))
     out = ref_ops.attention(q[:, None], ck.transpose(1, 2),
-                            cv.transpose(1, 2), mask, scale=sm_scale)[:, 0]
-    return torch.where((lens > 0)[:, None, None], out, torch.zeros_like(out))
+                            cv.transpose(1, 2), mask, scale=sm_scale,
+                            logit_cap=cap_value(logit_cap))[:, 0]
+    live = mask.any(-1)                                    # [B, 1, 1]
+    return torch.where(live, out, torch.zeros_like(out))
 
 
 flash_decode_ref.cuda_calls = 0
@@ -77,12 +93,53 @@ def flash_decode(q, k_cache, v_cache, kv_lens, bk: int | None = None,
                  logit_cap: float | None = None, sinks=None) -> torch.Tensor:
     """q: [B, N, D]; k/v_cache: [B', kvN, Smax, D], or the stacked arena
     [L, B', kvN, Smax, D] with an int ``layer``, B <= B'; kv_lens: [B]
-    -> out [B, N, D] in q's dtype, attending arena slots [0, kv_len)."""
+    -> out [B, N, D] in q's dtype, attending arena slots [0, kv_len).
+    ``window`` takes :func:`flash_decode_window`; ``logit_cap`` > 0 is
+    Gemma-2's soft cap (13c)."""
     del bk, rows_target, max_kv   # TPU tiling hints
-    _check_opts(window, logit_cap, sinks)
+    if sinks is not None:
+        raise NotImplementedError("attention sinks")
+    if window is not None:
+        return flash_decode_window(q, k_cache, v_cache, kv_lens, window,
+                                   layer, sm_scale, logit_cap)
+    cap = cap_value(logit_cap)
     if not q.is_cuda:
         return flash_decode_ref(q, k_cache, v_cache, kv_lens, layer,
-                                sm_scale)
+                                sm_scale, logit_cap=cap)
+    out = _launch(q, k_cache, v_cache, kv_lens, layer, sm_scale, 0, cap,
+                  "flash_decode")
+    flash_decode.launches += 1
+    count_launch("flash_decode", q.shape[-1], cap, D256_LAUNCHES)
+    return out
+
+
+flash_decode.launches = 0
+
+
+def flash_decode_window(q, k_cache, v_cache, kv_lens, window: int,
+                        layer=None, sm_scale: float | None = None,
+                        logit_cap: float | None = None) -> torch.Tensor:
+    """13w: :func:`flash_decode` over arena slots kv_len - window ..
+    kv_len - 1 only; no slot below them is read (13wc with a
+    ``logit_cap``)."""
+    window = window_size(window)
+    cap = cap_value(logit_cap)
+    if not q.is_cuda:
+        return flash_decode_ref(q, k_cache, v_cache, kv_lens, layer,
+                                sm_scale, window, cap)
+    out = _launch(q, k_cache, v_cache, kv_lens, layer, sm_scale, window,
+                  cap, "flash_decode_window")
+    flash_decode_window.launches += 1
+    count_launch("flash_decode_window", q.shape[-1], cap, D256_LAUNCHES)
+    return out
+
+
+flash_decode_window.launches = 0
+
+
+def _launch(q, k_cache, v_cache, kv_lens, layer, sm_scale, window: int,
+            cap, what: str) -> torch.Tensor:
+    """The kernel on q [B, N, D] -> [B, N, D]."""
     ck, cv, layer = _stacked(k_cache, v_cache, layer)
     b, n, d = q.shape
     n_layers, arena_rows, kvn, smax, cd = ck.shape
@@ -113,20 +170,15 @@ def flash_decode(q, k_cache, v_cache, kv_lens, bk: int | None = None,
     if kv_lens.shape != (b,):
         raise ValueError("kv_lens rows do not match q")
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
-    splits = decode_splits(b, kvn, smax, row_blocks(n // kvn))
+    span = min(smax, window) if window else smax
+    splits = decode_splits(b, kvn, span, row_blocks(n // kvn))
     part = workspace(b, n, d, splits, q.device)
     lib = cuda_build.load()
     rc = lib.sli_flash_decode(
         q.data_ptr(), q.stride(0), ck.data_ptr(), cv.data_ptr(),
         kv_lens.data_ptr(), out.data_ptr(),
         0 if part is None else part.data_ptr(), b, layer, arena_rows, kvn,
-        smax, n // kvn, d, splits, scale, code,
+        smax, n // kvn, d, window, splits, scale, cap or 0.0, code,
         torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(lib, rc, "flash_decode")
-    flash_decode.launches += 1
-    if d == 256:
-        D256_LAUNCHES["flash_decode"] += 1
+    cuda_build.check(lib, rc, what)
     return out
-
-
-flash_decode.launches = 0

@@ -48,11 +48,11 @@ count.
 
 Gemma-2's soft cap (``logit_cap``: each score becomes
 cap * tanh(s * scale * (1 / cap)) before the mask, paged_decode.py:90-91)
-on the decode forms over pools of q's dtype, with or without a window
-(4c, 4wc): a compile-time flag of the kernel, so the uncapped forms run
-the code they ran before; capped launches count in their form's
-``launches`` and in :data:`~.flash_prefill.CAP_LAUNCHES`. The cap over
-INT8 or e4m3 pools and on verify rows raises (not ported yet).
+on the decode and verify forms over pools of q's dtype, with or without a
+window (4c, 4wc, 4vc, 4vwc): a compile-time flag of the kernel, so the
+uncapped forms run the code they ran before; capped launches count in
+their form's ``launches`` and in :data:`~.flash_prefill.CAP_LAUNCHES`. The
+cap over INT8 or e4m3 pools raises (not ported yet).
 
 Unmapped (-1) pages inside kv_len read as zeros in both versions. The
 JAX package reads something else there — its TPU kernel clamps them to
@@ -73,11 +73,12 @@ from simplellminference_tpu_torch.ops.matmul import SM_COUNT
 from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
 HEAD_DIMS = (32, 64, 128, 256)
-# the forms that take head_dim 256 (Gemma): decode over pools of q's
-# dtype, with or without a window; and their launches at that head dim
-# (each also in ``launches``)
-D256_FORMS = ("paged_flash_decode", "paged_flash_decode_window")
-D256_LAUNCHES = {"paged_flash_decode": 0, "paged_flash_decode_window": 0}
+# the forms that take head_dim 256 (Gemma): decode and verify over pools
+# of q's dtype, with or without a window; and their launches at that head
+# dim (each also in ``launches``)
+D256_FORMS = ("paged_flash_decode", "paged_flash_decode_window",
+              "paged_flash_verify", "paged_flash_verify_window")
+D256_LAUNCHES = {form: 0 for form in D256_FORMS}
 MAX_ROWS = 128   # query rows (GQA group x window rows) a call takes
 ROW_BLOCK = 32   # query rows a block of the kernel holds
 TILE_KEYS = 64   # keys per tile of the kernel; splits cut whole tiles
@@ -135,13 +136,11 @@ def _check_fp8_window(k_pool, window):
         raise NotImplementedError("FP8 KV with sliding windows")
 
 
-def _check_cap(name, k_pool, k_scale, logit_cap):
-    """The soft cap runs on the decode forms over pools of q's dtype;
-    raise for the rest."""
+def _check_cap(k_pool, k_scale, logit_cap):
+    """The soft cap runs on the forms over pools of q's dtype; raise for
+    the quantized ones."""
     if not cap_value(logit_cap):
         return
-    if name == "paged_flash_verify":
-        raise NotImplementedError("attention logit soft cap on verify rows")
     if k_scale is not None:
         raise NotImplementedError("attention logit soft cap over INT8 KV")
     if k_pool.dtype == torch.float8_e4m3fn:
@@ -204,7 +203,7 @@ def paged_flash_decode_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
     window and capped forms: keys at positions < kv_len (and >= kv_len -
     window); q: [B, N, D] -> [B, N, D]."""
     _check_fp8_window(k_pool, window)
-    _check_cap("paged_flash_decode", k_pool, k_scale, logit_cap)
+    _check_cap(k_pool, k_scale, logit_cap)
     if q.is_cuda:
         paged_flash_decode_ref.cuda_calls += 1
     return _attend_ref(q[:, None], k_pool, v_pool, tables, kv_lens, layer,
@@ -218,16 +217,16 @@ def paged_flash_verify_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
                            sm_scale: float | None = None, k_scale=None,
                            v_scale=None, window=None,
                            logit_cap=None) -> torch.Tensor:
-    """Plain version of :func:`paged_flash_verify` and its INT8-KV, FP8-KV
-    and window forms, the gather + mask + reference attention of the JAX
-    dispatcher's S > 1 branch (dispatch.py:239-269).
+    """Plain version of :func:`paged_flash_verify` and its INT8-KV,
+    FP8-KV, window and capped forms, the gather + mask + reference
+    attention of the JAX dispatcher's S > 1 branch (dispatch.py:239-269).
     q: [B, S, N, D] -> [B, S, N, D]."""
     _check_fp8_window(k_pool, window)
-    _check_cap("paged_flash_verify", k_pool, k_scale, logit_cap)
+    _check_cap(k_pool, k_scale, logit_cap)
     if q.is_cuda:
         paged_flash_verify_ref.cuda_calls += 1
     return _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
-                       k_scale, v_scale, window)
+                       k_scale, v_scale, window, logit_cap)
 
 
 paged_flash_verify_ref.cuda_calls = 0
@@ -259,9 +258,10 @@ def paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer: int,
     [B, S, N, D], where row s sits at position kv_len - S + s and attends
     the keys at positions <= that one, through the same page walk as
     :func:`paged_flash_decode` (KV traffic of one decode step). Pools,
-    tables, scale pools and ``window`` as there; out [B, S, N, D] in q's
-    dtype. The launch counts as the form the options and pools name (4v,
-    4vq, 4ve, 4vw, 4vqw); a ``logit_cap`` raises (not ported)."""
+    tables, scale pools, ``window`` and ``logit_cap`` as there; out
+    [B, S, N, D] in q's dtype. The launch counts as the form the options
+    and pools name (4v, 4vq, 4ve, 4vw, 4vqw; a capped 4v or 4vw in its
+    form's count)."""
     return _run("paged_flash_verify", q, k_pool, v_pool, k_scale, v_scale,
                 tables, kv_lens, layer, sm_scale, window, logit_cap)
 
@@ -326,12 +326,14 @@ def _check_e4m3(k_pool, v_pool):
 
 def paged_flash_verify_window(q, k_pool, v_pool, tables, kv_lens,
                               layer: int, window: int,
-                              sm_scale: float | None = None) -> torch.Tensor:
+                              sm_scale: float | None = None,
+                              logit_cap=None) -> torch.Tensor:
     """4vw: :func:`paged_flash_verify` where row s attends keys
     kv_len - S + s - window < k_pos <= kv_len - S + s; no page below the
-    oldest row's band is read."""
+    oldest row's band is read (4vwc with a ``logit_cap``)."""
     return paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer,
-                              sm_scale, window=window_size(window))
+                              sm_scale, window=window_size(window),
+                              logit_cap=logit_cap)
 
 
 def paged_flash_verify_int8kv(q, k_pool, v_pool, k_scale, v_scale, tables,
@@ -375,7 +377,7 @@ def _run(name, q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
         raise NotImplementedError("shared-KV pools (absorbed MLA)")
     quant = _check_scales(k_pool, v_pool, k_scale, v_scale)
     _check_fp8_window(k_pool, window)
-    _check_cap(name, k_pool, k_scale, logit_cap)
+    _check_cap(k_pool, k_scale, logit_cap)
     cap = cap_value(logit_cap)
     if window is not None:
         window = window_size(window)

@@ -88,7 +88,7 @@ _SIGNATURES = {
     "sli_kv_append": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _I, _I, _I, _I, _I,
                       _I, _I, _I, _P],
     "sli_flash_decode": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _F, _I, _P],
+                         _I, _I, _I, _F, _F, _I, _P],
     "sli_qkv_fused_dense": [_P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P,
                             _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                             _P],
@@ -236,11 +236,10 @@ def pool_code(dtype) -> int:
 def check_head_dim(d: int, form: str, d256_forms) -> None:
     """Raise NotImplementedError for ``form`` at head_dim 256 unless it is
     one of ``d256_forms``: at Gemma's D the kernels take the forms over
-    bf16/f32 KV with no verify rows (windows and the soft cap included);
-    the INT8-KV, e4m3 and verify forms take D 32, 64 and 128. The
-    wrappers call it
-    for CPU and CUDA tensors alike, so a form outside the slice raises on
-    both."""
+    bf16/f32 KV (decode and verify rows, windows and the soft cap
+    included); the INT8-KV and e4m3 forms take D 32, 64 and 128. The
+    wrappers call it for CPU and CUDA tensors alike, so a form outside the
+    slice raises on both."""
     if d == 256 and form not in d256_forms:
         took = ", ".join(d256_forms) or "none of its module's forms"
         raise NotImplementedError(

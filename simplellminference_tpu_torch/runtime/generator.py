@@ -7,7 +7,9 @@ to a power-of-two bucket and prefilled in one forward; the arena is sized
 to the bucket plus the new tokens, rounded up to 256 slots. Each step is
 the dense :func:`~simplellminference_tpu_torch.models.llama.forward` on
 the card (kernels ``kv_append``, ``flash_decode`` and, with INT8
-per-channel weights, the dense ``fused_qkv_append``).
+per-channel weights, the dense ``fused_qkv_append``; a sliding window or
+Gemma-2's soft cap takes their window and capped forms, each layer its
+own window, so Mistral and Gemma-2 run here as on the Engine).
 
 - :meth:`Generator.generate` is the Python loop with host control per
   step (stop tokens), sampling with the port's counter-hash sampler:
@@ -55,7 +57,7 @@ class Generator:
         """``device``: CUDA unless ``device="cpu"``; ``params`` must live
         there. ``kv_dtype``: the arena's dtype (default the model's; FP8 is
         not ported to the dense arena and raises)."""
-        llama.check_dense_supported(cfg)
+        llama.check_supported(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "

@@ -166,14 +166,16 @@ def test_flash_decode_takes_4d_caches_and_refuses_unported_options():
     ck = torch.from_numpy(rng.standard_normal((2, 2, 64, 32))
                           .astype(np.float32))
     lens = torch.tensor([3, 64])
-    np.testing.assert_array_equal(
-        flash_decode(q, ck, ck, lens).numpy(),
-        flash_decode_ref(q, ck[None], ck[None], lens, layer=0).numpy())
-    for kw, what in ((dict(window=8), "sliding-window"),
-                     (dict(logit_cap=30.0), "soft cap"),
-                     (dict(sinks=torch.zeros(4)), "sinks")):
-        with pytest.raises(NotImplementedError, match=what):
-            flash_decode(q, ck, ck, lens, **kw)
+    # the window (13w) and the soft cap (13c) take 4-D caches as well;
+    # attention sinks are not ported
+    for kw in ({}, dict(window=8), dict(logit_cap=30.0),
+               dict(window=8, logit_cap=30.0)):
+        np.testing.assert_array_equal(
+            flash_decode(q, ck, ck, lens, **kw).numpy(),
+            flash_decode_ref(q, ck[None], ck[None], lens, layer=0,
+                             **kw).numpy())
+    with pytest.raises(NotImplementedError, match="sinks"):
+        flash_decode(q, ck, ck, lens, sinks=torch.zeros(4))
 
 
 # ------------------------------------------- dense fused_qkv_append (6d)

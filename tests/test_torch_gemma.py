@@ -536,12 +536,12 @@ def test_forms_outside_the_slice_raise_at_d256():
         "4qw": lambda: tpd.paged_flash_decode(q1, qk, qv, tables, kv, 0,
                                               k_scale=ks, v_scale=vs,
                                               window=4),
-        "4v": lambda: tpd.paged_flash_verify(q3, pk, pv, tables, kv, 0),
         "4vq": lambda: tpd.paged_flash_verify(q3, qk, qv, tables, kv, 0,
                                               k_scale=ks, v_scale=vs),
         "4ve": lambda: tpd.paged_flash_verify(q3, ek, ev, tables, kv, 0),
-        "4vw": lambda: tpd.paged_flash_verify(q3, pk, pv, tables, kv, 0,
-                                              window=4),
+        "4vqw": lambda: tpd.paged_flash_verify(q3, qk, qv, tables, kv, 0,
+                                               k_scale=ks, v_scale=vs,
+                                               window=4),
         "8q": lambda: tpp.paged_flash_prefill(q3, qk, qv, tables, kv, offs,
                                               0, k_scale=ks, v_scale=vs),
         "8e": lambda: tpp.paged_flash_prefill(q3, ek, ev, tables, kv, offs,
@@ -563,7 +563,12 @@ def test_forms_outside_the_slice_raise_at_d256():
         with pytest.raises(NotImplementedError, match="head_dim 256"):
             call()
     # and the forms of the slice run at D 256 on the CPU, since Gemma-2's
-    # slice the window forms 4w, 8w, 3w and 6k too
+    # slice the window forms 4w, 8w, 3w and 6k too, since its dense slice
+    # the verify forms over pools of q's dtype (4v, 4vw)
+    assert tpd.paged_flash_verify(q3, pk, pv, tables, kv, 0).shape == (
+        3, 3, 8, D)
+    assert tpd.paged_flash_verify(q3, pk, pv, tables, kv, 0,
+                                  window=4).shape == (3, 3, 8, D)
     assert tpd.paged_flash_decode(q1, pk, pv, tables, kv, 0).shape == (
         3, 8, D)
     tqkv.fused_qkv_append(*qkv, pk, pv, 0, offs, n_heads=8, kv_heads=1,

@@ -52,6 +52,7 @@ from simplellminference_tpu_torch.models import llama as tllama
 from simplellminference_tpu_torch.models.convert import params_from_jax
 from simplellminference_tpu_torch.runtime.weights import (
     llama_hf_param_map as thf_map)
+from simplellminference_tpu_torch.runtime.generator import Generator
 from simplellminference_tpu_torch.runtime.weights import quantize_params
 
 LOGIT_TOL = 1e-4
@@ -112,12 +113,14 @@ def test_from_hf_dict_matches_jax():
                                                                  None))
     assert abs(cfg.embed_scale - 128.0 ** 0.5) < 1e-9
     tllama.check_supported(cfg)
-    # the dense arena has neither the window nor the cap of flash_decode
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        tllama.check_dense_supported(cfg)
-    with pytest.raises(NotImplementedError, match="soft cap"):
-        tllama.check_dense_supported(dataclasses.replace(
-            cfg, layer_types=None, sliding_window=None))
+    # the dense arena takes the window and the cap too (13w, 13c): the
+    # Generator and a draft model admit the configuration, with or
+    # without its windows
+    tp = tllama.init_params(cfg, device="cpu")
+    for c in (cfg, dataclasses.replace(cfg, layer_types=None,
+                                       sliding_window=None)):
+        assert Generator(c, tp, max_batch=1, max_seq=32,
+                         device="cpu").cfg is c
 
 
 def test_hf_param_map_matches_jax():

@@ -1093,8 +1093,14 @@ def _check_flash_decode(g, cuda, dtype, n, kvn, d, lens, smax):
     assert got.shape == q.shape and got.dtype == dtype
     assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
     assert not got[1].any()          # kv_len 0 -> zero output
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        fd.flash_decode(q, ck, cv, kv_lens, layer=1, window=16)
+    # the window form (13w) on the same inputs: its own launch count
+    before = fd.flash_decode.launches, fd.flash_decode_window.launches
+    got = fd.flash_decode(q, ck, cv, kv_lens, layer=1, window=16)
+    assert (fd.flash_decode.launches, fd.flash_decode_window.launches) == (
+        before[0], before[1] + 1)
+    want = fd.flash_decode_ref(q, ck, cv, kv_lens, layer=1, window=16)
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
+    assert not got[1].any()
 
 
 @pytest.mark.parametrize("xdt", DTYPES)
@@ -2031,8 +2037,9 @@ def test_fused_qkv_append_dense_head_dim_256(cuda, xdt):
 
 
 def test_head_dim_256_forms_outside_the_slice_raise(cuda):
-    # the INT8-KV, e4m3 and verify forms take D <= 128 (the window forms
-    # 3w, 4w, 8w and 6k run at D 256 since Gemma-2's slice): at D 256 each
+    # the INT8-KV and e4m3 forms take D <= 128 (the window forms 3w, 4w, 8w
+    # and 6k run at D 256 since Gemma-2's slice, the verify forms 4v and
+    # 4vw over pools of q's dtype since its dense slice): at D 256 each
     # raises before a launch, naming the head dim and its form
     g = torch.Generator(device=cuda).manual_seed(0)
     bf, e4 = torch.bfloat16, torch.float8_e4m3fn
@@ -2049,14 +2056,14 @@ def test_head_dim_256_forms_outside_the_slice_raise(cuda):
         lambda: pd.paged_flash_decode(q1, qk, qv, tables, kv, 0, k_scale=ks,
                                       v_scale=vs),
         lambda: pd.paged_flash_decode(q1, ek, ev, tables, kv, 0),
-        lambda: pd.paged_flash_verify(q3, pk, pv, tables, kv, 0),
         lambda: pd.paged_flash_verify(q3, qk, qv, tables, kv, 0, k_scale=ks,
                                       v_scale=vs),
+        lambda: pd.paged_flash_verify(q3, qk, qv, tables, kv, 0, k_scale=ks,
+                                      v_scale=vs, window=4),
         lambda: pd.paged_flash_verify(q3, ek, ev, tables, kv, 0),
         lambda: pp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
                                        k_scale=ks, v_scale=vs),
         lambda: pp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0),
-        lambda: pd.paged_flash_verify(q3, pk, pv, tables, kv, 0, window=4),
         lambda: pa.paged_append_decode_quant(qk, qv, ks, vs, nk[:, 0],
                                              nk[:, 0], tables, offs, 0),
         lambda: pa.paged_append_prefill_quant(qk, qv, ks, vs, nk, nk,
@@ -2218,8 +2225,9 @@ def test_fused_qkv_append_kv_layer_head_dim_256(cuda, xdt, pdt, b):
 
 
 def test_softcap_forms_outside_the_slice_raise(cuda):
-    # the cap over INT8 and e4m3 pools, on verify rows and on the dense
-    # arena raise before any launch
+    # the cap over INT8 and e4m3 pools (decode, verify and prefill) raises
+    # before any launch (on verify rows and on the dense arena over pools
+    # of q's dtype it runs since Gemma-2's dense slice)
     g = torch.Generator(device=cuda).manual_seed(1)
     bf, e4 = torch.bfloat16, torch.float8_e4m3fn
     pk, pv = _pools(g, cuda, bf, kvn=2, d=64)
@@ -2235,16 +2243,96 @@ def test_softcap_forms_outside_the_slice_raise(cuda):
         lambda: pd.paged_flash_decode(q1, qk, qv, tables, kv, 0, k_scale=ks,
                                       v_scale=vs, **cap),
         lambda: pd.paged_flash_decode(q1, ek, ev, tables, kv, 0, **cap),
-        lambda: pd.paged_flash_verify(q3, pk, pv, tables, kv, 0, **cap),
+        lambda: pd.paged_flash_verify(q3, qk, qv, tables, kv, 0, k_scale=ks,
+                                      v_scale=vs, **cap),
+        lambda: pd.paged_flash_verify(q3, ek, ev, tables, kv, 0, **cap),
         lambda: pp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
                                        k_scale=ks, v_scale=vs, **cap),
         lambda: pp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0,
                                        **cap),
     ]
-    before = (pd.paged_flash_decode_int8kv.launches,
-              pd.paged_flash_verify.launches, dict(fp.CAP_LAUNCHES))
+    forms = (pd.paged_flash_decode_int8kv, pd.paged_flash_decode_fp8kv,
+             pd.paged_flash_verify_int8kv, pd.paged_flash_verify_fp8kv)
+    before = ([f.launches for f in forms], dict(fp.CAP_LAUNCHES))
     for call in calls:
         with pytest.raises(NotImplementedError, match="soft cap"):
             call()
-    assert before == (pd.paged_flash_decode_int8kv.launches,
-                      pd.paged_flash_verify.launches, dict(fp.CAP_LAUNCHES))
+    assert before == ([f.launches for f in forms], dict(fp.CAP_LAUNCHES))
+
+
+# --------------------- Gemma-2 on the dense arena and under speculation
+# 13w, 13c and 13wc at Gemma-2-2B's decode (8 q heads over 4 kv heads,
+# D 256, an arena of 8192 slots) and D 128 (Mistral's 32 over 8); the
+# verify forms at D 256 (4v/256, 4vw/256: Gemma-1's group of 8, two row
+# blocks at S 5; Gemma-2-2B's and -9B's group of 2) and capped (4vc, 4vwc
+# at D 128 and 256). Scores past the cap where it is on; kv_len 0, below
+# and past the window, a band starting inside a tile.
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window,cap", [(4096, None), (None, G2_CAP),
+                                        (4096, G2_CAP), (100, G2_CAP)],
+                         ids=["13w", "13c", "13wc", "13wc-100"])
+@pytest.mark.parametrize("n,kvn,d", [(G2_N, G2_KVN, 256), (32, 8, 128)])
+def test_flash_decode_window_and_softcap(cuda, dtype, window, cap, n, kvn,
+                                         d):
+    from simplellminference_tpu_torch.ops.attention import flash_decode as fd
+    g = torch.Generator(device=cuda).manual_seed(d + (window or 7))
+    lens = [0, 1, 100, 4096, 4097, 4224, 4543, 8192]
+    b, smax = len(lens), 8192
+    ck, cv = _arena(g, cuda, dtype, rows=b + 1, kvn=kvn, smax=smax, d=d)
+    q = torch.randn((b, n, d), generator=g, device=cuda,
+                    dtype=dtype) * (60 if cap else 1)
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    form = fd.flash_decode_window if window else fd.flash_decode
+    key = (form.__name__, d)
+    before = form.launches, fp.CAP_LAUNCHES.get(key, 0)
+    got = fd.flash_decode(q, ck, cv, kv, layer=1, window=window,
+                          logit_cap=cap)
+    assert (form.launches, fp.CAP_LAUNCHES.get(key, 0)) == (
+        before[0] + 1, before[1] + bool(cap))
+    want = fd.flash_decode_ref(q, ck, cv, kv, layer=1, window=window,
+                               logit_cap=cap)
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
+    assert not got[0].any()          # kv_len 0 -> zero output
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 4096, 100],
+                         ids=["4v", "4vw", "4vw-100"])
+@pytest.mark.parametrize("n,kvn,d,cap", [
+    (G_N, G_KVN, 256, None), (G2_N, G2_KVN, 256, None),
+    (G2_N, G2_KVN, 256, G2_CAP), (16, 8, 256, G2_CAP), (32, 8, 128, G2_CAP)],
+    ids=["gemma-1", "gemma-2", "gemma-2-cap", "gemma-2-9b-cap", "d128-cap"])
+def test_paged_flash_verify_head_dim_256_and_softcap(cuda, dtype, window, n,
+                                                     kvn, d, cap):
+    g = torch.Generator(device=cuda).manual_seed(n + kvn + d + (window or 3))
+    s, ps, mp = 5, 128, 36
+    lens = [0, 3, 5, 128, 4096, 4100, 4500, 200]
+    b = len(lens)
+    pk, pv = _pools(g, cuda, dtype, b=b, kvn=kvn, ps=ps, d=d, mp=mp)
+    q = torch.randn((b, s, n, d), generator=g, device=cuda,
+                    dtype=dtype) * (60 if cap else 1)
+    tables = torch.randperm(b * mp, generator=g, device=cuda).to(
+        torch.int32).reshape(b, mp)
+    tables[-1] = -1                  # a dead slot: every entry unmapped
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    form = pd.paged_flash_verify_window if window else pd.paged_flash_verify
+    name = form.__name__
+
+    def counts():
+        return (form.launches, pd.D256_LAUNCHES[name],
+                fp.CAP_LAUNCHES.get((name, d), 0))
+
+    before = counts()
+    got = pd.paged_flash_verify(q, pk, pv, tables, kv, 1, window=window,
+                                logit_cap=cap)
+    assert counts() == (before[0] + 1, before[1] + (d == 256),
+                        before[2] + bool(cap))
+    want = pd.paged_flash_verify_ref(q, pk, pv, tables, kv, 1,
+                                     window=window, logit_cap=cap)
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
+    assert not got[0].any() and not got[-1].any()
+    assert not got[1, :2].any()      # rows before position 0

@@ -206,12 +206,20 @@ def test_full_model_unaffected_by_reclaim_flag():
 
 
 def test_dense_forward_still_refuses_windows():
-    """The Generator's window needs flash_decode's window form."""
-    from simplellminference_tpu_torch.models import llama as tllama
+    """No longer: the Generator attends through flash_decode's window form
+    (13w), greedy tokens equal to JAX's Generator and to the grouped
+    Engine's, prompts and generation past the window."""
+    from simplellminference_tpu.runtime.generator import (
+        Generator as JaxGenerator)
     from simplellminference_tpu_torch.runtime.generator import Generator
 
     jcfg, tcfg = _cfgs()
-    _, tp = _params(jcfg, 9)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        Generator(tcfg, tp, max_batch=1, max_seq=64, device="cpu")
-    tllama.check_supported(tcfg)      # the paged path takes it
+    jp, tp = _params(jcfg, 9)
+    prompts = [[3, 1, 4, 1, 5, 9, 2, 6, 5, 3], [9, 2, 6]]
+    want = JaxGenerator(jcfg, jp, max_batch=2, max_seq=64).generate(
+        prompts, JaxSampling(max_new_tokens=12)).token_ids
+    gen = Generator(tcfg, tp, max_batch=2, max_seq=64, device="cpu")
+    assert gen.generate(prompts, SamplingParams(
+        max_new_tokens=12)).token_ids == want
+    je, te = _engines(jcfg, tcfg, jp, tp)
+    assert _serve(je, te, prompts, 12) == want

@@ -12,9 +12,11 @@ rows, Gemma-2-2B's GQA of 2 q heads a kv head, f32 pools) as
 tests/test_torch_gemma.py holds 6 at D 256: q and the written rows within
 2e-2 of their standard deviation, every other pool entry exact, and the
 written rows within 1e-5 of the largest magnitude of the JAX package's
-plain product on the same bf16 intermediates. The forms the slice leaves
-out raise NotImplementedError naming the feature: the cap over INT8 and
-e4m3 pools, on verify rows and on the dense arena (13), and sinks.
+plain product on the same bf16 intermediates. The forms still left out
+raise NotImplementedError naming the feature: the cap over INT8 and e4m3
+pools (decode, verify and prefill), and sinks. The cap on verify rows and
+on the dense arena (4vc, 4vwc, 13c) runs since Gemma-2's dense slice
+(tests/test_torch_dense_window.py holds them against JAX).
 """
 
 import jax.numpy as jnp
@@ -265,18 +267,15 @@ def test_forms_outside_the_slice_raise(d):
         "over INT8 KV": [
             lambda: tpd.paged_flash_decode(q1, qk, qv, tables, kv, 0,
                                            k_scale=ks, v_scale=vs, **cap),
+            lambda: tpd.paged_flash_verify(q3, qk, qv, tables, kv, 0,
+                                           k_scale=ks, v_scale=vs, **cap),
             lambda: tpp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
                                             k_scale=ks, v_scale=vs, **cap)],
         "over FP8 KV": [
             lambda: tpd.paged_flash_decode(q1, ek, ev, tables, kv, 0, **cap),
+            lambda: tpd.paged_flash_verify(q3, ek, ev, tables, kv, 0, **cap),
             lambda: tpp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0,
                                             **cap)],
-        "on verify rows": [
-            lambda: tpd.paged_flash_verify(q3, pk, pv, tables, kv, 0, **cap),
-            lambda: tpd.paged_flash_verify(q3, pk, pv, tables, kv, 0,
-                                           window=4, **cap)],
-        "soft cap": [
-            lambda: tfd.flash_decode(q1, arena, arena, kv, layer=0, **cap)],
         "sinks": [
             lambda: tpp.paged_flash_prefill(q3, pk, pv, tables, kv, offs, 0,
                                             sinks=torch.zeros(N)),
@@ -290,3 +289,12 @@ def test_forms_outside_the_slice_raise(d):
         for fn in fns:
             with pytest.raises(NotImplementedError, match=feature):
                 fn()
+    # the cap on verify rows (4vc, 4vwc) and on the dense arena (13c,
+    # 13wc) runs, at D 256 too
+    assert tpd.paged_flash_verify(q3, pk, pv, tables, kv, 0,
+                                  **cap).shape == q3.shape
+    assert tpd.paged_flash_verify(q3, pk, pv, tables, kv, 0, window=4,
+                                  **cap).shape == q3.shape
+    for w in (None, 4):
+        assert tfd.flash_decode(q1, arena, arena, kv, layer=0, window=w,
+                                **cap).shape == q1.shape
