@@ -107,7 +107,16 @@ Phases, in order; any failure exits non-zero:
                 verify forms at S 5: 4v/256 and 4vw/256 at Gemma-1's
                 group of 8 (two row blocks), 4vc/256 and 4vwc/256 at
                 Gemma-2-2B's and -9B's groups of 2 (the window over ring
-                tables, NaN pages below the band), D 128, f32. Max
+                tables, NaN pages below the band), D 128, f32. Then
+                gpt-oss-20b's attention (64 q heads over 8 kv heads of 64,
+                window 128, sinks drawn N(0, 1)): the sink forms 3s, 3ws,
+                4s, 4ws (over ring tables, NaN pages below the band), 8s
+                and 8ws at its paths' shapes by their sinkless forms'
+                rules, with a case of each where the sink lies above every
+                score (4s at kv_len 4096 and 8s at offset 4096 split their
+                key walks: a sink seeded in every split would be counted
+                several times), kv_len 0 rows and f32, each timed case
+                beside scaled_dot_product_attention without sinks. Max
                 |error| beside
                 its tolerance, kernel / plain / library times from
                 CUDA-graph replay, and the bound (the least time for the
@@ -161,7 +170,7 @@ Phases, in order; any failure exits non-zero:
                 --act-quant: the
                 prefix path's traffic, every prefill product of 128 rows
                 or more on the W8A8 kernel), each wave's TTFT beside the
-                `prefix` path's. Then `mistral_window`: Mistral-7B (8
+                `prefix` path's. Then `mistral_window`: Mistral-7B (4
                 layers, sliding_window 4096, bench.py's INT8 weights,
                 bf16 KV, prefill_chunk 256) in the grouped engine, 4
                 greedy prompts of 4224 tokens and 320 new ones (the ring
@@ -174,43 +183,61 @@ Phases, in order; any failure exits non-zero:
                 bf16 weights, the prefix path's traffic) and `spec_fp8kv`
                 (spec_tokens 4 over e4m3 pools, INT8 weights), each with
                 its exact launch counts. Depth cuts, to keep the run
-                within half its time limit: the spec paths at 4 layers,
-                `bf16`, `dense_bf16`, `int4`, `int4_dense`, `draft`'s
-                target, `mistral_window` and `gemma2_window` at 8,
-                `gemma2_draft`'s target at 14. Then,
-                Gemma-2B at full width and depth (18 layers, H 2048,
+                within half its time limit: the spec paths, `bf16`,
+                `dense_bf16`, `int4`, `int4_dense`, `mistral_window`,
+                `gemma2`, `gemma2_window`, `gemma2_dense`, `gemma2_spec`
+                and `gemma2_draft`'s target at 4 layers, `gemma_prefix` at
+                6, `draft`'s target, both drafters (TinyLlama,
+                Gemma-2-2B), `dense`, `prefix`, `w8a8`, `int8kv`,
+                `int8kv_prefix`, `fp8kv` and `fp8kv_prefix` at 8, `gemma`
+                at 9. Then,
+                Gemma-2B at full width (9 of its 18 layers, H 2048,
                 I 16384, V 256000, 8 heads over one kv head of 256,
                 GeGLU, the embedding scale, a tied bf16 head): `gemma`
                 (bench.py's shape with INT8 weights, the prefix cache
                 off: 2, 3, 6m, 4, 5r and 5m, each D-256 form's row too)
-                and `gemma_prefix` (the server's default: bf16 weights,
+                and `gemma_prefix` (6 layers; the server's default: bf16 weights,
                 the prefix path's traffic: 2, 8, 1 and 4), each with its
                 exact launch counts, decode rate, graph-replayed step,
                 bytes floor, idle share and TTFT. Then Gemma-2-2B at full
-                width and depth (26 layers, H 2304, I 9216, V 256000, 8
+                width (4 of its 26 layers, H 2304, I 9216, V 256000, 8
                 heads over 4 kv heads of 256, soft caps 50 and 30, the
                 sandwich norms, sliding and full layers alternating at
                 window 4096, a tied head) in the grouped engine: `gemma2`
                 (bench.py's shape with INT8 weights: 3c, 3wc, 6k, 4c, 4wc,
-                5r, 5m) and `gemma2_window` (8 layers, bf16 weights,
+                5r, 5m) and `gemma2_window` (4 layers, bf16 weights,
                 prefill_chunk 256, 4 x 4224-token prompts + 320 new ones:
                 8c, 8wc, 2, 1, 4c, 4wc; the window trims and the ring
                 of 35 pages wraps), each with its exact launch counts,
                 graph-replayed step beside its bytes floor, and idle
                 share. Then Gemma-2
-                on the dense arena and under speculation: `gemma2_dense`
-                (bench.py's Generator.generate_fused at Gemma-2-2B, INT8
+                on the dense arena and under speculation, at 4 layers:
+                `gemma2_dense` (bench.py's Generator.generate_fused, INT8
                 weights, 4 x 4224-token prompts, max_seq 4608, 64 new
                 tokens: 12, 3c, 3wc, 6d (6m), 13c, 13wc, 5r, 5m; the
                 sliding layers' window trims from the first step),
                 `gemma2_spec` (the server CLI's --spec-tokens 4 at
                 Gemma-2-2B, bf16, the grouped engine, the `spec` traffic:
                 2, 3c, 3wc, 11, 4vc, 4vwc) and `gemma2_draft` (Gemma-2-9B
-                at its published width and 14 of its 42 layers,
+                at its published width and 4 of its 42 layers,
                 google/gemma-2-9b's config.json in `GEMMA2_9B_HF`, bf16,
-                drafted by Gemma-2-2B at 26 layers, the `draft` traffic:
+                drafted by Gemma-2-2B at 8 layers, the `draft` traffic:
                 the rollout's 12, 13c, 13wc, 3c, 3wc, the target's 4vc,
-                4vwc), each with its exact launch counts.
+                4vwc), each with its exact launch counts. Last,
+                gpt-oss-20b at full width and depth (openai/gpt-oss-20b's
+                config.json in `GPT_OSS_20B_HF`: 24 layers, H 2880, 64
+                heads over 8 kv heads of 64, sinks, q/k/v/o biases, yarn
+                rotary, 32 experts of 2880 with top 4 and their biases,
+                V 201088, window 128 on the even layers) in the grouped
+                engine: `gpt_oss` (bench.py's shape, the layer products
+                and folded experts quantized to INT8 by the port's
+                quantize_params, an INT8 head: 3s, 3ws, 2, 1, 4s, 4ws, 5r,
+                5m) and `gpt_oss_prefix` (the server's default: bf16
+                weights, the prefix path's traffic, which the grouped
+                engine prefills as 3 chunks a prompt: 8s, 8ws, 2, 1, 4s,
+                4ws), each with its exact launch counts, decode rate,
+                graph-replayed step beside its bytes floor (every folded
+                expert read), idle share and TTFT.
   5. cpu      — the same port at Llama-2-7B width, 1 layer, f32, TF32 off,
                 on the card (kernels) and on the host CPU (plain
                 versions), from one draw of the weights (on the card,
@@ -254,7 +281,11 @@ Phases, in order; any failure exits non-zero:
                 that the prompts and steps pass it, the Generator, the
                 prompt-lookup spec Engine and the draft Engine (a
                 Gemma-2-9B-wide target of 2 layers drafted by that
-                Gemma-2-2B) on both devices.
+                Gemma-2-2B) on both devices. Then gpt-oss-20b at full
+                width, 2 layers (a sliding and a full one), f32, the
+                window cut to 32: 8 greedy steps and the prefix traffic
+                (chunked over the ring pools) by the same rules; the
+                card runs every sink form.
 
 Then one line ``{"kernels": [...]}`` (each kernel's launches on every
 path, and in phase 3: kernels 16 and 17 run only there) and, last, the
@@ -300,6 +331,8 @@ LOGIT_TOL_CODE_APART = 1e-2
 RATE_RUNS = 5                       # engine runs per length for the rate
 SPEC_RATE_RUNS = 3                  # the same, per engine on the spec paths
 DRAFT_TOKENS = 4                    # spec_tokens of the `draft` path
+DRAFT_LAYERS = 8                    # the drafters' depth (`draft`: TinyLlama
+                                    # of 22, `gemma2_draft`: Gemma-2-2B of 26)
 PHASES = ("device", "build", "kernels", "engine", "cpu")
 
 KERNELS = {
@@ -507,6 +540,27 @@ KERNELS = {
     "fused_qkv_append_kv_layer_d256": dict(
         source="simplellminference_tpu_torch/csrc/qkv_fused_mma.cu",
         replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
+    # gpt-oss-20b: GPT-OSS's attention sinks in kernels 3, 4 (decode rows)
+    # and 8 and their window forms at head_dim 64 (3s, 3ws, 4s, 4ws, 8s,
+    # 8ws); each launch also counts in its form's row above
+    "flash_prefill_sinks": dict(
+        source="simplellminference_tpu_torch/csrc/flash_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_prefill.py:102"),
+    "flash_prefill_window_sinks": dict(
+        source="simplellminference_tpu_torch/csrc/flash_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_prefill.py:102"),
+    "paged_flash_decode_sinks": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "paged_flash_decode_window_sinks": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "paged_flash_prefill_sinks": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    "paged_flash_prefill_window_sinks": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
     # Gemma-2 on the dense arena and under speculation: the window form of
     # kernel 13 (13w, every head dim; capped launches too), its capped
     # forms at head_dim 256 (13c, 13wc), and the verify forms of kernel 4
@@ -563,12 +617,17 @@ KERNELS = {
 # weights and chunked prefill, over prompts past its window; then Gemma-2
 # on the dense arena and under speculation: bench.py's Generator over
 # prompts past the window (INT8 weights), the server CLI's --spec-tokens 4
-# (bf16) and Gemma-2-9B drafted by Gemma-2-2B (bf16)
+# (bf16) and Gemma-2-9B drafted by Gemma-2-2B (bf16); then gpt-oss-20b
+# (attention sinks, the mixture of experts, biases, alternating sliding
+# and full layers at head_dim 64) at its full 24 layers, as bench.py
+# draws its INT8 path and as the server serves it by default (bf16
+# weights, the prefix path's traffic)
 PATHS = ("int8", "bf16", "prefix", "int8kv", "int8kv_prefix", "spec",
          "spec_int8kv", "fp8kv", "fp8kv_prefix", "spec_fp8kv", "dense",
          "dense_bf16", "draft", "int4", "int4_dense", "w8a8",
          "mistral_window", "gemma", "gemma_prefix", "gemma2",
-         "gemma2_window", "gemma2_dense", "gemma2_spec", "gemma2_draft")
+         "gemma2_window", "gemma2_dense", "gemma2_spec", "gemma2_draft",
+         "gpt_oss", "gpt_oss_prefix")
 # google/gemma-2-2b's config.json (huggingface.co/google/gemma-2-2b), the
 # published values the Gemma-2 paths serve; its layer_types as
 # transformers.Gemma2Config derives them: sliding on even layers, full on
@@ -609,6 +668,34 @@ def gemma2_2b(num_layers: int = 26, dtype: str = "bfloat16"):
 def gemma2_9b(num_layers: int = 42, dtype: str = "bfloat16"):
     """Gemma-2-9B's ModelConfig from :data:`GEMMA2_9B_HF`."""
     return _gemma2(GEMMA2_9B_HF, num_layers, dtype)
+
+
+# openai/gpt-oss-20b's config.json (huggingface.co/openai/gpt-oss-20b):
+# the published values the `gpt_oss` paths serve (transformers'
+# GptOssConfig() defaults are gpt-oss-120b's: 36 layers, 128 experts);
+# its layer_types: sliding on even layers, full on odd ones
+GPT_OSS_20B_HF = dict(
+    model_type="gpt_oss", vocab_size=201088, hidden_size=2880,
+    intermediate_size=2880, num_hidden_layers=24, num_attention_heads=64,
+    num_key_value_heads=8, head_dim=64, num_local_experts=32,
+    num_experts_per_tok=4, experts_per_token=4, tie_word_embeddings=False,
+    attention_bias=True, sliding_window=128, rope_theta=150000.0,
+    rope_scaling={"rope_type": "yarn", "factor": 32.0, "beta_fast": 32.0,
+                  "beta_slow": 1.0, "original_max_position_embeddings": 4096,
+                  "truncate": False},
+    max_position_embeddings=131072, rms_norm_eps=1e-5, swiglu_limit=7.0,
+    hidden_act="silu", initial_context_length=4096)
+
+
+def gpt_oss_20b(num_layers: int = 24, dtype: str = "bfloat16"):
+    """gpt-oss-20b's ModelConfig from :data:`GPT_OSS_20B_HF` through the
+    port's ``from_hf_dict`` (depth ``num_layers``: the alternation
+    kept)."""
+    from simplellminference_tpu_torch.core.config import ModelConfig
+    d = dict(GPT_OSS_20B_HF, num_hidden_layers=num_layers, layer_types=[
+        "sliding_attention" if i % 2 == 0 else "full_attention"
+        for i in range(num_layers)])
+    return ModelConfig.from_hf_dict(d, dtype=dtype)
 # every launch of phase 3, by kernel (filled by phase_kernels)
 phase3_launches: dict = {}
 
@@ -2456,7 +2543,7 @@ def draft_arena_shape() -> tuple[int, int]:
     configuration (:func:`serve_draft` checks the arena it serves)."""
     from simplellminference_tpu_torch.core.config import ModelConfig
     from simplellminference_tpu_torch.engine.engine import draft_arena_slots
-    return (ModelConfig.tinyllama_1_1b().num_layers,
+    return (ModelConfig.tinyllama_1_1b(num_layers=DRAFT_LAYERS).num_layers,
             draft_arena_slots(spec_engine_config(DRAFT_TOKENS, "bf16", 8, 0)))
 
 
@@ -4545,6 +4632,292 @@ def check_gemma2_dense(torch, dev, results, extra):
     torch.cuda.empty_cache()
 
 
+# gpt-oss-20b (openai/gpt-oss-20b): 64 q heads over 8 kv heads of 64,
+# window 128 on the sliding layers, attention sinks drawn N(0, 1) as the
+# JAX package's init_params draws them
+GPT_OSS = dict(n=64, kvn=8, d=64, window=128)
+BIG_SINK = 10.0   # above every score of unit q and k at D**-0.5 (checked)
+
+
+def _sink_draw(torch, gen, dev, n, big):
+    """A layer's sinks as the model holds them (bf16 values in f32):
+    N(0, 1), or BIG_SINK, above every score of their rows, so that a sink
+    counted twice or in the wrong units moves each output by far more
+    than the rule allows."""
+    if big:
+        return torch.full((n,), BIG_SINK, device=dev)
+    return torch.randn((n,), generator=gen, device=dev).to(
+        torch.bfloat16).float()
+
+
+def _top_score(torch, q, k, scale):
+    """The largest |score| of sequence 0's first q head over its kv
+    head's keys (q [.., N, D] rows, k [.., kvN, D] rows)."""
+    qs = q[0].reshape(-1, q.shape[-2], q.shape[-1])[:, 0].float()
+    ks = k[0].reshape(-1, k.shape[-2], k.shape[-1])[:, 0].float()
+    return float((qs @ ks.T).abs().max()) * scale
+
+
+def check_gpt_oss(torch, dev, results, extra):
+    """The sink forms at gpt-oss-20b's attention (64 q heads over 8 kv
+    heads, D 64, window 128, page 128) against their plain versions by
+    :func:`_rounding_rule` (one bf16 ulp of each output + 1e-5 of the
+    largest; f32 within 1e-5 of the largest): 3s and 3ws at bench.py's
+    prefill (8 x 128 rows, the rows) and a window of 40 across 300 rows
+    with a sink above every score; 4s at `gpt_oss`'s decode (8 rows at
+    kv_len 128-156, the row), at kv_len 4096 where ``decode_splits`` splits
+    the key walk (sinks above every score: a sink seeded in every split
+    would be counted four times), edges (kv_len 0, 1, a dead slot), f32;
+    4ws over ring tables (the grouped engine's R 3) at window edges, the
+    columns below the band on NaN pages; 8s at `gpt_oss_prefix`'s chunk
+    (256 rows at offset 256 over 512 keys, the row) and 8ws at its last
+    chunk over the ring (offset 512, the row), 64 rows at offset 4096 (the
+    key walk split over 4 blocks) and a ragged batch with a sink above
+    every score, f32. Each row's case timed beside its plain
+    version, its bytes bound and scaled_dot_product_attention at the same
+    shape without sinks (no PyTorch call computes the sink's softmax
+    without compiling)."""
+    import torch.nn.functional as F
+
+    from simplellminference_tpu_torch.memory.paged_kv import gather_dense
+    from simplellminference_tpu_torch.ops import ref_ops
+    from simplellminference_tpu_torch.ops.attention import flash_prefill as fp
+    from simplellminference_tpu_torch.ops.attention import paged_decode as pd
+    from simplellminference_tpu_torch.ops.attention import paged_prefill as pp
+    from simplellminference_tpu_torch.ops.attention import prefill_tiles
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(2880)
+    bf, f32 = torch.bfloat16, torch.float32
+    n, kvn, d, win = (GPT_OSS["n"], GPT_OSS["kvn"], GPT_OSS["d"],
+                      GPT_OSS["window"])
+    ps, layer, scale = 128, 1, GPT_OSS["d"] ** -0.5
+
+    def rule(name, tag, got, want, big, top, dead=()):
+        ok, err, share, note = _rounding_rule(torch, got, want)
+        zero = all(bool((got[i] == 0).all()) for i in dead)
+        print(f"[kernels] {name} {tag}: max|err| {err:.3e} ({note}; the "
+              f"worst element at {share:.3f} of its limit); max|score| "
+              f"{top:.2f}{f' < sink {BIG_SINK}' if big else ''}; rows "
+              f"without keys zero: {zero}", flush=True)
+        require(bool(torch.isfinite(got).all()) and ok and zero,
+                f"{name} {tag} disagrees: {err} ({share:.3f} of the limit),"
+                f" zero rows {zero}")
+        require(not big or top < BIG_SINK, f"{name} {tag}: a score {top} "
+                f"passes the sink {BIG_SINK}")
+        return err
+
+    # 3s, 3ws: (b, s, window, big sink, dtype); the rows first
+    cases = {"gpt-oss-20b": (8, 128, None, False, bf),
+             "gpt-oss-20b window": (8, 128, win, False, bf),
+             "window 40 sink above": (2, 300, 40, True, bf),
+             "f32 window 40": (2, 200, 40, False, f32)}
+    for tag, (b, sl, w, big, dtype) in cases.items():
+        q = torch.randn((b, sl, n, d), generator=gen, device=dev,
+                        dtype=dtype)
+        qkv = torch.randn((b, sl, 2 * kvn * d), generator=gen, device=dev,
+                          dtype=dtype)
+        k = qkv[..., :kvn * d].reshape(b, sl, kvn, d)
+        v = qkv[..., kvn * d:].reshape(b, sl, kvn, d)
+        sinks = _sink_draw(torch, gen, dev, n, big)
+        got = fp.flash_prefill(q, k, v, window=w, sinks=sinks)
+        want = fp.flash_prefill_ref(q, k, v, window=w, sinks=sinks)
+        torch.cuda.synchronize()
+        splits = prefill_tiles.launch_splits(b, sl, n, kvn, w or 0, sl)
+        err = rule("flash_prefill sinks", f"{tag} (B={b} S={sl} N={n} "
+                   f"kvN={kvn} D={d} window={w}, {splits} splits)", got,
+                   want, big, _top_score(torch, q, k, scale))
+        if not tag.startswith("gpt-oss-20b"):
+            continue
+        qt = q.transpose(1, 2)
+        kt = _gqa(torch, k.transpose(1, 2), n).contiguous()
+        vt = _gqa(torch, v.transpose(1, 2), n).contiguous()
+        keys = sum(min(i + 1, w or sl) for i in range(sl))
+        es = q.element_size()
+        bms, by = bound_ms((2 * b * sl * n * d + 2 * b * sl * kvn * d) * es
+                           + 4 * n, 4.0 * b * n * d * keys, "bfloat16")
+        mask = ref_ops.causal_mask(sl, sl, window=w, device=dev)
+        row = ("flash_prefill_sinks" if w is None
+               else "flash_prefill_window_sinks")
+        results[row] = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: fp.flash_prefill(q, k, v, window=w,
+                                                       sinks=sinks)),
+            plain_ms=time_ms(torch, lambda: fp.flash_prefill_ref(
+                q, k, v, window=w, sinks=sinks)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask)), bound_ms=bms, bound_by=by,
+            library=LIBRARY[row])
+        del qkv
+
+    # 4s (table columns, a dead last slot) and 4ws over the ring: (lens,
+    # window, big sink, dtype); the rows first
+    r_ring = (win + 128 - 2) // ps + 2    # the engine's ring, chunk 0
+    cases = {"gpt-oss-20b": ([128 + 4 * i for i in range(8)], None, False,
+                             bf),
+             "gpt-oss-20b window": ([128 + 4 * i for i in range(8)], win,
+                                    False, bf),
+             "kv_len 4096 sink above": ([4096] * 8, None, True, bf),
+             "edges": ([0, 1, 63, 64, 65, 4095, 300, 5], None, False, bf),
+             "window edges sink above": ([0, 1, 127, 128, 129, 255, 256,
+                                          1000], win, True, bf),
+             "f32 window": ([0, 7, 129, 700], win, False, f32),
+             "f32 kv_len 4096": ([4096, 4000, 17, 0], None, False, f32)}
+    for tag, (lens, w, big, dtype) in cases.items():
+        b = len(lens)
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn((b, n, d), generator=gen, device=dev, dtype=dtype)
+        mp = -(-max(max(lens), 1) // ps)
+        if w is None:
+            pk, pv = _pools(torch, gen, dev, 2, b * mp, kvn, ps, d, dtype)
+            clean = _tables(torch, dev, b, mp, dead_last=tag == "edges")
+            dirty = clean
+        else:
+            pk, pv = _ring_pools(torch, gen, dev, b, r_ring, kvn, ps, d,
+                                 dtype, False)
+            clean = _ring_tables(torch, dev, b, r_ring, mp)
+            dirty = _poisoned(torch, clean, kv - w, ps, b * r_ring)
+        sinks = _sink_draw(torch, gen, dev, n, big)
+
+        def run(tb, q=q, pk=pk, pv=pv, kv=kv, w=w, sinks=sinks):
+            return pd.paged_flash_decode(q, pk, pv, tb, kv, layer, window=w,
+                                         sinks=sinks)
+
+        got = run(dirty)
+        want = pd.paged_flash_decode_ref(q, pk, pv, clean, kv, layer,
+                                         window=w, sinks=sinks)
+        torch.cuda.synchronize()
+        span = mp * ps if not w else min(mp * ps, w)
+        splits = pd.decode_splits(b, kvn, span)
+        dead = ([i for i in range(b) if lens[i] == 0]
+                + ([b - 1] if tag == "edges" else []))
+        ck, cv = gather_dense(pk[layer], pv[layer], clean)
+        err = rule("paged_flash_decode sinks", f"{tag} (B={b} kv_lens "
+                   f"{lens[:4]}.. window={w}, {splits} splits)", got, want,
+                   big, _top_score(torch, q[:, None], ck.transpose(1, 2),
+                                   scale), dead)
+        require(not big or w or splits > 1,
+                f"paged_flash_decode sinks {tag}: one split only")
+        same = bool(torch.equal(got, run(clean)))
+        require(same, f"paged_flash_decode sinks {tag}: a page below the "
+                f"window band was read")
+        if not tag.startswith("gpt-oss-20b"):
+            del ck, cv, pk, pv
+            continue
+        es = q.element_size()
+        span_keys = [min(ln, w) if w else ln for ln in lens]
+        kvb = 2 * sum(span_keys) * kvn * d * es
+        bms, by = bound_ms(2 * b * n * d * es + kvb + clean.numel() * 4
+                           + b * 4 + 4 * n, 4.0 * n * d * sum(span_keys),
+                           "bfloat16")
+        ck, cv = _gqa(torch, ck, n), _gqa(torch, cv, n)
+        key_pos = torch.arange(ck.shape[2], device=dev)[None, None, None]
+        mask = key_pos < kv.long()[:, None, None, None]
+        if w:
+            mask = mask & (key_pos >= kv.long()[:, None, None, None] - w)
+        row = ("paged_flash_decode_sinks" if w is None
+               else "paged_flash_decode_window_sinks")
+        results[row] = dict(
+            max_abs_err=err, ms=time_ms(torch, lambda: run(clean)),
+            plain_ms=time_ms(torch, lambda: pd.paged_flash_decode_ref(
+                q, pk, pv, clean, kv, layer, window=w, sinks=sinks)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None], ck, cv, attn_mask=mask)),
+            bound_ms=bms, bound_by=by, library=LIBRARY[row])
+        del ck, cv, pk, pv
+
+    # 8s and 8ws (over the ring for 256-row chunks): (Sq, offsets, kv_lens,
+    # window, big sink, dtype, page); rows first
+    r_chunk = (win + 256 - 2) // ps + 2
+    cases = {"gpt-oss-20b chunk": (256, [256], [512], None, False, bf, 128),
+             "gpt-oss-20b window chunk": (256, [512], [576], win, False, bf,
+                                          128),
+             "split sink above": (64, [4096], [4160], None, True, bf, 128),
+             "ragged sink above": (100, [0, 48, 16, 0], [100, 130, 77, 1],
+                                   None, True, bf, 16),
+             "window ragged sink above": (128, [512, 1024, 0],
+                                          [640, 1100, 60], win, True, bf,
+                                          128),
+             "f32 window ragged": (100, [0, 256, 16, 0], [100, 300, 77, 1],
+                                   win, False, f32, 128)}
+    for tag, (sq, offs, lens, w, big, dtype, pss) in cases.items():
+        b = len(offs)
+        mp = -(-max(o + sq for o in offs) // pss)
+        off_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+        kv_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        if w is None:
+            pk, pv = _pools(torch, gen, dev, 2, b * mp, kvn, pss, d, dtype)
+            ragged = b > 2
+            clean = _tables(torch, dev, b, mp, dead_last=ragged)
+            if ragged:
+                clean[2, 1] = -1          # inside row 2's kv_len
+            dirty = clean
+        else:
+            rr = (w + sq - 2) // pss + 2 if sq != 256 else r_chunk
+            pk, pv = _ring_pools(torch, gen, dev, b, rr, kvn, pss, d, dtype,
+                                 False)
+            clean = _ring_tables(torch, dev, b, rr, mp)
+            dirty = _poisoned(torch, clean, off_t - w + 1, pss, b * rr)
+        q = torch.randn((b, sq, n, d), generator=gen, device=dev,
+                        dtype=dtype)
+        sinks = _sink_draw(torch, gen, dev, n, big)
+
+        def run(tb, q=q, pk=pk, pv=pv, kv_t=kv_t, off_t=off_t, w=w,
+                sinks=sinks):
+            return pp.paged_flash_prefill(q, pk, pv, tb, kv_t, off_t, layer,
+                                          window=w, sinks=sinks)
+
+        got = run(dirty)
+        want = pp.paged_flash_prefill_ref(q, pk, pv, clean, kv_t, off_t,
+                                          layer, window=w, sinks=sinks)
+        torch.cuda.synchronize()
+        splits = prefill_tiles.launch_splits(b, sq, n, kvn, w or 0,
+                                             mp * pss)
+        ck, cv = gather_dense(pk[layer], pv[layer], clean)
+        err = rule("paged_flash_prefill sinks", f"{tag} (B={b} Sq={sq} D={d}"
+                   f" ps={pss} window={w}, {splits} splits)", got, want, big,
+                   _top_score(torch, q, ck.transpose(1, 2), scale))
+        require(not tag.startswith("split") or splits > 1,
+                f"paged_flash_prefill sinks {tag}: one split only")
+        same = bool(torch.equal(got, run(clean)))
+        require(same, f"paged_flash_prefill sinks {tag}: a page below the "
+                f"window band was read")
+        if not tag.startswith("gpt-oss-20b"):
+            del ck, cv, pk, pv
+            continue
+        es = q.element_size()
+        keys = sum(min(o + i + 1, ln) - (max(0, o + i - w + 1) if w else 0)
+                   for o, ln in zip(offs, lens) for i in range(sq)
+                   if o + i < ln)
+        rows = sum(min(ln, o + sq) - (max(0, o - w + 1) if w else 0)
+                   for o, ln in zip(offs, lens))
+        bms, by = bound_ms(2 * b * sq * n * d * es + 2 * rows * kvn * d * es
+                           + clean.numel() * 4 + 2 * b * 4 + 4 * n,
+                           4.0 * n * d * keys, "bfloat16")
+        ck, cv = _gqa(torch, ck, n), _gqa(torch, cv, n)
+        key_pos = torch.arange(ck.shape[2], device=dev)
+        q_pos = off_t.long()[:, None] + torch.arange(sq, device=dev)[None]
+        mask = ((key_pos[None, None] <= q_pos[:, :, None])
+                & (key_pos[None, None] < kv_t.long()[:, None, None]))
+        if w:
+            mask = mask & (key_pos[None, None] > q_pos[:, :, None] - w)
+        mask = mask[:, None]
+        qt = q.transpose(1, 2)
+        row = ("paged_flash_prefill_sinks" if w is None
+               else "paged_flash_prefill_window_sinks")
+        results[row] = dict(
+            max_abs_err=err, ms=time_ms(torch, lambda: run(clean)),
+            plain_ms=time_ms(torch, lambda: pp.paged_flash_prefill_ref(
+                q, pk, pv, clean, kv_t, off_t, layer, window=w,
+                sinks=sinks)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, ck, cv, attn_mask=mask)),
+            bound_ms=bms, bound_by=by, library=LIBRARY[row])
+        del ck, cv, pk, pv
+    print(f"[kernels] gpt-oss-20b: the sink checks took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+
 LIBRARY = {"paged_append_decode": "index_put_ x2",
            "paged_append_prefill": "index_copy_ x2",
            "flash_prefill": "scaled_dot_product_attention, causal",
@@ -4692,6 +5065,24 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
                                                  "attention on gathered ring "
                                                  "K/V, verify and window "
                                                  "mask (uncapped)",
+           "flash_prefill_sinks": "scaled_dot_product_attention, causal "
+                                  "(K/V repeated per group; no sinks)",
+           "flash_prefill_window_sinks": "scaled_dot_product_attention, "
+                                         "window mask (K/V repeated per "
+                                         "group; no sinks)",
+           "paged_flash_decode_sinks": "scaled_dot_product_attention on "
+                                       "gathered K/V (repeated per group; "
+                                       "no sinks)",
+           "paged_flash_decode_window_sinks": "scaled_dot_product_attention "
+                                              "on gathered ring K/V, window "
+                                              "mask (no sinks)",
+           "paged_flash_prefill_sinks": "scaled_dot_product_attention on "
+                                        "gathered K/V, offset-causal mask "
+                                        "(no sinks)",
+           "paged_flash_prefill_window_sinks": "scaled_dot_product_attention"
+                                               " on gathered ring K/V, "
+                                               "offset-causal window mask "
+                                               "(no sinks)",
            "fused_wo_ffn": "torch._weight_int8pack_mm x3 + eager rmsnorm "
                            "and SwiGLU",
            "flash_decode_dyn": "scaled_dot_product_attention on the arena "
@@ -4744,6 +5135,8 @@ def phase_kernels(torch, results):
     # Gemma-2 on the dense arena and under speculation: 13w, 13c, 13wc,
     # 4v/256, 4vw/256, 4vc, 4vwc
     check_gemma2_dense(torch, dev, results, extra)
+    # gpt-oss-20b: attention sinks (3s, 3ws, 4s, 4ws, 8s, 8ws) at D 64
+    check_gpt_oss(torch, dev, results, extra)
     torch.cuda.empty_cache()
     # every launch of this phase (the checks, their timing): kernels 16
     # and 17 run on no path, as in the JAX package, so these are theirs
@@ -4837,7 +5230,11 @@ def regime_rows(want: dict, cfg) -> dict:
     few = want["quantized_matmul"] - want["quantized_matmul_mma"]
     few_shapes = [(h, qkv), (cfg.num_heads * cfg.head_dim, h),
                   (h, cfg.vocab_size)]
-    if cfg.hidden_act != "silu":
+    if cfg.num_experts:
+        # the folded experts of a decode step (ops/moe.py) on kernel 5
+        e, ie = cfg.num_experts, cfg.expert_intermediate_size
+        few_shapes += [(h, e * 2 * ie), (e * ie, h)]
+    elif cfg.hidden_act != "silu":
         # GeGLU (Gemma): no fused FFN, so its products run on kernel 5
         few_shapes += [(h, 2 * i), (i, h)]
     rmma = all(mm.tiled_regime(8, k, n, k, dtype) == "rmma"
@@ -4876,6 +5273,12 @@ def regime_rows(want: dict, cfg) -> dict:
                  "flash_decode", "flash_decode_window",
                  "paged_flash_verify", "paged_flash_verify_window"):
         out[f"{form}_cap_d256"] = out[form] if cap else 0
+    # GPT-OSS: every attention launch of a model with sinks is a sink one
+    sinks = cfg.head_dim == 64 and cfg.attn_sinks
+    for form in ("flash_prefill", "flash_prefill_window",
+                 "paged_flash_decode", "paged_flash_decode_window",
+                 "paged_flash_prefill", "paged_flash_prefill_window"):
+        out[f"{form}_sinks"] = out[form] if sinks else 0
     return out
 
 
@@ -5050,6 +5453,17 @@ def _wrappers():
                 _Regime(getattr(qf, "D256_FORM_LAUNCHES", {}),
                         "fused_qkv_append_kv_layer"),
                 qf.fused_qkv_append_ref),
+            # the sink forms at gpt-oss-20b's head_dim 64
+            **{f"{form}_sinks": (
+                _Regime(getattr(fp, "SINK_LAUNCHES", {}), (form, 64)), ref)
+               for form, ref in (
+                   ("flash_prefill", fp.flash_prefill_ref),
+                   ("flash_prefill_window", fp.flash_prefill_ref),
+                   ("paged_flash_decode", pd.paged_flash_decode_ref),
+                   ("paged_flash_decode_window", pd.paged_flash_decode_ref),
+                   ("paged_flash_prefill", pp.paged_flash_prefill_ref),
+                   ("paged_flash_prefill_window",
+                    pp.paged_flash_prefill_ref))},
             "fused_wo_ffn": (ff.fused_wo_ffn, ff.fused_wo_ffn_ref),
             "flash_decode_dyn": (fdd.flash_decode_dyn,
                                  fdd.flash_decode_dyn_ref)}
@@ -5100,6 +5514,36 @@ def int8_params(torch, cfg, dev, seed: int = 0) -> dict:
                                                 device=dev)
     if not cfg.tie_word_embeddings:
         params["lm_head"] = w((h, v))
+    return params
+
+
+def moe_params(torch, cfg, dev, int8: bool, seed: int = 0) -> dict:
+    """A mixture-of-experts model's weights (gpt-oss-20b: 42 GB in bf16)
+    drawn by the port's ``init_params`` on the card; with ``int8`` the
+    layer products and the folded experts quantized per output channel by
+    the port's ``quantize_params``, one leaf at a time (each bf16 leaf
+    freed as its INT8 form lands: about 21 GB), the router and the biases
+    left bf16, and an INT8 LM head as bench.py:60-99 draws one (random
+    int8 codes, per-channel scales K**-0.5 / 127)."""
+    from simplellminference_tpu_torch.core.config import QuantConfig
+    from simplellminference_tpu_torch.models import llama
+    from simplellminference_tpu_torch.ops.linear import QuantizedWeight
+    from simplellminference_tpu_torch.runtime.weights import quantize_params
+    params = llama.init_params(cfg, seed=seed, device=dev)
+    if not int8:
+        return params
+    qc = QuantConfig(mode="int8", group_size=0)
+    lw = params["layers"]
+    for name in ("w_gate_up", "w_down", "wqkv", "wo"):
+        lw[name] = quantize_params({"layers": {name: lw[name]}},
+                                   qc)["layers"][name]
+        torch.cuda.empty_cache()
+    h, v = cfg.hidden_size, cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    params["lm_head"] = QuantizedWeight(
+        q=torch.randint(-127, 128, (h, v), generator=gen, device=dev,
+                        dtype=torch.int8),
+        scales=torch.full((1, v), h ** -0.5 / 127.0, device=dev))
     return params
 
 
@@ -5176,9 +5620,16 @@ def path_launches(int8: bool, layers: int, dispatches, steps: int,
     dispatch's sequences, at most 8) stay on its few-rows kernel. ``cfg``
     (the model's config, when not Llama's): a tied head
     (``tie_word_embeddings``, Gemma) is a bf16 torch.matmul, no launch; a
-    GeGLU FFN takes no fused_ffn but two quantized_matmul a layer."""
+    GeGLU FFN takes no fused_ffn but two quantized_matmul a layer; a
+    mixture of experts (GPT-OSS) takes no fused FFN: its decode step runs
+    the folded experts' two products on kernel 5, its prefill the grouped
+    experts (dequantized, ``torch.matmul``), so a prefill dispatch launches
+    kernel 5 for wqkv and wo only; a QKV bias (GPT-OSS) takes the qkv
+    product and the append kernel instead of the fused qkv route."""
     head = int(cfg is None or not cfg.tie_word_embeddings)
-    glu = cfg is None or cfg.hidden_act == "silu"   # the fused FFN's gate
+    moe = cfg is not None and bool(cfg.num_experts)
+    glu = (cfg is None or cfg.hidden_act == "silu") and not moe
+    fqkv = cfg is None or not cfg.attention_bias   # the fused qkv's gate
     want = {name: 0 for name in KERNELS}
     q = {"int8": "_quant", "fp8": "_fp8kv"}.get(kv_dtype, "")
     kv = {"int8": "_int8kv", "fp8": "_fp8kv"}.get(kv_dtype, "")
@@ -5198,8 +5649,9 @@ def path_launches(int8: bool, layers: int, dispatches, steps: int,
             want["quantized_matmul_w8a8"] += 4 * layers
             want["quantized_matmul"] += head
         elif int8:
-            want["quantized_matmul"] += 4 * layers + head
-            want["quantized_matmul_mma"] += 4 * layers * (m > 8)
+            per = 2 if moe else 4      # MoE: the experts off kernel 5
+            want["quantized_matmul"] += per * layers + head
+            want["quantized_matmul_mma"] += per * layers * (m > 8)
     want["paged_flash_decode" + kv] += layers * steps
     if int4:
         want["quantized_matmul_int4"] += (4 * layers + 1) * steps
@@ -5207,11 +5659,11 @@ def path_launches(int8: bool, layers: int, dispatches, steps: int,
                                           layers).items():
             want[name] += c * steps
     if int8:
-        want["quantized_matmul"] += (layers * (1 if glu else 3)
-                                     + head) * steps
-        want["fused_qkv_append" + kv] += layers * steps
+        want["quantized_matmul"] += (layers * ((1 if glu else 3)
+                                               + (not fqkv)) + head) * steps
+        want["fused_qkv_append" + kv] += layers * steps * fqkv
         want["fused_ffn"] += layers * steps * glu
-    else:
+    if not int8 or not fqkv:
         want["paged_append_decode" + q] += layers * steps
     return want
 
@@ -5241,6 +5693,15 @@ def kv_bytes(layers: int, tokens: int, kvn: int, d: int,
     e4m3 rows, or int8 rows and one f32 scale per (token, kv head)."""
     per_head = {"bf16": 2 * d, "fp8": d, "int8": d + 4}[kv_dtype]
     return 2 * layers * tokens * kvn * per_head
+
+
+def live_kv_bytes(cfg, batch: int, ctx: int, kv_dtype: str) -> int:
+    """KV bytes a decode step of ``batch`` rows at context ``ctx`` reads:
+    a sliding layer's window (the most its walk reads), a full layer's
+    whole context."""
+    return sum(kv_bytes(1, batch * (min(ctx, w) if w else ctx),
+                        cfg.num_kv_heads, cfg.head_dim, kv_dtype)
+               for w in cfg.layer_windows)
 
 
 def windowed(want: dict, cfg) -> dict:
@@ -5377,8 +5838,7 @@ def serve_path(torch, path: str, cfg, params, launches: dict, int8: bool,
                                pos[:, 0] + 1, prefill=False), calls=5)
     engine_step_ms = (wall_full - wall_half) * 1e3 / (new - new // 2)
     wbytes = step_weight_bytes(params, batch)
-    kvbytes = kv_bytes(layers, batch * ctx, cfg.num_kv_heads, cfg.head_dim,
-                       kv_dtype)
+    kvbytes = live_kv_bytes(cfg, batch, ctx, kv_dtype)
     floor_ms = (wbytes + kvbytes) / HBM_BYTES_PER_S * 1e3
     print(f"[engine:{path}] decode step: engine {engine_step_ms:.3f} ms, "
           f"device (graph replay) {step_ms:.3f} ms, bytes floor "
@@ -5490,7 +5950,10 @@ def serve_prefix(torch, path: str, cfg, params, launches: dict, int8: bool,
     request prefills as 3 chunks of 256, the 7 admitted after its first
     step share its 512 cached tokens and prefill their suffixes as one
     batch, and the 8 admitted after all finish hit the persistent store
-    as one batch. Launch counts are reset before and read after."""
+    as one batch. The grouped engine (a sliding-window model with ring
+    pools, GPT-OSS) shares no prefix, as in the JAX package (ring pages are
+    slot-owned): there every prompt prefills as its own 3 chunks. Launch
+    counts are reset before and read after."""
     import numpy as np
 
     from simplellminference_tpu_torch.core.config import SamplingParams
@@ -5522,24 +5985,33 @@ def serve_prefix(torch, path: str, cfg, params, launches: dict, int8: bool,
                 f"{len(r.output_ids)} tokens")
         require(all(0 <= t < cfg.vocab_size for t in r.output_ids),
                 f"[{path}] token id out of range")
+    grouped = eng._grouped
+    shared = 0 if grouped else system_len
     require([r.cached_len for w in reqs for r in w]
-            == [0] + [system_len] * (2 * batch - 1),
+            == [0] + [shared] * (2 * batch - 1),
             f"[{path}] cached lengths {[r.cached_len for r in sum(reqs, [])]}")
+    hits = 0 if grouped else 2 * batch - 1
     require((m.prefix_cache_hits, m.prefix_cache_persistent_hits,
              m.prompt_tokens_cached, m.prefills) == (
-                2 * batch - 1, batch, (2 * batch - 1) * system_len,
+                hits, 0 if grouped else batch, hits * system_len,
                 2 * batch),
             f"[{path}] prefix metrics {m.summary()}")
-    # 3 chunks of 256 rows, then two suffix batches of 8 x 64 rows
-    dispatches = ([("paged_flash_prefill", chunk)] * 3
-                  + [("paged_flash_prefill", batch * suffix)] * 2)
+    if grouped:
+        # every prompt as its own chunks of 256 rows
+        dispatches = ([("paged_flash_prefill", chunk)]
+                      * (2 * batch * -(-prompt_len // chunk)))
+    else:
+        # 3 chunks of 256 rows, then two suffix batches of 8 x 64 rows
+        dispatches = ([("paged_flash_prefill", chunk)] * 3
+                      + [("paged_flash_prefill", batch * suffix)] * 2)
     want = path_launches(int8, layers, dispatches,
                          m.decode_bursts * burst, kv_dtype=kv_dtype,
                          act_quant=cfg.act_quant == "int8", cfg=cfg)
+    if grouped:
+        want = windowed(want, cfg)
     want = regime_rows(want, cfg)
     check_launches(path, got, want)
     ttft = [r.ttft for r in reqs[2]]
-    wave_ttft = [max(r.ttft for r in w) * 1e3 for w in reqs]
     print(f"[engine:{path}] {2 * batch} requests ({system_len}-token system "
           f"prompt + {suffix}-token suffixes) x {new} tokens in {wall:.3f} s; "
           f"prefix hits {m.prefix_cache_hits} (persistent "
@@ -5547,6 +6019,14 @@ def serve_prefix(torch, path: str, cfg, params, launches: dict, int8: bool,
           f"{m.prompt_tokens_cached}, {m.decode_bursts} bursts x {burst} "
           f"steps", flush=True)
     print(f"[engine:{path}] launches {json.dumps(got)}", flush=True)
+    wave_ttft = [max(r.ttft for r in w) * 1e3 for w in reqs]
+    if grouped:
+        # the cache shares nothing here: no cache-off run to set beside it
+        print(f"[engine:{path}] max TTFT of each wave (1, {batch - 1}, "
+              f"{batch} requests, every prompt in 3 chunks): {wave_ttft} ms",
+              flush=True)
+        del eng
+        return wave_ttft
     # the last wave's admit (its TTFT: added, then admitted and prefilled
     # in the next step) beside the same 8 prompts with the cache off
     off = Engine(cfg, params, prefix_engine_config(
@@ -5579,7 +6059,9 @@ def prefix_decode(torch, path: str, cfg, params, kv_dtype: str,
     tokens, interleaved on one engine, the rate from the median walls'
     difference; then one graph-replayed decode step at the mean context
     beside its bytes floor and the device's idle share of the engine
-    step. Returns the rate."""
+    step. The grouped engine shares no prefix (each wave prefills its
+    prompts whole, in chunks) and replays the step over its ring pools.
+    Returns the rate."""
     import numpy as np
 
     from simplellminference_tpu_torch.core.config import SamplingParams
@@ -5615,7 +6097,7 @@ def prefix_decode(torch, path: str, cfg, params, kv_dtype: str,
     for _ in range(3):
         walls.append(wave(new))
         halves.append(wave(new // 2))
-    require(eng.metrics.prefix_cache_hits >= 6 * batch,
+    require(eng._grouped or eng.metrics.prefix_cache_hits >= 6 * batch,
             f"[{path}] the rate's waves missed the prefix cache")
     wall_full, wall_half = statistics.median(walls), statistics.median(halves)
     tokens = batch * (new - new // 2)
@@ -5627,15 +6109,18 @@ def prefix_decode(torch, path: str, cfg, params, kv_dtype: str,
                           device=dev).reshape(batch, mp)
     tok = torch.ones((batch, 1), dtype=torch.int32, device=dev)
     pos = torch.full((batch, 1), ctx - 1, dtype=torch.int32, device=dev)
+    if eng._grouped:
+        tables = (tables, eng._ring_table(mp))
     step_ms = time_ms(torch, lambda: llama.forward_paged(
         cfg, params, tok, pos, eng.cache, tables, pos[:, 0] + 1,
         prefill=False), iters=5)
     wbytes = step_weight_bytes(params, batch)
-    kvbytes = kv_bytes(cfg.num_layers, batch * ctx, cfg.num_kv_heads,
-                       cfg.head_dim, kv_dtype)
+    kvbytes = live_kv_bytes(cfg, batch, ctx, kv_dtype)
     floor_ms = (wbytes + kvbytes) / HBM_BYTES_PER_S * 1e3
+    cached = ("uncached: the grouped engine shares no prefix"
+              if eng._grouped else "cached")
     print(f"[engine:{path}] decode {rate} tok/s with the system prompt "
-          f"cached (median-wall difference of waves of {batch} x {new} and "
+          f"{cached} (median-wall difference of waves of {batch} x {new} and "
           f"{new // 2} tokens: walls {walls} / {halves} s)", flush=True)
     print(f"[engine:{path}] decode step: engine {engine_step_ms:.3f} ms, "
           f"device (graph replay) {step_ms:.3f} ms, bytes floor "
@@ -5965,7 +6450,8 @@ def serve_draft(torch, path: str, cfg, params, launches: dict,
 
     layers, g = cfg.num_layers, DRAFT_TOKENS
     batch, prompt_len, new, burst = 8, 128, 64, 4
-    dcfg = draft_cfg or ModelConfig.tinyllama_1_1b(dtype="bfloat16")
+    dcfg = draft_cfg or ModelConfig.tinyllama_1_1b(num_layers=DRAFT_LAYERS,
+                                                   dtype="bfloat16")
     draft_name = draft_name or "TinyLlama-1.1B"
     require(dcfg.vocab_size == cfg.vocab_size, "draft vocab")
     dparams = llama.init_params(dcfg, seed=1, device=dev)
@@ -6210,15 +6696,21 @@ PATH_SETUP = {"int8": ("int8", "bf16", False), "bf16": ("bf16", "bf16", False),
               "gemma2_window": ("bf16", "bf16", False),
               "gemma2_dense": ("int8", "bf16", False),
               "gemma2_spec": ("bf16", "bf16", False),
-              "gemma2_draft": ("bf16", "bf16", False)}
+              "gemma2_draft": ("bf16", "bf16", False),
+              "gpt_oss": ("int8", "bf16", False),
+              "gpt_oss_prefix": ("bf16", "bf16", True)}
 # paths cut in depth to keep the run within half its time limit (their
 # launch counts follow the cut: every count is per layer; a Gemma-2 cut
-# keeps the sliding/full alternation): `int8`, the prefix and KV paths
-# keep Llama-2-7B's 32 layers, `gemma`, `gemma_prefix`, `gemma2`,
-# `gemma2_dense` and `gemma2_spec` their models' full depth
-PATH_LAYERS = {"spec": 4, "spec_int8kv": 4, "spec_fp8kv": 4, "draft": 8,
-               "int4_dense": 8, "bf16": 8, "dense_bf16": 8, "int4": 8,
-               "mistral_window": 8, "gemma2_window": 8, "gemma2_draft": 14}
+# keeps the sliding/full alternation): `int8` keeps Llama-2-7B's 32
+# layers, `gpt_oss` and `gpt_oss_prefix` gpt-oss-20b's 24; the drafters
+# run at DRAFT_LAYERS
+PATH_LAYERS = {"spec": 4, "spec_int8kv": 4, "spec_fp8kv": 4, "bf16": 4,
+               "dense_bf16": 4, "int4": 4, "int4_dense": 4,
+               "mistral_window": 4, "gemma2": 4, "gemma2_window": 4,
+               "gemma2_dense": 4, "gemma2_spec": 4, "gemma2_draft": 4,
+               "gemma_prefix": 6, "draft": 8, "dense": 8, "prefix": 8,
+               "w8a8": 8, "int8kv": 8, "int8kv_prefix": 8, "fp8kv": 8,
+               "fp8kv_prefix": 8, "gemma": 9}
 
 
 def phase_engine(torch, launches: dict, paths=PATHS):
@@ -6245,20 +6737,27 @@ def phase_engine(torch, launches: dict, paths=PATHS):
                 num_layers=PATH_LAYERS.get(path, 32))
             drawn = None
         if path in ("gemma", "gemma_prefix"):
-            cfg = ModelConfig.gemma_2b(dtype="bfloat16")
+            cfg = ModelConfig.gemma_2b(dtype="bfloat16",
+                                       num_layers=PATH_LAYERS[path])
             drawn = None
         if path.startswith("gemma2"):
             cfg = (gemma2_9b(PATH_LAYERS.get(path, 42))
                    if path == "gemma2_draft"
                    else gemma2_2b(PATH_LAYERS.get(path, 26)))
             drawn = None
+        if path.startswith("gpt_oss"):
+            cfg = gpt_oss_20b(PATH_LAYERS.get(path, 24))
+            drawn = None
         t0 = time.perf_counter()
         if (weights, cfg.num_layers) != drawn or weights != "int4":
             del params
             torch.cuda.empty_cache()
-            params = (draws[weights](torch, cfg, "cuda", seed=0)
-                      if weights in draws
-                      else llama.init_params(cfg, seed=0, device="cuda"))
+            if cfg.num_experts:
+                params = moe_params(torch, cfg, "cuda", int8)
+            elif weights in draws:
+                params = draws[weights](torch, cfg, "cuda", seed=0)
+            else:
+                params = llama.init_params(cfg, seed=0, device="cuda")
             drawn = (weights, cfg.num_layers)
         torch.cuda.synchronize()
         print(f"[engine:{path}] {cfg.model_type} width, {cfg.num_layers} "
@@ -6267,7 +6766,7 @@ def phase_engine(torch, launches: dict, paths=PATHS):
         if path == "w8a8":
             # the server CLI's --act-quant: W8A8 prefill, the prefix traffic
             ttft[path] = serve_prefix(
-                torch, path, dataclasses.replace(full, act_quant="int8"),
+                torch, path, dataclasses.replace(cfg, act_quant="int8"),
                 params, launches, int8, kv_dtype)
             base = ttft.get("prefix", [])
             print(f"[engine:w8a8] max TTFT of each wave, W8A8 prefill "
@@ -6287,13 +6786,14 @@ def phase_engine(torch, launches: dict, paths=PATHS):
             serve_draft(torch, path, cfg, params, launches)
         elif path == "gemma2_draft":
             serve_draft(torch, path, cfg, params, launches,
-                        draft_cfg=gemma2_2b(), draft_name="Gemma-2-2B")
+                        draft_cfg=gemma2_2b(DRAFT_LAYERS),
+                        draft_name="Gemma-2-2B")
         elif path.startswith("spec") or path == "gemma2_spec":
             serve_spec(torch, path, cfg, params, launches, int8, kv_dtype)
         elif prefix:
             ttft[path] = serve_prefix(torch, path, cfg, params, launches,
                                       int8, kv_dtype)
-            if path == "gemma_prefix":
+            if path in ("gemma_prefix", "gpt_oss_prefix"):
                 rates[path] = prefix_decode(torch, path, cfg, params,
                                             kv_dtype)
         elif path == "gemma2_window":
@@ -6611,8 +7111,9 @@ def _width(cfg) -> str:
     if cfg.model_type == "gemma2" and cfg.hidden_size == 3584:
         return "Gemma-2-9B width"
     return {"gemma": "Gemma-2B width", "gemma2": "Gemma-2-2B width",
-            "mistral": "Mistral-7B width"}.get(cfg.model_type,
-                                                 "Llama-2-7B width")
+            "mistral": "Mistral-7B width",
+            "gpt_oss": "gpt-oss-20b width"}.get(cfg.model_type,
+                                                "Llama-2-7B width")
 
 
 def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="f32",
@@ -6630,7 +7131,9 @@ def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="f32",
     and chunk 64, so that the suffix batch of 4 x 32 rows runs W8A8; the
     card's engine on the CPU engine's activation codes (``_ActCodes``),
     card and CPU by the LOGIT_TOL rule, and the card must launch the W8A8
-    kernel. ``tag`` names the check (default: by the KV dtype)."""
+    kernel. ``tag`` names the check (default: by the KV dtype). The
+    grouped engine (a sliding-window model, GPT-OSS) shares no prefix, as
+    in the JAX package: its waves prefill every prompt in chunks."""
     import numpy as np
 
     from simplellminference_tpu_torch.core.config import SamplingParams
@@ -6663,9 +7166,9 @@ def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="f32",
                                  SamplingParams(max_new_tokens=new)), [])
         force = act.replay() if act.codes else None
         m = eng.metrics
+        hits = (0, 0) if eng._grouped else (2 * batch - 1, batch)
         require((m.prefix_cache_hits, m.prefix_cache_persistent_hits)
-                == (2 * batch - 1, batch),
-                f"[{tag}] {dev} prefix metrics {m.summary()}")
+                == hits, f"[{tag}] {dev} prefix metrics {m.summary()}")
         require(all(len(r.output_ids) == new for r in reqs),
                 f"[{tag}] {dev} requests short")
         outs[dev] = [r.output_ids for r in reqs]
@@ -6687,7 +7190,7 @@ def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="f32",
           f"{kv_dtype} KV: "
           f"{len(prompts)} "
           f"requests in waves of 1, {batch - 1}, {batch} (prefix hits "
-          f"{2 * batch - 1}, persistent {batch}) on card and CPU in "
+          f"{hits[0]}, persistent {hits[1]}) on card and CPU in "
           f"{time.perf_counter() - t0:.1f} s; greedy tokens card == cpu: "
           f"{outs['cuda'] == outs['cpu']}, == cache-off trace: "
           f"{outs['cpu'] == tok_c.tolist()}; W8A8 launches on the card "
@@ -7210,6 +7713,7 @@ def phase_cpu(torch, launches: dict):
     window_card_vs_cpu(torch, launches)
     gemma_card_vs_cpu(torch)
     gemma2_card_vs_cpu(torch)
+    gpt_oss_card_vs_cpu(torch)
 
 
 def gemma_card_vs_cpu(torch):
@@ -7322,6 +7826,50 @@ def gemma2_card_vs_cpu(torch):
     print(f"[cpu:gemma2] Gemma-2-2B card vs CPU (f32, INT8; the Generator, "
           f"the spec and the draft Engines) in "
           f"{time.perf_counter() - t0:.1f} s; capped launches on the card "
+          f"{ran}", flush=True)
+
+
+def gpt_oss_card_vs_cpu(torch):
+    """gpt-oss-20b at full width (H 2880, 32 experts of 2880 with top 4
+    and their biases, V 201088, 64 heads over 8 kv heads of 64, sinks,
+    q/k/v/o biases, yarn rotary), 2 layers (one sliding, one full), f32,
+    TF32 off, from one seeded draw on the card copied to the host (13 GB),
+    the window cut to 32 so that the prompts and the steps pass it:
+    :func:`card_vs_cpu` (prefill + 8 greedy steps, logits within
+    LOGIT_TOL, greedy tokens equal by the margin rule, the grouped Engine
+    on both devices) and the prefix traffic through
+    :func:`prefix_card_vs_cpu` (chunked prefill over the ring pools). The
+    card runs the sink forms 3s, 3ws, 4s, 4ws, 8s and 8ws in f32, the
+    folded experts at decode and the grouped ones at prefill."""
+    import dataclasses
+
+    import numpy as np
+
+    from simplellminference_tpu_torch.models import llama
+    from simplellminference_tpu_torch.ops.attention import flash_prefill as fp
+
+    cfg = dataclasses.replace(gpt_oss_20b(num_layers=2, dtype="float32"),
+                              sliding_window=32)
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(1, cfg.vocab_size, ln).tolist()
+               for ln in (40, 64, 17, 50)]
+    t0 = time.perf_counter()
+    p_gpu = llama.init_params(cfg, seed=20, device="cuda")
+    p_cpu = _to_device(p_gpu, "cpu")
+    before = dict(fp.SINK_LAUNCHES)
+    card_vs_cpu(torch, "gpt-oss-f32", cfg, p_gpu, p_cpu, prompts, steps=8)
+    prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, tag="gpt-oss-prefix")
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+    ran = {f"{form}/{d}": n - before.get((form, d), 0)
+           for (form, d), n in fp.SINK_LAUNCHES.items()}
+    require(all(ran.get(f"{form}/64", 0) > 0 for form in (
+        "flash_prefill", "flash_prefill_window", "paged_flash_decode",
+        "paged_flash_decode_window", "paged_flash_prefill",
+        "paged_flash_prefill_window")),
+        f"[cpu:gpt-oss] the sink forms did not all run on the card: {ran}")
+    print(f"[cpu:gpt-oss] gpt-oss-20b card vs CPU (f32, the prefix traffic)"
+          f" in {time.perf_counter() - t0:.1f} s; sink launches on the card "
           f"{ran}", flush=True)
 
 

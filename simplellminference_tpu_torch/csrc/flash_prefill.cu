@@ -7,7 +7,11 @@
 // and Gemma-2's soft cap of both (cap > 0: each live score becomes
 // cap * tanh(s * scale * (1 / cap)) before the mask, flash_prefill.py:
 // 67-68): forms 3c, 3wc, a template flag of each kernel (the uncapped
-// forms are compiled as before).
+// forms are compiled as before); and GPT-OSS's attention sinks of both
+// (sinks != nullptr: each q head's f32 logit joins every row's softmax
+// denominator and adds no value, flash_prefill.py:29-43): forms 3s, 3ws,
+// a pointer and not a template flag (one uniform branch where a row's
+// softmax state is seeded, no further instantiation).
 //
 // Bound on the H100: for the serving shapes (S = 128..2048) bytes: q and
 // k, v read once and the output written once, (2*N + 2*kvN)*B*S*D
@@ -38,7 +42,11 @@
 // batch); K/V tiles of 64 rows staged through shared memory in f32, a
 // 4 x 4 micro-tile per thread for QK^T and 4 rows x D/16 columns for PV,
 // the same walk, a key outside its row's band masked per element; with
-// CAP the live scores capped by tanhf (prefill_mma.cuh's note).
+// CAP the live scores capped by tanhf (prefill_mma.cuh's note). Sinks
+// seed each row's state with (m, l) = (its head's sink, 1), as the TPU
+// kernel does (flash_prefill.py:37-43): the sink is a raw logit, neither
+// scaled nor capped, so a masked key (p = 0) and a row that meets no key
+// (acc 0 / l 1 = 0) keep their outputs.
 #include "common.cuh"
 #include "prefill_mma.cuh"
 
@@ -63,7 +71,7 @@ __global__ void __launch_bounds__(NT) flash_prefill_kernel(
     const T* __restrict__ v, T* __restrict__ out, long long q_bs,
     long long q_ss, long long k_bs, long long k_ss, long long v_bs,
     long long v_ss, long long o_bs, long long o_ss, int seq, int group,
-    int window, float scale, float cap) {
+    int window, float scale, float cap, const float* __restrict__ sinks) {
   extern __shared__ float smem[];
   float* qs = smem;                  // [BQ][D+1]
   float* ks = qs + BQ * (D + 1);     // [BK][D+1]
@@ -95,10 +103,12 @@ __global__ void __launch_bounds__(NT) flash_prefill_kernel(
   float acc[4][CPT];
   float m[4];
   float l[4];
+  // a sink seeds the row's state (its head's logit, one unit of weight)
+  const float m_seed = sinks != nullptr ? sinks[h] : NEG_INF;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
+    m[i] = m_seed;
+    l[i] = sinks != nullptr ? 1.f : 0.f;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
   }
@@ -220,14 +230,14 @@ int launch(const void* q, const void* k, const void* v, void* out,
            long long q_bs, long long q_ss, long long k_bs, long long k_ss,
            long long v_bs, long long v_ss, long long o_bs, long long o_ss,
            int batch, int seq, int heads, int group, int window, float scale,
-           float cap, cudaStream_t st) {
+           float cap, const float* sinks, cudaStream_t st) {
   const size_t bytes = smem_floats<D>() * sizeof(float);
   cudaError_t e = sli::allow_smem(flash_prefill_kernel<T, D, CAP>, bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((seq + BQ - 1) / BQ, heads, batch);
   flash_prefill_kernel<T, D, CAP><<<grid, NT, bytes, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, q_bs, q_ss, k_bs, k_ss,
-      v_bs, v_ss, o_bs, o_ss, seq, group, window, scale, cap);
+      v_bs, v_ss, o_bs, o_ss, seq, group, window, scale, cap, sinks);
   return (int)cudaGetLastError();
 }
 
@@ -236,14 +246,14 @@ int launch_c(const void* q, const void* k, const void* v, void* out,
              long long q_bs, long long q_ss, long long k_bs, long long k_ss,
              long long v_bs, long long v_ss, long long o_bs, long long o_ss,
              int batch, int seq, int heads, int group, int window,
-             float scale, float cap, cudaStream_t st) {
+             float scale, float cap, const float* sinks, cudaStream_t st) {
   if (cap > 0.f)
     return launch<T, D, true>(q, k, v, out, q_bs, q_ss, k_bs, k_ss, v_bs,
                               v_ss, o_bs, o_ss, batch, seq, heads, group,
-                              window, scale, cap, st);
+                              window, scale, cap, sinks, st);
   return launch<T, D, false>(q, k, v, out, q_bs, q_ss, k_bs, k_ss, v_bs,
                              v_ss, o_bs, o_ss, batch, seq, heads, group,
-                             window, scale, cap, st);
+                             window, scale, cap, sinks, st);
 }
 
 template <typename T>
@@ -251,12 +261,13 @@ int dispatch_d(int head_dim, const void* q, const void* k, const void* v,
                void* out, long long q_bs, long long q_ss, long long k_bs,
                long long k_ss, long long v_bs, long long v_ss, long long o_bs,
                long long o_ss, int batch, int seq, int heads, int group,
-               int window, float scale, float cap, cudaStream_t st) {
+               int window, float scale, float cap, const float* sinks,
+               cudaStream_t st) {
 #define SLI_FP_CASE(DD)                                                      \
   case DD:                                                                   \
     return launch_c<T, DD>(q, k, v, out, q_bs, q_ss, k_bs, k_ss, v_bs, v_ss, \
                            o_bs, o_ss, batch, seq, heads, group, window,     \
-                           scale, cap, st);
+                           scale, cap, sinks, st);
   switch (head_dim) {
     SLI_FP_CASE(32)
     SLI_FP_CASE(64)
@@ -294,14 +305,15 @@ __global__ void __launch_bounds__(sli::pfa::NT) flash_prefill_mma_kernel(
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
     float* __restrict__ work, long long q_bs, long long q_ss, long long k_bs,
     long long k_ss, long long v_bs, long long v_ss, int batch, int seq,
-    int heads, int group, int window, sli::pfa::Score sc, int splits) {
+    int heads, int group, int window, sli::pfa::Score sc, int splits,
+    const float* __restrict__ sinks) {
   const int b = blockIdx.z / splits;
   const long long kh = blockIdx.y;
   const DenseRows src{k + b * k_bs + kh * D, v + b * v_bs + kh * D, k_ss,
                       v_ss};
   sli::pfa::attend<D, sli::pfa::KV_BF16, CAP>(
       q + b * q_bs, q_ss, src, out + (long long)b * seq * heads * D, work,
-      batch, b, seq, heads, group, 0, seq, window, sc, splits);
+      batch, b, seq, heads, group, 0, seq, window, sc, splits, sinks);
 }
 
 template <int D, bool CAP>
@@ -309,7 +321,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
                float* work, long long q_bs, long long q_ss, long long k_bs,
                long long k_ss, long long v_bs, long long v_ss, int batch,
                int seq, int heads, int group, int window, float scale,
-               float cap, int splits, cudaStream_t st) {
+               float cap, int splits, const float* sinks, cudaStream_t st) {
   namespace pfa = sli::pfa;
   constexpr int bytes = pfa::Smem<D, pfa::KV_BF16>::BYTES;
   auto kern = flash_prefill_mma_kernel<D, CAP>;
@@ -323,7 +335,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)out, work, q_bs, q_ss, k_bs,
       k_ss, v_bs, v_ss, batch, seq, heads, group, window,
-      pfa::make_score(scale, cap), splits);
+      pfa::make_score(scale, cap), splits, sinks);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
   return (int)sli::launch_merge<__nv_bfloat16>(
@@ -335,16 +347,18 @@ int dispatch_mma(int head_dim, const void* q, const void* k, const void* v,
                  long long k_bs, long long k_ss, long long v_bs,
                  long long v_ss, int batch, int seq, int heads, int group,
                  int window, float scale, float cap, int splits,
-                 cudaStream_t st) {
+                 const float* sinks, cudaStream_t st) {
 #define SLI_FP_CASE(DD)                                                       \
   case DD:                                                                    \
     return cap > 0.f                                                          \
                ? launch_mma<DD, true>(q, k, v, out, work, q_bs, q_ss, k_bs,   \
                                       k_ss, v_bs, v_ss, batch, seq, heads,    \
-                                      group, window, scale, cap, splits, st)  \
+                                      group, window, scale, cap, splits,      \
+                                      sinks, st)                              \
                : launch_mma<DD, false>(q, k, v, out, work, q_bs, q_ss, k_bs,  \
                                        k_ss, v_bs, v_ss, batch, seq, heads,   \
-                                       group, window, scale, cap, splits, st);
+                                       group, window, scale, cap, splits,     \
+                                       sinks, st);
   switch (head_dim) {
     SLI_FP_CASE(32)
     SLI_FP_CASE(64)
@@ -359,7 +373,8 @@ int dispatch_mma(int head_dim, const void* q, const void* k, const void* v,
 }  // namespace
 
 // window: 0 for plain causal attention, else the sliding window (>= 1);
-// cap: 0 for none, else the soft cap (> 0). bf16 takes the tensor-core
+// cap: 0 for none, else the soft cap (> 0); sinks: null for none, else
+// the layer's f32 sink logits [heads]. bf16 takes the tensor-core
 // kernel: q, k, v rows 16-byte aligned (base pointers and strides), out
 // contiguous, and with splits > 1, work holds splits * batch * seq *
 // heads * (head_dim + 2) floats. f32 takes the FMA kernel (splits 1).
@@ -371,17 +386,18 @@ extern "C" int sli_flash_prefill(const void* q, const void* k, const void* v,
                                  int seq, int heads, int group, int head_dim,
                                  int window, float scale, float cap,
                                  int dtype, void* work, int splits,
-                                 void* stream) {
+                                 const float* sinks, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || group <= 0 || window < 0 ||
       cap < 0.f || heads % group || splits < 1 ||
       (splits > 1 && work == nullptr))
     return SLI_ERR_SHAPE;
+  if (sinks != nullptr && head_dim > 128) return SLI_ERR_HEAD_DIM;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == SLI_F32) {
     if (splits != 1) return SLI_ERR_SHAPE;
     return dispatch_d<float>(head_dim, q, k, v, out, q_bs, q_ss, k_bs, k_ss,
                              v_bs, v_ss, o_bs, o_ss, batch, seq, heads, group,
-                             window, scale, cap, st);
+                             window, scale, cap, sinks, st);
   }
   if (dtype == SLI_BF16) {
     const long long hd = (long long)heads * head_dim;
@@ -392,7 +408,7 @@ extern "C" int sli_flash_prefill(const void* q, const void* k, const void* v,
       return SLI_ERR_SHAPE;
     return dispatch_mma(head_dim, q, k, v, out, (float*)work, q_bs, q_ss,
                         k_bs, k_ss, v_bs, v_ss, batch, seq, heads, group,
-                        window, scale, cap, splits, st);
+                        window, scale, cap, splits, sinks, st);
   }
   return SLI_ERR_DTYPE;
 }

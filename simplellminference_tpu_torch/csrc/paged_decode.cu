@@ -29,7 +29,22 @@
 // 4vwc, 13c, 13wc), a template flag (CAP), so the uncapped forms are
 // compiled as before; tanh is tanhf, CUDA's full-precision one
 // (prefill_mma.cuh's note says why not tanh.approx.f32). The cap over
-// int8 or e4m3 pools raises in the wrappers and is refused here.
+// int8 or e4m3 pools raises in the wrappers and is refused here. GPT-OSS's
+// attention sinks on the decode forms over pools of q's dtype, with or
+// without a window (sinks != nullptr: the layer's f32 logit of each q
+// head; forms 4s, 4ws; paged_decode.py:29-35, :57-63): a sink joins the
+// row's softmax denominator and adds no value, so split 0's block seeds
+// each row's state with (m, l) = (its head's sink, 1) where the others
+// start at (-1e30, 0). The merge then counts it once: the partials keep
+// m in natural-log units, the units this kernel's softmax runs in, and
+// the sink is a raw logit (neither scaled nor capped). A split 0 that
+// meets no key carries (sink, 1) into the merge, and a row with no key at
+// all gives acc 0 / l >= 1 = 0. A row's head is g * group + its place in
+// the group (row = window row x group + head), the head its output goes
+// to. A pointer and not a template flag: one uniform branch where the
+// state is seeded, no further instantiation. Sinks on verify rows, over
+// int8 or e4m3 pools and on the dense arena raise in the wrappers and are
+// refused here.
 //
 // Bound on the H100: bytes. Each sequence's live K and V rows
 // (2*kv_len*kvN*D elements, plus 2*kv_len*kvN f32 scales for INT8 KV)
@@ -243,7 +258,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     const int* __restrict__ tables, const int* __restrict__ kv_lens,
     T* __restrict__ out, float* __restrict__ part, int layer,
     int num_pages1, int kvn, int ps, int mp, int group, int wins, int window,
-    int rcap, float scale, float cap) {
+    int rcap, float scale, float cap, const float* __restrict__ sinks) {
   using G = Geo<P, D>;
   constexpr bool QUANT = std::is_same_v<P, int8_t>;  // scales beside codes
   constexpr int EPC = 16 / G::ES;  // elements per 16-byte copy
@@ -277,9 +292,12 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     qs[i] = sli::to_f(q[(long long)b * q_bs + w * q_ss +
                         (long long)(g * group + rr - w * group) * D + i % D]);
   }
+  // split 0 seeds each row with its head's sink (once over the splits)
+  const bool seed = sinks != nullptr && z == 0;
   for (int i = tid; i < rows; i += NT) {
-    ms[i] = NEG_INF;
-    ls[i] = 0.f;
+    const int rr = row0 + i;
+    ms[i] = seed ? sinks[g * group + rr - rr / group * group] : NEG_INF;
+    ls[i] = seed ? 1.f : 0.f;
   }
   const int kv_len = kv_lens[b];
   const int n_keys = max(0, min(kv_len, mp * ps));
@@ -581,6 +599,7 @@ struct Args {
   float* part;
   int batch, layer, num_pages1, kvn, ps, mp, group, wins, window, splits;
   float scale, cap;
+  const float* sinks;  // null, or the layer's f32 sink logits [kvn * group]
 };
 
 template <typename T, typename P, int D, bool DENSE, bool CAP>
@@ -599,7 +618,7 @@ int launch(const Args& a, cudaStream_t st) {
       (const T*)a.q, a.q_bs, a.q_ss, (const P*)a.pool_k, (const P*)a.pool_v,
       a.ksp, a.vsp, a.tables, a.kv_lens, (T*)a.out, a.part, a.layer,
       a.num_pages1, a.kvn, a.ps, a.mp, a.group, a.wins, a.window, rcap,
-      a.scale, a.cap);
+      a.scale, a.cap, a.sinks);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.splits == 1) return (int)e;
   const long long n_rows = (long long)a.batch * a.wins * a.kvn * a.group;
@@ -611,6 +630,7 @@ int launch(const Args& a, cudaStream_t st) {
 // wrappers raise for them).
 template <typename T, typename P, int D, bool DENSE>
 int launch_c(const Args& a, cudaStream_t st) {
+  if (a.sinks != nullptr && !std::is_same_v<T, P>) return SLI_ERR_DTYPE;
   if (a.cap <= 0.f) return launch<T, P, D, DENSE, false>(a, st);
   if constexpr (std::is_same_v<T, P>)
     return launch<T, P, D, DENSE, true>(a, st);
@@ -660,7 +680,7 @@ extern "C" int sli_flash_decode(const void* q, long long q_bs,
   // one "page" of smax slots per sequence, one window row, no scales
   const Args a{q, q_bs, 0LL, cache_k, cache_v, nullptr, nullptr, nullptr,
                kv_lens, out, part, batch, layer, arena_rows, kvn, smax, 1,
-               group, 1, window, splits, scale, cap};
+               group, 1, window, splits, scale, cap, nullptr};
   if (dtype == SLI_F32) return dispatch_d<float, float, true>(head_dim, a, st);
   if (dtype == SLI_BF16)
     return dispatch_d<__nv_bfloat16, __nv_bfloat16, true>(head_dim, a, st);
@@ -686,18 +706,20 @@ int dispatch_pool(int pool, int head_dim, const Args& a, cudaStream_t st) {
 // ps] (null for every other pool dtype). q: [B, wins, N, D] with strides
 // q_bs, q_ss (elements); wins = 1 is decode. window: 0 for none, else the
 // sliding window (>= 1); cap: 0 for none, else the soft cap (> 0; pools
-// of q's dtype only). splits > 1: part holds splits * B * wins
-// * N * (D + 2) floats of workspace.
+// of q's dtype only); sinks: null for none, else the layer's f32 sink
+// logits [N] (decode, wins = 1, over pools of q's dtype only). splits > 1:
+// part holds splits * B * wins * N * (D + 2) floats of workspace.
 extern "C" int sli_paged_flash_decode(
     const void* q, long long q_bs, long long q_ss, const void* pool_k,
     const void* pool_v, const void* k_scale, const void* v_scale,
     const int* tables, const int* kv_lens, void* out, float* part, int batch,
     int layer, int num_pages1, int kvn, int ps, int mp, int group, int wins,
     int head_dim, int window, int splits, float scale, float cap, int dtype,
-    int pool, void* stream) {
+    int pool, const float* sinks, void* stream) {
   if (batch <= 0 || kvn <= 0 || group <= 0 || ps <= 0 || mp <= 0 ||
-      wins <= 0 || window < 0 || cap < 0.f)
+      wins <= 0 || window < 0 || cap < 0.f || (sinks != nullptr && wins != 1))
     return SLI_ERR_SHAPE;
+  if (sinks != nullptr && head_dim > 128) return SLI_ERR_HEAD_DIM;
   if ((k_scale == nullptr) != (v_scale == nullptr) ||
       (k_scale != nullptr) != (pool == SLI_POOL_I8))
     return SLI_ERR_SHAPE;
@@ -705,7 +727,7 @@ extern "C" int sli_paged_flash_decode(
   const Args a{q, q_bs, q_ss, pool_k, pool_v, (const float*)k_scale,
                (const float*)v_scale, tables, kv_lens, out, part, batch,
                layer, num_pages1, kvn, ps, mp, group, wins, window, splits,
-               scale, cap};
+               scale, cap, sinks};
   if (dtype == SLI_F32) return dispatch_pool<float>(pool, head_dim, a, st);
   if (dtype == SLI_BF16)
     return dispatch_pool<__nv_bfloat16>(pool, head_dim, a, st);

@@ -7,8 +7,13 @@
 // paged_prefill.py:44-150, wrapper :156), for bf16/f32 pools and, its
 // INT8-KV form, int8 pools with per-token-per-head f32 scale pools
 // [L, P+1, kvN, ps], and the sliding-window form of both (window > 0,
-// paged_prefill.py:90-92, :131-132; sinks and shared-KV raise in the
-// wrapper): forms 8, 8q, 8w, 8qw; Gemma-2's soft cap over pools of q's
+// paged_prefill.py:90-92, :131-132; shared-KV raises in the wrapper):
+// forms 8, 8q, 8w, 8qw; GPT-OSS's attention sinks over pools of q's dtype
+// (sinks != nullptr, the layer's f32 logit of each q head, seeding each
+// row's softmax state at (sink, 1), paged_prefill.py:259; prefill_mma.cuh's
+// note; the FMA kernel seeds its rows the same way): forms 8s, 8ws, a
+// pointer and not a template flag (sinks over int8 or e4m3 pools are
+// refused here and raise in the wrapper); Gemma-2's soft cap over pools of q's
 // dtype (cap > 0: each live score becomes cap * tanh(s * scale * (1 /
 // cap)) before the mask, paged_prefill.py:123-124; prefill_mma.cuh's
 // note): forms 8c, 8wc, a template flag of each kernel, the uncapped
@@ -92,7 +97,7 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
     const int* __restrict__ tables, const int* __restrict__ kv_lens,
     const int* __restrict__ offs, T* __restrict__ out, int seq, int heads,
     int layer, int num_pages1, int kvn, int ps, int mp, int group,
-    int window, float scale, float cap) {
+    int window, float scale, float cap, const float* __restrict__ sinks) {
   constexpr bool QUANT = std::is_same_v<P, int8_t>;  // scales beside codes
   extern __shared__ float smem[];
   float* qs = smem;                  // [BQ][D+1]
@@ -126,10 +131,12 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
   float acc[4][CPT];
   float m[4];
   float l[4];
+  // a sink seeds the row's state (its head's logit, one unit of weight)
+  const float m_seed = sinks != nullptr ? sinks[h] : NEG_INF;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
+    m[i] = m_seed;
+    l[i] = sinks != nullptr ? 1.f : 0.f;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
   }
@@ -270,7 +277,7 @@ int launch(const void* q, long long q_bs, long long q_ss, const void* pool_k,
            const int* tables, const int* kv_lens, const int* offs, void* out,
            int batch, int seq, int heads, int layer, int num_pages1, int kvn,
            int ps, int mp, int group, int window, float scale, float cap,
-           cudaStream_t st) {
+           const float* sinks, cudaStream_t st) {
   const size_t bytes = smem_bytes<D>();
   cudaError_t e = sli::allow_smem(paged_prefill_kernel<T, P, D, CAP>, bytes);
   if (e != cudaSuccess) return (int)e;
@@ -278,7 +285,7 @@ int launch(const void* q, long long q_bs, long long q_ss, const void* pool_k,
   paged_prefill_kernel<T, P, D, CAP><<<grid, NT, bytes, st>>>(
       (const T*)q, q_bs, q_ss, (const P*)pool_k, (const P*)pool_v, ksp, vsp,
       tables, kv_lens, offs, (T*)out, seq, heads, layer, num_pages1, kvn, ps,
-      mp, group, window, scale, cap);
+      mp, group, window, scale, cap, sinks);
   return (int)cudaGetLastError();
 }
 
@@ -289,13 +296,15 @@ int dispatch_d(int head_dim, const void* q, long long q_bs, long long q_ss,
                const float* vsp, const int* tables, const int* kv_lens,
                const int* offs, void* out, int batch, int seq, int heads,
                int layer, int num_pages1, int kvn, int ps, int mp, int group,
-               int window, float scale, float cap, cudaStream_t st) {
+               int window, float scale, float cap, const float* sinks,
+               cudaStream_t st) {
   constexpr bool OWN = std::is_same_v<T, P>;
-  if (cap > 0.f && !OWN) return SLI_ERR_DTYPE;
+  if ((cap > 0.f || sinks != nullptr) && !OWN) return SLI_ERR_DTYPE;
 #define SLI_PP_LAUNCH(DD, C)                                                 \
   launch<T, P, DD, C>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,       \
                       kv_lens, offs, out, batch, seq, heads, layer,          \
-                      num_pages1, kvn, ps, mp, group, window, scale, cap, st)
+                      num_pages1, kvn, ps, mp, group, window, scale, cap,    \
+                      sinks, st)
 #define SLI_PP_CASE(DD)                                                      \
   case DD:                                                                   \
     if constexpr (OWN) {                                                     \
@@ -326,23 +335,23 @@ int dispatch_p(int pool, int head_dim, const void* q, long long q_bs,
                const int* kv_lens, const int* offs, void* out, int batch,
                int seq, int heads, int layer, int num_pages1, int kvn, int ps,
                int mp, int group, int window, float scale, float cap,
-               cudaStream_t st) {
+               const float* sinks, cudaStream_t st) {
   if (pool == SLI_POOL_I8)
     return dispatch_d<T, int8_t>(head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp,
                                  vsp, tables, kv_lens, offs, out, batch, seq,
                                  heads, layer, num_pages1, kvn, ps, mp, group,
-                                 window, scale, cap, st);
+                                 window, scale, cap, sinks, st);
   if (pool == SLI_POOL_E4M3)
     return dispatch_d<T, __nv_fp8_e4m3>(
         head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables, kv_lens,
         offs, out, batch, seq, heads, layer, num_pages1, kvn, ps, mp, group,
-        window, scale, cap, st);
+        window, scale, cap, sinks, st);
   if (pool != (std::is_same_v<T, float> ? SLI_POOL_F32 : SLI_POOL_BF16))
     return SLI_ERR_DTYPE;
   return dispatch_d<T, T>(head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
                           tables, kv_lens, offs, out, batch, seq, heads,
                           layer, num_pages1, kvn, ps, mp, group, window, scale,
-                          cap, st);
+                          cap, sinks, st);
 }
 
 // The K/V rows of one sequence and kv head in the stacked pools, for
@@ -398,7 +407,7 @@ __global__ void __launch_bounds__(sli::pfa::NT) paged_prefill_mma_kernel(
     const int* __restrict__ offs, __nv_bfloat16* __restrict__ out,
     float* __restrict__ work, int batch, int seq, int heads, int layer,
     int num_pages1, int kvn, int ps, int mp, int group, int window,
-    sli::pfa::Score sc, int splits) {
+    sli::pfa::Score sc, int splits, const float* __restrict__ sinks) {
   const int b = blockIdx.z / splits;
   const PagedRows<D, KV> src{
       (const unsigned char*)pool_k, (const unsigned char*)pool_v, ksp, vsp,
@@ -408,7 +417,8 @@ __global__ void __launch_bounds__(sli::pfa::NT) paged_prefill_mma_kernel(
   sli::pfa::attend<D, KV, CAP>(q + (long long)b * q_bs, q_ss, src,
                                out + (long long)b * seq * heads * D, work,
                                batch, b, seq, heads, group, offs[b],
-                               min(kv_lens[b], mp * ps), window, sc, splits);
+                               min(kv_lens[b], mp * ps), window, sc, splits,
+                               sinks);
 }
 
 template <int D, int KV, bool CAP>
@@ -418,7 +428,7 @@ int launch_mma(const void* q, long long q_bs, long long q_ss,
                const int* offs, void* out, float* work, int batch, int seq,
                int heads, int layer, int num_pages1, int kvn, int ps, int mp,
                int group, int window, float scale, float cap, int splits,
-               cudaStream_t st) {
+               const float* sinks, cudaStream_t st) {
   namespace pfa = sli::pfa;
   constexpr int bytes = pfa::Smem<D, KV>::BYTES;
   auto kern = paged_prefill_mma_kernel<D, KV, CAP>;
@@ -432,7 +442,7 @@ int launch_mma(const void* q, long long q_bs, long long q_ss,
       (const __nv_bfloat16*)q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,
       kv_lens, offs, (__nv_bfloat16*)out, work, batch, seq, heads, layer,
       num_pages1, kvn, ps, mp, group, window, pfa::make_score(scale, cap),
-      splits);
+      splits, sinks);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
   return (int)sli::launch_merge<__nv_bfloat16>(
@@ -447,14 +457,14 @@ int dispatch_mma(int head_dim, const void* q, long long q_bs, long long q_ss,
                  const int* offs, void* out, float* work, int batch, int seq,
                  int heads, int layer, int num_pages1, int kvn, int ps,
                  int mp, int group, int window, float scale, float cap,
-                 int splits, cudaStream_t st) {
+                 int splits, const float* sinks, cudaStream_t st) {
   constexpr bool OWN = KV == sli::pfa::KV_BF16;
-  if (cap > 0.f && !OWN) return SLI_ERR_DTYPE;
+  if ((cap > 0.f || sinks != nullptr) && !OWN) return SLI_ERR_DTYPE;
 #define SLI_PP_LAUNCH(DD, C)                                                  \
   launch_mma<DD, KV, C>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,      \
                         kv_lens, offs, out, work, batch, seq, heads, layer,   \
                         num_pages1, kvn, ps, mp, group, window, scale, cap,   \
-                        splits, st)
+                        splits, sinks, st)
 #define SLI_PP_CASE(DD)                                                       \
   case DD:                                                                    \
     if constexpr (OWN) {                                                      \
@@ -484,21 +494,24 @@ int dispatch_mma(int head_dim, const void* q, long long q_bs, long long q_ss,
 // with k_scale/v_scale, their f32 scale pools [L, num_pages1, kvn, ps]
 // (null for every other pool dtype). window: 0 for none, else the sliding
 // window (>= 1); cap: 0 for none, else the soft cap (> 0; pools of q's
-// dtype only). bf16 q takes the tensor-core kernel: q rows 16-byte
-// aligned (q, q_bs, q_ss), and with splits > 1, work holds splits * batch
-// * seq * heads * (head_dim + 2) floats. f32 q takes the FMA kernel
-// (splits 1).
+// dtype only); sinks: null for none, else the layer's f32 sink logits
+// [heads] (pools of q's dtype only). bf16 q takes the tensor-core kernel:
+// q rows 16-byte aligned (q, q_bs, q_ss), and with splits > 1, work holds
+// splits * batch * seq * heads * (head_dim + 2) floats. f32 q takes the
+// FMA kernel (splits 1).
 extern "C" int sli_paged_flash_prefill(
     const void* q, long long q_bs, long long q_ss, const void* pool_k,
     const void* pool_v, const void* k_scale, const void* v_scale,
     const int* tables, const int* kv_lens, const int* offs, void* out,
     int batch, int seq, int heads, int layer, int num_pages1, int kvn, int ps,
     int mp, int group, int head_dim, int window, float scale, float cap,
-    int dtype, int pool, void* work, int splits, void* stream) {
+    int dtype, int pool, void* work, int splits, const float* sinks,
+    void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || kvn <= 0 || group <= 0 ||
       ps <= 0 || mp <= 0 || heads != kvn * group || window < 0 ||
       cap < 0.f || splits < 1 || (splits > 1 && work == nullptr))
     return SLI_ERR_SHAPE;
+  if (sinks != nullptr && head_dim > 128) return SLI_ERR_HEAD_DIM;
   if ((k_scale == nullptr) != (v_scale == nullptr) ||
       (k_scale != nullptr) != (pool == SLI_POOL_I8))
     return SLI_ERR_SHAPE;
@@ -510,7 +523,7 @@ extern "C" int sli_paged_flash_prefill(
     return dispatch_p<float>(pool, head_dim, q, q_bs, q_ss, pool_k, pool_v,
                              ksp, vsp, tables, kv_lens, offs, out, batch, seq,
                              heads, layer, num_pages1, kvn, ps, mp, group,
-                             window, scale, cap, st);
+                             window, scale, cap, sinks, st);
   }
   if (dtype == SLI_BF16) {
     if (((unsigned long long)q | (unsigned long long)pool_k |
@@ -523,17 +536,17 @@ extern "C" int sli_paged_flash_prefill(
         return dispatch_mma<pfa::KV_BF16>(
             head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,
             kv_lens, offs, out, w, batch, seq, heads, layer, num_pages1, kvn,
-            ps, mp, group, window, scale, cap, splits, st);
+            ps, mp, group, window, scale, cap, splits, sinks, st);
       case SLI_POOL_I8:
         return dispatch_mma<pfa::KV_I8>(
             head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,
             kv_lens, offs, out, w, batch, seq, heads, layer, num_pages1, kvn,
-            ps, mp, group, window, scale, cap, splits, st);
+            ps, mp, group, window, scale, cap, splits, sinks, st);
       case SLI_POOL_E4M3:
         return dispatch_mma<pfa::KV_E4M3>(
             head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,
             kv_lens, offs, out, w, batch, seq, heads, layer, num_pages1, kvn,
-            ps, mp, group, window, scale, cap, splits, st);
+            ps, mp, group, window, scale, cap, splits, sinks, st);
       default:
         return SLI_ERR_DTYPE;
     }

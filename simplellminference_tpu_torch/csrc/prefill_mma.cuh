@@ -67,6 +67,26 @@
 // alone misses that rule many times over at the serving shapes:
 // tests/test_torch_prefill_tiles.py).
 //
+// Sinks (GPT-OSS; sinks != nullptr: the layer's f32 logit of each q head,
+// forms 3s, 3ws, 8s, 8ws): a sink joins a row's softmax denominator and adds
+// no value, so each row's state starts at (m, l) = (sink x log2 e, 1)
+// instead of (-1e30, 0), the TPU kernels' seed (flash_prefill.py:37-43,
+// paged_prefill.py:259). The sink is a raw logit: neither scaled nor
+// capped, only moved into the log2 units the softmax runs in (cap x
+// log2 e caps a capped score in the same units). Of a split walk only
+// split 0 seeds its rows, so the merge counts the sink once; its partial
+// m leaves in natural-log units (x ln 2) as every split's does, and a
+// split 0 that meets no key still carries (sink, 1) into the merge. A
+// fragment row's head is the tile's (kh, hc, r % H), the head its output
+// goes to; with l = 1 held by one thread of the quad (the quad adds its
+// four shares at the end). A masked key keeps p = ex2(-1e30 - m) = 0,
+// and a row that meets no key gives acc 0 / l 1 = 0, as the TPU kernel's
+// (acc 0 / l 1). Head dims 32, 64 (gpt-oss-20b's) and 128: no model with
+// sinks has D 256, whose instantiations sit at 255 registers a thread and
+// spill (ptxas: 128 bytes in flash_prefill_mma_kernel<256>, with or
+// without the seeding), so the seeding is compiled out there, their code
+// stays as it was, and the entry points refuse sinks at D 256.
+//
 // D 256 (Gemma-2B: 8 q heads over one kv head, so a tile packs 8
 // positions x 8 heads, as TinyLlama's at D 64; Gemma-2-2B: 2 over each of
 // 4, 32 positions x 2 heads), bf16 pools only, with or without a window
@@ -386,7 +406,8 @@ __device__ __forceinline__ Walk walk(int seq, int group, int off, int n_keys,
 //   work: else split_merge.cuh's f32 partials over the B * Sq * N rows.
 // Query row at position s sits at off + s and sees keys k <= off + s,
 // k < n_keys and, with a window, k > off + s - window. sc: the scores'
-// scale (and cap, with CAP), make_score's.
+// scale (and cap, with CAP), make_score's. sinks: null, or the layer's
+// f32 sink logit of each of the heads q heads (see the note).
 template <int D, int KV, bool CAP, typename Src>
 __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
                                        long long q_ss, const Src& src,
@@ -394,7 +415,8 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
                                        float* __restrict__ work, int batch,
                                        int b, int seq, int heads, int group,
                                        int off, int n_keys, int window,
-                                       Score sc, int splits) {
+                                       Score sc, int splits,
+                                       const float* __restrict__ sinks) {
   using G = Geo<D>;
   using S = Smem<D, KV>;
   constexpr bool CODES = S::CODES;
@@ -521,6 +543,21 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
   // this thread's fragment rows r0 = 16 * warp + lane / 4 and r0 + 8
   const int t4 = lane & 3;
   const int r0 = warp * 16 + (lane >> 2);
+  // split 0 seeds each row with its sink (not at D 256: see the note)
+  if constexpr (D < 256) {
+    if (sinks != nullptr && z == 0) {
+      const int hg0 = w.hc * w.H + r0 % w.H;
+      const int hg1 = w.hc * w.H + (r0 + 8) % w.H;
+      if (hg0 < group) {
+        m0 = sinks[w.kh * group + hg0] * LOG2E;
+        l0 = t4 == 0 ? 1.f : 0.f;
+      }
+      if (hg1 < group) {
+        m1 = sinks[w.kh * group + hg1] * LOG2E;
+        l1 = t4 == 0 ? 1.f : 0.f;
+      }
+    }
+  }
   const int qp0 = off + w.p0 + r0 / w.H;
   const int qp1 = off + w.p0 + (r0 + 8) / w.H;
   const int hi0 = min(qp0, n_keys - 1);

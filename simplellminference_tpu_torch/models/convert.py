@@ -37,7 +37,8 @@ def params_from_jax(tree, device=None, dtype="float32") -> dict:
     ``jax.tree.map(np.asarray, ...)``) -> the same dict of torch tensors.
 
     Floating leaves become ``dtype`` on ``device`` (CUDA unless
-    ``device="cpu"``); integer leaves keep their type. Quantized weights
+    ``device="cpu"``), but for the attention sinks, which stay f32;
+    integer leaves keep their type. Quantized weights
     (objects carrying ``q``/``scales``/``bits``/``zs``) become
     :class:`QuantizedWeight`; one the port cannot serve raises
     (:func:`~simplellminference_tpu_torch.ops.linear.check_servable`)."""
@@ -46,7 +47,9 @@ def params_from_jax(tree, device=None, dtype="float32") -> dict:
 
     def conv(x):
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
+            # GPT-OSS's sinks stay f32, as the attention kernels take them
+            return {k: _tensor(v, dev, torch.float32) if k == "sinks"
+                    else conv(v) for k, v in x.items()}
         if hasattr(x, "q") and hasattr(x, "scales"):
             zs = getattr(x, "zs", None)
             w = QuantizedWeight(q=_tensor(x.q, dev, None),

@@ -20,7 +20,13 @@ grouped engine's ring pools or the dense arena, each layer with its own
 window (the JAX scan's static window per sublayer, llama.py:376-456).
 Gemma-2's pieces run in both: the attention soft cap (the kernels' capped
 forms), the final logit soft cap, the sandwich norms and
-``query_pre_attn_scalar``.
+``query_pre_attn_scalar``. GPT-OSS's run in both too: the q/k/v bias
+after the qkv product, the o bias, each layer's attention sinks (the
+kernels' sink forms; the dense arena's decode and verify rows refuse
+them, not ported yet), yarn rotary tables and the mixture-of-experts FFN
+(:mod:`~simplellminference_tpu_torch.ops.moe`: folded experts at decode,
+grouped by expert at prefill), which the Mixtral family's plain softmax
+route shares.
 
 KV pools are bf16/f32, or INT8 with per-token-per-head scale pools
 (``cache.k_scale``/``cache.v_scale``): every write quantizes and every
@@ -53,6 +59,13 @@ Params dict (the JAX package's names, layers stacked on a leading L):
                 "post_attn_norm": [L, H], "post_ffn_norm": [L, H]},
      "final_norm": [H],
      "lm_head": [H, V]}          # absent when tie_word_embeddings
+
+A mixture-of-experts model (``cfg.num_experts``) folds its experts into
+``w_gate_up`` [L, H, E * 2*Ie] and ``w_down`` [L, E * Ie, H] and adds
+``router`` [L, H, E]; GPT-OSS adds ``router_bias`` [L, E],
+``w_gate_up_bias`` [L, E * 2*Ie], ``w_down_bias`` [L, E, H],
+``wqkv_bias`` [L, (N + 2*kvN) * D], ``wo_bias`` [L, H] and ``sinks``
+[L, N].
 """
 
 from __future__ import annotations
@@ -65,7 +78,8 @@ from simplellminference_tpu_torch.core.config import ModelConfig
 from simplellminference_tpu_torch.core.device import (resolve_device,
                                                       torch_dtype)
 from simplellminference_tpu_torch.memory import paged_kv as pkv
-from simplellminference_tpu_torch.ops import ffn_fused, qkv_fused, ref_ops
+from simplellminference_tpu_torch.ops import (ffn_fused, moe, qkv_fused,
+                                              ref_ops)
 from simplellminference_tpu_torch.ops.attention import dispatch
 from simplellminference_tpu_torch.ops.kv_append import kv_append
 from simplellminference_tpu_torch.ops.linear import dot_f32, linear
@@ -77,13 +91,9 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError naming the first feature of ``cfg`` that
     the port's decoder does not run yet."""
     unsupported = [
-        ("num_experts", "mixture-of-experts FFN"),
         ("kv_lora_rank", "multi-head latent attention (MLA)"),
         ("first_k_dense", "dense-prefix layer group"),
-        ("attention_bias", "QKV bias"),
         ("qk_norm", "q/k RMSNorm"),
-        ("attn_sinks", "attention sinks"),
-        ("o_bias", "o_proj bias"),
         ("mlp_bias", "FFN biases"),
         ("nope_layers", "NoPE layers"),
         ("rope_local_theta", "local rope theta"),
@@ -92,6 +102,8 @@ def check_supported(cfg: ModelConfig) -> None:
     for field, name in unsupported:
         if getattr(cfg, field):
             raise NotImplementedError(name)
+    if cfg.num_experts:
+        moe.check_supported(cfg)
     if not cfg.pre_norms:
         raise NotImplementedError("post-norm-only blocks (OLMo-2)")
     if cfg.partial_rotary_factor != 1.0:
@@ -117,20 +129,25 @@ def _fqkv_gate(cfg: ModelConfig, lw, b: int, s: int, cache_k) -> bool:
 
 def _fffn_gate(cfg: ModelConfig, lw, m: int) -> bool:
     """The JAX gate of the fused FFN route (llama.py:278-284, :766-775)
-    for ``m`` rows, TPU tiling aside."""
-    return (cfg.pre_norms and cfg.hidden_act == "silu"
+    for ``m`` rows, TPU tiling aside; a mixture-of-experts model takes
+    its MoE FFN before that gate (llama.py:266-273, :757-761)."""
+    return (not cfg.num_experts and cfg.pre_norms
+            and cfg.hidden_act == "silu"
             and "post_ffn_norm" not in lw and "w_gate_up_bias" not in lw
             and ffn_fused.fused_ffn_available(lw, cfg.hidden_size,
                                               cfg.intermediate_size, m))
 
 
 def _qkv(cfg: ModelConfig, lw, li: int, x, sin, cos):
-    """rmsnorm, the qkv product and RoPE of layer ``li``: x [B, S, H] ->
-    (q [B, S, N, D], k, v [B, S, kvN, D])."""
+    """rmsnorm, the qkv product (+ the q/k/v bias, llama.py:657-658) and
+    RoPE of layer ``li``: x [B, S, H] -> (q [B, S, N, D], k, v
+    [B, S, kvN, D])."""
     b, s = x.shape[:2]
     n, kvn, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     h = ref_ops.rmsnorm(x, lw["input_norm"][li], cfg.rms_norm_eps)
     qkv = linear(h, lw["wqkv"], layer=li, act_quant=cfg.act_quant)
+    if "wqkv_bias" in lw:
+        qkv = qkv + lw["wqkv_bias"][li].to(qkv.dtype)
     q = qkv[..., :n * d].reshape(b, s, n, d)
     k = qkv[..., n * d:(n + kvn) * d].reshape(b, s, kvn, d)
     v = qkv[..., (n + kvn) * d:].reshape(b, s, kvn, d)
@@ -151,18 +168,25 @@ def _fused_qkv(cfg: ModelConfig, lw, li: int, x, sin, cos, ck, cv, offsets,
 
 
 def _post_attention(cfg: ModelConfig, lw, li: int, x, attn, use_fffn: bool):
-    """wo projection + residual + FFN (llama.py:224-334, the plain pre-norm
-    branch), with ``fused_ffn`` under its gate. Gemma-2's sandwich norms
-    (llama.py:258-260, :328-330): ``post_attn_norm`` on the attention
-    output and ``post_ffn_norm`` on the FFN's, each before its residual
-    add (``post_ffn_norm`` closes the fused FFN's gate)."""
+    """wo projection (+ GPT-OSS's o bias, llama.py:256-257) + residual +
+    FFN (llama.py:224-334, the plain pre-norm branch), with ``fused_ffn``
+    under its gate, or the MoE FFN of a mixture-of-experts model
+    (llama.py:266-273). Gemma-2's sandwich norms (llama.py:258-260,
+    :328-330): ``post_attn_norm`` on the attention output and
+    ``post_ffn_norm`` on the FFN's, each before its residual add
+    (``post_ffn_norm`` closes the fused FFN's gate)."""
     b, s, h = x.shape
     aq = cfg.act_quant
     attn = linear(attn.reshape(b, s, -1), lw["wo"], layer=li, act_quant=aq)
+    if "wo_bias" in lw:
+        attn = attn + lw["wo_bias"][li].to(attn.dtype)
     if "post_attn_norm" in lw:
         attn = ref_ops.rmsnorm(attn, lw["post_attn_norm"][li],
                                cfg.rms_norm_eps)
     x = x + attn
+    if cfg.num_experts:
+        hn = ref_ops.rmsnorm(x, lw["post_norm"][li], cfg.rms_norm_eps)
+        return x + moe.moe_ffn(cfg, lw, li, hn)
     if use_fffn:
         gu, dn = lw["w_gate_up"], lw["w_down"]
         return ffn_fused.fused_ffn(
@@ -258,10 +282,12 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         use_fqkv = _fqkv_gate(cfg, lw, b, s, ck)
     use_fffn = _fffn_gate(cfg, lw, b * s)
     for li, window in enumerate(cfg.layer_windows):
+        sinks = _sinks(lw, li)
         if use_fqkv:
             q1 = _fused_qkv(cfg, lw, li, x, sin, cos, ck, cv, offsets)
             attn = dispatch.attention_cached(cfg, q1[:, None], ck, cv,
-                                             kv_lens, li, window=window)
+                                             kv_lens, li, window=window,
+                                             sinks=sinks)
         else:
             q, k, v = _qkv(cfg, lw, li, x, sin, cos)
             if cache is not None:
@@ -269,10 +295,12 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             if cache is None or s > 1:
                 # no cache, or a prefill from slot 0: the fresh k/v are
                 # the whole prefix
-                attn = dispatch.attention(cfg, q, k, v, window=window)
+                attn = dispatch.attention(cfg, q, k, v, window=window,
+                                          sinks=sinks)
             else:
                 attn = dispatch.attention_cached(cfg, q, ck, cv, kv_lens,
-                                                 li, window=window)
+                                                 li, window=window,
+                                                 sinks=sinks)
         x = _post_attention(cfg, lw, li, x, attn, use_fffn)
     if last_token_only and s > 1:
         if kv_lens is None:
@@ -345,13 +373,14 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         kli = n_group[sliding] if grouped else li
         n_group[sliding] += 1
         scales = dict(pool_ks=pks, pool_vs=pvs)
+        sinks = _sinks(lw, li)
         if use_fqkv:
             q1 = _fused_qkv(cfg, lw, li, x, sin, cos, pk, pv,
                             positions[:, 0], tables=tbl, cache_ks=pks,
                             cache_vs=pvs, kv_layer=kli if grouped else None)
             attn = dispatch.attention_paged(cfg, q1[:, None], pk, pv, tbl,
                                             kv_lens, kli, window=window,
-                                            **scales)
+                                            sinks=sinks, **scales)
         else:
             q, k, v = _qkv(cfg, lw, li, x, sin, cos)
             if chunked:
@@ -359,20 +388,23 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                                           page_offset=page_offset, **scales)
                 attn = dispatch.attention_paged_prefill(
                     cfg, q, pk, pv, tbl, kv_lens, chunk_offset, kli,
-                    window=window, **scales)
+                    window=window, sinks=sinks, **scales)
             elif prefill:
                 pkv.write_prefill_stacked(pk, pv, k, v, tbl, kli, **scales)
-                attn = dispatch.attention(cfg, q, k, v, window=window)
+                attn = dispatch.attention(cfg, q, k, v, window=window,
+                                          sinks=sinks)
             elif spec:
                 pkv.write_span_stacked(pk, pv, k, v, tbl, positions[:, 0],
                                        kli, **scales)
                 attn = dispatch.attention_paged(cfg, q, pk, pv, tbl, kv_lens,
-                                                kli, window=window, **scales)
+                                                kli, window=window,
+                                                sinks=sinks, **scales)
             else:
                 pkv.write_decode_stacked(pk, pv, k[:, 0], v[:, 0], tbl,
                                          positions[:, 0], kli, **scales)
                 attn = dispatch.attention_paged(cfg, q, pk, pv, tbl, kv_lens,
-                                                kli, window=window, **scales)
+                                                kli, window=window,
+                                                sinks=sinks, **scales)
         x = _post_attention(cfg, lw, li, x, attn, use_fffn)
 
     if last_token_only and s > 1:
@@ -385,15 +417,22 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return _logits(cfg, params, x), cache
 
 
+def _sinks(lw, li: int):
+    """Layer ``li``'s attention-sink logits [N] (GPT-OSS), or None."""
+    return lw["sinks"][li] if "sinks" in lw else None
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 dtype=None) -> Params:
     """Random-init params from a seeded ``torch.Generator`` on ``device``
     (CUDA unless ``device="cpu"``), with the JAX package's names and
-    scales: N(0, 1) * K**-0.5 for [.., K, N] weights, * 0.02 for the
-    embedding and LM head, ones for the norms. The values differ from the
-    JAX package's draw (threefry vs Philox/MT); tests carry JAX weights
-    over with :func:`~simplellminference_tpu_torch.models.convert.
-    params_from_jax` instead."""
+    scales: N(0, 1) * K**-0.5 for [.., K, N] weights (Ie**-0.5 for the
+    folded experts' ``w_down``), * 0.02 for the embedding, the LM head,
+    the router and every bias, * 1 for the sinks, ones for the norms
+    (llama.py:914-995). Every leaf is drawn on ``device``. The values
+    differ from the JAX package's draw (threefry vs Philox/MT); tests
+    carry JAX weights over with :func:`~simplellminference_tpu_torch.
+    models.convert.params_from_jax` instead."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
@@ -418,11 +457,28 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
             "post_norm": ones((L, h)),
             "wqkv": w((L, h, (n + 2 * kvn) * d)),
             "wo": w((L, n * d, h)),
-            "w_gate_up": w((L, h, 2 * i)),
-            "w_down": w((L, i, h)),
         },
         "final_norm": ones((h,)),
     }
+    lw = params["layers"]
+    if cfg.num_experts:   # folded experts (ops/moe.py) and the router
+        e, ie = cfg.num_experts, cfg.expert_intermediate_size
+        lw["router"] = w((L, h, e), 0.02)
+        lw["w_gate_up"] = w((L, h, e * 2 * ie))
+        lw["w_down"] = w((L, e * ie, h), ie ** -0.5)
+        if cfg.moe_bias:   # GPT-OSS: the router's and the experts' biases
+            lw["router_bias"] = w((L, e), 0.02)
+            lw["w_gate_up_bias"] = w((L, e * 2 * ie), 0.02)
+            lw["w_down_bias"] = w((L, e, h), 0.02)
+    else:
+        lw["w_gate_up"] = w((L, h, 2 * i))
+        lw["w_down"] = w((L, i, h))
+    if cfg.attention_bias:
+        lw["wqkv_bias"] = w((L, (n + 2 * kvn) * d), 0.02)
+    if cfg.attn_sinks:   # GPT-OSS's attention-sink logits, held in f32
+        lw["sinks"] = w((L, n), 1.0).float()   # as the kernels take them
+    if cfg.o_bias:
+        lw["wo_bias"] = w((L, h), 0.02)
     if cfg.sandwich_norms:   # Gemma-2's pre-residual output norms
         params["layers"]["post_attn_norm"] = ones((L, h))
         params["layers"]["post_ffn_norm"] = ones((L, h))

@@ -10,9 +10,12 @@ FP8-KV forms (4e, 4ve, 8e), and a sliding window (``cfg.sliding_window``, or the
 per-layer ``window`` a caller passes for ``layer_types`` stacks) goes to
 each kernel's window form, the dense arena's included (13w), and
 Gemma-2's logit soft cap (``cfg.attn_logit_softcap``) to the capped forms
-of kernels 3, 4 (decode and verify rows), 8 and 13 over bf16/f32 KV.
-Attention options the kernels do not take yet (sinks; the cap over INT8
-or FP8 KV) raise.
+of kernels 3, 4 (decode and verify rows), 8 and 13 over bf16/f32 KV,
+and a layer's GPT-OSS attention sinks (``sinks`` [N], passed by the
+caller as the JAX dispatcher takes them) to the sink forms of kernels 3,
+4 (decode rows) and 8 over bf16/f32 KV. Attention options the kernels do
+not take yet (sinks on verify rows, on the dense arena or over INT8 or
+FP8 KV; the cap over INT8 or FP8 KV) raise.
 """
 
 from __future__ import annotations
@@ -38,10 +41,8 @@ def _attn_opts(cfg: ModelConfig, window=_UNSET):
     (dispatch.py:68-79): ``window`` defaults to cfg.sliding_window, and
     alternating sliding/full stacks (``layer_types``) pass each layer's;
     sm_scale is query_pre_attn_scalar**-0.5 when set, else None (the
-    kernels' D**-0.5); logit_cap is attn_logit_softcap (Gemma-2). The
-    sinks of the JAX version are not ported yet."""
-    if cfg.attn_sinks:
-        raise NotImplementedError("attention sinks")
+    kernels' D**-0.5); logit_cap is attn_logit_softcap (Gemma-2). A
+    layer's sinks travel beside them, as in the JAX dispatcher."""
     w = cfg.sliding_window if window is _UNSET else window
     sm = (None if cfg.query_pre_attn_scalar is None
           else cfg.query_pre_attn_scalar ** -0.5)
@@ -49,17 +50,21 @@ def _attn_opts(cfg: ModelConfig, window=_UNSET):
 
 
 def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
-              v: torch.Tensor, window=_UNSET) -> torch.Tensor:
+              v: torch.Tensor, window=_UNSET,
+              sinks: torch.Tensor | None = None) -> torch.Tensor:
     """Causal self-attention of a prompt, no cache read-back.
-    q: [B, S, N, D]; k/v: [B, S, kvN, D]."""
+    q: [B, S, N, D]; k/v: [B, S, kvN, D]; ``sinks`` [N]: the layer's
+    GPT-OSS attention-sink logits."""
     window, sm, cap = _attn_opts(cfg, window)
-    return flash_prefill(q, k, v, sm_scale=sm, window=window, logit_cap=cap)
+    return flash_prefill(q, k, v, sm_scale=sm, window=window, logit_cap=cap,
+                         sinks=sinks)
 
 
 def attention_cached(cfg: ModelConfig, q: torch.Tensor,
                      ck: torch.Tensor, cv: torch.Tensor,
                      kv_lens: torch.Tensor, layer: int | None = None,
-                     window=_UNSET) -> torch.Tensor:
+                     window=_UNSET,
+                     sinks: torch.Tensor | None = None) -> torch.Tensor:
     """Decode attention against the dense arena (counterpart of
     dispatch.py:95-123): ``flash_decode`` over slots [0, kv_len), the last
     ``window`` of them with a sliding window (default cfg.sliding_window;
@@ -67,12 +72,14 @@ def attention_cached(cfg: ModelConfig, q: torch.Tensor,
     :func:`attention`). q: [B, 1, N, D]; ck/cv: [B, kvN, Smax, D], or the
     stacked arena [L, B', kvN, Smax, D] with an int ``layer``; kv_lens:
     [B]. A prefill from slot 0 attends its fresh k/v through
-    :func:`attention` instead, as ``models.llama.forward`` does."""
+    :func:`attention` instead, as ``models.llama.forward`` does. Sinks
+    raise (13s is not ported yet)."""
     if q.shape[1] != 1:
         raise ValueError(f"one query row per sequence, not {q.shape[1]}")
     window, sm, cap = _attn_opts(cfg, window)
     return flash_decode(q[:, 0], ck, cv, kv_lens, layer=layer,
-                        window=window, sm_scale=sm, logit_cap=cap)[:, None]
+                        window=window, sm_scale=sm, logit_cap=cap,
+                        sinks=sinks)[:, None]
 
 
 def attention_paged_prefill(cfg: ModelConfig, q: torch.Tensor,
@@ -81,7 +88,9 @@ def attention_paged_prefill(cfg: ModelConfig, q: torch.Tensor,
                             chunk_offset: torch.Tensor, layer: int,
                             pool_ks: torch.Tensor | None = None,
                             pool_vs: torch.Tensor | None = None,
-                            window=_UNSET) -> torch.Tensor:
+                            window=_UNSET,
+                            sinks: torch.Tensor | None = None
+                            ) -> torch.Tensor:
     """Chunked-prefill attention through the page tables (counterpart of
     dispatch.py:140-194): row b's queries sit at absolute positions
     chunk_offset[b] + 0..S-1 and attend to every cached position
@@ -91,8 +100,8 @@ def attention_paged_prefill(cfg: ModelConfig, q: torch.Tensor,
     window, sm, cap = _attn_opts(cfg, window)
     return paged_flash_prefill(q, pool_k, pool_v, tables, kv_lens,
                                chunk_offset, layer, sm_scale=sm,
-                               window=window, logit_cap=cap, k_scale=pool_ks,
-                               v_scale=pool_vs)
+                               window=window, logit_cap=cap, sinks=sinks,
+                               k_scale=pool_ks, v_scale=pool_vs)
 
 
 def attention_paged(cfg: ModelConfig, q: torch.Tensor, pool_k: torch.Tensor,
@@ -100,7 +109,8 @@ def attention_paged(cfg: ModelConfig, q: torch.Tensor, pool_k: torch.Tensor,
                     kv_lens: torch.Tensor, layer: int,
                     pool_ks: torch.Tensor | None = None,
                     pool_vs: torch.Tensor | None = None,
-                    window=_UNSET) -> torch.Tensor:
+                    window=_UNSET,
+                    sinks: torch.Tensor | None = None) -> torch.Tensor:
     """Paged decode attention (counterpart of dispatch.py:197-269).
     q: [B, S, N, D]: S = 1 is decode; S > 1 a speculative verify window,
     whose row s sits at position kv_lens - S + s. Pools: stacked
@@ -111,7 +121,7 @@ def attention_paged(cfg: ModelConfig, q: torch.Tensor, pool_k: torch.Tensor,
         return paged_flash_decode(q[:, 0], pool_k, pool_v, tables, kv_lens,
                                   layer, sm_scale=sm, k_scale=pool_ks,
                                   v_scale=pool_vs, window=window,
-                                  logit_cap=cap)[:, None]
+                                  logit_cap=cap, sinks=sinks)[:, None]
     return paged_flash_verify(q, pool_k, pool_v, tables, kv_lens, layer,
                               sm_scale=sm, k_scale=pool_ks, v_scale=pool_vs,
-                              window=window, logit_cap=cap)
+                              window=window, logit_cap=cap, sinks=sinks)

@@ -29,8 +29,9 @@ dim).
 A row with kv_len <= 0 comes out as zeros, as from the JAX kernel (its
 running sum stays 0). ``bk``, ``rows_target`` and ``max_kv`` are the TPU
 kernel's tiling hints and bounds on its grid; the kernel stops at kv_len
-by itself, so they are taken and ignored. Attention sinks are not ported
-and raise.
+by itself, so they are taken and ignored. Attention sinks on the dense
+arena (13s, GPT-OSS through the Generator) are not ported and raise,
+named.
 """
 
 from __future__ import annotations
@@ -42,6 +43,9 @@ from simplellminference_tpu_torch.ops.attention.flash_prefill import (
     cap_value, count_launch, window_size)
 from simplellminference_tpu_torch.ops.attention.paged_decode import (
     HEAD_DIMS, MAX_ROWS, decode_splits, row_blocks, workspace)
+
+# the sink form not ported yet
+DENSE_SINKS = "attention sinks on the dense arena (13s: the Generator)"
 
 # launches at head_dim 256 (Gemma; each also counts in its form's
 # ``launches``)
@@ -98,7 +102,7 @@ def flash_decode(q, k_cache, v_cache, kv_lens, bk: int | None = None,
     Gemma-2's soft cap (13c)."""
     del bk, rows_target, max_kv   # TPU tiling hints
     if sinks is not None:
-        raise NotImplementedError("attention sinks")
+        raise NotImplementedError(DENSE_SINKS)
     if window is not None:
         return flash_decode_window(q, k_cache, v_cache, kv_lens, window,
                                    layer, sm_scale, logit_cap)

@@ -20,8 +20,14 @@ Gemma-2's soft cap (``logit_cap``: each score becomes
 cap * tanh(s * scale * (1 / cap)) before the mask, flash_prefill.py:
 67-68) is a compile-time flag of both kernels, so the uncapped forms run
 the code they ran before; capped launches count in their form's
-``launches`` and in :data:`CAP_LAUNCHES` by (form, head dim). Sinks are
-not ported yet.
+``launches`` and in :data:`CAP_LAUNCHES` by (form, head dim).
+
+GPT-OSS's attention sinks (``sinks`` [N]: a learned logit per q head that
+joins each row's softmax denominator and adds no value,
+flash_prefill.py:29-43) are a pointer argument of both kernels: each
+row's online softmax starts at (m, l) = (its head's sink, 1) instead of
+(-1e30, 0) (forms 3s, 3ws); launches with sinks count in their form's
+``launches`` and in :data:`SINK_LAUNCHES` by (form, head dim).
 """
 
 from __future__ import annotations
@@ -36,19 +42,51 @@ HEAD_DIMS = (32, 64, 128, 256)
 # launches at that head dim (each also counts in its form's ``launches``)
 D256_FORMS = ("flash_prefill", "flash_prefill_window")
 D256_LAUNCHES = {"flash_prefill": 0, "flash_prefill_window": 0}
-# launches with the soft cap, by (form, head dim) (each also counts in its
-# form's ``launches``)
+# launches with the soft cap, and with attention sinks, by (form, head
+# dim) (each also counts in its form's ``launches``)
 CAP_LAUNCHES: dict = {}
+SINK_LAUNCHES: dict = {}
 
 
-def count_launch(form: str, d: int, logit_cap, d256: dict) -> None:
+def count_launch(form: str, d: int, logit_cap, d256: dict,
+                 sinks=None) -> None:
     """One launch of ``form`` at head dim ``d``: in ``d256`` at D 256, in
-    :data:`CAP_LAUNCHES` with a soft cap. The paged modules count theirs
-    here too."""
+    :data:`CAP_LAUNCHES` with a soft cap, in :data:`SINK_LAUNCHES` with
+    sinks. The paged modules count theirs here too."""
     if d == 256:
         d256[form] += 1
     if logit_cap:
         CAP_LAUNCHES[form, d] = CAP_LAUNCHES.get((form, d), 0) + 1
+    if sinks is not None:
+        SINK_LAUNCHES[form, d] = SINK_LAUNCHES.get((form, d), 0) + 1
+
+
+SINK_HEAD_DIMS = (32, 64, 128)   # the sink forms' head dims (no D 256)
+
+
+def check_sinks_head_dim(sinks, d: int) -> None:
+    """Raise NotImplementedError for sinks at a head dim the sink forms do
+    not take (256: no model with sinks has it, and the tensor-core
+    kernels' D-256 instantiations, at their register limit, are compiled
+    without the seeding), on the CPU as on the card."""
+    if sinks is not None and d not in SINK_HEAD_DIMS:
+        raise NotImplementedError(f"attention sinks at head_dim {d} (the "
+                                  f"sink forms take {SINK_HEAD_DIMS})")
+
+
+def sink_values(sinks, n: int, device):
+    """A layer's sinks, checked to be as the kernels take them and as the
+    params hold them: f32 [n] contiguous on ``device`` (None stays None)."""
+    if sinks is None:
+        return None
+    if tuple(sinks.shape) != (n,):
+        raise ValueError(f"sinks {tuple(sinks.shape)}: one logit per q "
+                         f"head ({n})")
+    if (sinks.dtype != torch.float32 or sinks.device != torch.device(device)
+            or not sinks.is_contiguous()):
+        raise ValueError(f"sinks {sinks.dtype} on {sinks.device}: the "
+                         f"kernels take f32 contiguous on {device}")
+    return sinks
 
 
 def cap_value(logit_cap) -> float | None:
@@ -72,10 +110,12 @@ def window_size(window) -> int:
 def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       sm_scale: float | None = None,
                       window: int | None = None,
-                      logit_cap: float | None = None) -> torch.Tensor:
+                      logit_cap: float | None = None,
+                      sinks: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version: causal reference attention (f32 softmax), keys
     within ``window`` of each query when given, scores soft-capped by
-    ``logit_cap`` before the mask.
+    ``logit_cap`` before the mask, each head's ``sinks`` logit in the
+    softmax.
     q: [B, S, N, D]; k/v: [B, S, kvN, D] -> [B, S, N, D]."""
     if q.is_cuda:
         flash_prefill_ref.cuda_calls += 1
@@ -83,7 +123,7 @@ def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = ref_ops.causal_mask(s, s, window=window,
                                device=q.device)[None, None]
     return ref_ops.attention(q, k, v, mask, scale=sm_scale,
-                             logit_cap=logit_cap)
+                             logit_cap=logit_cap, sinks=sinks)
 
 
 flash_prefill_ref.cuda_calls = 0
@@ -103,21 +143,26 @@ def heads_contiguous(x: torch.Tensor) -> torch.Tensor:
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   sm_scale: float | None = None,
                   window: int | None = None,
-                  logit_cap: float | None = None) -> torch.Tensor:
+                  logit_cap: float | None = None,
+                  sinks: torch.Tensor | None = None) -> torch.Tensor:
     """Causal self-attention of a (right-padded) prompt.
 
     q: [B, S, N, D]; k/v: [B, S, kvN, D] (bsnd; GQA by ``head // group``)
     -> [B, S, N, D] in q's dtype. ``sm_scale`` defaults to D**-0.5;
     ``window`` takes :func:`flash_prefill_window`; ``logit_cap`` > 0 is
-    Gemma-2's soft cap (forms 3c, 3wc)."""
+    Gemma-2's soft cap (forms 3c, 3wc); ``sinks`` [N] GPT-OSS's attention
+    sinks (forms 3s, 3ws)."""
     if window is not None:
-        return flash_prefill_window(q, k, v, window, sm_scale, logit_cap)
+        return flash_prefill_window(q, k, v, window, sm_scale, logit_cap,
+                                    sinks)
+    check_sinks_head_dim(sinks, q.shape[-1])
     cap = cap_value(logit_cap)
     if not q.is_cuda:
-        return flash_prefill_ref(q, k, v, sm_scale, logit_cap=cap)
-    out = _launch(q, k, v, sm_scale, 0, cap, "flash_prefill")
+        return flash_prefill_ref(q, k, v, sm_scale, logit_cap=cap,
+                                 sinks=sinks)
+    out = _launch(q, k, v, sm_scale, 0, cap, sinks, "flash_prefill")
     flash_prefill.launches += 1
-    count_launch("flash_prefill", q.shape[-1], cap, D256_LAUNCHES)
+    count_launch("flash_prefill", q.shape[-1], cap, D256_LAUNCHES, sinks)
     return out
 
 
@@ -126,25 +171,30 @@ flash_prefill.launches = 0
 
 def flash_prefill_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          window: int, sm_scale: float | None = None,
-                         logit_cap: float | None = None) -> torch.Tensor:
+                         logit_cap: float | None = None,
+                         sinks: torch.Tensor | None = None) -> torch.Tensor:
     """The sliding-window form of :func:`flash_prefill`: query i attends
     keys i - window < j <= i."""
     window = window_size(window)
     cap = cap_value(logit_cap)
     cuda_build.check_head_dim(q.shape[-1], "flash_prefill_window",
                               D256_FORMS)
+    check_sinks_head_dim(sinks, q.shape[-1])
     if not q.is_cuda:
-        return flash_prefill_ref(q, k, v, sm_scale, window, cap)
-    out = _launch(q, k, v, sm_scale, window, cap, "flash_prefill_window")
+        return flash_prefill_ref(q, k, v, sm_scale, window, cap, sinks)
+    out = _launch(q, k, v, sm_scale, window, cap, sinks,
+                  "flash_prefill_window")
     flash_prefill_window.launches += 1
-    count_launch("flash_prefill_window", q.shape[-1], cap, D256_LAUNCHES)
+    count_launch("flash_prefill_window", q.shape[-1], cap, D256_LAUNCHES,
+                 sinks)
     return out
 
 
 flash_prefill_window.launches = 0
 
 
-def _launch(q, k, v, sm_scale, window: int, cap, what: str) -> torch.Tensor:
+def _launch(q, k, v, sm_scale, window: int, cap, sinks,
+            what: str) -> torch.Tensor:
     b, s, n, d = q.shape
     kvn = k.shape[2]
     if k.shape != (b, s, kvn, d) or v.shape != k.shape:
@@ -158,6 +208,7 @@ def _launch(q, k, v, sm_scale, window: int, cap, what: str) -> torch.Tensor:
             q.device == k.device == v.device):
         raise ValueError("q, k, v must share dtype and device")
     code = cuda_build.dtype_code(q.dtype)
+    sinks = sink_values(sinks, n, q.device)
     out = torch.empty((b, s, n, d), dtype=q.dtype, device=q.device)
     if b == 0 or s == 0:
         return out
@@ -171,6 +222,7 @@ def _launch(q, k, v, sm_scale, window: int, cap, what: str) -> torch.Tensor:
         v.stride(0), v.stride(1), out.stride(0), out.stride(1),
         b, s, n, n // kvn, d, window, scale, cap or 0.0, code,
         0 if work is None else work.data_ptr(), splits,
+        0 if sinks is None else sinks.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, rc, what)
     return out

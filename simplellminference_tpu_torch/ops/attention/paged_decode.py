@@ -54,6 +54,16 @@ uncapped forms run the code they ran before; capped launches count in
 their form's ``launches`` and in :data:`~.flash_prefill.CAP_LAUNCHES`. The
 cap over INT8 or e4m3 pools raises (not ported yet).
 
+GPT-OSS's attention sinks (``sinks`` [N], a learned logit per q head that
+joins each row's softmax denominator and adds no value,
+paged_decode.py:29-35, :57-63) on the decode forms over pools of q's
+dtype, with or without a window (4s, 4ws): a pointer argument of the
+kernel; split 0's block seeds each row's state with (sink, 1), so the
+log-sum-exp merge counts it once. Launches with sinks count in their
+form's ``launches`` and in :data:`~.flash_prefill.SINK_LAUNCHES`. Sinks
+on verify rows (speculation), over INT8 or e4m3 pools raise (not ported
+yet), on the CPU as on the card.
+
 Unmapped (-1) pages inside kv_len read as zeros in both versions. The
 JAX package reads something else there — its TPU kernel clamps them to
 page 0, its reference gather reads the trash page (``mode="fill"``
@@ -68,7 +78,7 @@ import torch
 from simplellminference_tpu_torch.memory.paged_kv import gather_dense
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
 from simplellminference_tpu_torch.ops.attention.flash_prefill import (
-    cap_value, count_launch, window_size)
+    cap_value, check_sinks_head_dim, count_launch, sink_values, window_size)
 from simplellminference_tpu_torch.ops.matmul import SM_COUNT
 from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
@@ -83,6 +93,8 @@ MAX_ROWS = 128   # query rows (GQA group x window rows) a call takes
 ROW_BLOCK = 32   # query rows a block of the kernel holds
 TILE_KEYS = 64   # keys per tile of the kernel; splits cut whole tiles
 MAX_SPLITS = 32
+# the sink form not ported yet: sinks on verify rows (speculation)
+VERIFY_SINKS = "verify rows (4vs: speculation)"
 
 
 def decode_splits(b: int, kvn: int, span: int, row_blocks: int = 1) -> int:
@@ -147,6 +159,21 @@ def _check_cap(k_pool, k_scale, logit_cap):
         raise NotImplementedError("attention logit soft cap over FP8 KV")
 
 
+def check_sinks(sinks, k_pool, k_scale, unported: str | None = None
+                ) -> None:
+    """Sinks run on the decode forms over pools of q's dtype (4s, 4ws);
+    raise, named, over INT8 or e4m3 pools and on ``unported`` (the form a
+    caller names: verify rows, the dense arena)."""
+    if sinks is None:
+        return
+    if unported is not None:
+        raise NotImplementedError(f"attention sinks on {unported}")
+    if k_scale is not None:
+        raise NotImplementedError("attention sinks over INT8 KV")
+    if k_pool.dtype == torch.float8_e4m3fn:
+        raise NotImplementedError("attention sinks over FP8 KV")
+
+
 def _check_scales(k_pool, v_pool, k_scale, v_scale) -> bool:
     """True for INT8 pools with scale pools (checked), False without."""
     if k_scale is None and v_scale is None:
@@ -167,12 +194,13 @@ def band_tables(tables: torch.Tensor, k_lo: torch.Tensor,
 
 
 def _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
-                k_scale, v_scale, window=None, logit_cap=None):
+                k_scale, v_scale, window=None, logit_cap=None, sinks=None):
     """Gather the pages densely (dequantized in f32 through the scale pools
     when given), mask window row s to keys at positions <= kv_len - S + s
     (and, with a sliding ``window``, > kv_len - S + s - window), reference
-    attention with the scores capped by ``logit_cap`` before the mask; a
-    row with no key is zero, as in the kernel.
+    attention with the scores capped by ``logit_cap`` before the mask and
+    each head's ``sinks`` logit in the softmax; a row with no key is zero,
+    as in the kernel.
     q: [B, S, N, D] -> [B, S, N, D]."""
     quant = _check_scales(k_pool, v_pool, k_scale, v_scale)
     s = q.shape[1]
@@ -190,7 +218,8 @@ def _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
         mask = mask & (key_pos[None, None, None, :]
                        > q_pos[:, None, :, None] - window_size(window))
     out = ref_ops.attention(q, ck.transpose(1, 2), cv.transpose(1, 2), mask,
-                            scale=sm_scale, logit_cap=cap_value(logit_cap))
+                            scale=sm_scale, logit_cap=cap_value(logit_cap),
+                            sinks=sinks)
     return torch.where((q_pos >= 0)[:, :, None, None], out,
                        torch.zeros_like(out))
 
@@ -198,16 +227,18 @@ def _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
 def paged_flash_decode_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
                            sm_scale: float | None = None, k_scale=None,
                            v_scale=None, window=None,
-                           logit_cap=None) -> torch.Tensor:
+                           logit_cap=None, sinks=None) -> torch.Tensor:
     """Plain version of :func:`paged_flash_decode` and its INT8-KV, FP8-KV,
-    window and capped forms: keys at positions < kv_len (and >= kv_len -
-    window); q: [B, N, D] -> [B, N, D]."""
+    window, capped and sink forms: keys at positions < kv_len (and >=
+    kv_len - window); q: [B, N, D] -> [B, N, D]."""
     _check_fp8_window(k_pool, window)
     _check_cap(k_pool, k_scale, logit_cap)
+    check_sinks(sinks, k_pool, k_scale)
     if q.is_cuda:
         paged_flash_decode_ref.cuda_calls += 1
     return _attend_ref(q[:, None], k_pool, v_pool, tables, kv_lens, layer,
-                       sm_scale, k_scale, v_scale, window, logit_cap)[:, 0]
+                       sm_scale, k_scale, v_scale, window, logit_cap,
+                       sinks)[:, 0]
 
 
 paged_flash_decode_ref.cuda_calls = 0
@@ -216,13 +247,15 @@ paged_flash_decode_ref.cuda_calls = 0
 def paged_flash_verify_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
                            sm_scale: float | None = None, k_scale=None,
                            v_scale=None, window=None,
-                           logit_cap=None) -> torch.Tensor:
+                           logit_cap=None, sinks=None) -> torch.Tensor:
     """Plain version of :func:`paged_flash_verify` and its INT8-KV,
     FP8-KV, window and capped forms, the gather + mask + reference
     attention of the JAX dispatcher's S > 1 branch (dispatch.py:239-269).
-    q: [B, S, N, D] -> [B, S, N, D]."""
+    q: [B, S, N, D] -> [B, S, N, D]. ``sinks`` raise (4vs is not ported
+    yet)."""
     _check_fp8_window(k_pool, window)
     _check_cap(k_pool, k_scale, logit_cap)
+    check_sinks(sinks, k_pool, k_scale, VERIFY_SINKS)
     if q.is_cuda:
         paged_flash_verify_ref.cuda_calls += 1
     return _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
@@ -235,25 +268,26 @@ paged_flash_verify_ref.cuda_calls = 0
 def paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer: int,
                        sm_scale: float | None = None, k_scale=None,
                        v_scale=None, window=None,
-                       logit_cap=None) -> torch.Tensor:
+                       logit_cap=None, sinks=None) -> torch.Tensor:
     """q: [B, N, D]; k/v_pool: stacked [L, P+1, kvN, ps, D] with an int
     ``layer`` (q's dtype, float8_e4m3fn for FP8 KV, or int8 with f32
     ``k_scale``/``v_scale`` [L, P+1, kvN, ps] for INT8 KV); tables:
     [B, MP] int32 (-1 = unmapped); kv_lens: [B] -> out [B, N, D] in q's
     dtype. Keys are positions < min(kv_len, MP*ps), and >= kv_len -
     ``window`` with a sliding window; ``logit_cap`` > 0 soft-caps the
-    scores (pools of q's dtype). The launch counts as the form the
-    options and pools name (4, 4q, 4e, 4w, 4qw; a capped 4 or 4w in its
+    scores and ``sinks`` [N] add each head's sink logit to its softmax
+    (pools of q's dtype). The launch counts as the form the options and
+    pools name (4, 4q, 4e, 4w, 4qw; a capped or sink 4 or 4w in its
     form's count)."""
     return _run("paged_flash_decode", q[:, None], k_pool, v_pool, k_scale,
                 v_scale, tables, kv_lens, layer, sm_scale, window,
-                logit_cap)[:, 0]
+                logit_cap, sinks)[:, 0]
 
 
 def paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer: int,
                        sm_scale: float | None = None, k_scale=None,
                        v_scale=None, window=None,
-                       logit_cap=None) -> torch.Tensor:
+                       logit_cap=None, sinks=None) -> torch.Tensor:
     """Multi-row decode windows (the speculative verify step): q
     [B, S, N, D], where row s sits at position kv_len - S + s and attends
     the keys at positions <= that one, through the same page walk as
@@ -261,7 +295,9 @@ def paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer: int,
     tables, scale pools, ``window`` and ``logit_cap`` as there; out
     [B, S, N, D] in q's dtype. The launch counts as the form the options
     and pools name (4v, 4vq, 4ve, 4vw, 4vqw; a capped 4v or 4vw in its
-    form's count)."""
+    form's count). ``sinks`` raise: sinks on verify rows (4vs) are not
+    ported yet."""
+    check_sinks(sinks, k_pool, k_scale, VERIFY_SINKS)
     return _run("paged_flash_verify", q, k_pool, v_pool, k_scale, v_scale,
                 tables, kv_lens, layer, sm_scale, window, logit_cap)
 
@@ -269,12 +305,13 @@ def paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer: int,
 def paged_flash_decode_window(q, k_pool, v_pool, tables, kv_lens,
                               layer: int, window: int,
                               sm_scale: float | None = None,
-                              logit_cap=None) -> torch.Tensor:
+                              logit_cap=None, sinks=None) -> torch.Tensor:
     """4w: :func:`paged_flash_decode` over keys kv_len - window ..
-    kv_len - 1; no page below them is read (4wc with a ``logit_cap``)."""
+    kv_len - 1; no page below them is read (4wc with a ``logit_cap``, 4ws
+    with ``sinks``)."""
     return paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer,
                               sm_scale, window=window_size(window),
-                              logit_cap=logit_cap)
+                              logit_cap=logit_cap, sinks=sinks)
 
 
 def paged_flash_decode_int8kv(q, k_pool, v_pool, k_scale, v_scale, tables,
@@ -368,7 +405,7 @@ for _f in _FORMS.values():
 
 
 def _run(name, q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
-         sm_scale, window, logit_cap=None):
+         sm_scale, window, logit_cap=None, sinks=None):
     """Every form's body on q [B, S, N, D]: the plain version for CPU
     tensors; for CUDA tensors the kernel, one launch added to the count
     of the form the options name (``name``, ``_int8kv`` with scale pools,
@@ -378,6 +415,8 @@ def _run(name, q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
     quant = _check_scales(k_pool, v_pool, k_scale, v_scale)
     _check_fp8_window(k_pool, window)
     _check_cap(k_pool, k_scale, logit_cap)
+    check_sinks(sinks, k_pool, k_scale)
+    check_sinks_head_dim(sinks, q.shape[-1])
     cap = cap_value(logit_cap)
     if window is not None:
         window = window_size(window)
@@ -387,15 +426,15 @@ def _run(name, q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
     cuda_build.check_head_dim(q.shape[-1], form.__name__, D256_FORMS)
     if not q.is_cuda:
         return _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer,
-                           sm_scale, k_scale, v_scale, window, cap)
+                           sm_scale, k_scale, v_scale, window, cap, sinks)
     if quant:
         _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale)
     else:
         _check_float_pools(q, k_pool, v_pool)
     out = _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
-                  layer, sm_scale, window or 0, cap, form.__name__)
+                  layer, sm_scale, window or 0, cap, form.__name__, sinks)
     form.launches += 1
-    count_launch(form.__name__, q.shape[-1], cap, D256_LAUNCHES)
+    count_launch(form.__name__, q.shape[-1], cap, D256_LAUNCHES, sinks)
     return out
 
 
@@ -417,7 +456,7 @@ def _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale):
 
 
 def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
-            sm_scale, window: int, cap, what):
+            sm_scale, window: int, cap, what, sinks=None):
     """The kernel on q [B, S, N, D] (S = 1: decode) -> [B, S, N, D]."""
     b, s, n, d = q.shape
     n_layers, p1, kvn, ps, pd = k_pool.shape
@@ -436,6 +475,7 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
     if not 0 <= layer < n_layers:
         raise IndexError(f"layer {layer} out of range")
     code = cuda_build.dtype_code(q.dtype)
+    sinks = sink_values(sinks, n, q.device)
     out = torch.empty((b, s, n, d), dtype=q.dtype, device=q.device)
     if b == 0 or s == 0:
         return out
@@ -459,6 +499,7 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
         0 if part is None else part.data_ptr(), b, layer, p1, kvn, ps, mp,
         n // kvn, s, d, window, splits, scale, cap or 0.0, code,
         cuda_build.pool_code(k_pool.dtype),
+        0 if sinks is None else sinks.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, rc, what)
     return out

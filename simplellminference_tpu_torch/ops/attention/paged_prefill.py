@@ -54,8 +54,16 @@ Gemma-2's soft cap (``logit_cap``: cap * tanh(s * scale * (1 / cap))
 before the mask, paged_prefill.py:123-124) over pools of q's dtype, with
 or without a window (forms 8c, 8wc): a compile-time flag of the kernels;
 capped launches count in their form's ``launches`` and in
-:data:`~.flash_prefill.CAP_LAUNCHES`. The cap over INT8 or e4m3 pools,
-sinks and shared-KV (absorbed MLA) pools are not ported yet and raise.
+:data:`~.flash_prefill.CAP_LAUNCHES`.
+
+GPT-OSS's attention sinks (``sinks`` [N], a logit per q head in each
+row's softmax denominator, no value; paged_prefill.py:259) over pools of
+q's dtype, with or without a window (forms 8s, 8ws): a pointer argument of
+both kernels, each row's softmax state seeded with (sink, 1), by split 0
+only when the key walk splits; launches with sinks count in their form's
+``launches`` and in :data:`~.flash_prefill.SINK_LAUNCHES`. The cap and
+sinks over INT8 or e4m3 pools and shared-KV (absorbed MLA) pools are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -66,9 +74,10 @@ from simplellminference_tpu_torch.memory.paged_kv import gather_dense
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
 from simplellminference_tpu_torch.ops.attention import prefill_tiles
 from simplellminference_tpu_torch.ops.attention.flash_prefill import (
-    cap_value, count_launch, heads_contiguous, window_size)
+    cap_value, check_sinks_head_dim, count_launch, heads_contiguous,
+    sink_values, window_size)
 from simplellminference_tpu_torch.ops.attention.paged_decode import (
-    _check_e4m3, _check_float_pools, band_tables)
+    _check_e4m3, _check_float_pools, band_tables, check_sinks)
 from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
 HEAD_DIMS = (32, 64, 128, 256)
@@ -89,8 +98,7 @@ def _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
         window_size(window)
         if k_pool.dtype == torch.float8_e4m3fn:
             raise NotImplementedError("FP8 KV with sliding windows")
-    if sinks is not None:
-        raise NotImplementedError("attention sinks")
+    check_sinks(sinks, k_pool, k_scale)
     if cap_value(logit_cap) and k_pool.dtype == torch.float8_e4m3fn:
         raise NotImplementedError("attention logit soft cap over FP8 KV")
     if k_scale is None and v_scale is None:
@@ -110,7 +118,8 @@ def paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
     rounds), mask key_pos <= q_pos and key_pos < kv_len per element (and
     key_pos > q_pos - window with a sliding window, the pages wholly below
     the band left ungathered), reference attention, the scores capped by
-    ``logit_cap`` before the mask. q: [B, Sq, N, D] -> [B, Sq, N, D]."""
+    ``logit_cap`` before the mask, each head's ``sinks`` logit in its
+    softmax. q: [B, Sq, N, D] -> [B, Sq, N, D]."""
     quant = _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
                            v_scale)
     if q.is_cuda:
@@ -135,7 +144,7 @@ def paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
         mask = mask & (key_pos > q_pos[:, None, :, None] - int(window))
     return ref_ops.attention(q, ck.transpose(1, 2), cv.transpose(1, 2),
                              mask, scale=sm_scale,
-                             logit_cap=cap_value(logit_cap))
+                             logit_cap=cap_value(logit_cap), sinks=sinks)
 
 
 paged_flash_prefill_ref.cuda_calls = 0
@@ -153,11 +162,13 @@ def paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
     after the chunk's write; chunk_offset: [B] -> out [B, Sq, N, D] in q's
     dtype. Keys are positions < min(kv_len, MP*ps) up to each row's
     position, and within ``window`` of it with a sliding window;
-    ``logit_cap`` > 0 soft-caps the scores (pools of q's dtype). The
-    launch counts as the form the options and pools name (8, 8q, 8e, 8w,
-    8qw; a capped 8 or 8w in its form's count)."""
+    ``logit_cap`` > 0 soft-caps the scores and ``sinks`` [N] add each
+    head's sink logit to its softmax (pools of q's dtype). The launch
+    counts as the form the options and pools name (8, 8q, 8e, 8w, 8qw; a
+    capped or sink 8 or 8w in its form's count)."""
     quant = _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
                            v_scale)
+    check_sinks_head_dim(sinks, q.shape[-1])
     cap = cap_value(logit_cap)
     if window is not None:
         window = window_size(window)
@@ -169,30 +180,31 @@ def paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
         return paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens,
                                        chunk_offset, layer, sm_scale,
                                        window=window, logit_cap=cap,
-                                       k_scale=k_scale, v_scale=v_scale)
+                                       sinks=sinks, k_scale=k_scale,
+                                       v_scale=v_scale)
     if quant:
         _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale)
     else:
         _check_float_pools(q, k_pool, v_pool)
     out = _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
                   chunk_offset, layer, sm_scale, window or 0, cap,
-                  form.__name__)
+                  form.__name__, sinks)
     form.launches += 1
-    count_launch(form.__name__, q.shape[-1], cap, D256_LAUNCHES)
+    count_launch(form.__name__, q.shape[-1], cap, D256_LAUNCHES, sinks)
     return out
 
 
 def paged_flash_prefill_window(q, k_pool, v_pool, tables, kv_lens,
                                chunk_offset, layer: int, window: int,
                                sm_scale: float | None = None,
-                               logit_cap: float | None = None
-                               ) -> torch.Tensor:
+                               logit_cap: float | None = None,
+                               sinks=None) -> torch.Tensor:
     """8w: :func:`paged_flash_prefill` with a sliding window (8wc with a
-    ``logit_cap``)."""
+    ``logit_cap``, 8ws with ``sinks``)."""
     return paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens,
                                chunk_offset, layer, sm_scale,
                                window=window_size(window),
-                               logit_cap=logit_cap)
+                               logit_cap=logit_cap, sinks=sinks)
 
 
 def paged_flash_prefill_int8kv(q, k_pool, v_pool, k_scale, v_scale, tables,
@@ -246,7 +258,8 @@ def _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale):
 
 
 def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
-            chunk_offset, layer, sm_scale, window: int, cap, what):
+            chunk_offset, layer, sm_scale, window: int, cap, what,
+            sinks=None):
     b, s, n, d = q.shape
     n_layers, p1, kvn, ps, pd = k_pool.shape
     if pd != d or v_pool.shape != k_pool.shape:
@@ -267,6 +280,7 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
     if not 0 <= layer < n_layers:
         raise IndexError(f"layer {layer} out of range")
     code = cuda_build.dtype_code(q.dtype)
+    sinks = sink_values(sinks, n, q.device)
     out = torch.empty((b, s, n, d), dtype=q.dtype, device=q.device)
     if b == 0 or s == 0:
         return out
@@ -289,6 +303,7 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
         cap or 0.0, code,
         cuda_build.pool_code(k_pool.dtype),
         0 if work is None else work.data_ptr(), splits,
+        0 if sinks is None else sinks.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, rc, what)
     return out

@@ -52,13 +52,14 @@ _SIGNATURES = {
                                        _L, _P, _I, _I, _I, _I, _I, _I, _I,
                                        _I, _I, _P],
     "sli_flash_prefill": [_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _L,
-                          _I, _I, _I, _I, _I, _I, _F, _F, _I, _P, _I, _P],
+                          _I, _I, _I, _I, _I, _I, _F, _F, _I, _P, _I, _P,
+                          _P],
     "sli_paged_flash_decode": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                               _F, _F, _I, _I, _P],
+                               _F, _F, _I, _I, _P, _P],
     "sli_paged_flash_prefill": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                _F, _F, _I, _I, _P, _I, _P],
+                                _F, _F, _I, _I, _P, _I, _P, _P],
     "sli_quantized_matmul": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P],
     "sli_quantized_matmul_mma": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I,

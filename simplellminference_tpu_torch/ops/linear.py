@@ -135,6 +135,17 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float())
 
 
+def bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Batched x @ w with an f32 result, as :func:`dot_f32`: x [G, M, K],
+    w [G, K, N], both in x's dtype."""
+    w = w.to(x.dtype)
+    if x.dtype == torch.float32:
+        return torch.bmm(x, w)
+    if x.is_cuda:
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    return torch.bmm(x.float(), w.float())
+
+
 def linear(x: torch.Tensor, w, out_dtype=None, layer: int | None = None,
            act_quant: str | None = None) -> torch.Tensor:
     """y = x @ w. x: [..., K]; w: [K, N] or stacked [L, K, N] + ``layer``,

@@ -32,8 +32,13 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
     return (xf * torch.rsqrt(var + eps)).to(dtype) * weight
 
 
-# the activations glu_act runs: SwiGLU and Gemma's GeGLU
-GLU_ACTS = ("silu", "gelu_pytorch_tanh", "gelu_tanh", "gelu")
+# the activations glu_act runs: SwiGLU, Gemma's GeGLU and GPT-OSS's
+# clamped SwiGLU (its experts)
+GLU_ACTS = ("silu", "gelu_pytorch_tanh", "gelu_tanh", "gelu", "swiglu_oss")
+# GPT-OSS's clamped SwiGLU (HF GptOssExperts; the JAX package hard-codes
+# both, ref_ops.py:56-63)
+OSS_LIMIT = 7.0
+OSS_ALPHA = 1.702
 
 
 def glu_act(gate: torch.Tensor, up: torch.Tensor,
@@ -41,12 +46,16 @@ def glu_act(gate: torch.Tensor, up: torch.Tensor,
     """Gated linear unit with a configurable activation, in f32, cast back
     to gate's dtype (simplellminference_tpu/ops/ref_ops.py:46-75): "silu"
     is SwiGLU (the Llama family), "gelu_pytorch_tanh"/"gelu_tanh" and
-    "gelu" are Gemma's GeGLU (tanh approximation and exact erf). GPT-OSS's
-    clamped "swiglu_oss" belongs to the MoE FFN, not ported; an unknown
+    "gelu" are Gemma's GeGLU (tanh approximation and exact erf),
+    "swiglu_oss" GPT-OSS's clamped SwiGLU (the gate clamped above at 7,
+    up to [-7, 7], (up + 1) * gate * sigmoid(1.702 * gate)); an unknown
     name raises ValueError, as in the JAX package."""
     g = gate.float()
     if act == "swiglu_oss":
-        raise NotImplementedError(f"activation {act!r} (the MoE FFN)")
+        g = torch.clamp(g, max=OSS_LIMIT)
+        u = torch.clamp(up.float(), -OSS_LIMIT, OSS_LIMIT)
+        return ((u + 1.0) * (g * torch.sigmoid(g * OSS_ALPHA))).to(
+            gate.dtype)
     if act == "silu":
         a = g * torch.sigmoid(g)
     elif act in ("gelu_pytorch_tanh", "gelu_tanh"):
@@ -63,11 +72,14 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """sin/cos tables for the given positions: [..., head_dim // 2].
 
-    freq_d = theta^(-2d/head_dim), angle = pos * freq, with the "linear"
-    and "llama3" frequency scalings; "yarn" and "longrope" are not ported.
+    freq_d = theta^(-2d/head_dim), angle = pos * freq, with the "linear",
+    "llama3" and "yarn" frequency scalings ("yarn" also scales sin and
+    cos by its attention factor, as the JAX package does,
+    ref_ops.py:87-99); "longrope" is not ported.
     """
     half = head_dim // 2
     dev = positions.device
+    amp = 1.0   # yarn's attention factor on sin and cos
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
                                     device=dev) * 2.0 / head_dim)
     if rope_scaling is not None:
@@ -86,10 +98,58 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
             freqs = torch.where(wavelen > old_len / low, freqs / factor,
                                 torch.where(wavelen < old_len / high, freqs,
                                             scaled))
+        elif kind == "yarn":
+            freqs, amp = _yarn_freqs(freqs, head_dim, theta, rs, factor)
         elif kind != "default":
             raise NotImplementedError(f"rope_type {kind!r}")
     angles = positions[..., None].float() * freqs
-    return torch.sin(angles).to(dtype), torch.cos(angles).to(dtype)
+    return ((amp * torch.sin(angles)).to(dtype),
+            (amp * torch.cos(angles)).to(dtype))
+
+
+def yarn_mscale(scale: float, mscale: float = 1.0) -> float:
+    """Yarn's attention magnitude correction: 0.1 * m * ln(s) + 1."""
+    if scale <= 1.0:
+        return 1.0
+    return 0.1 * mscale * math.log(scale) + 1.0
+
+
+def _yarn_freqs(freqs: torch.Tensor, head_dim: int, theta: float, rs: dict,
+                factor: float) -> tuple[torch.Tensor, float]:
+    """Yarn (NTK-by-parts) frequencies and attention factor
+    (simplellminference_tpu/ops/ref_ops.py:154-196, HF
+    ``_compute_yarn_parameters``): each dim blends the original frequency
+    and freq / factor by a ramp between the beta_fast and beta_slow
+    correction dims (rounded outward unless ``truncate`` is false); the
+    factor is ``attention_factor``, the mscale ratio, or
+    0.1 * ln(factor) + 1."""
+    half = head_dim // 2
+    orig = float(rs.get("original_max_position_embeddings") or 4096)
+    beta_fast = float(rs.get("beta_fast") or 32.0)
+    beta_slow = float(rs.get("beta_slow") or 1.0)
+    att = rs.get("attention_factor")
+    if att is None:
+        ms, msad = rs.get("mscale"), rs.get("mscale_all_dim")
+        if ms and msad:
+            att = yarn_mscale(factor, float(ms)) / yarn_mscale(
+                factor, float(msad))
+        else:
+            att = yarn_mscale(factor)
+
+    def correction_dim(num_rotations: float) -> float:
+        return (head_dim * math.log(orig / (num_rotations * 2 * math.pi))
+                ) / (2 * math.log(theta))
+
+    low, high = correction_dim(beta_fast), correction_dim(beta_slow)
+    if rs.get("truncate", True):
+        low, high = math.floor(low), math.ceil(high)
+    low = max(low, 0)
+    high = min(high, head_dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(half, dtype=torch.float32, device=freqs.device)
+             - low) / (high - low)).clamp(0.0, 1.0)
+    return freqs / factor * ramp + freqs * (1.0 - ramp), float(att)
 
 
 def rope_tables_for(cfg, positions: torch.Tensor, dtype=torch.float32):
@@ -139,14 +199,18 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: torch.Tensor | None = None,
               scale: float | None = None,
-              logit_cap: float | None = None) -> torch.Tensor:
+              logit_cap: float | None = None,
+              sinks: torch.Tensor | None = None) -> torch.Tensor:
     """Dense reference attention with fp32 softmax.
 
     q: [B, Sq, N, D]; k/v: [B, Sk, kvN, D]; mask: broadcastable to
     [B, N, Sq, Sk] (True = attend; masked logits are -1e30).
     ``logit_cap``: Gemma-2's score soft cap, cap * tanh(s / cap) on the
     f32 scores after the scale and before the mask (ref_ops.py:336-338),
-    so a masked key still gets no weight."""
+    so a masked key still gets no weight. ``sinks`` [N]: GPT-OSS's
+    attention sinks (ref_ops.py:339-345), a learned logit per q head that
+    joins each row's softmax as one more column (neither scaled nor
+    capped) and adds no value."""
     n_rep = q.shape[2] // k.shape[2]
     k = repeat_kv(k, n_rep)
     v = repeat_kv(v, n_rep)
@@ -159,7 +223,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = torch.where(mask, logits,
                              torch.full((), NEG_INF, dtype=logits.dtype,
                                         device=logits.device))
-    probs = torch.softmax(logits, dim=-1)
+    if sinks is not None:
+        b, n, sq, _ = logits.shape
+        col = sinks.float().to(logits.device)[None, :, None, None].expand(
+            b, n, sq, 1)
+        probs = torch.softmax(torch.cat([logits, col], dim=-1),
+                              dim=-1)[..., :-1]
+    else:
+        probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bnqk,bknd->bqnd", probs, v.float())
     return out.to(q.dtype)
 

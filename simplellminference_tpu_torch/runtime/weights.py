@@ -124,15 +124,36 @@ def _maybe_quantize(path: str, w, quant: QuantConfig):
         if bits == 4 and gs != k and (k // 2) % gs != 0:
             # split-half packing needs gs | K/2 (ref_ops)
             gs = math.gcd(k // 2, gs) or k
-        return QuantizedWeight.quantize(w, gs, bits=bits)
+        return _quantize_by_layer(w, gs, bits)
     return w
+
+
+def _quantize_by_layer(w, gs: int, bits: int) -> QuantizedWeight:
+    """QuantizedWeight.quantize of ``w``, a stacked [L, K, N] weight one
+    layer at a time into the stacked codes and scales: the same values
+    (each group lies in one layer), with one layer's f32 temporaries
+    instead of the stack's (a folded-expert stack of gpt-oss-20b is
+    25 GB in bf16, 51 GB in f32)."""
+    if w.ndim != 3:
+        return QuantizedWeight.quantize(w, gs, bits=bits)
+    first = QuantizedWeight.quantize(w[0], gs, bits=bits)
+    q = first.q.new_empty((w.shape[0], *first.q.shape))
+    scales = first.scales.new_empty((w.shape[0], *first.scales.shape))
+    q[0], scales[0] = first.q, first.scales
+    for li in range(1, w.shape[0]):
+        one = QuantizedWeight.quantize(w[li], gs, bits=bits)
+        q[li], scales[li] = one.q, one.scales
+    return QuantizedWeight(q=q, scales=scales, bits=bits)
 
 
 def quantize_params(params: dict, quant: QuantConfig) -> dict:
     """Post-hoc quantization of an already-loaded float params dict: the
     eligible stacked weights become :class:`QuantizedWeight` (int8 codes,
     or split-half packed INT4 with ``mode="int4"``, with f32 scales, on
-    the weights' device); everything else is passed through."""
+    the weights' device), the folded experts of a mixture-of-experts
+    model (``w_gate_up``, ``w_down``) among them, one layer at a time;
+    everything else (the router and every bias included) is passed
+    through."""
     out = dict(params)
     out["layers"] = {
         name: _maybe_quantize(f"layers/{name}", w, quant)

@@ -61,8 +61,8 @@ def test_flash_prefill_sm_scale_via_dispatch():
                              causal=True, interpret=True,
                              sm_scale=24.0 ** -0.5)
     close(got, want)
-    # Gemma-2's soft cap goes through too (scores x3 so that it bites);
-    # sinks still raise
+    # Gemma-2's soft cap goes through too (scores x3 so that it bites),
+    # and GPT-OSS's sinks (a layer's logit per q head)
     q3 = q * 3.0
     got = dispatch.attention(
         ModelConfig.tiny_test(query_pre_attn_scalar=24.0,
@@ -72,9 +72,14 @@ def test_flash_prefill_sm_scale_via_dispatch():
                              causal=True, interpret=True,
                              sm_scale=24.0 ** -0.5, logit_cap=2.0)
     close(got, want)
-    with pytest.raises(NotImplementedError, match="sinks"):
-        dispatch.attention(ModelConfig.tiny_test(attn_sinks=True),
-                           *(torch.from_numpy(a) for a in (q, k, v)))
+    sinks = rng.standard_normal(2).astype(np.float32)
+    got = dispatch.attention(ModelConfig.tiny_test(attn_sinks=True),
+                             *(torch.from_numpy(a) for a in (q, k, v)),
+                             sinks=torch.from_numpy(sinks))
+    want = jax_flash_prefill(*(jnp.asarray(a) for a in (q, k, v)),
+                             causal=True, interpret=True,
+                             sinks=jnp.asarray(sinks))
+    close(got, want)
 
 
 def _paged_case(rng, b, n, kvn, d, ps, mp, lens):

@@ -88,13 +88,17 @@ def test_decode_splits_from_shapes(b, kvn, span, rows, want):
 
 
 def split_merge(q, k_pool, v_pool, tables, kv_lens, layer, splits,
-                window=0, k_scale=None, v_scale=None, dense=False):
+                window=0, k_scale=None, v_scale=None, dense=False,
+                sinks=None, seed_every_split=False):
     """The kernel's arithmetic in plain torch, f32: q [B, S, N, D] against
     paged pools [L, P+1, kvN, ps, D] (``dense``: the arena [L, B', kvN,
     Smax, D], sequence b reading row b), each split's keys from
     :func:`split_keys`; per split m (-1e30 with no key), l (the sum of the
     unscaled probabilities) and acc (with the V scale folded into p), the
-    K scale times q.k; then the log-sum-exp merge."""
+    K scale times q.k; then the log-sum-exp merge. ``sinks`` [N]: split 0
+    starts each row's state at (m, l) = (its head's sink, 1), as the
+    kernel's sink forms do (``seed_every_split``: every split, the fault
+    the kernel must not make)."""
     b, s, n, d = q.shape
     kvn, ps = k_pool.shape[2], k_pool.shape[3]
     group = n // kvn
@@ -128,8 +132,13 @@ def split_merge(q, k_pool, v_pool, tables, kv_lens, layer, splits,
                              torch.tensor(float("-inf")))
             m = torch.clamp_min(sc.amax(-1) if len(kp) else
                                 torch.full((s, kvn, group), -1e30), -1e30)
+            seed = sinks is not None and (seed_every_split or not parts)
+            if seed:
+                m = torch.maximum(m, sinks.float().reshape(kvn, group))
             p = torch.exp(sc - m[..., None])
             l_ = p.sum(-1)
+            if seed:
+                l_ = l_ + torch.exp(sinks.float().reshape(kvn, group) - m)
             acc = torch.einsum("sghk,kgd->sghd", p * vs.T[None, :, None, :],
                                vv)
             parts.append((m, l_, acc))

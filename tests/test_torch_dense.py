@@ -167,7 +167,9 @@ def test_flash_decode_takes_4d_caches_and_refuses_unported_options():
                           .astype(np.float32))
     lens = torch.tensor([3, 64])
     # the window (13w) and the soft cap (13c) take 4-D caches as well;
-    # attention sinks are not ported
+    # attention sinks on the dense arena (13s) are not ported: the sink
+    # forms of kernels 3, 4 and 8 serve GPT-OSS through the Engine, not
+    # through the Generator (tests/test_torch_sinks.py)
     for kw in ({}, dict(window=8), dict(logit_cap=30.0),
                dict(window=8, logit_cap=30.0)):
         np.testing.assert_array_equal(

@@ -126,8 +126,14 @@ def test_glu_act_refuses_what_jax_refuses():
         tref.glu_act(x, x, "relu")
     with pytest.raises(ValueError):
         jref.glu_act(jnp.ones((2, 4)), jnp.ones((2, 4)), "relu")
-    with pytest.raises(NotImplementedError, match="swiglu_oss"):
-        tref.glu_act(x, x, "swiglu_oss")
+    # GPT-OSS's clamped SwiGLU runs (tests/test_torch_moe.py holds it at
+    # the clamps), as in JAX
+    g = torch.linspace(-9, 9, 8)[None].repeat(2, 1)
+    np.testing.assert_allclose(
+        tref.glu_act(g, g.flip(-1), "swiglu_oss").numpy(),
+        np.asarray(jref.glu_act(jnp.asarray(g.numpy()),
+                                jnp.asarray(g.flip(-1).numpy()),
+                                "swiglu_oss")), rtol=1e-6, atol=1e-6)
 
 
 def test_embed_scale_rounds_to_bf16_as_jax():
@@ -156,7 +162,10 @@ def test_embed_scale_rounds_to_bf16_as_jax():
 
 def test_check_supported_admits_gemma_and_refuses_the_rest():
     tllama.check_supported(ModelConfig.gemma_2b())
-    for kw, name in ((dict(hidden_act="swiglu_oss"), "swiglu_oss"),
+    # GPT-OSS's clamped SwiGLU runs since its slice (the dense FFN takes
+    # it through glu_act, as in JAX)
+    tllama.check_supported(ModelConfig.gemma_2b(hidden_act="swiglu_oss"))
+    for kw, name in ((dict(rope_interleaved=True), "interleaved rotary"),
                      (dict(logit_scale=0.5), "logit_scale"),
                      (dict(residual_scale=0.5), "residual_scale"),
                      (dict(qk_norm=True), "q/k RMSNorm")):

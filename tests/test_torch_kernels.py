@@ -10,7 +10,8 @@ has only PyTorch and the CUDA toolkit:
 Stated tolerances: the paged writes are exact (every page but the trash
 page); attention 1e-4 absolute in float32 and 2e-2 in bfloat16 (both sides
 accumulate in f32, in different orders; bf16 rounds the outputs), the
-bf16 prefill forms (3, 3w, 8, 8q, 8w, 8qw, on the tensor cores with P
+bf16 prefill forms (3, 3w, 8, 8q, 8w, 8qw and their sink forms 3s, 3ws,
+8s, 8ws, on the tensor cores with P
 split into two bf16 parts) within one bf16 ulp of each output plus 1e-5
 of the largest (``_attn_ok``); model
 logits 1e-3 in float32 with TF32 off. The INT8 kernels sum exact products
@@ -2336,3 +2337,197 @@ def test_paged_flash_verify_head_dim_256_and_softcap(cuda, dtype, window, n,
     assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
     assert not got[0].any() and not got[-1].any()
     assert not got[1, :2].any()      # rows before position 0
+
+
+# ------------------------------------------- gpt-oss-20b: attention sinks
+# gpt-oss-20b's attention: 64 q heads over 8 kv heads (GQA group 8), D 64,
+# window 128 on the sliding layers, a sink logit per q head drawn N(0, 1),
+# or SINK_ABOVE, above every score of unit q and k (a sink counted twice
+# or in the wrong units then moves every output far past the rule).
+
+OSS_N, OSS_KVN, OSS_D, SINK_ABOVE = 64, 8, 64, 10.0
+
+
+def _oss_sinks(g, dev, above):
+    if above:
+        return torch.full((OSS_N,), SINK_ABOVE, device=dev)
+    return torch.randn((OSS_N,), generator=g, device=dev).to(
+        torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 128, 40], ids=["3s", "3ws",
+                                                        "3ws-40"])
+@pytest.mark.parametrize("above", [False, True], ids=["n01", "above"])
+def test_flash_prefill_sinks(cuda, dtype, window, above):
+    # bench.py's prefill at gpt-oss-20b (8 x 128) and 3 x 300 rows
+    g = torch.Generator(device=cuda).manual_seed(64 + (window or 0) + above)
+    b, s = (8, 128) if window != 40 else (3, 300)
+    q = torch.randn((b, s, OSS_N, OSS_D), generator=g, device=cuda,
+                    dtype=dtype)
+    k = torch.randn((b, s, OSS_KVN, OSS_D), generator=g, device=cuda,
+                    dtype=dtype)
+    v = torch.randn((b, s, OSS_KVN, OSS_D), generator=g, device=cuda,
+                    dtype=dtype)
+    sinks = _oss_sinks(g, cuda, above)
+    form = fp.flash_prefill_window if window else fp.flash_prefill
+    before = form.launches, fp.SINK_LAUNCHES.get((form.__name__, OSS_D), 0)
+    got = fp.flash_prefill(q, k, v, window=window, sinks=sinks)
+    assert (form.launches, fp.SINK_LAUNCHES[form.__name__, OSS_D]) == (
+        before[0] + 1, before[1] + 1)
+    want = fp.flash_prefill_ref(q, k, v, window=window, sinks=sinks)
+    assert _attn_ok(got, want)
+    # the sink takes weight: the outputs move
+    plain = fp.flash_prefill_ref(q, k, v, window=window)
+    assert float((plain.float() - got.float()).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 128, 70],
+                         ids=["4s", "4ws", "4ws-70"])
+@pytest.mark.parametrize("above", [False, True], ids=["n01", "above"])
+def test_paged_flash_decode_sinks(cuda, dtype, window, above):
+    # the decode at the bench batch, kv_len 0 and 1, the window's edges and
+    # 4096 (the key walk split over blocks); a dead slot
+    g = torch.Generator(device=cuda).manual_seed(65 + (window or 0) + above)
+    lens = [0, 1, 128, 129, 4096, 4097, 300, 3]
+    b, ps, mp = len(lens), 128, 33
+    pk, pv = _pools(g, cuda, dtype, b=b, kvn=OSS_KVN, ps=ps, d=OSS_D, mp=mp)
+    q = torch.randn((b, OSS_N, OSS_D), generator=g, device=cuda,
+                    dtype=dtype)
+    tables = torch.randperm(b * mp, generator=g, device=cuda).to(
+        torch.int32).reshape(b, mp)
+    tables[-1] = -1
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    sinks = _oss_sinks(g, cuda, above)
+    span = mp * ps if not window else window
+    assert window or pd.decode_splits(b, OSS_KVN, span) > 1
+    form = pd.paged_flash_decode_window if window else pd.paged_flash_decode
+    before = form.launches, fp.SINK_LAUNCHES.get((form.__name__, OSS_D), 0)
+    got = pd.paged_flash_decode(q, pk, pv, tables, kv, 1, window=window,
+                                sinks=sinks)
+    assert (form.launches, fp.SINK_LAUNCHES[form.__name__, OSS_D]) == (
+        before[0] + 1, before[1] + 1)
+    want = pd.paged_flash_decode_ref(q, pk, pv, tables, kv, 1,
+                                     window=window, sinks=sinks)
+    assert _close(got, want, dtype)
+    assert not got[0].any() and not got[-1].any()
+
+
+def test_paged_flash_decode_window_sinks_read_no_page_below_the_band(cuda):
+    # 4ws over ring tables whose columns below the band point at NaN pages
+    g = torch.Generator(device=cuda).manual_seed(66)
+    b, r, mp, ps, window = 2, 3, 12, 128, 128
+    pk, pv = _pools(g, cuda, torch.bfloat16, b=b, kvn=OSS_KVN, ps=ps,
+                    d=OSS_D, mp=r + 2)
+    poison = torch.arange(b * r, b * r + 4, device=cuda)
+    pk[:, poison] = float("nan")
+    pv[:, poison] = float("nan")
+    ring = (torch.arange(b, device=cuda)[:, None] * r
+            + torch.arange(mp, device=cuda)[None] % r).to(torch.int32)
+    lens = torch.tensor([700, 1291], dtype=torch.int32, device=cuda)
+    dirty = ring.clone()
+    for i in range(b):
+        below = (torch.arange(mp, device=cuda) + 1) * ps <= (
+            int(lens[i]) - window)
+        dirty[i, below] = poison[torch.arange(int(below.sum()),
+                                              device=cuda) % 4].to(
+            torch.int32)
+    q = torch.randn((b, OSS_N, OSS_D), generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    sinks = _oss_sinks(g, cuda, False)
+    clean = pd.paged_flash_decode(q, pk, pv, ring, lens, 1, window=window,
+                                  sinks=sinks)
+    got = pd.paged_flash_decode(q, pk, pv, dirty, lens, 1, window=window,
+                                sinks=sinks)
+    assert bool(torch.isfinite(clean).all()) and torch.equal(got, clean)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 128], ids=["8s", "8ws"])
+@pytest.mark.parametrize("sq,above", [(256, False), (64, True), (37, True)],
+                         ids=["chunk", "split-above", "ragged-above"])
+def test_paged_flash_prefill_sinks(cuda, dtype, window, sq, above):
+    # gpt-oss-20b's 256-row chunks, 64 rows at offset 4096 (the key walk
+    # split over blocks), ragged offsets, an unmapped page inside kv_len,
+    # a padding row
+    g = torch.Generator(device=cuda).manual_seed(67 + sq + (window or 0))
+    ps = 128
+    b, mp = 4, -(-(sq + 4200) // ps)
+    pk, pv = _pools(g, cuda, dtype, b=b, kvn=OSS_KVN, ps=ps, d=OSS_D, mp=mp)
+    q = torch.randn((b, sq, OSS_N, OSS_D), generator=g, device=cuda,
+                    dtype=dtype)
+    tables = torch.randperm(b * mp, generator=g, device=cuda).to(
+        torch.int32).reshape(b, mp)
+    offs = torch.tensor([4096, 37, 512, 0], dtype=torch.int32, device=cuda)
+    kv = offs + torch.tensor([sq, max(sq - 5, 1), sq, 1], dtype=torch.int32,
+                             device=cuda)
+    tables[2, 1] = -1
+    tables[3] = -1
+    sinks = _oss_sinks(g, cuda, above)
+    form = (pp.paged_flash_prefill_window if window
+            else pp.paged_flash_prefill)
+    before = form.launches, fp.SINK_LAUNCHES.get((form.__name__, OSS_D), 0)
+    got = pp.paged_flash_prefill(q, pk, pv, tables, kv, offs, 1,
+                                 window=window, sinks=sinks)
+    assert (form.launches, fp.SINK_LAUNCHES[form.__name__, OSS_D]) == (
+        before[0] + 1, before[1] + 1)
+    want = pp.paged_flash_prefill_ref(q, pk, pv, tables, kv, offs, 1,
+                                      window=window, sinks=sinks)
+    assert bool(torch.isfinite(got).all())
+    assert _attn_ok(got, want)
+    one = pp.paged_flash_prefill(q[:1], pk, pv, tables[:1], kv[:1],
+                                 offs[:1], 1, window=window, sinks=sinks)
+    assert _attn_ok(one, want[:1])
+
+
+def test_sink_forms_outside_the_slice_raise(cuda):
+    # sinks on verify rows, on the dense arena and over INT8 pools raise
+    g = torch.Generator(device=cuda).manual_seed(68)
+    pk, pv = _pools(g, cuda, torch.bfloat16, b=2, kvn=OSS_KVN, d=OSS_D)
+    tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=cuda)
+    kv = torch.tensor([5, 9], dtype=torch.int32, device=cuda)
+    q3 = torch.randn((2, 3, OSS_N, OSS_D), generator=g, device=cuda,
+                     dtype=torch.bfloat16)
+    sinks = torch.zeros(OSS_N, device=cuda)
+    with pytest.raises(NotImplementedError, match="verify rows"):
+        pd.paged_flash_verify(q3, pk, pv, tables, kv, 0, sinks=sinks)
+    qk, ks = pa.quantize_kv(pk.float())
+    qv, vs = pa.quantize_kv(pv.float())
+    with pytest.raises(NotImplementedError, match="INT8 KV"):
+        pd.paged_flash_decode(q3[:, 0], qk, qv, tables, kv, 0, k_scale=ks,
+                              v_scale=vs, sinks=sinks)
+    from simplellminference_tpu_torch.ops.attention import flash_decode as fd
+    with pytest.raises(NotImplementedError, match="dense arena"):
+        fd.flash_decode(q3[:, 0], pk[:, :2, :, :16], pv[:, :2, :, :16], kv,
+                        layer=0, sinks=sinks)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("skew", [False, True], ids=["padded", "per-expert"])
+def test_moe_grouped_prefill_on_the_card(cuda, dtype, skew):
+    """The grouped MoE prefill on the card, both of its forms: a random
+    router (one padded batched product) and a router bias that sends
+    every token to experts 2 and 0 of 8 (one product per expert), each
+    against the same function on the CPU in f32 from the same weights."""
+    from simplellminference_tpu_torch.ops import moe
+    cfg = ModelConfig.tiny_test(
+        dtype="float32", hidden_size=256, intermediate_size=128,
+        num_layers=1, num_heads=4, num_kv_heads=2, head_dim=64,
+        num_experts=8, num_experts_per_tok=2, moe_intermediate_size=128,
+        hidden_act="swiglu_oss", moe_bias=True)
+    lw = llama.init_params(cfg, seed=3, device="cpu")["layers"]
+    if skew:
+        lw["router_bias"] = torch.zeros((1, 8))
+        lw["router_bias"][:, 2], lw["router_bias"][:, 0] = 60.0, 40.0
+    lw = {k: v.to(dtype).float() for k, v in lw.items()}
+    x = torch.randn((3, 40, 256), generator=torch.Generator().manual_seed(4))
+    x = x.to(dtype).float()
+    want = moe.moe_ffn_grouped(cfg, lw, 0, x)
+    got = moe.moe_ffn_grouped(cfg, {k: v.to(cuda, dtype) for k, v in
+                                    lw.items()}, 0, x.to(cuda, dtype))
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    err = float((got.float().cpu() - want).abs().max())
+    tol = (1e-5 if dtype == torch.float32 else 2e-2) * float(
+        want.abs().max())
+    assert err <= tol, (err, tol)

@@ -71,16 +71,35 @@ def test_init_params_layout_matches_jax(model):
 
 
 @pytest.mark.parametrize("override,feature", [
-    (dict(num_experts=4), "mixture-of-experts"),
-    (dict(attention_bias=True), "QKV bias"),
-    # Gemma-2's soft caps and sandwich norms run since its slice
-    (dict(attn_sinks=True), "sinks"),
-    # GeGLU runs since Gemma's slice; GPT-OSS's clamped SwiGLU (MoE) not
-    (dict(hidden_act="swiglu_oss"), "activation"),
+    # Gemma-2's soft caps and sandwich norms run since its slice, GeGLU
+    # since Gemma's, and the mixture of experts, QKV biases, sinks and the
+    # clamped SwiGLU since GPT-OSS's (test_ported_model_features_pass)
+    (dict(num_experts=4, router_score_fn="sigmoid"), "sigmoid routing"),
+    (dict(num_experts=4, shared_expert_intermediate_size=32),
+     "shared experts"),
+    (dict(qk_norm=True), "q/k RMSNorm"),
+    (dict(hidden_act="relu2"), "activation"),
 ])
 def test_unsupported_model_features_raise(override, feature):
     with pytest.raises(NotImplementedError, match=feature):
         tllama.check_supported(ModelConfig.tiny_test(**override))
+
+
+@pytest.mark.parametrize("override", [
+    dict(num_experts=4), dict(attention_bias=True), dict(attn_sinks=True),
+    dict(hidden_act="swiglu_oss"), dict(o_bias=True),
+], ids=["mixture-of-experts", "QKV bias", "sinks", "swiglu_oss", "o bias"])
+def test_ported_model_features_pass(override):
+    """The features GPT-OSS's slice ported: check_supported admits them
+    and init_params draws their leaves with the JAX package's shapes."""
+    cfg = ModelConfig.tiny_test(**override)
+    tllama.check_supported(cfg)
+    jcfg = JaxModelConfig.tiny_test(**override)
+    jp = jllama.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = tllama.init_params(cfg, seed=0, device="cpu")
+    assert set(tp["layers"]) == set(jp["layers"])
+    for k, v in jp["layers"].items():
+        assert tuple(tp["layers"][k].shape) == v.shape, k
 
 
 def test_quantized_params_rejected():

@@ -41,10 +41,12 @@ def test_glu_act_silu():
     g, u = rand(rng, 3, 7, 48), rand(rng, 3, 7, 48)
     close(tref.glu_act(torch.from_numpy(g), torch.from_numpy(u)),
           jref.glu_act(jnp.asarray(g), jnp.asarray(u), "silu"))
-    # GeGLU is ported (tests/test_torch_gemma.py); GPT-OSS's clamped
-    # SwiGLU (the MoE FFN) is not, and an unknown name raises as in JAX
-    with pytest.raises(NotImplementedError):
-        tref.glu_act(torch.from_numpy(g), torch.from_numpy(u), "swiglu_oss")
+    # GeGLU is ported (tests/test_torch_gemma.py), and so is GPT-OSS's
+    # clamped SwiGLU (the MoE FFN; tests/test_torch_moe.py); an unknown
+    # name raises as in JAX
+    close(tref.glu_act(torch.from_numpy(g * 8), torch.from_numpy(u * 8),
+                       "swiglu_oss"),
+          jref.glu_act(jnp.asarray(g * 8), jnp.asarray(u * 8), "swiglu_oss"))
     with pytest.raises(ValueError):
         tref.glu_act(torch.from_numpy(g), torch.from_numpy(u), "relu")
 

@@ -121,12 +121,15 @@ def test_plain_matches_jax_dispatch_any_sq(s, offs, lens):
 
 
 @pytest.mark.parametrize("kw,feature", [
-    (dict(window=16, sinks=torch.zeros(4)), "sinks"),   # gpt-oss form
+    # sinks run over pools of q's dtype (8s, 8ws: tests/test_torch_sinks.py
+    # and test_sinks_run_over_float_pools below), not over INT8 KV
+    (dict(window=16, sinks=torch.zeros(4), k_scale=torch.ones(1),
+          v_scale=torch.ones(1)), "sinks"),
     # the cap runs over pools of q's dtype (tests/test_torch_softcap.py),
     # not over INT8 KV
     (dict(logit_cap=30.0, k_scale=torch.ones(1), v_scale=torch.ones(1)),
      "soft cap"),
-    (dict(sinks=torch.zeros(4)), "sinks"),
+    (dict(sinks=torch.zeros(4), k_scale=torch.ones(1)), "sinks"),
     (dict(k_scale=torch.ones(1)), "INT8 KV"),     # no V scale pool
 ])
 def test_unported_options_raise(kw, feature):
@@ -137,6 +140,24 @@ def test_unported_options_raise(kw, feature):
                             0, **kw)
     with pytest.raises(NotImplementedError, match="shared-KV"):
         paged_flash_prefill(t(q), t(pk), None, t(tables), t(kv), t(offs), 0)
+
+
+@pytest.mark.parametrize("window", [None, 16], ids=["8s", "8ws"])
+def test_sinks_run_over_float_pools(window):
+    """The sink forms, which raised before GPT-OSS's slice: the wrapper's
+    CPU path against JAX's dispatcher (the gather + masked reference) on
+    the rows of the chunk that hold a query."""
+    rng = np.random.default_rng(2)
+    q, pk, pv, tables, kv, offs = _case(rng, 2, 16, 4, 2, 32, 8, 4)
+    sinks = rng.standard_normal(4).astype(np.float32)
+    got = paged_flash_prefill(t(q), t(pk), t(pv), t(tables), t(kv), t(offs),
+                              0, window=window, sinks=t(sinks))
+    want = jdispatch.attention_paged_prefill(
+        JaxModelConfig.tiny_test(sliding_window=window), jnp.asarray(q),
+        jnp.asarray(pk), jnp.asarray(pv), jnp.asarray(tables),
+        jnp.asarray(kv), jnp.asarray(offs), layer=jnp.int32(0),
+        sinks=jnp.asarray(sinks))
+    _valid_close(got, want, kv, offs)
 
 
 def test_cpu_wrapper_runs_the_plain_version():

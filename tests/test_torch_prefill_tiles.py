@@ -125,7 +125,7 @@ def test_splits_from_shapes(b, seq, n, kvn, window, cap, want):
 # ------------------------------------------------ the kernel's arithmetic
 
 def emulate(q, k_all, v_all, readable, offs, n_keys, window, splits,
-            p_mode, scale=None):
+            p_mode, scale=None, sinks=None):
     """The kernel's arithmetic in plain torch: q [B, Sq, N, D] at positions
     offs[b] + s; k_all / v_all [B, kvN, K, D] f32 (the values the kernel
     multiplies: bf16 rows, or INT8 codes x scale rounded to q's dtype);
@@ -133,7 +133,9 @@ def emulate(q, k_all, v_all, readable, offs, n_keys, window, splits,
     a tile's walk or unreadable are zero-filled (never read), masked keys
     enter the products with p = 0. p_mode: "f32" (the f32 forms), "split"
     (p_hi + p_lo in bf16) or "round" (p in bf16 alone, as the TPU kernels
-    round it). Returns [B, Sq, N, D] in q's dtype."""
+    round it). ``sinks`` [N]: split 0 of each tile starts its rows' state at
+    (m, l) = (their heads' sink x log2 e, 1), as the kernels' sink forms
+    do. Returns [B, Sq, N, D] in q's dtype."""
     b, sq, n, d = q.shape
     kvn, kmax = k_all.shape[1], k_all.shape[2]
     group = n // kvn
@@ -165,6 +167,13 @@ def emulate(q, k_all, v_all, readable, offs, n_keys, window, splits,
     nk = torch.as_tensor(n_keys, dtype=torch.long)[kb]
     m = torch.full((T, pt.TILE), NEG_INF)
     l = torch.zeros((T, pt.TILE))
+    if sinks is not None:
+        for i, (bi, kh, p0, hc, z) in enumerate(ent):
+            hg = hc * heads + hl
+            ok = hg < group
+            if z == 0:
+                m[i, ok] = sinks.float()[kh * group + hg[ok]] * LOG2E
+                l[i, ok] = 1.0
     o = torch.zeros((T, pt.TILE, d))
     steps = int(((rng_hi - rng_lo + pt.TILE - 1) // pt.TILE).max())
     for step in range(steps):

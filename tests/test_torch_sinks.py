@@ -1,0 +1,371 @@
+"""GPT-OSS's attention sinks in the port's kernels (the sink forms 3s, 3ws,
+4s, 4ws, 8s, 8ws) against the JAX package on the CPU.
+
+A sink is a learned logit per q head that joins each row's softmax
+denominator and adds no value. The port's wrappers run their plain
+versions on CPU tensors; the JAX kernels run in interpret mode, as the
+JAX package's own tests run them, on the same numpy inputs (float32,
+seeded), at head dims 32 and 64 (gpt-oss-20b's), with and without a
+window, with kv_len 0 rows, ring tables whose columns below the band
+point at NaN pages, and sinks drawn N(0, 1) as the JAX package draws
+them or set above every score of their rows. The kernels' own
+arithmetic (split 0 seeding each row with (sink, 1), the log-sum-exp
+merge of the split key walk) is emulated in plain torch by the split
+emulations of tests/test_torch_decode_split.py and
+tests/test_torch_prefill_tiles.py with more than one split, and held to
+the same outputs; seeding every split instead (the sink counted
+``splits`` times) is shown to miss them. Stated tolerance 1e-5 on the
+outputs (summation order). Sinks outside the slice (verify rows, the
+dense arena, INT8 and e4m3 pools) raise NotImplementedError naming the
+form.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import test_torch_decode_split as dsplit
+import test_torch_prefill_tiles as tiles
+from simplellminference_tpu.core.config import ModelConfig as JaxModelConfig
+from simplellminference_tpu.ops import ref_ops as jref
+from simplellminference_tpu.ops.attention import dispatch as jdispatch
+from simplellminference_tpu.ops.attention.flash_prefill import (
+    flash_prefill as jflash_prefill)
+from simplellminference_tpu.ops.attention.paged_decode import (
+    paged_flash_decode as jpaged_decode)
+from simplellminference_tpu.ops.attention.paged_prefill import (
+    paged_flash_prefill as jpaged_prefill)
+from simplellminference_tpu_torch.core.config import ModelConfig
+from simplellminference_tpu_torch.ops import paged_append as tpa
+from simplellminference_tpu_torch.ops import ref_ops as tref
+from simplellminference_tpu_torch.ops.attention import dispatch
+from simplellminference_tpu_torch.ops.attention import flash_decode as tfd
+from simplellminference_tpu_torch.ops.attention import flash_prefill as tfp
+from simplellminference_tpu_torch.ops.attention import paged_decode as tpd
+from simplellminference_tpu_torch.ops.attention import paged_prefill as tpp
+
+TOL = 1e-5
+HEAD_DIMS = (32, 64)
+N, KVN, PS = 8, 2, 8     # a GQA group of 4
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+BIG_SINK = 8.0   # above every score of unit inputs at D**-0.5 (about 5)
+
+
+def _sinks(rng, big=False):
+    """Sinks drawn N(0, 1), or BIG_SINK: above every score of their rows,
+    so that a sink counted twice or in the wrong units moves the outputs
+    far (the outputs keep a few hundredths of their size)."""
+    return np.full(N, BIG_SINK, np.float32) if big else rand(rng, N)
+
+
+def test_reference_attention_sinks_match_jax():
+    """ref_ops.attention(sinks=) against JAX's, with the soft cap and a
+    mask that leaves one row no key (its output is zero)."""
+    rng = np.random.default_rng(0)
+    q, k, v = rand(rng, 2, 6, N, 32), rand(rng, 2, 9, KVN, 32), rand(
+        rng, 2, 9, KVN, 32)
+    sinks = _sinks(rng)
+    mask = np.tril(np.ones((6, 9), bool), 3)[None, None].repeat(2, 0)
+    mask[1, :, 0] = False
+    for cap in (None, 2.0):
+        got = tref.attention(t(q), t(k), t(v), t(mask), logit_cap=cap,
+                             sinks=t(sinks))
+        want = jref.attention(j(q), j(k), j(v), j(mask), logit_cap=cap,
+                              sinks=j(sinks))
+        close(got, want)
+    assert not got[1, 0].any()
+    # the sink takes weight: the outputs move
+    assert not torch.allclose(got, tref.attention(t(q), t(k), t(v), t(mask),
+                                                  logit_cap=2.0), atol=1e-2)
+
+
+@pytest.mark.parametrize("window", [None, 5], ids=["3s", "3ws"])
+@pytest.mark.parametrize("d,big", [(32, False), (64, False), (64, True)],
+                         ids=["d32", "d64", "d64-above"])
+def test_flash_prefill_sinks_match_jax(d, window, big):
+    rng = np.random.default_rng(d + (window or 0) + big)
+    s = 20
+    q, k, v = rand(rng, 2, s, N, d), rand(rng, 2, s, KVN, d), rand(
+        rng, 2, s, KVN, d)
+    sinks = _sinks(rng, big)
+    got = tfp.flash_prefill(t(q), t(k), t(v), window=window, sinks=t(sinks))
+    want = jflash_prefill(j(q), j(k), j(v), causal=True, interpret=True,
+                          window=window, sinks=j(sinks))
+    close(got, want)
+    # through the dispatcher, with GPT-OSS's options
+    kw = dict(attn_sinks=True, sliding_window=window)
+    via = dispatch.attention(ModelConfig.tiny_test(**kw), t(q), t(k), t(v),
+                             sinks=t(sinks))
+    close(via, want)
+
+
+def _paged(rng, d, b, mp):
+    p = b * mp + 1
+    pk, pv = rand(rng, 2, p, KVN, PS, d), rand(rng, 2, p, KVN, PS, d)
+    tables = rng.permutation(p - 1)[:b * mp].astype(np.int32).reshape(b, mp)
+    return pk, pv, tables
+
+
+@pytest.mark.parametrize("window", [None, 1, 6], ids=["4s", "4ws1", "4ws6"])
+@pytest.mark.parametrize("d,big", [(32, False), (64, False), (64, True)],
+                         ids=["d32", "d64", "d64-above"])
+def test_paged_decode_sinks_match_jax(d, window, big):
+    # kv_len 0 (a zero row), 1, a band starting inside a page, a full table
+    rng = np.random.default_rng(10 * d + (window or 0) + big)
+    b, mp = 4, 6
+    pk, pv, tables = _paged(rng, d, b, mp)
+    lens = np.asarray([0, 1, 19, 48], np.int32)
+    q = rand(rng, b, N, d)
+    sinks = _sinks(rng, big)
+    got = tpd.paged_flash_decode(t(q), t(pk), t(pv), t(tables), t(lens), 1,
+                                 window=window, sinks=t(sinks))
+    want = jpaged_decode(j(q), j(pk), j(pv), j(tables), j(lens),
+                         interpret=True, layer=jnp.int32(1), window=window,
+                         sinks=j(sinks))
+    close(got, want)
+    assert not got[0].any()
+    # through the dispatcher against JAX's (its CPU route, the dense
+    # reference): the kv_len-0 row is zero there too with a sink
+    kw = dict(attn_sinks=True, sliding_window=window)
+    via = dispatch.attention_paged(ModelConfig.tiny_test(**kw), t(q)[:, None],
+                                   t(pk), t(pv), t(tables), t(lens), 1,
+                                   sinks=t(sinks))
+    jvia = jdispatch.attention_paged(
+        JaxModelConfig.tiny_test(**kw), j(q)[:, None], j(pk), j(pv),
+        j(tables), j(lens), layer=jnp.int32(1), sinks=j(sinks))
+    close(via, jvia)
+
+
+def test_paged_decode_window_sinks_read_no_page_below_the_band():
+    """4ws over ring tables (column c of slot s -> ring page s*R + c % R)
+    whose columns below each row's band point at NaN pages: finite, equal
+    to the clean tables' outputs and to JAX's kernel on them."""
+    rng = np.random.default_rng(4)
+    b, r, mp, d, window = 2, 3, 12, 64, 10
+    p = b * r + 5
+    pk, pv = rand(rng, 2, p, KVN, PS, d), rand(rng, 2, p, KVN, PS, d)
+    pk[:, b * r:b * r + 4] = np.nan
+    pv[:, b * r:b * r + 4] = np.nan
+    ring = (np.arange(b)[:, None] * r + np.arange(mp)[None] % r).astype(
+        np.int32)
+    lens = np.asarray([29, 41], np.int32)
+    dirty = ring.copy()
+    for i in range(b):
+        below = (np.arange(mp) + 1) * PS <= lens[i] - window
+        dirty[i, below] = b * r + np.arange(below.sum()) % 4
+    q, sinks = rand(rng, b, N, d), _sinks(rng)
+    clean = tpd.paged_flash_decode(t(q), t(pk), t(pv), t(ring), t(lens), 1,
+                                   window=window, sinks=t(sinks))
+    got = tpd.paged_flash_decode(t(q), t(pk), t(pv), t(dirty), t(lens), 1,
+                                 window=window, sinks=t(sinks))
+    assert bool(torch.isfinite(got).all())
+    close(got, clean, tol=0)
+    want = jpaged_decode(j(q), j(pk), j(pv), j(ring), j(lens),
+                         interpret=True, layer=jnp.int32(1), window=window,
+                         sinks=j(sinks))
+    close(got, want)
+
+
+@pytest.mark.parametrize("window", [None, 7], ids=["8s", "8ws"])
+@pytest.mark.parametrize("d,big", [(32, False), (64, False), (64, True)],
+                         ids=["d32", "d64", "d64-above"])
+def test_paged_prefill_sinks_match_jax(d, window, big):
+    rng = np.random.default_rng(20 * d + (window or 0) + big)
+    b, s, mp = 3, 16, 6
+    pk, pv, tables = _paged(rng, d, b, mp)
+    tables[2] = -1                          # a padding row: no key at all
+    offs = np.asarray([8, 24, 0], np.int32)
+    lens = np.asarray([8 + 16, 24 + 11, 0], np.int32)
+    q = rand(rng, b, s, N, d)
+    sinks = _sinks(rng, big)
+    got = tpp.paged_flash_prefill(t(q), t(pk), t(pv), t(tables), t(lens),
+                                  t(offs), 1, window=window, sinks=t(sinks))
+    want = jpaged_prefill(j(q), j(pk), j(pv), j(tables), j(lens), j(offs),
+                          bq=16, interpret=True, layer=jnp.int32(1),
+                          window=window, sinks=j(sinks))
+    for i in range(2):
+        live = int(lens[i] - offs[i])
+        close(got[i, :live], np.asarray(want)[i, :live])
+    assert not got[2].any()
+    kw = dict(attn_sinks=True, sliding_window=window)
+    via = dispatch.attention_paged_prefill(
+        ModelConfig.tiny_test(**kw), t(q), t(pk), t(pv), t(tables), t(lens),
+        t(offs), 1, sinks=t(sinks))
+    close(via, got, tol=0)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 32])
+@pytest.mark.parametrize("window", [0, 6, 70])
+def test_decode_split_merge_counts_the_sink_once(window, splits):
+    """Kernel 4's arithmetic with sinks (split 0 seeds each row; the f32
+    partials merged by log-sum-exp) against the plain version and the JAX
+    kernel, at kv_lens 0, 1, tile edges and the table's end; a sink seeded
+    in every split instead misses them once the walk splits."""
+    b, mp = len(dsplit.LENS), 11
+    rng, pk, pv, _ks, _vs, tables, lens = dsplit._case(
+        300 + window + splits, b, mp, dsplit.LENS, False)
+    q = rng.standard_normal((b, 1, dsplit.N, dsplit.D)).astype(np.float32)
+    scores = np.einsum("bnd,lpkcd->bnlpkc", q[:, 0], pk) * dsplit.D ** -0.5
+    assert np.abs(scores).max() < BIG_SINK
+    for sinks in (rng.standard_normal(dsplit.N).astype(np.float32),
+                  np.full(dsplit.N, BIG_SINK, np.float32)):
+        got = dsplit.split_merge(t(q), t(pk), t(pv), t(tables), t(lens), 1,
+                                 splits, window=window, sinks=t(sinks))[:, 0]
+        plain = tpd.paged_flash_decode_ref(t(q[:, 0]), t(pk), t(pv),
+                                           t(tables), t(lens), 1,
+                                           window=window or None,
+                                           sinks=t(sinks))
+        want = jpaged_decode(j(q[:, 0]), j(pk), j(pv), j(tables), j(lens),
+                             interpret=True, layer=jnp.int32(1),
+                             window=window or None, sinks=j(sinks))
+        close(got, plain)
+        close(got, want)
+        assert not got[0].any()
+        # several splits walk a row: seeding each counts the sink `splits`
+        # times (rows of 64+ keys, split from 2 on)
+        twice = dsplit.split_merge(t(q), t(pk), t(pv), t(tables), t(lens),
+                                   1, splits, window=window, sinks=t(sinks),
+                                   seed_every_split=True)[:, 0]
+        live = tpd.split_keys(int(lens[-1]), 1, window, mp * PS, splits)
+        if sum(hi > lo for lo, hi in live) > 1:
+            assert float((twice - plain).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("window", [None, 6])
+def test_prefill_emulation_counts_the_sink_once(window, splits):
+    """Kernels 3 and 8's tiled arithmetic with sinks (split 0 of each tile
+    seeds its rows in log2 units; P in f32) against the plain versions and
+    the JAX kernels."""
+    rng = np.random.default_rng(5 + splits + (window or 0))
+    b, s, d = 2, 64, 32
+    q, k, v = rand(rng, b, s, N, d), rand(rng, b, s, KVN, d), rand(
+        rng, b, s, KVN, d)
+    sinks = _sinks(rng)
+    got = tiles.emulate(t(q), *tiles.dense_keys(t(k), t(v)), [0] * b,
+                        [s] * b, window or 0, splits, "f32", sinks=t(sinks))
+    close(got, tfp.flash_prefill_ref(t(q), t(k), t(v), window=window,
+                                     sinks=t(sinks)))
+    close(got, jflash_prefill(j(q), j(k), j(v), causal=True, bq=32, bk=32,
+                              interpret=True, window=window,
+                              sinks=j(sinks)))
+    # the paged form at offsets 8 and 24 through shuffled pages
+    mp = 12
+    pk, pv, tables = _paged(rng, d, b, mp)
+    offs = np.asarray([8, 24], np.int32)
+    lens = offs + np.asarray([16, 11], np.int32)
+    qp = rand(rng, b, 16, N, d)
+    kall, vall, readable = tiles.paged_keys(t(pk), t(pv), t(tables), 1)
+    got = tiles.emulate(t(qp), kall, vall, readable, offs, lens, window or 0,
+                        splits, "f32", sinks=t(sinks))
+    plain = tpp.paged_flash_prefill_ref(t(qp), t(pk), t(pv), t(tables),
+                                        t(lens), t(offs), 1, window=window,
+                                        sinks=t(sinks))
+    want = jpaged_prefill(j(qp), j(pk), j(pv), j(tables), j(lens), j(offs),
+                          bq=16, interpret=True, layer=jnp.int32(1),
+                          window=window, sinks=j(sinks))
+    for i in range(b):
+        live = int(lens[i] - offs[i])
+        close(got[i, :live], plain[i, :live])
+        close(got[i, :live], np.asarray(want)[i, :live])
+
+
+def test_sink_forms_count_their_launches_apart():
+    # on the CPU nothing launches: sinks are a count of their own only on
+    # the card, and the wrappers' CPU path leaves every count alone
+    before = dict(tfp.SINK_LAUNCHES)
+    rng = np.random.default_rng(3)
+    q, k = rand(rng, 1, 8, N, 32), rand(rng, 1, 8, KVN, 32)
+    tfp.flash_prefill(t(q), t(k), t(k), sinks=torch.zeros(N))
+    assert tfp.SINK_LAUNCHES == before
+    assert tfp.sink_values(None, N, "cpu") is None
+    sinks = torch.zeros(N)
+    assert tfp.sink_values(sinks, N, "cpu") is sinks
+    with pytest.raises(ValueError, match="one logit per q head"):
+        tfp.sink_values(torch.zeros(N + 1), N, "cpu")
+    # the params hold the sinks in f32; the kernels take no other form
+    with pytest.raises(ValueError, match="f32 contiguous"):
+        tfp.sink_values(torch.zeros(N, dtype=torch.bfloat16), N, "cpu")
+    with pytest.raises(ValueError, match="f32 contiguous"):
+        tfp.sink_values(torch.zeros(2 * N)[::2], N, "cpu")
+
+
+def test_sinks_outside_the_slice_raise():
+    """Sinks over INT8 and e4m3 pools (decode and prefill), on verify rows
+    (4vs: speculation) and on the dense arena (13s: the Generator) raise
+    NotImplementedError naming the form, on the CPU as on the card."""
+    rng = np.random.default_rng(1)
+    d = 32
+    shape = (2, 7, KVN, PS, d)
+    pk, pv = t(rand(rng, *shape)), t(rand(rng, *shape))
+    qk, ks = tpa.quantize_kv(pk)
+    qv, vs = tpa.quantize_kv(pv)
+    ek, ev = pk.to(torch.float8_e4m3fn), pv.to(torch.float8_e4m3fn)
+    tables = t(np.asarray([[0, 1], [2, 3], [4, 5]], np.int32))
+    kv, offs = t(np.asarray([5, 9, 2], np.int32)), torch.zeros(
+        3, dtype=torch.int32)
+    q1, q3 = t(rand(rng, 3, N, d)), t(rand(rng, 3, 3, N, d))
+    arena = t(rand(rng, 2, 3, KVN, 16, d))
+    sk = dict(sinks=torch.zeros(N))
+    calls = {
+        "sinks over INT8 KV": [
+            lambda: tpd.paged_flash_decode(q1, qk, qv, tables, kv, 0,
+                                           k_scale=ks, v_scale=vs, **sk),
+            lambda: tpp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
+                                            k_scale=ks, v_scale=vs, **sk)],
+        "sinks over FP8 KV": [
+            lambda: tpd.paged_flash_decode(q1, ek, ev, tables, kv, 0, **sk),
+            lambda: tpp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0,
+                                            **sk)],
+        "verify rows": [
+            lambda: tpd.paged_flash_verify(q3, pk, pv, tables, kv, 0, **sk),
+            lambda: tpd.paged_flash_verify(q3, pk, pv, tables, kv, 0,
+                                           window=4, **sk),
+            lambda: tpd.paged_flash_verify_ref(q3, pk, pv, tables, kv, 0,
+                                               **sk),
+            lambda: dispatch.attention_paged(
+                ModelConfig.tiny_test(attn_sinks=True), q3, pk, pv, tables,
+                kv, 0, **sk)],
+        "dense arena": [
+            lambda: tfd.flash_decode(q1, arena, arena, kv, layer=0, **sk),
+            lambda: tfd.flash_decode(q1, arena, arena, kv, layer=0,
+                                     window=4, **sk),
+            lambda: dispatch.attention_cached(
+                ModelConfig.tiny_test(attn_sinks=True), q1[:, None], arena,
+                arena, kv, 0, **sk)],
+    }
+    for feature, fns in calls.items():
+        for fn in fns:
+            with pytest.raises(NotImplementedError, match=feature):
+                fn()
+    # no model with sinks has head_dim 256: the sink forms take 32-128
+    q256, p256 = t(rand(rng, 3, N, 256)), t(rand(rng, 2, 7, KVN, PS, 256))
+    for fn in (lambda: tpd.paged_flash_decode(q256, p256, p256, tables, kv,
+                                              0, **sk),
+               lambda: tpp.paged_flash_prefill(q256[:, None], p256, p256,
+                                               tables, kv, offs, 0, **sk),
+               lambda: tfp.flash_prefill(q256[:, None], p256[0, :3, :, :1],
+                                         p256[0, :3, :, :1], window=4,
+                                         **sk)):
+        with pytest.raises(NotImplementedError, match="head_dim 256"):
+            fn()
