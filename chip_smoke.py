@@ -116,8 +116,14 @@ Phases, in order; any failure exits non-zero:
                 score (4s at kv_len 4096 and 8s at offset 4096 split their
                 key walks: a sink seeded in every split would be counted
                 several times), kv_len 0 rows and f32, each timed case
-                beside scaled_dot_product_attention without sinks. Max
-                |error| beside
+                beside scaled_dot_product_attention without sinks; and
+                the sink forms on verify rows and on the dense arena: 4vs
+                and 4vws at S 5 (40 rows a kv head: two row blocks) at
+                `gpt_oss_spec`'s verify step (the window over ring
+                tables, NaN pages below the band), 13s and 13ws at
+                `gpt_oss_dense`'s decode (an arena of 256 slots), each
+                with a split walk and a sink above every score, edges and
+                f32. Max |error| beside
                 its tolerance, kernel / plain / library times from
                 CUDA-graph replay, and the bound (the least time for the
                 bytes and operations of the call on an H100 SXM:
@@ -189,8 +195,8 @@ Phases, in order; any failure exits non-zero:
                 and `gemma2_draft`'s target at 4 layers, `gemma_prefix` at
                 6, `draft`'s target, both drafters (TinyLlama,
                 Gemma-2-2B), `dense`, `prefix`, `w8a8`, `int8kv`,
-                `int8kv_prefix`, `fp8kv` and `fp8kv_prefix` at 8, `gemma`
-                at 9. Then,
+                `int8kv_prefix`, `fp8kv`, `fp8kv_prefix`, `gpt_oss_spec`
+                and `gpt_oss_dense` at 8, `gemma` at 9. Then,
                 Gemma-2B at full width (9 of its 18 layers, H 2048,
                 I 16384, V 256000, 8 heads over one kv head of 256,
                 GeGLU, the embedding scale, a tied bf16 head): `gemma`
@@ -224,20 +230,32 @@ Phases, in order; any failure exits non-zero:
                 drafted by Gemma-2-2B at 8 layers, the `draft` traffic:
                 the rollout's 12, 13c, 13wc, 3c, 3wc, the target's 4vc,
                 4vwc), each with its exact launch counts. Last,
-                gpt-oss-20b at full width and depth (openai/gpt-oss-20b's
+                gpt-oss-20b at full width (openai/gpt-oss-20b's
                 config.json in `GPT_OSS_20B_HF`: 24 layers, H 2880, 64
                 heads over 8 kv heads of 64, sinks, q/k/v/o biases, yarn
                 rotary, 32 experts of 2880 with top 4 and their biases,
                 V 201088, window 128 on the even layers) in the grouped
-                engine: `gpt_oss` (bench.py's shape, the layer products
-                and folded experts quantized to INT8 by the port's
-                quantize_params, an INT8 head: 3s, 3ws, 2, 1, 4s, 4ws, 5r,
-                5m) and `gpt_oss_prefix` (the server's default: bf16
-                weights, the prefix path's traffic, which the grouped
-                engine prefills as 3 chunks a prompt: 8s, 8ws, 2, 1, 4s,
-                4ws), each with its exact launch counts, decode rate,
-                graph-replayed step beside its bytes floor (every folded
-                expert read), idle share and TTFT.
+                engine: `gpt_oss` (all 24 layers; bench.py's shape, the
+                layer products and folded experts quantized to INT8 by
+                the port's quantize_params, an INT8 head: 3s, 3ws, 2, 1,
+                4s, 4ws, 5r, 5m) and `gpt_oss_prefix` (12 layers; the
+                server's default: bf16 weights, the prefix path's
+                traffic, which the grouped engine prefills as 3 chunks a
+                prompt: 8s, 8ws, 2, 1, 4s, 4ws), each with its exact
+                launch counts, decode rate, graph-replayed step beside
+                its bytes floor (every folded
+                expert read), idle share and TTFT; then, at 8 layers,
+                `gpt_oss_spec` (the server CLI's --spec-tokens 4: bf16,
+                the `spec` traffic: 3s, 3ws, 2, 11, 4vs, 4vws; the MoE on
+                verify rows padded with no host read) with the
+                acceptance, tok/s with and without speculation, the
+                graph-replayed verify and decode steps beside their
+                engine steps, the bytes floor and the idle share, and
+                `gpt_oss_dense` (bench.py's Generator.generate_fused,
+                INT8 weights as `gpt_oss`, 8 x 128-token prompts,
+                max_seq 1024, decoding past the window: 12, 3s, 3ws, 13s,
+                13ws, 5r, 5m; its decode steps under sync debug mode
+                "error"), each with its exact launch counts.
   5. cpu      — the same port at Llama-2-7B width, 1 layer, f32, TF32 off,
                 on the card (kernels) and on the host CPU (plain
                 versions), from one draw of the weights (on the card,
@@ -284,8 +302,9 @@ Phases, in order; any failure exits non-zero:
                 Gemma-2-2B) on both devices. Then gpt-oss-20b at full
                 width, 2 layers (a sliding and a full one), f32, the
                 window cut to 32: 8 greedy steps and the prefix traffic
-                (chunked over the ring pools) by the same rules; the
-                card runs every sink form.
+                (chunked over the ring pools), the Generator and the
+                prompt-lookup spec Engine by the same rules; the card
+                runs every sink form.
 
 Then one line ``{"kernels": [...]}`` (each kernel's launches on every
 path, and in phase 3: kernels 16 and 17 run only there) and, last, the
@@ -587,6 +606,21 @@ KERNELS = {
     "paged_flash_verify_window_cap_d256": dict(
         source="simplellminference_tpu_torch/csrc/paged_decode.cu",
         replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    # gpt-oss-20b under speculation and through the Generator: sinks on
+    # verify rows (4vs, 4vws) and on the dense arena (13s, 13ws) at
+    # head_dim 64; each launch also counts in its form's row above
+    "paged_flash_verify_sinks": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    "paged_flash_verify_window_sinks": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    "flash_decode_sinks": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_decode.py:114"),
+    "flash_decode_window_sinks": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_decode.py:114"),
     # the last two TPU kernels, dispatched from no path (as in JAX)
     "fused_wo_ffn": dict(
         source="simplellminference_tpu_torch/csrc/wo_ffn.cu",
@@ -619,15 +653,16 @@ KERNELS = {
 # prompts past the window (INT8 weights), the server CLI's --spec-tokens 4
 # (bf16) and Gemma-2-9B drafted by Gemma-2-2B (bf16); then gpt-oss-20b
 # (attention sinks, the mixture of experts, biases, alternating sliding
-# and full layers at head_dim 64) at its full 24 layers, as bench.py
-# draws its INT8 path and as the server serves it by default (bf16
-# weights, the prefix path's traffic)
+# and full layers at head_dim 64) as bench.py draws its INT8 path (all
+# 24 layers) and as the server serves it by default (bf16 weights, the
+# prefix path's traffic); then gpt-oss-20b under the server
+# CLI's --spec-tokens 4 (bf16) and through bench.py's Generator (INT8)
 PATHS = ("int8", "bf16", "prefix", "int8kv", "int8kv_prefix", "spec",
          "spec_int8kv", "fp8kv", "fp8kv_prefix", "spec_fp8kv", "dense",
          "dense_bf16", "draft", "int4", "int4_dense", "w8a8",
          "mistral_window", "gemma", "gemma_prefix", "gemma2",
          "gemma2_window", "gemma2_dense", "gemma2_spec", "gemma2_draft",
-         "gpt_oss", "gpt_oss_prefix")
+         "gpt_oss", "gpt_oss_prefix", "gpt_oss_spec", "gpt_oss_dense")
 # google/gemma-2-2b's config.json (huggingface.co/google/gemma-2-2b), the
 # published values the Gemma-2 paths serve; its layer_types as
 # transformers.Gemma2Config derives them: sliding on even layers, full on
@@ -4658,6 +4693,24 @@ def _top_score(torch, q, k, scale):
     return float((qs @ ks.T).abs().max()) * scale
 
 
+def _sink_rule(torch, name, tag, got, want, big, top, dead=()):
+    """A sink form against its plain version by :func:`_rounding_rule`,
+    rows ``dead`` zero, and with a sink above every score (``big``) the
+    largest |score| ``top`` below it. Returns max|err|."""
+    ok, err, share, note = _rounding_rule(torch, got, want)
+    zero = all(bool((got[i] == 0).all()) for i in dead)
+    print(f"[kernels] {name} {tag}: max|err| {err:.3e} ({note}; the worst "
+          f"element at {share:.3f} of its limit); max|score| {top:.2f}"
+          f"{f' < sink {BIG_SINK}' if big else ''}; rows without keys "
+          f"zero: {zero}", flush=True)
+    require(bool(torch.isfinite(got).all()) and ok and zero,
+            f"{name} {tag} disagrees: {err} ({share:.3f} of the limit), "
+            f"zero rows {zero}")
+    require(not big or top < BIG_SINK, f"{name} {tag}: a score {top} "
+            f"passes the sink {BIG_SINK}")
+    return err
+
+
 def check_gpt_oss(torch, dev, results, extra):
     """The sink forms at gpt-oss-20b's attention (64 q heads over 8 kv
     heads, D 64, window 128, page 128) against their plain versions by
@@ -4692,20 +4745,6 @@ def check_gpt_oss(torch, dev, results, extra):
                       GPT_OSS["window"])
     ps, layer, scale = 128, 1, GPT_OSS["d"] ** -0.5
 
-    def rule(name, tag, got, want, big, top, dead=()):
-        ok, err, share, note = _rounding_rule(torch, got, want)
-        zero = all(bool((got[i] == 0).all()) for i in dead)
-        print(f"[kernels] {name} {tag}: max|err| {err:.3e} ({note}; the "
-              f"worst element at {share:.3f} of its limit); max|score| "
-              f"{top:.2f}{f' < sink {BIG_SINK}' if big else ''}; rows "
-              f"without keys zero: {zero}", flush=True)
-        require(bool(torch.isfinite(got).all()) and ok and zero,
-                f"{name} {tag} disagrees: {err} ({share:.3f} of the limit),"
-                f" zero rows {zero}")
-        require(not big or top < BIG_SINK, f"{name} {tag}: a score {top} "
-                f"passes the sink {BIG_SINK}")
-        return err
-
     # 3s, 3ws: (b, s, window, big sink, dtype); the rows first
     cases = {"gpt-oss-20b": (8, 128, None, False, bf),
              "gpt-oss-20b window": (8, 128, win, False, bf),
@@ -4723,9 +4762,10 @@ def check_gpt_oss(torch, dev, results, extra):
         want = fp.flash_prefill_ref(q, k, v, window=w, sinks=sinks)
         torch.cuda.synchronize()
         splits = prefill_tiles.launch_splits(b, sl, n, kvn, w or 0, sl)
-        err = rule("flash_prefill sinks", f"{tag} (B={b} S={sl} N={n} "
-                   f"kvN={kvn} D={d} window={w}, {splits} splits)", got,
-                   want, big, _top_score(torch, q, k, scale))
+        err = _sink_rule(
+            torch, "flash_prefill sinks", f"{tag} (B={b} S={sl} N={n} "
+            f"kvN={kvn} D={d} window={w}, {splits} splits)", got, want, big,
+            _top_score(torch, q, k, scale))
         if not tag.startswith("gpt-oss-20b"):
             continue
         qt = q.transpose(1, 2)
@@ -4791,10 +4831,10 @@ def check_gpt_oss(torch, dev, results, extra):
         dead = ([i for i in range(b) if lens[i] == 0]
                 + ([b - 1] if tag == "edges" else []))
         ck, cv = gather_dense(pk[layer], pv[layer], clean)
-        err = rule("paged_flash_decode sinks", f"{tag} (B={b} kv_lens "
-                   f"{lens[:4]}.. window={w}, {splits} splits)", got, want,
-                   big, _top_score(torch, q[:, None], ck.transpose(1, 2),
-                                   scale), dead)
+        err = _sink_rule(
+            torch, "paged_flash_decode sinks", f"{tag} (B={b} kv_lens "
+            f"{lens[:4]}.. window={w}, {splits} splits)", got, want, big,
+            _top_score(torch, q[:, None], ck.transpose(1, 2), scale), dead)
         require(not big or w or splits > 1,
                 f"paged_flash_decode sinks {tag}: one split only")
         same = bool(torch.equal(got, run(clean)))
@@ -4873,9 +4913,10 @@ def check_gpt_oss(torch, dev, results, extra):
         splits = prefill_tiles.launch_splits(b, sq, n, kvn, w or 0,
                                              mp * pss)
         ck, cv = gather_dense(pk[layer], pv[layer], clean)
-        err = rule("paged_flash_prefill sinks", f"{tag} (B={b} Sq={sq} D={d}"
-                   f" ps={pss} window={w}, {splits} splits)", got, want, big,
-                   _top_score(torch, q, ck.transpose(1, 2), scale))
+        err = _sink_rule(
+            torch, "paged_flash_prefill sinks", f"{tag} (B={b} Sq={sq} D={d}"
+            f" ps={pss} window={w}, {splits} splits)", got, want, big,
+            _top_score(torch, q, ck.transpose(1, 2), scale))
         require(not tag.startswith("split") or splits > 1,
                 f"paged_flash_prefill sinks {tag}: one split only")
         same = bool(torch.equal(got, run(clean)))
@@ -4915,6 +4956,193 @@ def check_gpt_oss(torch, dev, results, extra):
         del ck, cv, pk, pv
     print(f"[kernels] gpt-oss-20b: the sink checks took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+
+# `gpt_oss_dense`'s arena: 8 rows of 256 slots (bench.py's 128-token
+# prompts + 64 steps, rounded up to 256 by Generator.new_cache)
+OSS_DENSE_SMAX = 256
+
+
+def check_gpt_oss_spec_dense(torch, dev, results, extra):
+    """The sink forms on verify rows and on the dense arena at gpt-oss-20b's
+    attention (64 q heads over 8 kv heads, D 64, window 128) against their
+    plain versions by :func:`_rounding_rule`. 4vs and 4vws at S 5 (40 rows a
+    kv head: two row blocks of 32 and 8): `gpt_oss_spec`'s verify step (8
+    sequences at context ~150, the rows; the window over ring tables of R
+    3, the columns below the band on NaN pages, which no form may read),
+    kv_len 4096 with a sink above every score (``decode_splits`` splits
+    the key walk: a sink seeded in every split, or in only one row block,
+    would miss by far more than the rule), edges (kv_len 0, 1, 4 and 5:
+    rows before position 0, a dead slot), f32. 13s and 13ws at
+    `gpt_oss_dense`'s decode (8 rows at kv_len 160-216 over its arena of
+    256 slots: the window trims; the rows), an arena of 4224 slots at
+    kv_len 4096 with a sink above every score (the walk split), edges
+    (kv_len 0, 1, the window's edges, the whole arena), f32. Each row's
+    case timed beside its plain version, its bytes bound and
+    scaled_dot_product_attention at the same shape without sinks."""
+    import torch.nn.functional as F
+
+    from simplellminference_tpu_torch.memory.paged_kv import gather_dense
+    from simplellminference_tpu_torch.ops.attention import flash_decode as fd
+    from simplellminference_tpu_torch.ops.attention import paged_decode as pd
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(2881)
+    bf, f32 = torch.bfloat16, torch.float32
+    n, kvn, d, win = (GPT_OSS["n"], GPT_OSS["kvn"], GPT_OSS["d"],
+                      GPT_OSS["window"])
+    ps, layer, scale, s_rows = 128, 1, GPT_OSS["d"] ** -0.5, 5
+
+    # 4vs, 4vws over the ring: (lens, window, big sink, dtype); rows first
+    r_ring = (win + 128 - 2) // ps + 2
+    spec_lens = [147 + 2 * i for i in range(8)]
+    require(pd.row_blocks((n // kvn) * s_rows) == 2,
+            "gpt-oss-20b's verify rows take one row block")
+    cases = {"gpt-oss-20b": (spec_lens, None, False, bf),
+             "gpt-oss-20b window": (spec_lens, win, False, bf),
+             "kv_len 4096 sink above": ([4096] * 8, None, True, bf),
+             "edges": ([0, 1, 4, 5, 6, 4097, 300, 5], None, False, bf),
+             "window edges sink above": ([0, 1, 5, 132, 133, 256, 1000,
+                                          4100], win, True, bf),
+             "f32 window": ([0, 7, 133, 700], win, False, f32),
+             "f32 kv_len 4096": ([4096, 4000, 17, 0], None, False, f32)}
+    for tag, (lens, w, big, dtype) in cases.items():
+        b = len(lens)
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn((b, s_rows, n, d), generator=gen, device=dev,
+                        dtype=dtype)
+        mp = -(-max(max(lens), 1) // ps)
+        if w is None:
+            pk, pv = _pools(torch, gen, dev, 2, b * mp, kvn, ps, d, dtype)
+            clean = _tables(torch, dev, b, mp, dead_last=tag == "edges")
+            dirty = clean
+        else:
+            pk, pv = _ring_pools(torch, gen, dev, b, r_ring, kvn, ps, d,
+                                 dtype, False)
+            clean = _ring_tables(torch, dev, b, r_ring, mp)
+            dirty = _poisoned(torch, clean, kv - s_rows - w + 1, ps,
+                              b * r_ring)
+        sinks = _sink_draw(torch, gen, dev, n, big)
+
+        def run(tb, q=q, pk=pk, pv=pv, kv=kv, w=w, sinks=sinks):
+            return pd.paged_flash_verify(q, pk, pv, tb, kv, layer, window=w,
+                                         sinks=sinks)
+
+        def plain(q=q, pk=pk, pv=pv, clean=clean, kv=kv, w=w, sinks=sinks):
+            return pd.paged_flash_verify_ref(q, pk, pv, clean, kv, layer,
+                                             window=w, sinks=sinks)
+
+        got, want = run(dirty), plain()
+        torch.cuda.synchronize()
+        span = mp * ps if not w else min(mp * ps, w + s_rows - 1)
+        splits = pd.decode_splits(b, kvn, span, 2)
+        dead = ([i for i in range(b) if lens[i] == 0]
+                + ([b - 1] if tag == "edges" else []))
+        ck, cv = gather_dense(pk[layer], pv[layer], clean)
+        err = _sink_rule(
+            torch, "paged_flash_verify sinks", f"{tag} (B={b} S={s_rows} "
+            f"N={n} kvN={kvn} kv_lens {lens[:4]}.. window={w}, {splits} "
+            f"splits, 2 row blocks)", got, want, big,
+            _top_score(torch, q, ck.transpose(1, 2), scale), dead)
+        require(not big or w or splits > 1,
+                f"paged_flash_verify sinks {tag}: one split only")
+        require(bool(torch.equal(got, run(clean))),
+                f"paged_flash_verify sinks {tag}: a page below the window "
+                f"band was read")
+        if not tag.startswith("gpt-oss-20b"):
+            del ck, cv, pk, pv
+            continue
+        keys, kv_rows = _verify_keys(lens, s_rows, w)
+        es = q.element_size()
+        bms, by = bound_ms(2 * b * s_rows * n * d * es
+                           + 2 * kv_rows * kvn * d * es + clean.numel() * 4
+                           + b * 4 + 4 * n, 4.0 * n * d * keys, "bfloat16")
+        ck, cv = _gqa(torch, ck, n), _gqa(torch, cv, n)
+        key_pos = torch.arange(ck.shape[2], device=dev)
+        q_pos = (kv.long()[:, None] - s_rows
+                 + torch.arange(s_rows, device=dev)[None])
+        mask = key_pos[None, None] <= q_pos[:, :, None]
+        if w:
+            mask = mask & (key_pos[None, None] > q_pos[:, :, None] - w)
+        mask = mask[:, None]
+        qt = q.transpose(1, 2)
+        row = ("paged_flash_verify_sinks" if w is None
+               else "paged_flash_verify_window_sinks")
+        results[row] = dict(
+            max_abs_err=err, ms=time_ms(torch, lambda: run(clean)),
+            plain_ms=time_ms(torch, plain),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, ck, cv, attn_mask=mask)),
+            bound_ms=bms, bound_by=by, library=LIBRARY[row])
+        del ck, cv, pk, pv
+
+    # 13s, 13ws: (smax, lens, window, big sink, dtype); rows first
+    dense_lens = [160 + 8 * i for i in range(8)]
+    cases = {"gpt-oss-20b": (OSS_DENSE_SMAX, dense_lens, None, False, bf),
+             "gpt-oss-20b window": (OSS_DENSE_SMAX, dense_lens, win, False,
+                                    bf),
+             "kv_len 4096 sink above": (4224, [4096] * 8, None, True, bf),
+             "window kv_len 4096 sink above": (4224, [4096] * 8, win, True,
+                                               bf),
+             "edges": (OSS_DENSE_SMAX, [0, 1, 127, 128, 129, 255, 256, 3],
+                       None, False, bf),
+             "window edges sink above": (OSS_DENSE_SMAX, [0, 1, 127, 128,
+                                                          129, 255, 256, 3],
+                                         win, True, bf),
+             "f32 window": (4224, [0, 7, 129, 4100], win, False, f32),
+             "f32": (4224, [0, 7, 129, 4100], None, False, f32)}
+    for tag, (smax, lens, w, big, dtype) in cases.items():
+        b = len(lens)
+        ck, cv = _arena(torch, gen, dev, 2, b + 1, kvn, smax, d, dtype)
+        q = torch.randn((b, n, d), generator=gen, device=dev, dtype=dtype)
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+        sinks = _sink_draw(torch, gen, dev, n, big)
+
+        def run(q=q, ck=ck, cv=cv, kv=kv, w=w, sinks=sinks):
+            return fd.flash_decode(q, ck, cv, kv, layer=layer, window=w,
+                                   sinks=sinks)
+
+        def plain(q=q, ck=ck, cv=cv, kv=kv, w=w, sinks=sinks):
+            return fd.flash_decode_ref(q, ck, cv, kv, layer=layer, window=w,
+                                       sinks=sinks)
+
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        splits = pd.decode_splits(b, kvn, min(smax, w) if w else smax)
+        err = _sink_rule(
+            torch, "flash_decode sinks", f"{tag} (B={b} N={n} kvN={kvn} "
+            f"D={d} Smax={smax} kv_lens {lens[:4]}.. window={w}, {splits} "
+            f"splits)", got, want, big,
+            _top_score(torch, q[:, None], ck[layer, :b].transpose(1, 2),
+                       scale), [i for i in range(b) if lens[i] == 0])
+        require(not big or w or splits > 1,
+                f"flash_decode sinks {tag}: one split only")
+        if not tag.startswith("gpt-oss-20b"):
+            del ck, cv
+            continue
+        span = [min(ln, smax) - (max(0, ln - w) if w else 0) for ln in lens]
+        es = q.element_size()
+        bms, by = bound_ms(2 * b * n * d * es + 2 * sum(span) * kvn * d * es
+                           + b * 4 + 4 * n, 4.0 * n * d * sum(span),
+                           "bfloat16")
+        top = max(lens)
+        k4 = _gqa(torch, ck[layer, :b, :, :top], n)
+        v4 = _gqa(torch, cv[layer, :b, :, :top], n)
+        key_pos = torch.arange(top, device=dev)[None, None, None, :]
+        mask = key_pos < kv.long()[:, None, None, None]
+        if w:
+            mask = mask & (key_pos >= kv.long()[:, None, None, None] - w)
+        row = ("flash_decode_sinks" if w is None
+               else "flash_decode_window_sinks")
+        results[row] = dict(
+            max_abs_err=err, ms=time_ms(torch, run),
+            plain_ms=time_ms(torch, plain),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k4, v4, attn_mask=mask)),
+            bound_ms=bms, bound_by=by, library=LIBRARY[row])
+        del ck, cv, k4, v4
+    print(f"[kernels] gpt-oss-20b verify rows and dense arena: the sink "
+          f"checks took {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
 
@@ -5083,6 +5311,19 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
                                                " on gathered ring K/V, "
                                                "offset-causal window mask "
                                                "(no sinks)",
+           "paged_flash_verify_sinks": "scaled_dot_product_attention on "
+                                       "gathered K/V (repeated per group), "
+                                       "verify mask (no sinks)",
+           "paged_flash_verify_window_sinks": "scaled_dot_product_attention"
+                                              " on gathered ring K/V, "
+                                              "verify and window mask (no "
+                                              "sinks)",
+           "flash_decode_sinks": "scaled_dot_product_attention on the arena "
+                                 "slice (repeated per group), length mask "
+                                 "(no sinks)",
+           "flash_decode_window_sinks": "scaled_dot_product_attention on the"
+                                        " arena slice (repeated per group), "
+                                        "window mask (no sinks)",
            "fused_wo_ffn": "torch._weight_int8pack_mm x3 + eager rmsnorm "
                            "and SwiGLU",
            "flash_decode_dyn": "scaled_dot_product_attention on the arena "
@@ -5137,6 +5378,8 @@ def phase_kernels(torch, results):
     check_gemma2_dense(torch, dev, results, extra)
     # gpt-oss-20b: attention sinks (3s, 3ws, 4s, 4ws, 8s, 8ws) at D 64
     check_gpt_oss(torch, dev, results, extra)
+    # and on verify rows and the dense arena (4vs, 4vws, 13s, 13ws)
+    check_gpt_oss_spec_dense(torch, dev, results, extra)
     torch.cuda.empty_cache()
     # every launch of this phase (the checks, their timing): kernels 16
     # and 17 run on no path, as in the JAX package, so these are theirs
@@ -5277,7 +5520,9 @@ def regime_rows(want: dict, cfg) -> dict:
     sinks = cfg.head_dim == 64 and cfg.attn_sinks
     for form in ("flash_prefill", "flash_prefill_window",
                  "paged_flash_decode", "paged_flash_decode_window",
-                 "paged_flash_prefill", "paged_flash_prefill_window"):
+                 "paged_flash_prefill", "paged_flash_prefill_window",
+                 "paged_flash_verify", "paged_flash_verify_window",
+                 "flash_decode", "flash_decode_window"):
         out[f"{form}_sinks"] = out[form] if sinks else 0
     return out
 
@@ -5463,7 +5708,11 @@ def _wrappers():
                    ("paged_flash_decode_window", pd.paged_flash_decode_ref),
                    ("paged_flash_prefill", pp.paged_flash_prefill_ref),
                    ("paged_flash_prefill_window",
-                    pp.paged_flash_prefill_ref))},
+                    pp.paged_flash_prefill_ref),
+                   ("paged_flash_verify", pd.paged_flash_verify_ref),
+                   ("paged_flash_verify_window", pd.paged_flash_verify_ref),
+                   ("flash_decode", fd.flash_decode_ref),
+                   ("flash_decode_window", fd.flash_decode_ref))},
             "fused_wo_ffn": (ff.fused_wo_ffn, ff.fused_wo_ffn_ref),
             "flash_decode_dyn": (fdd.flash_decode_dyn,
                                  fdd.flash_decode_dyn_ref)}
@@ -6192,7 +6441,10 @@ def serve_spec(torch, path: str, cfg, params, launches: dict, int8: bool,
     it, the acceptance rate, decode tok/s by differencing 64- and
     32-token runs beside the same engine with spec_tokens=0, and one
     graph-replayed verify step (S = 5) beside one decode step (S = 1) at
-    context ~152."""
+    context ~152 (a host read inside a step would break the capture),
+    each beside its engine step (the wall difference over the difference
+    in steps), the bytes floor (every weight, every folded expert, and
+    the live KV) and the device's idle share."""
     import numpy as np
 
     from simplellminference_tpu_torch.core.config import SamplingParams
@@ -6250,16 +6502,24 @@ def serve_spec(torch, path: str, cfg, params, launches: dict, int8: bool,
     print(f"[engine:{path}] launches {json.dumps(got)}", flush=True)
     # decode rate by differencing 64- and 32-token runs, interleaved, for
     # the spec engine and the same engine with spec_tokens=0
-    rates = {}
+    rates, step_walls = {}, {}
     for spec in (g, 0):
-        walls, halves = [], []
+        walls, halves, bursts = [], [], []
         for _ in range(SPEC_RATE_RUNS):
-            walls.append(serve(spec, new)[2])
-            halves.append(serve(spec, new // 2)[2])
+            for n_new, into in ((new, walls), (new // 2, halves)):
+                e_, _r, w_ = serve(spec, n_new)
+                into.append(w_)
+                bursts.append(e_.metrics.decode_bursts)
+                del e_
         wf, wh = statistics.median(walls), statistics.median(halves)
         require(wf > wh, f"[{path}] spec_tokens={spec} median walls: {new} "
                 f"tokens {wf} s, {new // 2} tokens {wh} s")
         rates[spec] = batch * (new - new // 2) / (wf - wh)
+        # the engine's step: the wall difference over the difference in
+        # steps (bursts of `burst` verify or decode steps)
+        steps = (statistics.median(bursts[0::2])
+                 - statistics.median(bursts[1::2])) * burst
+        step_walls[spec] = (wf - wh) * 1e3 / max(steps, 1)
         print(f"[engine:{path}] spec_tokens={spec}: decode {rates[spec]} "
               f"tok/s (median-wall difference); walls {walls} / {halves} s",
               flush=True)
@@ -6284,8 +6544,20 @@ def serve_spec(torch, path: str, cfg, params, launches: dict, int8: bool,
             iters=5)
     print(f"[engine:{path}] device step (graph replay) at context {ctx}: "
           f"verify (S={g + 1}) {times[g + 1]:.3f} ms, decode (S=1) "
-          f"{times[1]:.3f} ms, ratio {times[g + 1] / times[1]:.3f}",
+          f"{times[1]:.3f} ms, ratio {times[g + 1] / times[1]:.3f}; both "
+          f"captured in a CUDA graph (no host read inside a step)",
           flush=True)
+    wbytes = step_weight_bytes(params, batch)
+    kvbytes = live_kv_bytes(cfg, batch, ctx, kv_dtype)
+    floor_ms = (wbytes + kvbytes) / HBM_BYTES_PER_S * 1e3
+    for spec, s in ((g, g + 1), (0, 1)):
+        print(f"[engine:{path}] spec_tokens={spec} step: engine "
+              f"{step_walls[spec]:.3f} ms, device (graph replay, S={s}) "
+              f"{times[s]:.3f} ms, bytes floor {floor_ms:.3f} ms "
+              f"({wbytes / 1e9:.3f} GB weights + {kvbytes / 1e9:.3f} GB "
+              f"KV); device idle share of the engine step "
+              f"{max(0.0, 1 - times[s] / step_walls[spec]):.3f}",
+              flush=True)
     del eng, plain_eng
 
 
@@ -6305,9 +6577,17 @@ def dense_launches(int8: bool, layers: int, steps: int,
     rows, the head and every step at 8), K/V written as with bf16. ``cfg``
     (the model's config, when not Llama's): a tied head (Gemma) is a bf16
     torch.matmul, no launch; a GeGLU FFN takes no fused_ffn but two
-    quantized_matmul a layer."""
+    quantized_matmul a layer; a mixture of experts (GPT-OSS) takes no
+    fused FFN: each decode step runs the folded experts' two products on
+    kernel 5, the prefill the grouped experts (dequantized,
+    ``torch.matmul``), so the prefill launches kernel 5 for wqkv and wo
+    only; a QKV bias (GPT-OSS) takes the qkv product and ``kv_append``
+    instead of the fused qkv at decode."""
     head = int(cfg is None or not cfg.tie_word_embeddings)
-    glu = cfg is None or cfg.hidden_act == "silu"   # the fused FFN's gate
+    moe = cfg is not None and bool(cfg.num_experts)
+    # the fused FFN's gate, and the fused qkv's (no QKV bias)
+    glu = (cfg is None or cfg.hidden_act == "silu") and not moe
+    fqkv = cfg is None or not cfg.attention_bias
     want = {name: 0 for name in KERNELS}
     want["kv_append"] += layers
     want["flash_prefill"] += layers
@@ -6319,11 +6599,13 @@ def dense_launches(int8: bool, layers: int, steps: int,
                 want[name] += c * times
         want["kv_append"] += layers * steps
     elif int8:
-        want["quantized_matmul"] += 4 * layers + head + (
-            layers * (1 if glu else 3) + head) * steps
-        want["quantized_matmul_mma"] += 4 * layers
-        want["fused_qkv_append_dense"] += layers * steps
+        per = 2 if moe else 4      # MoE: the prefill's experts off kernel 5
+        want["quantized_matmul"] += per * layers + head + (
+            layers * ((1 if glu else 3) + (not fqkv)) + head) * steps
+        want["quantized_matmul_mma"] += per * layers
+        want["fused_qkv_append_dense"] += layers * steps * fqkv
         want["fused_ffn"] += layers * steps * glu
+        want["kv_append"] += layers * steps * (not fqkv)
     else:
         want["kv_append"] += layers * steps
     return want
@@ -6341,9 +6623,12 @@ def serve_dense(torch, path: str, cfg, params, launches: dict, int8: bool,
     fastest of three 64- and of three 32-token calls); one graph-replayed
     decode step beside its bytes floor. A sliding-window model's layers
     take the window forms (3w, 13w) and their bytes floor reads at most
-    the window's keys."""
+    the window's keys. A mixture of experts (gpt-oss) holds its decode
+    steps alone to the sync debug mode: its grouped prefill reads the
+    group sizes on the host once a layer (ops/moe.py)."""
     import numpy as np
 
+    from simplellminference_tpu_torch.ops import sampling
     from simplellminference_tpu_torch.runtime.generator import Generator
 
     steps = 64
@@ -6382,10 +6667,16 @@ def serve_dense(torch, path: str, cfg, params, launches: dict, int8: bool,
     check_launches(path, got, want)
     tokens, lens = gen._bucket(prompts())
     tokens, lens = gen._tensor(tokens), gen._tensor(lens)
+    first = None
+    if cfg.num_experts:
+        cache = gen.new_cache(batch, tokens.shape[1] + steps)
+        logits, cache = gen._prefill_fn(tokens, cache, lens)
+        first = sampling.greedy(logits)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = gen._fused_generate(tokens, lens, steps)
+        out = (gen._fused_generate(tokens, lens, steps) if first is None
+               else gen._decode_steps(first, lens, cache, steps))
     except RuntimeError as e:
         raise SmokeFailure(f"[{path}] a host sync inside the fused loop: "
                            f"{e}")
@@ -6401,8 +6692,9 @@ def serve_dense(torch, path: str, cfg, params, launches: dict, int8: bool,
     print(f"[engine:{path}] Generator.generate_fused, batch {batch} x "
           f"{prompt_len}-token prompts: fused_decode_toks_s {toks_s} "
           f"(fastest of three {steps}-token calls {t_full} s, of three "
-          f"{half}-token calls {t_half} s); no host sync inside the loop "
-          f"(sync debug mode 'error')", flush=True)
+          f"{half}-token calls {t_half} s); no host sync inside the "
+          f"{'decode ' if first is not None else ''}loop (sync debug mode "
+          f"'error')", flush=True)
     print(f"[engine:{path}] launches {json.dumps(got)}", flush=True)
     # one decode step, graph-replayed, at the differenced segment's mean
     # context (bench.py's roofline: prompt + 3/4 of the steps)
@@ -6698,13 +6990,15 @@ PATH_SETUP = {"int8": ("int8", "bf16", False), "bf16": ("bf16", "bf16", False),
               "gemma2_spec": ("bf16", "bf16", False),
               "gemma2_draft": ("bf16", "bf16", False),
               "gpt_oss": ("int8", "bf16", False),
-              "gpt_oss_prefix": ("bf16", "bf16", True)}
+              "gpt_oss_prefix": ("bf16", "bf16", True),
+              "gpt_oss_spec": ("bf16", "bf16", False),
+              "gpt_oss_dense": ("int8", "bf16", False)}
 # paths cut in depth to keep the run within half its time limit (their
 # launch counts follow the cut: every count is per layer; a Gemma-2 cut
 # keeps the sliding/full alternation): `int8` keeps Llama-2-7B's 32
-# layers, `gpt_oss` and `gpt_oss_prefix` gpt-oss-20b's 24; the drafters
-# run at DRAFT_LAYERS
-PATH_LAYERS = {"spec": 4, "spec_int8kv": 4, "spec_fp8kv": 4, "bf16": 4,
+# layers, `gpt_oss` gpt-oss-20b's 24; the drafters run at DRAFT_LAYERS
+PATH_LAYERS = {"gpt_oss_prefix": 12, "gpt_oss_spec": 8, "gpt_oss_dense": 8,
+               "spec": 4, "spec_int8kv": 4, "spec_fp8kv": 4, "bf16": 4,
                "dense_bf16": 4, "int4": 4, "int4_dense": 4,
                "mistral_window": 4, "gemma2": 4, "gemma2_window": 4,
                "gemma2_dense": 4, "gemma2_spec": 4, "gemma2_draft": 4,
@@ -6774,7 +7068,8 @@ def phase_engine(torch, launches: dict, paths=PATHS):
                   f"{base} ms (ratios "
                   f"{[a / b for a, b in zip(ttft['w8a8'], base)]})",
                   flush=True)
-        elif path.startswith("dense") or path == "int4_dense":
+        elif path.startswith("dense") or path in ("int4_dense",
+                                                  "gpt_oss_dense"):
             serve_dense(torch, path, cfg, params, launches, int8,
                         int4=weights == "int4")
         elif path == "gemma2_dense":
@@ -6788,7 +7083,8 @@ def phase_engine(torch, launches: dict, paths=PATHS):
             serve_draft(torch, path, cfg, params, launches,
                         draft_cfg=gemma2_2b(DRAFT_LAYERS),
                         draft_name="Gemma-2-2B")
-        elif path.startswith("spec") or path == "gemma2_spec":
+        elif path.startswith("spec") or path in ("gemma2_spec",
+                                                 "gpt_oss_spec"):
             serve_spec(torch, path, cfg, params, launches, int8, kv_dtype)
         elif prefix:
             ttft[path] = serve_prefix(torch, path, cfg, params, launches,
@@ -7838,9 +8134,16 @@ def gpt_oss_card_vs_cpu(torch):
     :func:`card_vs_cpu` (prefill + 8 greedy steps, logits within
     LOGIT_TOL, greedy tokens equal by the margin rule, the grouped Engine
     on both devices) and the prefix traffic through
-    :func:`prefix_card_vs_cpu` (chunked prefill over the ring pools). The
-    card runs the sink forms 3s, 3ws, 4s, 4ws, 8s and 8ws in f32, the
-    folded experts at decode and the grouped ones at prefill."""
+    :func:`prefix_card_vs_cpu` (chunked prefill over the ring pools), the
+    Generator (:func:`dense_card_vs_cpu`: the dense forward's logits within
+    LOGIT_TOL over the prefill and 4 steps, ``generate`` and
+    ``generate_fused`` greedy tokens equal) and the prompt-lookup spec
+    Engine (:func:`spec_card_vs_cpu`: spec_tokens 4 over the ring pools,
+    8 new tokens, greedy tokens equal card vs CPU, to spec_tokens=0's and
+    to the greedy trace by the margin rule). The card runs the sink forms
+    3s, 3ws, 4s, 4ws, 8s, 8ws, 4vs, 4vws, 13s and 13ws in f32, the folded
+    experts at decode and the grouped ones at prefill and on verify
+    rows."""
     import dataclasses
 
     import numpy as np
@@ -7859,6 +8162,9 @@ def gpt_oss_card_vs_cpu(torch):
     before = dict(fp.SINK_LAUNCHES)
     card_vs_cpu(torch, "gpt-oss-f32", cfg, p_gpu, p_cpu, prompts, steps=8)
     prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, tag="gpt-oss-prefix")
+    dense_card_vs_cpu(torch, "gpt-oss-dense", cfg, p_gpu, p_cpu, prompts,
+                      steps=4)
+    spec_card_vs_cpu(torch, "gpt-oss-spec", cfg, p_gpu, p_cpu, new=8)
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
     ran = {f"{form}/{d}": n - before.get((form, d), 0)
@@ -7866,10 +8172,12 @@ def gpt_oss_card_vs_cpu(torch):
     require(all(ran.get(f"{form}/64", 0) > 0 for form in (
         "flash_prefill", "flash_prefill_window", "paged_flash_decode",
         "paged_flash_decode_window", "paged_flash_prefill",
-        "paged_flash_prefill_window")),
+        "paged_flash_prefill_window", "paged_flash_verify",
+        "paged_flash_verify_window", "flash_decode", "flash_decode_window")),
         f"[cpu:gpt-oss] the sink forms did not all run on the card: {ran}")
-    print(f"[cpu:gpt-oss] gpt-oss-20b card vs CPU (f32, the prefix traffic)"
-          f" in {time.perf_counter() - t0:.1f} s; sink launches on the card "
+    print(f"[cpu:gpt-oss] gpt-oss-20b card vs CPU (f32; the Engine, the "
+          f"prefix traffic, the Generator and the spec Engine) in "
+          f"{time.perf_counter() - t0:.1f} s; sink launches on the card "
           f"{ran}", flush=True)
 
 

@@ -30,21 +30,24 @@
 // compiled as before; tanh is tanhf, CUDA's full-precision one
 // (prefill_mma.cuh's note says why not tanh.approx.f32). The cap over
 // int8 or e4m3 pools raises in the wrappers and is refused here. GPT-OSS's
-// attention sinks on the decode forms over pools of q's dtype, with or
-// without a window (sinks != nullptr: the layer's f32 logit of each q
-// head; forms 4s, 4ws; paged_decode.py:29-35, :57-63): a sink joins the
-// row's softmax denominator and adds no value, so split 0's block seeds
-// each row's state with (m, l) = (its head's sink, 1) where the others
-// start at (-1e30, 0). The merge then counts it once: the partials keep
-// m in natural-log units, the units this kernel's softmax runs in, and
-// the sink is a raw logit (neither scaled nor capped). A split 0 that
-// meets no key carries (sink, 1) into the merge, and a row with no key at
-// all gives acc 0 / l >= 1 = 0. A row's head is g * group + its place in
-// the group (row = window row x group + head), the head its output goes
-// to. A pointer and not a template flag: one uniform branch where the
-// state is seeded, no further instantiation. Sinks on verify rows, over
-// int8 or e4m3 pools and on the dense arena raise in the wrappers and are
-// refused here.
+// attention sinks on every form over pools of q's dtype at D 32-128:
+// decode and verify rows, with or without a window, and the dense arena
+// (sinks != nullptr: the layer's f32 logit of each q head; forms 4s, 4ws,
+// 4vs, 4vws, 13s, 13ws; paged_decode.py:29-35, :57-67, flash_decode.py:
+// 43-62, :191-194): a sink joins the row's softmax denominator and adds
+// no value, so split 0's block seeds each row's state with (m, l) = (its
+// head's sink, 1) where the others start at (-1e30, 0). The merge then
+// counts it once: the partials keep m in natural-log units, the units
+// this kernel's softmax runs in, and the sink is a raw logit (neither
+// scaled nor capped). A split 0 that meets no key carries (sink, 1) into
+// the merge, and a row with no key at all gives acc 0 / l >= 1 = 0. A
+// row's head is g * group + its place in the group (row = window row x
+// group + head), the head its output goes to; a verify window whose rows
+// take two row blocks (gpt-oss-20b's group of 8 x 5 rows = 40) seeds
+// each block's rows in that block's split 0, so every (row, head) is
+// seeded once. A pointer and not a template flag: one uniform branch
+// where the state is seeded, no further instantiation. Sinks over int8 or
+// e4m3 pools and at D 256 raise in the wrappers and are refused here.
 //
 // Bound on the H100: bytes. Each sequence's live K and V rows
 // (2*kv_len*kvN*D elements, plus 2*kv_len*kvN f32 scales for INT8 KV)
@@ -664,23 +667,26 @@ int dispatch_d(int head_dim, const Args& a, cudaStream_t st) {
 // of q's dtype, sequence b < batch <= arena_rows reading arena row b's
 // slots [0, min(kv_len, smax)), or with window > 0 only the slots
 // [kv_len - window, kv_len) of them (forms 13w, 13wc); cap: 0 for none,
-// else the soft cap (> 0; forms 13c, 13wc); out [B, N, D] contiguous.
-// splits > 1: part holds splits * B * N * (D + 2) floats of workspace.
+// else the soft cap (> 0; forms 13c, 13wc); sinks: null for none, else
+// the layer's f32 sink logits [N] (forms 13s, 13ws; D <= 128); out
+// [B, N, D] contiguous. splits > 1: part holds splits * B * N * (D + 2)
+// floats of workspace.
 extern "C" int sli_flash_decode(const void* q, long long q_bs,
                                 const void* cache_k, const void* cache_v,
                                 const int* kv_lens, void* out, float* part,
                                 int batch, int layer, int arena_rows, int kvn,
                                 int smax, int group, int head_dim, int window,
                                 int splits, float scale, float cap, int dtype,
-                                void* stream) {
+                                const float* sinks, void* stream) {
   if (batch <= 0 || kvn <= 0 || group <= 0 || smax <= 0 ||
       batch > arena_rows || window < 0 || cap < 0.f)
     return SLI_ERR_SHAPE;
+  if (sinks != nullptr && head_dim > 128) return SLI_ERR_HEAD_DIM;
   cudaStream_t st = (cudaStream_t)stream;
   // one "page" of smax slots per sequence, one window row, no scales
   const Args a{q, q_bs, 0LL, cache_k, cache_v, nullptr, nullptr, nullptr,
                kv_lens, out, part, batch, layer, arena_rows, kvn, smax, 1,
-               group, 1, window, splits, scale, cap, nullptr};
+               group, 1, window, splits, scale, cap, sinks};
   if (dtype == SLI_F32) return dispatch_d<float, float, true>(head_dim, a, st);
   if (dtype == SLI_BF16)
     return dispatch_d<__nv_bfloat16, __nv_bfloat16, true>(head_dim, a, st);
@@ -707,7 +713,8 @@ int dispatch_pool(int pool, int head_dim, const Args& a, cudaStream_t st) {
 // q_bs, q_ss (elements); wins = 1 is decode. window: 0 for none, else the
 // sliding window (>= 1); cap: 0 for none, else the soft cap (> 0; pools
 // of q's dtype only); sinks: null for none, else the layer's f32 sink
-// logits [N] (decode, wins = 1, over pools of q's dtype only). splits > 1:
+// logits [N] (decode and verify rows over pools of q's dtype, D <= 128;
+// a row's sink is its head's, whatever its window row). splits > 1:
 // part holds splits * B * wins * N * (D + 2) floats of workspace.
 extern "C" int sli_paged_flash_decode(
     const void* q, long long q_bs, long long q_ss, const void* pool_k,
@@ -717,7 +724,7 @@ extern "C" int sli_paged_flash_decode(
     int head_dim, int window, int splits, float scale, float cap, int dtype,
     int pool, const float* sinks, void* stream) {
   if (batch <= 0 || kvn <= 0 || group <= 0 || ps <= 0 || mp <= 0 ||
-      wins <= 0 || window < 0 || cap < 0.f || (sinks != nullptr && wins != 1))
+      wins <= 0 || window < 0 || cap < 0.f)
     return SLI_ERR_SHAPE;
   if (sinks != nullptr && head_dim > 128) return SLI_ERR_HEAD_DIM;
   if ((k_scale == nullptr) != (v_scale == nullptr) ||

@@ -22,11 +22,11 @@ Gemma-2's pieces run in both: the attention soft cap (the kernels' capped
 forms), the final logit soft cap, the sandwich norms and
 ``query_pre_attn_scalar``. GPT-OSS's run in both too: the q/k/v bias
 after the qkv product, the o bias, each layer's attention sinks (the
-kernels' sink forms; the dense arena's decode and verify rows refuse
-them, not ported yet), yarn rotary tables and the mixture-of-experts FFN
+kernels' sink forms, on the dense arena and on verify rows too), yarn
+rotary tables and the mixture-of-experts FFN
 (:mod:`~simplellminference_tpu_torch.ops.moe`: folded experts at decode,
-grouped by expert at prefill), which the Mixtral family's plain softmax
-route shares.
+grouped by expert at prefill and on verify rows), which the Mixtral
+family's plain softmax route shares.
 
 KV pools are bf16/f32, or INT8 with per-token-per-head scale pools
 (``cache.k_scale``/``cache.v_scale``): every write quantizes and every

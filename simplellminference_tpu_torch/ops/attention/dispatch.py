@@ -13,9 +13,9 @@ Gemma-2's logit soft cap (``cfg.attn_logit_softcap``) to the capped forms
 of kernels 3, 4 (decode and verify rows), 8 and 13 over bf16/f32 KV,
 and a layer's GPT-OSS attention sinks (``sinks`` [N], passed by the
 caller as the JAX dispatcher takes them) to the sink forms of kernels 3,
-4 (decode rows) and 8 over bf16/f32 KV. Attention options the kernels do
-not take yet (sinks on verify rows, on the dense arena or over INT8 or
-FP8 KV; the cap over INT8 or FP8 KV) raise.
+4 (decode and verify rows), 8 and 13 over bf16/f32 KV. Attention options
+the kernels do not take yet (sinks over INT8 or FP8 KV or at head_dim
+256; the cap over INT8 or FP8 KV) raise.
 """
 
 from __future__ import annotations
@@ -72,8 +72,9 @@ def attention_cached(cfg: ModelConfig, q: torch.Tensor,
     :func:`attention`). q: [B, 1, N, D]; ck/cv: [B, kvN, Smax, D], or the
     stacked arena [L, B', kvN, Smax, D] with an int ``layer``; kv_lens:
     [B]. A prefill from slot 0 attends its fresh k/v through
-    :func:`attention` instead, as ``models.llama.forward`` does. Sinks
-    raise (13s is not ported yet)."""
+    :func:`attention` instead, as ``models.llama.forward`` does.
+    ``sinks`` [N]: the layer's GPT-OSS attention-sink logits (13s,
+    13ws)."""
     if q.shape[1] != 1:
         raise ValueError(f"one query row per sequence, not {q.shape[1]}")
     window, sm, cap = _attn_opts(cfg, window)

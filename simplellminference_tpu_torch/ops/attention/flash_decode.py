@@ -24,14 +24,17 @@ soft cap (``logit_cap``: each score becomes cap * tanh(s * scale *
 (1 / cap)) before the mask, flash_decode.py:80-81) is a compile-time flag
 of the kernel (13c, 13wc); capped launches count in their form's
 ``launches`` and in :data:`~.flash_prefill.CAP_LAUNCHES` by (form, head
-dim).
+dim). GPT-OSS's attention sinks (``sinks`` [N], a learned logit per q head
+in each row's softmax denominator, flash_decode.py:43-62, :191-194) are
+the kernel's pointer argument, as on the paged forms: split 0 seeds each
+row with (sink, 1) (13s, 13ws; bf16/f32 arenas at D 32-128); launches
+with sinks count in their form's ``launches`` and in
+:data:`~.flash_prefill.SINK_LAUNCHES` by (form, head dim).
 
 A row with kv_len <= 0 comes out as zeros, as from the JAX kernel (its
 running sum stays 0). ``bk``, ``rows_target`` and ``max_kv`` are the TPU
 kernel's tiling hints and bounds on its grid; the kernel stops at kv_len
-by itself, so they are taken and ignored. Attention sinks on the dense
-arena (13s, GPT-OSS through the Generator) are not ported and raise,
-named.
+by itself, so they are taken and ignored.
 """
 
 from __future__ import annotations
@@ -40,12 +43,9 @@ import torch
 
 from simplellminference_tpu_torch.ops import cuda_build, ref_ops
 from simplellminference_tpu_torch.ops.attention.flash_prefill import (
-    cap_value, count_launch, window_size)
+    cap_value, check_sinks_head_dim, count_launch, sink_values, window_size)
 from simplellminference_tpu_torch.ops.attention.paged_decode import (
     HEAD_DIMS, MAX_ROWS, decode_splits, row_blocks, workspace)
-
-# the sink form not ported yet
-DENSE_SINKS = "attention sinks on the dense arena (13s: the Generator)"
 
 # launches at head_dim 256 (Gemma; each also counts in its form's
 # ``launches``)
@@ -64,12 +64,14 @@ def _stacked(k_cache, v_cache, layer):
 def flash_decode_ref(q, k_cache, v_cache, kv_lens, layer=None,
                      sm_scale: float | None = None,
                      window: int | None = None,
-                     logit_cap: float | None = None) -> torch.Tensor:
-    """Plain version of :func:`flash_decode` and its window and capped
-    forms: reference attention over the arena rows of the batch, keys at
-    slots < kv_len (and >= kv_len - ``window``), the scores soft-capped by
-    ``logit_cap`` before the mask; zeros for a row with no such slot
-    (kv_len <= 0, or a window wholly past Smax).
+                     logit_cap: float | None = None,
+                     sinks=None) -> torch.Tensor:
+    """Plain version of :func:`flash_decode` and its window, capped and
+    sink forms: reference attention over the arena rows of the batch,
+    keys at slots < kv_len (and >= kv_len - ``window``), the scores
+    soft-capped by ``logit_cap`` before the mask, each head's ``sinks``
+    logit in the softmax; zeros for a row with no such slot (kv_len <= 0,
+    or a window wholly past Smax).
     q [B, N, D] -> [B, N, D]."""
     if q.is_cuda:
         flash_decode_ref.cuda_calls += 1
@@ -83,7 +85,8 @@ def flash_decode_ref(q, k_cache, v_cache, kv_lens, layer=None,
         mask = mask & (key_pos >= lens - window_size(window))
     out = ref_ops.attention(q[:, None], ck.transpose(1, 2),
                             cv.transpose(1, 2), mask, scale=sm_scale,
-                            logit_cap=cap_value(logit_cap))[:, 0]
+                            logit_cap=cap_value(logit_cap),
+                            sinks=sinks)[:, 0]
     live = mask.any(-1)                                    # [B, 1, 1]
     return torch.where(live, out, torch.zeros_like(out))
 
@@ -99,21 +102,21 @@ def flash_decode(q, k_cache, v_cache, kv_lens, bk: int | None = None,
     [L, B', kvN, Smax, D] with an int ``layer``, B <= B'; kv_lens: [B]
     -> out [B, N, D] in q's dtype, attending arena slots [0, kv_len).
     ``window`` takes :func:`flash_decode_window`; ``logit_cap`` > 0 is
-    Gemma-2's soft cap (13c)."""
+    Gemma-2's soft cap (13c); ``sinks`` [N] f32 add each head's sink logit
+    to its softmax (13s)."""
     del bk, rows_target, max_kv   # TPU tiling hints
-    if sinks is not None:
-        raise NotImplementedError(DENSE_SINKS)
     if window is not None:
         return flash_decode_window(q, k_cache, v_cache, kv_lens, window,
-                                   layer, sm_scale, logit_cap)
+                                   layer, sm_scale, logit_cap, sinks)
     cap = cap_value(logit_cap)
+    check_sinks_head_dim(sinks, q.shape[-1])
     if not q.is_cuda:
         return flash_decode_ref(q, k_cache, v_cache, kv_lens, layer,
-                                sm_scale, logit_cap=cap)
+                                sm_scale, logit_cap=cap, sinks=sinks)
     out = _launch(q, k_cache, v_cache, kv_lens, layer, sm_scale, 0, cap,
-                  "flash_decode")
+                  "flash_decode", sinks)
     flash_decode.launches += 1
-    count_launch("flash_decode", q.shape[-1], cap, D256_LAUNCHES)
+    count_launch("flash_decode", q.shape[-1], cap, D256_LAUNCHES, sinks)
     return out
 
 
@@ -122,19 +125,22 @@ flash_decode.launches = 0
 
 def flash_decode_window(q, k_cache, v_cache, kv_lens, window: int,
                         layer=None, sm_scale: float | None = None,
-                        logit_cap: float | None = None) -> torch.Tensor:
+                        logit_cap: float | None = None,
+                        sinks=None) -> torch.Tensor:
     """13w: :func:`flash_decode` over arena slots kv_len - window ..
     kv_len - 1 only; no slot below them is read (13wc with a
-    ``logit_cap``)."""
+    ``logit_cap``, 13ws with ``sinks``)."""
     window = window_size(window)
     cap = cap_value(logit_cap)
+    check_sinks_head_dim(sinks, q.shape[-1])
     if not q.is_cuda:
         return flash_decode_ref(q, k_cache, v_cache, kv_lens, layer,
-                                sm_scale, window, cap)
+                                sm_scale, window, cap, sinks)
     out = _launch(q, k_cache, v_cache, kv_lens, layer, sm_scale, window,
-                  cap, "flash_decode_window")
+                  cap, "flash_decode_window", sinks)
     flash_decode_window.launches += 1
-    count_launch("flash_decode_window", q.shape[-1], cap, D256_LAUNCHES)
+    count_launch("flash_decode_window", q.shape[-1], cap, D256_LAUNCHES,
+                 sinks)
     return out
 
 
@@ -142,7 +148,7 @@ flash_decode_window.launches = 0
 
 
 def _launch(q, k_cache, v_cache, kv_lens, layer, sm_scale, window: int,
-            cap, what: str) -> torch.Tensor:
+            cap, what: str, sinks=None) -> torch.Tensor:
     """The kernel on q [B, N, D] -> [B, N, D]."""
     ck, cv, layer = _stacked(k_cache, v_cache, layer)
     b, n, d = q.shape
@@ -165,6 +171,7 @@ def _launch(q, k_cache, v_cache, kv_lens, layer, sm_scale, window: int,
     if not 0 <= layer < n_layers:
         raise IndexError(f"layer {layer} out of range")
     code = cuda_build.dtype_code(q.dtype)
+    sinks = sink_values(sinks, n, q.device)
     out = torch.empty((b, n, d), dtype=q.dtype, device=q.device)
     if b == 0:
         return out
@@ -183,6 +190,7 @@ def _launch(q, k_cache, v_cache, kv_lens, layer, sm_scale, window: int,
         kv_lens.data_ptr(), out.data_ptr(),
         0 if part is None else part.data_ptr(), b, layer, arena_rows, kvn,
         smax, n // kvn, d, window, splits, scale, cap or 0.0, code,
+        0 if sinks is None else sinks.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, rc, what)
     return out

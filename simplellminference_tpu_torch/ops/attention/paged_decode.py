@@ -56,13 +56,15 @@ cap over INT8 or e4m3 pools raises (not ported yet).
 
 GPT-OSS's attention sinks (``sinks`` [N], a learned logit per q head that
 joins each row's softmax denominator and adds no value,
-paged_decode.py:29-35, :57-63) on the decode forms over pools of q's
-dtype, with or without a window (4s, 4ws): a pointer argument of the
-kernel; split 0's block seeds each row's state with (sink, 1), so the
-log-sum-exp merge counts it once. Launches with sinks count in their
-form's ``launches`` and in :data:`~.flash_prefill.SINK_LAUNCHES`. Sinks
-on verify rows (speculation), over INT8 or e4m3 pools raise (not ported
-yet), on the CPU as on the card.
+paged_decode.py:29-35, :57-67) on the decode and verify forms over pools
+of q's dtype, with or without a window (4s, 4ws, 4vs, 4vws): a pointer
+argument of the kernel; split 0's block seeds each row's state with
+(sink, 1), so the log-sum-exp merge counts it once, and a verify row
+takes its head's sink whatever its window row (gpt-oss-20b's group of 8
+x 5 rows fills two row blocks, each seeding its own rows). Launches with
+sinks count in their form's ``launches`` and in
+:data:`~.flash_prefill.SINK_LAUNCHES`. Sinks over INT8 or e4m3 pools raise
+(not ported yet), on the CPU as on the card.
 
 Unmapped (-1) pages inside kv_len read as zeros in both versions. The
 JAX package reads something else there — its TPU kernel clamps them to
@@ -93,8 +95,6 @@ MAX_ROWS = 128   # query rows (GQA group x window rows) a call takes
 ROW_BLOCK = 32   # query rows a block of the kernel holds
 TILE_KEYS = 64   # keys per tile of the kernel; splits cut whole tiles
 MAX_SPLITS = 32
-# the sink form not ported yet: sinks on verify rows (speculation)
-VERIFY_SINKS = "verify rows (4vs: speculation)"
 
 
 def decode_splits(b: int, kvn: int, span: int, row_blocks: int = 1) -> int:
@@ -159,15 +159,11 @@ def _check_cap(k_pool, k_scale, logit_cap):
         raise NotImplementedError("attention logit soft cap over FP8 KV")
 
 
-def check_sinks(sinks, k_pool, k_scale, unported: str | None = None
-                ) -> None:
-    """Sinks run on the decode forms over pools of q's dtype (4s, 4ws);
-    raise, named, over INT8 or e4m3 pools and on ``unported`` (the form a
-    caller names: verify rows, the dense arena)."""
+def check_sinks(sinks, k_pool, k_scale) -> None:
+    """Sinks run on the forms over pools of q's dtype (4s, 4ws, 4vs, 4vws,
+    8s, 8ws); raise, named, over INT8 or e4m3 pools."""
     if sinks is None:
         return
-    if unported is not None:
-        raise NotImplementedError(f"attention sinks on {unported}")
     if k_scale is not None:
         raise NotImplementedError("attention sinks over INT8 KV")
     if k_pool.dtype == torch.float8_e4m3fn:
@@ -249,17 +245,16 @@ def paged_flash_verify_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
                            v_scale=None, window=None,
                            logit_cap=None, sinks=None) -> torch.Tensor:
     """Plain version of :func:`paged_flash_verify` and its INT8-KV,
-    FP8-KV, window and capped forms, the gather + mask + reference
+    FP8-KV, window, capped and sink forms, the gather + mask + reference
     attention of the JAX dispatcher's S > 1 branch (dispatch.py:239-269).
-    q: [B, S, N, D] -> [B, S, N, D]. ``sinks`` raise (4vs is not ported
-    yet)."""
+    q: [B, S, N, D] -> [B, S, N, D]."""
     _check_fp8_window(k_pool, window)
     _check_cap(k_pool, k_scale, logit_cap)
-    check_sinks(sinks, k_pool, k_scale, VERIFY_SINKS)
+    check_sinks(sinks, k_pool, k_scale)
     if q.is_cuda:
         paged_flash_verify_ref.cuda_calls += 1
     return _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
-                       k_scale, v_scale, window, logit_cap)
+                       k_scale, v_scale, window, logit_cap, sinks)
 
 
 paged_flash_verify_ref.cuda_calls = 0
@@ -292,14 +287,12 @@ def paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer: int,
     [B, S, N, D], where row s sits at position kv_len - S + s and attends
     the keys at positions <= that one, through the same page walk as
     :func:`paged_flash_decode` (KV traffic of one decode step). Pools,
-    tables, scale pools, ``window`` and ``logit_cap`` as there; out
-    [B, S, N, D] in q's dtype. The launch counts as the form the options
-    and pools name (4v, 4vq, 4ve, 4vw, 4vqw; a capped 4v or 4vw in its
-    form's count). ``sinks`` raise: sinks on verify rows (4vs) are not
-    ported yet."""
-    check_sinks(sinks, k_pool, k_scale, VERIFY_SINKS)
+    tables, scale pools, ``window``, ``logit_cap`` and ``sinks`` as
+    there (each row takes its head's sink); out [B, S, N, D] in q's dtype.
+    The launch counts as the form the options and pools name (4v, 4vq,
+    4ve, 4vw, 4vqw; a capped or sink 4v or 4vw in its form's count)."""
     return _run("paged_flash_verify", q, k_pool, v_pool, k_scale, v_scale,
-                tables, kv_lens, layer, sm_scale, window, logit_cap)
+                tables, kv_lens, layer, sm_scale, window, logit_cap, sinks)
 
 
 def paged_flash_decode_window(q, k_pool, v_pool, tables, kv_lens,
@@ -364,13 +357,14 @@ def _check_e4m3(k_pool, v_pool):
 def paged_flash_verify_window(q, k_pool, v_pool, tables, kv_lens,
                               layer: int, window: int,
                               sm_scale: float | None = None,
-                              logit_cap=None) -> torch.Tensor:
+                              logit_cap=None, sinks=None) -> torch.Tensor:
     """4vw: :func:`paged_flash_verify` where row s attends keys
     kv_len - S + s - window < k_pos <= kv_len - S + s; no page below the
-    oldest row's band is read (4vwc with a ``logit_cap``)."""
+    oldest row's band is read (4vwc with a ``logit_cap``, 4vws with
+    ``sinks``)."""
     return paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer,
                               sm_scale, window=window_size(window),
-                              logit_cap=logit_cap)
+                              logit_cap=logit_cap, sinks=sinks)
 
 
 def paged_flash_verify_int8kv(q, k_pool, v_pool, k_scale, v_scale, tables,

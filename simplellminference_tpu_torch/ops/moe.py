@@ -21,20 +21,25 @@ package:
   M <= 8), bf16 ones to ``torch.matmul`` as the JAX package leaves them
   to XLA. Nothing reads the device from the host, so a CUDA-graph
   capture of the decode step holds it.
-- :func:`moe_ffn_grouped` for S > 1 rows (prefill): the (token, expert)
-  assignments sorted by expert and one product per expert's group of
-  rows (moe.py:173-249). JAX's ``jax.lax.ragged_dot`` is XLA's grouped
-  product, outside any Pallas kernel. Here the group sizes are read to
-  the host once a layer; while padding every group to the largest at
-  most doubles the rows (give or take ``PAD_SLACK`` rows an expert, the
-  spread of even routing over short chunks), the products are one
-  ``torch.bmm`` over the
-  experts (the padding rows are zeros and are dropped), and past that (a
-  skewed router) one product per expert's rows, each with an f32 result.
-  One batched product costs the host far less than 2E launches; the
-  bound keeps its memory and work near twice T*k rows. INT8 experts
-  are dequantized one layer at a time (``_dense_layer_weight``,
-  moe.py:150-171).
+- :func:`moe_ffn_grouped` for S > 1 rows (prefill, verify windows): the
+  (token, expert) assignments sorted by expert and one product per
+  expert's group of rows (moe.py:173-249). JAX's ``jax.lax.ragged_dot``
+  is XLA's grouped product, outside any Pallas kernel. While padding
+  every group to the largest at most doubles the rows (give or take
+  ``PAD_SLACK`` rows an expert, the spread of even routing over short
+  chunks), the products are one ``torch.bmm`` over the experts (the
+  padding rows are zeros and are dropped), and past that (a skewed
+  router) one product per expert's rows, each with an f32 result. One
+  batched product costs the host far less than 2E launches; the bound
+  keeps its memory and work near twice T*k rows. Where the bound holds
+  for the worst case, every group padded to T rows (no expert gets more:
+  a token's k experts are distinct), :func:`pads_to_tokens` says so from
+  the shapes alone and the groups are padded to T with nothing read on
+  the host: a speculative verify step (gpt-oss-20b: 8 x 5 rows, T 40 <=
+  42) runs with no host sync and can be captured in a CUDA graph.
+  Otherwise the group sizes are read to the host once a layer (longer
+  prefills). INT8 experts are dequantized one layer at a time
+  (``_dense_layer_weight``, moe.py:150-171).
 
 The router (moe.py:49-128) takes the softmax route: softmax over all
 experts in f32, the top k kept in ``jax.lax.top_k``'s order (a lower
@@ -77,6 +82,16 @@ def check_supported(cfg: ModelConfig) -> None:
 # spreads its largest group to about twice the mean, and padding those few
 # rows costs less than 2E launches of one product an expert.
 PAD_SLACK = 32
+
+
+def pads_to_tokens(t: int, e: int, k: int) -> bool:
+    """True when T = ``t`` tokens' k-of-``e`` routing can take the padded
+    product with every expert's group padded to T rows, the most any
+    group can hold, within the padding bound ``e * cap <= 2 * t * k +
+    PAD_SLACK * e``: a pure function of shapes, so the grouped route
+    reads nothing on the host (gpt-oss-20b, 32 experts with top 4: T <=
+    42, a verify step of 8 x 5 rows included)."""
+    return e * t <= 2 * t * k + PAD_SLACK * e
 
 
 def _stable_topk(p: torch.Tensor, k: int):
@@ -135,14 +150,15 @@ def _dense_layer_weight(w, li: int, dtype) -> torch.Tensor:
 
 def moe_ffn_grouped(cfg: ModelConfig, lw: dict, li: int,
                     x: torch.Tensor) -> torch.Tensor:
-    """The grouped MoE FFN of layer ``li`` (prefill): x [B, S, H] (already
-    normed) -> [B, S, H]. The T*k assignments sort by expert (stable), each
-    expert's rows go through its gate/up and down blocks with f32 results
-    (one batched product with each group padded to the largest while that
-    at most doubles the rows, give or take ``PAD_SLACK`` rows an expert,
-    else one product per expert: the work stays within that bound
-    whatever the router's skew), the biases ride
-    each assignment (the down bias weighted by its gate), and the weighted
+    """The grouped MoE FFN of layer ``li`` (prefill, verify windows):
+    x [B, S, H] (already normed) -> [B, S, H]. The T*k assignments sort by
+    expert (stable), each expert's rows go through its gate/up and down
+    blocks with f32 results (one batched product with each group padded to
+    the largest while that at most doubles the rows, give or take
+    ``PAD_SLACK`` rows an expert, else one product per expert: the work
+    stays within that bound whatever the router's skew; padded to T with
+    no host read where :func:`pads_to_tokens`), the biases ride each
+    assignment (the down bias weighted by its gate), and the weighted
     rows add back to their tokens in f32."""
     check_supported(cfg)
     b, s, h = x.shape
@@ -155,26 +171,31 @@ def moe_ffn_grouped(cfg: ModelConfig, lw: dict, li: int,
     k = topi.shape[-1]
     flat_e = topi.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
-    tok = torch.arange(t, device=x.device).repeat_interleave(k)[order]
+    tok = (torch.arange(t * k, device=x.device) // k)[order]
     row_e = flat_e[order]
     g_row = topv.reshape(-1)[order]
     xg = xf[tok]
-    sizes = torch.bincount(flat_e, minlength=e)
-    counts = sizes.tolist()            # the one host read of the layer
-    cap = max(counts)
-    if e * cap <= 2 * t * k + PAD_SLACK * e:
+    padded = pads_to_tokens(t, e, k)
+    if padded:
+        cap = t       # every group padded to T rows, its most: no host read
+    else:
+        counts = torch.bincount(flat_e, minlength=e).tolist()  # host read
+        cap = max(counts)
+        padded = e * cap <= 2 * t * k + PAD_SLACK * e
+    if padded:
         # groups even enough: one batched product over the experts, each
-        # group padded with zero rows to the largest (the padding dropped)
-        starts = torch.cumsum(sizes, 0) - sizes
+        # group padded with zero rows to ``cap`` (the padding dropped); a
+        # row's slot in its group from the sorted experts' first rows
+        starts = torch.searchsorted(row_e, torch.arange(e, device=x.device))
         slot = (row_e * cap + torch.arange(t * k, device=x.device)
                 - starts[row_e])
 
         def grouped(rows, w):
             """rows [T*k, K] sorted by expert through w [E, K, N]:
             [T*k, N] f32."""
-            padded = rows.new_zeros((e * cap, rows.shape[1]))
-            padded[slot] = rows
-            out = bmm_f32(padded.view(e, cap, -1), w)
+            buf = rows.new_zeros((e * cap, rows.shape[1]))
+            buf[slot] = rows
+            out = bmm_f32(buf.view(e, cap, -1), w)
             return out.view(e * cap, -1)[slot]
     else:
         # a skewed router: padding would more than double the rows, so

@@ -228,11 +228,17 @@ class Generator:
         b, bucket = tokens.shape
         cache = self.new_cache(b, bucket + max_new_tokens)
         logits, cache = self._prefill_fn(tokens, cache, kv_lens)
-        tok = sampling_ops.greedy(logits)
-        pos = kv_lens.to(torch.int32)
-        out = torch.empty((b, max_new_tokens), dtype=torch.int32,
-                          device=tokens.device)
-        for t in range(max_new_tokens):
+        return self._decode_steps(sampling_ops.greedy(logits),
+                                  kv_lens.to(torch.int32), cache,
+                                  max_new_tokens)
+
+    def _decode_steps(self, tok: torch.Tensor, pos: torch.Tensor, cache,
+                      n: int) -> torch.Tensor:
+        """``n`` greedy decode steps from tokens ``tok`` [B] at positions
+        ``pos`` [B] on the device: [B, n] int32, ``tok`` first."""
+        out = torch.empty((tok.shape[0], n), dtype=torch.int32,
+                          device=tok.device)
+        for t in range(n):
             out[:, t] = tok
             logits, cache = self._decode_fn(tok, pos, cache)
             tok = sampling_ops.greedy(logits)

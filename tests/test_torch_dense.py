@@ -166,18 +166,21 @@ def test_flash_decode_takes_4d_caches_and_refuses_unported_options():
     ck = torch.from_numpy(rng.standard_normal((2, 2, 64, 32))
                           .astype(np.float32))
     lens = torch.tensor([3, 64])
-    # the window (13w) and the soft cap (13c) take 4-D caches as well;
-    # attention sinks on the dense arena (13s) are not ported: the sink
-    # forms of kernels 3, 4 and 8 serve GPT-OSS through the Engine, not
-    # through the Generator (tests/test_torch_sinks.py)
+    # the window (13w), the soft cap (13c) and GPT-OSS's attention sinks
+    # (13s, 13ws: tests/test_torch_sinks.py) take 4-D caches as well;
+    # sinks at head_dim 256, which no model with sinks has, are refused
+    sinks = torch.from_numpy(rng.standard_normal(4).astype(np.float32))
     for kw in ({}, dict(window=8), dict(logit_cap=30.0),
-               dict(window=8, logit_cap=30.0)):
+               dict(window=8, logit_cap=30.0), dict(sinks=sinks),
+               dict(window=8, sinks=sinks)):
         np.testing.assert_array_equal(
             flash_decode(q, ck, ck, lens, **kw).numpy(),
             flash_decode_ref(q, ck[None], ck[None], lens, layer=0,
                              **kw).numpy())
-    with pytest.raises(NotImplementedError, match="sinks"):
-        flash_decode(q, ck, ck, lens, sinks=torch.zeros(4))
+    q256 = torch.zeros((2, 4, 256))
+    c256 = torch.zeros((2, 2, 64, 256))
+    with pytest.raises(NotImplementedError, match="sinks at head_dim 256"):
+        flash_decode(q256, c256, c256, lens, sinks=torch.zeros(4))
 
 
 # ------------------------------------------- dense fused_qkv_append (6d)

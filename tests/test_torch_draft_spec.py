@@ -14,6 +14,7 @@ stochastic rows keep emitting through the rejection-sampling acceptance.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from simplellminference_tpu.core.config import EngineConfig as JaxEngineConfig
 from simplellminference_tpu.core.config import KVCacheConfig as JaxKVConfig
@@ -32,6 +33,18 @@ from simplellminference_tpu_torch.models.convert import params_from_jax
 DRAFT = dict(num_layers=1, hidden_size=64, intermediate_size=128,
              num_heads=2, num_kv_heads=1)
 KV = dict(page_size=8, num_pages=64, max_pages_per_seq=24, kv_dtype="f32")
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Run the port's CPU ops on one thread: the tiny models' ops are far
+    below where threads pay off, and under the suite's parallel workers
+    (each with an OpenMP thread per core) the threads spin against each
+    other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -56,6 +56,18 @@ METRICS = ("prefix_cache_hits", "prompt_tokens_cached",
            "tokens_generated", "spec_steps", "spec_accepted")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Run the port's CPU ops on one thread: the tiny models' ops are far
+    below where threads pay off, and under the suite's parallel workers
+    (each with an OpenMP thread per core) the threads spin against each
+    other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=["float", "int8"])
 def model(request):
     jcfg = JaxModelConfig.tiny_test()

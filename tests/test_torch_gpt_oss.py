@@ -56,6 +56,18 @@ PS = 8
 WINDOW = 8
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Run the port's CPU ops on one thread: the tiny models' ops are far
+    below where threads pay off, and under the suite's parallel workers
+    (each with an OpenMP thread per core) the threads spin against each
+    other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _gpt_oss_hf(**kw):
     """The JAX package's tiny GPT-OSS (test_model_families.py:672-688)."""
     base = dict(
@@ -394,9 +406,11 @@ def test_sinks_and_biases_move_the_logits():
 
 
 def test_forms_outside_the_slice_raise(gpt_oss):
-    """Sinks over INT8 or FP8 KV pools, on verify rows (speculation) and on
-    the dense arena (the Generator) raise NotImplementedError naming the
-    form, as do the MoE routes the slice does not serve."""
+    """Sinks over INT8 or FP8 KV pools and at head_dim 256 raise
+    NotImplementedError naming the form, as do the MoE routes the slice
+    does not serve; on verify rows (speculation) and on the dense arena
+    (the Generator) the sink forms run (tests/test_torch_gpt_oss_spec.py
+    and tests/test_torch_gpt_oss_dense.py hold them to JAX)."""
     jcfg, jp, cfg, tp = gpt_oss
     kv = dict(page_size=PS, num_pages=64, max_pages_per_seq=16)
     prompts = [[1, 2, 3, 4, 5], [9, 8, 7]]
@@ -406,13 +420,22 @@ def test_forms_outside_the_slice_raise(gpt_oss):
             Engine(cfg, tp, EngineConfig(
                 max_batch_size=2, kv=KVCacheConfig(kv_dtype=kv_dtype, **kv)),
                 device="cpu").generate(prompts, samp)
-    with pytest.raises(NotImplementedError, match="verify rows"):
-        Engine(cfg, tp, EngineConfig(
-            max_batch_size=2, kv=KVCacheConfig(kv_dtype="f32", **kv),
-            spec_tokens=2), device="cpu").generate([[5, 6, 5, 6, 5, 6]],
-                                                   samp)
-    with pytest.raises(NotImplementedError, match="dense arena"):
-        Generator(cfg, tp, max_batch=2, max_seq=32,
+    out = Engine(cfg, tp, EngineConfig(
+        max_batch_size=2, kv=KVCacheConfig(kv_dtype="f32", **kv),
+        spec_tokens=2), device="cpu").generate([[5, 6, 5, 6, 5, 6]], samp)
+    assert len(out[0]) == 3
+    res = Generator(cfg, tp, max_batch=2, max_seq=32,
+                    device="cpu").generate(prompts, samp)
+    assert [len(o) for o in res.token_ids] == [3, 3]
+    # head_dim 256, which no model with sinks has
+    c256 = dataclasses.replace(cfg, head_dim=256)
+    p256 = tllama.init_params(c256, seed=1, device="cpu")
+    with pytest.raises(NotImplementedError, match="head_dim 256"):
+        Engine(c256, p256, EngineConfig(
+            max_batch_size=2, kv=KVCacheConfig(kv_dtype="f32", **kv)),
+            device="cpu").generate(prompts, samp)
+    with pytest.raises(NotImplementedError, match="head_dim 256"):
+        Generator(c256, p256, max_batch=2, max_seq=32,
                   device="cpu").generate(prompts, samp)
     for kw, name in ((dict(router_score_fn="sigmoid"), "sigmoid"),
                      (dict(router_n_group=2), "grouped routing"),

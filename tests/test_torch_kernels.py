@@ -2482,7 +2482,8 @@ def test_paged_flash_prefill_sinks(cuda, dtype, window, sq, above):
 
 
 def test_sink_forms_outside_the_slice_raise(cuda):
-    # sinks on verify rows, on the dense arena and over INT8 pools raise
+    # sinks over INT8 and e4m3 pools and at head_dim 256 raise; on verify
+    # rows and on the dense arena they run (the tests above)
     g = torch.Generator(device=cuda).manual_seed(68)
     pk, pv = _pools(g, cuda, torch.bfloat16, b=2, kvn=OSS_KVN, d=OSS_D)
     tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=cuda)
@@ -2490,17 +2491,160 @@ def test_sink_forms_outside_the_slice_raise(cuda):
     q3 = torch.randn((2, 3, OSS_N, OSS_D), generator=g, device=cuda,
                      dtype=torch.bfloat16)
     sinks = torch.zeros(OSS_N, device=cuda)
-    with pytest.raises(NotImplementedError, match="verify rows"):
-        pd.paged_flash_verify(q3, pk, pv, tables, kv, 0, sinks=sinks)
     qk, ks = pa.quantize_kv(pk.float())
     qv, vs = pa.quantize_kv(pv.float())
     with pytest.raises(NotImplementedError, match="INT8 KV"):
         pd.paged_flash_decode(q3[:, 0], qk, qv, tables, kv, 0, k_scale=ks,
                               v_scale=vs, sinks=sinks)
+    with pytest.raises(NotImplementedError, match="INT8 KV"):
+        pd.paged_flash_verify(q3, qk, qv, tables, kv, 0, k_scale=ks,
+                              v_scale=vs, sinks=sinks)
+    ek, ev = pk.to(torch.float8_e4m3fn), pv.to(torch.float8_e4m3fn)
+    with pytest.raises(NotImplementedError, match="FP8 KV"):
+        pd.paged_flash_verify(q3, ek, ev, tables, kv, 0, sinks=sinks)
     from simplellminference_tpu_torch.ops.attention import flash_decode as fd
-    with pytest.raises(NotImplementedError, match="dense arena"):
-        fd.flash_decode(q3[:, 0], pk[:, :2, :, :16], pv[:, :2, :, :16], kv,
-                        layer=0, sinks=sinks)
+    p256 = torch.zeros((2, 5, OSS_KVN, 16, 256), device=cuda,
+                       dtype=torch.bfloat16)
+    q256 = torch.zeros((2, 3, OSS_N, 256), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="head_dim 256"):
+        pd.paged_flash_verify(q256, p256, p256, tables, kv, 0, sinks=sinks)
+    with pytest.raises(NotImplementedError, match="head_dim 256"):
+        fd.flash_decode(q256[:, 0], p256[:, :2], p256[:, :2], kv, layer=0,
+                        sinks=sinks)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 128, 70],
+                         ids=["4vs", "4vws", "4vws-70"])
+@pytest.mark.parametrize("above", [False, True], ids=["n01", "above"])
+def test_paged_flash_verify_sinks(cuda, dtype, window, above):
+    # gpt-oss-20b's verify step: 64 q heads over 8 kv heads x 5 rows = 40
+    # rows, two row blocks a kv head; kv_len 0, 1, 5, the window's edges
+    # and 4096 (the key walk split over blocks); a dead slot
+    g = torch.Generator(device=cuda).manual_seed(71 + (window or 0) + above)
+    lens = [0, 1, 5, 132, 133, 4096, 4100, 3]
+    b, s, ps, mp = len(lens), 5, 128, 33
+    pk, pv = _pools(g, cuda, dtype, b=b, kvn=OSS_KVN, ps=ps, d=OSS_D, mp=mp)
+    q = torch.randn((b, s, OSS_N, OSS_D), generator=g, device=cuda,
+                    dtype=dtype)
+    tables = torch.randperm(b * mp, generator=g, device=cuda).to(
+        torch.int32).reshape(b, mp)
+    tables[-1] = -1
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    sinks = _oss_sinks(g, cuda, above)
+    assert pd.row_blocks((OSS_N // OSS_KVN) * s) == 2
+    span = mp * ps if not window else window + s - 1
+    assert window or pd.decode_splits(b, OSS_KVN, span, 2) > 1
+    form = pd.paged_flash_verify_window if window else pd.paged_flash_verify
+    before = form.launches, fp.SINK_LAUNCHES.get((form.__name__, OSS_D), 0)
+    got = pd.paged_flash_verify(q, pk, pv, tables, kv, 1, window=window,
+                                sinks=sinks)
+    assert (form.launches, fp.SINK_LAUNCHES[form.__name__, OSS_D]) == (
+        before[0] + 1, before[1] + 1)
+    want = pd.paged_flash_verify_ref(q, pk, pv, tables, kv, 1,
+                                     window=window, sinks=sinks)
+    assert bool(torch.isfinite(got).all()) and _close(got, want, dtype)
+    assert not got[0].any() and not got[1, :4].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 128], ids=["13s", "13ws"])
+@pytest.mark.parametrize("above", [False, True], ids=["n01", "above"])
+def test_flash_decode_sinks(cuda, dtype, window, above):
+    # gpt-oss-20b's decode on the dense arena (a stacked arena with a
+    # spare row): kv_len 0, 1, the window's edges, 4096 (the key walk
+    # split over blocks) and the whole arena
+    from simplellminference_tpu_torch.ops.attention import flash_decode as fd
+    g = torch.Generator(device=cuda).manual_seed(72 + (window or 0) + above)
+    smax = 4224
+    lens = [0, 1, 128, 129, 300, 4096, smax, 17]
+    b = len(lens)
+    shape = (2, b + 1, OSS_KVN, smax, OSS_D)
+    ck = torch.randn(shape, generator=g, device=cuda, dtype=dtype)
+    cv = torch.randn(shape, generator=g, device=cuda, dtype=dtype)
+    q = torch.randn((b, OSS_N, OSS_D), generator=g, device=cuda,
+                    dtype=dtype)
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    sinks = _oss_sinks(g, cuda, above)
+    assert window or pd.decode_splits(b, OSS_KVN, smax) > 1
+    form = fd.flash_decode_window if window else fd.flash_decode
+    before = form.launches, fp.SINK_LAUNCHES.get((form.__name__, OSS_D), 0)
+    got = fd.flash_decode(q, ck, cv, kv, layer=1, window=window,
+                          sinks=sinks)
+    assert (form.launches, fp.SINK_LAUNCHES[form.__name__, OSS_D]) == (
+        before[0] + 1, before[1] + 1)
+    want = fd.flash_decode_ref(q, ck, cv, kv, layer=1, window=window,
+                               sinks=sinks)
+    assert bool(torch.isfinite(got).all()) and _close(got, want, dtype)
+    assert not got[0].any()
+
+
+# a gpt-oss-shaped model (openai/gpt-oss-20b's config.json) cut to 2 layers
+# and narrow widths, keeping its attention (64 q heads over 8 kv heads of
+# 64, sinks, biases, yarn) and its 32 experts with top 4
+OSS_HF = dict(
+    model_type="gpt_oss", vocab_size=512, hidden_size=256,
+    intermediate_size=128, num_hidden_layers=2, num_attention_heads=64,
+    num_key_value_heads=8, head_dim=64, num_local_experts=32,
+    num_experts_per_tok=4, experts_per_token=4, tie_word_embeddings=False,
+    attention_bias=True, sliding_window=32, rope_theta=150000.0,
+    rope_scaling={"rope_type": "yarn", "factor": 32.0, "beta_fast": 32.0,
+                  "beta_slow": 1.0, "original_max_position_embeddings": 4096,
+                  "truncate": False},
+    max_position_embeddings=131072, rms_norm_eps=1e-5, swiglu_limit=7.0,
+    hidden_act="silu", initial_context_length=4096,
+    layer_types=["sliding_attention", "full_attention"])
+
+
+def test_gpt_oss_verify_step_graph_replay(cuda):
+    """A gpt-oss verify step of the spec engine (8 sequences x 5 rows: 4vs
+    on the full layer, 4vws over the ring pools, the MoE on verify rows
+    padded to T = 40 with no host read) runs eagerly under sync debug mode
+    "error" and is captured in a CUDA graph (a host read breaks the
+    capture); the replay gives the eager call's logits."""
+    from simplellminference_tpu_torch.ops import moe
+    cfg = ModelConfig.from_hf_dict(OSS_HF, dtype="bfloat16")
+    params = llama.init_params(cfg, seed=5, device=cuda)
+    b, s, mp, ps = 8, 5, 8, 16
+    eng = Engine(cfg, params, EngineConfig(
+        max_batch_size=b, spec_tokens=s - 1,
+        kv=KVCacheConfig(page_size=ps, num_pages=b * mp + 8,
+                         max_pages_per_seq=mp)), device=cuda)
+    assert eng._grouped and moe.pads_to_tokens(b * s, 32, 4)
+    tables = (torch.arange(b * mp, dtype=torch.int32,
+                           device=cuda).reshape(b, mp), eng._ring_table(mp))
+    g = torch.Generator(device=cuda).manual_seed(73)
+    tok = torch.randint(1, cfg.vocab_size, (b, s), generator=g, device=cuda,
+                        dtype=torch.int32)
+    ctx = torch.tensor([40, 41, 60, 77, 90, 33, 100, 120], device=cuda,
+                       dtype=torch.int32)
+    pos = (ctx[:, None] - s + torch.arange(s, device=cuda,
+                                           dtype=torch.int32)[None])
+
+    def step():
+        return llama.forward_paged(cfg, params, tok, pos, eng.cache, tables,
+                                   ctx, prefill=False)[0]
+
+    counts = (pd.paged_flash_verify.launches,
+              pd.paged_flash_verify_window.launches)
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (pd.paged_flash_verify.launches,
+            pd.paged_flash_verify_window.launches) == (counts[0] + 2,
+                                                       counts[1] + 2)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(eager).all())
+    scale = float(eager.float().abs().max())
+    assert float((out.float() - eager.float()).abs().max()) <= 1e-2 * scale
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

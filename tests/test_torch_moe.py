@@ -38,6 +38,18 @@ from simplellminference_tpu_torch.runtime.weights import quantize_params
 TOL = 1e-5
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Run the port's CPU ops on one thread: the tiny models' ops are far
+    below where threads pay off, and under the suite's parallel workers
+    (each with an OpenMP thread per core) the threads spin against each
+    other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 

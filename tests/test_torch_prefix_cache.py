@@ -15,6 +15,7 @@ port's output against its own uncached run, as the JAX tests do.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from simplellminference_tpu.core.config import EngineConfig as JaxEngineConfig
 from simplellminference_tpu.core.config import KVCacheConfig as JaxKVConfig
@@ -36,6 +37,18 @@ METRICS = ("prefix_cache_hits", "prompt_tokens_cached",
            "prefix_cache_persistent_hits", "prefix_cache_evictions",
            "preemptions", "prefills", "prompt_tokens", "requests_finished",
            "requests_cancelled", "tokens_generated")
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Run the port's CPU ops on one thread: the tiny models' ops are far
+    below where threads pay off, and under the suite's parallel workers
+    (each with an OpenMP thread per core) the threads spin against each
+    other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _model(quant: bool):

@@ -1,5 +1,6 @@
 """GPT-OSS's attention sinks in the port's kernels (the sink forms 3s, 3ws,
-4s, 4ws, 8s, 8ws) against the JAX package on the CPU.
+4s, 4ws, 4vs, 4vws, 8s, 8ws, 13s, 13ws) against the JAX package on the
+CPU.
 
 A sink is a learned logit per q head that joins each row's softmax
 denominator and adds no value. The port's wrappers run their plain
@@ -8,16 +9,18 @@ JAX package's own tests run them, on the same numpy inputs (float32,
 seeded), at head dims 32 and 64 (gpt-oss-20b's), with and without a
 window, with kv_len 0 rows, ring tables whose columns below the band
 point at NaN pages, and sinks drawn N(0, 1) as the JAX package draws
-them or set above every score of their rows. The kernels' own
-arithmetic (split 0 seeding each row with (sink, 1), the log-sum-exp
-merge of the split key walk) is emulated in plain torch by the split
-emulations of tests/test_torch_decode_split.py and
-tests/test_torch_prefill_tiles.py with more than one split, and held to
-the same outputs; seeding every split instead (the sink counted
-``splits`` times) is shown to miss them. Stated tolerance 1e-5 on the
-outputs (summation order). Sinks outside the slice (verify rows, the
-dense arena, INT8 and e4m3 pools) raise NotImplementedError naming the
-form.
+them or set above every score of their rows. Verify rows (S 5) run at a
+GQA group of 8, gpt-oss-20b's: 40 rows, which the kernel holds in two
+row blocks of 32 and 8; the dense arena's forms over a stacked arena.
+The kernels' own arithmetic (split 0 seeding each row with (sink, 1), the
+log-sum-exp merge of the split key walk; each row block seeding its own
+rows) is emulated in plain torch by the split emulations of
+tests/test_torch_decode_split.py and tests/test_torch_prefill_tiles.py
+with more than one split, and held to the same outputs; seeding every
+split instead (the sink counted ``splits`` times) is shown to miss them.
+Stated tolerance 1e-5 on the outputs (summation order). Sinks outside the
+slice (INT8 and e4m3 pools, head_dim 256) raise NotImplementedError
+naming the form.
 """
 
 import jax.numpy as jnp
@@ -30,10 +33,14 @@ import test_torch_prefill_tiles as tiles
 from simplellminference_tpu.core.config import ModelConfig as JaxModelConfig
 from simplellminference_tpu.ops import ref_ops as jref
 from simplellminference_tpu.ops.attention import dispatch as jdispatch
+from simplellminference_tpu.ops.attention.flash_decode import (
+    flash_decode as jflash_decode)
 from simplellminference_tpu.ops.attention.flash_prefill import (
     flash_prefill as jflash_prefill)
 from simplellminference_tpu.ops.attention.paged_decode import (
     paged_flash_decode as jpaged_decode)
+from simplellminference_tpu.ops.attention.paged_decode import (
+    paged_flash_verify as jpaged_verify)
 from simplellminference_tpu.ops.attention.paged_prefill import (
     paged_flash_prefill as jpaged_prefill)
 from simplellminference_tpu_torch.core.config import ModelConfig
@@ -48,6 +55,18 @@ from simplellminference_tpu_torch.ops.attention import paged_prefill as tpp
 TOL = 1e-5
 HEAD_DIMS = (32, 64)
 N, KVN, PS = 8, 2, 8     # a GQA group of 4
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Run the port's CPU ops on one thread: the tiny models' ops are far
+    below where threads pay off, and under the suite's parallel workers
+    (each with an OpenMP thread per core) the threads spin against each
+    other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def t(a):
@@ -186,6 +205,154 @@ def test_paged_decode_window_sinks_read_no_page_below_the_band():
     close(got, want)
 
 
+# verify rows: gpt-oss-20b's GQA group of 8 over a 5-row window (40 rows,
+# two of the kernel's row blocks)
+VN, VS = 16, 5
+
+
+@pytest.mark.parametrize("window", [None, 6], ids=["4vs", "4vws"])
+@pytest.mark.parametrize("d,big", [(32, False), (64, False), (64, True)],
+                         ids=["d32", "d64", "d64-above"])
+def test_paged_verify_sinks_match_jax(d, window, big):
+    # kv_len 0 (no row has a key), 2 (the oldest rows before position 0),
+    # a band starting inside a page, a full table
+    rng = np.random.default_rng(20 * d + (window or 0) + big)
+    b, mp = 4, 6
+    pk, pv, tables = _paged(rng, d, b, mp)
+    lens = np.asarray([0, 2, 19, 48], np.int32)
+    q = rand(rng, b, VS, VN, d)
+    sinks = (np.full(VN, BIG_SINK, np.float32) if big
+             else rand(rng, VN))
+    assert (VN // KVN) * VS > tpd.ROW_BLOCK
+    got = tpd.paged_flash_verify(t(q), t(pk), t(pv), t(tables), t(lens), 1,
+                                 window=window, sinks=t(sinks))
+    want = np.asarray(jpaged_verify(j(q), j(pk), j(pv), j(tables), j(lens),
+                                    interpret=True, layer=jnp.int32(1),
+                                    window=window, sinks=j(sinks)))
+    # rows with keys (row s of sequence i sits at lens[i] - S + s): a row
+    # with none is zero in the port by design
+    for i, ln in enumerate(lens):
+        live = [s for s in range(VS) if ln - VS + s >= 0]
+        close(got[i, live], want[i, live])
+        assert not got[i, [s for s in range(VS) if s not in live]].any()
+    # a row's sink is its head's whatever its window row: the sinks moved
+    # by head show in every row of that head
+    shifted = sinks + 0.5 + np.arange(VN, dtype=np.float32) * 0.5
+    moved = tpd.paged_flash_verify(t(q), t(pk), t(pv), t(tables), t(lens),
+                                   1, window=window, sinks=t(shifted))
+    assert float((moved[3] - got[3]).abs().amax((0, 2)).min()) > 1e-4
+    # through the dispatcher (S > 1: the verify form)
+    kw = dict(attn_sinks=True, sliding_window=window)
+    via = dispatch.attention_paged(ModelConfig.tiny_test(**kw), t(q), t(pk),
+                                   t(pv), t(tables), t(lens), 1,
+                                   sinks=t(sinks))
+    close(via, got, tol=0)
+
+
+@pytest.mark.parametrize("window", [None, 6, 100],
+                         ids=["13s", "13ws6", "13ws100"])
+@pytest.mark.parametrize("d,big", [(32, False), (64, False), (64, True)],
+                         ids=["d32", "d64", "d64-above"])
+def test_flash_decode_sinks_match_jax(d, window, big):
+    # kv_len 0 (a zero row), below the window, on its edge, past it, the
+    # whole arena of a stacked two-layer arena with a spare row
+    rng = np.random.default_rng(40 * d + (window or 0) + big)
+    smax = 128
+    lens = np.asarray([0, 3, 6, 7, 77, smax], np.int32)
+    b = len(lens)
+    ck = rand(rng, 2, b + 1, KVN, smax, d)
+    cv = rand(rng, 2, b + 1, KVN, smax, d)
+    q, sinks = rand(rng, b, N, d), _sinks(rng, big)
+    got = tfd.flash_decode(t(q), t(ck), t(cv), t(lens), layer=1,
+                           window=window, sinks=t(sinks))
+    want = jflash_decode(j(q), j(ck[:, :b]), j(cv[:, :b]), j(lens),
+                         interpret=True, layer=jnp.int32(1), window=window,
+                         sinks=j(sinks))
+    close(got, want)
+    assert not got[0].any()
+    # through the dispatcher, with GPT-OSS's options
+    kw = dict(attn_sinks=True, sliding_window=window)
+    via = dispatch.attention_cached(ModelConfig.tiny_test(**kw),
+                                    t(q)[:, None], t(ck), t(cv), t(lens), 1,
+                                    sinks=t(sinks))
+    close(via[:, 0], got, tol=0)
+
+
+def test_verify_row_blocks_seed_each_row_with_its_head():
+    """The kernel's row-block arithmetic (csrc/paged_decode.cu: block y of
+    kv head g holds rows row0 = (y % nrb) * 32 .. of group x S; row rr
+    reads q row rr / group, head g * group + rr % group; split 0 seeds it
+    with sinks[g * group + rr - rr / group * group]; it writes output row
+    (b * S + rr / group) * N + that head): at gpt-oss-20b's 64 heads over
+    8 kv heads, S 5 (two row blocks a kv head), and at the tiny shapes,
+    every (window row, head) is seeded once, with its own head's sink."""
+    for n, kvn, s in ((64, 8, 5), (VN, KVN, VS), (8, 2, 8), (64, 8, 1)):
+        group = n // kvn
+        nrb = tpd.row_blocks(group * s)
+        seen = []
+        for y in range(kvn * nrb):
+            g, row0 = y // nrb, (y % nrb) * tpd.ROW_BLOCK
+            for r in range(min(tpd.ROW_BLOCK, group * s - row0)):
+                rr = row0 + r
+                w = rr // group
+                head = g * group + rr - w * group
+                sink = g * group + rr - rr // group * group
+                assert sink == head
+                seen.append((w, head))
+        assert sorted(seen) == [(w, h) for w in range(s) for h in range(n)]
+    assert tpd.row_blocks(8 * 5) == 2
+
+
+@pytest.mark.parametrize("splits", [2, 3])
+@pytest.mark.parametrize("form", ["4vs", "4vws", "13s", "13ws"])
+def test_verify_and_dense_split_merge_count_the_sink_once(form, splits):
+    """Kernel 4's arithmetic with sinks on verify rows (S 5) and on the
+    dense arena (the same body, one page of Smax slots a sequence) against
+    the plain versions and the JAX kernels; seeding every split misses
+    them once a row's walk splits."""
+    window = 6 if "w" in form else 0
+    dense = form.startswith("13")
+    b, mp = len(dsplit.LENS), 11
+    rng, pk, pv, _ks, _vs, tables, lens = dsplit._case(
+        500 + window + splits + dense, b, mp, dsplit.LENS, False)
+    s = 1 if dense else 5
+    q = rng.standard_normal((b, s, dsplit.N, dsplit.D)).astype(np.float32)
+    sinks = np.full(dsplit.N, BIG_SINK, np.float32)
+    if dense:
+        # the arena [L, B + 1, kvN, Smax, D]: row b is sequence b
+        smax = 128
+        pk = rng.standard_normal((2, b + 1, dsplit.KVN, smax, dsplit.D)
+                                 ).astype(np.float32)
+        pv = rng.standard_normal(pk.shape).astype(np.float32)
+    kw = dict(window=window, sinks=t(sinks), dense=dense)
+    got = dsplit.split_merge(t(q), t(pk), t(pv), t(tables), t(lens), 1,
+                             splits, **kw)
+    if dense:
+        got = got[:, 0]
+        plain = tfd.flash_decode_ref(t(q[:, 0]), t(pk), t(pv), t(lens), 1,
+                                     window=window or None, sinks=t(sinks))
+        want = jflash_decode(j(q[:, 0]), j(pk[:, :b]), j(pv[:, :b]),
+                             j(lens), interpret=True, layer=jnp.int32(1),
+                             window=window or None, sinks=j(sinks))
+    else:
+        plain = tpd.paged_flash_verify_ref(t(q), t(pk), t(pv), t(tables),
+                                           t(lens), 1, window=window or None,
+                                           sinks=t(sinks))
+        want = jpaged_verify(j(q), j(pk), j(pv), j(tables), j(lens),
+                             interpret=True, layer=jnp.int32(1),
+                             window=window or None, sinks=j(sinks))
+    close(got, plain)
+    # rows with keys: a verify row with none is zero in the port by design
+    live = torch.from_numpy(np.asarray(lens))[:, None] - s + torch.arange(
+        s)[None] >= 0
+    got_l = got.reshape(b, s, -1)[live]
+    close(got_l, np.asarray(want).reshape(b, s, -1)[live.numpy()])
+    twice = dsplit.split_merge(t(q), t(pk), t(pv), t(tables), t(lens), 1,
+                               splits, seed_every_split=True, **kw)
+    twice = twice[:, 0] if dense else twice
+    assert float((twice - plain).abs().max()) > 1e-3
+
+
 @pytest.mark.parametrize("window", [None, 7], ids=["8s", "8ws"])
 @pytest.mark.parametrize("d,big", [(32, False), (64, False), (64, True)],
                          ids=["d32", "d64", "d64-above"])
@@ -311,9 +478,10 @@ def test_sink_forms_count_their_launches_apart():
 
 
 def test_sinks_outside_the_slice_raise():
-    """Sinks over INT8 and e4m3 pools (decode and prefill), on verify rows
-    (4vs: speculation) and on the dense arena (13s: the Generator) raise
-    NotImplementedError naming the form, on the CPU as on the card."""
+    """Sinks over INT8 and e4m3 pools (decode, verify and prefill) and at
+    head_dim 256 raise NotImplementedError naming the form, on the CPU as
+    on the card; on verify rows (4vs) and on the dense arena (13s) they
+    run."""
     rng = np.random.default_rng(1)
     d = 32
     shape = (2, 7, KVN, PS, d)
@@ -331,37 +499,40 @@ def test_sinks_outside_the_slice_raise():
         "sinks over INT8 KV": [
             lambda: tpd.paged_flash_decode(q1, qk, qv, tables, kv, 0,
                                            k_scale=ks, v_scale=vs, **sk),
+            lambda: tpd.paged_flash_verify(q3, qk, qv, tables, kv, 0,
+                                           k_scale=ks, v_scale=vs, **sk),
             lambda: tpp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
                                             k_scale=ks, v_scale=vs, **sk)],
         "sinks over FP8 KV": [
             lambda: tpd.paged_flash_decode(q1, ek, ev, tables, kv, 0, **sk),
+            lambda: tpd.paged_flash_verify(q3, ek, ev, tables, kv, 0, **sk),
             lambda: tpp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0,
                                             **sk)],
-        "verify rows": [
-            lambda: tpd.paged_flash_verify(q3, pk, pv, tables, kv, 0, **sk),
-            lambda: tpd.paged_flash_verify(q3, pk, pv, tables, kv, 0,
-                                           window=4, **sk),
-            lambda: tpd.paged_flash_verify_ref(q3, pk, pv, tables, kv, 0,
-                                               **sk),
-            lambda: dispatch.attention_paged(
-                ModelConfig.tiny_test(attn_sinks=True), q3, pk, pv, tables,
-                kv, 0, **sk)],
-        "dense arena": [
-            lambda: tfd.flash_decode(q1, arena, arena, kv, layer=0, **sk),
-            lambda: tfd.flash_decode(q1, arena, arena, kv, layer=0,
-                                     window=4, **sk),
-            lambda: dispatch.attention_cached(
-                ModelConfig.tiny_test(attn_sinks=True), q1[:, None], arena,
-                arena, kv, 0, **sk)],
     }
     for feature, fns in calls.items():
         for fn in fns:
             with pytest.raises(NotImplementedError, match=feature):
                 fn()
+    # verify rows and the dense arena run, with and without a window
+    for w in (None, 4):
+        assert tpd.paged_flash_verify(q3, pk, pv, tables, kv, 0, window=w,
+                                      **sk).shape == q3.shape
+        assert tfd.flash_decode(q1, arena, arena, kv, layer=0, window=w,
+                                **sk).shape == q1.shape
     # no model with sinks has head_dim 256: the sink forms take 32-128
     q256, p256 = t(rand(rng, 3, N, 256)), t(rand(rng, 2, 7, KVN, PS, 256))
+    a256 = t(rand(rng, 2, 3, KVN, 16, 256))
     for fn in (lambda: tpd.paged_flash_decode(q256, p256, p256, tables, kv,
                                               0, **sk),
+               lambda: tpd.paged_flash_verify(q256[:, None], p256, p256,
+                                              tables, kv, 0, **sk),
+               lambda: tpd.paged_flash_verify(q256[:, None], p256, p256,
+                                              tables, kv, 0, window=4,
+                                              **sk),
+               lambda: tfd.flash_decode(q256, a256, a256, kv, layer=0,
+                                        **sk),
+               lambda: tfd.flash_decode(q256, a256, a256, kv, layer=0,
+                                        window=4, **sk),
                lambda: tpp.paged_flash_prefill(q256[:, None], p256, p256,
                                                tables, kv, offs, 0, **sk),
                lambda: tfp.flash_prefill(q256[:, None], p256[0, :3, :, :1],

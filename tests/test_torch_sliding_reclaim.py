@@ -14,6 +14,7 @@ from sums in another order, as in tests/test_torch_engine.py).
 import jax
 import numpy as np
 import pytest
+import torch
 
 from simplellminference_tpu.core.config import EngineConfig as JaxEngineConfig
 from simplellminference_tpu.core.config import KVCacheConfig as JaxKVConfig
@@ -30,6 +31,18 @@ from simplellminference_tpu_torch.models.convert import params_from_jax
 
 ALTERNATING = ("sliding_attention", "full_attention")
 POOL_TOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Run the port's CPU ops on one thread: the tiny models' ops are far
+    below where threads pay off, and under the suite's parallel workers
+    (each with an OpenMP thread per core) the threads spin against each
+    other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cfgs(**ov):

@@ -14,9 +14,10 @@ tests/test_torch_gemma.py holds 6 at D 256: q and the written rows within
 written rows within 1e-5 of the largest magnitude of the JAX package's
 plain product on the same bf16 intermediates. The forms still left out
 raise NotImplementedError naming the feature: the cap over INT8 and e4m3
-pools (decode, verify and prefill), and sinks over INT8 KV, on verify rows
-and on the dense arena (sinks over pools of q's dtype run since GPT-OSS's
-slice, tests/test_torch_sinks.py). The cap on verify rows and
+pools (decode, verify and prefill), and sinks over INT8 and e4m3 pools
+(sinks over pools of q's dtype run since GPT-OSS's slices, on verify rows
+and the dense arena too, tests/test_torch_sinks.py). The cap on verify
+rows and
 on the dense arena (4vc, 4vwc, 13c) runs since Gemma-2's dense slice
 (tests/test_torch_dense_window.py holds them against JAX).
 """
@@ -278,18 +279,15 @@ def test_forms_outside_the_slice_raise(d):
             lambda: tpd.paged_flash_verify(q3, ek, ev, tables, kv, 0, **cap),
             lambda: tpp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0,
                                             **cap)],
-        # sinks run over pools of q's dtype since GPT-OSS's slice (3s,
-        # 4s, 8s: tests/test_torch_sinks.py); over INT8 KV, on verify rows
-        # and on the dense arena they raise
+        # sinks run over pools of q's dtype since GPT-OSS's slices (3s,
+        # 4s, 8s, 4vs, 13s: tests/test_torch_sinks.py); over INT8 and
+        # e4m3 pools they raise
         "sinks": [
             lambda: tpp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
                                             k_scale=ks, v_scale=vs,
                                             sinks=torch.zeros(N)),
-            lambda: tfd.flash_decode(q1, arena, arena, kv, layer=0,
-                                     sinks=torch.zeros(N)),
-            lambda: dispatch.attention_paged(
-                ModelConfig.tiny_test(attn_sinks=True), q3, pk, pv, tables,
-                kv, 0, sinks=torch.zeros(N))],
+            lambda: tpd.paged_flash_verify(q3, ek, ev, tables, kv, 0,
+                                           sinks=torch.zeros(N))],
     }
     for feature, fns in calls.items():
         for fn in fns:
@@ -304,19 +302,26 @@ def test_forms_outside_the_slice_raise(d):
     for w in (None, 4):
         assert tfd.flash_decode(q1, arena, arena, kv, layer=0, window=w,
                                 **cap).shape == q1.shape
-    # sinks with the cap over pools of q's dtype run (paged prefill and
-    # self-attention of a prompt), but at head_dim 256, which no model
-    # with sinks has
+    # sinks with the cap over pools of q's dtype run (paged prefill,
+    # self-attention of a prompt, verify rows and the dense arena), but at
+    # head_dim 256, which no model with sinks has
     sink_calls = (
         lambda: tpp.paged_flash_prefill(q3, pk, pv, tables, kv, offs, 0,
                                         sinks=torch.zeros(N), **cap),
         lambda: dispatch.attention(ModelConfig.tiny_test(attn_sinks=True), q3,
                                    pk[0, :3, :, :3].transpose(1, 2),
                                    pk[0, :3, :, :3].transpose(1, 2),
-                                   sinks=torch.zeros(N)))
+                                   sinks=torch.zeros(N)),
+        lambda: dispatch.attention_paged(
+            ModelConfig.tiny_test(attn_sinks=True), q3, pk, pv, tables, kv,
+            0, sinks=torch.zeros(N)),
+        lambda: tpd.paged_flash_verify(q3, pk, pv, tables, kv, 0, window=4,
+                                       sinks=torch.zeros(N), **cap),
+        lambda: tfd.flash_decode(q1, arena, arena, kv, layer=0, window=4,
+                                 sinks=torch.zeros(N), **cap)[:, None])
     for fn in sink_calls:
         if d == 256:
             with pytest.raises(NotImplementedError, match="head_dim 256"):
                 fn()
         else:
-            assert fn().shape == q3.shape
+            assert fn().shape[::2] == q3.shape[::2]

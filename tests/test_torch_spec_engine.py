@@ -48,6 +48,18 @@ TERMINAL = {RequestState.FINISHED, RequestState.FAILED,
             RequestState.CANCELLED}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Run the port's CPU ops on one thread: the tiny models' ops are far
+    below where threads pay off, and under the suite's parallel workers
+    (each with an OpenMP thread per core) the threads spin against each
+    other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _params(kind):
     jcfg = JaxModelConfig.tiny_test()
     jp = jllama.init_params(jcfg, jax.random.PRNGKey(0))
