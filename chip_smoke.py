@@ -123,7 +123,20 @@ Phases, in order; any failure exits non-zero:
                 tables, NaN pages below the band), 13s and 13ws at
                 `gpt_oss_dense`'s decode (an arena of 256 slots), each
                 with a split walk and a sink above every score, edges and
-                f32. Max |error| beside
+                f32. Then INT8 KV with those options and at D 256
+                (check_int8kv_options): the sink forms over int8 pools
+                (4qs, 4qws, 4vqs, 4vqws, 8qs, 8qws) at gpt-oss-20b's
+                shapes, a sink above every score where walks split; the
+                capped ones at D 256 (4qc, 4qwc, 4vqc, 4vqwc, 8qc, 8qwc)
+                at Gemma-2-2B's and -9B's, scores past the cap, and at D
+                128; the uncapped ones at D 256 (4q, 4qw, 4vq at Gemma-1's
+                group of 8 x 5 rows, 4vqw, 8q, 8qw); ring tables whose
+                columns below the band sit on pages with NaN scales,
+                kv_len 0, f32; the writes 9 and 10 at D 256 byte-equal;
+                6q at D 256 (a head's columns in two blocks, a further
+                launch quantizing whole heads) with and without a
+                kv_layer, codes at most one apart, its graph replay bit
+                for bit. Max |error| beside
                 its tolerance, kernel / plain / library times from
                 CUDA-graph replay, and the bound (the least time for the
                 bytes and operations of the call on an H100 SXM:
@@ -191,12 +204,14 @@ Phases, in order; any failure exits non-zero:
                 its exact launch counts. Depth cuts, to keep the run
                 within half its time limit: the spec paths, `bf16`,
                 `dense_bf16`, `int4`, `int4_dense`, `mistral_window`,
-                `gemma2`, `gemma2_window`, `gemma2_dense`, `gemma2_spec`
-                and `gemma2_draft`'s target at 4 layers, `gemma_prefix` at
-                6, `draft`'s target, both drafters (TinyLlama,
-                Gemma-2-2B), `dense`, `prefix`, `w8a8`, `int8kv`,
-                `int8kv_prefix`, `fp8kv`, `fp8kv_prefix`, `gpt_oss_spec`
-                and `gpt_oss_dense` at 8, `gemma` at 9. Then,
+                `gemma2`, `gemma2_window`, `gemma2_dense`, `gemma2_spec`,
+                `gemma2_draft`'s target, `draft`'s target, both
+                drafters (TinyLlama, Gemma-2-2B), `gpt_oss_prefix`,
+                `gpt_oss_spec`, `gpt_oss_dense` and the INT8-KV paths of
+                gpt-oss-20b and the Gemmas and `gpt_oss` at 4 layers,
+                `gemma_prefix` at 6, `dense`, `prefix`, `w8a8`, `int8kv`,
+                `int8kv_prefix`, `fp8kv` and `fp8kv_prefix` at 8, `gemma`
+                at 9. Then,
                 Gemma-2B at full width (9 of its 18 layers, H 2048,
                 I 16384, V 256000, 8 heads over one kv head of 256,
                 GeGLU, the embedding scale, a tied bf16 head): `gemma`
@@ -227,7 +242,7 @@ Phases, in order; any failure exits non-zero:
                 2, 3c, 3wc, 11, 4vc, 4vwc) and `gemma2_draft` (Gemma-2-9B
                 at its published width and 4 of its 42 layers,
                 google/gemma-2-9b's config.json in `GEMMA2_9B_HF`, bf16,
-                drafted by Gemma-2-2B at 8 layers, the `draft` traffic:
+                drafted by Gemma-2-2B at 4 layers, the `draft` traffic:
                 the rollout's 12, 13c, 13wc, 3c, 3wc, the target's 4vc,
                 4vwc), each with its exact launch counts. Last,
                 gpt-oss-20b at full width (openai/gpt-oss-20b's
@@ -235,16 +250,16 @@ Phases, in order; any failure exits non-zero:
                 heads over 8 kv heads of 64, sinks, q/k/v/o biases, yarn
                 rotary, 32 experts of 2880 with top 4 and their biases,
                 V 201088, window 128 on the even layers) in the grouped
-                engine: `gpt_oss` (all 24 layers; bench.py's shape, the
+                engine: `gpt_oss` (4 layers; bench.py's shape, the
                 layer products and folded experts quantized to INT8 by
                 the port's quantize_params, an INT8 head: 3s, 3ws, 2, 1,
-                4s, 4ws, 5r, 5m) and `gpt_oss_prefix` (12 layers; the
+                4s, 4ws, 5r, 5m) and `gpt_oss_prefix` (4 layers; the
                 server's default: bf16 weights, the prefix path's
                 traffic, which the grouped engine prefills as 3 chunks a
                 prompt: 8s, 8ws, 2, 1, 4s, 4ws), each with its exact
                 launch counts, decode rate, graph-replayed step beside
                 its bytes floor (every folded
-                expert read), idle share and TTFT; then, at 8 layers,
+                expert read), idle share and TTFT; then, at 4 layers,
                 `gpt_oss_spec` (the server CLI's --spec-tokens 4: bf16,
                 the `spec` traffic: 3s, 3ws, 2, 11, 4vs, 4vws; the MoE on
                 verify rows padded with no host read) with the
@@ -255,7 +270,23 @@ Phases, in order; any failure exits non-zero:
                 INT8 weights as `gpt_oss`, 8 x 128-token prompts,
                 max_seq 1024, decoding past the window: 12, 3s, 3ws, 13s,
                 13ws, 5r, 5m; its decode steps under sync debug mode
-                "error"), each with its exact launch counts.
+                "error"), each with its exact launch counts. Then INT8
+                KV for gpt-oss-20b and the Gemmas, at 4 layers:
+                `gpt_oss_int8kv` (bench.py
+                --kv-dtype int8 at `gpt_oss`'s shape: 4qs, 4qws, 9, 10),
+                `gpt_oss_spec_int8kv` (the server CLI's --kv-dtype int8
+                --spec-tokens 4, bf16, the prefix path's traffic in 256-row
+                chunks: 8qs, 8qws, 4vqs, 4vqws), `gemma_int8kv_prefix`
+                (Gemma-2B, INT8 weights and KV, the prefix traffic: 6q,
+                8q, 4q, 10 at D 256), `gemma2_int8kv` (bench.py --kv-dtype
+                int8 at Gemma-2-2B, the grouped engine: 6q with a
+                kv_layer, 4qc, 4qwc, 10 at D 256) and
+                `gemma2_spec_int8kv` (--kv-dtype int8 --spec-tokens 4 at
+                Gemma-2-2B, bf16, the prefix traffic: 8qc, 8qwc, 4vqc,
+                4vqwc at D 256), each with its exact launch counts, its
+                device step beside the bytes floor and the idle share,
+                the spec paths' greedy outputs beside spec_tokens=0's
+                (printed).
   5. cpu      — the same port at Llama-2-7B width, 1 layer, f32, TF32 off,
                 on the card (kernels) and on the host CPU (plain
                 versions), from one draw of the weights (on the card,
@@ -304,7 +335,9 @@ Phases, in order; any failure exits non-zero:
                 window cut to 32: 8 greedy steps and the prefix traffic
                 (chunked over the ring pools), the Generator and the
                 prompt-lookup spec Engine by the same rules; the card
-                runs every sink form.
+                runs every sink form. gpt-oss-20b and Gemma-2-2B also over
+                INT8 KV (prefill + 8 steps and the Engine, the INT8-KV
+                rule: 4qs, 4qws, 4qc/256, 4qwc/256 on the card).
 
 Then one line ``{"kernels": [...]}`` (each kernel's launches on every
 path, and in phase 3: kernels 16 and 17 run only there) and, last, the
@@ -348,9 +381,9 @@ LOGIT_TOL = 1e-3
 # rows of codes)
 LOGIT_TOL_CODE_APART = 1e-2
 RATE_RUNS = 5                       # engine runs per length for the rate
-SPEC_RATE_RUNS = 3                  # the same, per engine on the spec paths
+SPEC_RATE_RUNS = 2                  # the same, per engine on the spec paths
 DRAFT_TOKENS = 4                    # spec_tokens of the `draft` path
-DRAFT_LAYERS = 8                    # the drafters' depth (`draft`: TinyLlama
+DRAFT_LAYERS = 4                    # the drafters' depth (`draft`: TinyLlama
                                     # of 22, `gemma2_draft`: Gemma-2-2B of 26)
 PHASES = ("device", "build", "kernels", "engine", "cpu")
 
@@ -621,6 +654,82 @@ KERNELS = {
     "flash_decode_window_sinks": dict(
         source="simplellminference_tpu_torch/csrc/paged_decode.cu",
         replaces="simplellminference_tpu/ops/attention/flash_decode.py:114"),
+    # gpt-oss-20b over INT8 KV: the sink forms of kernels 4 and 8 over int8
+    # pools at head_dim 64 (4qs, 4qws, 4vqs, 4vqws, 8qs, 8qws); each launch
+    # also counts in its INT8-KV form's row above
+    "paged_flash_decode_int8kv_sinks": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "paged_flash_decode_int8kv_window_sinks": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "paged_flash_verify_int8kv_sinks": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    "paged_flash_verify_int8kv_window_sinks": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    "paged_flash_prefill_int8kv_sinks": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    "paged_flash_prefill_int8kv_window_sinks": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    # Gemma-1 over INT8 KV: the INT8-KV forms of kernels 4 and 8 at head_dim
+    # 256 (4q, 4qw, 4vq, 4vqw, 8q, 8qw /256; the window forms on no path)
+    "paged_flash_decode_int8kv_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "paged_flash_decode_int8kv_window_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "paged_flash_verify_int8kv_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    "paged_flash_verify_int8kv_window_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    "paged_flash_prefill_int8kv_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    "paged_flash_prefill_int8kv_window_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    # Gemma-2 over INT8 KV: the capped INT8-KV forms at head_dim 256 (4qc,
+    # 4qwc, 4vqc, 4vqwc, 8qc, 8qwc /256)
+    "paged_flash_decode_int8kv_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "paged_flash_decode_int8kv_window_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "paged_flash_verify_int8kv_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    "paged_flash_verify_int8kv_window_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    "paged_flash_prefill_int8kv_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    "paged_flash_prefill_int8kv_window_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    # the quantizing fused qkv (6q) and writes (9, 10) at head_dim 256: 6q
+    # on either kernel, its launches with a kv_layer (the grouped engine's
+    # INT8 ring pools) apart too
+    "fused_qkv_append_int8kv_d256": dict(
+        source="simplellminference_tpu_torch/csrc/qkv_fused_mma.cu",
+        replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
+    "fused_qkv_append_int8kv_kv_layer_d256": dict(
+        source="simplellminference_tpu_torch/csrc/qkv_fused_mma.cu",
+        replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
+    "paged_append_decode_quant_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_append_quant.cu",
+        replaces="simplellminference_tpu/ops/paged_append.py:210"),
+    "paged_append_prefill_quant_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_append_quant.cu",
+        replaces="simplellminference_tpu/ops/paged_append.py:295"),
     # the last two TPU kernels, dispatched from no path (as in JAX)
     "fused_wo_ffn": dict(
         source="simplellminference_tpu_torch/csrc/wo_ffn.cu",
@@ -653,16 +762,21 @@ KERNELS = {
 # prompts past the window (INT8 weights), the server CLI's --spec-tokens 4
 # (bf16) and Gemma-2-9B drafted by Gemma-2-2B (bf16); then gpt-oss-20b
 # (attention sinks, the mixture of experts, biases, alternating sliding
-# and full layers at head_dim 64) as bench.py draws its INT8 path (all
-# 24 layers) and as the server serves it by default (bf16 weights, the
-# prefix path's traffic); then gpt-oss-20b under the server
-# CLI's --spec-tokens 4 (bf16) and through bench.py's Generator (INT8)
+# and full layers at head_dim 64) as bench.py draws its INT8 path and as
+# the server serves it by default (bf16 weights, the prefix path's
+# traffic); then gpt-oss-20b under the server CLI's --spec-tokens 4
+# (bf16, and over INT8 KV on the prefix traffic) and through bench.py's
+# Generator (INT8); then INT8 KV for gpt-oss-20b (bench.py --kv-dtype
+# int8), Gemma-2B (the server's prefix traffic) and Gemma-2-2B (bench.py
+# --kv-dtype int8, and --spec-tokens 4 on the prefix traffic)
 PATHS = ("int8", "bf16", "prefix", "int8kv", "int8kv_prefix", "spec",
          "spec_int8kv", "fp8kv", "fp8kv_prefix", "spec_fp8kv", "dense",
          "dense_bf16", "draft", "int4", "int4_dense", "w8a8",
          "mistral_window", "gemma", "gemma_prefix", "gemma2",
          "gemma2_window", "gemma2_dense", "gemma2_spec", "gemma2_draft",
-         "gpt_oss", "gpt_oss_prefix", "gpt_oss_spec", "gpt_oss_dense")
+         "gpt_oss", "gpt_oss_prefix", "gpt_oss_spec", "gpt_oss_spec_int8kv",
+         "gpt_oss_dense", "gpt_oss_int8kv", "gemma_int8kv_prefix",
+         "gemma2_int8kv", "gemma2_spec_int8kv")
 # google/gemma-2-2b's config.json (huggingface.co/google/gemma-2-2b), the
 # published values the Gemma-2 paths serve; its layer_types as
 # transformers.Gemma2Config derives them: sliding on even layers, full on
@@ -3715,7 +3829,8 @@ def check_head_dim_256(torch, dev, results, extra):
     rule, k/v rows likewise, every other pool byte equal; timed beside
     the FMA kernel forced on the same inputs), with an unmapped row, 1
     row, f32 rows (the FMA kernel) and the dense arena (6d). Then the
-    forms outside the slice must raise at D 256 before any launch."""
+    forms outside the slice (the e4m3 ones: 1e, 2e, 4e, 4ve, 8e) must
+    raise at D 256 before any launch."""
     import torch.nn.functional as F
 
     from simplellminference_tpu_torch.memory.paged_kv import gather_dense
@@ -4043,10 +4158,10 @@ def check_head_dim_256(torch, dev, results, extra):
         results["fused_qkv_append_mma_d256"] = timed["fused_qkv_append_mma"]
         results["fused_qkv_append_d256"] = timed["fused_qkv_append"]
 
-    # the forms outside the slice raise at D 256, before any launch
+    # the forms outside the slice (the e4m3 ones; the INT8-KV forms run at
+    # D 256 since Gemma's INT8-KV slice: check_int8kv_options) raise at D
+    # 256, before any launch
     pk, pv = _pools(torch, gen, dev, 2, 6, kvn, ps, d, bf)
-    qk, sk = pa.quantize_kv(pk.float())
-    qv, sv = pa.quantize_kv(pv.float())
     ek, ev = pk.to(torch.float8_e4m3fn), pv.to(torch.float8_e4m3fn)
     tables = _tables(torch, dev, 3, 2, dead_last=False)
     kv_lens = torch.tensor([5, 9, 2], dtype=torch.int32, device=dev)
@@ -4056,21 +4171,13 @@ def check_head_dim_256(torch, dev, results, extra):
     nk = torch.randn((3, 3, kvn, d), generator=gen, device=dev, dtype=bf)
     before = {k: w.launches for k, (w, _r) in _wrappers().items()}
     refused = {
-        "4q": lambda: pd.paged_flash_decode(q1, qk, qv, tables, kv_lens, 0,
-                                            k_scale=sk, v_scale=sv),
         "4e": lambda: pd.paged_flash_decode(q1, ek, ev, tables, kv_lens, 0),
-        "4vq": lambda: pd.paged_flash_verify(q3, qk, qv, tables, kv_lens, 0,
-                                             k_scale=sk, v_scale=sv),
         "4ve": lambda: pd.paged_flash_verify(q3, ek, ev, tables, kv_lens, 0),
-        "8q": lambda: pp.paged_flash_prefill(q3, qk, qv, tables, kv_lens,
-                                             zero, 0, k_scale=sk,
-                                             v_scale=sv),
         "8e": lambda: pp.paged_flash_prefill(q3, ek, ev, tables, kv_lens,
                                              zero, 0),
-        "9": lambda: pa.paged_append_decode_quant(
-            qk, qv, sk, sv, nk[:, 0], nk[:, 0], tables, zero, 0),
         "1e": lambda: pa.paged_append_decode(ek, ev, nk[:, 0], nk[:, 0],
                                              tables, zero, 0),
+        "2e": lambda: pa.paged_append_prefill(ek, ev, nk, nk, tables, 0),
     }
     for form, call in refused.items():
         try:
@@ -5146,6 +5253,546 @@ def check_gpt_oss_spec_dense(torch, dev, results, extra):
     torch.cuda.empty_cache()
 
 
+GEMMA2_9B = dict(n=16, kvn=8, d=256)      # Gemma-2-9B's attention (cap 50)
+
+
+def _int8kv_attn(torch, dev, gen, kind, row, tag, shape, lens, *,
+                 window=None, cap=None, sink=None, dtype=None, s=5,
+                 sq=None, offs=None, q_x=1.0, dead=False, timed=False,
+                 results=None, extra=None):
+    """One case of kernel 4's or 8's INT8-KV forms with sinks, the cap or
+    at D 256 against its plain version. ``kind``: "decode", "verify" (``s``
+    rows a sequence) or "prefill" (``sq`` rows at ``offs``); ``shape``
+    (n, kvn, d); ``lens`` the kv_lens. INT8 pools quantized from N(0, 1)
+    rows (scales near 0.02, far from 1); with a ``window`` ring tables of
+    the grouped engine's R whose columns below the band sit on pages with
+    NaN scales (the kernel must read none of them: its output equals the
+    clean tables'); ``cap`` with q x ``q_x`` (scores past the cap);
+    ``sink`` "n01" or "above" (a sink above every score, counted once where
+    the walk splits); ``dead`` an all -1 last table row. Decode and verify
+    by :func:`_rounding_rule` (rows without keys zero), prefill by
+    :func:`_prefill_rule`, sinks by :func:`_sink_rule`. With ``timed``,
+    the case fills ``row``'s result (kernel, plain version, bytes bound,
+    and SDPA over the gathered K/V dequantized in the call, without sink
+    or cap) and is added to ``extra``. Returns max|err|."""
+    import torch.nn.functional as F
+
+    from simplellminference_tpu_torch.memory.paged_kv import gather_dense
+    from simplellminference_tpu_torch.ops.attention import paged_decode as pd
+    from simplellminference_tpu_torch.ops.attention import paged_prefill as pp
+    from simplellminference_tpu_torch.ops.attention import prefill_tiles
+    dtype = dtype or torch.bfloat16
+    n, kvn, d = shape
+    b, ps, layer, scale = len(lens), 128, 1, d ** -0.5
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    if kind == "prefill":
+        off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        mp = -(-max(o + sq for o in offs) // ps)
+        rows = sq
+    else:
+        mp = -(-max(max(lens), 1) // ps)
+        rows = 1 if kind == "decode" else s
+    if window:
+        r = (window + max(rows, 128) - 2) // ps + 2
+        pk, pv, ks, vs = _ring_pools(torch, gen, dev, b, r, kvn, ps, d,
+                                     dtype, True)
+        clean = _ring_tables(torch, dev, b, r, mp)
+        k_lo = (off - window + 1 if kind == "prefill"
+                else kv - rows - window + 1)
+        dirty = _poisoned(torch, clean, k_lo, ps, b * r)
+    else:
+        pk, pv, ks, vs = _quant_pools(torch, gen, dev, 2, b * mp, kvn, ps, d)
+        clean = _tables(torch, dev, b, mp, dead_last=dead)
+        dirty = clean
+    qshape = (b, n, d) if kind == "decode" else (b, rows, n, d)
+    q = (torch.randn(qshape, generator=gen, device=dev) * q_x).to(dtype)
+    sinks = (None if sink is None
+             else _sink_draw(torch, gen, dev, n, sink == "above"))
+    opts = dict(window=window, logit_cap=cap, sinks=sinks, k_scale=ks,
+                v_scale=vs)
+
+    def run(tb):
+        if kind == "decode":
+            return pd.paged_flash_decode(q, pk, pv, tb, kv, layer, **opts)
+        if kind == "verify":
+            return pd.paged_flash_verify(q, pk, pv, tb, kv, layer, **opts)
+        return pp.paged_flash_prefill(q, pk, pv, tb, kv, off, layer, **opts)
+
+    def plain():
+        if kind == "decode":
+            return pd.paged_flash_decode_ref(q, pk, pv, clean, kv, layer,
+                                             **opts)
+        if kind == "verify":
+            return pd.paged_flash_verify_ref(q, pk, pv, clean, kv, layer,
+                                             **opts)
+        return pp.paged_flash_prefill_ref(q, pk, pv, clean, kv, off, layer,
+                                          **opts)
+
+    got = run(dirty)
+    want = plain()
+    torch.cuda.synchronize()
+    if kind == "prefill":
+        splits = prefill_tiles.launch_splits(b, sq, n, kvn, window or 0,
+                                             mp * ps)
+    else:
+        span = mp * ps if not window else min(mp * ps, window + rows - 1)
+        splits = pd.decode_splits(b, kvn, span,
+                                  pd.row_blocks((n // kvn) * rows))
+    name = f"{row} ({kind})"
+    text = (f"{tag} (B={b} N={n} kvN={kvn} D={d} rows={rows} "
+            f"kv_lens {lens[:4]}.. window={window} cap={cap} sink={sink} "
+            f"{dname(torch, dtype)}, {splits} splits)")
+    ck, cv = gather_dense(pk[layer], pv[layer], clean, ks[layer], vs[layer])
+    q4 = q[:, None] if kind == "decode" else q
+    top = _top_score(torch, q4, ck.transpose(1, 2), scale)
+    if kind == "prefill":
+        zero = []
+    else:
+        zero = [i for i in range(b) if lens[i] <= 0] + ([b - 1] * dead)
+    if sink is not None:
+        err = _sink_rule(torch, name, text, got, want, sink == "above",
+                         top, zero)
+    elif kind == "prefill":
+        ok, err, note = _prefill_rule(torch, got, want)
+        print(f"[kernels] {name} {text}: max|err| {err:.3e} ({note}); "
+              f"max|score| {top:.2f}", flush=True)
+        require(bool(torch.isfinite(got).all()) and ok,
+                f"{name} {text} disagrees: {err} ({note})")
+    else:
+        err = _attn_check(torch, name, text, got, want, zero)
+    if cap:
+        print(f"[kernels] {name} {tag}: max|score| {top:.1f} against the "
+              f"cap {cap}", flush=True)
+    if window:
+        require(bool(torch.equal(got, run(clean))),
+                f"{name} {text}: a page below the window band was read")
+    if not timed:
+        return err
+    # the bytes: q in and out, each live key's int8 K and V rows and their
+    # two scales once, the tables, kv_lens (offsets), the sinks
+    es = q.element_size()
+    if kind == "prefill":
+        keys = sum(min(o + i + 1, ln) - (max(0, o + i - window + 1)
+                                          if window else 0)
+                   for o, ln in zip(offs, lens) for i in range(sq)
+                   if o + i < ln)
+        kv_rows = sum(min(ln, o + sq) - (max(0, o - window + 1)
+                                         if window else 0)
+                      for o, ln in zip(offs, lens))
+    else:
+        pos = [(ln - rows + i) for ln in lens for i in range(rows)]
+        keys = sum(min(p + 1, window or p + 1) for p in pos if p >= 0)
+        kv_rows = sum(min(ln, window + rows - 1) if window else ln
+                      for ln in lens)
+    nbytes = (2 * q.numel() * es + kv_rows * kvn * 2 * (d + 4)
+              + clean.numel() * 4 + 2 * b * 4 + 4 * n)
+    bms, by = bound_ms(nbytes, 4.0 * n * d * keys, dname(torch, dtype))
+    key_pos = torch.arange(mp * ps, device=dev)
+    if kind == "prefill":
+        q_pos = off.long()[:, None] + torch.arange(sq, device=dev)[None]
+    else:
+        q_pos = (kv.long()[:, None] - rows
+                 + torch.arange(rows, device=dev)[None])
+    mask = ((key_pos[None, None] <= q_pos[:, :, None])
+            & (key_pos[None, None] < kv.long()[:, None, None]))
+    if window:
+        mask = mask & (key_pos[None, None] > q_pos[:, :, None] - window)
+    mask = mask[:, None]
+    qt = q4.transpose(1, 2)
+
+    def library():
+        k, v = gather_dense(pk[layer], pv[layer], clean, ks[layer],
+                            vs[layer])
+        return F.scaled_dot_product_attention(
+            qt, _gqa(torch, k.to(dtype), n), _gqa(torch, v.to(dtype), n),
+            attn_mask=mask)
+
+    res = dict(max_abs_err=err, ms=time_ms(torch, lambda: run(clean)),
+               plain_ms=time_ms(torch, plain),
+               library_ms=time_ms(torch, library), bound_ms=bms,
+               bound_by=by, library=LIBRARY[row])
+    extra.append((row, tag, res))
+    results.setdefault(row, res)
+    del ck, cv
+    return err
+
+
+def check_int8kv_options(torch, dev, results, extra):
+    """Kernels 4 and 8 over INT8 KV with GPT-OSS's sinks, Gemma-2's soft
+    cap and at Gemma's head_dim 256 (:func:`_int8kv_attn`), each timed at
+    its path's shape (the row's first case):
+    - gpt-oss-20b (64 q heads over 8 kv heads, D 64, window 128): 4qs and
+      4qws at `gpt_oss_int8kv`'s decode (8 rows at kv_len 128-156), 4vqs
+      and 4vqws at `gpt_oss_spec_int8kv`'s verify step (8 x 5 rows: two
+      row blocks), 8qs and 8qws at its prefix chunks (256 rows at offset
+      256, and at offset 512 over the ring); kv_len 4096 (4qs, 4vqs) and
+      offset 4096 (8qs) with a sink above every score where the key walk
+      splits, edges (kv_len 0, 1, a dead slot), ring tables with NaN-scale
+      pages below the band, f32;
+    - Gemma-2-2B (8 q heads over 4 kv heads, D 256, cap 50, window 4096)
+      and Gemma-2-9B (16 over 8): 4qc/256, 4qwc/256, 4vqc/256, 4vqwc/256,
+      8qc/256, 8qwc/256, scores past the cap (q x 60), windows of 100 over
+      the ring at their edges, kv_len 0, f32, and at D 128 (32 over 8);
+    - Gemma-1 (8 q heads over one kv head, D 256): 4q/256 at
+      `gemma_int8kv_prefix`'s decode (8 rows at context ~600), 4vq/256 at
+      its group of 8 x 5 rows (two row blocks), 8q/256 at its chunk and
+      suffix batch, and the uncapped window forms 4qw/256, 4vqw/256,
+      8qw/256 (no model runs them) over the ring;
+    then 6q/256 and 9/256, 10/256 (:func:`check_int8kv_d256_writes`)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(2121)
+    f32 = torch.float32
+    oss = (GPT_OSS["n"], GPT_OSS["kvn"], GPT_OSS["d"])
+    win = GPT_OSS["window"]
+    g2 = (GEMMA2["n"], GEMMA2["kvn"], GEMMA2["d"])
+    g9 = (GEMMA2_9B["n"], GEMMA2_9B["kvn"], GEMMA2_9B["d"])
+    g1 = (GEMMA["n"], GEMMA["kvn"], GEMMA["d"])
+    d128 = (32, 8, 128)
+    cap = GEMMA2["cap"]
+    decode = [128 + 4 * i for i in range(8)]      # bench.py's context
+    verify = [147 + 2 * i for i in range(8)]      # the spec paths'
+    prefix = [576 + 4 * i for i in range(8)]      # the prefix traffic's
+    edges = [0, 1, 63, 64, 65, 4095, 300, 5]
+    w_edges = [0, 1, 99, 100, 101, 255, 700, 5]
+    kw = dict(results=results, extra=extra)
+    # (row, kind, tag, shape, lens, options); a row's first case is timed
+    cases = [
+        # gpt-oss-20b: sinks over INT8 KV
+        ("paged_flash_decode_int8kv_sinks", "decode", "gpt-oss-20b", oss,
+         decode, dict(sink="n01")),
+        ("paged_flash_decode_int8kv_sinks", "decode",
+         "kv_len 4096 sink above", oss, [4096] * 8, dict(sink="above")),
+        ("paged_flash_decode_int8kv_sinks", "decode", "edges", oss, edges,
+         dict(sink="n01", dead=True)),
+        ("paged_flash_decode_int8kv_sinks", "decode", "f32", oss,
+         [4096, 17, 0, 700], dict(sink="above", dtype=f32)),
+        ("paged_flash_decode_int8kv_window_sinks", "decode",
+         "gpt-oss-20b window", oss, decode, dict(sink="n01", window=win)),
+        ("paged_flash_decode_int8kv_window_sinks", "decode",
+         "window edges sink above", oss,
+         [0, 1, 127, 128, 129, 255, 256, 1000],
+         dict(sink="above", window=win)),
+        ("paged_flash_verify_int8kv_sinks", "verify", "gpt-oss-20b 8 x 5",
+         oss, verify, dict(sink="n01")),
+        ("paged_flash_verify_int8kv_sinks", "verify",
+         "kv_len 4096 sink above", oss, [4096, 4000, 5, 4, 1, 0, 300, 2000],
+         dict(sink="above")),
+        ("paged_flash_verify_int8kv_sinks", "verify", "f32", oss,
+         [4096, 17, 0, 5], dict(sink="n01", dtype=f32)),
+        ("paged_flash_verify_int8kv_window_sinks", "verify",
+         "gpt-oss-20b 8 x 5 window", oss, verify,
+         dict(sink="n01", window=win)),
+        ("paged_flash_verify_int8kv_window_sinks", "verify",
+         "window edges sink above", oss, [0, 4, 5, 132, 133, 700, 4100, 9],
+         dict(sink="above", window=win)),
+        ("paged_flash_prefill_int8kv_sinks", "prefill",
+         "gpt-oss-20b chunk", oss, [512], dict(sink="n01", sq=256,
+                                               offs=[256])),
+        ("paged_flash_prefill_int8kv_sinks", "prefill", "split sink above",
+         oss, [4160], dict(sink="above", sq=64, offs=[4096])),
+        ("paged_flash_prefill_int8kv_sinks", "prefill", "f32 ragged", oss,
+         [100, 300, 77, 1], dict(sink="n01", sq=100, offs=[0, 256, 16, 0],
+                                 dtype=f32)),
+        ("paged_flash_prefill_int8kv_window_sinks", "prefill",
+         "gpt-oss-20b window chunk", oss, [576],
+         dict(sink="n01", window=win, sq=256, offs=[512])),
+        ("paged_flash_prefill_int8kv_window_sinks", "prefill",
+         "window ragged sink above", oss, [640, 1100, 60],
+         dict(sink="above", window=win, sq=128, offs=[512, 1024, 0])),
+        # Gemma-2: the cap over INT8 KV at D 256 (and D 128)
+        ("paged_flash_decode_int8kv_cap_d256", "decode",
+         "gemma-2-2b past the cap", g2, decode, dict(cap=cap, q_x=60.0)),
+        ("paged_flash_decode_int8kv_cap_d256", "decode",
+         "kv_len 4096 past the cap", g2, [4096] * 8,
+         dict(cap=cap, q_x=60.0, timed=True)),
+        ("paged_flash_decode_int8kv_cap_d256", "decode", "edges f32", g2,
+         edges, dict(cap=cap, q_x=60.0, dead=True, dtype=f32)),
+        ("paged_flash_decode_int8kv_cap_d256", "decode", "D 128", d128,
+         decode, dict(cap=cap, q_x=60.0, timed=True)),
+        ("paged_flash_decode_int8kv_window_cap_d256", "decode",
+         "gemma-2-2b window", g2, decode,
+         dict(cap=cap, q_x=60.0, window=WINDOW)),
+        ("paged_flash_decode_int8kv_window_cap_d256", "decode",
+         "window 100 edges", g2, w_edges,
+         dict(cap=cap, q_x=60.0, window=100)),
+        ("paged_flash_decode_int8kv_window_cap_d256", "decode",
+         "D 128 window 100", d128, w_edges,
+         dict(cap=cap, q_x=60.0, window=100, timed=True)),
+        ("paged_flash_verify_int8kv_cap_d256", "verify",
+         "gemma-2-2b 8 x 5 past the cap", g2, verify,
+         dict(cap=cap, q_x=60.0)),
+        ("paged_flash_verify_int8kv_cap_d256", "verify",
+         "gemma-2-9b 8 x 5", g9, verify, dict(cap=cap, q_x=60.0,
+                                              timed=True)),
+        ("paged_flash_verify_int8kv_cap_d256", "verify", "f32 edges", g2,
+         [4096, 5, 4, 0], dict(cap=cap, q_x=60.0, dtype=f32)),
+        ("paged_flash_verify_int8kv_cap_d256", "verify", "D 128", d128,
+         verify, dict(cap=cap, q_x=60.0, timed=True)),
+        ("paged_flash_verify_int8kv_window_cap_d256", "verify",
+         "gemma-2-2b 8 x 5 window", g2, verify,
+         dict(cap=cap, q_x=60.0, window=WINDOW)),
+        ("paged_flash_verify_int8kv_window_cap_d256", "verify",
+         "window 100 edges", g2, [0, 4, 5, 104, 105, 700, 4100, 9],
+         dict(cap=cap, q_x=60.0, window=100)),
+        ("paged_flash_verify_int8kv_window_cap_d256", "verify",
+         "D 128 window 100", d128, [0, 4, 5, 104, 105, 700, 4100, 9],
+         dict(cap=cap, q_x=60.0, window=100, timed=True)),
+        ("paged_flash_prefill_int8kv_cap_d256", "prefill",
+         "gemma-2-2b chunk past the cap", g2, [512],
+         dict(cap=cap, q_x=60.0, sq=256, offs=[256])),
+        ("paged_flash_prefill_int8kv_cap_d256", "prefill", "f32 ragged", g2,
+         [100, 300, 77, 1], dict(cap=cap, q_x=60.0, sq=100,
+                                 offs=[0, 256, 16, 0], dtype=f32)),
+        ("paged_flash_prefill_int8kv_cap_d256", "prefill", "D 128 chunk",
+         d128, [512], dict(cap=cap, q_x=60.0, sq=256, offs=[256],
+                           timed=True)),
+        ("paged_flash_prefill_int8kv_window_cap_d256", "prefill",
+         "gemma-2-2b window chunk", g2, [576],
+         dict(cap=cap, q_x=60.0, window=WINDOW, sq=256, offs=[512])),
+        ("paged_flash_prefill_int8kv_window_cap_d256", "prefill",
+         "window 100 ragged", g2, [640, 1100, 60],
+         dict(cap=cap, q_x=60.0, window=100, sq=128, offs=[512, 1024, 0])),
+        ("paged_flash_prefill_int8kv_window_cap_d256", "prefill",
+         "D 128 window 100", d128, [640, 1100, 60],
+         dict(cap=cap, q_x=60.0, window=100, sq=128, offs=[512, 1024, 0],
+              timed=True)),
+        # Gemma-1: INT8 KV at D 256 (the window forms on no path)
+        ("paged_flash_decode_int8kv_d256", "decode", "gemma-2b prefix", g1,
+         prefix, dict()),
+        ("paged_flash_decode_int8kv_d256", "decode", "kv_len 4096", g1,
+         [4096] * 8, dict(timed=True)),
+        ("paged_flash_decode_int8kv_d256", "decode", "edges f32", g1, edges,
+         dict(dead=True, dtype=f32)),
+        ("paged_flash_decode_int8kv_window_d256", "decode",
+         "gemma-2b window 100", g1, w_edges, dict(window=100)),
+        ("paged_flash_verify_int8kv_d256", "verify", "gemma-2b 8 x 5", g1,
+         verify, dict()),
+        ("paged_flash_verify_int8kv_d256", "verify", "kv_len 4096 f32", g1,
+         [4096, 5, 4, 0], dict(dtype=f32)),
+        ("paged_flash_verify_int8kv_window_d256", "verify",
+         "gemma-2b 8 x 5 window 100", g1, [0, 4, 5, 104, 105, 700, 4100, 9],
+         dict(window=100)),
+        ("paged_flash_prefill_int8kv_d256", "prefill", "gemma-2b chunk", g1,
+         [512], dict(sq=256, offs=[256])),
+        ("paged_flash_prefill_int8kv_d256", "prefill",
+         "gemma-2b suffix batch", g1, [540 + 5 * i for i in range(8)],
+         dict(sq=64, offs=[512] * 8, timed=True)),
+        ("paged_flash_prefill_int8kv_d256", "prefill", "f32 ragged", g1,
+         [100, 300, 77, 1], dict(sq=100, offs=[0, 256, 16, 0], dtype=f32)),
+        ("paged_flash_prefill_int8kv_window_d256", "prefill",
+         "gemma-2b window 100", g1, [640, 1100, 60],
+         dict(window=100, sq=128, offs=[512, 1024, 0])),
+    ]
+    seen = set()
+    for row, kind, tag, shape, lens, opts in cases:
+        timed = opts.pop("timed", False) or row not in seen
+        seen.add(row)
+        _int8kv_attn(torch, dev, gen, kind, row, tag, shape, lens,
+                     timed=timed, **opts, **kw)
+        torch.cuda.empty_cache()
+    check_int8kv_d256_writes(torch, dev, results, extra)
+    print(f"[kernels] INT8 KV with sinks, the cap and at D 256: the checks "
+          f"took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def check_int8kv_d256_writes(torch, dev, results, extra):
+    """The quantizing writes 9 and 10 at D 256 (Gemma-2-2B's 4 kv heads:
+    8 decode rows, 8 x 128 prompt rows and a ragged batch; bf16 and f32
+    rows) byte-equal to their plain versions, and the quantizing fused qkv
+    6q at D 256: Gemma-2B (H 2048, 8 q heads over one kv head; 8 bf16
+    rows on 6m, the row; f32 rows on the FMA kernel) and Gemma-2-2B (H
+    2304, 4 kv heads) with a kv_layer (the grouped engine's INT8 ring
+    pools), an unmapped row: codes at most one apart, scales within one
+    bf16 ulp of the absmax / 127 (F32_REL in f32), q by the fused rule,
+    every other entry equal; each bf16 case also captured in a CUDA graph
+    and replayed three times, eager calls between, bit for bit (the K
+    split's arrival counters reset, the quantizing launch in the graph).
+    Timed beside the plain version, the bytes bound and the library call
+    (quantize ops + index_put_, torch._weight_int8pack_mm of the product
+    alone)."""
+    from simplellminference_tpu_torch.ops import ref_ops
+    from simplellminference_tpu_torch.ops.paged_append import (
+        paged_append_decode_quant, paged_append_decode_quant_ref,
+        paged_append_prefill_quant, paged_append_prefill_quant_ref)
+    from simplellminference_tpu_torch.ops.qkv_fused import (
+        fused_qkv_append, fused_qkv_append_ref)
+    gen = torch.Generator(device=dev).manual_seed(2122)
+    bf, f32 = torch.bfloat16, torch.float32
+    kvn, d, ps = GEMMA2["kvn"], 256, 128
+    # 9/256 and 10/256
+    for tag, (b, s, dtype) in {"gemma-2-2b decode": (8, 1, bf),
+                               "gemma-2-2b prefill": (8, 128, bf),
+                               "ragged f32": (4, 100, f32)}.items():
+        mp = 3
+        pools = _quant_pools(torch, gen, dev, 2, b * mp, kvn, ps, d)
+        qkv = torch.randn((b, s, 3 * kvn * d), generator=gen, device=dev,
+                          dtype=dtype) * 4
+        nk = qkv[..., kvn * d:2 * kvn * d].reshape(b, s, kvn, d)
+        nv = qkv[..., 2 * kvn * d:].reshape(b, s, kvn, d)
+        tables = _tables(torch, dev, b, mp)
+        pos = (128 + 4 * torch.arange(b, device=dev)).to(torch.int32)
+        if s == 1:
+            row = "paged_append_decode_quant_d256"
+            args = (nk[:, 0], nv[:, 0], tables, pos, 1)
+            kern, plain = (paged_append_decode_quant,
+                           paged_append_decode_quant_ref)
+        else:
+            row = "paged_append_prefill_quant_d256"
+            args = (nk, nv, tables, 0)
+            kern, plain = (paged_append_prefill_quant,
+                           paged_append_prefill_quant_ref)
+        a, r = [p.clone() for p in pools], [p.clone() for p in pools]
+        kern(*a, *args)
+        plain(*r, *args)
+        torch.cuda.synchronize()
+        err = max(max_err(x[:, :-1], y[:, :-1]) for x, y in zip(a, r))
+        print(f"[kernels] {row} {tag} (B={b} S={s} kvN={kvn} D={d} "
+              f"{dname(torch, dtype)}): codes and scales max|err| {err} "
+              f"(tol 0, byte-equal; trash page excluded)", flush=True)
+        require(err == 0.0, f"{row} {tag} disagrees: {err}")
+        if row in results:
+            continue
+        npg = -(-s // ps)
+        p1 = pools[0].shape[1]
+        if s == 1:
+            page = tables.long().gather(1, (pos.long() // ps)[:, None])[:, 0]
+            page = torch.where(page >= 0, page, p1 - 1)
+            ix = (page[:, None], torch.arange(kvn, device=dev)[None],
+                  (pos.long() % ps)[:, None])
+
+            def library(a=a, nk=nk, nv=nv, ix=ix):
+                for pool, sc, x in ((a[0], a[2], nk[:, 0]),
+                                    (a[1], a[3], nv[:, 0])):
+                    q, sq = _quantize_lib(torch, x)
+                    pool[1].index_put_(ix, q)
+                    sc[1].index_put_(ix, sq)
+        else:
+            idx = tables[:, :npg].long()
+            idx = torch.where(idx >= 0, idx, p1 - 1).reshape(-1)
+
+            def library(a=a, nk=nk, nv=nv, idx=idx, b=b, npg=npg):
+                for pool, sc, x in ((a[0], a[2], nk), (a[1], a[3], nv)):
+                    q, sq = _quantize_lib(torch, x)
+                    pool[0].index_copy_(0, idx, q.reshape(
+                        b, npg, ps, kvn, d).transpose(2, 3).reshape(
+                            b * npg, kvn, ps, d))
+                    sc[0].index_copy_(0, idx, sq.reshape(
+                        b, npg, ps, kvn).transpose(2, 3).reshape(
+                            b * npg, kvn, ps))
+
+        es = nk.element_size()
+        nbytes = (2 * b * s * kvn * d * es
+                  + 2 * b * npg * (ps if s > 1 else 1) * kvn * (d + 4)
+                  + tables.numel() * 4 + b * 4)
+        bms, by = bound_ms(nbytes, 0.0, dname(torch, dtype))
+        res = dict(max_abs_err=err,
+                   ms=time_ms(torch, lambda: kern(*a, *args)),
+                   plain_ms=time_ms(torch, lambda: plain(*r, *args)),
+                   library_ms=time_ms(torch, library), bound_ms=bms,
+                   bound_by=by, library=LIBRARY[row])
+        results[row] = res
+        extra.append((row, tag, res))
+
+    # 6q/256, with and without a kv_layer
+    for tag, (b, h, n, kvh, xdt, kv_layer, row) in {
+            "gemma-2b": (8, 2048, 8, 1, bf, None,
+                         "fused_qkv_append_int8kv_d256"),
+            "gemma-2b f32 (fma)": (8, 2048, 8, 1, f32, None, None),
+            "gemma-2-2b kv_layer": (8, 2304, 8, kvn, bf, 0,
+                                    "fused_qkv_append_int8kv_kv_layer_d256"),
+            "gemma-2-2b kv_layer m3": (3, 2304, 8, kvn, bf, 0, None)}.items():
+        mp, layer = 6, 1
+        kli = layer if kv_layer is None else kv_layer
+        nq = (n + 2 * kvh) * d
+        wq, ws = _qweight(torch, gen, dev, (2, h, nq), 1)
+        nw = (1.0 + 0.1 * torch.randn((2, h), generator=gen, device=dev)
+              ).to(xdt)
+        x = torch.randn((b, h), generator=gen, device=dev).to(xdt)
+        pools = _quant_pools(torch, gen, dev, 2, b * mp, kvh, ps, d)
+        tables = _tables(torch, dev, b, mp, dead_last=False)
+        pos = (128 + 4 * torch.arange(b, device=dev)).to(torch.int32)
+        tables[-1, int(pos[-1]) // ps] = -1      # the trash page
+        sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
+        kw = dict(n_heads=n, kv_heads=kvh, tables=tables, kv_layer=kv_layer)
+        a, r = [p.clone() for p in pools], [p.clone() for p in pools]
+
+        def call(p=a, x=x, nw=nw, wq=wq, ws=ws, sin=sin, cos=cos, kw=kw,
+                 pos=pos):
+            return fused_qkv_append(x, nw, wq, ws, sin, cos, p[0], p[1],
+                                    layer, pos, cache_ks=p[2],
+                                    cache_vs=p[3], **kw)[0]
+
+        qa = call()
+        qr = fused_qkv_append_ref(x, nw, wq, ws, sin, cos, r[0], r[1],
+                                  layer, pos, cache_ks=r[2], cache_vs=r[3],
+                                  **kw)[0]
+        torch.cuda.synchronize()
+        page = tables.long()[torch.arange(b, device=dev), pos.long() // ps]
+        page = torch.where(page >= 0, page, pools[0].shape[1] - 1)
+        written = torch.zeros(pools[2].shape, dtype=torch.bool, device=dev)
+        written[kli, page, :, pos.long() % ps] = True
+        err = max_err(qa, qr)
+        lim_q = (F32_REL * float(qr.abs().max()) if xdt == f32
+                 else TOL["bfloat16"] * float(qr.float().std()))
+        code_d = max(int((ta[written].int() - tr[written].int()).abs().max())
+                     for ta, tr in zip(a[:2], r[:2]))
+        if xdt == f32:
+            s_ok = all(bool(((sa[written] - sr[written]).abs()
+                             <= F32_REL * sr[written]).all())
+                       for sa, sr in zip(a[2:], r[2:]))
+        else:
+            s_ok = all(bool(((sa[written] - sr[written]).abs()
+                             <= _bf16_ulp(torch, sr[written] * 127.0)
+                             / 127.0 * (1 + 1e-6)).all())
+                       for sa, sr in zip(a[2:], r[2:]))
+        untouched = all(torch.equal(ta[~written], tr[~written])
+                        for ta, tr in zip(a, r))
+        replay = None
+        if xdt == bf:
+            # the captured call, replayed, and eager calls between
+            b_pools = [p.clone() for p in a]
+            eager = call(b_pools)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = call(b_pools)
+            replay = True
+            for _ in range(3):
+                graph.replay()
+                torch.cuda.synchronize()
+                replay = replay and bool(torch.equal(out, eager))
+                replay = replay and bool(torch.equal(call(b_pools), eager))
+            replay = replay and all(torch.equal(x_b, x_a) for x_b, x_a in
+                                    zip(b_pools, a))
+            del graph
+        print(f"[kernels] fused_qkv_append_int8kv/256 {tag} (B={b} H={h} "
+              f"N={n} kvN={kvh} kv_layer={kv_layer}): q max|err| {err:.3e} "
+              f"(tol {lim_q:.3e}); codes at most {code_d} apart (tol 1); "
+              f"scales within the rule: {s_ok}; other entries equal: "
+              f"{untouched}; graph replay bit-equal: {replay}", flush=True)
+        require(bool(torch.isfinite(qa).all()) and err <= lim_q
+                and code_d <= 1 and s_ok and untouched
+                and replay is not False,
+                f"fused_qkv_append_int8kv/256 {tag} disagrees: {err}, "
+                f"{code_d}, {s_ok}, {untouched}, {replay}")
+        if row is None:
+            continue
+        nbytes = _qkv_nbytes(h, nq, b, n, kvh, d, x.element_size(),
+                             nw.element_size(), d + 4,
+                             tables.numel() * 4 + b * 4)
+        bms, by = bound_ms(nbytes, 2.0 * b * h * nq, dname(torch, xdt))
+        qt, st = _int8pack(torch, wq[layer], ws[layer], xdt)
+        res = dict(
+            max_abs_err=max(err, float(code_d)), ms=time_ms(torch, call),
+            plain_ms=time_ms(torch, lambda: fused_qkv_append_ref(
+                x, nw, wq, ws, sin, cos, r[0], r[1], layer, pos,
+                cache_ks=r[2], cache_vs=r[3], **kw)),
+            library_ms=time_ms(torch, lambda: torch._weight_int8pack_mm(
+                x, qt, st)),
+            bound_ms=bms, bound_by=by, library=LIBRARY[row])
+        results[row] = res
+        extra.append((row, tag, res))
+
+
 LIBRARY = {"paged_append_decode": "index_put_ x2",
            "paged_append_prefill": "index_copy_ x2",
            "flash_prefill": "scaled_dot_product_attention, causal",
@@ -5324,6 +5971,83 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
            "flash_decode_window_sinks": "scaled_dot_product_attention on the"
                                         " arena slice (repeated per group), "
                                         "window mask (no sinks)",
+           "paged_flash_decode_int8kv_sinks": (
+               "scaled_dot_product_attention on gathered, dequantized K/V "
+               "(repeated per group), length mask (dequant included; no "
+               "sinks)"),
+           "paged_flash_decode_int8kv_window_sinks": (
+               "scaled_dot_product_attention on gathered, dequantized K/V "
+               "(repeated per group), length and window mask (dequant "
+               "included; no sinks)"),
+           "paged_flash_verify_int8kv_sinks": (
+               "scaled_dot_product_attention on gathered, dequantized K/V "
+               "(repeated per group), verify mask (dequant included; no "
+               "sinks)"),
+           "paged_flash_verify_int8kv_window_sinks": (
+               "scaled_dot_product_attention on gathered, dequantized K/V "
+               "(repeated per group), verify and window mask (dequant "
+               "included; no sinks)"),
+           "paged_flash_prefill_int8kv_sinks": (
+               "scaled_dot_product_attention on gathered, dequantized K/V "
+               "(repeated per group), offset-causal mask (dequant included; "
+               "no sinks)"),
+           "paged_flash_prefill_int8kv_window_sinks": (
+               "scaled_dot_product_attention on gathered, dequantized K/V "
+               "(repeated per group), offset-causal and window mask (dequant"
+               " included; no sinks)"),
+           "paged_flash_decode_int8kv_d256": (
+               "scaled_dot_product_attention on gathered, dequantized K/V "
+               "(repeated per group), length mask (dequant included)"),
+           "paged_flash_decode_int8kv_window_d256": (
+               "scaled_dot_product_attention on gathered, dequantized K/V "
+               "(repeated per group), length and window mask (dequant "
+               "included)"),
+           "paged_flash_verify_int8kv_d256": (
+               "scaled_dot_product_attention on gathered, dequantized K/V "
+               "(repeated per group), verify mask (dequant included)"),
+           "paged_flash_verify_int8kv_window_d256": (
+               "scaled_dot_product_attention on gathered, dequantized K/V "
+               "(repeated per group), verify and window mask (dequant "
+               "included)"),
+           "paged_flash_prefill_int8kv_d256": (
+               "scaled_dot_product_attention on gathered, dequantized K/V "
+               "(repeated per group), offset-causal mask (dequant included)"),
+           "paged_flash_prefill_int8kv_window_d256": (
+               "scaled_dot_product_attention on gathered, dequantized K/V "
+               "(repeated per group), offset-causal and window mask (dequant"
+               " included)"),
+           "paged_flash_decode_int8kv_cap_d256": (
+               "scaled_dot_product_attention on gathered, dequantized K/V "
+               "(repeated per group), length mask (dequant included; "
+               "uncapped)"),
+           "paged_flash_decode_int8kv_window_cap_d256": (
+               "scaled_dot_product_attention on gathered, dequantized K/V "
+               "(repeated per group), length and window mask (dequant "
+               "included; uncapped)"),
+           "paged_flash_verify_int8kv_cap_d256": (
+               "scaled_dot_product_attention on gathered, dequantized K/V "
+               "(repeated per group), verify mask (dequant included; "
+               "uncapped)"),
+           "paged_flash_verify_int8kv_window_cap_d256": (
+               "scaled_dot_product_attention on gathered, dequantized K/V "
+               "(repeated per group), verify and window mask (dequant "
+               "included; uncapped)"),
+           "paged_flash_prefill_int8kv_cap_d256": (
+               "scaled_dot_product_attention on gathered, dequantized K/V "
+               "(repeated per group), offset-causal mask (dequant included; "
+               "uncapped)"),
+           "paged_flash_prefill_int8kv_window_cap_d256": (
+               "scaled_dot_product_attention on gathered, dequantized K/V "
+               "(repeated per group), offset-causal and window mask (dequant"
+               " included; uncapped)"),
+           "fused_qkv_append_int8kv_d256": (
+               "torch._weight_int8pack_mm of the qkv product alone"),
+           "fused_qkv_append_int8kv_kv_layer_d256": (
+               "torch._weight_int8pack_mm of the qkv product alone"),
+           "paged_append_decode_quant_d256": (
+               "torch quantize ops + index_put_ x4"),
+           "paged_append_prefill_quant_d256": (
+               "torch quantize ops + index_copy_ x4"),
            "fused_wo_ffn": "torch._weight_int8pack_mm x3 + eager rmsnorm "
                            "and SwiGLU",
            "flash_decode_dyn": "scaled_dot_product_attention on the arena "
@@ -5380,6 +6104,10 @@ def phase_kernels(torch, results):
     check_gpt_oss(torch, dev, results, extra)
     # and on verify rows and the dense arena (4vs, 4vws, 13s, 13ws)
     check_gpt_oss_spec_dense(torch, dev, results, extra)
+    # sinks and the cap over INT8 pools, the INT8-KV forms at D 256 (4qs,
+    # 4qws, 4vqs, 4vqws, 8qs, 8qws; 4qc/256 .. 8qwc/256; 4q/256 .. 8qw/256;
+    # 6q/256, 9/256, 10/256)
+    check_int8kv_options(torch, dev, results, extra)
     torch.cuda.empty_cache()
     # every launch of this phase (the checks, their timing): kernels 16
     # and 17 run on no path, as in the JAX package, so these are theirs
@@ -5510,11 +6238,14 @@ def regime_rows(want: dict, cfg) -> dict:
         out[row] = out[of] if d256 else 0
     # Gemma-2: every attention launch of a capped model is a capped one
     cap = d256 and bool(cfg.attn_logit_softcap)
+    int8kv = [f"paged_flash_{k}_int8kv{w}" for k in ("decode", "verify",
+                                                      "prefill")
+              for w in ("", "_window")]
     for form in ("flash_prefill", "flash_prefill_window",
                  "paged_flash_decode", "paged_flash_decode_window",
                  "paged_flash_prefill", "paged_flash_prefill_window",
                  "flash_decode", "flash_decode_window",
-                 "paged_flash_verify", "paged_flash_verify_window"):
+                 "paged_flash_verify", "paged_flash_verify_window", *int8kv):
         out[f"{form}_cap_d256"] = out[form] if cap else 0
     # GPT-OSS: every attention launch of a model with sinks is a sink one
     sinks = cfg.head_dim == 64 and cfg.attn_sinks
@@ -5522,8 +6253,15 @@ def regime_rows(want: dict, cfg) -> dict:
                  "paged_flash_decode", "paged_flash_decode_window",
                  "paged_flash_prefill", "paged_flash_prefill_window",
                  "paged_flash_verify", "paged_flash_verify_window",
-                 "flash_decode", "flash_decode_window"):
+                 "flash_decode", "flash_decode_window", *int8kv):
         out[f"{form}_sinks"] = out[form] if sinks else 0
+    # INT8 KV at D 256: the attention forms, 6q, 9 and 10 (6q's launches
+    # with a kv_layer come from windowed(): the grouped engine's)
+    for form in (*int8kv, "fused_qkv_append_int8kv",
+                 "paged_append_decode_quant", "paged_append_prefill_quant"):
+        out[f"{form}_d256"] = out[form] if d256 else 0
+    out["fused_qkv_append_int8kv_kv_layer_d256"] = out.get(
+        "fused_qkv_append_int8kv_kv_layer_d256", 0) if d256 else 0
     return out
 
 
@@ -5713,6 +6451,36 @@ def _wrappers():
                    ("paged_flash_verify_window", pd.paged_flash_verify_ref),
                    ("flash_decode", fd.flash_decode_ref),
                    ("flash_decode_window", fd.flash_decode_ref))},
+            # the INT8-KV forms with sinks (D 64), at D 256, capped at D 256
+            **{f"{form}{suffix}": (
+                _Regime(counts, (form, d) if d else form), ref)
+               for form, ref in (
+                   ("paged_flash_decode_int8kv", pd.paged_flash_decode_ref),
+                   ("paged_flash_decode_int8kv_window",
+                    pd.paged_flash_decode_ref),
+                   ("paged_flash_verify_int8kv", pd.paged_flash_verify_ref),
+                   ("paged_flash_verify_int8kv_window",
+                    pd.paged_flash_verify_ref),
+                   ("paged_flash_prefill_int8kv", pp.paged_flash_prefill_ref),
+                   ("paged_flash_prefill_int8kv_window",
+                    pp.paged_flash_prefill_ref))
+               for suffix, counts, d in (
+                   ("_sinks", getattr(fp, "SINK_LAUNCHES", {}), 64),
+                   ("_cap_d256", getattr(fp, "CAP_LAUNCHES", {}), 256),
+                   ("_d256", getattr(pp if "prefill" in form else pd,
+                                     "D256_LAUNCHES", {}), 0))},
+            **{f"{form}_d256": (
+                _Regime(getattr(qf, "D256_FORM_LAUNCHES", {}), form),
+                qf.fused_qkv_append_ref)
+               for form in ("fused_qkv_append_int8kv",
+                            "fused_qkv_append_int8kv_kv_layer")},
+            **{f"{form}_d256": (
+                _Regime(getattr(pa, "D256_LAUNCHES", {}), form), ref)
+               for form, ref in (
+                   ("paged_append_decode_quant",
+                    pa.paged_append_decode_quant_ref),
+                   ("paged_append_prefill_quant",
+                    pa.paged_append_prefill_quant_ref))},
             "fused_wo_ffn": (ff.fused_wo_ffn, ff.fused_wo_ffn_ref),
             "flash_decode_dyn": (fdd.flash_decode_dyn,
                                  fdd.flash_decode_dyn_ref)}
@@ -5959,17 +6727,25 @@ def windowed(want: dict, cfg) -> dict:
     layers (every layer of Mistral's stack, every other one of Gemma-2's),
     its plain form on the full ones, and 6k for the fused qkv on every
     layer (the grouped engine indexes both pool groups by a group-local
-    layer)."""
+    layer; over INT8 KV 6q with a kv_layer, counted at D 256 in
+    ``fused_qkv_append_int8kv_kv_layer_d256``)."""
     share = sum(w is not None for w in cfg.layer_windows) / cfg.num_layers
     ren = {"flash_prefill": "flash_prefill_window",
            "paged_flash_prefill": "paged_flash_prefill_window",
            "paged_flash_decode": "paged_flash_decode_window",
            "paged_flash_verify": "paged_flash_verify_window",
-           "flash_decode": "flash_decode_window"}
+           "flash_decode": "flash_decode_window",
+           "paged_flash_prefill_int8kv": "paged_flash_prefill_int8kv_window",
+           "paged_flash_decode_int8kv": "paged_flash_decode_int8kv_window",
+           "paged_flash_verify_int8kv": "paged_flash_verify_int8kv_window"}
     out = {name: 0 for name in KERNELS}
     for name, n in want.items():
         if name == "fused_qkv_append":
             out["fused_qkv_append_kv_layer"] += n
+        elif name == "fused_qkv_append_int8kv":
+            # over INT8 ring pools: the quantizing form with a kv_layer
+            out[name] += n
+            out["fused_qkv_append_int8kv_kv_layer_d256"] += n
         elif name in ren:
             slide = round(n * share)
             out[ren[name]] += slide
@@ -6381,9 +7157,10 @@ def prefix_decode(torch, path: str, cfg, params, kv_dtype: str,
 
 
 def spec_launches(int8: bool, layers: int, steps: int,
-                  kv_dtype: str = "bf16") -> dict:
+                  kv_dtype: str = "bf16", dispatches=None) -> dict:
     """Launches of a speculative path's run: one whole-prompt prefill
-    dispatch of 8 x 128 rows (:func:`path_launches`), then ``steps``
+    dispatch of 8 x 128 rows (:func:`path_launches`; or ``dispatches``,
+    those of the prefix traffic), then ``steps``
     verify forwards, each per layer a span write (11, 11e over FP8 KV; an
     eager quantize and indexed write over INT8 KV: no kernel) and a verify
     attention (4v, 4vq, 4ve), with
@@ -6391,7 +7168,8 @@ def spec_launches(int8: bool, layers: int, steps: int,
     and fused_ffn per layer, plus the LM head, the quantized_matmul calls
     on its tensor-core regime. No single-row decode kernel runs: every
     step is a verify window."""
-    want = path_launches(int8, layers, [("flash_prefill", 8 * 128)], 0,
+    want = path_launches(int8, layers,
+                         dispatches or [("flash_prefill", 8 * 128)], 0,
                          kv_dtype=kv_dtype)
     kv = {"int8": "_int8kv", "fp8": "_fp8kv"}.get(kv_dtype, "")
     want["paged_flash_verify" + kv] += layers * steps
@@ -6434,7 +7212,7 @@ def spec_engine_config(spec: int, kv_dtype: str, batch: int, cap: int):
 
 
 def serve_spec(torch, path: str, cfg, params, launches: dict, int8: bool,
-               kv_dtype: str, dev: str = "cuda"):
+               kv_dtype: str, dev: str = "cuda", prefix: bool = False):
     """Prompt-lookup speculation (spec_tokens 4, burst 4) serving 8 greedy
     requests of 128-token prompts and 64 new tokens (:func:`spec_prompts`):
     the measured run with the launch counts reset before and read after
@@ -6444,7 +7222,13 @@ def serve_spec(torch, path: str, cfg, params, launches: dict, int8: bool,
     context ~152 (a host read inside a step would break the capture),
     each beside its engine step (the wall difference over the difference
     in steps), the bytes floor (every weight, every folded expert, and
-    the live KV) and the device's idle share."""
+    the live KV) and the device's idle share. With ``prefix``: the
+    `prefix` path's traffic instead (:func:`prefix_waves`: a 512-token
+    system prompt + 64-token suffixes, waves of 1, 7 and 8 in the
+    measured run, the last wave's 8 prompts in the rate's runs) on the
+    server's default engine with speculation (prefix cache on, chunks of
+    256: the grouped engine shares no prefix and prefills every prompt
+    as 3 chunks), the steps at context ~600."""
     import numpy as np
 
     from simplellminference_tpu_torch.core.config import SamplingParams
@@ -6453,25 +7237,43 @@ def serve_spec(torch, path: str, cfg, params, launches: dict, int8: bool,
 
     layers, g = cfg.num_layers, 4
     batch, prompt_len, new, burst = 8, 128, 64, 4
-    prompts = spec_prompts(np.random.default_rng(3), cfg.vocab_size, batch,
-                           prompt_len)
+    if prefix:
+        system_len, suffix, chunk = 512, 64, 256
+        prompt_len = system_len + suffix
+        waves = prefix_waves(np.random.default_rng(1), cfg.vocab_size,
+                             system_len, suffix, batch)
+        prompts = waves[2]
+    else:
+        prompts = spec_prompts(np.random.default_rng(3), cfg.vocab_size,
+                               batch, prompt_len)
+        waves = [prompts]
     cap = prompt_len + new + 2 * burst * (g + 1) + 1
 
-    def serve(spec: int, max_new: int):
-        eng = Engine(cfg, params, spec_engine_config(spec, kv_dtype, batch,
-                                                     cap),
-                     decode_burst=burst, device=dev)
-        reqs = [eng.add_request(prompt_ids=p, sampling=SamplingParams(
-            max_new_tokens=max_new)) for p in prompts]
+    def config(spec: int):
+        if prefix:
+            return prefix_engine_config(batch, 128, chunk, cap, kv_dtype,
+                                        spec_tokens=spec)
+        return spec_engine_config(spec, kv_dtype, batch, cap)
+
+    def serve(spec: int, max_new: int, traffic=None):
+        eng = Engine(cfg, params, config(spec), decode_burst=burst,
+                     device=dev)
+        samp = SamplingParams(max_new_tokens=max_new)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        eng.run()
+        if traffic is None:
+            reqs = [eng.add_request(prompt_ids=p, sampling=samp)
+                    for p in prompts]
+            eng.run()
+        else:
+            reqs = sum(run_waves(eng, traffic, samp), [])
         torch.cuda.synchronize()
         return eng, reqs, time.perf_counter() - t
 
+    measured = waves if prefix else None
     serve(g, new)                       # warm-up at the measured length
     reset_counts()
-    eng, reqs, wall = serve(g, new)     # the measured run
+    eng, reqs, wall = serve(g, new, measured)     # the measured run
     got = read_counts(path)
     launches[path] = got
     m = eng.metrics
@@ -6481,24 +7283,33 @@ def serve_spec(torch, path: str, cfg, params, launches: dict, int8: bool,
                 f"{len(r.output_ids)} tokens")
         require(all(0 <= t < cfg.vocab_size for t in r.output_ids),
                 f"[{path}] token id out of range")
-    require(m.prefills == batch and m.spec_steps > 0,
+    require(m.prefills == len(reqs) and m.spec_steps > 0,
             f"[{path}] metrics {m.summary()}")
-    want = spec_launches(int8, layers, m.decode_bursts * burst, kv_dtype)
+    dispatches = None
+    if prefix:
+        require(eng._grouped and m.prefix_cache_hits == 0,
+                f"[{path}] the prefix traffic's launch counts are those of "
+                f"the grouped engine (no shared prefix): {m.summary()}")
+        dispatches = ([("paged_flash_prefill", chunk)]
+                      * (len(reqs) * -(-prompt_len // chunk)))
+    want = spec_launches(int8, layers, m.decode_bursts * burst, kv_dtype,
+                         dispatches)
     if eng._grouped:
         want = windowed(want, cfg)
     want = regime_rows(want, cfg)
     check_launches(path, got, want)
     accept = m.spec_accepted / m.spec_steps / g
     outs = [r.output_ids for r in reqs]
-    plain_eng, plain_reqs, plain_wall = serve(0, new)
+    plain_eng, plain_reqs, plain_wall = serve(0, new, measured)
     same = sum(a == r.output_ids for a, r in zip(outs, plain_reqs))
-    print(f"[engine:{path}] {batch} requests x {new} tokens, spec_tokens {g}"
-          f", burst {burst}: wall {wall:.3f} s, {m.decode_bursts} bursts x "
+    print(f"[engine:{path}] {len(reqs)} requests x {new} tokens, "
+          f"spec_tokens {g}, burst {burst}: wall {wall:.3f} s, "
+          f"{m.decode_bursts} bursts x "
           f"{burst} verify steps; spec_steps {m.spec_steps}, spec_accepted "
           f"{m.spec_accepted}: acceptance {accept} of the drafts; spec_tokens"
           f"=0 wall {plain_wall:.3f} s ({plain_eng.metrics.decode_bursts} "
           f"bursts); greedy outputs equal to spec_tokens=0 in {same} of "
-          f"{batch} (card vs CPU in f32: phase 5)", flush=True)
+          f"{len(reqs)} (card vs CPU in f32: phase 5)", flush=True)
     print(f"[engine:{path}] launches {json.dumps(got)}", flush=True)
     # decode rate by differencing 64- and 32-token runs, interleaved, for
     # the spec engine and the same engine with spec_tokens=0
@@ -6526,9 +7337,9 @@ def serve_spec(torch, path: str, cfg, params, launches: dict, int8: bool,
     print(f"[engine:{path}] decode tok/s with speculation / without: "
           f"{rates[g] / rates[0]:.3f}", flush=True)
     # one verify step (S = 5) and one decode step (S = 1), graph-replayed,
-    # at context ~152 over the run's cache
+    # at context ~152 (~600 with the prefix traffic) over the run's cache
     ctx = prompt_len + 24
-    mp = 4
+    mp = max(4, -(-(ctx + g + 1) // 128))
     tables = torch.arange(batch * mp, dtype=torch.int32,
                           device=dev).reshape(batch, mp)
     if eng._grouped:
@@ -6992,21 +7803,27 @@ PATH_SETUP = {"int8": ("int8", "bf16", False), "bf16": ("bf16", "bf16", False),
               "gpt_oss": ("int8", "bf16", False),
               "gpt_oss_prefix": ("bf16", "bf16", True),
               "gpt_oss_spec": ("bf16", "bf16", False),
-              "gpt_oss_dense": ("int8", "bf16", False)}
+              "gpt_oss_dense": ("int8", "bf16", False),
+              "gpt_oss_spec_int8kv": ("bf16", "int8", True),
+              "gpt_oss_int8kv": ("int8", "int8", False),
+              "gemma_int8kv_prefix": ("int8", "int8", True),
+              "gemma2_int8kv": ("int8", "int8", False),
+              "gemma2_spec_int8kv": ("bf16", "int8", True)}
 # paths cut in depth to keep the run within half its time limit (their
-# launch counts follow the cut: every count is per layer; a Gemma-2 cut
-# keeps the sliding/full alternation): `int8` keeps Llama-2-7B's 32
-# layers, `gpt_oss` gpt-oss-20b's 24; the drafters run at DRAFT_LAYERS
-PATH_LAYERS = {"gpt_oss_prefix": 12, "gpt_oss_spec": 8, "gpt_oss_dense": 8,
+# launch counts follow the cut: every count is per layer; a Gemma-2 or
+# gpt-oss cut keeps the sliding/full alternation): `int8` keeps
+# Llama-2-7B's 32 layers; the drafters run at DRAFT_LAYERS
+PATH_LAYERS = {"gpt_oss": 4, "gpt_oss_prefix": 4, "gpt_oss_spec": 4,
+               "gpt_oss_dense": 4,
                "spec": 4, "spec_int8kv": 4, "spec_fp8kv": 4, "bf16": 4,
                "dense_bf16": 4, "int4": 4, "int4_dense": 4,
                "mistral_window": 4, "gemma2": 4, "gemma2_window": 4,
                "gemma2_dense": 4, "gemma2_spec": 4, "gemma2_draft": 4,
-               "gemma_prefix": 6, "draft": 8, "dense": 8, "prefix": 8,
+               "gemma_prefix": 6, "draft": 4, "dense": 8, "prefix": 8,
                "w8a8": 8, "int8kv": 8, "int8kv_prefix": 8, "fp8kv": 8,
-               "fp8kv_prefix": 8, "gemma": 9}
-
-
+               "fp8kv_prefix": 8, "gemma": 9, "gpt_oss_spec_int8kv": 4,
+               "gpt_oss_int8kv": 4, "gemma_int8kv_prefix": 4,
+               "gemma2_int8kv": 4, "gemma2_spec_int8kv": 4}
 def phase_engine(torch, launches: dict, paths=PATHS):
     import dataclasses
 
@@ -7030,7 +7847,7 @@ def phase_engine(torch, launches: dict, paths=PATHS):
                 sliding_window=WINDOW, dtype="bfloat16",
                 num_layers=PATH_LAYERS.get(path, 32))
             drawn = None
-        if path in ("gemma", "gemma_prefix"):
+        if path in ("gemma", "gemma_prefix", "gemma_int8kv_prefix"):
             cfg = ModelConfig.gemma_2b(dtype="bfloat16",
                                        num_layers=PATH_LAYERS[path])
             drawn = None
@@ -7086,10 +7903,16 @@ def phase_engine(torch, launches: dict, paths=PATHS):
         elif path.startswith("spec") or path in ("gemma2_spec",
                                                  "gpt_oss_spec"):
             serve_spec(torch, path, cfg, params, launches, int8, kv_dtype)
+        elif path in ("gpt_oss_spec_int8kv", "gemma2_spec_int8kv"):
+            # the server CLI's --kv-dtype int8 --spec-tokens 4 on the
+            # prefix path's traffic
+            serve_spec(torch, path, cfg, params, launches, int8, kv_dtype,
+                       prefix=True)
         elif prefix:
             ttft[path] = serve_prefix(torch, path, cfg, params, launches,
                                       int8, kv_dtype)
-            if path in ("gemma_prefix", "gpt_oss_prefix"):
+            if path in ("gemma_prefix", "gpt_oss_prefix",
+                        "gemma_int8kv_prefix"):
                 rates[path] = prefix_decode(torch, path, cfg, params,
                                             kv_dtype)
         elif path == "gemma2_window":
@@ -8064,9 +8887,12 @@ def gemma2_card_vs_cpu(torch):
     dropped norm shows): the f32 weights and the same draw quantized by
     the port (INT8 per channel) through :func:`card_vs_cpu` (prefill + 8
     greedy steps, logits within LOGIT_TOL, greedy tokens equal by the
-    margin rule, the grouped Engine on both devices). The card runs the
-    capped forms 3c, 3wc, 4c and 4wc (and 6k with INT8 weights: f32 rows
-    take the FMA kernel). Then, the window cut to 32 so that the prompts
+    margin rule, the grouped Engine on both devices), and the f32 weights
+    again over INT8 KV (logits within LOGIT_TOL while both caches hold the
+    same codes, else LOGIT_TOL_CODE_APART). The card runs the capped forms
+    3c, 3wc, 4c and 4wc, over INT8 KV 4qc/256 and 4qwc/256 (and 6k with
+    INT8 weights: f32 rows take the FMA kernel). Then, the window cut to
+    32 so that the prompts
     and the steps pass it, the f32 weights through the Generator
     (:func:`dense_card_vs_cpu`: 13c, 13wc), the prompt-lookup spec Engine
     (:func:`spec_card_vs_cpu`: 4vc, 4vwc over the ring pools) and, as the
@@ -8095,6 +8921,10 @@ def gemma2_card_vs_cpu(torch):
     p_cpu = _to_device(p_gpu, "cpu")
     before = dict(fp.CAP_LAUNCHES)
     card_vs_cpu(torch, "gemma2-f32", cfg, p_gpu, p_cpu, prompts, steps=8)
+    # over INT8 KV: 4qc/256, 4qwc/256 on the card (the grouped engine's
+    # INT8 ring pools)
+    card_vs_cpu(torch, "gemma2-int8kv", cfg, p_gpu, p_cpu, prompts, steps=8,
+                kv_dtype="int8")
     cfg_w = dataclasses.replace(cfg, sliding_window=32)
     dense_card_vs_cpu(torch, "gemma2-dense", cfg_w, p_gpu, p_cpu, prompts,
                       steps=8)
@@ -8117,7 +8947,8 @@ def gemma2_card_vs_cpu(torch):
     require(all(ran.get(f"{form}/256", 0) > 0 for form in (
         "flash_prefill", "flash_prefill_window", "paged_flash_decode",
         "paged_flash_decode_window", "flash_decode", "flash_decode_window",
-        "paged_flash_verify", "paged_flash_verify_window")),
+        "paged_flash_verify", "paged_flash_verify_window",
+        "paged_flash_decode_int8kv", "paged_flash_decode_int8kv_window")),
         f"[cpu:gemma2] the capped forms did not all run on the card: {ran}")
     print(f"[cpu:gemma2] Gemma-2-2B card vs CPU (f32, INT8; the Generator, "
           f"the spec and the draft Engines) in "
@@ -8133,7 +8964,9 @@ def gpt_oss_card_vs_cpu(torch):
     the window cut to 32 so that the prompts and the steps pass it:
     :func:`card_vs_cpu` (prefill + 8 greedy steps, logits within
     LOGIT_TOL, greedy tokens equal by the margin rule, the grouped Engine
-    on both devices) and the prefix traffic through
+    on both devices), again over INT8 KV (LOGIT_TOL while both caches hold
+    the same codes, else LOGIT_TOL_CODE_APART), and the prefix traffic
+    through
     :func:`prefix_card_vs_cpu` (chunked prefill over the ring pools), the
     Generator (:func:`dense_card_vs_cpu`: the dense forward's logits within
     LOGIT_TOL over the prefill and 4 steps, ``generate`` and
@@ -8141,7 +8974,8 @@ def gpt_oss_card_vs_cpu(torch):
     Engine (:func:`spec_card_vs_cpu`: spec_tokens 4 over the ring pools,
     8 new tokens, greedy tokens equal card vs CPU, to spec_tokens=0's and
     to the greedy trace by the margin rule). The card runs the sink forms
-    3s, 3ws, 4s, 4ws, 8s, 8ws, 4vs, 4vws, 13s and 13ws in f32, the folded
+    3s, 3ws, 4s, 4ws, 8s, 8ws, 4vs, 4vws, 13s and 13ws, and 4qs and 4qws
+    over INT8 KV, in f32, the folded
     experts at decode and the grouped ones at prefill and on verify
     rows."""
     import dataclasses
@@ -8161,6 +8995,9 @@ def gpt_oss_card_vs_cpu(torch):
     p_cpu = _to_device(p_gpu, "cpu")
     before = dict(fp.SINK_LAUNCHES)
     card_vs_cpu(torch, "gpt-oss-f32", cfg, p_gpu, p_cpu, prompts, steps=8)
+    # over INT8 KV: 4qs, 4qws on the card (the INT8 ring pools)
+    card_vs_cpu(torch, "gpt-oss-int8kv", cfg, p_gpu, p_cpu, prompts,
+                steps=8, kv_dtype="int8")
     prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, tag="gpt-oss-prefix")
     dense_card_vs_cpu(torch, "gpt-oss-dense", cfg, p_gpu, p_cpu, prompts,
                       steps=4)
@@ -8173,7 +9010,8 @@ def gpt_oss_card_vs_cpu(torch):
         "flash_prefill", "flash_prefill_window", "paged_flash_decode",
         "paged_flash_decode_window", "paged_flash_prefill",
         "paged_flash_prefill_window", "paged_flash_verify",
-        "paged_flash_verify_window", "flash_decode", "flash_decode_window")),
+        "paged_flash_verify_window", "flash_decode", "flash_decode_window",
+        "paged_flash_decode_int8kv", "paged_flash_decode_int8kv_window")),
         f"[cpu:gpt-oss] the sink forms did not all run on the card: {ran}")
     print(f"[cpu:gpt-oss] gpt-oss-20b card vs CPU (f32; the Engine, the "
           f"prefix traffic, the Generator and the spec Engine) in "

@@ -9,16 +9,20 @@
 // [L, P+1, kvN, ps], and the sliding-window form of both (window > 0,
 // paged_prefill.py:90-92, :131-132; shared-KV raises in the wrapper):
 // forms 8, 8q, 8w, 8qw; GPT-OSS's attention sinks over pools of q's dtype
-// (sinks != nullptr, the layer's f32 logit of each q head, seeding each
-// row's softmax state at (sink, 1), paged_prefill.py:259; prefill_mma.cuh's
-// note; the FMA kernel seeds its rows the same way): forms 8s, 8ws, a
-// pointer and not a template flag (sinks over int8 or e4m3 pools are
-// refused here and raise in the wrapper); Gemma-2's soft cap over pools of q's
-// dtype (cap > 0: each live score becomes cap * tanh(s * scale * (1 /
-// cap)) before the mask, paged_prefill.py:123-124; prefill_mma.cuh's
-// note): forms 8c, 8wc, a template flag of each kernel, the uncapped
-// forms compiled as before (the cap over INT8 or e4m3 pools raises in the
-// wrapper, and here); and, its FP8-KV form
+// or int8 pools (sinks != nullptr, the layer's f32 logit of each q head,
+// seeding each row's softmax state at (sink, 1), paged_prefill.py:259;
+// prefill_mma.cuh's note; the FMA kernel seeds its rows the same way):
+// forms 8s, 8ws, 8qs, 8qws, a pointer and not a template flag (sinks over
+// e4m3 pools are refused here and raise in the wrapper); Gemma-2's soft
+// cap over pools of q's dtype or int8 pools (cap > 0: each live score
+// becomes cap * tanh(s * scale * (1 / cap)) before the mask,
+// paged_prefill.py:123-124; prefill_mma.cuh's note): forms 8c, 8wc, 8qc,
+// 8qwc, a template flag of each kernel, the uncapped forms compiled as
+// before (the cap over e4m3 pools raises in the wrapper, and here). Over
+// int8 pools both options see the K and V rows as the TPU kernel's page
+// slabs are, dequantized and rounded to q's dtype (paged_prefill.py:
+// 105-110) before the scores, so the cap takes the dequantized score and
+// a sink, a raw logit, stays outside every scale; and, its FP8-KV form
 // 8e, float8_e4m3fn pools (no scales; the TPU kernel casts the page slabs
 // to q's dtype, paged_prefill.py:108-110): bf16 q on the tensor cores, each
 // staged code converted exactly to bf16 in the block where INT8 KV
@@ -54,9 +58,10 @@
 // staged row in registers, code x its row's scale in f32 rounded to bf16
 // (paged_prefill.py:105-110), into the swizzled tiles. Every Sq is taken;
 // a batch's padding row (-1 table, kv_len 1) stays finite. Head dims 32,
-// 64 and 128 for every form; 256 (Gemma) only over pools of q's dtype
-// (8, 8w, 8c, 8wc and their f32 FMA forms), budget in prefill_mma.cuh's
-// note (the FMA kernel's tiles: 214,272 bytes of shared memory).
+// 64 and 128 for every form; 256 (Gemma) over pools of q's dtype (8, 8w,
+// 8c, 8wc and their f32 FMA forms) and int8 pools (8q, 8qw, 8qc, 8qwc:
+// Gemma over INT8 KV), budget in prefill_mma.cuh's note (the FMA
+// kernel's tiles, f32 whatever the pool: 214,272 bytes of shared memory).
 //
 // Design, f32: the first, FMA kernel below (TF32 tensor cores would not
 // hold f32's tolerance): one block per (q tile of 64 rows, q head,
@@ -289,7 +294,8 @@ int launch(const void* q, long long q_bs, long long q_ss, const void* pool_k,
   return (int)cudaGetLastError();
 }
 
-// D 256 only over pools of q's dtype; the cap only over those too
+// D 256, the cap and sinks over pools of q's dtype or int8 (OWN), not over
+// e4m3 pools
 template <typename T, typename P>
 int dispatch_d(int head_dim, const void* q, long long q_bs, long long q_ss,
                const void* pool_k, const void* pool_v, const float* ksp,
@@ -298,7 +304,7 @@ int dispatch_d(int head_dim, const void* q, long long q_bs, long long q_ss,
                int layer, int num_pages1, int kvn, int ps, int mp, int group,
                int window, float scale, float cap, const float* sinks,
                cudaStream_t st) {
-  constexpr bool OWN = std::is_same_v<T, P>;
+  constexpr bool OWN = std::is_same_v<T, P> || std::is_same_v<P, int8_t>;
   if ((cap > 0.f || sinks != nullptr) && !OWN) return SLI_ERR_DTYPE;
 #define SLI_PP_LAUNCH(DD, C)                                                 \
   launch<T, P, DD, C>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,       \
@@ -315,7 +321,7 @@ int dispatch_d(int head_dim, const void* q, long long q_bs, long long q_ss,
     SLI_PP_CASE(32)
     SLI_PP_CASE(64)
     SLI_PP_CASE(128)
-    case 256:  // pools of q's dtype
+    case 256:  // pools of q's dtype or int8
       if constexpr (OWN) {
         if (cap > 0.f) return SLI_PP_LAUNCH(256, true);
         return SLI_PP_LAUNCH(256, false);
@@ -449,7 +455,7 @@ int launch_mma(const void* q, long long q_bs, long long q_ss,
       work, out, (long long)batch * seq * heads, D, splits, st);
 }
 
-// D 256 and the cap only over bf16 pools (KV_BF16)
+// D 256, the cap and sinks over bf16 or int8 pools (OWN), not over e4m3
 template <int KV>
 int dispatch_mma(int head_dim, const void* q, long long q_bs, long long q_ss,
                  const void* pool_k, const void* pool_v, const float* ksp,
@@ -458,7 +464,7 @@ int dispatch_mma(int head_dim, const void* q, long long q_bs, long long q_ss,
                  int heads, int layer, int num_pages1, int kvn, int ps,
                  int mp, int group, int window, float scale, float cap,
                  int splits, const float* sinks, cudaStream_t st) {
-  constexpr bool OWN = KV == sli::pfa::KV_BF16;
+  constexpr bool OWN = KV != sli::pfa::KV_E4M3;
   if ((cap > 0.f || sinks != nullptr) && !OWN) return SLI_ERR_DTYPE;
 #define SLI_PP_LAUNCH(DD, C)                                                  \
   launch_mma<DD, KV, C>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,      \
@@ -475,7 +481,7 @@ int dispatch_mma(int head_dim, const void* q, long long q_bs, long long q_ss,
     SLI_PP_CASE(32)
     SLI_PP_CASE(64)
     SLI_PP_CASE(128)
-    case 256:  // bf16 pools
+    case 256:  // bf16 or int8 pools
       if constexpr (OWN) {
         if (cap > 0.f) return SLI_PP_LAUNCH(256, true);
         return SLI_PP_LAUNCH(256, false);
@@ -494,8 +500,9 @@ int dispatch_mma(int head_dim, const void* q, long long q_bs, long long q_ss,
 // with k_scale/v_scale, their f32 scale pools [L, num_pages1, kvn, ps]
 // (null for every other pool dtype). window: 0 for none, else the sliding
 // window (>= 1); cap: 0 for none, else the soft cap (> 0; pools of q's
-// dtype only); sinks: null for none, else the layer's f32 sink logits
-// [heads] (pools of q's dtype only). bf16 q takes the tensor-core kernel:
+// dtype or int8); sinks: null for none, else the layer's f32 sink logits
+// [heads] (pools of q's dtype or int8, D <= 128). D 256: pools of q's
+// dtype or int8. bf16 q takes the tensor-core kernel:
 // q rows 16-byte aligned (q, q_bs, q_ss), and with splits > 1, work holds
 // splits * batch * seq * heads * (head_dim + 2) floats. f32 q takes the
 // FMA kernel (splits 1).

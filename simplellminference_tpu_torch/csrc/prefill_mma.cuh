@@ -1,6 +1,7 @@
 // Prefill attention on the H100's bf16 tensor cores (wgmma), shared by the
 // bf16 forms of kernel 3 (flash_prefill.cu: 3, 3w) and kernel 8
-// (paged_prefill.cu: 8, 8q, 8e, 8w, 8qw). Each .cu file gives the rows of
+// (paged_prefill.cu: 8, 8q, 8e, 8w, 8qw and their capped and sink forms).
+// Each .cu file gives the rows of
 // its keys (a Src: a dense [B, S, kvN, D] array, or pages through a block
 // table) and launches attend<D, KV, Src> for its pools' kind (KV_BF16,
 // KV_I8, KV_E4M3); the f32 forms keep their FMA kernels (TF32 would not
@@ -81,16 +82,19 @@
 // goes to; with l = 1 held by one thread of the quad (the quad adds its
 // four shares at the end). A masked key keeps p = ex2(-1e30 - m) = 0,
 // and a row that meets no key gives acc 0 / l 1 = 0, as the TPU kernel's
-// (acc 0 / l 1). Head dims 32, 64 (gpt-oss-20b's) and 128: no model with
-// sinks has D 256, whose instantiations sit at 255 registers a thread and
-// spill (ptxas: 128 bytes in flash_prefill_mma_kernel<256>, with or
-// without the seeding), so the seeding is compiled out there, their code
-// stays as it was, and the entry points refuse sinks at D 256.
+// (acc 0 / l 1). Over INT8 KV (forms 8qs, 8qws) nothing changes: the
+// scales act in convert() on the K and V rows, before any score, so the
+// sink stays outside them. Head dims 32, 64 (gpt-oss-20b's) and 128: no
+// model with sinks has D 256, whose instantiations sit at 255 registers a
+// thread and spill (ptxas: 128 bytes in flash_prefill_mma_kernel<256>,
+// with or without the seeding), so the seeding is compiled out there,
+// their code stays as it was, and the entry points refuse sinks at D 256.
 //
 // D 256 (Gemma-2B: 8 q heads over one kv head, so a tile packs 8
 // positions x 8 heads, as TinyLlama's at D 64; Gemma-2-2B: 2 over each of
-// 4, 32 positions x 2 heads), bf16 pools only, with or without a window
-// and the cap: S = QK^T takes 16 k-steps of m64n64k16; O += PV is one
+// 4, 32 positions x 2 heads), bf16 and int8 pools (not e4m3), with or
+// without a window and the cap: S = QK^T takes 16 k-steps of m64n64k16;
+// O += PV is one
 // wgmma.m64n256k16 a 16-key step (P from registers, V as B in four
 // 64-column slabs at the slab stride, the same descriptor as n128's two),
 // for p_hi and again for p_lo. Its accumulator is float[128] a thread,
@@ -103,7 +107,13 @@
 // chunk lands in the 128-byte swizzle of its 64-column slab (four slabs a
 // row). Bound at Gemma's prefill (a 128-row prompt, 8 heads): bytes, as
 // for D 128; at the 512-key prefix chunks the tensor cores (4 x 8 x 256
-// operations a (row, key) pair, 6 with P's two parts).
+// operations a (row, key) pair, 6 with P's two parts). D 256 over INT8 KV
+// (KV_I8; Gemma over INT8 KV, forms 8q, 8qw, 8qc, 8qwc at D 256): the
+// stages hold the codes and scales (2 x 33,280 bytes) and the converted K
+// and V tiles take 64 KB more, 166,912 bytes in all (Smem<256,
+// KV_I8>::BYTES), still one block an SM; the registers are the bf16
+// form's and convert()'s, and chip_smoke's build prints ptxas's count and
+// spills for them as for every instantiation.
 #pragma once
 
 #include "common.cuh"

@@ -34,8 +34,8 @@
 // D = 128 (or 2 of 64, 4 of 32), so every RoPE pair (c, c + D/2) stays in
 // the block; at D 256 (Gemma) the block's 128 columns are two 64-column
 // runs of one head, 128 apart (qkv_slots.cuh block_col), so the pairs
-// still do (bf16/f32 pools only: the INT8-KV pass needs whole heads), with
-// the registers and shared memory of every other D. It
+// still do (not e4m3 pools; INT8 KV below), with the registers and shared
+// memory of every other D. It
 // streams the int8 product over all of K (int8_rows.cuh:
 // 16-byte loads, f32 FMAs against the normalized rows in shared memory),
 // applies the per-channel scale, rotates q and k in f32, writes q out and
@@ -58,8 +58,13 @@
 // (row, k/v head) reduces the head's absmax over D with shuffles (the
 // block owns whole heads, so the reduction stays in the block) and stores
 // the codes and the scale with quantize_kv's math: scale = max(absmax /
-// 127, 1e-8) by IEEE division, code = rint(x / scale) clipped to +-127.
-// Dead rows write to the trash page, so they never race with live rows.
+// 127, 1e-8) by IEEE division, code = rint(x / scale) clipped to +-127
+// (qkv_slots.cuh quant_head). At D 256 (Gemma over INT8 KV) a head's
+// columns lie in two blocks, so each block leaves its rounded half in
+// kv_rows and a second launch, qkv_slots.cuh's quant_heads_kernel,
+// quantizes the whole heads, one warp a (row, k/v head), as kernel 6m's
+// third launch does. Dead rows write to the trash page, so they never race
+// with live rows.
 #include "int8_rows.cuh"
 #include "qkv_slots.cuh"
 
@@ -79,7 +84,7 @@ __global__ void __launch_bounds__(RT_THREADS, 1) qkv_fused_kernel(
     float* __restrict__ pool_vs, int pool_dt, T* __restrict__ q_out,
     const int* __restrict__ tables, const int* __restrict__ positions,
     int layer, int num_pages1, int kvn, int ps, int mp, int b, int h,
-    int n_heads, int d, float eps, int vec) {
+    int n_heads, int d, float eps, int vec, float* __restrict__ kv_rows) {
   __shared__ __align__(16) float xs[RT_KC * RT_MT];
   __shared__ __align__(16) float red[QKV_KL * QKV_CW];
   __shared__ __align__(16) float tile[RT_MT * QKV_CW];
@@ -141,9 +146,14 @@ __global__ void __launch_bounds__(RT_THREADS, 1) qkv_fused_kernel(
       qo[j + half] = sli::from_f<T>(r2);
       continue;
     }
-    if (pool_ks != nullptr) {  // INT8 KV: quantized by the pass below
-      tile[r * QKV_CW + t1] = sli::to_f(sli::from_f<T>(r1));
-      tile[r * QKV_CW + t2] = sli::to_f(sli::from_f<T>(r2));
+    if (pool_ks != nullptr) {  // INT8 KV: the pass below, at D 256 the
+                               // second launch
+      float* c1 = d == 256 ? kv_rows + ((long long)row * 2 * kvn + head -
+                                        n_heads) * d + j
+                           : tile + r * QKV_CW + t1;
+      float* c2 = d == 256 ? c1 + half : tile + r * QKV_CW + t2;
+      *c1 = sli::to_f(sli::from_f<T>(r1));
+      *c2 = sli::to_f(sli::from_f<T>(r2));
       continue;
     }
     const bool is_k = head < n_heads + kvn;
@@ -156,12 +166,11 @@ __global__ void __launch_bounds__(RT_THREADS, 1) qkv_fused_kernel(
     qkv::store_pool(pool, pool_dt, off + j, r1);
     qkv::store_pool(pool, pool_dt, off + j + half, r2);
   }
-  if (pool_ks == nullptr) return;
+  if (pool_ks == nullptr || d == 256) return;
 
-  // INT8 KV: one warp per (row, k/v head) of the block's columns
+  // INT8 KV: one warp per (row, k/v head) of the block's whole heads
   __syncthreads();
   const int warp = tid / 32;
-  const int lane = tid % 32;
   const int hpb = QKV_CW / d;  // whole heads per block
   for (int t = warp; t < RT_MT * hpb; t += RT_THREADS / 32) {
     const int r = t / hpb;
@@ -171,21 +180,13 @@ __global__ void __launch_bounds__(RT_THREADS, 1) qkv_fused_kernel(
     if (row >= b || head < n_heads || head >= heads) continue;
     const bool is_k = head < n_heads + kvn;
     const int kh = is_k ? head - n_heads : head - n_heads - kvn;
-    const float* src = tile + r * QKV_CW + hb * d;
-    float amax = 0.f;
-    for (int i = lane; i < d; i += 32) amax = fmaxf(amax, fabsf(src[i]));
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    const float sc = fmaxf(amax / 127.f, 1e-8f);
     const long long srow = qkv::slot_row(tables, positions, row, kh,
                                          layer, num_pages1, kvn, ps, mp);
     if (srow < 0) continue;
-    int8_t* dst = reinterpret_cast<int8_t*>(is_k ? pool_k : pool_v) +
-                  srow * (long long)d;
-    for (int i = lane; i < d; i += 32)
-      dst[i] = (int8_t)fminf(fmaxf(rintf(src[i] / sc), -127.f), 127.f);
-    if (lane == 0) (is_k ? pool_ks : pool_vs)[srow] = sc;
+    qkv::quant_head(tile + r * QKV_CW + hb * d, d, tid % 32,
+                    reinterpret_cast<int8_t*>(is_k ? pool_k : pool_v) +
+                        srow * (long long)d,
+                    (is_k ? pool_ks : pool_vs) + srow);
   }
 }
 
@@ -202,7 +203,9 @@ extern "C" {
 // come in already); q_out: [b, n_heads, d] (x_dtype); tables:
 // [b, mp] int32; positions: [b] int32. vec: wq and its row length allow
 // 16-byte loads. pool_ks/pool_vs: null, or (INT8 KV) the f32 scale pools
-// [L, num_pages1, kvn, ps] of int8 pools (pool_dt SLI_POOL_I8).
+// [L, num_pages1, kvn, ps] of int8 pools (pool_dt SLI_POOL_I8); kv_rows:
+// INT8 KV at d 256, b * 2 kvn * d floats of scratch (null otherwise). d
+// 32, 64, 128 or 256 (e4m3 pools: d <= 128).
 int sli_qkv_fused(const void* x, long long ldx, const void* nw, int nw_bf16,
                   const void* wq, const float* ws, const float* sin_t,
                   const float* cos_t, void* pool_k, void* pool_v,
@@ -210,14 +213,17 @@ int sli_qkv_fused(const void* x, long long ldx, const void* nw, int nw_bf16,
                   const int* tables,
                   const int* positions, int kv_layer, int num_pages1,
                   int kvn, int ps, int mp, int b, int h, int n_heads, int d,
-                  float eps, int x_dtype, int vec, void* stream) {
+                  float eps, int x_dtype, int vec, float* kv_rows,
+                  void* stream) {
   if (b <= 0 || h <= 0 || n_heads <= 0 || kvn <= 0 || ps <= 0 || mp <= 0)
     return SLI_ERR_SHAPE;
   if (d != 32 && d != 64 && d != 128 && d != 256) return SLI_ERR_HEAD_DIM;
-  // D 256: bf16/f32 pools (the INT8-KV pass and e4m3 take D <= 128)
-  if (d == 256 && pool_dt != SLI_POOL_BF16 && pool_dt != SLI_POOL_F32)
-    return SLI_ERR_HEAD_DIM;
+  // D 256: bf16, f32 or int8 pools (e4m3 takes D <= 128)
+  if (d == 256 && pool_dt == SLI_POOL_E4M3) return SLI_ERR_HEAD_DIM;
   if ((pool_ks == nullptr) != (pool_vs == nullptr)) return SLI_ERR_SHAPE;
+  if (d == 256 && pool_ks != nullptr && (kv_rows == nullptr ||
+                                         tables == nullptr))
+    return SLI_ERR_SHAPE;
   if (!qkv::pool_ok(pool_dt, pool_ks != nullptr)) return SLI_ERR_DTYPE;
   float* ks = (float*)pool_ks;
   float* vs = (float*)pool_vs;
@@ -229,17 +235,22 @@ int sli_qkv_fused(const void* x, long long ldx, const void* nw, int nw_bf16,
     qkv_fused_kernel<float><<<grid, RT_THREADS, 0, st>>>(
         (const float*)x, ldx, nw, nw_bf16, w, ws, sin_t, cos_t, pool_k,
         pool_v, ks, vs, pool_dt, (float*)q_out, tables, positions,
-        kv_layer, num_pages1, kvn, ps, mp, b, h, n_heads, d, eps, vec);
+        kv_layer, num_pages1, kvn, ps, mp, b, h, n_heads, d, eps, vec,
+        kv_rows);
   } else if (x_dtype == SLI_BF16) {
     qkv_fused_kernel<__nv_bfloat16><<<grid, RT_THREADS, 0, st>>>(
         (const __nv_bfloat16*)x, ldx, nw, nw_bf16, w, ws, sin_t, cos_t,
         pool_k, pool_v, ks, vs, pool_dt, (__nv_bfloat16*)q_out, tables,
         positions, kv_layer, num_pages1, kvn, ps, mp, b, h, n_heads, d, eps,
-        vec);
+        vec, kv_rows);
   } else {
     return SLI_ERR_DTYPE;
   }
-  return (int)cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || ks == nullptr || d != 256) return (int)e;
+  return (int)qkv::quant_heads(kv_rows, pool_k, pool_v, ks, vs, tables,
+                               positions, kv_layer, num_pages1, kvn, ps, mp,
+                               b, d, st);
 }
 
 // The dense-arena form (fused_qkv_append with tables=None): cache_k/v are
@@ -260,7 +271,7 @@ int sli_qkv_fused_dense(const void* x, long long ldx, const void* nw,
   return sli_qkv_fused(x, ldx, nw, nw_bf16, wq, ws, sin_t, cos_t, cache_k,
                        cache_v, nullptr, nullptr, cache_dt, q_out, nullptr,
                        positions, layer, arena_rows, kvn, smax, 1, b, h,
-                       n_heads, d, eps, x_dtype, vec, stream);
+                       n_heads, d, eps, x_dtype, vec, nullptr, stream);
 }
 
 }  // extern "C"

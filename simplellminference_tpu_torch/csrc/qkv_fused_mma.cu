@@ -32,7 +32,7 @@
 //       [64 k, + 64) and [128 + 64 k, + 64), k = 0, 1 (qkv_slots.cuh
 //       block_col), so the pairs still stay in the block, and the grid
 //       keeps Nq / 128 blocks a K range (20 at Gemma-2B's 2560 columns;
-//       the INT8-KV and e4m3 forms keep D <= 128); registers, shared
+//       the e4m3 form keeps D <= 128; INT8 KV takes (c)); registers, shared
 //       memory and the bytes bound (5.2 MB of weight at Gemma-2B) do not
 //       depend on D, only the tail's column map does. It
 //       streams a K range of the weight against all b rows of xn in one
@@ -48,8 +48,16 @@
 //       (qkv_slots.cuh: an unmapped page or a position past the table
 //       writes the trash page; the dense arena drops a slot past Smax) or,
 //       INT8 KV, rounded to bf16 into a shared tile and quantized per
-//       (row, kv head) by one warp with quantize_kv's math.
-// Two launches and no host sync; the grid comes from shapes alone.
+//       (row, kv head) by one warp with quantize_kv's math
+//       (qkv_slots.cuh quant_head);
+//   (c) INT8 KV at D 256 only (Gemma over INT8 KV, 6q/256): a head's
+//       columns lie in two blocks, so neither block has its absmax; each
+//       leaves its rounded half in kv_rows and qkv_slots.cuh's
+//       quant_heads_kernel quantizes the whole heads, one warp a (row, k/v
+//       head). A third small launch and not a second arrival counter: it
+//       keeps (b) as it is, and stream order is the only hand-off.
+// Two launches (three for 6q/256) and no host sync; the grid comes from
+// shapes alone.
 //
 // Rounding, as the plain version (ops/qkv_fused.py fused_qkv_append_ref):
 // the normalized rows rounded to bf16 (the TPU kernel rounds them to bf16,
@@ -102,7 +110,8 @@ __global__ void __launch_bounds__(i8m::THREADS, QkvRes<NT>::value)
                          const int* __restrict__ positions, int layer,
                          int num_pages1, int kvn, int ps, int mp, int b,
                          int h, int n_heads, int d, int kch,
-                         float* __restrict__ work) {
+                         float* __restrict__ work,
+                         float* __restrict__ kv_rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   using G = i8m::Geo<NT>;
   const int nq = (n_heads + 2 * kvn) * d;
@@ -195,12 +204,17 @@ __global__ void __launch_bounds__(i8m::THREADS, QkvRes<NT>::value)
       }
       continue;
     }
-    if (quant) {  // quantized by the pass below
+    if (quant) {  // quantized by the pass below, or at D 256 by (c)
+      // columns j and j + D/2 of the head: the tile's t1 and t2, or its
+      // row of kv_rows
+      float* c1 = d == 256 ? kv_rows + ((long long)row * 2 * kvn + head -
+                                        n_heads) * d + j
+                           : tile + row * 128 + t1;
+      float* c2 = d == 256 ? c1 + half : tile + row * 128 + t2;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        tile[row * 128 + t1 + e] = __bfloat162float(__float2bfloat16(r1[e]));
-        tile[row * 128 + t2 + e] =
-            __bfloat162float(__float2bfloat16(r2[e]));
+        c1[e] = __bfloat162float(__float2bfloat16(r1[e]));
+        c2[e] = __bfloat162float(__float2bfloat16(r2[e]));
       }
       continue;
     }
@@ -217,12 +231,11 @@ __global__ void __launch_bounds__(i8m::THREADS, QkvRes<NT>::value)
       qkv::store_pool(pool, pool_dt, off + half + e, r2[e]);
     }
   }
-  if (!quant) return;
+  if (!quant || d == 256) return;
 
-  // INT8 KV: one warp a (row, k/v head) of the block's columns
+  // INT8 KV: one warp a (row, k/v head) of the block's whole heads
   __syncthreads();
   const int warp = tid >> 5;
-  const int lane = tid & 31;
   const int hpb = 128 / d;  // whole heads a block
   for (int t = warp; t < b * hpb; t += i8m::THREADS / 32) {
     const int row = t / hpb;
@@ -231,21 +244,13 @@ __global__ void __launch_bounds__(i8m::THREADS, QkvRes<NT>::value)
     if (head < n_heads) continue;
     const bool is_k = head < n_heads + kvn;
     const int kh = is_k ? head - n_heads : head - n_heads - kvn;
-    const float* src = tile + row * 128 + hb * d;
-    float amax = 0.f;
-    for (int i = lane; i < d; i += 32) amax = fmaxf(amax, fabsf(src[i]));
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    const float sc = fmaxf(amax / 127.f, 1e-8f);
     const long long srow = qkv::slot_row(tables, positions, row, kh, layer,
                                          num_pages1, kvn, ps, mp);
     if (srow < 0) continue;
-    int8_t* dst = reinterpret_cast<int8_t*>(is_k ? pool_k : pool_v) +
-                  srow * (long long)d;
-    for (int i = lane; i < d; i += 32)
-      dst[i] = (int8_t)fminf(fmaxf(rintf(src[i] / sc), -127.f), 127.f);
-    if (lane == 0) (is_k ? pool_ks : pool_vs)[srow] = sc;
+    qkv::quant_head(tile + row * 128 + hb * d, d, tid & 31,
+                    reinterpret_cast<int8_t*>(is_k ? pool_k : pool_v) +
+                        srow * (long long)d,
+                    (is_k ? pool_ks : pool_vs) + srow);
   }
 }
 
@@ -257,7 +262,7 @@ int run_nt(const __nv_bfloat16* x, long long ldx, const void* nw,
            __nv_bfloat16* q_out, const int* tables, const int* positions,
            int layer, int num_pages1, int kvn, int ps, int mp, int b, int h,
            int n_heads, int d, float eps, __nv_bfloat16* xn, float* work,
-           int kch, cudaStream_t st) {
+           int kch, float* kv_rows, cudaStream_t st) {
   constexpr int SMEM = QkvSmem<NT>::value;
   auto kern = qkv_fused_mma_kernel<NT>;
   cudaError_t e = sli::allow_smem(kern, SMEM);
@@ -270,8 +275,12 @@ int run_nt(const __nv_bfloat16* x, long long ldx, const void* nw,
   kern<<<grid, i8m::THREADS, SMEM, st>>>(
       xn, wq, ws, sin_t, cos_t, pool_k, pool_v, pool_ks, pool_vs, pool_dt,
       q_out, tables, positions, layer, num_pages1, kvn, ps, mp, b, h,
-      n_heads, d, kch, work);
-  return (int)cudaGetLastError();
+      n_heads, d, kch, work, kv_rows);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || pool_ks == nullptr || d != 256) return (int)e;
+  return (int)qkv::quant_heads(kv_rows, pool_k, pool_v, pool_ks, pool_vs,
+                               tables, positions, layer, num_pages1, kvn, ps,
+                               mp, b, d, st);
 }
 
 }  // namespace
@@ -287,10 +296,11 @@ extern "C" {
 // d], x row r into arena row r; pool_ks/pool_vs: null, or (INT8 KV, paged)
 // the f32 scale pools [L, num_pages1, kvn, ps] of int8 pools; positions:
 // [b] int32; q_out: [b, n_heads, d] bf16; xn: [b, h] bf16 scratch; work:
-// ceil(h / kch) * b * nq floats when K is split (null otherwise). h a
-// multiple of 64, nq = (n_heads + 2 kvn) d of 128, d 32, 64 or 128; kch: H
-// rows a block, a multiple of 64. wq, ws, sin, cos and work 16-byte
-// aligned.
+// ceil(h / kch) * b * nq floats when K is split (null otherwise); kv_rows:
+// INT8 KV at d 256, b * 2 kvn * d floats of scratch (null otherwise). h a
+// multiple of 64, nq = (n_heads + 2 kvn) d of 128, d 32, 64, 128 or 256
+// (e4m3 pools: d <= 128); kch: H rows a block, a multiple of 64. wq, ws,
+// sin, cos and work 16-byte aligned.
 int sli_qkv_fused_mma(const void* x, long long ldx, const void* nw,
                       int nw_bf16, const void* wq, const float* ws,
                       const float* sin_t, const float* cos_t, void* pool_k,
@@ -299,14 +309,15 @@ int sli_qkv_fused_mma(const void* x, long long ldx, const void* nw,
                       const int* positions, int kv_layer, int num_pages1,
                       int kvn, int ps, int mp, int b, int h, int n_heads,
                       int d, float eps, void* xn, float* work, int kch,
-                      void* stream) {
+                      float* kv_rows, void* stream) {
   if (b <= 0 || b > 64 || h <= 0 || h % 64 || n_heads <= 0 || kvn <= 0 ||
       ps <= 0 || mp <= 0 || kch <= 0 || kch % 64)
     return SLI_ERR_SHAPE;
   if (d != 32 && d != 64 && d != 128 && d != 256) return SLI_ERR_HEAD_DIM;
-  // D 256: bf16/f32 pools (the INT8-KV pass and e4m3 take D <= 128)
-  if (d == 256 && pool_dt != SLI_POOL_BF16 && pool_dt != SLI_POOL_F32)
-    return SLI_ERR_HEAD_DIM;
+  // D 256: bf16, f32 or int8 pools (e4m3 takes D <= 128)
+  if (d == 256 && pool_dt == SLI_POOL_E4M3) return SLI_ERR_HEAD_DIM;
+  if (d == 256 && pool_ks != nullptr && kv_rows == nullptr)
+    return SLI_ERR_SHAPE;
   const int nq = (n_heads + 2 * kvn) * d;
   if (nq % 128 || nq / 128 > QKV_MAX_TILES) return SLI_ERR_SHAPE;
   if ((pool_ks == nullptr) != (pool_vs == nullptr)) return SLI_ERR_SHAPE;
@@ -333,7 +344,7 @@ int sli_qkv_fused_mma(const void* x, long long ldx, const void* nw,
     return run_nt<NT>(xb, ldx, nw, nw_bf16, w, ws, sin_t, cos_t, pool_k,      \
                       pool_v, ks, vs, pool_dt, qo, tables, positions,       \
                       kv_layer, num_pages1, kvn, ps, mp, b, h, n_heads, d,    \
-                      eps, xnb, work, kch, st);
+                      eps, xnb, work, kch, kv_rows, st);
     SLI_QKV_NT(1)
     SLI_QKV_NT(2)
     SLI_QKV_NT(3)

@@ -57,8 +57,65 @@ __device__ __forceinline__ int pair_partner(int t1, int d) {
   return t1 + (d < 256 ? d >> 1 : 64);
 }
 
+// INT8 KV: one (row, k/v head)'s d values src (rounded to the activation
+// dtype) into its slot's codes dst and scale, by one warp, with
+// quantize_kv's math: scale = max(absmax / 127, 1e-8) by IEEE division,
+// code = rint(x / scale) clipped to +-127.
+__device__ __forceinline__ void quant_head(const float* src, int d, int lane,
+                                           int8_t* dst, float* scale_dst) {
+  float amax = 0.f;
+  for (int i = lane; i < d; i += 32) amax = fmaxf(amax, fabsf(src[i]));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float sc = fmaxf(amax / 127.f, 1e-8f);
+  for (int i = lane; i < d; i += 32)
+    dst[i] = (int8_t)fminf(fmaxf(rintf(src[i] / sc), -127.f), 127.f);
+  if (lane == 0) *scale_dst = sc;
+}
+
+// INT8 KV at D 256 (Gemma): a head's 256 columns lie in two column blocks
+// (block_col), so neither block sees the head's absmax. The blocks leave
+// their rounded k/v values in kv_rows [b][2 kvn][d] f32 (k heads, then v
+// heads) and this kernel, launched after them on the same stream, one warp
+// a (row, k/v head), 8 warps a block, quantizes each into its slot: no
+// counter and no host read, the grid from shapes alone.
+static __global__ void __launch_bounds__(256) quant_heads_kernel(
+    const float* __restrict__ kv_rows, int8_t* __restrict__ pool_k,
+    int8_t* __restrict__ pool_v, float* __restrict__ pool_ks,
+    float* __restrict__ pool_vs, const int* __restrict__ tables,
+    const int* __restrict__ positions, int layer, int num_pages1, int kvn,
+    int ps, int mp, int b, int d) {
+  const int w = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (w >= b * 2 * kvn) return;
+  const int row = w / (2 * kvn);
+  const int hh = w - row * 2 * kvn;
+  const bool is_k = hh < kvn;
+  const long long srow = slot_row(tables, positions, row, is_k ? hh : hh - kvn,
+                                  layer, num_pages1, kvn, ps, mp);
+  if (srow < 0) return;  // (paged pools only: never)
+  quant_head(kv_rows + (long long)w * d, d, threadIdx.x & 31,
+             (is_k ? pool_k : pool_v) + srow * (long long)d,
+             (is_k ? pool_ks : pool_vs) + srow);
+}
+
+// The launch of quant_heads_kernel for b rows of 2 kvn heads.
+__host__ inline cudaError_t quant_heads(const float* kv_rows, void* pool_k,
+                                        void* pool_v, float* pool_ks,
+                                        float* pool_vs, const int* tables,
+                                        const int* positions, int layer,
+                                        int num_pages1, int kvn, int ps,
+                                        int mp, int b, int d,
+                                        cudaStream_t st) {
+  const int warps = b * 2 * kvn;
+  quant_heads_kernel<<<(warps + 7) / 8, 256, 0, st>>>(
+      kv_rows, (int8_t*)pool_k, (int8_t*)pool_v, pool_ks, pool_vs, tables,
+      positions, layer, num_pages1, kvn, ps, mp, b, d);
+  return cudaGetLastError();
+}
+
 // pool_dt: SLI_POOL_F32, SLI_POOL_BF16 or SLI_POOL_E4M3 (INT8 pools are
-// quantized by the kernels' own pass, not through here).
+// quantized by quant_head, not through here).
 __device__ __forceinline__ void store_pool(void* pool, int pool_dt,
                                            long long i, float v) {
   if (pool_dt == SLI_POOL_BF16) {

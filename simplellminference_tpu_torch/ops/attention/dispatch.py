@@ -10,12 +10,13 @@ FP8-KV forms (4e, 4ve, 8e), and a sliding window (``cfg.sliding_window``, or the
 per-layer ``window`` a caller passes for ``layer_types`` stacks) goes to
 each kernel's window form, the dense arena's included (13w), and
 Gemma-2's logit soft cap (``cfg.attn_logit_softcap``) to the capped forms
-of kernels 3, 4 (decode and verify rows), 8 and 13 over bf16/f32 KV,
-and a layer's GPT-OSS attention sinks (``sinks`` [N], passed by the
-caller as the JAX dispatcher takes them) to the sink forms of kernels 3,
-4 (decode and verify rows), 8 and 13 over bf16/f32 KV. Attention options
-the kernels do not take yet (sinks over INT8 or FP8 KV or at head_dim
-256; the cap over INT8 or FP8 KV) raise.
+of kernels 3, 4 (decode and verify rows), 8 and 13 over bf16/f32 KV and
+of 4 and 8 over INT8 KV, and a layer's GPT-OSS attention sinks (``sinks``
+[N], passed by the caller as the JAX dispatcher takes them) to the sink
+forms of kernels 3, 4 (decode and verify rows), 8 and 13 over bf16/f32
+KV and of 4 and 8 over INT8 KV. Attention options the kernels do not
+take yet (sinks over FP8 KV or at head_dim 256; the cap over FP8 KV)
+raise.
 """
 
 from __future__ import annotations

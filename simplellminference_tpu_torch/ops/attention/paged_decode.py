@@ -48,23 +48,31 @@ count.
 
 Gemma-2's soft cap (``logit_cap``: each score becomes
 cap * tanh(s * scale * (1 / cap)) before the mask, paged_decode.py:90-91)
-on the decode and verify forms over pools of q's dtype, with or without a
-window (4c, 4wc, 4vc, 4vwc): a compile-time flag of the kernel, so the
-uncapped forms run the code they ran before; capped launches count in
-their form's ``launches`` and in :data:`~.flash_prefill.CAP_LAUNCHES`. The
-cap over INT8 or e4m3 pools raises (not ported yet).
+on the decode and verify forms over pools of q's dtype or INT8 pools, with
+or without a window (4c, 4wc, 4vc, 4vwc; 4qc, 4qwc, 4vqc, 4vqwc): a
+compile-time flag of the kernel, so the uncapped forms run the code they
+ran before; over INT8 pools the cap takes the dequantized score (q.k x
+the K scale x scale), JAX's order (paged_decode.py:84-91). Capped
+launches count in their form's ``launches`` and in
+:data:`~.flash_prefill.CAP_LAUNCHES`. The cap over e4m3 pools raises (not
+ported yet).
 
 GPT-OSS's attention sinks (``sinks`` [N], a learned logit per q head that
 joins each row's softmax denominator and adds no value,
 paged_decode.py:29-35, :57-67) on the decode and verify forms over pools
-of q's dtype, with or without a window (4s, 4ws, 4vs, 4vws): a pointer
+of q's dtype or INT8 pools, with or without a window (4s, 4ws, 4vs, 4vws;
+4qs, 4qws, 4vqs, 4vqws: the sink is a raw logit, outside every scale,
+while INT8 KV scales each score and each probability): a pointer
 argument of the kernel; split 0's block seeds each row's state with
 (sink, 1), so the log-sum-exp merge counts it once, and a verify row
 takes its head's sink whatever its window row (gpt-oss-20b's group of 8
 x 5 rows fills two row blocks, each seeding its own rows). Launches with
 sinks count in their form's ``launches`` and in
-:data:`~.flash_prefill.SINK_LAUNCHES`. Sinks over INT8 or e4m3 pools raise
-(not ported yet), on the CPU as on the card.
+:data:`~.flash_prefill.SINK_LAUNCHES`. Sinks over e4m3 pools and at
+head_dim 256 raise (not ported yet), on the CPU as on the card.
+
+Head dim 256 (Gemma) on every form over pools of q's dtype or INT8 pools
+(:data:`D256_FORMS`); the e4m3 forms take D 32-128.
 
 Unmapped (-1) pages inside kv_len read as zeros in both versions. The
 JAX package reads something else there — its TPU kernel clamps them to
@@ -86,10 +94,12 @@ from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
 HEAD_DIMS = (32, 64, 128, 256)
 # the forms that take head_dim 256 (Gemma): decode and verify over pools
-# of q's dtype, with or without a window; and their launches at that head
-# dim (each also in ``launches``)
+# of q's dtype or INT8 pools, with or without a window; and their launches
+# at that head dim (each also in ``launches``)
 D256_FORMS = ("paged_flash_decode", "paged_flash_decode_window",
-              "paged_flash_verify", "paged_flash_verify_window")
+              "paged_flash_verify", "paged_flash_verify_window",
+              "paged_flash_decode_int8kv", "paged_flash_decode_int8kv_window",
+              "paged_flash_verify_int8kv", "paged_flash_verify_int8kv_window")
 D256_LAUNCHES = {form: 0 for form in D256_FORMS}
 MAX_ROWS = 128   # query rows (GQA group x window rows) a call takes
 ROW_BLOCK = 32   # query rows a block of the kernel holds
@@ -148,25 +158,18 @@ def _check_fp8_window(k_pool, window):
         raise NotImplementedError("FP8 KV with sliding windows")
 
 
-def _check_cap(k_pool, k_scale, logit_cap):
-    """The soft cap runs on the forms over pools of q's dtype; raise for
-    the quantized ones."""
-    if not cap_value(logit_cap):
-        return
-    if k_scale is not None:
-        raise NotImplementedError("attention logit soft cap over INT8 KV")
-    if k_pool.dtype == torch.float8_e4m3fn:
+def check_cap(k_pool, logit_cap) -> None:
+    """The soft cap runs on the forms over pools of q's dtype and INT8
+    pools; raise, named, over e4m3 pools."""
+    if cap_value(logit_cap) and k_pool.dtype == torch.float8_e4m3fn:
         raise NotImplementedError("attention logit soft cap over FP8 KV")
 
 
-def check_sinks(sinks, k_pool, k_scale) -> None:
-    """Sinks run on the forms over pools of q's dtype (4s, 4ws, 4vs, 4vws,
-    8s, 8ws); raise, named, over INT8 or e4m3 pools."""
-    if sinks is None:
-        return
-    if k_scale is not None:
-        raise NotImplementedError("attention sinks over INT8 KV")
-    if k_pool.dtype == torch.float8_e4m3fn:
+def check_sinks(sinks, k_pool) -> None:
+    """Sinks run on the forms over pools of q's dtype and INT8 pools (4s,
+    4ws, 4vs, 4vws, 8s, 8ws and their INT8-KV forms); raise, named, over
+    e4m3 pools."""
+    if sinks is not None and k_pool.dtype == torch.float8_e4m3fn:
         raise NotImplementedError("attention sinks over FP8 KV")
 
 
@@ -228,8 +231,8 @@ def paged_flash_decode_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
     window, capped and sink forms: keys at positions < kv_len (and >=
     kv_len - window); q: [B, N, D] -> [B, N, D]."""
     _check_fp8_window(k_pool, window)
-    _check_cap(k_pool, k_scale, logit_cap)
-    check_sinks(sinks, k_pool, k_scale)
+    check_cap(k_pool, logit_cap)
+    check_sinks(sinks, k_pool)
     if q.is_cuda:
         paged_flash_decode_ref.cuda_calls += 1
     return _attend_ref(q[:, None], k_pool, v_pool, tables, kv_lens, layer,
@@ -249,8 +252,8 @@ def paged_flash_verify_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
     attention of the JAX dispatcher's S > 1 branch (dispatch.py:239-269).
     q: [B, S, N, D] -> [B, S, N, D]."""
     _check_fp8_window(k_pool, window)
-    _check_cap(k_pool, k_scale, logit_cap)
-    check_sinks(sinks, k_pool, k_scale)
+    check_cap(k_pool, logit_cap)
+    check_sinks(sinks, k_pool)
     if q.is_cuda:
         paged_flash_verify_ref.cuda_calls += 1
     return _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
@@ -271,9 +274,9 @@ def paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer: int,
     dtype. Keys are positions < min(kv_len, MP*ps), and >= kv_len -
     ``window`` with a sliding window; ``logit_cap`` > 0 soft-caps the
     scores and ``sinks`` [N] add each head's sink logit to its softmax
-    (pools of q's dtype). The launch counts as the form the options and
-    pools name (4, 4q, 4e, 4w, 4qw; a capped or sink 4 or 4w in its
-    form's count)."""
+    (pools of q's dtype or INT8). The launch counts as the form the
+    options and pools name (4, 4q, 4e, 4w, 4qw; a capped or sink 4, 4q,
+    4w or 4qw in its form's count)."""
     return _run("paged_flash_decode", q[:, None], k_pool, v_pool, k_scale,
                 v_scale, tables, kv_lens, layer, sm_scale, window,
                 logit_cap, sinks)[:, 0]
@@ -290,7 +293,8 @@ def paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer: int,
     tables, scale pools, ``window``, ``logit_cap`` and ``sinks`` as
     there (each row takes its head's sink); out [B, S, N, D] in q's dtype.
     The launch counts as the form the options and pools name (4v, 4vq,
-    4ve, 4vw, 4vqw; a capped or sink 4v or 4vw in its form's count)."""
+    4ve, 4vw, 4vqw; a capped or sink 4v, 4vq, 4vw or 4vqw in its form's
+    count)."""
     return _run("paged_flash_verify", q, k_pool, v_pool, k_scale, v_scale,
                 tables, kv_lens, layer, sm_scale, window, logit_cap, sinks)
 
@@ -408,8 +412,8 @@ def _run(name, q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
         raise NotImplementedError("shared-KV pools (absorbed MLA)")
     quant = _check_scales(k_pool, v_pool, k_scale, v_scale)
     _check_fp8_window(k_pool, window)
-    _check_cap(k_pool, k_scale, logit_cap)
-    check_sinks(sinks, k_pool, k_scale)
+    check_cap(k_pool, logit_cap)
+    check_sinks(sinks, k_pool)
     check_sinks_head_dim(sinks, q.shape[-1])
     cap = cap_value(logit_cap)
     if window is not None:

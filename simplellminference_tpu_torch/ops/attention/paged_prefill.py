@@ -51,19 +51,22 @@ band aliases the live page of a newer position). They are
 :func:`paged_flash_prefill_int8kv_window`, each with its own launch count.
 
 Gemma-2's soft cap (``logit_cap``: cap * tanh(s * scale * (1 / cap))
-before the mask, paged_prefill.py:123-124) over pools of q's dtype, with
-or without a window (forms 8c, 8wc): a compile-time flag of the kernels;
-capped launches count in their form's ``launches`` and in
-:data:`~.flash_prefill.CAP_LAUNCHES`.
+before the mask, paged_prefill.py:123-124) over pools of q's dtype or
+INT8 pools, with or without a window (forms 8c, 8wc, 8qc, 8qwc): a
+compile-time flag of the kernels, applied to the scores of the
+dequantized K as JAX applies it; capped launches count in their form's
+``launches`` and in :data:`~.flash_prefill.CAP_LAUNCHES`.
 
 GPT-OSS's attention sinks (``sinks`` [N], a logit per q head in each
 row's softmax denominator, no value; paged_prefill.py:259) over pools of
-q's dtype, with or without a window (forms 8s, 8ws): a pointer argument of
-both kernels, each row's softmax state seeded with (sink, 1), by split 0
-only when the key walk splits; launches with sinks count in their form's
-``launches`` and in :data:`~.flash_prefill.SINK_LAUNCHES`. The cap and
-sinks over INT8 or e4m3 pools and shared-KV (absorbed MLA) pools are not
-ported yet and raise.
+q's dtype or INT8 pools, with or without a window (forms 8s, 8ws, 8qs,
+8qws): a pointer argument of both kernels, each row's softmax state
+seeded with (sink, 1), by split 0 only when the key walk splits; launches
+with sinks count in their form's ``launches`` and in
+:data:`~.flash_prefill.SINK_LAUNCHES`. Head dim 256 (Gemma) on every form
+over pools of q's dtype or INT8 pools (:data:`D256_FORMS`). The cap and
+sinks over e4m3 pools, the e4m3 forms at D 256, sinks at D 256 and
+shared-KV (absorbed MLA) pools are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -77,15 +80,17 @@ from simplellminference_tpu_torch.ops.attention.flash_prefill import (
     cap_value, check_sinks_head_dim, count_launch, heads_contiguous,
     sink_values, window_size)
 from simplellminference_tpu_torch.ops.attention.paged_decode import (
-    _check_e4m3, _check_float_pools, band_tables, check_sinks)
+    _check_e4m3, _check_float_pools, band_tables, check_cap, check_sinks)
 from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
 HEAD_DIMS = (32, 64, 128, 256)
-# the forms that take head_dim 256 (Gemma): pools of q's dtype, with or
-# without a window; and their launches at that head dim (each also in
-# ``launches``)
-D256_FORMS = ("paged_flash_prefill", "paged_flash_prefill_window")
-D256_LAUNCHES = {"paged_flash_prefill": 0, "paged_flash_prefill_window": 0}
+# the forms that take head_dim 256 (Gemma): pools of q's dtype or INT8
+# pools, with or without a window; and their launches at that head dim
+# (each also in ``launches``)
+D256_FORMS = ("paged_flash_prefill", "paged_flash_prefill_window",
+              "paged_flash_prefill_int8kv",
+              "paged_flash_prefill_int8kv_window")
+D256_LAUNCHES = {form: 0 for form in D256_FORMS}
 
 
 def _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
@@ -98,13 +103,10 @@ def _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
         window_size(window)
         if k_pool.dtype == torch.float8_e4m3fn:
             raise NotImplementedError("FP8 KV with sliding windows")
-    check_sinks(sinks, k_pool, k_scale)
-    if cap_value(logit_cap) and k_pool.dtype == torch.float8_e4m3fn:
-        raise NotImplementedError("attention logit soft cap over FP8 KV")
+    check_sinks(sinks, k_pool)
+    check_cap(k_pool, logit_cap)
     if k_scale is None and v_scale is None:
         return False
-    if cap_value(logit_cap):
-        raise NotImplementedError("attention logit soft cap over INT8 KV")
     check_scale_pools(k_pool, v_pool, k_scale, v_scale)
     return True
 
@@ -163,9 +165,9 @@ def paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
     dtype. Keys are positions < min(kv_len, MP*ps) up to each row's
     position, and within ``window`` of it with a sliding window;
     ``logit_cap`` > 0 soft-caps the scores and ``sinks`` [N] add each
-    head's sink logit to its softmax (pools of q's dtype). The launch
-    counts as the form the options and pools name (8, 8q, 8e, 8w, 8qw; a
-    capped or sink 8 or 8w in its form's count)."""
+    head's sink logit to its softmax (pools of q's dtype or INT8). The
+    launch counts as the form the options and pools name (8, 8q, 8e, 8w,
+    8qw; a capped or sink 8, 8q, 8w or 8qw in its form's count)."""
     quant = _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
                            v_scale)
     check_sinks_head_dim(sinks, q.shape[-1])

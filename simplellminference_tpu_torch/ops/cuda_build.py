@@ -78,10 +78,10 @@ _SIGNATURES = {
                                         _I, _I, _I, _I, _P],
     "sli_qkv_fused": [_P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                       _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-                      _P],
+                      _P, _P],
     "sli_qkv_fused_mma": [_P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                          _P, _P, _I, _P],
+                          _P, _P, _I, _P, _P],
     "sli_ffn_fused": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _F, _I, _I, _I, _P],
     "sli_ffn_fused_mma": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -237,10 +237,10 @@ def pool_code(dtype) -> int:
 def check_head_dim(d: int, form: str, d256_forms) -> None:
     """Raise NotImplementedError for ``form`` at head_dim 256 unless it is
     one of ``d256_forms``: at Gemma's D the kernels take the forms over
-    bf16/f32 KV (decode and verify rows, windows and the soft cap
-    included); the INT8-KV and e4m3 forms take D 32, 64 and 128. The
-    wrappers call it for CPU and CUDA tensors alike, so a form outside the
-    slice raises on both."""
+    bf16/f32 and INT8 KV (decode and verify rows, windows, the soft cap,
+    the quantizing writes and fused qkv included); the e4m3 forms take D
+    32, 64 and 128. The wrappers call it for CPU and CUDA tensors alike, so
+    a form outside the slice raises on both."""
     if d == 256 and form not in d256_forms:
         took = ", ".join(d256_forms) or "none of its module's forms"
         raise NotImplementedError(

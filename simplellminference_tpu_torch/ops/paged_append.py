@@ -31,6 +31,11 @@ and by ``to_e4m3`` in the plain versions, which write e4m3 pools through
 card ``paged_append_decode``/``_span``/``_prefill`` hand e4m3 pools to
 their wrappers of the form's name (``*_fp8kv``), each with its launch
 count.
+
+Head dims: every form takes D 32-256 but the e4m3 ones, which take D <=
+128 (at D 256 they raise). The quantizing forms at D 256 (Gemma over INT8
+KV; a warp holds a row's 256 values, 8 a lane) also count their launches
+in :data:`D256_LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -42,6 +47,10 @@ from simplellminference_tpu_torch.ops import cuda_build
 from simplellminference_tpu_torch.ops.ref_ops import E4M3, to_e4m3
 
 SPAN_MAX = 8   # rows a span writes per sequence (the JAX kernel's _ROWS)
+# the quantizing forms' launches at head_dim 256 (each also in its
+# ``launches``)
+D256_LAUNCHES = {"paged_append_decode_quant": 0,
+                 "paged_append_prefill_quant": 0}
 
 
 def _stored(pool):
@@ -535,8 +544,6 @@ def paged_append_decode_quant(pool_k, pool_v, pool_ks, pool_vs, new_k, new_v,
     unmapped, the trash page); positions: [B]. Returns (pool_k, pool_v,
     pool_ks, pool_vs)."""
     check_scale_pools(pool_k, pool_v, pool_ks, pool_vs)
-    cuda_build.check_head_dim(pool_k.shape[-1],
-                              "paged_append_decode_quant", ())
     if not pool_k.is_cuda:
         return paged_append_decode_quant_ref(pool_k, pool_v, pool_ks,
                                              pool_vs, new_k, new_v, tables,
@@ -558,6 +565,7 @@ def paged_append_decode_quant(pool_k, pool_v, pool_ks, pool_vs, new_k, new_v,
         torch.cuda.current_stream(pool_k.device).cuda_stream)
     cuda_build.check(lib, rc, "paged_append_decode_quant")
     paged_append_decode_quant.launches += 1
+    D256_LAUNCHES["paged_append_decode_quant"] += int(d == 256)
     return pool_k, pool_v, pool_ks, pool_vs
 
 
@@ -573,8 +581,6 @@ def paged_append_prefill_quant(pool_k, pool_v, pool_ks, pool_vs, new_k,
     the target pages (-1: the trash page); rows past S in the last page
     get code 0 and scale 0. Returns (pool_k, pool_v, pool_ks, pool_vs)."""
     check_scale_pools(pool_k, pool_v, pool_ks, pool_vs)
-    cuda_build.check_head_dim(pool_k.shape[-1],
-                              "paged_append_prefill_quant", ())
     if not pool_k.is_cuda:
         return paged_append_prefill_quant_ref(pool_k, pool_v, pool_ks,
                                               pool_vs, new_k, new_v, tables,
@@ -596,6 +602,7 @@ def paged_append_prefill_quant(pool_k, pool_v, pool_ks, pool_vs, new_k,
         torch.cuda.current_stream(pool_k.device).cuda_stream)
     cuda_build.check(lib, rc, "paged_append_prefill_quant")
     paged_append_prefill_quant.launches += 1
+    D256_LAUNCHES["paged_append_prefill_quant"] += int(d == 256)
     return pool_k, pool_v, pool_ks, pool_vs
 
 

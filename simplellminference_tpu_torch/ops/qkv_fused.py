@@ -29,7 +29,10 @@ activation dtype (the TPU kernel rounds them to bf16, as its unfused path
 does through ``apply_rope``), then quantized per (token, kv head) with
 ``quantize_kv``'s math, and the codes and the scale are written to the
 page slot. On the card it is its own wrapper,
-:func:`fused_qkv_append_int8kv`, with its own launch count.
+:func:`fused_qkv_append_int8kv`, with its own launch count. At head_dim
+256 (Gemma over INT8 KV) a head's columns lie in two column blocks of
+either kernel, so the blocks leave the rounded k/v rows in an f32 scratch
+[B, 2 kvN, D] and a further small launch quantizes whole heads from it.
 
 The FP8-KV form (float8_e4m3fn pools, paged, no scale pools): k/v are
 rounded from f32 to e4m3 once, with the JAX package's rounding
@@ -82,14 +85,18 @@ from simplellminference_tpu_torch.ops.ref_ops import E4M3
 MAX_ROWS = 64
 HEAD_DIMS = (32, 64, 128, 256)
 # the forms that take head_dim 256 (Gemma): paged and dense over bf16/f32
-# KV, and the kv_layer form (6k: Gemma-2's ring pools) over bf16/f32 KV
+# KV, the kv_layer form (6k: Gemma-2's ring pools) over bf16/f32 KV, and
+# the quantizing form (6q: INT8 KV, with or without a kv_layer)
 D256_FORMS = ("fused_qkv_append", "fused_qkv_append_dense",
-              "fused_qkv_append_kv_layer")
+              "fused_qkv_append_kv_layer", "fused_qkv_append_int8kv")
 # launches of each regime at head_dim 256, the forms together (each also
-# counts in QKV_REGIME_LAUNCHES), and of the kv_layer form there (6k:
-# Gemma-2's grouped pools)
+# counts in QKV_REGIME_LAUNCHES), and there of the kv_layer form (6k:
+# Gemma-2's grouped pools) and of the quantizing form (6q/256), those of
+# it with a kv_layer (INT8 ring pools) apart too
 D256_LAUNCHES = {"mma": 0, "fma": 0}
-D256_FORM_LAUNCHES = {"fused_qkv_append_kv_layer": 0}
+D256_FORM_LAUNCHES = {"fused_qkv_append_kv_layer": 0,
+                      "fused_qkv_append_int8kv": 0,
+                      "fused_qkv_append_int8kv_kv_layer": 0}
 MMA_KT = 64               # K rows a stage of the tensor-core kernel
 MMA_COLS = 128            # qkv columns a block of it: whole heads
 MMA_MAX_TILES = 4096      # most column tiles (its arrival counters)
@@ -355,6 +362,10 @@ def fused_qkv_append_int8kv(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
                 cache_vs, layer, kli, offsets, n_heads, kv_heads, eps, tables,
                 "fused_qkv_append_int8kv")
     fused_qkv_append_int8kv.launches += 1
+    if pool_k.shape[-1] == 256:
+        D256_FORM_LAUNCHES["fused_qkv_append_int8kv"] += 1
+        D256_FORM_LAUNCHES["fused_qkv_append_int8kv_kv_layer"] += int(
+            kv_layer is not None)
     return q, pool_k, pool_v, cache_ks, cache_vs
 
 
@@ -392,6 +403,12 @@ def _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, cache_ks, cache_vs,
     if tables is not None:
         tables = _index(tables, b, "tables")
     regime = qkv_regime(b, h, nq, d, x.dtype)
+    # INT8 KV at D 256: the blocks' rounded k/v rows for the quantizing
+    # launch (a head's columns lie in two blocks)
+    kv_rows = (torch.empty((b, 2 * kvn, d), dtype=torch.float32,
+                           device=x.device)
+               if cache_ks is not None and d == 256 else None)
+    kv_rows_p = 0 if kv_rows is None else kv_rows.data_ptr()
     lib = cuda_build.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if regime == "mma":
@@ -413,7 +430,7 @@ def _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, cache_ks, cache_vs,
             0 if tables is None else tables.data_ptr(), offsets.data_ptr(),
             kv_layer, p1, kvn, ps, 1 if tables is None else tables.shape[1],
             b, h, n, d, float(eps), xn.data_ptr(),
-            work.data_ptr() if chunks > 1 else 0, kch, stream)
+            work.data_ptr() if chunks > 1 else 0, kch, kv_rows_p, stream)
         cuda_build.check(lib, rc, f"{what} (mma)")
         QKV_REGIME_LAUNCHES["mma"] += 1
         D256_LAUNCHES["mma"] += int(d == 256)
@@ -440,7 +457,7 @@ def _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, cache_ks, cache_vs,
         cuda_build.pool_code(pool_k.dtype), out.data_ptr(),
         tables.data_ptr(), offsets.data_ptr(), kv_layer, p1, kvn, ps,
         tables.shape[1], b, h, n, d, float(eps),
-        cuda_build.dtype_code(x.dtype), vec, stream)
+        cuda_build.dtype_code(x.dtype), vec, kv_rows_p, stream)
     cuda_build.check(lib, rc, f"{what} (fma)")
     QKV_REGIME_LAUNCHES["fma"] += 1
     D256_LAUNCHES["fma"] += int(d == 256)

@@ -538,32 +538,14 @@ def test_forms_outside_the_slice_raise_at_d256():
     ws = torch.ones((2, 1, 10 * D))
     sin, cos = tref.rope_tables(kv, D, 10000.0)
     qkv = (x, torch.ones(2, 64), wq, ws, sin, cos)
+    # the e4m3 forms take D 32-128
     calls = {
-        "4q": lambda: tpd.paged_flash_decode(q1, qk, qv, tables, kv, 0,
-                                             k_scale=ks, v_scale=vs),
         "4e": lambda: tpd.paged_flash_decode(q1, ek, ev, tables, kv, 0),
-        "4qw": lambda: tpd.paged_flash_decode(q1, qk, qv, tables, kv, 0,
-                                              k_scale=ks, v_scale=vs,
-                                              window=4),
-        "4vq": lambda: tpd.paged_flash_verify(q3, qk, qv, tables, kv, 0,
-                                              k_scale=ks, v_scale=vs),
         "4ve": lambda: tpd.paged_flash_verify(q3, ek, ev, tables, kv, 0),
-        "4vqw": lambda: tpd.paged_flash_verify(q3, qk, qv, tables, kv, 0,
-                                               k_scale=ks, v_scale=vs,
-                                               window=4),
-        "8q": lambda: tpp.paged_flash_prefill(q3, qk, qv, tables, kv, offs,
-                                              0, k_scale=ks, v_scale=vs),
         "8e": lambda: tpp.paged_flash_prefill(q3, ek, ev, tables, kv, offs,
                                               0),
-        "6q": lambda: tqkv.fused_qkv_append(
-            *qkv, qk, qv, 0, offs, n_heads=8, kv_heads=1, tables=tables,
-            cache_ks=ks, cache_vs=vs),
         "6e": lambda: tqkv.fused_qkv_append(
             *qkv, ek, ev, 0, offs, n_heads=8, kv_heads=1, tables=tables),
-        "9": lambda: tpa.paged_append_decode_quant(
-            qk, qv, ks, vs, nk[:, 0], nk[:, 0], tables, offs, 0),
-        "10": lambda: tpa.paged_append_prefill_quant(qk, qv, ks, vs, nk, nk,
-                                                     tables, 0),
         "1e": lambda: tpa.paged_append_decode(ek, ev, nk[:, 0], nk[:, 0],
                                               tables, offs, 0),
         "2e": lambda: tpa.paged_append_prefill(ek, ev, nk, nk, tables, 0),
@@ -571,6 +553,33 @@ def test_forms_outside_the_slice_raise_at_d256():
     for form, call in calls.items():
         with pytest.raises(NotImplementedError, match="head_dim 256"):
             call()
+    # the INT8-KV forms run at D 256 since Gemma's INT8-KV slice (their
+    # values: tests/test_torch_int8kv_d256.py)
+    runs = {
+        "4q": lambda: tpd.paged_flash_decode(q1, qk, qv, tables, kv, 0,
+                                             k_scale=ks, v_scale=vs),
+        "4qw": lambda: tpd.paged_flash_decode(q1, qk, qv, tables, kv, 0,
+                                              k_scale=ks, v_scale=vs,
+                                              window=4),
+        "4vq": lambda: tpd.paged_flash_verify(q3, qk, qv, tables, kv, 0,
+                                              k_scale=ks, v_scale=vs),
+        "4vqw": lambda: tpd.paged_flash_verify(q3, qk, qv, tables, kv, 0,
+                                               k_scale=ks, v_scale=vs,
+                                               window=4),
+        "8q": lambda: tpp.paged_flash_prefill(q3, qk, qv, tables, kv, offs,
+                                              0, k_scale=ks, v_scale=vs),
+        "6q": lambda: tqkv.fused_qkv_append(
+            *qkv, qk.clone(), qv.clone(), 0, offs, n_heads=8, kv_heads=1,
+            tables=tables, cache_ks=ks.clone(), cache_vs=vs.clone())[0],
+        "9": lambda: tpa.paged_append_decode_quant(
+            qk.clone(), qv.clone(), ks.clone(), vs.clone(), nk[:, 0],
+            nk[:, 0], tables, offs, 0)[0],
+        "10": lambda: tpa.paged_append_prefill_quant(
+            qk.clone(), qv.clone(), ks.clone(), vs.clone(), nk, nk, tables,
+            0)[0],
+    }
+    for form, call in runs.items():
+        assert bool(torch.isfinite(call().float()).all()), form
     # and the forms of the slice run at D 256 on the CPU, since Gemma-2's
     # slice the window forms 4w, 8w, 3w and 6k too, since its dense slice
     # the verify forms over pools of q's dtype (4v, 4vw)

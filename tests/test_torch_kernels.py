@@ -2038,10 +2038,12 @@ def test_fused_qkv_append_dense_head_dim_256(cuda, xdt):
 
 
 def test_head_dim_256_forms_outside_the_slice_raise(cuda):
-    # the INT8-KV and e4m3 forms take D <= 128 (the window forms 3w, 4w, 8w
-    # and 6k run at D 256 since Gemma-2's slice, the verify forms 4v and
-    # 4vw over pools of q's dtype since its dense slice): at D 256 each
-    # raises before a launch, naming the head dim and its form
+    # the e4m3 forms take D <= 128 (the window forms 3w, 4w, 8w and 6k run
+    # at D 256 since Gemma-2's slice, the verify forms 4v and 4vw over
+    # pools of q's dtype since its dense slice, the INT8-KV forms since
+    # the INT8-KV slice of Gemma): at D 256 each raises before a launch,
+    # naming the head dim and its form; the INT8-KV forms launch and count
+    # in their module's D256_LAUNCHES
     g = torch.Generator(device=cuda).manual_seed(0)
     bf, e4 = torch.bfloat16, torch.float8_e4m3fn
     pk, pv = _pools(g, cuda, bf, kvn=G_KVN, d=G_D)
@@ -2054,21 +2056,9 @@ def test_head_dim_256_forms_outside_the_slice_raise(cuda):
     offs = torch.zeros(3, dtype=torch.int32, device=cuda)
     nk = torch.randn((3, 4, G_KVN, G_D), generator=g, device=cuda, dtype=bf)
     calls = [
-        lambda: pd.paged_flash_decode(q1, qk, qv, tables, kv, 0, k_scale=ks,
-                                      v_scale=vs),
         lambda: pd.paged_flash_decode(q1, ek, ev, tables, kv, 0),
-        lambda: pd.paged_flash_verify(q3, qk, qv, tables, kv, 0, k_scale=ks,
-                                      v_scale=vs),
-        lambda: pd.paged_flash_verify(q3, qk, qv, tables, kv, 0, k_scale=ks,
-                                      v_scale=vs, window=4),
         lambda: pd.paged_flash_verify(q3, ek, ev, tables, kv, 0),
-        lambda: pp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
-                                       k_scale=ks, v_scale=vs),
         lambda: pp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0),
-        lambda: pa.paged_append_decode_quant(qk, qv, ks, vs, nk[:, 0],
-                                             nk[:, 0], tables, offs, 0),
-        lambda: pa.paged_append_prefill_quant(qk, qv, ks, vs, nk, nk,
-                                              tables, 0),
         lambda: pa.paged_append_decode(ek, ev, nk[:, 0], nk[:, 0], tables,
                                        offs, 0),
         lambda: pa.paged_append_prefill(ek, ev, nk, nk, tables, 0),
@@ -2076,6 +2066,33 @@ def test_head_dim_256_forms_outside_the_slice_raise(cuda):
     for call in calls:
         with pytest.raises(NotImplementedError, match="head_dim 256"):
             call()
+    runs = [
+        (pd.D256_LAUNCHES, "paged_flash_decode_int8kv",
+         lambda: pd.paged_flash_decode(q1, qk, qv, tables, kv, 0,
+                                       k_scale=ks, v_scale=vs)),
+        (pd.D256_LAUNCHES, "paged_flash_verify_int8kv",
+         lambda: pd.paged_flash_verify(q3, qk, qv, tables, kv, 0,
+                                       k_scale=ks, v_scale=vs)),
+        (pd.D256_LAUNCHES, "paged_flash_verify_int8kv_window",
+         lambda: pd.paged_flash_verify(q3, qk, qv, tables, kv, 0,
+                                       k_scale=ks, v_scale=vs, window=4)),
+        (pp.D256_LAUNCHES, "paged_flash_prefill_int8kv",
+         lambda: pp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
+                                        k_scale=ks, v_scale=vs)),
+        (pa.D256_LAUNCHES, "paged_append_decode_quant",
+         lambda: pa.paged_append_decode_quant(qk, qv, ks, vs, nk[:, 0],
+                                              nk[:, 0], tables, offs, 0)[0]),
+        (pa.D256_LAUNCHES, "paged_append_prefill_quant",
+         lambda: pa.paged_append_prefill_quant(qk, qv, ks, vs, nk, nk,
+                                               tables, 0)[0]),
+    ]
+    for counts, form, call in runs:
+        before = counts[form]
+        out = call()
+        torch.cuda.synchronize()
+        assert counts[form] == before + 1, form
+        if out.dtype == bf:
+            assert bool(torch.isfinite(out).all()), form
 
 
 # ------------------------------------- Gemma-2-2B: the soft cap, D-256 windows
@@ -2226,9 +2243,11 @@ def test_fused_qkv_append_kv_layer_head_dim_256(cuda, xdt, pdt, b):
 
 
 def test_softcap_forms_outside_the_slice_raise(cuda):
-    # the cap over INT8 and e4m3 pools (decode, verify and prefill) raises
-    # before any launch (on verify rows and on the dense arena over pools
-    # of q's dtype it runs since Gemma-2's dense slice)
+    # the cap over e4m3 pools (decode, verify and prefill) raises before
+    # any launch; over INT8 pools (4qc, 4vqc, 8qc) it launches and counts
+    # in CAP_LAUNCHES under the INT8-KV form's name (on verify rows and on
+    # the dense arena over pools of q's dtype it runs since Gemma-2's
+    # dense slice)
     g = torch.Generator(device=cuda).manual_seed(1)
     bf, e4 = torch.bfloat16, torch.float8_e4m3fn
     pk, pv = _pools(g, cuda, bf, kvn=2, d=64)
@@ -2241,24 +2260,35 @@ def test_softcap_forms_outside_the_slice_raise(cuda):
     offs = torch.zeros(3, dtype=torch.int32, device=cuda)
     cap = dict(logit_cap=G2_CAP)
     calls = [
-        lambda: pd.paged_flash_decode(q1, qk, qv, tables, kv, 0, k_scale=ks,
-                                      v_scale=vs, **cap),
         lambda: pd.paged_flash_decode(q1, ek, ev, tables, kv, 0, **cap),
-        lambda: pd.paged_flash_verify(q3, qk, qv, tables, kv, 0, k_scale=ks,
-                                      v_scale=vs, **cap),
         lambda: pd.paged_flash_verify(q3, ek, ev, tables, kv, 0, **cap),
-        lambda: pp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
-                                       k_scale=ks, v_scale=vs, **cap),
         lambda: pp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0,
                                        **cap),
     ]
-    forms = (pd.paged_flash_decode_int8kv, pd.paged_flash_decode_fp8kv,
-             pd.paged_flash_verify_int8kv, pd.paged_flash_verify_fp8kv)
+    forms = (pd.paged_flash_decode_fp8kv, pd.paged_flash_verify_fp8kv,
+             pp.paged_flash_prefill_fp8kv)
     before = ([f.launches for f in forms], dict(fp.CAP_LAUNCHES))
     for call in calls:
         with pytest.raises(NotImplementedError, match="soft cap"):
             call()
     assert before == ([f.launches for f in forms], dict(fp.CAP_LAUNCHES))
+    runs = [
+        ("paged_flash_decode_int8kv",
+         lambda: pd.paged_flash_decode(q1, qk, qv, tables, kv, 0, k_scale=ks,
+                                       v_scale=vs, **cap)),
+        ("paged_flash_verify_int8kv",
+         lambda: pd.paged_flash_verify(q3, qk, qv, tables, kv, 0,
+                                       k_scale=ks, v_scale=vs, **cap)),
+        ("paged_flash_prefill_int8kv",
+         lambda: pp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
+                                        k_scale=ks, v_scale=vs, **cap)),
+    ]
+    for form, call in runs:
+        n = fp.CAP_LAUNCHES.get((form, 64), 0)
+        out = call()
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all()), form
+        assert fp.CAP_LAUNCHES[form, 64] == n + 1, form
 
 
 # --------------------- Gemma-2 on the dense arena and under speculation
@@ -2482,8 +2512,9 @@ def test_paged_flash_prefill_sinks(cuda, dtype, window, sq, above):
 
 
 def test_sink_forms_outside_the_slice_raise(cuda):
-    # sinks over INT8 and e4m3 pools and at head_dim 256 raise; on verify
-    # rows and on the dense arena they run (the tests above)
+    # sinks over e4m3 pools and at head_dim 256 (float and INT8 pools)
+    # raise; over INT8 pools (4qs, 4vqs), on verify rows and on the dense
+    # arena they run (the tests above and below)
     g = torch.Generator(device=cuda).manual_seed(68)
     pk, pv = _pools(g, cuda, torch.bfloat16, b=2, kvn=OSS_KVN, d=OSS_D)
     tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=cuda)
@@ -2493,13 +2524,23 @@ def test_sink_forms_outside_the_slice_raise(cuda):
     sinks = torch.zeros(OSS_N, device=cuda)
     qk, ks = pa.quantize_kv(pk.float())
     qv, vs = pa.quantize_kv(pv.float())
-    with pytest.raises(NotImplementedError, match="INT8 KV"):
-        pd.paged_flash_decode(q3[:, 0], qk, qv, tables, kv, 0, k_scale=ks,
-                              v_scale=vs, sinks=sinks)
-    with pytest.raises(NotImplementedError, match="INT8 KV"):
-        pd.paged_flash_verify(q3, qk, qv, tables, kv, 0, k_scale=ks,
-                              v_scale=vs, sinks=sinks)
+    for form, call in (
+            ("paged_flash_decode_int8kv",
+             lambda: pd.paged_flash_decode(q3[:, 0], qk, qv, tables, kv, 0,
+                                           k_scale=ks, v_scale=vs,
+                                           sinks=sinks)),
+            ("paged_flash_verify_int8kv",
+             lambda: pd.paged_flash_verify(q3, qk, qv, tables, kv, 0,
+                                           k_scale=ks, v_scale=vs,
+                                           sinks=sinks))):
+        n = fp.SINK_LAUNCHES.get((form, OSS_D), 0)
+        out = call()
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all()), form
+        assert fp.SINK_LAUNCHES[form, OSS_D] == n + 1, form
     ek, ev = pk.to(torch.float8_e4m3fn), pv.to(torch.float8_e4m3fn)
+    with pytest.raises(NotImplementedError, match="FP8 KV"):
+        pd.paged_flash_decode(q3[:, 0], ek, ev, tables, kv, 0, sinks=sinks)
     with pytest.raises(NotImplementedError, match="FP8 KV"):
         pd.paged_flash_verify(q3, ek, ev, tables, kv, 0, sinks=sinks)
     from simplellminference_tpu_torch.ops.attention import flash_decode as fd
@@ -2511,6 +2552,10 @@ def test_sink_forms_outside_the_slice_raise(cuda):
     with pytest.raises(NotImplementedError, match="head_dim 256"):
         fd.flash_decode(q256[:, 0], p256[:, :2], p256[:, :2], kv, layer=0,
                         sinks=sinks)
+    c256, s256 = pa.quantize_kv(p256.float())
+    with pytest.raises(NotImplementedError, match="head_dim 256"):
+        pd.paged_flash_decode(q256[:, 0], c256, c256, tables, kv, 0,
+                              k_scale=s256, v_scale=s256, sinks=sinks)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -2675,3 +2720,285 @@ def test_moe_grouped_prefill_on_the_card(cuda, dtype, skew):
     tol = (1e-5 if dtype == torch.float32 else 2e-2) * float(
         want.abs().max())
     assert err <= tol, (err, tol)
+
+
+# --------------- INT8 KV with sinks, the soft cap, and at head_dim 256
+# gpt-oss-20b over INT8 KV (4qs, 4qws, 4vqs, 4vqws, 8qs, 8qws at D 64),
+# Gemma-2 over INT8 KV (4qc, 4qwc, 4vqc, 4vqwc, 8qc, 8qwc at D 128 and
+# 256), Gemma-1 over INT8 KV (4q, 4vq, 8q at D 256), the quantizing writes
+# (9, 10) and the quantizing fused qkv (6q) at D 256. Pools quantized from
+# N(0, 1) rows (scales near 0.02, far from 1); q x SCORE_X passes the cap.
+
+INT8_CASES = {  # name: (n, kvn, d, cap, sink kind)
+    "4qs": (OSS_N, OSS_KVN, OSS_D, None, "n01"),
+    "4qs-above": (OSS_N, OSS_KVN, OSS_D, None, "above"),
+    "4qc-d128": (32, 8, 128, G2_CAP, None),
+    "4qc-d256": (G2_N, G2_KVN, 256, G2_CAP, None),
+    "4q-d256": (G_N, G_KVN, 256, None, None),
+}
+
+
+def _int8_opts(g, dev, n, cap, sink):
+    sinks = None if sink is None else _oss_sinks(g, dev, sink == "above")
+    return dict(logit_cap=cap, sinks=sinks)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 70], ids=["plain", "window"])
+@pytest.mark.parametrize("case", list(INT8_CASES))
+def test_paged_flash_decode_int8kv_options(cuda, dtype, window, case):
+    # kv_len 0, 1, a tile edge, the window's edges and 4096 (the key walk
+    # split over blocks: a sink seeded in every split would count several
+    # times); a dead slot; the window over ring tables whose columns below
+    # the band point at pages with NaN scales
+    n, kvn, d, cap, sink = INT8_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(list(INT8_CASES).index(case) + 3)
+    lens = [0, 1, 64, 70, 71, 4096, 300, 3]
+    b, ps = len(lens), 128
+    mp = 4096 // ps
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q = torch.randn((b, n, d), generator=g, device=cuda, dtype=dtype)
+    if cap:
+        q = q * 30.0                          # scores past the cap
+    opts = _int8_opts(g, cuda, n, cap, sink)
+    if window:
+        r = (window + 128 - 2) // ps + 2
+        (pk, pv, ks, vs), ring = _ring_case(g, cuda, dtype, True, b, r,
+                                            mp, kvn, d, ps)
+        clean = ring
+        dirty = _poisoned(ring, kv - window, ps, b * r)
+    else:
+        pk, pv, ks, vs = _quant_pools(g, cuda, b=b, kvn=kvn, ps=ps, d=d,
+                                      mp=mp)
+        clean = torch.randperm(b * mp, generator=g, device=cuda).to(
+            torch.int32).reshape(b, mp)
+        clean[-1] = -1
+        dirty = clean
+    form = (pd.paged_flash_decode_int8kv_window if window
+            else pd.paged_flash_decode_int8kv)
+    before = form.launches
+    got = pd.paged_flash_decode(q, pk, pv, dirty, kv, 1, k_scale=ks,
+                                v_scale=vs, window=window, **opts)
+    assert form.launches == before + 1
+    want = pd.paged_flash_decode_ref(q, pk, pv, clean, kv, 1, k_scale=ks,
+                                     v_scale=vs, window=window, **opts)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    assert _close(got, want, dtype)
+    assert not got[0].any()
+    assert window or pd.decode_splits(b, kvn, mp * ps) > 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 70], ids=["plain", "window"])
+@pytest.mark.parametrize("case", ["4vqs", "4vqs-above", "4vqc-d256",
+                                  "4vq-d256-group8"])
+def test_paged_flash_verify_int8kv_options(cuda, dtype, window, case):
+    # S 5: gpt-oss-20b's group of 8 (40 rows, two row blocks), Gemma-2's
+    # group of 2 capped at D 256, Gemma-1's group of 8 at D 256 (two row
+    # blocks); kv_len 0, 1, 5, 4096 (split walks); a dead slot
+    n, kvn, d, cap, sink = {
+        "4vqs": (OSS_N, OSS_KVN, OSS_D, None, "n01"),
+        "4vqs-above": (OSS_N, OSS_KVN, OSS_D, None, "above"),
+        "4vqc-d256": (G2_N, G2_KVN, 256, G2_CAP, None),
+        "4vq-d256-group8": (G_N, G_KVN, 256, None, None)}[case]
+    g = torch.Generator(device=cuda).manual_seed(len(case) + 5)
+    lens = [0, 1, 5, 132, 4096, 3]
+    b, s, ps = len(lens), 5, 128
+    mp = 4096 // ps
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q = torch.randn((b, s, n, d), generator=g, device=cuda, dtype=dtype)
+    if cap:
+        q = q * 30.0
+    opts = _int8_opts(g, cuda, n, cap, sink)
+    pk, pv, ks, vs = _quant_pools(g, cuda, b=b, kvn=kvn, ps=ps, d=d, mp=mp)
+    tables = torch.randperm(b * mp, generator=g, device=cuda).to(
+        torch.int32).reshape(b, mp)
+    tables[-1] = -1
+    form = (pd.paged_flash_verify_int8kv_window if window
+            else pd.paged_flash_verify_int8kv)
+    before = form.launches
+    got = pd.paged_flash_verify(q, pk, pv, tables, kv, 1, k_scale=ks,
+                                v_scale=vs, window=window, **opts)
+    assert form.launches == before + 1
+    want = pd.paged_flash_verify_ref(q, pk, pv, tables, kv, 1, k_scale=ks,
+                                     v_scale=vs, window=window, **opts)
+    assert bool(torch.isfinite(got).all())
+    for i, ln in enumerate(lens):
+        live = [r for r in range(s) if ln - s + r >= 0]
+        if live:
+            assert _close(got[i, live], want[i, live], dtype)
+        assert not got[i, [r for r in range(s) if r not in live]].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 100], ids=["plain", "window"])
+@pytest.mark.parametrize("case", ["8qs", "8qs-above", "8qc-d128",
+                                  "8qc-d256", "8q-d256"])
+def test_paged_flash_prefill_int8kv_options(cuda, dtype, window, case):
+    # a 256-row chunk at offset 256, 64 rows at offset 4096 (bf16: the key
+    # walk split over blocks), a ragged row and a padding row (-1 table,
+    # kv_len 1)
+    n, kvn, d, cap, sink = {
+        "8qs": (OSS_N, OSS_KVN, OSS_D, None, "n01"),
+        "8qs-above": (OSS_N, OSS_KVN, OSS_D, None, "above"),
+        "8qc-d128": (32, 8, 128, G2_CAP, None),
+        "8qc-d256": (G2_N, G2_KVN, 256, G2_CAP, None),
+        "8q-d256": (G_N, G_KVN, 256, None, None)}[case]
+    g = torch.Generator(device=cuda).manual_seed(len(case) + 7)
+    ps = 128
+    for sq, offs, lens in ((256, [256], [512]),
+                           (64, [4096, 0, 0], [4160, 37, 1])):
+        b = len(offs)
+        mp = -(-max(o + sq for o in offs) // ps)
+        pk, pv, ks, vs = _quant_pools(g, cuda, b=b, kvn=kvn, ps=ps, d=d,
+                                      mp=mp)
+        tables = torch.randperm(b * mp, generator=g, device=cuda).to(
+            torch.int32).reshape(b, mp)
+        if b > 2:
+            tables[2] = -1
+        off_t = torch.tensor(offs, dtype=torch.int32, device=cuda)
+        kv_t = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        q = torch.randn((b, sq, n, d), generator=g, device=cuda, dtype=dtype)
+        if cap:
+            q = q * 30.0
+        opts = _int8_opts(g, cuda, n, cap, sink)
+        form = (pp.paged_flash_prefill_int8kv_window if window
+                else pp.paged_flash_prefill_int8kv)
+        before = form.launches
+        got = pp.paged_flash_prefill(q, pk, pv, tables, kv_t, off_t, 1,
+                                     window=window, k_scale=ks, v_scale=vs,
+                                     **opts)
+        assert form.launches == before + 1
+        want = pp.paged_flash_prefill_ref(q, pk, pv, tables, kv_t, off_t, 1,
+                                          window=window, k_scale=ks,
+                                          v_scale=vs, **opts)
+        assert bool(torch.isfinite(got).all())
+        for i in range(b):
+            valid = max(0, min(sq, lens[i] - offs[i]))
+            assert _attn_ok(got[i, :valid], want[i, :valid]), (sq, i)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [128, 100, 1])
+def test_paged_append_quant_head_dim_256(cuda, dtype, s):
+    # kernels 9 and 10 at D 256 (8 values a lane): byte-equal to their
+    # plain versions, counted in paged_append.D256_LAUNCHES
+    g = torch.Generator(device=cuda).manual_seed(900 + s)
+    pools = _quant_pools(g, cuda, kvn=G2_KVN, d=256)
+    big = torch.randn((3, s, 3 * G2_KVN * 256), generator=g, device=cuda,
+                      dtype=dtype) * 3
+    nk = big[..., :G2_KVN * 256].reshape(3, s, G2_KVN, 256)
+    nv = big[..., 2 * G2_KVN * 256:].reshape(3, s, G2_KVN, 256)
+    pos = torch.tensor([130, 7, 3], dtype=torch.int32, device=cuda)
+    for name, kern, ref, args in (
+            ("paged_append_prefill_quant", pa.paged_append_prefill_quant,
+             pa.paged_append_prefill_quant_ref, (nk, nv, _tables(cuda), 1)),
+            ("paged_append_decode_quant", pa.paged_append_decode_quant,
+             pa.paged_append_decode_quant_ref,
+             (nk[:, 0], nv[:, 0], _tables(cuda), pos, 0))):
+        a, r = [p.clone() for p in pools], [p.clone() for p in pools]
+        before = (kern.launches, pa.D256_LAUNCHES[name])
+        kern(*a, *args)
+        assert (kern.launches, pa.D256_LAUNCHES[name]) == (before[0] + 1,
+                                                           before[1] + 1)
+        ref(*r, *args)
+        for x, y in zip(a, r):
+            assert torch.equal(x[:, :-1], y[:, :-1]), name
+
+
+def _qkv_int8kv_256(g, cuda, xdt, n, kvn, b, h=2048, kv_layer=None):
+    """Kernel 6q at head_dim 256 (Gemma's widths: H 2048, n heads over kvn
+    kv heads of 256): the call and its plain version's result on copies
+    of the same INT8 pools, and the rows it writes."""
+    d, L, ps, mp = 256, 2, 128, 6
+    pos = torch.tensor([5, 127, 128, 40, 300, 3, 255, 600][:b],
+                       dtype=torch.int32, device=cuda)
+    tables = torch.arange(b * mp, dtype=torch.int32,
+                          device=cuda).reshape(b, mp)
+    tables[b - 1, pos[b - 1] // ps] = -1       # the trash page
+    nq = (n + 2 * kvn) * d
+    wq, ws = _qw(g, cuda, (L, h, nq), 1)
+    nw = torch.rand((L, h), generator=g, device=cuda).to(xdt) + 0.5
+    x = torch.randn((b, h), generator=g, device=cuda).to(xdt)
+    sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
+    pools = _quant_pools(g, cuda, b=b, kvn=kvn, ps=ps, d=d, mp=mp)
+    kw = dict(n_heads=n, kv_heads=kvn, tables=tables, kv_layer=kv_layer)
+    kli = 1 if kv_layer is None else kv_layer
+    written = torch.zeros(pools[2].shape, dtype=torch.bool, device=cuda)
+    for i, p in enumerate(pos.tolist()):
+        page = int(tables[i, p // ps])
+        written[kli, page if page >= 0 else pools[2].shape[1] - 1, :,
+                p % ps] = True
+
+    def call(p):
+        return qf.fused_qkv_append(x, nw, wq, ws, sin, cos, p[0], p[1], 1,
+                                   pos, cache_ks=p[2], cache_vs=p[3], **kw)[0]
+
+    r = [p.clone() for p in pools]
+    qr = qf.fused_qkv_append_ref(x, nw, wq, ws, sin, cos, r[0], r[1], 1, pos,
+                                 cache_ks=r[2], cache_vs=r[3], **kw)[0]
+    return pools, call, qr, r, written
+
+
+@pytest.mark.parametrize("xdt", DTYPES)
+@pytest.mark.parametrize("n,kvn,b", [(G_N, G_KVN, 8), (G2_N, G2_KVN, 3)],
+                         ids=["gemma", "gemma2"])
+@pytest.mark.parametrize("kv_layer", [None, 0], ids=["6q", "6q-kv_layer"])
+def test_fused_qkv_append_int8kv_head_dim_256(cuda, xdt, n, kvn, b,
+                                              kv_layer):
+    # 6q/256: bf16 rows on 6m, f32 rows on the FMA kernel; a head's columns
+    # lie in two blocks, whose rounded halves a further launch quantizes:
+    # codes at most one apart, scales within 1e-5 (f32) or one bf16 ulp of
+    # the absmax (bf16), q as the fused qkv's rule, every other entry equal
+    g = torch.Generator(device=cuda).manual_seed(256 * b + (kv_layer or 0))
+    pools, call, qr, r, written = _qkv_int8kv_256(g, cuda, xdt, n, kvn, b,
+                                                  kv_layer=kv_layer)
+    a = [p.clone() for p in pools]
+    nq = (n + 2 * kvn) * 256
+    before = (qf.fused_qkv_append_int8kv.launches,
+              dict(qf.D256_FORM_LAUNCHES))
+    with _one_launch(qf.QKV_REGIME_LAUNCHES,
+                     qf.qkv_regime(b, 2048, nq, 256, xdt)):
+        qa = call(a)
+    assert qf.fused_qkv_append_int8kv.launches == before[0] + 1
+    assert qf.D256_FORM_LAUNCHES["fused_qkv_append_int8kv"] == before[1][
+        "fused_qkv_append_int8kv"] + 1
+    assert qf.D256_FORM_LAUNCHES["fused_qkv_append_int8kv_kv_layer"] == (
+        before[1]["fused_qkv_append_int8kv_kv_layer"] + (kv_layer is not None))
+    tol = 1e-5 if xdt == torch.float32 else 2e-2
+    assert float((qa.float() - qr.float()).abs().max()) <= tol * float(
+        qr.float().std())
+    for x_a, x_r in zip(a[:2], r[:2]):
+        assert torch.equal(x_a[~written], x_r[~written])
+        assert int((x_a[written].int() - x_r[written].int()).abs().max()) <= 1
+    for s_a, s_r in zip(a[2:], r[2:]):
+        assert torch.equal(s_a[~written], s_r[~written])
+        if xdt == torch.float32:
+            lim = 1e-5 * s_r[written]
+        else:
+            lim = _bf16_ulp(s_r[written] * 127.0) / 127.0 * (1 + 1e-6)
+        assert bool(((s_a[written] - s_r[written]).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("kv_layer", [None, 0], ids=["6q", "6q-kv_layer"])
+def test_fused_qkv_append_int8kv_head_dim_256_graph_replay(cuda, kv_layer):
+    # 6q/256 at Gemma-2B's widths, 8 bf16 rows (6m's K split: arrival
+    # counters, then the quantizing launch): replays of a captured call
+    # and eager calls between them give the eager output bit for bit
+    g = torch.Generator(device=cuda).manual_seed(77 + (kv_layer or 0))
+    pools, call, _qr, _r, _w = _qkv_int8kv_256(g, cuda, torch.bfloat16,
+                                               G_N, G_KVN, 8,
+                                               kv_layer=kv_layer)
+    assert qf.qkv_split(8, 2048, (G_N + 2 * G_KVN) * 2) < 2048
+
+    def step():
+        return (call(pools), *(p.clone() for p in pools))
+    eager = step()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, e) for o, e in zip(out, eager))
+        assert all(torch.equal(o, e) for o, e in zip(step(), eager))

@@ -120,26 +120,33 @@ def test_plain_matches_jax_dispatch_any_sq(s, offs, lens):
     _valid_close(got, want, kv, offs)
 
 
-@pytest.mark.parametrize("kw,feature", [
-    # sinks run over pools of q's dtype (8s, 8ws: tests/test_torch_sinks.py
-    # and test_sinks_run_over_float_pools below), not over INT8 KV
-    (dict(window=16, sinks=torch.zeros(4), k_scale=torch.ones(1),
-          v_scale=torch.ones(1)), "sinks"),
-    # the cap runs over pools of q's dtype (tests/test_torch_softcap.py),
-    # not over INT8 KV
-    (dict(logit_cap=30.0, k_scale=torch.ones(1), v_scale=torch.ones(1)),
-     "soft cap"),
-    (dict(sinks=torch.zeros(4), k_scale=torch.ones(1)), "sinks"),
-    (dict(k_scale=torch.ones(1)), "INT8 KV"),     # no V scale pool
+@pytest.mark.parametrize("kw,feature,fp8", [
+    # sinks run over pools of q's dtype and INT8 pools (8s, 8ws, 8qs, 8qws:
+    # tests/test_torch_sinks.py, tests/test_torch_int8kv_sinks_cap.py and
+    # test_sinks_run_over_float_pools below), not over e4m3 pools, with or
+    # without a window
+    (dict(window=16, sinks=torch.zeros(4)), "FP8 KV", True),
+    # the cap runs over pools of q's dtype and INT8 pools
+    # (tests/test_torch_softcap.py, tests/test_torch_int8kv_sinks_cap.py),
+    # not over e4m3 pools
+    (dict(logit_cap=30.0), "soft cap", True),
+    (dict(sinks=torch.zeros(4)), "sinks", True),
+    (dict(k_scale=torch.ones(1)), "INT8 KV", False),     # no V scale pool
 ])
-def test_unported_options_raise(kw, feature):
+def test_unported_options_raise(kw, feature, fp8):
     rng = np.random.default_rng(0)
     q, pk, pv, tables, kv, offs = _case(rng, 2, 16, 4, 2, 32, 8, 4)
+    if fp8:
+        pk, pv = (x.astype(np.float32) for x in (pk, pv))
+        pk = t(pk).to(torch.float8_e4m3fn)
+        pv = t(pv).to(torch.float8_e4m3fn)
+    else:
+        pk, pv = t(pk), t(pv)
     with pytest.raises(NotImplementedError, match=feature):
-        paged_flash_prefill(t(q), t(pk), t(pv), t(tables), t(kv), t(offs),
-                            0, **kw)
+        paged_flash_prefill(t(q), pk, pv, t(tables), t(kv), t(offs), 0,
+                            **kw)
     with pytest.raises(NotImplementedError, match="shared-KV"):
-        paged_flash_prefill(t(q), t(pk), None, t(tables), t(kv), t(offs), 0)
+        paged_flash_prefill(t(q), pk, None, t(tables), t(kv), t(offs), 0)
 
 
 @pytest.mark.parametrize("window", [None, 16], ids=["8s", "8ws"])

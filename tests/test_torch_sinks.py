@@ -478,10 +478,10 @@ def test_sink_forms_count_their_launches_apart():
 
 
 def test_sinks_outside_the_slice_raise():
-    """Sinks over INT8 and e4m3 pools (decode, verify and prefill) and at
-    head_dim 256 raise NotImplementedError naming the form, on the CPU as
-    on the card; on verify rows (4vs) and on the dense arena (13s) they
-    run."""
+    """Sinks over e4m3 pools (decode, verify and prefill) and at head_dim
+    256 (over float and INT8 pools) raise NotImplementedError naming the
+    form, on the CPU as on the card; over INT8 pools (4qs, 4vqs, 8qs), on
+    verify rows (4vs) and on the dense arena (13s) they run."""
     rng = np.random.default_rng(1)
     d = 32
     shape = (2, 7, KVN, PS, d)
@@ -495,14 +495,20 @@ def test_sinks_outside_the_slice_raise():
     q1, q3 = t(rand(rng, 3, N, d)), t(rand(rng, 3, 3, N, d))
     arena = t(rand(rng, 2, 3, KVN, 16, d))
     sk = dict(sinks=torch.zeros(N))
+    # sinks over INT8 pools run: decode, verify and prefill rows
+    for fn, want in (
+            (lambda: tpd.paged_flash_decode(q1, qk, qv, tables, kv, 0,
+                                            k_scale=ks, v_scale=vs, **sk),
+             q1.shape),
+            (lambda: tpd.paged_flash_verify(q3, qk, qv, tables, kv, 0,
+                                            k_scale=ks, v_scale=vs, **sk),
+             q3.shape),
+            (lambda: tpp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
+                                             k_scale=ks, v_scale=vs, **sk),
+             q3.shape)):
+        out = fn()
+        assert out.shape == want and bool(torch.isfinite(out).all())
     calls = {
-        "sinks over INT8 KV": [
-            lambda: tpd.paged_flash_decode(q1, qk, qv, tables, kv, 0,
-                                           k_scale=ks, v_scale=vs, **sk),
-            lambda: tpd.paged_flash_verify(q3, qk, qv, tables, kv, 0,
-                                           k_scale=ks, v_scale=vs, **sk),
-            lambda: tpp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
-                                            k_scale=ks, v_scale=vs, **sk)],
         "sinks over FP8 KV": [
             lambda: tpd.paged_flash_decode(q1, ek, ev, tables, kv, 0, **sk),
             lambda: tpd.paged_flash_verify(q3, ek, ev, tables, kv, 0, **sk),
@@ -519,10 +525,23 @@ def test_sinks_outside_the_slice_raise():
                                       **sk).shape == q3.shape
         assert tfd.flash_decode(q1, arena, arena, kv, layer=0, window=w,
                                 **sk).shape == q1.shape
-    # no model with sinks has head_dim 256: the sink forms take 32-128
+    # no model with sinks has head_dim 256: the sink forms take 32-128,
+    # over float pools and INT8 ones
     q256, p256 = t(rand(rng, 3, N, 256)), t(rand(rng, 2, 7, KVN, PS, 256))
     a256 = t(rand(rng, 2, 3, KVN, 16, 256))
-    for fn in (lambda: tpd.paged_flash_decode(q256, p256, p256, tables, kv,
+    c256, s256 = tpa.quantize_kv(p256)
+    for fn in (lambda: tpd.paged_flash_decode(q256, c256, c256, tables, kv,
+                                              0, k_scale=s256, v_scale=s256,
+                                              **sk),
+               lambda: tpd.paged_flash_verify(q256[:, None], c256, c256,
+                                              tables, kv, 0, k_scale=s256,
+                                              v_scale=s256, **sk),
+               lambda: tpp.paged_flash_prefill(q256[:, None], c256, c256,
+                                               tables, kv, offs, 0,
+                                               k_scale=s256, v_scale=s256,
+                                               **sk),
+               lambda: tpd.paged_flash_decode(q256, p256, p256, tables, kv,
+                                              0, **sk),lambda: tpd.paged_flash_decode(q256, p256, p256, tables, kv,
                                               0, **sk),
                lambda: tpd.paged_flash_verify(q256[:, None], p256, p256,
                                               tables, kv, 0, **sk),

@@ -266,26 +266,31 @@ def test_forms_outside_the_slice_raise(d):
     q1, q3 = t(rand(rng, 3, N, d)), t(rand(rng, 3, 3, N, d))
     arena = t(rand(rng, 2, 3, KVN, 16, d))
     cap = dict(logit_cap=CAP)
+    # the cap over INT8 pools runs (4qc, 4vqc, 8qc), at D 256 too
+    for fn, want in (
+            (lambda: tpd.paged_flash_decode(q1, qk, qv, tables, kv, 0,
+                                            k_scale=ks, v_scale=vs, **cap),
+             q1.shape),
+            (lambda: tpd.paged_flash_verify(q3, qk, qv, tables, kv, 0,
+                                            k_scale=ks, v_scale=vs, **cap),
+             q3.shape),
+            (lambda: tpp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
+                                             k_scale=ks, v_scale=vs, **cap),
+             q3.shape)):
+        out = fn()
+        assert out.shape == want and bool(torch.isfinite(out).all())
     calls = {
-        "over INT8 KV": [
-            lambda: tpd.paged_flash_decode(q1, qk, qv, tables, kv, 0,
-                                           k_scale=ks, v_scale=vs, **cap),
-            lambda: tpd.paged_flash_verify(q3, qk, qv, tables, kv, 0,
-                                           k_scale=ks, v_scale=vs, **cap),
-            lambda: tpp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
-                                            k_scale=ks, v_scale=vs, **cap)],
         "over FP8 KV": [
             lambda: tpd.paged_flash_decode(q1, ek, ev, tables, kv, 0, **cap),
             lambda: tpd.paged_flash_verify(q3, ek, ev, tables, kv, 0, **cap),
             lambda: tpp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0,
                                             **cap)],
-        # sinks run over pools of q's dtype since GPT-OSS's slices (3s,
-        # 4s, 8s, 4vs, 13s: tests/test_torch_sinks.py); over INT8 and
-        # e4m3 pools they raise
+        # sinks run over pools of q's dtype and INT8 pools (3s, 4s, 8s,
+        # 4vs, 13s, 4qs, 8qs: tests/test_torch_sinks.py); over e4m3 pools
+        # they raise
         "sinks": [
-            lambda: tpp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
-                                            k_scale=ks, v_scale=vs,
-                                            sinks=torch.zeros(N)),
+            lambda: tpd.paged_flash_decode(q1, ek, ev, tables, kv, 0,
+                                           sinks=torch.zeros(N)),
             lambda: tpd.paged_flash_verify(q3, ek, ev, tables, kv, 0,
                                            sinks=torch.zeros(N))],
     }
@@ -302,12 +307,18 @@ def test_forms_outside_the_slice_raise(d):
     for w in (None, 4):
         assert tfd.flash_decode(q1, arena, arena, kv, layer=0, window=w,
                                 **cap).shape == q1.shape
-    # sinks with the cap over pools of q's dtype run (paged prefill,
-    # self-attention of a prompt, verify rows and the dense arena), but at
-    # head_dim 256, which no model with sinks has
+    # sinks with the cap over pools of q's dtype and INT8 pools run (paged
+    # prefill, self-attention of a prompt, verify rows and the dense
+    # arena), but at head_dim 256, which no model with sinks has
     sink_calls = (
         lambda: tpp.paged_flash_prefill(q3, pk, pv, tables, kv, offs, 0,
                                         sinks=torch.zeros(N), **cap),
+        lambda: tpp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
+                                        k_scale=ks, v_scale=vs,
+                                        sinks=torch.zeros(N), **cap),
+        lambda: tpd.paged_flash_verify(q3, qk, qv, tables, kv, 0, window=4,
+                                       k_scale=ks, v_scale=vs,
+                                       sinks=torch.zeros(N), **cap),
         lambda: dispatch.attention(ModelConfig.tiny_test(attn_sinks=True), q3,
                                    pk[0, :3, :, :3].transpose(1, 2),
                                    pk[0, :3, :, :3].transpose(1, 2),
