@@ -18,8 +18,8 @@
 // clamps past-the-end grid steps (flash_decode.py:172-181); its bk,
 // rows_target and max_kv tiling hints have no counterpart. The forms take
 // the sliding window of the TPU kernels (paged_decode.py:73-75, :98-101;
-// flash_decode.py:67-70, :83-86; window > 0; the wrappers refuse it over
-// e4m3 pools): each row attends only keys within `window` of its own
+// flash_decode.py:67-70, :83-86; window > 0; over e4m3 pools too, forms
+// 4ew and 4vew): each row attends only keys within `window` of its own
 // position, and the dense walk starts at the band, kv_len - window, as
 // the TPU kernel's index map skips the blocks below it
 // (flash_decode.py:172-181: a step costs O(window), not O(kv_len)).
@@ -34,10 +34,11 @@
 // kernel (paged_decode.py:84-91): capping before the K scale would be
 // another function, equal only at scale 1. The cap over e4m3 pools raises
 // in the wrappers and is refused here. GPT-OSS's attention sinks on every
-// form over pools of q's dtype or int8 pools at D 32-128: decode and
-// verify rows, with or without a window, and the dense arena (sinks !=
-// nullptr: the layer's f32 logit of each q head; forms 4s, 4ws, 4vs,
-// 4vws, 13s, 13ws, and over int8 pools 4qs, 4qws, 4vqs, 4vqws;
+// form over every pool dtype at D 32-128: decode and verify rows, with or
+// without a window, and the dense arena (sinks != nullptr: the layer's
+// f32 logit of each q head; forms 4s, 4ws, 4vs, 4vws, 13s, 13ws, over
+// int8 pools 4qs, 4qws, 4vqs, 4vqws, over e4m3 pools 4es, 4ews, 4ves,
+// 4vews;
 // paged_decode.py:29-35, :57-67, flash_decode.py: 43-62, :191-194): a
 // sink joins the row's softmax denominator and adds
 // no value, so split 0's block seeds each row's state with (m, l) = (its
@@ -54,8 +55,10 @@
 // where the state is seeded, no further instantiation. Over int8 pools
 // the seed stays outside both scales: the K scale multiplies a key's
 // score and the V scale its probability after l has taken it, so l sums
-// unscaled weights and (sink, 1) enters it as over bf16 pools. Sinks over
-// e4m3 pools and at D 256 raise in the wrappers and are refused here.
+// unscaled weights and (sink, 1) enters it as over bf16 pools; over e4m3
+// pools the codes convert exactly and nothing scales, so the seed is the
+// bf16 pools' own. Sinks at D 256 raise in the wrappers and are refused
+// here.
 //
 // Bound on the H100: bytes. Each sequence's live K and V rows
 // (2*kv_len*kvN*D elements, plus 2*kv_len*kvN f32 scales for INT8 KV)
@@ -115,7 +118,8 @@
 // below it, not even inside k_lo's page. This is what keeps the grouped
 // engine's ring pools right: there table column j maps to ring page
 // s*R + j % R, so a column below the window band aliases the live page of
-// a newer position, and masking after the read would still fetch it. Rows
+// a newer position, and masking after the read would still fetch it (over
+// e4m3 pools a stale page may hold codes 0x7f/0xff, NaN in e4m3fn). Rows
 // newer than the oldest mask the keys below their own band per element
 // (p = 0).
 //
@@ -186,14 +190,15 @@ int dispatch_pool(int pool, int head_dim, const Args& a, cudaStream_t st) {
   }
 }
 
-// pool: the pools' dtype (SLI_POOL_*): q's dtype, e4m3 (forms 4e, 4ve), or
+// pool: the pools' dtype (SLI_POOL_*): q's dtype, e4m3 (forms 4e, 4ve and
+// their window and sink forms), or
 // int8 with k_scale/v_scale, their f32 scale pools [L, num_pages1, kvn,
 // ps] (null for every other pool dtype). q: [B, wins, N, D] with strides
 // q_bs, q_ss (elements); wins = 1 is decode. window: 0 for none, else the
 // sliding window (>= 1); cap: 0 for none, else the soft cap (> 0; pools
 // of q's dtype or int8); sinks: null for none, else the layer's f32 sink
-// logits [N] (decode and verify rows over pools of q's dtype or int8, D
-// <= 128; a row's sink is its head's, whatever its window row). D 256:
+// logits [N] (decode and verify rows over every pool dtype, D <= 128; a
+// row's sink is its head's, whatever its window row). D 256:
 // pools of q's dtype or int8. splits > 1:
 // part holds splits * B * wins * N * (D + 2) floats of workspace.
 extern "C" int sli_paged_flash_decode(

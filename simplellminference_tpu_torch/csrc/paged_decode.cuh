@@ -520,15 +520,16 @@ int launch(const Args& a, cudaStream_t st) {
   return (int)sli::launch_merge<T>(a.part, a.out, n_rows, D, a.splits, st);
 }
 
-// Pools of q's own dtype or int8 codes: every option (the cap, sinks, D
-// 256); e4m3 pools take none of them (the wrappers raise for them).
+// Pools of q's own dtype or int8 codes: every option (the cap, D 256);
+// e4m3 pools take windows and sinks at D <= 128 (runtime arguments, the
+// body's code whatever the pool), but neither the cap nor D 256 (the
+// wrappers raise for them).
 template <typename T, typename P>
 constexpr bool ALL_OPTIONS =
     std::is_same_v<T, P> || std::is_same_v<P, int8_t>;
 
 template <typename T, typename P, int D, bool DENSE>
 int launch_c(const Args& a, cudaStream_t st) {
-  if (a.sinks != nullptr && !ALL_OPTIONS<T, P>) return SLI_ERR_DTYPE;
   if (a.cap <= 0.f) return launch<T, P, D, DENSE, false>(a, st);
   if constexpr (ALL_OPTIONS<T, P>)
     return launch<T, P, D, DENSE, true>(a, st);

@@ -8,12 +8,12 @@
 // INT8-KV form, int8 pools with per-token-per-head f32 scale pools
 // [L, P+1, kvN, ps], and the sliding-window form of both (window > 0,
 // paged_prefill.py:90-92, :131-132; shared-KV raises in the wrapper):
-// forms 8, 8q, 8w, 8qw; GPT-OSS's attention sinks over pools of q's dtype
-// or int8 pools (sinks != nullptr, the layer's f32 logit of each q head,
-// seeding each row's softmax state at (sink, 1), paged_prefill.py:259;
+// forms 8, 8q, 8w, 8qw, 8ew; GPT-OSS's attention sinks over every pool
+// dtype (sinks != nullptr, the layer's f32 logit of each q head, seeding
+// each row's softmax state at (sink, 1), paged_prefill.py:259;
 // prefill_mma.cuh's note; the FMA kernel seeds its rows the same way):
-// forms 8s, 8ws, 8qs, 8qws, a pointer and not a template flag (sinks over
-// e4m3 pools are refused here and raise in the wrapper); Gemma-2's soft
+// forms 8s, 8ws, 8qs, 8qws, 8es, 8ews, a pointer and not a template flag;
+// Gemma-2's soft
 // cap over pools of q's dtype or int8 pools (cap > 0: each live score
 // becomes cap * tanh(s * scale * (1 / cap)) before the mask,
 // paged_prefill.py:123-124; prefill_mma.cuh's note): forms 8c, 8wc, 8qc,
@@ -26,7 +26,11 @@
 // 8e, float8_e4m3fn pools (no scales; the TPU kernel casts the page slabs
 // to q's dtype, paged_prefill.py:108-110): bf16 q on the tensor cores, each
 // staged code converted exactly to bf16 in the block where INT8 KV
-// dequantizes, f32 q on the FMA kernel, each code read exactly as f32.
+// dequantizes, f32 q on the FMA kernel, each code read exactly as f32;
+// with a window (8ew) and sinks (8es, 8ews) as over the other pools: the
+// walk starts at the oldest row's band (no e4m3 page below it is read:
+// codes 0x7f and 0xff are NaN in e4m3fn, so a stray read would show), and
+// the sink, a raw logit, stays outside the conversion.
 //
 // Bound on the H100: at the prefix path's shapes bytes (a suffix batch of
 // 8 x 64 rows behind 512 cached tokens, a 256-row chunk: q and the output,
@@ -294,8 +298,8 @@ int launch(const void* q, long long q_bs, long long q_ss, const void* pool_k,
   return (int)cudaGetLastError();
 }
 
-// D 256, the cap and sinks over pools of q's dtype or int8 (OWN), not over
-// e4m3 pools
+// D 256 and the cap over pools of q's dtype or int8 (OWN), not over e4m3
+// pools (windows and sinks: every pool)
 template <typename T, typename P>
 int dispatch_d(int head_dim, const void* q, long long q_bs, long long q_ss,
                const void* pool_k, const void* pool_v, const float* ksp,
@@ -305,7 +309,7 @@ int dispatch_d(int head_dim, const void* q, long long q_bs, long long q_ss,
                int window, float scale, float cap, const float* sinks,
                cudaStream_t st) {
   constexpr bool OWN = std::is_same_v<T, P> || std::is_same_v<P, int8_t>;
-  if ((cap > 0.f || sinks != nullptr) && !OWN) return SLI_ERR_DTYPE;
+  if (cap > 0.f && !OWN) return SLI_ERR_DTYPE;
 #define SLI_PP_LAUNCH(DD, C)                                                 \
   launch<T, P, DD, C>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,       \
                       kv_lens, offs, out, batch, seq, heads, layer,          \
@@ -455,7 +459,8 @@ int launch_mma(const void* q, long long q_bs, long long q_ss,
       work, out, (long long)batch * seq * heads, D, splits, st);
 }
 
-// D 256, the cap and sinks over bf16 or int8 pools (OWN), not over e4m3
+// D 256 and the cap over bf16 or int8 pools (OWN), not over e4m3 (windows
+// and sinks: every pool)
 template <int KV>
 int dispatch_mma(int head_dim, const void* q, long long q_bs, long long q_ss,
                  const void* pool_k, const void* pool_v, const float* ksp,
@@ -465,7 +470,7 @@ int dispatch_mma(int head_dim, const void* q, long long q_bs, long long q_ss,
                  int mp, int group, int window, float scale, float cap,
                  int splits, const float* sinks, cudaStream_t st) {
   constexpr bool OWN = KV != sli::pfa::KV_E4M3;
-  if ((cap > 0.f || sinks != nullptr) && !OWN) return SLI_ERR_DTYPE;
+  if (cap > 0.f && !OWN) return SLI_ERR_DTYPE;
 #define SLI_PP_LAUNCH(DD, C)                                                  \
   launch_mma<DD, KV, C>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,      \
                         kv_lens, offs, out, work, batch, seq, heads, layer,   \
@@ -496,13 +501,14 @@ int dispatch_mma(int head_dim, const void* q, long long q_bs, long long q_ss,
 
 }  // namespace
 
-// pool: the pools' dtype (SLI_POOL_*): q's dtype, e4m3 (form 8e), or int8
+// pool: the pools' dtype (SLI_POOL_*): q's dtype, e4m3 (forms 8e, 8ew,
+// 8es, 8ews), or int8
 // with k_scale/v_scale, their f32 scale pools [L, num_pages1, kvn, ps]
 // (null for every other pool dtype). window: 0 for none, else the sliding
 // window (>= 1); cap: 0 for none, else the soft cap (> 0; pools of q's
 // dtype or int8); sinks: null for none, else the layer's f32 sink logits
-// [heads] (pools of q's dtype or int8, D <= 128). D 256: pools of q's
-// dtype or int8. bf16 q takes the tensor-core kernel:
+// [heads] (every pool dtype, D <= 128). D 256: pools of q's dtype or
+// int8. bf16 q takes the tensor-core kernel:
 // q rows 16-byte aligned (q, q_bs, q_ss), and with splits > 1, work holds
 // splits * batch * seq * heads * (head_dim + 2) floats. f32 q takes the
 // FMA kernel (splits 1).

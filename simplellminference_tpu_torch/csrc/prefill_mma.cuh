@@ -1,6 +1,7 @@
 // Prefill attention on the H100's bf16 tensor cores (wgmma), shared by the
 // bf16 forms of kernel 3 (flash_prefill.cu: 3, 3w) and kernel 8
-// (paged_prefill.cu: 8, 8q, 8e, 8w, 8qw and their capped and sink forms).
+// (paged_prefill.cu: 8, 8q, 8e, 8w, 8qw, 8ew and their capped and sink
+// forms).
 // Each .cu file gives the rows of
 // its keys (a Src: a dense [B, S, kvN, D] array, or pages through a block
 // table) and launches attend<D, KV, Src> for its pools' kind (KV_BF16,
@@ -82,9 +83,10 @@
 // goes to; with l = 1 held by one thread of the quad (the quad adds its
 // four shares at the end). A masked key keeps p = ex2(-1e30 - m) = 0,
 // and a row that meets no key gives acc 0 / l 1 = 0, as the TPU kernel's
-// (acc 0 / l 1). Over INT8 KV (forms 8qs, 8qws) nothing changes: the
-// scales act in convert() on the K and V rows, before any score, so the
-// sink stays outside them. Head dims 32, 64 (gpt-oss-20b's) and 128: no
+// (acc 0 / l 1). Over INT8 KV (forms 8qs, 8qws) and e4m3 pools (8es,
+// 8ews) nothing changes: the scales and the exact e4m3 -> bf16 conversion
+// act in convert() on the K and V rows, before any score, so the sink
+// stays outside them. Head dims 32, 64 (gpt-oss-20b's) and 128: no
 // model with sinks has D 256, whose instantiations sit at 255 registers a
 // thread and spill (ptxas: 128 bytes in flash_prefill_mma_kernel<256>,
 // with or without the seeding), so the seeding is compiled out there,

@@ -66,7 +66,7 @@ or INT8 (``kv_dtype="int8"``: int8 pools with per-token-per-head f32
 scale pools at the same page ids, so prefix sharing, the persistent store
 and preemption move scales with their pages and need nothing more, as in
 the JAX engine, which never touches ``k_scale`` past creating it). FP8 KV
-with sliding windows raises (the window kernels take no e4m3 pools). The
+takes sliding windows too (e4m3 ring pools in grouped mode). The
 JAX engine's warning that FP8 KV is slow on a TPU v5e (engine.py:466-476)
 is a claim about that chip and is not carried over.
 
@@ -87,7 +87,7 @@ pools.
 Features outside this configuration raise NotImplementedError naming the
 feature: guided decoding, LoRA
 adapters, tensor/sequence parallelism (``adopt_prefill`` included),
-top_logprobs, FP8 KV and the non-Llama model branches.
+top_logprobs and the non-Llama model branches.
 The JAX engine's ``forward_paged`` and ``loras`` constructor arguments are
 not taken yet.
 """
@@ -160,9 +160,6 @@ class Engine:
         windows instead of prompt lookup; needs ``spec_tokens`` >= 1."""
         _check_engine_config(engine_cfg)
         llama.check_supported(cfg)
-        if engine_cfg.kv.kv_dtype == "fp8" and any(
-                w is not None for w in cfg.layer_windows):
-            raise NotImplementedError("FP8 KV with sliding windows")
         if draft is not None:
             if engine_cfg.spec_tokens < 1:
                 raise ValueError("draft-model speculation needs "

@@ -14,9 +14,8 @@ The windowed group (paged_kv.py:71-119, the grouped engine's
 sliding-window KV reclamation): models with sliding layers keep those
 layers' KV in separate pools k_w/v_w [Lw, Pw+1, kvN, ps, D] (with
 k_w_scale/v_w_scale for INT8 KV), Pw = max_batch * R ring pages, which
-the engine addresses through static per-slot ring tables. FP8 KV with
-sliding windows is not ported (the window forms of the attention kernels
-take no e4m3 pools) and raises.
+the engine addresses through static per-slot ring tables; over FP8 KV
+they are e4m3 ring pools, with no scale pools.
 
 The pools are updated IN PLACE by the write functions (the JAX package
 donates the cache to its jitted graphs and the Pallas kernels alias it);
@@ -88,10 +87,7 @@ class PagedKVCache:
         """This cache with a windowed-group pool set attached: zeroed
         [Lw, Pw+1, kvN, ps, D] pools (the usual trash page last) of this
         cache's geometry, dtype and device, and zeroed f32 scale pools for
-        int8 storage. FP8 storage raises: the window forms of the
-        attention kernels take no e4m3 pools."""
-        if self.k.dtype == torch.float8_e4m3fn:
-            raise NotImplementedError("FP8 KV with sliding windows")
+        int8 storage (e4m3 storage: none)."""
         _, _, kvn, ps, d = self.k.shape
         shape = (num_layers_w, num_pages_w + 1, kvn, ps, d)
 

@@ -6,17 +6,18 @@ wrapper launches its CUDA kernel for CUDA tensors and takes its plain
 version for CPU tensors, so on the card every call goes through a kernel.
 INT8-KV pools pass their scale pools (``pool_ks``/``pool_vs``) on to the
 paged kernels, FP8 (e4m3) pools go, by their dtype, to the kernels'
-FP8-KV forms (4e, 4ve, 8e), and a sliding window (``cfg.sliding_window``, or the
-per-layer ``window`` a caller passes for ``layer_types`` stacks) goes to
-each kernel's window form, the dense arena's included (13w), and
-Gemma-2's logit soft cap (``cfg.attn_logit_softcap``) to the capped forms
-of kernels 3, 4 (decode and verify rows), 8 and 13 over bf16/f32 KV and
-of 4 and 8 over INT8 KV, and a layer's GPT-OSS attention sinks (``sinks``
-[N], passed by the caller as the JAX dispatcher takes them) to the sink
-forms of kernels 3, 4 (decode and verify rows), 8 and 13 over bf16/f32
-KV and of 4 and 8 over INT8 KV. Attention options the kernels do not
-take yet (sinks over FP8 KV or at head_dim 256; the cap over FP8 KV)
-raise.
+FP8-KV forms (4e, 4ve, 8e), and a sliding window (``cfg.sliding_window``,
+or the per-layer ``window`` a caller passes for ``layer_types`` stacks)
+goes to each kernel's window form, the dense arena's included (13w) and
+over e4m3 pools (4ew, 4vew, 8ew), and Gemma-2's logit soft cap
+(``cfg.attn_logit_softcap``) to the capped forms of kernels 3, 4 (decode
+and verify rows), 8 and 13 over bf16/f32 KV and of 4 and 8 over INT8 KV,
+and a layer's GPT-OSS attention sinks (``sinks`` [N], passed by the
+caller as the JAX dispatcher takes them) to the sink forms of kernels 3,
+4 (decode and verify rows), 8 and 13 over bf16/f32 KV and of 4 and 8
+over INT8 and e4m3 pools (4es, 4ews, 4ves, 4vews, 8es, 8ews). Attention
+options the kernels do not take yet (sinks at head_dim 256; the cap over
+FP8 KV; FP8 KV at head_dim 256) raise.
 """
 
 from __future__ import annotations

@@ -32,8 +32,10 @@ gathered pages to f32 first; the two agree to f32 rounding.
 FP8 KV (forms 4e and 4ve, e4m3 pools with bf16 or f32 q): the TPU kernel
 casts each e4m3 element straight to f32 (paged_decode.py:79-80, :113);
 the kernel converts each staged code exactly in registers, the plain
-version gathers the exact f32 values. The window forms take no e4m3
-pools: a window with e4m3 pools raises (ROADMAP: still to port).
+version gathers the exact f32 values. The window forms (4ew, 4vew) and
+the sink forms (4es, 4ews, 4ves, 4vews) take e4m3 pools at D 32-128 as
+they take pools of q's dtype: the walk reads no ring column below the
+band, and the sink, a raw logit, seeds split 0's state.
 
 The sliding-window forms (``window``: row s attends keys with row_pos -
 k_pos < window; paged_decode.py:73-75, :98-101) walk the keys from the
@@ -42,9 +44,10 @@ none below it: over the grouped engine's ring pools the table columns
 below the band alias live pages of newer positions (engine.py:483-492),
 so the walk's start, not the mask, keeps the answer right. They are
 :func:`paged_flash_decode_window`,
-:func:`paged_flash_decode_int8kv_window`, :func:`paged_flash_verify_window`
-and :func:`paged_flash_verify_int8kv_window`, each with its own launch
-count.
+:func:`paged_flash_decode_int8kv_window`,
+:func:`paged_flash_decode_fp8kv_window`, :func:`paged_flash_verify_window`,
+:func:`paged_flash_verify_int8kv_window` and
+:func:`paged_flash_verify_fp8kv_window`, each with its own launch count.
 
 Gemma-2's soft cap (``logit_cap``: each score becomes
 cap * tanh(s * scale * (1 / cap)) before the mask, paged_decode.py:90-91)
@@ -59,17 +62,17 @@ ported yet).
 
 GPT-OSS's attention sinks (``sinks`` [N], a learned logit per q head that
 joins each row's softmax denominator and adds no value,
-paged_decode.py:29-35, :57-67) on the decode and verify forms over pools
-of q's dtype or INT8 pools, with or without a window (4s, 4ws, 4vs, 4vws;
-4qs, 4qws, 4vqs, 4vqws: the sink is a raw logit, outside every scale,
-while INT8 KV scales each score and each probability): a pointer
+paged_decode.py:29-35, :57-67) on the decode and verify forms over every
+pool dtype, with or without a window (4s, 4ws, 4vs, 4vws; 4qs, 4qws,
+4vqs, 4vqws; 4es, 4ews, 4ves, 4vews: the sink is a raw logit, outside
+every scale, while INT8 KV scales each score and each probability): a pointer
 argument of the kernel; split 0's block seeds each row's state with
 (sink, 1), so the log-sum-exp merge counts it once, and a verify row
 takes its head's sink whatever its window row (gpt-oss-20b's group of 8
 x 5 rows fills two row blocks, each seeding its own rows). Launches with
 sinks count in their form's ``launches`` and in
-:data:`~.flash_prefill.SINK_LAUNCHES`. Sinks over e4m3 pools and at
-head_dim 256 raise (not ported yet), on the CPU as on the card.
+:data:`~.flash_prefill.SINK_LAUNCHES`. Sinks at head_dim 256 raise (not
+ported yet), on the CPU as on the card.
 
 Head dim 256 (Gemma) on every form over pools of q's dtype or INT8 pools
 (:data:`D256_FORMS`); the e4m3 forms take D 32-128.
@@ -153,24 +156,11 @@ def workspace(b: int, rows: int, d: int, splits: int, device):
                        device=device)
 
 
-def _check_fp8_window(k_pool, window):
-    if window is not None and k_pool.dtype == torch.float8_e4m3fn:
-        raise NotImplementedError("FP8 KV with sliding windows")
-
-
 def check_cap(k_pool, logit_cap) -> None:
     """The soft cap runs on the forms over pools of q's dtype and INT8
     pools; raise, named, over e4m3 pools."""
     if cap_value(logit_cap) and k_pool.dtype == torch.float8_e4m3fn:
         raise NotImplementedError("attention logit soft cap over FP8 KV")
-
-
-def check_sinks(sinks, k_pool) -> None:
-    """Sinks run on the forms over pools of q's dtype and INT8 pools (4s,
-    4ws, 4vs, 4vws, 8s, 8ws and their INT8-KV forms); raise, named, over
-    e4m3 pools."""
-    if sinks is not None and k_pool.dtype == torch.float8_e4m3fn:
-        raise NotImplementedError("attention sinks over FP8 KV")
 
 
 def _check_scales(k_pool, v_pool, k_scale, v_scale) -> bool:
@@ -230,9 +220,7 @@ def paged_flash_decode_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
     """Plain version of :func:`paged_flash_decode` and its INT8-KV, FP8-KV,
     window, capped and sink forms: keys at positions < kv_len (and >=
     kv_len - window); q: [B, N, D] -> [B, N, D]."""
-    _check_fp8_window(k_pool, window)
     check_cap(k_pool, logit_cap)
-    check_sinks(sinks, k_pool)
     if q.is_cuda:
         paged_flash_decode_ref.cuda_calls += 1
     return _attend_ref(q[:, None], k_pool, v_pool, tables, kv_lens, layer,
@@ -251,9 +239,7 @@ def paged_flash_verify_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
     FP8-KV, window, capped and sink forms, the gather + mask + reference
     attention of the JAX dispatcher's S > 1 branch (dispatch.py:239-269).
     q: [B, S, N, D] -> [B, S, N, D]."""
-    _check_fp8_window(k_pool, window)
     check_cap(k_pool, logit_cap)
-    check_sinks(sinks, k_pool)
     if q.is_cuda:
         paged_flash_verify_ref.cuda_calls += 1
     return _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
@@ -273,10 +259,10 @@ def paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer: int,
     [B, MP] int32 (-1 = unmapped); kv_lens: [B] -> out [B, N, D] in q's
     dtype. Keys are positions < min(kv_len, MP*ps), and >= kv_len -
     ``window`` with a sliding window; ``logit_cap`` > 0 soft-caps the
-    scores and ``sinks`` [N] add each head's sink logit to its softmax
-    (pools of q's dtype or INT8). The launch counts as the form the
-    options and pools name (4, 4q, 4e, 4w, 4qw; a capped or sink 4, 4q,
-    4w or 4qw in its form's count)."""
+    scores (pools of q's dtype or INT8) and ``sinks`` [N] add each head's
+    sink logit to its softmax. The launch counts as the form the options
+    and pools name (4, 4q, 4e, 4w, 4qw, 4ew; a capped or sink form in the
+    count of the form it caps or seeds)."""
     return _run("paged_flash_decode", q[:, None], k_pool, v_pool, k_scale,
                 v_scale, tables, kv_lens, layer, sm_scale, window,
                 logit_cap, sinks)[:, 0]
@@ -293,8 +279,8 @@ def paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer: int,
     tables, scale pools, ``window``, ``logit_cap`` and ``sinks`` as
     there (each row takes its head's sink); out [B, S, N, D] in q's dtype.
     The launch counts as the form the options and pools name (4v, 4vq,
-    4ve, 4vw, 4vqw; a capped or sink 4v, 4vq, 4vw or 4vqw in its form's
-    count)."""
+    4ve, 4vw, 4vqw, 4vew; a capped or sink form in the count of the form
+    it caps or seeds)."""
     return _run("paged_flash_verify", q, k_pool, v_pool, k_scale, v_scale,
                 tables, kv_lens, layer, sm_scale, window, logit_cap, sinks)
 
@@ -352,6 +338,30 @@ def paged_flash_verify_fp8kv(q, k_pool, v_pool, tables, kv_lens,
                               sm_scale)
 
 
+def paged_flash_decode_fp8kv_window(q, k_pool, v_pool, tables, kv_lens,
+                                    layer: int, window: int,
+                                    sm_scale: float | None = None,
+                                    sinks=None) -> torch.Tensor:
+    """4ew: :func:`paged_flash_decode_fp8kv` with a sliding window (4ews
+    with ``sinks``)."""
+    _check_e4m3(k_pool, v_pool)
+    return paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer,
+                              sm_scale, window=window_size(window),
+                              sinks=sinks)
+
+
+def paged_flash_verify_fp8kv_window(q, k_pool, v_pool, tables, kv_lens,
+                                    layer: int, window: int,
+                                    sm_scale: float | None = None,
+                                    sinks=None) -> torch.Tensor:
+    """4vew: :func:`paged_flash_verify_fp8kv` with a sliding window (4vews
+    with ``sinks``)."""
+    _check_e4m3(k_pool, v_pool)
+    return paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer,
+                              sm_scale, window=window_size(window),
+                              sinks=sinks)
+
+
 def _check_e4m3(k_pool, v_pool):
     if (k_pool.dtype != torch.float8_e4m3fn
             or v_pool is None or v_pool.dtype != torch.float8_e4m3fn):
@@ -396,8 +406,10 @@ def paged_flash_verify_int8kv_window(q, k_pool, v_pool, k_scale, v_scale,
 _FORMS = {f.__name__: f for f in (
     paged_flash_decode, paged_flash_decode_int8kv, paged_flash_decode_fp8kv,
     paged_flash_decode_window, paged_flash_decode_int8kv_window,
-    paged_flash_verify, paged_flash_verify_int8kv, paged_flash_verify_fp8kv,
-    paged_flash_verify_window, paged_flash_verify_int8kv_window)}
+    paged_flash_decode_fp8kv_window, paged_flash_verify,
+    paged_flash_verify_int8kv, paged_flash_verify_fp8kv,
+    paged_flash_verify_window, paged_flash_verify_int8kv_window,
+    paged_flash_verify_fp8kv_window)}
 for _f in _FORMS.values():
     _f.launches = 0
 
@@ -411,9 +423,7 @@ def _run(name, q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
     if v_pool is None:
         raise NotImplementedError("shared-KV pools (absorbed MLA)")
     quant = _check_scales(k_pool, v_pool, k_scale, v_scale)
-    _check_fp8_window(k_pool, window)
     check_cap(k_pool, logit_cap)
-    check_sinks(sinks, k_pool)
     check_sinks_head_dim(sinks, q.shape[-1])
     cap = cap_value(logit_cap)
     if window is not None:

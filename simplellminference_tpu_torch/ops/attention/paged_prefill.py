@@ -33,8 +33,10 @@ slabs to q's dtype, paged_prefill.py:108-110): form 8e,
 the tensor-core kernel converts each staged e4m3 row exactly to bf16 where
 INT8 KV dequantizes; with f32 q the FMA kernel reads each code exactly as
 f32; the plain version gathers the exact values and casts them to q's
-dtype (exact too). The window forms take no e4m3 pools: a window with
-e4m3 pools raises.
+dtype (exact too). With a window (8ew,
+:func:`paged_flash_prefill_fp8kv_window`) and with sinks (8es, 8ews) as
+over pools of q's dtype: the converted codes enter the scores, the sink
+stays a raw logit outside that conversion.
 
 The kernel takes every Sq (the TPU kernel needs Sq % bq == 0, and its
 dispatcher Sq % 128 == 0). ``bq`` and ``pages_per_block``, the TPU's MXU
@@ -47,8 +49,9 @@ window < k_pos <= q_pos; paged_prefill.py:90-92, :131-132) start each q
 tile's key walk at its oldest row's first key and read no key below it,
 which keeps the grouped engine's ring pools right (a column below the
 band aliases the live page of a newer position). They are
-:func:`paged_flash_prefill_window` and
-:func:`paged_flash_prefill_int8kv_window`, each with its own launch count.
+:func:`paged_flash_prefill_window`,
+:func:`paged_flash_prefill_int8kv_window` and
+:func:`paged_flash_prefill_fp8kv_window`, each with its own launch count.
 
 Gemma-2's soft cap (``logit_cap``: cap * tanh(s * scale * (1 / cap))
 before the mask, paged_prefill.py:123-124) over pools of q's dtype or
@@ -58,15 +61,15 @@ dequantized K as JAX applies it; capped launches count in their form's
 ``launches`` and in :data:`~.flash_prefill.CAP_LAUNCHES`.
 
 GPT-OSS's attention sinks (``sinks`` [N], a logit per q head in each
-row's softmax denominator, no value; paged_prefill.py:259) over pools of
-q's dtype or INT8 pools, with or without a window (forms 8s, 8ws, 8qs,
-8qws): a pointer argument of both kernels, each row's softmax state
+row's softmax denominator, no value; paged_prefill.py:259) over every
+pool dtype, with or without a window (forms 8s, 8ws, 8qs, 8qws, 8es,
+8ews): a pointer argument of both kernels, each row's softmax state
 seeded with (sink, 1), by split 0 only when the key walk splits; launches
 with sinks count in their form's ``launches`` and in
 :data:`~.flash_prefill.SINK_LAUNCHES`. Head dim 256 (Gemma) on every form
-over pools of q's dtype or INT8 pools (:data:`D256_FORMS`). The cap and
-sinks over e4m3 pools, the e4m3 forms at D 256, sinks at D 256 and
-shared-KV (absorbed MLA) pools are not ported yet and raise.
+over pools of q's dtype or INT8 pools (:data:`D256_FORMS`). The cap over
+e4m3 pools, the e4m3 forms at D 256, sinks at D 256 and shared-KV
+(absorbed MLA) pools are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ from simplellminference_tpu_torch.ops.attention.flash_prefill import (
     cap_value, check_sinks_head_dim, count_launch, heads_contiguous,
     sink_values, window_size)
 from simplellminference_tpu_torch.ops.attention.paged_decode import (
-    _check_e4m3, _check_float_pools, band_tables, check_cap, check_sinks)
+    _check_e4m3, _check_float_pools, band_tables, check_cap)
 from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
 HEAD_DIMS = (32, 64, 128, 256)
@@ -93,7 +96,7 @@ D256_FORMS = ("paged_flash_prefill", "paged_flash_prefill_window",
 D256_LAUNCHES = {form: 0 for form in D256_FORMS}
 
 
-def _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
+def _check_options(k_pool, v_pool, window, logit_cap, k_scale,
                    v_scale) -> bool:
     """Raise for the options not ported; True for INT8 KV (scale pools
     given and checked)."""
@@ -101,9 +104,6 @@ def _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
         raise NotImplementedError("shared-KV pools (absorbed MLA)")
     if window is not None:
         window_size(window)
-        if k_pool.dtype == torch.float8_e4m3fn:
-            raise NotImplementedError("FP8 KV with sliding windows")
-    check_sinks(sinks, k_pool)
     check_cap(k_pool, logit_cap)
     if k_scale is None and v_scale is None:
         return False
@@ -122,7 +122,7 @@ def paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
     the band left ungathered), reference attention, the scores capped by
     ``logit_cap`` before the mask, each head's ``sinks`` logit in its
     softmax. q: [B, Sq, N, D] -> [B, Sq, N, D]."""
-    quant = _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
+    quant = _check_options(k_pool, v_pool, window, logit_cap, k_scale,
                            v_scale)
     if q.is_cuda:
         paged_flash_prefill_ref.cuda_calls += 1
@@ -164,11 +164,12 @@ def paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
     after the chunk's write; chunk_offset: [B] -> out [B, Sq, N, D] in q's
     dtype. Keys are positions < min(kv_len, MP*ps) up to each row's
     position, and within ``window`` of it with a sliding window;
-    ``logit_cap`` > 0 soft-caps the scores and ``sinks`` [N] add each
-    head's sink logit to its softmax (pools of q's dtype or INT8). The
+    ``logit_cap`` > 0 soft-caps the scores (pools of q's dtype or INT8)
+    and ``sinks`` [N] add each head's sink logit to its softmax. The
     launch counts as the form the options and pools name (8, 8q, 8e, 8w,
-    8qw; a capped or sink 8, 8q, 8w or 8qw in its form's count)."""
-    quant = _check_options(k_pool, v_pool, window, logit_cap, sinks, k_scale,
+    8qw, 8ew; a capped or sink form in the count of the form it caps or
+    seeds)."""
+    quant = _check_options(k_pool, v_pool, window, logit_cap, k_scale,
                            v_scale)
     check_sinks_head_dim(sinks, q.shape[-1])
     cap = cap_value(logit_cap)
@@ -243,12 +244,25 @@ def paged_flash_prefill_fp8kv(q, k_pool, v_pool, tables, kv_lens,
                                chunk_offset, layer, sm_scale)
 
 
+def paged_flash_prefill_fp8kv_window(q, k_pool, v_pool, tables, kv_lens,
+                                     chunk_offset, layer: int, window: int,
+                                     sm_scale: float | None = None,
+                                     sinks=None) -> torch.Tensor:
+    """8ew: :func:`paged_flash_prefill_fp8kv` with a sliding window (8ews
+    with ``sinks``)."""
+    _check_e4m3(k_pool, v_pool)
+    return paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens,
+                               chunk_offset, layer, sm_scale,
+                               window=window_size(window), sinks=sinks)
+
+
 # (KV kind, sliding window) -> the form whose launch count a call adds to
 _FORMS = {("", False): paged_flash_prefill,
           ("", True): paged_flash_prefill_window,
           ("int8kv", False): paged_flash_prefill_int8kv,
           ("int8kv", True): paged_flash_prefill_int8kv_window,
-          ("fp8kv", False): paged_flash_prefill_fp8kv}
+          ("fp8kv", False): paged_flash_prefill_fp8kv,
+          ("fp8kv", True): paged_flash_prefill_fp8kv_window}
 for _f in _FORMS.values():
     _f.launches = 0
 

@@ -41,8 +41,10 @@ kernel rounds its f32 rows into slabs of the pool dtype
 (qkv_fused.py:155-158, :370-371); on the card it is its own wrapper,
 :func:`fused_qkv_append_fp8kv` (6e), with its own launch count. The pool
 dtype goes to the kernels as its own code (``cuda_build.pool_code``),
-apart from the activation dtype. e4m3 pools on the dense arena or with a
-``kv_layer`` (the grouped engine's ring pools) raise.
+apart from the activation dtype. With a ``kv_layer`` (6ek: the grouped
+engine's e4m3 ring pools, D <= 128) it is the same wrapper, its launches
+with a kv_layer also in :data:`KV_LAYER_LAUNCHES`; e4m3 pools on the dense
+arena raise.
 
 Pools are [L, P+1, kvN, ps, D] and are written in place; an unmapped (-1)
 page, or a position past the table, writes to the trash page (the last
@@ -64,8 +66,9 @@ layer) while the weights and the norm keep the global ``layer``. The
 kernel indexes the pools only by the layer it is given, so the form needs
 no kernel change; over bf16/f32 pools it is its own wrapper,
 :func:`fused_qkv_append_kv_layer` (6k), with its own launch count, and
-the quantizing wrapper takes ``kv_layer`` too (INT8 ring pools). The dense
-arena has no caller with a kv_layer and raises for one.
+the quantizing and FP8-KV wrappers take ``kv_layer`` too (INT8 and e4m3
+ring pools). The dense arena has no caller with a kv_layer and raises for
+one.
 """
 
 from __future__ import annotations
@@ -97,6 +100,9 @@ D256_LAUNCHES = {"mma": 0, "fma": 0}
 D256_FORM_LAUNCHES = {"fused_qkv_append_kv_layer": 0,
                       "fused_qkv_append_int8kv": 0,
                       "fused_qkv_append_int8kv_kv_layer": 0}
+# launches of the FP8-KV form with a kv_layer (6ek: e4m3 ring pools), each
+# also in the form's own count
+KV_LAYER_LAUNCHES = {"fused_qkv_append_fp8kv": 0}
 MMA_KT = 64               # K rows a stage of the tensor-core kernel
 MMA_COLS = 128            # qkv columns a block of it: whole heads
 MMA_MAX_TILES = 4096      # most column tiles (its arrival counters)
@@ -136,8 +142,6 @@ def _check(x, pool_k, pool_v, tables, cache_ks, cache_vs, kv_layer,
     (scale pools given and checked)."""
     if pool_k.dtype == E4M3 and tables is None:
         raise NotImplementedError("FP8 KV on a dense KV arena (tables=None)")
-    if pool_k.dtype == E4M3 and kv_layer is not None:
-        raise NotImplementedError("FP8 KV with sliding windows (kv_layer)")
     if tables is None and (cache_ks is not None or cache_vs is not None):
         raise NotImplementedError("INT8 KV on a dense KV arena (tables="
                                   "None): the quantizing append is a "
@@ -249,14 +253,14 @@ def fused_qkv_append(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
         return fused_qkv_append_dense(x, norm_w, wq, ws, sin, cos, pool_k,
                                       pool_v, layer, offsets, n_heads,
                                       kv_heads, eps)
+    if pool_k.dtype == E4M3:
+        return fused_qkv_append_fp8kv(x, norm_w, wq, ws, sin, cos, pool_k,
+                                      pool_v, layer, offsets, tables,
+                                      n_heads, kv_heads, eps, kv_layer)
     if kv_layer is not None:
         return fused_qkv_append_kv_layer(x, norm_w, wq, ws, sin, cos, pool_k,
                                          pool_v, layer, kv_layer, offsets,
                                          tables, n_heads, kv_heads, eps)
-    if pool_k.dtype == E4M3:
-        return fused_qkv_append_fp8kv(x, norm_w, wq, ws, sin, cos, pool_k,
-                                      pool_v, layer, offsets, tables,
-                                      n_heads, kv_heads, eps)
     _check_pools(pool_k, pool_v, x, layer)
     q = _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, None, None,
                 layer, layer, offsets, n_heads, kv_heads, eps, tables,
@@ -297,20 +301,23 @@ fused_qkv_append_kv_layer.launches = 0
 def fused_qkv_append_fp8kv(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
                            layer: int, offsets, tables,
                            n_heads: int | None = None,
-                           kv_heads: int | None = None, eps: float = 1e-5):
+                           kv_heads: int | None = None, eps: float = 1e-5,
+                           kv_layer=None):
     """The FP8-KV form of :func:`fused_qkv_append` (6e): k/v rounded from
-    f32 to e4m3 into the float8_e4m3fn pools. Returns (q, pool_k,
-    pool_v)."""
+    f32 to e4m3 into the float8_e4m3fn pools, at ``kv_layer`` when given
+    (6ek: e4m3 ring pools). Returns (q, pool_k, pool_v)."""
     if not x.is_cuda:
         return fused_qkv_append_ref(x, norm_w, wq, ws, sin, cos, pool_k,
                                     pool_v, layer, offsets, n_heads,
-                                    kv_heads, eps, tables)
-    _check(x, pool_k, pool_v, tables, None, None, None, layer)
-    _check_e4m3_pools(pool_k, pool_v, x, layer)
+                                    kv_heads, eps, tables, kv_layer=kv_layer)
+    _check(x, pool_k, pool_v, tables, None, None, kv_layer, layer)
+    kli = layer if kv_layer is None else int(kv_layer)
+    _check_e4m3_pools(pool_k, pool_v, x, kli)
     q = _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, None, None,
-                layer, layer, offsets, n_heads, kv_heads, eps, tables,
+                layer, kli, offsets, n_heads, kv_heads, eps, tables,
                 "fused_qkv_append_fp8kv")
     fused_qkv_append_fp8kv.launches += 1
+    KV_LAYER_LAUNCHES["fused_qkv_append_fp8kv"] += int(kv_layer is not None)
     return q, pool_k, pool_v
 
 

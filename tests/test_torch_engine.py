@@ -215,11 +215,17 @@ def test_sampled_requests_are_seeded_and_finish(model):
 ])
 def test_unsupported_engine_features_raise(model, kw, feature):
     _jcfg, _jp, cfg, tp = model
-    if feature == "FP8 KV":
-        # FP8 KV serves; with a sliding window it is not ported
-        cfg = dataclasses.replace(cfg, sliding_window=8)
     base = dict(prefix_cache_entries=0)
     base.update(kw)
+    if feature == "FP8 KV":
+        # FP8 KV serves, with sliding windows too
+        # (tests/test_torch_fp8kv_engine.py); with the attention soft cap
+        # it is not ported and raises at the first attention
+        cfg = dataclasses.replace(cfg, attn_logit_softcap=30.0)
+        eng = Engine(cfg, tp, EngineConfig(**base), device="cpu")
+        with pytest.raises(NotImplementedError, match=feature):
+            eng.generate([[1, 2, 3]], SamplingParams(max_new_tokens=2))
+        return
     with pytest.raises(NotImplementedError, match=feature):
         Engine(cfg, tp, EngineConfig(**base), device="cpu")
 

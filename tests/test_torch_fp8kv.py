@@ -237,13 +237,24 @@ def test_gather_dense_e4m3_matches_jax():
 
 
 def test_cache_create_e4m3_has_no_scale_pools_and_no_window_group():
+    """e4m3 pools have no scale pools; their windowed group (the grouped
+    engine's ring pools) is zeroed e4m3 pools with none either, as JAX's
+    ``with_windowed`` builds them."""
     c = tpkv.PagedKVCache.create(2, 5, 3, 8, 16, E4, device="cpu")
     assert c.k.dtype == c.v.dtype == E4 and c.k.shape == (2, 6, 3, 8, 16)
     assert c.k_scale is None and c.v_scale is None
     assert not c.k.view(torch.uint8).any()
     assert tpkv.kv_storage_dtype("fp8") == E4
-    with pytest.raises(NotImplementedError, match="FP8 KV with sliding"):
-        c.with_windowed(1, 4)
+    assert c.k_w is None
+    w = c.with_windowed(1, 4)
+    jw = jpkv.PagedKVCache.create(2, 5, 3, 8, 16,
+                                  jnp.float8_e4m3fn).with_windowed(1, 4)
+    for got, want in ((w.k_w, jw.k_w), (w.v_w, jw.v_w)):
+        assert got.dtype == E4 and got.shape == want.shape == (1, 5, 3, 8, 16)
+        np.testing.assert_array_equal(codes(got), codes(want))
+    assert w.k_w_scale is None and w.v_w_scale is None
+    assert jw.k_w_scale is None and jw.v_w_scale is None
+    assert w.k is c.k and w.v is c.v
 
 
 # ------------------------------------------------------------ attention
@@ -332,16 +343,30 @@ def test_paged_flash_prefill_e4m3_matches_jax_kernel(b, s, n, kvn, d, ps):
 
 
 def test_e4m3_pools_with_a_window_raise():
+    """e4m3 pools with a window (4ew, 4vew, 8ew) once raised; they now run
+    and match the JAX kernels in interpret mode. The FP8-KV wrappers still
+    refuse pools that are not e4m3."""
     rng = np.random.default_rng(9)
     q, pk, pv, tables, lens = _decode_case(rng, 2, 4, 2, 32, 8, 2, [3, 9])
     args = (torch_e4(pk), torch_e4(pv), t(tables), t(lens), 0)
-    with pytest.raises(NotImplementedError, match="FP8 KV with sliding"):
-        tpd.paged_flash_decode(t(q), *args, window=4)
-    with pytest.raises(NotImplementedError, match="FP8 KV with sliding"):
-        tpd.paged_flash_verify(t(q)[:, None], *args, window=4)
-    with pytest.raises(NotImplementedError, match="FP8 KV with sliding"):
-        tpp.paged_flash_prefill(t(q)[:, None], args[0], args[1], args[2],
-                                args[3], t(lens) - 1, 0, window=4)
+    jargs = (jax_e4(pk), jax_e4(pv), jnp.asarray(tables), jnp.asarray(lens))
+    got = tpd.paged_flash_decode(t(q), *args, window=4)
+    want = jax_paged_flash_decode(jnp.asarray(q), *jargs, window=4,
+                                  interpret=True, layer=jnp.int32(0))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    got = tpd.paged_flash_verify(t(q)[:, None], *args, window=4)
+    want = jax_paged_flash_verify(jnp.asarray(q)[:, None], *jargs, window=4,
+                                  interpret=True, layer=jnp.int32(0))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    got = tpp.paged_flash_prefill(t(q)[:, None], args[0], args[1], args[2],
+                                  args[3], t(lens) - 1, 0, window=4)
+    want = jax_paged_flash_prefill(
+        jnp.asarray(q)[:, None], *jargs, jnp.asarray(lens - 1), bq=1,
+        window=4, interpret=True, layer=jnp.int32(0))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
     with pytest.raises(ValueError, match="float8_e4m3fn"):
         tpd.paged_flash_decode_fp8kv(t(q), torch_e4(pk).float(),
                                      torch_e4(pv).float(), *args[2:])
@@ -438,14 +463,31 @@ def test_fused_qkv_append_e4m3_matches_jax_kernel_bf16(n, kvn):
 
 
 def test_fused_qkv_append_e4m3_refuses_dense_arena_and_kv_layer():
+    """e4m3 pools on the dense arena raise; with a ``kv_layer`` (6ek, the
+    grouped engine's e4m3 ring pools) the form runs: the weights of
+    ``layer``, the rows written at ``kv_layer`` with the bytes the
+    coupled call writes at ``layer``, every other pool byte unchanged
+    (against JAX's kernel: tests/test_torch_fp8kv_sinks_window.py)."""
     c = _qkv_case(0, 4, 2, "f32")
     pk, pv = (torch_e4(p) for p in c["pools"])
     args = (c["xt"], t(c["nw"]), t(c["wq"]), t(c["ws"]), torch.zeros(3, 16),
             torch.ones(3, 16), pk, pv, 1, t(c["pos"]))
     with pytest.raises(NotImplementedError, match="FP8 KV on a dense"):
         tqkv.fused_qkv_append(*args)
-    with pytest.raises(NotImplementedError, match="FP8 KV with sliding"):
-        tqkv.fused_qkv_append(*args, tables=t(c["tables"]), kv_layer=0)
+    before = [codes(p).copy() for p in (pk, pv)]
+    q_k, *out_k = tqkv.fused_qkv_append(*args, tables=t(c["tables"]),
+                                        kv_layer=0)
+    assert all(a is b for a, b in zip(out_k, (pk, pv)))
+    coupled = [torch_e4(p) for p in c["pools"]]
+    q_c, *_ = tqkv.fused_qkv_append(*args[:6], *coupled, 1, t(c["pos"]),
+                                    tables=t(c["tables"]))
+    assert torch.equal(q_k, q_c)
+    w = c["written"][1]
+    for got, cpl, old in zip((pk, pv), coupled, before):
+        got = codes(got)
+        np.testing.assert_array_equal(got[0][w], codes(cpl)[1][w])
+        np.testing.assert_array_equal(got[0][~w], old[0][~w])
+        np.testing.assert_array_equal(got[1:], old[1:])
 
 
 def test_generator_refuses_e4m3_arena():

@@ -406,10 +406,11 @@ def test_sinks_and_biases_move_the_logits():
 
 
 def test_forms_outside_the_slice_raise(gpt_oss):
-    """Sinks over FP8 KV pools and at head_dim 256 raise
-    NotImplementedError naming the form, as do the MoE routes the slice
-    does not serve; over INT8 KV (tests/test_torch_int8kv_sinks_cap.py and
-    tests/test_torch_int8kv_models.py hold them to JAX), on verify rows
+    """Sinks at head_dim 256 raise NotImplementedError naming the form,
+    as do the MoE routes the slice does not serve; over INT8 KV
+    (tests/test_torch_int8kv_sinks_cap.py and
+    tests/test_torch_int8kv_models.py hold them to JAX) and FP8 KV
+    (tests/test_torch_fp8kv_sinks_window.py), on verify rows
     (speculation) and on the dense arena (the Generator) the sink forms
     run (tests/test_torch_gpt_oss_spec.py and
     tests/test_torch_gpt_oss_dense.py)."""
@@ -417,10 +418,10 @@ def test_forms_outside_the_slice_raise(gpt_oss):
     kv = dict(page_size=PS, num_pages=64, max_pages_per_seq=16)
     prompts = [[1, 2, 3, 4, 5], [9, 8, 7]]
     samp = SamplingParams(max_new_tokens=3)
-    with pytest.raises(NotImplementedError, match="FP8 KV"):
-        Engine(cfg, tp, EngineConfig(
-            max_batch_size=2, kv=KVCacheConfig(kv_dtype="fp8", **kv)),
-            device="cpu").generate(prompts, samp)
+    out = Engine(cfg, tp, EngineConfig(
+        max_batch_size=2, kv=KVCacheConfig(kv_dtype="fp8", **kv)),
+        device="cpu").generate(prompts, samp)
+    assert [len(o) for o in out] == [3, 3]
     out = Engine(cfg, tp, EngineConfig(
         max_batch_size=2, kv=KVCacheConfig(kv_dtype="int8", **kv)),
         device="cpu").generate(prompts, samp)

@@ -1761,8 +1761,13 @@ def test_paged_flash_decode_and_verify_fp8kv(cuda, dtype, s, n, kvn, d):
     assert got.dtype == dtype
     assert _close(got, want, dtype)
     assert not got[4].any()
-    with pytest.raises(NotImplementedError, match="FP8 KV with sliding"):
-        call(q, pk, pv, tables, kv, 1, window=16)
+    # with a window (4ew, 4vew; the tests below hold them over ring pools)
+    wform = (pd.paged_flash_decode_fp8kv_window if s == 1
+             else pd.paged_flash_verify_fp8kv_window)
+    before = wform.launches
+    got = call(q, pk, pv, tables, kv, 1, window=16)
+    assert wform.launches == before + 1
+    assert _close(got, ref(q, pk, pv, tables, kv, 1, window=16), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -2512,9 +2517,9 @@ def test_paged_flash_prefill_sinks(cuda, dtype, window, sq, above):
 
 
 def test_sink_forms_outside_the_slice_raise(cuda):
-    # sinks over e4m3 pools and at head_dim 256 (float and INT8 pools)
-    # raise; over INT8 pools (4qs, 4vqs), on verify rows and on the dense
-    # arena they run (the tests above and below)
+    # sinks at head_dim 256 (float and INT8 pools) raise; over INT8 pools
+    # (4qs, 4vqs) and e4m3 pools (4es, 4ves), on verify rows and on the
+    # dense arena they run (the tests above and below)
     g = torch.Generator(device=cuda).manual_seed(68)
     pk, pv = _pools(g, cuda, torch.bfloat16, b=2, kvn=OSS_KVN, d=OSS_D)
     tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=cuda)
@@ -2538,11 +2543,19 @@ def test_sink_forms_outside_the_slice_raise(cuda):
         torch.cuda.synchronize()
         assert bool(torch.isfinite(out).all()), form
         assert fp.SINK_LAUNCHES[form, OSS_D] == n + 1, form
-    ek, ev = pk.to(torch.float8_e4m3fn), pv.to(torch.float8_e4m3fn)
-    with pytest.raises(NotImplementedError, match="FP8 KV"):
-        pd.paged_flash_decode(q3[:, 0], ek, ev, tables, kv, 0, sinks=sinks)
-    with pytest.raises(NotImplementedError, match="FP8 KV"):
-        pd.paged_flash_verify(q3, ek, ev, tables, kv, 0, sinks=sinks)
+    ek, ev = ref_ops.to_e4m3(pk.float()), ref_ops.to_e4m3(pv.float())
+    for form, call in (
+            ("paged_flash_decode_fp8kv",
+             lambda: pd.paged_flash_decode(q3[:, 0], ek, ev, tables, kv, 0,
+                                           sinks=sinks)),
+            ("paged_flash_verify_fp8kv",
+             lambda: pd.paged_flash_verify(q3, ek, ev, tables, kv, 0,
+                                           sinks=sinks))):
+        n = fp.SINK_LAUNCHES.get((form, OSS_D), 0)
+        out = call()
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all()), form
+        assert fp.SINK_LAUNCHES[form, OSS_D] == n + 1, form
     from simplellminference_tpu_torch.ops.attention import flash_decode as fd
     p256 = torch.zeros((2, 5, OSS_KVN, 16, 256), device=cuda,
                        dtype=torch.bfloat16)
@@ -3002,3 +3015,205 @@ def test_fused_qkv_append_int8kv_head_dim_256_graph_replay(cuda, kv_layer):
         torch.cuda.synchronize()
         assert all(torch.equal(o, e) for o, e in zip(out, eager))
         assert all(torch.equal(o, e) for o, e in zip(step(), eager))
+
+
+# ---------- FP8 KV with sinks and sliding windows (head_dim 32-128)
+# gpt-oss-20b over FP8 KV (4es, 4ews, 4ves, 4vews, 8es, 8ews at D 64) and
+# Mistral-7B's window over FP8 KV (4ew, 4vew, 8ew at D 128; 6ek, the fused
+# qkv writing e4m3 ring pools at a kv_layer). e4m3 pools of N(0, 1) rows;
+# the window cases over ring tables whose columns below the band point at
+# pages of code 0x7f (NaN in e4m3fn): the output equals the clean
+# tables', so no form read them.
+
+FP8_CASES = {  # name: (n, kvn, d, sink kind)
+    "oss-sinks": (OSS_N, OSS_KVN, OSS_D, "n01"),
+    "oss-sinks-above": (OSS_N, OSS_KVN, OSS_D, "above"),
+    "mistral": (32, 8, 128, None),
+}
+
+
+def _e4m3_ring(g, dev, b, r, mp, kvn, d, ps):
+    """e4m3 ring pools (b slots x r pages, 4 pages of NaN codes, the trash
+    page) and the ring tables (column j of slot s -> s*r + j % r)."""
+    shape = (2, b * r + 5, kvn, ps, d)
+    pools = [ref_ops.to_e4m3(torch.randn(shape, generator=g, device=dev))
+             for _ in range(2)]
+    for p in pools:
+        p.view(torch.uint8)[:, b * r:b * r + 4] = 0x7F
+    ring = (torch.arange(b, device=dev)[:, None] * r
+            + torch.arange(mp, device=dev)[None] % r).to(torch.int32)
+    return pools, ring
+
+
+def _fp8_tables(g, dev, kind, b, rows, window, kv, mp, kvn, d, ps):
+    """(pools, clean tables, poisoned tables) of a case: ring pools with
+    NaN pages below each row's band with a window, else e4m3 pools with a
+    permuted table whose last row is dead."""
+    if window:
+        r = (window + max(rows, 128) - 2) // ps + 2
+        pools, ring = _e4m3_ring(g, dev, len(kv), r, mp, kvn, d, ps)
+        k_lo = (kv - window + 1) if kind == "prefill" else (
+            kv - rows - window + 1)
+        return pools, ring, _poisoned(ring, k_lo, ps, len(kv) * r)
+    pools = _e4m3_pools(g, dev, b=b, kvn=kvn, ps=ps, d=d, mp=mp)
+    tables = torch.randperm(b * mp, generator=g, device=dev).to(
+        torch.int32).reshape(b, mp)
+    tables[-1] = -1
+    return pools, tables, tables
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 128, 70],
+                         ids=["plain", "window", "window-70"])
+@pytest.mark.parametrize("case", list(FP8_CASES))
+def test_paged_flash_decode_fp8kv_options(cuda, dtype, window, case):
+    # 4es/4ews (and 4ew at D 128): kv_len 0, 1, a tile edge, the window's
+    # edges and 4096 (a split walk: a sink seeded in every split would
+    # count several times); a dead slot
+    n, kvn, d, sink = FP8_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(
+        list(FP8_CASES).index(case) + 31)
+    lens = [0, 1, 64, 70, 71, 4096, 300, 3]
+    b, ps = len(lens), 128
+    mp = 4096 // ps
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q = torch.randn((b, n, d), generator=g, device=cuda, dtype=dtype)
+    sinks = None if sink is None else _oss_sinks(g, cuda, sink == "above")
+    (pk, pv), clean, dirty = _fp8_tables(g, cuda, "decode", b, 1, window,
+                                         kv, mp, kvn, d, ps)
+    form = (pd.paged_flash_decode_fp8kv_window if window
+            else pd.paged_flash_decode_fp8kv)
+    before = (form.launches, fp.SINK_LAUNCHES.get((form.__name__, d), 0))
+    got = pd.paged_flash_decode(q, pk, pv, dirty, kv, 1, window=window,
+                                sinks=sinks)
+    assert (form.launches, fp.SINK_LAUNCHES.get((form.__name__, d), 0)) == (
+        before[0] + 1, before[1] + (sinks is not None))
+    want = pd.paged_flash_decode_ref(q, pk, pv, clean, kv, 1, window=window,
+                                     sinks=sinks)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    assert _close(got, want, dtype)
+    assert not got[0].any()
+    if window:
+        assert torch.equal(got, pd.paged_flash_decode(
+            q, pk, pv, clean, kv, 1, window=window, sinks=sinks))
+    else:
+        assert pd.decode_splits(b, kvn, mp * ps) > 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 128, 70],
+                         ids=["plain", "window", "window-70"])
+@pytest.mark.parametrize("case", list(FP8_CASES))
+def test_paged_flash_verify_fp8kv_options(cuda, dtype, window, case):
+    # 4ves/4vews (and 4vew at D 128), S 5: gpt-oss-20b's group of 8 x 5
+    # rows takes two row blocks, each block's split 0 seeding its rows;
+    # kv_len 0, 1, 5, 132 and 4096 (split walks); a dead slot
+    n, kvn, d, sink = FP8_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(
+        list(FP8_CASES).index(case) + 41)
+    lens = [0, 1, 5, 132, 4096, 3]
+    b, s, ps = len(lens), 5, 128
+    mp = 4096 // ps
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q = torch.randn((b, s, n, d), generator=g, device=cuda, dtype=dtype)
+    sinks = None if sink is None else _oss_sinks(g, cuda, sink == "above")
+    (pk, pv), clean, dirty = _fp8_tables(g, cuda, "verify", b, s, window,
+                                         kv, mp, kvn, d, ps)
+    form = (pd.paged_flash_verify_fp8kv_window if window
+            else pd.paged_flash_verify_fp8kv)
+    before = form.launches
+    got = pd.paged_flash_verify(q, pk, pv, dirty, kv, 1, window=window,
+                                sinks=sinks)
+    assert form.launches == before + 1
+    want = pd.paged_flash_verify_ref(q, pk, pv, clean, kv, 1, window=window,
+                                     sinks=sinks)
+    assert bool(torch.isfinite(got).all())
+    for i, ln in enumerate(lens):
+        live = [r for r in range(s) if ln - s + r >= 0]
+        if live:
+            assert _close(got[i, live], want[i, live], dtype)
+        assert not got[i, [r for r in range(s) if r not in live]].any()
+    if sink is not None:
+        assert pd.row_blocks((n // kvn) * s) == 2
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 128, 100],
+                         ids=["plain", "window", "window-100"])
+@pytest.mark.parametrize("case", list(FP8_CASES))
+def test_paged_flash_prefill_fp8kv_options(cuda, dtype, window, case):
+    # 8es/8ews (and 8ew at D 128): a 256-row chunk at offset 256, 64 rows
+    # at offset 4096 (bf16: a split key walk) with a ragged row and a
+    # padding row (-1 table, kv_len 1)
+    n, kvn, d, sink = FP8_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(
+        list(FP8_CASES).index(case) + 51)
+    ps = 128
+    for sq, offs, lens in ((256, [256], [512]),
+                           (64, [4096, 0, 0], [4160, 37, 1])):
+        b = len(offs)
+        mp = -(-max(o + sq for o in offs) // ps)
+        off_t = torch.tensor(offs, dtype=torch.int32, device=cuda)
+        kv_t = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        (pk, pv), clean, dirty = _fp8_tables(g, cuda, "prefill", b, sq,
+                                             window, off_t, mp, kvn, d, ps)
+        if b > 2:
+            clean[2] = -1
+            dirty[2] = -1
+        q = torch.randn((b, sq, n, d), generator=g, device=cuda, dtype=dtype)
+        sinks = (None if sink is None
+                 else _oss_sinks(g, cuda, sink == "above"))
+        form = (pp.paged_flash_prefill_fp8kv_window if window
+                else pp.paged_flash_prefill_fp8kv)
+        before = form.launches
+        got = pp.paged_flash_prefill(q, pk, pv, dirty, kv_t, off_t, 1,
+                                     window=window, sinks=sinks)
+        assert form.launches == before + 1
+        want = pp.paged_flash_prefill_ref(q, pk, pv, clean, kv_t, off_t, 1,
+                                          window=window, sinks=sinks)
+        assert bool(torch.isfinite(got).all())
+        for i in range(b):
+            valid = max(0, min(sq, lens[i] - offs[i]))
+            assert _attn_ok(got[i, :valid], want[i, :valid]), (sq, i)
+
+
+@pytest.mark.parametrize("xdt", DTYPES)
+def test_fused_qkv_append_fp8kv_kv_layer(cuda, xdt):
+    # 6ek at Mistral-7B's widths (32 q heads over 8 of 128, H 4096; bf16
+    # rows take 6m, f32 ones the FMA kernel): the weights of layer 1, the
+    # rows written into e4m3 ring pools at kv_layer 0, codes at most one
+    # step apart from the plain version's, every other byte equal
+    g = torch.Generator(device=cuda).manual_seed(66)
+    n, kvn, d, h, ps, b, r = 32, 8, 128, 4096, 128, 8, 3
+    nq = (n + 2 * kvn) * d
+    wq, ws = _qw(g, cuda, (2, h, nq), 1)
+    ws = ws * 30                                    # k/v past 464 too
+    nw = torch.rand((2, h), generator=g, device=cuda).to(xdt) + 0.5
+    x = torch.randn((b, h), generator=g, device=cuda).to(xdt)
+    pos = (4200 + 37 * torch.arange(b, device=cuda)).to(torch.int32)
+    pools, ring = _e4m3_ring(g, cuda, b, r, 40, kvn, d, ps)
+    sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
+    a, rf = [p.clone() for p in pools], [p.clone() for p in pools]
+    before = (qf.fused_qkv_append_fp8kv.launches,
+              qf.KV_LAYER_LAUNCHES["fused_qkv_append_fp8kv"],
+              qf.fused_qkv_append_kv_layer.launches)
+    qa, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, a[0], a[1], 1,
+                                 pos, n_heads=n, kv_heads=kvn, tables=ring,
+                                 kv_layer=0)
+    assert (qf.fused_qkv_append_fp8kv.launches,
+            qf.KV_LAYER_LAUNCHES["fused_qkv_append_fp8kv"],
+            qf.fused_qkv_append_kv_layer.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    qr, *_ = qf.fused_qkv_append_ref(x, nw, wq, ws, sin, cos, rf[0], rf[1],
+                                     1, pos, n_heads=n, kv_heads=kvn,
+                                     tables=ring, kv_layer=0)
+    tol = 1e-5 if xdt == torch.float32 else 2e-2
+    assert float((qa.float() - qr.float()).abs().max()) <= tol * float(
+        qr.float().std())
+    written = torch.zeros(pools[0].shape, dtype=torch.bool, device=cuda)
+    for i, p in enumerate(pos.tolist()):
+        written[0, int(ring[i, p // ps]), :, p % ps] = True
+    for x_a, x_r in zip(a, rf):
+        assert _bytes_equal(x_a[~written], x_r[~written])
+        assert int((_ordinal(x_a[written]) - _ordinal(x_r[written])).abs()
+                   .max()) <= 1

@@ -112,9 +112,14 @@ def test_cache_create_layout_and_unsupported():
     assert c.k.shape == (2, 6, 3, 8, 16) and c.v.shape == c.k.shape
     assert c.page_size == 8 and c.num_pages == 6 and not c.k.any()
     assert tpkv.kv_storage_dtype("bf16") == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="FP8 KV with sliding"):
-        tpkv.PagedKVCache.create(2, 5, 3, 8, 16, torch.float8_e4m3fn,
+    # e4m3 storage takes a windowed group too: zeroed e4m3 ring pools, no
+    # scale pools
+    w = tpkv.PagedKVCache.create(2, 5, 3, 8, 16, torch.float8_e4m3fn,
                                  device="cpu").with_windowed(1, 4)
+    assert w.k_w.dtype == w.v_w.dtype == torch.float8_e4m3fn
+    assert w.k_w.shape == w.v_w.shape == (1, 5, 3, 8, 16)
+    assert not w.k_w.view(torch.uint8).any()
+    assert w.k_w_scale is None and w.v_w_scale is None
     with pytest.raises(NotImplementedError):
         tpkv.PagedKVCache.create(2, 5, 3, 8, 16, shared_kv=True,
                                  device="cpu")

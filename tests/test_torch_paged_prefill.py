@@ -121,21 +121,24 @@ def test_plain_matches_jax_dispatch_any_sq(s, offs, lens):
 
 
 @pytest.mark.parametrize("kw,feature,fp8", [
-    # sinks run over pools of q's dtype and INT8 pools (8s, 8ws, 8qs, 8qws:
-    # tests/test_torch_sinks.py, tests/test_torch_int8kv_sinks_cap.py and
-    # test_sinks_run_over_float_pools below), not over e4m3 pools, with or
-    # without a window
-    (dict(window=16, sinks=torch.zeros(4)), "FP8 KV", True),
     # the cap runs over pools of q's dtype and INT8 pools
     # (tests/test_torch_softcap.py, tests/test_torch_int8kv_sinks_cap.py),
-    # not over e4m3 pools
+    # not over e4m3 pools, with or without a window
+    (dict(window=16, logit_cap=30.0), "FP8 KV", True),
     (dict(logit_cap=30.0), "soft cap", True),
+    # sinks run over every pool dtype at head_dim 32-128 (8s, 8ws, 8qs,
+    # 8qws, 8es, 8ews: tests/test_torch_sinks.py,
+    # tests/test_torch_int8kv_sinks_cap.py,
+    # tests/test_torch_fp8kv_sinks_window.py and
+    # test_sinks_run_over_float_pools below), not at head_dim 256 (this
+    # case's pools are e4m3 pools of head_dim 256)
     (dict(sinks=torch.zeros(4)), "sinks", True),
     (dict(k_scale=torch.ones(1)), "INT8 KV", False),     # no V scale pool
 ])
 def test_unported_options_raise(kw, feature, fp8):
     rng = np.random.default_rng(0)
-    q, pk, pv, tables, kv, offs = _case(rng, 2, 16, 4, 2, 32, 8, 4)
+    d = 256 if "sinks" in kw else 32
+    q, pk, pv, tables, kv, offs = _case(rng, 2, 16, 4, 2, d, 8, 4)
     if fp8:
         pk, pv = (x.astype(np.float32) for x in (pk, pv))
         pk = t(pk).to(torch.float8_e4m3fn)

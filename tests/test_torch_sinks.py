@@ -478,10 +478,11 @@ def test_sink_forms_count_their_launches_apart():
 
 
 def test_sinks_outside_the_slice_raise():
-    """Sinks over e4m3 pools (decode, verify and prefill) and at head_dim
-    256 (over float and INT8 pools) raise NotImplementedError naming the
-    form, on the CPU as on the card; over INT8 pools (4qs, 4vqs, 8qs), on
-    verify rows (4vs) and on the dense arena (13s) they run."""
+    """Sinks at head_dim 256 (over float and INT8 pools) raise
+    NotImplementedError naming the form, on the CPU as on the card; over
+    INT8 pools (4qs, 4vqs, 8qs) and e4m3 pools (4es, 4ves, 8es: held to
+    JAX in tests/test_torch_fp8kv_sinks_window.py), on verify rows (4vs)
+    and on the dense arena (13s) they run."""
     rng = np.random.default_rng(1)
     d = 32
     shape = (2, 7, KVN, PS, d)
@@ -505,20 +506,16 @@ def test_sinks_outside_the_slice_raise():
              q3.shape),
             (lambda: tpp.paged_flash_prefill(q3, qk, qv, tables, kv, offs, 0,
                                              k_scale=ks, v_scale=vs, **sk),
-             q3.shape)):
+             q3.shape),
+            # and over e4m3 pools
+            (lambda: tpd.paged_flash_decode(q1, ek, ev, tables, kv, 0, **sk),
+             q1.shape),
+            (lambda: tpd.paged_flash_verify(q3, ek, ev, tables, kv, 0, **sk),
+             q3.shape),
+            (lambda: tpp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0,
+                                             **sk), q3.shape)):
         out = fn()
         assert out.shape == want and bool(torch.isfinite(out).all())
-    calls = {
-        "sinks over FP8 KV": [
-            lambda: tpd.paged_flash_decode(q1, ek, ev, tables, kv, 0, **sk),
-            lambda: tpd.paged_flash_verify(q3, ek, ev, tables, kv, 0, **sk),
-            lambda: tpp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0,
-                                            **sk)],
-    }
-    for feature, fns in calls.items():
-        for fn in fns:
-            with pytest.raises(NotImplementedError, match=feature):
-                fn()
     # verify rows and the dense arena run, with and without a window
     for w in (None, 4):
         assert tpd.paged_flash_verify(q3, pk, pv, tables, kv, 0, window=w,
