@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero:
   2. build    — compile csrc/*.cu (nvcc, sm_90a) and print the build time
                 and the ptxas register / shared-memory lines, and the
                 HGMMA (tensor-core) instruction count of each tensor-core
-                kernel's instantiations in `cuobjdump -sass` (a line says
-                so where cuobjdump is missing; never a failure).
+                kernel's instantiations in `cuobjdump -sass`, counted
+                while the later phases run and printed after them (a line
+                says so where cuobjdump is missing; never a failure).
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
                 card, at the main paths' shapes (Llama-2-7B: H=4096,
                 I=11008, N=kvN=32, D=128, V=32000, page 128, batch 8,
@@ -88,9 +89,9 @@ Phases, in order; any failure exits non-zero:
                 3, 4, 13 and 8 by the same rules as their other head dims
                 (split walks, split edges, kv_len 4096, f32 forms), 6m and
                 the FMA kernel 6 (f32 rows, and forced beside 6m on bf16
-                rows) and 6d; each D-256 form has its own row, and the
-                forms outside the slice (INT8-KV, e4m3, verify) must
-                raise at D 256 before any launch. Then Gemma-2-2B's
+                rows) and 6d; each D-256 form has its own row, and
+                sinks at D 256 must raise before any launch. Then
+                Gemma-2-2B's
                 shapes (8 q heads over 4 kv heads, D 256, soft cap 50,
                 window 4096): the capped forms 3c, 3wc, 4c, 4wc (over ring
                 tables, NaN pages below the band), 8c and 8wc by their
@@ -144,7 +145,15 @@ Phases, in order; any failure exits non-zero:
                 tables whose columns below the band sit on pages of NaN
                 codes, kv_len 0, f32; 6ek (the fused qkv into e4m3 ring
                 pools at a kv_layer) in check_fused_qkv_fp8kv, codes at
-                most one step apart. Max |error| beside
+                most one step apart; and Gemma over FP8 KV in the same
+                check: the capped e4m3 forms at D 256 (4ec, 4ewc, 4vec,
+                4vewc, 8ec, 8ewc) at Gemma-2-2B's and -9B's shapes, scores
+                past the cap, and at D 128; the e4m3 forms at Gemma-1's
+                D 256 (4e, 4ew, 4ve at its group of 8 x 5 rows, 4vew, 8e,
+                8ew); windows over ring tables with NaN-code pages below
+                the band, kv_len 0, f32; then 1e, 2e, 11e at D 256 byte-
+                equal and 6e/256 (Gemma-2B) and 6ek/256 (Gemma-2-2B's ring
+                pools) in check_fp8kv_d256_writes. Max |error| beside
                 its tolerance, kernel / plain / library times from
                 CUDA-graph replay, and the bound (the least time for the
                 bytes and operations of the call on an H100 SXM:
@@ -216,16 +225,16 @@ Phases, in order; any failure exits non-zero:
                 `gemma2_draft`'s target, `draft`'s target, both
                 drafters (TinyLlama, Gemma-2-2B), `gpt_oss_prefix`,
                 `gpt_oss_spec`, `gpt_oss_dense` and the INT8-KV paths of
-                gpt-oss-20b and the Gemmas and `gpt_oss` at 4 layers,
-                `gemma_prefix` at 6, `dense`, `prefix`, `w8a8`, `int8kv`,
-                `int8kv_prefix`, `fp8kv` and `fp8kv_prefix` at 8, `gemma`
-                at 9. Then,
-                Gemma-2B at full width (9 of its 18 layers, H 2048,
+                gpt-oss-20b and the Gemmas, `gpt_oss`, `gemma_prefix`,
+                `dense`, `prefix`, `w8a8`, `int8kv`, `int8kv_prefix`,
+                `fp8kv`, `fp8kv_prefix` and `gemma` at 4 layers (every
+                path but `int8`). Then,
+                Gemma-2B at full width (4 of its 18 layers, H 2048,
                 I 16384, V 256000, 8 heads over one kv head of 256,
                 GeGLU, the embedding scale, a tied bf16 head): `gemma`
                 (bench.py's shape with INT8 weights, the prefix cache
                 off: 2, 3, 6m, 4, 5r and 5m, each D-256 form's row too)
-                and `gemma_prefix` (6 layers; the server's default: bf16 weights,
+                and `gemma_prefix` (the server's default: bf16 weights,
                 the prefix path's traffic: 2, 8, 1 and 4), each with its
                 exact launch counts, decode rate, graph-replayed step,
                 bytes floor, idle share and TTFT. Then Gemma-2-2B at full
@@ -298,8 +307,17 @@ Phases, in order; any failure exits non-zero:
                 (bench.py --kv-dtype fp8 at `gpt_oss`'s shape: 1e, 2e, 3s,
                 3ws, 4es, 4ews) and `gpt_oss_spec_fp8kv` (the server
                 CLI's --kv-dtype fp8 --spec-tokens 4, bf16, the prefix
-                traffic: 2e, 8es, 8ews, 4ves, 4vews, 11e). Consecutive
-                paths of one model, depth and weights share one draw.
+                traffic: 2e, 8es, 8ews, 4ves, 4vews, 11e). Last, FP8 KV
+                for the Gemmas, each path after its INT8-KV twin and
+                printing its step beside the twin's:
+                `gemma_fp8kv_prefix` (Gemma-2B, INT8 weights, the prefix
+                traffic: 6e, 8e, 4e, 2e at D 256), `gemma2_fp8kv`
+                (bench.py --kv-dtype fp8 at Gemma-2-2B, the grouped
+                engine: 6ek, 4ec, 4ewc, 2e at D 256) and
+                `gemma2_spec_fp8kv` (--kv-dtype fp8 --spec-tokens 4, bf16,
+                the prefix traffic: 8ec, 8ewc, 4vec, 4vewc, 11e, 2e at D
+                256). Consecutive paths of one model, depth and weights
+                share one draw.
   5. cpu      — the same port at Llama-2-7B width, 1 layer, f32, TF32 off,
                 on the card (kernels) and on the host CPU (plain
                 versions), from one draw of the weights (on the card,
@@ -352,7 +370,9 @@ Phases, in order; any failure exits non-zero:
                 runs every sink form. gpt-oss-20b and Gemma-2-2B also over
                 INT8 KV (prefill + 8 steps and the Engine, the INT8-KV
                 rule: 4qs, 4qws, 4qc/256, 4qwc/256 on the card), and
-                gpt-oss-20b over FP8 KV (the FP8-KV rule: 4es, 4ews).
+                gpt-oss-20b over FP8 KV (the FP8-KV rule: 4es, 4ews),
+                and Gemma-2-2B over FP8 KV (the FP8-KV rule: 2e, 1e,
+                4ec, 4ewc at D 256, counted as `gemma2_fp8kv_cpu`).
 
 Then one line ``{"kernels": [...]}`` (each kernel's launches on every
 path, and in phase 3: kernels 16 and 17 run only there) and, last, the
@@ -551,16 +571,16 @@ KERNELS = {
         source="simplellminference_tpu_torch/csrc/paged_append.cu",
         replaces="simplellminference_tpu/ops/paged_append.py:392"),
     "paged_flash_decode_fp8kv": dict(
-        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        source="simplellminference_tpu_torch/csrc/paged_decode_e4m3.cu",
         replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
     "paged_flash_verify_fp8kv": dict(
-        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        source="simplellminference_tpu_torch/csrc/paged_decode_e4m3.cu",
         replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
     "fused_qkv_append_fp8kv": dict(
         source="simplellminference_tpu_torch/csrc/qkv_fused.cu",
         replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
     "paged_flash_prefill_fp8kv": dict(
-        source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
+        source="simplellminference_tpu_torch/csrc/paged_prefill_e4m3.cu",
         replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
     # head_dim 256 (Gemma-2B): the D-256 forms of kernels 3, 4, 8, 13 and 6
     # (6m on bf16 rows, the FMA kernel on f32 ones); each launch also
@@ -753,35 +773,91 @@ KERNELS = {
     # 4ews, 4ves, 4vews, 8es, 8ews); each launch also counts in its FP8-KV
     # form's row above
     "paged_flash_decode_fp8kv_window": dict(
-        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        source="simplellminference_tpu_torch/csrc/paged_decode_e4m3.cu",
         replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
     "paged_flash_verify_fp8kv_window": dict(
-        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        source="simplellminference_tpu_torch/csrc/paged_decode_e4m3.cu",
         replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
     "paged_flash_prefill_fp8kv_window": dict(
-        source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
+        source="simplellminference_tpu_torch/csrc/paged_prefill_e4m3.cu",
         replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
     "fused_qkv_append_fp8kv_kv_layer": dict(
         source="simplellminference_tpu_torch/csrc/qkv_fused_mma.cu",
         replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
     "paged_flash_decode_fp8kv_sinks": dict(
-        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        source="simplellminference_tpu_torch/csrc/paged_decode_e4m3.cu",
         replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
     "paged_flash_decode_fp8kv_window_sinks": dict(
-        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        source="simplellminference_tpu_torch/csrc/paged_decode_e4m3.cu",
         replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
     "paged_flash_verify_fp8kv_sinks": dict(
-        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        source="simplellminference_tpu_torch/csrc/paged_decode_e4m3.cu",
         replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
     "paged_flash_verify_fp8kv_window_sinks": dict(
-        source="simplellminference_tpu_torch/csrc/paged_decode.cu",
+        source="simplellminference_tpu_torch/csrc/paged_decode_e4m3.cu",
         replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
     "paged_flash_prefill_fp8kv_sinks": dict(
-        source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
+        source="simplellminference_tpu_torch/csrc/paged_prefill_e4m3.cu",
         replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
     "paged_flash_prefill_fp8kv_window_sinks": dict(
-        source="simplellminference_tpu_torch/csrc/paged_prefill.cu",
+        source="simplellminference_tpu_torch/csrc/paged_prefill_e4m3.cu",
         replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    # Gemma over FP8 KV: the capped e4m3 forms of kernels 4 and 8 at head
+    # dim 256 (4ec, 4ewc, 4vec, 4vewc, 8ec, 8ewc; Gemma-2) and the e4m3
+    # forms at D 256 (4e, 4ew, 4ve, 4vew, 8e, 8ew; the writes 1e, 2e, 11e;
+    # the fused qkv 6e and, with a kv_layer, 6ek); each launch also counts
+    # in its FP8-KV form's row above
+    "paged_flash_decode_fp8kv_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode_e4m3.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "paged_flash_decode_fp8kv_window_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode_e4m3.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "paged_flash_verify_fp8kv_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode_e4m3.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    "paged_flash_verify_fp8kv_window_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode_e4m3.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    "paged_flash_prefill_fp8kv_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill_e4m3.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    "paged_flash_prefill_fp8kv_window_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill_e4m3.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    "paged_flash_decode_fp8kv_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode_e4m3.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "paged_flash_decode_fp8kv_window_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode_e4m3.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "paged_flash_verify_fp8kv_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode_e4m3.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    "paged_flash_verify_fp8kv_window_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode_e4m3.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:136"),
+    "paged_flash_prefill_fp8kv_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill_e4m3.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    "paged_flash_prefill_fp8kv_window_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill_e4m3.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
+    "paged_append_decode_fp8kv_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_append.cu",
+        replaces="simplellminference_tpu/ops/paged_append.py:54"),
+    "paged_append_prefill_fp8kv_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_append.cu",
+        replaces="simplellminference_tpu/ops/paged_append.py:129"),
+    "paged_append_span_fp8kv_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_append.cu",
+        replaces="simplellminference_tpu/ops/paged_append.py:392"),
+    "fused_qkv_append_fp8kv_d256": dict(
+        source="simplellminference_tpu_torch/csrc/qkv_fused_mma.cu",
+        replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
+    "fused_qkv_append_fp8kv_kv_layer_d256": dict(
+        source="simplellminference_tpu_torch/csrc/qkv_fused_mma.cu",
+        replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
     # the last two TPU kernels, dispatched from no path (as in JAX)
     "fused_wo_ffn": dict(
         source="simplellminference_tpu_torch/csrc/wo_ffn.cu",
@@ -821,9 +897,11 @@ KERNELS = {
 # Generator (INT8); INT8 and FP8 KV for gpt-oss-20b (bench.py --kv-dtype
 # int8 and fp8; the server CLI's --kv-dtype fp8 --spec-tokens 4 on the
 # prefix traffic), its paths ordered so that those of one weight draw
-# (INT8, then bf16) run one after the other and share it; then INT8 KV for
-# Gemma-2B (the server's prefix traffic) and Gemma-2-2B (bench.py
-# --kv-dtype int8, and --spec-tokens 4 on the prefix traffic)
+# (INT8, then bf16) run one after the other and share it; then INT8 and
+# FP8 KV for Gemma-2B (the server's prefix traffic, INT8 weights) and
+# Gemma-2-2B (bench.py --kv-dtype int8 and fp8, and --spec-tokens 4 on the
+# prefix traffic), each FP8-KV path after its INT8-KV twin, whose draw it
+# shares
 PATHS = ("int8", "bf16", "prefix", "int8kv", "int8kv_prefix", "spec",
          "spec_int8kv", "fp8kv", "fp8kv_prefix", "spec_fp8kv", "dense",
          "dense_bf16", "draft", "int4", "int4_dense", "w8a8",
@@ -831,8 +909,17 @@ PATHS = ("int8", "bf16", "prefix", "int8kv", "int8kv_prefix", "spec",
          "gemma2_window", "gemma2_dense", "gemma2_spec", "gemma2_draft",
          "gpt_oss", "gpt_oss_dense", "gpt_oss_int8kv", "gpt_oss_fp8kv",
          "gpt_oss_prefix", "gpt_oss_spec", "gpt_oss_spec_int8kv",
-         "gpt_oss_spec_fp8kv", "gemma_int8kv_prefix", "gemma2_int8kv",
-         "gemma2_spec_int8kv")
+         "gpt_oss_spec_fp8kv", "gemma_int8kv_prefix", "gemma_fp8kv_prefix",
+         "gemma2_int8kv", "gemma2_fp8kv", "gemma2_spec_int8kv",
+         "gemma2_spec_fp8kv")
+# each FP8-KV path of the Gemmas and its INT8-KV twin, whose device step,
+# bytes floor and idle share it prints beside its own
+TWINS = {"gemma_fp8kv_prefix": "gemma_int8kv_prefix",
+         "gemma2_fp8kv": "gemma2_int8kv",
+         "gemma2_spec_fp8kv": "gemma2_spec_int8kv"}
+# each path's decode (or verify) step: engine ms, device ms, floor ms,
+# idle share (filled by the serve functions)
+STEPS: dict = {}
 # google/gemma-2-2b's config.json (huggingface.co/google/gemma-2-2b), the
 # published values the Gemma-2 paths serve; its layer_types as
 # transformers.Gemma2Config derives them: sliding on even layers, full on
@@ -994,6 +1081,10 @@ def phase_build():
     print(f"[build] {len(cuda_build.sources())} sources -> "
           f"{info['dir']} in {time.perf_counter() - t0:.1f} s "
           f"(cached={info['cached']})", flush=True)
+    if info.get("source_seconds"):
+        slow = sorted(info["source_seconds"].items(), key=lambda kv: -kv[1])
+        print(f"[build] seconds per source (nvcc, all at once): "
+              f"{json.dumps({k: round(v, 1) for k, v in slow})}", flush=True)
     for line in info.get("ptxas", "").splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  " + line.strip(), flush=True)
@@ -1017,18 +1108,28 @@ class HgmmaCount:
     """Tensor-core evidence: the HGMMA, IGMMA (integer wgmma) or HMMA
     instructions in the SASS of each instantiation of MMA_KERNELS
     (``cuobjdump -sass``), or a line saying cuobjdump is not there. The
-    disassembly (some 40 s of host time) runs while the kernel checks do;
-    :meth:`print` waits for it, :meth:`stop` ends it unread."""
+    disassembly (some 40 s of host time) runs while the phases do, a
+    thread counting its lines as they come (left unread, the pipe would
+    fill and stall cuobjdump until :meth:`print`); :meth:`print` waits for
+    it, :meth:`stop` ends it unread."""
 
     def __init__(self, lib: Path):
         import shutil
+        import threading
 
         from simplellminference_tpu_torch.ops import cuda_build
         cand = Path(cuda_build.nvcc_path()).with_name("cuobjdump")
         tool = str(cand) if cand.is_file() else shutil.which("cuobjdump")
-        self.proc = None if tool is None else subprocess.Popen(
-            [tool, "-sass", str(lib)], stdout=subprocess.PIPE,
-            stderr=subprocess.DEVNULL, text=True)
+        self.counts: dict = {}
+        self.proc = self.reader = None
+        if tool is not None:
+            self.proc = subprocess.Popen(
+                [tool, "-sass", str(lib)], stdout=subprocess.PIPE,
+                stderr=subprocess.DEVNULL, text=True)
+            self.reader = threading.Thread(
+                target=count_mma, args=(self.proc.stdout, self.counts),
+                daemon=True)
+            self.reader.start()
 
     def stop(self) -> None:
         if self.proc is not None and self.proc.poll() is None:
@@ -1040,16 +1141,16 @@ class HgmmaCount:
             print("[build] cuobjdump not found: no SASS evidence of HGMMA",
                   flush=True)
             return
-        sass = self.proc.communicate(timeout=300)[0]
-        print_hgmma(sass)
+        self.proc.wait(timeout=300)
+        self.reader.join(timeout=300)
+        print_hgmma(self.counts)
 
 
-def print_hgmma(sass: str) -> None:
-    """The instruction counts of :class:`HgmmaCount` from ``sass``."""
-    import re
-    counts: dict = {}
+def count_mma(lines, counts: dict) -> None:
+    """Count the HGMMA, HMMA and IGMMA instructions of each function in
+    the ``cuobjdump -sass`` output ``lines`` into ``counts``."""
     fn = None
-    for line in sass.splitlines():
+    for line in lines:
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             counts.setdefault(fn, {"HGMMA": 0, "HMMA": 0, "IGMMA": 0})
@@ -1057,6 +1158,12 @@ def print_hgmma(sass: str) -> None:
             for op in ("HGMMA", "HMMA", "IGMMA"):
                 if f" {op}." in line or f" {op} " in line:
                     counts[fn][op] += 1
+
+
+def print_hgmma(counts: dict) -> None:
+    """The instruction counts of :class:`HgmmaCount` (:func:`count_mma`)
+    of each instantiation of MMA_KERNELS."""
+    import re
     for kname, op in MMA_KERNELS.items():
         for fn, n in sorted(counts.items()):
             if kname not in fn:
@@ -3923,9 +4030,9 @@ def check_head_dim_256(torch, dev, results, extra):
     the attention rules; 6 at the decode (8 rows, 6m: q by the fused
     rule, k/v rows likewise, every other pool byte equal; timed beside
     the FMA kernel forced on the same inputs), with an unmapped row, 1
-    row, f32 rows (the FMA kernel) and the dense arena (6d). Then the
-    forms outside the slice (the e4m3 ones: 1e, 2e, 4e, 4ve, 8e) must
-    raise at D 256 before any launch."""
+    row, f32 rows (the FMA kernel) and the dense arena (6d). Then sinks
+    at D 256 (4s, 4es, 4ves, 8es), which no model has, must raise before
+    any launch."""
     import torch.nn.functional as F
 
     from simplellminference_tpu_torch.memory.paged_kv import gather_dense
@@ -4253,9 +4360,11 @@ def check_head_dim_256(torch, dev, results, extra):
         results["fused_qkv_append_mma_d256"] = timed["fused_qkv_append_mma"]
         results["fused_qkv_append_d256"] = timed["fused_qkv_append"]
 
-    # the forms outside the slice (the e4m3 ones; the INT8-KV forms run at
-    # D 256 since Gemma's INT8-KV slice: check_int8kv_options) raise at D
-    # 256, before any launch
+    # every paged form runs at D 256 (the INT8-KV forms since Gemma's
+    # INT8-KV slice, check_int8kv_options; the e4m3 ones since its FP8-KV
+    # slice, check_fp8kv_options); sinks at D 256 (no model with sinks has
+    # it) still raise, named, before any launch, over e4m3 pools as over
+    # pools of q's dtype
     pk, pv = _pools(torch, gen, dev, 2, 6, kvn, ps, d, bf)
     ek, ev = pk.to(torch.float8_e4m3fn), pv.to(torch.float8_e4m3fn)
     tables = _tables(torch, dev, 3, 2, dead_last=False)
@@ -4263,16 +4372,17 @@ def check_head_dim_256(torch, dev, results, extra):
     zero = torch.zeros(3, dtype=torch.int32, device=dev)
     q1 = torch.randn((3, n, d), generator=gen, device=dev, dtype=bf)
     q3 = torch.randn((3, 3, n, d), generator=gen, device=dev, dtype=bf)
-    nk = torch.randn((3, 3, kvn, d), generator=gen, device=dev, dtype=bf)
+    sinks = torch.zeros(n, device=dev)
     before = {k: w.launches for k, (w, _r) in _wrappers().items()}
     refused = {
-        "4e": lambda: pd.paged_flash_decode(q1, ek, ev, tables, kv_lens, 0),
-        "4ve": lambda: pd.paged_flash_verify(q3, ek, ev, tables, kv_lens, 0),
-        "8e": lambda: pp.paged_flash_prefill(q3, ek, ev, tables, kv_lens,
-                                             zero, 0),
-        "1e": lambda: pa.paged_append_decode(ek, ev, nk[:, 0], nk[:, 0],
-                                             tables, zero, 0),
-        "2e": lambda: pa.paged_append_prefill(ek, ev, nk, nk, tables, 0),
+        "4s": lambda: pd.paged_flash_decode(q1, pk, pv, tables, kv_lens, 0,
+                                            sinks=sinks),
+        "4es": lambda: pd.paged_flash_decode(q1, ek, ev, tables, kv_lens, 0,
+                                             sinks=sinks),
+        "4ves": lambda: pd.paged_flash_verify(q3, ek, ev, tables, kv_lens, 0,
+                                              sinks=sinks),
+        "8es": lambda: pp.paged_flash_prefill(q3, ek, ev, tables, kv_lens,
+                                              zero, 0, sinks=sinks),
     }
     for form, call in refused.items():
         try:
@@ -4282,10 +4392,9 @@ def check_head_dim_256(torch, dev, results, extra):
             continue
         raise SmokeFailure(f"{form} ran at D 256")
     require(before == {k: w.launches for k, (w, _r) in _wrappers().items()},
-            "a form outside the D-256 slice launched")
-    print(f"[kernels] d256: the forms outside the slice raise "
-          f"NotImplementedError at D 256 before any launch: "
-          f"{', '.join(refused)}; the D-256 checks took "
+            "a sink form launched at D 256")
+    print(f"[kernels] d256: sinks at D 256 raise NotImplementedError before "
+          f"any launch: {', '.join(refused)}; the D-256 checks took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
@@ -5418,6 +5527,8 @@ def _kv_options_attn(torch, dev, gen, kind, row, tag, shape, lens, *,
         pk, pv, ks, vs = _quant_pools(torch, gen, dev, 2, b * mp, kvn, ps, d)
         clean = _tables(torch, dev, b, mp, dead_last=dead)
         dirty = clean
+    require(pk.dtype == (torch.float8_e4m3fn if fp8 else torch.int8),
+            f"{row} {tag}: {pk.dtype} pools, not the form's")
     qshape = (b, n, d) if kind == "decode" else (b, rows, n, d)
     q = (torch.randn(qshape, generator=gen, device=dev) * q_x).to(dtype)
     sinks = (None if sink is None
@@ -5931,17 +6042,37 @@ def check_fp8kv_options(torch, dev, results, extra):
     - Mistral-7B (32 q heads over 8 kv heads, D 128, window 4096): 4ew,
       4vew and 8ew over ring tables of the grouped engine's R (decode and
       verify past the window, the 256-row chunk at offset 4096), and
-      windows of 100 at their edges in f32."""
+      windows of 100 at their edges in f32;
+    - Gemma-2-2B (8 q heads over 4 kv heads, D 256, cap 50, window 4096)
+      and Gemma-2-9B (16 over 8): 4ec/256, 4ewc/256, 4vec/256, 4vewc/256,
+      8ec/256, 8ewc/256, scores past the cap (q x 60), windows of 100 over
+      the ring at their edges, kv_len 0, f32, and at D 128 (32 over 8),
+      each beside SDPA over K/V cast in the call without the cap;
+    - Gemma-1 (8 q heads over one kv head, D 256): 4e/256 at
+      `gemma_fp8kv_prefix`'s decode (8 rows at context ~600), 4ve/256 at
+      its group of 8 x 5 rows (two row blocks), 8e/256 at its chunk and
+      suffix batch, and the uncapped window forms 4ew/256, 4vew/256,
+      8ew/256 (no model runs them) over the ring;
+    then 1e, 2e, 11e, 6e and 6ek at D 256
+    (:func:`check_fp8kv_d256_writes`)."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(2323)
     f32 = torch.float32
     oss = (GPT_OSS["n"], GPT_OSS["kvn"], GPT_OSS["d"])
     win = GPT_OSS["window"]
     mis = (MISTRAL["n"], MISTRAL["kvn"], MISTRAL["d"])
+    g2 = (GEMMA2["n"], GEMMA2["kvn"], GEMMA2["d"])
+    g9 = (GEMMA2_9B["n"], GEMMA2_9B["kvn"], GEMMA2_9B["d"])
+    g1 = (GEMMA["n"], GEMMA["kvn"], GEMMA["d"])
+    d128 = (32, 8, 128)
+    cap = GEMMA2["cap"]
     decode = [128 + 4 * i for i in range(8)]      # bench.py's context
     verify = [147 + 2 * i for i in range(8)]      # the spec paths'
+    prefix = [576 + 4 * i for i in range(8)]      # the prefix traffic's
     long = [4224 + 40 * i for i in range(8)]      # Mistral past its window
     edges = [0, 1, 63, 64, 65, 4095, 300, 5]
+    w_edges = [0, 1, 99, 100, 101, 255, 700, 5]
+    v_edges = [0, 4, 5, 104, 105, 700, 4100, 9]
     kw = dict(results=results, extra=extra, kv_dtype="fp8")
     # (row, kind, tag, shape, lens, options); a row's first case is timed
     cases = [
@@ -6005,16 +6136,275 @@ def check_fp8kv_options(torch, dev, results, extra):
         ("paged_flash_prefill_fp8kv_window", "prefill",
          "window 100 ragged f32", mis, [640, 1100, 60],
          dict(window=100, sq=128, offs=[512, 1024, 0], dtype=f32)),
+        # Gemma-2: the cap over e4m3 pools at D 256 (and D 128)
+        ("paged_flash_decode_fp8kv_cap_d256", "decode",
+         "gemma-2-2b past the cap", g2, decode, dict(cap=cap, q_x=60.0)),
+        ("paged_flash_decode_fp8kv_cap_d256", "decode",
+         "kv_len 4096 past the cap", g2, [4096] * 8,
+         dict(cap=cap, q_x=60.0)),
+        ("paged_flash_decode_fp8kv_cap_d256", "decode", "edges f32", g2,
+         edges, dict(cap=cap, q_x=60.0, dead=True, dtype=f32)),
+        ("paged_flash_decode_fp8kv_cap_d256", "decode", "D 128", d128,
+         decode, dict(cap=cap, q_x=60.0)),
+        ("paged_flash_decode_fp8kv_window_cap_d256", "decode",
+         "gemma-2-2b window", g2, decode,
+         dict(cap=cap, q_x=60.0, window=WINDOW)),
+        ("paged_flash_decode_fp8kv_window_cap_d256", "decode",
+         "window 100 edges", g2, w_edges,
+         dict(cap=cap, q_x=60.0, window=100)),
+        ("paged_flash_decode_fp8kv_window_cap_d256", "decode",
+         "D 128 window 100", d128, w_edges,
+         dict(cap=cap, q_x=60.0, window=100)),
+        ("paged_flash_verify_fp8kv_cap_d256", "verify",
+         "gemma-2-2b 8 x 5 past the cap", g2, verify,
+         dict(cap=cap, q_x=60.0)),
+        ("paged_flash_verify_fp8kv_cap_d256", "verify",
+         "gemma-2-9b 8 x 5", g9, verify, dict(cap=cap, q_x=60.0)),
+        ("paged_flash_verify_fp8kv_cap_d256", "verify", "f32 edges", g2,
+         [4096, 5, 4, 0], dict(cap=cap, q_x=60.0, dtype=f32)),
+        ("paged_flash_verify_fp8kv_cap_d256", "verify", "D 128", d128,
+         verify, dict(cap=cap, q_x=60.0)),
+        ("paged_flash_verify_fp8kv_window_cap_d256", "verify",
+         "gemma-2-2b 8 x 5 window", g2, verify,
+         dict(cap=cap, q_x=60.0, window=WINDOW)),
+        ("paged_flash_verify_fp8kv_window_cap_d256", "verify",
+         "window 100 edges", g2, v_edges,
+         dict(cap=cap, q_x=60.0, window=100)),
+        ("paged_flash_verify_fp8kv_window_cap_d256", "verify",
+         "D 128 window 100", d128, v_edges,
+         dict(cap=cap, q_x=60.0, window=100)),
+        ("paged_flash_prefill_fp8kv_cap_d256", "prefill",
+         "gemma-2-2b chunk past the cap", g2, [512],
+         dict(cap=cap, q_x=60.0, sq=256, offs=[256])),
+        ("paged_flash_prefill_fp8kv_cap_d256", "prefill", "f32 ragged", g2,
+         [100, 300, 77, 1], dict(cap=cap, q_x=60.0, sq=100,
+                                 offs=[0, 256, 16, 0], dtype=f32)),
+        ("paged_flash_prefill_fp8kv_cap_d256", "prefill", "D 128 chunk",
+         d128, [512], dict(cap=cap, q_x=60.0, sq=256, offs=[256])),
+        ("paged_flash_prefill_fp8kv_window_cap_d256", "prefill",
+         "gemma-2-2b window chunk", g2, [576],
+         dict(cap=cap, q_x=60.0, window=WINDOW, sq=256, offs=[512])),
+        ("paged_flash_prefill_fp8kv_window_cap_d256", "prefill",
+         "window 100 ragged", g2, [640, 1100, 60],
+         dict(cap=cap, q_x=60.0, window=100, sq=128, offs=[512, 1024, 0])),
+        ("paged_flash_prefill_fp8kv_window_cap_d256", "prefill",
+         "D 128 window 100", d128, [640, 1100, 60],
+         dict(cap=cap, q_x=60.0, window=100, sq=128, offs=[512, 1024, 0])),
+        # Gemma-1: e4m3 pools at D 256 (the window forms on no path)
+        ("paged_flash_decode_fp8kv_d256", "decode", "gemma-2b prefix", g1,
+         prefix, dict()),
+        ("paged_flash_decode_fp8kv_d256", "decode", "kv_len 4096", g1,
+         [4096] * 8, dict(timed=True)),
+        ("paged_flash_decode_fp8kv_d256", "decode", "edges f32", g1, edges,
+         dict(dead=True, dtype=f32)),
+        ("paged_flash_decode_fp8kv_window_d256", "decode",
+         "gemma-2b window 100", g1, w_edges, dict(window=100)),
+        ("paged_flash_verify_fp8kv_d256", "verify", "gemma-2b 8 x 5", g1,
+         verify, dict()),
+        ("paged_flash_verify_fp8kv_d256", "verify", "kv_len 4096 f32", g1,
+         [4096, 5, 4, 0], dict(dtype=f32)),
+        ("paged_flash_verify_fp8kv_window_d256", "verify",
+         "gemma-2b 8 x 5 window 100", g1, v_edges, dict(window=100)),
+        ("paged_flash_prefill_fp8kv_d256", "prefill",
+         "gemma-2b suffix batch", g1, [540 + 5 * i for i in range(8)],
+         dict(sq=64, offs=[512] * 8)),
+        ("paged_flash_prefill_fp8kv_d256", "prefill", "gemma-2b chunk", g1,
+         [512], dict(sq=256, offs=[256])),
+        ("paged_flash_prefill_fp8kv_d256", "prefill", "f32 ragged", g1,
+         [100, 300, 77, 1], dict(sq=100, offs=[0, 256, 16, 0], dtype=f32)),
+        ("paged_flash_prefill_fp8kv_window_d256", "prefill",
+         "gemma-2b window 100", g1, [640, 1100, 60],
+         dict(window=100, sq=128, offs=[512, 1024, 0])),
     ]
     seen = set()
     for row, kind, tag, shape, lens, opts in cases:
-        timed = row not in seen
+        timed = opts.pop("timed", False) or row not in seen
         seen.add(row)
         _kv_options_attn(torch, dev, gen, kind, row, tag, shape, lens,
                      timed=timed, **opts, **kw)
         torch.cuda.empty_cache()
-    print(f"[kernels] FP8 KV with sinks and windows: the checks took "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check_fp8kv_d256_writes(torch, dev, results, extra)
+    print(f"[kernels] FP8 KV with sinks, windows, the cap and at D 256: the "
+          f"checks took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def check_fp8kv_d256_writes(torch, dev, results, extra):
+    """The e4m3 writes 1e, 2e and 11e at D 256 (Gemma-2-2B's 4 kv heads:
+    8 decode rows, 8 x 128 prompt rows and a ragged f32 batch, spans of 5
+    across a page; rows past 464) byte-equal to their plain versions, and
+    the fused qkv into e4m3 pools at D 256: 6e/256 at Gemma-2B (H 2048, 8
+    q heads over one kv head; 8 bf16 rows on 6m, the row; f32 rows on the
+    FMA kernel) and 6ek/256 at Gemma-2-2B (H 2304, 4 kv heads, e4m3 ring
+    pools at kv_layer 0): a head's columns lie in two blocks, each writing
+    its own codes, held to the plain version's bytes (codes at most one
+    step apart, the number apart printed), q by the fused rule, every
+    other byte equal. Timed beside the plain version, the bytes bound and
+    the library call (PyTorch's e4m3 cast + index_put_ / index_copy_;
+    torch._weight_int8pack_mm of the product alone)."""
+    from simplellminference_tpu_torch.ops import paged_append as pa
+    from simplellminference_tpu_torch.ops import ref_ops
+    from simplellminference_tpu_torch.ops.qkv_fused import (
+        fused_qkv_append, fused_qkv_append_ref)
+    gen = torch.Generator(device=dev).manual_seed(2424)
+    bf, f32 = torch.bfloat16, torch.float32
+    kvn, d, ps, layer = GEMMA2["kvn"], 256, 128, 1
+    # 1e/256, 2e/256 and 11e/256: (row, kernel, plain, b, s, row dtype)
+    for tag, (row, kern, plain, b, s, dtype) in {
+            "gemma-2-2b decode": ("paged_append_decode_fp8kv_d256",
+                                  pa.paged_append_decode,
+                                  pa.paged_append_decode_ref, 8, 0, bf),
+            "gemma-2-2b prefill": ("paged_append_prefill_fp8kv_d256",
+                                   pa.paged_append_prefill,
+                                   pa.paged_append_prefill_ref, 8, 128, bf),
+            "ragged f32": ("paged_append_prefill_fp8kv_d256",
+                           pa.paged_append_prefill,
+                           pa.paged_append_prefill_ref, 4, 100, f32),
+            "gemma-2-2b span 5": ("paged_append_span_fp8kv_d256",
+                                  pa.paged_append_span,
+                                  pa.paged_append_span_ref, 8, 5, bf)}.items():
+        mp = 3
+        prefill = "prefill" in row
+        pools = _e4m3_pools(torch, gen, dev, 2, b * mp, kvn, ps, d)
+        shape = (b, s) if s else (b,)
+        qkv = torch.randn((*shape, 3 * kvn * d), generator=gen, device=dev,
+                          dtype=dtype) * 300
+        nk = qkv[..., kvn * d:2 * kvn * d].reshape(*shape, kvn, d)
+        nv = qkv[..., 2 * kvn * d:].reshape(*shape, kvn, d)      # strided
+        tables = _tables(torch, dev, b, mp)
+        pos = (128 + 4 * torch.arange(b, device=dev)).to(torch.int32)
+        if "span" in row:
+            pos[0] = ps - 2                     # a span across a page
+        args = (nk, nv, tables) + (() if prefill else (pos,)) + (layer,)
+        a, r = [p.clone() for p in pools], [p.clone() for p in pools]
+        kern(*a, *args)
+        plain(*r, *args)
+        torch.cuda.synchronize()
+        require(a[0].dtype == torch.float8_e4m3fn,
+                f"{row} {tag}: not e4m3 pools")
+        err = sum(_codes_err(torch, x[:, :-1], y[:, :-1])
+                  for x, y in zip(a, r))
+        nan = int((a[0].view(torch.uint8) & 0x7F == 0x7F).sum())
+        print(f"[kernels] {row} {tag} (B={b} S={s} kvN={kvn} D={d} "
+              f"{dname(torch, dtype)}): {err} bytes apart (tol 0, "
+              f"byte-equal; trash page excluded); {nan} NaN codes (rows "
+              f"past 464)", flush=True)
+        require(err == 0 and nan > 0, f"{row} {tag} disagrees: {err}, NaN "
+                f"codes {nan}")
+        if row in results:
+            continue
+        p1 = pools[0].shape[1]
+        if prefill:
+            npg = -(-s // ps)
+            written = 2 * b * npg * ps * kvn * d
+            idx = tables[:, :npg].long()
+            idx = torch.where(idx >= 0, idx, p1 - 1).reshape(-1)
+            ck, cv = (x.reshape(b, npg, ps, kvn, d).transpose(2, 3).reshape(
+                b * npg, kvn, ps, d) for x in (nk, nv))
+
+            def library(a=a, ck=ck, cv=cv, idx=idx):
+                for pool, x in ((a[0], ck), (a[1], cv)):
+                    pool.view(torch.uint8)[layer].index_copy_(
+                        0, idx, _cast_lib(torch, x))
+        else:
+            t = max(s, 1)
+            written = 2 * b * t * kvn * d
+            page, slot = pa.span_slots(tables, pos, t, p1, ps)
+            heads = torch.arange(kvn, device=dev)
+            ix = (page[:, :, None], heads[None, None], slot[:, :, None])
+            xk, xv = (x.reshape(b, t, kvn, d) for x in (nk, nv))
+
+            def library(a=a, xk=xk, xv=xv, ix=ix):
+                for pool, x in ((a[0], xk), (a[1], xv)):
+                    pool.view(torch.uint8)[layer].index_put_(
+                        ix, _cast_lib(torch, x))
+        rows_b = 2 * b * max(s, 1) * kvn * d * nk.element_size()
+        bms, by = bound_ms(rows_b + written + tables.numel() * 4 + b * 4,
+                           0.0, dname(torch, dtype))
+        res = dict(max_abs_err=float(err),
+                   ms=time_ms(torch, lambda: kern(*a, *args)),
+                   plain_ms=time_ms(torch, lambda: plain(*r, *args)),
+                   library_ms=time_ms(torch, library), bound_ms=bms,
+                   bound_by=by, library=LIBRARY[row])
+        results[row] = res
+        extra.append((row, tag, res))
+
+    # 6e/256 and 6ek/256
+    for tag, (b, h, n, kvh, xdt, kv_layer, row) in {
+            "gemma-2b": (8, 2048, 8, 1, bf, None,
+                         "fused_qkv_append_fp8kv_d256"),
+            "gemma-2b f32 (fma)": (8, 2048, 8, 1, f32, None, None),
+            "gemma-2-2b kv_layer": (8, 2304, 8, kvn, bf, 0,
+                                    "fused_qkv_append_fp8kv_kv_layer_d256"),
+            "gemma-2-2b kv_layer m3 f32": (3, 2304, 8, kvn, f32, 0,
+                                           None)}.items():
+        mp = 6
+        kli = layer if kv_layer is None else kv_layer
+        nq = (n + 2 * kvh) * d
+        wq, ws = _qweight(torch, gen, dev, (2, h, nq), 1)
+        ws = ws * 300                           # k/v past 464 too
+        nw = (1.0 + 0.1 * torch.randn((2, h), generator=gen, device=dev)
+              ).to(xdt)
+        x = torch.randn((b, h), generator=gen, device=dev).to(xdt)
+        pk, pv = _e4m3_pools(torch, gen, dev, 2, b * mp, kvh, ps, d)
+        tables = _tables(torch, dev, b, mp, dead_last=False)
+        pos = (128 + 4 * torch.arange(b, device=dev)).to(torch.int32)
+        tables[-1, int(pos[-1]) // ps] = -1      # the trash page
+        sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
+        kw = dict(n_heads=n, kv_heads=kvh, tables=tables, kv_layer=kv_layer)
+        a, r = (pk.clone(), pv.clone()), (pk.clone(), pv.clone())
+
+        def call(a=a, x=x, nw=nw, wq=wq, ws=ws, sin=sin, cos=cos, kw=kw,
+                 pos=pos):
+            return fused_qkv_append(x, nw, wq, ws, sin, cos, *a, layer, pos,
+                                    **kw)[0]
+
+        qa = call()
+        qr = fused_qkv_append_ref(x, nw, wq, ws, sin, cos, *r, layer, pos,
+                                  **kw)[0]
+        torch.cuda.synchronize()
+        page = tables.long()[torch.arange(b, device=dev), pos.long() // ps]
+        page = torch.where(page >= 0, page, pk.shape[1] - 1)
+        written = torch.zeros(pk.shape, dtype=torch.bool, device=dev)
+        written[kli, page, :, pos.long() % ps] = True
+        err = max_err(qa, qr)
+        lim_q = (F32_REL * float(qr.abs().max()) if xdt == f32
+                 else TOL["bfloat16"] * float(qr.float().std()))
+        steps = max(int((_e4m3_ordinal(torch, ta[written])
+                         - _e4m3_ordinal(torch, tr[written])).abs().max())
+                    for ta, tr in zip(a, r))
+        apart = sum(_codes_err(torch, ta[written], tr[written])
+                    for ta, tr in zip(a, r))
+        nan = sum(int((tr[written].view(torch.uint8) & 0x7F == 0x7F).sum())
+                  for tr in r)
+        untouched = all(_codes_err(torch, ta[~written], tr[~written]) == 0
+                        for ta, tr in zip(a, r))
+        print(f"[kernels] fused_qkv_append_fp8kv/256 {tag} (B={b} H={h} "
+              f"N={n} kvN={kvh} kv_layer={kv_layer}): q max|err| {err:.3e} "
+              f"(tol {lim_q:.3e}); k/v codes {apart} of "
+              f"{2 * int(written.sum())} apart, at most {steps} step (tol "
+              f"1); {nan} NaN codes (k/v past 464); other entries equal: "
+              f"{untouched}", flush=True)
+        require(pk.dtype == torch.float8_e4m3fn
+                and bool(torch.isfinite(qa).all()) and err <= lim_q
+                and steps <= 1 and untouched and nan > 0,
+                f"fused_qkv_append_fp8kv/256 {tag} disagrees: {err}, "
+                f"{steps}, {untouched}, {nan}")
+        if row is None:
+            continue
+        nbytes = _qkv_nbytes(h, nq, b, n, kvh, d, x.element_size(),
+                             nw.element_size(), d,
+                             tables.numel() * 4 + b * 4)
+        bms, by = bound_ms(nbytes, 2.0 * b * h * nq, dname(torch, xdt))
+        qt, st = _int8pack(torch, wq[layer], ws[layer], xdt)
+        res = dict(
+            max_abs_err=max(err, float(steps)), ms=time_ms(torch, call),
+            plain_ms=time_ms(torch, lambda: fused_qkv_append_ref(
+                x, nw, wq, ws, sin, cos, *r, layer, pos, **kw)),
+            library_ms=time_ms(torch, lambda: torch._weight_int8pack_mm(
+                x, qt, st)),
+            bound_ms=bms, bound_by=by, library=LIBRARY[row])
+        results[row] = res
+        extra.append((row, tag, res))
 
 
 LIBRARY = {"paged_append_decode": "index_put_ x2",
@@ -6310,6 +6700,59 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
                "scaled_dot_product_attention on gathered ring K/V cast from "
                "e4m3 (repeated per group), offset-causal and window mask "
                "(cast included; no sinks)"),
+           "paged_flash_decode_fp8kv_cap_d256": (
+               "scaled_dot_product_attention on gathered K/V cast from e4m3 "
+               "(repeated per group), length mask (cast included; uncapped)"),
+           "paged_flash_decode_fp8kv_window_cap_d256": (
+               "scaled_dot_product_attention on gathered ring K/V cast from "
+               "e4m3 (repeated per group), length and window mask (cast "
+               "included; uncapped)"),
+           "paged_flash_verify_fp8kv_cap_d256": (
+               "scaled_dot_product_attention on gathered K/V cast from e4m3 "
+               "(repeated per group), verify mask (cast included; uncapped)"),
+           "paged_flash_verify_fp8kv_window_cap_d256": (
+               "scaled_dot_product_attention on gathered ring K/V cast from "
+               "e4m3 (repeated per group), verify and window mask (cast "
+               "included; uncapped)"),
+           "paged_flash_prefill_fp8kv_cap_d256": (
+               "scaled_dot_product_attention on gathered K/V cast from e4m3 "
+               "(repeated per group), offset-causal mask (cast included; "
+               "uncapped)"),
+           "paged_flash_prefill_fp8kv_window_cap_d256": (
+               "scaled_dot_product_attention on gathered ring K/V cast from "
+               "e4m3 (repeated per group), offset-causal and window mask (cast"
+               " included; uncapped)"),
+           "paged_flash_decode_fp8kv_d256": (
+               "scaled_dot_product_attention on gathered K/V cast from e4m3 "
+               "(repeated per group), length mask (cast included)"),
+           "paged_flash_decode_fp8kv_window_d256": (
+               "scaled_dot_product_attention on gathered ring K/V cast from "
+               "e4m3 (repeated per group), length and window mask (cast "
+               "included)"),
+           "paged_flash_verify_fp8kv_d256": (
+               "scaled_dot_product_attention on gathered K/V cast from e4m3 "
+               "(repeated per group), verify mask (cast included)"),
+           "paged_flash_verify_fp8kv_window_d256": (
+               "scaled_dot_product_attention on gathered ring K/V cast from "
+               "e4m3 (repeated per group), verify and window mask (cast "
+               "included)"),
+           "paged_flash_prefill_fp8kv_d256": (
+               "scaled_dot_product_attention on gathered K/V cast from e4m3 "
+               "(repeated per group), offset-causal mask (cast included)"),
+           "paged_flash_prefill_fp8kv_window_d256": (
+               "scaled_dot_product_attention on gathered ring K/V cast from "
+               "e4m3 (repeated per group), offset-causal and window mask (cast"
+               " included)"),
+           "paged_append_decode_fp8kv_d256": "PyTorch's e4m3 cast + "
+                                             "index_put_ x2",
+           "paged_append_prefill_fp8kv_d256": "PyTorch's e4m3 cast + "
+                                              "index_copy_ x2",
+           "paged_append_span_fp8kv_d256": "PyTorch's e4m3 cast + "
+                                           "index_put_ x2",
+           "fused_qkv_append_fp8kv_d256": (
+               "torch._weight_int8pack_mm of the qkv product alone"),
+           "fused_qkv_append_fp8kv_kv_layer_d256": (
+               "torch._weight_int8pack_mm of the qkv product alone"),
            "fused_wo_ffn": "torch._weight_int8pack_mm x3 + eager rmsnorm "
                            "and SwiGLU",
            "flash_decode_dyn": "scaled_dot_product_attention on the arena "
@@ -6510,30 +6953,32 @@ def regime_rows(want: dict, cfg) -> dict:
         out[row] = out[of] if d256 else 0
     # Gemma-2: every attention launch of a capped model is a capped one
     cap = d256 and bool(cfg.attn_logit_softcap)
-    int8kv = [f"paged_flash_{k}_int8kv{w}" for k in ("decode", "verify",
-                                                      "prefill")
-              for w in ("", "_window")]
+    int8kv, fp8kv = ([f"paged_flash_{k}_{kv}{w}" for k in ("decode", "verify",
+                                                            "prefill")
+                      for w in ("", "_window")] for kv in ("int8kv", "fp8kv"))
     for form in ("flash_prefill", "flash_prefill_window",
                  "paged_flash_decode", "paged_flash_decode_window",
                  "paged_flash_prefill", "paged_flash_prefill_window",
                  "flash_decode", "flash_decode_window",
-                 "paged_flash_verify", "paged_flash_verify_window", *int8kv):
+                 "paged_flash_verify", "paged_flash_verify_window", *int8kv,
+                 *fp8kv):
         out[f"{form}_cap_d256"] = out[form] if cap else 0
     # GPT-OSS: every attention launch of a model with sinks is a sink one
     sinks = cfg.head_dim == 64 and cfg.attn_sinks
-    fp8kv = [f"paged_flash_{k}_fp8kv{w}" for k in ("decode", "verify",
-                                                    "prefill")
-             for w in ("", "_window")]
     for form in ("flash_prefill", "flash_prefill_window",
                  "paged_flash_decode", "paged_flash_decode_window",
                  "paged_flash_prefill", "paged_flash_prefill_window",
                  "paged_flash_verify", "paged_flash_verify_window",
                  "flash_decode", "flash_decode_window", *int8kv, *fp8kv):
         out[f"{form}_sinks"] = out[form] if sinks else 0
-    # INT8 KV at D 256: the attention forms, 6q, 9 and 10 (6q's launches
-    # with a kv_layer come from windowed(): the grouped engine's)
+    # INT8 and FP8 KV at D 256: the attention forms, 6q, 9 and 10, 6e, 1e,
+    # 2e and 11e (6q's launches with a kv_layer come from windowed(): the
+    # grouped engine's; 6ek's are every kv_layer launch of 6e)
     for form in (*int8kv, "fused_qkv_append_int8kv",
-                 "paged_append_decode_quant", "paged_append_prefill_quant"):
+                 "paged_append_decode_quant", "paged_append_prefill_quant",
+                 *fp8kv, "fused_qkv_append_fp8kv",
+                 "paged_append_decode_fp8kv", "paged_append_prefill_fp8kv",
+                 "paged_append_span_fp8kv", "fused_qkv_append_fp8kv_kv_layer"):
         out[f"{form}_d256"] = out[form] if d256 else 0
     out["fused_qkv_append_int8kv_kv_layer_d256"] = out.get(
         "fused_qkv_append_int8kv_kv_layer_d256", 0) if d256 else 0
@@ -6767,18 +7212,42 @@ def _wrappers():
                    ("_cap_d256", getattr(fp, "CAP_LAUNCHES", {}), 256),
                    ("_d256", getattr(pp if "prefill" in form else pd,
                                      "D256_LAUNCHES", {}), 0))},
+            # the FP8-KV forms capped and at D 256 (Gemma over FP8 KV)
+            **{f"{form}{suffix}": (
+                _Regime(counts, (form, 256) if suffix == "_cap_d256"
+                        else form), ref)
+               for form, ref in (
+                   ("paged_flash_decode_fp8kv", pd.paged_flash_decode_ref),
+                   ("paged_flash_decode_fp8kv_window",
+                    pd.paged_flash_decode_ref),
+                   ("paged_flash_verify_fp8kv", pd.paged_flash_verify_ref),
+                   ("paged_flash_verify_fp8kv_window",
+                    pd.paged_flash_verify_ref),
+                   ("paged_flash_prefill_fp8kv", pp.paged_flash_prefill_ref),
+                   ("paged_flash_prefill_fp8kv_window",
+                    pp.paged_flash_prefill_ref))
+               for suffix, counts in (
+                   ("_cap_d256", getattr(fp, "CAP_LAUNCHES", {})),
+                   ("_d256", getattr(pp if "prefill" in form else pd,
+                                     "D256_LAUNCHES", {})))},
             **{f"{form}_d256": (
                 _Regime(getattr(qf, "D256_FORM_LAUNCHES", {}), form),
                 qf.fused_qkv_append_ref)
                for form in ("fused_qkv_append_int8kv",
-                            "fused_qkv_append_int8kv_kv_layer")},
+                            "fused_qkv_append_int8kv_kv_layer",
+                            "fused_qkv_append_fp8kv",
+                            "fused_qkv_append_fp8kv_kv_layer")},
             **{f"{form}_d256": (
                 _Regime(getattr(pa, "D256_LAUNCHES", {}), form), ref)
                for form, ref in (
                    ("paged_append_decode_quant",
                     pa.paged_append_decode_quant_ref),
                    ("paged_append_prefill_quant",
-                    pa.paged_append_prefill_quant_ref))},
+                    pa.paged_append_prefill_quant_ref),
+                   ("paged_append_decode_fp8kv", pa.paged_append_decode_ref),
+                   ("paged_append_prefill_fp8kv",
+                    pa.paged_append_prefill_ref),
+                   ("paged_append_span_fp8kv", pa.paged_append_span_ref))},
             "fused_wo_ffn": (ff.fused_wo_ffn, ff.fused_wo_ffn_ref),
             "flash_decode_dyn": (fdd.flash_decode_dyn,
                                  fdd.flash_decode_dyn_ref)}
@@ -7002,6 +7471,25 @@ def read_counts(path: str) -> dict:
     return got
 
 
+def count_snapshot() -> dict:
+    """Every kernel's launch count and its plain version's card calls now,
+    for :func:`counts_since` (a phase-5 check counted like a path without
+    resetting the counts other checks read)."""
+    return {name: (kern.launches, ref.cuda_calls)
+            for name, (kern, ref) in _wrappers().items()}
+
+
+def counts_since(path: str, snap: dict) -> dict:
+    """Each kernel's launches since ``snap``; fails if a plain version ran
+    on the card meanwhile."""
+    got = {}
+    for name, (kern, ref) in _wrappers().items():
+        got[name] = kern.launches - snap[name][0]
+        require(ref.cuda_calls == snap[name][1],
+                f"[{path}] plain {name} ran on the card")
+    return got
+
+
 def kv_bytes(layers: int, tokens: int, kvn: int, d: int,
              kv_dtype: str) -> int:
     """Bytes of K and V for ``tokens`` tokens of every layer: bf16 rows,
@@ -7171,6 +7659,9 @@ def serve_path(torch, path: str, cfg, params, launches: dict, int8: bool,
     wbytes = step_weight_bytes(params, batch)
     kvbytes = live_kv_bytes(cfg, batch, ctx, kv_dtype)
     floor_ms = (wbytes + kvbytes) / HBM_BYTES_PER_S * 1e3
+    STEPS[path] = (round(engine_step_ms, 3), round(step_ms, 3),
+                   round(floor_ms, 3),
+                   round(max(0.0, 1 - step_ms / engine_step_ms), 3))
     print(f"[engine:{path}] decode step: engine {engine_step_ms:.3f} ms, "
           f"device (graph replay) {step_ms:.3f} ms, bytes floor "
           f"{floor_ms:.3f} ms ({wbytes / 1e9:.3f} GB weights + "
@@ -7453,6 +7944,9 @@ def prefix_decode(torch, path: str, cfg, params, kv_dtype: str,
     print(f"[engine:{path}] decode {rate} tok/s with the system prompt "
           f"{cached} (median-wall difference of waves of {batch} x {new} and "
           f"{new // 2} tokens: walls {walls} / {halves} s)", flush=True)
+    STEPS[path] = (round(engine_step_ms, 3), round(step_ms, 3),
+                   round(floor_ms, 3),
+                   round(max(0.0, 1 - step_ms / engine_step_ms), 3))
     print(f"[engine:{path}] decode step: engine {engine_step_ms:.3f} ms, "
           f"device (graph replay) {step_ms:.3f} ms, bytes floor "
           f"{floor_ms:.3f} ms ({wbytes / 1e9:.3f} GB weights + "
@@ -7667,6 +8161,9 @@ def serve_spec(torch, path: str, cfg, params, launches: dict, int8: bool,
     wbytes = step_weight_bytes(params, batch)
     kvbytes = live_kv_bytes(cfg, batch, ctx, kv_dtype)
     floor_ms = (wbytes + kvbytes) / HBM_BYTES_PER_S * 1e3
+    STEPS[path] = (round(step_walls[g], 3), round(times[g + 1], 3),
+                   round(floor_ms, 3),
+                   round(max(0.0, 1 - times[g + 1] / step_walls[g]), 3))
     for spec, s in ((g, g + 1), (0, 1)):
         print(f"[engine:{path}] spec_tokens={spec} step: engine "
               f"{step_walls[spec]:.3f} ms, device (graph replay, S={s}) "
@@ -8123,8 +8620,11 @@ PATH_SETUP = {"int8": ("int8", "bf16", False), "bf16": ("bf16", "bf16", False),
               "gpt_oss_fp8kv": ("int8", "fp8", False),
               "gpt_oss_spec_fp8kv": ("bf16", "fp8", True),
               "gemma_int8kv_prefix": ("int8", "int8", True),
+              "gemma_fp8kv_prefix": ("int8", "fp8", True),
               "gemma2_int8kv": ("int8", "int8", False),
-              "gemma2_spec_int8kv": ("bf16", "int8", True)}
+              "gemma2_fp8kv": ("int8", "fp8", False),
+              "gemma2_spec_int8kv": ("bf16", "int8", True),
+              "gemma2_spec_fp8kv": ("bf16", "fp8", True)}
 # paths cut in depth to keep the run within half its time limit (their
 # launch counts follow the cut: every count is per layer; a Gemma-2 or
 # gpt-oss cut keeps the sliding/full alternation): `int8` keeps
@@ -8135,12 +8635,14 @@ PATH_LAYERS = {"gpt_oss": 4, "gpt_oss_prefix": 4, "gpt_oss_spec": 4,
                "dense_bf16": 4, "int4": 4, "int4_dense": 4,
                "mistral_window": 4, "gemma2": 4, "gemma2_window": 4,
                "gemma2_dense": 4, "gemma2_spec": 4, "gemma2_draft": 4,
-               "gemma_prefix": 6, "draft": 4, "dense": 8, "prefix": 8,
-               "w8a8": 8, "int8kv": 8, "int8kv_prefix": 8, "fp8kv": 8,
-               "fp8kv_prefix": 8, "gemma": 9, "gpt_oss_spec_int8kv": 4,
+               "gemma_prefix": 4, "draft": 4, "dense": 4, "prefix": 4,
+               "w8a8": 4, "int8kv": 4, "int8kv_prefix": 4, "fp8kv": 4,
+               "fp8kv_prefix": 4, "gemma": 4, "gpt_oss_spec_int8kv": 4,
                "gpt_oss_int8kv": 4, "gpt_oss_fp8kv": 4,
                "gpt_oss_spec_fp8kv": 4, "gemma_int8kv_prefix": 4,
-               "gemma2_int8kv": 4, "gemma2_spec_int8kv": 4}
+               "gemma_fp8kv_prefix": 4, "gemma2_int8kv": 4,
+               "gemma2_fp8kv": 4, "gemma2_spec_int8kv": 4,
+               "gemma2_spec_fp8kv": 4}
 def phase_engine(torch, launches: dict, paths=PATHS):
     import dataclasses
 
@@ -8163,7 +8665,8 @@ def phase_engine(torch, launches: dict, paths=PATHS):
             cfg = ModelConfig.mistral_7b(
                 sliding_window=WINDOW, dtype="bfloat16",
                 num_layers=PATH_LAYERS.get(path, 32))
-        if path in ("gemma", "gemma_prefix", "gemma_int8kv_prefix"):
+        if path in ("gemma", "gemma_prefix", "gemma_int8kv_prefix",
+                    "gemma_fp8kv_prefix"):
             cfg = ModelConfig.gemma_2b(dtype="bfloat16",
                                        num_layers=PATH_LAYERS[path])
         if path.startswith("gemma2"):
@@ -8221,7 +8724,7 @@ def phase_engine(torch, launches: dict, paths=PATHS):
                                                  "gpt_oss_spec"):
             serve_spec(torch, path, cfg, params, launches, int8, kv_dtype)
         elif path in ("gpt_oss_spec_int8kv", "gemma2_spec_int8kv",
-                      "gpt_oss_spec_fp8kv"):
+                      "gpt_oss_spec_fp8kv", "gemma2_spec_fp8kv"):
             # the server CLI's --kv-dtype int8 (fp8) --spec-tokens 4 on the
             # prefix path's traffic
             serve_spec(torch, path, cfg, params, launches, int8, kv_dtype,
@@ -8230,7 +8733,7 @@ def phase_engine(torch, launches: dict, paths=PATHS):
             ttft[path] = serve_prefix(torch, path, cfg, params, launches,
                                       int8, kv_dtype)
             if path in ("gemma_prefix", "gpt_oss_prefix",
-                        "gemma_int8kv_prefix"):
+                        "gemma_int8kv_prefix", "gemma_fp8kv_prefix"):
                 rates[path] = prefix_decode(torch, path, cfg, params,
                                             kv_dtype)
         elif path == "gemma2_window":
@@ -8255,6 +8758,10 @@ def phase_engine(torch, launches: dict, paths=PATHS):
                                      int8, kv_dtype, int4=weights == "int4")
         if path == "int8kv":
             long_context_steps(torch, cfg, params)
+        if path in TWINS and TWINS[path] in STEPS:
+            print(f"[engine:{path}] step (engine, device, floor ms; idle "
+                  f"share) {STEPS[path]} beside its INT8-KV twin "
+                  f"{TWINS[path]}'s {STEPS[TWINS[path]]}", flush=True)
         seconds[path] = round(time.perf_counter() - t0, 1)
         print(f"[engine:{path}] path took {seconds[path]} s", flush=True)
     del params
@@ -9159,7 +9666,7 @@ def phase_cpu(torch, launches: dict):
     lap("mistral window")
     gemma_card_vs_cpu(torch)
     lap("gemma")
-    gemma2_card_vs_cpu(torch)
+    gemma2_card_vs_cpu(torch, launches)
     lap("gemma2")
     gpt_oss_card_vs_cpu(torch)
     lap("gpt-oss")
@@ -9211,7 +9718,7 @@ def gemma_card_vs_cpu(torch):
           f"card {ran}", flush=True)
 
 
-def gemma2_card_vs_cpu(torch):
+def gemma2_card_vs_cpu(torch, launches: dict):
     """Gemma-2-2B at full width (H 2304, I 9216, V 256000, 8 heads over 4
     kv heads of 256, the soft caps, the sandwich norms, a sliding and a
     full layer), 2 layers, f32, TF32 off, from one seeded draw on the card
@@ -9221,9 +9728,13 @@ def gemma2_card_vs_cpu(torch):
     greedy steps, logits within LOGIT_TOL, greedy tokens equal by the
     margin rule, the grouped Engine on both devices), and the f32 weights
     again over INT8 KV (logits within LOGIT_TOL while both caches hold the
-    same codes, else LOGIT_TOL_CODE_APART). The card runs the capped forms
-    3c, 3wc, 4c and 4wc, over INT8 KV 4qc/256 and 4qwc/256 (and 6k with
-    INT8 weights: f32 rows take the FMA kernel). Then, the window cut to
+    same codes, else LOGIT_TOL_CODE_APART) and over FP8 KV (the card
+    carries on with the CPU's codes, layer 0's at most one e4m3 step
+    apart; LOGIT_TOL, or LOGIT_TOL_CODE_APART once a code parts; its
+    launches recorded as ``gemma2_fp8kv_cpu``'s). The card runs the capped
+    forms 3c, 3wc, 4c and 4wc, over INT8 KV 4qc/256 and 4qwc/256, over FP8
+    KV 4ec/256, 4ewc/256, 1e/256 and 2e/256 (and 6k with INT8 weights: f32
+    rows take the FMA kernel). Then, the window cut to
     32 so that the prompts
     and the steps pass it, the f32 weights through the Generator
     (:func:`dense_card_vs_cpu`: 13c, 13wc), the prompt-lookup spec Engine
@@ -9257,6 +9768,24 @@ def gemma2_card_vs_cpu(torch):
     # INT8 ring pools)
     card_vs_cpu(torch, "gemma2-int8kv", cfg, p_gpu, p_cpu, prompts, steps=8,
                 kv_dtype="int8")
+    # over FP8 KV: 2e/256, 1e/256 (f32 weights: no fused qkv), 3c/3wc,
+    # 4ec/256 and 4ewc/256 on the card (the grouped engine's e4m3 ring
+    # pools); its launches counted like a path's
+    t1 = time.perf_counter()
+    snap = count_snapshot()
+    card_vs_cpu(torch, "gemma2-fp8kv", cfg, p_gpu, p_cpu, prompts, steps=8,
+                kv_dtype="fp8")
+    got = launches["gemma2_fp8kv_cpu"] = counts_since("gemma2_fp8kv_cpu",
+                                                      snap)
+    rows = ("paged_append_prefill_fp8kv_d256", "paged_append_decode_fp8kv_d256",
+            "paged_flash_decode_fp8kv_cap_d256",
+            "paged_flash_decode_fp8kv_window_cap_d256")
+    require(all(got[row] > 0 for row in rows),
+            f"[cpu:gemma2-fp8kv] the FP8-KV forms did not all run on the "
+            f"card: { {row: got[row] for row in rows} }")
+    print(f"[cpu:gemma2-fp8kv] launches on the card "
+          f"{ {k: n for k, n in got.items() if n} }; "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
     cfg_w = dataclasses.replace(cfg, sliding_window=32)
     dense_card_vs_cpu(torch, "gemma2-dense", cfg_w, p_gpu, p_cpu, prompts,
                       steps=8)
@@ -9385,6 +9914,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 1
     sass = None
+    t_start = time.perf_counter()
     try:
         name, count, _smi = phase_device(torch)
         if not (ROOT / "simplellminference_tpu_torch").is_dir():
@@ -9404,11 +9934,13 @@ def main(argv=None) -> int:
                 took[phase] = round(time.perf_counter() - t0, 1)
                 if phase == "build":
                     sass = out
-                if sass is not None and (phase == "kernels"
-                                         or "kernels" not in phases):
-                    # the build's SASS counts, disassembled meanwhile
-                    sass.print()
-                    sass = None
+        # the build's SASS counts, disassembled while the phases ran
+        t0 = time.perf_counter()
+        sass.print()
+        sass = None
+        took["sass wait"] = round(time.perf_counter() - t0, 1)
+        took["outside the phases"] = round(
+            time.perf_counter() - t_start - sum(took.values()), 1)
         print(f"[timing] seconds per phase {json.dumps(took)}", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -45,6 +45,8 @@
 // 464), and stores 8 code bytes; the cast is the row's own dtype -> e4m3,
 // never a torch cast in the wrapper, so bf16 rows round once from bf16 as
 // the JAX cast does. Page, slot and trash-page rules are the copies'.
+// Every head dim a multiple of 8 takes the 8-element path (Gemma's 256
+// too: a row is 32 such groups, a block's threads stride over them).
 // Bound: bytes (the rows read in their dtype, 1 byte an element written).
 #include "common.cuh"
 

@@ -23,17 +23,20 @@
 // position, and the dense walk starts at the band, kv_len - window, as
 // the TPU kernel's index map skips the blocks below it
 // (flash_decode.py:172-181: a step costs O(window), not O(kv_len)).
-// Every form over pools of q's dtype or int8 pools takes Gemma-2's soft
-// cap (cap > 0: each live score becomes cap * tanh(s * scale * (1 / cap))
-// before the mask, paged_decode.py:90-91, flash_decode.py:80-81; forms
-// 4c, 4wc, 4vc, 4vwc, 13c, 13wc, and over int8 pools 4qc, 4qwc, 4vqc,
-// 4vqwc), a template flag (CAP), so the uncapped forms are compiled as
-// before; tanh is tanhf, CUDA's full-precision one (prefill_mma.cuh's
-// note says why not tanh.approx.f32). Over int8 pools the cap takes the
-// dequantized score, q.k x the key's scale x scale, the order of the TPU
-// kernel (paged_decode.py:84-91): capping before the K scale would be
-// another function, equal only at scale 1. The cap over e4m3 pools raises
-// in the wrappers and is refused here. GPT-OSS's attention sinks on every
+// Every form over every pool dtype takes Gemma-2's soft cap (cap > 0:
+// each live score becomes cap * tanh(s * scale * (1 / cap)) before the
+// mask, paged_decode.py:90-91, flash_decode.py:80-81; forms 4c, 4wc, 4vc,
+// 4vwc, 13c, 13wc, over int8 pools 4qc, 4qwc, 4vqc, 4vqwc, over e4m3
+// pools 4ec, 4ewc, 4vec, 4vewc), a template flag (CAP), so the uncapped
+// forms are compiled as before; tanh is tanhf, CUDA's full-precision one
+// (prefill_mma.cuh's note says why not tanh.approx.f32). Over int8 pools
+// the cap takes the dequantized score, q.k x the key's scale x scale, the
+// order of the TPU kernel (paged_decode.py:84-91): capping before the K
+// scale would be another function, equal only at scale 1. Over e4m3 pools
+// the codes convert exactly to f32 before q.k and nothing scales them, so
+// the capped score is the one of the TPU kernel, which casts each e4m3
+// element to f32 and caps after (paged_decode.py:79-80, :90-91). GPT-OSS's
+// attention sinks on every
 // form over every pool dtype at D 32-128: decode and verify rows, with or
 // without a window, and the dense arena (sinks != nullptr: the layer's
 // f32 logit of each q head; forms 4s, 4ws, 4vs, 4vws, 13s, 13ws, over
@@ -125,13 +128,17 @@
 //
 // Head dims 32, 64 and 128 for every form; 256 (Gemma) for every form over
 // pools of q's own dtype: paged decode and verify (4, 4w, 4c, 4wc, 4v,
-// 4vw, 4vc, 4vwc) and dense (13, 13w, 13c, 13wc), and over int8 pools
-// (4q, 4qw, 4qc, 4qwc, 4vq, 4vqw, 4vqc, 4vqwc: Gemma over INT8 KV); a
-// window at D 256 starts its walk at the band as at every head dim. An
-// int8 stage at D 256 is 2 x 64 keys x 272 bytes = 34 KB with its scales,
-// so the int8 ring keeps its 4 stages there: 138 KB and the 32 rows' q,
-// probability and state arrays, 179 KB (Geo<int8_t, 256>), one block an
-// SM, three tiles in flight. Gemma-2's GQA group of 2
+// 4vw, 4vc, 4vwc) and dense (13, 13w, 13c, 13wc), over int8 pools (4q,
+// 4qw, 4qc, 4qwc, 4vq, 4vqw, 4vqc, 4vqwc: Gemma over INT8 KV) and over
+// e4m3 pools (4e, 4ew, 4ec, 4ewc, 4ve, 4vew, 4vec, 4vewc: Gemma over FP8
+// KV); a window at D 256 starts its walk at the band as at every head
+// dim. An int8 stage at D 256 is 2 x 64 keys x 272 bytes = 34 KB with its
+// scales, so the int8 ring keeps its 4 stages there: 138 KB and the 32
+// rows' q, probability and state arrays, 179 KB (Geo<int8_t, 256>), one
+// block an SM, three tiles in flight; an e4m3 stage is the same 34 KB
+// (its scale slots unused), so Geo<__nv_fp8_e4m3, 256> is the same 179
+// KB. Each 8-element group of codes converts in the score loop and again
+// in the PV loop, as at D 128. Gemma-2's GQA group of 2
 // makes 2 rows a block at decode and 10 at a 5-row verify window (the
 // "more rows" PV branch); Gemma-1's group of 8 makes 40 verify rows, two
 // row blocks of 32 and 8, each reading the keys once (K/V twice over). At
@@ -181,8 +188,9 @@ int dispatch_pool(int pool, int head_dim, const Args& a, cudaStream_t st) {
   switch (pool) {
     case SLI_POOL_I8:  // paged_decode_i8.cu
       return sli_pd::dispatch_i8(std::is_same_v<T, float>, head_dim, a, st);
-    case SLI_POOL_E4M3:
-      return dispatch_d<T, __nv_fp8_e4m3>(head_dim, a, st);
+    case SLI_POOL_E4M3:  // paged_decode_e4m3.cu
+      return sli_pd::dispatch_e4m3(std::is_same_v<T, float>, head_dim, a,
+                                   st);
     default:  // bf16 or f32 pools: q's own dtype
       return pool == (std::is_same_v<T, float> ? SLI_POOL_F32 : SLI_POOL_BF16)
                  ? dispatch_d<T, T>(head_dim, a, st)
@@ -195,11 +203,11 @@ int dispatch_pool(int pool, int head_dim, const Args& a, cudaStream_t st) {
 // int8 with k_scale/v_scale, their f32 scale pools [L, num_pages1, kvn,
 // ps] (null for every other pool dtype). q: [B, wins, N, D] with strides
 // q_bs, q_ss (elements); wins = 1 is decode. window: 0 for none, else the
-// sliding window (>= 1); cap: 0 for none, else the soft cap (> 0; pools
-// of q's dtype or int8); sinks: null for none, else the layer's f32 sink
+// sliding window (>= 1); cap: 0 for none, else the soft cap (> 0; every
+// pool dtype); sinks: null for none, else the layer's f32 sink
 // logits [N] (decode and verify rows over every pool dtype, D <= 128; a
-// row's sink is its head's, whatever its window row). D 256:
-// pools of q's dtype or int8. splits > 1:
+// row's sink is its head's, whatever its window row). D 256: every pool
+// dtype. splits > 1:
 // part holds splits * B * wins * N * (D + 2) floats of workspace.
 extern "C" int sli_paged_flash_decode(
     const void* q, long long q_bs, long long q_ss, const void* pool_k,

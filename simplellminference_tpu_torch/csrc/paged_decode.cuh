@@ -1,9 +1,10 @@
 // The body of kernels 4 and 13 (paged flash decode, the verify window and
 // the dense arena): the kernel, its launch and its dispatch over head dims
 // and options, included by paged_decode.cu (the entry points; its note
-// says what the kernel replaces, what bounds it and how it is built) and
-// by paged_decode_i8.cu, which instantiates the INT8-KV forms in a
-// translation unit of their own so that nvcc builds the two in parallel.
+// says what the kernel replaces, what bounds it and how it is built), by
+// paged_decode_i8.cu and by paged_decode_e4m3.cu, which instantiate the
+// INT8-KV and the FP8-KV forms in translation units of their own so that
+// nvcc builds the three in parallel.
 #pragma once
 
 #include <type_traits>
@@ -33,6 +34,8 @@ struct Args {
 // The INT8-KV forms (int8 pools with their scale pools) for bf16 or f32 q
 // (``f32``), defined in paged_decode_i8.cu.
 int dispatch_i8(bool f32, int head_dim, const Args& a, cudaStream_t st);
+// The FP8-KV forms (e4m3 pools), defined in paged_decode_e4m3.cu.
+int dispatch_e4m3(bool f32, int head_dim, const Args& a, cudaStream_t st);
 
 }  // namespace sli_pd
 
@@ -520,21 +523,13 @@ int launch(const Args& a, cudaStream_t st) {
   return (int)sli::launch_merge<T>(a.part, a.out, n_rows, D, a.splits, st);
 }
 
-// Pools of q's own dtype or int8 codes: every option (the cap, D 256);
-// e4m3 pools take windows and sinks at D <= 128 (runtime arguments, the
-// body's code whatever the pool), but neither the cap nor D 256 (the
-// wrappers raise for them).
-template <typename T, typename P>
-constexpr bool ALL_OPTIONS =
-    std::is_same_v<T, P> || std::is_same_v<P, int8_t>;
-
+// Every pool (q's own dtype, int8 codes with their scales, e4m3 codes)
+// takes every option: the cap a template flag, windows and sinks runtime
+// arguments, D 256 an instantiation like the others.
 template <typename T, typename P, int D, bool DENSE>
 int launch_c(const Args& a, cudaStream_t st) {
   if (a.cap <= 0.f) return launch<T, P, D, DENSE, false>(a, st);
-  if constexpr (ALL_OPTIONS<T, P>)
-    return launch<T, P, D, DENSE, true>(a, st);
-  else
-    return SLI_ERR_DTYPE;
+  return launch<T, P, D, DENSE, true>(a, st);
 }
 
 template <typename T, typename P, bool DENSE = false>
@@ -547,10 +542,7 @@ int dispatch_d(int head_dim, const Args& a, cudaStream_t st) {
     case 128:
       return launch_c<T, P, 128, DENSE>(a, st);
     case 256:
-      if constexpr (ALL_OPTIONS<T, P>)
-        return launch_c<T, P, 256, DENSE>(a, st);
-      else
-        return SLI_ERR_HEAD_DIM;
+      return launch_c<T, P, 256, DENSE>(a, st);
     default:
       return SLI_ERR_HEAD_DIM;
   }

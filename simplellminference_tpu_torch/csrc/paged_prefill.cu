@@ -13,16 +13,15 @@
 // each row's softmax state at (sink, 1), paged_prefill.py:259;
 // prefill_mma.cuh's note; the FMA kernel seeds its rows the same way):
 // forms 8s, 8ws, 8qs, 8qws, 8es, 8ews, a pointer and not a template flag;
-// Gemma-2's soft
-// cap over pools of q's dtype or int8 pools (cap > 0: each live score
+// Gemma-2's soft cap over every pool dtype (cap > 0: each live score
 // becomes cap * tanh(s * scale * (1 / cap)) before the mask,
 // paged_prefill.py:123-124; prefill_mma.cuh's note): forms 8c, 8wc, 8qc,
-// 8qwc, a template flag of each kernel, the uncapped forms compiled as
-// before (the cap over e4m3 pools raises in the wrapper, and here). Over
-// int8 pools both options see the K and V rows as the TPU kernel's page
-// slabs are, dequantized and rounded to q's dtype (paged_prefill.py:
-// 105-110) before the scores, so the cap takes the dequantized score and
-// a sink, a raw logit, stays outside every scale; and, its FP8-KV form
+// 8qwc, 8ec, 8ewc, a template flag of each kernel, the uncapped forms
+// compiled as before. Over int8 and e4m3 pools both options see the K and
+// V rows as the TPU kernel's page slabs are, dequantized (or converted)
+// and rounded to q's dtype (paged_prefill.py:105-110) before the scores,
+// so the cap takes the score of those rows and a sink, a raw logit, stays
+// outside every scale; and, its FP8-KV form
 // 8e, float8_e4m3fn pools (no scales; the TPU kernel casts the page slabs
 // to q's dtype, paged_prefill.py:108-110): bf16 q on the tensor cores, each
 // staged code converted exactly to bf16 in the block where INT8 KV
@@ -63,9 +62,12 @@
 // (paged_prefill.py:105-110), into the swizzled tiles. Every Sq is taken;
 // a batch's padding row (-1 table, kv_len 1) stays finite. Head dims 32,
 // 64 and 128 for every form; 256 (Gemma) over pools of q's dtype (8, 8w,
-// 8c, 8wc and their f32 FMA forms) and int8 pools (8q, 8qw, 8qc, 8qwc:
-// Gemma over INT8 KV), budget in prefill_mma.cuh's note (the FMA
-// kernel's tiles, f32 whatever the pool: 214,272 bytes of shared memory).
+// 8c, 8wc and their f32 FMA forms), int8 pools (8q, 8qw, 8qc, 8qwc: Gemma
+// over INT8 KV) and e4m3 pools (8e, 8ew, 8ec, 8ewc: Gemma over FP8 KV),
+// budget in prefill_mma.cuh's note (the FMA kernel's tiles, f32 whatever
+// the pool: 214,272 bytes of shared memory). The kernels live in
+// paged_prefill.cuh; the e4m3 forms are instantiated in
+// paged_prefill_e4m3.cu, a translation unit of their own.
 //
 // Design, f32: the first, FMA kernel below (TF32 tensor cores would not
 // hold f32's tolerance): one block per (q tile of 64 rows, q head,
@@ -74,269 +76,9 @@
 // per thread for QK^T and 4 rows x D/16 columns for PV; the same walk and
 // per-element mask (k_pos <= q_pos, k_pos < kv_len, k_pos > q_pos - window),
 // a row's sum guarded.
-#include <type_traits>
-
-#include "common.cuh"
-#include "prefill_mma.cuh"
+#include "paged_prefill.cuh"
 
 namespace {
-
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NT = 256;
-constexpr float NEG_INF = -1e30f;
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return ((size_t)BQ * (D + 1) + (size_t)BK * (D + 1) + (size_t)BK * D +
-          (size_t)BQ * (BK + 1)) *
-             sizeof(float) +
-         (size_t)BK * sizeof(long long);
-}
-
-// q: [B, Sq, N, D] with element strides q_bs (batch) and q_ss (row), heads
-// contiguous; pools [L, P+1, kvN, ps, D] of P (T, __nv_fp8_e4m3, or int8_t
-// with the scale pools ksp/vsp [L, P+1, kvN, ps]) contiguous; out [B, Sq,
-// N, D] contiguous.
-template <typename T, typename P, int D, bool CAP>
-__global__ void __launch_bounds__(NT) paged_prefill_kernel(
-    const T* __restrict__ q, long long q_bs, long long q_ss,
-    const P* __restrict__ pool_k, const P* __restrict__ pool_v,
-    const float* __restrict__ ksp, const float* __restrict__ vsp,
-    const int* __restrict__ tables, const int* __restrict__ kv_lens,
-    const int* __restrict__ offs, T* __restrict__ out, int seq, int heads,
-    int layer, int num_pages1, int kvn, int ps, int mp, int group,
-    int window, float scale, float cap, const float* __restrict__ sinks) {
-  constexpr bool QUANT = std::is_same_v<P, int8_t>;  // scales beside codes
-  extern __shared__ float smem[];
-  float* qs = smem;                  // [BQ][D+1]
-  float* ks = qs + BQ * (D + 1);     // [BK][D+1]
-  float* vs = ks + BK * (D + 1);     // [BK][D]
-  float* pr = vs + BK * D;           // [BQ][BK+1]
-  long long* rowoff = (long long*)(pr + BQ * (BK + 1));  // [BK], -1 = zeros
-  constexpr int CPT = D / 16;        // output columns per thread
-
-  const int qt = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = h / group;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // rows ty*4 .. ty*4+3
-  const int tx = tid & 15;  // cols tx + 16*j
-  const int q0 = qt * BQ;
-  const int off = offs[b];
-  const int n_keys = min(kv_lens[b], mp * ps);
-  const int* row = tables + (long long)b * mp;
-
-  const T* qb = q + (long long)b * q_bs + (long long)h * D;
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D;
-    const int d = i - r * D;
-    const int s = q0 + r;
-    qs[r * (D + 1) + d] = s < seq ? sli::to_f(qb[(long long)s * q_ss + d])
-                                  : 0.f;
-  }
-
-  float acc[4][CPT];
-  float m[4];
-  float l[4];
-  // a sink seeds the row's state (its head's logit, one unit of weight)
-  const float m_seed = sinks != nullptr ? sinks[h] : NEG_INF;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = m_seed;
-    l[i] = sinks != nullptr ? 1.f : 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-  }
-
-  // keys k_lo .. min(newest query position of the tile, n_keys - 1); k_lo
-  // is 0, or with a window the oldest row's first key
-  const int last_key = min(off + min(q0 + BQ, seq) - 1, n_keys - 1);
-  const int k_lo = window > 0 ? max(0, off + q0 - window + 1) : 0;
-  const int nkt = last_key < k_lo ? 0 : (last_key - k_lo) / BK + 1;
-  const long long layer_base = (long long)layer * num_pages1;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = k_lo + kt * BK;
-    __syncthreads();  // the previous tile's readers are done
-    if (tid < BK) {
-      const int kp = k0 + tid;
-      long long o = -1;
-      if (kp <= last_key) {
-        const int page = row[kp / ps];
-        if (page >= 0 && page < num_pages1)
-          o = (((layer_base + page) * kvn + kh) * ps + kp % ps) * (long long)D;
-      }
-      rowoff[tid] = o;
-    }
-    __syncthreads();
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D;
-      const int d = i - r * D;
-      const long long o = rowoff[r];
-      float kv = 0.f;
-      float vv = 0.f;
-      if (o >= 0) {
-        kv = sli::to_f(pool_k[o + d]);
-        vv = sli::to_f(pool_v[o + d]);
-        if (QUANT) {  // dequantize in f32, round to q's dtype
-          kv = sli::to_f(sli::from_f<T>(kv * ksp[o / D]));
-          vv = sli::to_f(sli::from_f<T>(vv * vsp[o / D]));
-        }
-      }
-      ks[r * (D + 1) + d] = kv;
-      vs[r * D + d] = vv;
-    }
-    __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4];
-      float kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty * 4 + i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] += qv[i] * kv[j];
-    }
-
-    float alpha[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = off + q0 + ty * 4 + i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        float s = sc[i][j] * scale;
-        if constexpr (CAP) s = cap * tanhf(s * (1.f / cap));
-        if (kp > qp || kp >= n_keys || (window > 0 && kp <= qp - window))
-          s = NEG_INF;
-        sc[i][j] = s;
-        mx = fmaxf(mx, s);
-      }
-      // the 16 threads sharing ty hold the tile's 64 columns of row i
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[i], mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // a masked key, or a row that has seen no key yet, keeps p = 0
-        const float p = sc[i][j] <= NEG_INF ? 0.f : expf(sc[i][j] - m_new);
-        sc[i][j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, o);
-      alpha[i] = expf(m[i] - m_new);
-      l[i] = l[i] * alpha[i] + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        pr[(ty * 4 + i) * (BK + 1) + tx + 16 * j] = sc[i][j];
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha[i];
-    const int kmax = min(BK, last_key + 1 - k0);
-    for (int kk = 0; kk < kmax; ++kk) {
-      float vv[CPT];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) vv[c] = vs[kk * D + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = pr[(ty * 4 + i) * (BK + 1) + kk];
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] += p * vv[c];
-      }
-    }
-  }
-
-  T* ob = out + ((long long)b * seq * heads + h) * D;
-  const long long o_ss = (long long)heads * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty * 4 + i;
-    if (s < seq) {
-      const float den = fmaxf(l[i], 1e-30f);
-#pragma unroll
-      for (int c = 0; c < CPT; ++c)
-        ob[(long long)s * o_ss + tx + 16 * c] = sli::from_f<T>(acc[i][c] / den);
-    }
-  }
-}
-
-template <typename T, typename P, int D, bool CAP>
-int launch(const void* q, long long q_bs, long long q_ss, const void* pool_k,
-           const void* pool_v, const float* ksp, const float* vsp,
-           const int* tables, const int* kv_lens, const int* offs, void* out,
-           int batch, int seq, int heads, int layer, int num_pages1, int kvn,
-           int ps, int mp, int group, int window, float scale, float cap,
-           const float* sinks, cudaStream_t st) {
-  const size_t bytes = smem_bytes<D>();
-  cudaError_t e = sli::allow_smem(paged_prefill_kernel<T, P, D, CAP>, bytes);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((seq + BQ - 1) / BQ, heads, batch);
-  paged_prefill_kernel<T, P, D, CAP><<<grid, NT, bytes, st>>>(
-      (const T*)q, q_bs, q_ss, (const P*)pool_k, (const P*)pool_v, ksp, vsp,
-      tables, kv_lens, offs, (T*)out, seq, heads, layer, num_pages1, kvn, ps,
-      mp, group, window, scale, cap, sinks);
-  return (int)cudaGetLastError();
-}
-
-// D 256 and the cap over pools of q's dtype or int8 (OWN), not over e4m3
-// pools (windows and sinks: every pool)
-template <typename T, typename P>
-int dispatch_d(int head_dim, const void* q, long long q_bs, long long q_ss,
-               const void* pool_k, const void* pool_v, const float* ksp,
-               const float* vsp, const int* tables, const int* kv_lens,
-               const int* offs, void* out, int batch, int seq, int heads,
-               int layer, int num_pages1, int kvn, int ps, int mp, int group,
-               int window, float scale, float cap, const float* sinks,
-               cudaStream_t st) {
-  constexpr bool OWN = std::is_same_v<T, P> || std::is_same_v<P, int8_t>;
-  if (cap > 0.f && !OWN) return SLI_ERR_DTYPE;
-#define SLI_PP_LAUNCH(DD, C)                                                 \
-  launch<T, P, DD, C>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,       \
-                      kv_lens, offs, out, batch, seq, heads, layer,          \
-                      num_pages1, kvn, ps, mp, group, window, scale, cap,    \
-                      sinks, st)
-#define SLI_PP_CASE(DD)                                                      \
-  case DD:                                                                   \
-    if constexpr (OWN) {                                                     \
-      if (cap > 0.f) return SLI_PP_LAUNCH(DD, true);                         \
-    }                                                                        \
-    return SLI_PP_LAUNCH(DD, false);
-  switch (head_dim) {
-    SLI_PP_CASE(32)
-    SLI_PP_CASE(64)
-    SLI_PP_CASE(128)
-    case 256:  // pools of q's dtype or int8
-      if constexpr (OWN) {
-        if (cap > 0.f) return SLI_PP_LAUNCH(256, true);
-        return SLI_PP_LAUNCH(256, false);
-      }
-      return SLI_ERR_HEAD_DIM;
-    default:
-      return SLI_ERR_HEAD_DIM;
-  }
-#undef SLI_PP_CASE
-#undef SLI_PP_LAUNCH
-}
 
 template <typename T>
 int dispatch_p(int pool, int head_dim, const void* q, long long q_bs,
@@ -351,11 +93,11 @@ int dispatch_p(int pool, int head_dim, const void* q, long long q_bs,
                                  vsp, tables, kv_lens, offs, out, batch, seq,
                                  heads, layer, num_pages1, kvn, ps, mp, group,
                                  window, scale, cap, sinks, st);
-  if (pool == SLI_POOL_E4M3)
-    return dispatch_d<T, __nv_fp8_e4m3>(
-        head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables, kv_lens,
-        offs, out, batch, seq, heads, layer, num_pages1, kvn, ps, mp, group,
-        window, scale, cap, sinks, st);
+  if (pool == SLI_POOL_E4M3)  // paged_prefill_e4m3.cu
+    return sli_pp::dispatch_e4m3_fma(
+        head_dim, q, q_bs, q_ss, pool_k, pool_v, tables, kv_lens, offs, out,
+        batch, seq, heads, layer, num_pages1, kvn, ps, mp, group, window,
+        scale, cap, sinks, st);
   if (pool != (std::is_same_v<T, float> ? SLI_POOL_F32 : SLI_POOL_BF16))
     return SLI_ERR_DTYPE;
   return dispatch_d<T, T>(head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp,
@@ -364,151 +106,16 @@ int dispatch_p(int pool, int head_dim, const void* q, long long q_bs,
                           cap, sinks, st);
 }
 
-// The K/V rows of one sequence and kv head in the stacked pools, for
-// pfa::attend: a cursor on key kp holds its table column kp / ps and its
-// row in the page kp % ps, advanced 64 keys a tile without a division;
-// the page is the table entry (fetched one tile ahead), the row
-// ((layer * P1 + page) * kvN + kh) * ps + kp % ps, -1 (zeros) for an
-// unmapped or out-of-range page.
-template <int D, int KV>
-struct PagedRows {
-  const unsigned char* pk;
-  const unsigned char* pv;
-  const float* ks;
-  const float* vs;
-  const int* table;
-  long long base;  // layer * P1
-  int kvn, kh, ps, p1;
-  int step_col, step_row;  // 64 keys: 64 / ps columns and 64 % ps rows
-  static constexpr int ROW = KV != sli::pfa::KV_BF16 ? D : 2 * D;  // bytes
-  struct Cursor {
-    int col, in;
-  };
-  __device__ Cursor cursor(int kp) const { return {kp / ps, kp % ps}; }
-  __device__ void advance(Cursor& c) const {
-    c.col += step_col;
-    c.in += step_row;
-    if (c.in >= ps) {
-      c.in -= ps;
-      ++c.col;
-    }
-  }
-  __device__ int page(const Cursor& c) const { return __ldg(table + c.col); }
-  __device__ long long row(const Cursor& c, int pg) const {
-    if (pg < 0 || pg >= p1) return -1;
-    return ((base + pg) * kvn + kh) * ps + c.in;
-  }
-  __device__ const void* k(long long r) const { return pk + r * ROW; }
-  __device__ const void* v(long long r) const { return pv + r * ROW; }
-  __device__ const float* ksc(long long r) const { return ks + r; }
-  __device__ const float* vsc(long long r) const { return vs + r; }
-};
-
-// bf16 q [B, Sq, N, D] (element strides q_bs, q_ss; 16-byte aligned
-// rows) against bf16 pools, e4m3 pools (KV_E4M3), or int8 pools (KV_I8)
-// with their scale pools; out [B, Sq, N, D] contiguous, or the split
-// partials in work.
-template <int D, int KV, bool CAP>
-__global__ void __launch_bounds__(sli::pfa::NT) paged_prefill_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, long long q_bs, long long q_ss,
-    const void* __restrict__ pool_k, const void* __restrict__ pool_v,
-    const float* __restrict__ ksp, const float* __restrict__ vsp,
-    const int* __restrict__ tables, const int* __restrict__ kv_lens,
-    const int* __restrict__ offs, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ work, int batch, int seq, int heads, int layer,
-    int num_pages1, int kvn, int ps, int mp, int group, int window,
-    sli::pfa::Score sc, int splits, const float* __restrict__ sinks) {
-  const int b = blockIdx.z / splits;
-  const PagedRows<D, KV> src{
-      (const unsigned char*)pool_k, (const unsigned char*)pool_v, ksp, vsp,
-      tables + (long long)b * mp, (long long)layer * num_pages1, kvn,
-      (int)blockIdx.y, ps, num_pages1, sli::pfa::TILE / ps,
-      sli::pfa::TILE % ps};
-  sli::pfa::attend<D, KV, CAP>(q + (long long)b * q_bs, q_ss, src,
-                               out + (long long)b * seq * heads * D, work,
-                               batch, b, seq, heads, group, offs[b],
-                               min(kv_lens[b], mp * ps), window, sc, splits,
-                               sinks);
-}
-
-template <int D, int KV, bool CAP>
-int launch_mma(const void* q, long long q_bs, long long q_ss,
-               const void* pool_k, const void* pool_v, const float* ksp,
-               const float* vsp, const int* tables, const int* kv_lens,
-               const int* offs, void* out, float* work, int batch, int seq,
-               int heads, int layer, int num_pages1, int kvn, int ps, int mp,
-               int group, int window, float scale, float cap, int splits,
-               const float* sinks, cudaStream_t st) {
-  namespace pfa = sli::pfa;
-  constexpr int bytes = pfa::Smem<D, KV>::BYTES;
-  auto kern = paged_prefill_mma_kernel<D, KV, CAP>;
-  cudaError_t e = sli::allow_smem(kern, bytes);
-  if (e != cudaSuccess) return (int)e;
-  const int h = min(group, pfa::TILE);
-  const int tiles = (seq + pfa::TILE / h - 1) / (pfa::TILE / h) *
-                    ((group + h - 1) / h);
-  const dim3 grid(tiles, kvn, batch * splits);
-  kern<<<grid, pfa::NT, bytes, st>>>(
-      (const __nv_bfloat16*)q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,
-      kv_lens, offs, (__nv_bfloat16*)out, work, batch, seq, heads, layer,
-      num_pages1, kvn, ps, mp, group, window, pfa::make_score(scale, cap),
-      splits, sinks);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return (int)e;
-  return (int)sli::launch_merge<__nv_bfloat16>(
-      work, out, (long long)batch * seq * heads, D, splits, st);
-}
-
-// D 256 and the cap over bf16 or int8 pools (OWN), not over e4m3 (windows
-// and sinks: every pool)
-template <int KV>
-int dispatch_mma(int head_dim, const void* q, long long q_bs, long long q_ss,
-                 const void* pool_k, const void* pool_v, const float* ksp,
-                 const float* vsp, const int* tables, const int* kv_lens,
-                 const int* offs, void* out, float* work, int batch, int seq,
-                 int heads, int layer, int num_pages1, int kvn, int ps,
-                 int mp, int group, int window, float scale, float cap,
-                 int splits, const float* sinks, cudaStream_t st) {
-  constexpr bool OWN = KV != sli::pfa::KV_E4M3;
-  if (cap > 0.f && !OWN) return SLI_ERR_DTYPE;
-#define SLI_PP_LAUNCH(DD, C)                                                  \
-  launch_mma<DD, KV, C>(q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,      \
-                        kv_lens, offs, out, work, batch, seq, heads, layer,   \
-                        num_pages1, kvn, ps, mp, group, window, scale, cap,   \
-                        splits, sinks, st)
-#define SLI_PP_CASE(DD)                                                       \
-  case DD:                                                                    \
-    if constexpr (OWN) {                                                      \
-      if (cap > 0.f) return SLI_PP_LAUNCH(DD, true);                          \
-    }                                                                         \
-    return SLI_PP_LAUNCH(DD, false);
-  switch (head_dim) {
-    SLI_PP_CASE(32)
-    SLI_PP_CASE(64)
-    SLI_PP_CASE(128)
-    case 256:  // bf16 or int8 pools
-      if constexpr (OWN) {
-        if (cap > 0.f) return SLI_PP_LAUNCH(256, true);
-        return SLI_PP_LAUNCH(256, false);
-      }
-      return SLI_ERR_HEAD_DIM;
-    default:
-      return SLI_ERR_HEAD_DIM;
-  }
-#undef SLI_PP_CASE
-#undef SLI_PP_LAUNCH
-}
-
 }  // namespace
 
 // pool: the pools' dtype (SLI_POOL_*): q's dtype, e4m3 (forms 8e, 8ew,
-// 8es, 8ews), or int8
+// 8es, 8ews, 8ec, 8ewc), or int8
 // with k_scale/v_scale, their f32 scale pools [L, num_pages1, kvn, ps]
 // (null for every other pool dtype). window: 0 for none, else the sliding
-// window (>= 1); cap: 0 for none, else the soft cap (> 0; pools of q's
-// dtype or int8); sinks: null for none, else the layer's f32 sink logits
-// [heads] (every pool dtype, D <= 128). D 256: pools of q's dtype or
-// int8. bf16 q takes the tensor-core kernel:
+// window (>= 1); cap: 0 for none, else the soft cap (> 0; every pool
+// dtype); sinks: null for none, else the layer's f32 sink logits [heads]
+// (every pool dtype, D <= 128). D 256: every pool dtype. bf16 q takes the
+// tensor-core kernel:
 // q rows 16-byte aligned (q, q_bs, q_ss), and with splits > 1, work holds
 // splits * batch * seq * heads * (head_dim + 2) floats. f32 q takes the
 // FMA kernel (splits 1).
@@ -555,11 +162,11 @@ extern "C" int sli_paged_flash_prefill(
             head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,
             kv_lens, offs, out, w, batch, seq, heads, layer, num_pages1, kvn,
             ps, mp, group, window, scale, cap, splits, sinks, st);
-      case SLI_POOL_E4M3:
-        return dispatch_mma<pfa::KV_E4M3>(
-            head_dim, q, q_bs, q_ss, pool_k, pool_v, ksp, vsp, tables,
-            kv_lens, offs, out, w, batch, seq, heads, layer, num_pages1, kvn,
-            ps, mp, group, window, scale, cap, splits, sinks, st);
+      case SLI_POOL_E4M3:  // paged_prefill_e4m3.cu
+        return sli_pp::dispatch_e4m3_mma(
+            head_dim, q, q_bs, q_ss, pool_k, pool_v, tables, kv_lens, offs,
+            out, w, batch, seq, heads, layer, num_pages1, kvn, ps, mp, group,
+            window, scale, cap, splits, sinks, st);
       default:
         return SLI_ERR_DTYPE;
     }

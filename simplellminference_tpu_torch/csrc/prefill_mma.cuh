@@ -1,7 +1,7 @@
 // Prefill attention on the H100's bf16 tensor cores (wgmma), shared by the
 // bf16 forms of kernel 3 (flash_prefill.cu: 3, 3w) and kernel 8
 // (paged_prefill.cu: 8, 8q, 8e, 8w, 8qw, 8ew and their capped and sink
-// forms).
+// forms; the kernels themselves in paged_prefill.cuh).
 // Each .cu file gives the rows of
 // its keys (a Src: a dense [B, S, kvN, D] array, or pages through a block
 // table) and launches attend<D, KV, Src> for its pools' kind (KV_BF16,
@@ -94,8 +94,8 @@
 //
 // D 256 (Gemma-2B: 8 q heads over one kv head, so a tile packs 8
 // positions x 8 heads, as TinyLlama's at D 64; Gemma-2-2B: 2 over each of
-// 4, 32 positions x 2 heads), bf16 and int8 pools (not e4m3), with or
-// without a window and the cap: S = QK^T takes 16 k-steps of m64n64k16;
+// 4, 32 positions x 2 heads), bf16, int8 and e4m3 pools, with or without a
+// window and the cap: S = QK^T takes 16 k-steps of m64n64k16;
 // O += PV is one
 // wgmma.m64n256k16 a 16-key step (P from registers, V as B in four
 // 64-column slabs at the slab stride, the same descriptor as n128's two),
@@ -115,7 +115,12 @@
 // and V tiles take 64 KB more, 166,912 bytes in all (Smem<256,
 // KV_I8>::BYTES), still one block an SM; the registers are the bf16
 // form's and convert()'s, and chip_smoke's build prints ptxas's count and
-// spills for them as for every instantiation.
+// spills for them as for every instantiation. D 256 over e4m3 pools
+// (KV_E4M3; Gemma over FP8 KV, forms 8e, 8ew, 8ec, 8ewc at D 256): the
+// stages hold the codes alone (2 x 32,768 bytes) beside the converted
+// tiles, 165,888 bytes (Smem<256, KV_E4M3>::BYTES); convert() turns each
+// 4-byte word of codes into four exact bf16 values, as at D 128, so the
+// registers are those of the int8 form less its scale.
 #pragma once
 
 #include "common.cuh"

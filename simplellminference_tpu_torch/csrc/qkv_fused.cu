@@ -34,7 +34,8 @@
 // D = 128 (or 2 of 64, 4 of 32), so every RoPE pair (c, c + D/2) stays in
 // the block; at D 256 (Gemma) the block's 128 columns are two 64-column
 // runs of one head, 128 apart (qkv_slots.cuh block_col), so the pairs
-// still do (not e4m3 pools; INT8 KV below), with the registers and shared
+// still do (e4m3 pools too, each element rounded on its own; INT8 KV
+// below), with the registers and shared
 // memory of every other D. It
 // streams the int8 product over all of K (int8_rows.cuh:
 // 16-byte loads, f32 FMAs against the normalized rows in shared memory),
@@ -205,7 +206,7 @@ extern "C" {
 // 16-byte loads. pool_ks/pool_vs: null, or (INT8 KV) the f32 scale pools
 // [L, num_pages1, kvn, ps] of int8 pools (pool_dt SLI_POOL_I8); kv_rows:
 // INT8 KV at d 256, b * 2 kvn * d floats of scratch (null otherwise). d
-// 32, 64, 128 or 256 (e4m3 pools: d <= 128).
+// 32, 64, 128 or 256 (every pool dtype).
 int sli_qkv_fused(const void* x, long long ldx, const void* nw, int nw_bf16,
                   const void* wq, const float* ws, const float* sin_t,
                   const float* cos_t, void* pool_k, void* pool_v,
@@ -218,8 +219,6 @@ int sli_qkv_fused(const void* x, long long ldx, const void* nw, int nw_bf16,
   if (b <= 0 || h <= 0 || n_heads <= 0 || kvn <= 0 || ps <= 0 || mp <= 0)
     return SLI_ERR_SHAPE;
   if (d != 32 && d != 64 && d != 128 && d != 256) return SLI_ERR_HEAD_DIM;
-  // D 256: bf16, f32 or int8 pools (e4m3 takes D <= 128)
-  if (d == 256 && pool_dt == SLI_POOL_E4M3) return SLI_ERR_HEAD_DIM;
   if ((pool_ks == nullptr) != (pool_vs == nullptr)) return SLI_ERR_SHAPE;
   if (d == 256 && pool_ks != nullptr && (kv_rows == nullptr ||
                                          tables == nullptr))

@@ -32,7 +32,9 @@
 //       [64 k, + 64) and [128 + 64 k, + 64), k = 0, 1 (qkv_slots.cuh
 //       block_col), so the pairs still stay in the block, and the grid
 //       keeps Nq / 128 blocks a K range (20 at Gemma-2B's 2560 columns;
-//       the e4m3 form keeps D <= 128; INT8 KV takes (c)); registers, shared
+//       INT8 KV takes (c); over e4m3 pools, 6e/256, each block rounds its
+//       own 64-column runs of a head to e4m3 element by element, so no
+//       further launch is needed); registers, shared
 //       memory and the bytes bound (5.2 MB of weight at Gemma-2B) do not
 //       depend on D, only the tail's column map does. It
 //       streams a K range of the weight against all b rows of xn in one
@@ -299,7 +301,7 @@ extern "C" {
 // ceil(h / kch) * b * nq floats when K is split (null otherwise); kv_rows:
 // INT8 KV at d 256, b * 2 kvn * d floats of scratch (null otherwise). h a
 // multiple of 64, nq = (n_heads + 2 kvn) d of 128, d 32, 64, 128 or 256
-// (e4m3 pools: d <= 128); kch: H rows a block, a multiple of 64. wq, ws,
+// (every pool dtype); kch: H rows a block, a multiple of 64. wq, ws,
 // sin, cos and work 16-byte aligned.
 int sli_qkv_fused_mma(const void* x, long long ldx, const void* nw,
                       int nw_bf16, const void* wq, const float* ws,
@@ -314,8 +316,6 @@ int sli_qkv_fused_mma(const void* x, long long ldx, const void* nw,
       ps <= 0 || mp <= 0 || kch <= 0 || kch % 64)
     return SLI_ERR_SHAPE;
   if (d != 32 && d != 64 && d != 128 && d != 256) return SLI_ERR_HEAD_DIM;
-  // D 256: bf16, f32 or int8 pools (e4m3 takes D <= 128)
-  if (d == 256 && pool_dt == SLI_POOL_E4M3) return SLI_ERR_HEAD_DIM;
   if (d == 256 && pool_ks != nullptr && kv_rows == nullptr)
     return SLI_ERR_SHAPE;
   const int nq = (n_heads + 2 * kvn) * d;

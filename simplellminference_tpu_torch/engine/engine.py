@@ -66,7 +66,9 @@ or INT8 (``kv_dtype="int8"``: int8 pools with per-token-per-head f32
 scale pools at the same page ids, so prefix sharing, the persistent store
 and preemption move scales with their pages and need nothing more, as in
 the JAX engine, which never touches ``k_scale`` past creating it). FP8 KV
-takes sliding windows too (e4m3 ring pools in grouped mode). The
+takes sliding windows too (e4m3 ring pools in grouped mode), and serves
+Gemma-1 and Gemma-2 (head_dim 256, the soft cap) as the JAX engine does.
+The
 JAX engine's warning that FP8 KV is slow on a TPU v5e (engine.py:466-476)
 is a claim about that chip and is not carried over.
 

@@ -33,9 +33,10 @@ KV pools are bf16/f32, or INT8 with per-token-per-head scale pools
 paged attention dequantizes through the scales, in every branch
 (llama.py:559, :610-628, :687-727). The whole-prompt prefill still attends
 to its fresh, unquantized k/v; only its write is quantized. FP8 (e4m3)
-pools take the same paged branches, the grouped engine's e4m3 ring pools
-and sinks included (4ew, 4vew, 8ew, 6ek; 4es, 4ews, 4ves, 4vews, 8es,
-8ews: head_dim <= 128, no soft cap).
+pools take the same paged branches, the grouped engine's e4m3 ring pools,
+sinks and the soft cap included (4ew, 4vew, 8ew, 6ek; 4es, 4ews, 4ves,
+4vews, 8es, 8ews; 4ec, 4ewc, 4vec, 4vewc, 8ec, 8ewc), at Gemma's head_dim
+256 too.
 
 Weights are plain tensors or :class:`~simplellminference_tpu_torch.ops.
 linear.QuantizedWeight` leaves, INT8 or split-half INT4 with optional

@@ -11,13 +11,13 @@ or the per-layer ``window`` a caller passes for ``layer_types`` stacks)
 goes to each kernel's window form, the dense arena's included (13w) and
 over e4m3 pools (4ew, 4vew, 8ew), and Gemma-2's logit soft cap
 (``cfg.attn_logit_softcap``) to the capped forms of kernels 3, 4 (decode
-and verify rows), 8 and 13 over bf16/f32 KV and of 4 and 8 over INT8 KV,
-and a layer's GPT-OSS attention sinks (``sinks`` [N], passed by the
-caller as the JAX dispatcher takes them) to the sink forms of kernels 3,
-4 (decode and verify rows), 8 and 13 over bf16/f32 KV and of 4 and 8
-over INT8 and e4m3 pools (4es, 4ews, 4ves, 4vews, 8es, 8ews). Attention
-options the kernels do not take yet (sinks at head_dim 256; the cap over
-FP8 KV; FP8 KV at head_dim 256) raise.
+and verify rows), 8 and 13 over bf16/f32 KV and of 4 and 8 over INT8 and
+e4m3 pools (4ec, 4ewc, 4vec, 4vewc, 8ec, 8ewc), at head_dim 256 too, and
+a layer's GPT-OSS attention sinks (``sinks`` [N], passed by the caller as
+the JAX dispatcher takes them) to the sink forms of kernels 3, 4 (decode
+and verify rows), 8 and 13 over bf16/f32 KV and of 4 and 8 over INT8 and
+e4m3 pools (4es, 4ews, 4ves, 4vews, 8es, 8ews). Sinks at head_dim 256,
+which the kernels do not take yet, raise.
 """
 
 from __future__ import annotations

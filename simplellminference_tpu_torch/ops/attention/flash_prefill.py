@@ -38,9 +38,8 @@ from simplellminference_tpu_torch.ops import cuda_build, ref_ops
 from simplellminference_tpu_torch.ops.attention import prefill_tiles
 
 HEAD_DIMS = (32, 64, 128, 256)
-# the forms of this module that take head_dim 256 (Gemma), and their
-# launches at that head dim (each also counts in its form's ``launches``)
-D256_FORMS = ("flash_prefill", "flash_prefill_window")
+# the launches of this module's forms at head_dim 256 (Gemma; each also
+# counts in its form's ``launches``)
 D256_LAUNCHES = {"flash_prefill": 0, "flash_prefill_window": 0}
 # launches with the soft cap, and with attention sinks, by (form, head
 # dim) (each also counts in its form's ``launches``)
@@ -177,8 +176,6 @@ def flash_prefill_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     keys i - window < j <= i."""
     window = window_size(window)
     cap = cap_value(logit_cap)
-    cuda_build.check_head_dim(q.shape[-1], "flash_prefill_window",
-                              D256_FORMS)
     check_sinks_head_dim(sinks, q.shape[-1])
     if not q.is_cuda:
         return flash_prefill_ref(q, k, v, sm_scale, window, cap, sinks)

@@ -32,10 +32,11 @@ gathered pages to f32 first; the two agree to f32 rounding.
 FP8 KV (forms 4e and 4ve, e4m3 pools with bf16 or f32 q): the TPU kernel
 casts each e4m3 element straight to f32 (paged_decode.py:79-80, :113);
 the kernel converts each staged code exactly in registers, the plain
-version gathers the exact f32 values. The window forms (4ew, 4vew) and
-the sink forms (4es, 4ews, 4ves, 4vews) take e4m3 pools at D 32-128 as
-they take pools of q's dtype: the walk reads no ring column below the
-band, and the sink, a raw logit, seeds split 0's state.
+version gathers the exact f32 values. The window forms (4ew, 4vew), the
+sink forms (4es, 4ews, 4ves, 4vews) and the capped forms (4ec, 4ewc,
+4vec, 4vewc) take e4m3 pools as they take pools of q's dtype: the walk
+reads no ring column below the band, the sink, a raw logit, seeds split
+0's state, and the cap takes the score of the exact values.
 
 The sliding-window forms (``window``: row s attends keys with row_pos -
 k_pos < window; paged_decode.py:73-75, :98-101) walk the keys from the
@@ -51,14 +52,14 @@ so the walk's start, not the mask, keeps the answer right. They are
 
 Gemma-2's soft cap (``logit_cap``: each score becomes
 cap * tanh(s * scale * (1 / cap)) before the mask, paged_decode.py:90-91)
-on the decode and verify forms over pools of q's dtype or INT8 pools, with
-or without a window (4c, 4wc, 4vc, 4vwc; 4qc, 4qwc, 4vqc, 4vqwc): a
-compile-time flag of the kernel, so the uncapped forms run the code they
-ran before; over INT8 pools the cap takes the dequantized score (q.k x
-the K scale x scale), JAX's order (paged_decode.py:84-91). Capped
+on the decode and verify forms over every pool dtype, with or without a
+window (4c, 4wc, 4vc, 4vwc; 4qc, 4qwc, 4vqc, 4vqwc; 4ec, 4ewc, 4vec,
+4vewc): a compile-time flag of the kernel, so the uncapped forms run the
+code they ran before; over INT8 pools the cap takes the dequantized score
+(q.k x the K scale x scale), JAX's order (paged_decode.py:84-91), over
+e4m3 pools the score of the exact f32 values (:79-80, :90-91). Capped
 launches count in their form's ``launches`` and in
-:data:`~.flash_prefill.CAP_LAUNCHES`. The cap over e4m3 pools raises (not
-ported yet).
+:data:`~.flash_prefill.CAP_LAUNCHES`.
 
 GPT-OSS's attention sinks (``sinks`` [N], a learned logit per q head that
 joins each row's softmax denominator and adds no value,
@@ -74,8 +75,8 @@ sinks count in their form's ``launches`` and in
 :data:`~.flash_prefill.SINK_LAUNCHES`. Sinks at head_dim 256 raise (not
 ported yet), on the CPU as on the card.
 
-Head dim 256 (Gemma) on every form over pools of q's dtype or INT8 pools
-(:data:`D256_FORMS`); the e4m3 forms take D 32-128.
+Head dim 256 (Gemma) on every form over every pool dtype, each form's
+launches there also in :data:`D256_LAUNCHES`.
 
 Unmapped (-1) pages inside kv_len read as zeros in both versions. The
 JAX package reads something else there — its TPU kernel clamps them to
@@ -96,14 +97,6 @@ from simplellminference_tpu_torch.ops.matmul import SM_COUNT
 from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
 HEAD_DIMS = (32, 64, 128, 256)
-# the forms that take head_dim 256 (Gemma): decode and verify over pools
-# of q's dtype or INT8 pools, with or without a window; and their launches
-# at that head dim (each also in ``launches``)
-D256_FORMS = ("paged_flash_decode", "paged_flash_decode_window",
-              "paged_flash_verify", "paged_flash_verify_window",
-              "paged_flash_decode_int8kv", "paged_flash_decode_int8kv_window",
-              "paged_flash_verify_int8kv", "paged_flash_verify_int8kv_window")
-D256_LAUNCHES = {form: 0 for form in D256_FORMS}
 MAX_ROWS = 128   # query rows (GQA group x window rows) a call takes
 ROW_BLOCK = 32   # query rows a block of the kernel holds
 TILE_KEYS = 64   # keys per tile of the kernel; splits cut whole tiles
@@ -154,13 +147,6 @@ def workspace(b: int, rows: int, d: int, splits: int, device):
         return None
     return torch.empty((splits * b * rows * (d + 2),), dtype=torch.float32,
                        device=device)
-
-
-def check_cap(k_pool, logit_cap) -> None:
-    """The soft cap runs on the forms over pools of q's dtype and INT8
-    pools; raise, named, over e4m3 pools."""
-    if cap_value(logit_cap) and k_pool.dtype == torch.float8_e4m3fn:
-        raise NotImplementedError("attention logit soft cap over FP8 KV")
 
 
 def _check_scales(k_pool, v_pool, k_scale, v_scale) -> bool:
@@ -220,7 +206,6 @@ def paged_flash_decode_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
     """Plain version of :func:`paged_flash_decode` and its INT8-KV, FP8-KV,
     window, capped and sink forms: keys at positions < kv_len (and >=
     kv_len - window); q: [B, N, D] -> [B, N, D]."""
-    check_cap(k_pool, logit_cap)
     if q.is_cuda:
         paged_flash_decode_ref.cuda_calls += 1
     return _attend_ref(q[:, None], k_pool, v_pool, tables, kv_lens, layer,
@@ -239,7 +224,6 @@ def paged_flash_verify_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
     FP8-KV, window, capped and sink forms, the gather + mask + reference
     attention of the JAX dispatcher's S > 1 branch (dispatch.py:239-269).
     q: [B, S, N, D] -> [B, S, N, D]."""
-    check_cap(k_pool, logit_cap)
     if q.is_cuda:
         paged_flash_verify_ref.cuda_calls += 1
     return _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
@@ -259,10 +243,10 @@ def paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer: int,
     [B, MP] int32 (-1 = unmapped); kv_lens: [B] -> out [B, N, D] in q's
     dtype. Keys are positions < min(kv_len, MP*ps), and >= kv_len -
     ``window`` with a sliding window; ``logit_cap`` > 0 soft-caps the
-    scores (pools of q's dtype or INT8) and ``sinks`` [N] add each head's
-    sink logit to its softmax. The launch counts as the form the options
-    and pools name (4, 4q, 4e, 4w, 4qw, 4ew; a capped or sink form in the
-    count of the form it caps or seeds)."""
+    scores and ``sinks`` [N] add each head's sink logit to its softmax.
+    The launch counts as the form the options and pools name (4, 4q, 4e,
+    4w, 4qw, 4ew; a capped or sink form in the count of the form it caps
+    or seeds)."""
     return _run("paged_flash_decode", q[:, None], k_pool, v_pool, k_scale,
                 v_scale, tables, kv_lens, layer, sm_scale, window,
                 logit_cap, sinks)[:, 0]
@@ -412,6 +396,9 @@ _FORMS = {f.__name__: f for f in (
     paged_flash_verify_fp8kv_window)}
 for _f in _FORMS.values():
     _f.launches = 0
+# every form takes head_dim 256 (Gemma); each form's launches at that head
+# dim (each also in its ``launches``)
+D256_LAUNCHES = {name: 0 for name in _FORMS}
 
 
 def _run(name, q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
@@ -423,7 +410,6 @@ def _run(name, q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
     if v_pool is None:
         raise NotImplementedError("shared-KV pools (absorbed MLA)")
     quant = _check_scales(k_pool, v_pool, k_scale, v_scale)
-    check_cap(k_pool, logit_cap)
     check_sinks_head_dim(sinks, q.shape[-1])
     cap = cap_value(logit_cap)
     if window is not None:
@@ -431,7 +417,6 @@ def _run(name, q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
     fp8 = k_pool.dtype == torch.float8_e4m3fn
     form = _FORMS[name + "_int8kv" * quant + "_fp8kv" * fp8
                   + "_window" * (window is not None)]
-    cuda_build.check_head_dim(q.shape[-1], form.__name__, D256_FORMS)
     if not q.is_cuda:
         return _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer,
                            sm_scale, k_scale, v_scale, window, cap, sinks)

@@ -54,10 +54,10 @@ band aliases the live page of a newer position). They are
 :func:`paged_flash_prefill_fp8kv_window`, each with its own launch count.
 
 Gemma-2's soft cap (``logit_cap``: cap * tanh(s * scale * (1 / cap))
-before the mask, paged_prefill.py:123-124) over pools of q's dtype or
-INT8 pools, with or without a window (forms 8c, 8wc, 8qc, 8qwc): a
-compile-time flag of the kernels, applied to the scores of the
-dequantized K as JAX applies it; capped launches count in their form's
+before the mask, paged_prefill.py:123-124) over every pool dtype, with or
+without a window (forms 8c, 8wc, 8qc, 8qwc, 8ec, 8ewc): a compile-time
+flag of the kernels, applied to the scores of the dequantized (or
+converted) K as JAX applies it; capped launches count in their form's
 ``launches`` and in :data:`~.flash_prefill.CAP_LAUNCHES`.
 
 GPT-OSS's attention sinks (``sinks`` [N], a logit per q head in each
@@ -67,9 +67,9 @@ pool dtype, with or without a window (forms 8s, 8ws, 8qs, 8qws, 8es,
 seeded with (sink, 1), by split 0 only when the key walk splits; launches
 with sinks count in their form's ``launches`` and in
 :data:`~.flash_prefill.SINK_LAUNCHES`. Head dim 256 (Gemma) on every form
-over pools of q's dtype or INT8 pools (:data:`D256_FORMS`). The cap over
-e4m3 pools, the e4m3 forms at D 256, sinks at D 256 and shared-KV
-(absorbed MLA) pools are not ported yet and raise.
+over every pool dtype (its launches there also in :data:`D256_LAUNCHES`).
+Sinks at D 256 and shared-KV (absorbed MLA) pools are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -83,28 +83,19 @@ from simplellminference_tpu_torch.ops.attention.flash_prefill import (
     cap_value, check_sinks_head_dim, count_launch, heads_contiguous,
     sink_values, window_size)
 from simplellminference_tpu_torch.ops.attention.paged_decode import (
-    _check_e4m3, _check_float_pools, band_tables, check_cap)
+    _check_e4m3, _check_float_pools, band_tables)
 from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
 HEAD_DIMS = (32, 64, 128, 256)
-# the forms that take head_dim 256 (Gemma): pools of q's dtype or INT8
-# pools, with or without a window; and their launches at that head dim
-# (each also in ``launches``)
-D256_FORMS = ("paged_flash_prefill", "paged_flash_prefill_window",
-              "paged_flash_prefill_int8kv",
-              "paged_flash_prefill_int8kv_window")
-D256_LAUNCHES = {form: 0 for form in D256_FORMS}
 
 
-def _check_options(k_pool, v_pool, window, logit_cap, k_scale,
-                   v_scale) -> bool:
+def _check_options(k_pool, v_pool, window, k_scale, v_scale) -> bool:
     """Raise for the options not ported; True for INT8 KV (scale pools
     given and checked)."""
     if v_pool is None:
         raise NotImplementedError("shared-KV pools (absorbed MLA)")
     if window is not None:
         window_size(window)
-    check_cap(k_pool, logit_cap)
     if k_scale is None and v_scale is None:
         return False
     check_scale_pools(k_pool, v_pool, k_scale, v_scale)
@@ -122,8 +113,7 @@ def paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
     the band left ungathered), reference attention, the scores capped by
     ``logit_cap`` before the mask, each head's ``sinks`` logit in its
     softmax. q: [B, Sq, N, D] -> [B, Sq, N, D]."""
-    quant = _check_options(k_pool, v_pool, window, logit_cap, k_scale,
-                           v_scale)
+    quant = _check_options(k_pool, v_pool, window, k_scale, v_scale)
     if q.is_cuda:
         paged_flash_prefill_ref.cuda_calls += 1
     if window is not None:
@@ -164,13 +154,11 @@ def paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
     after the chunk's write; chunk_offset: [B] -> out [B, Sq, N, D] in q's
     dtype. Keys are positions < min(kv_len, MP*ps) up to each row's
     position, and within ``window`` of it with a sliding window;
-    ``logit_cap`` > 0 soft-caps the scores (pools of q's dtype or INT8)
-    and ``sinks`` [N] add each head's sink logit to its softmax. The
-    launch counts as the form the options and pools name (8, 8q, 8e, 8w,
-    8qw, 8ew; a capped or sink form in the count of the form it caps or
-    seeds)."""
-    quant = _check_options(k_pool, v_pool, window, logit_cap, k_scale,
-                           v_scale)
+    ``logit_cap`` > 0 soft-caps the scores and ``sinks`` [N] add each
+    head's sink logit to its softmax. The launch counts as the form the
+    options and pools name (8, 8q, 8e, 8w, 8qw, 8ew; a capped or sink form
+    in the count of the form it caps or seeds)."""
+    quant = _check_options(k_pool, v_pool, window, k_scale, v_scale)
     check_sinks_head_dim(sinks, q.shape[-1])
     cap = cap_value(logit_cap)
     if window is not None:
@@ -178,7 +166,6 @@ def paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
     kind = ("int8kv" if quant else "fp8kv"
             if k_pool.dtype == torch.float8_e4m3fn else "")
     form = _FORMS[kind, window is not None]
-    cuda_build.check_head_dim(q.shape[-1], form.__name__, D256_FORMS)
     if not q.is_cuda:
         return paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens,
                                        chunk_offset, layer, sm_scale,
@@ -265,6 +252,9 @@ _FORMS = {("", False): paged_flash_prefill,
           ("fp8kv", True): paged_flash_prefill_fp8kv_window}
 for _f in _FORMS.values():
     _f.launches = 0
+# every form takes head_dim 256 (Gemma); each form's launches at that head
+# dim (each also in its ``launches``)
+D256_LAUNCHES = {f.__name__: 0 for f in _FORMS.values()}
 
 
 def _check_scale_devices(q, k_pool, v_pool, k_scale, v_scale):

@@ -2,9 +2,10 @@
 
 Route: every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` (Hopper)
 into an object file — one ``nvcc`` process per source, all started
-together — and one link makes ``libsli_kernels.so``, a shared library
-with a plain C interface loaded with :mod:`ctypes`. No PyTorch header is
-compiled, so a build takes seconds.
+together, each one's seconds kept — and one link makes
+``libsli_kernels.so``, a shared library with a plain C interface loaded
+with :mod:`ctypes`. No PyTorch header is compiled, so a build takes
+seconds.
 
 The build runs at first use (never at import), keyed by a hash of the
 sources and flags, into ``simplellminference_tpu_torch/_build/<hash>/``
@@ -22,6 +23,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -106,7 +108,9 @@ POOL_CODES = {"float32": 0, "bfloat16": 1, "int8": 2, "float8_e4m3fn": 3}
 
 _lock = threading.Lock()
 _lib = None
-build_info: dict = {}   # seconds, cached, dir, ptxas (filled by build())
+# seconds, cached, dir, ptxas, source_seconds (each nvcc's; a fresh build
+# only): filled by build()
+build_info: dict = {}
 
 
 def nvcc_path() -> str:
@@ -151,27 +155,30 @@ def build() -> Path:
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_ROOT))
     t0 = time.perf_counter()
+
+    def compile_one(src: Path):
+        obj = tmp / (src.stem + ".o")
+        cmd = [nvcc, *ARCH, *FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
+               str(obj)]
+        t = time.perf_counter()
+        run = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        return src, obj, run, time.perf_counter() - t
+
     try:
-        procs = []
-        for src in sources():
-            obj = tmp / (src.stem + ".o")
-            cmd = [nvcc, *ARCH, *FLAGS, "-I", str(CSRC), "-c", str(src),
-                   "-o", str(obj)]
-            procs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-        logs, failed = [], []
-        for src, _obj, p in procs:
-            out, _ = p.communicate()
-            logs.append(f"== {src.name}\n{out}")
-            if p.returncode != 0:
-                failed.append(src.name)
+        srcs = sources()
+        # one thread a source, so every nvcc starts at once and each one's
+        # own seconds are known
+        with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+            done = list(pool.map(compile_one, srcs))
+        logs = [f"== {src.name}\n{run.stdout}" for src, _o, run, _t in done]
+        failed = [src.name for src, _o, run, _t in done if run.returncode]
         if failed:
             raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                                + "\n".join(logs))
         link = subprocess.run(
             [nvcc, *ARCH, "-shared", "-o", str(tmp / LIB_NAME),
-             *[str(o) for _s, o, _p in procs]],
+             *[str(o) for _s, o, _r, _t in done]],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError("nvcc link failed:\n" + link.stdout)
@@ -186,7 +193,8 @@ def build() -> Path:
         if tmp.exists():
             shutil.rmtree(tmp, ignore_errors=True)
     build_info.update(seconds=time.perf_counter() - t0, cached=False,
-                      dir=str(out_dir), ptxas=_read(out_dir / "ptxas.log"))
+                      dir=str(out_dir), ptxas=_read(out_dir / "ptxas.log"),
+                      source_seconds={src.name: t for src, _o, _r, t in done})
     return lib
 
 
@@ -232,16 +240,3 @@ def pool_code(dtype) -> int:
         raise TypeError(f"KV pools are float32, bfloat16, int8 or "
                         f"float8_e4m3fn, not {name}")
     return POOL_CODES[name]
-
-
-def check_head_dim(d: int, form: str, d256_forms) -> None:
-    """Raise NotImplementedError for ``form`` at head_dim 256 unless it is
-    one of ``d256_forms``: at Gemma's D the kernels take the forms over
-    bf16/f32 and INT8 KV (decode and verify rows, windows, the soft cap,
-    the quantizing writes and fused qkv included); the e4m3 forms take D
-    32, 64 and 128. The wrappers call it for CPU and CUDA tensors alike, so
-    a form outside the slice raises on both."""
-    if d == 256 and form not in d256_forms:
-        took = ", ".join(d256_forms) or "none of its module's forms"
-        raise NotImplementedError(
-            f"head_dim 256 in {form} (at D 256 the kernels take {took})")

@@ -32,10 +32,10 @@ card ``paged_append_decode``/``_span``/``_prefill`` hand e4m3 pools to
 their wrappers of the form's name (``*_fp8kv``), each with its launch
 count.
 
-Head dims: every form takes D 32-256 but the e4m3 ones, which take D <=
-128 (at D 256 they raise). The quantizing forms at D 256 (Gemma over INT8
-KV; a warp holds a row's 256 values, 8 a lane) also count their launches
-in :data:`D256_LAUNCHES`.
+Head dims: every form takes D 32-256. The quantizing forms at D 256
+(Gemma over INT8 KV; a warp holds a row's 256 values, 8 a lane) and the
+e4m3 forms there (Gemma over FP8 KV: a row is 32 groups of 8 codes) also
+count their launches in :data:`D256_LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -47,10 +47,13 @@ from simplellminference_tpu_torch.ops import cuda_build
 from simplellminference_tpu_torch.ops.ref_ops import E4M3, to_e4m3
 
 SPAN_MAX = 8   # rows a span writes per sequence (the JAX kernel's _ROWS)
-# the quantizing forms' launches at head_dim 256 (each also in its
-# ``launches``)
+# the quantizing and e4m3 forms' launches at head_dim 256 (each also in
+# its ``launches``)
 D256_LAUNCHES = {"paged_append_decode_quant": 0,
-                 "paged_append_prefill_quant": 0}
+                 "paged_append_prefill_quant": 0,
+                 "paged_append_decode_fp8kv": 0,
+                 "paged_append_prefill_fp8kv": 0,
+                 "paged_append_span_fp8kv": 0}
 
 
 def _stored(pool):
@@ -454,8 +457,6 @@ def paged_append_decode_fp8kv(pool_k, pool_v, new_k, new_v, tables,
     """1e: :func:`paged_append_decode` into float8_e4m3fn pools, each
     element converted from new_k/v's dtype (bf16 or f32) with the JAX
     package's rounding in the kernel. Returns (pool_k, pool_v)."""
-    cuda_build.check_head_dim(pool_k.shape[-1],
-                              "paged_append_decode_fp8kv", ())
     if not pool_k.is_cuda:
         return paged_append_decode_ref(pool_k, pool_v, new_k, new_v, tables,
                                        positions, layer)
@@ -468,6 +469,7 @@ def paged_append_decode_fp8kv(pool_k, pool_v, new_k, new_v, tables,
                  nv[:, None], tables, positions, layer, 1,
                  "paged_append_decode_fp8kv")
     paged_append_decode_fp8kv.launches += 1
+    D256_LAUNCHES["paged_append_decode_fp8kv"] += int(d == 256)
     return pool_k, pool_v
 
 
@@ -494,6 +496,7 @@ def paged_append_span_fp8kv(pool_k, pool_v, new_k, new_v, tables, positions,
     _launch_e4m3("sli_paged_append_span_e4m3", pool_k, pool_v, nk, nv,
                  tables, positions, layer, t, "paged_append_span_fp8kv")
     paged_append_span_fp8kv.launches += 1
+    D256_LAUNCHES["paged_append_span_fp8kv"] += int(d == 256)
     return pool_k, pool_v
 
 
@@ -505,8 +508,6 @@ def paged_append_prefill_fp8kv(pool_k, pool_v, new_k, new_v, tables,
     """2e: :func:`paged_append_prefill` into float8_e4m3fn pools, converted
     in the kernel; rows past S in the last page get code 0. Returns
     (pool_k, pool_v)."""
-    cuda_build.check_head_dim(pool_k.shape[-1],
-                              "paged_append_prefill_fp8kv", ())
     if not pool_k.is_cuda:
         return paged_append_prefill_ref(pool_k, pool_v, new_k, new_v, tables,
                                         layer)
@@ -519,6 +520,7 @@ def paged_append_prefill_fp8kv(pool_k, pool_v, new_k, new_v, tables,
     _launch_e4m3("sli_paged_append_prefill_e4m3", pool_k, pool_v, nk, nv,
                  tables, None, layer, s, "paged_append_prefill_fp8kv")
     paged_append_prefill_fp8kv.launches += 1
+    D256_LAUNCHES["paged_append_prefill_fp8kv"] += int(d == 256)
     return pool_k, pool_v
 
 

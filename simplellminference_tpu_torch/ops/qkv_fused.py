@@ -42,9 +42,12 @@ kernel rounds its f32 rows into slabs of the pool dtype
 :func:`fused_qkv_append_fp8kv` (6e), with its own launch count. The pool
 dtype goes to the kernels as its own code (``cuda_build.pool_code``),
 apart from the activation dtype. With a ``kv_layer`` (6ek: the grouped
-engine's e4m3 ring pools, D <= 128) it is the same wrapper, its launches
-with a kv_layer also in :data:`KV_LAYER_LAUNCHES`; e4m3 pools on the dense
-arena raise.
+engine's e4m3 ring pools) it is the same wrapper, its launches with a
+kv_layer also in :data:`KV_LAYER_LAUNCHES`; e4m3 pools on the dense arena
+raise. At head_dim 256 (Gemma over FP8 KV, 6e/256 and 6ek/256) a head's
+columns lie in two column blocks, as for 6q/256, but each element rounds
+to e4m3 on its own, so each block writes the codes of its own columns and
+no further launch is needed.
 
 Pools are [L, P+1, kvN, ps, D] and are written in place; an unmapped (-1)
 page, or a position past the table, writes to the trash page (the last
@@ -87,19 +90,17 @@ from simplellminference_tpu_torch.ops.ref_ops import E4M3
 
 MAX_ROWS = 64
 HEAD_DIMS = (32, 64, 128, 256)
-# the forms that take head_dim 256 (Gemma): paged and dense over bf16/f32
-# KV, the kv_layer form (6k: Gemma-2's ring pools) over bf16/f32 KV, and
-# the quantizing form (6q: INT8 KV, with or without a kv_layer)
-D256_FORMS = ("fused_qkv_append", "fused_qkv_append_dense",
-              "fused_qkv_append_kv_layer", "fused_qkv_append_int8kv")
 # launches of each regime at head_dim 256, the forms together (each also
 # counts in QKV_REGIME_LAUNCHES), and there of the kv_layer form (6k:
-# Gemma-2's grouped pools) and of the quantizing form (6q/256), those of
-# it with a kv_layer (INT8 ring pools) apart too
+# Gemma-2's grouped pools), of the quantizing form (6q/256) and of the
+# FP8-KV form (6e/256), those of the last two with a kv_layer (INT8 and
+# e4m3 ring pools) apart too
 D256_LAUNCHES = {"mma": 0, "fma": 0}
 D256_FORM_LAUNCHES = {"fused_qkv_append_kv_layer": 0,
                       "fused_qkv_append_int8kv": 0,
-                      "fused_qkv_append_int8kv_kv_layer": 0}
+                      "fused_qkv_append_int8kv_kv_layer": 0,
+                      "fused_qkv_append_fp8kv": 0,
+                      "fused_qkv_append_fp8kv_kv_layer": 0}
 # launches of the FP8-KV form with a kv_layer (6ek: e4m3 ring pools), each
 # also in the form's own count
 KV_LAYER_LAUNCHES = {"fused_qkv_append_fp8kv": 0}
@@ -152,11 +153,6 @@ def _check(x, pool_k, pool_v, tables, cache_ks, cache_vs, kv_layer,
                                   "a dense KV arena (tables=None)")
     if x.ndim != 2:
         raise ValueError(f"x must be [B, H], got {tuple(x.shape)}")
-    form = ("fused_qkv_append_int8kv" if cache_ks is not None
-            else "fused_qkv_append_fp8kv" if pool_k.dtype == E4M3
-            else "fused_qkv_append_kv_layer" if kv_layer is not None
-            and tables is not None else "fused_qkv_append")
-    cuda_build.check_head_dim(pool_k.shape[-1], form, D256_FORMS)
     if cache_ks is None and cache_vs is None:
         return False
     check_scale_pools(pool_k, pool_v, cache_ks, cache_vs)
@@ -318,6 +314,10 @@ def fused_qkv_append_fp8kv(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
                 "fused_qkv_append_fp8kv")
     fused_qkv_append_fp8kv.launches += 1
     KV_LAYER_LAUNCHES["fused_qkv_append_fp8kv"] += int(kv_layer is not None)
+    if pool_k.shape[-1] == 256:
+        D256_FORM_LAUNCHES["fused_qkv_append_fp8kv"] += 1
+        D256_FORM_LAUNCHES["fused_qkv_append_fp8kv_kv_layer"] += int(
+            kv_layer is not None)
     return q, pool_k, pool_v
 
 

@@ -218,13 +218,27 @@ def test_unsupported_engine_features_raise(model, kw, feature):
     base = dict(prefix_cache_entries=0)
     base.update(kw)
     if feature == "FP8 KV":
-        # FP8 KV serves, with sliding windows too
-        # (tests/test_torch_fp8kv_engine.py); with the attention soft cap
-        # it is not ported and raises at the first attention
+        # FP8 KV serves, with sliding windows (tests/test_torch_fp8kv_
+        # engine.py) and the attention soft cap over e4m3 pools too
+        # (tests/test_torch_fp8kv_gemma.py): a capped model over FP8 KV
+        # runs, and its greedy tokens and logprobs are the JAX Engine's
+        jcfg = dataclasses.replace(_jcfg, attn_logit_softcap=30.0)
         cfg = dataclasses.replace(cfg, attn_logit_softcap=30.0)
         eng = Engine(cfg, tp, EngineConfig(**base), device="cpu")
-        with pytest.raises(NotImplementedError, match=feature):
-            eng.generate([[1, 2, 3]], SamplingParams(max_new_tokens=2))
+        with pytest.warns(RuntimeWarning, match="v5e"):
+            je = JaxEngine(jcfg, _jp, JaxEngineConfig(
+                prefix_cache_entries=0, kv=JaxKVConfig(kv_dtype="fp8")))
+        samp = dict(max_new_tokens=4)
+        got = eng.add_request(prompt_ids=[1, 2, 3],
+                              sampling=SamplingParams(**samp))
+        want = je.add_request(prompt_ids=[1, 2, 3],
+                              sampling=JaxSampling(**samp))
+        eng.run()
+        je.run()
+        assert eng.cache.k.dtype == torch.float8_e4m3fn
+        assert got.output_ids == want.output_ids and len(got.output_ids) == 4
+        np.testing.assert_allclose(got.output_logprobs, want.output_logprobs,
+                                   rtol=1e-2, atol=1e-2)
         return
     with pytest.raises(NotImplementedError, match=feature):
         Engine(cfg, tp, EngineConfig(**base), device="cpu")

@@ -538,21 +538,51 @@ def test_forms_outside_the_slice_raise_at_d256():
     ws = torch.ones((2, 1, 10 * D))
     sin, cos = tref.rope_tables(kv, D, 10000.0)
     qkv = (x, torch.ones(2, 64), wq, ws, sin, cos)
-    # the e4m3 forms take D 32-128
-    calls = {
-        "4e": lambda: tpd.paged_flash_decode(q1, ek, ev, tables, kv, 0),
-        "4ve": lambda: tpd.paged_flash_verify(q3, ek, ev, tables, kv, 0),
-        "8e": lambda: tpp.paged_flash_prefill(q3, ek, ev, tables, kv, offs,
-                                              0),
-        "6e": lambda: tqkv.fused_qkv_append(
-            *qkv, ek, ev, 0, offs, n_heads=8, kv_heads=1, tables=tables),
-        "1e": lambda: tpa.paged_append_decode(ek, ev, nk[:, 0], nk[:, 0],
-                                              tables, offs, 0),
-        "2e": lambda: tpa.paged_append_prefill(ek, ev, nk, nk, tables, 0),
-    }
-    for form, call in calls.items():
-        with pytest.raises(NotImplementedError, match="head_dim 256"):
-            call()
+    # the e4m3 forms run at D 256 since Gemma's FP8-KV slice (these calls
+    # raised before it): 4e and 8e match JAX's kernels, 1e and 2e write
+    # JAX's bytes, 6e writes finite codes (every form's values at D 256:
+    # tests/test_torch_fp8kv_gemma.py)
+    def j_e4(x):
+        return jnp.asarray(x.view(torch.uint8).numpy()).view(
+            jnp.float8_e4m3fn)
+
+    jk, jv, jt = j_e4(ek), j_e4(ev), jnp.asarray(tables.numpy())
+    jl, jo = jnp.asarray(kv.numpy()), jnp.asarray(offs.numpy())
+    np.testing.assert_allclose(
+        tpd.paged_flash_decode(q1, ek, ev, tables, kv, 0).numpy(),
+        np.asarray(jpaged_decode(jnp.asarray(q1.numpy()), jk, jv, jt, jl,
+                                 interpret=True, layer=jnp.int32(0))),
+        rtol=1e-5, atol=1e-5)
+    got = tpp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0).numpy()
+    want = np.asarray(jpaged_prefill(jnp.asarray(q3.numpy()), jk, jv, jt, jl,
+                                     jo, bq=3, interpret=True,
+                                     layer=jnp.int32(0)))
+    for i, ln in enumerate(kv.tolist()):
+        np.testing.assert_allclose(got[i, :min(3, ln)], want[i, :min(3, ln)],
+                                   rtol=1e-5, atol=1e-5)
+    assert bool(torch.isfinite(tpd.paged_flash_verify(q3, ek, ev, tables,
+                                                      kv, 0)).all())
+    pk1, pv1 = ek.clone(), ev.clone()
+    tpa.paged_append_decode(pk1, pv1, nk[:, 0], nk[:, 0], tables, offs, 0)
+    jw = jpkv.write_decode_stacked(jk, jv, jnp.asarray(nk[:, 0].numpy()),
+                                   jnp.asarray(nk[:, 0].numpy()), jt, jo,
+                                   jnp.int32(0))
+    for a, b in zip((pk1, pv1), jw[:2]):
+        np.testing.assert_array_equal(a.view(torch.uint8).numpy()[:, :-1],
+                                      np.asarray(b).view(np.uint8)[:, :-1])
+    pk2, pv2 = ek.clone(), ev.clone()
+    tpa.paged_append_prefill(pk2, pv2, nk, nk, tables, 0)
+    jw = jpkv.write_prefill_stacked(jk, jv, jnp.asarray(nk.numpy()),
+                                    jnp.asarray(nk.numpy()), jt,
+                                    jnp.int32(0))
+    for a, b in zip((pk2, pv2), jw[:2]):
+        np.testing.assert_array_equal(a.view(torch.uint8).numpy()[:, :-1],
+                                      np.asarray(b).view(np.uint8)[:, :-1])
+    pk3, pv3 = ek.clone(), ev.clone()
+    tqkv.fused_qkv_append(*qkv, pk3, pv3, 0, offs, n_heads=8, kv_heads=1,
+                          tables=tables)
+    assert not torch.equal(pk3.view(torch.uint8), ek.view(torch.uint8))
+    assert bool(torch.isfinite(pk3.float()).all())
     # the INT8-KV forms run at D 256 since Gemma's INT8-KV slice (their
     # values: tests/test_torch_int8kv_d256.py)
     runs = {

@@ -2043,12 +2043,13 @@ def test_fused_qkv_append_dense_head_dim_256(cuda, xdt):
 
 
 def test_head_dim_256_forms_outside_the_slice_raise(cuda):
-    # the e4m3 forms take D <= 128 (the window forms 3w, 4w, 8w and 6k run
-    # at D 256 since Gemma-2's slice, the verify forms 4v and 4vw over
-    # pools of q's dtype since its dense slice, the INT8-KV forms since
-    # the INT8-KV slice of Gemma): at D 256 each raises before a launch,
-    # naming the head dim and its form; the INT8-KV forms launch and count
-    # in their module's D256_LAUNCHES
+    # every paged form takes D 256 (the window forms 3w, 4w, 8w and 6k since
+    # Gemma-2's slice, the verify forms 4v and 4vw over pools of q's dtype
+    # since its dense slice, the INT8-KV forms since the INT8-KV slice of
+    # Gemma, the e4m3 forms since its FP8-KV slice: these e4m3 calls raised
+    # before it): each launches, counts in its module's D256_LAUNCHES and,
+    # for the e4m3 forms, matches its plain version (the writes byte for
+    # byte)
     g = torch.Generator(device=cuda).manual_seed(0)
     bf, e4 = torch.bfloat16, torch.float8_e4m3fn
     pk, pv = _pools(g, cuda, bf, kvn=G_KVN, d=G_D)
@@ -2060,17 +2061,45 @@ def test_head_dim_256_forms_outside_the_slice_raise(cuda):
     q3 = torch.randn((3, 3, G_N, G_D), generator=g, device=cuda, dtype=bf)
     offs = torch.zeros(3, dtype=torch.int32, device=cuda)
     nk = torch.randn((3, 4, G_KVN, G_D), generator=g, device=cuda, dtype=bf)
-    calls = [
-        lambda: pd.paged_flash_decode(q1, ek, ev, tables, kv, 0),
-        lambda: pd.paged_flash_verify(q3, ek, ev, tables, kv, 0),
-        lambda: pp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0),
-        lambda: pa.paged_append_decode(ek, ev, nk[:, 0], nk[:, 0], tables,
-                                       offs, 0),
-        lambda: pa.paged_append_prefill(ek, ev, nk, nk, tables, 0),
+    attn = [
+        (pd.D256_LAUNCHES, "paged_flash_decode_fp8kv",
+         lambda: pd.paged_flash_decode(q1, ek, ev, tables, kv, 0),
+         lambda: pd.paged_flash_decode_ref(q1, ek, ev, tables, kv, 0)),
+        (pd.D256_LAUNCHES, "paged_flash_verify_fp8kv",
+         lambda: pd.paged_flash_verify(q3, ek, ev, tables, kv, 0),
+         lambda: pd.paged_flash_verify_ref(q3, ek, ev, tables, kv, 0)),
+        (pp.D256_LAUNCHES, "paged_flash_prefill_fp8kv",
+         lambda: pp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0),
+         lambda: pp.paged_flash_prefill_ref(q3, ek, ev, tables, kv, offs,
+                                            0)),
     ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="head_dim 256"):
-            call()
+    for counts, form, call, plain in attn:
+        before = counts[form]
+        got = call()
+        torch.cuda.synchronize()
+        assert counts[form] == before + 1, form
+        want = plain()
+        live = [i for i in range(3) if int(kv[i]) > 0]
+        assert _close(got[live], want[live], bf), form
+    for counts, form, call in (
+            (pa.D256_LAUNCHES, "paged_append_decode_fp8kv",
+             lambda p: pa.paged_append_decode(*p, nk[:, 0], nk[:, 0], tables,
+                                              offs, 0)),
+            (pa.D256_LAUNCHES, "paged_append_prefill_fp8kv",
+             lambda p: pa.paged_append_prefill(*p, nk, nk, tables, 0))):
+        a, r = [ek.clone(), ev.clone()], [ek.clone(), ev.clone()]
+        before = counts[form]
+        call(a)
+        torch.cuda.synchronize()
+        assert counts[form] == before + 1, form
+        plain = (pa.paged_append_decode_ref if "decode" in form
+                 else pa.paged_append_prefill_ref)
+        if "decode" in form:
+            plain(*r, nk[:, 0], nk[:, 0], tables, offs, 0)
+        else:
+            plain(*r, nk, nk, tables, 0)
+        for x, y in zip(a, r):
+            assert _bytes_equal(x[:, :-1], y[:, :-1]), form
     runs = [
         (pd.D256_LAUNCHES, "paged_flash_decode_int8kv",
          lambda: pd.paged_flash_decode(q1, qk, qv, tables, kv, 0,
@@ -2248,11 +2277,12 @@ def test_fused_qkv_append_kv_layer_head_dim_256(cuda, xdt, pdt, b):
 
 
 def test_softcap_forms_outside_the_slice_raise(cuda):
-    # the cap over e4m3 pools (decode, verify and prefill) raises before
-    # any launch; over INT8 pools (4qc, 4vqc, 8qc) it launches and counts
-    # in CAP_LAUNCHES under the INT8-KV form's name (on verify rows and on
-    # the dense arena over pools of q's dtype it runs since Gemma-2's
-    # dense slice)
+    # the cap over every pool dtype launches: over e4m3 pools (4ec, 4vec,
+    # 8ec, which raised before Gemma's FP8-KV slice) it counts in
+    # CAP_LAUNCHES under the FP8-KV form's name and matches its plain
+    # version; over INT8 pools (4qc, 4vqc, 8qc) under the INT8-KV form's
+    # (on verify rows and on the dense arena over pools of q's dtype it
+    # runs since Gemma-2's dense slice)
     g = torch.Generator(device=cuda).manual_seed(1)
     bf, e4 = torch.bfloat16, torch.float8_e4m3fn
     pk, pv = _pools(g, cuda, bf, kvn=2, d=64)
@@ -2260,23 +2290,31 @@ def test_softcap_forms_outside_the_slice_raise(cuda):
     ek, ev = pk.to(e4), pv.to(e4)
     tables, kv = _tables(cuda), torch.tensor([5, 9, 0], dtype=torch.int32,
                                              device=cuda)
-    q1 = torch.randn((3, 4, 64), generator=g, device=cuda, dtype=bf)
-    q3 = torch.randn((3, 3, 4, 64), generator=g, device=cuda, dtype=bf)
+    q1 = torch.randn((3, 4, 64), generator=g, device=cuda, dtype=bf) * 40
+    q3 = torch.randn((3, 3, 4, 64), generator=g, device=cuda, dtype=bf) * 40
     offs = torch.zeros(3, dtype=torch.int32, device=cuda)
     cap = dict(logit_cap=G2_CAP)
-    calls = [
-        lambda: pd.paged_flash_decode(q1, ek, ev, tables, kv, 0, **cap),
-        lambda: pd.paged_flash_verify(q3, ek, ev, tables, kv, 0, **cap),
-        lambda: pp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0,
-                                       **cap),
+    e4_runs = [
+        ("paged_flash_decode_fp8kv",
+         lambda: pd.paged_flash_decode(q1, ek, ev, tables, kv, 0, **cap),
+         lambda: pd.paged_flash_decode_ref(q1, ek, ev, tables, kv, 0, **cap)),
+        ("paged_flash_verify_fp8kv",
+         lambda: pd.paged_flash_verify(q3, ek, ev, tables, kv, 0, **cap),
+         lambda: pd.paged_flash_verify_ref(q3, ek, ev, tables, kv, 0,
+                                           **cap)),
+        ("paged_flash_prefill_fp8kv",
+         lambda: pp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0,
+                                        **cap),
+         lambda: pp.paged_flash_prefill_ref(q3, ek, ev, tables, kv, offs, 0,
+                                            **cap)),
     ]
-    forms = (pd.paged_flash_decode_fp8kv, pd.paged_flash_verify_fp8kv,
-             pp.paged_flash_prefill_fp8kv)
-    before = ([f.launches for f in forms], dict(fp.CAP_LAUNCHES))
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="soft cap"):
-            call()
-    assert before == ([f.launches for f in forms], dict(fp.CAP_LAUNCHES))
+    for form, call, plain in e4_runs:
+        n = fp.CAP_LAUNCHES.get((form, 64), 0)
+        got = call()
+        torch.cuda.synchronize()
+        assert fp.CAP_LAUNCHES[form, 64] == n + 1, form
+        want = plain()
+        assert _close(got[:2], want[:2], bf), form
     runs = [
         ("paged_flash_decode_int8kv",
          lambda: pd.paged_flash_decode(q1, qk, qv, tables, kv, 0, k_scale=ks,
@@ -3217,3 +3255,234 @@ def test_fused_qkv_append_fp8kv_kv_layer(cuda, xdt):
         assert _bytes_equal(x_a[~written], x_r[~written])
         assert int((_ordinal(x_a[written]) - _ordinal(x_r[written])).abs()
                    .max()) <= 1
+
+
+# ---------------- Gemma over FP8 KV: the cap over e4m3 pools, D 256
+# Gemma-2-2B (8 q heads over 4 kv heads of 256, cap 50, window 4096) and
+# Gemma-1 (8 over one kv head of 256) over e4m3 pools: 4ec/4ewc, 4vec/
+# 4vewc, 8ec/8ewc past the cap (q x 40), the uncapped e4m3 forms at D 256
+# (4e, 4ew, 4ve, 4vew, 8e, 8ew /256), and D 128 capped; window cases over
+# ring tables whose columns below the band point at pages of code 0x7f
+# (NaN in e4m3fn); the writes 1e, 2e, 11e and the fused qkv 6e/6ek at
+# D 256 byte for byte.
+
+GEMMA_FP8 = {  # name: (n, kvn, d, cap)
+    "gemma2": (G2_N, G2_KVN, 256, G2_CAP),
+    "gemma": (G_N, G_KVN, G_D, None),
+    "d128": (32, 8, 128, G2_CAP),
+}
+
+
+def _count(form, d, cap):
+    """A form's launches, its D-256 launches and its capped ones at d."""
+    counts = pp.D256_LAUNCHES if "prefill" in form else pd.D256_LAUNCHES
+    return (counts[form], fp.CAP_LAUNCHES.get((form, d), 0)) if cap else (
+        counts[form], 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 4096, 100],
+                         ids=["plain", "window", "window-100"])
+@pytest.mark.parametrize("case", list(GEMMA_FP8))
+def test_paged_flash_decode_fp8kv_gemma(cuda, dtype, window, case):
+    # 4ec/4ewc (D 256 and 128) and 4e/4ew at D 256: kv_len 0, 1, a tile
+    # edge, the window-100 edges, 4096 and past the window (split walks);
+    # a dead slot
+    n, kvn, d, cap = GEMMA_FP8[case]
+    g = torch.Generator(device=cuda).manual_seed(
+        list(GEMMA_FP8).index(case) + 71)
+    lens = [0, 1, 64, 100, 101, 4096, 4300, 3]
+    b, ps = len(lens), 128
+    mp = 4352 // ps
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q = torch.randn((b, n, d), generator=g, device=cuda, dtype=dtype) * (
+        40.0 if cap else 1.0)
+    (pk, pv), clean, dirty = _fp8_tables(g, cuda, "decode", b, 1, window,
+                                         kv, mp, kvn, d, ps)
+    form = ("paged_flash_decode_fp8kv_window" if window
+            else "paged_flash_decode_fp8kv")
+    before = (getattr(pd, form).launches, _count(form, d, cap))
+    got = pd.paged_flash_decode(q, pk, pv, dirty, kv, 1, window=window,
+                                logit_cap=cap)
+    after = (getattr(pd, form).launches, _count(form, d, cap))
+    assert after[0] == before[0] + 1
+    assert after[1][0] == before[1][0] + (d == 256)
+    assert after[1][1] == before[1][1] + bool(cap)
+    want = pd.paged_flash_decode_ref(q, pk, pv, clean, kv, 1, window=window,
+                                     logit_cap=cap)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    assert _close(got, want, dtype)
+    assert not got[0].any()
+    if window:
+        assert torch.equal(got, pd.paged_flash_decode(
+            q, pk, pv, clean, kv, 1, window=window, logit_cap=cap))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 4096, 100],
+                         ids=["plain", "window", "window-100"])
+@pytest.mark.parametrize("case", list(GEMMA_FP8))
+def test_paged_flash_verify_fp8kv_gemma(cuda, dtype, window, case):
+    # 4vec/4vewc and 4ve/4vew at D 256, S 5: Gemma-1's group of 8 x 5 rows
+    # takes two row blocks; kv_len 0, 1, 5, 105, 4096 and past the window;
+    # a dead slot
+    n, kvn, d, cap = GEMMA_FP8[case]
+    g = torch.Generator(device=cuda).manual_seed(
+        list(GEMMA_FP8).index(case) + 81)
+    lens = [0, 1, 5, 105, 4096, 4300, 3]
+    b, s, ps = len(lens), 5, 128
+    mp = 4352 // ps
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q = torch.randn((b, s, n, d), generator=g, device=cuda, dtype=dtype) * (
+        40.0 if cap else 1.0)
+    (pk, pv), clean, dirty = _fp8_tables(g, cuda, "verify", b, s, window,
+                                         kv, mp, kvn, d, ps)
+    form = ("paged_flash_verify_fp8kv_window" if window
+            else "paged_flash_verify_fp8kv")
+    before = (getattr(pd, form).launches, _count(form, d, cap))
+    got = pd.paged_flash_verify(q, pk, pv, dirty, kv, 1, window=window,
+                                logit_cap=cap)
+    after = (getattr(pd, form).launches, _count(form, d, cap))
+    assert after[0] == before[0] + 1
+    assert after[1] == (before[1][0] + (d == 256), before[1][1] + bool(cap))
+    want = pd.paged_flash_verify_ref(q, pk, pv, clean, kv, 1, window=window,
+                                     logit_cap=cap)
+    assert bool(torch.isfinite(got).all())
+    for i, ln in enumerate(lens):
+        live = [r for r in range(s) if ln - s + r >= 0]
+        if live:
+            assert _close(got[i, live], want[i, live], dtype)
+        assert not got[i, [r for r in range(s) if r not in live]].any()
+    if case == "gemma":
+        assert pd.row_blocks((n // kvn) * s) == 2
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 4096, 100],
+                         ids=["plain", "window", "window-100"])
+@pytest.mark.parametrize("case", list(GEMMA_FP8))
+def test_paged_flash_prefill_fp8kv_gemma(cuda, dtype, window, case):
+    # 8ec/8ewc and 8e/8ew at D 256: a 256-row chunk at offset 256, 64 rows
+    # at offset 4096 (bf16: a split key walk) with a ragged row and a
+    # padding row (-1 table, kv_len 1)
+    n, kvn, d, cap = GEMMA_FP8[case]
+    g = torch.Generator(device=cuda).manual_seed(
+        list(GEMMA_FP8).index(case) + 91)
+    ps = 128
+    form = ("paged_flash_prefill_fp8kv_window" if window
+            else "paged_flash_prefill_fp8kv")
+    for sq, offs, lens in ((256, [256], [512]),
+                           (64, [4096, 0, 0], [4160, 37, 1])):
+        b = len(offs)
+        mp = -(-max(o + sq for o in offs) // ps)
+        off_t = torch.tensor(offs, dtype=torch.int32, device=cuda)
+        kv_t = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        (pk, pv), clean, dirty = _fp8_tables(g, cuda, "prefill", b, sq,
+                                             window, off_t, mp, kvn, d, ps)
+        if b > 2:
+            clean[2] = -1
+            dirty[2] = -1
+        q = torch.randn((b, sq, n, d), generator=g, device=cuda,
+                        dtype=dtype) * (40.0 if cap else 1.0)
+        before = (getattr(pp, form).launches, _count(form, d, cap))
+        got = pp.paged_flash_prefill(q, pk, pv, dirty, kv_t, off_t, 1,
+                                     window=window, logit_cap=cap)
+        after = (getattr(pp, form).launches, _count(form, d, cap))
+        assert after[0] == before[0] + 1
+        assert after[1] == (before[1][0] + (d == 256),
+                            before[1][1] + bool(cap))
+        want = pp.paged_flash_prefill_ref(q, pk, pv, clean, kv_t, off_t, 1,
+                                          window=window, logit_cap=cap)
+        assert bool(torch.isfinite(got).all())
+        for i in range(b):
+            valid = max(0, min(sq, lens[i] - offs[i]))
+            assert _attn_ok(got[i, :valid], want[i, :valid]), (sq, i)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_append_fp8kv_head_dim_256(cuda, dtype):
+    # 1e, 2e and 11e at Gemma-2-2B's 4 kv heads of 256: 8 decode rows, 8 x
+    # 128 prompt rows and a ragged batch, spans of 5 across a page; rows
+    # past 464 (NaN codes) too; byte for byte
+    g = torch.Generator(device=cuda).manual_seed(101)
+    kvn, d, ps, b = G2_KVN, 256, 128, 8
+    pools = _e4m3_pools(g, cuda, b=b, kvn=kvn, ps=ps, d=d, mp=3)
+    tables = torch.randperm(b * 3, generator=g, device=cuda).to(
+        torch.int32).reshape(b, 3)
+    tables[-1, 1:] = -1
+
+    def rows(*shape):
+        return (torch.randn(shape, generator=g, device=cuda) * 200).to(dtype)
+
+    pos = (120 + 3 * torch.arange(b, device=cuda)).to(torch.int32)
+    cases = [
+        ("paged_append_decode_fp8kv", (rows(b, kvn, d), rows(b, kvn, d),
+                                       tables, pos, 1),
+         pa.paged_append_decode, pa.paged_append_decode_ref),
+        ("paged_append_prefill_fp8kv", (rows(b, 128, kvn, d),
+                                        rows(b, 128, kvn, d), tables, 0),
+         pa.paged_append_prefill, pa.paged_append_prefill_ref),
+        ("paged_append_prefill_fp8kv", (rows(3, 100, kvn, d),
+                                        rows(3, 100, kvn, d), tables[:3], 1),
+         pa.paged_append_prefill, pa.paged_append_prefill_ref),
+        ("paged_append_span_fp8kv", (rows(b, 5, kvn, d), rows(b, 5, kvn, d),
+                                     tables, pos, 0),
+         pa.paged_append_span, pa.paged_append_span_ref),
+    ]
+    for form, args, kern, plain in cases:
+        a, r = [p.clone() for p in pools], [p.clone() for p in pools]
+        before = (getattr(pa, form).launches, pa.D256_LAUNCHES[form])
+        kern(*a, *args)
+        torch.cuda.synchronize()
+        assert (getattr(pa, form).launches, pa.D256_LAUNCHES[form]) == (
+            before[0] + 1, before[1] + 1), form
+        plain(*r, *args)
+        for x, y in zip(a, r):
+            assert _bytes_equal(x[:, :-1], y[:, :-1]), form
+        assert (a[0].view(torch.uint8) & 0x7F == 0x7F).any()   # NaN codes
+
+
+@pytest.mark.parametrize("xdt", DTYPES)
+@pytest.mark.parametrize("case", ["gemma", "gemma2-kv_layer"])
+def test_fused_qkv_append_fp8kv_head_dim_256(cuda, xdt, case):
+    # 6e/256 at Gemma-2B (H 2048, 8 q heads over one kv head) and 6ek/256
+    # at Gemma-2-2B (H 2304, 8 over 4, e4m3 ring pools at kv_layer 0): bf16
+    # rows take 6m, f32 ones the FMA kernel; a head's columns lie in two
+    # blocks, each writing its own codes: the pools byte for byte against
+    # the plain version, k/v past 464 (NaN codes) too
+    g = torch.Generator(device=cuda).manual_seed(111)
+    n, kvn, h, kv_layer = ((G_N, G_KVN, 2048, None) if case == "gemma"
+                           else (G2_N, G2_KVN, 2304, 0))
+    d, ps, b, r = 256, 128, 8, 3
+    nq = (n + 2 * kvn) * d
+    wq, ws = _qw(g, cuda, (2, h, nq), 1)
+    ws = ws * 30
+    nw = torch.rand((2, h), generator=g, device=cuda).to(xdt) + 0.5
+    x = torch.randn((b, h), generator=g, device=cuda).to(xdt)
+    pos = (4200 + 37 * torch.arange(b, device=cuda)).to(torch.int32)
+    pools, ring = _e4m3_ring(g, cuda, b, r, 40, kvn, d, ps)
+    sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
+    a, rf = [p.clone() for p in pools], [p.clone() for p in pools]
+    before = (qf.fused_qkv_append_fp8kv.launches,
+              dict(qf.D256_FORM_LAUNCHES))
+    qa, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, a[0], a[1], 1,
+                                 pos, n_heads=n, kv_heads=kvn, tables=ring,
+                                 kv_layer=kv_layer)
+    torch.cuda.synchronize()
+    assert qf.fused_qkv_append_fp8kv.launches == before[0] + 1
+    assert qf.D256_FORM_LAUNCHES["fused_qkv_append_fp8kv"] == before[1][
+        "fused_qkv_append_fp8kv"] + 1
+    assert qf.D256_FORM_LAUNCHES["fused_qkv_append_fp8kv_kv_layer"] == (
+        before[1]["fused_qkv_append_fp8kv_kv_layer"]
+        + (kv_layer is not None))
+    qr, *_ = qf.fused_qkv_append_ref(x, nw, wq, ws, sin, cos, rf[0], rf[1],
+                                     1, pos, n_heads=n, kv_heads=kvn,
+                                     tables=ring, kv_layer=kv_layer)
+    tol = 1e-5 if xdt == torch.float32 else 2e-2
+    assert float((qa.float() - qr.float()).abs().max()) <= tol * float(
+        qr.float().std())
+    for x_a, x_r in zip(a, rf):
+        assert _bytes_equal(x_a[:, :-1], x_r[:, :-1])
+    kli = 1 if kv_layer is None else kv_layer
+    pages = ring[torch.arange(b, device=cuda), pos.long() // ps].long()
+    assert (a[0].view(torch.uint8)[kli, pages] & 0x7F == 0x7F).any()

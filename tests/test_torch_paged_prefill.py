@@ -121,9 +121,10 @@ def test_plain_matches_jax_dispatch_any_sq(s, offs, lens):
 
 
 @pytest.mark.parametrize("kw,feature,fp8", [
-    # the cap runs over pools of q's dtype and INT8 pools
-    # (tests/test_torch_softcap.py, tests/test_torch_int8kv_sinks_cap.py),
-    # not over e4m3 pools, with or without a window
+    # the cap runs over every pool dtype, with or without a window (over
+    # e4m3 pools since Gemma's FP8-KV slice: 8ec, 8ewc; at D 256 too:
+    # tests/test_torch_fp8kv_gemma.py), so these two cases, which raised
+    # before it, now hold the port to the JAX kernel over e4m3 pools
     (dict(window=16, logit_cap=30.0), "FP8 KV", True),
     (dict(logit_cap=30.0), "soft cap", True),
     # sinks run over every pool dtype at head_dim 32-128 (8s, 8ws, 8qs,
@@ -145,9 +146,21 @@ def test_unported_options_raise(kw, feature, fp8):
         pv = t(pv).to(torch.float8_e4m3fn)
     else:
         pk, pv = t(pk), t(pv)
-    with pytest.raises(NotImplementedError, match=feature):
-        paged_flash_prefill(t(q), pk, pv, t(tables), t(kv), t(offs), 0,
-                            **kw)
+    if "logit_cap" in kw:
+        # q x 8: scores several times past the cap
+        got = paged_flash_prefill(t(q * 8), pk, pv, t(tables), t(kv),
+                                  t(offs), 0, **kw)
+        jk, jv = (jnp.asarray(x.view(torch.uint8).numpy()).view(
+            jnp.float8_e4m3fn) for x in (pk, pv))
+        want = jax_paged_flash_prefill(
+            jnp.asarray(q * 8), jk, jv, jnp.asarray(tables), jnp.asarray(kv),
+            jnp.asarray(offs), bq=16, interpret=True, layer=jnp.int32(0),
+            **kw)
+        _valid_close(got, want, kv, offs)
+    else:
+        with pytest.raises(NotImplementedError, match=feature):
+            paged_flash_prefill(t(q), pk, pv, t(tables), t(kv), t(offs), 0,
+                                **kw)
     with pytest.raises(NotImplementedError, match="shared-KV"):
         paged_flash_prefill(t(q), pk, None, t(tables), t(kv), t(offs), 0)
 

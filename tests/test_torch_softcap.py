@@ -35,6 +35,8 @@ from simplellminference_tpu.ops.attention.flash_prefill import (
     flash_prefill as jflash_prefill)
 from simplellminference_tpu.ops.attention.paged_decode import (
     paged_flash_decode as jpaged_decode)
+from simplellminference_tpu.ops.attention.paged_decode import (
+    paged_flash_verify as jpaged_verify)
 from simplellminference_tpu.ops.attention.paged_prefill import (
     paged_flash_prefill as jpaged_prefill)
 from simplellminference_tpu_torch.core.config import ModelConfig
@@ -279,13 +281,29 @@ def test_forms_outside_the_slice_raise(d):
              q3.shape)):
         out = fn()
         assert out.shape == want and bool(torch.isfinite(out).all())
-    calls = {
-        "over FP8 KV": [
-            lambda: tpd.paged_flash_decode(q1, ek, ev, tables, kv, 0, **cap),
-            lambda: tpd.paged_flash_verify(q3, ek, ev, tables, kv, 0, **cap),
-            lambda: tpp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0,
-                                            **cap)],
-    }
+    # the cap over e4m3 pools runs since Gemma's FP8-KV slice (4ec, 4vec,
+    # 8ec; at D 256 too, their values: tests/test_torch_fp8kv_gemma.py):
+    # these calls, which raised before it, match JAX's kernels on the
+    # pools' bytes (rows with keys; rows past kv_len in the prefill are
+    # garbage by contract in JAX's)
+    jk, jv = (jnp.asarray(x.view(torch.uint8).numpy()).view(
+        jnp.float8_e4m3fn) for x in (ek, ev))
+    jkw = dict(interpret=True, layer=jnp.int32(0), logit_cap=CAP)
+    jt, jl = jnp.asarray(tables.numpy()), jnp.asarray(kv.numpy())
+    close(tpd.paged_flash_decode(q1, ek, ev, tables, kv, 0, **cap),
+          jpaged_decode(jnp.asarray(q1.numpy()), jk, jv, jt, jl, **jkw))
+    got = tpd.paged_flash_verify(q3, ek, ev, tables, kv, 0, **cap)
+    want = np.asarray(jpaged_verify(jnp.asarray(q3.numpy()), jk, jv, jt, jl,
+                                    **jkw))
+    for i, ln in enumerate(kv.tolist()):
+        live = [r for r in range(3) if ln - 3 + r >= 0]
+        close(got[i, live], want[i, live])
+    got = tpp.paged_flash_prefill(q3, ek, ev, tables, kv, offs, 0, **cap)
+    want = np.asarray(jpaged_prefill(jnp.asarray(q3.numpy()), jk, jv, jt, jl,
+                                     jnp.asarray(offs.numpy()), bq=3, **jkw))
+    for i, ln in enumerate(kv.tolist()):
+        close(got[i, :min(3, ln)], want[i, :min(3, ln)])
+    calls = {}
     # sinks run over every pool dtype (3s, 4s, 8s, 4vs, 13s, 4qs, 8qs:
     # tests/test_torch_sinks.py; 4es, 4ves: tests/test_torch_fp8kv_sinks_
     # window.py) at D 32-128; at D 256 they raise
