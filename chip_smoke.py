@@ -153,7 +153,17 @@ Phases, in order; any failure exits non-zero:
                 8ew); windows over ring tables with NaN-code pages below
                 the band, kv_len 0, f32; then 1e, 2e, 11e at D 256 byte-
                 equal and 6e/256 (Gemma-2B) and 6ek/256 (Gemma-2-2B's ring
-                pools) in check_fp8kv_d256_writes. Max |error| beside
+                pools) in check_fp8kv_d256_writes; then FP8 KV on the
+                dense arena (check_dense_fp8kv): 12e (kv_append into an
+                e4m3 arena) byte-equal at Llama-2-7B's, Gemma-2-2B's (D
+                256) and gpt-oss-20b's calls, rows past 464 and slots
+                past Smax included; 13e, 13ew, 13ec/256, 13ewc/256, 13es,
+                13ews and 13e/256 by the rounding rule at the three
+                dense paths' decode shapes and Mistral-7B's window, over
+                arenas whose slots past kv_len and below the band hold
+                NaN codes (0x7f), no output moved by them; 6de and
+                6de/256 (6m; f32 rows on the FMA kernel) codes at most one
+                e4m3 step from the plain version's. Max |error| beside
                 its tolerance, kernel / plain / library times from
                 CUDA-graph replay, and the bound (the least time for the
                 bytes and operations of the call on an H100 SXM:
@@ -316,7 +326,17 @@ Phases, in order; any failure exits non-zero:
                 engine: 6ek, 4ec, 4ewc, 2e at D 256) and
                 `gemma2_spec_fp8kv` (--kv-dtype fp8 --spec-tokens 4, bf16,
                 the prefix traffic: 8ec, 8ewc, 4vec, 4vewc, 11e, 2e at D
-                256). Consecutive paths of one model, depth and weights
+                256). FP8 KV on the dense arena, each path right after
+                its bf16-KV twin (sharing its draw) and printing its
+                decode step beside the twin's and its bytes floor, at 4
+                layers: `dense_fp8kv` (bench.py's Generator with
+                --kv-dtype fp8 at Llama-2-7B, INT8 weights: 12e, 6de,
+                13e), `gemma2_dense_fp8kv` (Gemma-2-2B, 4 x 4224-token
+                prompts: 12e/256, 6de/256, 13ec/256, 13ewc/256) and
+                `gpt_oss_dense_fp8kv` (gpt-oss-20b: 12e at every step,
+                13es, 13ews), each with its exact launch counts and its
+                decode steps under sync debug mode "error".
+                Consecutive paths of one model, depth and weights
                 share one draw.
   5. cpu      — the same port at Llama-2-7B width, 1 layer, f32, TF32 off,
                 on the card (kernels) and on the host CPU (plain
@@ -372,7 +392,11 @@ Phases, in order; any failure exits non-zero:
                 rule: 4qs, 4qws, 4qc/256, 4qwc/256 on the card), and
                 gpt-oss-20b over FP8 KV (the FP8-KV rule: 4es, 4ews),
                 and Gemma-2-2B over FP8 KV (the FP8-KV rule: 2e, 1e,
-                4ec, 4ewc at D 256, counted as `gemma2_fp8kv_cpu`).
+                4ec, 4ewc at D 256, counted as `gemma2_fp8kv_cpu`), and
+                its Generator over an e4m3 arena (the window cut to 32;
+                the card carrying on with the CPU's codes, by the FP8-KV
+                rule: 12e/256, 13ec/256, 13ewc/256, counted as
+                `gemma2_dense_fp8kv_cpu`).
 
 Then one line ``{"kernels": [...]}`` (each kernel's launches on every
 path, and in phase 3: kernels 16 and 17 run only there) and, last, the
@@ -858,6 +882,43 @@ KERNELS = {
     "fused_qkv_append_fp8kv_kv_layer_d256": dict(
         source="simplellminference_tpu_torch/csrc/qkv_fused_mma.cu",
         replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
+    # FP8 KV on the dense arena: the e4m3 forms of kernels 12 (12e), 13
+    # (13e, 13ew; capped at D 256, 13ec, 13ewc; with sinks at D 64, 13es,
+    # 13ews) and 6d (6de: the FP8-KV form with tables=None); each D-256,
+    # capped or sink launch also counts in its form's row
+    "kv_append_fp8kv": dict(
+        source="simplellminference_tpu_torch/csrc/paged_append.cu",
+        replaces="simplellminference_tpu/ops/kv_append.py:63"),
+    "kv_append_fp8kv_d256": dict(
+        source="simplellminference_tpu_torch/csrc/paged_append.cu",
+        replaces="simplellminference_tpu/ops/kv_append.py:63"),
+    "flash_decode_fp8kv": dict(
+        source="simplellminference_tpu_torch/csrc/flash_decode_e4m3.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_decode.py:114"),
+    "flash_decode_fp8kv_window": dict(
+        source="simplellminference_tpu_torch/csrc/flash_decode_e4m3.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_decode.py:114"),
+    "flash_decode_fp8kv_d256": dict(
+        source="simplellminference_tpu_torch/csrc/flash_decode_e4m3.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_decode.py:114"),
+    "flash_decode_fp8kv_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/flash_decode_e4m3.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_decode.py:114"),
+    "flash_decode_fp8kv_window_cap_d256": dict(
+        source="simplellminference_tpu_torch/csrc/flash_decode_e4m3.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_decode.py:114"),
+    "flash_decode_fp8kv_sinks": dict(
+        source="simplellminference_tpu_torch/csrc/flash_decode_e4m3.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_decode.py:114"),
+    "flash_decode_fp8kv_window_sinks": dict(
+        source="simplellminference_tpu_torch/csrc/flash_decode_e4m3.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_decode.py:114"),
+    "fused_qkv_append_fp8kv_dense": dict(
+        source="simplellminference_tpu_torch/csrc/qkv_fused_mma.cu",
+        replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
+    "fused_qkv_append_fp8kv_dense_d256": dict(
+        source="simplellminference_tpu_torch/csrc/qkv_fused_mma.cu",
+        replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
     # the last two TPU kernels, dispatched from no path (as in JAX)
     "fused_wo_ffn": dict(
         source="simplellminference_tpu_torch/csrc/wo_ffn.cu",
@@ -901,22 +962,28 @@ KERNELS = {
 # FP8 KV for Gemma-2B (the server's prefix traffic, INT8 weights) and
 # Gemma-2-2B (bench.py --kv-dtype int8 and fp8, and --spec-tokens 4 on the
 # prefix traffic), each FP8-KV path after its INT8-KV twin, whose draw it
-# shares
+# shares; and FP8 KV on the dense arena (bench.py's Generator with
+# --kv-dtype fp8 at Llama-2-7B, Gemma-2-2B and gpt-oss-20b, INT8 weights),
+# each right after its bf16-KV twin, whose draw it shares
 PATHS = ("int8", "bf16", "prefix", "int8kv", "int8kv_prefix", "spec",
          "spec_int8kv", "fp8kv", "fp8kv_prefix", "spec_fp8kv", "dense",
-         "dense_bf16", "draft", "int4", "int4_dense", "w8a8",
+         "dense_fp8kv", "dense_bf16", "draft", "int4", "int4_dense", "w8a8",
          "mistral_window", "gemma", "gemma_prefix", "gemma2",
-         "gemma2_window", "gemma2_dense", "gemma2_spec", "gemma2_draft",
-         "gpt_oss", "gpt_oss_dense", "gpt_oss_int8kv", "gpt_oss_fp8kv",
+         "gemma2_window", "gemma2_dense", "gemma2_dense_fp8kv",
+         "gemma2_spec", "gemma2_draft", "gpt_oss", "gpt_oss_dense",
+         "gpt_oss_dense_fp8kv", "gpt_oss_int8kv", "gpt_oss_fp8kv",
          "gpt_oss_prefix", "gpt_oss_spec", "gpt_oss_spec_int8kv",
          "gpt_oss_spec_fp8kv", "gemma_int8kv_prefix", "gemma_fp8kv_prefix",
          "gemma2_int8kv", "gemma2_fp8kv", "gemma2_spec_int8kv",
          "gemma2_spec_fp8kv")
-# each FP8-KV path of the Gemmas and its INT8-KV twin, whose device step,
-# bytes floor and idle share it prints beside its own
+# each FP8-KV path of the Gemmas and its INT8-KV twin, and each FP8-KV
+# dense path and its bf16-KV twin, whose device step, bytes floor and idle
+# share it prints beside its own
 TWINS = {"gemma_fp8kv_prefix": "gemma_int8kv_prefix",
          "gemma2_fp8kv": "gemma2_int8kv",
-         "gemma2_spec_fp8kv": "gemma2_spec_int8kv"}
+         "gemma2_spec_fp8kv": "gemma2_spec_int8kv",
+         "dense_fp8kv": "dense", "gemma2_dense_fp8kv": "gemma2_dense",
+         "gpt_oss_dense_fp8kv": "gpt_oss_dense"}
 # each path's decode (or verify) step: engine ms, device ms, floor ms,
 # idle share (filled by the serve functions)
 STEPS: dict = {}
@@ -6407,6 +6474,349 @@ def check_fp8kv_d256_writes(torch, dev, results, extra):
         extra.append((row, tag, res))
 
 
+def _e4m3_arena(torch, gen, dev, layers, rows, kvn, smax, d):
+    """An e4m3 dense arena [L, rows, kvN, Smax, D] as the Generator fills
+    it: N(0, 1) K/V rows cast by the plain to_e4m3."""
+    from simplellminference_tpu_torch.ops.ref_ops import to_e4m3
+    shape = (layers, rows, kvn, smax, d)
+    return tuple(to_e4m3(torch.randn(shape, generator=gen, device=dev))
+                 for _ in range(2))
+
+
+def _stale_nan(torch, arenas, layer, lens, window):
+    """Code 0x7f (NaN in e4m3fn) in every slot of ``layer`` a row must
+    not read: past kv_len, and below the band with a window."""
+    smax = arenas[0].shape[3]
+    for a in arenas:
+        u = a.view(torch.uint8)
+        for r, ln in enumerate(lens):
+            u[layer, r, :, max(0, min(ln, smax)):] = 0x7F
+            if window:
+                u[layer, r, :, :max(0, min(ln - window, smax))] = 0x7F
+
+
+def check_dense_fp8kv(torch, dev, results, extra):
+    """FP8 (e4m3) KV on the dense arena: 12e (kv_append into an e4m3
+    arena) byte-equal to its plain version over the whole arena (the
+    dense paths' decode and prefill calls at Llama-2-7B, Gemma-2-2B's D
+    256 and gpt-oss-20b's D 64; f32 rows at and past Smax, dropped; rows
+    past 464: NaN codes); the 13e-forms (13e, 13ew, 13ec, 13ewc, 13es,
+    13ews and 13e/256) by the rounding rule over arenas whose slots past
+    kv_len and below the band hold code 0x7f (NaN), which no form may
+    read: `dense_fp8kv`'s decode (Llama-2-7B, the row), Gemma-2-2B's
+    (`gemma2_dense_fp8kv`: 4 rows over an arena of 4608 slots at kv_len
+    4224-4288, uncapped, capped and windowed), Mistral-7B's window 4096,
+    gpt-oss-20b's sinks (`gpt_oss_dense_fp8kv`: 8 rows over 256 slots;
+    kv_len 4096 with a sink above every score: a split walk), edges
+    (kv_len 0, 1, Smax and past it, the band's edges, past the cap), f32;
+    6de (the dense fused qkv into an e4m3 arena) at Llama-2-7B (8 bf16
+    rows: 6m, the row) and Gemma-2-2B (6de/256, 4 rows), an f32 case on
+    the FMA kernel with a slot at Smax (dropped), its codes at most one
+    e4m3 step from the plain version's (6e's rule: sums in another order
+    may cross a rounding midpoint; the number apart printed) or, past one
+    step, the two values within the dense bf16 form's k/v rule (2e-2 of
+    the written values' standard deviation; f32 rows 1e-5 of their
+    largest): the kernel's rmsnorm may round an element of the normalized
+    row to the next bf16, which moves every output of the row by the same
+    absolute amount, many e4m3 steps of a value near zero; every other
+    byte equal. Each timed case beside
+    its plain version, its bytes bound and the library call (PyTorch's
+    e4m3 cast + index_copy_; scaled_dot_product_attention over the arena
+    cast to q's dtype in the call, uncapped and without sinks;
+    torch._weight_int8pack_mm of the qkv product alone)."""
+    import torch.nn.functional as F
+
+    from simplellminference_tpu_torch.ops import kv_append as ka
+    from simplellminference_tpu_torch.ops import ref_ops
+    from simplellminference_tpu_torch.ops.attention import flash_decode as fd
+    from simplellminference_tpu_torch.ops.attention import paged_decode as pd
+    from simplellminference_tpu_torch.ops.qkv_fused import (
+        fused_qkv_append, fused_qkv_append_ref)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(2525)
+    bf, f32 = torch.bfloat16, torch.float32
+    layer = 1
+    g2 = (GEMMA2["n"], GEMMA2["kvn"], GEMMA2["d"])
+    oss = (GPT_OSS["n"], GPT_OSS["kvn"], GPT_OSS["d"])
+
+    # 12e: tag -> (B, arena rows, S, kvN, D, Smax, row dtype, offsets,
+    # kernels-line row if timed)
+    cases = {
+        "llama2-7b decode": (8, 8, 1, 32, 128, 256, bf,
+                             [128 + 4 * i for i in range(8)],
+                             "kv_append_fp8kv"),
+        "llama2-7b prefill": (8, 8, 128, 32, 128, 256, bf, [0] * 8, None),
+        "gemma-2-2b prefill": (4, 4, 4608, 4, 256, 4608, bf, [0] * 4,
+                               "kv_append_fp8kv_d256"),
+        "gemma-2-2b decode": (4, 4, 1, 4, 256, 4608, bf,
+                              [4224, 4245, 4266, 4607], None),
+        "gpt-oss-20b decode": (8, 8, 1, 8, 64, 256, bf,
+                               [160 + 8 * i for i in range(8)], None),
+        "gqa f32 at/past Smax": (6, 7, 1, 4, 64, 384, f32,
+                                 [0, 383, 384, 390, -1, 100], None),
+        "f32 S=8 past Smax": (3, 5, 8, 4, 64, 384, f32, [3, 380, 500], None),
+    }
+    for tag, (b, rows, s, kvn, d, smax, dtype, offs, row) in cases.items():
+        ck, cv = _e4m3_arena(torch, gen, dev, 2, rows, kvn, smax, d)
+        qkv = torch.randn((b, s, 3 * kvn * d), generator=gen, device=dev,
+                          dtype=dtype) * 300
+        nk = qkv[..., kvn * d:2 * kvn * d].reshape(b, s, kvn, d)
+        nv = qkv[..., 2 * kvn * d:].reshape(b, s, kvn, d)   # strided views
+        off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        a, r = (ck.clone(), cv.clone()), (ck.clone(), cv.clone())
+        ka.kv_append(*a, nk, nv, layer, off)
+        ka.kv_append_ref(*r, nk, nv, layer, off)
+        torch.cuda.synchronize()
+        err = sum(_codes_err(torch, x, y) for x, y in zip(a, r))
+        nan = int((a[0].view(torch.uint8) & 0x7F == 0x7F).sum())
+        print(f"[kernels] kv_append_fp8kv {tag} (B={b} into {rows} rows, "
+              f"S={s}, kvN={kvn}, D={d}, Smax={smax}, "
+              f"{dname(torch, dtype)}): {err} bytes apart (tol 0, "
+              f"byte-equal; whole arena); {nan} NaN codes (rows past 464)",
+              flush=True)
+        require(a[0].dtype == torch.float8_e4m3fn and err == 0 and nan > 0,
+                f"kv_append_fp8kv {tag} disagrees: {err}, NaN codes {nan}")
+        if row is None:
+            continue
+        es = nk.element_size()
+        nbytes = 2 * b * s * kvn * d * (es + 1) + b * 4
+        bms, by = bound_ms(nbytes, 0.0, dname(torch, dtype))
+        slot = off.long()[:, None, None] + torch.arange(s, device=dev)
+        idx = ((torch.arange(b, device=dev)[:, None, None] * kvn
+                + torch.arange(kvn, device=dev)[None, :, None]) * smax
+               + slot).reshape(-1)
+        sk = nk.permute(0, 2, 1, 3).reshape(-1, d)
+        sv = nv.permute(0, 2, 1, 3).reshape(-1, d)
+        fk, fv = (x.view(torch.uint8)[layer].view(-1, d) for x in a)
+
+        def library(fk=fk, fv=fv, idx=idx, sk=sk, sv=sv):
+            fk.index_copy_(0, idx, _cast_lib(torch, sk))
+            fv.index_copy_(0, idx, _cast_lib(torch, sv))
+
+        res = dict(
+            max_abs_err=float(err),
+            ms=time_ms(torch, lambda: ka.kv_append(*a, nk, nv, layer, off)),
+            plain_ms=time_ms(torch, lambda: ka.kv_append_ref(
+                *r, nk, nv, layer, off)),
+            library_ms=time_ms(torch, library), bound_ms=bms, bound_by=by,
+            library=LIBRARY[row])
+        results[row] = res
+        extra.append((row, tag, res))
+        del ck, cv, a, r
+
+    # the 13e-forms: tag -> (heads, Smax, window, cap, sinks (None, "draw"
+    # or "above"), q scale, dtype, lens, kernels-line row if timed)
+    cap = GEMMA2["cap"]
+    g2_lens = [4224, 4245, 4266, 4288]
+    oss_lens = [160 + 8 * i for i in range(8)]
+    oss_edges = [0, 1, 127, 128, 129, 255, 256, 3]
+    cases = {
+        "llama2-7b": ((32, 32, 128), 256, None, None, None, 1.0, bf,
+                      [145 + 2 * i for i in range(8)], "flash_decode_fp8kv"),
+        "llama2-7b edge lens": ((32, 32, 128), 256, None, None, None, 1.0,
+                                bf, [0, 1, 161, 256, 300, 17, 128, 255],
+                                None),
+        "llama2-7b f32 edge lens": ((32, 32, 128), 256, None, None, None,
+                                    1.0, f32, [0, 1, 161, 256, 300], None),
+        "gemma-2-2b uncapped": (g2, 4608, None, None, None, 1.0, bf,
+                                g2_lens, "flash_decode_fp8kv_d256"),
+        "gemma-2-2b": (g2, 4608, None, cap, None, 1.0, bf, g2_lens,
+                       "flash_decode_fp8kv_cap_d256"),
+        "gemma-2-2b window": (g2, 4608, WINDOW, cap, None, 1.0, bf, g2_lens,
+                              "flash_decode_fp8kv_window_cap_d256"),
+        "gemma-2-2b window edges past the cap": (
+            g2, 4608, WINDOW, cap, None, 60.0, bf,
+            [0, 1, 100, 4095, 4096, 4097, 4607, 4608, 4700], None),
+        "gemma-2-2b f32 past the cap": (g2, 4608, None, cap, None, 60.0,
+                                        f32, [0, 7, 4097, 4700], None),
+        "mistral-7b window": ((32, 8, 128), 4608, WINDOW, None, None, 1.0,
+                              bf, [4224 + 40 * i for i in range(8)],
+                              "flash_decode_fp8kv_window"),
+        "gpt-oss-20b": (oss, OSS_DENSE_SMAX, None, None, "draw", 1.0, bf,
+                        oss_lens, "flash_decode_fp8kv_sinks"),
+        "gpt-oss-20b window": (oss, OSS_DENSE_SMAX, GPT_OSS["window"], None,
+                               "draw", 1.0, bf, oss_lens,
+                               "flash_decode_fp8kv_window_sinks"),
+        "kv_len 4096 sink above": (oss, 4224, None, None, "above", 1.0, bf,
+                                   [4096] * 8, None),
+        "window edges sink above": (oss, OSS_DENSE_SMAX, GPT_OSS["window"],
+                                    None, "above", 1.0, bf, oss_edges, None),
+        "f32 window sinks": (oss, 4224, GPT_OSS["window"], None, "draw", 1.0,
+                             f32, [0, 7, 129, 4100], None),
+    }
+    for tag, ((n, kvn, d), smax, w, cp, sk_kind, qx, dtype, lens,
+              row) in cases.items():
+        b = len(lens)
+        ck, cv = _e4m3_arena(torch, gen, dev, 2, b + 1, kvn, smax, d)
+        clean = (ck.clone(), cv.clone())
+        _stale_nan(torch, (ck, cv), layer, lens, w)
+        q = torch.randn((b, n, d), generator=gen, device=dev,
+                        dtype=dtype) * qx
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+        sinks = (None if sk_kind is None
+                 else _sink_draw(torch, gen, dev, n, sk_kind == "above"))
+
+        def run(q=q, ck=ck, cv=cv, kv=kv, w=w, cp=cp, sinks=sinks):
+            return fd.flash_decode(q, ck, cv, kv, layer=layer, window=w,
+                                   logit_cap=cp, sinks=sinks)
+
+        def plain(q=q, ck=ck, cv=cv, kv=kv, w=w, cp=cp, sinks=sinks):
+            return fd.flash_decode_ref(q, ck, cv, kv, layer=layer,
+                                       window=w, logit_cap=cp, sinks=sinks)
+
+        got, want = run(), plain()
+        again = fd.flash_decode(q, *clean, kv, layer=layer, window=w,
+                                logit_cap=cp, sinks=sinks)
+        torch.cuda.synchronize()
+        splits = pd.decode_splits(b, kvn, min(smax, w) if w else smax,
+                                  pd.row_blocks(n // kvn))
+        label = (f"{tag} (B={b} N={n} kvN={kvn} D={d} Smax={smax} "
+                 f"window={w} cap {cp} sinks {sk_kind}, {splits} splits; "
+                 f"NaN codes past kv_len and below the band)")
+        dead = [i for i in range(b) if lens[i] <= 0
+                or (w and lens[i] - w >= smax)]
+        if sinks is None:
+            err = _attn_check(torch, "flash_decode_fp8kv", label, got, want,
+                              dead)
+        else:
+            err = _sink_rule(
+                torch, "flash_decode_fp8kv", label, got, want,
+                sk_kind == "above",
+                _top_score(torch, q[:, None],
+                           clean[0][layer, :b].float().transpose(1, 2),
+                           d ** -0.5), dead)
+            require(sk_kind != "above" or w or splits > 1,
+                    f"flash_decode_fp8kv {tag}: one split only")
+        require(torch.equal(got, again), f"flash_decode_fp8kv {tag}: the "
+                f"stale NaN slots moved the output")
+        if row is None:
+            del ck, cv, clean
+            continue
+        span = [min(ln, smax) - (max(0, ln - w) if w else 0) for ln in lens]
+        es = q.element_size()
+        bms, by = bound_ms(2 * b * n * d * es + 2 * sum(span) * kvn * d
+                           + b * 4 + (4 * n if sinks is not None else 0),
+                           4.0 * n * d * sum(span), "bfloat16")
+        top = max(lens)
+        key_pos = torch.arange(top, device=dev)[None, None, None, :]
+        mask = key_pos < kv.long()[:, None, None, None]
+        if w:
+            mask = mask & (key_pos >= kv.long()[:, None, None, None] - w)
+        k8, v8 = ck[layer, :b, :, :top], cv[layer, :b, :, :top]
+
+        def library(q=q, k8=k8, v8=v8, mask=mask, n=n):
+            # the arena's codes cast to q's dtype in the call (uncapped,
+            # no sinks: the library has neither)
+            return F.scaled_dot_product_attention(
+                q[:, :, None], _gqa(torch, k8.to(q.dtype), n),
+                _gqa(torch, v8.to(q.dtype), n), attn_mask=mask)
+
+        results[row] = dict(
+            max_abs_err=err, ms=time_ms(torch, run),
+            plain_ms=time_ms(torch, plain),
+            library_ms=time_ms(torch, library), bound_ms=bms, bound_by=by,
+            library=LIBRARY[row])
+        del ck, cv, clean, k8, v8
+
+    # 6de: tag -> (B, arena rows, H, (N, kvN, D), Smax, x dtype, offsets,
+    # kernels-line row if timed)
+    cases = {
+        "llama2-7b": (8, 8, 4096, (32, 32, 128), 256, bf,
+                      [128 + 4 * i for i in range(8)],
+                      "fused_qkv_append_fp8kv_dense"),
+        "gemma-2-2b": (4, 4, GEMMA2["h"], g2, 4608, bf,
+                       [4224, 4245, 4266, 4607],
+                       "fused_qkv_append_fp8kv_dense_d256"),
+        "draft B+1 f32 (fma; a slot at Smax)": (
+            9, 9, 2048, (32, 4, 64), 384, f32,
+            [0, 383, 384, 10, 200, 1, 2, 3, 0], None),
+        "gemma-2-2b rows < arena f32 (fma)": (3, 4, GEMMA2["h"], g2, 4608,
+                                              f32, [7, 0, 4607], None),
+    }
+    for tag, (b, rows, h, (n, kvn, d), smax, xdt, offs,
+              row) in cases.items():
+        nq = (n + 2 * kvn) * d
+        wq, ws = _qweight(torch, gen, dev, (2, h, nq), 1)
+        ws = ws * 300                           # k/v past 464 too
+        nw = (1.0 + 0.1 * torch.randn((2, h), generator=gen, device=dev)
+              ).to(xdt)
+        x = torch.randn((b, h), generator=gen, device=dev).to(xdt)
+        ck, cv = _e4m3_arena(torch, gen, dev, 2, rows, kvn, smax, d)
+        pos = torch.tensor(offs, dtype=torch.int32, device=dev)
+        sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
+        kw = dict(n_heads=n, kv_heads=kvn)
+        a, r = (ck.clone(), cv.clone()), (ck.clone(), cv.clone())
+
+        def call(a=a, x=x, nw=nw, wq=wq, ws=ws, sin=sin, cos=cos, kw=kw,
+                 pos=pos):
+            return fused_qkv_append(x, nw, wq, ws, sin, cos, *a, layer, pos,
+                                    **kw)[0]
+
+        def plain(r=r, x=x, nw=nw, wq=wq, ws=ws, sin=sin, cos=cos, kw=kw,
+                  pos=pos):
+            return fused_qkv_append_ref(x, nw, wq, ws, sin, cos, *r, layer,
+                                        pos, **kw)[0]
+
+        qa, qr = call(), plain()
+        torch.cuda.synchronize()
+        written = torch.zeros(ck.shape, dtype=torch.bool, device=dev)
+        for i, o in enumerate(offs):
+            if 0 <= o < smax:
+                written[layer, i, :, o] = True
+        err = max_err(qa, qr)
+        lim_q = (F32_REL * float(qr.abs().max()) if xdt == f32
+                 else TOL["bfloat16"] * float(qr.float().std()))
+        steps, far, apart = 0, [], 0
+        for ta, tr in zip(a, r):
+            ga, gr = ta[written], tr[written]
+            st = (_e4m3_ordinal(torch, ga) - _e4m3_ordinal(torch, gr)).abs()
+            steps = max(steps, int(st.max()))
+            apart += _codes_err(torch, ga, gr)
+            # past one step: the values, held to the dense bf16 form's k/v
+            # rule (check_fused_qkv_dense) beside the plain version's
+            fin = gr.float()[torch.isfinite(gr.float())]
+            lim_kv = (F32_REL * float(fin.abs().max()) if xdt == f32
+                      else TOL["bfloat16"] * float(fin.std()))
+            for i in torch.nonzero(st > 1).flatten().tolist():
+                far.append((float(gr[i].float()), float(ga[i].float()),
+                            lim_kv))
+        far_ok = all(abs(x - y) <= lim for x, y, lim in far)
+        nan = sum(int((tr[written].view(torch.uint8) & 0x7F == 0x7F).sum())
+                  for tr in r)
+        untouched = all(_codes_err(torch, ta[~written], tr[~written]) == 0
+                        for ta, tr in zip(a, r))
+        print(f"[kernels] fused_qkv_append_fp8kv dense {tag} (B={b} into "
+              f"{rows} rows, H={h} N={n} kvN={kvn} D={d} Smax={smax}): q "
+              f"max|err| {err:.3e} (tol {lim_q:.3e}); k/v codes {apart} of "
+              f"{2 * int(written.sum())} apart, at most {steps} step (tol "
+              f"1, 6e's rule; past it (plain value, kernel value, tol of "
+              f"the bf16 form's k/v rule): {far[:6]}); {nan} NaN codes "
+              f"(k/v past 464); other entries equal: {untouched}",
+              flush=True)
+        require(bool(torch.isfinite(qa).all()) and err <= lim_q
+                and far_ok and untouched and nan > 0,
+                f"fused_qkv_append_fp8kv dense {tag} disagrees: {err}, "
+                f"{steps} {far[:6]}, {untouched}, {nan}")
+        if row is None:
+            del ck, cv, a, r
+            continue
+        nbytes = _qkv_nbytes(h, nq, b, n, kvn, d, x.element_size(),
+                             nw.element_size(), d, b * 4)
+        bms, by = bound_ms(nbytes, 2.0 * b * h * nq, dname(torch, xdt))
+        qt, st = _int8pack(torch, wq[layer], ws[layer], xdt)
+        res = dict(
+            max_abs_err=max(err, float(steps)), ms=time_ms(torch, call),
+            plain_ms=time_ms(torch, plain),
+            library_ms=time_ms(torch, lambda: torch._weight_int8pack_mm(
+                x, qt, st)),
+            bound_ms=bms, bound_by=by, library=LIBRARY[row])
+        results[row] = res
+        extra.append((row, tag, res))
+        del ck, cv, a, r
+    print(f"[kernels] FP8 KV on the dense arena: the checks took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
 LIBRARY = {"paged_append_decode": "index_put_ x2",
            "paged_append_prefill": "index_copy_ x2",
            "flash_prefill": "scaled_dot_product_attention, causal",
@@ -6753,6 +7163,39 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
                "torch._weight_int8pack_mm of the qkv product alone"),
            "fused_qkv_append_fp8kv_kv_layer_d256": (
                "torch._weight_int8pack_mm of the qkv product alone"),
+           "kv_append_fp8kv": "PyTorch's e4m3 cast + index_copy_ x2 "
+                              "(flattened rows)",
+           "kv_append_fp8kv_d256": "PyTorch's e4m3 cast + index_copy_ x2 "
+                                   "(flattened rows)",
+           "flash_decode_fp8kv": "scaled_dot_product_attention on the "
+                                 "arena slice cast from e4m3, length mask "
+                                 "(cast included)",
+           "flash_decode_fp8kv_window": (
+               "scaled_dot_product_attention on the arena slice cast from "
+               "e4m3 (repeated per group), window mask (cast included)"),
+           "flash_decode_fp8kv_d256": (
+               "scaled_dot_product_attention on the arena slice cast from "
+               "e4m3 (repeated per group), length mask (cast included)"),
+           "flash_decode_fp8kv_cap_d256": (
+               "scaled_dot_product_attention on the arena slice cast from "
+               "e4m3 (repeated per group), length mask (cast included; "
+               "uncapped)"),
+           "flash_decode_fp8kv_window_cap_d256": (
+               "scaled_dot_product_attention on the arena slice cast from "
+               "e4m3 (repeated per group), window mask (cast included; "
+               "uncapped)"),
+           "flash_decode_fp8kv_sinks": (
+               "scaled_dot_product_attention on the arena slice cast from "
+               "e4m3 (repeated per group), length mask (cast included; no "
+               "sinks)"),
+           "flash_decode_fp8kv_window_sinks": (
+               "scaled_dot_product_attention on the arena slice cast from "
+               "e4m3 (repeated per group), window mask (cast included; no "
+               "sinks)"),
+           "fused_qkv_append_fp8kv_dense": (
+               "torch._weight_int8pack_mm of the qkv product alone"),
+           "fused_qkv_append_fp8kv_dense_d256": (
+               "torch._weight_int8pack_mm of the qkv product alone"),
            "fused_wo_ffn": "torch._weight_int8pack_mm x3 + eager rmsnorm "
                            "and SwiGLU",
            "flash_decode_dyn": "scaled_dot_product_attention on the arena "
@@ -6822,6 +7265,9 @@ def phase_kernels(torch, results):
     # sinks and windows over e4m3 pools (4es, 4ews, 4ves, 4vews, 8es, 8ews;
     # 4ew, 4vew, 8ew; 6ek is in check_fused_qkv_fp8kv)
     run(check_fp8kv_options, results, extra)
+    # FP8 KV on the dense arena (12e, 13e, 13ew, 13ec, 13ewc, 13es, 13ews,
+    # 6de and their D-256 forms)
+    run(check_dense_fp8kv, results, extra)
     torch.cuda.empty_cache()
     lap.print("phase-3")
     # every launch of this phase (the checks, their timing): kernels 16
@@ -6961,7 +7407,7 @@ def regime_rows(want: dict, cfg) -> dict:
                  "paged_flash_prefill", "paged_flash_prefill_window",
                  "flash_decode", "flash_decode_window",
                  "paged_flash_verify", "paged_flash_verify_window", *int8kv,
-                 *fp8kv):
+                 *fp8kv, "flash_decode_fp8kv", "flash_decode_fp8kv_window"):
         out[f"{form}_cap_d256"] = out[form] if cap else 0
     # GPT-OSS: every attention launch of a model with sinks is a sink one
     sinks = cfg.head_dim == 64 and cfg.attn_sinks
@@ -6969,7 +7415,8 @@ def regime_rows(want: dict, cfg) -> dict:
                  "paged_flash_decode", "paged_flash_decode_window",
                  "paged_flash_prefill", "paged_flash_prefill_window",
                  "paged_flash_verify", "paged_flash_verify_window",
-                 "flash_decode", "flash_decode_window", *int8kv, *fp8kv):
+                 "flash_decode", "flash_decode_window", *int8kv, *fp8kv,
+                 "flash_decode_fp8kv", "flash_decode_fp8kv_window"):
         out[f"{form}_sinks"] = out[form] if sinks else 0
     # INT8 and FP8 KV at D 256: the attention forms, 6q, 9 and 10, 6e, 1e,
     # 2e and 11e (6q's launches with a kv_layer come from windowed(): the
@@ -6978,7 +7425,9 @@ def regime_rows(want: dict, cfg) -> dict:
                  "paged_append_decode_quant", "paged_append_prefill_quant",
                  *fp8kv, "fused_qkv_append_fp8kv",
                  "paged_append_decode_fp8kv", "paged_append_prefill_fp8kv",
-                 "paged_append_span_fp8kv", "fused_qkv_append_fp8kv_kv_layer"):
+                 "paged_append_span_fp8kv", "fused_qkv_append_fp8kv_kv_layer",
+                 "kv_append_fp8kv", "flash_decode_fp8kv",
+                 "fused_qkv_append_fp8kv_dense"):
         out[f"{form}_d256"] = out[form] if d256 else 0
     out["fused_qkv_append_int8kv_kv_layer_d256"] = out.get(
         "fused_qkv_append_int8kv_kv_layer_d256", 0) if d256 else 0
@@ -7248,6 +7697,31 @@ def _wrappers():
                    ("paged_append_prefill_fp8kv",
                     pa.paged_append_prefill_ref),
                    ("paged_append_span_fp8kv", pa.paged_append_span_ref))},
+            # FP8 KV on the dense arena (12e, 13e and its forms, 6de)
+            "kv_append_fp8kv": (ka.kv_append_fp8kv, ka.kv_append_ref),
+            "kv_append_fp8kv_d256": (
+                _Regime(getattr(ka, "D256_LAUNCHES", {}), "kv_append_fp8kv"),
+                ka.kv_append_ref),
+            "flash_decode_fp8kv": (fd.flash_decode_fp8kv,
+                                   fd.flash_decode_ref),
+            "flash_decode_fp8kv_window": (fd.flash_decode_fp8kv_window,
+                                          fd.flash_decode_ref),
+            "flash_decode_fp8kv_d256": (
+                _Regime(getattr(fd, "D256_LAUNCHES", {}),
+                        "flash_decode_fp8kv"), fd.flash_decode_ref),
+            **{f"{form}{suffix}": (
+                _Regime(getattr(fp, counts, {}), (form, d)),
+                fd.flash_decode_ref)
+               for form in ("flash_decode_fp8kv", "flash_decode_fp8kv_window")
+               for suffix, counts, d in (("_cap_d256", "CAP_LAUNCHES", 256),
+                                         ("_sinks", "SINK_LAUNCHES", 64))},
+            "fused_qkv_append_fp8kv_dense": (
+                _Regime(getattr(qf, "DENSE_LAUNCHES", {}),
+                        "fused_qkv_append_fp8kv"), qf.fused_qkv_append_ref),
+            "fused_qkv_append_fp8kv_dense_d256": (
+                _Regime(getattr(qf, "D256_FORM_LAUNCHES", {}),
+                        "fused_qkv_append_fp8kv_dense"),
+                qf.fused_qkv_append_ref),
             "fused_wo_ffn": (ff.fused_wo_ffn, ff.fused_wo_ffn_ref),
             "flash_decode_dyn": (fdd.flash_decode_dyn,
                                  fdd.flash_decode_dyn_ref)}
@@ -7507,7 +7981,7 @@ def live_kv_bytes(cfg, batch: int, ctx: int, kv_dtype: str) -> int:
                for w in cfg.layer_windows)
 
 
-def windowed(want: dict, cfg) -> dict:
+def windowed(want: dict, cfg, grouped: bool = True) -> dict:
     """A path's launches under ``cfg``'s sliding-window model in the
     grouped engine: each attention kernel's window form on the sliding
     layers (every layer of Mistral's stack, every other one of Gemma-2's),
@@ -7515,7 +7989,9 @@ def windowed(want: dict, cfg) -> dict:
     layer (the grouped engine indexes both pool groups by a group-local
     layer; over INT8 KV 6q with a kv_layer, counted at D 256 in
     ``fused_qkv_append_int8kv_kv_layer_d256``; over FP8 KV 6e with a
-    kv_layer, 6ek, in ``fused_qkv_append_fp8kv_kv_layer``)."""
+    kv_layer, 6ek, in ``fused_qkv_append_fp8kv_kv_layer``). The dense
+    arena (``grouped`` False: the Generator) has one layer index, so its
+    fused qkv forms stay as they are."""
     share = sum(w is not None for w in cfg.layer_windows) / cfg.num_layers
     ren = {"flash_prefill": "flash_prefill_window",
            "paged_flash_prefill": "paged_flash_prefill_window",
@@ -7527,10 +8003,13 @@ def windowed(want: dict, cfg) -> dict:
            "paged_flash_verify_int8kv": "paged_flash_verify_int8kv_window",
            "paged_flash_prefill_fp8kv": "paged_flash_prefill_fp8kv_window",
            "paged_flash_decode_fp8kv": "paged_flash_decode_fp8kv_window",
-           "paged_flash_verify_fp8kv": "paged_flash_verify_fp8kv_window"}
+           "paged_flash_verify_fp8kv": "paged_flash_verify_fp8kv_window",
+           "flash_decode_fp8kv": "flash_decode_fp8kv_window"}
     out = {name: 0 for name in KERNELS}
     for name, n in want.items():
-        if name == "fused_qkv_append":
+        if not grouped and name.startswith("fused_qkv_append"):
+            out[name] += n
+        elif name == "fused_qkv_append":
             out["fused_qkv_append_kv_layer"] += n
         elif name == "fused_qkv_append_fp8kv":
             # over e4m3 ring pools: 6e with a kv_layer (6ek)
@@ -8176,7 +8655,7 @@ def serve_spec(torch, path: str, cfg, params, launches: dict, int8: bool,
 
 
 def dense_launches(int8: bool, layers: int, steps: int,
-                   int4=None, cfg=None) -> dict:
+                   int4=None, cfg=None, kv_dtype: str = "bf16") -> dict:
     """Launches of one ``generate_fused`` call of the dense paths: the
     8 x 128-row prefill (per layer ``kv_append`` at S = 128 and causal
     ``flash_prefill``; with INT8 weights 4 ``quantized_matmul`` per layer
@@ -8196,7 +8675,12 @@ def dense_launches(int8: bool, layers: int, steps: int,
     kernel 5, the prefill the grouped experts (dequantized,
     ``torch.matmul``), so the prefill launches kernel 5 for wqkv and wo
     only; a QKV bias (GPT-OSS) takes the qkv product and ``kv_append``
-    instead of the fused qkv at decode."""
+    instead of the fused qkv at decode. ``kv_dtype`` "fp8" (an e4m3
+    arena): each write and read takes its FP8-KV form, ``kv_append_fp8kv``
+    (12e), ``flash_decode_fp8kv`` (13e) and the dense fused qkv's
+    ``fused_qkv_append_fp8kv`` with ``tables=None`` (6de, also in
+    ``fused_qkv_append_fp8kv_dense``); the prefill's attention on the
+    fresh rows is unchanged."""
     head = int(cfg is None or not cfg.tie_word_embeddings)
     moe = cfg is not None and bool(cfg.num_experts)
     # the fused FFN's gate, and the fused qkv's (no QKV bias)
@@ -8222,13 +8706,22 @@ def dense_launches(int8: bool, layers: int, steps: int,
         want["kv_append"] += layers * steps * (not fqkv)
     else:
         want["kv_append"] += layers * steps
+    if kv_dtype == "fp8":
+        for name in ("kv_append", "flash_decode"):
+            want[name + "_fp8kv"], want[name] = want[name], 0
+        n = want["fused_qkv_append_dense"]
+        want["fused_qkv_append_dense"] = 0
+        want["fused_qkv_append_fp8kv"] += n
+        want["fused_qkv_append_fp8kv_dense"] += n
     return want
 
 
 def serve_dense(torch, path: str, cfg, params, launches: dict, int8: bool,
                 dev: str = "cuda", int4: bool = False, batch: int = 8,
-                prompt_len: int = 128, max_seq: int = 1024):
-    """bench.py's Generator (bench.py:208-239): bf16 KV, ``generate_fused``
+                prompt_len: int = 128, max_seq: int = 1024,
+                kv_dtype: str = "bf16"):
+    """bench.py's Generator (bench.py:208-239): bf16 KV (or, ``kv_dtype``
+    "fp8", an e4m3 arena: bench.py --kv-dtype fp8), ``generate_fused``
     on ``batch`` fresh ``prompt_len``-token prompts (max_seq 1024, 8 x 128
     at bench.py's shape). The launch counts of one 64-token call (reset
     before, read after); the same call of the device part under
@@ -8239,7 +8732,8 @@ def serve_dense(torch, path: str, cfg, params, launches: dict, int8: bool,
     take the window forms (3w, 13w) and their bytes floor reads at most
     the window's keys. A mixture of experts (gpt-oss) holds its decode
     steps alone to the sync debug mode: its grouped prefill reads the
-    group sizes on the host once a layer (ops/moe.py)."""
+    group sizes on the host once a layer (ops/moe.py). The decode step's
+    (loop, device, floor ms; idle share) go to ``STEPS[path]``."""
     import numpy as np
 
     from simplellminference_tpu_torch.ops import sampling
@@ -8248,7 +8742,9 @@ def serve_dense(torch, path: str, cfg, params, launches: dict, int8: bool,
     steps = 64
     half = steps // 2
     gen = Generator(cfg, params, max_batch=batch, max_seq=max_seq,
-                    kv_dtype=torch.bfloat16, device=dev)
+                    kv_dtype={"bf16": torch.bfloat16,
+                              "fp8": torch.float8_e4m3fn}[kv_dtype],
+                    device=dev)
     rng = np.random.default_rng(0)
 
     def prompts():
@@ -8274,9 +8770,10 @@ def serve_dense(torch, path: str, cfg, params, launches: dict, int8: bool,
     got = read_counts(path)
     launches[path] = got
     want = dense_launches(int8, cfg.num_layers, steps,
-                          int4=cfg if int4 else None, cfg=cfg)
+                          int4=cfg if int4 else None, cfg=cfg,
+                          kv_dtype=kv_dtype)
     if any(w is not None for w in cfg.layer_windows):
-        want = windowed(want, cfg)
+        want = windowed(want, cfg, grouped=False)
     want = regime_rows(want, cfg)
     check_launches(path, got, want)
     tokens, lens = gen._bucket(prompts())
@@ -8321,14 +8818,17 @@ def serve_dense(torch, path: str, cfg, params, launches: dict, int8: bool,
     wbytes = step_weight_bytes(params, batch)
     kvb = kv_bytes(1, batch * sum(min(ctx, w or ctx)
                                   for w in cfg.layer_windows),
-                   cfg.num_kv_heads, cfg.head_dim, "bf16")
+                   cfg.num_kv_heads, cfg.head_dim, kv_dtype)
     floor_ms = (wbytes + kvb) / HBM_BYTES_PER_S * 1e3
+    idle = max(0.0, 1 - step_ms / step_wall)
+    STEPS[path] = (round(step_wall, 3), round(step_ms, 3),
+                   round(floor_ms, 3), round(idle, 3))
     print(f"[engine:{path}] decode step at context {ctx}: loop "
           f"{step_wall:.3f} ms, device "
           f"(graph replay) {step_ms:.3f} ms, bytes floor {floor_ms:.3f} ms "
-          f"({wbytes / 1e9:.3f} GB weights + {kvb / 1e9:.3f} GB KV); device "
-          f"idle share of the loop step "
-          f"{max(0.0, 1 - step_ms / step_wall):.3f}", flush=True)
+          f"({wbytes / 1e9:.3f} GB weights + {kvb / 1e9:.3f} GB "
+          f"{kv_dtype} KV); device idle share of the loop step "
+          f"{idle:.3f}", flush=True)
     del gen, cache
 
 
@@ -8598,6 +9098,7 @@ PATH_SETUP = {"int8": ("int8", "bf16", False), "bf16": ("bf16", "bf16", False),
               "fp8kv_prefix": ("bf16", "fp8", True),
               "spec_fp8kv": ("int8", "fp8", False),
               "dense": ("int8", "bf16", False),
+              "dense_fp8kv": ("int8", "fp8", False),
               "dense_bf16": ("bf16", "bf16", False),
               "draft": ("bf16", "bf16", False),
               "int4": ("int4", "bf16", False),
@@ -8609,12 +9110,14 @@ PATH_SETUP = {"int8": ("int8", "bf16", False), "bf16": ("bf16", "bf16", False),
               "gemma2": ("int8", "bf16", False),
               "gemma2_window": ("bf16", "bf16", False),
               "gemma2_dense": ("int8", "bf16", False),
+              "gemma2_dense_fp8kv": ("int8", "fp8", False),
               "gemma2_spec": ("bf16", "bf16", False),
               "gemma2_draft": ("bf16", "bf16", False),
               "gpt_oss": ("int8", "bf16", False),
               "gpt_oss_prefix": ("bf16", "bf16", True),
               "gpt_oss_spec": ("bf16", "bf16", False),
               "gpt_oss_dense": ("int8", "bf16", False),
+              "gpt_oss_dense_fp8kv": ("int8", "fp8", False),
               "gpt_oss_spec_int8kv": ("bf16", "int8", True),
               "gpt_oss_int8kv": ("int8", "int8", False),
               "gpt_oss_fp8kv": ("int8", "fp8", False),
@@ -8642,7 +9145,8 @@ PATH_LAYERS = {"gpt_oss": 4, "gpt_oss_prefix": 4, "gpt_oss_spec": 4,
                "gpt_oss_spec_fp8kv": 4, "gemma_int8kv_prefix": 4,
                "gemma_fp8kv_prefix": 4, "gemma2_int8kv": 4,
                "gemma2_fp8kv": 4, "gemma2_spec_int8kv": 4,
-               "gemma2_spec_fp8kv": 4}
+               "gemma2_spec_fp8kv": 4, "dense_fp8kv": 4,
+               "gemma2_dense_fp8kv": 4, "gpt_oss_dense_fp8kv": 4}
 def phase_engine(torch, launches: dict, paths=PATHS):
     import dataclasses
 
@@ -8706,14 +9210,15 @@ def phase_engine(torch, launches: dict, paths=PATHS):
                   f"{[a / b for a, b in zip(ttft['w8a8'], base)]})",
                   flush=True)
         elif path.startswith("dense") or path in ("int4_dense",
-                                                  "gpt_oss_dense"):
+                                                  "gpt_oss_dense",
+                                                  "gpt_oss_dense_fp8kv"):
             serve_dense(torch, path, cfg, params, launches, int8,
-                        int4=weights == "int4")
-        elif path == "gemma2_dense":
+                        int4=weights == "int4", kv_dtype=kv_dtype)
+        elif path in ("gemma2_dense", "gemma2_dense_fp8kv"):
             # bench.py's fused loop over 4 prompts past the window: the
             # sliding layers' 13wc trims from the first step
             serve_dense(torch, path, cfg, params, launches, int8, batch=4,
-                        prompt_len=4224, max_seq=4608)
+                        prompt_len=4224, max_seq=4608, kv_dtype=kv_dtype)
         elif path == "draft":
             serve_draft(torch, path, cfg, params, launches)
         elif path == "gemma2_draft":
@@ -8759,8 +9264,8 @@ def phase_engine(torch, launches: dict, paths=PATHS):
         if path == "int8kv":
             long_context_steps(torch, cfg, params)
         if path in TWINS and TWINS[path] in STEPS:
-            print(f"[engine:{path}] step (engine, device, floor ms; idle "
-                  f"share) {STEPS[path]} beside its INT8-KV twin "
+            print(f"[engine:{path}] step (engine or loop, device, floor ms; "
+                  f"idle share) {STEPS[path]} beside its twin "
                   f"{TWINS[path]}'s {STEPS[TWINS[path]]}", flush=True)
         seconds[path] = round(time.perf_counter() - t0, 1)
         print(f"[engine:{path}] path took {seconds[path]} s", flush=True)
@@ -9266,6 +9771,92 @@ def dense_card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps):
           flush=True)
 
 
+def dense_fp8kv_card_vs_cpu(torch, tag, cfg, p_gpu, p_cpu, prompts, steps):
+    """The Generator over an e4m3 arena on the card and on the CPU, by the
+    FP8-KV rule of :func:`card_vs_cpu`: a greedy prefill + ``steps``
+    decode steps through its steps on the CPU; on the card once
+    free-running (the gap printed, not held: a code a step apart moves
+    its value by up to 1/8, and the drift compounds) and once carrying on
+    with the CPU's arena codes and tokens after each call: layer 0's codes
+    (computed from the same embeddings on both devices) at most one e4m3
+    step from the CPU's, logits within LOGIT_TOL while the call's codes
+    agree and within LOGIT_TOL_CODE_APART once one parts; then
+    ``generate`` and ``generate_fused`` on the card, their greedy tokens
+    equal to the CPU trace's except where its top-2 margin is below
+    LOGIT_TOL_CODE_APART."""
+    from simplellminference_tpu_torch.core.config import SamplingParams
+    from simplellminference_tpu_torch.ops import sampling
+    from simplellminference_tpu_torch.runtime.generator import Generator
+
+    t0 = time.perf_counter()
+    e4 = torch.float8_e4m3fn
+
+    def trace(dev, params, force=None):
+        gen = Generator(cfg, params, max_batch=len(prompts), max_seq=256,
+                        kv_dtype=e4, device=dev)
+        cache = gen.new_cache(len(prompts), 128 + steps + 1)
+        got = []
+
+        def take():
+            arenas = tuple(a.view(torch.uint8) for a in (cache.k, cache.v))
+            got.append(torch.stack(arenas).cpu())
+            if force is not None:
+                for a, code in zip(arenas, force[2][len(got) - 1]):
+                    a.copy_(code.to(a.device))
+
+        logits, cache, lens = gen.prefill(cache, prompts)
+        take()
+        pos = gen._tensor(lens)
+        lg, toks = [logits.cpu()], [sampling.greedy(logits).cpu()]
+        for t in range(steps):
+            tok = (toks[-1] if force is None else force[0][:, t]).to(
+                pos.device)
+            logits, cache = gen._decode_fn(tok, pos, cache)
+            take()
+            lg.append(logits.cpu())
+            toks.append(sampling.greedy(logits).cpu())
+            pos = pos + 1
+        return torch.stack(toks, 1), torch.stack(lg, 0), got, gen
+
+    cpu = trace("cpu", p_cpu)
+    free = trace("cuda", p_gpu)
+    print(f"[cpu:{tag}] free-running card vs CPU over an e4m3 arena: "
+          f"logits max|card - cpu| {max_err(free[1], cpu[1]):.3e} (no bound:"
+          f" the card below carries on with the CPU's codes)", flush=True)
+    tok_g, lg_g, codes_g, gen = trace("cuda", p_gpu, force=cpu)
+    tok_c, lg_c, codes_c = cpu[:3]
+    apart = [int((a != b).sum()) for a, b in zip(codes_g, codes_c)]
+    far = max(int((_e4m3_ordinal(torch, a[:, :1])
+                   - _e4m3_ordinal(torch, b[:, :1])).abs().max())
+              for a, b in zip(codes_g, codes_c))
+    require(far <= 1, f"[{tag}] layer 0's codes {far} steps apart")
+    worst = {True: 0.0, False: 0.0}
+    for t in range(steps + 1):
+        tol = LOGIT_TOL if apart[t] == 0 else LOGIT_TOL_CODE_APART
+        e = max_err(lg_g[t], lg_c[t])
+        worst[apart[t] == 0] = max(worst[apart[t] == 0], e)
+        require(e <= tol, f"[{tag}] step {t}: logits differ by {e:.3e} "
+                f"({apart[t]} codes apart)")
+    outs = (gen.generate(prompts, SamplingParams(
+        max_new_tokens=steps + 1)).token_ids,
+        gen.generate_fused(prompts, steps + 1).cpu().tolist())
+    for r in range(len(prompts)):
+        for what, got in zip(("generate", "generate_fused"), outs):
+            _first_divergence(torch, tag, f"card {what} and the CPU trace",
+                              got[r], tok_c[r].tolist(), lg_c, r,
+                              LOGIT_TOL_CODE_APART)
+    print(f"[cpu:{tag}] Generator over an e4m3 arena, {_width(cfg)}, "
+          f"{cfg.num_layers} layers, f32: {len(prompts)} requests, prefill + "
+          f"{steps} steps on card and CPU in {time.perf_counter() - t0:.1f} "
+          f"s; codes apart after each call (layer 0 at most one step): "
+          f"{apart} of {codes_c[0].numel()}; logits max|card - cpu| "
+          f"{worst[True]:.3e} (tol {LOGIT_TOL}), where codes are apart "
+          f"{worst[False]:.3e} (tol {LOGIT_TOL_CODE_APART}); card greedy "
+          f"tokens == the CPU trace's: "
+          f"{outs[0] == tok_c.tolist() and outs[1] == tok_c.tolist()}",
+          flush=True)
+
+
 def draft_card_vs_cpu(torch, cfg, p_gpu, p_cpu, draft=None, tag="draft"):
     """The draft Engine (spec_tokens 4, burst 4) on the card and on the
     CPU, 4 greedy requests x 16 tokens, with the target as its own draft
@@ -9737,7 +10328,10 @@ def gemma2_card_vs_cpu(torch, launches: dict):
     rows take the FMA kernel). Then, the window cut to
     32 so that the prompts
     and the steps pass it, the f32 weights through the Generator
-    (:func:`dense_card_vs_cpu`: 13c, 13wc), the prompt-lookup spec Engine
+    (:func:`dense_card_vs_cpu`: 13c, 13wc; and over an e4m3 arena,
+    :func:`dense_fp8kv_card_vs_cpu`: 12e/256, 13ec/256, 13ewc/256, its
+    launches recorded as ``gemma2_dense_fp8kv_cpu``'s), the prompt-lookup
+    spec Engine
     (:func:`spec_card_vs_cpu`: 4vc, 4vwc over the ring pools) and, as the
     draft of a Gemma-2-9B-wide target (2 layers, f32, a seeded draw), the
     draft Engine (:func:`draft_card_vs_cpu`: the rollout's 13c/13wc, the
@@ -9789,6 +10383,18 @@ def gemma2_card_vs_cpu(torch, launches: dict):
     cfg_w = dataclasses.replace(cfg, sliding_window=32)
     dense_card_vs_cpu(torch, "gemma2-dense", cfg_w, p_gpu, p_cpu, prompts,
                       steps=8)
+    # the Generator over an e4m3 arena: 12e/256, 13ec/256, 13ewc/256 on
+    # the card (f32 weights: no fused qkv); counted like a path's
+    snap = count_snapshot()
+    dense_fp8kv_card_vs_cpu(torch, "gemma2-dense-fp8kv", cfg_w, p_gpu, p_cpu,
+                            prompts, steps=8)
+    got = launches["gemma2_dense_fp8kv_cpu"] = counts_since(
+        "gemma2_dense_fp8kv_cpu", snap)
+    rows = ("kv_append_fp8kv_d256", "flash_decode_fp8kv_cap_d256",
+            "flash_decode_fp8kv_window_cap_d256")
+    require(all(got[row] > 0 for row in rows),
+            f"[cpu:gemma2-dense-fp8kv] the FP8-KV forms did not all run on "
+            f"the card: { {row: got[row] for row in rows} }")
     spec_card_vs_cpu(torch, "gemma2-spec", cfg_w, p_gpu, p_cpu)
     t_cfg = dataclasses.replace(gemma2_9b(num_layers=2, dtype="float32"),
                                 sliding_window=32)

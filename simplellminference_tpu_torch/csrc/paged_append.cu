@@ -48,6 +48,14 @@
 // Every head dim a multiple of 8 takes the 8-element path (Gemma's 256
 // too: a row is 32 such groups, a block's threads stride over them).
 // Bound: bytes (the rows read in their dtype, 1 byte an element written).
+//
+// FP8 (e4m3) on the dense arena, form 12e (kv_append into a float8_e4m3fn
+// arena: the TPU kernel casts the new rows to the arena dtype,
+// kv_append.py:49-58, :78-79): the rows kernel of 1e and 11e with the
+// dense addressing of kv_append's copy (one page of Smax slots a sequence,
+// row b into arena row b, a slot outside [0, Smax) dropped), the same
+// conversion in registers; S rows a sequence (the prefill's bucket, or 1
+// at decode) are S blocks a (sequence, kv head).
 #include "common.cuh"
 
 namespace {
@@ -192,11 +200,13 @@ __device__ __forceinline__ void store_e4m3(unsigned char* o, const T* s) {
   }
 }
 
-// grid (B, T, kvN): forms 1e and 11e. Row (b, t, h) of new K and new V (T:
-// f32 or bf16; strides in elements) converted into the e4m3 pools at
-// pool[layer, page, h, slot, :], the slot rules of
-// paged_append_rows_kernel. E: elements a thread handles at once.
-template <typename T, int E>
+// grid (B, T, kvN): forms 1e and 11e, and (DENSE) 12e. Row (b, t, h) of new
+// K and new V (T: f32 or bf16; strides in elements) converted into the
+// e4m3 pools at pool[layer, page, h, slot, :], the slot rules of
+// paged_append_rows_kernel (DENSE: the arena [L, B', kvN, Smax, D], row b
+// at slot positions[b] + t, a slot outside [0, Smax) dropped). E:
+// elements a thread handles at once.
+template <typename T, int E, bool DENSE>
 __global__ void paged_append_rows_e4m3_kernel(
     unsigned char* __restrict__ pool_k, unsigned char* __restrict__ pool_v,
     const T* __restrict__ new_k, const T* __restrict__ new_v,
@@ -208,10 +218,18 @@ __global__ void paged_append_rows_e4m3_kernel(
   const int t = blockIdx.y;
   const int h = blockIdx.z;
   const int pos = positions[b] + t;
-  const int col = pos >= 0 ? pos / ps : -1;
-  int page = (col >= 0 && col < mp) ? tables[(long long)b * mp + col] : -1;
-  if (page < 0) page = num_pages1 - 1;
-  const int slot = pos >= 0 ? pos % ps : 0;
+  int page;
+  int slot;
+  if (DENSE) {
+    if (pos < 0 || pos >= ps) return;
+    page = b;
+    slot = pos;
+  } else {
+    const int col = pos >= 0 ? pos / ps : -1;
+    page = (col >= 0 && col < mp) ? tables[(long long)b * mp + col] : -1;
+    if (page < 0) page = num_pages1 - 1;
+    slot = pos >= 0 ? pos % ps : 0;
+  }
   const long long dst =
       ((((long long)layer * num_pages1 + page) * kvn + h) * ps + slot) *
       (long long)d;
@@ -260,7 +278,7 @@ __global__ void paged_append_prefill_e4m3_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool DENSE>
 int launch_rows_e4m3(void* pool_k, void* pool_v, const void* new_k,
                      const void* new_v, long long k_bstride,
                      long long k_tstride, long long v_bstride,
@@ -270,12 +288,12 @@ int launch_rows_e4m3(void* pool_k, void* pool_v, const void* new_k,
                      cudaStream_t st) {
   const dim3 grid(batch, span, kvn);
   if (vec8)
-    paged_append_rows_e4m3_kernel<T, 8><<<grid, 64, 0, st>>>(
+    paged_append_rows_e4m3_kernel<T, 8, DENSE><<<grid, 64, 0, st>>>(
         (unsigned char*)pool_k, (unsigned char*)pool_v, (const T*)new_k,
         (const T*)new_v, k_bstride, k_tstride, v_bstride, v_tstride, tables,
         positions, layer, num_pages1, kvn, ps, d, mp);
   else
-    paged_append_rows_e4m3_kernel<T, 1><<<grid, 64, 0, st>>>(
+    paged_append_rows_e4m3_kernel<T, 1, DENSE><<<grid, 64, 0, st>>>(
         (unsigned char*)pool_k, (unsigned char*)pool_v, (const T*)new_k,
         (const T*)new_v, k_bstride, k_tstride, v_bstride, v_tstride, tables,
         positions, layer, num_pages1, kvn, ps, d, mp);
@@ -420,15 +438,42 @@ int sli_paged_append_span_e4m3(void* pool_k, void* pool_v, const void* new_k,
     return SLI_ERR_SHAPE;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == SLI_F32)
-    return launch_rows_e4m3<float>(pool_k, pool_v, new_k, new_v, k_bstride,
-                                   k_tstride, v_bstride, v_tstride, tables,
-                                   positions, layer, num_pages1, kvn, ps, d,
-                                   mp, batch, span, vec8, st);
-  if (dtype == SLI_BF16)
-    return launch_rows_e4m3<__nv_bfloat16>(
+    return launch_rows_e4m3<float, false>(
         pool_k, pool_v, new_k, new_v, k_bstride, k_tstride, v_bstride,
         v_tstride, tables, positions, layer, num_pages1, kvn, ps, d, mp,
         batch, span, vec8, st);
+  if (dtype == SLI_BF16)
+    return launch_rows_e4m3<__nv_bfloat16, false>(
+        pool_k, pool_v, new_k, new_v, k_bstride, k_tstride, v_bstride,
+        v_tstride, tables, positions, layer, num_pages1, kvn, ps, d, mp,
+        batch, span, vec8, st);
+  return SLI_ERR_DTYPE;
+}
+
+// Form 12e: sli_kv_append into an e4m3 arena [L, arena_rows, kvn, smax,
+// d]: S rows of `dtype` (SLI_F32 or SLI_BF16; strides in elements) of each
+// of the `batch` <= arena_rows sequences converted at slots offsets[b] +
+// 0..S-1 of arena row b, slots outside [0, smax) dropped; vec8 as above.
+int sli_kv_append_e4m3(void* cache_k, void* cache_v, const void* new_k,
+                       const void* new_v, long long k_bstride,
+                       long long k_sstride, long long v_bstride,
+                       long long v_sstride, const int* offsets, int layer,
+                       int arena_rows, int kvn, int smax, int d, int batch,
+                       int seq, int dtype, int vec8, void* stream) {
+  if (batch <= 0 || seq <= 0 || kvn <= 0 || d <= 0 || smax <= 0 ||
+      batch > arena_rows || (vec8 && d % 8))
+    return SLI_ERR_SHAPE;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == SLI_F32)
+    return launch_rows_e4m3<float, true>(
+        cache_k, cache_v, new_k, new_v, k_bstride, k_sstride, v_bstride,
+        v_sstride, nullptr, offsets, layer, arena_rows, kvn, smax, d, 1,
+        batch, seq, vec8, st);
+  if (dtype == SLI_BF16)
+    return launch_rows_e4m3<__nv_bfloat16, true>(
+        cache_k, cache_v, new_k, new_v, k_bstride, k_sstride, v_bstride,
+        v_sstride, nullptr, offsets, layer, arena_rows, kvn, smax, d, 1,
+        batch, seq, vec8, st);
   return SLI_ERR_DTYPE;
 }
 

@@ -126,13 +126,22 @@
 // newer than the oldest mask the keys below their own band per element
 // (p = 0).
 //
+// FP8 KV on the dense arena (forms 13e, 13ew, 13ec, 13ewc, 13es, 13ews: the
+// TPU kernel casts each e4m3 arena element straight to f32,
+// flash_decode.py:74-75, :95): kernel 4's e4m3 body with DENSE, instantiated
+// in flash_decode_e4m3.cu; sli_flash_decode takes the arena's dtype code as
+// sli_paged_flash_decode takes the pool's. A dense arena's slots past
+// kv_len may hold anything (a stale e4m3 code 0x7f is NaN), and the walk
+// never reads them: the live span stops at min(kv_len, Smax) and starts,
+// with a window, at the band, so only written slots reach a sum.
+//
 // Head dims 32, 64 and 128 for every form; 256 (Gemma) for every form over
 // pools of q's own dtype: paged decode and verify (4, 4w, 4c, 4wc, 4v,
 // 4vw, 4vc, 4vwc) and dense (13, 13w, 13c, 13wc), over int8 pools (4q,
 // 4qw, 4qc, 4qwc, 4vq, 4vqw, 4vqc, 4vqwc: Gemma over INT8 KV) and over
-// e4m3 pools (4e, 4ew, 4ec, 4ewc, 4ve, 4vew, 4vec, 4vewc: Gemma over FP8
-// KV); a window at D 256 starts its walk at the band as at every head
-// dim. An int8 stage at D 256 is 2 x 64 keys x 272 bytes = 34 KB with its
+// e4m3 pools and arenas (4e, 4ew, 4ec, 4ewc, 4ve, 4vew, 4vec, 4vewc, 13e,
+// 13ew, 13ec, 13ewc: Gemma over FP8 KV); a window at D 256 starts its walk
+// at the band as at every head dim. An int8 stage at D 256 is 2 x 64 keys x 272 bytes = 34 KB with its
 // scales, so the int8 ring keeps its 4 stages there: 138 KB and the 32
 // rows' q, probability and state arrays, 179 KB (Geo<int8_t, 256>), one
 // block an SM, three tiles in flight; an e4m3 stage is the same 34 KB
@@ -154,31 +163,38 @@
 
 // Dense-arena decode (the flash_decode entry): q [B, N, D] at batch stride
 // q_bs (elements); cache_k/v the dense arena [L, arena_rows, kvn, smax, D]
-// of q's dtype, sequence b < batch <= arena_rows reading arena row b's
-// slots [0, min(kv_len, smax)), or with window > 0 only the slots
-// [kv_len - window, kv_len) of them (forms 13w, 13wc); cap: 0 for none,
-// else the soft cap (> 0; forms 13c, 13wc); sinks: null for none, else
-// the layer's f32 sink logits [N] (forms 13s, 13ws; D <= 128); out
-// [B, N, D] contiguous. splits > 1: part holds splits * B * N * (D + 2)
-// floats of workspace.
+// of q's dtype or, pool SLI_POOL_E4M3, of float8_e4m3fn codes (forms 13e,
+// 13ew and their capped and sink forms: flash_decode_e4m3.cu), sequence
+// b < batch <= arena_rows reading arena row b's slots [0, min(kv_len,
+// smax)), or with window > 0 only the slots [kv_len - window, kv_len) of
+// them (forms 13w, 13wc); cap: 0 for none, else the soft cap (> 0; forms
+// 13c, 13wc); sinks: null for none, else the layer's f32 sink logits [N]
+// (forms 13s, 13ws; D <= 128); out [B, N, D] contiguous. splits > 1: part
+// holds splits * B * N * (D + 2) floats of workspace. Slots past kv_len,
+// or below the window band, are never read (the copy zero-fills them), so
+// a stale e4m3 slot holding a NaN code (0x7f) reaches no sum.
 extern "C" int sli_flash_decode(const void* q, long long q_bs,
                                 const void* cache_k, const void* cache_v,
                                 const int* kv_lens, void* out, float* part,
                                 int batch, int layer, int arena_rows, int kvn,
                                 int smax, int group, int head_dim, int window,
                                 int splits, float scale, float cap, int dtype,
-                                const float* sinks, void* stream) {
+                                int pool, const float* sinks, void* stream) {
   if (batch <= 0 || kvn <= 0 || group <= 0 || smax <= 0 ||
       batch > arena_rows || window < 0 || cap < 0.f)
     return SLI_ERR_SHAPE;
   if (sinks != nullptr && head_dim > 128) return SLI_ERR_HEAD_DIM;
+  if (dtype != SLI_F32 && dtype != SLI_BF16) return SLI_ERR_DTYPE;
   cudaStream_t st = (cudaStream_t)stream;
   // one "page" of smax slots per sequence, one window row, no scales
   const Args a{q, q_bs, 0LL, cache_k, cache_v, nullptr, nullptr, nullptr,
                kv_lens, out, part, batch, layer, arena_rows, kvn, smax, 1,
                group, 1, window, splits, scale, cap, sinks};
-  if (dtype == SLI_F32) return dispatch_d<float, float, true>(head_dim, a, st);
-  if (dtype == SLI_BF16)
+  if (pool == SLI_POOL_E4M3)  // flash_decode_e4m3.cu
+    return sli_pd::dispatch_e4m3_dense(dtype == SLI_F32, head_dim, a, st);
+  if (dtype == SLI_F32 && pool == SLI_POOL_F32)
+    return dispatch_d<float, float, true>(head_dim, a, st);
+  if (dtype == SLI_BF16 && pool == SLI_POOL_BF16)
     return dispatch_d<__nv_bfloat16, __nv_bfloat16, true>(head_dim, a, st);
   return SLI_ERR_DTYPE;
 }

@@ -2,9 +2,10 @@
 // the dense arena): the kernel, its launch and its dispatch over head dims
 // and options, included by paged_decode.cu (the entry points; its note
 // says what the kernel replaces, what bounds it and how it is built), by
-// paged_decode_i8.cu and by paged_decode_e4m3.cu, which instantiate the
-// INT8-KV and the FP8-KV forms in translation units of their own so that
-// nvcc builds the three in parallel.
+// paged_decode_i8.cu, by paged_decode_e4m3.cu and by flash_decode_e4m3.cu,
+// which instantiate the INT8-KV forms, the paged FP8-KV forms and the
+// dense arena's FP8-KV forms in translation units of their own so that
+// nvcc builds the four in parallel.
 #pragma once
 
 #include <type_traits>
@@ -36,6 +37,10 @@ struct Args {
 int dispatch_i8(bool f32, int head_dim, const Args& a, cudaStream_t st);
 // The FP8-KV forms (e4m3 pools), defined in paged_decode_e4m3.cu.
 int dispatch_e4m3(bool f32, int head_dim, const Args& a, cudaStream_t st);
+// The FP8-KV forms of the dense arena (kernel 13 over an e4m3 arena),
+// defined in flash_decode_e4m3.cu.
+int dispatch_e4m3_dense(bool f32, int head_dim, const Args& a,
+                        cudaStream_t st);
 
 }  // namespace sli_pd
 

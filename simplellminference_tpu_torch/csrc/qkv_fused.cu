@@ -18,10 +18,10 @@
 //   cache indexed by the grouped engine's group-local layer, the weights
 //   by the global one) needs nothing of the kernel: the launcher gets the
 //   layer's weight, scale and norm pointers and indexes the pools only by
-//   kv_layer. Its FP8-KV form (6e, paged): the rotated k and the v rows go
-//   from f32 straight to e4m3 (qkv_slots.cuh store_pool, the JAX
-//   package's rounding), as the TPU kernel rounds them into slabs of the
-//   pool dtype (qkv_fused.py:155-158, :370-371).
+//   kv_layer. Its FP8-KV form (6e, paged; 6de, the dense arena): the
+//   rotated k and the v rows go from f32 straight to e4m3 (qkv_slots.cuh
+//   store_pool, the JAX package's rounding), as the TPU kernel rounds them
+//   into slabs of the pool dtype (qkv_fused.py:155-158, :370-371).
 //
 // Bound on the H100: bytes. The qkv weight ([H, (N + 2 kvN) D] int8, 50.3
 // MB at Llama-2-7B: 15.0 us at 3.35 TB/s) dominates; x, the tables and
@@ -253,9 +253,11 @@ int sli_qkv_fused(const void* x, long long ldx, const void* nw, int nw_bf16,
 }
 
 // The dense-arena form (fused_qkv_append with tables=None): cache_k/v are
-// [L, arena_rows, kvn, smax, d] (cache_dt SLI_POOL_F32 or _BF16); x row b <
-// b_rows <= arena_rows writes arena row b at slot positions[b] (dropped
-// outside [0, smax)). Other arguments as sli_qkv_fused; no INT8-KV form.
+// [L, arena_rows, kvn, smax, d] (cache_dt SLI_POOL_F32, _BF16 or _E4M3:
+// form 6de, k/v rounded from f32 to e4m3 once); x row b < b_rows <=
+// arena_rows writes arena row b at slot positions[b] (dropped outside
+// [0, smax)). Other arguments as sli_qkv_fused; no INT8-KV form (the JAX
+// dense arena has no scale pools).
 int sli_qkv_fused_dense(const void* x, long long ldx, const void* nw,
                         int nw_bf16, const void* wq, const float* ws,
                         const float* sin_t, const float* cos_t,
@@ -265,7 +267,8 @@ int sli_qkv_fused_dense(const void* x, long long ldx, const void* nw,
                         int n_heads, int d, float eps, int x_dtype, int vec,
                         void* stream) {
   if (b > arena_rows) return SLI_ERR_SHAPE;
-  if (cache_dt != SLI_POOL_F32 && cache_dt != SLI_POOL_BF16)
+  if (cache_dt != SLI_POOL_F32 && cache_dt != SLI_POOL_BF16 &&
+      cache_dt != SLI_POOL_E4M3)
     return SLI_ERR_DTYPE;
   return sli_qkv_fused(x, ldx, nw, nw_bf16, wq, ws, sin_t, cos_t, cache_k,
                        cache_v, nullptr, nullptr, cache_dt, q_out, nullptr,

@@ -9,8 +9,11 @@
 // qkv_fused.py:37-184; wrapper :229) in all four of its forms: paged (6),
 // dense arena (6d), quantizing INT8 KV (6q) and kv_layer (6k, pools
 // indexed by kv_layer: nothing of the kernel changes), and over e4m3
-// pools (6e, paged): each k/v element rounded from f32 to e4m3 once in the
-// tail's store (qkv_slots.cuh store_pool).
+// pools (6e, paged) and an e4m3 dense arena (6de): each k/v element
+// rounded from f32 to e4m3 once in the tail's store (qkv_slots.cuh
+// store_pool), into the slot qkv_slots.cuh slot_row gives (the dense
+// arena drops a slot past Smax); at D 256 each block rounds its own
+// 64-column runs of a head, as 6e/256 does.
 //
 // Bound on the H100: bytes. The qkv weight ([H, (N + 2 kvN) D] int8, 50.3
 // MB at Llama-2-7B: 15.0 us at 3.35 TB/s; 25.2 MB, 7.5 us at Mistral-7B)
@@ -292,8 +295,8 @@ extern "C" {
 // x: [b, h] bf16 at row stride ldx (b <= 64); nw: the layer's norm weight
 // [h] (f32, or bf16 when nw_bf16); wq: the layer's [h, (n_heads + 2 kvn) d]
 // int8 with ws its f32 scales; sin/cos: [b, d/2] f32; pools: [L,
-// num_pages1, kvn, ps, d] of pool_dt (SLI_POOL_F32, _BF16, or _E4M3: form
-// 6e, paged only), written at pool layer kv_layer, with tables [b, mp]
+// num_pages1, kvn, ps, d] of pool_dt (SLI_POOL_F32, _BF16, or _E4M3: forms
+// 6e and, dense, 6de), written at pool layer kv_layer, with tables [b, mp]
 // int32; tables null: the dense arena [L, num_pages1 >= b, kvn, ps = Smax,
 // d], x row r into arena row r; pool_ks/pool_vs: null, or (INT8 KV, paged)
 // the f32 scale pools [L, num_pages1, kvn, ps] of int8 pools; positions:
@@ -321,9 +324,7 @@ int sli_qkv_fused_mma(const void* x, long long ldx, const void* nw,
   const int nq = (n_heads + 2 * kvn) * d;
   if (nq % 128 || nq / 128 > QKV_MAX_TILES) return SLI_ERR_SHAPE;
   if ((pool_ks == nullptr) != (pool_vs == nullptr)) return SLI_ERR_SHAPE;
-  if (!qkv::pool_ok(pool_dt, pool_ks != nullptr) ||
-      (tables == nullptr && pool_dt == SLI_POOL_E4M3))
-    return SLI_ERR_DTYPE;
+  if (!qkv::pool_ok(pool_dt, pool_ks != nullptr)) return SLI_ERR_DTYPE;
   if (pool_ks != nullptr && tables == nullptr) return SLI_ERR_SHAPE;
   if (tables == nullptr && b > num_pages1) return SLI_ERR_SHAPE;
   if (kch < h && work == nullptr) return SLI_ERR_SHAPE;

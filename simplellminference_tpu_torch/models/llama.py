@@ -36,7 +36,9 @@ to its fresh, unquantized k/v; only its write is quantized. FP8 (e4m3)
 pools take the same paged branches, the grouped engine's e4m3 ring pools,
 sinks and the soft cap included (4ew, 4vew, 8ew, 6ek; 4es, 4ews, 4ves,
 4vews, 8es, 8ews; 4ec, 4ewc, 4vec, 4vewc, 8ec, 8ewc), at Gemma's head_dim
-256 too.
+256 too; and an e4m3 dense arena takes the dense branches of
+:func:`forward` (12e, 6de, 13e with its window, capped and sink forms),
+the prefill from slot 0 still attending its fresh rows.
 
 Weights are plain tensors or :class:`~simplellminference_tpu_torch.ops.
 linear.QuantizedWeight` leaves, INT8 or split-half INT4 with optional

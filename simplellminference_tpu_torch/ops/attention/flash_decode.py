@@ -31,6 +31,20 @@ row with (sink, 1) (13s, 13ws; bf16/f32 arenas at D 32-128); launches
 with sinks count in their form's ``launches`` and in
 :data:`~.flash_prefill.SINK_LAUNCHES` by (form, head dim).
 
+FP8 (float8_e4m3fn) arenas under bf16 or f32 q (forms 13e, 13ew and,
+with the cap and sinks, 13ec, 13ewc, 13es, 13ews; the TPU kernel casts
+each e4m3 element straight to f32, flash_decode.py:74-75, :95): the
+kernel converts each staged code exactly in registers, the plain version
+reads the exact f32 values. Each is a form of its own,
+:func:`flash_decode_fp8kv` and :func:`flash_decode_fp8kv_window`, with its
+own launch count; a call of :func:`flash_decode` over an e4m3 arena
+counts as the form its options and arena name (as
+:mod:`~simplellminference_tpu_torch.ops.attention.paged_decode`'s forms
+do), and in :data:`D256_LAUNCHES`, ``CAP_LAUNCHES`` and ``SINK_LAUNCHES``
+as the bf16 forms are. Slots past kv_len, or below a window's band, are
+never read by the kernel, so a stale slot (an e4m3 code 0x7f is NaN)
+reaches no sum; the plain version zeroes them before its products.
+
 A row with kv_len <= 0 comes out as zeros, as from the JAX kernel (its
 running sum stays 0). ``bk``, ``rows_target`` and ``max_kv`` are the TPU
 kernel's tiling hints and bounds on its grid; the kernel stops at kv_len
@@ -47,9 +61,7 @@ from simplellminference_tpu_torch.ops.attention.flash_prefill import (
 from simplellminference_tpu_torch.ops.attention.paged_decode import (
     HEAD_DIMS, MAX_ROWS, decode_splits, row_blocks, workspace)
 
-# launches at head_dim 256 (Gemma; each also counts in its form's
-# ``launches``)
-D256_LAUNCHES = {"flash_decode": 0, "flash_decode_window": 0}
+E4M3 = torch.float8_e4m3fn
 
 
 def _stacked(k_cache, v_cache, layer):
@@ -66,8 +78,9 @@ def flash_decode_ref(q, k_cache, v_cache, kv_lens, layer=None,
                      window: int | None = None,
                      logit_cap: float | None = None,
                      sinks=None) -> torch.Tensor:
-    """Plain version of :func:`flash_decode` and its window, capped and
-    sink forms: reference attention over the arena rows of the batch,
+    """Plain version of :func:`flash_decode` and its window, capped, sink
+    and FP8-KV forms (an e4m3 arena read as its exact f32 values):
+    reference attention over the arena rows of the batch,
     keys at slots < kv_len (and >= kv_len - ``window``), the scores
     soft-capped by ``logit_cap`` before the mask, each head's ``sinks``
     logit in the softmax; zeros for a row with no such slot (kv_len <= 0,
@@ -83,6 +96,11 @@ def flash_decode_ref(q, k_cache, v_cache, kv_lens, layer=None,
     mask = key_pos < lens
     if window is not None:
         mask = mask & (key_pos >= lens - window_size(window))
+    if ck.dtype == E4M3:
+        # the exact values of the codes; slots outside the mask (a stale
+        # code may be NaN) zeroed, as the kernel never reads them
+        live_kv = mask[:, 0, 0][:, None, :, None]          # [B, 1, Smax, 1]
+        ck, cv = (torch.where(live_kv, c.float(), 0.0) for c in (ck, cv))
     out = ref_ops.attention(q[:, None], ck.transpose(1, 2),
                             cv.transpose(1, 2), mask, scale=sm_scale,
                             logit_cap=cap_value(logit_cap),
@@ -99,28 +117,17 @@ def flash_decode(q, k_cache, v_cache, kv_lens, bk: int | None = None,
                  window: int | None = None, sm_scale: float | None = None,
                  logit_cap: float | None = None, sinks=None) -> torch.Tensor:
     """q: [B, N, D]; k/v_cache: [B', kvN, Smax, D], or the stacked arena
-    [L, B', kvN, Smax, D] with an int ``layer``, B <= B'; kv_lens: [B]
-    -> out [B, N, D] in q's dtype, attending arena slots [0, kv_len).
-    ``window`` takes :func:`flash_decode_window`; ``logit_cap`` > 0 is
-    Gemma-2's soft cap (13c); ``sinks`` [N] f32 add each head's sink logit
-    to its softmax (13s)."""
+    [L, B', kvN, Smax, D] with an int ``layer``, B <= B', of q's dtype or
+    float8_e4m3fn (FP8 KV); kv_lens: [B] -> out [B, N, D] in q's dtype,
+    attending arena slots [0, kv_len). ``window`` takes
+    :func:`flash_decode_window`; ``logit_cap`` > 0 is Gemma-2's soft cap
+    (13c); ``sinks`` [N] f32 add each head's sink logit to its softmax
+    (13s). The launch counts as the form the options and the arena name
+    (13, 13w, 13e, 13ew; a capped or sink form in the count of the form it
+    caps or seeds)."""
     del bk, rows_target, max_kv   # TPU tiling hints
-    if window is not None:
-        return flash_decode_window(q, k_cache, v_cache, kv_lens, window,
-                                   layer, sm_scale, logit_cap, sinks)
-    cap = cap_value(logit_cap)
-    check_sinks_head_dim(sinks, q.shape[-1])
-    if not q.is_cuda:
-        return flash_decode_ref(q, k_cache, v_cache, kv_lens, layer,
-                                sm_scale, logit_cap=cap, sinks=sinks)
-    out = _launch(q, k_cache, v_cache, kv_lens, layer, sm_scale, 0, cap,
-                  "flash_decode", sinks)
-    flash_decode.launches += 1
-    count_launch("flash_decode", q.shape[-1], cap, D256_LAUNCHES, sinks)
-    return out
-
-
-flash_decode.launches = 0
+    return _run("flash_decode", q, k_cache, v_cache, kv_lens, layer,
+                sm_scale, window, logit_cap, sinks)
 
 
 def flash_decode_window(q, k_cache, v_cache, kv_lens, window: int,
@@ -129,22 +136,71 @@ def flash_decode_window(q, k_cache, v_cache, kv_lens, window: int,
                         sinks=None) -> torch.Tensor:
     """13w: :func:`flash_decode` over arena slots kv_len - window ..
     kv_len - 1 only; no slot below them is read (13wc with a
-    ``logit_cap``, 13ws with ``sinks``)."""
-    window = window_size(window)
+    ``logit_cap``, 13ws with ``sinks``; over an e4m3 arena 13ew and its
+    forms)."""
+    return _run("flash_decode", q, k_cache, v_cache, kv_lens, layer,
+                sm_scale, window_size(window), logit_cap, sinks)
+
+
+def flash_decode_fp8kv(q, k_cache, v_cache, kv_lens, layer=None,
+                       sm_scale: float | None = None,
+                       logit_cap: float | None = None,
+                       sinks=None) -> torch.Tensor:
+    """13e: :func:`flash_decode` of q [B, N, D] bf16 or f32 against a
+    float8_e4m3fn arena (no scales); out in q's dtype (13ec with a
+    ``logit_cap``, 13es with ``sinks``)."""
+    _check_e4m3(k_cache, v_cache)
+    return _run("flash_decode", q, k_cache, v_cache, kv_lens, layer,
+                sm_scale, None, logit_cap, sinks)
+
+
+def flash_decode_fp8kv_window(q, k_cache, v_cache, kv_lens, window: int,
+                              layer=None, sm_scale: float | None = None,
+                              logit_cap: float | None = None,
+                              sinks=None) -> torch.Tensor:
+    """13ew: :func:`flash_decode_fp8kv` over arena slots kv_len - window ..
+    kv_len - 1 only (13ewc with a ``logit_cap``, 13ews with ``sinks``)."""
+    _check_e4m3(k_cache, v_cache)
+    return _run("flash_decode", q, k_cache, v_cache, kv_lens, layer,
+                sm_scale, window_size(window), logit_cap, sinks)
+
+
+def _check_e4m3(k_cache, v_cache):
+    if k_cache.dtype != E4M3 or v_cache.dtype != E4M3:
+        raise ValueError("the FP8-KV forms take float8_e4m3fn arenas")
+
+
+# name -> the form whose launch count a call adds to
+_FORMS = {f.__name__: f for f in (flash_decode, flash_decode_window,
+                                  flash_decode_fp8kv,
+                                  flash_decode_fp8kv_window)}
+for _f in _FORMS.values():
+    _f.launches = 0
+# each form's launches at head_dim 256 (Gemma; each also counts in its
+# form's ``launches``)
+D256_LAUNCHES = {name: 0 for name in _FORMS}
+
+
+def _run(name, q, k_cache, v_cache, kv_lens, layer, sm_scale, window,
+         logit_cap, sinks):
+    """Every form's body: the plain version for CPU tensors; for CUDA
+    tensors the kernel, one launch added to the count of the form the
+    options name (``name``, ``_fp8kv`` over an e4m3 arena, ``_window``
+    with a window)."""
     cap = cap_value(logit_cap)
     check_sinks_head_dim(sinks, q.shape[-1])
+    if window is not None:
+        window = window_size(window)
+    form = _FORMS[name + "_fp8kv" * (k_cache.dtype == E4M3)
+                  + "_window" * (window is not None)]
     if not q.is_cuda:
         return flash_decode_ref(q, k_cache, v_cache, kv_lens, layer,
                                 sm_scale, window, cap, sinks)
-    out = _launch(q, k_cache, v_cache, kv_lens, layer, sm_scale, window,
-                  cap, "flash_decode_window", sinks)
-    flash_decode_window.launches += 1
-    count_launch("flash_decode_window", q.shape[-1], cap, D256_LAUNCHES,
-                 sinks)
+    out = _launch(q, k_cache, v_cache, kv_lens, layer, sm_scale,
+                  window or 0, cap, form.__name__, sinks)
+    form.launches += 1
+    count_launch(form.__name__, q.shape[-1], cap, D256_LAUNCHES, sinks)
     return out
-
-
-flash_decode_window.launches = 0
 
 
 def _launch(q, k_cache, v_cache, kv_lens, layer, sm_scale, window: int,
@@ -164,8 +220,11 @@ def _launch(q, k_cache, v_cache, kv_lens, layer, sm_scale, window: int,
                                   f"kernel holds at most {MAX_ROWS})")
     if d not in HEAD_DIMS:
         raise NotImplementedError(f"head_dim {d} (kernel takes {HEAD_DIMS})")
-    if not (q.dtype == ck.dtype == cv.dtype):
-        raise NotImplementedError(f"q {q.dtype} with a {ck.dtype} arena")
+    if ck.dtype != cv.dtype or not (
+            q.dtype == ck.dtype or (ck.dtype == E4M3 and q.dtype in (
+                torch.bfloat16, torch.float32))):
+        raise NotImplementedError(f"q {q.dtype} with a {ck.dtype} arena "
+                                  f"(quantized KV)")
     if not (ck.is_contiguous() and cv.is_contiguous()):
         raise ValueError("caches must be contiguous")
     if not 0 <= layer < n_layers:
@@ -190,6 +249,7 @@ def _launch(q, k_cache, v_cache, kv_lens, layer, sm_scale, window: int,
         kv_lens.data_ptr(), out.data_ptr(),
         0 if part is None else part.data_ptr(), b, layer, arena_rows, kvn,
         smax, n // kvn, d, window, splits, scale, cap or 0.0, code,
+        cuda_build.pool_code(ck.dtype),
         0 if sinks is None else sinks.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, rc, what)

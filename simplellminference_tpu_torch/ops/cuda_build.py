@@ -90,8 +90,10 @@ _SIGNATURES = {
                           _I, _I, _I, _F, _P],
     "sli_kv_append": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _I, _I, _I, _I, _I,
                       _I, _I, _I, _P],
+    "sli_kv_append_e4m3": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _P],
     "sli_flash_decode": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _F, _F, _I, _P, _P],
+                         _I, _I, _I, _F, _F, _I, _I, _P, _P],
     "sli_qkv_fused_dense": [_P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P,
                             _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                             _P],

@@ -43,11 +43,14 @@ kernel rounds its f32 rows into slabs of the pool dtype
 dtype goes to the kernels as its own code (``cuda_build.pool_code``),
 apart from the activation dtype. With a ``kv_layer`` (6ek: the grouped
 engine's e4m3 ring pools) it is the same wrapper, its launches with a
-kv_layer also in :data:`KV_LAYER_LAUNCHES`; e4m3 pools on the dense arena
-raise. At head_dim 256 (Gemma over FP8 KV, 6e/256 and 6ek/256) a head's
-columns lie in two column blocks, as for 6q/256, but each element rounds
-to e4m3 on its own, so each block writes the codes of its own columns and
-no further launch is needed.
+kv_layer also in :data:`KV_LAYER_LAUNCHES`. On an e4m3 dense arena
+(``tables=None``, 6de) it is the same wrapper again, k/v rounded from f32
+to e4m3 once as the JAX dense form rounds them into its window slabs
+(qkv_fused.py:155-158, :370-371), its dense launches also in
+:data:`DENSE_LAUNCHES`. At head_dim 256 (Gemma over FP8 KV, 6e/256,
+6ek/256 and 6de/256) a head's columns lie in two column blocks, as for
+6q/256, but each element rounds to e4m3 on its own, so each block writes
+the codes of its own columns and no further launch is needed.
 
 Pools are [L, P+1, kvN, ps, D] and are written in place; an unmapped (-1)
 page, or a position past the table, writes to the trash page (the last
@@ -60,8 +63,10 @@ row b writes arena row b at slot ``offsets[b]``, and a slot outside
 [0, Smax) is dropped (:func:`~simplellminference_tpu_torch.ops.kv_append.
 kv_append`'s rule). The rounding is the paged form's. On the card it is
 its own wrapper, :func:`fused_qkv_append_dense`, with its own launch
-count; its quantizing (INT8-KV) form stays paged-only and raises, as the
-JAX wrapper asserts (qkv_fused.py:291-292).
+count over bf16/f32 arenas (an e4m3 arena goes to the FP8-KV form, 6de);
+its quantizing (INT8-KV) form stays paged-only and raises, as the JAX
+wrapper asserts (qkv_fused.py:291-292): the JAX dense arena has no scale
+pools.
 
 The ``kv_layer`` form (qkv_fused.py:294-299, the grouped engine's ring
 pools): the pools are indexed by ``kv_layer`` (the windowed group's local
@@ -94,16 +99,21 @@ HEAD_DIMS = (32, 64, 128, 256)
 # counts in QKV_REGIME_LAUNCHES), and there of the kv_layer form (6k:
 # Gemma-2's grouped pools), of the quantizing form (6q/256) and of the
 # FP8-KV form (6e/256), those of the last two with a kv_layer (INT8 and
-# e4m3 ring pools) apart too
+# e4m3 ring pools) apart too, and those of the FP8-KV form on the dense
+# arena (6de/256)
 D256_LAUNCHES = {"mma": 0, "fma": 0}
 D256_FORM_LAUNCHES = {"fused_qkv_append_kv_layer": 0,
                       "fused_qkv_append_int8kv": 0,
                       "fused_qkv_append_int8kv_kv_layer": 0,
                       "fused_qkv_append_fp8kv": 0,
-                      "fused_qkv_append_fp8kv_kv_layer": 0}
+                      "fused_qkv_append_fp8kv_kv_layer": 0,
+                      "fused_qkv_append_fp8kv_dense": 0}
 # launches of the FP8-KV form with a kv_layer (6ek: e4m3 ring pools), each
 # also in the form's own count
 KV_LAYER_LAUNCHES = {"fused_qkv_append_fp8kv": 0}
+# launches of the FP8-KV form on the dense arena (6de: an e4m3 arena,
+# tables=None), each also in the form's own count
+DENSE_LAUNCHES = {"fused_qkv_append_fp8kv": 0}
 MMA_KT = 64               # K rows a stage of the tensor-core kernel
 MMA_COLS = 128            # qkv columns a block of it: whole heads
 MMA_MAX_TILES = 4096      # most column tiles (its arrival counters)
@@ -141,8 +151,6 @@ def _check(x, pool_k, pool_v, tables, cache_ks, cache_vs, kv_layer,
            layer) -> bool:
     """Raise for the forms not ported; True for the quantizing form
     (scale pools given and checked)."""
-    if pool_k.dtype == E4M3 and tables is None:
-        raise NotImplementedError("FP8 KV on a dense KV arena (tables=None)")
     if tables is None and (cache_ks is not None or cache_vs is not None):
         raise NotImplementedError("INT8 KV on a dense KV arena (tables="
                                   "None): the quantizing append is a "
@@ -245,14 +253,14 @@ def fused_qkv_append(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
                                        pool_v, cache_ks, cache_vs, layer,
                                        offsets, n_heads, kv_heads, eps,
                                        tables, kv_layer)
-    if tables is None:
-        return fused_qkv_append_dense(x, norm_w, wq, ws, sin, cos, pool_k,
-                                      pool_v, layer, offsets, n_heads,
-                                      kv_heads, eps)
     if pool_k.dtype == E4M3:
         return fused_qkv_append_fp8kv(x, norm_w, wq, ws, sin, cos, pool_k,
                                       pool_v, layer, offsets, tables,
                                       n_heads, kv_heads, eps, kv_layer)
+    if tables is None:
+        return fused_qkv_append_dense(x, norm_w, wq, ws, sin, cos, pool_k,
+                                      pool_v, layer, offsets, n_heads,
+                                      kv_heads, eps)
     if kv_layer is not None:
         return fused_qkv_append_kv_layer(x, norm_w, wq, ws, sin, cos, pool_k,
                                          pool_v, layer, kv_layer, offsets,
@@ -301,7 +309,9 @@ def fused_qkv_append_fp8kv(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
                            kv_layer=None):
     """The FP8-KV form of :func:`fused_qkv_append` (6e): k/v rounded from
     f32 to e4m3 into the float8_e4m3fn pools, at ``kv_layer`` when given
-    (6ek: e4m3 ring pools). Returns (q, pool_k, pool_v)."""
+    (6ek: e4m3 ring pools), or with ``tables=None`` into an e4m3 dense
+    arena [L, B', kvN, Smax, D], B <= B' (6de). Returns (q, pool_k,
+    pool_v)."""
     if not x.is_cuda:
         return fused_qkv_append_ref(x, norm_w, wq, ws, sin, cos, pool_k,
                                     pool_v, layer, offsets, n_heads,
@@ -309,15 +319,21 @@ def fused_qkv_append_fp8kv(x, norm_w, wq, ws, sin, cos, pool_k, pool_v,
     _check(x, pool_k, pool_v, tables, None, None, kv_layer, layer)
     kli = layer if kv_layer is None else int(kv_layer)
     _check_e4m3_pools(pool_k, pool_v, x, kli)
+    dense = tables is None
+    if dense and x.shape[0] > pool_k.shape[1]:
+        raise ValueError(f"{x.shape[0]} rows for an arena of "
+                         f"{pool_k.shape[1]} rows")
     q = _launch(x, norm_w, wq, ws, sin, cos, pool_k, pool_v, None, None,
                 layer, kli, offsets, n_heads, kv_heads, eps, tables,
                 "fused_qkv_append_fp8kv")
     fused_qkv_append_fp8kv.launches += 1
     KV_LAYER_LAUNCHES["fused_qkv_append_fp8kv"] += int(kv_layer is not None)
+    DENSE_LAUNCHES["fused_qkv_append_fp8kv"] += int(dense)
     if pool_k.shape[-1] == 256:
         D256_FORM_LAUNCHES["fused_qkv_append_fp8kv"] += 1
         D256_FORM_LAUNCHES["fused_qkv_append_fp8kv_kv_layer"] += int(
             kv_layer is not None)
+        D256_FORM_LAUNCHES["fused_qkv_append_fp8kv_dense"] += int(dense)
     return q, pool_k, pool_v
 
 
@@ -329,7 +345,12 @@ def fused_qkv_append_dense(x, norm_w, wq, ws, sin, cos, cache_k, cache_v,
                            kv_heads: int | None = None, eps: float = 1e-5):
     """The dense-arena form of :func:`fused_qkv_append` (``tables=None``):
     x [B, H] into the arena [L, B', kvN, Smax, D], B <= B', row b at slot
-    ``offsets[b]``. Returns (q, cache_k, cache_v)."""
+    ``offsets[b]``; an e4m3 arena takes the FP8-KV form (6de). Returns
+    (q, cache_k, cache_v)."""
+    if cache_k.dtype == E4M3:
+        return fused_qkv_append_fp8kv(x, norm_w, wq, ws, sin, cos, cache_k,
+                                      cache_v, layer, offsets, None, n_heads,
+                                      kv_heads, eps)
     if not x.is_cuda:
         return fused_qkv_append_ref(x, norm_w, wq, ws, sin, cos, cache_k,
                                     cache_v, layer, offsets, n_heads,

@@ -9,7 +9,12 @@ the dense :func:`~simplellminference_tpu_torch.models.llama.forward` on
 the card (kernels ``kv_append``, ``flash_decode`` and, with INT8
 per-channel weights, the dense ``fused_qkv_append``; a sliding window or
 Gemma-2's soft cap takes their window and capped forms, each layer its
-own window, so Mistral and Gemma-2 run here as on the Engine).
+own window, so Mistral and Gemma-2 run here as on the Engine). An FP8
+arena (``kv_dtype=torch.float8_e4m3fn``, as JAX's Generator takes any
+arena dtype) takes the kernels' e4m3 forms: ``kv_append`` (12e) rounds the
+new rows into codes, the fused qkv (6de) its f32 k/v, ``flash_decode``
+(13e and its window, capped and sink forms) reads them exactly; the
+prefill still attends its fresh rows.
 
 - :meth:`Generator.generate` is the Python loop with host control per
   step (stop tokens), sampling with the port's counter-hash sampler:
@@ -55,8 +60,9 @@ class Generator:
                  max_seq: Optional[int] = None, kv_dtype=None,
                  device=None):
         """``device``: CUDA unless ``device="cpu"``; ``params`` must live
-        there. ``kv_dtype``: the arena's dtype (default the model's; FP8 is
-        not ported to the dense arena and raises)."""
+        there. ``kv_dtype``: the arena's dtype (default the model's;
+        ``torch.float8_e4m3fn`` for FP8 KV: the e4m3 forms 12e, 13e and
+        6de write and read it)."""
         llama.check_supported(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -67,8 +73,11 @@ class Generator:
         self.max_batch = max_batch
         self.max_seq = max_seq or cfg.max_seq_len
         self.kv_dtype = torch_dtype(kv_dtype or cfg.dtype)
-        if self.kv_dtype == torch.float8_e4m3fn:
-            raise NotImplementedError("FP8 KV on the dense arena")
+        if self.kv_dtype == torch.int8:
+            # JAX's dense arena has no scale pools: an int8 arena would
+            # hold values cast to int8, not quantized KV
+            raise NotImplementedError("INT8 KV on the dense arena (no "
+                                      "scale pools; a paged-pool path)")
 
     def _tensor(self, a, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)

@@ -23,13 +23,16 @@ Stated tolerances:
 The Engines' runs are in tests/test_torch_fp8kv_engine.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from simplellminference_tpu.core.config import ModelConfig as JaxModelConfig
+from simplellminference_tpu.core.config import SamplingParams as JaxSampling
 from simplellminference_tpu.memory import paged_kv as jpkv
+from simplellminference_tpu.models import llama as jllama
 from simplellminference_tpu.ops import qkv_fused as jqkv
 from simplellminference_tpu.ops import ref_ops as jref
 from simplellminference_tpu.ops.attention import dispatch as jdispatch
@@ -41,8 +44,12 @@ from simplellminference_tpu.ops.attention.paged_prefill import (
     paged_flash_prefill as jax_paged_flash_prefill)
 from simplellminference_tpu.ops.linear import QuantizedWeight as JaxQW
 from simplellminference_tpu.ops.linear import linear as jlinear
-from simplellminference_tpu_torch.core.config import ModelConfig
+from simplellminference_tpu.runtime.generator import (
+    Generator as JaxGenerator)
+from simplellminference_tpu_torch.core.config import (ModelConfig,
+                                                      SamplingParams)
 from simplellminference_tpu_torch.memory import paged_kv as tpkv
+from simplellminference_tpu_torch.models.convert import params_from_jax
 from simplellminference_tpu_torch.ops import cuda_build
 from simplellminference_tpu_torch.ops import paged_append as tpa
 from simplellminference_tpu_torch.ops import qkv_fused as tqkv
@@ -463,17 +470,36 @@ def test_fused_qkv_append_e4m3_matches_jax_kernel_bf16(n, kvn):
 
 
 def test_fused_qkv_append_e4m3_refuses_dense_arena_and_kv_layer():
-    """e4m3 pools on the dense arena raise; with a ``kv_layer`` (6ek, the
-    grouped engine's e4m3 ring pools) the form runs: the weights of
-    ``layer``, the rows written at ``kv_layer`` with the bytes the
-    coupled call writes at ``layer``, every other pool byte unchanged
-    (against JAX's kernel: tests/test_torch_fp8kv_sinks_window.py)."""
+    """e4m3 pools on the dense arena once raised; that form (6de) now
+    runs and writes, at arena row r's slot pos[r], the codes the paged
+    form writes at row r's page slot, with the same q (against JAX's
+    dense kernel: tests/test_torch_fp8kv_dense.py); every other arena
+    byte unchanged. With a ``kv_layer`` (6ek, the grouped engine's e4m3
+    ring pools) the form runs: the weights of ``layer``, the rows written
+    at ``kv_layer`` with the bytes the coupled call writes at ``layer``,
+    every other pool byte unchanged (against JAX's kernel:
+    tests/test_torch_fp8kv_sinks_window.py)."""
     c = _qkv_case(0, 4, 2, "f32")
     pk, pv = (torch_e4(p) for p in c["pools"])
     args = (c["xt"], t(c["nw"]), t(c["wq"]), t(c["ws"]), torch.zeros(3, 16),
             torch.ones(3, 16), pk, pv, 1, t(c["pos"]))
-    with pytest.raises(NotImplementedError, match="FP8 KV on a dense"):
-        tqkv.fused_qkv_append(*args)
+    rng = np.random.default_rng(5)
+    ak, av = e4m3_pools(rng, 2, 3, 2, 48, 32)       # [L, 3 rows, kvN, 48, D]
+    dense = [torch_e4(ak), torch_e4(av)]
+    q_d, *out_d = tqkv.fused_qkv_append(*args[:6], *dense, 1, t(c["pos"]))
+    assert all(a is b for a, b in zip(out_d, dense))
+    paged = [torch_e4(p) for p in c["pools"]]
+    q_p, *_ = tqkv.fused_qkv_append(*args[:6], *paged, 1, t(c["pos"]),
+                                    tables=t(c["tables"]))
+    assert torch.equal(q_d, q_p)
+    p1, ps = paged[0].shape[1], paged[0].shape[3]
+    for got, old, pp in zip(dense, (ak, av), paged):
+        want = old.copy()
+        for r, pos in enumerate(c["pos"]):
+            page = c["tables"][r, pos // ps]
+            page = page if page >= 0 else p1 - 1
+            want[1, r, :, pos] = codes(pp)[1, page, :, pos % ps]
+        np.testing.assert_array_equal(codes(got), want)
     before = [codes(p).copy() for p in (pk, pv)]
     q_k, *out_k = tqkv.fused_qkv_append(*args, tables=t(c["tables"]),
                                         kv_layer=0)
@@ -491,7 +517,19 @@ def test_fused_qkv_append_e4m3_refuses_dense_arena_and_kv_layer():
 
 
 def test_generator_refuses_e4m3_arena():
-    cfg = ModelConfig.tiny_test()
-    params = {"embed": torch.zeros((cfg.vocab_size, cfg.hidden_size))}
-    with pytest.raises(NotImplementedError, match="FP8 KV on the dense"):
-        Generator(cfg, params, kv_dtype=E4, device="cpu")
+    """An e4m3 arena once raised in the Generator; it now runs (12e, 13e),
+    and one greedy step over it gives JAX's token (its Generator over a
+    ``jnp.float8_e4m3fn`` arena); the full runs are in
+    tests/test_torch_fp8kv_dense.py."""
+    jcfg = JaxModelConfig.tiny_test()
+    jp = jllama.init_params(jcfg, jax.random.PRNGKey(4))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    prompts = [[5, 9, 2, 44], [33, 4, 250, 1, 2, 3]]
+    gen = Generator(ModelConfig.tiny_test(), tp, max_batch=2, max_seq=64,
+                    kv_dtype=E4, device="cpu")
+    assert gen.kv_dtype == E4 and gen.new_cache(2, 16).k.dtype == E4
+    got = gen.generate(prompts, SamplingParams(max_new_tokens=2))
+    want = JaxGenerator(jcfg, jp, max_batch=2, max_seq=64,
+                        kv_dtype=jnp.float8_e4m3fn).generate(
+        prompts, JaxSampling(max_new_tokens=2))
+    assert got.token_ids == want.token_ids and got.steps == 2

@@ -3486,3 +3486,197 @@ def test_fused_qkv_append_fp8kv_head_dim_256(cuda, xdt, case):
     kli = 1 if kv_layer is None else kv_layer
     pages = ring[torch.arange(b, device=cuda), pos.long() // ps].long()
     assert (a[0].view(torch.uint8)[kli, pages] & 0x7F == 0x7F).any()
+
+
+# ------------------------------------------- FP8 KV on the dense arena
+
+def _e4m3_arena(g, dev, rows, kvn, smax, d):
+    """An e4m3 dense arena [2, rows, kvN, Smax, D] as the Generator fills
+    it: N(0, 1) rows cast by the plain to_e4m3."""
+    shape = (2, rows, kvn, smax, d)
+    return tuple(ref_ops.to_e4m3(torch.randn(shape, generator=g, device=dev))
+                 for _ in range(2))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("s,offs", [(1, [0, 383, 384, 7]),
+                                    (8, [3, 376, 380, 500]),
+                                    (128, [0, 256, 300, 0])])
+def test_kv_append_fp8kv(cuda, dtype, d, s, offs):
+    # 12e: rows past 464 (NaN codes) converted into the e4m3 arena byte
+    # for byte as the plain version writes them, slots past Smax dropped,
+    # the other layer and the arena row past the batch untouched
+    from simplellminference_tpu_torch.ops import kv_append as ka
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    ck, cv = _e4m3_arena(g, cuda, 5, 4, 384, d)
+    big = torch.randn((4, s, 3 * 4 * d), generator=g, device=cuda,
+                      dtype=dtype) * 300
+    nk = big[..., 4 * d:8 * d].reshape(4, s, 4, d)
+    nv = big[..., 8 * d:].reshape(4, s, 4, d)          # strided views
+    off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    a, r = (ck.clone(), cv.clone()), (ck.clone(), cv.clone())
+    before = (ka.kv_append_fp8kv.launches, ka.kv_append.launches,
+              ka.D256_LAUNCHES["kv_append_fp8kv"])
+    ka.kv_append(*a, nk, nv, 1, off)
+    torch.cuda.synchronize()
+    assert (ka.kv_append_fp8kv.launches, ka.kv_append.launches,
+            ka.D256_LAUNCHES["kv_append_fp8kv"]) == (
+        before[0] + 1, before[1], before[2] + (d == 256))
+    ka.kv_append_ref(*r, nk, nv, 1, off)
+    assert _bytes_equal(a[0], r[0]) and _bytes_equal(a[1], r[1])
+    assert _bytes_equal(a[0][0], ck[0]) and _bytes_equal(a[0][:, 4], ck[:, 4])
+    assert (a[0].view(torch.uint8) & 0x7F == 0x7F).any()
+
+
+# name: (n, kvn, d, smax, cap, sink kind)
+DENSE_FP8_CASES = {
+    "llama": (32, 32, 128, 256, None, None),
+    "gqa": (32, 4, 64, 2048, None, None),
+    "gemma2-capped": (G2_N, G2_KVN, 256, 1024, G2_CAP, None),
+    "gemma2-uncapped": (G2_N, G2_KVN, 256, 1024, None, None),
+    "oss-sinks": (OSS_N, OSS_KVN, OSS_D, 2048, None, "n01"),
+    "oss-sinks-above": (OSS_N, OSS_KVN, OSS_D, 2048, None, "above"),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 64], ids=["13e", "13ew"])
+@pytest.mark.parametrize("case", list(DENSE_FP8_CASES))
+def test_flash_decode_fp8kv_options(cuda, dtype, window, case):
+    # 13e, 13ew and their capped (13ec, 13ewc at D 256) and sink (13es,
+    # 13ews at D 64) forms over an e4m3 arena whose slots past kv_len and
+    # below the band hold code 0x7f (NaN): kv_len 0, 1, a tile edge, the
+    # window's edges, the arena's end and past it (a split walk at 2048
+    # slots): by the rounding rule against the plain version, and bit for
+    # bit the output over the arena with finite codes there
+    from simplellminference_tpu_torch.ops.attention import flash_decode as fd
+    n, kvn, d, smax, cap, sink = DENSE_FP8_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(
+        list(DENSE_FP8_CASES).index(case) + 77)
+    lens = [0, 1, 64, 65, 129, smax, smax + 40, 3]
+    b = len(lens)
+    clean = _e4m3_arena(g, cuda, b + 1, kvn, smax, d)
+    ck, cv = (x.clone() for x in clean)
+    for x in (ck, cv):
+        u = x.view(torch.uint8)
+        for i, ln in enumerate(lens):
+            u[1, i, :, min(ln, smax):] = 0x7F
+            if window:
+                u[1, i, :, :max(0, min(ln - window, smax))] = 0x7F
+    q = torch.randn((b, n, d), generator=g, device=cuda, dtype=dtype) * (
+        20.0 if cap else 1.0)
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    sinks = None if sink is None else _oss_sinks(g, cuda, sink == "above")
+    form = fd.flash_decode_fp8kv_window if window else fd.flash_decode_fp8kv
+    counts = (form.launches, fd.D256_LAUNCHES[form.__name__],
+              fp.CAP_LAUNCHES.get((form.__name__, d), 0),
+              fp.SINK_LAUNCHES.get((form.__name__, d), 0))
+    got = fd.flash_decode(q, ck, cv, kv, layer=1, window=window,
+                          logit_cap=cap, sinks=sinks)
+    torch.cuda.synchronize()
+    assert (form.launches, fd.D256_LAUNCHES[form.__name__],
+            fp.CAP_LAUNCHES.get((form.__name__, d), 0),
+            fp.SINK_LAUNCHES.get((form.__name__, d), 0)) == (
+        counts[0] + 1, counts[1] + (d == 256), counts[2] + bool(cap),
+        counts[3] + (sinks is not None))
+    want = fd.flash_decode_ref(q, ck, cv, kv, layer=1, window=window,
+                               logit_cap=cap, sinks=sinks)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    assert _close(got, want, dtype)
+    assert not got[0].any()
+    assert torch.equal(got, fd.flash_decode(q, *clean, kv, layer=1,
+                                            window=window, logit_cap=cap,
+                                            sinks=sinks))
+
+
+@pytest.mark.parametrize("xdt", DTYPES)
+@pytest.mark.parametrize("n,kvn,d,b,rows", [(8, 2, 64, 4, 5),
+                                            (4, 4, 128, 3, 3),
+                                            (8, 4, 256, 4, 4)])
+def test_fused_qkv_append_dense_fp8kv(cuda, xdt, n, kvn, d, b, rows):
+    # 6de (bf16 rows: 6m; f32 rows: the FMA kernel): k/v past 464 (NaN
+    # codes) at most one e4m3 step from the plain version's codes (past
+    # it, the values within the bf16 dense form's rule), every other byte
+    # equal, a slot at Smax (row 2) dropped; counted in the
+    # FP8-KV form and its dense count (and at D 256 in both D-256 counts)
+    g = torch.Generator(device=cuda).manual_seed(n * kvn + d + 5)
+    h, smax = 256, 128
+    nq = (n + 2 * kvn) * d
+    wq = torch.randint(-127, 128, (2, h, nq), generator=g, device=cuda,
+                       dtype=torch.int8)
+    ws = (torch.rand((2, 1, nq), generator=g, device=cuda) + 0.5) * 3.0
+    nw = (1.0 + 0.1 * torch.randn((2, h), generator=g, device=cuda)).to(xdt)
+    x = torch.randn((b, h), generator=g, device=cuda).to(xdt)
+    pos = torch.tensor([5, 127, 128, 40, 3][:b], dtype=torch.int32,
+                       device=cuda)
+    sin, cos = ref_ops.rope_tables(pos, d, 10000.0)
+    ck, cv = _e4m3_arena(g, cuda, rows, kvn, smax, d)
+    a, r = (ck.clone(), cv.clone()), (ck.clone(), cv.clone())
+    before = (qf.fused_qkv_append_fp8kv.launches,
+              qf.fused_qkv_append_dense.launches,
+              qf.DENSE_LAUNCHES["fused_qkv_append_fp8kv"],
+              qf.D256_FORM_LAUNCHES["fused_qkv_append_fp8kv_dense"])
+    with _one_launch(qf.QKV_REGIME_LAUNCHES,
+                     qf.qkv_regime(b, h, nq, d, xdt)):
+        qa, *_ = qf.fused_qkv_append(x, nw, wq, ws, sin, cos, *a, 1, pos,
+                                     n_heads=n, kv_heads=kvn)
+    torch.cuda.synchronize()
+    assert (qf.fused_qkv_append_fp8kv.launches,
+            qf.fused_qkv_append_dense.launches,
+            qf.DENSE_LAUNCHES["fused_qkv_append_fp8kv"],
+            qf.D256_FORM_LAUNCHES["fused_qkv_append_fp8kv_dense"]) == (
+        before[0] + 1, before[1], before[2] + 1, before[3] + (d == 256))
+    qr, *_ = qf.fused_qkv_append_ref(x, nw, wq, ws, sin, cos, *r, 1, pos,
+                                     n_heads=n, kv_heads=kvn)
+    tol = 1e-5 if xdt == torch.float32 else 2e-2
+    assert float((qa.float() - qr.float()).abs().max()) <= tol * float(
+        qr.float().std())
+    written = torch.zeros(ck.shape[:4], dtype=torch.bool, device=cuda)
+    for i, p in enumerate(pos.tolist()):
+        if p < smax:
+            written[1, i, :, p] = True
+    for ta, tr in zip(a, r):
+        assert _bytes_equal(ta[~written], tr[~written])
+        # past one e4m3 step (a value near zero, when the kernel's rmsnorm
+        # rounds an element of the row to the next bf16), the values by
+        # the bf16 dense form's k/v rule above
+        ga, gr = ta[written], tr[written]
+        far = (_ordinal(ga) - _ordinal(gr)).abs() > 1
+        fin = gr.float()[torch.isfinite(gr.float())]
+        lim = tol * float(fin.std() if xdt == torch.bfloat16
+                          else fin.abs().max())
+        assert float((ga.float()[far] - gr.float()[far]).abs().max()
+                     if far.any() else 0.0) <= lim
+    assert (r[0].view(torch.uint8)[written] & 0x7F == 0x7F).any()
+
+
+def test_generator_fp8kv_runs_the_kernels_only_and_matches_cpu(cuda):
+    # the Generator over an e4m3 arena (f32 weights: 12e and 13e at every
+    # step; INT8 weights: 6de at decode) on the card and the CPU: greedy
+    # tokens of generate and generate_fused equal, every launch a kernel's
+    from simplellminference_tpu_torch.ops import kv_append as ka
+    from simplellminference_tpu_torch.ops.attention import flash_decode as fd
+    from simplellminference_tpu_torch.runtime.generator import Generator
+    cfg = ModelConfig.tiny_test(num_layers=2)
+    prompts = [[5, 9, 2, 44, 17], [33, 4, 250, 1, 2, 3, 4, 5, 6], [7]]
+    refs = (ka.kv_append_ref, fd.flash_decode_ref, fp.flash_prefill_ref,
+            qf.fused_qkv_append_ref)
+    calls = [f.cuda_calls for f in refs]
+    for p_cpu in (llama.init_params(cfg, seed=5, device="cpu"),
+                  _int8_params(cfg, 5, "cpu")):
+        kerns = (fd.flash_decode_fp8kv, fp.flash_prefill, ka.kv_append_fp8kv
+                 if isinstance(p_cpu["layers"]["wqkv"], torch.Tensor)
+                 else qf.fused_qkv_append_fp8kv)
+        launches = [f.launches for f in kerns]
+        outs = []
+        for p, dev in ((p_cpu, "cpu"), (_to(p_cpu, cuda), cuda)):
+            gen = Generator(cfg, p, max_batch=3, max_seq=128,
+                            kv_dtype=torch.float8_e4m3fn, device=dev)
+            res = gen.generate(prompts, SamplingParams(max_new_tokens=12))
+            fused = gen.generate_fused(prompts, 12)
+            assert fused.tolist() == res.token_ids
+            outs.append(res.token_ids)
+        assert outs[0] == outs[1]
+        assert all(f.launches > n for f, n in zip(kerns, launches))
+    assert [f.cuda_calls for f in refs] == calls
