@@ -163,7 +163,14 @@ Phases, in order; any failure exits non-zero:
                 arenas whose slots past kv_len and below the band hold
                 NaN codes (0x7f), no output moved by them; 6de and
                 6de/256 (6m; f32 rows on the FMA kernel) codes at most one
-                e4m3 step from the plain version's. Max |error| beside
+                e4m3 step from the plain version's; then absorbed MLA's
+                shared-KV forms (check_mla) at DeepSeek-V2-Lite's absorbed
+                geometry (16 q heads over one 640-lane latent row): 1l
+                and 2l byte-equal with the V pool absent and the other
+                pages untouched, 4l/640 (the `mla` path's decode, kv_len
+                4096, f32, edges), 8l/640 (chunks at offsets 0 and 512,
+                f32), 3l/640 (8 x 128 rows, f32, ragged), 4l and 8l at
+                D 128. Max |error| beside
                 its tolerance, kernel / plain / library times from
                 CUDA-graph replay, and the bound (the least time for the
                 bytes and operations of the call on an H100 SXM:
@@ -335,7 +342,15 @@ Phases, in order; any failure exits non-zero:
                 prompts: 12e/256, 6de/256, 13ec/256, 13ewc/256) and
                 `gpt_oss_dense_fp8kv` (gpt-oss-20b: 12e at every step,
                 13es, 13ews), each with its exact launch counts and its
-                decode steps under sync debug mode "error".
+                decode steps under sync debug mode "error". Last,
+                absorbed MLA as benchmarks/bench_mla.py's run() serves
+                it (DeepSeek-V2-Lite's attention geometry, dense FFNs, 4
+                layers, bf16, the Engine's defaults with chunk 512, 8 x
+                1024-token prompts, 128 new tokens): `mla` (one shared
+                latent pool, cache.v None: 8l, 2l, 4l, 1l at D 640, no
+                two-pool form) and its naive twin `mla_naive` (8/256, 2,
+                4/256, 1), one draw, each with its KV bytes per token, its
+                decode step beside the twin's and the ratio of the two.
                 Consecutive paths of one model, depth and weights
                 share one draw.
   5. cpu      — the same port at Llama-2-7B width, 1 layer, f32, TF32 off,
@@ -396,7 +411,10 @@ Phases, in order; any failure exits non-zero:
                 its Generator over an e4m3 arena (the window cut to 32;
                 the card carrying on with the CPU's codes, by the FP8-KV
                 rule: 12e/256, 13ec/256, 13ewc/256, counted as
-                `gemma2_dense_fp8kv_cpu`).
+                `gemma2_dense_fp8kv_cpu`); and bench_mla.py's widths at 1
+                layer, absorbed and naive, card vs CPU (3l/640, 4l/640,
+                1l, 2l, and 8l/640 on the prefix traffic), absorbed ==
+                naive on the card, counted as `mla_cpu`.
 
 Then one line ``{"kernels": [...]}`` (each kernel's launches on every
 path, and in phase 3: kernels 16 and 17 run only there) and, last, the
@@ -919,6 +937,24 @@ KERNELS = {
     "fused_qkv_append_fp8kv_dense_d256": dict(
         source="simplellminference_tpu_torch/csrc/qkv_fused_mma.cu",
         replaces="simplellminference_tpu/ops/qkv_fused.py:229"),
+    # absorbed MLA (DeepSeek-V2-Lite's attention, one shared latent pool):
+    # the shared-KV forms of kernels 1 (1l), 2 (2l), 3 (3l), 4 (4l) and 8
+    # (8l); their launches on the `mla` path at D 640
+    "paged_append_decode_shared": dict(
+        source="simplellminference_tpu_torch/csrc/paged_append_shared.cu",
+        replaces="simplellminference_tpu/ops/paged_append.py:54"),
+    "paged_append_prefill_shared": dict(
+        source="simplellminference_tpu_torch/csrc/paged_append_shared.cu",
+        replaces="simplellminference_tpu/ops/paged_append.py:129"),
+    "flash_prefill_shared": dict(
+        source="simplellminference_tpu_torch/csrc/flash_prefill_shared.cu",
+        replaces="simplellminference_tpu/ops/attention/flash_prefill.py:102"),
+    "paged_flash_decode_shared": dict(
+        source="simplellminference_tpu_torch/csrc/paged_decode_shared.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_decode.py:165"),
+    "paged_flash_prefill_shared": dict(
+        source="simplellminference_tpu_torch/csrc/paged_prefill_shared.cu",
+        replaces="simplellminference_tpu/ops/attention/paged_prefill.py:156"),
     # the last two TPU kernels, dispatched from no path (as in JAX)
     "fused_wo_ffn": dict(
         source="simplellminference_tpu_torch/csrc/wo_ffn.cu",
@@ -962,9 +998,12 @@ KERNELS = {
 # FP8 KV for Gemma-2B (the server's prefix traffic, INT8 weights) and
 # Gemma-2-2B (bench.py --kv-dtype int8 and fp8, and --spec-tokens 4 on the
 # prefix traffic), each FP8-KV path after its INT8-KV twin, whose draw it
-# shares; and FP8 KV on the dense arena (bench.py's Generator with
+# shares; FP8 KV on the dense arena (bench.py's Generator with
 # --kv-dtype fp8 at Llama-2-7B, Gemma-2-2B and gpt-oss-20b, INT8 weights),
-# each right after its bf16-KV twin, whose draw it shares
+# each right after its bf16-KV twin, whose draw it shares; and last
+# absorbed MLA through the Engine as benchmarks/bench_mla.py runs it
+# (DeepSeek-V2-Lite's attention geometry: `mla`, one shared latent pool)
+# and its naive twin (`mla_naive`, per-head K/V at D 256), one draw
 PATHS = ("int8", "bf16", "prefix", "int8kv", "int8kv_prefix", "spec",
          "spec_int8kv", "fp8kv", "fp8kv_prefix", "spec_fp8kv", "dense",
          "dense_fp8kv", "dense_bf16", "draft", "int4", "int4_dense", "w8a8",
@@ -975,15 +1014,15 @@ PATHS = ("int8", "bf16", "prefix", "int8kv", "int8kv_prefix", "spec",
          "gpt_oss_prefix", "gpt_oss_spec", "gpt_oss_spec_int8kv",
          "gpt_oss_spec_fp8kv", "gemma_int8kv_prefix", "gemma_fp8kv_prefix",
          "gemma2_int8kv", "gemma2_fp8kv", "gemma2_spec_int8kv",
-         "gemma2_spec_fp8kv")
-# each FP8-KV path of the Gemmas and its INT8-KV twin, and each FP8-KV
-# dense path and its bf16-KV twin, whose device step, bytes floor and idle
-# share it prints beside its own
+         "gemma2_spec_fp8kv", "mla", "mla_naive")
+# each FP8-KV path of the Gemmas and its INT8-KV twin, each FP8-KV dense
+# path and its bf16-KV twin, and naive MLA and its absorbed twin, whose
+# device step, bytes floor and idle share it prints beside its own
 TWINS = {"gemma_fp8kv_prefix": "gemma_int8kv_prefix",
          "gemma2_fp8kv": "gemma2_int8kv",
          "gemma2_spec_fp8kv": "gemma2_spec_int8kv",
          "dense_fp8kv": "dense", "gemma2_dense_fp8kv": "gemma2_dense",
-         "gpt_oss_dense_fp8kv": "gpt_oss_dense"}
+         "gpt_oss_dense_fp8kv": "gpt_oss_dense", "mla_naive": "mla"}
 # each path's decode (or verify) step: engine ms, device ms, floor ms,
 # idle share (filled by the serve functions)
 STEPS: dict = {}
@@ -1168,7 +1207,9 @@ MMA_KERNELS = {"flash_prefill_mma_kernel": "HGMMA",
                "ffn_gate_up_mma_kernel": "HMMA",
                "ffn_down_mma_kernel": "HMMA",
                "qkv_fused_mma_kernel": "HMMA",
-               "qmm_rows_mma_kernel": "HMMA"}
+               "qmm_rows_mma_kernel": "HMMA",
+               "flash_prefill_shared_mma_kernel": "HGMMA",
+               "paged_prefill_shared_mma_kernel": "HGMMA"}
 
 
 class HgmmaCount:
@@ -6817,6 +6858,308 @@ def check_dense_fp8kv(torch, dev, results, extra):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
+# benchmarks/bench_mla.py:22-29's HF dict (DeepSeek-V2-Lite's attention
+# geometry, dense FFNs, 16 layers), written here as the `mla` paths and
+# phase 3's and 5's MLA checks serve it; the benchmark is not imported
+MLA_HF = dict(
+    model_type="deepseek_v2", vocab_size=8192, hidden_size=2048,
+    intermediate_size=5632, num_hidden_layers=16, num_attention_heads=16,
+    num_key_value_heads=16, max_position_embeddings=4096,
+    rms_norm_eps=1e-6, rope_theta=10000.0, tie_word_embeddings=False,
+    n_routed_experts=None, q_lora_rank=None, kv_lora_rank=512,
+    qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+    first_k_dense_replace=16, attention_bias=False)
+# the absorbed geometry: 16 q heads over one latent row of 640 lanes
+MLA = dict(n=16, kvn=1, d=640)
+FP32_CORE_OPS = 67e12   # f32 outside the tensor cores (the FMA bodies)
+
+
+def mla_config(num_layers: int = 16, dtype: str = "bfloat16",
+               absorbed: bool = True):
+    """bench_mla.py's ModelConfig (``run()``: from_hf_dict of
+    :data:`MLA_HF`) through the port's ``from_hf_dict``, at depth
+    ``num_layers`` (first_k_dense_replace stays past it: every layer's FFN
+    dense), absorbed or naive."""
+    from simplellminference_tpu_torch.core.config import ModelConfig
+    return ModelConfig.from_hf_dict(
+        dict(MLA_HF, num_hidden_layers=num_layers), dtype=dtype,
+        mla_absorbed=absorbed)
+
+
+def check_mla(torch, dev, results, extra):
+    """Absorbed MLA's shared-KV forms against their plain versions at
+    DeepSeek-V2-Lite's absorbed geometry (16 q heads over one latent row of
+    640 lanes, pages of 128), the `mla` path's shapes: 1l and 2l
+    byte-equal over the whole pool (the V pool absent; the pages no row
+    goes to untouched: byte-equal to the pool before the call), 1l at the
+    decode step (8 rows at ~1,152) and 2l at the 512-row chunks at offsets
+    0 and 512, a ragged f32 chunk; 4l/640 by the rounding rule at the path's
+    decode (8 rows at kv_len 1,090-1,160) and at kv_len 4096, f32, edge
+    lens (0, 1, a page's edges) and an unmapped page, and 4l at D 128; 8l
+    at offsets 0 and 512 (chunk 512, bf16) by the prefill rule, f32 with
+    ragged offsets and a padding row, and at D 128; 3l/640 at 8 x 128 rows
+    (bf16), f32, and ragged S. Each timed form beside its plain version,
+    its bound (bytes and the bf16 peak; the FP32-core time of the FMA
+    bodies' operations printed beside it) and the library call:
+    scaled_dot_product_attention over the latent rows gathered, K as V,
+    enable_gqa (causal or masked), index_put_ / index_copy_ for the
+    writes."""
+    import torch.nn.functional as F
+
+    from simplellminference_tpu_torch.memory.paged_kv import gather_dense
+    from simplellminference_tpu_torch.ops import paged_append as pa
+    from simplellminference_tpu_torch.ops.attention import flash_prefill as fp
+    from simplellminference_tpu_torch.ops.attention import paged_decode as pd
+    from simplellminference_tpu_torch.ops.attention import paged_prefill as pp
+    gen = torch.Generator(device=dev).manual_seed(2626)
+    bf, f32 = torch.bfloat16, torch.float32
+    n, kvn, d = MLA["n"], MLA["kvn"], MLA["d"]
+    ps, layer = 128, 1
+    scale = 192 ** -0.5   # (nope + rope)^-0.5, query_pre_attn_scalar
+
+    def pool_of(pages, dt, dd=d):
+        return torch.randn((2, pages + 1, kvn, ps, dd), generator=gen,
+                           device=dev, dtype=dt)
+
+    def timed(row, tag, fn, plain, library, nbytes, ops, dtype, err):
+        bms, by = bound_ms(nbytes, ops, dname(torch, dtype))
+        res = dict(max_abs_err=err, ms=time_ms(torch, fn),
+                   plain_ms=time_ms(torch, plain),
+                   library_ms=time_ms(torch, library), bound_ms=bms,
+                   bound_by=by, library=LIBRARY[row])
+        fma_ms = ops / FP32_CORE_OPS * 1e3
+        print(f"[kernels] {row} {tag}: {res['ms']:.6g} ms, bound "
+              f"{bms:.6g} ms by {by} ({nbytes / 1e6:.3f} MB, "
+              f"{ops / 1e6:.1f} MFLOP; the operations on the FP32 cores "
+              f"{fma_ms:.6g} ms)", flush=True)
+        results.setdefault(row, res)
+        extra.append((row, tag, res))
+
+    # 1l: one latent row per sequence; tag -> (B, mp, positions, dtype)
+    for tag, (b, mp, pos, dtype) in {
+            "mla decode": (8, 15, [1090 + 10 * i for i in range(8)], bf),
+            "f32 edges": (6, 3, [0, 127, 128, 383, 384, -1], f32)}.items():
+        pool = pool_of(b * mp, dtype)
+        tables = _tables(torch, dev, b, mp, dead_last=False)
+        tables[1, 1] = -1                       # an unmapped page: trash
+        row = torch.randn((b, 3, kvn, d), generator=gen, device=dev,
+                          dtype=dtype)[:, 1]    # strided, like the model's
+        p_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+        a, r = pool.clone(), pool.clone()
+        pa.paged_append_decode_shared(a, row, tables, p_t, layer)
+        pa.paged_append_decode_shared_ref(r, row, tables, p_t, layer)
+        torch.cuda.synchronize()
+        # the trash page excluded: rows that go there land in any order
+        err = max_err(a[:, :-1], r[:, :-1])
+        page = pa._decode_slots(tables, p_t, pool.shape[1], ps)[0]
+        keep = torch.ones(pool.shape[1], dtype=torch.bool, device=dev)
+        keep[page] = False
+        untouched = bool(torch.equal(a[:, keep], pool[:, keep])
+                         and torch.equal(a[0], pool[0]))
+        print(f"[kernels] paged_append_decode_shared {tag} (B={b}, D={d}, "
+              f"{dname(torch, dtype)}): max|err| {err} (tol 0, the pool but "
+              f"its trash page, no V pool); other pages and layers "
+              f"untouched: {untouched}", flush=True)
+        require(err == 0.0 and untouched,
+                f"paged_append_decode_shared {tag}: {err}, {untouched}")
+        if tag != "mla decode":
+            continue
+        slot = p_t.long() % ps
+        heads = torch.arange(kvn, device=dev)
+
+        def library(a=a, page=page, slot=slot, row=row, heads=heads):
+            a[layer].index_put_((page[:, None], heads[None], slot[:, None]),
+                                row)
+
+        es = pool.element_size()
+        timed("paged_append_decode_shared", tag,
+              lambda: pa.paged_append_decode_shared(a, row, tables, p_t,
+                                                    layer),
+              lambda: pa.paged_append_decode_shared_ref(r, row, tables, p_t,
+                                                        layer),
+              library, 2 * b * kvn * d * es + tables.numel() * 4 + b * 4,
+              0.0, dtype, err)
+        del pool, a, r
+
+    # 2l: a chunk's latent rows at its page offset; tag -> (B, S, page
+    # offsets, mp, dtype)
+    for tag, (b, s, offs, mp, dtype) in {
+            "mla chunk at 0": (1, 512, [0], 15, bf),
+            "mla chunk at 512": (1, 512, [4], 15, bf),
+            "f32 ragged": (3, 300, [0, 1, 2], 6, f32)}.items():
+        pool = pool_of(b * mp, dtype)
+        tables = _tables(torch, dev, b, mp, dead_last=False)
+        npg = -(-s // ps)
+        cols = (torch.tensor(offs, device=dev)[:, None]
+                + torch.arange(npg, device=dev)[None])
+        tcols = tables.long().gather(1, cols).to(torch.int32)
+        x = torch.randn((b, s, 2, kvn, d), generator=gen, device=dev,
+                        dtype=dtype)[:, :, 0]   # strided
+        a, r = pool.clone(), pool.clone()
+        pa.paged_append_prefill_shared(a, x, tcols, layer)
+        pa.paged_append_prefill_shared_ref(r, x, tcols, layer)
+        torch.cuda.synchronize()
+        err = max_err(a, r)
+        keep = torch.ones(pool.shape[1], dtype=torch.bool, device=dev)
+        keep[tcols.long().reshape(-1)] = False
+        untouched = bool(torch.equal(a[:, keep], pool[:, keep])
+                         and torch.equal(a[0], pool[0]))
+        print(f"[kernels] paged_append_prefill_shared {tag} (B={b}, S={s}, "
+              f"D={d}, {dname(torch, dtype)}, "
+              f"{pa.prefill_parts(b * npg * kvn, ps)} blocks a page): "
+              f"max|err| {err} (tol 0, whole pool, no V pool); other pages "
+              f"and layers untouched: {untouched}", flush=True)
+        require(err == 0.0 and untouched,
+                f"paged_append_prefill_shared {tag}: {err}, {untouched}")
+        if tag != "mla chunk at 512":
+            continue
+        idx = tcols.long().reshape(-1)
+        chunks = pa._page_chunks(x, npg, ps)
+
+        def library(a=a, idx=idx, chunks=chunks):
+            a[layer].index_copy_(0, idx, chunks)
+
+        es = pool.element_size()
+        timed("paged_append_prefill_shared", tag,
+              lambda: pa.paged_append_prefill_shared(a, x, tcols, layer),
+              lambda: pa.paged_append_prefill_shared_ref(r, x, tcols, layer),
+              library, b * s * kvn * d * es + b * npg * ps * kvn * d * es
+              + tcols.numel() * 4, 0.0, dtype, err)
+        del pool, a, r
+
+    # 4l: tag -> (n, d, dtype, lens, mp, unmapped page)
+    path_lens = [1090 + 10 * i for i in range(8)]
+    cases = {
+        "mla decode": (n, d, bf, path_lens, 15, False),
+        "mla kv_len 4096": (n, d, bf, [4096] * 8, 33, False),
+        "mla f32": (n, d, f32, path_lens, 15, False),
+        "mla edge lens": (n, d, bf, [0, 1, 127, 128, 129, 1919, 1920, 64],
+                          15, True),
+        "mla f32 edge lens": (n, d, f32, [0, 1, 128, 300], 3, True),
+        "d 128": (n, 128, bf, path_lens, 15, False),
+        "d 128 f32": (4, 128, f32, [0, 5, 129, 250], 2, True),
+    }
+    for tag, (nn, dd, dtype, lens, mp, unmapped) in cases.items():
+        b = len(lens)
+        pool = pool_of(b * mp, dtype, dd)
+        q = torch.randn((b, nn, dd), generator=gen, device=dev, dtype=dtype)
+        tables = _tables(torch, dev, b, mp, dead_last=False)
+        if unmapped:
+            tables[2, 0] = -1
+        kv_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = pd.paged_flash_decode(q, pool, None, tables, kv_t, layer,
+                                    sm_scale=scale)
+        want = pd.paged_flash_decode_ref(q, pool, None, tables, kv_t, layer,
+                                         sm_scale=scale)
+        torch.cuda.synchronize()
+        zero = [i for i in range(b) if lens[i] == 0]
+        err = _attn_check(torch, "paged_flash_decode_shared", tag, got, want,
+                          zero)
+        if tag not in ("mla decode", "mla kv_len 4096"):
+            continue
+        ck, _ = gather_dense(pool[layer], None, tables)
+        mask = (torch.arange(ck.shape[2], device=dev)[None, None, None, :]
+                < kv_t.long()[:, None, None, None])
+        q4 = q[:, :, None]
+        es = q.element_size()
+        kvb, live = _decode_bytes(torch, tables, kv_t, ps, kvn * dd * es)
+        timed("paged_flash_decode_shared", tag,
+              lambda: pd.paged_flash_decode_shared(q, pool, tables, kv_t,
+                                                   layer, scale),
+              lambda: pd.paged_flash_decode_ref(q, pool, None, tables, kv_t,
+                                                layer, sm_scale=scale),
+              lambda: F.scaled_dot_product_attention(
+                  q4, ck, ck, attn_mask=mask, scale=scale, enable_gqa=True),
+              2 * b * nn * dd * es + kvb + tables.numel() * 4 + b * 4,
+              4.0 * nn * dd * live, dtype, err)
+        del pool, ck
+
+    # 8l: tag -> (sq, n, d, offsets, kv_lens, mp, dtype, padding row)
+    cases = {
+        "mla chunk at 0": (512, n, d, [0], [512], 15, bf, False),
+        "mla chunk at 512": (512, n, d, [512], [1024], 15, bf, False),
+        "mla f32 ragged": (100, n, d, [0, 128, 256, 0], [100, 200, 356, 1],
+                           4, f32, True),
+        "d 128": (512, n, 128, [512], [1024], 15, bf, False),
+        "d 128 f32": (70, 4, 128, [0, 128], [70, 150], 2, f32, False),
+    }
+    for tag, (sq, nn, dd, offs, lens, mp, dtype, pad) in cases.items():
+        b = len(offs)
+        pool = pool_of(b * mp, dtype, dd)
+        tables = _tables(torch, dev, b, mp, dead_last=pad)
+        q = torch.randn((b, sq, nn, dd), generator=gen, device=dev,
+                        dtype=dtype)
+        off_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+        kv_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = pp.paged_flash_prefill(q, pool, None, tables, kv_t, off_t,
+                                     layer, sm_scale=scale)
+        want = pp.paged_flash_prefill_shared_ref(q, pool, tables, kv_t,
+                                                 off_t, layer, scale)
+        torch.cuda.synchronize()
+        ok, err, note = _prefill_rule(torch, got, want)
+        print(f"[kernels] paged_flash_prefill_shared {tag} (B={b} Sq={sq} "
+              f"N={nn} kvN={kvn} D={dd}, {dname(torch, dtype)}, splits "
+              f"{pp.prefill_tiles.launch_splits(b, sq, nn, kvn, 0, mp * ps)}"
+              f"): max|err| {err:.3e} ({note}); every row finite: "
+              f"{bool(torch.isfinite(got).all())}", flush=True)
+        require(bool(torch.isfinite(got).all()) and ok,
+                f"paged_flash_prefill_shared {tag} disagrees: {err} ({note})")
+        if not tag.startswith("mla chunk"):
+            continue
+        es = q.element_size()
+        keys = sum(min(o + r + 1, ln) for o, ln in zip(offs, lens)
+                   for r in range(sq))
+        rows = sum(min(ln, o + sq) for o, ln in zip(offs, lens))
+        ck, _ = gather_dense(pool[layer], None, tables)
+        key_pos = torch.arange(ck.shape[2], device=dev)
+        q_pos = off_t.long()[:, None] + torch.arange(sq, device=dev)[None]
+        mask = ((key_pos[None, None] <= q_pos[:, :, None])
+                & (key_pos[None, None] < kv_t.long()[:, None, None]))[:, None]
+        qt = q.transpose(1, 2)
+        timed("paged_flash_prefill_shared", tag,
+              lambda: pp.paged_flash_prefill_shared(q, pool, tables, kv_t,
+                                                    off_t, layer, scale),
+              lambda: pp.paged_flash_prefill_shared_ref(
+                  q, pool, tables, kv_t, off_t, layer, scale),
+              lambda: F.scaled_dot_product_attention(
+                  qt, ck, ck, attn_mask=mask, scale=scale, enable_gqa=True),
+              2 * b * sq * nn * dd * es + rows * kvn * dd * es
+              + tables.numel() * 4 + 2 * b * 4, 4.0 * nn * dd * keys,
+              dtype, err)
+        del pool, ck
+
+    # 3l: tag -> (B, S, n, d, dtype)
+    for tag, (b, s, nn, dd, dtype) in {
+            "mla 8 x 128": (8, 128, n, d, bf),
+            "mla f32": (2, 100, n, d, f32),
+            "mla ragged 200": (2, 200, n, d, bf),
+            "d 128": (4, 96, n, 128, bf)}.items():
+        qkv = torch.randn((b, s, nn + kvn, dd), generator=gen, device=dev,
+                          dtype=dtype)
+        q, kv = qkv[:, :, :nn], qkv[:, :, nn:]   # strided views
+        got = fp.flash_prefill_shared(q, kv, sm_scale=scale)
+        want = fp.flash_prefill_ref(q, kv, kv, scale)
+        torch.cuda.synchronize()
+        ok, err, note = _prefill_rule(torch, got, want)
+        print(f"[kernels] flash_prefill_shared {tag} (B={b} S={s} N={nn} "
+              f"kvN={kvn} D={dd}, {dname(torch, dtype)}): max|err| "
+              f"{err:.3e} ({note}); every row finite: "
+              f"{bool(torch.isfinite(got).all())}", flush=True)
+        require(bool(torch.isfinite(got).all()) and ok,
+                f"flash_prefill_shared {tag} disagrees: {err} ({note})")
+        if tag != "mla 8 x 128":
+            continue
+        es = q.element_size()
+        qt, kt = q.transpose(1, 2), kv.transpose(1, 2)
+        timed("flash_prefill_shared", tag,
+              lambda: fp.flash_prefill_shared(q, kv, sm_scale=scale),
+              lambda: fp.flash_prefill_ref(q, kv, kv, scale),
+              lambda: F.scaled_dot_product_attention(
+                  qt, kt, kt, is_causal=True, scale=scale, enable_gqa=True),
+              (2 * nn + kvn) * b * s * dd * es,
+              4.0 * nn * dd * b * s * (s + 1) / 2, dtype, err)
+
+
 LIBRARY = {"paged_append_decode": "index_put_ x2",
            "paged_append_prefill": "index_copy_ x2",
            "flash_prefill": "scaled_dot_product_attention, causal",
@@ -7196,6 +7539,16 @@ LIBRARY = {"paged_append_decode": "index_put_ x2",
                "torch._weight_int8pack_mm of the qkv product alone"),
            "fused_qkv_append_fp8kv_dense_d256": (
                "torch._weight_int8pack_mm of the qkv product alone"),
+           "paged_append_decode_shared": "index_put_",
+           "paged_append_prefill_shared": "index_copy_",
+           "flash_prefill_shared": "scaled_dot_product_attention, causal, "
+                                   "K as V, enable_gqa",
+           "paged_flash_decode_shared": (
+               "scaled_dot_product_attention on the gathered latent rows, K "
+               "as V, enable_gqa, length mask"),
+           "paged_flash_prefill_shared": (
+               "scaled_dot_product_attention on the gathered latent rows, K "
+               "as V, enable_gqa, offset-causal mask"),
            "fused_wo_ffn": "torch._weight_int8pack_mm x3 + eager rmsnorm "
                            "and SwiGLU",
            "flash_decode_dyn": "scaled_dot_product_attention on the arena "
@@ -7268,6 +7621,9 @@ def phase_kernels(torch, results):
     # FP8 KV on the dense arena (12e, 13e, 13ew, 13ec, 13ewc, 13es, 13ews,
     # 6de and their D-256 forms)
     run(check_dense_fp8kv, results, extra)
+    # absorbed MLA's shared-KV forms (1l, 2l, 3l/640, 4l/640, 8l/640; 4l
+    # and 8l at D 128)
+    run(check_mla, results, extra)
     torch.cuda.empty_cache()
     lap.print("phase-3")
     # every launch of this phase (the checks, their timing): kernels 16
@@ -7722,6 +8078,20 @@ def _wrappers():
                 _Regime(getattr(qf, "D256_FORM_LAUNCHES", {}),
                         "fused_qkv_append_fp8kv_dense"),
                 qf.fused_qkv_append_ref),
+            # absorbed MLA's shared-KV forms (1l, 2l, 3l, 4l, 8l)
+            "paged_append_decode_shared": (
+                pa.paged_append_decode_shared,
+                pa.paged_append_decode_shared_ref),
+            "paged_append_prefill_shared": (
+                pa.paged_append_prefill_shared,
+                pa.paged_append_prefill_shared_ref),
+            "flash_prefill_shared": (fp.flash_prefill_shared,
+                                     fp.flash_prefill_ref),
+            "paged_flash_decode_shared": (pd.paged_flash_decode_shared,
+                                          pd.paged_flash_decode_ref),
+            "paged_flash_prefill_shared": (
+                pp.paged_flash_prefill_shared,
+                pp.paged_flash_prefill_shared_ref),
             "fused_wo_ffn": (ff.fused_wo_ffn, ff.fused_wo_ffn_ref),
             "flash_decode_dyn": (fdd.flash_decode_dyn,
                                  fdd.flash_decode_dyn_ref)}
@@ -9088,6 +9458,143 @@ def serve_mistral_window(torch, path: str, cfg, params, launches: dict,
 
 
 # path: (weights, KV dtype, prefix-cache traffic)
+def mla_launches(absorbed: bool, layers: int, chunks: int,
+                 steps: int) -> dict:
+    """Launches each kernel must show in one Engine run of an `mla` path
+    (bf16 weights and KV, no fused route): per layer, each of ``chunks``
+    prefill chunks writes its pages and attends through the tables, each
+    of ``steps`` decode steps writes its row and attends. Absorbed: the
+    shared-KV forms 2l, 8l, 1l, 4l at D 640 and no launch of a two-pool
+    form; naive: 2, 8 and 4 at D 256 (each also in its ``_d256`` row), 1."""
+    want = {name: 0 for name in KERNELS}
+    if absorbed:
+        forms = {"paged_append_prefill_shared": chunks,
+                 "paged_flash_prefill_shared": chunks,
+                 "paged_append_decode_shared": steps,
+                 "paged_flash_decode_shared": steps}
+    else:
+        forms = {"paged_append_prefill": chunks,
+                 "paged_flash_prefill": chunks,
+                 "paged_flash_prefill_d256": chunks,
+                 "paged_append_decode": steps,
+                 "paged_flash_decode": steps,
+                 "paged_flash_decode_d256": steps}
+    for name, n in forms.items():
+        want[name] = n * layers
+    return want
+
+
+def mla_kv_bytes_per_token(cfg) -> int:
+    """KV bytes a token keeps in one layer: one latent row (absorbed: a
+    shared pool, K is V) or K and V of every head (naive), bf16."""
+    rows = 1 if cfg.mla_absorbed else 2
+    return rows * cfg.num_kv_heads * cfg.head_dim * 2
+
+
+def serve_mla(torch, path: str, cfg, params, launches: dict) -> float:
+    """bench_mla.py's ``run()`` on the port (benchmarks/bench_mla.py:32-64):
+    the Engine's defaults (prefix cache on), prefill_chunk 512, pages of
+    128, bf16 KV, decode bursts of 16, 8 random 1024-token prompts and 128
+    new tokens each (ignore_eos), absorbed (`mla`) or naive (`mla_naive`).
+    A warm-up run, then the measured run with every count reset before it
+    and read after it, held to :func:`mla_launches` (every prompt prefills
+    as two chunks, at offsets 0 and 512); its decode rate as bench_mla.py
+    takes it (tokens after each request's first 8, over the rest of the
+    run); one graph-replayed decode step at the run's mean context beside
+    its bytes floor (weights + the live latent or K/V rows). Returns the
+    decode rate."""
+    import numpy as np
+
+    from simplellminference_tpu_torch.core.config import (EngineConfig,
+                                                          KVCacheConfig,
+                                                          SamplingParams)
+    from simplellminference_tpu_torch.engine import Engine
+    from simplellminference_tpu_torch.models import llama
+
+    batch, ctx, steps, chunk, ps, burst = 8, 1024, 128, 512, 128, 16
+    ecfg = EngineConfig(
+        max_batch_size=batch, prefill_chunk=chunk,
+        kv=KVCacheConfig(page_size=ps,
+                         num_pages=batch * (ctx + steps + 512) // ps + 8,
+                         max_pages_per_seq=(ctx + steps + 512) // ps + 2,
+                         kv_dtype="bf16"))
+
+    def serve():
+        eng = Engine(cfg, params, ecfg, decode_burst=burst)
+        require((eng.cache.v is None) == cfg.mla_absorbed,
+                f"[{path}] cache.v is None: {eng.cache.v is None}")
+        rng = np.random.default_rng(1)
+        samp = SamplingParams(max_new_tokens=steps, ignore_eos=True)
+        reqs = [eng.add_request(prompt_ids=rng.integers(1, 8000,
+                                                        ctx).tolist(),
+                                sampling=samp) for _ in range(batch)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while any(r.num_generated < 8 for r in reqs
+                  if r.state.value != "failed"):
+            eng.step()
+        torch.cuda.synchronize()
+        n0 = sum(r.num_generated for r in reqs)
+        t1 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        tps = (sum(r.num_generated for r in reqs) - n0) / (t2 - t1)
+        return eng, reqs, tps, t2 - t0
+
+    serve()                                           # warm-up
+    reset_counts()
+    eng, reqs, tps, wall = serve()                    # the measured run
+    got = read_counts(path)
+    launches[path] = got
+    for r in reqs:
+        require(r.state.value == "finished" and len(r.output_ids) == steps,
+                f"[{path}] request {r.req_id}: {r.state} with "
+                f"{len(r.output_ids)} tokens")
+        require(all(0 <= t < cfg.vocab_size for t in r.output_ids),
+                f"[{path}] token id out of range")
+    n_steps = eng.metrics.decode_bursts * burst
+    check_launches(path, got, mla_launches(
+        cfg.mla_absorbed, cfg.num_layers, batch * (ctx // chunk), n_steps))
+    print(f"[engine:{path}] {batch} requests x {ctx}-token prompts x "
+          f"{steps} tokens in {wall:.3f} s ({eng.metrics.decode_bursts} "
+          f"bursts x {burst} steps, {batch * (ctx // chunk)} prefill "
+          f"chunks); decode {tps} tok/s (bench_mla.py's rate: the tokens "
+          f"after each request's first 8)", flush=True)
+    print(f"[engine:{path}] launches {json.dumps(got)}", flush=True)
+
+    # one decode step's device time: forward_paged at the run's mean
+    # context, captured in a CUDA graph and replayed
+    mean = ctx + steps // 2
+    need = -(-(mean + 1) // ps)
+    mp = ecfg.kv.max_pages_per_seq
+    tables = torch.full((batch, mp), -1, dtype=torch.int32, device="cuda")
+    tables[:, :need] = torch.arange(batch * need, dtype=torch.int32,
+                                    device="cuda").reshape(batch, need)
+    tok = torch.ones((batch, 1), dtype=torch.int32, device="cuda")
+    pos = torch.full((batch, 1), mean, dtype=torch.int32, device="cuda")
+    step_ms = time_ms(torch, lambda: llama.forward_paged(
+        cfg, params, tok, pos, eng.cache, tables, pos[:, 0] + 1,
+        prefill=False), iters=5)
+    engine_step_ms = 1e3 / (tps / batch)
+    wbytes = step_weight_bytes(params, batch)
+    per_token = mla_kv_bytes_per_token(cfg)
+    kvbytes = cfg.num_layers * batch * (mean + 1) * per_token
+    floor_ms = (wbytes + kvbytes) / HBM_BYTES_PER_S * 1e3
+    idle = max(0.0, 1 - step_ms / engine_step_ms)
+    STEPS[path] = (round(engine_step_ms, 3), round(step_ms, 3),
+                   round(floor_ms, 3), round(idle, 3))
+    print(f"[engine:{path}] KV bytes per token and layer {per_token} "
+          f"({'one shared latent row of' if cfg.mla_absorbed else 'K and V of'}"
+          f" {cfg.num_kv_heads} x {cfg.head_dim} bf16 lanes); decode step: "
+          f"engine {engine_step_ms:.3f} ms, device (graph replay) "
+          f"{step_ms:.3f} ms, bytes floor {floor_ms:.3f} ms "
+          f"({wbytes / 1e9:.3f} GB weights + {kvbytes / 1e9:.4f} GB KV); "
+          f"device idle share of the engine step {idle:.3f}", flush=True)
+    del eng
+    return tps
+
+
 PATH_SETUP = {"int8": ("int8", "bf16", False), "bf16": ("bf16", "bf16", False),
               "prefix": ("int8", "bf16", True),
               "int8kv": ("int8", "int8", False),
@@ -9127,7 +9634,9 @@ PATH_SETUP = {"int8": ("int8", "bf16", False), "bf16": ("bf16", "bf16", False),
               "gemma2_int8kv": ("int8", "int8", False),
               "gemma2_fp8kv": ("int8", "fp8", False),
               "gemma2_spec_int8kv": ("bf16", "int8", True),
-              "gemma2_spec_fp8kv": ("bf16", "fp8", True)}
+              "gemma2_spec_fp8kv": ("bf16", "fp8", True),
+              "mla": ("bf16", "bf16", True),
+              "mla_naive": ("bf16", "bf16", True)}
 # paths cut in depth to keep the run within half its time limit (their
 # launch counts follow the cut: every count is per layer; a Gemma-2 or
 # gpt-oss cut keeps the sliding/full alternation): `int8` keeps
@@ -9146,7 +9655,8 @@ PATH_LAYERS = {"gpt_oss": 4, "gpt_oss_prefix": 4, "gpt_oss_spec": 4,
                "gemma_fp8kv_prefix": 4, "gemma2_int8kv": 4,
                "gemma2_fp8kv": 4, "gemma2_spec_int8kv": 4,
                "gemma2_spec_fp8kv": 4, "dense_fp8kv": 4,
-               "gemma2_dense_fp8kv": 4, "gpt_oss_dense_fp8kv": 4}
+               "gemma2_dense_fp8kv": 4, "gpt_oss_dense_fp8kv": 4,
+               "mla": 4, "mla_naive": 4}
 def phase_engine(torch, launches: dict, paths=PATHS):
     import dataclasses
 
@@ -9179,10 +9689,15 @@ def phase_engine(torch, launches: dict, paths=PATHS):
                    else gemma2_2b(PATH_LAYERS.get(path, 26)))
         if path.startswith("gpt_oss"):
             cfg = gpt_oss_20b(PATH_LAYERS.get(path, 24))
+        # the MLA paths' weights are one draw whatever the cache mode
+        key = cfg
+        if path in ("mla", "mla_naive"):
+            cfg = mla_config(PATH_LAYERS[path], absorbed=path == "mla")
+            key = mla_config(PATH_LAYERS[path])
         t0 = time.perf_counter()
         # a path of the previous path's model, depth and weights serves
         # the same draw (no path writes to its weights)
-        shared = (weights, cfg) == drawn
+        shared = (weights, key) == drawn
         if not shared:
             del params
             torch.cuda.empty_cache()
@@ -9192,13 +9707,24 @@ def phase_engine(torch, launches: dict, paths=PATHS):
                 params = draws[weights](torch, cfg, "cuda", seed=0)
             else:
                 params = llama.init_params(cfg, seed=0, device="cuda")
-            drawn = (weights, cfg)
+            drawn = (weights, key)
         torch.cuda.synchronize()
         how = "the previous path's draw" if shared else "drawn"
         print(f"[engine:{path}] {cfg.model_type} width, {cfg.num_layers} "
               f"layers, {weights} random weights ({how}), {kv_dtype} KV, "
               f"in {time.perf_counter() - t0:.1f} s", flush=True)
-        if path == "w8a8":
+        if path in ("mla", "mla_naive"):
+            rates[path] = serve_mla(torch, path, cfg, params, launches)
+            if path == "mla_naive" and "mla" in STEPS:
+                print(f"[engine:mla_naive] device step naive / absorbed "
+                      f"{STEPS['mla_naive'][1] / STEPS['mla'][1]:.4f}; "
+                      f"decode rate absorbed / naive "
+                      f"{rates['mla'] / rates['mla_naive']:.4f}; KV bytes "
+                      f"per token and layer naive / absorbed "
+                      f"{mla_kv_bytes_per_token(cfg)} / "
+                      f"{mla_kv_bytes_per_token(mla_config(1))}",
+                      flush=True)
+        elif path == "w8a8":
             # the server CLI's --act-quant: W8A8 prefill, the prefix traffic
             ttft[path] = serve_prefix(
                 torch, path, dataclasses.replace(cfg, act_quant="int8"),
@@ -9290,8 +9816,10 @@ def _trace(torch, cfg, params, prompts, steps, device, kv_dtype="f32",
 
     r = len(prompts)
     ps, mp = 16, 8
+    # absorbed MLA: one shared latent pool, as the Engine creates it
     cache = PagedKVCache.create(cfg.num_layers, r * mp, cfg.num_kv_heads,
                                 ps, cfg.head_dim, kv_storage_dtype(kv_dtype),
+                                shared_kv=cfg.mla and cfg.mla_absorbed,
                                 device=device)
     tables = torch.arange(r * mp, dtype=torch.int32,
                           device=device).reshape(r, mp)
@@ -9561,8 +10089,9 @@ def _width(cfg) -> str:
         return "Gemma-2-9B width"
     return {"gemma": "Gemma-2B width", "gemma2": "Gemma-2-2B width",
             "mistral": "Mistral-7B width",
-            "gpt_oss": "gpt-oss-20b width"}.get(cfg.model_type,
-                                                "Llama-2-7B width")
+            "gpt_oss": "gpt-oss-20b width",
+            "deepseek_v2": "DeepSeek-V2-Lite attention width"}.get(
+                cfg.model_type, "Llama-2-7B width")
 
 
 def prefix_card_vs_cpu(torch, cfg, p_gpu, p_cpu, kv_dtype="f32",
@@ -10261,6 +10790,8 @@ def phase_cpu(torch, launches: dict):
     lap("gemma2")
     gpt_oss_card_vs_cpu(torch)
     lap("gpt-oss")
+    mla_card_vs_cpu(torch, launches)
+    lap("mla")
     lap.print("phase-5")
 
 
@@ -10501,6 +11032,80 @@ def gpt_oss_card_vs_cpu(torch):
           f"prefix traffic, the Generator and the spec Engine) in "
           f"{time.perf_counter() - t0:.1f} s; sink launches on the card "
           f"{ran}", flush=True)
+
+
+def mla_card_vs_cpu(torch, launches: dict):
+    """bench_mla.py's widths (DeepSeek-V2-Lite's attention: H 2048, 16
+    heads, kv_lora_rank 512, rope 64, V 8192, a dense FFN of 5632) at 1
+    layer, f32, TF32 off, one seeded draw on the card copied to the host,
+    in both cache modes: :func:`card_vs_cpu` absorbed (the whole-prompt
+    prefill on 3l/640 (the prompts fit one chunk), 8 greedy steps on 4l
+    and 1l, the Engine on both devices; logits within LOGIT_TOL, greedy
+    tokens equal by the margin rule) and naive (the D-256 forms), the
+    prefix traffic absorbed (:func:`prefix_card_vs_cpu`: chunks and
+    suffixes through 8l and 2l), and absorbed against naive on the card
+    (the Engine's greedy tokens equal, but where the card's own absorbed
+    trace puts the top two within LOGIT_TOL). Its launches on the card
+    count as `mla_cpu`'s: every shared-KV form must have run."""
+    import numpy as np
+
+    from simplellminference_tpu_torch.core.config import (EngineConfig,
+                                                          KVCacheConfig,
+                                                          SamplingParams)
+    from simplellminference_tpu_torch.engine import Engine
+    from simplellminference_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    lap = Laps()
+    snap = count_snapshot()
+    cfg_a = mla_config(1, dtype="float32")
+    cfg_n = mla_config(1, dtype="float32", absorbed=False)
+    rng = np.random.default_rng(26)
+    prompts = [rng.integers(1, cfg_a.vocab_size, ln).tolist()
+               for ln in (40, 64, 17, 50)]
+    p_gpu = llama.init_params(cfg_a, seed=26, device="cuda")
+    p_cpu = _to_device(p_gpu, "cpu")
+    lap("draw")
+    card_vs_cpu(torch, "mla-absorbed", cfg_a, p_gpu, p_cpu, prompts, steps=8)
+    lap("absorbed")
+    prefix_card_vs_cpu(torch, cfg_a, p_gpu, p_cpu, tag="mla-prefix")
+    lap("prefix")
+    card_vs_cpu(torch, "mla-naive", cfg_n, p_gpu, p_cpu, prompts, steps=8)
+    lap("naive")
+    # absorbed against naive on the card, the Engine's greedy tokens
+    _tok, lg_a, _codes = _trace(torch, cfg_a, p_gpu, prompts, 8, "cuda")
+    ecfg = EngineConfig(max_batch_size=len(prompts), prefix_cache_entries=0,
+                        kv=KVCacheConfig(page_size=16, num_pages=64,
+                                         max_pages_per_seq=8,
+                                         kv_dtype="f32"))
+    outs = {}
+    for name, cfg in (("absorbed", cfg_a), ("naive", cfg_n)):
+        eng = Engine(cfg, p_gpu, ecfg, decode_burst=4)
+        require((eng.cache.v is None) == cfg.mla_absorbed,
+                f"[mla] {name}: cache.v is None {eng.cache.v is None}")
+        outs[name] = eng.generate(prompts,
+                                  SamplingParams(max_new_tokens=9))
+    for r in range(len(prompts)):
+        _first_divergence(torch, "mla", "absorbed and naive on the card",
+                          outs["absorbed"][r], outs["naive"][r], lg_a.cpu(),
+                          r)
+    lap("absorbed vs naive")
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+    got = launches["mla_cpu"] = counts_since("mla_cpu", snap)
+    forms = ("flash_prefill_shared", "paged_flash_decode_shared",
+             "paged_flash_prefill_shared", "paged_append_decode_shared",
+             "paged_append_prefill_shared", "flash_prefill_d256",
+             "paged_flash_decode_d256")
+    require(all(got[f] > 0 for f in forms),
+            f"[cpu:mla] forms that did not run on the card: "
+            f"{[f for f in forms if not got[f]]}")
+    lap.print("mla card-vs-CPU")
+    print(f"[cpu:mla] absorbed == naive on the card: "
+          f"{outs['absorbed'] == outs['naive']}; bench_mla.py's widths "
+          f"card vs CPU in {time.perf_counter() - t0:.1f} s; launches on the "
+          f"card {json.dumps({k: v for k, v in got.items() if v})}",
+          flush=True)
 
 
 def main(argv=None) -> int:

@@ -223,7 +223,8 @@ int dispatch_pool(int pool, int head_dim, const Args& a, cudaStream_t st) {
 // pool dtype); sinks: null for none, else the layer's f32 sink
 // logits [N] (decode and verify rows over every pool dtype, D <= 128; a
 // row's sink is its head's, whatever its window row). D 256: every pool
-// dtype. splits > 1:
+// dtype. pool_v null: a shared-KV pool of q's dtype (form 4l, decode rows
+// only, D 128 or 640, no window, cap, sinks or scales). splits > 1:
 // part holds splits * B * wins * N * (D + 2) floats of workspace.
 extern "C" int sli_paged_flash_decode(
     const void* q, long long q_bs, long long q_ss, const void* pool_k,
@@ -244,6 +245,11 @@ extern "C" int sli_paged_flash_decode(
                (const float*)v_scale, tables, kv_lens, out, part, batch,
                layer, num_pages1, kvn, ps, mp, group, wins, window, splits,
                scale, cap, sinks};
+  if (pool_v == nullptr) {  // form 4l: paged_decode_shared.cu
+    if (wins != 1 || pool != (dtype == SLI_F32 ? SLI_POOL_F32 : SLI_POOL_BF16))
+      return SLI_ERR_SHAPE;
+    return sli_pd::dispatch_shared(dtype == SLI_F32, head_dim, a, st);
+  }
   if (dtype == SLI_F32) return dispatch_pool<float>(pool, head_dim, a, st);
   if (dtype == SLI_BF16)
     return dispatch_pool<__nv_bfloat16>(pool, head_dim, a, st);

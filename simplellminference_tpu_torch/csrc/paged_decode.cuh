@@ -41,6 +41,9 @@ int dispatch_e4m3(bool f32, int head_dim, const Args& a, cudaStream_t st);
 // defined in flash_decode_e4m3.cu.
 int dispatch_e4m3_dense(bool f32, int head_dim, const Args& a,
                         cudaStream_t st);
+// The shared-KV form 4l (one pool of q's dtype, key row == value row,
+// pool_v unused), defined in paged_decode_shared.cu.
+int dispatch_shared(bool f32, int head_dim, const Args& a, cudaStream_t st);
 
 }  // namespace sli_pd
 
@@ -58,7 +61,15 @@ constexpr int FEW = 8;         // rows every thread holds in PV (and the
 constexpr int PSTR = BK + 1;   // probability row stride (floats)
 constexpr float NEG_INF = -1e30f;
 static_assert(PARTS == 4, "the score phase adds four parts a key");
-static_assert(RB * 256 / 8 <= FEW * NT, "PV units must fit the threads");
+
+// Query rows a block holds at head dim D: RB, or 16 past D 256 (the
+// absorbed-MLA latent rows, D 640: 16 rows of q in f32 are 40 KB beside
+// the key stages, and a thread's PV units, rows r_first + j * (NT / (D /
+// 8)) at one column group, stay within FEW).
+template <int D>
+__host__ __device__ constexpr int row_block() {
+  return D > 256 ? 16 : RB;
+}
 
 // Stages of the ring: 4 for 1-byte codes, 3 for bf16, 2 for f32; at D 256
 // one fewer for bf16 and f32 (a bf16 stage of K and V is 66 KB there, an
@@ -66,26 +77,34 @@ static_assert(RB * 256 / 8 <= FEW * NT, "PV units must fit the threads");
 // 32 rows make 173 KB, one f32 stage 171 KB, within the 227 KB a block
 // may take; the card holds one such block an SM, and one 64-key tile in
 // flight then still covers the SM's share of the memory rate).
-template <int ES, int D>
+// A shared-KV pool (SHARED, form 4l) stages K tiles alone, the PV phase
+// reading the same tile: at D 640 a bf16 stage of 64 keys is 82,944
+// bytes, so two stages and 16 rows' q, probability and state arrays make
+// 211,712 bytes; an f32 stage is 164,864 bytes, one stage (loaded, then
+// computed).
+template <int ES, int D, bool SHARED = false>
 constexpr int stages() {
+  if (SHARED && D > 256) return ES == 2 ? 2 : 1;
   return ES == 1 ? 4 : (ES == 2 ? 3 : 2) - (D >= 256 ? 1 : 0);
 }
 
-template <typename P, int D>
+template <typename P, int D, bool SHARED = false>
 struct Geo {
   static constexpr int ES = (int)sizeof(P);
   static constexpr int ROWB = D * ES + 16;  // padded key row bytes
   static constexpr int TILE = BK * ROWB;    // one K or V tile
   static constexpr int CH = D * ES / 16;    // 16-byte chunks of a key row
-  static constexpr int STAGES = stages<ES, D>();
-  static_assert(STAGES * 2 * TILE >= NT * 8 * (int)sizeof(float),
+  static constexpr int NKV = SHARED ? 1 : 2;  // tiles a stage (K, V)
+  static constexpr int STAGES = stages<ES, D, SHARED>();
+  static_assert(STAGES * NKV * TILE >= NT * 8 * (int)sizeof(float),
                 "the key slices' reduction fits the ring");
   // ring (K, V tiles and their scales; after the walk, the key slices'
   // reduction), q, the probabilities, max, sum and rescale
   static size_t bytes(int rows) {
-    return (size_t)STAGES * 2 * (TILE + BK * sizeof(float)) +
-           sizeof(float) * ((size_t)rows * D + (size_t)rows * PSTR +
-                            3 * (size_t)rows);
+    return (size_t)STAGES * NKV * TILE + (size_t)STAGES * 2 * BK *
+           sizeof(float) + sizeof(float) * ((size_t)rows * D +
+                                            (size_t)rows * PSTR +
+                                            3 * (size_t)rows);
   }
 };
 
@@ -166,10 +185,12 @@ __device__ __forceinline__ void unpack8<__nv_fp8_e4m3>(const unsigned char* p,
 // contiguous. DENSE:
 // the pools are a dense arena [L, B', kvN, Smax, D] (num_pages1 = B',
 // ps = Smax, mp = 1, no table): sequence b reads arena row b. rcap: the
-// rows of the shared-memory layout (min(RB, group * wins)). splits > 1:
-// the block writes part (acc [splits][B*S*N][D], then m, l
-// [splits][B*S*N][2], f32) for merge_kernel; splits == 1: out.
-template <typename T, typename P, int D, bool DENSE, bool CAP>
+// rows of the shared-memory layout (min(row_block<D>(), group * wins)).
+// splits > 1: the block writes part (acc [splits][B*S*N][D], then m, l
+// [splits][B*S*N][2], f32) for merge_kernel; splits == 1: out. SHARED:
+// one pool (pool_k) whose row is the key and the value; pool_v unused.
+template <typename T, typename P, int D, bool DENSE, bool CAP,
+          bool SHARED = false>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(
     const T* __restrict__ q, long long q_bs, long long q_ss,
     const P* __restrict__ pool_k, const P* __restrict__ pool_v,
@@ -178,13 +199,16 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     T* __restrict__ out, float* __restrict__ part, int layer,
     int num_pages1, int kvn, int ps, int mp, int group, int wins, int window,
     int rcap, float scale, float cap, const float* __restrict__ sinks) {
-  using G = Geo<P, D>;
+  using G = Geo<P, D, SHARED>;
   constexpr bool QUANT = std::is_same_v<P, int8_t>;  // scales beside codes
   constexpr int EPC = 16 / G::ES;  // elements per 16-byte copy
   constexpr int C8 = D / 8;        // PV units of a row
+  constexpr int RBD = row_block<D>();
+  static_assert(RBD * C8 <= FEW * NT, "PV units must fit the threads");
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* ring = smem;  // [STAGES][K, V][BK][ROWB]
-  float* scl = reinterpret_cast<float*>(smem + G::STAGES * 2 * G::TILE);
+  unsigned char* ring = smem;  // [STAGES][K, V (not SHARED)][BK][ROWB]
+  float* scl =
+      reinterpret_cast<float*>(smem + G::STAGES * G::NKV * G::TILE);
   float* qs = scl + G::STAGES * 2 * BK;  // [rcap][D]
   float* red = reinterpret_cast<float*>(ring);  // [NT][8], after the walk
   float* pr = qs + rcap * D;             // [rcap][PSTR]
@@ -193,10 +217,10 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   float* al = ls + rcap;
 
   const int b = blockIdx.x;
-  const int nrb = (group * wins + RB - 1) / RB;
+  const int nrb = (group * wins + RBD - 1) / RBD;
   const int g = blockIdx.y / nrb;
-  const int row0 = (blockIdx.y - g * nrb) * RB;
-  const int rows = min(RB, group * wins - row0);
+  const int row0 = (blockIdx.y - g * nrb) * RBD;
+  const int rows = min(RBD, group * wins - row0);
   const int splits = gridDim.z;
   const int z = blockIdx.z;
   const int tid = threadIdx.x;
@@ -236,7 +260,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   // the pool row of key kp, or -1 for none (outside the live span, or an
   // unmapped page); a tile inside one page has contiguous rows
   auto load = [&](int t, int st) {
-    unsigned char* kd = ring + (2 * st) * G::TILE;
+    unsigned char* kd = ring + (G::NKV * st) * G::TILE;
     unsigned char* vd = kd + G::TILE;
     const int k0 = t * BK;
     long long base = -1;
@@ -259,7 +283,8 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
       const long long row = row_of(k0 + r);
       const long long off = row < 0 ? 0 : row * D + c * EPC;
       cp_async16(kd + r * G::ROWB + c * 16, pool_k + off, row >= 0);
-      cp_async16(vd + r * G::ROWB + c * 16, pool_v + off, row >= 0);
+      if constexpr (!SHARED)
+        cp_async16(vd + r * G::ROWB + c * 16, pool_v + off, row >= 0);
     }
     if (QUANT && tid < BK) {
       const long long row = row_of(k0 + tid);
@@ -275,18 +300,28 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   // the keys slice, slice + RSTEP, ...: each V chunk it loads serves all
   // its rows. More rows: unit u = (row u / C8, columns 8 * (u % C8)), a
   // thread's units u0 + j * NT share its columns (rows r_first + j *
-  // RSTEP); with fewer units than threads, key slices share a unit.
+  // RSTEP); with fewer units than threads, key slices share a unit. When
+  // C8 does not divide NT (D 640: 80 column groups), threads tid <
+  // RSTEP * C8 take column group tid % C8 and rows tid / C8 + j * RSTEP,
+  // the same count as ceil((units - u0) / NT) where C8 divides NT, and the
+  // rest hold none.
   constexpr int RSTEP = NT / C8;
+  constexpr bool RAGGED = NT % C8 != 0;
   const bool few = rows <= FEW;
   const int units = rows * C8;
   const int ks_n = few ? RSTEP : units >= NT ? 1 : NT / units;
   const int slice = few ? tid / C8 : units >= NT ? 0 : tid / units;
-  const bool pv_on = slice < ks_n;
+  const bool pv_on =
+      slice < ks_n && (!RAGGED || few || units < NT || tid < RSTEP * C8);
   const int u0 = few ? tid % C8 : units >= NT ? tid : tid - slice * units;
   const int c8 = u0 % C8;
   const int r_first = few ? 0 : u0 / C8;
   const int r_step = few ? 1 : RSTEP;
-  const int n_acc = few ? rows : units >= NT ? (units - u0 + NT - 1) / NT : 1;
+  const int n_acc =
+      few ? rows
+          : units >= NT ? (RAGGED ? (rows - r_first + RSTEP - 1) / RSTEP
+                                  : (units - u0 + NT - 1) / NT)
+                        : 1;
   float acc[FEW][8];
 #pragma unroll
   for (int j = 0; j < FEW; ++j)
@@ -314,8 +349,8 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
       cp_async_commit();  // possibly empty: keeps the group count
     }
     const int st = i % G::STAGES;
-    const unsigned char* kt = ring + (2 * st) * G::TILE;
-    const unsigned char* vt = kt + G::TILE;
+    const unsigned char* kt = ring + (G::NKV * st) * G::TILE;
+    const unsigned char* vt = SHARED ? kt : kt + G::TILE;
     const float* kscl = scl + (2 * st) * BK;
     const int k0 = (ta + i) * BK;
 
@@ -505,19 +540,21 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
 }
 
 
-template <typename T, typename P, int D, bool DENSE, bool CAP>
+template <typename T, typename P, int D, bool DENSE, bool CAP,
+          bool SHARED = false>
 int launch(const Args& a, cudaStream_t st) {
+  constexpr int RBD = row_block<D>();
   const int rows = a.group * a.wins;
-  const int rcap = rows < RB ? rows : RB;
-  const size_t bytes = Geo<P, D>::bytes(rcap);
+  const int rcap = rows < RBD ? rows : RBD;
+  const size_t bytes = Geo<P, D, SHARED>::bytes(rcap);
   if (bytes > 227 * 1024) return SLI_ERR_SHAPE;
   if (a.splits < 1 || (a.splits > 1 && a.part == nullptr))
     return SLI_ERR_SHAPE;
-  cudaError_t e =
-      sli::allow_smem(paged_decode_kernel<T, P, D, DENSE, CAP>, bytes);
+  auto kern = paged_decode_kernel<T, P, D, DENSE, CAP, SHARED>;
+  cudaError_t e = sli::allow_smem(kern, bytes);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(a.batch, a.kvn * ((rows + RB - 1) / RB), a.splits);
-  paged_decode_kernel<T, P, D, DENSE, CAP><<<grid, NT, bytes, st>>>(
+  const dim3 grid(a.batch, a.kvn * ((rows + RBD - 1) / RBD), a.splits);
+  kern<<<grid, NT, bytes, st>>>(
       (const T*)a.q, a.q_bs, a.q_ss, (const P*)a.pool_k, (const P*)a.pool_v,
       a.ksp, a.vsp, a.tables, a.kv_lens, (T*)a.out, a.part, a.layer,
       a.num_pages1, a.kvn, a.ps, a.mp, a.group, a.wins, a.window, rcap,

@@ -39,10 +39,44 @@ __global__ void __launch_bounds__(MERGE_NT)
   out[i] = from_f<T>(a / fmaxf(l, 1e-30f));
 }
 
+// The same merge for a row width d that does not divide MERGE_NT (the
+// absorbed-MLA latent rows, d 640): a block a row, its threads striding
+// over the row's columns; each column's sum takes the splits in the same
+// order and the same operations as merge_kernel.
+template <typename T>
+__global__ void __launch_bounds__(MERGE_NT)
+    merge_rows_kernel(const float* __restrict__ part, T* __restrict__ out,
+                      long long n_rows, int d, int splits) {
+  const long long row = blockIdx.x;
+  const long long total = n_rows * d;
+  const float* ml = part + (long long)splits * total;
+  float mx = -1e30f;
+  for (int z = 0; z < splits; ++z)
+    mx = fmaxf(mx, ml[(z * n_rows + row) * 2]);
+  float l = 0.f;
+  for (int z = 0; z < splits; ++z) {
+    const float* mz = ml + (z * n_rows + row) * 2;
+    l = fmaf(mz[1], expf(mz[0] - mx), l);
+  }
+  for (int c = threadIdx.x; c < d; c += MERGE_NT) {
+    const long long i = row * d + c;
+    float a = 0.f;
+    for (int z = 0; z < splits; ++z)
+      a = fmaf(part[z * total + i], expf(ml[(z * n_rows + row) * 2] - mx),
+               a);
+    out[i] = from_f<T>(a / fmaxf(l, 1e-30f));
+  }
+}
+
 template <typename T>
 cudaError_t launch_merge(const float* part, void* out, long long n_rows,
                          int d, int splits, cudaStream_t st) {
-  if (d <= 0 || MERGE_NT % d) return cudaErrorInvalidValue;
+  if (d <= 0) return cudaErrorInvalidValue;
+  if (MERGE_NT % d) {
+    merge_rows_kernel<T><<<(unsigned)n_rows, MERGE_NT, 0, st>>>(
+        part, (T*)out, n_rows, d, splits);
+    return cudaGetLastError();
+  }
   const long long per = MERGE_NT / d;
   merge_kernel<T><<<(unsigned)((n_rows + per - 1) / per), MERGE_NT, 0, st>>>(
       part, (T*)out, n_rows, d, splits);

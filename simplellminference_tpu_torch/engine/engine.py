@@ -86,6 +86,10 @@ columns, chunk loops through the unmasked rows (engine.py:1397-1403,
 ``adopt_prefill``. Without reclaim the windows run over the ordinary
 pools.
 
+DeepSeek's multi-head latent attention runs in both cache modes over bf16
+and f32 KV: absorbed (one shared latent pool, ``cache.v`` None) and naive;
+under it speculation, INT8/FP8 KV and quantized weights raise.
+
 Features outside this configuration raise NotImplementedError naming the
 feature: guided decoding, LoRA
 adapters, tensor/sequence parallelism (``adopt_prefill`` included),
@@ -118,6 +122,7 @@ from simplellminference_tpu_torch.memory.paged_kv import (PagedKVCache,
                                                           kv_storage_dtype)
 from simplellminference_tpu_torch.models import llama
 from simplellminference_tpu_torch.ops import sampling as sampling_ops
+from simplellminference_tpu_torch.ops.linear import QuantizedWeight
 from simplellminference_tpu_torch.ops.paged_append import SPAN_MAX
 from simplellminference_tpu_torch.runtime.kv_cache import DenseKVCache
 
@@ -137,6 +142,26 @@ def _check_engine_config(ec: EngineConfig) -> None:
         raise NotImplementedError("tensor-parallel serving (mesh_shape)")
     if ec.kv.kv_dtype not in ("bf16", "f32", "fp8", "int8"):
         raise NotImplementedError(f"{ec.kv.kv_dtype} KV cache")
+
+
+def _check_mla(cfg: ModelConfig, params, ec: EngineConfig, draft) -> None:
+    """Raise NotImplementedError, naming it, for what the port does not
+    serve under multi-head latent attention (DeepSeek): speculation,
+    quantized KV, quantized weights."""
+    if not cfg.mla:
+        return
+    if ec.spec_tokens or draft is not None:
+        raise NotImplementedError("speculative decoding (spec_tokens, draft) "
+                                  "under MLA")
+    if ec.kv.kv_dtype in ("int8", "fp8"):
+        raise NotImplementedError(f"{ec.kv.kv_dtype} KV under MLA (INT8/FP8 "
+                                  f"latent pools)")
+    if ec.quant.mode != "none" or any(
+            isinstance(w, QuantizedWeight)
+            for w in (*params["layers"].values(), params.get("lm_head"))):
+        raise NotImplementedError("quantized weights under MLA "
+                                  "(EngineConfig.quant, QuantizedWeight "
+                                  "leaves)")
 
 
 def draft_arena_slots(ec: EngineConfig) -> int:
@@ -162,6 +187,7 @@ class Engine:
         windows instead of prompt lookup; needs ``spec_tokens`` >= 1."""
         _check_engine_config(engine_cfg)
         llama.check_supported(cfg)
+        _check_mla(cfg, params, engine_cfg, draft)
         if draft is not None:
             if engine_cfg.spec_tokens < 1:
                 raise ValueError("draft-model speculation needs "
@@ -211,9 +237,11 @@ class Engine:
                 device=self.device).with_windowed(
                     lw, engine_cfg.max_batch_size * self._ring)
         else:
+            # absorbed MLA: one shared latent pool, v None (engine.py:530-536)
             self.cache = PagedKVCache.create(
                 cfg.num_layers, kv.num_pages, cfg.num_kv_heads,
-                kv.page_size, cfg.head_dim, kv_dtype, device=self.device)
+                kv.page_size, cfg.head_dim, kv_dtype,
+                shared_kv=cfg.mla and cfg.mla_absorbed, device=self.device)
 
         b = engine_cfg.max_batch_size
         self.slots: list[Optional[Request]] = [None] * b

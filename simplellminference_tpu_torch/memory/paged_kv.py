@@ -17,6 +17,13 @@ k_w_scale/v_w_scale for INT8 KV), Pw = max_batch * R ring pages, which
 the engine addresses through static per-slot ring tables; over FP8 KV
 they are e4m3 ring pools, with no scale pools.
 
+A shared-KV cache (absorbed MLA, paged_kv.py:63-66, :84-101) holds one
+pool: ``v`` is None and the K pool's row (the latent row) is also the
+value. Its writes store the K rows alone (kernels 1l and 2l), its
+attention reads each page once for both products (4l, 8l), and
+:func:`gather_dense` returns K as V. bf16 and f32 only: INT8 and e4m3
+shared pools, and the span write over one, are not ported.
+
 The pools are updated IN PLACE by the write functions (the JAX package
 donates the cache to its jitted graphs and the Pallas kernels alias it);
 they return the same tensors for symmetry with the reference.
@@ -66,15 +73,22 @@ class PagedKVCache:
                shared_kv: bool = False, device=None) -> "PagedKVCache":
         """Allocates ``num_pages`` usable pages + one trash page, zeroed,
         on ``device`` (CUDA unless ``device="cpu"``); int8 pools get zeroed
-        scale pools, float8_e4m3fn pools none."""
-        if shared_kv:
-            raise NotImplementedError("shared-KV pools (absorbed MLA)")
+        scale pools, float8_e4m3fn pools none. ``shared_kv``: one pool
+        serves as K and V (absorbed MLA's latent rows), ``v`` stays None
+        (bf16 and f32 only)."""
         dev = resolve_device(device)
         shape = (num_layers, num_pages + 1, num_kv_heads, page_size,
                  head_dim)
 
         def zeros(shape, dt):
             return torch.zeros(shape, dtype=dt, device=dev)
+
+        if shared_kv:
+            if dtype not in (torch.bfloat16, torch.float32):
+                raise NotImplementedError(
+                    f"{dtype} shared-KV pools (INT8/FP8 KV under absorbed "
+                    f"MLA)")
+            return cls(k=zeros(shape, dtype))
 
         if dtype == torch.int8:
             return cls(k=zeros(shape, dtype), v=zeros(shape, dtype),
@@ -122,9 +136,10 @@ def write_prefill_stacked(pool_k, pool_v, new_k, new_v, tables, layer: int,
     start at their own page-aligned offsets) a chunk. Table columns past
     the width map to -1, the trash page. With scale pools the rows are
     quantized (:func:`quantize_kv`); into e4m3 pools they are converted
-    with the JAX package's rounding (kernel 2e). Returns (pool_k, pool_v,
-    pool_ks, pool_vs), updated in place (the scale pools None without
-    them)."""
+    with the JAX package's rounding (kernel 2e). A shared pool
+    (``pool_v`` None) takes the K rows alone (kernel 2l; ``new_v`` is not
+    read). Returns (pool_k, pool_v, pool_ks, pool_vs), updated in place
+    (the scale pools None without them)."""
     if page_offset is not None:
         b, mp = tables.shape
         npg = -(-new_k.shape[1] // pool_k.shape[3])
@@ -138,7 +153,8 @@ def write_prefill_stacked(pool_k, pool_v, new_k, new_v, tables, layer: int,
     if pool_ks is not None or pool_vs is not None:
         return paged_append_prefill_quant(pool_k, pool_v, pool_ks, pool_vs,
                                           new_k, new_v, tables, layer)
-    pk, pv = paged_append_prefill(pool_k, pool_v, new_k, new_v, tables,
+    pk, pv = paged_append_prefill(pool_k, pool_v, new_k,
+                                  None if pool_v is None else new_v, tables,
                                   layer)
     return pk, pv, None, None
 
@@ -147,13 +163,15 @@ def write_decode_stacked(pool_k, pool_v, new_k, new_v, tables, positions,
                          layer: int, pool_ks=None, pool_vs=None):
     """Stacked-pool decode write: one token per sequence at ``layer``,
     quantized when scale pools are given, converted into e4m3 pools
-    (kernel 1e). Returns (pool_k, pool_v, pool_ks, pool_vs), updated in
+    (kernel 1e); into a shared pool (``pool_v`` None) the K row alone
+    (kernel 1l). Returns (pool_k, pool_v, pool_ks, pool_vs), updated in
     place."""
     if pool_ks is not None or pool_vs is not None:
         return paged_append_decode_quant(pool_k, pool_v, pool_ks, pool_vs,
                                          new_k, new_v, tables, positions,
                                          layer)
-    pk, pv = paged_append_decode(pool_k, pool_v, new_k, new_v, tables,
+    pk, pv = paged_append_decode(pool_k, pool_v, new_k,
+                                 None if pool_v is None else new_v, tables,
                                  positions, layer)
     return pk, pv, None, None
 
@@ -168,7 +186,12 @@ def write_span_stacked(pool_k, pool_v, new_k, new_v, tables, positions,
     indexed assignment, plain torch operations on every device, as the JAX
     package leaves them to XLA (paged_kv.py:363-374). Unmapped pages and
     columns past the table go to the trash page. Returns (pool_k, pool_v,
-    pool_ks, pool_vs), updated in place."""
+    pool_ks, pool_vs), updated in place. A shared pool (``pool_v`` None)
+    raises: the span write over latent pools is not ported."""
+    if pool_v is None:
+        raise NotImplementedError("the span write over a shared-KV pool "
+                                  "(speculative decoding under absorbed "
+                                  "MLA)")
     if pool_ks is None and pool_vs is None:
         pk, pv = paged_append_span(pool_k, pool_v, new_k, new_v, tables,
                                    positions, layer)
@@ -193,7 +216,8 @@ def gather_dense(pool_k: torch.Tensor, pool_v: torch.Tensor,
     scale, in f32); e4m3 storage comes back as its exact f32 values (JAX
     gathers the e4m3 values, which its callers cast).
 
-    pool_k/v: one layer, [P, kvN, ps, D] (scale pools [P, kvN, ps]).
+    pool_k/v: one layer, [P, kvN, ps, D] (scale pools [P, kvN, ps]); a
+    shared pool (``pool_v`` None) gives K as V (paged_kv.py:413).
     Unmapped (-1) pages come back as zeros, which is what the attention
     kernels read there too. (The JAX ``mode="fill"`` gather normalizes -1
     to the last row first and so reads the trash page; callers mask by
@@ -217,4 +241,7 @@ def gather_dense(pool_k: torch.Tensor, pool_v: torch.Tensor,
         return (x.reshape(b, mp, kvn, ps, d).permute(0, 2, 1, 3, 4)
                 .reshape(b, kvn, mp * ps, d))
 
-    return g(pool_k, pool_ks), g(pool_v, pool_vs)
+    ck = g(pool_k, pool_ks)
+    if pool_v is None:
+        return ck, ck
+    return ck, g(pool_v, pool_vs)

@@ -55,6 +55,14 @@ device, and each wrapper runs its CUDA kernel or, for CPU tensors, its
 plain version. The TPU's VMEM tiling gates (``qkv_tiles``, ``ffn_tiles``)
 describe the TPU and are dropped.
 
+DeepSeek's multi-head latent attention (``cfg.kv_lora_rank``,
+:mod:`~simplellminference_tpu_torch.models.mla`) runs in every branch of
+:func:`forward_paged` but the verify window, in both cache modes: absorbed
+(the default: one latent row per token in a shared pool, ``cache.v`` None,
+read by the shared forms 1l, 2l, 3l, 4l, 8l) and naive (per-head K/V padded
+to ``cfg.head_dim``, the ordinary pools and forms). The dense arena under
+MLA is not ported (:func:`forward` with a cache raises).
+
 Params dict (the JAX package's names, layers stacked on a leading L):
 
     {"embed": [V, H],
@@ -65,6 +73,11 @@ Params dict (the JAX package's names, layers stacked on a leading L):
                 "post_attn_norm": [L, H], "post_ffn_norm": [L, H]},
      "final_norm": [H],
      "lm_head": [H, V]}          # absent when tie_word_embeddings
+
+MLA replaces ``wqkv`` with ``kv_a`` [L, H, dc + rope], ``kv_a_norm`` [L,
+dc], ``kv_b`` [L, dc, N*(nope + vd)] and ``q_proj`` [L, H, N*(nope +
+rope)] (or ``q_a`` [L, H, qr], ``q_a_norm`` [L, qr], ``q_b`` [L, qr,
+N*(nope + rope)]), and ``wo`` is [L, N*vd, H].
 
 A mixture-of-experts model (``cfg.num_experts``) folds its experts into
 ``w_gate_up`` [L, H, E * 2*Ie] and ``w_down`` [L, E * Ie, H] and adds
@@ -84,6 +97,7 @@ from simplellminference_tpu_torch.core.config import ModelConfig
 from simplellminference_tpu_torch.core.device import (resolve_device,
                                                       torch_dtype)
 from simplellminference_tpu_torch.memory import paged_kv as pkv
+from simplellminference_tpu_torch.models import mla
 from simplellminference_tpu_torch.ops import (ffn_fused, moe, qkv_fused,
                                               ref_ops)
 from simplellminference_tpu_torch.ops.attention import dispatch
@@ -97,7 +111,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError naming the first feature of ``cfg`` that
     the port's decoder does not run yet."""
     unsupported = [
-        ("kv_lora_rank", "multi-head latent attention (MLA)"),
         ("first_k_dense", "dense-prefix layer group"),
         ("qk_norm", "q/k RMSNorm"),
         ("mlp_bias", "FFN biases"),
@@ -109,6 +122,9 @@ def check_supported(cfg: ModelConfig) -> None:
         if getattr(cfg, field):
             raise NotImplementedError(name)
     if cfg.num_experts:
+        if cfg.mla:
+            raise NotImplementedError("routed experts under MLA (DeepSeek "
+                                      "MoE)")
         moe.check_supported(cfg)
     if not cfg.pre_norms:
         raise NotImplementedError("post-norm-only blocks (OLMo-2)")
@@ -147,10 +163,18 @@ def _fffn_gate(cfg: ModelConfig, lw, m: int) -> bool:
 def _qkv(cfg: ModelConfig, lw, li: int, x, sin, cos):
     """rmsnorm, the qkv product (+ the q/k/v bias, llama.py:657-658) and
     RoPE of layer ``li``: x [B, S, H] -> (q [B, S, N, D], k, v
-    [B, S, kvN, D])."""
+    [B, S, kvN, D]). MLA (llama.py:637-650): the absorbed block's latent
+    row is both k and v (one kv head of ``cfg.head_dim`` lanes), the naive
+    block's per-head q/k/v come padded to ``cfg.head_dim``."""
     b, s = x.shape[:2]
     n, kvn, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     h = ref_ops.rmsnorm(x, lw["input_norm"][li], cfg.rms_norm_eps)
+    if cfg.mla:
+        if cfg.mla_absorbed:
+            q, k = mla.mla_qkv_absorbed(cfg, lw, li, h, sin, cos,
+                                        act_quant=cfg.act_quant)
+            return q, k, k
+        return mla.mla_qkv(cfg, lw, li, h, sin, cos, act_quant=cfg.act_quant)
     qkv = linear(h, lw["wqkv"], layer=li, act_quant=cfg.act_quant)
     if "wqkv_bias" in lw:
         qkv = qkv + lw["wqkv_bias"][li].to(qkv.dtype)
@@ -180,9 +204,15 @@ def _post_attention(cfg: ModelConfig, lw, li: int, x, attn, use_fffn: bool):
     (llama.py:266-273). Gemma-2's sandwich norms (llama.py:258-260,
     :328-330): ``post_attn_norm`` on the attention output and
     ``post_ffn_norm`` on the FFN's, each before its residual add
-    (``post_ffn_norm`` closes the fused FFN's gate)."""
+    (``post_ffn_norm`` closes the fused FFN's gate). MLA: the absorbed
+    block's latent outputs expand through W_uv first, the naive block's
+    drop v's pad lanes."""
     b, s, h = x.shape
     aq = cfg.act_quant
+    if cfg.mla:   # llama.py:730-738
+        attn = attn.reshape(b, s, cfg.num_heads, cfg.head_dim)
+        attn = (mla.mla_unabsorb(cfg, lw, li, attn) if cfg.mla_absorbed
+                else attn[..., :cfg.v_head_dim])
     attn = linear(attn.reshape(b, s, -1), lw["wo"], layer=li, act_quant=aq)
     if "wo_bias" in lw:
         attn = attn + lw["wo_bias"][li].to(attn.dtype)
@@ -273,6 +303,9 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     cache)."""
     check_supported(cfg)
     b, s = tokens.shape
+    if cache is not None and cfg.mla:
+        raise NotImplementedError("MLA on the dense arena (the Generator, "
+                                  "draft models)")
     if cache is not None and s > 1 and not prefill_from_zero:
         raise NotImplementedError("dense multi-token continuation (S > 1 "
                                   "with prefill_from_zero=False)")
@@ -361,6 +394,9 @@ def forward_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     b, s = tokens.shape
     chunked = prefill and chunk_offset is not None
     spec = not prefill and s > 1   # speculative-decoding verify window
+    if spec and cfg.mla:
+        raise NotImplementedError("the verify window under MLA (speculative "
+                                  "decoding over latent pools)")
     x, sin, cos = _embed(cfg, params, tokens, positions)
     lw = params["layers"]
     page_offset = chunk_offset // cache.page_size if chunked else None
@@ -461,12 +497,26 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
         "layers": {
             "input_norm": ones((L, h)),
             "post_norm": ones((L, h)),
-            "wqkv": w((L, h, (n + 2 * kvn) * d)),
-            "wo": w((L, n * d, h)),
         },
         "final_norm": ones((h,)),
     }
     lw = params["layers"]
+    if cfg.mla:   # DeepSeek MLA's projections (llama.py:950-966)
+        qk = cfg.qk_head_dim
+        lw["kv_a"] = w((L, h, cfg.kv_lora_rank + cfg.qk_rope_head_dim))
+        lw["kv_a_norm"] = ones((L, cfg.kv_lora_rank))
+        lw["kv_b"] = w((L, cfg.kv_lora_rank,
+                        n * (cfg.qk_nope_head_dim + cfg.v_head_dim)))
+        lw["wo"] = w((L, n * cfg.v_head_dim, h))
+        if cfg.q_lora_rank:
+            lw["q_a"] = w((L, h, cfg.q_lora_rank))
+            lw["q_a_norm"] = ones((L, cfg.q_lora_rank))
+            lw["q_b"] = w((L, cfg.q_lora_rank, n * qk))
+        else:
+            lw["q_proj"] = w((L, h, n * qk))
+    else:
+        lw["wqkv"] = w((L, h, (n + 2 * kvn) * d))
+        lw["wo"] = w((L, n * d, h))
     if cfg.num_experts:   # folded experts (ops/moe.py) and the router
         e, ie = cfg.num_experts, cfg.expert_intermediate_size
         lw["router"] = w((L, h, e), 0.02)

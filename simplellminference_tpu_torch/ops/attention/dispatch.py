@@ -17,7 +17,11 @@ a layer's GPT-OSS attention sinks (``sinks`` [N], passed by the caller as
 the JAX dispatcher takes them) to the sink forms of kernels 3, 4 (decode
 and verify rows), 8 and 13 over bf16/f32 KV and of 4 and 8 over INT8 and
 e4m3 pools (4es, 4ews, 4ves, 4vews, 8es, 8ews). Sinks at head_dim 256,
-which the kernels do not take yet, raise.
+which the kernels do not take yet, raise. Absorbed MLA's shared-KV rows go
+to the shared forms: a whole prompt called with v = k to 3l
+(``flash_prefill_shared``), a shared pool (``pool_v`` None, as the JAX
+dispatcher passes it) to 8l and 4l through ``paged_flash_prefill`` and
+``paged_flash_decode``.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from simplellminference_tpu_torch.core.config import ModelConfig
 from simplellminference_tpu_torch.ops.attention.flash_decode import (
     flash_decode)
 from simplellminference_tpu_torch.ops.attention.flash_prefill import (
-    flash_prefill)
+    flash_prefill, flash_prefill_shared)
 from simplellminference_tpu_torch.ops.attention.paged_decode import (
     paged_flash_decode, paged_flash_verify)
 from simplellminference_tpu_torch.ops.attention.paged_prefill import (
@@ -56,8 +60,14 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
               sinks: torch.Tensor | None = None) -> torch.Tensor:
     """Causal self-attention of a prompt, no cache read-back.
     q: [B, S, N, D]; k/v: [B, S, kvN, D]; ``sinks`` [N]: the layer's
-    GPT-OSS attention-sink logits."""
+    GPT-OSS attention-sink logits. ``v is k`` (absorbed MLA's latent rows,
+    llama.py:713-717) takes the shared form 3l."""
     window, sm, cap = _attn_opts(cfg, window)
+    if v is k:
+        if window is not None or cap or sinks is not None:
+            raise NotImplementedError("a window, a soft cap or sinks over "
+                                      "shared-KV rows (absorbed MLA)")
+        return flash_prefill_shared(q, k, sm_scale=sm)
     return flash_prefill(q, k, v, sm_scale=sm, window=window, logit_cap=cap,
                          sinks=sinks)
 

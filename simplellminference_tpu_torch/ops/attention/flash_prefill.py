@@ -28,6 +28,14 @@ flash_prefill.py:29-43) are a pointer argument of both kernels: each
 row's online softmax starts at (m, l) = (its head's sink, 1) instead of
 (-1e30, 0) (forms 3s, 3ws); launches with sinks count in their form's
 ``launches`` and in :data:`SINK_LAUNCHES` by (form, head dim).
+
+Shared-KV rows (absorbed MLA: the JAX package's whole-prompt prefill calls
+the kernel with v = k, llama.py:713-717): form 3l,
+:func:`flash_prefill_shared`, with its own launch count, at head dims 128
+and 640 (DeepSeek-V2-Lite's latent row). Its kernels
+(``csrc/flash_prefill_shared.cu`` over ``csrc/prefill_shared.cuh``) stage
+each row tile once for both products and make the output in passes of 128
+columns; no window, cap or sinks.
 """
 
 from __future__ import annotations
@@ -166,6 +174,48 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_prefill.launches = 0
+
+
+SHARED_HEAD_DIMS = (128, 640)   # form 3l's (absorbed MLA's latent lanes)
+
+
+def flash_prefill_shared(q: torch.Tensor, kv: torch.Tensor,
+                         sm_scale: float | None = None) -> torch.Tensor:
+    """3l: causal self-attention of a (right-padded) prompt over its
+    shared-KV rows (absorbed MLA), each row both the key and the value.
+    q: [B, S, N, D]; kv: [B, S, kvN, D] -> [B, S, N, D] in q's dtype.
+    Head dims 128 and 640."""
+    b, s, n, d = q.shape
+    if d not in SHARED_HEAD_DIMS:
+        raise NotImplementedError(f"head_dim {d} over shared-KV rows (form "
+                                  f"3l takes {SHARED_HEAD_DIMS})")
+    if not q.is_cuda:
+        return flash_prefill_ref(q, kv, kv, sm_scale)
+    kvn = kv.shape[2]
+    if kv.shape != (b, s, kvn, d) or n % kvn:
+        raise ValueError(f"kv {tuple(kv.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if q.dtype != kv.dtype or q.device != kv.device:
+        raise ValueError("q and kv must share dtype and device")
+    code = cuda_build.dtype_code(q.dtype)
+    out = torch.empty((b, s, n, d), dtype=q.dtype, device=q.device)
+    if b == 0 or s == 0:
+        return out
+    q, kv = heads_contiguous(q), heads_contiguous(kv)
+    scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    splits, work = prefill_tiles.workspace(q, kvn, 0, s)
+    lib = cuda_build.load()
+    rc = lib.sli_flash_prefill_shared(
+        q.data_ptr(), kv.data_ptr(), out.data_ptr(), q.stride(0),
+        q.stride(1), kv.stride(0), kv.stride(1), b, s, n, n // kvn, d, scale,
+        code, 0 if work is None else work.data_ptr(), splits,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(lib, rc, "flash_prefill_shared")
+    flash_prefill_shared.launches += 1
+    return out
+
+
+flash_prefill_shared.launches = 0
 
 
 def flash_prefill_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -78,6 +78,16 @@ ported yet), on the CPU as on the card.
 Head dim 256 (Gemma) on every form over every pool dtype, each form's
 launches there also in :data:`D256_LAUNCHES`.
 
+Shared-KV pools (absorbed MLA: ``v_pool`` None, one pool whose latent row
+is both the key and the value; paged_decode.py:24, :36-40, :110-111,
+:192): form 4l, :func:`paged_flash_decode_shared`, with its own launch
+count; ``paged_flash_decode`` hands a shared pool to it. The kernel
+stages each key tile once for both products (``csrc/
+paged_decode_shared.cu``), at head dims 128 and 640 (DeepSeek-V2-Lite's
+latent row), bf16 and f32, with no window, cap, sinks or scales; other
+head dims raise by name, and so does the verify form over a shared pool
+(not ported).
+
 Unmapped (-1) pages inside kv_len read as zeros in both versions. The
 JAX package reads something else there — its TPU kernel clamps them to
 page 0, its reference gather reads the trash page (``mode="fill"``
@@ -97,8 +107,9 @@ from simplellminference_tpu_torch.ops.matmul import SM_COUNT
 from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
 HEAD_DIMS = (32, 64, 128, 256)
+SHARED_HEAD_DIMS = (128, 640)   # form 4l's (absorbed MLA's latent lanes)
 MAX_ROWS = 128   # query rows (GQA group x window rows) a call takes
-ROW_BLOCK = 32   # query rows a block of the kernel holds
+ROW_BLOCK = 32   # query rows a block of the kernel holds (16 past D 256)
 TILE_KEYS = 64   # keys per tile of the kernel; splits cut whole tiles
 MAX_SPLITS = 32
 
@@ -135,9 +146,15 @@ def split_keys(kv_len: int, wins: int, window: int, n_cap: int,
     return out
 
 
-def row_blocks(rows: int) -> int:
+def row_block(d: int) -> int:
+    """Query rows a block holds at head dim ``d`` (paged_decode.cuh's
+    row_block)."""
+    return 16 if d > 256 else ROW_BLOCK
+
+
+def row_blocks(rows: int, d: int = 128) -> int:
     """Blocks a (sequence, kv head) takes for ``rows`` query rows."""
-    return -(-rows // ROW_BLOCK)
+    return -(-rows // row_block(d))
 
 
 def workspace(b: int, rows: int, d: int, splits: int, device):
@@ -182,7 +199,8 @@ def _attend_ref(q, k_pool, v_pool, tables, kv_lens, layer, sm_scale,
     if window is not None:
         tables = band_tables(tables, kv_lens.long() - s - window_size(window)
                              + 1, k_pool.shape[3])
-    ck, cv = gather_dense(k_pool[layer], v_pool[layer], tables,
+    ck, cv = gather_dense(k_pool[layer],
+                          None if v_pool is None else v_pool[layer], tables,
                           k_scale[layer] if quant else None,
                           v_scale[layer] if quant else None)
     q_pos = (kv_lens.long()[:, None] - s
@@ -208,6 +226,8 @@ def paged_flash_decode_ref(q, k_pool, v_pool, tables, kv_lens, layer: int,
     kv_len - window); q: [B, N, D] -> [B, N, D]."""
     if q.is_cuda:
         paged_flash_decode_ref.cuda_calls += 1
+    if v_pool is None:
+        _refuse_shared_options(k_scale, v_scale, window, logit_cap, sinks)
     return _attend_ref(q[:, None], k_pool, v_pool, tables, kv_lens, layer,
                        sm_scale, k_scale, v_scale, window, logit_cap,
                        sinks)[:, 0]
@@ -246,7 +266,11 @@ def paged_flash_decode(q, k_pool, v_pool, tables, kv_lens, layer: int,
     scores and ``sinks`` [N] add each head's sink logit to its softmax.
     The launch counts as the form the options and pools name (4, 4q, 4e,
     4w, 4qw, 4ew; a capped or sink form in the count of the form it caps
-    or seeds)."""
+    or seeds). A shared pool (``v_pool`` None) takes form 4l."""
+    if v_pool is None:
+        _refuse_shared_options(k_scale, v_scale, window, logit_cap, sinks)
+        return paged_flash_decode_shared(q, k_pool, tables, kv_lens, layer,
+                                         sm_scale)
     return _run("paged_flash_decode", q[:, None], k_pool, v_pool, k_scale,
                 v_scale, tables, kv_lens, layer, sm_scale, window,
                 logit_cap, sinks)[:, 0]
@@ -265,6 +289,10 @@ def paged_flash_verify(q, k_pool, v_pool, tables, kv_lens, layer: int,
     The launch counts as the form the options and pools name (4v, 4vq,
     4ve, 4vw, 4vqw, 4vew; a capped or sink form in the count of the form
     it caps or seeds)."""
+    if v_pool is None:
+        raise NotImplementedError("the verify form over a shared-KV pool "
+                                  "(speculative decoding under absorbed "
+                                  "MLA)")
     return _run("paged_flash_verify", q, k_pool, v_pool, k_scale, v_scale,
                 tables, kv_lens, layer, sm_scale, window, logit_cap, sinks)
 
@@ -407,8 +435,6 @@ def _run(name, q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
     tensors; for CUDA tensors the kernel, one launch added to the count
     of the form the options name (``name``, ``_int8kv`` with scale pools,
     ``_fp8kv`` with e4m3 pools, ``_window`` with a window)."""
-    if v_pool is None:
-        raise NotImplementedError("shared-KV pools (absorbed MLA)")
     quant = _check_scales(k_pool, v_pool, k_scale, v_scale)
     check_sinks_head_dim(sinks, q.shape[-1])
     cap = cap_value(logit_cap)
@@ -453,7 +479,7 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
     """The kernel on q [B, S, N, D] (S = 1: decode) -> [B, S, N, D]."""
     b, s, n, d = q.shape
     n_layers, p1, kvn, ps, pd = k_pool.shape
-    if pd != d or v_pool.shape != k_pool.shape:
+    if pd != d or (v_pool is not None and v_pool.shape != k_pool.shape):
         raise ValueError("pools must be matching [L, P+1, kvN, ps, D]")
     if n % kvn:
         raise ValueError(f"{n} heads do not group over {kvn} kv heads")
@@ -461,9 +487,11 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
         raise NotImplementedError(
             f"{n // kvn} heads per kv head x {s} window rows (the kernel "
             f"holds at most {MAX_ROWS} query rows per block)")
-    if d not in HEAD_DIMS:
-        raise NotImplementedError(f"head_dim {d} (kernel takes {HEAD_DIMS})")
-    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+    dims = HEAD_DIMS if v_pool is not None else SHARED_HEAD_DIMS
+    if d not in dims:
+        raise NotImplementedError(f"head_dim {d} (kernel takes {dims})")
+    if not (k_pool.is_contiguous()
+            and (v_pool is None or v_pool.is_contiguous())):
         raise ValueError("pools must be contiguous")
     if not 0 <= layer < n_layers:
         raise IndexError(f"layer {layer} out of range")
@@ -481,12 +509,13 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
     mp = tables.shape[1]
     span = mp * ps if not window else min(mp * ps, window + s - 1)
-    splits = decode_splits(b, kvn, span, row_blocks((n // kvn) * s))
+    splits = decode_splits(b, kvn, span, row_blocks((n // kvn) * s, d))
     part = workspace(b, s * n, d, splits, q.device)
     lib = cuda_build.load()
     rc = lib.sli_paged_flash_decode(
         q.data_ptr(), q.stride(0), q.stride(1), k_pool.data_ptr(),
-        v_pool.data_ptr(), 0 if k_scale is None else k_scale.data_ptr(),
+        0 if v_pool is None else v_pool.data_ptr(),
+        0 if k_scale is None else k_scale.data_ptr(),
         0 if v_scale is None else v_scale.data_ptr(),
         tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
         0 if part is None else part.data_ptr(), b, layer, p1, kvn, ps, mp,
@@ -496,3 +525,42 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens, layer,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, rc, what)
     return out
+
+
+def _refuse_shared_options(k_scale, v_scale, window, logit_cap, sinks):
+    """Raise, naming it, for an option form 4l does not take (no model
+    with MLA has one)."""
+    given = (("INT8 scale pools", k_scale is not None or v_scale is not None),
+             ("a sliding window", window is not None),
+             ("a logit soft cap", cap_value(logit_cap) is not None),
+             ("attention sinks", sinks is not None))
+    for name, on in given:
+        if on:
+            raise NotImplementedError(f"{name} over a shared-KV pool "
+                                      f"(absorbed MLA)")
+
+
+def paged_flash_decode_shared(q, pool, tables, kv_lens, layer: int,
+                              sm_scale: float | None = None) -> torch.Tensor:
+    """4l: decode attention over a shared-KV pool (absorbed MLA), whose
+    row is both the key and the value: q [B, N, D]; pool [L, P+1, kvN, ps,
+    D] of q's dtype (bf16 or f32); tables [B, MP] int32 (-1 unmapped);
+    kv_lens [B] -> out [B, N, D], softmax(scale q.K^T, keys < kv_len) K.
+    Head dims 128 and 640."""
+    d = q.shape[-1]
+    if d not in SHARED_HEAD_DIMS:
+        raise NotImplementedError(f"head_dim {d} over a shared-KV pool "
+                                  f"(form 4l takes {SHARED_HEAD_DIMS})")
+    if not q.is_cuda:
+        return paged_flash_decode_ref(q, pool, None, tables, kv_lens, layer,
+                                      sm_scale)
+    if pool.dtype != q.dtype:
+        raise NotImplementedError(f"q {q.dtype} with a {pool.dtype} "
+                                  f"shared pool (quantized KV)")
+    out = _launch(q[:, None], pool, None, None, None, tables, kv_lens, layer,
+                  sm_scale, 0, None, "paged_flash_decode_shared")[:, 0]
+    paged_flash_decode_shared.launches += 1
+    return out
+
+
+paged_flash_decode_shared.launches = 0

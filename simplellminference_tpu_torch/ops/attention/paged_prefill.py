@@ -68,8 +68,16 @@ seeded with (sink, 1), by split 0 only when the key walk splits; launches
 with sinks count in their form's ``launches`` and in
 :data:`~.flash_prefill.SINK_LAUNCHES`. Head dim 256 (Gemma) on every form
 over every pool dtype (its launches there also in :data:`D256_LAUNCHES`).
-Sinks at D 256 and shared-KV (absorbed MLA) pools are not ported yet and
-raise.
+Sinks at D 256 are not ported yet and raise.
+
+Shared-KV pools (absorbed MLA: ``v_pool`` None, one pool whose latent row
+is both the key and the value; paged_prefill.py:44, :55-58, :114-118,
+:188): form 8l, :func:`paged_flash_prefill_shared`, with its own launch
+count; ``paged_flash_prefill`` hands a shared pool to it. Its kernels
+(``csrc/paged_prefill_shared.cu`` over ``csrc/prefill_shared.cuh``) stage
+each key tile once for both products and make the output in passes of 128
+columns: bf16 on the tensor cores, f32 on FMAs, at head dims 128 and 640
+(DeepSeek-V2-Lite's latent row), with no window, cap, sinks or scales.
 """
 
 from __future__ import annotations
@@ -83,17 +91,16 @@ from simplellminference_tpu_torch.ops.attention.flash_prefill import (
     cap_value, check_sinks_head_dim, count_launch, heads_contiguous,
     sink_values, window_size)
 from simplellminference_tpu_torch.ops.attention.paged_decode import (
-    _check_e4m3, _check_float_pools, band_tables)
+    _check_e4m3, _check_float_pools, _refuse_shared_options, band_tables)
 from simplellminference_tpu_torch.ops.paged_append import check_scale_pools
 
 HEAD_DIMS = (32, 64, 128, 256)
+SHARED_HEAD_DIMS = (128, 640)   # form 8l's (absorbed MLA's latent lanes)
 
 
 def _check_options(k_pool, v_pool, window, k_scale, v_scale) -> bool:
     """Raise for the options not ported; True for INT8 KV (scale pools
     given and checked)."""
-    if v_pool is None:
-        raise NotImplementedError("shared-KV pools (absorbed MLA)")
     if window is not None:
         window_size(window)
     if k_scale is None and v_scale is None:
@@ -116,6 +123,10 @@ def paged_flash_prefill_ref(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
     quant = _check_options(k_pool, v_pool, window, k_scale, v_scale)
     if q.is_cuda:
         paged_flash_prefill_ref.cuda_calls += 1
+    if v_pool is None:
+        _refuse_shared_options(k_scale, v_scale, window, logit_cap, sinks)
+        return paged_flash_prefill_shared_ref(q, k_pool, tables, kv_lens,
+                                              chunk_offset, layer, sm_scale)
     if window is not None:
         # no page below the oldest row's band: chunk_offset - window + 1
         tables = band_tables(tables, chunk_offset.long() - int(window) + 1,
@@ -157,7 +168,12 @@ def paged_flash_prefill(q, k_pool, v_pool, tables, kv_lens, chunk_offset,
     ``logit_cap`` > 0 soft-caps the scores and ``sinks`` [N] add each
     head's sink logit to its softmax. The launch counts as the form the
     options and pools name (8, 8q, 8e, 8w, 8qw, 8ew; a capped or sink form
-    in the count of the form it caps or seeds)."""
+    in the count of the form it caps or seeds). A shared pool (``v_pool``
+    None) takes form 8l."""
+    if v_pool is None:
+        _refuse_shared_options(k_scale, v_scale, window, logit_cap, sinks)
+        return paged_flash_prefill_shared(q, k_pool, tables, kv_lens,
+                                          chunk_offset, layer, sm_scale)
     quant = _check_options(k_pool, v_pool, window, k_scale, v_scale)
     check_sinks_head_dim(sinks, q.shape[-1])
     cap = cap_value(logit_cap)
@@ -313,3 +329,85 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, tables, kv_lens,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, rc, what)
     return out
+
+
+def paged_flash_prefill_shared_ref(q, pool, tables, kv_lens, chunk_offset,
+                                   layer: int,
+                                   sm_scale: float | None = None
+                                   ) -> torch.Tensor:
+    """Plain version of :func:`paged_flash_prefill_shared`: the pages
+    gathered densely (K as V), key_pos <= q_pos and key_pos < kv_len
+    masked per element, reference attention. q: [B, Sq, N, D] ->
+    [B, Sq, N, D]."""
+    if q.is_cuda:
+        paged_flash_prefill_shared_ref.cuda_calls += 1
+    ck, _ = gather_dense(pool[layer], None, tables)
+    s = q.shape[1]
+    key_pos = torch.arange(ck.shape[2], device=q.device)[None, None, None, :]
+    q_pos = (chunk_offset.long().to(q.device)[:, None]
+             + torch.arange(s, device=q.device)[None])            # [B, Sq]
+    mask = ((key_pos <= q_pos[:, None, :, None])
+            & (key_pos < kv_lens.long().to(q.device)[:, None, None, None]))
+    kt = ck.transpose(1, 2)
+    return ref_ops.attention(q, kt, kt, mask, scale=sm_scale)
+
+
+paged_flash_prefill_shared_ref.cuda_calls = 0
+
+
+def paged_flash_prefill_shared(q, pool, tables, kv_lens, chunk_offset,
+                               layer: int,
+                               sm_scale: float | None = None) -> torch.Tensor:
+    """8l: chunked-prefill attention through the page tables of a shared-KV
+    pool (absorbed MLA), whose row is both the key and the value. q [B,
+    Sq, N, D] at positions chunk_offset[b] + 0..Sq-1; pool [L, P+1, kvN,
+    ps, D] of q's dtype (bf16 or f32); tables [B, MP] int32 (-1
+    unmapped); kv_lens [B] valid tokens after the chunk's write -> out [B,
+    Sq, N, D]. Head dims 128 and 640."""
+    b, s, n, d = q.shape
+    if d not in SHARED_HEAD_DIMS:
+        raise NotImplementedError(f"head_dim {d} over a shared-KV pool "
+                                  f"(form 8l takes {SHARED_HEAD_DIMS})")
+    if not q.is_cuda:
+        return paged_flash_prefill_shared_ref(q, pool, tables, kv_lens,
+                                              chunk_offset, layer, sm_scale)
+    n_layers, p1, kvn, ps, pd = pool.shape
+    if pd != d or n % kvn:
+        raise ValueError(f"pool {tuple(pool.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if pool.dtype != q.dtype:
+        raise NotImplementedError(f"q {q.dtype} with a {pool.dtype} shared "
+                                  f"pool (quantized KV)")
+    if any(t.device != q.device
+           for t in (pool, tables, kv_lens, chunk_offset)):
+        raise ValueError("q, pool, tables, kv_lens and chunk_offset must "
+                         "share a device")
+    if not pool.is_contiguous() or pool.data_ptr() % 16:
+        raise ValueError("the pool must be contiguous and 16-byte aligned")
+    if not 0 <= layer < n_layers:
+        raise IndexError(f"layer {layer} out of range")
+    code = cuda_build.dtype_code(q.dtype)
+    out = torch.empty((b, s, n, d), dtype=q.dtype, device=q.device)
+    if b == 0 or s == 0:
+        return out
+    q = heads_contiguous(q)
+    tables = tables.to(torch.int32).contiguous()
+    kv_lens = kv_lens.to(torch.int32).contiguous()
+    offs = chunk_offset.to(torch.int32).contiguous()
+    if tables.shape[0] != b or kv_lens.shape != (b,) or offs.shape != (b,):
+        raise ValueError("tables/kv_lens/chunk_offset rows do not match q")
+    scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    splits, work = prefill_tiles.workspace(q, kvn, 0, tables.shape[1] * ps)
+    lib = cuda_build.load()
+    rc = lib.sli_paged_flash_prefill_shared(
+        q.data_ptr(), q.stride(0), q.stride(1), pool.data_ptr(),
+        tables.data_ptr(), kv_lens.data_ptr(), offs.data_ptr(),
+        out.data_ptr(), b, s, n, layer, p1, kvn, ps, tables.shape[1], d,
+        scale, code, 0 if work is None else work.data_ptr(), splits,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(lib, rc, "paged_flash_prefill_shared")
+    paged_flash_prefill_shared.launches += 1
+    return out
+
+
+paged_flash_prefill_shared.launches = 0

@@ -102,6 +102,17 @@ _SIGNATURES = {
                    _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     "sli_flash_decode_dyn": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _F, _I, _P],
+    # shared-KV pools (absorbed MLA): 1l, 2l, 3l, 8l (4l is
+    # sli_paged_flash_decode with a null V pool)
+    "sli_paged_append_decode_shared": [_P, _P, _L, _P, _P, _I, _I, _I, _I,
+                                       _I, _I, _I, _I, _P],
+    "sli_paged_append_prefill_shared": [_P, _P, _L, _L, _P, _I, _I, _I, _I,
+                                        _I, _I, _I, _I, _I, _I, _P],
+    "sli_flash_prefill_shared": [_P, _P, _P, _L, _L, _L, _L, _I, _I, _I, _I,
+                                 _I, _F, _I, _P, _I, _P],
+    "sli_paged_flash_prefill_shared": [_P, _L, _L, _P, _P, _P, _P, _P, _I,
+                                       _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                       _I, _P, _I, _P],
 }
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}

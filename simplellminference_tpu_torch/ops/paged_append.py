@@ -32,6 +32,15 @@ card ``paged_append_decode``/``_span``/``_prefill`` hand e4m3 pools to
 their wrappers of the form's name (``*_fp8kv``), each with its launch
 count.
 
+Shared-KV pools (absorbed MLA: one pool, ``pool_v`` None; the TPU
+kernels' ``dual=False`` forms, paged_append.py:34-47, :108, :116-126,
+:184): forms 1l (:func:`paged_append_decode_shared`) and 2l
+(:func:`paged_append_prefill_shared`) of ``csrc/paged_append_shared.cu``
+write the K rows alone, at any head dim whose row is a whole number of
+16-byte vectors (DeepSeek-V2-Lite's latent row is 640 lanes, 1280 bytes in
+bf16). ``paged_append_decode``/``_prefill`` hand a shared pool to them;
+the span write over one raises (not ported).
+
 Head dims: every form takes D 32-256. The quantizing forms at D 256
 (Gemma over INT8 KV; a warp holds a row's 256 values, 8 a lane) and the
 e4m3 forms there (Gemma over FP8 KV: a row is 32 groups of 8 codes) also
@@ -217,7 +226,8 @@ paged_append_prefill_quant_ref.cuda_calls = 0
 
 def _check_layout(pool_k, pool_v, new_k, layer):
     if pool_v is None:
-        raise NotImplementedError("shared-KV pools (absorbed MLA)")
+        raise NotImplementedError("shared-KV pools (absorbed MLA) in a "
+                                  "two-pool form")
     if (pool_k.shape != pool_v.shape or pool_k.dtype != pool_v.dtype
             or pool_k.ndim != 5):
         raise ValueError("pools must be matching [L, P+1, kvN, ps, D]")
@@ -302,7 +312,11 @@ def paged_append_decode(pool_k, pool_v, new_k, new_v, tables, positions,
 
     pool_k/v: [L, P+1, kvN, ps, D] (last page = trash); new_k/v:
     [B, kvN, D]; tables: [B, MP] (-1 = unmapped); positions: [B];
-    ``layer``: int. Returns (pool_k, pool_v)."""
+    ``layer``: int. Returns (pool_k, pool_v). A shared pool (``pool_v``
+    None) takes form 1l, the K rows alone."""
+    if pool_v is None:
+        return paged_append_decode_shared(pool_k, new_k, tables, positions,
+                                          layer), None
     if pool_k.dtype == E4M3:
         return paged_append_decode_fp8kv(pool_k, pool_v, new_k, new_v,
                                          tables, positions, layer)
@@ -336,7 +350,9 @@ def paged_append_span(pool_k, pool_v, new_k, new_v, tables, positions,
     pool_k/v: [L, P+1, kvN, ps, D]; new_k/v: [B, T, kvN, D]; tables:
     [B, MP]; positions: [B]; ``layer``: int. Returns (pool_k, pool_v)."""
     if pool_v is None:
-        raise NotImplementedError("shared-KV pools (absorbed MLA)")
+        raise NotImplementedError("the span write over a shared-KV pool "
+                                  "(speculative decoding under absorbed "
+                                  "MLA)")
     if not pool_k.is_cuda:
         return paged_append_span_ref(pool_k, pool_v, new_k, new_v, tables,
                                      positions, layer)
@@ -387,7 +403,11 @@ def paged_append_prefill(pool_k, pool_v, new_k, new_v, tables, layer: int):
 
     new_k/v: [B, S, kvN, D]; ``tables[:, :ceil(S/ps)]`` names the target
     pages; -1 entries land in the trash page; rows past S in the last
-    page are written as zeros. Returns (pool_k, pool_v)."""
+    page are written as zeros. Returns (pool_k, pool_v). A shared pool
+    (``pool_v`` None) takes form 2l, the K rows alone."""
+    if pool_v is None:
+        return paged_append_prefill_shared(pool_k, new_k, tables,
+                                           layer), None
     if pool_k.dtype == E4M3:
         return paged_append_prefill_fp8kv(pool_k, pool_v, new_k, new_v,
                                           tables, layer)
@@ -609,3 +629,121 @@ def paged_append_prefill_quant(pool_k, pool_v, pool_ks, pool_vs, new_k,
 
 
 paged_append_prefill_quant.launches = 0
+
+
+# --- shared-KV pools (absorbed MLA): forms 1l and 2l ----------------------
+
+def _check_shared_pool(pool_k, new_k, layer):
+    """A bf16 or f32 shared pool [L, P+1, kvN, ps, D] for 1l and 2l."""
+    if pool_k.ndim != 5 or not pool_k.is_contiguous():
+        raise ValueError("the pool must be a contiguous [L, P+1, kvN, ps, D]")
+    if pool_k.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"{pool_k.dtype} shared-KV pools "
+                                  f"(INT8/FP8 KV under absorbed MLA)")
+    if pool_k.device != new_k.device:
+        raise ValueError("the pool and the new rows must share a device")
+    if not 0 <= layer < pool_k.shape[0]:
+        raise IndexError(f"layer {layer} out of range")
+
+
+def paged_append_decode_shared_ref(pool_k, new_k, tables, positions,
+                                   layer: int):
+    """Plain version of :func:`paged_append_decode_shared` (in place)."""
+    if pool_k.is_cuda:
+        paged_append_decode_shared_ref.cuda_calls += 1
+    page, slot = _decode_slots(tables, positions, pool_k.shape[1],
+                               pool_k.shape[3])
+    pool_k[layer][page, :, slot, :] = new_k.to(pool_k.dtype)
+    return pool_k
+
+
+paged_append_decode_shared_ref.cuda_calls = 0
+
+
+def paged_append_prefill_shared_ref(pool_k, new_k, tables, layer: int):
+    """Plain version of :func:`paged_append_prefill_shared` (in place)."""
+    if pool_k.is_cuda:
+        paged_append_prefill_shared_ref.cuda_calls += 1
+    ps = pool_k.shape[3]
+    b, s = new_k.shape[:2]
+    npg = -(-s // ps)
+    idx = _prefill_pages(tables, b, npg, pool_k.shape[1])
+    pool_k[layer].index_copy_(0, idx, _page_chunks(new_k.to(pool_k.dtype),
+                                                   npg, ps))
+    return pool_k
+
+
+paged_append_prefill_shared_ref.cuda_calls = 0
+
+
+def paged_append_decode_shared(pool_k, new_k, tables, positions,
+                               layer: int):
+    """1l: one latent row per sequence into a shared pool, in place.
+
+    pool_k: [L, P+1, kvN, ps, D] bf16 or f32 (last page = trash); new_k:
+    [B, kvN, D]; tables: [B, MP] (-1 = unmapped, the trash page);
+    positions: [B]. Returns pool_k."""
+    _check_shared_pool(pool_k, new_k, layer)
+    if not pool_k.is_cuda:
+        return paged_append_decode_shared_ref(pool_k, new_k, tables,
+                                              positions, layer)
+    _, p1, kvn, ps, d = pool_k.shape
+    b = new_k.shape[0]
+    if b == 0:
+        return pool_k
+    nk = _rows(new_k, kvn, d, pool_k.dtype)
+    tables = _index(tables, b, "tables")
+    positions = _index(positions, b, "positions")
+    es = pool_k.element_size()
+    lib = cuda_build.load()
+    rc = lib.sli_paged_append_decode_shared(
+        pool_k.data_ptr(), nk.data_ptr(), nk.stride(0) * es,
+        tables.data_ptr(), positions.data_ptr(), layer, p1, kvn, ps, d * es,
+        tables.shape[1], b, _vec16(d * es, pool_k, nk, nk.stride(0) * es),
+        torch.cuda.current_stream(pool_k.device).cuda_stream)
+    cuda_build.check(lib, rc, "paged_append_decode_shared")
+    paged_append_decode_shared.launches += 1
+    return pool_k
+
+
+paged_append_decode_shared.launches = 0
+
+
+def prefill_parts(blocks: int, ps: int) -> int:
+    """Blocks each page of :func:`paged_append_prefill_shared` takes for a
+    grid of ``blocks`` (sequence, page, kv head) tiles: enough for two
+    blocks an SM, at most one a row of the page. From shapes alone."""
+    from simplellminference_tpu_torch.ops.matmul import SM_COUNT
+    return max(1, min(ps, -(-2 * SM_COUNT // max(1, blocks))))
+
+
+def paged_append_prefill_shared(pool_k, new_k, tables, layer: int):
+    """2l: a right-padded prompt's (or chunk's) latent rows into a shared
+    pool's pages, in place. new_k: [B, S, kvN, D]; ``tables[:, :ceil(S /
+    ps)]`` names the pages (-1: the trash page); rows past S in the last
+    page are written as zeros. Each page's rows are cut over
+    :func:`prefill_parts` blocks. Returns pool_k."""
+    _check_shared_pool(pool_k, new_k, layer)
+    if not pool_k.is_cuda:
+        return paged_append_prefill_shared_ref(pool_k, new_k, tables, layer)
+    _, p1, kvn, ps, d = pool_k.shape
+    b, s = new_k.shape[:2]
+    if b == 0 or s == 0:
+        return pool_k
+    nk = _rows(new_k, kvn, d, pool_k.dtype)
+    tables = _index(tables, b, "tables")
+    es = pool_k.element_size()
+    st = (nk.stride(0) * es, nk.stride(1) * es)
+    parts = prefill_parts(b * -(-s // ps) * kvn, ps)
+    lib = cuda_build.load()
+    rc = lib.sli_paged_append_prefill_shared(
+        pool_k.data_ptr(), nk.data_ptr(), *st, tables.data_ptr(), layer, p1,
+        kvn, ps, d * es, tables.shape[1], b, s, parts,
+        _vec16(d * es, pool_k, nk, *st),
+        torch.cuda.current_stream(pool_k.device).cuda_stream)
+    cuda_build.check(lib, rc, "paged_append_prefill_shared")
+    paged_append_prefill_shared.launches += 1
+    return pool_k
+
+
+paged_append_prefill_shared.launches = 0

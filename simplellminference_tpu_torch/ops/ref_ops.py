@@ -153,11 +153,15 @@ def _yarn_freqs(freqs: torch.Tensor, head_dim: int, theta: float, rs: dict,
 
 
 def rope_tables_for(cfg, positions: torch.Tensor, dtype=torch.float32):
-    """rope_tables driven by a ModelConfig (theta + scaling); full rotary
-    only (partial rotary and MLA are not ported)."""
-    if cfg.partial_rotary_factor < 1.0 or cfg.mla:
-        raise NotImplementedError("partial rotary / MLA rope tables")
-    return rope_tables(positions, cfg.head_dim, cfg.rope_theta, dtype,
+    """rope_tables driven by a ModelConfig (theta + scaling), as
+    ref_ops.py:198-210: full rotary over head_dim, or for MLA (DeepSeek)
+    tables over the key's rope part alone (qk_rope_head_dim), consumed
+    interleaved (:func:`apply_rope_interleaved`). Partial rotary is not
+    ported."""
+    if cfg.partial_rotary_factor < 1.0 and not cfg.mla:
+        raise NotImplementedError("partial rotary rope tables")
+    d = cfg.qk_rope_head_dim if cfg.mla else cfg.head_dim
+    return rope_tables(positions, d, cfg.rope_theta, dtype,
                        rope_scaling=cfg.rope_scaling)
 
 
@@ -185,6 +189,22 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
     r1 = xf1 * cos - xf2 * sin
     r2 = xf2 * cos + xf1 * sin
     return torch.cat([r1, r2], dim=-1).to(x.dtype)
+
+
+def apply_rope_interleaved(x: torch.Tensor, sin: torch.Tensor,
+                           cos: torch.Tensor) -> torch.Tensor:
+    """Interleaved (DeepSeek-style) rotation of the last dim, in f32: lane
+    pairs (2i, 2i+1) are the complex components rotated by frequency i
+    (ref_ops.py:288-303).
+
+    x: [B, S, N, D]; sin/cos: [B, S, D/2] (broadcast over heads)."""
+    x0 = x[..., 0::2].float()
+    x1 = x[..., 1::2].float()
+    sin = sin[..., None, :]
+    cos = cos[..., None, :]
+    r0 = x0 * cos - x1 * sin
+    r1 = x0 * sin + x1 * cos
+    return torch.stack([r0, r1], dim=-1).reshape(x.shape).to(x.dtype)
 
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:

@@ -64,6 +64,9 @@ class Generator:
         ``torch.float8_e4m3fn`` for FP8 KV: the e4m3 forms 12e, 13e and
         6de write and read it)."""
         llama.check_supported(cfg)
+        if cfg.mla:
+            raise NotImplementedError("the Generator under MLA (the dense "
+                                      "arena's latent rows)")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "

@@ -153,7 +153,11 @@ def quantize_params(params: dict, quant: QuantConfig) -> dict:
     the weights' device), the folded experts of a mixture-of-experts
     model (``w_gate_up``, ``w_down``) among them, one layer at a time;
     everything else (the router and every bias included) is passed
-    through."""
+    through. MLA params (``kv_a`` among the layers) raise: quantized
+    weights under MLA are not ported."""
+    if "kv_a" in params["layers"]:
+        raise NotImplementedError("quantize_params on MLA weights "
+                                  "(quantized weights under MLA)")
     out = dict(params)
     out["layers"] = {
         name: _maybe_quantize(f"layers/{name}", w, quant)

@@ -22,7 +22,7 @@ for name in {blocked!r}:
     sys.modules[name] = None          # any import of these now fails
 import simplellminference_tpu_torch
 from simplellminference_tpu_torch.engine import Engine
-from simplellminference_tpu_torch.models import convert, llama
+from simplellminference_tpu_torch.models import convert, llama, mla
 from simplellminference_tpu_torch.ops import cuda_build, sampling
 from simplellminference_tpu_torch.ops import ffn_fused, linear, matmul
 from simplellminference_tpu_torch.ops import qkv_fused, ref_ops

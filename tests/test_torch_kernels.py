@@ -3680,3 +3680,145 @@ def test_generator_fp8kv_runs_the_kernels_only_and_matches_cpu(cuda):
         assert outs[0] == outs[1]
         assert all(f.launches > n for f, n in zip(kerns, launches))
     assert [f.cuda_calls for f in refs] == calls
+
+
+# --- absorbed MLA: the shared-KV forms (one pool whose latent row is both
+# the key and the value; DeepSeek-V2-Lite's 16 q heads over a 640-lane row)
+
+MLA_N, MLA_D = 16, 640
+MLA_SCALE = 192 ** -0.5
+
+
+def _shared_pool(g, dev, dtype, pages, d=MLA_D, ps=128):
+    return torch.randn((2, pages + 1, 1, ps, d), generator=g, device=dev,
+                       dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [640, 128])
+def test_paged_append_shared(cuda, dtype, d):
+    # 1l and 2l: the latent rows alone into the shared pool, exact on every
+    # page but the trash page, the pages no row goes to untouched
+    g = torch.Generator(device=cuda).manual_seed(d)
+    pool = _shared_pool(g, cuda, dtype, 12, d)
+    tables = torch.arange(12, dtype=torch.int32, device=cuda).reshape(3, 4)
+    tables[1, 3] = -1
+    row = torch.randn((3, 2, 1, d), generator=g, device=cuda,
+                      dtype=dtype)[:, 1]
+    pos = torch.tensor([5, 400, 130], dtype=torch.int32, device=cuda)
+    a, r = pool.clone(), pool.clone()
+    pa.paged_append_decode(a, None, row, None, tables, pos, 1)
+    pa.paged_append_decode_shared_ref(r, row, tables, pos, 1)
+    assert torch.equal(a[:, :-1], r[:, :-1])
+    assert torch.equal(a[:, 4:8], pool[:, 4:8]) and torch.equal(a[0], pool[0])
+    chunk = torch.randn((3, 300, 1, d), generator=g, device=cuda, dtype=dtype)
+    a, r = pool.clone(), pool.clone()
+    pa.paged_append_prefill(a, None, chunk, None, tables, 0)
+    pa.paged_append_prefill_shared_ref(r, chunk, tables, 0)
+    assert torch.equal(a[:, :-1], r[:, :-1]) and torch.equal(a[1], pool[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,lens", [(640, [1090, 1100, 0, 1, 1919, 128]),
+                                    (640, [4096] * 2), (128, [5, 129, 0])])
+def test_paged_flash_decode_shared(cuda, dtype, d, lens):
+    # 4l at D 640 (the `mla` path's decode, kv_len 4096, edges) and D 128
+    g = torch.Generator(device=cuda).manual_seed(len(lens))
+    b = len(lens)
+    mp = -(-max(lens) // 128) or 1
+    pool = _shared_pool(g, cuda, dtype, b * mp, d)
+    tables = torch.arange(b * mp, dtype=torch.int32,
+                          device=cuda).reshape(b, mp)
+    q = torch.randn((b, MLA_N, d), generator=g, device=cuda, dtype=dtype)
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = pd.paged_flash_decode_shared.launches
+    got = pd.paged_flash_decode(q, pool, None, tables, kv, 1,
+                                sm_scale=MLA_SCALE)
+    want = pd.paged_flash_decode_ref(q, pool, None, tables, kv, 1,
+                                     sm_scale=MLA_SCALE)
+    assert pd.paged_flash_decode_shared.launches == before + 1
+    assert _close(got, want, dtype)
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert not got[i].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,sq,offs,lens", [
+    (640, 512, [0], [512]), (640, 512, [512], [1024]),
+    (640, 100, [0, 128, 0], [100, 200, 1]), (128, 512, [512], [1024])])
+def test_paged_flash_prefill_shared(cuda, dtype, d, sq, offs, lens):
+    # 8l: chunks at the `mla` path's offsets, ragged offsets with a
+    # padding row, and D 128
+    if dtype == torch.float32 and sq == 512:
+        sq = 64                      # the FMA kernel: a shorter chunk
+        lens = [o + sq for o in offs]
+    g = torch.Generator(device=cuda).manual_seed(sq + d)
+    b = len(offs)
+    mp = -(-max(o + sq for o in offs) // 128)
+    pool = _shared_pool(g, cuda, dtype, b * mp, d)
+    tables = torch.arange(b * mp, dtype=torch.int32,
+                          device=cuda).reshape(b, mp)
+    q = torch.randn((b, sq, MLA_N, d), generator=g, device=cuda, dtype=dtype)
+    off_t = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = pp.paged_flash_prefill_shared.launches
+    got = pp.paged_flash_prefill(q, pool, None, tables, kv, off_t, 1,
+                                 sm_scale=MLA_SCALE)
+    want = pp.paged_flash_prefill_shared_ref(q, pool, tables, kv, off_t, 1,
+                                             MLA_SCALE)
+    assert pp.paged_flash_prefill_shared.launches == before + 1
+    assert _attn_ok(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,d", [(8, 128, 640), (2, 200, 640),
+                                   (3, 33, 128)])
+def test_flash_prefill_shared(cuda, dtype, b, s, d):
+    # 3l: the whole prompt's fresh latent rows, K as V (a strided view)
+    g = torch.Generator(device=cuda).manual_seed(s)
+    qkv = torch.randn((b, s, MLA_N + 1, d), generator=g, device=cuda,
+                      dtype=dtype)
+    q, kv = qkv[:, :, :MLA_N], qkv[:, :, MLA_N:]
+    before = fp.flash_prefill_shared.launches
+    got = fp.flash_prefill_shared(q, kv, sm_scale=MLA_SCALE)
+    want = fp.flash_prefill_ref(q, kv, kv, MLA_SCALE)
+    assert fp.flash_prefill_shared.launches == before + 1
+    assert _attn_ok(got, want)
+
+
+def test_mla_engine_runs_the_shared_forms_and_matches_cpu(cuda):
+    # a tiny DeepSeek-V2 (the absorbed lane 128) through the Engine on the
+    # card and the CPU, absorbed and naive: greedy tokens equal, the
+    # absorbed run through the shared forms only
+    hf = dict(model_type="deepseek_v2", vocab_size=256, hidden_size=128,
+              intermediate_size=256, num_hidden_layers=2,
+              num_attention_heads=4, num_key_value_heads=4,
+              max_position_embeddings=256, rms_norm_eps=1e-6,
+              rope_theta=10000.0, tie_word_embeddings=False,
+              n_routed_experts=None, q_lora_rank=None, kv_lora_rank=64,
+              qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32,
+              first_k_dense_replace=2, attention_bias=False)
+    prompts = [[1, 2, 3, 4, 5], [9, 8, 7], list(range(30, 70))]
+    outs = {}
+    for absorbed in (True, False):
+        cfg = ModelConfig.from_hf_dict(hf, dtype="float32",
+                                       mla_absorbed=absorbed)
+        p_cpu = llama.init_params(cfg, seed=3, device="cpu")
+        shared = (pa.paged_append_decode_shared, pd.paged_flash_decode_shared,
+                  pp.paged_flash_prefill_shared, fp.flash_prefill_shared)
+        dual = (pa.paged_append_decode, pd.paged_flash_decode,
+                pp.paged_flash_prefill, fp.flash_prefill)
+        counts = [f.launches for f in shared + dual]
+        for p, dev in ((p_cpu, "cpu"), (_to(p_cpu, cuda), cuda)):
+            eng = Engine(cfg, p, EngineConfig(
+                max_batch_size=4, prefill_chunk=16,
+                kv=KVCacheConfig(page_size=8, num_pages=64,
+                                 max_pages_per_seq=16, kv_dtype="f32")),
+                decode_burst=3, device=dev)
+            assert (eng.cache.v is None) == absorbed
+            outs[absorbed, str(dev)] = eng.generate(
+                prompts, SamplingParams(max_new_tokens=8))
+        ran = [f.launches > n for f, n in zip(shared + dual, counts)]
+        assert ran == [absorbed] * 4 + [not absorbed] * 4
+    assert outs[True, "cpu"] == outs[True, "cuda"] == outs[False, "cuda"]

@@ -120,9 +120,16 @@ def test_cache_create_layout_and_unsupported():
     assert w.k_w.shape == w.v_w.shape == (1, 5, 3, 8, 16)
     assert not w.k_w.view(torch.uint8).any()
     assert w.k_w_scale is None and w.v_w_scale is None
-    with pytest.raises(NotImplementedError):
-        tpkv.PagedKVCache.create(2, 5, 3, 8, 16, shared_kv=True,
-                                 device="cpu")
+    # a shared-KV cache (absorbed MLA): one bf16/f32 pool, v None; INT8
+    # and e4m3 shared pools are not ported
+    sh = tpkv.PagedKVCache.create(2, 5, 1, 8, 16, shared_kv=True,
+                                  device="cpu")
+    assert sh.v is None and sh.k.shape == (2, 6, 1, 8, 16)
+    assert sh.k_scale is None and sh.v_scale is None
+    for dt in (torch.int8, torch.float8_e4m3fn):
+        with pytest.raises(NotImplementedError, match="shared-KV"):
+            tpkv.PagedKVCache.create(2, 5, 3, 8, 16, dt, shared_kv=True,
+                                     device="cpu")
     q = tpkv.PagedKVCache.create(2, 5, 3, 8, 16, torch.int8, device="cpu")
     with pytest.raises(NotImplementedError, match="no V scale pool"):
         tpkv.write_decode_stacked(q.k, q.v, None, None, None, None, 0,
